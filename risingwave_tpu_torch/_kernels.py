@@ -1,0 +1,182 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+The sources live in ``csrc/``; each ``.cu`` file is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library with a plain C interface
+under ``_build/`` (git-ignored) and loaded with ``ctypes``. The first
+CUDA call of a kernel builds every library, all ``nvcc`` processes
+started together; a library is named after a hash of the sources and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+
+Each wrapper passes tensor pointers and PyTorch's current stream, and
+raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
+per kernel, the calls of its C entry points on the card: one per call of
+A, C and D, two per call of B (the apply and its set_live launch).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# kernel name -> its source in csrc/
+SOURCES = {
+    "lookup_or_insert": "lookup_or_insert.cu",
+    "agg_apply": "agg_apply.cu",
+    "agg_flush": "agg_flush.cu",
+    "mv_upsert": "mv_upsert.cu",
+}
+
+# C entry points: (argtypes,) — every pointer and the stream as c_void_p
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+SIGNATURES = {
+    "lookup_or_insert": {
+        "rw_lookup_or_insert": [_P, _I, _L, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P],
+    },
+    "agg_apply": {
+        "rw_agg_apply": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P],
+        "rw_agg_set_live": [_L, _P, _P, _P, _P],
+    },
+    "agg_flush": {
+        "rw_agg_flush": [_P, _I, _P, _I, _P, _L, _P, _P, _I, _P, _P, _P, _P, _P],
+    },
+    "mv_upsert": {
+        "rw_mv_upsert": [_P, _I, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
+}
+
+# lane dtype codes shared with csrc/common.cuh (RwDType)
+DTYPE_CODES = {
+    torch.bool: 0,
+    torch.int32: 1,
+    torch.int64: 2,
+    torch.float32: 3,
+    torch.float64: 4,
+}
+
+LAUNCHES = {name: 0 for name in SOURCES}
+
+_LIBS: dict = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every missing library (one nvcc per source, all started
+    together); returns the seconds spent."""
+    t0 = time.perf_counter()
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name in todo:
+        out = _lib_path(name)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    errors = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{name}:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)  # atomic: a reader never sees half a file
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel, built first if missing."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        if not _lib_path(name).exists():
+            build_all()
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def call(name: str, fn: str, *args) -> None:
+    """Launch ``fn`` of kernel ``name`` on the current stream (the stream
+    is appended as the last argument), raise on a CUDA error, and count
+    the launch."""
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(library(name), fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}.{fn}: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def int64_rows(rows, max_rows: int) -> ctypes.Array:
+    """A flat host int64 array of descriptor rows (pointers, codes) that
+    a C entry point copies into its kernel's by-value argument, which
+    holds at most ``max_rows`` of them."""
+    if len(rows) > max_rows:
+        raise ValueError(f"{len(rows)} lanes exceed the kernel's {max_rows}")
+    flat = [int(v) for row in rows for v in row]
+    return (ctypes.c_int64 * max(1, len(flat)))(*flat)
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise TypeError(f"kernel lanes do not take dtype {t.dtype}")
+    return code
+
+
+def check_cuda(name: str, *tensors, n=None) -> None:
+    """Every tensor on one CUDA device, contiguous, and (if ``n`` is
+    given) of length ``n``; raise otherwise."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: all tensors must be on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if n is not None and t.shape != (n,):
+            raise ValueError(f"{name}: expected shape ({n},), got {tuple(t.shape)}")

@@ -1,0 +1,87 @@
+"""Host-side string dictionary — VARCHAR's device representation.
+
+A copy of ``risingwave_tpu/array/dictionary.py`` (host-only numpy code;
+the port keeps its own copy so it never imports the JAX package).
+
+Reference: src/common/src/array/utf8_array.rs stores UTF-8 payloads in a
+variable-length buffer; variable-length data is hostile to fixed-width device
+lanes, so the device plane carries VARCHAR as int32 *dictionary codes* (types.py) and
+the code<->string mapping lives host-side in this module.
+
+Properties that make this sound for streaming SQL:
+- append-only: a code, once assigned, never changes — device state
+  (group keys, join keys, materialized payloads) referencing a code
+  stays valid across epochs;
+- equality-complete: two rows carry the same code iff they carry the
+  same string, so device-side hash/compare on the code column IS string
+  equality (group-by / equi-join on VARCHAR needs nothing else);
+- checkpointable: the dictionary serializes with the operator state so
+  recovery restores code stability (state/ persists it alongside table
+  snapshots).
+
+Codes are NOT order-preserving; ORDER BY / range predicates on VARCHAR
+must decode host-side (or use a future sorted-dictionary build).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Iterable, List, Sequence
+
+import numpy as np
+
+
+class StringDictionary:
+    """Bidirectional append-only str <-> int32 code mapping.
+
+    Thread-safe on the encode path: the serving tier typechecks
+    SELECTs (which may encode novel string literals) OUTSIDE the
+    runtime lock, concurrently with DML encoding under it — the
+    check-then-act code assignment must be atomic or two threads can
+    mint the same code for different strings (permanent corruption of
+    everything keyed on the code). Decode stays lock-free: codes are
+    append-only and list reads are atomic under the GIL."""
+
+    def __init__(self, values: Iterable[str] = ()):  # restore path
+        self._strings: List[str] = []
+        self._codes: dict[str, int] = {}
+        self._table: np.ndarray | None = None  # decode cache
+        self._lock = threading.Lock()
+        for s in values:
+            self.encode_one(s)
+
+    def __len__(self) -> int:
+        return len(self._strings)
+
+    def encode_one(self, s: str) -> int:
+        code = self._codes.get(s)  # lock-free hit: codes never change
+        if code is None:
+            with self._lock:
+                code = self._codes.get(s)
+                if code is None:
+                    code = len(self._strings)
+                    self._codes[s] = code
+                    self._strings.append(s)
+        return code
+
+    def encode(self, values: Sequence[str]) -> np.ndarray:
+        """Vector encode; assigns fresh codes to unseen strings."""
+        return np.fromiter(
+            (self.encode_one(s) for s in values), dtype=np.int32, count=len(values)
+        )
+
+    def decode_one(self, code: int) -> str:
+        return self._strings[code]
+
+    def decode(self, codes: np.ndarray) -> np.ndarray:
+        """Vector decode to a numpy object array of str."""
+        # cache the lookup table; rebuild only after growth (decoding a
+        # few codes per barrier must not pay O(dictionary) each time)
+        if self._table is None or len(self._table) != len(self._strings):
+            self._table = np.asarray(self._strings, dtype=object)
+        return self._table[np.asarray(codes, dtype=np.int64)]
+
+    # -- persistence (used by state checkpointing) ----------------------
+    def dump(self) -> List[str]:
+        """Code-ordered string list; feed back to __init__ to restore."""
+        return list(self._strings)

@@ -1,0 +1,62 @@
+// Shared definitions for the port's hand-written Hopper kernels.
+//
+// Every kernel library is a plain C interface loaded with ctypes
+// (risingwave_tpu_torch/_kernels.py). Each entry point launches on the
+// stream it is given, allocates nothing, and returns cudaGetLastError()
+// so the Python wrapper can raise on a refused launch.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Lane dtype codes; _kernels.DTYPE_CODES holds the same table.
+enum RwDType : int {
+  RW_BOOL = 0,
+  RW_I32 = 1,
+  RW_I64 = 2,
+  RW_F32 = 3,
+  RW_F64 = 4,
+};
+
+// Most lanes a kernel takes in one descriptor struct (passed by value).
+#define RW_MAX_LANES 8
+
+#define RW_EXPORT extern "C" __attribute__((visibility("default")))
+
+static inline int rw_blocks(int64_t n, int threads) {
+  return (int)((n + threads - 1) / threads);
+}
+
+// Float total-order keys as the port stores them (ops/agg.py): float32
+// keys are the reference's uint32 key held in an int64; float64 keys are
+// the reference's uint64 key with its top bit flipped, read as int64.
+// Both keep the order of the reference's unsigned keys.
+__device__ __forceinline__ int64_t rw_order_key_f32(float v) {
+  uint32_t b = __float_as_uint(v);
+  if ((b & 0x7FFFFFFFu) == 0u) b = 0u;  // -0.0 -> +0.0
+  if ((b & 0x7F800000u) == 0x7F800000u && (b & 0x007FFFFFu)) b = 0x7FC00000u;
+  uint32_t k = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return (int64_t)k;
+}
+
+__device__ __forceinline__ int64_t rw_order_key_f64(double v) {
+  uint64_t b = (uint64_t)__double_as_longlong(v);
+  if ((b & 0x7FFFFFFFFFFFFFFFull) == 0ull) b = 0ull;
+  if ((b & 0x7FF0000000000000ull) == 0x7FF0000000000000ull &&
+      (b & 0x000FFFFFFFFFFFFFull))
+    b = 0x7FF8000000000000ull;
+  uint64_t k = (b & 0x8000000000000000ull) ? ~b : (b | 0x8000000000000000ull);
+  return (int64_t)(k ^ 0x8000000000000000ull);
+}
+
+__device__ __forceinline__ float rw_order_key_to_f32(int64_t key) {
+  uint32_t k = (uint32_t)key;
+  uint32_t b = (k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k;
+  return __uint_as_float(b);
+}
+
+__device__ __forceinline__ double rw_order_key_to_f64(int64_t key) {
+  uint64_t k = (uint64_t)key ^ 0x8000000000000000ull;
+  uint64_t b = (k & 0x8000000000000000ull) ? (k & 0x7FFFFFFFFFFFFFFFull) : ~k;
+  return __longlong_as_double((long long)b);
+}

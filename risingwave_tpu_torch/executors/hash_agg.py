@@ -1,0 +1,315 @@
+"""HashAgg executor — grouped streaming aggregation with retraction.
+
+Port of the per-chunk path of ``risingwave_tpu/executors/hash_agg.py``
+(``_build_key_lanes`` :61, ``agg_step_fn`` :108, ``_rehash`` :268,
+``delta_to_chunk`` :414, ``HashAggExecutor.apply`` :636, ``_maybe_grow``
+:760, the barrier latch checks :800-870, ``_flush_all`` :1029).
+Reference: src/stream/src/executor/hash_agg.rs:62 — apply_chunk (:326)
+updates each row's group by its sign; flush_data (:406) emits
+I / (U-, U+) / D per dirty group at the barrier.
+
+Per chunk: kernel A finds or inserts the group keys, kernel B folds the
+rows into the agg state and sets group liveness. Per barrier: kernel C
+flushes the dirty groups in rounds of ``out_cap``, one packed status
+read per round. The host grows the table from an insert bound and the
+occupancy read at each barrier.
+
+Not ported yet: the epoch-reduce path (``apply_stacked``), the
+materialized MIN/MAX (minput), the cold tier, checkpointing and
+watermark state cleaning. A watermark on a ``window_key`` raises
+NotImplementedError rather than being ignored, since ignoring it would
+give a different result.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from risingwave_tpu_torch import resolve_device
+from risingwave_tpu_torch.array.chunk import StreamChunk
+from risingwave_tpu_torch.executors.base import Barrier, Executor, Watermark
+from risingwave_tpu_torch.ops import agg as agg_ops
+from risingwave_tpu_torch.ops.agg import AggCall, AggState
+from risingwave_tpu_torch.ops.hash_table import HashTable, lookup_or_insert
+from risingwave_tpu_torch.runtime.bucketing import BucketAllocator, BucketPolicy, flush_pad
+
+GROW_AT = 0.5  # rehash when claimed slots may exceed this load factor
+# mid-epoch rebuild only when the host insert bound nears the table
+# itself; ordinary growth resolves at the barrier from true occupancy
+HARD_GROW_AT = 0.75
+
+
+def _build_key_lanes(
+    chunk: StreamChunk, group_keys: Tuple[str, ...], nullable: Tuple[bool, ...]
+):
+    """Group-key lanes with SQL NULL-group semantics; nullability is
+    declared up front so the lane layout never depends on a chunk."""
+    lanes = []
+    for name, nb in zip(group_keys, nullable):
+        col = chunk.col(name)
+        if nb:
+            null = chunk.null_of(name)
+            lanes.append(torch.where(null, torch.zeros_like(col), col))
+            lanes.append(null)
+        else:
+            lanes.append(col)
+    return tuple(lanes)
+
+
+def agg_step_fn(
+    table: HashTable,
+    state: AggState,
+    dropped: torch.Tensor,
+    chunk: StreamChunk,
+    calls: Tuple[AggCall, ...],
+    group_keys: Tuple[str, ...],
+    nullable: Tuple[bool, ...],
+):
+    """One chunk through the group map and the agg update (in place)."""
+    keys = _build_key_lanes(chunk, group_keys, nullable)
+    table, slots, _, _ = lookup_or_insert(table, keys, chunk.valid)
+    dropped |= (chunk.valid & (slots < 0)).any()
+    values = {c.input: chunk.col(c.input) for c in calls if c.input is not None}
+    nulls = {
+        c.input: chunk.nulls[c.input]
+        for c in calls
+        if c.input is not None and c.input in chunk.nulls
+    }
+    agg_ops.apply(
+        state, calls, slots, chunk.effective_signs(), values, nulls, live=table.live
+    )
+    return table, state, dropped
+
+
+def _rehash(table: HashTable, state: AggState, calls, new_cap: int, float_extremes=()):
+    """Rebuild into a fresh table of ``new_cap`` slots, dropping slots no
+    one needs, and move every slot-indexed lane. A slot survives iff it
+    is live, was emitted (a later delete must retract it), is dirty or
+    is sdirty (its key must reach the next checkpoint)."""
+    keep = table.live | state.emitted_valid | state.dirty | state.sdirty
+    keep &= table.fp1 != 0
+    dev = table.device
+    new_table = HashTable.create(new_cap, tuple(k.dtype for k in table.keys), device=dev)
+    new_table, new_slots, _, _ = lookup_or_insert(new_table, table.keys, keep)
+    ok = keep & (new_slots >= 0)
+    dst = new_slots[ok].long()
+
+    def rescatter(src, init=0):
+        out = torch.full((new_cap,), init, dtype=src.dtype, device=dev)
+        out[dst] = src[ok]
+        return out
+
+    new_table.live[dst] = table.live[ok]
+    fx = dict(float_extremes)
+    inits = {
+        c.output: agg_ops.accum_init(
+            c.kind, state.accums[c.output].dtype, fx.get(c.output)
+        )
+        for c in calls
+    }
+    new_state = AggState(
+        row_count=rescatter(state.row_count),
+        accums={n: rescatter(a, inits[n]) for n, a in state.accums.items()},
+        nonnull={n: rescatter(a) for n, a in state.nonnull.items()},
+        emitted={
+            n: rescatter(a, agg_ops.emitted_init(fx.get(n)))
+            for n, a in state.emitted.items()
+        },
+        emitted_isnull={n: rescatter(a) for n, a in state.emitted_isnull.items()},
+        emitted_valid=rescatter(state.emitted_valid),
+        dirty=rescatter(state.dirty),
+        minmax_retracted=state.minmax_retracted,
+        sdirty=rescatter(state.sdirty),
+        stored=rescatter(state.stored),
+    )
+    return new_table, new_state
+
+
+def delta_to_chunk(
+    delta: dict,
+    group_keys: Tuple[str, ...],
+    nullable: Tuple[bool, ...],
+    calls: Tuple[AggCall, ...],
+    pad: Optional[int] = None,
+) -> StreamChunk:
+    """``agg_ops.flush`` delta -> StreamChunk, sliced to ``pad`` rows."""
+    sl = (lambda a: a[:pad]) if pad is not None else (lambda a: a)
+    cols, nulls = {}, {}
+    i = 0
+    for name, nb in zip(group_keys, nullable):
+        cols[name] = sl(delta[f"key{i}"])
+        i += 1
+        if nb:
+            nulls[name] = sl(delta[f"key{i}"])
+            i += 1
+    for c in calls:
+        cols[c.output] = sl(delta[c.output])
+        lane = delta.get(c.output + "__isnull")
+        if lane is not None:
+            nulls[c.output] = sl(lane)
+    return StreamChunk(
+        columns=cols, valid=sl(delta["valid"]), nulls=nulls, ops=sl(delta["ops"])
+    )
+
+
+class HashAggExecutor(Executor):
+    """Streaming GROUP BY.
+
+    Args:
+      group_keys: grouping column names (re-emitted on flush).
+      calls: aggregate calls.
+      schema_dtypes: input column name -> torch dtype.
+      capacity: initial group-table capacity (power of two; grows 2x).
+      out_cap: max dirty groups emitted per flush round.
+      nullable_keys: subset of group_keys that can carry SQL NULL.
+      window_key: (column, retention_ms, emit_deletes) for watermark
+        state cleaning — not ported yet: such a watermark raises.
+      device: where the state lives (default "cuda").
+    """
+
+    def __init__(
+        self,
+        group_keys: Sequence[str],
+        calls: Sequence[AggCall],
+        schema_dtypes: Dict[str, torch.dtype],
+        capacity: int = 1 << 16,
+        out_cap: int = 1 << 15,
+        nullable_keys: Sequence[str] = (),
+        window_key: Optional[Tuple[str, int, bool]] = None,
+        table_id: str = "hash_agg",
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.table_id = table_id
+        self.group_keys = tuple(group_keys)
+        self.calls = tuple(calls)
+        for c in self.calls:
+            if c.materialized:
+                raise NotImplementedError("materialized MIN/MAX is not ported yet")
+        self.out_cap = out_cap
+        self._dtypes = dict(schema_dtypes)
+        self.nullable = tuple(k in set(nullable_keys) for k in self.group_keys)
+        key_dtypes = []
+        for k, nb in zip(self.group_keys, self.nullable):
+            key_dtypes.append(self._dtypes[k])
+            if nb:
+                key_dtypes.append(torch.bool)
+        self.table = HashTable.create(capacity, key_dtypes, device=self.device)
+        self.state = agg_ops.create_state(capacity, self.calls, self._dtypes, self.device)
+        self.dropped = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._insert_bound = 0  # host-side upper bound of claimed slots
+        self._occ_note = 0  # true claimed at the last barrier
+        self._buckets = BucketAllocator(
+            BucketPolicy.from_capacity(capacity, grow_at=GROW_AT)
+        )
+        self.window_key = window_key
+        self._float_extremes = agg_ops.float_extreme_meta(self.calls, self._dtypes)
+
+    def load_reference_state(self, np_arrays) -> None:
+        """Take over the reference executor's device state, given as
+        numpy arrays: ``{"table": ..., "state": ..., "dropped": ...}``
+        where table/state are the reference's HashTable/AggState with
+        numpy leaves (``jax.device_get``) or dicts of their fields.
+        Every key keeps its slot."""
+        t, s = np_arrays["table"], np_arrays["state"]
+        get = t.get if isinstance(t, dict) else lambda k: getattr(t, k)
+        self.table = HashTable.from_reference_arrays(
+            get("fp1"), get("fp2"), get("keys"), get("live"), device=self.device
+        )
+        self.state = AggState.from_reference_arrays(s, self._float_extremes, self.device)
+        self.dropped = torch.tensor(
+            bool(np_arrays.get("dropped", False)), device=self.device
+        )
+        claimed = int(self.table.occupancy())
+        self._insert_bound = self._occ_note = claimed
+
+    # -- data ------------------------------------------------------------
+    def apply(self, chunk: StreamChunk) -> List[StreamChunk]:
+        for k, nb in zip(self.group_keys, self.nullable):
+            if not nb and k in chunk.nulls:
+                raise ValueError(
+                    f"group key {k!r} carries a null lane but was not "
+                    "declared in nullable_keys"
+                )
+        self._maybe_grow(chunk.capacity)
+        self._insert_bound += chunk.capacity
+        self.table, self.state, self.dropped = agg_step_fn(
+            self.table, self.state, self.dropped, chunk,
+            self.calls, self.group_keys, self.nullable,
+        )
+        return []
+
+    def _maybe_grow(self, incoming: int) -> None:
+        """Mid-epoch overflow guard from the host insert bound alone (no
+        device read): rebuild before the bound nears the table."""
+        cap = self.table.capacity
+        self._insert_bound = min(self._insert_bound, cap)
+        if self._insert_bound + incoming <= cap * HARD_GROW_AT:
+            return
+        claimed = self._insert_bound
+        new_cap = self._buckets.plan(cap, incoming, claimed, claimed)
+        if new_cap is not None and new_cap != cap:
+            self._rebuild(new_cap)
+            self._insert_bound = min(claimed, new_cap)
+
+    def _rebuild(self, new_cap: int) -> None:
+        self.table, self.state = _rehash(
+            self.table, self.state, self.calls, new_cap, self._float_extremes
+        )
+
+    # -- control ---------------------------------------------------------
+    def on_barrier(self, barrier: Barrier) -> List[StreamChunk]:
+        outs = self._flush_all()
+        self._staged_scalars = torch.stack([
+            self.dropped.to(torch.int64),
+            self.state.minmax_retracted.to(torch.int64),
+            self.table.occupancy().to(torch.int64),
+        ])
+        if barrier is None:  # direct drive: checks fire inline
+            self.finish_barrier()
+        return outs
+
+    def _on_barrier_scalars(self, vals) -> None:
+        dropped, mret, claimed = vals
+        epoch_inc = max(self._insert_bound - self._occ_note, 0)
+        self._occ_note = int(claimed)
+        self._insert_bound = int(claimed)
+        cap = self.table.capacity
+        self._buckets.note_barrier(cap, int(claimed))
+        new_cap = self._buckets.plan(
+            cap, 0, int(claimed), int(claimed), margin=max(int(claimed), epoch_inc)
+        )
+        if new_cap is not None and new_cap != cap:
+            self._rebuild(new_cap)
+        if dropped:
+            raise RuntimeError("hash table overflowed MAX_PROBE mid-epoch; grow capacity")
+        if mret:
+            raise RuntimeError(
+                "row-level retraction hit an append-only MIN/MAX aggregate"
+            )
+
+    def _flush_all(self) -> List[StreamChunk]:
+        """Flush rounds until no dirty group is left; each round reads
+        its (2,) status once (a device sync) to size the emitted chunk."""
+        outs = []
+        while True:
+            self.state, delta = agg_ops.flush(
+                self.state, self.table.keys, self.out_cap, self._float_extremes
+            )
+            n_take, overflow = delta["status"].tolist()
+            pad = flush_pad(self.out_cap, n_take)
+            outs.append(
+                delta_to_chunk(delta, self.group_keys, self.nullable, self.calls, pad)
+            )
+            if not overflow:
+                return outs
+
+    def on_watermark(self, watermark: Watermark):
+        if self.window_key is None or watermark.column != self.window_key[0]:
+            return watermark, []
+        raise NotImplementedError(
+            "watermark state cleaning is not ported yet; build the plan "
+            "without a window_key (build_q5_lite(state_cleaning=False))"
+        )

@@ -1,0 +1,305 @@
+"""Device-resident materialized view.
+
+Port of the device MV of ``risingwave_tpu/executors/materialize.py``
+(``MvDeviceState`` :514, ``mv_step_fn`` :551, ``_mv_rebuild`` :587, the
+read mixin :607, ``DeviceMaterializeExecutor`` :642). Reference:
+src/stream/src/executor/mview/materialize.rs:44 with
+ConflictBehavior::Overwrite (:192-230).
+
+A pk-keyed hash table plus slot-indexed value lanes. Per chunk, kernel
+A finds or inserts the pk, then kernel D (``csrc/mv_upsert.cu``) lets
+the last row per pk win: deletes clear ``live``, inserts write the
+values. The host reaches the device only at the barrier (one packed
+latch + occupancy read) and on snapshot. Checkpoint/restore of this
+state is not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
+
+import numpy as np
+import torch
+
+from risingwave_tpu_torch import _kernels, resolve_device
+from risingwave_tpu_torch.array.chunk import StreamChunk, to_device
+from risingwave_tpu_torch.executors.base import Executor
+from risingwave_tpu_torch.ops.hash_table import (
+    HashTable,
+    last_occurrence_mask,
+    lookup_or_insert,
+)
+from risingwave_tpu_torch.runtime.bucketing import BucketAllocator, BucketPolicy
+
+GROW_AT = 0.5
+# mid-epoch rebuild only when the host insert bound nears the table
+HARD_GROW_AT = 0.75
+
+
+@dataclass
+class MvDeviceState:
+    """Value lanes + checkpoint marks, slot-indexed next to the pk table.
+
+    ``scratch`` is kernel D's per-slot int32 lane (all -1 between
+    calls), allocated once per table."""
+
+    values: Dict[str, torch.Tensor]
+    vnulls: Dict[str, torch.Tensor]  # SQL NULL lanes of nullable columns
+    sdirty: torch.Tensor  # touched since the last checkpoint stage
+    stored: torch.Tensor  # durable in the state store
+    dropped: torch.Tensor  # () bool overflow latch
+    scratch: torch.Tensor
+
+    @staticmethod
+    def create(capacity: int, dtypes, columns, nullable, device) -> "MvDeviceState":
+        dev = resolve_device(device)
+        z = lambda d: torch.zeros(capacity, dtype=d, device=dev)
+        return MvDeviceState(
+            values={c: z(dtypes[c]) for c in columns},
+            vnulls={c: z(torch.bool) for c in nullable if c in columns},
+            sdirty=z(torch.bool),
+            stored=z(torch.bool),
+            dropped=torch.zeros((), dtype=torch.bool, device=dev),
+            scratch=torch.full((capacity,), -1, dtype=torch.int32, device=dev),
+        )
+
+    @staticmethod
+    def from_reference_arrays(state, device="cuda") -> "MvDeviceState":
+        """Build from the reference's MvDeviceState with numpy leaves
+        (or a dict of its fields)."""
+        dev = resolve_device(device)
+        get = state.get if isinstance(state, dict) else lambda k: getattr(state, k)
+        put = lambda a: to_device(a, dev)
+        sdirty = put(np.asarray(get("sdirty")))
+        return MvDeviceState(
+            values={c: put(np.asarray(a)) for c, a in get("values").items()},
+            vnulls={c: put(np.asarray(a)) for c, a in get("vnulls").items()},
+            sdirty=sdirty,
+            stored=put(np.asarray(get("stored"))),
+            dropped=put(np.asarray(get("dropped"), np.bool_)),
+            scratch=torch.full(sdirty.shape, -1, dtype=torch.int32, device=dev),
+        )
+
+
+def mv_step_fn(table: HashTable, state: MvDeviceState, chunk: StreamChunk, pk, cols):
+    """One chunk applied to the MV in place: find-or-insert the pk, the
+    last row per pk wins (Overwrite), deletes flip live off."""
+    keys = tuple(chunk.col(k) for k in pk)
+    table, slots, _, _ = lookup_or_insert(table, keys, chunk.valid)
+    if slots.device.type == "cpu":
+        _mv_upsert_torch(table, state, chunk, slots, cols)
+    elif slots.device.type == "cuda":
+        _mv_upsert_cuda(table, state, chunk, slots, cols)
+    else:
+        raise ValueError(f"unsupported device {slots.device}")
+    return table, state
+
+
+def _mv_upsert_torch(table, state, chunk, slots, cols):
+    state.dropped |= (chunk.valid & (slots < 0)).any()
+    last = last_occurrence_mask(slots, chunk.valid)
+    is_del = (chunk.ops == 1) | (chunk.ops == 2)  # DELETE | UPDATE_DELETE
+    lidx = slots[last].long()
+    table.live[lidx] = ~is_del[last]
+    ins = last & ~is_del
+    uidx = slots[ins].long()
+    for c in cols:
+        state.values[c][uidx] = chunk.col(c)[ins].to(state.values[c].dtype)
+    for c in state.vnulls:
+        state.vnulls[c][uidx] = chunk.null_of(c)[ins]
+    state.sdirty[lidx] = True
+
+
+def _mv_upsert_cuda(table, state, chunk, slots, cols):
+    n = chunk.capacity
+    cap = table.capacity
+    _kernels.check_cuda("mv_upsert", slots, chunk.valid, chunk.ops, n=n)
+    _kernels.check_cuda(
+        "mv_upsert", table.live, state.sdirty, state.scratch,
+        *state.values.values(), *state.vnulls.values(), n=cap,
+    )
+    if chunk.ops.dtype != torch.int32:
+        raise TypeError("ops must be an int32 lane")
+    # keep_alive: a cast lane freed before the launch could be handed to
+    # the next cast in this loop and overwritten before the kernel reads it
+    values, keep_alive = [], []
+    for c in cols:
+        src, dst = chunk.col(c), state.values[c]
+        if src.dtype != dst.dtype:
+            src = src.to(dst.dtype)  # the reference's astype on write
+            keep_alive.append(src)
+        _kernels.check_cuda("mv_upsert", src, n=n)
+        values.append((src.data_ptr(), dst.data_ptr(), dst.element_size()))
+    nulls = []
+    for c, dst in state.vnulls.items():
+        src = chunk.nulls.get(c)
+        if src is not None:
+            _kernels.check_cuda("mv_upsert", src, n=n)
+        nulls.append((0 if src is None else src.data_ptr(), dst.data_ptr()))
+    _kernels.call(
+        "mv_upsert", "rw_mv_upsert",
+        _kernels.int64_rows(values, 8), len(values), _kernels.int64_rows(nulls, 8), len(nulls),
+        n, slots.data_ptr(), chunk.valid.data_ptr(), chunk.ops.data_ptr(),
+        state.scratch.data_ptr(), table.live.data_ptr(), state.sdirty.data_ptr(),
+        state.dropped.data_ptr(),
+    )
+
+
+def _mv_rebuild(table: HashTable, state: MvDeviceState, new_cap: int):
+    """Re-insert the surviving slots into a fresh table of ``new_cap``."""
+    keep = table.live | state.sdirty | state.stored
+    dev = table.device
+    new_table = HashTable.create(new_cap, tuple(k.dtype for k in table.keys), device=dev)
+    new_table, slots, _, _ = lookup_or_insert(new_table, table.keys, keep)
+    ok = keep & (slots >= 0)
+    dst = slots[ok].long()
+
+    def put(a):
+        out = torch.zeros(new_cap, dtype=a.dtype, device=dev)
+        out[dst] = a[ok]
+        return out
+
+    new_table.live[dst] = table.live[ok]
+    new_state = MvDeviceState(
+        values={c: put(a) for c, a in state.values.items()},
+        vnulls={c: put(a) for c, a in state.vnulls.items()},
+        sdirty=put(state.sdirty),
+        stored=put(state.stored),
+        dropped=torch.zeros((), dtype=torch.bool, device=dev),
+        scratch=torch.full((new_cap,), -1, dtype=torch.int32, device=dev),
+    )
+    return new_table, new_state
+
+
+class MvDeviceReadMixin:
+    """Read surface over a ``_host_rows()`` provider (k{j}/v{j}/n_{c}
+    lanes of the live rows)."""
+
+    def snapshot(self):
+        """pk tuple -> value tuple (NULL -> None). One bulk transfer."""
+        rows = self._host_rows()
+        n = len(rows["k0"]) if self.pk else 0
+        out = {}
+        for i in range(n):
+            k = tuple(rows[f"k{j}"][i].item() for j in range(len(self.pk)))
+            v = tuple(
+                None
+                if (f"n_{c}" in rows and rows[f"n_{c}"][i])
+                else rows[f"v{j}"][i].item()
+                for j, c in enumerate(self.columns)
+            )
+            out[k] = v
+        return out
+
+    def to_numpy(self):
+        rows = self._host_rows()
+        out = {}
+        for j, name in enumerate(self.pk):
+            out[name] = rows[f"k{j}"]
+        for j, name in enumerate(self.columns):
+            out[name] = rows[f"v{j}"]
+            if f"n_{name}" in rows:
+                out[name + "__null"] = rows[f"n_{name}"]
+        return out
+
+
+class DeviceMaterializeExecutor(MvDeviceReadMixin, Executor):
+    """Device-resident MV: pk-keyed hash table + value lanes.
+
+    pk and value lanes must be fixed-width dtypes; NULLs in value
+    columns ride per-column null lanes; NULL pk components are not
+    supported (as in the reference's device MV).
+    """
+
+    def __init__(
+        self,
+        pk,
+        columns,
+        schema_dtypes,
+        table_id: str = "mview",
+        capacity: int = 1 << 16,
+        nullable=(),
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.pk = tuple(pk)
+        self.columns = tuple(columns)
+        self.table_id = table_id
+        self.dtypes = {n: schema_dtypes[n] for n in self.pk + self.columns}
+        self.table = HashTable.create(
+            capacity, tuple(self.dtypes[k] for k in self.pk), device=self.device
+        )
+        self.state = MvDeviceState.create(
+            capacity, self.dtypes, self.columns, tuple(nullable), self.device
+        )
+        self._bound = 0
+        self._occ_note = 0  # true claimed at the last barrier
+        self._buckets = BucketAllocator(
+            BucketPolicy.from_capacity(capacity, grow_at=GROW_AT)
+        )
+
+    def load_reference_state(self, np_arrays) -> None:
+        """Take over the reference executor's state, given as numpy
+        arrays ``{"table": ..., "state": ...}`` (the reference's
+        HashTable/MvDeviceState with numpy leaves, or dicts of their
+        fields). Every pk keeps its slot."""
+        t = np_arrays["table"]
+        get = t.get if isinstance(t, dict) else lambda k: getattr(t, k)
+        self.table = HashTable.from_reference_arrays(
+            get("fp1"), get("fp2"), get("keys"), get("live"), device=self.device
+        )
+        self.state = MvDeviceState.from_reference_arrays(np_arrays["state"], self.device)
+        self._bound = self._occ_note = int(self.table.occupancy())
+
+    # -- data -------------------------------------------------------------
+    def apply(self, chunk: StreamChunk):
+        self._maybe_grow(chunk.capacity)  # also advances the insert bound
+        self.table, self.state = mv_step_fn(
+            self.table, self.state, chunk, self.pk, self.columns
+        )
+        return [chunk]
+
+    def _maybe_grow(self, incoming: int) -> None:
+        """Mid-epoch overflow guard from the host insert bound alone."""
+        cap = self.table.capacity
+        claimed = min(self._bound, cap)
+        self._bound = claimed + incoming
+        if self._bound <= cap * HARD_GROW_AT:
+            return
+        new_cap = self._buckets.plan(cap, incoming, claimed, claimed)
+        if new_cap is not None and new_cap != cap:
+            self.table, self.state = _mv_rebuild(self.table, self.state, new_cap)
+
+    # -- control ----------------------------------------------------------
+    def on_barrier(self, barrier) -> list:
+        self._staged_scalars = torch.stack([
+            self.state.dropped.to(torch.int64),
+            self.table.occupancy().to(torch.int64),
+        ])
+        if barrier is None:  # direct drive: checks fire inline
+            self.finish_barrier()
+        return []
+
+    def _on_barrier_scalars(self, vals) -> None:
+        dropped, claimed = vals
+        epoch_inc = max(self._bound - self._occ_note, 0)
+        self._occ_note = int(claimed)
+        self._bound = int(claimed)
+        cap = self.table.capacity
+        self._buckets.note_barrier(cap, int(claimed))
+        new_cap = self._buckets.plan(
+            cap, 0, int(claimed), int(claimed), margin=max(int(claimed), epoch_inc)
+        )
+        if new_cap is not None and new_cap != cap:
+            self.table, self.state = _mv_rebuild(self.table, self.state, new_cap)
+        if dropped:
+            raise RuntimeError("device MV hash table overflowed MAX_PROBE; grow capacity")
+
+    # -- reads ------------------------------------------------------------
+    def _host_rows(self):
+        sel = torch.nonzero(self.table.live).flatten()
+        lanes = {f"k{j}": k for j, k in enumerate(self.table.keys)}
+        lanes.update({f"v{j}": self.state.values[c] for j, c in enumerate(self.columns)})
+        lanes.update({f"n_{c}": lane for c, lane in self.state.vnulls.items()})
+        return {name: lane[sel].cpu().numpy() for name, lane in lanes.items()}

@@ -1,0 +1,471 @@
+"""Grouped aggregation state — the core of HashAgg.
+
+Port of ``risingwave_tpu/ops/agg.py`` (:60-257 state and helpers,
+``apply`` :257-332, ``flush`` :597-705). Reference roles:
+src/stream/src/executor/hash_agg.rs:326 (apply_chunk) and :406
+(flush_data), executor/aggregation/{agg_group,agg_state}.rs.
+
+Agg state is a struct of slot-indexed lanes next to the group table.
+``apply`` scatters a chunk's rows into it (kernel B on the card,
+``csrc/agg_apply.cu``); ``flush`` compacts the dirty slots into one
+interleaved (old, new) delta per barrier round (kernel C,
+``csrc/agg_flush.cu``). Both update the state IN PLACE.
+
+Semantics as the reference: SUM/MIN/MAX over only-NULL inputs is NULL
+(a per-call non-null counter); MIN/MAX are append-only and a retraction
+reaching one latches ``minmax_retracted``. Float MIN/MAX accumulate
+total-order keys, stored here as int64 (see ``_float_to_order_key``).
+The epoch path (``reduce_by_key``/``apply_reduced``) and the
+materialized-input MIN/MAX are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from risingwave_tpu_torch import _kernels, resolve_device
+from risingwave_tpu_torch.array.chunk import to_device
+from risingwave_tpu_torch.types import Op
+
+KINDS = ("count_star", "count", "sum", "min", "max")
+# kinds whose SQL result is NULL when no non-NULL input exists
+NULLABLE_KINDS = ("sum", "min", "max")
+_KIND_CODE = {k: i for i, k in enumerate(KINDS)}  # agg_apply.cu AggKind
+
+
+@dataclass(frozen=True)
+class AggCall:
+    """One aggregate call: kind + input column -> output column.
+    ``materialized`` (retractable MIN/MAX) is not ported yet."""
+
+    kind: str
+    input: Optional[str]  # None for count_star
+    output: str
+    materialized: bool = False
+
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(f"unsupported agg kind {self.kind!r}")
+        if (self.input is None) != (self.kind == "count_star"):
+            raise ValueError(f"{self.kind} input mismatch")
+        if self.materialized and self.kind not in ("min", "max"):
+            raise ValueError("materialized only applies to min/max")
+
+
+# -- ordered-float total-order keys -------------------------------------
+# The reference stores a float MIN/MAX as an unsigned total-order key
+# (uint32 for float32, uint64 for float64; NaN orders above everything).
+# torch has no usable unsigned 32/64-bit arithmetic, so the port keeps
+# the same keys in int64 lanes: a float32 key is the uint32 key as a
+# non-negative int64; a float64 key is the uint64 key with its top bit
+# flipped, read as int64. Both maps keep the unsigned order, so int64
+# min/max on them is the reference's min/max.
+_SIGN64 = -(2**63)
+
+
+def _float_to_order_key(v: torch.Tensor) -> torch.Tensor:
+    v = torch.where(v == 0.0, torch.zeros_like(v), v)
+    v = torch.where(torch.isnan(v), torch.full_like(v, float("nan")), v)
+    if v.dtype == torch.float32:
+        bits = v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        neg = bits >= 2**31
+        return torch.where(neg, bits ^ 0xFFFFFFFF, bits | 2**31)
+    bits = v.view(torch.int64)
+    # uint64 key = ~bits (negative) or bits | sign; flip the sign bit
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFFFFFFFFFF, bits)
+
+
+def _order_key_to_float(k: torch.Tensor, float_dtype: torch.dtype) -> torch.Tensor:
+    if float_dtype == torch.float32:
+        was_pos = k >= 2**31
+        bits = torch.where(was_pos, k & 0x7FFFFFFF, k ^ 0xFFFFFFFF)
+        return bits.to(torch.int32).view(torch.float32)
+    bits = torch.where(k < 0, k ^ 0x7FFFFFFFFFFFFFFF, k)
+    return bits.view(torch.float64)
+
+
+def order_key_from_reference(key: np.ndarray) -> np.ndarray:
+    """The reference's uint32/uint64 order-key lane -> the port's int64."""
+    key = np.asarray(key)
+    if key.dtype == np.uint32:
+        return key.astype(np.int64)
+    return key.astype(np.uint64).view(np.int64) ^ np.int64(_SIGN64)
+
+
+def order_key_to_reference(key: np.ndarray, float_dtype) -> np.ndarray:
+    """The port's int64 order-key lane -> the reference's unsigned lane."""
+    key = np.asarray(key, np.int64)
+    if np.dtype(float_dtype) == np.float32:
+        return key.astype(np.uint32)
+    return (key ^ np.int64(_SIGN64)).view(np.uint64)
+
+
+def _is_float_extreme(call: AggCall, input_dtype) -> bool:
+    return call.kind in ("min", "max") and input_dtype is not None and input_dtype.is_floating_point
+
+
+def _accum_dtype(call: AggCall, input_dtype) -> torch.dtype:
+    if call.kind in ("count_star", "count"):
+        return torch.int64
+    if call.kind == "sum" and not input_dtype.is_floating_point:
+        return torch.int64  # SQL SUM(int) widens to bigint
+    if _is_float_extreme(call, input_dtype):
+        return torch.int64  # total-order key
+    return input_dtype
+
+
+def accum_init(kind: str, dtype: torch.dtype, float_input=None) -> int:
+    """The empty-group accumulator value for one agg kind. For a float
+    MIN/MAX (``float_input`` its input dtype) this is the image of the
+    reference's unsigned sentinel in the port's key space."""
+    if kind not in ("min", "max"):
+        return 0
+    if float_input == torch.float32:
+        return 0xFFFFFFFF if kind == "min" else 0
+    info = torch.iinfo(dtype)
+    return info.max if kind == "min" else info.min
+
+
+def emitted_init(float_input=None) -> int:
+    """The empty snapshot value: 0, or for a float64 MIN/MAX the port's
+    key of the reference's zero key."""
+    return _SIGN64 if float_input == torch.float64 else 0
+
+
+def float_extreme_meta(calls: Sequence[AggCall], input_dtypes) -> tuple:
+    """(output, float dtype) for every MIN/MAX over a float input —
+    flush decodes those lanes from order keys back to floats."""
+    return tuple(
+        (c.output, input_dtypes[c.input])
+        for c in calls
+        if _is_float_extreme(c, input_dtypes.get(c.input))
+    )
+
+
+@dataclass
+class AggState:
+    """Slot-indexed aggregation state (all lanes of length capacity).
+
+    ``row_count`` is the implicit COUNT(*) deciding group liveness;
+    ``accums[out]`` one accumulator per call; ``nonnull[out]`` non-NULL
+    input counts for NULLABLE_KINDS; ``emitted*`` what downstream has
+    seen; ``dirty`` touched since the last flush; ``minmax_retracted`` a
+    () bool latch; ``sdirty``/``stored`` the checkpoint marks.
+    """
+
+    row_count: torch.Tensor
+    accums: Dict[str, torch.Tensor]
+    nonnull: Dict[str, torch.Tensor]
+    emitted: Dict[str, torch.Tensor]
+    emitted_isnull: Dict[str, torch.Tensor]
+    emitted_valid: torch.Tensor
+    dirty: torch.Tensor
+    minmax_retracted: torch.Tensor
+    sdirty: torch.Tensor
+    stored: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.row_count.shape[0]
+
+    @staticmethod
+    def from_reference_arrays(state, float_extremes=(), device="cuda") -> "AggState":
+        """Build from the reference's AggState with numpy leaves (any
+        object with its attribute names, or a dict of them). Float
+        MIN/MAX lanes (``float_extremes`` as from float_extreme_meta)
+        are moved into the port's int64 key space."""
+        dev = resolve_device(device)
+        get = state.get if isinstance(state, dict) else lambda k: getattr(state, k)
+        put = lambda a: to_device(a, dev)
+        fx = dict(float_extremes)
+
+        def acc(name, a):
+            return put(order_key_from_reference(a) if name in fx else np.asarray(a))
+
+        return AggState(
+            row_count=put(np.asarray(get("row_count"), np.int64)),
+            accums={n: acc(n, a) for n, a in get("accums").items()},
+            nonnull={n: put(np.asarray(a)) for n, a in get("nonnull").items()},
+            emitted={n: acc(n, a) for n, a in get("emitted").items()},
+            emitted_isnull={
+                n: put(np.asarray(a)) for n, a in get("emitted_isnull").items()
+            },
+            emitted_valid=put(np.asarray(get("emitted_valid"))),
+            dirty=put(np.asarray(get("dirty"))),
+            minmax_retracted=put(np.asarray(get("minmax_retracted"), np.bool_)),
+            sdirty=put(np.asarray(get("sdirty"))),
+            stored=put(np.asarray(get("stored"))),
+        )
+
+
+def create_state(capacity: int, calls: Sequence[AggCall], input_dtypes, device="cuda") -> AggState:
+    """``input_dtypes`` maps input column name -> torch dtype."""
+    dev = resolve_device(device)
+    accums, nonnull, emitted, e_isnull = {}, {}, {}, {}
+    for c in calls:
+        in_dt = None if c.input is None else input_dtypes[c.input]
+        dt = _accum_dtype(c, in_dt)
+        fx = in_dt if _is_float_extreme(c, in_dt) else None
+        accums[c.output] = torch.full((capacity,), accum_init(c.kind, dt, fx), dtype=dt, device=dev)
+        emitted[c.output] = torch.full((capacity,), emitted_init(fx), dtype=dt, device=dev)
+        if c.kind in NULLABLE_KINDS:
+            nonnull[c.output] = torch.zeros(capacity, dtype=torch.int64, device=dev)
+            e_isnull[c.output] = torch.zeros(capacity, dtype=torch.bool, device=dev)
+    z = lambda: torch.zeros(capacity, dtype=torch.bool, device=dev)
+    return AggState(
+        row_count=torch.zeros(capacity, dtype=torch.int64, device=dev),
+        accums=accums,
+        nonnull=nonnull,
+        emitted=emitted,
+        emitted_isnull=e_isnull,
+        emitted_valid=z(),
+        dirty=z(),
+        minmax_retracted=torch.zeros((), dtype=torch.bool, device=dev),
+        sdirty=z(),
+        stored=z(),
+    )
+
+
+def apply(
+    state: AggState,
+    calls: Tuple[AggCall, ...],
+    slots: torch.Tensor,  # (n,) int32, -1 = skip
+    signs: torch.Tensor,  # (n,) int32 in {-1, 0, +1}; 0 for padding
+    values: Dict[str, torch.Tensor],
+    nulls: Dict[str, torch.Tensor],
+    live: Optional[torch.Tensor] = None,
+) -> AggState:
+    """Apply one chunk's rows to ``state`` in place.
+
+    ``signs`` must already fold visibility (StreamChunk.effective_signs).
+    NULL inputs count only toward COUNT(*). With ``live`` (the group
+    table's live lane) every row's slot then gets live = row_count > 0,
+    the ``set_live`` of ``hash_agg.py:135``.
+    """
+    for c in calls:
+        if c.materialized:
+            raise NotImplementedError("materialized MIN/MAX is not ported yet")
+    if slots.device.type == "cpu":
+        _apply_torch(state, calls, slots, signs, values, nulls, live)
+    elif slots.device.type == "cuda":
+        _apply_cuda(state, calls, slots, signs, values, nulls, live)
+    else:
+        raise ValueError(f"unsupported device {slots.device}")
+    return state
+
+
+def _apply_torch(state, calls, slots, signs, values, nulls, live):
+    active = (slots >= 0) & (signs != 0)
+    idx = slots[active].long()
+    w = signs[active].to(torch.int64)
+    state.row_count.index_add_(0, idx, w)
+    state.dirty[idx] = True
+    state.sdirty[idx] = True
+    for c in calls:
+        acc = state.accums[c.output]
+        if c.kind == "count_star":
+            acc.index_add_(0, idx, w)
+            continue
+        v = values[c.input][active]
+        notnull = ~nulls[c.input][active] if c.input in nulls else torch.ones_like(w, dtype=torch.bool)
+        wn = torch.where(notnull, w, torch.zeros_like(w))
+        if c.kind == "count":
+            acc.index_add_(0, idx, wn)
+        elif c.kind == "sum":
+            contrib = torch.where(notnull, v.to(acc.dtype) * w.to(acc.dtype), torch.zeros((), dtype=acc.dtype))
+            acc.index_add_(0, idx, contrib)
+            state.nonnull[c.output].index_add_(0, idx, wn)
+        else:  # min / max — append-only
+            use = notnull & (w > 0)
+            if v.dtype.is_floating_point:
+                v = _float_to_order_key(v)
+            acc.scatter_reduce_(
+                0, idx[use], v[use].to(acc.dtype),
+                reduce="amin" if c.kind == "min" else "amax",
+            )
+            state.nonnull[c.output].index_add_(0, idx[use], torch.ones_like(idx[use]))
+            state.minmax_retracted |= (notnull & (w < 0)).any()
+    if live is not None:
+        has = slots >= 0
+        s = slots[has].long()
+        live[s] = state.row_count[s] > 0
+
+
+def _apply_cuda(state, calls, slots, signs, values, nulls, live):
+    n = slots.shape[0]
+    cap = state.capacity
+    if slots.dtype != torch.int32 or signs.dtype != torch.int32:
+        raise TypeError("slots and signs must be int32")
+    _kernels.check_cuda("agg_apply", slots, signs, n=n)
+    _kernels.check_cuda(
+        "agg_apply", state.row_count, state.dirty, state.sdirty, n=cap
+    )
+    rows = []
+    for c in calls:
+        acc = state.accums[c.output]
+        nonnull = state.nonnull.get(c.output)
+        _kernels.check_cuda("agg_apply", acc, *(() if nonnull is None else (nonnull,)), n=cap)
+        val = nul = None
+        vdt = 0
+        if c.input is not None:
+            val = values[c.input]
+            nul = nulls.get(c.input)
+            _kernels.check_cuda("agg_apply", val, *(() if nul is None else (nul,)), n=n)
+            vdt = _kernels.dtype_code(val)
+            if c.kind in ("sum", "min", "max") and val.dtype == torch.bool:
+                raise TypeError(f"{c.kind} over a bool lane is not supported")
+            if c.kind == "sum" and acc.dtype.is_floating_point and val.dtype != acc.dtype:
+                raise TypeError("float SUM input must match its accumulator dtype")
+        rows.append((
+            _KIND_CODE[c.kind], vdt, _kernels.dtype_code(acc),
+            0 if val is None else val.data_ptr(),
+            0 if nul is None else nul.data_ptr(),
+            acc.data_ptr(),
+            0 if nonnull is None else nonnull.data_ptr(),
+        ))
+    _kernels.call(
+        "agg_apply", "rw_agg_apply",
+        _kernels.int64_rows(rows, 8), len(rows), n, slots.data_ptr(), signs.data_ptr(),
+        state.row_count.data_ptr(), state.dirty.data_ptr(), state.sdirty.data_ptr(),
+        state.minmax_retracted.data_ptr(),
+    )
+    if live is not None:
+        _kernels.check_cuda("agg_apply", live, n=cap)
+        _kernels.call(
+            "agg_apply", "rw_agg_set_live",
+            n, slots.data_ptr(), state.row_count.data_ptr(), live.data_ptr(),
+        )
+
+
+def flush(
+    state: AggState,
+    table_keys: Tuple[torch.Tensor, ...],
+    out_cap: int,
+    float_extremes: tuple = (),
+):
+    """Emit the per-barrier delta for up to ``out_cap`` dirty groups, in
+    ascending slot order (hash_agg.rs:406); updates ``state`` in place.
+
+    Returns ``(state, delta)``; delta holds (2 * out_cap,) lanes
+    ``ops``, ``valid``, ``key<i>``, one per agg output and
+    ``<output>__isnull`` for NULLABLE_KINDS, with rows interleaved
+    (old_i, new_i): old (U-/D) rows carry the previously emitted values,
+    new (U+/I) rows the current ones. ``status`` is the (2,) int32
+    [groups taken, overflow]; overflow means more dirty groups remain
+    and the caller must flush again. Float MIN/MAX lanes listed in
+    ``float_extremes`` are decoded back to floats.
+    """
+    if state.dirty.device.type == "cpu":
+        return state, _flush_torch(state, table_keys, out_cap, float_extremes)
+    if state.dirty.device.type == "cuda":
+        return state, _flush_cuda(state, table_keys, out_cap, float_extremes)
+    raise ValueError(f"unsupported device {state.dirty.device}")
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.stack([a, b], dim=1).reshape(-1)
+
+
+def _flush_torch(state, table_keys, out_cap, float_extremes):
+    dev = state.dirty.device
+    dirty_ids = torch.nonzero(state.dirty).flatten()
+    n_dirty = dirty_ids.numel()
+    n_take = min(n_dirty, out_cap)
+    take = dirty_ids[:n_take]
+    pad = out_cap - n_take
+
+    def rows(lane_at_take, fill):
+        return torch.cat([lane_at_take, torch.full((pad,), fill, dtype=lane_at_take.dtype, device=dev)])
+
+    live = rows(state.row_count[take] > 0, False)
+    was = rows(state.emitted_valid[take], False)
+    minus_op = torch.where(live, int(Op.UPDATE_DELETE), int(Op.DELETE)).to(torch.int32)
+    plus_op = torch.where(was, int(Op.UPDATE_INSERT), int(Op.INSERT)).to(torch.int32)
+    in_take = torch.arange(out_cap, device=dev) < n_take
+    delta = {
+        "ops": _interleave(minus_op * in_take, plus_op * in_take),
+        "valid": _interleave(was, live),
+        "status": torch.tensor([n_take, int(n_dirty > out_cap)], dtype=torch.int32, device=dev),
+    }
+    for i, lane in enumerate(table_keys):
+        kv = rows(lane[take], 0)
+        delta[f"key{i}"] = _interleave(kv, kv)
+    decode = dict(float_extremes)
+    for name, acc in state.accums.items():
+        old = rows(state.emitted[name][take], 0)
+        new = rows(acc[take], 0)
+        if name in decode:
+            zero = torch.zeros((), dtype=decode[name], device=dev)
+            old = torch.where(in_take, _order_key_to_float(old, decode[name]), zero)
+            new = torch.where(in_take, _order_key_to_float(new, decode[name]), zero)
+        delta[name] = _interleave(old, new)
+    for name, nn in state.nonnull.items():
+        old_isnull = rows(state.emitted_isnull[name][take], False)
+        new_isnull = rows(nn[take] == 0, False)
+        delta[name + "__isnull"] = _interleave(old_isnull, new_isnull)
+    # snapshot what was just emitted, for the taken slots only
+    for name in state.accums:
+        state.emitted[name][take] = state.accums[name][take]
+    for name in state.nonnull:
+        state.emitted_isnull[name][take] = state.nonnull[name][take] == 0
+    state.emitted_valid[take] = state.row_count[take] > 0
+    state.dirty[take] = False
+    return delta
+
+
+def _flush_cuda(state, table_keys, out_cap, float_extremes):
+    cap = state.capacity
+    dev = state.dirty.device
+    lanes = [state.row_count, state.emitted_valid, state.dirty, *table_keys]
+    lanes += list(state.accums.values()) + list(state.emitted.values())
+    lanes += list(state.nonnull.values()) + list(state.emitted_isnull.values())
+    _kernels.check_cuda("agg_flush", *lanes, n=cap)
+    if state.dirty.data_ptr() % 16:
+        raise ValueError("agg_flush: the dirty lane must be 16-byte aligned")
+    n_out = 2 * out_cap
+    empty = lambda dt: torch.empty(n_out, dtype=dt, device=dev)
+    delta = {"ops": empty(torch.int32), "valid": empty(torch.bool)}
+    gather = []
+
+    def add(name, old_src, new_src, out_dtype, xform=0):
+        out = empty(out_dtype)
+        delta[name] = out
+        gather.append((old_src.data_ptr(), new_src.data_ptr(), out.data_ptr(),
+                       out.element_size(), xform))
+
+    for i, lane in enumerate(table_keys):
+        add(f"key{i}", lane, lane, lane.dtype)
+    decode = dict(float_extremes)
+    for name, acc in state.accums.items():
+        if name in decode:
+            fdt = decode[name]
+            add(name, state.emitted[name], acc, fdt, 1 if fdt == torch.float32 else 2)
+        else:
+            add(name, state.emitted[name], acc, acc.dtype)
+    for name, nn in state.nonnull.items():
+        add(name + "__isnull", state.emitted_isnull[name], nn, torch.bool, 3)
+    snap = [
+        (state.accums[n].data_ptr(), state.emitted[n].data_ptr(),
+         state.accums[n].element_size(), 0)
+        for n in state.accums
+    ]
+    snap += [
+        (state.nonnull[n].data_ptr(), state.emitted_isnull[n].data_ptr(), 1, 1)
+        for n in state.nonnull
+    ]
+    n_tiles = -(-cap // 4096)  # agg_flush.cu FL_TILE
+    tile_counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    status = torch.empty(2, dtype=torch.int32, device=dev)
+    _kernels.call(
+        "agg_flush", "rw_agg_flush",
+        _kernels.int64_rows(gather, 16), len(gather), _kernels.int64_rows(snap, 16), len(snap),
+        state.dirty.data_ptr(), cap, tile_counts.data_ptr(), status.data_ptr(), out_cap,
+        state.row_count.data_ptr(), state.emitted_valid.data_ptr(),
+        delta["ops"].data_ptr(), delta["valid"].data_ptr(),
+    )
+    delta["status"] = status
+    return delta

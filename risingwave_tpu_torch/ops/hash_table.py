@@ -1,0 +1,299 @@
+"""Device-resident open-addressing hash table — the state substrate.
+
+Port of ``risingwave_tpu/ops/hash_table.py``. Reference roles:
+``JoinHashMap`` (src/stream/src/executor/join/hash_join.rs:157) and
+HashAgg's group map (src/stream/src/executor/hash_agg.rs:49-62).
+
+A power-of-two slot table, linear probing of at most ``MAX_PROBE``
+steps, fingerprints (``hash128``: fp1 == 0 means EMPTY) plus the raw key
+lanes for exact equality. Deleted keys stay claimed as tombstones
+(``live`` False) until the owner rebuilds the table.
+
+``lookup_or_insert`` is kernel A on the card (``csrc/lookup_or_insert.cu``)
+and its plain PyTorch version on the CPU. Both update the table IN PLACE
+(the JAX version donates the table and returns a new one); the table is
+still returned so call sites read like the reference.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from risingwave_tpu_torch import _kernels, resolve_device
+from risingwave_tpu_torch.array.chunk import to_device
+from risingwave_tpu_torch.ops.hashing import hash128
+
+EMPTY = 0  # fp1 value of a never-claimed slot
+
+# Static probe bound (the reference's; load factor <= 0.5 keeps the
+# expected longest probe far below it).
+MAX_PROBE = 64
+
+_GEN_LIMIT = 2**31 - 1
+
+
+@dataclass
+class HashTable:
+    """A set of key slots; payload lanes live next to it, indexed by slot.
+
+    Lanes (all of length capacity, a power of two):
+      fp1, fp2  int32 holding the reference's uint32 fingerprints' bits
+      keys      tuple of raw key lanes for exact equality
+      live      bool — True once inserted, False again when deleted
+      stamp     int32 claim word of kernel A: 0 = empty, -1 = being
+                written, > 0 = the generation of the call that claimed
+                the slot (slots imported or claimed on the CPU hold 1)
+    ``gen`` is the last generation handed to a lookup_or_insert call.
+    """
+
+    fp1: torch.Tensor
+    fp2: torch.Tensor
+    keys: Tuple[torch.Tensor, ...]
+    live: torch.Tensor
+    stamp: torch.Tensor
+    gen: int = 1
+
+    @property
+    def capacity(self) -> int:
+        return self.fp1.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.fp1.device
+
+    @staticmethod
+    def create(capacity: int, key_dtypes: Sequence[torch.dtype], device="cuda") -> "HashTable":
+        if capacity & (capacity - 1):
+            raise ValueError("capacity must be a power of two")
+        dev = resolve_device(device)
+        z = lambda d: torch.zeros(capacity, dtype=d, device=dev)
+        return HashTable(
+            fp1=z(torch.int32),
+            fp2=z(torch.int32),
+            keys=tuple(z(d) for d in key_dtypes),
+            live=z(torch.bool),
+            stamp=z(torch.int32),
+        )
+
+    @staticmethod
+    def from_reference_arrays(fp1, fp2, keys, live, device="cuda") -> "HashTable":
+        """Build from the reference's lanes as numpy arrays (uint32
+        fingerprints, key lanes, live). Keys keep their slots, so a key
+        present in the reference resolves to the same slot here."""
+        dev = resolve_device(device)
+        put = lambda a: to_device(a, dev)
+        fp1 = np.asarray(fp1, np.uint32).view(np.int32)
+        return HashTable(
+            fp1=put(fp1),
+            fp2=put(np.asarray(fp2, np.uint32).view(np.int32)),
+            keys=tuple(put(np.asarray(k)) for k in keys),
+            live=put(np.asarray(live, np.bool_)),
+            stamp=put((fp1 != EMPTY).astype(np.int32)),
+        )
+
+    def occupancy(self) -> torch.Tensor:
+        """Slots ever claimed (live + tombstones) — drives host rehash."""
+        return (self.fp1 != EMPTY).sum()
+
+    def num_live(self) -> torch.Tensor:
+        return self.live.sum()
+
+
+def _fingerprints(key_cols):
+    h1, h2 = hash128(key_cols)
+    fp1 = torch.where(h1 == 0, torch.ones_like(h1), h1)
+    return h1, fp1.to(torch.int32), h2.to(torch.int32)
+
+
+def _keys_match(table: HashTable, slot: torch.Tensor, key_cols) -> torch.Tensor:
+    ok = torch.ones(slot.shape, dtype=torch.bool, device=slot.device)
+    for tk, k in zip(table.keys, key_cols):
+        stored = tk[slot]
+        eq = stored == k
+        if tk.dtype.is_floating_point:
+            # ordered-float equality: NaN == NaN (an IEEE NaN key would
+            # claim a slot, fail its own verify and re-claim forever)
+            eq |= torch.isnan(stored) & torch.isnan(k)
+        ok &= eq
+    return ok
+
+
+def lookup_or_insert(table: HashTable, key_cols, valid: torch.Tensor):
+    """Batched find-or-insert. Returns ``(table, slots, found, inserted)``
+    and updates ``table`` in place.
+
+    ``slots[i]`` (int32) is -1 iff row i is invalid or its key found no
+    slot within MAX_PROBE probes (the caller's overflow signal).
+    ``found`` marks rows whose slot was live before the call;
+    ``inserted`` marks the row that claimed a slot in this call and its
+    same-key twins. A tombstoned key resolves to its slot with neither.
+    """
+    key_cols = tuple(key_cols)
+    if len(key_cols) != len(table.keys):
+        raise ValueError("key lane count differs from the table's")
+    table.gen += 1
+    if table.gen >= _GEN_LIMIT:  # restart generations; 1 = claimed before
+        table.stamp.clamp_(max=1)
+        table.gen = 2
+    if valid.device.type == "cpu":
+        return _lookup_or_insert_torch(table, key_cols, valid)
+    if valid.device.type == "cuda":
+        return _lookup_or_insert_cuda(table, key_cols, valid)
+    raise ValueError(f"unsupported device {valid.device}")
+
+
+def _lookup_or_insert_cuda(table: HashTable, key_cols, valid):
+    n = valid.shape[0]
+    cap = table.capacity
+    _kernels.check_cuda("lookup_or_insert", valid, *key_cols, n=n)
+    _kernels.check_cuda(
+        "lookup_or_insert", table.fp1, table.fp2, table.stamp, table.live,
+        *table.keys, n=cap,
+    )
+    if valid.dtype != torch.bool:
+        raise TypeError("valid must be a bool lane")
+    lanes = []
+    for k, tk in zip(key_cols, table.keys):
+        if k.dtype != tk.dtype:
+            raise TypeError(f"key lane dtype {k.dtype} != table lane {tk.dtype}")
+        lanes.append((k.data_ptr(), _kernels.dtype_code(k), tk.data_ptr()))
+    slots = torch.empty(n, dtype=torch.int32, device=valid.device)
+    found = torch.empty(n, dtype=torch.bool, device=valid.device)
+    inserted = torch.empty(n, dtype=torch.bool, device=valid.device)
+    _kernels.call(
+        "lookup_or_insert", "rw_lookup_or_insert",
+        _kernels.int64_rows(lanes, 8), len(lanes), n, valid.data_ptr(),
+        table.fp1.data_ptr(), table.fp2.data_ptr(), table.stamp.data_ptr(),
+        table.live.data_ptr(), cap, table.gen,
+        slots.data_ptr(), found.data_ptr(), inserted.data_ptr(),
+    )
+    return table, slots, found, inserted
+
+
+def _lookup_or_insert_torch(table: HashTable, key_cols, valid):
+    """The reference's lockstep scatter-claim-verify, in plain PyTorch.
+
+    Among rows contending for one empty slot in a probe step the one
+    with the highest row index wins, as XLA's CPU scatter (last write
+    wins) picks it — so on the CPU the slots equal the reference's."""
+    dev = valid.device
+    cap = table.capacity
+    mask = cap - 1
+    h1, fp1, fp2 = _fingerprints(key_cols)
+    n = valid.shape[0]
+    row_ids = torch.arange(n, dtype=torch.int64, device=dev)
+    slots = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    inserted = torch.zeros(n, dtype=torch.bool, device=dev)
+    unresolved = valid.clone()
+    claim = torch.full((cap,), -1, dtype=torch.int64, device=dev)
+    for t in range(MAX_PROBE):
+        if not bool(unresolved.any()):
+            break
+        cand = (h1 + t) & mask
+        slot_fp1 = table.fp1[cand]
+        exact = (slot_fp1 == fp1) & (table.fp2[cand] == fp2)
+        exact &= _keys_match(table, cand, key_cols)
+        hit = unresolved & exact
+        slots = torch.where(hit, cand, slots)
+        found |= hit & table.live[cand]
+        unresolved &= ~hit
+
+        want = unresolved & (slot_fp1 == EMPTY)
+        widx = cand[want]
+        claim.scatter_reduce_(0, widx, row_ids[want], reduce="amax")
+        won = want & (claim[cand] == row_ids)
+        claim[widx] = -1
+        w = cand[won]
+        table.fp1[w] = fp1[won]
+        table.fp2[w] = fp2[won]
+        table.stamp[w] = table.gen
+        for tk, k in zip(table.keys, key_cols):
+            tk[w] = k[won].to(tk.dtype)
+        landed = (
+            want
+            & (table.fp1[cand] == fp1)
+            & (table.fp2[cand] == fp2)
+            & _keys_match(table, cand, key_cols)
+        )
+        slots = torch.where(landed, cand, slots)
+        inserted |= landed
+        unresolved &= ~landed
+    return table, slots.to(torch.int32), found, inserted
+
+
+def lookup(table: HashTable, key_cols, valid: torch.Tensor):
+    """Read-only probe: ``(slots, found_live)``; slot -1 if absent.
+    Plain PyTorch on every device for now (no caller on the q5 path)."""
+    mask = table.capacity - 1
+    h1, fp1, fp2 = _fingerprints(tuple(key_cols))
+    n = valid.shape[0]
+    slots = torch.full((n,), -1, dtype=torch.int64, device=valid.device)
+    found = torch.zeros(n, dtype=torch.bool, device=valid.device)
+    unresolved = valid.clone()
+    for t in range(MAX_PROBE):
+        if not bool(unresolved.any()):
+            break
+        cand = (h1 + t) & mask
+        slot_fp1 = table.fp1[cand]
+        exact = (slot_fp1 == fp1) & (table.fp2[cand] == fp2)
+        exact &= _keys_match(table, cand, key_cols)
+        hit = unresolved & exact
+        slots = torch.where(hit, cand, slots)
+        found |= hit & table.live[cand]
+        # a probe chain ends at a truly EMPTY slot -> key absent
+        unresolved &= ~hit & (slot_fp1 != EMPTY)
+    return slots.to(torch.int32), found
+
+
+def set_live(table: HashTable, slots: torch.Tensor, live_value) -> HashTable:
+    """Mark slots live/dead in place; rows with slot -1 write nothing."""
+    keep = slots >= 0
+    value = torch.as_tensor(live_value, dtype=torch.bool, device=slots.device)
+    if value.dim():
+        value = value[keep]
+    table.live[slots[keep].long()] = value
+    return table
+
+
+def read_scalars(*xs) -> list:
+    """ONE packed, blocking device->host read of several scalars
+    (latches, occupancy counters)."""
+    return torch.stack([torch.as_tensor(x).to(torch.int64) for x in xs]).tolist()
+
+
+def plan_rehash(
+    cap: int, incoming: int, claimed: int, survivors: int, grow_at: float = 0.5
+):
+    """Shared growth policy: None (the next chunk still fits under the
+    load factor) or the new capacity, sized from ``survivors`` so
+    tombstone churn compacts in place (``new_cap == cap``)."""
+    if claimed + incoming <= cap * grow_at:
+        return None
+    new_cap = cap
+    while survivors + incoming > new_cap * grow_at:
+        new_cap *= 2
+    return new_cap
+
+
+def first_occurrence_mask(slots: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """True for the first valid row of each distinct slot in the batch."""
+    ok = valid & (slots >= 0)
+    key = torch.where(ok, slots.to(torch.int64), torch.full_like(slots, 2**30, dtype=torch.int64))
+    order = torch.argsort(key, stable=True)
+    s_sorted = key[order]
+    first = ok[order].clone()
+    first[1:] &= s_sorted[1:] != s_sorted[:-1]
+    mask = torch.zeros_like(ok)
+    mask[order] = first
+    return mask
+
+
+def last_occurrence_mask(slots: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """True for the LAST valid row of each distinct slot in the batch —
+    pk-conflict "last write wins" (materialize.rs:192 Overwrite)."""
+    return first_occurrence_mask(slots.flip(0), valid.flip(0)).flip(0)

@@ -1,0 +1,117 @@
+"""Capacity planning for the padded state tables.
+
+Port of the part of ``risingwave_tpu/runtime/bucketing.py`` (:74-99,
+:160-416) that the HashAgg and device-MV ``_maybe_grow`` use: tables
+walk a power-of-two lattice, grow eagerly past the load factor and
+shrink lazily after ``patience`` quiet barriers, so a window churning at
+a bucket boundary grows once and stays. The governor pin/veto hooks and
+the environment overrides are not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+# lattice span above the configured capacity (8 doublings = 256x)
+DEFAULT_MAX_STEPS = 8
+# no lattice exceeds 2^26 slots
+ABS_MAX_CAP = 1 << 26
+
+
+def pow2_at_least(n: int) -> int:
+    """Smallest power of two >= max(n, 1)."""
+    n = max(int(n), 1)
+    return 1 << (n - 1).bit_length()
+
+
+def flush_pad(out_cap: int, emitted_bound: int) -> int:
+    """The agg-flush emission lattice: a delta chunk's capacity is one
+    of exactly two buckets (small | full), from a bound on its rows."""
+    full = 2 * int(out_cap)
+    small = min(256, full)
+    return small if 2 * int(emitted_bound) <= small else full
+
+
+@dataclass(frozen=True)
+class BucketPolicy:
+    """Hysteresis of one table's bucket walk: eager growth past
+    ``grow_at``; shrink only after occupancy stayed below
+    ``shrink_at * capacity`` for ``patience`` barriers."""
+
+    min_cap: int
+    max_cap: int
+    grow_at: float = 0.5
+    shrink_at: float = 0.125
+    patience: int = 4
+
+    def __post_init__(self):
+        if self.min_cap & (self.min_cap - 1) or self.min_cap <= 0:
+            raise ValueError(f"min_cap {self.min_cap} not a power of two")
+        if self.max_cap < self.min_cap:
+            raise ValueError("max_cap < min_cap")
+        if not (0.0 < self.shrink_at < self.grow_at <= 1.0):
+            raise ValueError("need 0 < shrink_at < grow_at <= 1 for hysteresis")
+
+    @staticmethod
+    def from_capacity(capacity: int, grow_at: float = 0.5) -> "BucketPolicy":
+        """Lattice from the configured capacity up to 2^8 times it."""
+        lo = min(pow2_at_least(capacity), ABS_MAX_CAP)
+        hi = min(lo << DEFAULT_MAX_STEPS, ABS_MAX_CAP)
+        return BucketPolicy(min_cap=lo, max_cap=max(hi, lo), grow_at=grow_at)
+
+
+class BucketAllocator:
+    """Capacity planner for one table: ``plan`` picks the next capacity
+    (or None), ``note_barrier`` feeds the lazy-shrink streak."""
+
+    def __init__(self, policy: BucketPolicy):
+        self.policy = policy
+        self._streak = 0
+        self._pending_shrink: Optional[int] = None
+
+    def plan(
+        self,
+        cap: int,
+        incoming: int,
+        claimed: int,
+        survivors: int,
+        margin: int = 0,
+    ) -> Optional[int]:
+        """Next capacity, or None (the current bucket still fits). A
+        value equal to ``cap`` is a pure tombstone compaction. ``margin``
+        adds headroom to the sizing only, never to the trigger."""
+        p = self.policy
+        if claimed + incoming > cap * p.grow_at:
+            need = cap
+            while survivors + incoming + margin > need * p.grow_at:
+                need <<= 1
+            new_cap = min(max(need, p.min_cap), max(p.max_cap, cap))
+            self._pending_shrink = None
+            self._streak = 0
+            if new_cap == cap and survivors + incoming > cap * p.grow_at:
+                # saturated at the lattice max: a same-size rebuild does
+                # not help; the overflow latch reports a real overflow
+                return None
+            return new_cap
+        t = self._pending_shrink
+        if t is not None:
+            self._pending_shrink = None
+            self._streak = 0
+            while survivors + incoming + margin > t * p.grow_at:
+                t <<= 1
+            if t < cap:
+                return t
+        return None
+
+    def note_barrier(self, cap: int, claimed: int) -> None:
+        p = self.policy
+        if cap <= p.min_cap or claimed > cap * p.shrink_at:
+            self._streak = 0
+            self._pending_shrink = None
+            return
+        self._streak += 1
+        if self._streak >= p.patience:
+            target = pow2_at_least(max(p.min_cap, int(claimed / p.grow_at) + 1))
+            if target < cap:
+                self._pending_shrink = target

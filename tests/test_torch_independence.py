@@ -1,0 +1,89 @@
+"""The port stands alone: ``risingwave_tpu_torch`` imports neither jax nor
+``risingwave_tpu``, runs a q5 on the CPU when asked to, and refuses to
+fall back to the CPU when CUDA is asked for but absent.
+
+A subprocess is needed because tests/conftest.py imports jax into every
+pytest process.
+"""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "risingwave_tpu_torch"
+
+_CHILD = r'''
+import importlib, importlib.abc, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "risingwave_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import torch
+torch.set_num_threads(1)
+import risingwave_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(risingwave_tpu_torch.__path__, "risingwave_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
+
+from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig, NexmarkGenerator
+from risingwave_tpu_torch.queries.nexmark_q import build_q5_lite
+
+q5 = build_q5_lite(capacity=1 << 10, state_cleaning=False, device="cpu")
+gen = NexmarkGenerator(NexmarkConfig(first_event_rate=50_000))
+for _ in range(2):
+    q5.pipeline.push(gen.next_chunks(400, 400, device="cpu")["bid"])
+    q5.pipeline.barrier()
+snap = q5.mview.snapshot()
+assert snap and all(v[0] > 0 for v in snap.values())
+
+assert not torch.cuda.is_available()
+for make in (lambda: build_q5_lite(), lambda: NexmarkGenerator().next_chunks(10, 16)):
+    try:
+        make()
+    except RuntimeError as e:
+        assert "CUDA" in str(e)
+    else:
+        raise AssertionError("default device ran without CUDA")
+print("MODULES", len(mods))
+'''
+
+
+def test_port_imports_and_runs_without_jax_and_never_falls_back_to_cpu():
+    env = {
+        "PATH": "/usr/bin:/bin",
+        "PYTHONPATH": str(ROOT),
+        "CUDA_VISIBLE_DEVICES": "",  # no card, even on a machine that has one
+        "PYTHONDONTWRITEBYTECODE": "1",
+    }
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    n = int(proc.stdout.split("MODULES")[1])
+    assert n >= 15  # every module of the slice was imported
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|risingwave_tpu)(\.|\s|$)", re.M
+)
+
+
+def test_sources_name_no_jax_or_reference_import():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        text = f.read_text()
+        hits = [m.group(0) for m in _FORBIDDEN.finditer(text)]
+        assert not hits, f"{f}: {hits}"
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("from risingwave_tpu.ops import agg")
+    assert not _FORBIDDEN.search("from risingwave_tpu_torch.ops import agg")
