@@ -5,16 +5,24 @@
 
 Phases, each printing one JSON line:
   1. the card: name, power limit;
-  2. build: compile kernels A-D from ``risingwave_tpu_torch/csrc``;
+  2. build: compile kernels A-I from ``risingwave_tpu_torch/csrc``;
   3. each kernel against its plain PyTorch version on the card, on the
-     same seeded inputs at the main path's shapes (about 300k rows per
-     apply, tables of 2^24 slots), with times;
-  4. the main path: Nexmark q5 (hop -> HashAgg -> device MV) through
-     ``build_q5_lite(state_cleaning=False)`` over 20 epochs of 1M
-     events, its final MV held against a numpy oracle, and the launch
-     count of each kernel during that run;
+     same seeded inputs at the main paths' shapes (A-D: about 300k rows
+     per apply, tables of 2^24 slots; E-H: a 16-chunk epoch of 65,536
+     bid rows, 5,242,880 hopped rows, tables of 2^24 slots; I: a
+     2^24-slot table rebuilt to 2^25 slots), with times;
+  4. the interpreted path: Nexmark q5 (hop -> HashAgg -> device MV)
+     through ``build_q5_lite(state_cleaning=False)``, chunk by chunk,
+     over 20 epochs of 1M events, its final MV held against a numpy
+     oracle, and the launch count of each kernel during that run;
   5. with ``--profile N`` only: N of phase 4's epochs again, on fresh
-     tables, under ``torch.profiler`` (where the time goes).
+     tables, under ``torch.profiler`` (where the time goes), for the
+     interpreted path and, after phase 6, for the fused one;
+  6. the fused path: the same q5 through ``fuse_pipeline`` (one program
+     per barrier, no device read inside it) over phase 4's chunks, its
+     MV held against the oracle and phase 4's MV, its staged state
+     digests against ``host_digest`` of the lanes read back and of
+     phase 4's state, and the launch count of each kernel.
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. Without a
@@ -82,7 +90,7 @@ def clone_table(t):
 
     return HashTable(
         t.fp1.clone(), t.fp2.clone(), tuple(k.clone() for k in t.keys),
-        t.live.clone(), t.stamp.clone(), t.gen,
+        t.live.clone(), t.stamp.clone(), t.claimed.clone(), t.gen,
     )
 
 
@@ -90,6 +98,7 @@ def restore_table(dst, src) -> None:
     dst.fp1.copy_(src.fp1)
     dst.fp2.copy_(src.fp2)
     dst.stamp.copy_(src.stamp)
+    dst.claimed.copy_(src.claimed)
     dst.live.copy_(src.live)
     for a, b in zip(dst.keys, src.keys):
         a.copy_(b)
@@ -194,6 +203,7 @@ def kernel_a(torch, dev, rng):
     check(torch.equal(ta.fp2[c], h2.to(torch.int32)), "A: device fp2 = hash128")
     check(bool((ta.stamp[c] > 0).all()) and not bool((ta.stamp[~c] != 0).any()),
           "A: stamps published")
+    check(int(ta.claimed) == int(c.sum()) == int(tp.claimed), "A: claimed-slot counter")
 
     # a too-small table overflows: rows without a slot hold keys it lacks
     small_k = torch.from_numpy(rng.choice(1 << 30, 600, replace=False)).to(dev)
@@ -295,8 +305,11 @@ def kernel_b(torch, dev, rng, a_out):
 def run_flush_rounds(torch, flush_fn, state, keys, fx):
     rounds = []
     while True:
-        delta = flush_fn(state, keys, OUT_CAP, fx)
+        before = int(state.dirty.sum())
+        total = torch.full((), -1, dtype=torch.int64, device=state.dirty.device)
+        delta = flush_fn(state, keys, OUT_CAP, fx, total)
         n_take, overflow = delta["status"].tolist()
+        check(int(total) == before, "C: dirty_total = dirty groups before the round")
         rounds.append((n_take, overflow, delta))
         if not overflow:
             return rounds
@@ -425,9 +438,12 @@ def kernel_d(torch, dev, rng):
     _, slots, _, _ = ht._lookup_or_insert_torch(t, tuple(chunk.col(k) for k in pk), chunk.valid)
     ta, sa = clone_table(t), clone_state(base_s)
     tp, sp = clone_table(t), clone_state(base_s)
-    mv._mv_upsert_cuda(ta, sa, chunk, slots, ("num",))
-    mv._mv_upsert_torch(tp, sp, chunk, slots, ("num",))
+    rows_a = torch.zeros((), dtype=torch.int64, device=dev)
+    rows_p = torch.zeros((), dtype=torch.int64, device=dev)
+    mv._mv_upsert_cuda(ta, sa, chunk, slots, ("num",), rows_a)
+    mv._mv_upsert_torch(tp, sp, chunk, slots, ("num",), rows_p)
     torch.cuda.synchronize()
+    check(int(rows_a) == int(rows_p) == int(chunk.valid.sum()), "D: valid-row counter")
     check(torch.equal(ta.live, tp.live), "D: live lanes")
     lanes_a, lanes_p = state_lanes(sa), state_lanes(sp)
     check(torch.equal(lanes_a["sdirty"], lanes_p["sdirty"]), "D: sdirty lanes")
@@ -547,7 +563,370 @@ def kernel_dtypes(torch, dev, rng):
                       "C bool key lane + float decode, D int32 nullable + float64: equal"}
 
 
-# -- phase 4: the main path --------------------------------------------------
+# -- phase 3, the epoch path's kernels (E, F, G, H) ---------------------------
+EPOCH_CHUNKS = 16  # 65,536-row bid chunks per 1M-event epoch
+
+
+def epoch_chunks(torch, dev, seed: int):
+    """One epoch's bid chunks at phase 4's settings, stacked as the fused
+    program stacks them."""
+    from risingwave_tpu_torch.array.chunk import stack_chunks
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig, NexmarkGenerator
+
+    gen = NexmarkGenerator(NexmarkConfig(first_event_rate=EVENT_RATE), seed=seed)
+    chunks = []
+    while len(chunks) < EPOCH_CHUNKS:
+        bid = gen.next_chunks(CHUNK_EVENTS, CHUNK_EVENTS, device=dev)["bid"]
+        if bid is not None:
+            chunks.append(bid)
+    return stack_chunks(chunks)
+
+
+def chunk_lanes(chunk) -> dict:
+    out = {f"col.{n}": a for n, a in chunk.columns.items()}
+    out.update({f"null.{n}": a for n, a in chunk.nulls.items()})
+    out["valid"], out["ops"] = chunk.valid, chunk.ops
+    return out
+
+
+def kernel_e(torch, dev):
+    from risingwave_tpu_torch.array.chunk import flatten_stacked
+    from risingwave_tpu_torch.executors import hop_window as hw
+
+    stacked = epoch_chunks(torch, dev, SEED + 1)
+    args = ("date_time", 10_000, 2_000, "window_start")
+    ea = flatten_stacked(hw.hop_step_fn(stacked, *args))
+    ep = flatten_stacked(hw._hop_torch(stacked, *args))
+    torch.cuda.synchronize()
+    la, lp = chunk_lanes(ea), chunk_lanes(ep)
+    assert_lanes_equal(torch, la, lp, "E")
+    check(list(ea.columns) == list(ep.columns), "E: column order")
+    err = max_abs_diff(torch, la, lp)
+    ms = time_ms(torch, lambda: hw.hop_step_fn(stacked, *args), 10)
+    plain = time_ms(torch, lambda: hw._hop_torch(stacked, *args), 5)
+    n_in = stacked.valid.numel()
+    row_in = sum(a.element_size() for a in stacked.columns.values()) + 1 + 4
+    row_out = sum(a.element_size() for a in ea.columns.values()) + 1 + 4
+    nbytes = n_in * row_in + ea.valid.numel() * row_out
+    return {
+        "name": "E hop expand", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/hop_expand.cu",
+        "replaces": "risingwave_tpu/executors/hop_window.py:27",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": None,
+        "shape": {"chunks": EPOCH_CHUNKS, "chunk_rows": CHUNK_EVENTS, "rows_out": int(ea.valid.numel())},
+    }, ea
+
+
+def reduce_outputs(torch, out) -> dict:
+    keys, rep, w, red, mret = out
+    lanes = {f"key{i}": k for i, k in enumerate(keys)}
+    lanes.update({"rep_valid": rep, "w": w, "minmax_ret": mret})
+    lanes.update({f"red.{k}": v for k, v in red.items()})
+    return lanes
+
+
+def kernel_f(torch, dev, flat):
+    from risingwave_tpu_torch.executors.hash_agg import _build_key_lanes
+    from risingwave_tpu_torch.ops import agg as agg_ops
+    from risingwave_tpu_torch.ops.agg import AggCall
+    from risingwave_tpu_torch.ops.hashing import hash128
+
+    calls = (AggCall("count_star", None, "num"),)  # q5's
+    keys = _build_key_lanes(flat, ("auction", "window_start"), (False, False))
+    signs = flat.effective_signs()
+    n = signs.numel()
+    fa = agg_ops.reduce_by_key(keys, signs, calls, {}, {})
+    fp = agg_ops._reduce_by_key_torch(keys, signs, calls, {}, {})
+    torch.cuda.synchronize()
+    la, lp = reduce_outputs(torch, fa), reduce_outputs(torch, fp)
+    assert_lanes_equal(torch, la, lp, "F")
+    err = max_abs_diff(torch, la, lp)
+    n_invisible = int((signs == 0).sum())
+    check(n_invisible > 0, "F: the epoch has invisible rows")
+    # a forced fingerprint collision: pairs of different keys share one
+    # fingerprint pair, and some visible rows take the invisible rows'
+    # 0xFFFFFFFF fingerprints (they sort among them and split)
+    h1, h2 = hash128(keys)
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    pick = torch.randperm(n, generator=g)[:20_000].to(dev)
+    src = torch.randperm(n, generator=g)[:20_000].to(dev)
+    h1c, h2c = h1.clone(), h2.clone()
+    h1c[pick], h2c[pick] = h1[src], h2[src]
+    ones = torch.randperm(n, generator=g)[:2_000].to(dev)
+    h1c[ones] = 0xFFFFFFFF
+    h2c[ones] = 0xFFFFFFFF
+    ca = agg_ops._reduce_by_key_cuda(keys, signs, calls, {}, {}, fingerprints=(h1c, h2c))
+    cp = agg_ops._reduce_by_key_torch(keys, signs, calls, {}, {}, fingerprints=(h1c, h2c))
+    torch.cuda.synchronize()
+    lca, lcp = reduce_outputs(torch, ca), reduce_outputs(torch, cp)
+    assert_lanes_equal(torch, lca, lcp, "F with a forced collision")
+    err = max(err, max_abs_diff(torch, lca, lcp))
+    # per-key totals do not depend on the collision
+    rep_keys = lambda out: torch.stack([out[0][0][out[1]], out[0][1][out[1]], out[2][out[1]]], 1)
+    tot = lambda m: torch.unique(m[:, :2], dim=0, return_inverse=True)
+    ka, ia = tot(rep_keys(fa))
+    kc, ic = tot(rep_keys(ca))
+    sa = torch.zeros(len(ka), dtype=torch.int64, device=dev).index_add_(0, ia, rep_keys(fa)[:, 2])
+    sc = torch.zeros(len(kc), dtype=torch.int64, device=dev).index_add_(0, ic, rep_keys(ca)[:, 2])
+    check(torch.equal(ka, kc) and torch.equal(sa, sc), "F: per-key sums survive the collision")
+    ms = time_ms(torch, lambda: agg_ops.reduce_by_key(keys, signs, calls, {}, {}), 5)
+    plain = time_ms(torch, lambda: agg_ops._reduce_by_key_torch(keys, signs, calls, {}, {}), 3)
+    key64 = ((h1 << 32) | h2) ^ (-(2**63))  # the unsigned order as int64
+    lib = time_ms(torch, lambda: torch.sort(key64, stable=True), 5)
+    # key lanes and signs read once; sorted keys, rep_valid and w written
+    nbytes = n * (8 + 8 + 4) + n * (8 + 8 + 1 + 8)
+    reps = int(fa[1].sum())
+    return {
+        "name": "F reduce_by_key", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/reduce_by_key.cu",
+        "replaces": "risingwave_tpu/ops/agg.py:334",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": lib,
+        "library_call": "torch.sort(stable=True) of the 64-bit fingerprint key (the sort alone)",
+        "shape": {"rows": n, "invisible": n_invisible, "representatives": reps,
+                  "collided_rows": 20_000, "all_ones_rows": 2_000},
+    }, (keys, fa)
+
+
+def kernel_g(torch, dev, rng, f_out):
+    from risingwave_tpu_torch.ops import agg as agg_ops
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.ops.agg import AggCall
+
+    keys, (sorted_keys, rep_valid, w, reduced, mret) = f_out
+    calls = (AggCall("count_star", None, "num"),)
+    # a table at the main path's mean load: MID_KEYS occupied slots, 70 %
+    # of them live, plus the epoch's own keys
+    pool = rng.choice(1 << 40, size=MID_KEYS, replace=False).astype(np.int64)
+    pre = (torch.from_numpy(pool >> 11).to(dev), torch.from_numpy((pool & 2047) * 2000).to(dev))
+    table = ht.HashTable.create(TABLE_CAP, (torch.int64, torch.int64), device=dev)
+    ones = torch.ones(MID_KEYS, dtype=torch.bool, device=dev)
+    _, pre_slots, _, _ = ht._lookup_or_insert_torch(table, pre, ones)
+    live_pre = pre_slots[: MID_KEYS * 7 // 10].long()
+    table.live[live_pre] = True
+    base = agg_ops.create_state(TABLE_CAP, calls, {}, dev)
+    counts = torch.from_numpy(rng.integers(1, 50, len(live_pre))).to(dev)
+    base.row_count[live_pre] = counts
+    base.accums["num"][live_pre] = counts
+    _, slots, _, _ = ht.lookup_or_insert(table, sorted_keys, rep_valid)
+    torch.cuda.synchronize()
+    check(bool((slots[rep_valid] >= 0).all()), "G: every representative has a slot")
+
+    def clone_state(s):
+        return agg_ops.AggState(
+            s.row_count.clone(), {k: v.clone() for k, v in s.accums.items()}, {}, {
+                k: v.clone() for k, v in s.emitted.items()}, {}, s.emitted_valid.clone(),
+            s.dirty.clone(), s.minmax_retracted.clone(), s.sdirty.clone(), s.stored.clone(),
+        )
+
+    sa, sp = clone_state(base), clone_state(base)
+    la, lp = table.live.clone(), table.live.clone()
+    agg_ops.apply_reduced(sa, calls, slots, rep_valid, w, reduced, mret, live=la)
+    agg_ops._apply_reduced_torch(sp, calls, slots, rep_valid, w, reduced, mret, lp)
+    torch.cuda.synchronize()
+    assert_lanes_equal(torch, state_lanes(sa), state_lanes(sp), "G")
+    check(torch.equal(la, lp), "G: live = row_count > 0")
+    err = max_abs_diff(torch, state_lanes(sa), state_lanes(sp))
+    st, sp2 = clone_state(base), clone_state(base)
+    lt = table.live.clone()
+    ms = time_ms(torch, lambda: agg_ops.apply_reduced(st, calls, slots, rep_valid, w, reduced, mret, live=lt), 10)
+    plain = time_ms(torch, lambda: agg_ops._apply_reduced_torch(sp2, calls, slots, rep_valid, w, reduced, mret, lt), 5)
+    active = rep_valid & (slots >= 0)
+    idx, ww = slots[active].long(), w[active]
+    lib = time_ms(torch, lambda: st.row_count.index_add_(0, idx, ww), 10)
+    n = slots.numel()
+    n_active = int(active.sum())
+    touched = int(torch.unique(idx).numel())
+    # rep_valid + slot per row; w per representative; per touched slot
+    # row_count and num read and written, row_count read again for live,
+    # dirty, sdirty and live written
+    nbytes = n * (1 + 4) + n_active * 8 + touched * (16 + 16 + 8 + 3)
+    return {
+        "name": "G apply_reduced", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/apply_reduced.cu",
+        "replaces": "risingwave_tpu/ops/agg.py:464",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": lib,
+        "library_call": "index_add_ of w into row_count at the representatives' slots",
+        "shape": {"rows": n, "representatives": n_active, "capacity": TABLE_CAP,
+                  "occupied_before": MID_KEYS},
+    }, (table, sa)
+
+
+def kernel_h(torch, dev, g_out):
+    from types import SimpleNamespace
+
+    from risingwave_tpu_torch import integrity
+
+    table, state = g_out
+    agg = integrity.agg_lanes(table, state)
+    mv_state = SimpleNamespace(values={"num": state.row_count}, vnulls={})
+    mv = integrity.mv_lanes(table, mv_state)
+    worst = 0.0
+    for what, (lanes, live) in (("agg", agg), ("mv", mv)):
+        got = integrity.digest_from_scalar(integrity.device_digest(lanes, live))
+        plain = integrity.digest_from_scalar(integrity._device_digest_torch(
+            lanes, sorted(lanes), integrity._masks(live)))
+        host = integrity.host_digest(*integrity.host_lanes(lanes, live))
+        check(got == plain == host, f"H {what}: kernel {got:x}, plain {plain:x}, numpy {host:x}")
+        worst = max(worst, float(abs(got - plain)), float(abs(got - host)))
+
+    def both(fn):
+        fn(*agg)
+        fn(*mv)
+
+    ms = time_ms(torch, lambda: both(integrity.device_digest), 10)
+    plain_fn = lambda lanes, live: integrity._device_digest_torch(lanes, sorted(lanes), integrity._masks(live))
+    plain = time_ms(torch, lambda: both(plain_fn), 3)
+    per_slot = lambda lanes, live: sum(
+        a.element_size() * (a.numel() // TABLE_CAP) for a in lanes.values()
+    ) + len(integrity._masks(live))
+    nbytes = TABLE_CAP * (per_slot(*agg) + per_slot(*mv))
+    return {
+        "name": "H state digest", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/state_digest.cu",
+        "replaces": "risingwave_tpu/integrity.py:329",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": None,
+        "shape": {"capacity": TABLE_CAP, "calls": "agg lanes + MV lanes (one barrier's two digests)",
+                  "bytes_per_slot": nbytes / TABLE_CAP},
+    }
+
+
+def kernel_i(torch, dev, g_out):
+    """I against its plain version on G's 2^24-slot table (MID_KEYS
+    occupied slots plus the epoch's keys) rebuilt to 2^25 slots, as phase
+    6 rebuilds the MV: kernel A re-inserts the kept keys once, then both
+    versions move the same lanes to the same new slots. Timed on the
+    MV's lanes (live, num, sdirty, stored); the agg's lanes are checked
+    too."""
+    from risingwave_tpu_torch.ops import hash_table as ht
+
+    table, state = g_out
+    new_cap = 2 * TABLE_CAP
+    keep = table.live | state.sdirty | state.stored  # the MV rebuild's rule
+    new_table = ht.HashTable.create(new_cap, tuple(k.dtype for k in table.keys), device=dev)
+    _, new_slots, _, _ = ht.lookup_or_insert(new_table, table.keys, keep)
+    mv_src = [table.live, state.row_count, state.sdirty, state.stored]
+    agg_src = [table.live, state.row_count, *state.accums.values(), *state.nonnull.values(),
+               *state.emitted.values(), *state.emitted_isnull.values(), state.emitted_valid,
+               state.dirty, state.sdirty, state.stored]
+    fresh = lambda srcs: [torch.zeros(new_cap, dtype=a.dtype, device=dev) for a in srcs]
+    worst = 0.0
+    for what, srcs in (("MV", mv_src), ("agg", agg_src)):
+        got, want = fresh(srcs), fresh(srcs)
+        ht.move_slots(srcs, got, new_slots, keep)
+        ht._move_slots_torch(srcs, want, new_slots, keep)
+        torch.cuda.synchronize()
+        ga = {str(i): t for i, t in enumerate(got)}
+        wa = {str(i): t for i, t in enumerate(want)}
+        assert_lanes_equal(torch, ga, wa, f"I {what} lanes")
+        worst = max(worst, max_abs_diff(torch, ga, wa))
+    ok = keep & (new_slots >= 0)
+    n_kept = int(ok.sum())
+    check(n_kept == int(keep.sum()) == int(new_table.claimed), "I: every kept key re-inserted")
+    dst = fresh(mv_src)
+    ms = time_ms(torch, lambda: ht.move_slots(mv_src, dst, new_slots, keep), 10)
+    plain = time_ms(torch, lambda: ht._move_slots_torch(mv_src, dst, new_slots, keep), 5)
+    idx, vals = new_slots[ok].long(), state.row_count[ok]
+    lib = time_ms(torch, lambda: dst[1].index_copy_(0, idx, vals), 10)
+    # keep and new_slots read over the old table; per kept slot each
+    # lane read once and written once
+    row_bytes = sum(a.element_size() for a in mv_src)
+    nbytes = TABLE_CAP * (1 + 4) + n_kept * 2 * row_bytes
+    return {
+        "name": "I slot move", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/slot_move.cu",
+        "replaces": "risingwave_tpu/executors/materialize.py:587 (and hash_agg.py:268)",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": lib,
+        "library_call": "index_copy_ of the num lane's kept values to their new slots",
+        "shape": {"capacity": TABLE_CAP, "new_capacity": new_cap, "kept": n_kept,
+                  "lanes": "MV: live, num, sdirty, stored"},
+    }
+
+
+def kernel_epoch_dtypes(torch, dev, rng):
+    """E, F, G and H over their other lane types at a small size, each
+    against its plain version: E with a null lane and negative
+    timestamps; F over int32 + float64 keys (NaN, -0.0), retractions,
+    invisible rows and every call kind (int64/int32/float64 SUM, int and
+    float MIN/MAX); G on those lanes; H over bool, int32, float32 and a
+    2-D lane. Exact, except the float64 SUM lanes, whose rows are added
+    in another order (tolerance: 1e-12 relative)."""
+    from risingwave_tpu_torch import integrity
+    from risingwave_tpu_torch.array.chunk import StreamChunk, flatten_stacked, stack_chunks
+    from risingwave_tpu_torch.executors import hop_window as hw
+    from risingwave_tpu_torch.ops import agg as agg_ops
+    from risingwave_tpu_torch.ops.agg import AggCall
+
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    cap, nch = 3000, 3
+    chunks = []
+    for _ in range(nch):
+        m = int(rng.integers(cap // 2, cap))
+        chunks.append(StreamChunk.from_numpy(
+            {"t": rng.integers(-50_000, 50_000, m), "p": rng.integers(0, 9, m).astype(np.int32)},
+            cap, ops=rng.integers(0, 4, m).astype(np.int32), nulls={"p": rng.random(m) < 0.3},
+            device=dev,
+        ))
+    st = stack_chunks(chunks)
+    ea = flatten_stacked(hw.hop_step_fn(st, "t", 9_000, 3_000, "w"))
+    ep = flatten_stacked(hw._hop_torch(st, "t", 9_000, 3_000, "w"))
+    assert_lanes_equal(torch, chunk_lanes(ea), chunk_lanes(ep), "E dtypes")
+
+    n = 40_000
+    f = rng.integers(-8, 8, n) / 4.0
+    f[rng.random(n) < 0.1] = np.nan
+    f[rng.random(n) < 0.1] = -0.0
+    keys = (put(rng.integers(-20, 20, n).astype(np.int32)), put(f))
+    signs = put(rng.choice([1, 1, 1, -1, 0], n).astype(np.int32))
+    vals = {"v": put(rng.integers(-10**6, 10**6, n)), "w": put(rng.integers(-99, 99, n).astype(np.int32)),
+            "x": put(rng.standard_normal(n)), "g": put(rng.standard_normal(n).astype(np.float32))}
+    nulls = {"v": put(rng.random(n) < 0.1), "x": put(rng.random(n) < 0.1)}
+    calls = (AggCall("count_star", None, "n"), AggCall("count", "v", "cv"), AggCall("sum", "v", "sv"),
+             AggCall("sum", "w", "sw"), AggCall("sum", "x", "sx"), AggCall("min", "w", "mnw"),
+             AggCall("max", "v", "mxv"), AggCall("min", "x", "mnx"), AggCall("max", "g", "mxg"))
+    fa = agg_ops.reduce_by_key(keys, signs, calls, vals, nulls)
+    fp = agg_ops._reduce_by_key_torch(keys, signs, calls, vals, nulls)
+    la, lp = reduce_outputs(torch, fa), reduce_outputs(torch, fp)
+    sx_a, sx_p = la.pop("red.sum_sx"), lp.pop("red.sum_sx")
+    assert_lanes_equal(torch, la, lp, "F dtypes")
+    check(torch.allclose(sx_a, sx_p, rtol=1e-12, atol=0, equal_nan=True), "F dtypes: float64 SUM")
+    f_err = float((sx_a - sx_p).abs().nan_to_num(0.0).max())
+    check(bool(fa[4]), "F dtypes: the MIN/MAX retraction latched")
+
+    cap2 = 1 << 12
+    in_dt = {"v": torch.int64, "w": torch.int32, "x": torch.float64, "g": torch.float32}
+    slots = put(rng.integers(-1, cap2, n).astype(np.int32))
+    sa, sp = (agg_ops.create_state(cap2, calls, in_dt, dev) for _ in range(2))
+    live_a, live_p = (torch.zeros(cap2, dtype=torch.bool, device=dev) for _ in range(2))
+    agg_ops.apply_reduced(sa, calls, slots, fa[1], fa[2], fa[3], fa[4], live=live_a)
+    agg_ops._apply_reduced_torch(sp, calls, slots, fp[1], fp[2], fp[3], fp[4], live_p)
+    ga, gp = state_lanes(sa), state_lanes(sp)
+    acc_a, acc_p = ga.pop("accums.sx"), gp.pop("accums.sx")
+    assert_lanes_equal(torch, ga, gp, "G dtypes")
+    check(torch.equal(live_a, live_p), "G dtypes: live")
+    check(torch.allclose(acc_a, acc_p, rtol=1e-12, atol=0, equal_nan=True), "G dtypes: float64 SUM")
+    g_err = float((acc_a - acc_p).abs().nan_to_num(0.0).max())
+
+    m = 5000
+    lanes = {"b": put(rng.random(m) < 0.5), "i": put(rng.integers(-9, 9, m).astype(np.int32)),
+             "f": put(rng.standard_normal(m).astype(np.float32)),
+             "pair": put(rng.integers(-9, 9, (m, 3))), "d": put(rng.standard_normal(m))}
+    live = put(rng.random(m) < 0.5)
+    for mask in (None, live, (live, put(rng.random(m) < 0.2))):
+        got = integrity.digest_from_scalar(integrity.device_digest(lanes, mask))
+        host = integrity.host_digest(*integrity.host_lanes(lanes, mask)) if mask is not None else \
+            integrity.host_digest({k: v.cpu().numpy() for k, v in lanes.items()})
+        check(got == host, "H dtypes: kernel = numpy host_digest")
+    return {"phase": "kernel_epoch_dtypes", "float64_sum_max_abs_err": max(f_err, g_err),
+            "checks": "E null lane + negative ts; F int32/float64(NaN, -0.0) keys, retractions, "
+                      "every call kind; G on those; H bool/int32/float32/float64/2-D lanes: equal"}
+
+
+# -- phase 4: the interpreted path --------------------------------------------
 def state_cap(expected_rows: int, floor: int) -> int:
     """Capacity whose growth margin covers the expected volume (the
     repo benchmark's ``_state_cap`` rule)."""
@@ -626,8 +1005,9 @@ def main_path(torch, dev, epochs: int):
     check(np.array_equal(got["auction"][order], a), "q5: auction lane vs oracle")
     check(np.array_equal(got["window_start"][order], w), "q5: window_start lane vs oracle")
     check(np.array_equal(got["num"][order], c), "q5: counts vs oracle")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} launched on the main path")
+    for name in ("lookup_or_insert", "agg_apply", "agg_flush", "mv_upsert", "hop_expand"):
+        check(launches[name] > 0, f"kernel {name} launched on the interpreted path")
+    check_claimed(q5, "q5")
     return {
         "phase": "q5", "epochs": epochs, "events": total_events, "bids": n_bids,
         "hopped_rows": int(5 * n_bids), "chunk_capacity": CHUNK_EVENTS,
@@ -638,22 +1018,26 @@ def main_path(torch, dev, epochs: int):
         "agg_capacity": q5.agg.table.capacity, "mv_capacity": q5.mview.table.capacity,
         "max_memory_allocated": int(peak), "launches": launches,
         "oracle": "numpy hop expansion + np.unique count: equal",
-    }, launches, (chunks, cap)
+    }, launches, (chunks, cap, q5, (a, w, c))
 
 
-def profile_q5(torch, dev, chunks, cap, epochs: int):
-    """Where the time goes in phase 4's run: a fresh q5-lite over the
-    same chunks, one warm-up epoch, then ``epochs`` under
-    ``torch.profiler``. Wall time of the window, device time summed over
-    its kernels and copies, the device's idle share, the host time of
-    the pushes and barriers, and the device time by kernel name."""
+def profile_q5(torch, dev, chunks, cap, epochs: int, fused: bool):
+    """Where the time goes in phase 4's (or, ``fused``, phase 6's) run: a
+    fresh q5-lite over the same chunks, one warm-up epoch, then
+    ``epochs`` under ``torch.profiler``. Wall time of the window, device
+    time summed over its kernels and copies, the device's idle share,
+    the host time of the pushes and barriers, and the device time by
+    kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from risingwave_tpu_torch.queries.nexmark_q import build_q5_lite
+    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline
 
     check(len(chunks) > epochs, "profile: more epochs than phase 4 ran")
     q5 = build_q5_lite(capacity=cap, state_cleaning=False, device=dev)
+    if fused:
+        fuse_pipeline(q5.pipeline, label="q5")
     host = {"push_s": 0.0, "barrier_s": 0.0}
 
     def run(per_epoch):
@@ -683,7 +1067,7 @@ def profile_q5(torch, dev, chunks, cap, epochs: int):
     device_ms = sum(by_name.values())
     measured = bool(by_name)
     return {
-        "phase": "q5_profile", "epochs": epochs,
+        "phase": "q5_fused_profile" if fused else "q5_profile", "epochs": epochs,
         "bids": sum(int(c.valid.sum()) for ep in chunks[1 : 1 + epochs] for c in ep),
         "wall_ms": wall_s * 1e3,
         "device_ms": device_ms if measured else "not measured",
@@ -693,10 +1077,126 @@ def profile_q5(torch, dev, chunks, cap, epochs: int):
     }
 
 
+# -- phase 6: the fused per-barrier program ------------------------------------
+FUSED_KERNELS = ("lookup_or_insert", "agg_flush", "mv_upsert", "hop_expand",
+                 "reduce_by_key", "apply_reduced", "state_digest", "slot_move")
+
+
+def mv_rows_sorted(mview) -> dict:
+    got = mview.to_numpy()
+    order = np.lexsort((got["window_start"], got["auction"]))
+    return {k: v[order] for k, v in got.items()}
+
+
+def state_digests(q5) -> dict:
+    """The numpy host_digest of an executor pair's lanes, read back."""
+    from risingwave_tpu_torch import integrity
+
+    agg = integrity.agg_lanes(q5.agg.table, q5.agg.state, q5.agg._float_extremes)
+    mv = integrity.mv_lanes(q5.mview.table, q5.mview.state)
+    return {"agg": integrity.host_digest(*integrity.host_lanes(*agg)),
+            "mv": integrity.host_digest(*integrity.host_lanes(*mv))}
+
+
+def check_claimed(q5, what: str) -> None:
+    """Each table's claimed-slot counter (kept by kernel A, read as the
+    occupancy at every barrier) equals its claimed slots."""
+    for name, table in (("agg", q5.agg.table), ("mv", q5.mview.table)):
+        check(int(table.claimed) == int((table.fp1 != 0).sum()),
+              f"{what}: {name} table's claimed counter")
+
+
+def check_sync_guard(torch, dev) -> None:
+    """The fused program's guard is armed: a device read inside it raises."""
+    from risingwave_tpu_torch.runtime.fused_step import no_device_reads
+
+    probe = torch.zeros(1, device=dev)
+    try:
+        with no_device_reads(dev):
+            probe.item()
+    except RuntimeError:
+        return
+    raise AssertionError("check failed: no_device_reads let a device read through")
+
+
+def fused_path(torch, dev, chunks, cap, interp_q5, oracle):
+    """q5 through ``fuse_pipeline`` over phase 4's chunks: one program per
+    barrier (kernels E, F, A, G, then per flush round C, A, D, then H
+    twice), run under ``no_device_reads`` (set_sync_debug_mode "error")
+    from the end of the host bookkeeping to the staged scalar copy."""
+    from risingwave_tpu_torch import _kernels
+    from risingwave_tpu_torch.queries.nexmark_q import build_q5_lite
+    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline
+
+    check_sync_guard(torch, dev)
+    q5 = build_q5_lite(capacity=cap, state_cleaning=False, device=dev)
+    (wrapper,) = fuse_pipeline(q5.pipeline, label="q5")
+    check(wrapper.covers_whole_chain, "fused: one program covers hop -> agg -> MV")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    barrier_ms, rounds, rebuilds, mv_caps = [], [], [], []
+    t_run = time.perf_counter()
+    for e, per_epoch in enumerate(chunks):
+        for c in per_epoch:
+            q5.pipeline.push(c)
+        flush_before = _kernels.LAUNCHES["agg_flush"]
+        mv_table = q5.mview.table
+        tb = time.perf_counter()
+        q5.pipeline.barrier()
+        torch.cuda.synchronize()
+        barrier_ms.append((time.perf_counter() - tb) * 1e3)
+        rounds.append(_kernels.LAUNCHES["agg_flush"] - flush_before)
+        mv_caps.append(q5.mview.table.capacity)
+        if q5.mview.table is not mv_table:
+            rebuilds.append({"barrier": e, "mv_capacity": q5.mview.table.capacity})
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    got = mv_rows_sorted(q5.mview)
+    a, w, c = oracle
+    check(len(got["auction"]) == len(a), "fused: group count vs oracle")
+    check(np.array_equal(got["auction"], a) and np.array_equal(got["window_start"], w)
+          and np.array_equal(got["num"], c), "fused: MV vs oracle")
+    interp = mv_rows_sorted(interp_q5.mview)
+    check(all(np.array_equal(got[k], interp[k]) for k in got), "fused: MV vs phase 4's MV")
+    lane_digests = state_digests(q5)
+    interp_digests = state_digests(interp_q5)
+    check(wrapper.last_digests == lane_digests,
+          f"fused: staged digests {wrapper.last_digests} vs host_digest {lane_digests}")
+    check(lane_digests == interp_digests, "fused: digests vs phase 4's interpreted state")
+    for name in FUSED_KERNELS:
+        check(launches[name] > 0, f"kernel {name} launched on the fused path")
+    check_claimed(q5, "fused")
+    tel = wrapper.last_telemetry
+    check(tel["rows_in"] == sum(int(c.valid.sum()) for c in chunks[-1]),
+          "fused: rows_in = the last epoch's bids")
+    check(0 < tel["dirty_groups"] <= tel["mv_rows"] <= 2 * tel["dirty_groups"],
+          "fused: dirty_groups and mv_rows (1 or 2 delta rows per group)")
+    n_bids = sum(int(c.valid.sum()) for ep in chunks for c in ep)
+    return {
+        "phase": "q5_fused", "epochs": len(chunks), "bids": n_bids,
+        "bids_per_s": n_bids / run_s, "run_s": run_s,
+        "barrier_ms_p50": float(np.percentile(barrier_ms, 50)),
+        "barrier_ms_p99": float(np.percentile(barrier_ms, 99)),
+        "barrier_ms": barrier_ms, "flush_rounds": rounds, "mv_rebuilds": rebuilds,
+        "mv_capacity_by_barrier": mv_caps,
+        "agg_capacity": q5.agg.table.capacity, "mv_capacity": q5.mview.table.capacity,
+        "max_memory_allocated": int(peak), "launches": launches,
+        "digests": {k: f"{v:016x}" for k, v in lane_digests.items()},
+        "last_telemetry": wrapper.last_telemetry,
+        "sync_guard": "set_sync_debug_mode('error') over the program part of every barrier: held",
+        "oracle": "numpy oracle and phase 4's MV: equal; staged digests = host_digest of "
+                  "the lanes read back = host_digest of phase 4's state",
+    }, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
-                    help="after phase 4, profile this many of its epochs again")
+                    help="profile this many of phase 4's epochs again, on each path")
     args = ap.parse_args()
     import torch
 
@@ -729,18 +1229,47 @@ def main() -> int:
     emit({"phase": "kernel", **d_row})
     emit(kernel_dtypes(torch, dev, rng))
     torch.cuda.empty_cache()
+    e_row, flat = kernel_e(torch, dev)
+    emit({"phase": "kernel", **e_row})
+    f_row, f_out = kernel_f(torch, dev, flat)
+    emit({"phase": "kernel", **f_row})
+    del flat
+    g_row, g_out = kernel_g(torch, dev, rng, f_out)
+    emit({"phase": "kernel", **g_row})
+    del f_out
+    h_row = kernel_h(torch, dev, g_out)
+    emit({"phase": "kernel", **h_row})
+    i_row = kernel_i(torch, dev, g_out)
+    emit({"phase": "kernel", **i_row})
+    del g_out
+    emit(kernel_epoch_dtypes(torch, dev, rng))
+    torch.cuda.empty_cache()
 
-    q5_row, launches, (chunks, cap) = main_path(torch, dev, EPOCHS)
+    q5_row, launches, (chunks, cap, interp_q5, oracle) = main_path(torch, dev, EPOCHS)
     emit(q5_row)
     if args.profile:
-        emit(profile_q5(torch, dev, chunks, cap, args.profile))
+        emit(profile_q5(torch, dev, chunks, cap, args.profile, fused=False))
+    torch.cuda.empty_cache()
+    fused_row, fused_launches = fused_path(torch, dev, chunks, cap, interp_q5, oracle)
+    emit(fused_row)
+    del interp_q5
+    if args.profile:
+        torch.cuda.empty_cache()
+        emit(profile_q5(torch, dev, chunks, cap, args.profile, fused=True))
     del chunks
 
-    rows = [a_row, b_row, c_row, d_row]
-    for row, key in zip(rows, ("lookup_or_insert", "agg_apply", "agg_flush", "mv_upsert")):
-        row["launches"] = launches[key]
+    rows = [a_row, b_row, c_row, d_row, e_row, f_row, g_row, h_row, i_row]
+    keys = ("lookup_or_insert", "agg_apply", "agg_flush", "mv_upsert",
+            "hop_expand", "reduce_by_key", "apply_reduced", "state_digest", "slot_move")
+    for row, key in zip(rows, keys):
+        # each main path's run counts from zero: phase 4 (interpreted)
+        # and phase 6 (fused)
+        row["launches_interpreted"] = launches[key]
+        row["launches_fused"] = fused_launches[key]
+        row["launches"] = launches[key] + fused_launches[key]
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_interpreted",
+            "launches_fused")
     emit({"kernels": [{k: r[k] for k in keep} for r in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

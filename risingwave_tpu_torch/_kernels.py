@@ -10,7 +10,9 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
-A, C and D, two per call of B (the apply and its set_live launch).
+A, C, D, E, F, G and H (an entry point may launch several kernels in
+order on the stream), two per call of B (the apply and its set_live),
+one per 24 lanes moved by a call of I.
 """
 
 from __future__ import annotations
@@ -38,25 +40,54 @@ SOURCES = {
     "agg_apply": "agg_apply.cu",
     "agg_flush": "agg_flush.cu",
     "mv_upsert": "mv_upsert.cu",
+    "hop_expand": "hop_expand.cu",
+    "reduce_by_key": "reduce_by_key.cu",
+    "apply_reduced": "apply_reduced.cu",
+    "state_digest": "state_digest.cu",
+    "slot_move": "slot_move.cu",
 }
 
 # C entry points: (argtypes,) — every pointer and the stream as c_void_p
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "lookup_or_insert": {
-        "rw_lookup_or_insert": [_P, _I, _L, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P],
+        "rw_lookup_or_insert": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P],
     },
     "agg_apply": {
         "rw_agg_apply": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P],
         "rw_agg_set_live": [_L, _P, _P, _P, _P],
     },
     "agg_flush": {
-        "rw_agg_flush": [_P, _I, _P, _I, _P, _L, _P, _P, _I, _P, _P, _P, _P, _P],
+        "rw_agg_flush": [_P, _I, _P, _I, _P, _L, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     },
     "mv_upsert": {
-        "rw_mv_upsert": [_P, _I, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P],
+        "rw_mv_upsert": [_P, _I, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "hop_expand": {
+        "rw_hop_expand": [_P, _I, _L, _L, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "reduce_by_key": {
+        "rw_reduce_by_key": [_P, _I, _L, _P, _P, _P, _P, _I, _P, _P]
+        + [_P] * 13 + [_P],
+    },
+    "apply_reduced": {
+        "rw_apply_reduced": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "state_digest": {
+        "rw_state_digest": [_P, _I, _L, _P, _P, _P, _I, _P, _P],
+    },
+    "slot_move": {
+        "rw_slot_move": [_P, _I, _L, _P, _P, _P],
     },
 }
+
+# rows per block of reduce_by_key, which sizes its scratch
+# (RBK_TILE in csrc/reduce_by_key.cu)
+RBK_TILE = 2048
+# blocks of the state digest's first pass (csrc/state_digest.cu SD_BLOCKS)
+DIGEST_BLOCKS = 1024
+# lanes one slot_move launch takes (csrc/slot_move.cu SM_MAX_LANES)
+SLOT_MOVE_LANES = 24
 
 # lane dtype codes shared with csrc/common.cuh (RwDType)
 DTYPE_CODES = {
@@ -144,7 +175,15 @@ def library(name: str) -> ctypes.CDLL:
 def call(name: str, fn: str, *args) -> None:
     """Launch ``fn`` of kernel ``name`` on the current stream (the stream
     is appended as the last argument), raise on a CUDA error, and count
-    the launch."""
+    the launch.
+
+    The caller must hold a reference to every tensor whose ``data_ptr``
+    it passes until this returns: the launch is only enqueued, and a
+    tensor freed before then (a temporary cast, say) returns its block
+    to PyTorch's caching allocator, which may hand it to the next
+    allocation on the stream and have it overwritten before the kernel
+    reads it. Blocks freed after ``call`` returns are safe, since the
+    allocator reuses them only in stream order."""
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(library(name), fn)(*args, stream)
     if rc != 0:

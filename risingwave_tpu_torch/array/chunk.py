@@ -232,3 +232,30 @@ def concat_chunks(chunks, capacity: Optional[int] = None, device=None) -> Stream
         nulls=nulls or None,
         device=device if device is not None else chunks[0].device,
     )
+
+
+def stack_chunks(chunks) -> StreamChunk:
+    """Stack chunks of one signature (capacity, columns, null lanes,
+    dtypes) into one chunk whose lanes carry a leading (n_chunks,) axis
+    (reference: ``parallel/sharded_agg.py:615``)."""
+    c0 = chunks[0]
+    stack = lambda get: torch.stack([get(c) for c in chunks])
+    return StreamChunk(
+        {n: stack(lambda c, n=n: c.columns[n]) for n in c0.columns},
+        stack(lambda c: c.valid),
+        {n: stack(lambda c, n=n: c.nulls[n]) for n in c0.nulls},
+        stack(lambda c: c.ops),
+    )
+
+
+def flatten_stacked(chunk: StreamChunk) -> StreamChunk:
+    """A stacked chunk as one row batch, chunk 0's rows first (a view;
+    reference: ``fused_step.py:323``, ``hash_agg.py:205-211``)."""
+    flat = lambda a: a.reshape(-1)
+    return StreamChunk(
+        {n: flat(a) for n, a in chunk.columns.items()},
+        flat(chunk.valid),
+        {n: flat(a) for n, a in chunk.nulls.items()},
+        flat(chunk.ops),
+    )
+

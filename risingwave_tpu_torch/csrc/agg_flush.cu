@@ -7,7 +7,9 @@
 // I), with status = [n_take, overflow]; for those slots the emitted
 // snapshot lanes are refreshed and dirty is cleared. Positions past
 // n_take are zero-filled and invalid. Slots beyond out_cap stay dirty for
-// the next round, so repeated rounds give the reference's union.
+// the next round, so repeated rounds give the reference's union. On
+// request the scan also writes the round's total of dirty groups (the
+// fused program's dirty_groups counter, taken from its first round).
 //
 // What bounds it on the card: the dirty lane (one byte per slot, 16 MiB
 // at 2^24 slots) is read twice, once to count and once to compact; the
@@ -79,36 +81,6 @@ __device__ __forceinline__ int rw_dirty_flags(const uint8_t* dirty, int64_t cap,
   return cnt;
 }
 
-// Exclusive block scan of one int per thread; returns the block total.
-template <int THREADS>
-__device__ __forceinline__ int rw_block_exclusive_scan(int v, int* excl) {
-  __shared__ int warp_sums[THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    int y = __shfl_up_sync(0xFFFFFFFFu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int ws = lane < THREADS / 32 ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      int y = __shfl_up_sync(0xFFFFFFFFu, ws, d);
-      if (lane >= d) ws += y;
-    }
-    if (lane < THREADS / 32) warp_sums[lane] = ws;  // inclusive
-  }
-  __syncthreads();
-  const int warp_base = warp > 0 ? warp_sums[warp - 1] : 0;
-  *excl = warp_base + x - v;
-  const int total = warp_sums[THREADS / 32 - 1];
-  __syncthreads();
-  return total;
-}
-
 __global__ void flush_count_kernel(const uint8_t* dirty, int64_t cap, int32_t* tile_counts) {
   uint8_t flags[FL_ITEMS];
   const int64_t base = (int64_t)blockIdx.x * FL_TILE + (int64_t)threadIdx.x * FL_ITEMS;
@@ -118,9 +90,10 @@ __global__ void flush_count_kernel(const uint8_t* dirty, int64_t cap, int32_t* t
   if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
 }
 
-// One block: exclusive offsets of the per-tile counts, and status.
+// One block: exclusive offsets of the per-tile counts, and status (and,
+// if asked for, the round's dirty-group total).
 __global__ void flush_scan_kernel(int32_t* tile_counts, int n_tiles, int32_t out_cap,
-                                  int32_t* status) {
+                                  int32_t* status, long long* dirty_total) {
   const int per = (n_tiles + FL_SCAN_THREADS - 1) / FL_SCAN_THREADS;
   const int lo = threadIdx.x * per;
   int local = 0;
@@ -136,6 +109,7 @@ __global__ void flush_scan_kernel(int32_t* tile_counts, int n_tiles, int32_t out
   if (threadIdx.x == 0) {
     status[0] = total < out_cap ? total : out_cap;
     status[1] = total > out_cap ? 1 : 0;
+    if (dirty_total != nullptr) *dirty_total = total;
   }
 }
 
@@ -223,11 +197,13 @@ __global__ void flush_write_kernel(GatherLanes g, SnapLanes snap, uint8_t* dirty
 
 // gather: n_gather rows of (old_src, new_src, out, esize, xform), int64.
 // snap: n_snap rows of (src, dst, esize, is_null_of_count), int64.
-// tile_counts: ceil(cap / 4096) int32 scratch.
+// tile_counts: ceil(cap / 4096) int32 scratch. dirty_total: an int64
+// that receives the number of dirty groups before this round, or null.
 RW_EXPORT int rw_agg_flush(const int64_t* gather, int n_gather, const int64_t* snapv,
                            int n_snap, void* dirty, int64_t cap, void* tile_counts,
                            void* status, int out_cap, const void* row_count,
-                           void* emitted_valid, void* ops, void* valid, void* stream) {
+                           void* emitted_valid, void* ops, void* valid, void* dirty_total,
+                           void* stream) {
   if (n_gather < 0 || n_gather > FL_MAX_GATHER || n_snap < 0 || n_snap > FL_MAX_GATHER)
     return (int)cudaErrorInvalidValue;
   GatherLanes g;
@@ -254,7 +230,8 @@ RW_EXPORT int rw_agg_flush(const int64_t* gather, int n_gather, const int64_t* s
   flush_count_kernel<<<n_tiles, FL_THREADS, 0, st>>>((const uint8_t*)dirty, cap,
                                                      (int32_t*)tile_counts);
   flush_scan_kernel<<<1, FL_SCAN_THREADS, 0, st>>>((int32_t*)tile_counts, n_tiles,
-                                                   (int32_t)out_cap, (int32_t*)status);
+                                                   (int32_t)out_cap, (int32_t*)status,
+                                                   (long long*)dirty_total);
   flush_write_kernel<<<n_tiles, FL_THREADS, 0, st>>>(
       g, sn, (uint8_t*)dirty, cap, (const int32_t*)tile_counts, (const int32_t*)status,
       (int32_t)out_cap, (const long long*)row_count, (uint8_t*)emitted_valid,

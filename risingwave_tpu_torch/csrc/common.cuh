@@ -60,3 +60,33 @@ __device__ __forceinline__ double rw_order_key_to_f64(int64_t key) {
   uint64_t b = (k & 0x8000000000000000ull) ? (k & 0x7FFFFFFFFFFFFFFFull) : ~k;
   return __longlong_as_double((long long)b);
 }
+
+// Exclusive block scan of one int per thread; returns the block total.
+template <int THREADS>
+__device__ __forceinline__ int rw_block_exclusive_scan(int v, int* excl) {
+  __shared__ int warp_sums[THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    int y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int ws = lane < THREADS / 32 ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      int y = __shfl_up_sync(0xFFFFFFFFu, ws, d);
+      if (lane >= d) ws += y;
+    }
+    if (lane < THREADS / 32) warp_sums[lane] = ws;  // inclusive
+  }
+  __syncthreads();
+  const int warp_base = warp > 0 ? warp_sums[warp - 1] : 0;
+  *excl = warp_base + x - v;
+  const int total = warp_sums[THREADS / 32 - 1];
+  __syncthreads();
+  return total;
+}

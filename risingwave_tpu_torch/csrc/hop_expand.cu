@@ -1,0 +1,96 @@
+// Kernel E: hop-window expansion of a stacked epoch.
+//
+// Replaces risingwave_tpu/executors/hop_window.py:hop_step_fn (:27) as
+// the reference runs it over a stacked epoch (jax.vmap over the chunk
+// axis, then a flatten): each input row of chunk c at row r lands in
+// factor = ceil(size / slide) output rows, copy k at output index
+// (c * factor + k) * cap + r. So the output is chunk 0's block layout,
+// then chunk 1's, and so on, the order the sort of kernel F relies on.
+// Each copy carries every column and null lane of its row, its
+// window_start = first + k * slide (first: the smallest multiple of
+// slide greater than ts - size), valid & (window_start <= ts), and the
+// row's op.
+//
+// What bounds it on the card: bytes. Every input lane is read once and
+// every output lane written factor times over (5x for q5), all
+// coalesced; there is no arithmetic to speak of.
+//
+// Design: one thread per input row reads the row once and writes its
+// factor copies; for a fixed k the threads of a warp write neighbouring
+// addresses. Columns are copied as raw 1-, 4- or 8-byte elements.
+#include "common.cuh"
+
+#define HOP_MAX_LANES 16
+
+struct HopLanes {
+  const void* src[HOP_MAX_LANES];  // (n_chunks * cap,) input lanes
+  void* dst[HOP_MAX_LANES];        // (n_chunks * factor * cap,) outputs
+  int esize[HOP_MAX_LANES];
+  int n;
+};
+
+__device__ __forceinline__ long long rw_floor_div(long long a, long long b) {
+  long long q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
+  return q;
+}
+
+__global__ void hop_expand_kernel(HopLanes lanes, int64_t n_chunks, int64_t cap, int factor,
+                                  long long size, long long slide, const long long* ts,
+                                  const uint8_t* valid, const int32_t* ops, long long* starts,
+                                  uint8_t* valid_out, int32_t* ops_out) {
+  const int64_t total = n_chunks * cap;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; s < total; s += stride) {
+    const int64_t c = s / cap;
+    const int64_t r = s - c * cap;
+    const long long t = ts[s];
+    const long long first = (rw_floor_div(t - size, slide) + 1) * slide;
+    const bool v = valid[s] != 0;
+    const int32_t op = ops[s];
+    for (int k = 0; k < factor; ++k) {
+      const int64_t o = (c * factor + k) * cap + r;
+      const long long start = first + (long long)k * slide;
+      starts[o] = start;
+      valid_out[o] = (v && start <= t) ? 1 : 0;
+      ops_out[o] = op;
+      for (int l = 0; l < lanes.n; ++l) {
+        switch (lanes.esize[l]) {
+          case 1: ((uint8_t*)lanes.dst[l])[o] = ((const uint8_t*)lanes.src[l])[s]; break;
+          case 4: ((uint32_t*)lanes.dst[l])[o] = ((const uint32_t*)lanes.src[l])[s]; break;
+          case 8:
+            ((unsigned long long*)lanes.dst[l])[o] = ((const unsigned long long*)lanes.src[l])[s];
+            break;
+        }
+      }
+    }
+  }
+}
+
+// copies: n_copies rows of (src, dst, esize), int64.
+RW_EXPORT int rw_hop_expand(const int64_t* copies, int n_copies, int64_t n_chunks, int64_t cap,
+                            int factor, int64_t size, int64_t slide, const void* ts,
+                            const void* valid, const void* ops, void* starts, void* valid_out,
+                            void* ops_out, void* stream) {
+  if (n_copies < 0 || n_copies > HOP_MAX_LANES || factor < 1 || slide <= 0)
+    return (int)cudaErrorInvalidValue;
+  HopLanes h;
+  h.n = n_copies;
+  for (int l = 0; l < n_copies; ++l) {
+    h.src[l] = (const void*)copies[3 * l];
+    h.dst[l] = (void*)copies[3 * l + 1];
+    h.esize[l] = (int)copies[3 * l + 2];
+    if (h.esize[l] != 1 && h.esize[l] != 4 && h.esize[l] != 8) return (int)cudaErrorInvalidValue;
+  }
+  const int64_t total = n_chunks * cap;
+  if (total > 0) {
+    const int threads = 256;
+    int64_t blocks = (total + threads - 1) / threads;
+    if (blocks > 132 * 32) blocks = 132 * 32;
+    hop_expand_kernel<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
+        h, n_chunks, cap, factor, (long long)size, (long long)slide, (const long long*)ts,
+        (const uint8_t*)valid, (const int32_t*)ops, (long long*)starts, (uint8_t*)valid_out,
+        (int32_t*)ops_out);
+  }
+  return (int)cudaGetLastError();
+}

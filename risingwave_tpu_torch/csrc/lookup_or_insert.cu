@@ -24,6 +24,8 @@
 //      generation is a same-key twin of this call's winner: it reports
 //      inserted, not found. A match claimed in an earlier call reports
 //      found = live[slot] (tombstones resolve but are not found).
+//   5. each claim adds one to the table's claimed-slot counter (the
+//      occupancy the host reads at the barrier), one atomic per warp.
 // Rows that run past 64 probes, and invalid rows, get slot -1.
 // Table lanes are read with volatile loads so no stale L1 line is used.
 #include "hashing.cuh"
@@ -71,12 +73,14 @@ __device__ __forceinline__ void rw_lane_store(void* tab, const void* in, int dt,
 
 __global__ void lookup_or_insert_kernel(KeyLanes keys, int64_t n, const uint8_t* valid,
                                         int32_t* fp1, int32_t* fp2, int32_t* stamp,
-                                        const uint8_t* live, uint32_t mask, int32_t gen,
-                                        int32_t* slots, uint8_t* found, uint8_t* inserted) {
+                                        unsigned long long* claimed, const uint8_t* live,
+                                        uint32_t mask, int32_t gen, int32_t* slots,
+                                        uint8_t* found, uint8_t* inserted) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   int32_t out_slot = -1;
   uint8_t out_found = 0, out_ins = 0;
+  bool did_claim = false;
   if (valid[i]) {
     uint32_t h1 = RW_HASH_INIT, h2 = RW_HASH_INIT ^ RW_SEED_FP2;
     for (int l = 0; l < keys.n; ++l) rw_hash_lane(keys.in[l], keys.dt[l], i, h1, h2);
@@ -99,6 +103,7 @@ __global__ void lookup_or_insert_kernel(KeyLanes keys, int64_t n, const uint8_t*
           atomicExch((int*)(stamp + s), gen);
           out_slot = (int32_t)s;
           out_ins = 1;
+          did_claim = true;
           break;
         }
       }
@@ -121,12 +126,17 @@ __global__ void lookup_or_insert_kernel(KeyLanes keys, int64_t n, const uint8_t*
   slots[i] = out_slot;
   found[i] = out_found;
   inserted[i] = out_ins;
+  // the table's claimed-slot counter: one atomic per warp
+  const unsigned act = __activemask();
+  const unsigned won = __ballot_sync(act, did_claim);
+  if (won != 0u && (int)(threadIdx.x & 31) == __ffs(act) - 1)
+    atomicAdd(claimed, (unsigned long long)__popc(won));
 }
 
 // lanes: n_keys rows of (input ptr, dtype code, table ptr), as int64.
 RW_EXPORT int rw_lookup_or_insert(const int64_t* lanes, int n_keys, int64_t n,
                                   const void* valid, void* fp1, void* fp2, void* stamp,
-                                  const void* live, int64_t capacity, int gen,
+                                  void* claimed, const void* live, int64_t capacity, int gen,
                                   void* slots, void* found, void* inserted, void* stream) {
   if (n_keys < 1 || n_keys > RW_MAX_LANES) return (int)cudaErrorInvalidValue;
   KeyLanes k;
@@ -140,7 +150,7 @@ RW_EXPORT int rw_lookup_or_insert(const int64_t* lanes, int n_keys, int64_t n,
     const int threads = 256;
     lookup_or_insert_kernel<<<rw_blocks(n, threads), threads, 0, (cudaStream_t)stream>>>(
         k, n, (const uint8_t*)valid, (int32_t*)fp1, (int32_t*)fp2, (int32_t*)stamp,
-        (const uint8_t*)live, (uint32_t)(capacity - 1), (int32_t)gen, (int32_t*)slots,
+        (unsigned long long*)claimed, (const uint8_t*)live, (uint32_t)(capacity - 1), (int32_t)gen, (int32_t*)slots,
         (uint8_t*)found, (uint8_t*)inserted);
   }
   return (int)cudaGetLastError();

@@ -18,7 +18,9 @@
 // scratch lane (kept all -1 between calls, allocated once per table);
 // launch 2 lets the row whose index won apply its row and reset the
 // scratch entry. Rows of a slot that lost read either the winner's index
-// or -1, never their own, so the reset cannot make a loser win.
+// or -1, never their own, so the reset cannot make a loser win. On
+// request launch 1 also adds the chunk's valid rows to a counter (the
+// fused program's mv_rows), one atomic per warp.
 #include "common.cuh"
 
 struct MvLanes {
@@ -31,9 +33,15 @@ struct MvLanes {
 };
 
 __global__ void mv_last_kernel(int64_t n, const int32_t* slots, const uint8_t* valid,
-                               int32_t* scratch, uint8_t* dropped) {
+                               int32_t* scratch, uint8_t* dropped,
+                               unsigned long long* rows) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !valid[i]) return;
+  const bool v = i < n && valid[i];
+  if (rows != nullptr) {  // every thread of the block is still here
+    const unsigned b = __ballot_sync(0xFFFFFFFFu, v);
+    if ((threadIdx.x & 31) == 0 && b != 0u) atomicAdd(rows, (unsigned long long)__popc(b));
+  }
+  if (!v) return;
   const int32_t s = slots[i];
   if (s < 0) {
     *dropped = 1;
@@ -69,11 +77,12 @@ __global__ void mv_apply_kernel(MvLanes lanes, int64_t n, const int32_t* slots,
 }
 
 // values: n_values rows of (src, dst, esize); nulls: n_nulls rows of
-// (src or 0, dst); all int64.
+// (src or 0, dst); all int64. rows: an int64 the chunk's valid rows are
+// added to, or null.
 RW_EXPORT int rw_mv_upsert(const int64_t* values, int n_values, const int64_t* nulls,
                            int n_nulls, int64_t n, const void* slots, const void* valid,
                            const void* ops, void* scratch, void* live, void* sdirty,
-                           void* dropped, void* stream) {
+                           void* dropped, void* rows, void* stream) {
   if (n_values < 0 || n_values > RW_MAX_LANES || n_nulls < 0 || n_nulls > RW_MAX_LANES)
     return (int)cudaErrorInvalidValue;
   MvLanes m;
@@ -93,7 +102,7 @@ RW_EXPORT int rw_mv_upsert(const int64_t* values, int n_values, const int64_t* n
     cudaStream_t st = (cudaStream_t)stream;
     mv_last_kernel<<<rw_blocks(n, threads), threads, 0, st>>>(
         n, (const int32_t*)slots, (const uint8_t*)valid, (int32_t*)scratch,
-        (uint8_t*)dropped);
+        (uint8_t*)dropped, (unsigned long long*)rows);
     mv_apply_kernel<<<rw_blocks(n, threads), threads, 0, st>>>(
         m, n, (const int32_t*)slots, (const uint8_t*)valid, (const int32_t*)ops,
         (int32_t*)scratch, (uint8_t*)live, (uint8_t*)sdirty);

@@ -55,11 +55,28 @@ class Executor:
         """Returns ``(downstream_watermark | None, output_chunks)``."""
         return watermark, []
 
+    def emit_watermark(self):
+        """A watermark this executor generates itself, or None (no
+        executor of the port generates one yet)."""
+        return None
+
+    def pure_step(self):
+        """A pure callable chunk -> chunk equivalent to ``apply``
+        (exactly one output chunk, no state), or None. The port's pure
+        steps are frozen dataclasses, so two equal plans compare equal,
+        and also map a stacked chunk (lanes of shape (n_chunks, C))
+        chunk by chunk, the reference's ``vmap``. ``step.rows(C)`` is
+        the output capacity of one C-row chunk. An epoch-batching
+        wrapper runs the step inside the fused per-barrier program
+        (reference: ``executors/base.py:176``)."""
+        return None
+
     # -- barrier scalar reads -------------------------------------------
     # An executor that checks device scalars at the barrier (overflow
-    # latches, occupancy) stages one packed tensor in ``on_barrier``;
-    # the pipeline calls ``finish_barrier`` on every executor after the
-    # walk, which reads each pack with ONE device->host copy and runs
+    # latches, occupancy) stages one packed lane in ``on_barrier``
+    # (``ops.hash_table.stage_scalars``: an asynchronous copy into
+    # pinned host memory); the pipeline calls ``finish_barrier`` on
+    # every executor after the walk, which waits for each copy and runs
     # ``_on_barrier_scalars``.
 
     _staged_scalars = None
@@ -67,7 +84,9 @@ class Executor:
     def finish_barrier(self) -> None:
         if self._staged_scalars is None:
             return
-        vals = self._staged_scalars.tolist()
+        from risingwave_tpu_torch.ops.hash_table import finish_scalars
+
+        vals = finish_scalars(self._staged_scalars)
         self._staged_scalars = None
         self._on_barrier_scalars(vals)
 

@@ -1,21 +1,28 @@
 """HashAgg executor — grouped streaming aggregation with retraction.
 
-Port of the per-chunk path of ``risingwave_tpu/executors/hash_agg.py``
-(``_build_key_lanes`` :61, ``agg_step_fn`` :108, ``_rehash`` :268,
-``delta_to_chunk`` :414, ``HashAggExecutor.apply`` :636, ``_maybe_grow``
+Port of ``risingwave_tpu/executors/hash_agg.py`` (``_build_key_lanes``
+:61, ``agg_step_fn`` :108, ``_agg_scan`` :169, ``_epoch_reduced_fn``
+:190, ``_rehash`` :268, ``delta_to_chunk`` :414,
+``HashAggExecutor.apply`` :636, ``apply_stacked`` :678, ``_maybe_grow``
 :760, the barrier latch checks :800-870, ``_flush_all`` :1029).
 Reference: src/stream/src/executor/hash_agg.rs:62 — apply_chunk (:326)
 updates each row's group by its sign; flush_data (:406) emits
 I / (U-, U+) / D per dirty group at the barrier.
 
 Per chunk: kernel A finds or inserts the group keys, kernel B folds the
-rows into the agg state and sets group liveness. Per barrier: kernel C
-flushes the dirty groups in rounds of ``out_cap``, one packed status
-read per round. The host grows the table from an insert bound and the
-occupancy read at each barrier.
+rows into the agg state and sets group liveness. Per epoch
+(``apply_stacked`` in "reduce" mode): the epoch's stacked chunks go
+through the pure prefix, are flattened into one batch, pre-reduced by
+key (kernel F), the table is touched once per distinct key (kernel A)
+and the sums are scattered (kernel G). Per barrier: kernel C flushes
+the dirty groups in rounds of ``out_cap``, one packed status read per
+round (the fused program instead runs a number of rounds fixed on the
+host from ``_dirty_bound``, with no read). The host grows the table
+from an insert bound and the occupancy read at each barrier; a rebuild
+re-inserts the kept keys (kernel A) and moves their lanes (kernel I).
 
-Not ported yet: the epoch-reduce path (``apply_stacked``), the
-materialized MIN/MAX (minput), the cold tier, checkpointing and
+Not ported yet: the materialized MIN/MAX (minput, so the barrier's
+``mi_bad`` latch is a constant zero), the cold tier, checkpointing and
 watermark state cleaning. A watermark on a ``window_key`` raises
 NotImplementedError rather than being ignored, since ignoring it would
 give a different result.
@@ -28,11 +35,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from risingwave_tpu_torch import resolve_device
-from risingwave_tpu_torch.array.chunk import StreamChunk
+from risingwave_tpu_torch.array.chunk import StreamChunk, flatten_stacked
 from risingwave_tpu_torch.executors.base import Barrier, Executor, Watermark
 from risingwave_tpu_torch.ops import agg as agg_ops
 from risingwave_tpu_torch.ops.agg import AggCall, AggState
-from risingwave_tpu_torch.ops.hash_table import HashTable, lookup_or_insert
+from risingwave_tpu_torch.ops.hash_table import (
+    HashTable,
+    lookup_or_insert,
+    move_slots,
+    stage_scalars,
+)
 from risingwave_tpu_torch.runtime.bucketing import BucketAllocator, BucketPolicy, flush_pad
 
 GROW_AT = 0.5  # rehash when claimed slots may exceed this load factor
@@ -83,25 +95,67 @@ def agg_step_fn(
     return table, state, dropped
 
 
+def _agg_scan(table, state, dropped, stacked, calls, group_keys, nullable, pre):
+    """The per-chunk step over a stacked epoch, chunk by chunk: the
+    reference's ``lax.scan`` and the differential twin of the reduce
+    path."""
+    for i in range(stacked.valid.shape[0]):
+        chunk = StreamChunk(
+            {n: a[i] for n, a in stacked.columns.items()},
+            stacked.valid[i],
+            {n: a[i] for n, a in stacked.nulls.items()},
+            stacked.ops[i],
+        )
+        if pre is not None:
+            chunk = pre(chunk)
+        table, state, dropped = agg_step_fn(
+            table, state, dropped, chunk, calls, group_keys, nullable
+        )
+    return table, state, dropped
+
+
+def _epoch_reduced_fn(table, state, dropped, stacked, calls, group_keys, nullable, pre):
+    """The epoch path: the pure prefix over the stacked chunks, flatten
+    the epoch into one row batch, pre-reduce it by key (kernel F), touch
+    the table once per distinct key (kernel A), scatter the sums and set
+    liveness (kernel G). Exact, because every agg kind here commutes
+    across one epoch's rows."""
+    chunks = pre(stacked) if pre is not None else stacked
+    flat = flatten_stacked(chunks)
+    keys = _build_key_lanes(flat, group_keys, nullable)
+    values = {c.input: flat.col(c.input) for c in calls if c.input is not None}
+    nulls = {
+        c.input: flat.nulls[c.input]
+        for c in calls
+        if c.input is not None and c.input in flat.nulls
+    }
+    sorted_keys, rep_valid, w, reduced, mret = agg_ops.reduce_by_key(
+        keys, flat.effective_signs(), calls, values, nulls
+    )
+    table, slots, _, _ = lookup_or_insert(table, sorted_keys, rep_valid)
+    dropped |= (rep_valid & (slots < 0)).any()
+    agg_ops.apply_reduced(state, calls, slots, rep_valid, w, reduced, mret, live=table.live)
+    return table, state, dropped
+
+
 def _rehash(table: HashTable, state: AggState, calls, new_cap: int, float_extremes=()):
     """Rebuild into a fresh table of ``new_cap`` slots, dropping slots no
-    one needs, and move every slot-indexed lane. A slot survives iff it
-    is live, was emitted (a later delete must retract it), is dirty or
-    is sdirty (its key must reach the next checkpoint)."""
+    one needs, and move every slot-indexed lane: kernel A re-inserts the
+    surviving keys, kernel I moves the lanes. A slot survives iff it is
+    live, was emitted (a later delete must retract it), is dirty or is
+    sdirty (its key must reach the next checkpoint)."""
     keep = table.live | state.emitted_valid | state.dirty | state.sdirty
     keep &= table.fp1 != 0
     dev = table.device
     new_table = HashTable.create(new_cap, tuple(k.dtype for k in table.keys), device=dev)
     new_table, new_slots, _, _ = lookup_or_insert(new_table, table.keys, keep)
-    ok = keep & (new_slots >= 0)
-    dst = new_slots[ok].long()
+    moves = [(table.live, new_table.live)]
 
     def rescatter(src, init=0):
         out = torch.full((new_cap,), init, dtype=src.dtype, device=dev)
-        out[dst] = src[ok]
+        moves.append((src, out))
         return out
 
-    new_table.live[dst] = table.live[ok]
     fx = dict(float_extremes)
     inits = {
         c.output: agg_ops.accum_init(
@@ -124,6 +178,8 @@ def _rehash(table: HashTable, state: AggState, calls, new_cap: int, float_extrem
         sdirty=rescatter(state.sdirty),
         stored=rescatter(state.stored),
     )
+    srcs, dsts = zip(*moves)
+    move_slots(srcs, dsts, new_slots, keep)  # kernel I
     return new_table, new_state
 
 
@@ -199,8 +255,14 @@ class HashAggExecutor(Executor):
         self.table = HashTable.create(capacity, key_dtypes, device=self.device)
         self.state = agg_ops.create_state(capacity, self.calls, self._dtypes, self.device)
         self.dropped = torch.zeros((), dtype=torch.bool, device=self.device)
+        # the minput latch of the reference's barrier layout; without a
+        # materialized MIN/MAX it never sets
+        self.mi_bad = torch.zeros((), dtype=torch.bool, device=self.device)
         self._insert_bound = 0  # host-side upper bound of claimed slots
         self._occ_note = 0  # true claimed at the last barrier
+        # host-side upper bound of dirty (unflushed) groups: rows absorbed
+        # since the last flush; sets the fused program's flush rounds
+        self._dirty_bound = 0
         self._buckets = BucketAllocator(
             BucketPolicy.from_capacity(capacity, grow_at=GROW_AT)
         )
@@ -235,9 +297,31 @@ class HashAggExecutor(Executor):
                 )
         self._maybe_grow(chunk.capacity)
         self._insert_bound += chunk.capacity
+        self._dirty_bound += chunk.capacity
         self.table, self.state, self.dropped = agg_step_fn(
             self.table, self.state, self.dropped, chunk,
             self.calls, self.group_keys, self.nullable,
+        )
+        return []
+
+    def apply_stacked(self, stacked: StreamChunk, pre=None, mode: str = "reduce") -> List[StreamChunk]:
+        """Apply a whole batch of chunks (lanes of shape (n_chunks, C))
+        at once. ``pre`` is an optional pure step (``pure_step()`` of
+        the executors upstream, e.g. the hop expansion) run on the batch
+        first. ``mode`` "reduce" is the epoch path (kernels F, A, G);
+        "scan" runs the per-chunk step chunk by chunk, the differential
+        twin."""
+        if mode not in ("reduce", "scan"):
+            raise ValueError(f"unknown apply_stacked mode {mode!r}")
+        n_chunks, cap = stacked.valid.shape
+        incoming = n_chunks * (pre.rows(cap) if pre is not None else cap)
+        self._maybe_grow(incoming)
+        self._insert_bound += incoming
+        self._dirty_bound += incoming
+        step = _epoch_reduced_fn if mode == "reduce" else _agg_scan
+        self.table, self.state, self.dropped = step(
+            self.table, self.state, self.dropped, stacked,
+            self.calls, self.group_keys, self.nullable, pre,
         )
         return []
 
@@ -262,17 +346,15 @@ class HashAggExecutor(Executor):
     # -- control ---------------------------------------------------------
     def on_barrier(self, barrier: Barrier) -> List[StreamChunk]:
         outs = self._flush_all()
-        self._staged_scalars = torch.stack([
-            self.dropped.to(torch.int64),
-            self.state.minmax_retracted.to(torch.int64),
-            self.table.occupancy().to(torch.int64),
-        ])
+        self._staged_scalars = stage_scalars(
+            self.dropped, self.state.minmax_retracted, self.mi_bad, self.table.occupancy()
+        )
         if barrier is None:  # direct drive: checks fire inline
             self.finish_barrier()
         return outs
 
     def _on_barrier_scalars(self, vals) -> None:
-        dropped, mret, claimed = vals
+        dropped, mret, mi_bad, claimed = vals
         epoch_inc = max(self._insert_bound - self._occ_note, 0)
         self._occ_note = int(claimed)
         self._insert_bound = int(claimed)
@@ -289,6 +371,8 @@ class HashAggExecutor(Executor):
             raise RuntimeError(
                 "row-level retraction hit an append-only MIN/MAX aggregate"
             )
+        if mi_bad:
+            raise RuntimeError("materialized MIN/MAX state overflowed")
 
     def _flush_all(self) -> List[StreamChunk]:
         """Flush rounds until no dirty group is left; each round reads
@@ -304,6 +388,7 @@ class HashAggExecutor(Executor):
                 delta_to_chunk(delta, self.group_keys, self.nullable, self.calls, pad)
             )
             if not overflow:
+                self._dirty_bound = 0
                 return outs
 
     def on_watermark(self, watermark: Watermark):

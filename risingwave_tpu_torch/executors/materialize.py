@@ -29,6 +29,8 @@ from risingwave_tpu_torch.ops.hash_table import (
     HashTable,
     last_occurrence_mask,
     lookup_or_insert,
+    move_slots,
+    stage_scalars,
 )
 from risingwave_tpu_torch.runtime.bucketing import BucketAllocator, BucketPolicy
 
@@ -82,21 +84,26 @@ class MvDeviceState:
         )
 
 
-def mv_step_fn(table: HashTable, state: MvDeviceState, chunk: StreamChunk, pk, cols):
+def mv_step_fn(
+    table: HashTable, state: MvDeviceState, chunk: StreamChunk, pk, cols, rows_acc=None
+):
     """One chunk applied to the MV in place: find-or-insert the pk, the
-    last row per pk wins (Overwrite), deletes flip live off."""
+    last row per pk wins (Overwrite), deletes flip live off. ``rows_acc``,
+    a () int64 tensor, if given has the chunk's valid rows added to it."""
     keys = tuple(chunk.col(k) for k in pk)
     table, slots, _, _ = lookup_or_insert(table, keys, chunk.valid)
     if slots.device.type == "cpu":
-        _mv_upsert_torch(table, state, chunk, slots, cols)
+        _mv_upsert_torch(table, state, chunk, slots, cols, rows_acc)
     elif slots.device.type == "cuda":
-        _mv_upsert_cuda(table, state, chunk, slots, cols)
+        _mv_upsert_cuda(table, state, chunk, slots, cols, rows_acc)
     else:
         raise ValueError(f"unsupported device {slots.device}")
     return table, state
 
 
-def _mv_upsert_torch(table, state, chunk, slots, cols):
+def _mv_upsert_torch(table, state, chunk, slots, cols, rows_acc=None):
+    if rows_acc is not None:
+        rows_acc += chunk.valid.sum()
     state.dropped |= (chunk.valid & (slots < 0)).any()
     last = last_occurrence_mask(slots, chunk.valid)
     is_del = (chunk.ops == 1) | (chunk.ops == 2)  # DELETE | UPDATE_DELETE
@@ -111,10 +118,14 @@ def _mv_upsert_torch(table, state, chunk, slots, cols):
     state.sdirty[lidx] = True
 
 
-def _mv_upsert_cuda(table, state, chunk, slots, cols):
+def _mv_upsert_cuda(table, state, chunk, slots, cols, rows_acc=None):
     n = chunk.capacity
     cap = table.capacity
     _kernels.check_cuda("mv_upsert", slots, chunk.valid, chunk.ops, n=n)
+    if rows_acc is not None:
+        if rows_acc.shape != () or rows_acc.dtype != torch.int64:
+            raise TypeError("rows_acc must be a () int64 tensor")
+        _kernels.check_cuda("mv_upsert", slots, rows_acc)
     _kernels.check_cuda(
         "mv_upsert", table.live, state.sdirty, state.scratch,
         *state.values.values(), *state.vnulls.values(), n=cap,
@@ -142,25 +153,24 @@ def _mv_upsert_cuda(table, state, chunk, slots, cols):
         _kernels.int64_rows(values, 8), len(values), _kernels.int64_rows(nulls, 8), len(nulls),
         n, slots.data_ptr(), chunk.valid.data_ptr(), chunk.ops.data_ptr(),
         state.scratch.data_ptr(), table.live.data_ptr(), state.sdirty.data_ptr(),
-        state.dropped.data_ptr(),
+        state.dropped.data_ptr(), 0 if rows_acc is None else rows_acc.data_ptr(),
     )
 
 
 def _mv_rebuild(table: HashTable, state: MvDeviceState, new_cap: int):
-    """Re-insert the surviving slots into a fresh table of ``new_cap``."""
+    """Re-insert the surviving slots into a fresh table of ``new_cap``
+    (kernel A) and move their lanes there (kernel I)."""
     keep = table.live | state.sdirty | state.stored
     dev = table.device
     new_table = HashTable.create(new_cap, tuple(k.dtype for k in table.keys), device=dev)
     new_table, slots, _, _ = lookup_or_insert(new_table, table.keys, keep)
-    ok = keep & (slots >= 0)
-    dst = slots[ok].long()
+    moves = [(table.live, new_table.live)]
 
     def put(a):
         out = torch.zeros(new_cap, dtype=a.dtype, device=dev)
-        out[dst] = a[ok]
+        moves.append((a, out))
         return out
 
-    new_table.live[dst] = table.live[ok]
     new_state = MvDeviceState(
         values={c: put(a) for c, a in state.values.items()},
         vnulls={c: put(a) for c, a in state.vnulls.items()},
@@ -169,6 +179,8 @@ def _mv_rebuild(table: HashTable, state: MvDeviceState, new_cap: int):
         dropped=torch.zeros((), dtype=torch.bool, device=dev),
         scratch=torch.full((new_cap,), -1, dtype=torch.int32, device=dev),
     )
+    srcs, dsts = zip(*moves)
+    move_slots(srcs, dsts, slots, keep)  # kernel I
     return new_table, new_state
 
 
@@ -273,10 +285,7 @@ class DeviceMaterializeExecutor(MvDeviceReadMixin, Executor):
 
     # -- control ----------------------------------------------------------
     def on_barrier(self, barrier) -> list:
-        self._staged_scalars = torch.stack([
-            self.state.dropped.to(torch.int64),
-            self.table.occupancy().to(torch.int64),
-        ])
+        self._staged_scalars = stage_scalars(self.state.dropped, self.table.occupancy())
         if barrier is None:  # direct drive: checks fire inline
             self.finish_barrier()
         return []

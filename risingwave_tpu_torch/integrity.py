@@ -1,0 +1,255 @@
+"""State digests: an order-insensitive fold over an executor's durable
+state lanes.
+
+Port of the digest half of ``risingwave_tpu/integrity.py`` (``GOLD``
+:52, ``U64_MASK`` :55, ``crc32_bytes`` :151, the numpy fold
+``lane_seed``/``_np_slot_words``/``_np_mix``/``host_digest`` :268-310,
+``device_digest`` :329, ``digest_from_scalar`` :371, ``agg_lanes``
+:386, ``mv_lanes`` :404). Checkpoint envelopes, quarantine and
+``StateCorruption`` are not ported yet.
+
+The contract, shared by every fold here and by the reference:
+
+- per lane, slots are split into little-endian uint32 words (bool and
+  sub-4-byte ints promote to uint32 first; a 2-D lane contributes the
+  words of its whole row);
+- a per-slot running hash ``h`` mixes the lane-name seed
+  (``crc32(name)``) and then every word: ``h = (h ^ w) * GOLD;
+  h ^= h >> 15``, all in uint32;
+- lanes fold in sorted-name order, dead slots mask to 0, and the slots
+  reduce to (wrapping uint32 sum, uint32 xor) packed as
+  ``(sum << 32) | xor`` — commutative over slots, so the digest does not
+  depend on slot placement, rehash or growth.
+
+``host_digest`` is the numpy fold (a copy of the reference's).
+``device_digest`` is kernel H on the card (``csrc/state_digest.cu``) and
+its plain PyTorch version on the CPU; both return the packed uint64
+bitcast to a () int64 tensor, so it rides the fused program's staged
+int64 scalar lane.
+"""
+
+from __future__ import annotations
+
+import math
+import zlib
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from risingwave_tpu_torch import _kernels
+from risingwave_tpu_torch.ops.agg import order_key_to_reference_lane
+from risingwave_tpu_torch.ops.hashing import M32, _mul32
+
+GOLD = 0x9E3779B1  # 2**32 / golden ratio — Fibonacci-hash multiplier
+U64_MASK = (1 << 64) - 1
+
+_DIGEST_DTYPES = (torch.bool, torch.int32, torch.int64, torch.float32, torch.float64)
+
+
+def crc32_bytes(data: bytes) -> int:
+    return zlib.crc32(data) & 0xFFFFFFFF
+
+
+def lane_seed(name: str) -> int:
+    return crc32_bytes(name.encode("utf-8"))
+
+
+# -- the numpy fold (copied from the reference) ------------------------------
+def _np_slot_words(arr: np.ndarray) -> np.ndarray:
+    """(capacity, ...) lane -> (capacity, words) little-endian uint32."""
+    a = np.ascontiguousarray(arr)
+    n = a.shape[0] if a.ndim else 0
+    if a.dtype == np.bool_ or a.dtype.itemsize < 4:
+        a = a.astype(np.uint32)
+    if a.ndim > 1:
+        a = np.ascontiguousarray(a.reshape(n, -1))
+    w = a.view(np.uint32)
+    return w.reshape(n, -1)
+
+
+def _np_mix(h: np.ndarray, w) -> np.ndarray:
+    h = (h ^ w) * np.uint32(GOLD)
+    return h ^ (h >> np.uint32(15))
+
+
+def host_digest(lanes: Dict[str, np.ndarray], live=None) -> int:
+    """The numpy fold: the packed ``(sum<<32)|xor`` digest as a python
+    int in [0, 2**64)."""
+    names = sorted(lanes)
+    if not names:
+        return 0
+    first = np.asarray(lanes[names[0]])
+    n = first.shape[0] if first.ndim else 0
+    h = np.zeros(n, np.uint32)
+    for name in names:
+        h = _np_mix(h, np.uint32(lane_seed(name)))
+        w = _np_slot_words(np.asarray(lanes[name]))
+        for j in range(w.shape[1]):
+            h = _np_mix(h, w[:, j])
+    if live is not None:
+        h = np.where(np.asarray(live, dtype=bool), h, np.uint32(0))
+    s = int(h.astype(np.uint64).sum()) & 0xFFFFFFFF
+    x = int(np.bitwise_xor.reduce(h)) if n else 0
+    return (s << 32) | x
+
+
+def digest_from_scalar(v) -> int:
+    """A staged int64 digest scalar back in the uint64 domain (the host
+    fold's return type) for equality compares."""
+    return int(v) & U64_MASK
+
+
+# -- the device fold -----------------------------------------------------------
+def _masks(live) -> Tuple[torch.Tensor, ...]:
+    if live is None:
+        return ()
+    if isinstance(live, torch.Tensor):
+        return (live,)
+    return tuple(live)
+
+
+def device_digest(lanes: Dict[str, torch.Tensor], live=None) -> torch.Tensor:
+    """The fold over torch lanes, as a () int64 tensor on their device.
+
+    ``live`` is None (every slot counts), a bool lane, or a tuple of
+    bool lanes whose OR is the mask (so the agg's ``live |
+    emitted_valid`` is read inside kernel H rather than materialised).
+    """
+    masks = _masks(live)
+    names = sorted(lanes)
+    if not names:
+        dev = masks[0].device if masks else torch.device("cpu")
+        return torch.zeros((), dtype=torch.int64, device=dev)
+    dev = lanes[names[0]].device
+    if dev.type == "cpu":
+        return _device_digest_torch(lanes, names, masks)
+    if dev.type == "cuda":
+        return _device_digest_cuda(lanes, names, masks)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _slot_words(a: torch.Tensor) -> torch.Tensor:
+    """(capacity, ...) lane -> (capacity, words) uint32 values in int64."""
+    n = a.shape[0]
+    row = a.contiguous().reshape(n, math.prod(a.shape[1:]))
+    if a.dtype == torch.bool:
+        return row.to(torch.int64)
+    if a.dtype not in _DIGEST_DTYPES:
+        raise TypeError(f"digest lanes do not take dtype {a.dtype}")
+    w = row.view(torch.int32)
+    return w.to(torch.int64) & M32
+
+
+def _mix(h: torch.Tensor, w) -> torch.Tensor:
+    h = _mul32(h ^ w, GOLD)
+    return h ^ (h >> 15)
+
+
+def _xor_reduce(h: torch.Tensor) -> int:
+    while h.numel() > 1:
+        if h.numel() % 2:
+            h = torch.cat([h, h.new_zeros(1)])
+        h = h[0::2] ^ h[1::2]
+    return int(h[0]) if h.numel() else 0
+
+
+def _device_digest_torch(lanes, names, masks) -> torch.Tensor:
+    first = lanes[names[0]]
+    n = first.shape[0]
+    h = torch.zeros(n, dtype=torch.int64, device=first.device)
+    for name in names:
+        h = _mix(h, lane_seed(name))
+        w = _slot_words(lanes[name])
+        for j in range(w.shape[1]):
+            h = _mix(h, w[:, j])
+    if masks:
+        keep = masks[0].clone()
+        for m in masks[1:]:
+            keep |= m
+        h = torch.where(keep, h, torch.zeros_like(h))
+    s = int(h.sum()) & M32
+    packed = ((s << 32) | _xor_reduce(h)) & U64_MASK
+    if packed >= 1 << 63:
+        packed -= 1 << 64
+    return torch.tensor(packed, dtype=torch.int64, device=first.device)
+
+
+def _device_digest_cuda(lanes, names, masks) -> torch.Tensor:
+    cap = lanes[names[0]].shape[0]
+    rows = []
+    for name in names:
+        a = lanes[name]
+        if a.dtype not in _DIGEST_DTYPES:
+            raise TypeError(f"digest lanes do not take dtype {a.dtype}")
+        _kernels.check_cuda("state_digest", a)
+        if a.dim() == 0 or a.shape[0] != cap:
+            raise ValueError(f"state_digest: lane {name!r} is not ({cap}, ...)")
+        cols = math.prod(a.shape[1:])
+        if a.dtype == torch.bool:
+            rows.append((a.data_ptr(), cols, 1, lane_seed(name)))
+        else:
+            rows.append((a.data_ptr(), cols * a.element_size() // 4, 0, lane_seed(name)))
+    if len(masks) > 2:
+        raise ValueError("state_digest: at most two mask lanes")
+    for m in masks:
+        if m.dtype != torch.bool:
+            raise TypeError("state_digest: masks must be bool lanes")
+        _kernels.check_cuda("state_digest", m, n=cap)
+    dev = lanes[names[0]].device
+    partials = torch.empty(2 * _kernels.DIGEST_BLOCKS, dtype=torch.int32, device=dev)
+    out = torch.empty((), dtype=torch.int64, device=dev)
+    m0 = masks[0].data_ptr() if masks else 0
+    m1 = masks[1].data_ptr() if len(masks) > 1 else 0
+    _kernels.call(
+        "state_digest", "rw_state_digest",
+        _kernels.int64_rows(rows, 24), len(rows), cap, m0, m1,
+        partials.data_ptr(), _kernels.DIGEST_BLOCKS, out.data_ptr(),
+    )
+    return out
+
+
+# -- per-executor lane builders ------------------------------------------------
+def agg_lanes(table, state, float_extremes: Sequence = ()) -> Tuple[dict, tuple]:
+    """HashAgg: keys + row_count + accums + nonnull + emitted snapshots,
+    masked by ``live | emitted_valid``. Float MIN/MAX lanes (listed in
+    ``float_extremes``, as ``ops.agg.float_extreme_meta`` gives them)
+    are folded in the reference's unsigned key representation, so the
+    digest equals the reference's."""
+    fx = dict(float_extremes)
+
+    def acc(name, a):
+        return order_key_to_reference_lane(a, fx[name]) if name in fx else a
+
+    lanes = {f"k{i}": k for i, k in enumerate(table.keys)}
+    lanes["row_count"] = state.row_count
+    for nm, a in state.accums.items():
+        lanes[f"acc_{nm}"] = acc(nm, a)
+    for nm, a in state.nonnull.items():
+        lanes[f"nn_{nm}"] = a
+    for nm, a in state.emitted.items():
+        lanes[f"em_{nm}"] = acc(nm, a)
+    for nm, a in state.emitted_isnull.items():
+        lanes[f"ei_{nm}"] = a
+    lanes["ev"] = state.emitted_valid
+    return lanes, (table.live, state.emitted_valid)
+
+
+def mv_lanes(table, state) -> Tuple[dict, torch.Tensor]:
+    """Device MV: pk lanes + value lanes + null lanes, live rows."""
+    lanes = {f"k{i}": k for i, k in enumerate(table.keys)}
+    for nm, a in state.values.items():
+        lanes[f"v_{nm}"] = a
+    for nm, a in state.vnulls.items():
+        lanes[f"n_{nm}"] = a
+    return lanes, table.live
+
+
+def host_lanes(lanes: dict, live) -> Tuple[dict, np.ndarray]:
+    """Torch lanes and mask(s) as numpy, for ``host_digest``."""
+    masks = _masks(live)
+    keep = None
+    for m in masks:
+        m = m.cpu().numpy()
+        keep = m if keep is None else keep | m
+    return {k: v.cpu().numpy() for k, v in lanes.items()}, keep

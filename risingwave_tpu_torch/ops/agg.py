@@ -9,14 +9,17 @@ Agg state is a struct of slot-indexed lanes next to the group table.
 ``apply`` scatters a chunk's rows into it (kernel B on the card,
 ``csrc/agg_apply.cu``); ``flush`` compacts the dirty slots into one
 interleaved (old, new) delta per barrier round (kernel C,
-``csrc/agg_flush.cu``). Both update the state IN PLACE.
+``csrc/agg_flush.cu``). The epoch path pre-reduces a whole epoch's rows
+by key first (``reduce_by_key``, kernel F, ``csrc/reduce_by_key.cu``)
+and then scatters one row per distinct key (``apply_reduced``, kernel
+G, ``csrc/apply_reduced.cu``). Everything that takes a state updates it
+IN PLACE.
 
 Semantics as the reference: SUM/MIN/MAX over only-NULL inputs is NULL
 (a per-call non-null counter); MIN/MAX are append-only and a retraction
 reaching one latches ``minmax_retracted``. Float MIN/MAX accumulate
 total-order keys, stored here as int64 (see ``_float_to_order_key``).
-The epoch path (``reduce_by_key``/``apply_reduced``) and the
-materialized-input MIN/MAX are not ported yet.
+The materialized-input MIN/MAX is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from risingwave_tpu_torch import _kernels, resolve_device
 from risingwave_tpu_torch.array.chunk import to_device
+from risingwave_tpu_torch.ops import hashing
 from risingwave_tpu_torch.types import Op
 
 KINDS = ("count_star", "count", "sum", "min", "max")
@@ -102,6 +106,15 @@ def order_key_to_reference(key: np.ndarray, float_dtype) -> np.ndarray:
     if np.dtype(float_dtype) == np.float32:
         return key.astype(np.uint32)
     return (key ^ np.int64(_SIGN64)).view(np.uint64)
+
+
+def order_key_to_reference_lane(key: torch.Tensor, float_dtype: torch.dtype) -> torch.Tensor:
+    """``order_key_to_reference`` on the tensor's device, with the
+    unsigned lane's bits held in the signed dtype of its width (int32
+    for a float32 key, int64 for a float64 one)."""
+    if float_dtype == torch.float32:
+        return key.contiguous().view(torch.int32).reshape(-1, 2)[:, 0]  # low word
+    return key ^ _SIGN64
 
 
 def _is_float_extreme(call: AggCall, input_dtype) -> bool:
@@ -341,11 +354,311 @@ def _apply_cuda(state, calls, slots, signs, values, nulls, live):
         )
 
 
+# -- the epoch path: reduce_by_key (kernel F) + apply_reduced (kernel G) ----
+_ALL_ONES = 0xFFFFFFFF  # fingerprint of an invisible row: it sorts last
+
+# reduced-lane codes shared with csrc/reduce_by_key.cu: what a row adds
+# (RbkSrc) and how rows of a segment combine (RbkOp)
+_SRC_SIGN, _SRC_WN, _SRC_SUM, _SRC_EXT, _SRC_USE = range(5)
+_OP_SUM_I64, _OP_SUM_F32, _OP_SUM_F64, _OP_MIN_I64, _OP_MAX_I64, _OP_MIN_I32, _OP_MAX_I32 = range(7)
+
+
+def _check_unmaterialized(calls) -> None:
+    for c in calls:
+        if c.materialized:
+            raise NotImplementedError("materialized MIN/MAX is not ported yet")
+
+
+def reduce_by_key(
+    key_lanes: Tuple[torch.Tensor, ...],
+    signs: torch.Tensor,
+    calls: Tuple[AggCall, ...],
+    values: Dict[str, torch.Tensor],
+    nulls: Dict[str, torch.Tensor],
+):
+    """Pre-reduce a row batch by group key (``ops/agg.py:334``).
+
+    A stable sort on the fingerprint pair ``(h1, h2)`` of ``hash128``
+    (invisible rows, ``signs == 0``, take ``0xFFFFFFFF`` for both and
+    sort last) clusters equal keys; a segment starts at any change of
+    fingerprint, visibility or exact key lane (NaN equals NaN), and every
+    contribution is summed (or min/max-ed) per segment and broadcast to
+    the segment's rows, so the table downstream is touched once per
+    distinct key.
+
+    Returns ``(sorted_keys, rep_valid, w, reduced, minmax_ret)``:
+    ``sorted_keys`` the key lanes in sort order, ``rep_valid`` True on
+    each visible segment's first row, ``w`` the int64 sum of signs per
+    segment, ``reduced`` the per-call lanes ``cnt_<out>``,
+    ``sum_<out>``/``nn_<out>`` and ``ext_<out>``/``nnp_<out>``, and
+    ``minmax_ret`` a () bool: a retraction reached a MIN/MAX call.
+    """
+    _check_unmaterialized(calls)
+    if signs.device.type == "cpu":
+        return _reduce_by_key_torch(tuple(key_lanes), signs, calls, values, nulls)
+    if signs.device.type == "cuda":
+        return _reduce_by_key_cuda(tuple(key_lanes), signs, calls, values, nulls)
+    raise ValueError(f"unsupported device {signs.device}")
+
+
+def _reduce_by_key_torch(key_lanes, signs, calls, values, nulls, fingerprints=None):
+    """The plain version: two stable sorts (h2, then h1) give the
+    reference's permutation. ``fingerprints`` (h1, h2), uint32 values in
+    int64 lanes, replace ``hash128`` of the keys (chip_smoke forces a
+    fingerprint collision through it)."""
+    n = signs.shape[0]
+    dev = signs.device
+    h1, h2 = hashing.hash128(key_lanes) if fingerprints is None else fingerprints
+    vmask = signs != 0
+    h1s = torch.where(vmask, h1, _ALL_ONES)
+    h2s = torch.where(vmask, h2, _ALL_ONES)
+    order = torch.argsort(h2s, stable=True)
+    order = order[torch.argsort(h1s[order], stable=True)]
+    h1s, h2s = h1s[order], h2s[order]
+    sorted_keys = tuple(k[order] for k in key_lanes)
+    s_sign = signs[order].to(torch.int64)
+    s_vmask = vmask[order]
+
+    def change(lane):
+        out = torch.ones(n, dtype=torch.bool, device=dev)
+        out[1:] = lane[1:] != lane[:-1]
+        return out
+
+    boundary = change(h1s) | change(h2s) | change(s_vmask)
+    for lane in sorted_keys:
+        ch = change(lane)
+        if lane.dtype.is_floating_point:  # NaN == NaN for grouping
+            ch[1:] &= ~(torch.isnan(lane[1:]) & torch.isnan(lane[:-1]))
+        boundary |= ch
+    rep_valid = boundary & s_vmask
+    seg_id = torch.cumsum(boundary.to(torch.int64), 0) - 1
+
+    def segsum(x):
+        return torch.zeros(n, dtype=x.dtype, device=dev).index_add_(0, seg_id, x)[seg_id]
+
+    w = segsum(s_sign)
+    reduced: Dict[str, torch.Tensor] = {}
+    minmax_ret = torch.zeros((), dtype=torch.bool, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    for c in calls:
+        if c.kind == "count_star":
+            continue  # uses w directly
+        v = values[c.input][order]
+        notnull = ~nulls[c.input][order] if c.input in nulls else torch.ones_like(s_vmask)
+        wn = torch.where(notnull, s_sign, zero)
+        if c.kind == "count":
+            reduced[f"cnt_{c.output}"] = segsum(wn)
+        elif c.kind == "sum":
+            acc_dt = _accum_dtype(c, v.dtype)
+            contrib = torch.where(
+                notnull, v.to(acc_dt) * s_sign.to(acc_dt), torch.zeros((), dtype=acc_dt, device=dev)
+            )
+            reduced[f"sum_{c.output}"] = segsum(contrib)
+            reduced[f"nn_{c.output}"] = segsum(wn)
+        else:  # min / max (append-only)
+            use = s_vmask & notnull & (s_sign > 0)
+            acc_dt = _accum_dtype(c, v.dtype)
+            fx = v.dtype if v.dtype.is_floating_point else None
+            if fx is not None:
+                v = _float_to_order_key(v)
+            sentinel = accum_init(c.kind, acc_dt, fx)
+            vv = torch.where(use, v.to(acc_dt), torch.full((), sentinel, dtype=acc_dt, device=dev))
+            seg = torch.full((n,), sentinel, dtype=acc_dt, device=dev).scatter_reduce_(
+                0, seg_id, vv, reduce="amin" if c.kind == "min" else "amax"
+            )
+            reduced[f"ext_{c.output}"] = seg[seg_id]
+            reduced[f"nnp_{c.output}"] = segsum(use.to(torch.int64))
+            minmax_ret |= (s_vmask & notnull & (s_sign < 0)).any()
+    return sorted_keys, rep_valid, w, reduced, minmax_ret
+
+
+def _reduced_lane_specs(calls, values, nulls):
+    """(name, src, op, value lane, null lane, out dtype, sentinel) per
+    reduced lane, ``w`` first."""
+    specs = [("w", _SRC_SIGN, _OP_SUM_I64, None, None, torch.int64, 0)]
+    for c in calls:
+        if c.kind == "count_star":
+            continue
+        v = values[c.input]
+        nul = nulls.get(c.input)
+        if c.kind == "count":
+            specs.append((f"cnt_{c.output}", _SRC_WN, _OP_SUM_I64, v, nul, torch.int64, 0))
+            continue
+        acc_dt = _accum_dtype(c, v.dtype)
+        if c.kind == "sum":
+            if v.dtype == torch.bool:
+                raise TypeError("sum over a bool lane is not supported")
+            if acc_dt.is_floating_point and v.dtype != acc_dt:
+                raise TypeError("float SUM input must match its accumulator dtype")
+            op = {torch.int64: _OP_SUM_I64, torch.float32: _OP_SUM_F32, torch.float64: _OP_SUM_F64}[acc_dt]
+            specs.append((f"sum_{c.output}", _SRC_SUM, op, v, nul, acc_dt, 0))
+            specs.append((f"nn_{c.output}", _SRC_WN, _OP_SUM_I64, v, nul, torch.int64, 0))
+            continue
+        if v.dtype == torch.bool:
+            raise TypeError(f"{c.kind} over a bool lane is not supported")
+        fx = v.dtype if v.dtype.is_floating_point else None
+        if acc_dt == torch.int32:
+            op = _OP_MIN_I32 if c.kind == "min" else _OP_MAX_I32
+        else:
+            op = _OP_MIN_I64 if c.kind == "min" else _OP_MAX_I64
+        specs.append((f"ext_{c.output}", _SRC_EXT, op, v, nul, acc_dt, accum_init(c.kind, acc_dt, fx)))
+        specs.append((f"nnp_{c.output}", _SRC_USE, _OP_SUM_I64, v, nul, torch.int64, 0))
+    return specs
+
+
+def _reduce_by_key_cuda(key_lanes, signs, calls, values, nulls, fingerprints=None):
+    n = signs.shape[0]
+    dev = signs.device
+    if signs.dtype != torch.int32:
+        signs = signs.to(torch.int32)
+    _kernels.check_cuda("reduce_by_key", signs, *key_lanes, n=n)
+    sorted_keys = tuple(torch.empty_like(k) for k in key_lanes)
+    keys = [(k.data_ptr(), _kernels.dtype_code(k), o.data_ptr()) for k, o in zip(key_lanes, sorted_keys)]
+    fp = (0, 0)
+    if fingerprints is not None:
+        h1, h2 = (f.to(torch.int64).contiguous() for f in fingerprints)
+        _kernels.check_cuda("reduce_by_key", h1, h2, n=n)
+        fp = (h1.data_ptr(), h2.data_ptr())
+    specs = _reduced_lane_specs(calls, values, nulls)
+    outs, rows = {}, []
+    for name, src, op, v, nul, dt, sentinel in specs:
+        if v is not None:
+            _kernels.check_cuda("reduce_by_key", v, *(() if nul is None else (nul,)), n=n)
+        out = torch.empty(n, dtype=dt, device=dev)
+        outs[name] = out
+        rows.append((
+            src, op, 0 if v is None else v.data_ptr(), 0 if v is None else _kernels.dtype_code(v),
+            0 if nul is None else nul.data_ptr(), out.data_ptr(), sentinel,
+        ))
+    rep_valid = torch.empty(n, dtype=torch.bool, device=dev)
+    minmax_ret = torch.zeros((), dtype=torch.bool, device=dev)
+    tiles = -(-n // _kernels.RBK_TILE)
+    i32 = lambda m: torch.empty(max(m, 1), dtype=torch.int32, device=dev)
+    i64 = lambda m: torch.empty(max(m, 1), dtype=torch.int64, device=dev)
+    keys_a, keys_b, idx_a, idx_b = i64(n), i64(n), i32(n), i32(n)
+    # hist: per-digit, per-tile counts, then the 256 digit totals
+    hist, s_sign, seg_id, seg_start = i32(256 * tiles + 256), i32(n), i32(n), i32(n)
+    flags = torch.empty(max(n, 1), dtype=torch.uint8, device=dev)
+    tile_counts, n_seg = i32(tiles), i32(1)
+    segval, carry = i64(len(rows) * n), i64(len(rows) * tiles)
+    _kernels.call(
+        "reduce_by_key", "rw_reduce_by_key",
+        _kernels.int64_rows(keys, 8), len(keys), n, signs.data_ptr(), fp[0], fp[1],
+        _kernels.int64_rows(rows, 20), len(rows), rep_valid.data_ptr(), minmax_ret.data_ptr(),
+        keys_a.data_ptr(), keys_b.data_ptr(), idx_a.data_ptr(), idx_b.data_ptr(), hist.data_ptr(),
+        s_sign.data_ptr(), flags.data_ptr(), tile_counts.data_ptr(), n_seg.data_ptr(),
+        seg_id.data_ptr(), seg_start.data_ptr(), segval.data_ptr(), carry.data_ptr(),
+    )
+    w = outs.pop("w")
+    return sorted_keys, rep_valid, w, outs, minmax_ret
+
+
+def apply_reduced(
+    state: AggState,
+    calls: Tuple[AggCall, ...],
+    slots: torch.Tensor,
+    rep_valid: torch.Tensor,
+    w: torch.Tensor,
+    reduced: Dict[str, torch.Tensor],
+    minmax_ret: torch.Tensor,
+    live: Optional[torch.Tensor] = None,
+) -> AggState:
+    """Apply ``reduce_by_key`` output to ``state`` in place
+    (``ops/agg.py:464``): one scatter per lane at each representative's
+    slot; rows that are not representatives, or whose slot is -1, write
+    nothing. With ``live`` (the group table's live lane) each
+    representative's slot then gets live = row_count > 0, the
+    ``set_live`` of ``hash_agg.py:228-232``. Two representatives may
+    share a slot (a visible key whose fingerprints are both 0xFFFFFFFF
+    sorts among the invisible rows and splits), so every scatter
+    accumulates."""
+    _check_unmaterialized(calls)
+    if slots.device.type == "cpu":
+        _apply_reduced_torch(state, calls, slots, rep_valid, w, reduced, minmax_ret, live)
+    elif slots.device.type == "cuda":
+        _apply_reduced_cuda(state, calls, slots, rep_valid, w, reduced, minmax_ret, live)
+    else:
+        raise ValueError(f"unsupported device {slots.device}")
+    return state
+
+
+def _apply_reduced_torch(state, calls, slots, rep_valid, w, reduced, minmax_ret, live):
+    active = rep_valid & (slots >= 0)
+    idx = slots[active].long()
+    ww = w[active]
+    state.row_count.index_add_(0, idx, ww)
+    state.dirty[idx] = True
+    state.sdirty[idx] = True
+    for c in calls:
+        acc = state.accums[c.output]
+        if c.kind == "count_star":
+            acc.index_add_(0, idx, ww)
+        elif c.kind == "count":
+            acc.index_add_(0, idx, reduced[f"cnt_{c.output}"][active])
+        elif c.kind == "sum":
+            acc.index_add_(0, idx, reduced[f"sum_{c.output}"][active].to(acc.dtype))
+            state.nonnull[c.output].index_add_(0, idx, reduced[f"nn_{c.output}"][active])
+        else:
+            acc.scatter_reduce_(
+                0, idx, reduced[f"ext_{c.output}"][active].to(acc.dtype),
+                reduce="amin" if c.kind == "min" else "amax",
+            )
+            state.nonnull[c.output].index_add_(0, idx, reduced[f"nnp_{c.output}"][active])
+    state.minmax_retracted |= minmax_ret
+    if live is not None:
+        live[idx] = state.row_count[idx] > 0
+
+
+def _apply_reduced_cuda(state, calls, slots, rep_valid, w, reduced, minmax_ret, live):
+    n = slots.shape[0]
+    cap = state.capacity
+    if slots.dtype != torch.int32 or w.dtype != torch.int64 or rep_valid.dtype != torch.bool:
+        raise TypeError("apply_reduced: slots int32, w int64, rep_valid bool")
+    _kernels.check_cuda("apply_reduced", slots, rep_valid, w, n=n)
+    _kernels.check_cuda("apply_reduced", state.row_count, state.dirty, state.sdirty, n=cap)
+    _kernels.check_cuda("apply_reduced", minmax_ret, state.minmax_retracted)
+    rows = []
+    for c in calls:
+        acc = state.accums[c.output]
+        nonnull = state.nonnull.get(c.output)
+        _kernels.check_cuda("apply_reduced", acc, *(() if nonnull is None else (nonnull,)), n=cap)
+        red = nn_red = None
+        if c.kind == "count":
+            red = reduced[f"cnt_{c.output}"]
+        elif c.kind == "sum":
+            red, nn_red = reduced[f"sum_{c.output}"], reduced[f"nn_{c.output}"]
+        elif c.kind in ("min", "max"):
+            red, nn_red = reduced[f"ext_{c.output}"], reduced[f"nnp_{c.output}"]
+        for lane in (red, nn_red):
+            if lane is not None:
+                _kernels.check_cuda("apply_reduced", lane, n=n)
+        if red is not None and red.dtype != acc.dtype:
+            raise TypeError(f"apply_reduced: {c.output} lane {red.dtype} != accumulator {acc.dtype}")
+        if nn_red is not None and nn_red.dtype != torch.int64:
+            raise TypeError("apply_reduced: non-null lanes must be int64")
+        rows.append((
+            _KIND_CODE[c.kind], _kernels.dtype_code(acc), acc.data_ptr(),
+            0 if red is None else red.data_ptr(),
+            0 if nonnull is None else nonnull.data_ptr(),
+            0 if nn_red is None else nn_red.data_ptr(),
+        ))
+    if live is not None:
+        _kernels.check_cuda("apply_reduced", live, n=cap)
+    _kernels.call(
+        "apply_reduced", "rw_apply_reduced",
+        _kernels.int64_rows(rows, 16), len(rows), n, slots.data_ptr(), rep_valid.data_ptr(),
+        w.data_ptr(), state.row_count.data_ptr(), state.dirty.data_ptr(), state.sdirty.data_ptr(),
+        minmax_ret.data_ptr(), state.minmax_retracted.data_ptr(),
+        0 if live is None else live.data_ptr(),
+    )
+
+
 def flush(
     state: AggState,
     table_keys: Tuple[torch.Tensor, ...],
     out_cap: int,
     float_extremes: tuple = (),
+    dirty_total: Optional[torch.Tensor] = None,
 ):
     """Emit the per-barrier delta for up to ``out_cap`` dirty groups, in
     ascending slot order (hash_agg.rs:406); updates ``state`` in place.
@@ -357,12 +670,14 @@ def flush(
     new (U+/I) rows the current ones. ``status`` is the (2,) int32
     [groups taken, overflow]; overflow means more dirty groups remain
     and the caller must flush again. Float MIN/MAX lanes listed in
-    ``float_extremes`` are decoded back to floats.
+    ``float_extremes`` are decoded back to floats. ``dirty_total``, a ()
+    int64 tensor, if given receives the number of dirty groups before
+    this round (counted by the flush's own pass over ``dirty``).
     """
     if state.dirty.device.type == "cpu":
-        return state, _flush_torch(state, table_keys, out_cap, float_extremes)
+        return state, _flush_torch(state, table_keys, out_cap, float_extremes, dirty_total)
     if state.dirty.device.type == "cuda":
-        return state, _flush_cuda(state, table_keys, out_cap, float_extremes)
+        return state, _flush_cuda(state, table_keys, out_cap, float_extremes, dirty_total)
     raise ValueError(f"unsupported device {state.dirty.device}")
 
 
@@ -370,10 +685,12 @@ def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([a, b], dim=1).reshape(-1)
 
 
-def _flush_torch(state, table_keys, out_cap, float_extremes):
+def _flush_torch(state, table_keys, out_cap, float_extremes, dirty_total=None):
     dev = state.dirty.device
     dirty_ids = torch.nonzero(state.dirty).flatten()
     n_dirty = dirty_ids.numel()
+    if dirty_total is not None:
+        dirty_total.fill_(n_dirty)
     n_take = min(n_dirty, out_cap)
     take = dirty_ids[:n_take]
     pad = out_cap - n_take
@@ -417,9 +734,13 @@ def _flush_torch(state, table_keys, out_cap, float_extremes):
     return delta
 
 
-def _flush_cuda(state, table_keys, out_cap, float_extremes):
+def _flush_cuda(state, table_keys, out_cap, float_extremes, dirty_total=None):
     cap = state.capacity
     dev = state.dirty.device
+    if dirty_total is not None:
+        if dirty_total.shape != () or dirty_total.dtype != torch.int64:
+            raise TypeError("dirty_total must be a () int64 tensor")
+        _kernels.check_cuda("agg_flush", state.dirty, dirty_total)
     lanes = [state.row_count, state.emitted_valid, state.dirty, *table_keys]
     lanes += list(state.accums.values()) + list(state.emitted.values())
     lanes += list(state.nonnull.values()) + list(state.emitted_isnull.values())
@@ -466,6 +787,7 @@ def _flush_cuda(state, table_keys, out_cap, float_extremes):
         state.dirty.data_ptr(), cap, tile_counts.data_ptr(), status.data_ptr(), out_cap,
         state.row_count.data_ptr(), state.emitted_valid.data_ptr(),
         delta["ops"].data_ptr(), delta["valid"].data_ptr(),
+        0 if dirty_total is None else dirty_total.data_ptr(),
     )
     delta["status"] = status
     return delta

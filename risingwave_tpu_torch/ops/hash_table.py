@@ -47,7 +47,9 @@ class HashTable:
       stamp     int32 claim word of kernel A: 0 = empty, -1 = being
                 written, > 0 = the generation of the call that claimed
                 the slot (slots imported or claimed on the CPU hold 1)
-    ``gen`` is the last generation handed to a lookup_or_insert call.
+    ``claimed`` is a () int64 count of the claimed slots, kept by
+    ``lookup_or_insert``; ``gen`` is the last generation handed to a
+    lookup_or_insert call.
     """
 
     fp1: torch.Tensor
@@ -55,6 +57,7 @@ class HashTable:
     keys: Tuple[torch.Tensor, ...]
     live: torch.Tensor
     stamp: torch.Tensor
+    claimed: torch.Tensor
     gen: int = 1
 
     @property
@@ -77,6 +80,7 @@ class HashTable:
             keys=tuple(z(d) for d in key_dtypes),
             live=z(torch.bool),
             stamp=z(torch.int32),
+            claimed=torch.zeros((), dtype=torch.int64, device=dev),
         )
 
     @staticmethod
@@ -93,11 +97,14 @@ class HashTable:
             keys=tuple(put(np.asarray(k)) for k in keys),
             live=put(np.asarray(live, np.bool_)),
             stamp=put((fp1 != EMPTY).astype(np.int32)),
+            claimed=put(np.asarray((fp1 != EMPTY).sum(), np.int64)),
         )
 
     def occupancy(self) -> torch.Tensor:
-        """Slots ever claimed (live + tombstones) — drives host rehash."""
-        return (self.fp1 != EMPTY).sum()
+        """Slots ever claimed (live + tombstones) — drives host rehash.
+        The table's own () counter, not a copy: the reference's
+        ``(fp1 != EMPTY).sum()`` without a pass over the table."""
+        return self.claimed
 
     def num_live(self) -> torch.Tensor:
         return self.live.sum()
@@ -154,6 +161,9 @@ def _lookup_or_insert_cuda(table: HashTable, key_cols, valid):
         "lookup_or_insert", table.fp1, table.fp2, table.stamp, table.live,
         *table.keys, n=cap,
     )
+    if table.claimed.shape != () or table.claimed.dtype != torch.int64:
+        raise TypeError("claimed must be a () int64 counter")
+    _kernels.check_cuda("lookup_or_insert", table.fp1, table.claimed)
     if valid.dtype != torch.bool:
         raise TypeError("valid must be a bool lane")
     lanes = []
@@ -168,7 +178,7 @@ def _lookup_or_insert_cuda(table: HashTable, key_cols, valid):
         "lookup_or_insert", "rw_lookup_or_insert",
         _kernels.int64_rows(lanes, 8), len(lanes), n, valid.data_ptr(),
         table.fp1.data_ptr(), table.fp2.data_ptr(), table.stamp.data_ptr(),
-        table.live.data_ptr(), cap, table.gen,
+        table.claimed.data_ptr(), table.live.data_ptr(), cap, table.gen,
         slots.data_ptr(), found.data_ptr(), inserted.data_ptr(),
     )
     return table, slots, found, inserted
@@ -209,6 +219,7 @@ def _lookup_or_insert_torch(table: HashTable, key_cols, valid):
         won = want & (claim[cand] == row_ids)
         claim[widx] = -1
         w = cand[won]
+        table.claimed += won.sum()
         table.fp1[w] = fp1[won]
         table.fp2[w] = fp2[won]
         table.stamp[w] = table.gen
@@ -260,10 +271,94 @@ def set_live(table: HashTable, slots: torch.Tensor, live_value) -> HashTable:
     return table
 
 
+def move_slots(srcs, dsts, new_slots: torch.Tensor, keep: torch.Tensor) -> None:
+    """A rebuild's lane moves, in place on ``dsts``: for every old slot
+    ``i`` with ``keep[i]`` and ``new_slots[i] >= 0``, each
+    ``dsts[k][new_slots[i]] = srcs[k][i]`` (the scatters of the
+    reference's ``_rehash`` and ``_mv_rebuild``; ``new_slots`` from
+    ``lookup_or_insert`` of the kept keys into the new table). Kernel I
+    (``csrc/slot_move.cu``) on the card, plain PyTorch on the CPU."""
+    if len(srcs) != len(dsts):
+        raise ValueError("move_slots: one destination lane per source lane")
+    if keep.device.type == "cpu":
+        _move_slots_torch(srcs, dsts, new_slots, keep)
+    elif keep.device.type == "cuda":
+        _move_slots_cuda(srcs, dsts, new_slots, keep)
+    else:
+        raise ValueError(f"unsupported device {keep.device}")
+
+
+def _move_slots_torch(srcs, dsts, new_slots, keep):
+    ok = keep & (new_slots >= 0)
+    dst = new_slots[ok].long()
+    for s, d in zip(srcs, dsts):
+        d[dst] = s[ok]
+
+
+def _move_slots_cuda(srcs, dsts, new_slots, keep):
+    n = keep.shape[0]
+    if not dsts:
+        return
+    if keep.dtype != torch.bool or new_slots.dtype != torch.int32:
+        raise TypeError("move_slots: keep must be bool and new_slots int32")
+    _kernels.check_cuda("slot_move", keep, new_slots, *srcs, n=n)
+    _kernels.check_cuda("slot_move", *dsts, n=dsts[0].shape[0])
+    rows = []
+    for s, d in zip(srcs, dsts):
+        if s.dtype != d.dtype:
+            raise TypeError(f"move_slots: lane dtypes differ ({s.dtype} vs {d.dtype})")
+        rows.append((s.data_ptr(), d.data_ptr(), s.element_size()))
+    step = _kernels.SLOT_MOVE_LANES
+    for i in range(0, len(rows), step):
+        part = rows[i:i + step]
+        _kernels.call(
+            "slot_move", "rw_slot_move", _kernels.int64_rows(part, step), len(part), n,
+            new_slots.data_ptr(), keep.data_ptr(),
+        )
+
+
+@dataclass
+class StagedScalars:
+    """A packed int64 scalar lane on its way to the host: ``host`` is
+    filled by an asynchronous copy that ``done`` (a CUDA event, None on
+    the CPU) fences."""
+
+    host: torch.Tensor
+    done: object = None
+
+
+def stage_scalars(*xs) -> StagedScalars:
+    """Pack () scalars into one int64 lane and start its device->host
+    copy (``ops/hash_table.py:284``); finish with ``finish_scalars``.
+    On the card the copy goes into pinned memory with ``non_blocking``
+    and is fenced by an event, so staging never waits for the device."""
+    return stage_packed(torch.stack([torch.as_tensor(x).to(torch.int64) for x in xs]))
+
+
+def stage_packed(packed: torch.Tensor) -> StagedScalars:
+    """``stage_scalars`` for a lane already packed on the device."""
+    if packed.device.type != "cuda":
+        return StagedScalars(packed.clone())
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return StagedScalars(host, done)
+
+
+def finish_scalars(staged: StagedScalars) -> list:
+    """Wait for a staged lane and return it as python ints
+    (``ops/hash_table.py:296``): the one sanctioned device->host read
+    of a barrier."""
+    if staged.done is not None:
+        staged.done.synchronize()
+    return staged.host.tolist()
+
+
 def read_scalars(*xs) -> list:
     """ONE packed, blocking device->host read of several scalars
-    (latches, occupancy counters)."""
-    return torch.stack([torch.as_tensor(x).to(torch.int64) for x in xs]).tolist()
+    (latches, occupancy counters) — stage + finish in one call."""
+    return finish_scalars(stage_scalars(*xs))
 
 
 def plan_rehash(

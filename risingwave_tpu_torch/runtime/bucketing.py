@@ -1,7 +1,8 @@
 """Capacity planning for the padded state tables.
 
-Port of the part of ``risingwave_tpu/runtime/bucketing.py`` (:74-99,
-:160-416) that the HashAgg and device-MV ``_maybe_grow`` use: tables
+Port of the part of ``risingwave_tpu/runtime/bucketing.py`` (:74-127,
+:160-416) that the HashAgg and device-MV ``_maybe_grow`` and the fused
+program's flush rounds use: tables
 walk a power-of-two lattice, grow eagerly past the load factor and
 shrink lazily after ``patience`` quiet barriers, so a window churning at
 a bucket boundary grows once and stays. The governor pin/veto hooks and
@@ -11,7 +12,7 @@ the environment overrides are not ported.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 # lattice span above the configured capacity (8 doublings = 256x)
 DEFAULT_MAX_STEPS = 8
@@ -31,6 +32,20 @@ def flush_pad(out_cap: int, emitted_bound: int) -> int:
     full = 2 * int(out_cap)
     small = min(256, full)
     return small if 2 * int(emitted_bound) <= small else full
+
+
+def flush_pad_schedule(dirty_bound: int, capacity: int, out_cap: int) -> Tuple[int, ...]:
+    """Per-round flush pads for one barrier, from the host dirty bound
+    (no device read): round r drains up to ``out_cap`` dirty groups, so
+    its emitted-rows bound is what remains of the clamped bound. At
+    least one round; a trailing over-estimate emits an all-invalid
+    chunk, a no-op downstream."""
+    bound = min(int(dirty_bound), int(capacity))
+    rounds = max(1, -(-bound // out_cap))
+    return tuple(
+        flush_pad(out_cap, min(max(bound - r * out_cap, 0), out_cap))
+        for r in range(rounds)
+    )
 
 
 @dataclass(frozen=True)

@@ -31,6 +31,8 @@ import risingwave_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(risingwave_tpu_torch.__path__, "risingwave_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+for m in ("runtime.fused_step", "executors.epoch_batch", "integrity"):
+    assert "risingwave_tpu_torch." + m in mods, m
 assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
 
 from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig, NexmarkGenerator
@@ -43,6 +45,16 @@ for _ in range(2):
     q5.pipeline.barrier()
 snap = q5.mview.snapshot()
 assert snap and all(v[0] > 0 for v in snap.values())
+
+from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline
+
+fused = build_q5_lite(capacity=1 << 10, state_cleaning=False, device="cpu")
+(w,) = fuse_pipeline(fused.pipeline)
+gen = NexmarkGenerator(NexmarkConfig(first_event_rate=50_000))
+for _ in range(2):
+    fused.pipeline.push(gen.next_chunks(400, 400, device="cpu")["bid"])
+    fused.pipeline.barrier()
+assert fused.mview.snapshot() == snap and set(w.last_digests) == {"agg", "mv"}
 
 assert not torch.cuda.is_available()
 for make in (lambda: build_q5_lite(), lambda: NexmarkGenerator().next_chunks(10, 16)):
@@ -69,7 +81,7 @@ def test_port_imports_and_runs_without_jax_and_never_falls_back_to_cpu():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     n = int(proc.stdout.split("MODULES")[1])
-    assert n >= 15  # every module of the slice was imported
+    assert n >= 18  # every module of the slices was imported
 
 
 _FORBIDDEN = re.compile(
