@@ -5,24 +5,37 @@
 
 Phases, each printing one JSON line:
   1. the card: name, power limit;
-  2. build: compile kernels A-I from ``risingwave_tpu_torch/csrc``;
+  2. build: compile every kernel library from ``risingwave_tpu_torch/csrc``;
   3. each kernel against its plain PyTorch version on the card, on the
      same seeded inputs at the main paths' shapes (A-D: about 300k rows
      per apply, tables of 2^24 slots; E-H: a 16-chunk epoch of 65,536
      bid rows, 5,242,880 hopped rows, tables of 2^24 slots; I: a
-     2^24-slot table rebuilt to 2^25 slots), with times;
+     2^24-slot table rebuilt to 2^25 slots; J: a 65,536-row auction
+     chunk on a 2^23-slot seen-set; L: a 32,768-row person chunk into a
+     (2^23, 8) join side, and L's regrow entry from 2^20 to 2^21 slots;
+     M: 65,536 probe rows against that side; H over q8's two join sides
+     after phase 8), with times;
   4. the interpreted path: Nexmark q5 (hop -> HashAgg -> device MV)
      through ``build_q5_lite(state_cleaning=False)``, chunk by chunk,
      over 20 epochs of 1M events, its final MV held against a numpy
      oracle, and the launch count of each kernel during that run;
-  5. with ``--profile N`` only: N of phase 4's epochs again, on fresh
-     tables, under ``torch.profiler`` (where the time goes), for the
-     interpreted path and, after phase 6, for the fused one;
+  5. with ``--profile N`` only: N epochs of a path again, on fresh
+     tables, under ``torch.profiler`` (where the time goes), after each
+     of phases 4, 6, 7 and 8;
   6. the fused path: the same q5 through ``fuse_pipeline`` (one program
      per barrier, no device read inside it) over phase 4's chunks, its
      MV held against the oracle and phase 4's MV, its staged state
      digests against ``host_digest`` of the lanes read back and of
-     phase 4's state, and the launch count of each kernel.
+     phase 4's state, and the launch count of each kernel;
+  7. Nexmark q8 interpreted: ``build_q8`` (tables of 2^23 slots, join
+     fanout 8, out_cap 2^14) over the same 20 epochs of 1M events, one
+     person chunk pushed left and one auction chunk pushed right per
+     epoch, its final MV held against a copy of ``bench.py``'s q8 actor;
+  8. q8 fused: ``fuse_pipeline`` on a fresh ``build_q8`` over the same
+     chunks (one ``FusedTwoInputExecutor`` program per barrier), its MV
+     held against the actor and phase 7's MV, its five staged digests
+     against ``host_digest`` of the lanes read back and of phase 7's
+     state.
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. Without a
@@ -50,6 +63,13 @@ EPOCHS = 20
 EVENTS_PER_EPOCH = 1_000_000
 CHUNK_EVENTS = 65_536
 EVENT_RATE = 10_000  # events/s of event time, as the repo's q5 benchmark
+# q8 (phases 7-8), bench.py's settings: tables of _state_cap(0.09 * 20M,
+# 2^16) slots each, one person and one auction chunk per epoch
+Q8_CAP = 1 << 23
+Q8_FANOUT = 8
+Q8_OUT_CAP = 1 << 14
+P_ROWS = 32_768  # person chunk capacity (about 20,000 persons an epoch)
+A_ROWS = 65_536  # auction chunk capacity (about 60,000 auctions an epoch)
 
 
 def emit(obj) -> None:
@@ -754,6 +774,24 @@ def kernel_g(torch, dev, rng, f_out):
     }, (table, sa)
 
 
+def digest_bytes(lanes_live) -> int:
+    """What one digest must read: its mask lanes over every slot, and
+    every lane only at the slots the mask keeps (the others fold to 0)."""
+    from risingwave_tpu_torch import integrity
+
+    lanes, live = lanes_live
+    masks = integrity._masks(live)
+    keep = masks[0].clone()
+    for m in masks[1:]:
+        keep |= m
+    cap = keep.shape[0]
+    per_slot = 0
+    for a in lanes.values():
+        t = a.lane if isinstance(a, integrity.Masked) else a
+        per_slot += t.element_size() * (t.numel() // cap)
+    return cap * len(masks) + int(keep.sum()) * per_slot
+
+
 def kernel_h(torch, dev, g_out):
     from types import SimpleNamespace
 
@@ -779,10 +817,7 @@ def kernel_h(torch, dev, g_out):
     ms = time_ms(torch, lambda: both(integrity.device_digest), 10)
     plain_fn = lambda lanes, live: integrity._device_digest_torch(lanes, sorted(lanes), integrity._masks(live))
     plain = time_ms(torch, lambda: both(plain_fn), 3)
-    per_slot = lambda lanes, live: sum(
-        a.element_size() * (a.numel() // TABLE_CAP) for a in lanes.values()
-    ) + len(integrity._masks(live))
-    nbytes = TABLE_CAP * (per_slot(*agg) + per_slot(*mv))
+    nbytes = digest_bytes(agg) + digest_bytes(mv)
     return {
         "name": "H state digest", "route": "cuda",
         "source": "risingwave_tpu_torch/csrc/state_digest.cu",
@@ -790,7 +825,7 @@ def kernel_h(torch, dev, g_out):
         "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
         "bound_by": "bytes", "library_ms": None,
         "shape": {"capacity": TABLE_CAP, "calls": "agg lanes + MV lanes (one barrier's two digests)",
-                  "bytes_per_slot": nbytes / TABLE_CAP},
+                  "bytes": nbytes},
     }
 
 
@@ -926,6 +961,623 @@ def kernel_epoch_dtypes(torch, dev, rng):
                       "every call kind; G on those; H bool/int32/float32/float64/2-D lanes: equal"}
 
 
+# -- phase 3, q8's kernels (J, L, M; H with an entry mask) ------------------------
+def clone_side(side):
+    from risingwave_tpu_torch.ops.join import JoinSide
+
+    return JoinSide(
+        clone_table(side.table), {k: t.clone() for k, t in side.rows.items()},
+        {k: t.clone() for k, t in side.row_nulls.items()}, side.row_valid.clone(),
+        side.overflow.clone(), side.inconsistent.clone(), side.sdirty.clone(),
+        side.stored.clone(), side.degree.clone(),
+    )
+
+
+def side_lanes(side) -> dict:
+    """Every tensor lane of a JoinSide, by name (its table's included)."""
+    out = {f"table.{k}": t for k, t in vars(side.table).items() if hasattr(t, "dtype")}
+    out.update({f"table.key{i}": k for i, k in enumerate(side.table.keys)})
+    for name, v in vars(side).items():
+        if isinstance(v, dict):
+            out.update({f"{name}.{k}": t for k, t in v.items()})
+        elif hasattr(v, "dtype"):
+            out[name] = v
+    return out
+
+
+def restore_side(dst, src) -> None:
+    for a, b in zip(side_lanes(dst).values(), side_lanes(src).values()):
+        a.copy_(b)
+
+
+def left_chunk(torch, dev, ids, starts, names, ops=None, cap=None):
+    """A person-side chunk (id, name, starttime) on the card."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+
+    cols = {"id": np.asarray(ids, np.int64), "name": np.asarray(names, np.int32),
+            "starttime": np.asarray(starts, np.int64)}
+    return StreamChunk.from_numpy(cols, cap or len(cols["id"]), ops=ops, device=dev)
+
+
+def q8_left_side(torch, dev, rng, cap: int, n_keys: int, fanout: int = Q8_FANOUT):
+    """A (cap, fanout) person-shaped join side holding ``n_keys`` keys,
+    filled through A + L in 65,536-row chunks, plus a full bucket (key
+    id 1) and a key holding one row twice (id 2). Returns the side and
+    the filled keys' ids, starts and names."""
+    from risingwave_tpu_torch.ops.join import JoinSide, apply_side
+
+    names = ("id", "name", "starttime")
+    side = JoinSide.create(cap, fanout, (torch.int64, torch.int64),
+                           {"id": torch.int64, "name": torch.int32, "starttime": torch.int64},
+                           device=dev)
+    ids = rng.permutation(n_keys).astype(np.int64) + 1000
+    starts = rng.integers(0, 200, n_keys) * 10_000
+    names_ = rng.integers(0, 1000, n_keys)
+    full = (np.full(fanout, 1), np.zeros(fanout), np.arange(fanout))
+    dup = (np.full(2, 2), np.zeros(2), np.full(2, 7))
+    batches = [(ids[i:i + 65_536], starts[i:i + 65_536], names_[i:i + 65_536])
+               for i in range(0, n_keys, 65_536)] + [full, dup]
+    for b_ids, b_starts, b_names in batches:
+        c = left_chunk(torch, dev, b_ids, b_starts, b_names)
+        apply_side(side, (c.col("id"), c.col("starttime")), {k: c.col(k) for k in names}, {},
+                   c.valid, c.ops, names)
+    return side, ids, starts, names_
+
+
+def kernel_j(torch, dev, rng, cap: int = Q8_CAP, n: int = A_ROWS, prefill: int = 282_247):
+    """J against its plain version: a 65,536-row auction chunk (new keys
+    with in-chunk repeats, keys seen before, one DELETE row) after A on
+    a seen-set of ``prefill`` keys; and J's first-occurrence entry
+    alone."""
+    import dataclasses
+
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.executors import dedup as dd
+    from risingwave_tpu_torch.ops import hash_table as ht
+
+    keys = ("seller", "astarttime")
+    table = ht.HashTable.create(cap, (torch.int64, torch.int64), device=dev)
+    sdirty = torch.zeros(cap, dtype=torch.bool, device=dev)
+    scratch = ht.first_scratch(cap, dev)
+    latches = lambda: (torch.zeros((), dtype=torch.bool, device=dev),
+                       torch.zeros((), dtype=torch.bool, device=dev))
+    seen_s = rng.integers(1000, 10**7, prefill)
+    seen_w = rng.integers(0, 200, prefill) * 10_000
+    for i in range(0, prefill, n):
+        c = StreamChunk.from_numpy({"seller": seen_s[i:i + n], "astarttime": seen_w[i:i + n]}, n,
+                                   device=dev)
+        dd.dedup_step_fn(table, sdirty, c, keys, scratch, latches())
+    pick = rng.integers(0, prefill, n // 4)
+    pool = rng.integers(10**8, 2 * 10**8, n // 4)  # new keys, each about 3 times
+    new = rng.integers(0, len(pool), n - len(pick))
+    sel = np.concatenate([seen_s[pick], pool[new]])
+    win = np.concatenate([seen_w[pick], np.zeros(len(new), np.int64)])
+    ops = np.zeros(n, np.int32)
+    ops[0] = 1  # one DELETE, of a key seen before
+    chunk = StreamChunk.from_numpy({"seller": sel, "astarttime": win}, n, ops=ops, device=dev)
+    signs = chunk.effective_signs()
+    valid = chunk.valid & (signs > 0)
+    _, slots, _, inserted = ht.lookup_or_insert(table, tuple(chunk.col(k) for k in keys), valid)
+    outs = []
+    for fn in ("cuda", "torch"):
+        t = dataclasses.replace(table, live=table.live.clone())
+        sd, lat = sdirty.clone(), latches()
+        if fn == "cuda":
+            emit = dd._dedup_emit_cuda(t, sd, chunk, slots, inserted, scratch, lat)
+        else:
+            emit = dd._dedup_emit_torch(t, sd, chunk, signs, valid, slots, inserted, lat)
+        outs.append({"emit": emit, "live": t.live, "sdirty": sd, "saw_delete": lat[0],
+                     "dropped": lat[1]})
+    torch.cuda.synchronize()
+    assert_lanes_equal(torch, outs[0], outs[1], "J")
+    check(bool(outs[0]["saw_delete"]) and not bool(outs[0]["dropped"]), "J: latches")
+    check(bool((scratch == ht.FIRST_SENTINEL).all()), "J: scratch reset")
+    n_emit = int(outs[0]["emit"].sum())
+    check(n_emit == len(np.unique(pool[new])), "J: one emitted row per new key")
+    first_k = ht.first_occurrence_mask(slots, valid, scratch)
+    first_p = ht._first_occurrence_torch(slots, valid)
+    check(torch.equal(first_k, first_p), "J: first_occurrence_mask entry")
+    err = max_abs_diff(torch, outs[0], outs[1])
+    t = dataclasses.replace(table, live=table.live.clone())
+    sd, lat = sdirty.clone(), latches()
+    ms = time_ms(torch, lambda: dd._dedup_emit_cuda(t, sd, chunk, slots, inserted, scratch, lat), 20)
+    plain = time_ms(torch, lambda: dd._dedup_emit_torch(t, sd, chunk, signs, valid, slots, inserted,
+                                                         lat), 5)
+    key = torch.where(inserted, slots, -1)
+    lib = time_ms(torch, lambda: torch.unique(key, return_inverse=True), 10)
+    n_ins = int(inserted.sum())
+    # valid, ops, slots, inserted read and emit written per row; per
+    # inserted row live and sdirty written, the scratch entry read and
+    # written twice
+    nbytes = n * (1 + 4 + 4 + 1 + 1) + n_ins * (1 + 1 + 16)
+    return {
+        "name": "J dedup emit", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/dedup_emit.cu",
+        "replaces": "risingwave_tpu/executors/dedup.py:47 (with ops/hash_table.py:342)",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": lib,
+        "library_call": "torch.unique(slot, return_inverse=True), the grouping alone",
+        "shape": {"rows": n, "capacity": cap, "seen_keys": prefill, "inserted_rows": n_ins,
+                  "emitted": n_emit},
+    }
+
+
+def kernel_l(torch, dev, rng, cap: int = Q8_CAP, n: int = P_ROWS, prefill: int = 400_000):
+    """L against its plain version on one person chunk after A, into a
+    (cap, 8) side holding ``prefill`` keys: new keys, second rows of
+    stored keys, four inserts of one new key, a 9th row for a full
+    bucket (overflow), two deletes of a row stored twice, an insert and
+    a delete of one row (net out), a delete of an absent row
+    (inconsistent) and padding. Every lane equal, latches included.
+    Then the hot-slot case (``kernel_l_hot``), reported in the row's
+    ``hot_slots``. Returns the row and the applied side (M probes it)."""
+    from risingwave_tpu_torch import integrity
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.ops import join as jn
+
+    names = ("id", "name", "starttime")
+    side, ids, starts, stored_names = q8_left_side(torch, dev, rng, cap, prefill)
+    m = n - 16  # the rest is padding
+    k_new = m - 4 - 1 - 2 - 2 - 1 - 200
+    pick = rng.integers(0, prefill, 200)
+    c_ids = np.concatenate([rng.permutation(k_new) + 10**9, ids[pick], np.full(4, 3), [1], [2, 2],
+                            [4, 4], [5]])
+    c_st = np.concatenate([np.zeros(k_new), starts[pick], np.zeros(10)]).astype(np.int64)
+    c_nm = np.concatenate([rng.integers(0, 1000, k_new + 200), [1, 2, 3, 4], [99], [7, 7],
+                           [5, 5], [6]])
+    ops = np.zeros(m, np.int32)
+    ops[-5:-3] = 1  # the stored twice row, deleted twice
+    ops[-2] = 1  # the netting-out row's delete
+    ops[-1] = 1  # absent row
+    chunk = left_chunk(torch, dev, c_ids, c_st, c_nm, ops=ops, cap=n)
+    key_cols = (chunk.col("id"), chunk.col("starttime"))
+    pay = {k: chunk.col(k) for k in names}
+    _, slots, _, _ = ht.lookup_or_insert(side.table, key_cols, chunk.valid)
+    base = clone_side(side)
+    got, want = clone_side(base), clone_side(base)
+    jn._apply_side_cuda(got, slots, pay, {}, chunk.valid, chunk.ops, names)
+    jn._apply_side_torch(want, slots, pay, {}, chunk.valid, chunk.ops, names)
+    torch.cuda.synchronize()
+    lanes_k, lanes_p = side_lanes(got), side_lanes(want)
+    assert_lanes_equal(torch, lanes_k, lanes_p, "L")
+    check(bool(got.overflow) and bool(got.inconsistent), "L: overflow and inconsistent latches")
+    digs = [integrity.digest_from_scalar(integrity.device_digest(*integrity.join_side_lanes(s)))
+            for s in (got, want)]
+    check(digs[0] == digs[1], "L: join-side digests")
+    err = max_abs_diff(torch, lanes_k, lanes_p)
+    work = clone_side(base)
+    setup = lambda: restore_side(work, base)
+    ms = time_ms(torch, lambda: jn._apply_side_cuda(work, slots, pay, {}, chunk.valid, chunk.ops,
+                                                    names), 10, setup)
+    plain = time_ms(torch, lambda: jn._apply_side_torch(work, slots, pay, {}, chunk.valid,
+                                                        chunk.ops, names), 3, setup)
+    n_del = int((ops == 1).sum())
+    n_ins = m - n_del
+    fanout = side.fanout
+    hot = kernel_l_hot(torch, dev, rng, base, work, want, ids, starts, stored_names, n)
+    row = {
+        "name": "L join apply", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/join_apply.cu",
+        "replaces": "risingwave_tpu/ops/join.py:215 (with :141, :178, :192)",
+        "max_abs_err": max(err, hot["max_abs_err"]), "ms": ms, "plain_ms": plain,
+        "bound_ms": bound_ms(l_bytes(n, m, n_ins, n_del, fanout)),
+        "bound_by": "bytes", "library_ms": None,
+        "shape": {"rows": n, "capacity": cap, "fanout": fanout, "stored_keys": prefill + 2,
+                  "inserts": n_ins, "deletes": n_del},
+        "hot_slots": hot,
+    }
+    del base, want, work
+    return row, got
+
+
+def l_bytes(n: int, m: int, n_ins: int, n_del: int, fanout: int) -> int:
+    """Kernel L's bytes: per row valid, ops, slot and 20 payload bytes
+    read; per touching row its bucket's row_valid read, sdirty and live
+    written; per insert its entry (20 + 1 + 4 B) written; per delete its
+    bucket's payload read."""
+    return n * (1 + 4 + 4 + 20) + m * (fanout + 2) + n_ins * 25 + n_del * fanout * 20
+
+
+def kernel_l_hot(torch, dev, rng, base, got, want, ids, starts, names, n: int) -> dict:
+    """L where most rows share a slot: ``n`` rows over eight stored keys
+    of ``base`` (one row each), half inserts into four of them (each
+    bucket has fanout - 1 free positions, the rest overflow), half
+    deletes on the other four (half of them of the key's stored row:
+    the first clears it, the rest and the absent rows latch
+    inconsistent). Every lane equal to the plain version; timed beside
+    it. ``got`` and ``want`` are scratch sides; ``base`` gains nothing
+    (its keys are all stored already)."""
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.ops import join as jn
+
+    cols = ("id", "name", "starttime")
+    half = n // 2
+    k_ins = rng.integers(0, 4, half)
+    k_del = rng.integers(4, 8, n - half)
+    c_ids = np.concatenate([ids[k_ins], ids[k_del]])
+    c_st = np.concatenate([starts[k_ins], starts[k_del]])
+    d_nm = np.where(rng.random(n - half) < 0.5, names[k_del], rng.integers(0, 1000, n - half))
+    c_nm = np.concatenate([rng.integers(0, 1000, half), d_nm])
+    ops = np.concatenate([np.zeros(half, np.int32), np.ones(n - half, np.int32)])
+    chunk = left_chunk(torch, dev, c_ids, c_st, c_nm, ops=ops)
+    key_cols = (chunk.col("id"), chunk.col("starttime"))
+    pay = {k: chunk.col(k) for k in cols}
+    claimed = int(base.table.claimed)
+    _, slots, _, _ = ht.lookup_or_insert(base.table, key_cols, chunk.valid)
+    check(int(base.table.claimed) == claimed, "L hot slots: every key stored already")
+    restore_side(got, base)
+    restore_side(want, base)
+    jn._apply_side_cuda(got, slots, pay, {}, chunk.valid, chunk.ops, cols)
+    jn._apply_side_torch(want, slots, pay, {}, chunk.valid, chunk.ops, cols)
+    torch.cuda.synchronize()
+    lanes_k, lanes_p = side_lanes(got), side_lanes(want)
+    assert_lanes_equal(torch, lanes_k, lanes_p, "L hot slots")
+    check(bool(got.overflow) and bool(got.inconsistent), "L hot slots: both latches")
+    ins_slots = torch.unique(slots[:half].long())
+    check(int(got.row_valid[ins_slots].sum()) == len(ins_slots) * got.fanout,
+          "L hot slots: the insert buckets filled")
+    err = max_abs_diff(torch, lanes_k, lanes_p)
+    setup = lambda: restore_side(got, base)
+    ms = time_ms(torch, lambda: jn._apply_side_cuda(got, slots, pay, {}, chunk.valid, chunk.ops,
+                                                    cols), 10, setup)
+    plain = time_ms(torch, lambda: jn._apply_side_torch(got, slots, pay, {}, chunk.valid,
+                                                        chunk.ops, cols), 3, setup)
+    return {"ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms(l_bytes(n, n, half, n - half, got.fanout)),
+            "max_abs_err": err,
+            "shape": {"rows": n, "keys": 8, "inserts": half, "deletes": n - half}}
+
+
+def kernel_l_regrow(torch, dev, rng, cap: int = 1 << 20, keys: int = 300_000):
+    """L's regrow entry against its plain version: a (2^20, 8) side with
+    holes in its buckets (every third row of a key deleted) rebuilt to
+    2^21 slots; kernel A re-inserts the kept keys once, both versions
+    move the entries to the same new slots."""
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.ops import join as jn
+
+    names = ("id", "name", "starttime")
+    side, ids, starts, stored_names = q8_left_side(torch, dev, rng, cap, keys)
+    apply = lambda c: jn.apply_side(side, (c.col("id"), c.col("starttime")),
+                                    {k: c.col(k) for k in names}, {}, c.valid, c.ops, names)
+    # two more rows for a third of the keys, then each one's first row
+    # deleted: buckets with a hole at position 0
+    sub = rng.choice(keys, keys // 3, replace=False)
+    for _ in range(2):
+        apply(left_chunk(torch, dev, ids[sub], starts[sub], rng.integers(0, 1000, len(sub))))
+    apply(left_chunk(torch, dev, ids[sub], starts[sub], stored_names[sub],
+                     ops=np.ones(len(sub), np.int32)))
+    check(not bool(side.overflow) and not bool(side.inconsistent), "L regrow: side built cleanly")
+    new_cap = 2 * cap
+    keep = (side.table.live | side.sdirty) & (side.table.fp1 != 0)
+    mk = lambda: jn.JoinSide.create(new_cap, side.fanout, (torch.int64, torch.int64),
+                                    {k: a.dtype for k, a in side.rows.items()}, device=dev)
+    new_k, new_p = mk(), mk()
+    _, new_slots, _, _ = ht.lookup_or_insert(new_k.table, side.table.keys, keep)
+    lanes = lambda s: [*s.rows.values(), *s.row_nulls.values(), s.degree]
+    jn._regrow_entries_cuda(side, new_k, lanes(side), lanes(new_k), keep, new_slots)
+    jn._regrow_entries_torch(side, new_p, lanes(side), lanes(new_p), keep, new_slots)
+    torch.cuda.synchronize()
+    got = {"row_valid": new_k.row_valid, "degree": new_k.degree,
+           **{f"rows.{k}": a for k, a in new_k.rows.items()}}
+    want = {"row_valid": new_p.row_valid, "degree": new_p.degree,
+            **{f"rows.{k}": a for k, a in new_p.rows.items()}}
+    assert_lanes_equal(torch, got, want, "L regrow")
+    n_entries = int(side.row_valid.sum())
+    check(int(new_k.row_valid.sum()) == n_entries, "L regrow: every entry moved")
+    check(bool(new_k.row_valid[:, 0][new_slots[keep].long()].all()), "L regrow: holes compacted")
+    err = max_abs_diff(torch, got, want)
+    ms = time_ms(torch, lambda: jn._regrow_entries_cuda(side, new_k, lanes(side), lanes(new_k),
+                                                        keep, new_slots), 10)
+    plain = time_ms(torch, lambda: jn._regrow_entries_torch(side, new_p, lanes(side), lanes(new_p),
+                                                            keep, new_slots), 3)
+    # keep, new_slots and row_valid read over the old table; per entry
+    # moved its 24 B of lanes read and written, row_valid written
+    nbytes = cap * (1 + 4 + side.fanout) + n_entries * (2 * 24 + 1)
+    return {
+        "name": "L join regrow (move entry)", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/join_apply.cu",
+        "replaces": "risingwave_tpu/ops/join.py:458",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": None,
+        "shape": {"capacity": cap, "new_capacity": new_cap, "fanout": side.fanout,
+                  "entries": n_entries},
+    }
+
+
+def kernel_m(torch, dev, rng, side, n: int = A_ROWS, out_cap: int = Q8_OUT_CAP):
+    """M against its plain version: an auction chunk probing L's person
+    side (about 9,000 hits, a key of 8 rows, absent keys, one DELETE
+    row), then the same chunk into a 1,024-row output (em_overflow); and
+    M's lookup entry alone."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.ops import join as jn
+
+    live_slots = torch.nonzero(side.table.live).flatten()
+    n_hit = min(9_000, n // 8)
+    pick = live_slots[torch.from_numpy(rng.integers(0, len(live_slots), n_hit)).to(dev)]
+    hit_s = side.table.keys[0][pick].cpu().numpy()
+    hit_w = side.table.keys[1][pick].cpu().numpy()
+    miss = n - len(hit_s) - 1
+    sel = np.concatenate([hit_s, [1], rng.integers(10**10, 2 * 10**10, miss)])
+    win = np.concatenate([hit_w, [0], np.zeros(miss, np.int64)])
+    ops = np.zeros(n, np.int32)
+    ops[5] = 1
+    chunk = StreamChunk.from_numpy({"astarttime": win, "seller": sel}, n, ops=ops, device=dev)
+    key_cols = (chunk.col("seller"), chunk.col("astarttime"))
+    own = {k: chunk.col(k) for k in ("astarttime", "seller")}
+    out_names = ("id", "name", "starttime", "astarttime", "seller")
+    z = lambda d: torch.zeros((), dtype=d, device=dev)
+    err = 0.0
+    for cap_out in (out_cap, 1024):
+        res = []
+        for fn in (jn._probe_pairs_cuda, jn._probe_pairs_torch):
+            em, rows = z(torch.bool), z(torch.int64)
+            cols, nulls, o_ops, o_valid = fn(side, key_cols, chunk.valid, chunk.ops, own, {},
+                                             out_names, cap_out, em, rows)
+            res.append({**{f"col.{k}": v for k, v in cols.items()}, "ops": o_ops,
+                        "valid": o_valid, "em_overflow": em, "join_rows": rows})
+        torch.cuda.synchronize()
+        assert_lanes_equal(torch, res[0], res[1], f"M (out_cap {cap_out})")
+        err = max(err, max_abs_diff(torch, res[0], res[1]))
+        check(bool(res[0]["em_overflow"]) == (cap_out == 1024), "M: em_overflow latch")
+        if cap_out == out_cap:
+            pairs = int(res[0]["join_rows"])
+    slots_k, found_k = ht.lookup(side.table, key_cols, chunk.valid)
+    slots_p, found_p = ht._lookup_torch(side.table, key_cols, chunk.valid)
+    check(torch.equal(slots_k, slots_p) and torch.equal(found_k, found_p), "M: lookup entry")
+    em, rows = z(torch.bool), z(torch.int64)
+    ms = time_ms(torch, lambda: jn._probe_pairs_cuda(side, key_cols, chunk.valid, chunk.ops, own,
+                                                     {}, out_names, out_cap, em, rows), 20)
+    plain = time_ms(torch, lambda: jn._probe_pairs_torch(side, key_cols, chunk.valid, chunk.ops,
+                                                         own, {}, out_names, out_cap, em, rows), 5)
+    _, match = jn._probe_side_torch(side, key_cols, chunk.valid)
+    lib = time_ms(torch, lambda: torch.nonzero(match), 10)
+    n_found = int(found_k.sum())
+    fanout = side.fanout
+    # per probe row its key lanes, valid and ops read and one probe (fp1,
+    # fp2, both key lanes, live: 25 B); per hit its bucket's row_valid;
+    # per pair 20 B of stored lanes read; the out_cap output rows (36 B
+    # of lanes, ops, valid) written
+    nbytes = n * (16 + 1 + 4 + 25) + n_found * fanout + pairs * 20 + out_cap * (36 + 4 + 1)
+    return {
+        "name": "M join probe + pairs", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/join_probe.cu",
+        "replaces": "risingwave_tpu/ops/join.py:407,420,429 (with ops/hash_table.py:232)",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": lib,
+        "library_call": "torch.nonzero of the (n, fanout) match mask, the compaction alone",
+        "shape": {"probe_rows": n, "capacity": side.capacity, "fanout": fanout,
+                  "found": n_found, "pairs": pairs, "out_cap": out_cap},
+    }
+
+
+def kernel_h_join(torch, dev, join):
+    """H with its per-entry mask on q8's two join sides (the fused
+    program's two join digests): kernel, plain version and numpy
+    host_digest equal, and the survivor count taken in the same pass
+    equal to a torch reduction."""
+    from risingwave_tpu_torch import integrity
+
+    sides = [integrity.join_side_lanes(s) for s in (join.left, join.right)]
+    worst = 0.0
+    for what, side, (lanes, live) in zip(("left", "right"), (join.left, join.right), sides):
+        got = integrity.digest_from_scalar(integrity.device_digest(lanes, live))
+        plain = integrity.digest_from_scalar(integrity._device_digest_torch(
+            lanes, sorted(lanes), integrity._masks(live)))
+        host = integrity.host_digest(*integrity.host_lanes(lanes, live))
+        check(got == plain == host, f"H join {what}: kernel {got:x}, plain {plain:x}, numpy {host:x}")
+        worst = max(worst, float(abs(got - plain)), float(abs(got - host)))
+        dig, surv = integrity.digest_with_survivors(lanes, live, side.sdirty)
+        check(integrity.digest_from_scalar(dig) == got, f"H join {what}: digest with survivors")
+        check(int(surv) == int((side.table.live | side.sdirty).sum()), f"H join {what}: survivors")
+
+    def both(fn):
+        for lanes, live in sides:
+            fn(lanes, live)
+
+    ms = time_ms(torch, lambda: both(integrity.device_digest), 10)
+    plain = time_ms(torch, lambda: both(lambda la, li: integrity._device_digest_torch(
+        la, sorted(la), integrity._masks(li))), 3)
+    nbytes = sum(digest_bytes(side) for side in sides)
+    return {
+        "name": "H state digest, join sides (entry mask)", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/state_digest.cu",
+        "replaces": "risingwave_tpu/integrity.py:329 over integrity.py:426",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": None,
+        "shape": {"capacity": join.left.capacity, "fanout": join.left.fanout,
+                  "calls": "both join sides (two of a barrier's five digests)",
+                  "bytes": nbytes},
+    }
+
+
+# -- phases 7 and 8: q8 ---------------------------------------------------------
+def q8_stream(torch, dev, epochs: int):
+    """bench.py's q8 stream: per epoch, 1M events generated in
+    65,536-event pieces and batched into one person chunk (id, name,
+    date_time) and one auction chunk (seller, date_time), chunk
+    capacities the next power of two of the largest epoch's rows."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig, NexmarkGenerator
+
+    gen = NexmarkGenerator(NexmarkConfig(first_event_rate=EVENT_RATE), seed=SEED)
+    host = []
+    for _ in range(epochs):
+        p_parts, a_parts, done = [], [], 0
+        while done < EVENTS_PER_EPOCH:
+            n = min(CHUNK_EVENTS, EVENTS_PER_EPOCH - done)
+            done += n
+            ev = gen.next_events(n)
+            p_parts.append(ev["person"])
+            a_parts.append(ev["auction"])
+        cat = lambda parts, ks: {k: np.concatenate([p[k] for p in parts]) for k in ks}
+        host.append((cat(p_parts, ("id", "name", "date_time")),
+                     cat(a_parts, ("seller", "date_time"))))
+    pow2 = lambda m: 1 << (max(m, 64) - 1).bit_length()
+    p_cap = pow2(max(len(p["id"]) for p, _ in host))
+    a_cap = pow2(max(len(a["seller"]) for _, a in host))
+    chunks = [(StreamChunk.from_numpy(p, p_cap, device=dev), StreamChunk.from_numpy(a, a_cap, device=dev))
+              for p, a in host]
+    return host, chunks, (p_cap, a_cap)
+
+
+def cpu_actor_q8(host, window_ms: int) -> dict:
+    """The repo benchmark's single-threaded q8 actor (bench.py:50): per
+    side a tumble and a dedup dict, each new key probing the other
+    side's seen-set. Returns {(id, starttime): name}."""
+    pseen, aseen, out = {}, set(), {}
+    for p, a in host:
+        ws = (p["date_time"] // window_ms) * window_ms
+        for i, w, nm in zip(p["id"].tolist(), ws.tolist(), p["name"].tolist()):
+            k = (i, w)
+            if k not in pseen:
+                pseen[k] = nm
+                if k in aseen:
+                    out[k] = nm
+        ws = (a["date_time"] // window_ms) * window_ms
+        for s, w in zip(a["seller"].tolist(), ws.tolist()):
+            k = (s, w)
+            if k not in aseen:
+                aseen.add(k)
+                if k in pseen:
+                    out[k] = pseen[k]
+    return out
+
+
+def q8_mv_rows(mview) -> np.ndarray:
+    got = mview.to_numpy()
+    rows = np.stack([got["id"], got["starttime"], got["name"].astype(np.int64)], 1)
+    return rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+
+
+def oracle_rows(oracle: dict) -> np.ndarray:
+    rows = np.array([(k[0], k[1], v) for k, v in oracle.items()], np.int64).reshape(-1, 3)
+    return rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+
+
+def q8_digests(q8) -> dict:
+    """numpy host_digest of each of q8's five states, read back."""
+    from risingwave_tpu_torch import integrity
+
+    left, right = q8.pipeline.left[1], q8.pipeline.right[1]
+    jl, jr = q8.join.side_digests()
+    return {
+        "left": integrity.host_digest(*integrity.host_lanes(*left.digest_lanes())),
+        "right": integrity.host_digest(*integrity.host_lanes(*right.digest_lanes())),
+        "join_left": jl, "join_right": jr,
+        "mv": integrity.host_digest(*integrity.host_lanes(
+            *integrity.mv_lanes(q8.mview.table, q8.mview.state))),
+    }
+
+
+def run_q8(torch, dev, chunks, fused: bool):
+    """q8 over the chunks (person chunk pushed left, then the auction
+    chunk right, then a barrier), timed; returns the query, the barrier
+    times, the run's seconds, launches and peak bytes."""
+    from risingwave_tpu_torch import _kernels
+    from risingwave_tpu_torch.queries.nexmark_q import build_q8
+    from risingwave_tpu_torch.runtime.fused_step import FusedTwoInputExecutor, fuse_pipeline
+
+    q8 = build_q8(capacity=Q8_CAP, fanout=Q8_FANOUT, out_cap=Q8_OUT_CAP, device=dev)
+    if fused:
+        wrappers = fuse_pipeline(q8.pipeline, label="q8")
+        check(len(wrappers) == 1 and isinstance(wrappers[0], FusedTwoInputExecutor),
+              "q8 fused: one FusedTwoInputExecutor")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    barrier_ms = []
+    t_run = time.perf_counter()
+    for p, a in chunks:
+        q8.pipeline.push_left(p)
+        q8.pipeline.push_right(a)
+        tb = time.perf_counter()
+        q8.pipeline.barrier()
+        torch.cuda.synchronize()
+        barrier_ms.append((time.perf_counter() - tb) * 1e3)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    return q8, barrier_ms, run_s, dict(_kernels.LAUNCHES), torch.cuda.max_memory_allocated()
+
+
+Q8_KERNELS = ("lookup_or_insert", "mv_upsert", "hop_expand", "dedup_emit", "join_apply",
+              "join_probe")
+
+
+def q8_row(phase, host, chunks, caps, q8, barrier_ms, run_s, launches, peak) -> dict:
+    rows = sum(len(p["id"]) + len(a["seller"]) for p, a in host)
+    return {
+        "phase": phase, "epochs": len(chunks), "events": len(chunks) * EVENTS_PER_EPOCH,
+        "persons": sum(len(p["id"]) for p, _ in host),
+        "auctions": sum(len(a["seller"]) for _, a in host),
+        "chunk_capacity": {"person": caps[0], "auction": caps[1]},
+        "rows_per_s": rows / run_s, "run_s": run_s,
+        "barrier_ms_p50": float(np.percentile(barrier_ms, 50)),
+        "barrier_ms_p99": float(np.percentile(barrier_ms, 99)),
+        "barrier_ms": barrier_ms,
+        "capacity": {"join_left": q8.join.left.capacity, "join_right": q8.join.right.capacity,
+                     "dedup_left": q8.pipeline.left[1].table.capacity,
+                     "dedup_right": q8.pipeline.right[1].table.capacity,
+                     "mv": q8.mview.table.capacity},
+        "max_memory_allocated": int(peak), "launches": launches,
+    }
+
+
+def q8_path(torch, dev, epochs: int):
+    """Phase 7: q8 interpreted (chunk by chunk through the chains, the
+    join and the MV), its final MV against the q8 actor of bench.py."""
+    from risingwave_tpu_torch.queries.nexmark_q import Q8_WINDOW_MS
+
+    t0 = time.perf_counter()
+    host, chunks, caps = q8_stream(torch, dev, epochs)
+    oracle = oracle_rows(cpu_actor_q8(host, Q8_WINDOW_MS))
+    setup_s = time.perf_counter() - t0
+    q8, barrier_ms, run_s, launches, peak = run_q8(torch, dev, chunks, fused=False)
+    got = q8_mv_rows(q8.mview)
+    check(got.shape == oracle.shape and np.array_equal(got, oracle),
+          f"q8: MV ({len(got)} rows) vs the q8 actor ({len(oracle)} rows)")
+    for name in Q8_KERNELS:
+        check(launches[name] > 0, f"kernel {name} launched on q8's interpreted path")
+    row = q8_row("q8", host, chunks, caps, q8, barrier_ms, run_s, launches, peak)
+    row.update(setup_s=setup_s, mv_rows=int(len(got)),
+               oracle="bench.py's cpu_actor_q8 (copied): equal")
+    return row, launches, (host, chunks, caps, q8, oracle)
+
+
+def q8_fused_path(torch, dev, host, chunks, caps, interp_q8, oracle):
+    """Phase 8: q8 through ``fuse_pipeline``: one program per barrier
+    (per side E, A, J, M, A, L, then A, D into the MV; then five H),
+    each run under ``no_device_reads``."""
+    check_sync_guard(torch, dev)
+    q8, barrier_ms, run_s, launches, peak = run_q8(torch, dev, chunks, fused=True)
+    w = q8.pipeline._fused
+    got = q8_mv_rows(q8.mview)
+    check(np.array_equal(got, oracle), "q8 fused: MV vs the q8 actor")
+    check(np.array_equal(got, q8_mv_rows(interp_q8.mview)), "q8 fused: MV vs phase 7's MV")
+    lane_digests = q8_digests(q8)
+    check(w.last_digests == lane_digests,
+          f"q8 fused: staged digests {w.last_digests} vs host_digest {lane_digests}")
+    check(lane_digests == q8_digests(interp_q8), "q8 fused: digests vs phase 7's state")
+    for name in Q8_KERNELS + ("state_digest",):
+        check(launches[name] > 0, f"kernel {name} launched on q8's fused path")
+    tel = w.last_telemetry
+    p_last, a_last = host[-1]
+    check(tel["rows_left"] == len(p_last["id"]) and tel["rows_right"] == len(a_last["seller"]),
+          "q8 fused: rows_left / rows_right = the last epoch's persons / auctions")
+    check(tel["join_rows"] == tel["mv_rows"], "q8 fused: every join row reached the MV")
+    row = q8_row("q8_fused", host, chunks, caps, q8, barrier_ms, run_s, launches, peak)
+    row.update(
+        mv_rows=int(len(got)), last_telemetry=tel,
+        digests={k: f"{v:016x}" for k, v in lane_digests.items()},
+        sync_guard="set_sync_debug_mode('error') over the program part of every barrier: held",
+        oracle="q8 actor and phase 7's MV: equal; staged digests = host_digest of the lanes "
+               "read back = host_digest of phase 7's state",
+    )
+    return row, launches, q8
+
+
 # -- phase 4: the interpreted path --------------------------------------------
 def state_cap(expected_rows: int, floor: int) -> int:
     """Capacity whose growth margin covers the expected volume (the
@@ -1021,41 +1673,33 @@ def main_path(torch, dev, epochs: int):
     }, launches, (chunks, cap, q5, (a, w, c))
 
 
-def profile_q5(torch, dev, chunks, cap, epochs: int, fused: bool):
-    """Where the time goes in phase 4's (or, ``fused``, phase 6's) run: a
-    fresh q5-lite over the same chunks, one warm-up epoch, then
-    ``epochs`` under ``torch.profiler``. Wall time of the window, device
-    time summed over its kernels and copies, the device's idle share,
-    the host time of the pushes and barriers, and the device time by
-    kernel name."""
+def profile_epochs(torch, phase: str, pipeline, push, epochs_data, epochs: int) -> dict:
+    """Where the time goes: one warm-up epoch, then ``epochs`` under
+    ``torch.profiler``, each ``push(pipeline, epoch)`` then a barrier.
+    Wall time of the window, device time summed over its kernels and
+    copies, the device's idle share, the host time of the pushes and
+    barriers, and the device time by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from risingwave_tpu_torch.queries.nexmark_q import build_q5_lite
-    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline
-
-    check(len(chunks) > epochs, "profile: more epochs than phase 4 ran")
-    q5 = build_q5_lite(capacity=cap, state_cleaning=False, device=dev)
-    if fused:
-        fuse_pipeline(q5.pipeline, label="q5")
+    check(len(epochs_data) > epochs, "profile: more epochs than the path ran")
     host = {"push_s": 0.0, "barrier_s": 0.0}
 
-    def run(per_epoch):
+    def run(ep):
         t0 = time.perf_counter()
-        for c in per_epoch:
-            q5.pipeline.push(c)
+        push(pipeline, ep)
         t1 = time.perf_counter()
-        q5.pipeline.barrier()
+        pipeline.barrier()
         host["push_s"] += t1 - t0
         host["barrier_s"] += time.perf_counter() - t1
 
-    run(chunks[0])
+    run(epochs_data[0])
     torch.cuda.synchronize()
     host.update(push_s=0.0, barrier_s=0.0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for per_epoch in chunks[1 : 1 + epochs]:
-            run(per_epoch)
+        for ep in epochs_data[1 : 1 + epochs]:
+            run(ep)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     # device-side events only: the host ops that launched them carry the
@@ -1067,14 +1711,53 @@ def profile_q5(torch, dev, chunks, cap, epochs: int, fused: bool):
     device_ms = sum(by_name.values())
     measured = bool(by_name)
     return {
-        "phase": "q5_fused_profile" if fused else "q5_profile", "epochs": epochs,
-        "bids": sum(int(c.valid.sum()) for ep in chunks[1 : 1 + epochs] for c in ep),
+        "phase": phase, "epochs": epochs,
         "wall_ms": wall_s * 1e3,
         "device_ms": device_ms if measured else "not measured",
         "device_idle_share": 1 - device_ms / (wall_s * 1e3) if measured else "not measured",
         "host_push_ms": host["push_s"] * 1e3, "host_barrier_ms": host["barrier_s"] * 1e3,
         "device_ms_by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:15]),
     }
+
+
+def profile_q5(torch, dev, chunks, cap, epochs: int, fused: bool):
+    """Phase 4's (or, ``fused``, phase 6's) run profiled on a fresh
+    q5-lite over the same chunks."""
+    from risingwave_tpu_torch.queries.nexmark_q import build_q5_lite
+    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline
+
+    q5 = build_q5_lite(capacity=cap, state_cleaning=False, device=dev)
+    if fused:
+        fuse_pipeline(q5.pipeline, label="q5")
+
+    def push(pipeline, per_epoch):
+        for c in per_epoch:
+            pipeline.push(c)
+
+    row = profile_epochs(torch, "q5_fused_profile" if fused else "q5_profile", q5.pipeline, push,
+                         chunks, epochs)
+    row["bids"] = sum(int(c.valid.sum()) for ep in chunks[1 : 1 + epochs] for c in ep)
+    return row
+
+
+def profile_q8(torch, dev, chunks, epochs: int, fused: bool):
+    """Phase 7's (or, ``fused``, phase 8's) run profiled on a fresh q8
+    over the same chunks."""
+    from risingwave_tpu_torch.queries.nexmark_q import build_q8
+    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline
+
+    q8 = build_q8(capacity=Q8_CAP, fanout=Q8_FANOUT, out_cap=Q8_OUT_CAP, device=dev)
+    if fused:
+        fuse_pipeline(q8.pipeline, label="q8")
+
+    def push(pipeline, pa):
+        pipeline.push_left(pa[0])
+        pipeline.push_right(pa[1])
+
+    row = profile_epochs(torch, "q8_fused_profile" if fused else "q8_profile", q8.pipeline, push,
+                         chunks, epochs)
+    row["rows"] = sum(int(p.valid.sum()) + int(a.valid.sum()) for p, a in chunks[1 : 1 + epochs])
+    return row
 
 
 # -- phase 6: the fused per-barrier program ------------------------------------
@@ -1244,33 +1927,61 @@ def main() -> int:
     del g_out
     emit(kernel_epoch_dtypes(torch, dev, rng))
     torch.cuda.empty_cache()
+    j_row = kernel_j(torch, dev, rng)
+    emit({"phase": "kernel", **j_row})
+    l_row, l_side = kernel_l(torch, dev, rng)
+    emit({"phase": "kernel", **l_row})
+    m_row = kernel_m(torch, dev, rng, l_side)
+    emit({"phase": "kernel", **m_row})
+    del l_side
+    torch.cuda.empty_cache()
+    lr_row = kernel_l_regrow(torch, dev, rng)
+    emit({"phase": "kernel", **lr_row})
+    torch.cuda.empty_cache()
 
-    q5_row, launches, (chunks, cap, interp_q5, oracle) = main_path(torch, dev, EPOCHS)
+    q5_row, l4, (chunks, cap, interp_q5, oracle) = main_path(torch, dev, EPOCHS)
     emit(q5_row)
     if args.profile:
         emit(profile_q5(torch, dev, chunks, cap, args.profile, fused=False))
     torch.cuda.empty_cache()
-    fused_row, fused_launches = fused_path(torch, dev, chunks, cap, interp_q5, oracle)
+    fused_row, l6 = fused_path(torch, dev, chunks, cap, interp_q5, oracle)
     emit(fused_row)
     del interp_q5
     if args.profile:
         torch.cuda.empty_cache()
         emit(profile_q5(torch, dev, chunks, cap, args.profile, fused=True))
     del chunks
+    torch.cuda.empty_cache()
 
-    rows = [a_row, b_row, c_row, d_row, e_row, f_row, g_row, h_row, i_row]
-    keys = ("lookup_or_insert", "agg_apply", "agg_flush", "mv_upsert",
-            "hop_expand", "reduce_by_key", "apply_reduced", "state_digest", "slot_move")
-    for row, key in zip(rows, keys):
-        # each main path's run counts from zero: phase 4 (interpreted)
-        # and phase 6 (fused)
-        row["launches_interpreted"] = launches[key]
-        row["launches_fused"] = fused_launches[key]
-        row["launches"] = launches[key] + fused_launches[key]
+    q8_row7, l7, (host, q8_chunks, caps, interp_q8, q8_oracle) = q8_path(torch, dev, EPOCHS)
+    emit(q8_row7)
+    if args.profile:
+        emit(profile_q8(torch, dev, q8_chunks, args.profile, fused=False))
+        torch.cuda.empty_cache()
+    q8_row8, l8, fused_q8 = q8_fused_path(torch, dev, host, q8_chunks, caps, interp_q8, q8_oracle)
+    emit(q8_row8)
+    del interp_q8
+    torch.cuda.empty_cache()
+    hj_row = kernel_h_join(torch, dev, fused_q8.join)
+    emit({"phase": "kernel", **hj_row})
+    del fused_q8
+    if args.profile:
+        torch.cuda.empty_cache()
+        emit(profile_q8(torch, dev, q8_chunks, args.profile, fused=True))
+
+    rows = [(a_row, "lookup_or_insert"), (b_row, "agg_apply"), (c_row, "agg_flush"),
+            (d_row, "mv_upsert"), (e_row, "hop_expand"), (f_row, "reduce_by_key"),
+            (g_row, "apply_reduced"), (h_row, "state_digest"), (hj_row, "state_digest"),
+            (i_row, "slot_move"), (j_row, "dedup_emit"), (l_row, "join_apply"),
+            (lr_row, "join_regrow"), (m_row, "join_probe")]
+    paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8}
+    for row, key in rows:
+        # each main path's run counts from zero: phases 4, 6, 7 and 8
+        row["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_interpreted",
-            "launches_fused")
-    emit({"kernels": [{k: r[k] for k in keep} for r in rows]})
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
+    emit({"kernels": [{k: r[k] for k in keep} for r, _ in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

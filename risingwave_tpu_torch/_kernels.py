@@ -10,9 +10,10 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
-A, C, D, E, F, G and H (an entry point may launch several kernels in
-order on the stream), two per call of B (the apply and its set_live),
-one per 24 lanes moved by a call of I.
+A, C, D, E, F, G, H, J, L and M (an entry point may launch several
+kernels in order on the stream), two per call of B (the apply and its
+set_live), one per 24 lanes moved by a call of I; the entry points of
+``ENTRY_KEYS`` count under their own names.
 """
 
 from __future__ import annotations
@@ -45,6 +46,9 @@ SOURCES = {
     "apply_reduced": "apply_reduced.cu",
     "state_digest": "state_digest.cu",
     "slot_move": "slot_move.cu",
+    "dedup_emit": "dedup_emit.cu",
+    "join_apply": "join_apply.cu",
+    "join_probe": "join_probe.cu",
 }
 
 # C entry points: (argtypes,) — every pointer and the stream as c_void_p
@@ -74,10 +78,23 @@ SIGNATURES = {
         "rw_apply_reduced": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "state_digest": {
-        "rw_state_digest": [_P, _I, _L, _P, _P, _P, _I, _P, _P],
+        "rw_state_digest": [_P, _I, _L, _P, _P, _P, _P, _I, _P, _P, _P],
     },
     "slot_move": {
         "rw_slot_move": [_P, _I, _L, _P, _P, _P],
+    },
+    "dedup_emit": {
+        "rw_first_occurrence": [_L, _P, _P, _P, _L, _P, _P],
+        "rw_dedup_emit": [_L, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
+    },
+    "join_apply": {
+        "rw_join_apply": [_P, _I, _L, _P, _P, _P, _I] + [_P] * 11 + [_L, _P],
+        "rw_join_regrow": [_P, _I, _L, _I, _I, _P, _P, _P, _P, _P],
+    },
+    "join_probe": {
+        "rw_lookup": [_P, _I, _L, _P, _P, _P, _P, _L, _P, _P, _P],
+        "rw_join_probe": [_P, _I, _L, _P, _P, _P, _P, _P, _L, _P, _I, _P, _I, _I]
+        + [_P] * 7 + [_P],
     },
 }
 
@@ -98,7 +115,16 @@ DTYPE_CODES = {
     torch.float64: 4,
 }
 
-LAUNCHES = {name: 0 for name in SOURCES}
+# entry points counted apart from their library's main entry: they are
+# not on a main path at every size (a lookup alone, a first-occurrence
+# mask alone, a join side's rebuild)
+ENTRY_KEYS = {
+    "rw_lookup": "lookup",
+    "rw_first_occurrence": "first_occurrence",
+    "rw_join_regrow": "join_regrow",
+}
+
+LAUNCHES = {name: 0 for name in (*SOURCES, *ENTRY_KEYS.values())}
 
 _LIBS: dict = {}
 
@@ -188,7 +214,7 @@ def call(name: str, fn: str, *args) -> None:
     rc = getattr(library(name), fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}.{fn}: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[ENTRY_KEYS.get(fn, name)] += 1
 
 
 def int64_rows(rows, max_rows: int) -> ctypes.Array:

@@ -28,37 +28,9 @@
 //      occupancy the host reads at the barrier), one atomic per warp.
 // Rows that run past 64 probes, and invalid rows, get slot -1.
 // Table lanes are read with volatile loads so no stale L1 line is used.
-#include "hashing.cuh"
-
-#define RW_MAX_PROBE 64
-
-struct KeyLanes {
-  const void* in[RW_MAX_LANES];   // (n,) input key lanes
-  void* tab[RW_MAX_LANES];        // (cap,) table key lanes, same dtypes
-  int dt[RW_MAX_LANES];
-  int n;
-};
-
-__device__ __forceinline__ bool rw_lane_equal(const void* tab, const void* in, int dt,
-                                              int64_t s, int64_t i) {
-  switch (dt) {
-    case RW_BOOL:
-      return (((const volatile uint8_t*)tab)[s] != 0) == (((const uint8_t*)in)[i] != 0);
-    case RW_I32:
-      return ((const volatile int32_t*)tab)[s] == ((const int32_t*)in)[i];
-    case RW_I64:
-      return ((const volatile long long*)tab)[s] == ((const long long*)in)[i];
-    case RW_F32: {
-      float a = ((const volatile float*)tab)[s], b = ((const float*)in)[i];
-      return a == b || (isnan(a) && isnan(b));
-    }
-    case RW_F64: {
-      double a = ((const volatile double*)tab)[s], b = ((const double*)in)[i];
-      return a == b || (isnan(a) && isnan(b));
-    }
-  }
-  return false;
-}
+// The hash, key compare and probe order come from probe.cuh, shared
+// with kernel M's read-only lookup.
+#include "probe.cuh"
 
 __device__ __forceinline__ void rw_lane_store(void* tab, const void* in, int dt,
                                               int64_t s, int64_t i) {
@@ -82,12 +54,9 @@ __global__ void lookup_or_insert_kernel(KeyLanes keys, int64_t n, const uint8_t*
   uint8_t out_found = 0, out_ins = 0;
   bool did_claim = false;
   if (valid[i]) {
-    uint32_t h1 = RW_HASH_INIT, h2 = RW_HASH_INIT ^ RW_SEED_FP2;
-    for (int l = 0; l < keys.n; ++l) rw_hash_lane(keys.in[l], keys.dt[l], i, h1, h2);
-    h1 = rw_mix32(h1);
-    h2 = rw_mix32(h2);
-    const int32_t f1 = (int32_t)(h1 == 0u ? 1u : h1);
-    const int32_t f2 = (int32_t)h2;
+    uint32_t h1;
+    int32_t f1, f2;
+    rw_key_hash(keys, i, h1, f1, f2);
     for (int t = 0; t < RW_MAX_PROBE; ++t) {
       const int64_t s = (int64_t)((h1 + (uint32_t)t) & mask);
       volatile int32_t* st = stamp + s;
@@ -113,10 +82,7 @@ __global__ void lookup_or_insert_kernel(KeyLanes keys, int64_t n, const uint8_t*
       }
       __threadfence();
       if (((volatile int32_t*)fp1)[s] != f1 || ((volatile int32_t*)fp2)[s] != f2) continue;
-      bool eq = true;
-      for (int l = 0; l < keys.n && eq; ++l)
-        eq = rw_lane_equal(keys.tab[l], keys.in[l], keys.dt[l], s, i);
-      if (!eq) continue;
+      if (!rw_keys_equal(keys, s, i)) continue;
       out_slot = (int32_t)s;
       if (cur == gen) out_ins = 1;
       else out_found = live[s] ? 1 : 0;
@@ -138,14 +104,8 @@ RW_EXPORT int rw_lookup_or_insert(const int64_t* lanes, int n_keys, int64_t n,
                                   const void* valid, void* fp1, void* fp2, void* stamp,
                                   void* claimed, const void* live, int64_t capacity, int gen,
                                   void* slots, void* found, void* inserted, void* stream) {
-  if (n_keys < 1 || n_keys > RW_MAX_LANES) return (int)cudaErrorInvalidValue;
   KeyLanes k;
-  k.n = n_keys;
-  for (int l = 0; l < n_keys; ++l) {
-    k.in[l] = (const void*)lanes[3 * l];
-    k.dt[l] = (int)lanes[3 * l + 1];
-    k.tab[l] = (void*)lanes[3 * l + 2];
-  }
+  if (!rw_key_lanes(lanes, n_keys, &k)) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int threads = 256;
     lookup_or_insert_kernel<<<rw_blocks(n, threads), threads, 0, (cudaStream_t)stream>>>(

@@ -1,0 +1,282 @@
+"""HashJoin executor — streaming two-sided equi-join with retraction.
+
+Port of the inner-join part of ``risingwave_tpu/executors/hash_join.py``
+(``join_step_fn`` :91, ``HashJoinExecutor`` :290, ``_plan_side_at_barrier``
+:809, ``_on_barrier_scalars`` :832, ``_join_digest_lanes`` and
+``_join_state_digest`` :1102-1130). Reference:
+src/stream/src/executor/hash_join.rs:129 — each arriving chunk probes
+the other side, emitting one row per (probe row, stored match) with the
+probe row's sign, then updates its own side's multiset state.
+
+Per chunk: kernel M probes the other side and compacts the pairs into a
+fixed ``out_cap`` chunk, then kernels A and L fold the chunk into its
+own side (``ops/join.py``). Latches (bucket overflow, inconsistent
+deletes, emission overflow) stay on the device and raise at the barrier.
+Only ``join_type="inner"`` is ported: the degree-driven outer, semi and
+anti joins (``degree_apply``), watermark state cleaning, the cold tier
+and checkpoint/restore are not, and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from risingwave_tpu_torch import integrity, resolve_device
+from risingwave_tpu_torch.array.chunk import StreamChunk
+from risingwave_tpu_torch.executors.base import Executor, Watermark
+from risingwave_tpu_torch.ops.hash_table import read_scalars, stage_scalars
+from risingwave_tpu_torch.ops.join import JoinSide, apply_side, probe_pairs, regrow, survivors
+from risingwave_tpu_torch.runtime.bucketing import BucketAllocator, BucketPolicy
+
+GROW_AT = 0.5
+# mid-epoch rebuild only when the host insert bound nears the table
+HARD_GROW_AT = 0.75
+
+JOIN_TYPES = (
+    "inner", "left", "right", "full", "left_semi", "left_anti", "right_semi", "right_anti",
+)
+
+
+def join_step_fn(
+    own: JoinSide,
+    other: JoinSide,
+    chunk: StreamChunk,
+    own_keys: Tuple[str, ...],
+    own_names: Tuple[str, ...],
+    out_names: Tuple[str, ...],
+    out_cap: int,
+    em_overflow: torch.Tensor,
+    join_type: str = "inner",
+    join_rows: Optional[torch.Tensor] = None,
+):
+    """One chunk: probe the other side (kernel M), then fold the chunk
+    into its own side (kernels A, L), both in place. ``em_overflow`` is
+    the () bool emission-overflow latch; ``join_rows``, if given, a ()
+    int64 counter of the pairs emitted. Returns ``(own, other, out)``."""
+    if join_type != "inner":
+        raise NotImplementedError(f"join type {join_type!r} is not ported yet (inner only)")
+    key_cols = tuple(chunk.col(k) for k in own_keys)
+    # SQL equi-join: NULL keys match nothing and need no state
+    valid = chunk.valid
+    for k in own_keys:
+        lane = chunk.nulls.get(k)
+        if lane is not None:
+            valid = valid & ~lane
+    own_cols = {name: chunk.col(name) for name in own_names}
+    own_nulls = {name: lane for name, lane in chunk.nulls.items() if name in own_names}
+    cols, nulls, ops, out_valid = probe_pairs(
+        other, key_cols, valid, chunk.ops, own_cols, own_nulls, out_names, out_cap,
+        em_overflow, join_rows,
+    )
+    own = apply_side(own, key_cols, own_cols, own_nulls, valid, chunk.ops, own_names)
+    return own, other, StreamChunk(columns=cols, valid=out_valid, nulls=nulls, ops=ops)
+
+
+class HashJoinExecutor(Executor):
+    """Streaming INNER equi-join of two inputs.
+
+    ``left_keys``/``right_keys`` pair positionally (equal dtypes);
+    ``left_dtypes``/``right_dtypes`` list every stored and emitted
+    column of a side (names disjoint across sides). ``capacity`` is each
+    side's key-table capacity, ``fanout`` the per-key row bound,
+    ``out_cap`` the rows of one emission chunk. Each side's capacity
+    walks its own bucket lattice (the reference's unbucketed twin is not
+    ported). ``window_cols`` is kept for the plan; a watermark on either
+    raises NotImplementedError until watermark state cleaning is
+    ported."""
+
+    def __init__(
+        self,
+        left_keys: Sequence[str],
+        right_keys: Sequence[str],
+        left_dtypes: Dict[str, torch.dtype],
+        right_dtypes: Dict[str, torch.dtype],
+        capacity: int = 1 << 15,
+        fanout: int = 16,
+        out_cap: int = 1 << 14,
+        left_nullable: Sequence[str] = (),
+        right_nullable: Sequence[str] = (),
+        window_cols: Optional[Tuple[str, str]] = None,
+        join_type: str = "inner",
+        table_id: str = "hash_join",
+        bucket_policy: Optional[BucketPolicy] = None,
+        device="cuda",
+    ):
+        if join_type not in JOIN_TYPES:
+            raise ValueError(f"unknown join type {join_type!r}")
+        if join_type != "inner":
+            raise NotImplementedError(f"join type {join_type!r} is not ported yet (inner only)")
+        if set(left_dtypes) & set(right_dtypes):
+            raise ValueError(f"overlapping output columns: {set(left_dtypes) & set(right_dtypes)}")
+        self.device = resolve_device(device)
+        self.table_id = table_id
+        self.join_type = join_type
+        self.left_keys = tuple(left_keys)
+        self.right_keys = tuple(right_keys)
+        self.left_names = tuple(sorted(left_dtypes))
+        self.right_names = tuple(sorted(right_dtypes))
+        self.out_names = self.left_names + self.right_names
+        self.out_cap = out_cap
+        self.window_cols = window_cols
+        lk = tuple(left_dtypes[k] for k in self.left_keys)
+        rk = tuple(right_dtypes[k] for k in self.right_keys)
+        if lk != rk:
+            raise ValueError(f"join key dtype mismatch: {lk} vs {rk}")
+        self.left = JoinSide.create(
+            capacity, fanout, lk, {n: left_dtypes[n] for n in self.left_names},
+            nullable=left_nullable, device=self.device,
+        )
+        self.right = JoinSide.create(
+            capacity, fanout, rk, {n: right_dtypes[n] for n in self.right_names},
+            nullable=right_nullable, device=self.device,
+        )
+        policy = bucket_policy or BucketPolicy.from_capacity(capacity, grow_at=GROW_AT)
+        self._buckets = {"l": BucketAllocator(policy), "r": BucketAllocator(policy)}
+        self._bound = {"l": 0, "r": 0}
+        self._occ_note = {"l": 0, "r": 0}  # true claimed at the last barrier
+        self._grew_midepoch = {"l": False, "r": False}  # one bump per epoch
+        self._em_overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+
+    def side(self, s: str) -> JoinSide:
+        return self.left if s == "l" else self.right
+
+    def _set_side(self, s: str, side: JoinSide) -> None:
+        if s == "l":
+            self.left = side
+        else:
+            self.right = side
+
+    # -- data ------------------------------------------------------------
+    def apply_left(self, chunk: StreamChunk) -> List[StreamChunk]:
+        return self._apply("l", chunk)
+
+    def apply_right(self, chunk: StreamChunk) -> List[StreamChunk]:
+        return self._apply("r", chunk)
+
+    def apply(self, chunk: StreamChunk) -> List[StreamChunk]:
+        raise TypeError("HashJoin is two-input: use apply_left/apply_right")
+
+    def _apply(self, s: str, chunk: StreamChunk) -> List[StreamChunk]:
+        self._maybe_grow(s, chunk.capacity)
+        own, other, out = join_step_fn(
+            self.side(s), self.side("r" if s == "l" else "l"), chunk,
+            self.left_keys if s == "l" else self.right_keys,
+            self.left_names if s == "l" else self.right_names,
+            self.out_names, self.out_cap, self._em_overflow, self.join_type,
+        )
+        self._set_side(s, own)
+        self._bound[s] += chunk.capacity
+        return [out]
+
+    def _grow_hint(self, s: str, incoming: int) -> None:
+        """The fused program's pre-dispatch growth bookkeeping, with no
+        device read: at most one one-bucket bump per side per epoch;
+        ordinary growth resolves at the barrier from the staged notes."""
+        own = self.side(s)
+        cap = own.capacity
+        bound = min(self._bound[s], cap)
+        self._bound[s] = bound
+        if self._grew_midepoch[s] or bound + incoming <= cap * HARD_GROW_AT:
+            return
+        new_cap = self._buckets[s].bump(cap)
+        if new_cap is not None:
+            self._set_side(s, regrow(own, new_cap, own.fanout))
+            self._bound[s] = min(bound, new_cap)
+        self._grew_midepoch[s] = True
+
+    def _maybe_grow(self, s: str, incoming: int) -> None:
+        """Interpreted-path growth: when the trigger trips, one packed
+        blocking read of the true occupancy, then the plan."""
+        own = self.side(s)
+        cap = own.capacity
+        alloc = self._buckets[s]
+        if not alloc.should_plan(cap, self._bound[s], incoming):
+            return
+        claimed, surv = read_scalars(own.table.occupancy(), survivors(own))
+        new_cap = alloc.plan(cap, incoming, claimed, surv)
+        if new_cap is not None:
+            own = regrow(own, new_cap, own.fanout)
+            self._set_side(s, own)
+            claimed = int(own.table.occupancy())
+        self._bound[s] = claimed
+
+    # -- control ---------------------------------------------------------
+    def on_barrier(self, barrier) -> List[StreamChunk]:
+        l, r = self.left, self.right
+        self._staged_scalars = stage_scalars(
+            self._em_overflow, l.overflow, l.inconsistent, r.overflow, r.inconsistent,
+            l.table.occupancy(), r.table.occupancy(), survivors(l), survivors(r),
+        )
+        if barrier is None:  # direct drive: checks fire inline
+            self.finish_barrier()
+        return []
+
+    def _plan_side_at_barrier(self, s: str, claimed: int, surv: int) -> None:
+        """Barrier-boundary capacity planning from the true occupancy
+        note: grow past the load factor, apply a pending lazy shrink."""
+        own = self.side(s)
+        cap = own.capacity
+        epoch_inc = max(self._bound[s] - self._occ_note[s], 0)
+        self._occ_note[s] = claimed
+        self._bound[s] = claimed
+        alloc = self._buckets[s]
+        alloc.note_barrier(cap, claimed)
+        new_cap = alloc.plan(cap, 0, claimed, surv, margin=max(claimed, epoch_inc))
+        if new_cap is not None and new_cap != cap:
+            self._set_side(s, regrow(own, new_cap, own.fanout))
+
+    def _on_barrier_scalars(self, vals) -> None:
+        em, lo, li, ro, ri, cl, cr, sl, sr = vals
+        self._grew_midepoch = {"l": False, "r": False}
+        self._plan_side_at_barrier("l", int(cl), int(sl))
+        self._plan_side_at_barrier("r", int(cr), int(sr))
+        if em:
+            raise RuntimeError(
+                "join emission overflowed out_cap within one chunk; "
+                "raise out_cap or shrink source chunks"
+            )
+        for name, ovf, inc in (("left", lo, li), ("right", ro, ri)):
+            if ovf:
+                raise RuntimeError(
+                    f"{name} join side overflowed (bucket fanout or probe chain); "
+                    "grow fanout/capacity"
+                )
+            if inc:
+                raise RuntimeError(
+                    f"{name} join side saw a DELETE matching no stored row "
+                    "(inconsistent input stream)"
+                )
+
+    def on_watermark(self, watermark: Watermark):
+        if self.window_cols is None or watermark.column not in self.window_cols:
+            return watermark, []
+        raise NotImplementedError(
+            "watermark state cleaning of the join sides is not ported yet; "
+            "build the query with state_cleaning=False"
+        )
+
+    # -- integrity --------------------------------------------------------
+    def digest_lanes(self):
+        """Both sides as one lane set (``l_``/``r_`` prefixes), with the
+        two sides' live masks."""
+        ll, llive = integrity.join_side_lanes(self.left)
+        rl, rlive = integrity.join_side_lanes(self.right)
+        lanes = {f"l_{k}": v for k, v in ll.items()}
+        lanes.update({f"r_{k}": v for k, v in rl.items()})
+        return lanes, llive, rlive
+
+    def side_digests(self) -> Tuple[int, int]:
+        """numpy ``host_digest`` of each side's lanes (what the fused
+        program stages per side)."""
+        return tuple(
+            integrity.host_digest(*integrity.host_lanes(*integrity.join_side_lanes(side)))
+            for side in (self.left, self.right)
+        )
+
+    def state_digest(self) -> int:
+        """Host twin of the fused per-side digest lanes: the two sides'
+        digests XOR together."""
+        ld, rd = self.side_digests()
+        return ld ^ rd

@@ -27,7 +27,7 @@ from risingwave_tpu_torch.array.chunk import StreamChunk, to_device
 from risingwave_tpu_torch.executors.base import Executor
 from risingwave_tpu_torch.ops.hash_table import (
     HashTable,
-    last_occurrence_mask,
+    _last_occurrence_torch,
     lookup_or_insert,
     move_slots,
     stage_scalars,
@@ -105,7 +105,7 @@ def _mv_upsert_torch(table, state, chunk, slots, cols, rows_acc=None):
     if rows_acc is not None:
         rows_acc += chunk.valid.sum()
     state.dropped |= (chunk.valid & (slots < 0)).any()
-    last = last_occurrence_mask(slots, chunk.valid)
+    last = _last_occurrence_torch(slots, chunk.valid)
     is_del = (chunk.ops == 1) | (chunk.ops == 2)  # DELETE | UPDATE_DELETE
     lidx = slots[last].long()
     table.live[lidx] = ~is_del[last]

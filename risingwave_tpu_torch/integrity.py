@@ -5,8 +5,9 @@ Port of the digest half of ``risingwave_tpu/integrity.py`` (``GOLD``
 :52, ``U64_MASK`` :55, ``crc32_bytes`` :151, the numpy fold
 ``lane_seed``/``_np_slot_words``/``_np_mix``/``host_digest`` :268-310,
 ``device_digest`` :329, ``digest_from_scalar`` :371, ``agg_lanes``
-:386, ``mv_lanes`` :404). Checkpoint envelopes, quarantine and
-``StateCorruption`` are not ported yet.
+:386, ``mv_lanes`` :404, ``dedup_lanes`` :414, ``join_side_lanes``
+:426). Checkpoint envelopes, quarantine and ``StateCorruption`` are not
+ported yet.
 
 The contract, shared by every fold here and by the reference:
 
@@ -25,14 +26,17 @@ The contract, shared by every fold here and by the reference:
 ``device_digest`` is kernel H on the card (``csrc/state_digest.cu``) and
 its plain PyTorch version on the CPU; both return the packed uint64
 bitcast to a () int64 tensor, so it rides the fused program's staged
-int64 scalar lane.
+int64 scalar lane. A lane given as ``Masked(lane, entries)`` folds as
+``where(entries, lane, 0)``: a join side's (capacity, fanout) bucket
+lanes masked by ``row_valid``, which kernel H reads entry by entry
+instead of materialising the masked copies.
 """
 
 from __future__ import annotations
 
 import math
 import zlib
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +105,26 @@ def digest_from_scalar(v) -> int:
 
 
 # -- the device fold -----------------------------------------------------------
+class Masked(NamedTuple):
+    """A (capacity, fanout, ...) lane folded as ``where(entries, lane,
+    0)``, ``entries`` a (capacity, fanout) bool lane."""
+
+    lane: torch.Tensor
+    entries: torch.Tensor
+
+
+def _apply_entries(a) -> torch.Tensor:
+    """A ``Masked`` lane materialised (the plain version's way)."""
+    if not isinstance(a, Masked):
+        return a
+    m = a.entries.reshape(a.entries.shape + (1,) * (a.lane.dim() - a.entries.dim()))
+    return torch.where(m, a.lane, torch.zeros((), dtype=a.lane.dtype, device=a.lane.device))
+
+
+def _lane_of(a) -> torch.Tensor:
+    return a.lane if isinstance(a, Masked) else a
+
+
 def _masks(live) -> Tuple[torch.Tensor, ...]:
     if live is None:
         return ()
@@ -121,7 +145,7 @@ def device_digest(lanes: Dict[str, torch.Tensor], live=None) -> torch.Tensor:
     if not names:
         dev = masks[0].device if masks else torch.device("cpu")
         return torch.zeros((), dtype=torch.int64, device=dev)
-    dev = lanes[names[0]].device
+    dev = _lane_of(lanes[names[0]]).device
     if dev.type == "cpu":
         return _device_digest_torch(lanes, names, masks)
     if dev.type == "cuda":
@@ -155,12 +179,12 @@ def _xor_reduce(h: torch.Tensor) -> int:
 
 
 def _device_digest_torch(lanes, names, masks) -> torch.Tensor:
-    first = lanes[names[0]]
+    first = _lane_of(lanes[names[0]])
     n = first.shape[0]
     h = torch.zeros(n, dtype=torch.int64, device=first.device)
     for name in names:
         h = _mix(h, lane_seed(name))
-        w = _slot_words(lanes[name])
+        w = _slot_words(_apply_entries(lanes[name]))
         for j in range(w.shape[1]):
             h = _mix(h, w[:, j])
     if masks:
@@ -175,36 +199,59 @@ def _device_digest_torch(lanes, names, masks) -> torch.Tensor:
     return torch.tensor(packed, dtype=torch.int64, device=first.device)
 
 
-def _device_digest_cuda(lanes, names, masks) -> torch.Tensor:
-    cap = lanes[names[0]].shape[0]
+def digest_with_survivors(lanes: Dict[str, torch.Tensor], live: torch.Tensor,
+                          sdirty: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``device_digest(lanes, live)`` and the count of slots in ``live |
+    sdirty`` (a rebuild's survivors), both () int64 tensors: one pass of
+    kernel H on the card, the plain fold and a reduction on the CPU."""
+    names = sorted(lanes)
+    dev = live.device
+    if dev.type == "cpu":
+        return _device_digest_torch(lanes, names, (live,)), (live | sdirty).sum()
+    if dev.type == "cuda":
+        count = torch.empty((), dtype=torch.int64, device=dev)
+        return _device_digest_cuda(lanes, names, (live,), sdirty, count), count
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _device_digest_cuda(lanes, names, masks, count_of=None, count_out=None) -> torch.Tensor:
+    cap = _lane_of(lanes[names[0]]).shape[0]
     rows = []
     for name in names:
-        a = lanes[name]
+        a, entries = lanes[name], None
+        if isinstance(a, Masked):
+            a, entries = a
         if a.dtype not in _DIGEST_DTYPES:
             raise TypeError(f"digest lanes do not take dtype {a.dtype}")
         _kernels.check_cuda("state_digest", a)
         if a.dim() == 0 or a.shape[0] != cap:
             raise ValueError(f"state_digest: lane {name!r} is not ({cap}, ...)")
         cols = math.prod(a.shape[1:])
-        if a.dtype == torch.bool:
-            rows.append((a.data_ptr(), cols, 1, lane_seed(name)))
-        else:
-            rows.append((a.data_ptr(), cols * a.element_size() // 4, 0, lane_seed(name)))
+        words = cols if a.dtype == torch.bool else cols * a.element_size() // 4
+        emask, entry_words = 0, 0
+        if entries is not None:
+            if entries.dtype != torch.bool or entries.shape != a.shape[:entries.dim()]:
+                raise ValueError(f"state_digest: entry mask of {name!r} is not bool {a.shape[:2]}")
+            _kernels.check_cuda("state_digest", a, entries)
+            emask, entry_words = entries.data_ptr(), words // entries[0].numel()
+        rows.append((a.data_ptr(), words, int(a.dtype == torch.bool), lane_seed(name),
+                     emask, entry_words))
     if len(masks) > 2:
         raise ValueError("state_digest: at most two mask lanes")
-    for m in masks:
+    for m in masks + (() if count_of is None else (count_of,)):
         if m.dtype != torch.bool:
             raise TypeError("state_digest: masks must be bool lanes")
         _kernels.check_cuda("state_digest", m, n=cap)
-    dev = lanes[names[0]].device
-    partials = torch.empty(2 * _kernels.DIGEST_BLOCKS, dtype=torch.int32, device=dev)
+    dev = _lane_of(lanes[names[0]]).device
+    partials = torch.empty(3 * _kernels.DIGEST_BLOCKS, dtype=torch.int32, device=dev)
     out = torch.empty((), dtype=torch.int64, device=dev)
     m0 = masks[0].data_ptr() if masks else 0
     m1 = masks[1].data_ptr() if len(masks) > 1 else 0
     _kernels.call(
         "state_digest", "rw_state_digest",
         _kernels.int64_rows(rows, 24), len(rows), cap, m0, m1,
-        partials.data_ptr(), _kernels.DIGEST_BLOCKS, out.data_ptr(),
+        0 if count_of is None else count_of.data_ptr(), partials.data_ptr(),
+        _kernels.DIGEST_BLOCKS, out.data_ptr(), 0 if count_out is None else count_out.data_ptr(),
     )
     return out
 
@@ -245,11 +292,41 @@ def mv_lanes(table, state) -> Tuple[dict, torch.Tensor]:
     return lanes, table.live
 
 
+def dedup_lanes(table) -> Tuple[dict, torch.Tensor]:
+    """Append-only dedup: the seen-set is the state — its key lanes,
+    live slots."""
+    return {f"k{i}": k for i, k in enumerate(table.keys)}, table.live
+
+
+def join_side_lanes(side) -> Tuple[dict, torch.Tensor]:
+    """One join side: keys + bucket payload rows + degrees, each bucket
+    lane masked by ``row_valid`` (stale bytes in vacated entries must
+    not move the digest), live key slots."""
+    lanes = {f"k{i}": k for i, k in enumerate(side.table.keys)}
+    rv = side.row_valid
+    for nm, a in side.rows.items():
+        lanes[f"r_{nm}"] = Masked(a, rv)
+    for nm, a in side.row_nulls.items():
+        lanes[f"rn_{nm}"] = Masked(a, rv)
+    lanes["rv"] = rv
+    lanes["deg"] = Masked(side.degree, rv)
+    return lanes, side.table.live
+
+
 def host_lanes(lanes: dict, live) -> Tuple[dict, np.ndarray]:
-    """Torch lanes and mask(s) as numpy, for ``host_digest``."""
+    """Torch lanes and mask(s) as numpy, for ``host_digest`` (a
+    ``Masked`` lane with its entries applied by ``np.where``)."""
     masks = _masks(live)
     keep = None
     for m in masks:
         m = m.cpu().numpy()
         keep = m if keep is None else keep | m
-    return {k: v.cpu().numpy() for k, v in lanes.items()}, keep
+    out = {}
+    for k, v in lanes.items():
+        if isinstance(v, Masked):
+            a, e = v.lane.cpu().numpy(), v.entries.cpu().numpy()
+            e = e.reshape(e.shape + (1,) * (a.ndim - e.ndim))
+            out[k] = np.where(e, a, np.zeros((), a.dtype))
+        else:
+            out[k] = v.cpu().numpy()
+    return out, keep

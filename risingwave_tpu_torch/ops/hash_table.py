@@ -12,7 +12,9 @@ lanes for exact equality. Deleted keys stay claimed as tombstones
 ``lookup_or_insert`` is kernel A on the card (``csrc/lookup_or_insert.cu``)
 and its plain PyTorch version on the CPU. Both update the table IN PLACE
 (the JAX version donates the table and returns a new one); the table is
-still returned so call sites read like the reference.
+still returned so call sites read like the reference. On the card the
+read-only ``lookup`` is kernel M's probe entry and
+``first_occurrence_mask`` kernel J's first-occurrence entry.
 """
 
 from __future__ import annotations
@@ -153,24 +155,32 @@ def lookup_or_insert(table: HashTable, key_cols, valid: torch.Tensor):
     raise ValueError(f"unsupported device {valid.device}")
 
 
+def key_lane_rows(table: HashTable, key_cols, n: int, name: str):
+    """Kernel descriptor rows ``(input, dtype code, table lane)`` of the
+    probe key lanes, checked against the table's lanes."""
+    _kernels.check_cuda(name, *key_cols, n=n)
+    _kernels.check_cuda(
+        name, table.fp1, table.fp2, table.live, *table.keys, n=table.capacity
+    )
+    rows = []
+    for k, tk in zip(key_cols, table.keys):
+        if k.dtype != tk.dtype:
+            raise TypeError(f"key lane dtype {k.dtype} != table lane {tk.dtype}")
+        rows.append((k.data_ptr(), _kernels.dtype_code(k), tk.data_ptr()))
+    return rows
+
+
 def _lookup_or_insert_cuda(table: HashTable, key_cols, valid):
     n = valid.shape[0]
     cap = table.capacity
-    _kernels.check_cuda("lookup_or_insert", valid, *key_cols, n=n)
-    _kernels.check_cuda(
-        "lookup_or_insert", table.fp1, table.fp2, table.stamp, table.live,
-        *table.keys, n=cap,
-    )
+    _kernels.check_cuda("lookup_or_insert", valid, n=n)
+    _kernels.check_cuda("lookup_or_insert", table.stamp, n=cap)
     if table.claimed.shape != () or table.claimed.dtype != torch.int64:
         raise TypeError("claimed must be a () int64 counter")
     _kernels.check_cuda("lookup_or_insert", table.fp1, table.claimed)
     if valid.dtype != torch.bool:
         raise TypeError("valid must be a bool lane")
-    lanes = []
-    for k, tk in zip(key_cols, table.keys):
-        if k.dtype != tk.dtype:
-            raise TypeError(f"key lane dtype {k.dtype} != table lane {tk.dtype}")
-        lanes.append((k.data_ptr(), _kernels.dtype_code(k), tk.data_ptr()))
+    lanes = key_lane_rows(table, key_cols, n, "lookup_or_insert")
     slots = torch.empty(n, dtype=torch.int32, device=valid.device)
     found = torch.empty(n, dtype=torch.bool, device=valid.device)
     inserted = torch.empty(n, dtype=torch.bool, device=valid.device)
@@ -238,8 +248,37 @@ def _lookup_or_insert_torch(table: HashTable, key_cols, valid):
 
 
 def lookup(table: HashTable, key_cols, valid: torch.Tensor):
-    """Read-only probe: ``(slots, found_live)``; slot -1 if absent.
-    Plain PyTorch on every device for now (no caller on the q5 path)."""
+    """Read-only probe: ``(slots, found_live)``; slot -1 if absent (a
+    probe chain ends at an EMPTY slot). Kernel M's probe entry
+    (``csrc/join_probe.cu`` ``rw_lookup``) on the card, plain PyTorch on
+    the CPU."""
+    key_cols = tuple(key_cols)
+    if len(key_cols) != len(table.keys):
+        raise ValueError("key lane count differs from the table's")
+    if valid.device.type == "cpu":
+        return _lookup_torch(table, key_cols, valid)
+    if valid.device.type == "cuda":
+        return _lookup_cuda(table, key_cols, valid)
+    raise ValueError(f"unsupported device {valid.device}")
+
+
+def _lookup_cuda(table: HashTable, key_cols, valid):
+    n = valid.shape[0]
+    if valid.dtype != torch.bool:
+        raise TypeError("valid must be a bool lane")
+    lanes = key_lane_rows(table, key_cols, n, "lookup")
+    _kernels.check_cuda("lookup", valid, table.fp1)
+    slots = torch.empty(n, dtype=torch.int32, device=valid.device)
+    found = torch.empty(n, dtype=torch.bool, device=valid.device)
+    _kernels.call(
+        "join_probe", "rw_lookup", _kernels.int64_rows(lanes, 8), len(lanes), n,
+        valid.data_ptr(), table.fp1.data_ptr(), table.fp2.data_ptr(), table.live.data_ptr(),
+        table.capacity, slots.data_ptr(), found.data_ptr(),
+    )
+    return slots, found
+
+
+def _lookup_torch(table: HashTable, key_cols, valid):
     mask = table.capacity - 1
     h1, fp1, fp2 = _fingerprints(tuple(key_cols))
     n = valid.shape[0]
@@ -375,8 +414,49 @@ def plan_rehash(
     return new_cap
 
 
-def first_occurrence_mask(slots: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """True for the first valid row of each distinct slot in the batch."""
+# kernel J's per-slot scratch value between calls (csrc/dedup_emit.cu)
+FIRST_SENTINEL = 2**31 - 1
+
+
+def first_scratch(capacity: int, device) -> torch.Tensor:
+    """The per-slot int32 lane kernel J keeps at ``FIRST_SENTINEL``
+    between calls; allocate once per table of ``capacity`` slots."""
+    return torch.full((capacity,), FIRST_SENTINEL, dtype=torch.int32, device=device)
+
+
+def first_occurrence_mask(
+    slots: torch.Tensor, valid: torch.Tensor, scratch: torch.Tensor = None
+) -> torch.Tensor:
+    """True for the first valid row of each distinct slot in the batch.
+
+    Kernel J's first-occurrence entry on the card (an atomicMin of the
+    row index into ``scratch``, a ``first_scratch`` lane covering every
+    slot, which the call leaves as it found it); plain PyTorch on the
+    CPU, where ``scratch`` is not used."""
+    if valid.device.type == "cpu":
+        return _first_occurrence_torch(slots, valid)
+    if valid.device.type == "cuda":
+        return _first_occurrence_cuda(slots, valid, scratch)
+    raise ValueError(f"unsupported device {valid.device}")
+
+
+def _first_occurrence_cuda(slots, valid, scratch):
+    if scratch is None:
+        raise ValueError("first_occurrence_mask on the card needs a first_scratch lane")
+    n = valid.shape[0]
+    if valid.dtype != torch.bool or slots.dtype != torch.int32 or scratch.dtype != torch.int32:
+        raise TypeError("first_occurrence_mask: bool valid, int32 slots and scratch")
+    _kernels.check_cuda("first_occurrence", valid, slots, n=n)
+    _kernels.check_cuda("first_occurrence", valid, scratch)
+    out = torch.empty(n, dtype=torch.bool, device=valid.device)
+    _kernels.call(
+        "dedup_emit", "rw_first_occurrence", n, slots.data_ptr(), valid.data_ptr(),
+        scratch.data_ptr(), scratch.shape[0], out.data_ptr(),
+    )
+    return out
+
+
+def _first_occurrence_torch(slots: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     ok = valid & (slots >= 0)
     key = torch.where(ok, slots.to(torch.int64), torch.full_like(slots, 2**30, dtype=torch.int64))
     order = torch.argsort(key, stable=True)
@@ -390,5 +470,12 @@ def first_occurrence_mask(slots: torch.Tensor, valid: torch.Tensor) -> torch.Ten
 
 def last_occurrence_mask(slots: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """True for the LAST valid row of each distinct slot in the batch —
-    pk-conflict "last write wins" (materialize.rs:192 Overwrite)."""
-    return first_occurrence_mask(slots.flip(0), valid.flip(0)).flip(0)
+    pk-conflict "last write wins" (materialize.rs:192 Overwrite). Plain
+    PyTorch, CPU only: on the card it runs inside kernel D."""
+    if valid.device.type != "cpu":
+        raise NotImplementedError("last_occurrence_mask runs inside kernel D on the card")
+    return _last_occurrence_torch(slots, valid)
+
+
+def _last_occurrence_torch(slots: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    return _first_occurrence_torch(slots.flip(0), valid.flip(0)).flip(0)

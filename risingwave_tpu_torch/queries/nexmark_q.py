@@ -1,9 +1,12 @@
 """Nexmark query pipelines.
 
-Port of ``risingwave_tpu/queries/nexmark_q.py:38-84`` (q5-lite).
+Port of ``risingwave_tpu/queries/nexmark_q.py:28-167`` (q5-lite, q8).
 Reference queries: e2e_test/nexmark/ — q5 (hot items) counts bids per
 auction per hop window (size 10 s, slide 2 s); "q5-lite" is its
-stateful core, the HashAgg stage.
+stateful core, the HashAgg stage. q8 (monitor new users): persons who
+opened auctions in the same 10 s tumble window — per-side tumble +
+DISTINCT, then an inner join on (person.id, window) =
+(auction.seller, window).
 """
 
 from __future__ import annotations
@@ -13,14 +16,17 @@ from dataclasses import dataclass
 import torch
 
 from risingwave_tpu_torch import resolve_device
+from risingwave_tpu_torch.executors.dedup import AppendOnlyDedupExecutor
 from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
+from risingwave_tpu_torch.executors.hash_join import HashJoinExecutor
 from risingwave_tpu_torch.executors.hop_window import HopWindowExecutor
 from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
 from risingwave_tpu_torch.ops.agg import AggCall
-from risingwave_tpu_torch.runtime.pipeline import Pipeline
+from risingwave_tpu_torch.runtime.pipeline import Pipeline, TwoInputPipeline
 
 Q5_WINDOW_MS = 10_000
 Q5_SLIDE_MS = 2_000
+Q8_WINDOW_MS = 10_000
 
 
 @dataclass
@@ -68,3 +74,77 @@ def build_q5_lite(
         device=dev,
     )
     return Q5Lite(Pipeline([hop, agg, mview]), agg, mview)
+
+
+@dataclass
+class Q8:
+    pipeline: TwoInputPipeline
+    join: HashJoinExecutor
+    mview: DeviceMaterializeExecutor
+
+
+def build_q8(
+    capacity: int = 1 << 14,
+    fanout: int = 8,
+    out_cap: int = 1 << 14,
+    window_ms: int = Q8_WINDOW_MS,
+    state_cleaning: bool = True,
+    device="cuda",
+) -> Q8:
+    """person ⋈ auction per 10 s tumble window, as the reference plans it:
+
+      person  -> tumble(date_time) -> DISTINCT(id, name, starttime)    ┐
+                                                                        ⋈ inner on
+      auction -> tumble(date_time) -> DISTINCT(seller, astarttime)     ┘ (id, starttime) = (seller, astarttime)
+              -> MV pk=(id, starttime)
+
+    Both inputs are append-only, so each DISTINCT is an
+    AppendOnlyDedup. ``state_cleaning`` declares the window keys as the
+    reference does; watermark state cleaning is not ported yet, so a
+    window watermark then raises NotImplementedError.
+    """
+    dev = resolve_device(device)
+    person_chain = [
+        HopWindowExecutor("date_time", window_ms, window_ms, out_start="starttime"),
+        AppendOnlyDedupExecutor(
+            keys=("id", "name", "starttime"),
+            schema_dtypes={"id": torch.int64, "name": torch.int32, "starttime": torch.int64},
+            capacity=capacity,
+            window_key=("starttime", 0) if state_cleaning else None,
+            table_id="q8.dedup_person",
+            device=dev,
+        ),
+    ]
+    auction_chain = [
+        HopWindowExecutor("date_time", window_ms, window_ms, out_start="astarttime"),
+        AppendOnlyDedupExecutor(
+            keys=("seller", "astarttime"),
+            schema_dtypes={"seller": torch.int64, "astarttime": torch.int64},
+            capacity=capacity,
+            window_key=("astarttime", 0) if state_cleaning else None,
+            table_id="q8.dedup_auction",
+            device=dev,
+        ),
+    ]
+    join = HashJoinExecutor(
+        left_keys=("id", "starttime"),
+        right_keys=("seller", "astarttime"),
+        left_dtypes={"id": torch.int64, "name": torch.int32, "starttime": torch.int64},
+        right_dtypes={"seller": torch.int64, "astarttime": torch.int64},
+        capacity=capacity,
+        fanout=fanout,
+        out_cap=out_cap,
+        window_cols=("starttime", "astarttime") if state_cleaning else None,
+        table_id="q8.join",
+        device=dev,
+    )
+    mview = DeviceMaterializeExecutor(
+        pk=("id", "starttime"),
+        columns=("name",),
+        schema_dtypes={"id": torch.int64, "starttime": torch.int64, "name": torch.int32},
+        table_id="q8.mview",
+        capacity=max(1 << 12, capacity),
+        device=dev,
+    )
+    pipeline = TwoInputPipeline(person_chain, auction_chain, join, [mview])
+    return Q8(pipeline, join, mview)

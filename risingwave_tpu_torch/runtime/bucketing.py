@@ -1,8 +1,8 @@
 """Capacity planning for the padded state tables.
 
 Port of the part of ``risingwave_tpu/runtime/bucketing.py`` (:74-127,
-:160-416) that the HashAgg and device-MV ``_maybe_grow`` and the fused
-program's flush rounds use: tables
+:160-416) that the HashAgg, device-MV, dedup and join ``_maybe_grow``
+and the fused programs' flush rounds and growth hints use: tables
 walk a power-of-two lattice, grow eagerly past the load factor and
 shrink lazily after ``patience`` quiet barriers, so a window churning at
 a bucket boundary grows once and stays. The governor pin/veto hooks and
@@ -84,6 +84,17 @@ class BucketAllocator:
         self.policy = policy
         self._streak = 0
         self._pending_shrink: Optional[int] = None
+        # demand exceeds the lattice max and a same-cap rebuild cannot
+        # relieve it: the apply-path trigger stays off until the next
+        # barrier re-checks (reference :246-252)
+        self._saturated = False
+
+    def should_plan(self, cap: int, bound: int, incoming: int) -> bool:
+        """The apply path's cheap pre-check: past the load factor, or a
+        pending shrink to apply."""
+        if not self._saturated and bound + incoming > cap * self.policy.grow_at:
+            return True
+        return self._pending_shrink is not None and self._pending_shrink < cap
 
     def plan(
         self,
@@ -107,6 +118,7 @@ class BucketAllocator:
             if new_cap == cap and survivors + incoming > cap * p.grow_at:
                 # saturated at the lattice max: a same-size rebuild does
                 # not help; the overflow latch reports a real overflow
+                self._saturated = True
                 return None
             return new_cap
         t = self._pending_shrink
@@ -119,8 +131,20 @@ class BucketAllocator:
                 return t
         return None
 
+    def bump(self, cap: int) -> Optional[int]:
+        """One-bucket emergency growth for a mid-epoch overflow guard
+        whose host bound counts padded chunk capacities (sizing from it
+        would over-grow): double once, clamped at the lattice max."""
+        p = self.policy
+        if cap >= p.max_cap:
+            return None
+        self._pending_shrink = None
+        self._streak = 0
+        return min(cap << 1, p.max_cap)
+
     def note_barrier(self, cap: int, claimed: int) -> None:
         p = self.policy
+        self._saturated = False
         if cap <= p.min_cap or claimed > cap * p.shrink_at:
             self._streak = 0
             self._pending_shrink = None
@@ -130,3 +154,4 @@ class BucketAllocator:
             target = pow2_at_least(max(p.min_cap, int(claimed / p.grow_at) + 1))
             if target < cap:
                 self._pending_shrink = target
+

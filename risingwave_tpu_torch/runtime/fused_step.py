@@ -1,11 +1,17 @@
 """The fused per-barrier program: a fragment's fusible executor run
 executed as one program per barrier with no device read inside it.
 
-Port of the single-input half of ``risingwave_tpu/runtime/fused_step.py``
+Port of ``risingwave_tpu/runtime/fused_step.py``: the single-input half
 (``AggStatics`` :200, ``FusedPlan`` :212, ``_delta_chunk`` :232,
 ``_fused_barrier_fn``/``_fused_barrier_body`` :239-382, ``_is_pure``
 :465 (as ``epoch_batch.is_pure``), ``FusedChainExecutor`` :476,
-``fuse_chain`` :2165, ``fuse_pipeline`` :2303, ``expand_fused`` :2355).
+``fuse_chain`` :2165) and the two-input half for side chains of pure
+steps and at most one append-only dedup (``SidePlan`` :993,
+``TwoInputPlan`` :1006, ``_two_input_side_scan`` :1037,
+``_fused_two_input_body`` :1147, ``_pad_segment`` :1366 (its count
+only, as ``_padded_len``), ``FusedTwoInputExecutor`` :1381,
+``_parse_side`` :1984, ``_side_plan`` :2024, ``fuse_two_input`` :2052),
+with ``fuse_pipeline`` :2303 and ``expand_fused`` :2355.
 
 - ``fuse_chain`` rewrites an actor chain's maximal fusible run
   ``pure* HashAgg pure* DeviceMaterialize pure*`` into a
@@ -24,18 +30,27 @@ Port of the single-input half of ``risingwave_tpu/runtime/fused_step.py``
 - The members stay the system of record: their state is updated in
   place, so snapshots, growth and the barrier checks work on the
   original objects.
+- ``fuse_two_input`` runs a ``TwoInputPipeline`` (q8: ``hop -> dedup``
+  per side, an inner HashJoin, a device MV) as one
+  ``FusedTwoInputExecutor`` program per barrier: the host bookkeeping
+  first (each dedup's and join side's growth hint, the MV's growth
+  bound), then each side's buffered chunks in arrival order through
+  E -> A -> J (dedup) -> M (probe) -> A -> L (own side), each
+  segment's emission through A -> D into the MV, left side first; then
+  the scalar pack with five digests (kernel H) and one staged copy.
 
 On the card the program part of ``_run`` runs under
 ``torch.cuda.set_sync_debug_mode("error")`` (``no_device_reads``), the
 counterpart of the reference's ``jax.transfer_guard("disallow")``: an
 operation that waits for the device there raises.
 
-Not ported yet: the two-input half (S2), literal lifting
+Not ported yet: the two-input program's ``"agg"`` and ``"filter"``
+side kinds and its flush-into-join rounds (q7), literal lifting
 (``lift_plan``/``param_scope``; the port has no expressions), the
 device profiler and flight-recorder hooks (S8), the K-barrier pipeline
-depth and join-fed MV tails (no port executor declares a closed
-emission family yet, so an MV without an agg before it stays
-interpreted).
+depth, the ``RW_FUSED_TWO_INPUT`` switch (fusion is the call to
+``fuse_pipeline``) and join-fed MV tails in the per-chain fallback (an
+MV without an agg before it stays interpreted there).
 """
 
 from __future__ import annotations
@@ -49,6 +64,7 @@ import torch
 from risingwave_tpu_torch import integrity
 from risingwave_tpu_torch.array.chunk import StreamChunk, flatten_stacked
 from risingwave_tpu_torch.executors.base import Barrier, Executor, Watermark
+from risingwave_tpu_torch.executors.dedup import AppendOnlyDedupExecutor, dedup_step_fn
 from risingwave_tpu_torch.executors.epoch_batch import (
     ComposedSteps,
     EpochBatchedAggExecutor,
@@ -61,12 +77,36 @@ from risingwave_tpu_torch.executors.hash_agg import (
     _epoch_reduced_fn,
     delta_to_chunk,
 )
+from risingwave_tpu_torch.executors.hash_join import HashJoinExecutor, join_step_fn
 from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor, mv_step_fn
 from risingwave_tpu_torch.ops import agg as agg_ops
 from risingwave_tpu_torch.ops.hash_table import stage_packed
 from risingwave_tpu_torch.runtime.bucketing import flush_pad_schedule
 
-__all__ = ["FusedChainExecutor", "expand_fused", "fuse_chain", "fuse_pipeline"]
+__all__ = [
+    "FusedChainExecutor", "FusedTwoInputExecutor", "expand_fused", "fuse_chain",
+    "fuse_pipeline", "fuse_two_input", "fusion_refusals",
+]
+
+_REFUSALS: List[dict] = []
+
+
+def _refuse(label: str, reason: str, executor: Optional[str] = None):
+    """Record why a pipeline was left to the per-chain policy (the
+    reference's RW-E807 provenance) and return None."""
+    _REFUSALS.append({"code": "RW-E807", "fragment": label, "executor": executor,
+                      "message": reason})
+    del _REFUSALS[:-256]
+    return None
+
+
+def fusion_refusals(clear: bool = False) -> List[dict]:
+    """Every recorded fusion refusal since process start (or the last
+    ``clear=True`` call)."""
+    out = list(_REFUSALS)
+    if clear:
+        _REFUSALS.clear()
+    return out
 
 
 @dataclass(frozen=True)
@@ -425,10 +465,384 @@ def fuse_chain(chain: Sequence[Executor], label: str = "fragment") -> List[Execu
     return out
 
 
-def fuse_pipeline(pipeline, label: str = "mv") -> List[FusedChainExecutor]:
-    """Fuse a serial Pipeline's chain in place; returns the wrappers
-    created. The pipeline's ``executors`` then lists the wrappers, not
-    the members (``expand_fused`` gives the members back)."""
+# -- the two-input program ---------------------------------------------------------
+@dataclass(frozen=True)
+class SidePlan:
+    """One input side: a pure prefix feeding at most one stateful member
+    (q8: ``hop -> dedup``)."""
+
+    pre: Optional[ComposedSteps]
+    kind: Optional[str]  # None | "dedup"
+    keys: tuple = ()
+
+
+@dataclass(frozen=True)
+class TwoInputPlan:
+    """The two-input program's shape: two side plans around one inner
+    hash join, then a ``pure* [device MV] pure*`` tail."""
+
+    left: SidePlan
+    right: SidePlan
+    j_left_keys: tuple
+    j_right_keys: tuple
+    j_left_names: tuple
+    j_right_names: tuple
+    j_out_names: tuple
+    j_out_cap: int
+    j_type: str
+    tail_pre: Optional[ComposedSteps]
+    mv_pk: Optional[tuple]
+    mv_cols: Optional[tuple]
+    tail_post: Optional[ComposedSteps]
+
+
+def _concat(chunks: Sequence[StreamChunk]) -> StreamChunk:
+    """Chunks of one schema as one (a segment's emissions, in order)."""
+    if len(chunks) == 1:
+        return chunks[0]
+    cat = lambda get: torch.cat([get(c) for c in chunks])
+    c0 = chunks[0]
+    return StreamChunk(
+        {n: cat(lambda c, n=n: c.columns[n]) for n in c0.columns},
+        cat(lambda c: c.valid),
+        {n: cat(lambda c, n=n: c.nulls[n]) for n in c0.nulls},
+        cat(lambda c: c.ops),
+    )
+
+
+def _two_input_side_scan(ex, join, seg, side_plan: SidePlan, plan: TwoInputPlan, arrival: str,
+                         join_rows) -> StreamChunk:
+    """One side's segment through its stateful step (if any) and the
+    join's arrival step, chunk by chunk in arrival order (the per-chunk
+    ``out_cap`` compaction depends on it), all in place. Returns the
+    segment's emissions as one chunk."""
+    own_keys = plan.j_left_keys if arrival == "l" else plan.j_right_keys
+    own_names = plan.j_left_names if arrival == "l" else plan.j_right_names
+    other = "r" if arrival == "l" else "l"
+    ems = []
+    for chunk in seg:
+        if side_plan.pre is not None:
+            chunk = side_plan.pre(chunk)
+        if side_plan.kind == "dedup":
+            ex.table, ex.sdirty, chunk = dedup_step_fn(
+                ex.table, ex.sdirty, chunk, side_plan.keys, ex.scratch,
+                (ex._saw_delete, ex._dropped),
+            )
+        own, _, em = join_step_fn(
+            join.side(arrival), join.side(other), chunk, own_keys, own_names,
+            plan.j_out_names, plan.j_out_cap, join._em_overflow, plan.j_type, join_rows,
+        )
+        join._set_side(arrival, own)
+        ems.append(em)
+    return _concat(ems)
+
+
+def _fused_two_input_body(w: "FusedTwoInputExecutor", left_batches, right_batches):
+    """The fragment's barrier over the members, in place: the left
+    segments, then the right ones, each through its side and the join
+    and its emission through the tail; then the scalar lane, in the
+    reference's order: each dedup side's four lanes (saw_delete,
+    dropped, occupancy, survivors), the join's nine, the MV's two, the
+    five telemetry counters (rows_left, rows_right, join_rows,
+    dirty_groups (0: no agg side), mv_rows) and the digests (left dedup,
+    right dedup, the two join sides, the MV). join_rows is kept by
+    kernel M, mv_rows by kernel D, and each survivor count by the pass
+    of kernel H that digests its table. Returns ``(outs, packed)``."""
+    plan, join, mv = w.plan, w.join, w.mv
+    dev = join.left.device
+    zero = lambda: torch.zeros((), dtype=torch.int64, device=dev)
+    rows = {"l": zero(), "r": zero()}
+    join_rows, mv_rows = zero(), zero()
+    outs: List[StreamChunk] = []
+
+    def through_tail(chunk):
+        if plan.tail_pre is not None:
+            chunk = plan.tail_pre(chunk)
+        if mv is not None:
+            mv.table, mv.state = mv_step_fn(
+                mv.table, mv.state, chunk, plan.mv_pk, plan.mv_cols, rows_acc=mv_rows
+            )
+        if plan.tail_post is not None:
+            chunk = plan.tail_post(chunk)
+        return chunk
+
+    for side, batches, ex, side_plan in (
+        ("l", left_batches, w.l_stateful, plan.left),
+        ("r", right_batches, w.r_stateful, plan.right),
+    ):
+        for seg in batches:
+            for c in seg:
+                rows[side] += c.valid.sum()
+            flat = _two_input_side_scan(ex, join, seg, side_plan, plan, side, join_rows)
+            outs.append(through_tail(flat))
+
+    scal, digs = [], []
+    for ex in (w.l_stateful, w.r_stateful):
+        if ex is not None:
+            lanes, live = integrity.dedup_lanes(ex.table)
+            dig, surv = integrity.digest_with_survivors(lanes, live, ex.sdirty)
+            scal += [ex._saw_delete, ex._dropped, ex.table.occupancy(), surv]
+            digs.append(dig)
+    l, r = join.left, join.right
+    (l_dig, l_surv), (r_dig, r_surv) = (
+        integrity.digest_with_survivors(*integrity.join_side_lanes(s), s.sdirty) for s in (l, r)
+    )
+    scal += [join._em_overflow, l.overflow, l.inconsistent, r.overflow, r.inconsistent,
+             l.table.occupancy(), r.table.occupancy(), l_surv, r_surv]
+    digs += [l_dig, r_dig]
+    if mv is not None:
+        scal += [mv.state.dropped, mv.table.occupancy()]
+        digs.append(integrity.device_digest(*integrity.mv_lanes(mv.table, mv.state)))
+    scal += [rows["l"], rows["r"], join_rows, zero(), mv_rows] + digs
+    packed = torch.stack([x.to(torch.int64) for x in scal])
+    return outs, packed
+
+
+def _padded_len(n: int) -> int:
+    """A segment's chunk count padded to a power of two, as the reference
+    pads its stacked batches for ``lax.scan``. The host bounds count the
+    pads; the program runs only the real chunks (a pad is all-invalid
+    and changes no state)."""
+    return 1 << (n - 1).bit_length() if n > 1 else 1
+
+
+class FusedTwoInputExecutor(Executor):
+    """A whole two-input pipeline — ``pure* [dedup]`` per side, an inner
+    HashJoin, ``pure* [device MV] pure*`` tail — run as one program per
+    barrier. ``buffer_left``/``buffer_right`` stage chunks,
+    ``on_barrier`` runs the program and returns the fragment's
+    emission, ``finish_barrier`` reads the packed scalars and runs each
+    member's barrier checks. The members stay the system of record.
+    ``last_digests`` holds the last barrier's staged digests
+    (``left``, ``right``, ``join_left``, ``join_right``, ``mv``, uint64
+    ints) and ``last_telemetry`` its counters."""
+
+    def __init__(self, members, plan: TwoInputPlan, l_stateful, r_stateful, join, mv,
+                 label: str = "fragment"):
+        self.members = list(members)
+        self.plan = plan
+        self.l_stateful = l_stateful
+        self.r_stateful = r_stateful
+        self.join = join
+        self.mv = mv
+        self.label = label
+        self.covers_whole_chain = True
+        self._segs = {"l": [], "r": []}  # homogeneous chunk segments
+        self._sig = {"l": None, "r": None}
+        self.last_digests: dict = {}
+        self.last_telemetry: dict = {}
+
+    # -- data path --------------------------------------------------------
+    def buffer_left(self, chunk: StreamChunk) -> List[StreamChunk]:
+        return self._buffer("l", chunk)
+
+    def buffer_right(self, chunk: StreamChunk) -> List[StreamChunk]:
+        return self._buffer("r", chunk)
+
+    def _buffer(self, side: str, chunk: StreamChunk) -> List[StreamChunk]:
+        sig = chunk_signature(chunk)
+        segs = self._segs[side]
+        if not segs or self._sig[side] != sig:
+            segs.append([])
+            self._sig[side] = sig
+        segs[-1].append(chunk)
+        return []
+
+    def flush_data(self) -> List[StreamChunk]:
+        """Apply everything buffered, staging nothing (buffered rows
+        precede a watermark in stream order)."""
+        if not self._segs["l"] and not self._segs["r"]:
+            return []
+        return self._run(stage=False)
+
+    # -- control path -----------------------------------------------------
+    def on_barrier(self, barrier: Barrier) -> List[StreamChunk]:
+        outs = self._run(stage=True)
+        if barrier is None:  # direct drive: checks fire inline
+            self.finish_barrier()
+        return outs
+
+    def on_watermark(self, watermark: Watermark):
+        return watermark, self.flush_data()
+
+    def finish_barrier(self) -> None:
+        super().finish_barrier()
+        for m in self.members:
+            m.finish_barrier()  # no-op: members never stage under fusion
+
+    def _scalar_layout(self):
+        layout = []
+        if self.l_stateful is not None:
+            layout.append(("l", 4))
+        if self.r_stateful is not None:
+            layout.append(("r", 4))
+        layout.append(("join", 9))
+        if self.mv is not None:
+            layout.append(("mv", 2))
+        layout.append(("tel", 5))
+        names = [n for n, ex in (("left", self.l_stateful), ("right", self.r_stateful))
+                 if ex is not None]
+        names += ["join_left", "join_right"] + (["mv"] if self.mv is not None else [])
+        layout.append(("dig", len(names)))
+        return layout, names
+
+    def _on_barrier_scalars(self, vals) -> None:
+        layout, dig_names = self._scalar_layout()
+        slices, i = {}, 0
+        for name, width in layout:
+            slices[name] = tuple(vals[i:i + width])
+            i += width
+        rows_l, rows_r, join_rows, dirty_groups, mv_rows = slices["tel"]
+        self.last_telemetry = {
+            "rows_in": rows_l + rows_r, "rows_left": rows_l, "rows_right": rows_r,
+            "join_rows": join_rows, "dirty_groups": dirty_groups, "mv_rows": mv_rows,
+        }
+        self._note_digests(dig_names, slices["dig"])
+        if self.l_stateful is not None:
+            self.l_stateful._on_barrier_scalars(slices["l"])
+        if self.r_stateful is not None:
+            self.r_stateful._on_barrier_scalars(slices["r"])
+        self.join._on_barrier_scalars(slices["join"])
+        if self.mv is not None:
+            self.mv._on_barrier_scalars(slices["mv"])
+
+    def _note_digests(self, names, dig) -> None:
+        self.last_digests = {n: integrity.digest_from_scalar(v) for n, v in zip(names, dig)}
+
+    # -- the program ------------------------------------------------------
+    def _prepare_side(self, side: str, side_plan: SidePlan):
+        """Take the side's buffered segments and run its member's host
+        growth bookkeeping (a rebuild must land before the program
+        reads the state), counting each segment at its padded length
+        as the reference does. Returns ``(batches, post_pre_rows,
+        padded_chunks)``."""
+        segs, self._segs[side] = self._segs[side], []
+        self._sig[side] = None
+        rows = chunks = 0
+        for seg in segs:
+            cap = seg[0].capacity
+            padded = _padded_len(len(seg))
+            rows += padded * (side_plan.pre.rows(cap) if side_plan.pre is not None else cap)
+            chunks += padded
+        ex = self.l_stateful if side == "l" else self.r_stateful
+        if ex is not None and rows:
+            ex._grow_hint(rows)
+            ex._bound += rows
+        return tuple(tuple(seg) for seg in segs), rows, chunks
+
+    def _run(self, stage: bool) -> List[StreamChunk]:
+        left_batches, l_rows, l_chunks = self._prepare_side("l", self.plan.left)
+        right_batches, r_rows, r_chunks = self._prepare_side("r", self.plan.right)
+        if not (left_batches or right_batches) and not stage:
+            return []
+        join = self.join
+        for side, rows in (("l", l_rows), ("r", r_rows)):
+            if rows:
+                join._grow_hint(side, rows)
+                join._bound[side] += rows
+        if self.mv is not None:
+            # every emission chunk reaching the MV has out_cap rows
+            em_rows = (l_chunks + r_chunks) * self.plan.j_out_cap
+            if em_rows:
+                self.mv._maybe_grow(em_rows)
+        with no_device_reads(join.left.device):
+            outs, packed = _fused_two_input_body(self, left_batches, right_batches)
+            if stage:
+                self._staged_scalars = stage_packed(packed)
+        return outs
+
+
+def _parse_side(chain, label: str, side: str):
+    """One input chain as ``(pure prefix, stateful member)``, or None
+    (with the refusal recorded) when the program cannot absorb it."""
+    pres: List[Executor] = []
+    stateful = None
+    for ex in chain:
+        if stateful is not None:
+            return _refuse(f"{label}/{side}", "executors after the side's stateful member "
+                           "are not absorbable by the two-input program", type(ex).__name__)
+        if is_pure(ex):
+            pres.append(ex)
+        elif type(ex) is AppendOnlyDedupExecutor:
+            stateful = ex
+        else:
+            return _refuse(f"{label}/{side}", "not fusible in a two-input side chain (the "
+                           "agg and filter side kinds are not ported yet)", type(ex).__name__)
+    return pres, stateful
+
+
+def _side_plan(pres, stateful) -> SidePlan:
+    pre = ComposedSteps([p.pure_step() for p in pres]) if pres else None
+    if stateful is None:
+        return SidePlan(pre=pre, kind=None)
+    return SidePlan(pre=pre, kind="dedup", keys=stateful.keys)
+
+
+def fuse_two_input(pipeline, label: str = "mv") -> Optional[FusedTwoInputExecutor]:
+    """Plan whole-pipeline fusion of a ``TwoInputPipeline`` (q8's
+    ``dedup x join -> MV`` shape), or None with the refusal recorded:
+    the join must be a HashJoin, each side ``pure* [dedup]``, the tail
+    ``pure* [DeviceMaterialize] pure*``."""
+    join = getattr(pipeline, "join", None)
+    if type(join) is not HashJoinExecutor:
+        return _refuse(label, "two-input executor is not a HashJoin", type(join).__name__)
+    left = _parse_side(pipeline.left, label, "left")
+    if left is None:
+        return None
+    right = _parse_side(pipeline.right, label, "right")
+    if right is None:
+        return None
+    tail_pre: List[Executor] = []
+    tail_post: List[Executor] = []
+    mv = None
+    for ex in pipeline.tail:
+        if type(ex) is DeviceMaterializeExecutor and mv is None:
+            mv = ex
+        elif is_pure(ex):
+            (tail_post if mv is not None else tail_pre).append(ex)
+        else:
+            return _refuse(f"{label}/tail", "not fusible in the two-input tail", type(ex).__name__)
+    steps = lambda exs: ComposedSteps([e.pure_step() for e in exs]) if exs else None
+    plan = TwoInputPlan(
+        left=_side_plan(*left),
+        right=_side_plan(*right),
+        j_left_keys=join.left_keys,
+        j_right_keys=join.right_keys,
+        j_left_names=join.left_names,
+        j_right_names=join.right_names,
+        j_out_names=join.out_names,
+        j_out_cap=join.out_cap,
+        j_type=join.join_type,
+        tail_pre=steps(tail_pre),
+        mv_pk=mv.pk if mv is not None else None,
+        mv_cols=mv.columns if mv is not None else None,
+        tail_post=steps(tail_post),
+    )
+    members = list(pipeline.left) + list(pipeline.right) + [join] + list(pipeline.tail)
+    return FusedTwoInputExecutor(members, plan, left[1], right[1], join, mv, label=label)
+
+
+def fuse_pipeline(pipeline, label: str = "mv") -> List[Executor]:
+    """Arm fusion on a ``Pipeline`` or ``TwoInputPipeline`` in place;
+    returns the wrappers created.
+
+    A two-input pipeline fuses whole (``fuse_two_input``: one program
+    per barrier on ``pipeline._fused``, the chains left as they are);
+    when that is refused, each of its chains falls back to the
+    per-chain policy. A serial pipeline's ``executors`` then lists the
+    wrappers, not the members (``expand_fused`` gives the members
+    back)."""
+    if hasattr(pipeline, "join") and hasattr(pipeline, "left"):
+        w = fuse_two_input(pipeline, label=label)
+        if w is not None:
+            pipeline._fused = w
+            return [w]
+        created: List[Executor] = []
+        for attr in ("left", "right", "tail"):
+            chain = fuse_chain(getattr(pipeline, attr), f"{label}/{attr}")
+            setattr(pipeline, attr, chain)
+            created += [e for e in chain if isinstance(e, FusedChainExecutor)]
+        return created
     pipeline.executors = fuse_chain(pipeline.executors, label)
     return [e for e in pipeline.executors if isinstance(e, FusedChainExecutor)]
 
@@ -437,7 +851,7 @@ def expand_fused(executors) -> List[Executor]:
     """Fused wrappers flattened back to their member executors."""
     out: List[Executor] = []
     for ex in executors or ():
-        if isinstance(ex, FusedChainExecutor):
+        if isinstance(ex, (FusedChainExecutor, FusedTwoInputExecutor)):
             out.extend(ex.members)
         else:
             out.append(ex)

@@ -31,7 +31,8 @@ import risingwave_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(risingwave_tpu_torch.__path__, "risingwave_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-for m in ("runtime.fused_step", "executors.epoch_batch", "integrity"):
+for m in ("runtime.fused_step", "executors.epoch_batch", "integrity", "executors.dedup",
+          "executors.hash_join", "ops.join", "queries.nexmark_q", "runtime.pipeline"):
     assert "risingwave_tpu_torch." + m in mods, m
 assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
 
@@ -56,8 +57,25 @@ for _ in range(2):
     fused.pipeline.barrier()
 assert fused.mview.snapshot() == snap and set(w.last_digests) == {"agg", "mv"}
 
+from risingwave_tpu_torch.queries.nexmark_q import build_q8
+
+q8_snaps = []
+for fuse in (False, True):
+    q8 = build_q8(capacity=1 << 10, out_cap=1 << 10, device="cpu")
+    if fuse:
+        (w8,) = fuse_pipeline(q8.pipeline)
+    gen = NexmarkGenerator(NexmarkConfig(first_event_rate=10_000))
+    for _ in range(2):
+        ch = gen.next_chunks(3000, 4096, device="cpu")
+        q8.pipeline.push_left(ch["person"].select(["id", "name", "date_time"]))
+        q8.pipeline.push_right(ch["auction"].select(["seller", "date_time"]))
+        q8.pipeline.barrier()
+    q8_snaps.append(q8.mview.snapshot())
+assert q8_snaps[0] and q8_snaps[0] == q8_snaps[1] and len(w8.last_digests) == 5
+
 assert not torch.cuda.is_available()
-for make in (lambda: build_q5_lite(), lambda: NexmarkGenerator().next_chunks(10, 16)):
+for make in (lambda: build_q5_lite(), lambda: build_q8(),
+             lambda: NexmarkGenerator().next_chunks(10, 16)):
     try:
         make()
     except RuntimeError as e:
@@ -81,7 +99,7 @@ def test_port_imports_and_runs_without_jax_and_never_falls_back_to_cpu():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     n = int(proc.stdout.split("MODULES")[1])
-    assert n >= 18  # every module of the slices was imported
+    assert n >= 21  # every module of the slices was imported
 
 
 _FORBIDDEN = re.compile(

@@ -112,3 +112,39 @@ def test_agg_lanes_fold_float_extremes_as_the_reference():
     p_lanes, p_live = port.agg_lanes(Table, ps, pfx)
     assert port.digest_from_scalar(port.device_digest(p_lanes, p_live)) == want
     assert port.host_digest(*port.host_lanes(p_lanes, p_live)) == want
+
+
+def test_dedup_and_join_side_lanes_match_reference():
+    """q8's state lanes: the seen-set's keys (dedup_lanes) and a join
+    side's bucket lanes masked by row_valid (join_side_lanes, NaN and
+    NULL payloads, deleted entries leaving stale bytes behind), through
+    the port's plain fold (with and without the survivor count) and its
+    numpy host_digest, against the reference's device_digest."""
+    from risingwave_tpu.ops import hash_table as rht
+    from risingwave_tpu_torch.ops import hash_table as pht
+    from test_torch_join import _apply_both, _batch, _sides
+
+    rng = np.random.default_rng(21)
+    ref_side, port_side = _sides(128, 4)
+    stored = []
+    for _ in range(4):
+        ref_side = _apply_both(ref_side, port_side, _batch(rng, 40, 30, stored, p_del=0.4),
+                               np.ones(40, bool))
+    assert not bool(port_side.row_valid.all())  # vacated entries hold stale bytes
+    ref_lanes, ref_live = ref.join_side_lanes(ref_side, jnp.where)
+    want = ref.digest_from_scalar(ref.device_digest(ref_lanes, ref_live))
+    lanes, live = port.join_side_lanes(port_side)
+    got = port.digest_from_scalar(port.device_digest(lanes, live))
+    dig, surv = port.digest_with_survivors(lanes, live, port_side.sdirty)
+    assert got == want == port.host_digest(*port.host_lanes(lanes, live))
+    assert port.digest_from_scalar(dig) == want
+    assert int(surv) == int(np.sum(np.asarray(ref_side.table.live | ref_side.sdirty)))
+
+    keys = rng.integers(0, 50, 60).astype(np.int64)
+    rt = rht.HashTable.create(64, (jnp.int64,))
+    rt, slots, _, _ = rht.lookup_or_insert(rt, (jnp.asarray(keys),), jnp.ones(60, jnp.bool_))
+    rt = rht.set_live(rt, jnp.where(jnp.asarray(keys) % 3 > 0, slots, -1), True)
+    pt = pht.HashTable.from_reference_arrays(rt.fp1, rt.fp2, rt.keys, rt.live, device="cpu")
+    want = ref.digest_from_scalar(ref.device_digest(*ref.dedup_lanes(rt)))
+    assert port.digest_from_scalar(port.device_digest(*port.dedup_lanes(pt))) == want
+    assert port.host_digest(*port.host_lanes(*port.dedup_lanes(pt))) == want
