@@ -14,14 +14,16 @@ Phases, each printing one JSON line:
      chunk on a 2^23-slot seen-set; L: a 32,768-row person chunk into a
      (2^23, 8) join side, and L's regrow entry from 2^20 to 2^21 slots;
      M: 65,536 probe rows against that side; H over q8's two join sides
-     after phase 8), with times;
+     after phase 8; N: an 8,192-row and a 65,536-row bid chunk into a
+     2^22-slot filter table; O: each state kind's expiry at q7's sizes, filter and agg
+     2^22 slots, join side (2^22, 16)), with times;
   4. the interpreted path: Nexmark q5 (hop -> HashAgg -> device MV)
      through ``build_q5_lite(state_cleaning=False)``, chunk by chunk,
      over 20 epochs of 1M events, its final MV held against a numpy
      oracle, and the launch count of each kernel during that run;
   5. with ``--profile N`` only: N epochs of a path again, on fresh
      tables, under ``torch.profiler`` (where the time goes), after each
-     of phases 4, 6, 7 and 8;
+     of phases 4, 6, 7, 8, 9 and 10;
   6. the fused path: the same q5 through ``fuse_pipeline`` (one program
      per barrier, no device read inside it) over phase 4's chunks, its
      MV held against the oracle and phase 4's MV, its staged state
@@ -35,7 +37,20 @@ Phases, each printing one JSON line:
      chunks (one ``FusedTwoInputExecutor`` program per barrier), its MV
      held against the actor and phase 7's MV, its five staged digests
      against ``host_digest`` of the lanes read back and of phase 7's
-     state.
+     state;
+  9. Nexmark q7 interpreted: ``build_q7`` at ``bench_q7``'s sizes
+     (tables of 2^22 slots, join fanout 16, out_cap 2^14) over 20
+     epochs of 1M events, each 8,192-event piece's bids one chunk
+     pushed to both sides, ``watermark("date_time", max event time)``
+     after every barrier; its final MV held against a copy of
+     ``bench.py``'s q7 actor, and the watermarks' state cleaning
+     checked (no live key below the last watermark);
+  10. q7 fused: the same stream through ``fuse_pipeline`` (one
+     ``FusedTwoInputExecutor`` program per barrier, the agg's flush
+     rounds feeding the join; the watermark outside the program), its
+     MV held against phase 9's at every barrier and the actor, its five
+     staged digests against ``host_digest`` of the lanes read back and
+     of phase 9's state.
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. Without a
@@ -70,6 +85,18 @@ Q8_FANOUT = 8
 Q8_OUT_CAP = 1 << 14
 P_ROWS = 32_768  # person chunk capacity (about 20,000 persons an epoch)
 A_ROWS = 65_536  # auction chunk capacity (about 60,000 auctions an epoch)
+# q7 (phases 9-10), bench.py's bench_q7 settings at q5's volume: every
+# table _state_cap(1M, 2^16) slots, join fanout 16, out_cap 2^14, the
+# bids of each 8,192-event piece one chunk pushed to both sides (the
+# chunking of bench.py's "full" tier). With 65,536-event pieces the
+# first chunk of a window passes all its bids (a new group passes), and
+# a (window, price) key collects more bids than the fanout holds
+# (scripts/q7_join_fanout.py counts them): the join raises.
+Q7_CAP = 1 << 22
+Q7_FANOUT = 16
+Q7_OUT_CAP = 1 << 14
+Q7_CHUNK_EVENTS = 8_192
+Q7_COLS = ("auction", "bidder", "price", "date_time")
 
 
 def emit(obj) -> None:
@@ -1578,6 +1605,585 @@ def q8_fused_path(torch, dev, host, chunks, caps, interp_q8, oracle):
     return row, launches, q8
 
 
+# -- phase 3, q7's kernels (N, O) -------------------------------------------------
+def kernel_n(torch, dev, rng, n: int, cap: int = Q7_CAP, prefill: int = 50_000):
+    """N against its plain version: an ``n``-row bid chunk after A on a
+    2^22-slot filter table holding ``prefill`` windows with running
+    maxes (a tenth of them tombstoned by an expiry), every other slot's
+    max stale garbage. The chunk mixes live windows (prices around their
+    max, ties included), expired windows (their slots found again with
+    neither found nor inserted), new windows (about three rows each),
+    a few DELETE rows and padding. Every lane equal, latches included."""
+    import dataclasses
+
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.executors import dynamic_filter as df
+    from risingwave_tpu_torch.ops import hash_table as ht
+
+    table = ht.HashTable.create(cap, (torch.int64,), device=dev)
+    wins = (rng.permutation(prefill).astype(np.int64) + 10) * 10_000
+    valid_all = torch.ones(prefill, dtype=torch.bool, device=dev)
+    _, pslots, _, _ = ht.lookup_or_insert(table, (torch.from_numpy(wins).to(dev),), valid_all)
+    check(bool((pslots >= 0).all()), "N: prefill found slots")
+    maxes = torch.from_numpy(rng.integers(0, 10**6, cap)).to(dev)  # stale everywhere
+    pmax = rng.integers(1_000, 100_000, prefill)
+    maxes[pslots.long()] = torch.from_numpy(pmax).to(dev)
+    table.live[pslots.long()] = True
+    dead = rng.random(prefill) < 0.1
+    table.live[pslots[torch.from_numpy(dead).to(dev)].long()] = False
+    sdirty = torch.from_numpy(rng.random(cap) < 0.01).to(dev)
+    m = n - 500  # the rest is padding
+    k_live, k_dead = m // 2, m // 10
+    k_new = m - k_live - k_dead
+    live_i = rng.choice(np.flatnonzero(~dead), k_live)
+    dead_i = rng.choice(np.flatnonzero(dead), k_dead)
+    pool = (rng.permutation(k_new // 3 + 1).astype(np.int64) + 10 * prefill + 10) * 10_000
+    w = np.concatenate([wins[live_i], wins[dead_i], pool[rng.integers(0, len(pool), k_new)]])
+    base_p = np.concatenate([pmax[live_i], pmax[dead_i], rng.integers(1_000, 100_000, k_new)])
+    p = base_p + rng.integers(-2, 3, m) * (rng.random(m) < 0.5)  # ties at the max
+    order = rng.permutation(m)
+    ops = np.where(rng.random(m) < 0.001, 1, 0).astype(np.int32)
+    chunk = StreamChunk.from_numpy({"wstart": w[order], "price": p[order]}, n, ops=ops,
+                                   device=dev)
+    signs = chunk.effective_signs()
+    valid = chunk.valid & (signs > 0)
+    value = chunk.col("price")
+    _, slots, found, inserted = ht.lookup_or_insert(table, (chunk.col("wstart"),), valid)
+    latches = lambda: (torch.zeros((), dtype=torch.bool, device=dev),
+                       torch.zeros((), dtype=torch.bool, device=dev))
+    outs = []
+    for fn in ("cuda", "torch"):
+        t = dataclasses.replace(table, live=table.live.clone())
+        mx, sd, lat = maxes.clone(), sdirty.clone(), latches()
+        if fn == "cuda":
+            ok = df._filter_cuda(t, mx, sd, chunk, value, slots, inserted, lat)
+        else:
+            ok = df._filter_torch(t, mx, sd, chunk, value, signs, valid, slots, inserted, lat)
+        outs.append({"ok": ok, "maxes": mx, "sdirty": sd, "live": t.live,
+                     "saw_delete": lat[0], "dropped": lat[1]})
+    torch.cuda.synchronize()
+    assert_lanes_equal(torch, outs[0], outs[1], "N")
+    check(bool(outs[0]["saw_delete"]) and not bool(outs[0]["dropped"]), "N: latches")
+    hit = valid & (slots >= 0)
+    pre = maxes[slots.clamp(min=0).long()]
+    reused = hit & ~found & ~inserted
+    check(int(reused.sum()) > 0 and not bool(outs[0]["live"][slots[reused].long()].any()),
+          "N: expired windows found again stay dead")
+    ties = int((outs[0]["ok"] & hit & ~inserted & (value == pre)).sum())
+    check(ties > 0, "N: ties at the running max pass")
+    new_slots = torch.unique(slots[inserted].long())
+    fresh = torch.full_like(maxes, np.iinfo(np.int64).min).scatter_reduce_(
+        0, slots[inserted].long(), value[inserted], reduce="amax")
+    check(torch.equal(outs[0]["maxes"][new_slots], fresh[new_slots]),
+          "N: a new slot's stale max is reset before the fold")
+    err = max_abs_diff(torch, outs[0], outs[1])
+    t = dataclasses.replace(table, live=table.live.clone())
+    mx, sd, lat = maxes.clone(), sdirty.clone(), latches()
+
+    def setup():
+        mx.copy_(maxes)
+        sd.copy_(sdirty)
+        t.live.copy_(table.live)
+
+    ms = time_ms(torch, lambda: df._filter_cuda(t, mx, sd, chunk, value, slots, inserted, lat),
+                 20, setup)
+    plain = time_ms(torch, lambda: df._filter_torch(t, mx, sd, chunk, value, signs, valid, slots,
+                                                    inserted, lat), 5, setup)
+    idx, vals = slots[hit].long(), value[hit]
+    lib = time_ms(torch, lambda: mx.scatter_reduce_(0, idx, vals, reduce="amax"), 20, setup)
+    touched = int(torch.unique(idx).numel())
+    n_new = int(new_slots.numel())
+    # valid, ops, slots, inserted, value read and ok written per row
+    # (19 B); per touched slot its max read and written and sdirty
+    # written, per new slot live written: a 32-byte sector each
+    nbytes = n * 19 + touched * 3 * 32 + n_new * 32
+    return {
+        "name": "N dynamic filter", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/dyn_filter.cu",
+        "replaces": "risingwave_tpu/executors/dynamic_filter.py:56",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": lib,
+        "library_call": "scatter_reduce_(..., 'amax') of the fold alone",
+        "shape": {"rows": n, "capacity": cap, "windows": prefill, "touched_slots": touched,
+                  "new_slots": n_new, "expired_rows": int(reused.sum()), "ties": ties},
+    }
+
+
+def o_fill(torch, dev, rng, table, n_live: int, cutoff: int):
+    """Claim ``n_live`` random slots of ``table`` (the O pass reads only
+    live and the key lane), their window keys half below ``cutoff``;
+    returns the slots."""
+    slots = torch.from_numpy(rng.choice(table.capacity, n_live, replace=False)).to(dev)
+    below = rng.random(n_live) < 0.5
+    keys = np.where(below, cutoff - 10_000 * rng.integers(1, 50, n_live),
+                    cutoff + 10_000 * rng.integers(0, 50, n_live))
+    table.fp1[slots] = 1
+    table.keys[0][slots] = torch.from_numpy(keys).to(dev)
+    table.live[slots] = True
+    return slots
+
+
+def o_time(torch, fns, setup):
+    """The kernel's and the plain version's ms (each pass restores the
+    lanes first)."""
+    return time_ms(torch, fns[0], 20, setup), time_ms(torch, fns[1], 5, setup)
+
+
+def o_bytes(cap: int, n_live: int, n_exp: int, per_expired: int) -> int:
+    """Kernel O's bytes: the live lane read over the table, each live
+    slot's key read (a 32-byte sector), per expired slot ``per_expired``
+    bytes of sectors written."""
+    return cap + n_live * 32 + n_exp * per_expired
+
+
+def kernel_o(torch, dev, rng, cap: int = Q7_CAP, n_live: int = 200_000):
+    """O against its plain version on each state kind at q7's sizes,
+    about half the live keys below the cutoff: a 2^22-slot filter table
+    (the dedup's entry too), a (2^22, 16) join side of q7's bid schema,
+    and a 2^22-slot HashAgg with q7's MAX in both modes; plus a 2^16-slot
+    agg over every agg kind (float MIN/MAX in order-key form) in both
+    modes. Every lane equal. Returns one row per entry."""
+    import dataclasses
+
+    from risingwave_tpu_torch import integrity
+    from risingwave_tpu_torch.ops import agg as agg_ops
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.ops import join as jn
+
+    cutoff = 1_436_918_400_000 + 500 * 10_000
+    rows = []
+
+    # the filter / dedup key table
+    table = ht.HashTable.create(cap, (torch.int64,), device=dev)
+    o_fill(torch, dev, rng, table, n_live, cutoff)
+    sdirty0 = torch.from_numpy(rng.random(cap) < 0.01).to(dev)
+    live0 = table.live.clone()
+    got = dataclasses.replace(table, live=live0.clone())
+    want = dataclasses.replace(table, live=live0.clone())
+    sd_k, sd_p = sdirty0.clone(), sdirty0.clone()
+    ht._expire_table_cuda(got, sd_k, 0, cutoff)
+    ht._expire_table_torch(want, sd_p, 0, cutoff)
+    torch.cuda.synchronize()
+    a, b = {"live": got.live, "sdirty": sd_k}, {"live": want.live, "sdirty": sd_p}
+    assert_lanes_equal(torch, a, b, "O keys")
+    n_exp = int((live0 & ~got.live).sum())
+    check(0.4 * n_live < n_exp < 0.6 * n_live, "O keys: about half the live keys expired")
+
+    def setup_k():
+        got.live.copy_(live0)
+        sd_k.copy_(sdirty0)
+
+    ms, plain = o_time(torch, (lambda: ht._expire_table_cuda(got, sd_k, 0, cutoff),
+                               lambda: ht._expire_table_torch(got, sd_k, 0, cutoff)), setup_k)
+    rows.append({
+        "name": "O expire (filter / dedup)", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/expire.cu",
+        "replaces": "risingwave_tpu/executors/dynamic_filter.py:329, executors/dedup.py:284",
+        "max_abs_err": max_abs_diff(torch, a, b), "ms": ms, "plain_ms": plain,
+        "bound_ms": bound_ms(o_bytes(cap, n_live, n_exp, 2 * 32)), "bound_by": "bytes",
+        "library_ms": None,
+        "shape": {"capacity": cap, "live": n_live, "expired": n_exp},
+    })
+    del table, got, want, live0, sdirty0, sd_k, sd_p
+
+    # a join side of q7's bid schema
+    side = jn.JoinSide.create(cap, Q7_FANOUT, (torch.int64, torch.int64),
+                              {k: torch.int64 for k in ("wstart", "price", "auction", "bidder")},
+                              device=dev)
+    slots = o_fill(torch, dev, rng, side.table, n_live, cutoff)
+    fill = torch.from_numpy(rng.random((n_live, Q7_FANOUT)) < 0.3).to(dev)
+    side.row_valid[slots] = fill
+    side.degree[slots] = torch.from_numpy(rng.integers(0, 3, (n_live, Q7_FANOUT))
+                                          .astype(np.int32)).to(dev)
+    for lane in side.rows.values():
+        lane[slots] = torch.from_numpy(rng.integers(0, 10**6, (n_live, Q7_FANOUT))).to(dev)
+    base = {k: getattr(side, k).clone() for k in ("sdirty", "row_valid", "degree")}
+    base_live = side.table.live.clone()
+
+    def twin():
+        t = dataclasses.replace(side.table, live=base_live.clone())
+        return dataclasses.replace(side, table=t, **{k: v.clone() for k, v in base.items()})
+
+    got, want = twin(), twin()
+    jn._expire_keys_cuda(got, 0, cutoff)
+    jn._expire_keys_torch(want, 0, cutoff)
+    torch.cuda.synchronize()
+    lanes = lambda s: {"live": s.table.live, "sdirty": s.sdirty, "row_valid": s.row_valid,
+                       "degree": s.degree}
+    assert_lanes_equal(torch, lanes(got), lanes(want), "O join side")
+    digs = [integrity.digest_from_scalar(integrity.device_digest(*integrity.join_side_lanes(s)))
+            for s in (got, want)]
+    check(digs[0] == digs[1], "O join side: digests")
+    n_exp = int((base_live & ~got.table.live).sum())
+    check(0.4 * n_live < n_exp < 0.6 * n_live, "O join side: about half the live keys expired")
+
+    def setup_j():
+        got.table.live.copy_(base_live)
+        for k, v in base.items():
+            getattr(got, k).copy_(v)
+
+    ms, plain = o_time(torch, (lambda: jn._expire_keys_cuda(got, 0, cutoff),
+                               lambda: jn._expire_keys_torch(got, 0, cutoff)), setup_j)
+    rows.append({
+        "name": "O expire (join side)", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/expire.cu",
+        "replaces": "risingwave_tpu/ops/join.py:508",
+        "max_abs_err": max_abs_diff(torch, lanes(got), lanes(want)), "ms": ms, "plain_ms": plain,
+        # per expired slot live, sdirty, its 16 row_valid and 16 degree entries
+        "bound_ms": bound_ms(o_bytes(cap, n_live, n_exp, 2 * 32 + 32 + 64)),
+        "bound_by": "bytes", "library_ms": None,
+        "shape": {"capacity": cap, "fanout": Q7_FANOUT, "live": n_live, "expired": n_exp},
+    })
+    del side, got, want, base, base_live
+
+    # HashAgg tables: q7's MAX at 2^22, every kind at 2^16, both modes
+    agg_row = None
+    for acap, calls, dtypes in (
+        (cap, (agg_ops.AggCall("max", "price", "maxprice"),), {"price": torch.int64}),
+        (1 << 16, (agg_ops.AggCall("count_star", None, "n"), agg_ops.AggCall("sum", "f", "sf"),
+                   agg_ops.AggCall("min", "g", "mng"), agg_ops.AggCall("max", "f", "mxf"),
+                   agg_ops.AggCall("max", "i", "mxi")),
+         {"f": torch.float64, "g": torch.float32, "i": torch.int32}),
+    ):
+        fx = agg_ops.float_extreme_meta(calls, dtypes)
+        table = ht.HashTable.create(acap, (torch.int64,), device=dev)
+        k_live = min(n_live, acap // 4)
+        aslots = o_fill(torch, dev, rng, table, k_live, cutoff)
+        state = agg_ops.create_state(acap, calls, dtypes, dev)
+        rnd = lambda dt: torch.from_numpy(rng.integers(-1000, 1000, k_live)).to(dev).to(dt)
+        for lane in (state.row_count, *state.accums.values(), *state.nonnull.values(),
+                     *state.emitted.values()):
+            lane[aslots] = rnd(lane.dtype)
+        for lane in (state.dirty, state.emitted_valid, state.sdirty):
+            lane[aslots] = torch.from_numpy(rng.random(k_live) < 0.5).to(dev)
+        base_st = state_lanes(state)
+        base_live = table.live.clone()
+        for mark_dirty in (False, True):
+            twins = []
+            for _ in range(2):
+                st = agg_ops.AggState(**{
+                    f: ({k: v.clone() for k, v in getattr(state, f).items()}
+                        if isinstance(getattr(state, f), dict) else getattr(state, f).clone())
+                    for f in vars(state)
+                })
+                twins.append((dataclasses.replace(table, live=base_live.clone()), st))
+            (tk, sk), (tp, sp) = twins
+            agg_ops._expire_groups_cuda(tk, sk, calls, 0, cutoff, mark_dirty, fx)
+            agg_ops._expire_groups_torch(tp, sp, calls, 0, cutoff, mark_dirty, fx)
+            torch.cuda.synchronize()
+            a = {"live": tk.live, **state_lanes(sk)}
+            b = {"live": tp.live, **state_lanes(sp)}
+            what = f"O agg ({len(calls)} calls, mark_dirty={mark_dirty})"
+            assert_lanes_equal(torch, a, b, what)
+            digs = [integrity.digest_from_scalar(integrity.device_digest(
+                *integrity.agg_lanes(t, s, fx))) for t, s in ((tk, sk), (tp, sp))]
+            check(digs[0] == digs[1], f"{what}: digests")
+            n_exp = int((base_live & ~tk.live).sum())
+            check(0.4 * k_live < n_exp < 0.6 * k_live, f"{what}: about half expired")
+            if acap == cap and mark_dirty is False:
+                def setup_a():
+                    tk.live.copy_(base_live)
+                    for k, v in state_lanes(sk).items():
+                        v.copy_(base_st[k])
+
+                ms, plain = o_time(
+                    torch, (lambda: agg_ops._expire_groups_cuda(tk, sk, calls, 0, cutoff, False,
+                                                                fx),
+                            lambda: agg_ops._expire_groups_torch(tk, sk, calls, 0, cutoff, False,
+                                                                 fx)), setup_a)
+                # per expired slot live, row_count, sdirty, dirty,
+                # emitted_valid and each accumulator / non-null lane
+                per = 32 * (5 + len(state.accums) + len(state.nonnull))
+                agg_row = {
+                    "name": "O expire (agg)", "route": "cuda",
+                    "source": "risingwave_tpu_torch/csrc/expire.cu",
+                    "replaces": "risingwave_tpu/executors/hash_agg.py:393 "
+                                "(with ops/agg.py:533)",
+                    "max_abs_err": max_abs_diff(torch, a, b), "ms": ms, "plain_ms": plain,
+                    "bound_ms": bound_ms(o_bytes(acap, k_live, n_exp, per)),
+                    "bound_by": "bytes", "library_ms": None,
+                    "shape": {"capacity": acap, "calls": len(calls), "live": k_live,
+                              "expired": n_exp, "mode": "forget_groups"},
+                }
+            else:
+                agg_row.setdefault("also_equal", []).append(
+                    {"capacity": acap, "calls": len(calls), "mark_dirty": mark_dirty,
+                     "max_abs_err": max_abs_diff(torch, a, b)})
+        del table, state, base_st, base_live, twins
+    rows.append(agg_row)
+    return rows
+
+
+# -- phases 9 and 10: q7 ---------------------------------------------------------
+def q7_stream(torch, dev, epochs: int):
+    """bench_q7's stream: per epoch 1M events generated in 8,192-event
+    pieces, each piece's bids one chunk of 8,192 rows (auction, bidder,
+    price, date_time). Returns the host columns per epoch and the chunks
+    on the card."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig, NexmarkGenerator
+
+    gen = NexmarkGenerator(NexmarkConfig(first_event_rate=EVENT_RATE), seed=SEED)
+    host, chunks = [], []
+    for _ in range(epochs):
+        h_ep, c_ep, done = [], [], 0
+        while done < EVENTS_PER_EPOCH:
+            n = min(Q7_CHUNK_EVENTS, EVENTS_PER_EPOCH - done)
+            done += n
+            b = gen.next_events(n)["bid"]
+            if len(b["auction"]):
+                cols = {k: b[k] for k in Q7_COLS}
+                h_ep.append(cols)
+                c_ep.append(StreamChunk.from_numpy(cols, Q7_CHUNK_EVENTS, device=dev))
+        host.append(h_ep)
+        chunks.append(c_ep)
+    return host, chunks
+
+
+def cpu_actor_q7(chunks, window_ms: int) -> dict:
+    """The repo benchmark's single-threaded q7 actor (bench.py:562):
+    bids at or above their window's running max are kept; the answer is
+    every kept bid at its window's final max. Returns
+    {(wstart, auction, bidder): (price,)}."""
+    wmax, bids_at = {}, {}
+    for cols in chunks:
+        ws = (cols["date_time"] // window_ms) * window_ms
+        for a, b, p, w in zip(cols["auction"].tolist(), cols["bidder"].tolist(),
+                              cols["price"].tolist(), ws.tolist()):
+            cur = wmax.get(w, -1)
+            if p >= cur:
+                bids_at.setdefault((w, p), []).append((a, b))
+                if p > cur:
+                    wmax[w] = p
+    return {(w, a, b): (p,) for w, p in wmax.items() for (a, b) in bids_at.get((w, p), ())}
+
+
+def q7_oracle_rows(chunks, window_ms: int) -> np.ndarray:
+    """``cpu_actor_q7`` vectorized: per window the maximum price, and
+    every bid at it (a bid equal to the final max always passed the
+    running-max test), as sorted unique (wstart, auction, bidder, price)
+    rows."""
+    cat = {k: np.concatenate([c[k] for c in chunks]) for k in Q7_COLS}
+    ws = (cat["date_time"] // window_ms) * window_ms
+    uw, inv = np.unique(ws, return_inverse=True)
+    mx = np.full(len(uw), np.iinfo(np.int64).min)
+    np.maximum.at(mx, inv, cat["price"])
+    at = cat["price"] == mx[inv]
+    rows = np.stack([ws[at], cat["auction"][at], cat["bidder"][at], cat["price"][at]], 1)
+    return np.unique(rows, axis=0)
+
+
+def actor_rows(out: dict) -> np.ndarray:
+    rows = np.array([(*k, v[0]) for k, v in out.items()], np.int64).reshape(-1, 4)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def q7_mv_rows(mview) -> np.ndarray:
+    got = mview.to_numpy()
+    rows = np.stack([got["wstart"], got["auction"], got["bidder"], got["price"]], 1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def q7_digests(q7) -> dict:
+    """numpy host_digest of each of q7's five states, read back."""
+    from risingwave_tpu_torch import integrity
+
+    host = lambda lanes_live: integrity.host_digest(*integrity.host_lanes(*lanes_live))
+    jl, jr = q7.join.side_digests()
+    return {
+        "left": host(q7.pipeline.left[1].digest_lanes()),
+        "right": host(integrity.agg_lanes(q7.agg.table, q7.agg.state, q7.agg._float_extremes)),
+        "join_left": jl, "join_right": jr,
+        "mv": host(integrity.mv_lanes(q7.mview.table, q7.mview.state)),
+    }
+
+
+def run_q7(torch, dev, host, chunks, fused: bool):
+    """q7 over the chunks (each pushed left, then right), a barrier per
+    epoch, then ``watermark("date_time", max event time so far)``. The
+    barriers, the watermarks and the run are timed (the host reads after
+    each barrier that keep the MV snapshot and, after the last barrier,
+    the five digests are not). Returns the query and a record."""
+    from risingwave_tpu_torch import _kernels
+    from risingwave_tpu_torch.queries.nexmark_q import build_q7
+    from risingwave_tpu_torch.runtime.fused_step import FusedTwoInputExecutor, fuse_pipeline
+
+    q7 = build_q7(capacity=Q7_CAP, fanout=Q7_FANOUT, out_cap=Q7_OUT_CAP, agg_capacity=Q7_CAP,
+                  filter_capacity=Q7_CAP, device=dev)
+    if fused:
+        wrappers = fuse_pipeline(q7.pipeline, label="q7")
+        check(len(wrappers) == 1 and isinstance(wrappers[0], FusedTwoInputExecutor),
+              "q7 fused: one FusedTwoInputExecutor")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    rec = {"barrier_ms": [], "watermark_ms": [], "barrier_launches": [], "flush_rounds": [],
+           "snapshots": []}
+    run_s, max_ts = 0.0, 0
+    for e, (h_ep, c_ep) in enumerate(zip(host, chunks)):
+        t0 = time.perf_counter()
+        for c in c_ep:
+            q7.pipeline.push_left(c)
+            q7.pipeline.push_right(c)
+        before = dict(_kernels.LAUNCHES)
+        tb = time.perf_counter()
+        q7.pipeline.barrier()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rec["barrier_ms"].append((t1 - tb) * 1e3)
+        rec["barrier_launches"].append(sum(_kernels.LAUNCHES.values()) - sum(before.values()))
+        rec["flush_rounds"].append(_kernels.LAUNCHES["agg_flush"] - before["agg_flush"])
+        run_s += t1 - t0
+        if e == len(chunks) - 1:
+            rec["digests_before_last_watermark"] = q7_digests(q7)
+        max_ts = max(max_ts, max(int(c["date_time"].max()) for c in h_ep))
+        tw = time.perf_counter()
+        q7.pipeline.watermark("date_time", max_ts)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rec["watermark_ms"].append((t2 - tw) * 1e3)
+        run_s += t2 - tw
+        rec["snapshots"].append(q7_mv_rows(q7.mview))
+    rec.update(run_s=run_s, launches=dict(_kernels.LAUNCHES),
+               peak=torch.cuda.max_memory_allocated(), max_ts=max_ts)
+    return q7, rec
+
+
+Q7_KERNELS = ("lookup_or_insert", "mv_upsert", "hop_expand", "join_apply", "join_probe",
+              "agg_flush", "dyn_filter", "expire", "expire_join", "expire_agg")
+
+
+def q7_checks(torch, q7, rec, oracle, what: str, n_chunks: int, epochs: int) -> None:
+    """Every q7 run: the final MV equals the oracle, N ran on every
+    filter step and O on every expiry, and after the last watermark
+    every live key of the join's left side lies at or after the
+    cutoff."""
+    from risingwave_tpu_torch.queries.nexmark_q import Q7_WINDOW_MS
+
+    got = rec["snapshots"][-1]
+    check(got.shape == oracle.shape and np.array_equal(got, oracle),
+          f"{what}: MV ({len(got)} rows) vs the q7 actor ({len(oracle)} rows)")
+    launches = rec["launches"]
+    for name in Q7_KERNELS:
+        check(launches[name] > 0, f"kernel {name} launched on {what}'s path")
+    check(launches["dyn_filter"] == n_chunks, f"{what}: N once per filter step")
+    check((launches["expire"], launches["expire_join"], launches["expire_agg"])
+          == (epochs, 2 * epochs, epochs), f"{what}: O once per expiry (filter, join sides, agg)")
+    cutoff = rec["max_ts"] // Q7_WINDOW_MS * Q7_WINDOW_MS  # the hop's window watermark
+    for name, table in (("join left", q7.join.left.table), ("join right", q7.join.right.table),
+                        ("filter", q7.pipeline.left[1].table), ("agg", q7.agg.table)):
+        live = table.live
+        check(bool(live.any()), f"{what}: {name} keeps the open windows")
+        check(bool((table.keys[0][live] >= cutoff).all()),
+              f"{what}: {name} holds no key below the last watermark")
+
+
+def q7_row(phase, host, q7, rec) -> dict:
+    bids = sum(len(c["auction"]) for ep in host for c in ep)
+    return {
+        "phase": phase, "epochs": len(host), "events": len(host) * EVENTS_PER_EPOCH,
+        "bids": bids, "chunks": sum(len(ep) for ep in host), "chunk_capacity": Q7_CHUNK_EVENTS,
+        "bids_per_s": bids / rec["run_s"], "run_s": rec["run_s"],
+        "barrier_ms_p50": float(np.percentile(rec["barrier_ms"], 50)),
+        "barrier_ms_p99": float(np.percentile(rec["barrier_ms"], 99)),
+        "barrier_ms": rec["barrier_ms"], "watermark_ms": rec["watermark_ms"],
+        "watermark_ms_p50": float(np.percentile(rec["watermark_ms"], 50)),
+        "launches_per_barrier": rec["barrier_launches"],
+        "flush_rounds_per_barrier": rec["flush_rounds"],
+        "expiry_passes": sum(rec["launches"][k] for k in ("expire", "expire_join", "expire_agg")),
+        "capacity": {"filter": q7.pipeline.left[1].table.capacity,
+                     "agg": q7.agg.table.capacity, "join_left": q7.join.left.capacity,
+                     "join_right": q7.join.right.capacity, "mv": q7.mview.table.capacity},
+        "fanout": q7.join.left.fanout, "out_cap": q7.join.out_cap,
+        "mv_rows": int(len(rec["snapshots"][-1])),
+        "max_memory_allocated": int(rec["peak"]), "launches": rec["launches"],
+    }
+
+
+def q7_path(torch, dev, epochs: int):
+    """Phase 9: q7 interpreted at bench_q7's sizes, a watermark after
+    every barrier, its final MV against the q7 actor of bench.py (its
+    vectorized form over the whole stream, held equal to the copy on the
+    first two epochs)."""
+    from risingwave_tpu_torch.queries.nexmark_q import Q7_WINDOW_MS
+
+    t0 = time.perf_counter()
+    host, chunks = q7_stream(torch, dev, epochs)
+    first = [c for ep in host[:2] for c in ep]
+    check(np.array_equal(actor_rows(cpu_actor_q7(first, Q7_WINDOW_MS)),
+                         q7_oracle_rows(first, Q7_WINDOW_MS)),
+          "q7 oracle: vectorized form = the actor's copy on the first two epochs")
+    oracle = q7_oracle_rows([c for ep in host for c in ep], Q7_WINDOW_MS)
+    setup_s = time.perf_counter() - t0
+    n_chunks = sum(len(ep) for ep in chunks)
+    q7, rec = run_q7(torch, dev, host, chunks, fused=False)
+    q7_checks(torch, q7, rec, oracle, "q7", n_chunks, epochs)
+    row = q7_row("q7", host, q7, rec)
+    row.update(setup_s=setup_s, oracle="bench.py's cpu_actor_q7 (copied; vectorized over the "
+               "stream, equal to the copy on the first two epochs): equal")
+    return row, rec["launches"], (host, chunks, q7, rec, oracle)
+
+
+def q7_fused_path(torch, dev, host, chunks, interp, oracle):
+    """Phase 10: q7 through ``fuse_pipeline``: one program per barrier
+    (left E, A, N, M, A, L and A, D per chunk; right E, F, A, G over the
+    epoch; then the agg's flush rounds, each C, M, A, L, A, D; then five
+    H), run under ``no_device_reads``; the watermark outside it."""
+    check_sync_guard(torch, dev)
+    interp_q7, interp_rec = interp
+    n_chunks = sum(len(ep) for ep in chunks)
+    q7, rec = run_q7(torch, dev, host, chunks, fused=True)
+    w = q7.pipeline._fused
+    q7_checks(torch, q7, rec, oracle, "q7 fused", n_chunks, len(chunks))
+    for e, (a, b) in enumerate(zip(rec["snapshots"], interp_rec["snapshots"])):
+        check(np.array_equal(a, b), f"q7 fused: MV vs phase 9's MV at barrier {e}")
+    lane_digests = rec["digests_before_last_watermark"]
+    check(w.last_digests == lane_digests,
+          f"q7 fused: staged digests {w.last_digests} vs host_digest {lane_digests}")
+    check(lane_digests == interp_rec["digests_before_last_watermark"],
+          "q7 fused: digests vs phase 9's state")
+    check(rec["launches"]["state_digest"] > 0, "kernel state_digest launched on q7's fused path")
+    tel = w.last_telemetry
+    check(tel["rows_left"] == tel["rows_right"] == sum(len(c["auction"]) for c in host[-1]),
+          "q7 fused: rows_left = rows_right = the last epoch's bids")
+    check(tel["join_rows"] == tel["mv_rows"], "q7 fused: every join row reached the MV")
+    row = q7_row("q7_fused", host, q7, rec)
+    row.update(
+        last_telemetry=tel, digests={k: f"{v:016x}" for k, v in lane_digests.items()},
+        sync_guard="set_sync_debug_mode('error') over the program part of every barrier: held",
+        oracle="q7 actor and phase 9's MV at every barrier: equal; staged digests = "
+               "host_digest of the lanes read back = host_digest of phase 9's state",
+    )
+    return row, rec["launches"], q7
+
+
+def profile_q7(torch, dev, host, chunks, epochs: int, fused: bool):
+    """Phase 9's (or, ``fused``, phase 10's) run profiled on a fresh q7
+    over the same chunks, the watermark included in each epoch."""
+    from risingwave_tpu_torch.queries.nexmark_q import build_q7
+    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline
+
+    q7 = build_q7(capacity=Q7_CAP, fanout=Q7_FANOUT, out_cap=Q7_OUT_CAP, agg_capacity=Q7_CAP,
+                  filter_capacity=Q7_CAP, device=dev)
+    if fused:
+        fuse_pipeline(q7.pipeline, label="q7")
+    max_ts = {e: max(int(c["date_time"].max()) for ep in host[:e + 1] for c in ep)
+              for e in range(len(host))}
+
+    def push(pipeline, ec):
+        for c in ec[1]:
+            pipeline.push_left(c)
+            pipeline.push_right(c)
+
+    def after(pipeline, ec):
+        pipeline.watermark("date_time", max_ts[ec[0]])
+
+    row = profile_epochs(torch, "q7_fused_profile" if fused else "q7_profile", q7.pipeline, push,
+                         list(enumerate(chunks)), epochs, after=after)
+    row["bids"] = sum(len(c["auction"]) for ep in host[1:1 + epochs] for c in ep)
+    return row
+
+
 # -- phase 4: the interpreted path --------------------------------------------
 def state_cap(expected_rows: int, floor: int) -> int:
     """Capacity whose growth margin covers the expected volume (the
@@ -1673,29 +2279,35 @@ def main_path(torch, dev, epochs: int):
     }, launches, (chunks, cap, q5, (a, w, c))
 
 
-def profile_epochs(torch, phase: str, pipeline, push, epochs_data, epochs: int) -> dict:
+def profile_epochs(torch, phase: str, pipeline, push, epochs_data, epochs: int,
+                   after=None) -> dict:
     """Where the time goes: one warm-up epoch, then ``epochs`` under
-    ``torch.profiler``, each ``push(pipeline, epoch)`` then a barrier.
-    Wall time of the window, device time summed over its kernels and
-    copies, the device's idle share, the host time of the pushes and
-    barriers, and the device time by kernel name."""
+    ``torch.profiler``, each ``push(pipeline, epoch)``, a barrier, then
+    ``after(pipeline, epoch)`` if given (q7's watermark). Wall time of
+    the window, device time summed over its kernels and copies, the
+    device's idle share, the host time of the pushes, barriers and
+    ``after`` calls, and the device time by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     check(len(epochs_data) > epochs, "profile: more epochs than the path ran")
-    host = {"push_s": 0.0, "barrier_s": 0.0}
+    host = {"push_s": 0.0, "barrier_s": 0.0, "after_s": 0.0}
 
     def run(ep):
         t0 = time.perf_counter()
         push(pipeline, ep)
         t1 = time.perf_counter()
         pipeline.barrier()
+        t2 = time.perf_counter()
+        if after is not None:
+            after(pipeline, ep)
         host["push_s"] += t1 - t0
-        host["barrier_s"] += time.perf_counter() - t1
+        host["barrier_s"] += t2 - t1
+        host["after_s"] += time.perf_counter() - t2
 
     run(epochs_data[0])
     torch.cuda.synchronize()
-    host.update(push_s=0.0, barrier_s=0.0)
+    host.update(push_s=0.0, barrier_s=0.0, after_s=0.0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for ep in epochs_data[1 : 1 + epochs]:
@@ -1716,6 +2328,7 @@ def profile_epochs(torch, phase: str, pipeline, push, epochs_data, epochs: int) 
         "device_ms": device_ms if measured else "not measured",
         "device_idle_share": 1 - device_ms / (wall_s * 1e3) if measured else "not measured",
         "host_push_ms": host["push_s"] * 1e3, "host_barrier_ms": host["barrier_s"] * 1e3,
+        "host_after_barrier_ms": host["after_s"] * 1e3,
         "device_ms_by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:15]),
     }
 
@@ -1938,6 +2551,17 @@ def main() -> int:
     lr_row = kernel_l_regrow(torch, dev, rng)
     emit({"phase": "kernel", **lr_row})
     torch.cuda.empty_cache()
+    # q7's chunks (8,192 rows), and a 65,536-row chunk
+    n_row = kernel_n(torch, dev, rng, Q7_CHUNK_EVENTS)
+    big = kernel_n(torch, dev, rng, CHUNK_EVENTS)
+    n_row["chunk_65536"] = {k: big[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                "max_abs_err", "shape")}
+    emit({"phase": "kernel", **n_row})
+    torch.cuda.empty_cache()
+    o_rows = kernel_o(torch, dev, rng)
+    for r in o_rows:
+        emit({"phase": "kernel", **r})
+    torch.cuda.empty_cache()
 
     q5_row, l4, (chunks, cap, interp_q5, oracle) = main_path(torch, dev, EPOCHS)
     emit(q5_row)
@@ -1968,15 +2592,32 @@ def main() -> int:
     if args.profile:
         torch.cuda.empty_cache()
         emit(profile_q8(torch, dev, q8_chunks, args.profile, fused=True))
+    del q8_chunks, host
+    torch.cuda.empty_cache()
+
+    q7_row9, l9, (q7_host, q7_chunks, interp_q7, interp_rec, q7_oracle) = q7_path(torch, dev,
+                                                                                 EPOCHS)
+    emit(q7_row9)
+    if args.profile:
+        emit(profile_q7(torch, dev, q7_host, q7_chunks, args.profile, fused=False))
+        torch.cuda.empty_cache()
+    q7_row10, l10, fused_q7 = q7_fused_path(torch, dev, q7_host, q7_chunks,
+                                            (interp_q7, interp_rec), q7_oracle)
+    emit(q7_row10)
+    del interp_q7, fused_q7
+    if args.profile:
+        torch.cuda.empty_cache()
+        emit(profile_q7(torch, dev, q7_host, q7_chunks, args.profile, fused=True))
 
     rows = [(a_row, "lookup_or_insert"), (b_row, "agg_apply"), (c_row, "agg_flush"),
             (d_row, "mv_upsert"), (e_row, "hop_expand"), (f_row, "reduce_by_key"),
             (g_row, "apply_reduced"), (h_row, "state_digest"), (hj_row, "state_digest"),
             (i_row, "slot_move"), (j_row, "dedup_emit"), (l_row, "join_apply"),
-            (lr_row, "join_regrow"), (m_row, "join_probe")]
-    paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8}
+            (lr_row, "join_regrow"), (m_row, "join_probe"), (n_row, "dyn_filter"),
+            (o_rows[0], "expire"), (o_rows[1], "expire_join"), (o_rows[2], "expire_agg")]
+    paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8, "q7": l9, "q7_fused": l10}
     for row, key in rows:
-        # each main path's run counts from zero: phases 4, 6, 7 and 8
+        # each main path's run counts from zero: phases 4, 6, 7, 8, 9 and 10
         row["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -10,7 +10,7 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
-A, C, D, E, F, G, H, J, L and M (an entry point may launch several
+A, C, D, E, F, G, H, J, L, M, N and O (an entry point may launch several
 kernels in order on the stream), two per call of B (the apply and its
 set_live), one per 24 lanes moved by a call of I; the entry points of
 ``ENTRY_KEYS`` count under their own names.
@@ -49,6 +49,8 @@ SOURCES = {
     "dedup_emit": "dedup_emit.cu",
     "join_apply": "join_apply.cu",
     "join_probe": "join_probe.cu",
+    "dyn_filter": "dyn_filter.cu",
+    "expire": "expire.cu",
 }
 
 # C entry points: (argtypes,) — every pointer and the stream as c_void_p
@@ -96,6 +98,14 @@ SIGNATURES = {
         "rw_join_probe": [_P, _I, _L, _P, _P, _P, _P, _P, _L, _P, _I, _P, _I, _I]
         + [_P] * 7 + [_P],
     },
+    "dyn_filter": {
+        "rw_dyn_filter": [_L, _P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _P, _P, _P, _P],
+    },
+    "expire": {
+        "rw_expire_keys": [_L, _P, _P, _I, _L, _P, _P],
+        "rw_expire_join": [_L, _P, _P, _I, _L, _P, _P, _P, _I, _P],
+        "rw_expire_agg": [_L, _P, _P, _I, _L, _P, _P, _P, _P, _I, _P, _I, _P],
+    },
 }
 
 # rows per block of reduce_by_key, which sizes its scratch
@@ -105,6 +115,9 @@ RBK_TILE = 2048
 DIGEST_BLOCKS = 1024
 # lanes one slot_move launch takes (csrc/slot_move.cu SM_MAX_LANES)
 SLOT_MOVE_LANES = 24
+# accumulator and non-null lanes one rw_expire_agg call takes
+# (csrc/expire.cu EX_MAX_LANES less its four fixed lanes)
+EXPIRE_AGG_LANES = 20
 
 # lane dtype codes shared with csrc/common.cuh (RwDType)
 DTYPE_CODES = {
@@ -117,11 +130,14 @@ DTYPE_CODES = {
 
 # entry points counted apart from their library's main entry: they are
 # not on a main path at every size (a lookup alone, a first-occurrence
-# mask alone, a join side's rebuild)
+# mask alone, a join side's rebuild), or one state kind's expiry of
+# kernel O (its key-table entry counts as "expire")
 ENTRY_KEYS = {
     "rw_lookup": "lookup",
     "rw_first_occurrence": "first_occurrence",
     "rw_join_regrow": "join_regrow",
+    "rw_expire_join": "expire_join",
+    "rw_expire_agg": "expire_agg",
 }
 
 LAUNCHES = {name: 0 for name in (*SOURCES, *ENTRY_KEYS.values())}

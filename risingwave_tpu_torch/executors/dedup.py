@@ -1,7 +1,8 @@
 """Append-only dedup executor — streaming DISTINCT on a key.
 
 Port of ``risingwave_tpu/executors/dedup.py`` (``dedup_step_fn`` :47,
-``_rebuild`` :71, ``AppendOnlyDedupExecutor`` :82). Reference:
+``_rebuild`` :71, ``AppendOnlyDedupExecutor`` :82, its ``on_watermark``
+:284). Reference:
 src/stream/src/executor/dedup/append_only_dedup.rs — emits each key's
 FIRST row and drops later duplicates; the state is the set of seen keys.
 
@@ -9,9 +10,10 @@ The seen-set is a ``HashTable``: per chunk, kernel A finds or inserts
 the keys, then kernel J (``csrc/dedup_emit.cu``) marks the new slots
 live and sdirty and keeps the first row per new slot. Append-only by
 contract: a DELETE latches ``saw_delete`` and raises at the barrier.
-State is updated in place. Watermark state cleaning of the seen-set and
-checkpoint/restore are not ported yet: a watermark on ``window_key``
-raises NotImplementedError.
+State is updated in place. A watermark on ``window_key`` expires the
+closed keys of the seen-set (kernel O, ``ops.hash_table.expire_table``).
+``KeyTableGrowth`` holds the growth and barrier bookkeeping that the
+dynamic max filter shares. Checkpoint/restore is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from risingwave_tpu_torch.executors.base import Executor, Watermark
 from risingwave_tpu_torch.ops.hash_table import (
     HashTable,
     _first_occurrence_torch,
+    expire_table,
     first_scratch,
     lookup_or_insert,
     move_slots,
@@ -110,14 +113,85 @@ def _rebuild(table: HashTable, sdirty, stored, new_cap: int):
     return new, new_sdirty, new_stored
 
 
-class AppendOnlyDedupExecutor(Executor):
+class KeyTableGrowth:
+    """Growth and barrier bookkeeping shared by the executors whose state
+    is one key table with slot lanes and a ``(saw_delete, dropped)``
+    latch pair: the append-only dedup and the dynamic max filter.
+
+    The owner holds ``table``, ``sdirty``, ``_buckets``, ``_bound``,
+    ``_occ_note``, ``_grew_midepoch``, ``_saw_delete`` and ``_dropped``,
+    implements ``_rebuild_to(new_cap)`` and names its two barrier errors
+    in ``_DELETE_ERROR`` and ``_DROPPED_ERROR``."""
+
+    _DELETE_ERROR = ""
+    _DROPPED_ERROR = ""
+
+    def _grow_hint(self, incoming: int) -> None:
+        """The fused program's pre-dispatch growth bookkeeping, with no
+        device read: at most one one-bucket bump per epoch, as
+        headroom against MAX_PROBE; ordinary growth resolves at the
+        barrier from the staged occupancy note."""
+        cap = self.table.capacity
+        self._bound = min(self._bound, cap)
+        if self._grew_midepoch or self._bound + incoming <= cap * HARD_GROW_AT:
+            return
+        new_cap = self._buckets.bump(cap)
+        if new_cap is not None:
+            self._rebuild_to(new_cap)
+            self._bound = min(self._bound, new_cap)
+        self._grew_midepoch = True
+
+    def _maybe_grow(self, incoming: int) -> None:
+        """Interpreted-path growth: when the trigger trips, one packed
+        blocking read of the true occupancy, then the plan."""
+        cap = self.table.capacity
+        if not self._buckets.should_plan(cap, self._bound, incoming):
+            return
+        claimed, surv = read_scalars(self.table.occupancy(), survivors(self.table, self.sdirty))
+        new_cap = self._buckets.plan(cap, incoming, claimed, surv)
+        if new_cap is not None:
+            self._rebuild_to(new_cap)
+            claimed = int(self.table.occupancy())
+        self._bound = claimed
+
+    def on_barrier(self, barrier) -> List[StreamChunk]:
+        self._staged_scalars = stage_scalars(
+            self._saw_delete, self._dropped, self.table.occupancy(),
+            survivors(self.table, self.sdirty),
+        )
+        if barrier is None:  # direct drive: checks fire inline
+            self.finish_barrier()
+        return []
+
+    def _on_barrier_scalars(self, vals) -> None:
+        saw_delete, dropped, claimed, surv = vals
+        self._grew_midepoch = False
+        epoch_inc = max(self._bound - self._occ_note, 0)
+        self._occ_note = int(claimed)
+        self._bound = int(claimed)
+        cap = self.table.capacity
+        self._buckets.note_barrier(cap, int(claimed))
+        new_cap = self._buckets.plan(
+            cap, 0, int(claimed), int(surv), margin=max(int(claimed), epoch_inc)
+        )
+        if new_cap is not None and new_cap != cap:
+            self._rebuild_to(new_cap)
+        if saw_delete:
+            raise RuntimeError(self._DELETE_ERROR)
+        if dropped:
+            raise RuntimeError(self._DROPPED_ERROR)
+
+
+class AppendOnlyDedupExecutor(KeyTableGrowth, Executor):
     """DISTINCT ON (keys): the first row per key passes, duplicates drop.
 
-    ``window_key``: (column, retention_ms) as in the reference, kept for
-    the plan; a watermark on that column raises NotImplementedError
-    until watermark state cleaning is ported. The seen-set's capacity
-    walks the bucket lattice (the reference's unbucketed twin is not
-    ported)."""
+    ``window_key``: (column, retention_ms) as in the reference: a
+    watermark on that column expires every key whose column lies below
+    ``value - retention_ms``. The seen-set's capacity walks the bucket
+    lattice (the reference's unbucketed twin is not ported)."""
+
+    _DELETE_ERROR = "append-only dedup received a DELETE"
+    _DROPPED_ERROR = "dedup table overflowed MAX_PROBE; grow capacity"
 
     def __init__(
         self,
@@ -160,72 +234,18 @@ class AppendOnlyDedupExecutor(Executor):
         )
         return [out]
 
-    def _set_state(self, table, sdirty, stored) -> None:
-        self.table, self.sdirty, self.stored = table, sdirty, stored
-        self.scratch = first_scratch(table.capacity, table.device)
-
-    def _grow_hint(self, incoming: int) -> None:
-        """The fused program's pre-dispatch growth bookkeeping, with no
-        device read: at most one one-bucket bump per epoch, as
-        headroom against MAX_PROBE; ordinary growth resolves at the
-        barrier from the staged occupancy note."""
-        cap = self.table.capacity
-        self._bound = min(self._bound, cap)
-        if self._grew_midepoch or self._bound + incoming <= cap * HARD_GROW_AT:
-            return
-        new_cap = self._buckets.bump(cap)
-        if new_cap is not None:
-            self._set_state(*_rebuild(self.table, self.sdirty, self.stored, new_cap))
-            self._bound = min(self._bound, new_cap)
-        self._grew_midepoch = True
-
-    def _maybe_grow(self, incoming: int) -> None:
-        """Interpreted-path growth: when the trigger trips, one packed
-        blocking read of the true occupancy, then the plan."""
-        cap = self.table.capacity
-        if not self._buckets.should_plan(cap, self._bound, incoming):
-            return
-        claimed, surv = read_scalars(self.table.occupancy(), survivors(self.table, self.sdirty))
-        new_cap = self._buckets.plan(cap, incoming, claimed, surv)
-        if new_cap is not None:
-            self._set_state(*_rebuild(self.table, self.sdirty, self.stored, new_cap))
-            claimed = int(self.table.occupancy())
-        self._bound = claimed
-
-    def on_barrier(self, barrier) -> List[StreamChunk]:
-        self._staged_scalars = stage_scalars(
-            self._saw_delete, self._dropped, self.table.occupancy(),
-            survivors(self.table, self.sdirty),
+    def _rebuild_to(self, new_cap: int) -> None:
+        self.table, self.sdirty, self.stored = _rebuild(
+            self.table, self.sdirty, self.stored, new_cap
         )
-        if barrier is None:  # direct drive: checks fire inline
-            self.finish_barrier()
-        return []
-
-    def _on_barrier_scalars(self, vals) -> None:
-        saw_delete, dropped, claimed, surv = vals
-        self._grew_midepoch = False
-        epoch_inc = max(self._bound - self._occ_note, 0)
-        self._occ_note = int(claimed)
-        self._bound = int(claimed)
-        cap = self.table.capacity
-        self._buckets.note_barrier(cap, int(claimed))
-        new_cap = self._buckets.plan(
-            cap, 0, int(claimed), int(surv), margin=max(int(claimed), epoch_inc)
-        )
-        if new_cap is not None and new_cap != cap:
-            self._set_state(*_rebuild(self.table, self.sdirty, self.stored, new_cap))
-        if saw_delete:
-            raise RuntimeError("append-only dedup received a DELETE")
-        if dropped:
-            raise RuntimeError("dedup table overflowed MAX_PROBE; grow capacity")
+        self.scratch = first_scratch(new_cap, self.table.device)
 
     def on_watermark(self, watermark: Watermark):
         if self.window_key is None or watermark.column != self.window_key[0]:
             return watermark, []
-        raise NotImplementedError(
-            "watermark state cleaning of the dedup seen-set is not ported yet; "
-            "build the query with state_cleaning=False"
-        )
+        col, retention = self.window_key
+        expire_table(self.table, self.sdirty, self.keys.index(col), watermark.value - retention)
+        return watermark, []
 
     # -- integrity --------------------------------------------------------
     def digest_lanes(self):

@@ -4,7 +4,8 @@ Port of ``risingwave_tpu/executors/hash_agg.py`` (``_build_key_lanes``
 :61, ``agg_step_fn`` :108, ``_agg_scan`` :169, ``_epoch_reduced_fn``
 :190, ``_rehash`` :268, ``delta_to_chunk`` :414,
 ``HashAggExecutor.apply`` :636, ``apply_stacked`` :678, ``_maybe_grow``
-:760, the barrier latch checks :800-870, ``_flush_all`` :1029).
+:760, the barrier latch checks :800-870, ``_flush_all`` :1029,
+``cleaning_watermarks`` :1055, ``on_watermark`` :1085, ``_expire`` :393).
 Reference: src/stream/src/executor/hash_agg.rs:62 — apply_chunk (:326)
 updates each row's group by its sign; flush_data (:406) emits
 I / (U-, U+) / D per dirty group at the barrier.
@@ -21,11 +22,13 @@ host from ``_dirty_bound``, with no read). The host grows the table
 from an insert bound and the occupancy read at each barrier; a rebuild
 re-inserts the kept keys (kernel A) and moves their lanes (kernel I).
 
+A watermark on the ``window_key`` column closes the groups below it
+(kernel O): emit-on-window-close (``emit_deletes=False``) flushes the
+dirty groups first and then frees the closed ones silently; otherwise
+they are reset and retracted at the next flush.
+
 Not ported yet: the materialized MIN/MAX (minput, so the barrier's
-``mi_bad`` latch is a constant zero), the cold tier, checkpointing and
-watermark state cleaning. A watermark on a ``window_key`` raises
-NotImplementedError rather than being ignored, since ignoring it would
-give a different result.
+``mi_bad`` latch is a constant zero), the cold tier and checkpointing.
 """
 
 from __future__ import annotations
@@ -183,6 +186,14 @@ def _rehash(table: HashTable, state: AggState, calls, new_cap: int, float_extrem
     return new_table, new_state
 
 
+def _expire(table: HashTable, state: AggState, cutoff: int, calls, key_index: int,
+            emit_deletes: bool, float_extremes: tuple = ()) -> None:
+    """Close every live group whose window-key lane < cutoff, in place:
+    retracted (``delete_groups``) with ``emit_deletes``, else forgotten
+    (``forget_groups``). Kernel O on the card."""
+    agg_ops.expire_groups(table, state, calls, key_index, cutoff, emit_deletes, float_extremes)
+
+
 def delta_to_chunk(
     delta: dict,
     group_keys: Tuple[str, ...],
@@ -221,7 +232,7 @@ class HashAggExecutor(Executor):
       out_cap: max dirty groups emitted per flush round.
       nullable_keys: subset of group_keys that can carry SQL NULL.
       window_key: (column, retention_ms, emit_deletes) for watermark
-        state cleaning — not ported yet: such a watermark raises.
+        state cleaning.
       device: where the state lives (default "cuda").
     """
 
@@ -394,7 +405,37 @@ class HashAggExecutor(Executor):
     def on_watermark(self, watermark: Watermark):
         if self.window_key is None or watermark.column != self.window_key[0]:
             return watermark, []
-        raise NotImplementedError(
-            "watermark state cleaning is not ported yet; build the plan "
-            "without a window_key (build_q5_lite(state_cleaning=False))"
-        )
+        colname, retention, emit_deletes = self.window_key
+        outs: List[StreamChunk] = []
+        if not emit_deletes:
+            # emit-on-window-close frees state silently: the dirty
+            # groups' pending updates must reach downstream first
+            outs = self._flush_all()
+        cutoff = watermark.value - retention
+        key_index = self._key_lane_index(colname)
+        # the storage-side skip watermark (state_table.rs:1133): the
+        # checkpoint's compaction drops keys below it
+        self._cleaning_watermark = (f"k{key_index}", cutoff)
+        if emit_deletes:
+            # a retracting expiry can dirty every live group; the host
+            # cannot count them without a read, so bound by capacity
+            self._dirty_bound = self.table.capacity
+        _expire(self.table, self.state, cutoff, self.calls, key_index, emit_deletes,
+                self._float_extremes)
+        return watermark, outs
+
+    def cleaning_watermarks(self):
+        """[(table_id, storage key name, cutoff)] of the last window
+        watermark (the checkpoint's skip-watermark compaction)."""
+        wm = getattr(self, "_cleaning_watermark", None)
+        return [(self.table_id, wm[0], wm[1])] if wm else []
+
+    def _key_lane_index(self, name: str) -> int:
+        """Index of a group key's value lane in the table's key tuple
+        (null lanes of earlier nullable keys shift later lanes)."""
+        i = 0
+        for k, nb in zip(self.group_keys, self.nullable):
+            if k == name:
+                return i
+            i += 2 if nb else 1
+        raise KeyError(f"{name!r} is not a group key")

@@ -2,8 +2,8 @@
 
 Port of the inner-join part of ``risingwave_tpu/executors/hash_join.py``
 (``join_step_fn`` :91, ``HashJoinExecutor`` :290, ``_plan_side_at_barrier``
-:809, ``_on_barrier_scalars`` :832, ``_join_digest_lanes`` and
-``_join_state_digest`` :1102-1130). Reference:
+:809, ``_on_barrier_scalars`` :832, ``on_watermark`` :858,
+``_join_digest_lanes`` and ``_join_state_digest`` :1102-1130). Reference:
 src/stream/src/executor/hash_join.rs:129 — each arriving chunk probes
 the other side, emitting one row per (probe row, stored match) with the
 probe row's sign, then updates its own side's multiset state.
@@ -12,9 +12,10 @@ Per chunk: kernel M probes the other side and compacts the pairs into a
 fixed ``out_cap`` chunk, then kernels A and L fold the chunk into its
 own side (``ops/join.py``). Latches (bucket overflow, inconsistent
 deletes, emission overflow) stay on the device and raise at the barrier.
-Only ``join_type="inner"`` is ported: the degree-driven outer, semi and
-anti joins (``degree_apply``), watermark state cleaning, the cold tier
-and checkpoint/restore are not, and raise NotImplementedError.
+A watermark on a window column expires that side's closed keys (kernel
+O). Only ``join_type="inner"`` is ported: the degree-driven outer, semi
+and anti joins (``degree_apply``) raise NotImplementedError; the cold
+tier and checkpoint/restore are not ported.
 """
 
 from __future__ import annotations
@@ -27,7 +28,14 @@ from risingwave_tpu_torch import integrity, resolve_device
 from risingwave_tpu_torch.array.chunk import StreamChunk
 from risingwave_tpu_torch.executors.base import Executor, Watermark
 from risingwave_tpu_torch.ops.hash_table import read_scalars, stage_scalars
-from risingwave_tpu_torch.ops.join import JoinSide, apply_side, probe_pairs, regrow, survivors
+from risingwave_tpu_torch.ops.join import (
+    JoinSide,
+    apply_side,
+    expire_keys,
+    probe_pairs,
+    regrow,
+    survivors,
+)
 from risingwave_tpu_torch.runtime.bucketing import BucketAllocator, BucketPolicy
 
 GROW_AT = 0.5
@@ -83,9 +91,8 @@ class HashJoinExecutor(Executor):
     side's key-table capacity, ``fanout`` the per-key row bound,
     ``out_cap`` the rows of one emission chunk. Each side's capacity
     walks its own bucket lattice (the reference's unbucketed twin is not
-    ported). ``window_cols`` is kept for the plan; a watermark on either
-    raises NotImplementedError until watermark state cleaning is
-    ported."""
+    ported). ``window_cols`` = (left column, right column): a watermark
+    on either expires that side's keys below it."""
 
     def __init__(
         self,
@@ -138,6 +145,7 @@ class HashJoinExecutor(Executor):
         self._occ_note = {"l": 0, "r": 0}  # true claimed at the last barrier
         self._grew_midepoch = {"l": False, "r": False}  # one bump per epoch
         self._em_overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+        self._wm = {"l": None, "r": None, "out": None}
 
     def side(self, s: str) -> JoinSide:
         return self.left if s == "l" else self.right
@@ -250,12 +258,27 @@ class HashJoinExecutor(Executor):
                 )
 
     def on_watermark(self, watermark: Watermark):
+        """Expire the matching side's closed windows (kernel O); emit a
+        downstream watermark on the left window column once both sides
+        passed a new minimum (per-input watermark alignment: the output
+        watermark is the minimum over the inputs)."""
         if self.window_cols is None or watermark.column not in self.window_cols:
             return watermark, []
-        raise NotImplementedError(
-            "watermark state cleaning of the join sides is not ported yet; "
-            "build the query with state_cleaning=False"
-        )
+        s = "l" if watermark.column == self.window_cols[0] else "r"
+        pos = self._key_index(s, self.window_cols[0 if s == "l" else 1])
+        self._set_side(s, expire_keys(self.side(s), pos, watermark.value))
+        self._wm[s] = watermark.value
+        if self._wm["l"] is None or self._wm["r"] is None:
+            return None, []
+        aligned = min(self._wm["l"], self._wm["r"])
+        if self._wm["out"] is not None and aligned <= self._wm["out"]:
+            return None, []
+        self._wm["out"] = aligned
+        return Watermark(self.window_cols[0], aligned), []
+
+    def _key_index(self, side: str, name: str) -> int:
+        keys = self.left_keys if side == "l" else self.right_keys
+        return keys.index(name)
 
     # -- integrity --------------------------------------------------------
     def digest_lanes(self):

@@ -5,9 +5,9 @@ Port of the digest half of ``risingwave_tpu/integrity.py`` (``GOLD``
 :52, ``U64_MASK`` :55, ``crc32_bytes`` :151, the numpy fold
 ``lane_seed``/``_np_slot_words``/``_np_mix``/``host_digest`` :268-310,
 ``device_digest`` :329, ``digest_from_scalar`` :371, ``agg_lanes``
-:386, ``mv_lanes`` :404, ``dedup_lanes`` :414, ``join_side_lanes``
-:426). Checkpoint envelopes, quarantine and ``StateCorruption`` are not
-ported yet.
+:386, ``mv_lanes`` :404, ``dedup_lanes`` :414, ``filter_lanes``
+:419, ``join_side_lanes`` :426). Checkpoint envelopes, quarantine and
+``StateCorruption`` are not ported yet.
 
 The contract, shared by every fold here and by the reference:
 
@@ -296,6 +296,13 @@ def dedup_lanes(table) -> Tuple[dict, torch.Tensor]:
     """Append-only dedup: the seen-set is the state — its key lanes,
     live slots."""
     return {f"k{i}": k for i, k in enumerate(table.keys)}, table.live
+
+
+def filter_lanes(table, maxes) -> Tuple[dict, torch.Tensor]:
+    """DynamicMaxFilter: key lanes + per-key max, live slots."""
+    lanes = {f"k{i}": k for i, k in enumerate(table.keys)}
+    lanes["max"] = maxes
+    return lanes, table.live
 
 
 def join_side_lanes(side) -> Tuple[dict, torch.Tensor]:

@@ -1,7 +1,8 @@
 """Grouped aggregation state — the core of HashAgg.
 
 Port of ``risingwave_tpu/ops/agg.py`` (:60-257 state and helpers,
-``apply`` :257-332, ``flush`` :597-705). Reference roles:
+``apply`` :257-332, ``_reset_groups``/``delete_groups``/``forget_groups``
+:533-595, ``flush`` :597-705). Reference roles:
 src/stream/src/executor/hash_agg.rs:326 (apply_chunk) and :406
 (flush_data), executor/aggregation/{agg_group,agg_state}.rs.
 
@@ -12,8 +13,10 @@ interleaved (old, new) delta per barrier round (kernel C,
 ``csrc/agg_flush.cu``). The epoch path pre-reduces a whole epoch's rows
 by key first (``reduce_by_key``, kernel F, ``csrc/reduce_by_key.cu``)
 and then scatters one row per distinct key (``apply_reduced``, kernel
-G, ``csrc/apply_reduced.cu``). Everything that takes a state updates it
-IN PLACE.
+G, ``csrc/apply_reduced.cu``). Watermark expiry (``expire_groups``:
+the reference executor's ``_expire`` with ``_reset_groups``) resets
+closed groups (kernel O, ``csrc/expire.cu``). Everything that takes a
+state updates it IN PLACE.
 
 Semantics as the reference: SUM/MIN/MAX over only-NULL inputs is NULL
 (a per-call non-null counter); MIN/MAX are append-only and a retraction
@@ -33,6 +36,7 @@ import torch
 from risingwave_tpu_torch import _kernels, resolve_device
 from risingwave_tpu_torch.array.chunk import to_device
 from risingwave_tpu_torch.ops import hashing
+from risingwave_tpu_torch.ops.hash_table import expired_slots, expiry_key_args
 from risingwave_tpu_torch.types import Op
 
 KINDS = ("count_star", "count", "sum", "min", "max")
@@ -113,7 +117,8 @@ def order_key_to_reference_lane(key: torch.Tensor, float_dtype: torch.dtype) -> 
     unsigned lane's bits held in the signed dtype of its width (int32
     for a float32 key, int64 for a float64 one)."""
     if float_dtype == torch.float32:
-        return key.contiguous().view(torch.int32).reshape(-1, 2)[:, 0]  # low word
+        # the low word, as a lane of its own (kernel H takes contiguous lanes)
+        return key.contiguous().view(torch.int32).reshape(-1, 2)[:, 0].contiguous()
     return key ^ _SIGN64
 
 
@@ -650,6 +655,122 @@ def _apply_reduced_cuda(state, calls, slots, rep_valid, w, reduced, minmax_ret, 
         w.data_ptr(), state.row_count.data_ptr(), state.dirty.data_ptr(), state.sdirty.data_ptr(),
         minmax_ret.data_ptr(), state.minmax_retracted.data_ptr(),
         0 if live is None else live.data_ptr(),
+    )
+
+
+def _reset_groups(
+    state: AggState,
+    calls: Tuple[AggCall, ...],
+    slots: torch.Tensor,
+    *,
+    mark_dirty: bool,
+    float_extremes: tuple = (),
+) -> AggState:
+    """Zero out groups' accumulators in place (``ops/agg.py:533``);
+    ``slots`` -1 writes nothing. Plain PyTorch, CPU only (on the card
+    the expiry's kernel O does this, ``expire_groups``).
+
+    ``mark_dirty=True`` (delete_groups): the next flush emits a Delete
+    for each previously emitted group — windowed retraction.
+    ``mark_dirty=False`` (forget_groups): silent finalisation — the
+    flush emits nothing and downstream keeps the last emitted row as the
+    window's final result (emit-on-window-close). Callers must flush
+    dirty groups first or pending updates are lost."""
+    _cpu_only("_reset_groups", slots)
+    return _reset_groups_torch(state, calls, slots, mark_dirty, float_extremes)
+
+
+def _reset_groups_torch(state, calls, slots, mark_dirty, float_extremes) -> AggState:
+    idx = slots[slots >= 0].long()
+    state.row_count[idx] = 0
+    state.sdirty[idx] = True
+    state.dirty[idx] = mark_dirty
+    if not mark_dirty:
+        state.emitted_valid[idx] = False
+    for c in calls:
+        acc = state.accums[c.output]
+        acc[idx] = _accum_init_of(c, acc, float_extremes)
+    for nn in state.nonnull.values():
+        nn[idx] = 0
+    return state
+
+
+def _accum_init_of(call: AggCall, acc: torch.Tensor, float_extremes: tuple) -> int:
+    return accum_init(call.kind, acc.dtype, dict(float_extremes).get(call.output))
+
+
+def delete_groups(state: AggState, calls, slots, float_extremes: tuple = ()) -> AggState:
+    """Drop whole groups (window expiry) with downstream retraction."""
+    return _reset_groups(state, calls, slots, mark_dirty=True, float_extremes=float_extremes)
+
+
+def forget_groups(state: AggState, calls, slots, float_extremes: tuple = ()) -> AggState:
+    """Silently free groups (EOWC finalisation). See ``_reset_groups``."""
+    return _reset_groups(state, calls, slots, mark_dirty=False, float_extremes=float_extremes)
+
+
+def _cpu_only(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cpu":
+        raise NotImplementedError(
+            f"{name} is a plain PyTorch version for the CPU; on the card the watermark "
+            "expiry runs in kernel O (expire_groups)"
+        )
+
+
+def expire_groups(table, state: AggState, calls: Tuple[AggCall, ...], key_index: int,
+                  cutoff: int, mark_dirty: bool, float_extremes: tuple = ()) -> None:
+    """Watermark state cleaning of a HashAgg, in place
+    (``hash_agg.py:_expire`` :393): every live group whose key lane
+    ``key_index`` < ``cutoff`` turns dead and is reset, as
+    ``delete_groups`` (``mark_dirty``) or ``forget_groups`` reset
+    groups.
+    Kernel O's ``rw_expire_agg`` (``csrc/expire.cu``) on the card; on
+    the CPU the mask, ``_reset_groups`` and ``set_live``."""
+    dev = state.row_count.device
+    if dev.type == "cpu":
+        _expire_groups_torch(table, state, calls, key_index, cutoff, mark_dirty, float_extremes)
+    elif dev.type == "cuda":
+        _expire_groups_cuda(table, state, calls, key_index, cutoff, mark_dirty, float_extremes)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _expire_groups_torch(table, state, calls, key_index, cutoff, mark_dirty, float_extremes):
+    expired = expired_slots(table, key_index, cutoff)
+    slots = torch.where(
+        expired, torch.arange(table.capacity, dtype=torch.int32, device=expired.device), -1
+    )
+    _reset_groups_torch(state, calls, slots, mark_dirty, float_extremes)
+    table.live &= ~expired
+
+
+def _init_bits(value: int, dtype: torch.dtype) -> int:
+    """A lane's init value as the raw bits kernel O writes."""
+    bits = {4: torch.int32, 8: torch.int64}[dtype.itemsize]
+    return int(torch.tensor([value], dtype=dtype).view(bits)[0])
+
+
+def _expire_groups_cuda(table, state, calls, key_index, cutoff, mark_dirty, float_extremes):
+    cap = state.capacity
+    args = expiry_key_args("expire_agg", table, key_index, state.sdirty, state.dirty,
+                           state.emitted_valid)
+    _kernels.check_cuda("expire_agg", state.row_count, n=cap)
+    if state.row_count.dtype != torch.int64:
+        raise TypeError("expire_agg: row_count must be int64")
+    rows = []
+    for c in calls:
+        acc = state.accums[c.output]
+        if acc.element_size() not in (4, 8):
+            raise TypeError(f"expire_agg: accumulator {c.output} of dtype {acc.dtype}")
+        rows.append((acc.data_ptr(), acc.element_size(),
+                     _init_bits(_accum_init_of(c, acc, float_extremes), acc.dtype)))
+    for nn in state.nonnull.values():
+        rows.append((nn.data_ptr(), nn.element_size(), 0))
+    _kernels.check_cuda("expire_agg", *state.accums.values(), *state.nonnull.values(), n=cap)
+    _kernels.call(
+        "expire", "rw_expire_agg", *args, int(cutoff), state.row_count.data_ptr(),
+        state.sdirty.data_ptr(), state.dirty.data_ptr(), state.emitted_valid.data_ptr(),
+        int(mark_dirty), _kernels.int64_rows(rows, _kernels.EXPIRE_AGG_LANES), len(rows),
     )
 
 

@@ -13,8 +13,9 @@ lanes for exact equality. Deleted keys stay claimed as tombstones
 and its plain PyTorch version on the CPU. Both update the table IN PLACE
 (the JAX version donates the table and returns a new one); the table is
 still returned so call sites read like the reference. On the card the
-read-only ``lookup`` is kernel M's probe entry and
-``first_occurrence_mask`` kernel J's first-occurrence entry.
+read-only ``lookup`` is kernel M's probe entry,
+``first_occurrence_mask`` kernel J's first-occurrence entry and
+``expire_table`` (watermark state cleaning) kernel O's key-table entry.
 """
 
 from __future__ import annotations
@@ -308,6 +309,52 @@ def set_live(table: HashTable, slots: torch.Tensor, live_value) -> HashTable:
         value = value[keep]
     table.live[slots[keep].long()] = value
     return table
+
+
+def expired_slots(table: HashTable, key_index: int, cutoff: int) -> torch.Tensor:
+    """The watermark expiry's mask: live slots whose key lane
+    ``key_index`` lies below ``cutoff`` (plain PyTorch)."""
+    return table.live & (table.keys[key_index] < cutoff)
+
+
+def expiry_key_args(name: str, table: HashTable, key_index: int, *lanes):
+    """Kernel O's common arguments ``(cap, live, key lane, key code)``,
+    with the table's lanes and ``lanes`` (bool sdirty-like lanes of the
+    table's capacity) checked; raises on what the kernel does not take."""
+    key = table.keys[key_index]
+    if key.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}: the window key lane must be int32 or int64, not {key.dtype}")
+    _kernels.check_cuda(name, table.live, key, *lanes, n=table.capacity)
+    for t in (table.live,) + lanes:
+        if t.dtype != torch.bool:
+            raise TypeError(f"{name}: live and mark lanes must be bool")
+    return table.capacity, table.live.data_ptr(), key.data_ptr(), _kernels.dtype_code(key)
+
+
+def expire_table(table: HashTable, sdirty: torch.Tensor, key_index: int, cutoff: int) -> None:
+    """Watermark state cleaning of a plain key table (the dynamic
+    filter's and the dedup's inline expiries), in place: every live slot
+    whose key lane ``key_index`` < ``cutoff`` turns dead and sdirty.
+    Kernel O's ``rw_expire_keys`` (``csrc/expire.cu``) on the card,
+    plain PyTorch on the CPU."""
+    dev = table.device
+    if dev.type == "cpu":
+        _expire_table_torch(table, sdirty, key_index, cutoff)
+    elif dev.type == "cuda":
+        _expire_table_cuda(table, sdirty, key_index, cutoff)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _expire_table_torch(table, sdirty, key_index, cutoff):
+    expired = expired_slots(table, key_index, cutoff)
+    table.live &= ~expired
+    sdirty |= expired
+
+
+def _expire_table_cuda(table, sdirty, key_index, cutoff):
+    args = expiry_key_args("expire", table, key_index, sdirty)
+    _kernels.call("expire", "rw_expire_keys", *args, int(cutoff), sdirty.data_ptr())
 
 
 def move_slots(srcs, dsts, new_slots: torch.Tensor, keep: torch.Tensor) -> None:

@@ -4,7 +4,7 @@ Port of ``risingwave_tpu/ops/join.py`` (``JoinSide`` :54,
 ``_intra_chunk_rank`` :141, ``_row_fingerprint`` :178,
 ``_entry_matches`` :192, ``apply_side`` :215, ``gather_flat`` :394,
 ``probe_side`` :407, ``gather_matches`` :420, ``compact_pairs`` :429,
-``regrow`` :458). Reference roles: ``JoinHashMap``
+``regrow`` :458, ``expire_keys`` :508). Reference roles: ``JoinHashMap``
 (src/stream/src/executor/join/hash_join.rs:157) and the probe/emit loop
 of src/stream/src/executor/hash_join.rs:462-729.
 
@@ -18,13 +18,13 @@ exactly matching entry, probes gather the other side's bucket.
 On the card: ``apply_side`` is kernel A on the key, then kernel L
 (``csrc/join_apply.cu``); ``probe_pairs`` (``probe_side`` +
 ``gather_matches`` + ``compact_pairs``) is kernel M
-(``csrc/join_probe.cu``); ``regrow`` is A, I and L's regrow entry. The
-plain PyTorch versions run on the CPU, where ``probe_side``,
-``gather_matches``, ``compact_pairs`` and ``gather_flat`` exist as
-separate functions, as in the reference; on CUDA tensors those four
+(``csrc/join_probe.cu``); ``regrow`` is A, I and L's regrow entry;
+``expire_keys`` (watermark state cleaning) is kernel O's join entry
+(``csrc/expire.cu``). The plain PyTorch versions run on the CPU, where
+``probe_side``, ``gather_matches``, ``compact_pairs`` and
+``gather_flat`` exist as separate functions, as in the reference; on CUDA tensors those four
 raise, since only their composition is a kernel. State is updated in
-place. ``degree_apply`` (outer/semi/anti joins) and ``expire_keys``
-(watermark state cleaning) are not ported yet.
+place. ``degree_apply`` (outer/semi/anti joins) is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ from risingwave_tpu_torch import _kernels, resolve_device
 from risingwave_tpu_torch.ops.hash_table import (
     HashTable,
     _lookup_torch,
+    expired_slots,
+    expiry_key_args,
     key_lane_rows,
     lookup_or_insert,
     move_slots,
@@ -509,4 +511,43 @@ def _regrow_entries_cuda(side, new, src, dst, keep, new_slots):
         "join_apply", "rw_join_regrow", _kernels.int64_rows(rows, 16), len(rows),
         side.capacity, side.fanout, new.fanout, keep.data_ptr(), new_slots.data_ptr(),
         side.row_valid.data_ptr(), new.row_valid.data_ptr(),
+    )
+
+
+# -- watermark state cleaning: kernel O ----------------------------------------------
+def expire_keys(side: JoinSide, key_index: int, cutoff: int) -> JoinSide:
+    """Drop every live key whose key lane ``key_index`` < ``cutoff``, in
+    place (``ops/join.py:508``): the key turns dead and sdirty, its
+    bucket's ``row_valid`` entries clear and its degrees go to 0; keys
+    and payload bytes stay (a tombstone keeps probe chains intact).
+    Kernel O's ``rw_expire_join`` (``csrc/expire.cu``) on the card,
+    plain PyTorch on the CPU."""
+    dev = side.device
+    if dev.type == "cpu":
+        _expire_keys_torch(side, key_index, cutoff)
+    elif dev.type == "cuda":
+        _expire_keys_cuda(side, key_index, cutoff)
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    return side
+
+
+def _expire_keys_torch(side: JoinSide, key_index: int, cutoff: int) -> None:
+    expired = expired_slots(side.table, key_index, cutoff)
+    side.table.live &= ~expired
+    side.row_valid &= ~expired[:, None]
+    side.degree.masked_fill_(expired[:, None], 0)
+    side.sdirty |= expired
+
+
+def _expire_keys_cuda(side: JoinSide, key_index: int, cutoff: int) -> None:
+    args = expiry_key_args("expire_join", side.table, key_index, side.sdirty)
+    _kernels.check_cuda("expire_join", side.row_valid, side.degree)
+    if side.row_valid.dtype != torch.bool or side.degree.dtype != torch.int32:
+        raise TypeError("expire_join: row_valid bool and degree int32")
+    if side.row_valid.shape != side.degree.shape or side.capacity != side.table.capacity:
+        raise ValueError("expire_join: row_valid and degree must be (capacity, fanout)")
+    _kernels.call(
+        "expire", "rw_expire_join", *args, int(cutoff), side.sdirty.data_ptr(),
+        side.row_valid.data_ptr(), side.degree.data_ptr(), side.fanout,
     )

@@ -1,9 +1,10 @@
 """Nexmark query pipelines.
 
-Port of ``risingwave_tpu/queries/nexmark_q.py:28-167`` (q5-lite, q8).
-Reference queries: e2e_test/nexmark/ — q5 (hot items) counts bids per
-auction per hop window (size 10 s, slide 2 s); "q5-lite" is its
-stateful core, the HashAgg stage. q8 (monitor new users): persons who
+Port of ``risingwave_tpu/queries/nexmark_q.py:28-277`` (q5-lite, q7,
+q8). Reference queries: e2e_test/nexmark/ — q5 (hot items) counts bids
+per auction per hop window (size 10 s, slide 2 s); "q5-lite" is its
+stateful core, the HashAgg stage. q7 (highest bid): the bids at their
+10 s tumble window's maximum price. q8 (monitor new users): persons who
 opened auctions in the same 10 s tumble window — per-side tumble +
 DISTINCT, then an inner join on (person.id, window) =
 (auction.seller, window).
@@ -12,11 +13,13 @@ DISTINCT, then an inner join on (person.id, window) =
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from risingwave_tpu_torch import resolve_device
 from risingwave_tpu_torch.executors.dedup import AppendOnlyDedupExecutor
+from risingwave_tpu_torch.executors.dynamic_filter import DynamicMaxFilterExecutor
 from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
 from risingwave_tpu_torch.executors.hash_join import HashJoinExecutor
 from risingwave_tpu_torch.executors.hop_window import HopWindowExecutor
@@ -26,6 +29,7 @@ from risingwave_tpu_torch.runtime.pipeline import Pipeline, TwoInputPipeline
 
 Q5_WINDOW_MS = 10_000
 Q5_SLIDE_MS = 2_000
+Q7_WINDOW_MS = 10_000
 Q8_WINDOW_MS = 10_000
 
 
@@ -46,9 +50,8 @@ def build_q5_lite(
     """bids -> hop window -> COUNT(*) per (auction, window_start) -> MV.
 
     ``state_cleaning`` declares the agg's window key as the reference
-    does; watermark state cleaning is not ported yet, so a
-    ``window_start`` watermark then raises NotImplementedError. Run
-    with ``state_cleaning=False``.
+    does: a ``date_time`` watermark then closes the windows below it
+    (emit-on-window-close: the agg flushes, then frees them).
     """
     dev = resolve_device(device)
     hop = HopWindowExecutor("date_time", window_ms, slide_ms)
@@ -100,8 +103,8 @@ def build_q8(
 
     Both inputs are append-only, so each DISTINCT is an
     AppendOnlyDedup. ``state_cleaning`` declares the window keys as the
-    reference does; watermark state cleaning is not ported yet, so a
-    window watermark then raises NotImplementedError.
+    reference does: a ``date_time`` watermark then expires the closed
+    windows of both seen-sets and both join sides.
     """
     dev = resolve_device(device)
     person_chain = [
@@ -148,3 +151,94 @@ def build_q8(
     )
     pipeline = TwoInputPipeline(person_chain, auction_chain, join, [mview])
     return Q8(pipeline, join, mview)
+
+
+@dataclass
+class Q7:
+    pipeline: TwoInputPipeline
+    join: HashJoinExecutor
+    agg: HashAggExecutor
+    mview: DeviceMaterializeExecutor
+
+
+def build_q7(
+    capacity: int = 1 << 16,
+    fanout: int = 4,
+    out_cap: int = 1 << 14,
+    window_ms: int = Q7_WINDOW_MS,
+    state_cleaning: bool = True,
+    agg_capacity: Optional[int] = None,
+    filter_capacity: Optional[int] = None,
+    device="cuda",
+) -> Q7:
+    """Highest bid per 10 s tumble window, as the reference plans it:
+
+      bid -> tumble -> DynamicMaxFilter -> (left)  bids keyed (wstart, price)    ┐
+                                                                                 ⋈ inner on
+      bid -> tumble -> MAX(price) per window -> (right) (mwstart, maxprice)     ┘ (wstart, price)
+              change stream [U-/U+ on every new max]                               = (mwstart, maxprice)
+          -> MV pk=(wstart, auction, bidder)
+
+    The right side retracts: each new window max emits U-(old)/U+(new),
+    which the join turns into deletes and inserts of the matching bid
+    pairs. Both sides take the same bid chunks: drive with
+    ``pipeline.push_left(c); pipeline.push_right(c)``. The dynamic
+    pre-filter keeps the join's bid side at the chain of ascending
+    maxima and their ties. With ``state_cleaning``, advance
+    ``pipeline.watermark("date_time", max_event_ts)`` every barrier:
+    the filter, the agg (emit-on-window-close) and both join sides drop
+    their closed windows. The state walks the bucket lattice (the
+    reference's ``bucketed=False`` twin is not ported).
+    """
+    dev = resolve_device(device)
+    left_chain = [
+        HopWindowExecutor("date_time", window_ms, window_ms, out_start="wstart"),
+        DynamicMaxFilterExecutor(
+            group_col="wstart",
+            value_col="price",
+            schema_dtypes={"wstart": torch.int64, "price": torch.int64},
+            capacity=filter_capacity or max(1 << 10, capacity >> 6),
+            window_key=("wstart", 0) if state_cleaning else None,
+            table_id="q7.maxfilter",
+            device=dev,
+        ),
+    ]
+    right_chain = [
+        HopWindowExecutor("date_time", window_ms, window_ms, out_start="mwstart"),
+        HashAggExecutor(
+            group_keys=("mwstart",),
+            calls=(AggCall("max", "price", "maxprice"),),
+            schema_dtypes={"mwstart": torch.int64, "price": torch.int64},
+            capacity=agg_capacity or max(1 << 12, capacity >> 4),
+            window_key=("mwstart", 0, False) if state_cleaning else None,
+            table_id="q7.maxagg",
+            device=dev,
+        ),
+    ]
+    join = HashJoinExecutor(
+        left_keys=("wstart", "price"),
+        right_keys=("mwstart", "maxprice"),
+        left_dtypes={"wstart": torch.int64, "price": torch.int64, "auction": torch.int64,
+                     "bidder": torch.int64},
+        right_dtypes={"mwstart": torch.int64, "maxprice": torch.int64},
+        capacity=capacity,
+        fanout=fanout,
+        out_cap=out_cap,
+        # the agg's delta chunks carry a maxprice null lane (all False:
+        # price is non-null); the bucket state keeps it
+        right_nullable=("maxprice",),
+        window_cols=("wstart", "mwstart") if state_cleaning else None,
+        table_id="q7.join",
+        device=dev,
+    )
+    mview = DeviceMaterializeExecutor(
+        pk=("wstart", "auction", "bidder"),
+        columns=("price",),
+        schema_dtypes={"wstart": torch.int64, "auction": torch.int64, "bidder": torch.int64,
+                       "price": torch.int64},
+        table_id="q7.mview",
+        capacity=max(1 << 12, capacity),
+        device=dev,
+    )
+    pipeline = TwoInputPipeline(left_chain, right_chain, join, [mview])
+    return Q7(pipeline, join, right_chain[1], mview)

@@ -5,8 +5,7 @@ Port of ``risingwave_tpu/runtime/fused_step.py``: the single-input half
 (``AggStatics`` :200, ``FusedPlan`` :212, ``_delta_chunk`` :232,
 ``_fused_barrier_fn``/``_fused_barrier_body`` :239-382, ``_is_pure``
 :465 (as ``epoch_batch.is_pure``), ``FusedChainExecutor`` :476,
-``fuse_chain`` :2165) and the two-input half for side chains of pure
-steps and at most one append-only dedup (``SidePlan`` :993,
+``fuse_chain`` :2165) and the two-input half (``SidePlan`` :993,
 ``TwoInputPlan`` :1006, ``_two_input_side_scan`` :1037,
 ``_fused_two_input_body`` :1147, ``_pad_segment`` :1366 (its count
 only, as ``_padded_len``), ``FusedTwoInputExecutor`` :1381,
@@ -31,21 +30,27 @@ with ``fuse_pipeline`` :2303 and ``expand_fused`` :2355.
   place, so snapshots, growth and the barrier checks work on the
   original objects.
 - ``fuse_two_input`` runs a ``TwoInputPipeline`` (q8: ``hop -> dedup``
-  per side, an inner HashJoin, a device MV) as one
+  per side; q7: ``hop -> DynamicMaxFilter`` left, ``hop -> HashAgg``
+  right; an inner HashJoin, a device MV) as one
   ``FusedTwoInputExecutor`` program per barrier: the host bookkeeping
-  first (each dedup's and join side's growth hint, the MV's growth
-  bound), then each side's buffered chunks in arrival order through
-  E -> A -> J (dedup) -> M (probe) -> A -> L (own side), each
-  segment's emission through A -> D into the MV, left side first; then
-  the scalar pack with five digests (kernel H) and one staged copy.
+  first (each side member's and join side's growth hint, the agg's
+  flush rounds from its dirty bound, the MV's growth bound), then each
+  filter or dedup side's buffered chunks in arrival order through
+  E -> A -> N (filter) or J (dedup) -> M (probe) -> A -> L (own side),
+  each segment's emission through A -> D into the MV, left side first;
+  an agg side's segments through its epoch path (E, F, A, G); then the
+  agg's flush rounds, each C -> M -> A -> L as a right arrival at the
+  join and A -> D into the MV; then the scalar pack with five digests
+  (kernel H) and one staged copy. A watermark stays outside the
+  program: ``flush_data`` applies the buffer, then the members take
+  the watermark interpreted (their state is the system of record).
 
 On the card the program part of ``_run`` runs under
 ``torch.cuda.set_sync_debug_mode("error")`` (``no_device_reads``), the
 counterpart of the reference's ``jax.transfer_guard("disallow")``: an
 operation that waits for the device there raises.
 
-Not ported yet: the two-input program's ``"agg"`` and ``"filter"``
-side kinds and its flush-into-join rounds (q7), literal lifting
+Not ported yet: literal lifting
 (``lift_plan``/``param_scope``; the port has no expressions), the
 device profiler and flight-recorder hooks (S8), the K-barrier pipeline
 depth, the ``RW_FUSED_TWO_INPUT`` switch (fusion is the call to
@@ -62,9 +67,13 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from risingwave_tpu_torch import integrity
-from risingwave_tpu_torch.array.chunk import StreamChunk, flatten_stacked
+from risingwave_tpu_torch.array.chunk import StreamChunk, flatten_stacked, stack_chunks
 from risingwave_tpu_torch.executors.base import Barrier, Executor, Watermark
 from risingwave_tpu_torch.executors.dedup import AppendOnlyDedupExecutor, dedup_step_fn
+from risingwave_tpu_torch.executors.dynamic_filter import (
+    DynamicMaxFilterExecutor,
+    filter_step_fn,
+)
 from risingwave_tpu_torch.executors.epoch_batch import (
     ComposedSteps,
     EpochBatchedAggExecutor,
@@ -469,11 +478,13 @@ def fuse_chain(chain: Sequence[Executor], label: str = "fragment") -> List[Execu
 @dataclass(frozen=True)
 class SidePlan:
     """One input side: a pure prefix feeding at most one stateful member
-    (q8: ``hop -> dedup``)."""
+    (q7: ``hop -> DynamicMaxFilter`` left, ``hop -> HashAgg`` right; q8:
+    ``hop -> dedup`` both)."""
 
     pre: Optional[ComposedSteps]
-    kind: Optional[str]  # None | "dedup"
-    keys: tuple = ()
+    kind: Optional[str]  # None | "filter" | "dedup" | "agg"
+    keys: tuple = ()  # filter: (group_col, value_col); dedup: key names
+    agg: Optional[AggStatics] = None
 
 
 @dataclass(frozen=True)
@@ -523,7 +534,12 @@ def _two_input_side_scan(ex, join, seg, side_plan: SidePlan, plan: TwoInputPlan,
     for chunk in seg:
         if side_plan.pre is not None:
             chunk = side_plan.pre(chunk)
-        if side_plan.kind == "dedup":
+        if side_plan.kind == "filter":
+            ex.table, ex.maxes, ex.sdirty, chunk = filter_step_fn(
+                ex.table, ex.maxes, ex.sdirty, chunk, side_plan.keys[0], side_plan.keys[1],
+                (ex._saw_delete, ex._dropped),
+            )
+        elif side_plan.kind == "dedup":
             ex.table, ex.sdirty, chunk = dedup_step_fn(
                 ex.table, ex.sdirty, chunk, side_plan.keys, ex.scratch,
                 (ex._saw_delete, ex._dropped),
@@ -537,22 +553,36 @@ def _two_input_side_scan(ex, join, seg, side_plan: SidePlan, plan: TwoInputPlan,
     return _concat(ems)
 
 
-def _fused_two_input_body(w: "FusedTwoInputExecutor", left_batches, right_batches):
-    """The fragment's barrier over the members, in place: the left
-    segments, then the right ones, each through its side and the join
-    and its emission through the tail; then the scalar lane, in the
-    reference's order: each dedup side's four lanes (saw_delete,
-    dropped, occupancy, survivors), the join's nine, the MV's two, the
-    five telemetry counters (rows_left, rows_right, join_rows,
-    dirty_groups (0: no agg side), mv_rows) and the digests (left dedup,
-    right dedup, the two join sides, the MV). join_rows is kept by
-    kernel M, mv_rows by kernel D, and each survivor count by the pass
-    of kernel H that digests its table. Returns ``(outs, packed)``."""
+def _fused_two_input_body(w: "FusedTwoInputExecutor", left_batches, right_batches,
+                          pads: Tuple[int, ...]):
+    """The fragment's barrier over the members, in place:
+
+    apply phase  the left segments, then the right ones, each through
+                 its side's stateful step and the join's arrival step
+                 chunk by chunk, each segment's emission through the
+                 tail; an agg side instead takes each segment as one
+                 stacked batch into its epoch path (kernels E, F, A, G);
+    flush phase  ``len(pads)`` flushes of the agg side's dirty groups
+                 (kernel C), round r's delta sliced to ``pads[r]`` rows,
+                 each a right arrival at the join (M, then A + L) whose
+                 emission walks the tail;
+    scalars      in the reference's order: each stateful side's four
+                 lanes (filter and dedup: saw_delete, dropped,
+                 occupancy, survivors; agg: dropped, minmax_retracted,
+                 mi_bad, occupancy), the join's nine, the MV's two, the
+                 five telemetry counters (rows_left, rows_right,
+                 join_rows, dirty_groups, mv_rows) and the digests (left
+                 side, right side, the two join sides, the MV).
+
+    join_rows is kept by kernel M, mv_rows by kernel D, dirty_groups by
+    the first flush round's kernel C and each filter's or dedup's
+    survivor count by the pass of kernel H that digests its table.
+    Returns ``(outs, packed)``."""
     plan, join, mv = w.plan, w.join, w.mv
     dev = join.left.device
     zero = lambda: torch.zeros((), dtype=torch.int64, device=dev)
     rows = {"l": zero(), "r": zero()}
-    join_rows, mv_rows = zero(), zero()
+    join_rows, mv_rows, dirty_groups = zero(), zero(), zero()
     outs: List[StreamChunk] = []
 
     def through_tail(chunk):
@@ -573,16 +603,48 @@ def _fused_two_input_body(w: "FusedTwoInputExecutor", left_batches, right_batche
         for seg in batches:
             for c in seg:
                 rows[side] += c.valid.sum()
-            flat = _two_input_side_scan(ex, join, seg, side_plan, plan, side, join_rows)
-            outs.append(through_tail(flat))
+            if side_plan.kind == "agg":
+                a = side_plan.agg
+                ex.table, ex.state, ex.dropped = _epoch_reduced_fn(
+                    ex.table, ex.state, ex.dropped, stack_chunks(seg), a.calls, a.group_keys,
+                    a.nullable, side_plan.pre,
+                )
+            else:
+                flat = _two_input_side_scan(ex, join, seg, side_plan, plan, side, join_rows)
+                outs.append(through_tail(flat))
+
+    if pads:
+        a, agg = plan.right.agg, w.agg
+        for r, pad in enumerate(pads):
+            agg.state, delta = agg_ops.flush(
+                agg.state, agg.table.keys, a.out_cap, a.float_extremes,
+                dirty_total=dirty_groups if r == 0 else None,
+            )
+            own, _, em = join_step_fn(
+                join.right, join.left, _delta_chunk(delta, a, pad), plan.j_right_keys,
+                plan.j_right_names, plan.j_out_names, plan.j_out_cap, join._em_overflow,
+                plan.j_type, join_rows,
+            )
+            join._set_side("r", own)
+            outs.append(through_tail(em))
 
     scal, digs = [], []
-    for ex in (w.l_stateful, w.r_stateful):
-        if ex is not None:
+    for ex, side_plan in ((w.l_stateful, plan.left), (w.r_stateful, plan.right)):
+        if ex is None:
+            continue
+        if side_plan.kind == "agg":
+            scal += [ex.dropped, ex.state.minmax_retracted, ex.mi_bad, ex.table.occupancy()]
+            digs.append(integrity.device_digest(
+                *integrity.agg_lanes(ex.table, ex.state, side_plan.agg.float_extremes)
+            ))
+            continue
+        if side_plan.kind == "filter":
+            lanes, live = integrity.filter_lanes(ex.table, ex.maxes)
+        else:
             lanes, live = integrity.dedup_lanes(ex.table)
-            dig, surv = integrity.digest_with_survivors(lanes, live, ex.sdirty)
-            scal += [ex._saw_delete, ex._dropped, ex.table.occupancy(), surv]
-            digs.append(dig)
+        dig, surv = integrity.digest_with_survivors(lanes, live, ex.sdirty)
+        scal += [ex._saw_delete, ex._dropped, ex.table.occupancy(), surv]
+        digs.append(dig)
     l, r = join.left, join.right
     (l_dig, l_surv), (r_dig, r_surv) = (
         integrity.digest_with_survivors(*integrity.join_side_lanes(s), s.sdirty) for s in (l, r)
@@ -593,7 +655,7 @@ def _fused_two_input_body(w: "FusedTwoInputExecutor", left_batches, right_batche
     if mv is not None:
         scal += [mv.state.dropped, mv.table.occupancy()]
         digs.append(integrity.device_digest(*integrity.mv_lanes(mv.table, mv.state)))
-    scal += [rows["l"], rows["r"], join_rows, zero(), mv_rows] + digs
+    scal += [rows["l"], rows["r"], join_rows, dirty_groups, mv_rows] + digs
     packed = torch.stack([x.to(torch.int64) for x in scal])
     return outs, packed
 
@@ -607,9 +669,10 @@ def _padded_len(n: int) -> int:
 
 
 class FusedTwoInputExecutor(Executor):
-    """A whole two-input pipeline — ``pure* [dedup]`` per side, an inner
-    HashJoin, ``pure* [device MV] pure*`` tail — run as one program per
-    barrier. ``buffer_left``/``buffer_right`` stage chunks,
+    """A whole two-input pipeline — ``pure* [filter | dedup]`` left,
+    ``pure* [filter | dedup | HashAgg]`` right, an inner HashJoin,
+    ``pure* [device MV] pure*`` tail — run as one program per barrier.
+    ``buffer_left``/``buffer_right`` stage chunks,
     ``on_barrier`` runs the program and returns the fragment's
     emission, ``finish_barrier`` reads the packed scalars and runs each
     member's barrier checks. The members stay the system of record.
@@ -623,6 +686,7 @@ class FusedTwoInputExecutor(Executor):
         self.plan = plan
         self.l_stateful = l_stateful
         self.r_stateful = r_stateful
+        self.agg = r_stateful if type(r_stateful) is HashAggExecutor else None
         self.join = join
         self.mv = mv
         self.label = label
@@ -649,15 +713,16 @@ class FusedTwoInputExecutor(Executor):
         return []
 
     def flush_data(self) -> List[StreamChunk]:
-        """Apply everything buffered, staging nothing (buffered rows
-        precede a watermark in stream order)."""
+        """Apply everything buffered without the agg side's flush,
+        staging nothing (buffered rows precede a watermark in stream
+        order; the watermark then walks the members interpreted)."""
         if not self._segs["l"] and not self._segs["r"]:
             return []
-        return self._run(stage=False)
+        return self._run(flush=False, stage=False)
 
     # -- control path -----------------------------------------------------
     def on_barrier(self, barrier: Barrier) -> List[StreamChunk]:
-        outs = self._run(stage=True)
+        outs = self._run(flush=True, stage=True)
         if barrier is None:  # direct drive: checks fire inline
             self.finish_barrier()
         return outs
@@ -726,29 +791,49 @@ class FusedTwoInputExecutor(Executor):
             chunks += padded
         ex = self.l_stateful if side == "l" else self.r_stateful
         if ex is not None and rows:
-            ex._grow_hint(rows)
-            ex._bound += rows
+            if ex is self.agg:
+                ex._maybe_grow(rows)
+                ex._insert_bound += rows
+                ex._dirty_bound += rows
+            else:
+                ex._grow_hint(rows)
+                ex._bound += rows
         return tuple(tuple(seg) for seg in segs), rows, chunks
 
-    def _run(self, stage: bool) -> List[StreamChunk]:
+    def _run(self, flush: bool, stage: bool) -> List[StreamChunk]:
         left_batches, l_rows, l_chunks = self._prepare_side("l", self.plan.left)
         right_batches, r_rows, r_chunks = self._prepare_side("r", self.plan.right)
-        if not (left_batches or right_batches) and not stage:
+        agg = self.agg
+        pads: Tuple[int, ...] = ()
+        if flush and agg is not None:
+            # rounds and pads from the dirty bound after this epoch's rows
+            # landed in it, and the plan's out_cap (what a round drains)
+            pads = flush_pad_schedule(
+                agg._dirty_bound, agg.table.capacity, self.plan.right.agg.out_cap
+            )
+        if not (left_batches or right_batches) and not pads and not stage:
             return []
         join = self.join
-        for side, rows in (("l", l_rows), ("r", r_rows)):
+        # right arrivals at the join: the scanned side's rows, or the
+        # flush rounds' deltas of an agg side
+        r_join_rows = sum(pads) if agg is not None else r_rows
+        for side, rows in (("l", l_rows), ("r", r_join_rows)):
             if rows:
                 join._grow_hint(side, rows)
                 join._bound[side] += rows
         if self.mv is not None:
-            # every emission chunk reaching the MV has out_cap rows
-            em_rows = (l_chunks + r_chunks) * self.plan.j_out_cap
+            # every emission chunk reaching the MV has out_cap rows, a
+            # flush round's too
+            em_chunks = l_chunks + (len(pads) if agg is not None else r_chunks)
+            em_rows = em_chunks * self.plan.j_out_cap
             if em_rows:
                 self.mv._maybe_grow(em_rows)
         with no_device_reads(join.left.device):
-            outs, packed = _fused_two_input_body(self, left_batches, right_batches)
+            outs, packed = _fused_two_input_body(self, left_batches, right_batches, pads)
             if stage:
                 self._staged_scalars = stage_packed(packed)
+        if agg is not None and pads:
+            agg._dirty_bound = 0
         return outs
 
 
@@ -763,11 +848,14 @@ def _parse_side(chain, label: str, side: str):
                            "are not absorbable by the two-input program", type(ex).__name__)
         if is_pure(ex):
             pres.append(ex)
-        elif type(ex) is AppendOnlyDedupExecutor:
+        elif type(ex) in (DynamicMaxFilterExecutor, AppendOnlyDedupExecutor) or (
+            type(ex) is HashAggExecutor and side == "right"
+        ):
             stateful = ex
         else:
-            return _refuse(f"{label}/{side}", "not fusible in a two-input side chain (the "
-                           "agg and filter side kinds are not ported yet)", type(ex).__name__)
+            return _refuse(f"{label}/{side}", "not fusible in a two-input side chain (a "
+                           "HashAgg only on the right side: its flush feeds the join's right "
+                           "arrival)", type(ex).__name__)
     return pres, stateful
 
 
@@ -775,14 +863,26 @@ def _side_plan(pres, stateful) -> SidePlan:
     pre = ComposedSteps([p.pure_step() for p in pres]) if pres else None
     if stateful is None:
         return SidePlan(pre=pre, kind=None)
-    return SidePlan(pre=pre, kind="dedup", keys=stateful.keys)
+    if type(stateful) is DynamicMaxFilterExecutor:
+        return SidePlan(pre=pre, kind="filter", keys=(stateful.group_col, stateful.value_col))
+    if type(stateful) is AppendOnlyDedupExecutor:
+        return SidePlan(pre=pre, kind="dedup", keys=stateful.keys)
+    return SidePlan(pre=pre, kind="agg", agg=AggStatics(
+        calls=stateful.calls,
+        group_keys=stateful.group_keys,
+        nullable=stateful.nullable,
+        out_cap=stateful.out_cap,
+        float_extremes=stateful._float_extremes,
+    ))
 
 
 def fuse_two_input(pipeline, label: str = "mv") -> Optional[FusedTwoInputExecutor]:
-    """Plan whole-pipeline fusion of a ``TwoInputPipeline`` (q8's
-    ``dedup x join -> MV`` shape), or None with the refusal recorded:
-    the join must be a HashJoin, each side ``pure* [dedup]``, the tail
-    ``pure* [DeviceMaterialize] pure*``."""
+    """Plan whole-pipeline fusion of a ``TwoInputPipeline`` (q7's
+    ``filter x agg-flush -> join -> MV`` and q8's ``dedup x join -> MV``
+    shapes), or None with the refusal recorded: the join must be a
+    HashJoin, the left side ``pure* [filter | dedup]``, the right side
+    ``pure* [filter | dedup | HashAgg]``, the tail ``pure*
+    [DeviceMaterialize] pure*``."""
     join = getattr(pipeline, "join", None)
     if type(join) is not HashJoinExecutor:
         return _refuse(label, "two-input executor is not a HashJoin", type(join).__name__)

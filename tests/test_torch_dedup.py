@@ -147,12 +147,32 @@ def test_delete_raises_at_the_barrier():
 
 
 def test_window_watermark_raises_and_other_columns_pass():
-    _, port = _executors(256, window_key=("b", 0))
-    with pytest.raises(NotImplementedError):
-        port.on_watermark(PortWatermark("b", 10_000))
+    """A watermark on the window column expires the seen-set's keys
+    below ``value - retention`` (kernel O's plain version): live,
+    sdirty and the digest equal the reference's after each watermark,
+    and an expired key seen again is found as a tombstone (no emission),
+    as in the reference; a watermark on another column passes through
+    and changes nothing."""
+    rng = np.random.default_rng(17)
+    ref, port = _executors(1024, window_key=("b", 5_000))
+    for value in (12_000, 16_000, 24_000):
+        for _ in range(2):
+            rc, pc = _chunks(rng, 150, 100, 256)
+            (r_out,) = ref.apply(rc)
+            (p_out,) = port.apply(pc)
+            np.testing.assert_array_equal(p_out.valid.numpy(), np.asarray(r_out.valid))
+        r_wm, r_outs = ref.on_watermark(Watermark("b", value))
+        p_wm, p_outs = port.on_watermark(PortWatermark("b", value))
+        assert (p_wm.column, p_wm.value, p_outs) == (r_wm.column, r_wm.value, r_outs) == (
+            "b", value, [])
+        _lanes_equal(ref.table, ref.sdirty, port.table, port.sdirty)
+        assert port.state_digest() == ref.state_digest()
+    live_b = port.table.keys[1].numpy()[port.table.live.numpy()]
+    assert len(live_b) and (live_b >= 24_000 - 5_000).all()
     wm = PortWatermark("a", 5)
+    before = port.table.live.clone()
     assert port.on_watermark(wm) == (wm, [])
-    ref, _ = _executors(256, window_key=("b", 0))
+    assert torch.equal(port.table.live, before)
     assert ref.on_watermark(Watermark("a", 5))[0].column == "a"
 
 

@@ -283,13 +283,44 @@ def test_expand_fused_exposes_members():
 
 
 def test_window_watermark_raises_under_fusion_until_state_cleaning_is_ported():
-    q5 = build_q5_lite(capacity=1 << 10, state_cleaning=True, device="cpu")
-    fuse_pipeline(q5.pipeline)
-    gen = NexmarkGenerator(NexmarkConfig(first_event_rate=200))
-    q5.pipeline.push(gen.next_chunks(500, 512, device="cpu")["bid"])
-    q5.pipeline.barrier()
-    with pytest.raises(NotImplementedError):
-        q5.pipeline.watermark("date_time", 1_436_918_500_000)
+    """The watermarks=True case of test_fused_step.py's q5 twin: under
+    fusion a ``date_time`` watermark first applies the buffered chunks,
+    then walks the members interpreted (the agg flushes and frees its
+    closed windows). With a watermark before and after every barrier,
+    the fused MV and the staged digests equal the reference's fused
+    run, and the host fold of the port's lanes after each watermark
+    equals the reference's."""
+    ref_q5 = ref_build(capacity=1 << 11)
+    (ref_w,) = ref_fuse_pipeline(ref_q5.pipeline, label="q5")
+    q5 = build_q5_lite(capacity=1 << 11, device="cpu")
+    (w,) = fuse_pipeline(q5.pipeline, label="q5")
+    mx = 0
+    for ep, cap in _epochs(300, 4, 2, 600, 1024, seed=6):
+        for cols in ep:
+            ref_q5.pipeline.push(RefChunk.from_numpy(cols, cap))
+            q5.pipeline.push(StreamChunk.from_numpy(cols, cap, device="cpu"))
+            mx = max(mx, int(cols["date_time"].max()))
+        for step in ("watermark", "barrier", "watermark"):
+            getattr(ref_q5.pipeline, step)(*(("date_time", mx) if step == "watermark" else ()))
+            getattr(q5.pipeline, step)(*(("date_time", mx) if step == "watermark" else ()))
+            assert q5.mview.snapshot() == ref_q5.mview.snapshot()
+            assert _host_digests(q5) == _ref_host_digests(ref_q5)
+        assert w.last_digests == ref_w.last_digests
+    assert int(q5.agg.table.live.sum()) < int(q5.agg.table.occupancy())
+
+
+def _ref_host_digests(ref_q5):
+    from risingwave_tpu import integrity as ref_integrity
+
+    out = {}
+    for key, (lanes, live) in (
+        ("agg", ref_integrity.agg_lanes(ref_q5.agg.table, ref_q5.agg.state)),
+        ("mv", ref_integrity.mv_lanes(ref_q5.mview.table, ref_q5.mview.state)),
+    ):
+        out[key] = ref_integrity.host_digest(
+            {k: np.asarray(v) for k, v in lanes.items()}, np.asarray(live)
+        )
+    return out
 
 
 def test_reference_state_digest_equals_port_after_import():

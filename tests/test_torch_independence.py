@@ -1,6 +1,7 @@
 """The port stands alone: ``risingwave_tpu_torch`` imports neither jax nor
-``risingwave_tpu``, runs a q5 on the CPU when asked to, and refuses to
-fall back to the CPU when CUDA is asked for but absent.
+``risingwave_tpu``, runs q5, q8 and q7 (with watermarks) on the CPU when
+asked to, and refuses to fall back to the CPU when CUDA is asked for but
+absent.
 
 A subprocess is needed because tests/conftest.py imports jax into every
 pytest process.
@@ -32,7 +33,8 @@ mods = [m.name for m in pkgutil.walk_packages(risingwave_tpu_torch.__path__, "ri
 for m in mods:
     importlib.import_module(m)
 for m in ("runtime.fused_step", "executors.epoch_batch", "integrity", "executors.dedup",
-          "executors.hash_join", "ops.join", "queries.nexmark_q", "runtime.pipeline"):
+          "executors.hash_join", "ops.join", "queries.nexmark_q", "runtime.pipeline",
+          "executors.dynamic_filter"):
     assert "risingwave_tpu_torch." + m in mods, m
 assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
 
@@ -73,8 +75,29 @@ for fuse in (False, True):
     q8_snaps.append(q8.mview.snapshot())
 assert q8_snaps[0] and q8_snaps[0] == q8_snaps[1] and len(w8.last_digests) == 5
 
+from risingwave_tpu_torch.queries.nexmark_q import build_q7
+
+q7_snaps = []
+for fuse in (False, True):
+    q7 = build_q7(capacity=1 << 10, out_cap=1 << 10, device="cpu")
+    if fuse:
+        (w7,) = fuse_pipeline(q7.pipeline)
+    gen = NexmarkGenerator(NexmarkConfig(first_event_rate=200))
+    mx = 0
+    for _ in range(3):
+        bid = gen.next_chunks(1500, 2048, device="cpu")["bid"]
+        bid = bid.select(["auction", "bidder", "price", "date_time"])
+        q7.pipeline.push_left(bid)
+        q7.pipeline.push_right(bid)
+        q7.pipeline.barrier()
+        mx = max(mx, int(bid.to_numpy()["date_time"].max()))
+        q7.pipeline.watermark("date_time", mx)
+    q7_snaps.append(q7.mview.snapshot())
+assert q7_snaps[0] and q7_snaps[0] == q7_snaps[1] and len(w7.last_digests) == 5
+assert int(q7.agg.table.live.sum()) < int(q7.agg.table.occupancy())
+
 assert not torch.cuda.is_available()
-for make in (lambda: build_q5_lite(), lambda: build_q8(),
+for make in (lambda: build_q5_lite(), lambda: build_q8(), lambda: build_q7(),
              lambda: NexmarkGenerator().next_chunks(10, 16)):
     try:
         make()
@@ -99,7 +122,7 @@ def test_port_imports_and_runs_without_jax_and_never_falls_back_to_cpu():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     n = int(proc.stdout.split("MODULES")[1])
-    assert n >= 21  # every module of the slices was imported
+    assert n >= 22  # every module of the slices was imported
 
 
 _FORBIDDEN = re.compile(

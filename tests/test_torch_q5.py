@@ -189,12 +189,32 @@ def test_state_carried_across_matches_slot_for_slot():
 
 
 def test_window_watermark_raises_until_state_cleaning_is_ported():
-    q5 = build_q5_lite(capacity=1 << 10, state_cleaning=True, device="cpu")
-    gen = NexmarkGenerator(NexmarkConfig(first_event_rate=200))
-    q5.pipeline.push(gen.next_chunks(500, 512, device="cpu")["bid"])
-    q5.pipeline.barrier()
-    with pytest.raises(NotImplementedError):
-        q5.pipeline.watermark("date_time", 1_436_918_500_000)
+    """Watermark state cleaning of q5's agg (emit-on-window-close): a
+    ``date_time`` watermark after some chunks and after each barrier
+    flushes the dirty groups (their deltas come out of the watermark,
+    equal to the reference's) and frees the closed windows: every
+    agg lane, slot for slot, and the MV equal the reference's. A plan
+    without a window key passes watermarks through."""
+    ref_q5 = ref_build(capacity=1 << 12)
+    q5 = build_q5_lite(capacity=1 << 12, device="cpu")
+    gen = RefGenerator(RefConfig(first_event_rate=300))
+    mx = 0
+    for _ in range(4):
+        bids = _feed((ref_q5.pipeline, q5.pipeline), gen, 1600, 400, 512)
+        mx = max(mx, int(pd.concat(bids)["date_time"].max()))
+        r_out = ref_q5.pipeline.watermark("date_time", mx)
+        p_out = q5.pipeline.watermark("date_time", mx)
+        assert len(p_out) == len(r_out) == 1
+        _assert_np_dicts_equal(p_out[0].to_numpy(), r_out[0].to_numpy())
+        _assert_np_dicts_equal(_agg_lanes(q5.agg), _agg_lanes(ref_q5.agg))
+        ref_q5.pipeline.barrier()
+        q5.pipeline.barrier()
+        ref_q5.pipeline.watermark("date_time", mx)
+        q5.pipeline.watermark("date_time", mx)
+        _assert_np_dicts_equal(_agg_lanes(q5.agg), _agg_lanes(ref_q5.agg))
+        assert q5.mview.snapshot() == ref_q5.mview.snapshot()
+    assert int(q5.agg.table.live.sum()) < int(q5.agg.table.occupancy())
+    assert q5.agg.cleaning_watermarks() == ref_q5.agg.cleaning_watermarks()
     # a plan without a window key passes watermarks through
     q5 = build_q5_lite(capacity=1 << 10, state_cleaning=False, device="cpu")
     assert q5.pipeline.watermark("date_time", 1_436_918_500_000) == []

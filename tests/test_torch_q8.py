@@ -222,10 +222,33 @@ def test_join_emission_overflow_raises_under_fusion():
 
 @pytest.mark.parametrize("fuse", [False, True], ids=["interpreted", "fused"])
 def test_window_watermark_raises_until_state_cleaning_is_ported(fuse):
-    q8 = build_q8(capacity=1 << 10, device="cpu")
+    """Watermark state cleaning of q8 (both seen-sets and both join
+    sides, kernel O's plain versions), interpreted or fused, with a
+    ``date_time`` watermark after every barrier: the MV snapshot and the
+    five state digests equal the reference's after each watermark, the
+    join emits the aligned watermark, and closed windows leave every
+    table. A plan without window keys passes watermarks through."""
+    ref = ref_build(capacity=1 << 11, out_cap=1 << 11)
+    port = build_q8(capacity=1 << 11, out_cap=1 << 11, device="cpu")
     if fuse:
-        fuse_pipeline(q8.pipeline, label="q8")
-    with pytest.raises(NotImplementedError):
-        q8.pipeline.watermark("date_time", 20_000)
+        ref_fuse(ref.pipeline, label="q8")
+        fuse_pipeline(port.pipeline, label="q8")
+    mx = 0
+    for ep in _stream(4, 2, 1500, rate=400, seed=13):
+        _push(ref.pipeline, ep, port=False)
+        _push(port.pipeline, ep, port=True)
+        ref.pipeline.barrier()
+        port.pipeline.barrier()
+        mx = max([mx] + [int(c["date_time"].max()) for pa in ep for c in pa if len(c["date_time"])])
+        ref.pipeline.watermark("date_time", mx)
+        port.pipeline.watermark("date_time", mx)
+        assert port.mview.snapshot() == ref.mview.snapshot()
+        assert _port_digests(port) == _ref_digests(ref)
+    assert port.join._wm == ref.join._wm and port.join._wm["out"] is not None
+    cutoff = (mx - Q8_WINDOW_MS) // Q8_WINDOW_MS * Q8_WINDOW_MS
+    for t, k in ((port.join.left.table, 1), (port.join.right.table, 1),
+                 (port.pipeline.left[1].table, 2), (port.pipeline.right[1].table, 1)):
+        assert int(t.live.sum()) < int(t.occupancy())
+        assert (t.keys[k].numpy()[t.live.numpy()] >= cutoff).all()
     q8 = build_q8(capacity=1 << 10, state_cleaning=False, device="cpu")
     assert q8.pipeline.watermark("date_time", 20_000) == []

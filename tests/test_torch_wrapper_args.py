@@ -1,4 +1,4 @@
-"""The CUDA wrappers of kernels H, J, L and M marshal their arguments as
+"""The CUDA wrappers of kernels H, J, L, M, N and O marshal their arguments as
 their C entry points declare them (``_kernels.SIGNATURES``), checked on
 the CPU: each wrapper runs on CPU tensors while ``_kernels.call`` is
 replaced by a ``ctypes.CFUNCTYPE`` callback of the entry point's
@@ -113,3 +113,48 @@ def test_h_entry_marshals_masked_lanes_and_survivor_count(calls):
     count = torch.zeros((), dtype=torch.int64)
     integrity._device_digest_cuda(lanes, sorted(lanes), (live,), side.sdirty, count)
     assert calls == [("state_digest", "rw_state_digest")] * 2
+
+
+def test_n_entry_marshals(calls):
+    from risingwave_tpu_torch.executors import dynamic_filter as df
+
+    table = ht.HashTable.create(64, (torch.int64,), device="cpu")
+    n = 16
+    chunk = StreamChunk.from_numpy({"w": torch.arange(n).numpy(), "p": torch.arange(n).numpy()},
+                                   n, device="cpu")
+    maxes = torch.zeros(64, dtype=torch.int64)
+    sdirty = torch.zeros(64, dtype=torch.bool)
+    latches = (torch.zeros((), dtype=torch.bool), torch.zeros((), dtype=torch.bool))
+    slots = torch.arange(n, dtype=torch.int32)
+    inserted = torch.ones(n, dtype=torch.bool)
+    ok = df._filter_cuda(table, maxes, sdirty, chunk, chunk.col("p"), slots, inserted, latches)
+    assert ok.shape == (n,) and ok.dtype == torch.bool
+    with pytest.raises(TypeError, match="one int32 or int64 dtype"):
+        df._filter_cuda(table, maxes, sdirty, chunk, chunk.col("p").to(torch.int32), slots,
+                        inserted, latches)
+    assert calls == [("dyn_filter", "rw_dyn_filter")]
+    assert _kernels.LAUNCHES["dyn_filter"] == 1
+
+
+def test_o_entries_marshal(calls):
+    from risingwave_tpu_torch.ops import agg
+
+    table = ht.HashTable.create(64, (torch.int64,), device="cpu")
+    ht._expire_table_cuda(table, torch.zeros(64, dtype=torch.bool), 0, 5)
+    join._expire_keys_cuda(_side(), 0, 5)
+    calls_ = (agg.AggCall("max", "x", "mx"), agg.AggCall("sum", "y", "s"),
+              agg.AggCall("count_star", None, "n"))
+    dtypes = {"x": torch.float32, "y": torch.float64}
+    state = agg.create_state(64, calls_, dtypes, "cpu")
+    fx = agg.float_extreme_meta(calls_, dtypes)
+    for mark_dirty in (False, True):
+        agg._expire_groups_cuda(table, state, calls_, 0, 5, mark_dirty, fx)
+    with pytest.raises(TypeError, match="int32 or int64"):
+        ht._expire_table_cuda(ht.HashTable.create(64, (torch.float64,), device="cpu"),
+                              torch.zeros(64, dtype=torch.bool), 0, 5)
+    assert calls == [("expire", "rw_expire_keys"), ("expire", "rw_expire_join")] + [
+        ("expire", "rw_expire_agg")] * 2
+    assert (_kernels.LAUNCHES["expire"], _kernels.LAUNCHES["expire_join"],
+            _kernels.LAUNCHES["expire_agg"]) == (1, 1, 2)
+    assert agg._init_bits(0xFFFFFFFF, torch.int64) == 0xFFFFFFFF
+    assert agg._init_bits(-(2**63), torch.int64) == -(2**63)
