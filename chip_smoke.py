@@ -16,14 +16,18 @@ Phases, each printing one JSON line:
      M: 65,536 probe rows against that side; H over q8's two join sides
      after phase 8; N: an 8,192-row and a 65,536-row bid chunk into a
      2^22-slot filter table; O: each state kind's expiry at q7's sizes, filter and agg
-     2^22 slots, join side (2^22, 16)), with times;
+     2^22 slots, join side (2^22, 16); P: a 65,536-row U-/U+ flush chunk
+     against a (2^22, 4) side of 1.2M auctions, M's group 2 and L's
+     init_degree on a 65,536-row auction chunk at q101's sizes), with
+     times; then all eight join types at a small shape, the card's
+     executor against one on the CPU;
   4. the interpreted path: Nexmark q5 (hop -> HashAgg -> device MV)
      through ``build_q5_lite(state_cleaning=False)``, chunk by chunk,
      over 20 epochs of 1M events, its final MV held against a numpy
      oracle, and the launch count of each kernel during that run;
   5. with ``--profile N`` only: N epochs of a path again, on fresh
      tables, under ``torch.profiler`` (where the time goes), after each
-     of phases 4, 6, 7, 8, 9 and 10;
+     of phases 4, 6, 7, 8, 9, 10, 11 and 12;
   6. the fused path: the same q5 through ``fuse_pipeline`` (one program
      per barrier, no device read inside it) over phase 4's chunks, its
      MV held against the oracle and phase 4's MV, its staged state
@@ -50,7 +54,19 @@ Phases, each printing one JSON line:
      rounds feeding the join; the watermark outside the program), its
      MV held against phase 9's at every barrier and the actor, its five
      staged digests against ``host_digest`` of the lanes read back and
-     of phase 9's state.
+     of phase 9's state;
+  11. Nexmark q101 interpreted (each auction LEFT OUTER JOIN its
+     maximum bid: a HashAgg MAX on the right whose flush feeds the
+     join, a device MV keyed on the join's stream key (id, auction);
+     agg 2^22 slots, join sides (2^22, 4), MV 2^23, out_cap 2^17) over
+     20 epochs of 1M events, one auction chunk left and 65,536-event bid
+     chunks right per epoch, its final MV held against a numpy oracle;
+  12. q101 fused: the same stream through ``fuse_pipeline`` (one
+     ``FusedTwoInputExecutor`` program per barrier, the agg's flush
+     rounds feeding the join's degree kernel P), its MV held against
+     phase 11's at every barrier and the oracle, its four staged digests
+     against ``host_digest`` of the lanes read back and of phase 11's
+     state.
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. Without a
@@ -97,6 +113,16 @@ Q7_FANOUT = 16
 Q7_OUT_CAP = 1 << 14
 Q7_CHUNK_EVENTS = 8_192
 Q7_COLS = ("auction", "bidder", "price", "date_time")
+# q101 (phases 11-12): tables sized up front by bench.py's _state_cap
+# rule for about 1.2M auctions and 2.4M claimed MV keys (padded rows
+# included); the agg flushes 2^15 groups a round (its default), so a
+# flush chunk holds up to 65,536 U-/U+ rows, and one join emission up to
+# 98,304 pairs and transitions
+Q101_AGG_CAP = 1 << 22
+Q101_JOIN_CAP = 1 << 22
+Q101_FANOUT = 4
+Q101_MV_CAP = 1 << 23
+Q101_OUT_CAP = 1 << 17
 
 
 def emit(obj) -> None:
@@ -1341,10 +1367,11 @@ def kernel_m(torch, dev, rng, side, n: int = A_ROWS, out_cap: int = Q8_OUT_CAP):
         res = []
         for fn in (jn._probe_pairs_cuda, jn._probe_pairs_torch):
             em, rows = z(torch.bool), z(torch.int64)
-            cols, nulls, o_ops, o_valid = fn(side, key_cols, chunk.valid, chunk.ops, own, {},
-                                             out_names, cap_out, em, rows)
-            res.append({**{f"col.{k}": v for k, v in cols.items()}, "ops": o_ops,
-                        "valid": o_valid, "em_overflow": em, "join_rows": rows})
+            pr = fn(side, key_cols, chunk.valid, chunk.ops, own, {}, out_names, (), cap_out, em,
+                    rows)
+            res.append({**{f"col.{k}": v for k, v in pr.cols.items()}, "ops": pr.ops,
+                        "valid": pr.valid, "slots": pr.slots, "mc": pr.mc,
+                        "written": pr.written, "em_overflow": em, "join_rows": rows})
         torch.cuda.synchronize()
         assert_lanes_equal(torch, res[0], res[1], f"M (out_cap {cap_out})")
         err = max(err, max_abs_diff(torch, res[0], res[1]))
@@ -1356,9 +1383,10 @@ def kernel_m(torch, dev, rng, side, n: int = A_ROWS, out_cap: int = Q8_OUT_CAP):
     check(torch.equal(slots_k, slots_p) and torch.equal(found_k, found_p), "M: lookup entry")
     em, rows = z(torch.bool), z(torch.int64)
     ms = time_ms(torch, lambda: jn._probe_pairs_cuda(side, key_cols, chunk.valid, chunk.ops, own,
-                                                     {}, out_names, out_cap, em, rows), 20)
+                                                     {}, out_names, (), out_cap, em, rows), 20)
     plain = time_ms(torch, lambda: jn._probe_pairs_torch(side, key_cols, chunk.valid, chunk.ops,
-                                                         own, {}, out_names, out_cap, em, rows), 5)
+                                                         own, {}, out_names, (), out_cap, em,
+                                                         rows), 5)
     _, match = jn._probe_side_torch(side, key_cols, chunk.valid)
     lib = time_ms(torch, lambda: torch.nonzero(match), 10)
     n_found = int(found_k.sum())
@@ -2184,6 +2212,610 @@ def profile_q7(torch, dev, host, chunks, epochs: int, fused: bool):
     return row
 
 
+# -- phase 3, q101's kernels (P; M's group 2, L's init_degree) and the join matrix --
+def q101_side(torch, dev, names, dtypes, ids, cols, nullable=()):
+    """A (Q101_JOIN_CAP, Q101_FANOUT) join side keyed on ``names[0]``,
+    one row per id, filled through A + L in 65,536-row chunks."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.ops.join import JoinSide, apply_side
+
+    side = JoinSide.create(Q101_JOIN_CAP, Q101_FANOUT, (torch.int64,), dtypes, nullable,
+                           device=dev)
+    for lo in range(0, len(ids), A_ROWS):
+        c = StreamChunk.from_numpy({k: v[lo:lo + A_ROWS] for k, v in cols.items()}, A_ROWS,
+                                   device=dev)
+        apply_side(side, (c.col(names[0]),), {k: c.col(k) for k in names}, {}, c.valid, c.ops,
+                   names)
+    check(not bool(side.overflow) and not bool(side.inconsistent), "q101 side: filled cleanly")
+    return side
+
+
+def probed_lanes(pr) -> dict:
+    """Every lane of a Probed emission, by name."""
+    out = {f"col.{k}": v for k, v in pr.cols.items()}
+    out.update({f"null.{k}": v for k, v in pr.nulls.items()})
+    out.update(ops=pr.ops, valid=pr.valid, slots=pr.slots, mc=pr.mc, written=pr.written)
+    return out
+
+
+def clone_probed(pr):
+    from risingwave_tpu_torch.ops.join import Probed
+
+    return Probed({k: v.clone() for k, v in pr.cols.items()},
+                  {k: v.clone() for k, v in pr.nulls.items()}, pr.ops.clone(), pr.valid.clone(),
+                  pr.slots.clone(), pr.mc.clone(), pr.written.clone())
+
+
+def emitted_rows(pr, lo: int, hi: int) -> list:
+    """Rows lo..hi of an emission chunk as sorted (values..., nulls...,
+    op, valid) tuples: a multiset."""
+    lanes = ([pr.cols[k] for k in sorted(pr.cols)] + [pr.nulls[k] for k in sorted(pr.nulls)]
+             + [pr.ops, pr.valid])
+    a = np.stack([x[lo:hi].cpu().numpy().astype(np.int64) for x in lanes], 1)
+    return sorted(map(tuple, a.tolist()))
+
+
+def kernel_p(torch, dev, rng, n_keys: int = 1_200_000, n: int = A_ROWS):
+    """P against its plain version on a q101-sized right arrival: a
+    65,536-row flush chunk (U-/U+ pairs on stored auctions of degree 1
+    that net to zero, first bids on auctions of degree 0, deletes of
+    degree-1 auctions that go to zero, absent auctions, padding) after
+    M's probe of a (2^22, 4) left side of 1.2M auctions. The degree
+    lane, M's rows, the counters and latch equal; P's transitions equal
+    as a multiset (P writes them in first-match order, the plain version
+    in pid order). Returns the row."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.ops import join as jn
+    from risingwave_tpu_torch.types import Op
+
+    ids = np.arange(n_keys, dtype=np.int64) + 1000
+    items = rng.integers(0, 100_000, n_keys).astype(np.int32)
+    side = q101_side(torch, dev, ("id", "item_name"), {"id": torch.int64,
+                                                       "item_name": torch.int32},
+                     ids, {"id": ids, "item_name": items})
+    pick = rng.permutation(n_keys)
+    n_first, n_pair, n_zero, n_absent = 16_384, 16_384, 8_192, 4_096
+    first, pair, zero = (ids[pick[:n_first]], ids[pick[n_first:n_first + n_pair]],
+                         ids[pick[n_first + n_pair:n_first + n_pair + n_zero]])
+    deg1 = np.concatenate([pair, zero])
+    d_slots, d_found = ht.lookup(side.table, (torch.from_numpy(deg1).to(dev),),
+                                 torch.ones(len(deg1), dtype=torch.bool, device=dev))
+    check(bool(d_found.all()), "P: every degree-1 auction found")
+    side.degree[d_slots.long(), 0] = 1
+    auction = np.concatenate([first, np.repeat(pair, 2), zero,
+                              np.arange(n_absent, dtype=np.int64) + 10**9])
+    ops = np.concatenate([np.full(n_first, Op.INSERT), np.tile([Op.UPDATE_DELETE,
+                                                                 Op.UPDATE_INSERT], n_pair),
+                          np.full(n_zero, Op.DELETE), np.full(n_absent, Op.INSERT)])
+    m = len(auction)
+    price = rng.integers(1, 10**6, m).astype(np.int64)
+    chunk = StreamChunk.from_numpy({"auction": auction, "max_price": price}, n,
+                                   ops=ops.astype(np.int32),
+                                   nulls={"max_price": np.zeros(m, bool)}, device=dev)
+    own = {k: chunk.col(k) for k in ("auction", "max_price")}
+    out_names = ("id", "item_name", "auction", "max_price")
+    z = lambda d: torch.zeros((), dtype=d, device=dev)
+    em, rows = z(torch.bool), z(torch.int64)
+    base = jn.probe_pairs(side, (chunk.col("auction"),), chunk.valid, chunk.ops, own,
+                          {"max_price": chunk.nulls["max_price"]}, out_names, Q101_OUT_CAP, em,
+                          rows, ("auction", "max_price"), True, jn.G2_NONE)
+    deg0 = side.degree.clone()
+    res = []
+    for fn in (jn._degree_emit_cuda, jn._degree_emit_torch):
+        side.degree.copy_(deg0)
+        pr, e, r = clone_probed(base), em.clone(), rows.clone()
+        fn(side, pr, chunk.ops, Q101_OUT_CAP, e, r, jn.G3_OUTER)
+        res.append((pr, e, r, side.degree.clone()))
+    torch.cuda.synchronize()
+    (pk, ek, rk, dk), (pp, ep, rp, dp) = res
+    check(torch.equal(dk, dp), "P: degree lane")
+    w0, w1 = int(base.written), int(pk.written)
+    check(w1 == int(pp.written) and w1 - w0 == n_first + n_zero,
+          f"P: transitions written ({w1 - w0}, want {n_first + n_zero})")
+    check(not bool(ek) and not bool(ep) and int(rk) == int(rp) == w1, "P: latch and join_rows")
+    lanes_k, lanes_p = probed_lanes(pk), probed_lanes(pp)
+    for k in ("slots", "mc", "written"):
+        check(torch.equal(lanes_k.pop(k), lanes_p.pop(k)), f"P: {k}")
+    outside = lambda lanes: {k: torch.cat([v[:w0], v[w1:]]) for k, v in lanes.items()}
+    assert_lanes_equal(torch, outside(lanes_k), outside(lanes_p), "P: M's rows and the tail")
+    check(emitted_rows(pk, w0, w1) == emitted_rows(pp, w0, w1), "P: transitions as a multiset")
+    check(not bool(pk.valid[w1:].any()), "P: nothing past the transitions")
+    went_pos = int((pk.ops[w0:w1] == int(Op.DELETE)).sum())
+    check(went_pos == n_first, "P: a pad retracted per first-time match")
+    err = float((dk - dp).abs().max())
+
+    def setup():
+        side.degree.copy_(deg0)
+
+    work = clone_probed(base)
+    run = lambda fn: fn(side, work, chunk.ops, Q101_OUT_CAP, z(torch.bool), None, jn.G3_OUTER)
+
+    def setup_work():
+        setup()
+        work.written.copy_(base.written)
+
+    ms = time_ms(torch, lambda: run(jn._degree_emit_cuda), 20, setup_work)
+    plain = time_ms(torch, lambda: run(jn._degree_emit_torch), 5, setup_work)
+    side.degree.copy_(deg0)
+    matched = n_first + 2 * n_pair + n_zero
+    distinct = n_first + n_pair + n_zero
+    trans = n_first + n_zero
+    # per probe row its slot and op read and, with a slot, its bucket's
+    # row_valid bytes; per distinct stored row its degree read and
+    # written; per transition its stored lanes (12 B) read and its output
+    # row (id 8, item 4, auction 8 + null 1, max_price 8 + null 1, op 4,
+    # valid 1) written
+    nbytes = n * 8 + (matched - n_pair) * Q101_FANOUT + distinct * 8 + trans * (12 + 35)
+    row = {
+        "name": "P join degree + transitions", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/join_degree.cu",
+        "replaces": "risingwave_tpu/ops/join.py:339 (with :394)",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": None,
+        "shape": {"probe_rows": n, "capacity": side.capacity, "fanout": side.fanout,
+                  "stored": n_keys, "first_matches": n_first, "net_zero_pairs": n_pair,
+                  "went_zero": n_zero, "absent": n_absent, "out_cap": Q101_OUT_CAP,
+                  "m_rows": w0, "transitions": w1 - w0},
+        "group3_order": "multiset (P: first-match order; plain: pid order)",
+    }
+    del side, base, res
+    return row, ids, items
+
+
+def kernel_m_outer_l_init(torch, dev, rng, ids, items, n: int = A_ROWS):
+    """M with group 2 and L with init_degree, at q101's left arrival: a
+    65,536-row auction chunk (half with a stored max bid, half without)
+    probing a (2^22, 4) right side of the 1.2M auctions' max bids (M:
+    the pairs, then the NULL-padded rows), then folded into the left
+    side of those auctions with each row's degree its match count (L,
+    after kernel A). Every lane equal. Returns the two rows."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.ops import join as jn
+
+    n_keys = len(ids)
+    with_bid = ids[rng.random(n_keys) < 0.9]
+    right = q101_side(torch, dev, ("auction", "max_price"),
+                      {"auction": torch.int64, "max_price": torch.int64}, with_bid,
+                      {"auction": with_bid,
+                       "max_price": rng.integers(1, 10**6, len(with_bid)).astype(np.int64)},
+                      nullable=("max_price",))
+    half = n // 2
+    c_ids = np.concatenate([rng.choice(with_bid, half, replace=False),
+                            np.arange(n - 16 - half, dtype=np.int64) + 10**9])
+    c_items = rng.integers(0, 100_000, len(c_ids)).astype(np.int32)
+    chunk = StreamChunk.from_numpy({"id": c_ids, "item_name": c_items}, n, device=dev)
+    own = {k: chunk.col(k) for k in ("id", "item_name")}
+    out_names = ("id", "item_name", "auction", "max_price")
+    null_names = ("auction", "max_price")
+    z = lambda d: torch.zeros((), dtype=d, device=dev)
+    key = (chunk.col("id"),)
+    res = []
+    for fn in (jn._probe_pairs_cuda, jn._probe_pairs_torch):
+        em, rows = z(torch.bool), z(torch.int64)
+        pr = fn(right, key, chunk.valid, chunk.ops, own, {}, out_names, null_names, Q101_OUT_CAP,
+                em, rows, True, jn.G2_OUTER)
+        res.append({**probed_lanes(pr), "em_overflow": em, "join_rows": rows})
+    torch.cuda.synchronize()
+    assert_lanes_equal(torch, res[0], res[1], "M with group 2")
+    written = int(res[0]["written"])
+    check(written == len(c_ids) and int(res[0]["join_rows"]) == written,
+          "M with group 2: one row per auction (its pair or its pad)")
+    m_err = max_abs_diff(torch, res[0], res[1])
+    em, rows = z(torch.bool), z(torch.int64)
+    m_run = lambda fn: fn(right, key, chunk.valid, chunk.ops, own, {}, out_names, null_names,
+                          Q101_OUT_CAP, em, rows, True, jn.G2_OUTER)
+    m_ms = time_ms(torch, lambda: m_run(jn._probe_pairs_cuda), 20)
+    m_plain = time_ms(torch, lambda: m_run(jn._probe_pairs_torch), 5)
+    n_found = int((res[0]["slots"] >= 0).sum())
+    # per probe row its key, item, valid and ops read, one probe (fp1,
+    # fp2, key, live: 17 B), slots and mc written; per hit its bucket's
+    # row_valid and its pair's stored lanes (16 B + null); the out_cap
+    # rows (id 8, item 4, auction 8 + 1, max_price 8 + 1, op 4, valid 1)
+    # written
+    m_bytes = n * (8 + 4 + 1 + 4 + 17 + 8) + n_found * (Q101_FANOUT + 17) + Q101_OUT_CAP * 35
+    mc = res[0]["mc"]
+    del right, res
+
+    names = ("id", "item_name")
+    left = q101_side(torch, dev, names, {"id": torch.int64, "item_name": torch.int32}, ids,
+                     {"id": ids, "item_name": items})
+    _, slots, _, _ = ht.lookup_or_insert(left.table, key, chunk.valid)
+    base = clone_side(left)
+    got, want = clone_side(base), clone_side(base)
+    jn._apply_side_cuda(got, slots, own, {}, chunk.valid, chunk.ops, names, mc)
+    jn._apply_side_torch(want, slots, own, {}, chunk.valid, chunk.ops, names, mc)
+    torch.cuda.synchronize()
+    lanes_k, lanes_p = side_lanes(got), side_lanes(want)
+    assert_lanes_equal(torch, lanes_k, lanes_p, "L with init_degree")
+    check(int(got.degree.sum()) == half, "L: each matched auction's degree is its match count")
+    l_err = max_abs_diff(torch, lanes_k, lanes_p)
+    work = clone_side(base)
+    setup = lambda: restore_side(work, base)
+    l_ms = time_ms(torch, lambda: jn._apply_side_cuda(work, slots, own, {}, chunk.valid,
+                                                      chunk.ops, names, mc), 10, setup)
+    l_plain = time_ms(torch, lambda: jn._apply_side_torch(work, slots, own, {}, chunk.valid,
+                                                          chunk.ops, names, mc), 3, setup)
+    m = len(c_ids)
+    m_row = {
+        "name": "M join probe + group 2 (left outer arrival)", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/join_probe.cu",
+        "replaces": "risingwave_tpu/ops/join.py:407,420,429 with executors/hash_join.py:174-195",
+        "max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain, "bound_ms": bound_ms(m_bytes),
+        "bound_by": "bytes", "library_ms": None,
+        "shape": {"probe_rows": n, "capacity": Q101_JOIN_CAP, "fanout": Q101_FANOUT,
+                  "stored": len(with_bid), "found": n_found, "rows_written": written,
+                  "out_cap": Q101_OUT_CAP},
+    }
+    l_row = {
+        "name": "L join apply + init_degree", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/join_apply.cu",
+        "replaces": "risingwave_tpu/ops/join.py:215 (init_degree :289-299)",
+        "max_abs_err": l_err, "ms": l_ms, "plain_ms": l_plain,
+        # per row valid, ops, slot, init_degree and 12 payload bytes
+        # read; per insert its bucket's row_valid read, sdirty and live
+        # written, its entry (12 + 1 + 4 B) written
+        "bound_ms": bound_ms(n * (1 + 4 + 4 + 4 + 12) + m * (Q101_FANOUT + 2) + m * 17),
+        "bound_by": "bytes", "library_ms": None,
+        "shape": {"rows": n, "capacity": Q101_JOIN_CAP, "fanout": Q101_FANOUT,
+                  "stored_keys": len(ids), "inserts": m, "matched": half},
+    }
+    del left, base, got, want, work
+    return m_row, l_row
+
+
+def join_types_on_card(torch, dev, rng, steps: int = 12, n: int = 2048):
+    """Every type of JOIN_TYPES at a small shape: the same random
+    insert/delete stream (chunks of ``n`` rows, alternating sides at
+    random, deletes only of stored rows) through an executor on the card
+    (kernels A, M, P, L) and one on the CPU (their plain versions); per
+    chunk the emission multisets, the latch and both sides' digests
+    equal. Returns the check row."""
+    import collections
+
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.executors.hash_join import JOIN_TYPES, HashJoinExecutor
+    from risingwave_tpu_torch.types import Op
+
+    dt = {"l": {"lk": torch.int64, "lv": torch.int64}, "r": {"rk": torch.int64,
+                                                           "rv": torch.int32}}
+    rows_out = {}
+    for jt in JOIN_TYPES:
+        exs = [HashJoinExecutor(("lk",), ("rk",), dt["l"], dt["r"], capacity=1 << 13,
+                                fanout=32, out_cap=1 << 16, right_nullable=("rv",),
+                                join_type=jt, device=d) for d in (dev, "cpu")]
+        stored = {"l": [], "r": []}
+        total = 0
+        for step in range(steps):
+            side = "l" if rng.random() < 0.5 else "r"
+            k = rng.integers(0, 2048, n).astype(np.int64)
+            v = rng.integers(0, 4, n)
+            ops = np.zeros(n, np.int32)
+            nul = rng.random(n) < 0.2
+            pool = stored[side]
+            n_del = min(len(pool), n // 4) if step > 1 else 0
+            if n_del:
+                take = rng.choice(len(pool), n_del, replace=False)
+                for j, t in enumerate(take):
+                    k[j], v[j], nul[j] = pool[t]
+                    ops[j] = Op.DELETE
+                keep = np.ones(len(pool), bool)
+                keep[take] = False
+                pool[:] = [p for p, ok in zip(pool, keep) if ok]
+            pool.extend((int(a), int(b), bool(c)) for a, b, c in
+                        zip(k[n_del:], v[n_del:], nul[n_del:]))
+            names = ("lk", "lv") if side == "l" else ("rk", "rv")
+            cols = {names[0]: k, names[1]: v.astype(np.int64 if side == "l" else np.int32)}
+            nulls = {"rv": nul} if side == "r" else None
+            got = []
+            for ex in exs:
+                c = StreamChunk.from_numpy(cols, n, ops=ops, nulls=nulls, device=ex.device)
+                (out,) = (ex.apply_left if side == "l" else ex.apply_right)(c)
+                d = out.to_numpy(with_ops=True)
+                ms = collections.Counter(zip(*[
+                    np.where(d[nm + "__null"], -1, d[nm]) if nm + "__null" in d else d[nm]
+                    for nm in ex.out_names], d["__op__"]))
+                got.append((ms, ex.side_digests(), bool(ex._em_overflow)))
+            total += sum(got[0][0].values())
+            check(got[0][0] == got[1][0], f"join types: {jt} emission at step {step}")
+            check(got[0][1] == got[1][1], f"join types: {jt} side digests at step {step}")
+            check(got[0][2] == got[1][2] == False, f"join types: {jt} no emission overflow")
+        for ex in exs:
+            ex.on_barrier(None)
+        if jt != "inner":
+            check(bool((exs[0].left.degree != 0).any() | (exs[0].right.degree != 0).any()),
+                  f"join types: {jt} keeps degrees")
+        rows_out[jt] = total
+    return {"phase": "kernel_join_types", "steps": steps, "chunk_rows": n,
+            "capacity": 1 << 13, "fanout": 32, "rows_emitted": rows_out,
+            "check": "card (A, M, P, L) vs CPU (plain versions), per chunk: emission "
+                     "multisets, latch, both sides' host_digest: equal"}
+
+
+# -- phases 11 and 12: q101 ----------------------------------------------------
+def q101_stream(torch, dev, epochs: int):
+    """Per epoch, 1M events generated in 65,536-event pieces: the
+    auctions (id, item_name) batched into one chunk of A_ROWS rows, the
+    bids (auction, price) one chunk per piece. Returns the host columns
+    and the chunks on the card."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig, NexmarkGenerator
+
+    gen = NexmarkGenerator(NexmarkConfig(first_event_rate=EVENT_RATE), seed=SEED)
+    host, chunks = [], []
+    for _ in range(epochs):
+        a_parts, bids, done = [], [], 0
+        while done < EVENTS_PER_EPOCH:
+            n = min(CHUNK_EVENTS, EVENTS_PER_EPOCH - done)
+            done += n
+            ev = gen.next_events(n)
+            a_parts.append({k: ev["auction"][k] for k in ("id", "item_name")})
+            if len(ev["bid"]["auction"]):
+                bids.append({k: ev["bid"][k] for k in ("auction", "price")})
+        a = {k: np.concatenate([p[k] for p in a_parts]) for k in ("id", "item_name")}
+        check(len(a["id"]) <= A_ROWS, "q101: an epoch's auctions fit one chunk")
+        host.append((a, bids))
+        chunks.append((StreamChunk.from_numpy(a, A_ROWS, device=dev),
+                       [StreamChunk.from_numpy(b, CHUNK_EVENTS, device=dev) for b in bids]))
+    return host, chunks
+
+
+def q101_oracle_rows(host) -> np.ndarray:
+    """Every auction with its item and its maximum bid, or NULL without
+    one, as sorted (id, auction, item_name, max_price, max_price_null)
+    rows keyed on the stream key: an unmatched auction's NULL auction
+    lane holds 0, as the MV stores it."""
+    ids = np.concatenate([a["id"] for a, _ in host])
+    items = np.concatenate([a["item_name"] for a, _ in host]).astype(np.int64)
+    b_auc = np.concatenate([b["auction"] for _, bs in host for b in bs])
+    b_price = np.concatenate([b["price"] for _, bs in host for b in bs])
+    u, inv = np.unique(b_auc, return_inverse=True)
+    mx = np.full(len(u), np.iinfo(np.int64).min)
+    np.maximum.at(mx, inv, b_price)
+    pos = np.clip(np.searchsorted(u, ids), 0, len(u) - 1)
+    has = u[pos] == ids
+    rows = np.stack([ids, np.where(has, ids, 0), items, np.where(has, mx[pos], 0),
+                     (~has).astype(np.int64)], 1)
+    return rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+
+
+def q101_mv_rows(mview) -> np.ndarray:
+    got = mview.to_numpy()
+    nul = got["max_price__null"]
+    rows = np.stack([got["id"], got["auction"], got["item_name"].astype(np.int64),
+                     np.where(nul, 0, got["max_price"]), nul.astype(np.int64)], 1)
+    return rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+
+
+class Q101:
+    """The q101 plan from the port's executors (the JAX package has no
+    ``build_q101``): auctions left (no executor), HashAgg MAX(price) by
+    auction right, a LEFT OUTER HashJoin on id = auction, a device MV
+    keyed on the join's stream key (id, auction)."""
+
+    def __init__(self, torch, dev):
+        from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
+        from risingwave_tpu_torch.executors.hash_join import HashJoinExecutor
+        from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
+        from risingwave_tpu_torch.ops.agg import AggCall
+        from risingwave_tpu_torch.runtime.pipeline import TwoInputPipeline
+
+        i64 = torch.int64
+        self.agg = HashAggExecutor(
+            group_keys=("auction",), calls=(AggCall("max", "price", "max_price"),),
+            schema_dtypes={"auction": i64, "price": i64}, capacity=Q101_AGG_CAP,
+            out_cap=OUT_CAP, table_id="q101.maxbid", device=dev)
+        self.join = HashJoinExecutor(
+            left_keys=("id",), right_keys=("auction",),
+            left_dtypes={"id": i64, "item_name": torch.int32},
+            right_dtypes={"auction": i64, "max_price": i64}, capacity=Q101_JOIN_CAP,
+            fanout=Q101_FANOUT, out_cap=Q101_OUT_CAP, right_nullable=("max_price",),
+            join_type="left", table_id="q101.join", device=dev)
+        self.mview = DeviceMaterializeExecutor(
+            pk=("id", "auction"), columns=("item_name", "max_price"),
+            schema_dtypes={"id": i64, "item_name": torch.int32, "auction": i64,
+                           "max_price": i64},
+            nullable=("max_price",), capacity=Q101_MV_CAP, table_id="q101.mview", device=dev)
+        self.pipeline = TwoInputPipeline([], [self.agg], self.join, [self.mview])
+
+
+def q101_digests(q) -> dict:
+    """numpy host_digest of each of q101's four states, read back."""
+    from risingwave_tpu_torch import integrity
+
+    host = lambda lanes_live: integrity.host_digest(*integrity.host_lanes(*lanes_live))
+    jl, jr = q.join.side_digests()
+    return {"right": host(integrity.agg_lanes(q.agg.table, q.agg.state, q.agg._float_extremes)),
+            "join_left": jl, "join_right": jr,
+            "mv": host(integrity.mv_lanes(q.mview.table, q.mview.state))}
+
+
+def packed_join_digests(q) -> dict:
+    """host_digest of each join side with every bucket's live entries
+    packed to the front, in position order: the side's content without
+    its bucket positions. A rebuild (``regrow``) packs the entries it
+    moves, and the fused run's host bound (the flush rounds' padded
+    rows) rebuilds the right side late in the run where the interpreted
+    run does not, so the two runs' positions, and their plain digests,
+    can differ while every key holds the same rows and degrees."""
+    from risingwave_tpu_torch import integrity
+
+    out = {}
+    for name, side in (("join_left", q.join.left), ("join_right", q.join.right)):
+        lanes, live = integrity.host_lanes(*integrity.join_side_lanes(side))
+        rv = lanes["rv"]
+        order = np.argsort(~rv, axis=1, kind="stable")
+        packed = {k: np.take_along_axis(v, order, 1) if v.shape == rv.shape else v
+                  for k, v in lanes.items()}
+        out[name] = integrity.host_digest(packed, live)
+    return out
+
+
+def run_q101(torch, dev, chunks, fused: bool):
+    """q101 over the chunks (each epoch's auction chunk pushed left, then
+    its bid chunks right, then a barrier), timed; after each barrier
+    (untimed) a hash of the sorted MV rows. Returns the query and a
+    record."""
+    import hashlib
+
+    from risingwave_tpu_torch import _kernels
+    from risingwave_tpu_torch.runtime.fused_step import FusedTwoInputExecutor, fuse_pipeline
+
+    q = Q101(torch, dev)
+    if fused:
+        wrappers = fuse_pipeline(q.pipeline, label="q101")
+        check(len(wrappers) == 1 and isinstance(wrappers[0], FusedTwoInputExecutor),
+              "q101 fused: one FusedTwoInputExecutor")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    rec = {"barrier_ms": [], "push_ms": [], "barrier_launches": [], "flush_rounds": [],
+           "mv_hashes": []}
+    run_s = 0.0
+    for a, bids in chunks:
+        t0 = time.perf_counter()
+        q.pipeline.push_left(a)
+        for b in bids:
+            q.pipeline.push_right(b)
+        before = dict(_kernels.LAUNCHES)
+        tb = time.perf_counter()
+        q.pipeline.barrier()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rec["push_ms"].append((tb - t0) * 1e3)
+        rec["barrier_ms"].append((t1 - tb) * 1e3)
+        rec["barrier_launches"].append(sum(_kernels.LAUNCHES.values()) - sum(before.values()))
+        rec["flush_rounds"].append(_kernels.LAUNCHES["agg_flush"] - before["agg_flush"])
+        run_s += t1 - t0
+        rows = q101_mv_rows(q.mview)
+        rec["mv_hashes"].append(hashlib.sha256(rows.tobytes()).hexdigest())
+    rec.update(run_s=run_s, launches=dict(_kernels.LAUNCHES),
+               peak=torch.cuda.max_memory_allocated(), final_rows=rows)
+    return q, rec
+
+
+Q101_KERNELS = ("lookup_or_insert", "agg_flush", "mv_upsert", "join_apply", "join_probe",
+                "join_degree")
+
+
+def q101_row(phase, host, q, rec) -> dict:
+    auctions = sum(len(a["id"]) for a, _ in host)
+    bids = sum(len(b["auction"]) for _, bs in host for b in bs)
+    return {
+        "phase": phase, "epochs": len(host), "events": len(host) * EVENTS_PER_EPOCH,
+        "auctions": auctions, "bids": bids, "bid_chunks": sum(len(bs) for _, bs in host),
+        "chunk_capacity": {"auction": A_ROWS, "bid": CHUNK_EVENTS},
+        "rows_per_s": (auctions + bids) / rec["run_s"], "run_s": rec["run_s"],
+        "barrier_ms_p50": float(np.percentile(rec["barrier_ms"], 50)),
+        "barrier_ms_p99": float(np.percentile(rec["barrier_ms"], 99)),
+        "barrier_ms": rec["barrier_ms"], "push_ms": rec["push_ms"],
+        "launches_per_barrier": rec["barrier_launches"],
+        "flush_rounds_per_barrier": rec["flush_rounds"],
+        "capacity": {"agg": q.agg.table.capacity, "join_left": q.join.left.capacity,
+                     "join_right": q.join.right.capacity, "mv": q.mview.table.capacity},
+        "fanout": q.join.left.fanout, "out_cap": q.join.out_cap,
+        "mv_rows": int(len(rec["final_rows"])),
+        "unmatched": int(rec["final_rows"][:, 4].sum()),
+        "max_memory_allocated": int(rec["peak"]), "launches": rec["launches"],
+    }
+
+
+def q101_path(torch, dev, epochs: int):
+    """Phase 11: q101 interpreted (the auction chunk through the join,
+    each bid chunk through the agg, the agg's flush at the barrier as
+    right arrivals), its final MV against the numpy oracle."""
+    t0 = time.perf_counter()
+    host, chunks = q101_stream(torch, dev, epochs)
+    oracle = q101_oracle_rows(host)
+    setup_s = time.perf_counter() - t0
+    q, rec = run_q101(torch, dev, chunks, fused=False)
+    got = rec["final_rows"]
+    check(got.shape == oracle.shape and np.array_equal(got, oracle),
+          f"q101: MV ({len(got)} rows) vs the oracle ({len(oracle)} rows)")
+    for name in Q101_KERNELS:
+        check(rec["launches"][name] > 0, f"kernel {name} launched on q101's interpreted path")
+    row = q101_row("q101", host, q, rec)
+    row.update(setup_s=setup_s, oracle="numpy: every auction with its item and its maximum "
+               "bid, or NULL: equal")
+    return row, rec["launches"], (host, chunks, q, rec, oracle)
+
+
+def q101_fused_path(torch, dev, host, chunks, interp, oracle):
+    """Phase 12: q101 through ``fuse_pipeline``: one program per barrier
+    (the auction chunk M, P, A, L and A, D; the bid epoch F, A, G; then
+    the agg's flush rounds, each C, M, P, A, L, A, D; then four H),
+    run under ``no_device_reads``."""
+    check_sync_guard(torch, dev)
+    interp_q, interp_rec = interp
+    q, rec = run_q101(torch, dev, chunks, fused=True)
+    w = q.pipeline._fused
+    check(np.array_equal(rec["final_rows"], oracle), "q101 fused: MV vs the oracle")
+    for e, (a, b) in enumerate(zip(rec["mv_hashes"], interp_rec["mv_hashes"])):
+        check(a == b, f"q101 fused: MV vs phase 11's MV at barrier {e}")
+    lane_digests = q101_digests(q)
+    check(w.last_digests == lane_digests,
+          f"q101 fused: staged digests {w.last_digests} vs host_digest {lane_digests}")
+    interp_digests = q101_digests(interp_q)
+    for name in ("right", "mv"):
+        check(lane_digests[name] == interp_digests[name], f"q101 fused: {name} digest vs phase 11's")
+    # a join side rebuilt in one run only holds its entries at other
+    # bucket positions: compare its content then (packed_join_digests)
+    packed = packed_join_digests(q)
+    interp_packed = packed_join_digests(interp_q)
+    side_check = {}
+    for name, side, other in (("join_left", q.join.left, interp_q.join.left),
+                              ("join_right", q.join.right, interp_q.join.right)):
+        if side.capacity == other.capacity:
+            check(lane_digests[name] == interp_digests[name],
+                  f"q101 fused: {name} digest vs phase 11's")
+            side_check[name] = "digest equal"
+        else:
+            side_check[name] = f"rebuilt {other.capacity} -> {side.capacity} in this run: packed"
+        check(packed[name] == interp_packed[name],
+              f"q101 fused: {name} content (packed digest) vs phase 11's")
+    for name in Q101_KERNELS + ("state_digest", "reduce_by_key", "apply_reduced"):
+        check(rec["launches"][name] > 0, f"kernel {name} launched on q101's fused path")
+    tel = w.last_telemetry
+    a_last, b_last = host[-1]
+    check(tel["rows_left"] == len(a_last["id"]) and
+          tel["rows_right"] == sum(len(b["auction"]) for b in b_last),
+          "q101 fused: rows_left / rows_right = the last epoch's auctions / bids")
+    check(tel["join_rows"] == tel["mv_rows"], "q101 fused: every join row reached the MV")
+    row = q101_row("q101_fused", host, q, rec)
+    row.update(
+        last_telemetry=tel, digests={k: f"{v:016x}" for k, v in lane_digests.items()},
+        sync_guard="set_sync_debug_mode('error') over the program part of every barrier: held",
+        join_side_check=side_check,
+        oracle="numpy oracle and phase 11's MV at every barrier: equal; staged digests = "
+               "host_digest of the lanes read back; agg and MV digests = phase 11's; each "
+               "join side's digest = phase 11's, or, where one run rebuilt it, its packed "
+               "digest = phase 11's",
+    )
+    return row, rec["launches"], q
+
+
+def profile_q101(torch, dev, chunks, epochs: int, fused: bool):
+    """Phase 11's (or, ``fused``, phase 12's) run profiled on a fresh
+    q101 over the same chunks."""
+    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline
+
+    q = Q101(torch, dev)
+    if fused:
+        fuse_pipeline(q.pipeline, label="q101")
+
+    def push(pipeline, ep):
+        pipeline.push_left(ep[0])
+        for b in ep[1]:
+            pipeline.push_right(b)
+
+    row = profile_epochs(torch, "q101_fused_profile" if fused else "q101_profile", q.pipeline,
+                         push, chunks, epochs)
+    row["rows"] = sum(int(a.valid.sum()) + sum(int(b.valid.sum()) for b in bs)
+                      for a, bs in chunks[1 : 1 + epochs])
+    return row
+
+
 # -- phase 4: the interpreted path --------------------------------------------
 def state_cap(expected_rows: int, floor: int) -> int:
     """Capacity whose growth margin covers the expected volume (the
@@ -2562,6 +3194,16 @@ def main() -> int:
     for r in o_rows:
         emit({"phase": "kernel", **r})
     torch.cuda.empty_cache()
+    p_row, q101_ids, q101_items = kernel_p(torch, dev, rng)
+    emit({"phase": "kernel", **p_row})
+    torch.cuda.empty_cache()
+    mo_row, li_row = kernel_m_outer_l_init(torch, dev, rng, q101_ids, q101_items)
+    emit({"phase": "kernel", **mo_row})
+    emit({"phase": "kernel", **li_row})
+    del q101_ids, q101_items
+    torch.cuda.empty_cache()
+    emit(join_types_on_card(torch, dev, rng))
+    torch.cuda.empty_cache()
 
     q5_row, l4, (chunks, cap, interp_q5, oracle) = main_path(torch, dev, EPOCHS)
     emit(q5_row)
@@ -2608,16 +3250,33 @@ def main() -> int:
     if args.profile:
         torch.cuda.empty_cache()
         emit(profile_q7(torch, dev, q7_host, q7_chunks, args.profile, fused=True))
+    del q7_host, q7_chunks, interp_rec
+    torch.cuda.empty_cache()
+
+    q101_row11, l11, (h101, c101, interp_q101, rec101, oracle101) = q101_path(torch, dev, EPOCHS)
+    emit(q101_row11)
+    if args.profile:
+        emit(profile_q101(torch, dev, c101, args.profile, fused=False))
+        torch.cuda.empty_cache()
+    q101_row12, l12, fused_q101 = q101_fused_path(torch, dev, h101, c101, (interp_q101, rec101),
+                                                  oracle101)
+    emit(q101_row12)
+    del interp_q101, fused_q101
+    if args.profile:
+        torch.cuda.empty_cache()
+        emit(profile_q101(torch, dev, c101, args.profile, fused=True))
 
     rows = [(a_row, "lookup_or_insert"), (b_row, "agg_apply"), (c_row, "agg_flush"),
             (d_row, "mv_upsert"), (e_row, "hop_expand"), (f_row, "reduce_by_key"),
             (g_row, "apply_reduced"), (h_row, "state_digest"), (hj_row, "state_digest"),
             (i_row, "slot_move"), (j_row, "dedup_emit"), (l_row, "join_apply"),
             (lr_row, "join_regrow"), (m_row, "join_probe"), (n_row, "dyn_filter"),
-            (o_rows[0], "expire"), (o_rows[1], "expire_join"), (o_rows[2], "expire_agg")]
-    paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8, "q7": l9, "q7_fused": l10}
+            (o_rows[0], "expire"), (o_rows[1], "expire_join"), (o_rows[2], "expire_agg"),
+            (p_row, "join_degree"), (mo_row, "join_probe"), (li_row, "join_apply")]
+    paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8, "q7": l9, "q7_fused": l10,
+             "q101": l11, "q101_fused": l12}
     for row, key in rows:
-        # each main path's run counts from zero: phases 4, 6, 7, 8, 9 and 10
+        # each main path's run counts from zero: phases 4, 6, 7, 8, 9, 10, 11 and 12
         row["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -10,7 +10,7 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
-A, C, D, E, F, G, H, J, L, M, N and O (an entry point may launch several
+A, C, D, E, F, G, H, J, L, M, N, O and P (an entry point may launch several
 kernels in order on the stream), two per call of B (the apply and its
 set_live), one per 24 lanes moved by a call of I; the entry points of
 ``ENTRY_KEYS`` count under their own names.
@@ -49,6 +49,7 @@ SOURCES = {
     "dedup_emit": "dedup_emit.cu",
     "join_apply": "join_apply.cu",
     "join_probe": "join_probe.cu",
+    "join_degree": "join_degree.cu",
     "dyn_filter": "dyn_filter.cu",
     "expire": "expire.cu",
 }
@@ -90,13 +91,17 @@ SIGNATURES = {
         "rw_dedup_emit": [_L, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P],
     },
     "join_apply": {
-        "rw_join_apply": [_P, _I, _L, _P, _P, _P, _I] + [_P] * 11 + [_L, _P],
+        "rw_join_apply": [_P, _I, _L, _P, _P, _P, _I] + [_P] * 12 + [_L, _P],
         "rw_join_regrow": [_P, _I, _L, _I, _I, _P, _P, _P, _P, _P],
     },
     "join_probe": {
         "rw_lookup": [_P, _I, _L, _P, _P, _P, _P, _L, _P, _P, _P],
         "rw_join_probe": [_P, _I, _L, _P, _P, _P, _P, _P, _L, _P, _I, _P, _I, _I]
-        + [_P] * 7 + [_P],
+        + [_P] * 8 + [_I, _I, _P],
+    },
+    "join_degree": {
+        "rw_join_degree": [_L, _P, _P, _P, _I, _L, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                           _L, _P],
     },
     "dyn_filter": {
         "rw_dyn_filter": [_L, _P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _P, _P, _P, _P],

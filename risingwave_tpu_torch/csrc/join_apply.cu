@@ -14,7 +14,9 @@
 //     bucket as it was before the chunk, rank = the number of earlier
 //     inserting rows of the chunk with the same slot; no such position
 //     latches overflow. It writes the payload and null lanes, sets
-//     row_valid and zeroes the degree;
+//     row_valid and seeds the degree with init_degree[row] (the row's
+//     match count on the other side, kernel M's mc; outer, semi and anti
+//     joins), or 0 without it (:289-299);
 //   - then a deleting row clears the (rank+1)-th entry of its bucket
 //     that equals it exactly (NaN == NaN, NULL == NULL), rank = the
 //     number of earlier deleting rows with the same slot and the same
@@ -182,7 +184,8 @@ __global__ void ja_place_kernel(int64_t n, const uint8_t* valid, const int32_t* 
 }
 
 __global__ void ja_insert_kernel(PayLanes P, int64_t n, const uint8_t* valid, const int32_t* ops,
-                                 const int32_t* target, uint8_t* row_valid, int32_t* degree) {
+                                 const int32_t* target, uint8_t* row_valid, int32_t* degree,
+                                 const int32_t* init_degree) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n || ja_kind(valid, ops, i) != 1) return;
   const int64_t t = target[i];
@@ -199,7 +202,7 @@ __global__ void ja_insert_kernel(PayLanes P, int64_t n, const uint8_t* valid, co
       P.dst_null[l][t] = P.src_null[l] != nullptr && P.src_null[l][i] ? 1 : 0;
   }
   row_valid[t] = 1;
-  degree[t] = 0;
+  degree[t] = init_degree != nullptr ? init_degree[i] : 0;
 }
 
 __device__ __forceinline__ bool ja_value_equal(const void* stored, const void* val, int dt,
@@ -276,13 +279,14 @@ __global__ void ja_live_kernel(int64_t n, const uint8_t* valid, const int32_t* s
 }
 
 // pay: n_pay rows of (src, src_null or 0, dtype code, dst, dst_null or
-// 0), int64, in the side's payload-name order; valid/ops: the chunk's
+// 0), int64, in the side's payload-name order; init_degree: (n,) int32
+// or null; valid/ops: the chunk's
 // touching rows and ops; slots: kernel A's over valid; fps (2n uint32),
 // grp and target (n int32), owner (n_groups int32) and first
 // (n_groups * fanout int32): scratch, n_groups a power of two >= 2n.
 RW_EXPORT int rw_join_apply(const int64_t* pay, int n_pay, int64_t n, const void* valid,
                             const void* ops, const void* slots, int fanout, void* row_valid,
-                            void* degree, void* live, void* sdirty, void* overflow,
+                            void* degree, const void* init_degree, void* live, void* sdirty, void* overflow,
                             void* inconsistent, void* fps, void* grp, void* target, void* owner,
                             void* first, int64_t n_groups, void* stream) {
   if (n_pay < 0 || n_pay > JA_MAX_PAY || fanout < 1 || n_groups < 2 * n ||
@@ -317,7 +321,8 @@ RW_EXPORT int rw_join_apply(const int64_t* pay, int n_pay, int64_t n, const void
   ja_group_kernel<<<blocks, threads, 0, st>>>(n, v, o, sl, fp, ow, fi, n_groups, fanout, gr);
   ja_place_kernel<<<blocks, threads, 0, st>>>(n, v, o, sl, fi, gr, rv, fanout, tg,
                                               (uint8_t*)overflow);
-  ja_insert_kernel<<<blocks, threads, 0, st>>>(P, n, v, o, tg, rv, (int32_t*)degree);
+  ja_insert_kernel<<<blocks, threads, 0, st>>>(P, n, v, o, tg, rv, (int32_t*)degree,
+                                               (const int32_t*)init_degree);
   ja_select_delete_kernel<<<blocks, threads, 0, st>>>(P, n, v, o, sl, fi, gr, rv, fanout, tg,
                                                       (uint8_t*)inconsistent);
   ja_delete_kernel<<<blocks, threads, 0, st>>>(n, v, o, tg, rv, (int32_t*)degree);

@@ -1,21 +1,28 @@
 """HashJoin executor — streaming two-sided equi-join with retraction.
 
-Port of the inner-join part of ``risingwave_tpu/executors/hash_join.py``
-(``join_step_fn`` :91, ``HashJoinExecutor`` :290, ``_plan_side_at_barrier``
+Port of ``risingwave_tpu/executors/hash_join.py`` (``JOIN_TYPES`` :79,
+``join_step_fn`` :91, ``HashJoinExecutor`` :290, ``_plan_side_at_barrier``
 :809, ``_on_barrier_scalars`` :832, ``on_watermark`` :858,
 ``_join_digest_lanes`` and ``_join_state_digest`` :1102-1130). Reference:
-src/stream/src/executor/hash_join.rs:129 — each arriving chunk probes
-the other side, emitting one row per (probe row, stored match) with the
-probe row's sign, then updates its own side's multiset state.
+src/stream/src/executor/hash_join.rs:129 with the degree tables of
+join/hash_join.rs:157 — INNER, LEFT/RIGHT/FULL OUTER, LEFT/RIGHT SEMI
+and LEFT/RIGHT ANTI. Each arriving chunk probes the other side and
+emits, then updates its own side's multiset state.
 
-Per chunk: kernel M probes the other side and compacts the pairs into a
-fixed ``out_cap`` chunk, then kernels A and L fold the chunk into its
-own side (``ops/join.py``). Latches (bucket overflow, inconsistent
+Per chunk, three emission groups in one fixed ``out_cap`` chunk, in
+the reference's order: kernel M writes the pairs (one row per (probe
+row, stored match), the probe row's sign) and then group 2 (the probe
+rows judged by their match count: an outer join's NULL-padded rows,
+semi or anti rows); kernel P bumps the other side's per-row degrees by
+the chunk's net signed matches and writes group 3 (the stored rows
+whose degree crossed zero: an outer join's pad retracted or revived, a
+semi or anti row emitted or retracted). Then kernels A and L fold the
+chunk into its own side, an inserted row's degree seeded with its
+match count (``ops/join.py``). Latches (bucket overflow, inconsistent
 deletes, emission overflow) stay on the device and raise at the barrier.
 A watermark on a window column expires that side's closed keys (kernel
-O). Only ``join_type="inner"`` is ported: the degree-driven outer, semi
-and anti joins (``degree_apply``) raise NotImplementedError; the cold
-tier and checkpoint/restore are not ported.
+O). The cold tier and checkpoint/restore are not ported;
+``load_reference_state`` takes over a reference executor's sides.
 """
 
 from __future__ import annotations
@@ -29,8 +36,17 @@ from risingwave_tpu_torch.array.chunk import StreamChunk
 from risingwave_tpu_torch.executors.base import Executor, Watermark
 from risingwave_tpu_torch.ops.hash_table import read_scalars, stage_scalars
 from risingwave_tpu_torch.ops.join import (
+    G2_ANTI,
+    G2_NONE,
+    G2_OUTER,
+    G2_SEMI,
+    G3_ANTI,
+    G3_NONE,
+    G3_OUTER,
+    G3_SEMI,
     JoinSide,
     apply_side,
+    degree_emit,
     expire_keys,
     probe_pairs,
     regrow,
@@ -47,6 +63,28 @@ JOIN_TYPES = (
 )
 
 
+def _modes(join_type: str, arrival: str):
+    """The reference's per-arrival switches (``hash_join.py:121-133``)
+    as ``(pairs_on, group2, group3, need_degree, own_outer,
+    other_outer)``; ``group2``/``group3`` are ``ops/join.py``'s G2_/G3_
+    modes (G3_NONE: degrees only, no emission)."""
+    semi, anti = join_type.endswith("semi"), join_type.endswith("anti")
+    drive = "l" if join_type.startswith("left") else "r"
+    own_outer = join_type == "full" or (join_type, arrival) in (("left", "l"), ("right", "r"))
+    other_outer = join_type == "full" or (join_type, arrival) in (("left", "r"), ("right", "l"))
+    group2 = G2_NONE
+    if own_outer:
+        group2 = G2_OUTER
+    elif arrival == drive and (semi or anti):
+        group2 = G2_SEMI if semi else G2_ANTI
+    group3 = G3_NONE
+    if other_outer:
+        group3 = G3_OUTER
+    elif arrival != drive and (semi or anti):
+        group3 = G3_SEMI if semi else G3_ANTI
+    return (not (semi or anti), group2, group3, join_type != "inner", own_outer, other_outer)
+
+
 def join_step_fn(
     own: JoinSide,
     other: JoinSide,
@@ -58,13 +96,18 @@ def join_step_fn(
     em_overflow: torch.Tensor,
     join_type: str = "inner",
     join_rows: Optional[torch.Tensor] = None,
+    arrival: str = "l",
 ):
-    """One chunk: probe the other side (kernel M), then fold the chunk
-    into its own side (kernels A, L), both in place. ``em_overflow`` is
-    the () bool emission-overflow latch; ``join_rows``, if given, a ()
-    int64 counter of the pairs emitted. Returns ``(own, other, out)``."""
-    if join_type != "inner":
-        raise NotImplementedError(f"join type {join_type!r} is not ported yet (inner only)")
+    """One chunk arriving on side ``arrival`` ("l" or "r"): probe the
+    other side and emit groups 1-2 (kernel M), update the other side's
+    degrees and emit group 3 (kernel P, outer/semi/anti only), then fold
+    the chunk into its own side (kernels A, L), all in place.
+    ``em_overflow`` is the () bool emission-overflow latch; ``join_rows``,
+    if given, a () int64 counter of the rows emitted. Returns ``(own,
+    other, out)``."""
+    if join_type not in JOIN_TYPES:
+        raise ValueError(f"unknown join type {join_type!r}")
+    pairs_on, group2, group3, need_degree, own_outer, other_outer = _modes(join_type, arrival)
     key_cols = tuple(chunk.col(k) for k in own_keys)
     # SQL equi-join: NULL keys match nothing and need no state
     valid = chunk.valid
@@ -74,22 +117,37 @@ def join_step_fn(
             valid = valid & ~lane
     own_cols = {name: chunk.col(name) for name in own_names}
     own_nulls = {name: lane for name, lane in chunk.nulls.items() if name in own_names}
-    cols, nulls, ops, out_valid = probe_pairs(
+    # the output's null lanes: every group's, in output order
+    with_null = set()
+    if pairs_on:
+        with_null |= set(own_nulls) | set(other.row_nulls)
+    if group2 != G2_NONE:
+        with_null |= set(own_nulls) | (set(other.rows) if own_outer else set())
+    if group3 != G3_NONE:
+        with_null |= set(other.row_nulls) | (set(own_names) if other_outer else set())
+    null_names = tuple(n for n in out_names if n in with_null)
+    probed = probe_pairs(
         other, key_cols, valid, chunk.ops, own_cols, own_nulls, out_names, out_cap,
-        em_overflow, join_rows,
+        em_overflow, join_rows, null_names, pairs_on, group2,
     )
-    own = apply_side(own, key_cols, own_cols, own_nulls, valid, chunk.ops, own_names)
-    return own, other, StreamChunk(columns=cols, valid=out_valid, nulls=nulls, ops=ops)
+    if need_degree:
+        degree_emit(other, probed, chunk.ops, out_cap, em_overflow, join_rows, group3)
+    own = apply_side(own, key_cols, own_cols, own_nulls, valid, chunk.ops, own_names,
+                     init_degree=probed.mc if need_degree else None)
+    out = StreamChunk(columns=probed.cols, valid=probed.valid, nulls=probed.nulls,
+                      ops=probed.ops)
+    return own, other, out
 
 
 class HashJoinExecutor(Executor):
-    """Streaming INNER equi-join of two inputs.
+    """Streaming equi-join of two inputs, of any of ``JOIN_TYPES``.
 
     ``left_keys``/``right_keys`` pair positionally (equal dtypes);
     ``left_dtypes``/``right_dtypes`` list every stored and emitted
     column of a side (names disjoint across sides). ``capacity`` is each
     side's key-table capacity, ``fanout`` the per-key row bound,
-    ``out_cap`` the rows of one emission chunk. Each side's capacity
+    ``out_cap`` the rows of one emission chunk. A semi or anti join
+    emits its driving side's columns only. Each side's capacity
     walks its own bucket lattice (the reference's unbucketed twin is not
     ported). ``window_cols`` = (left column, right column): a watermark
     on either expires that side's keys below it."""
@@ -113,8 +171,6 @@ class HashJoinExecutor(Executor):
     ):
         if join_type not in JOIN_TYPES:
             raise ValueError(f"unknown join type {join_type!r}")
-        if join_type != "inner":
-            raise NotImplementedError(f"join type {join_type!r} is not ported yet (inner only)")
         if set(left_dtypes) & set(right_dtypes):
             raise ValueError(f"overlapping output columns: {set(left_dtypes) & set(right_dtypes)}")
         self.device = resolve_device(device)
@@ -124,7 +180,10 @@ class HashJoinExecutor(Executor):
         self.right_keys = tuple(right_keys)
         self.left_names = tuple(sorted(left_dtypes))
         self.right_names = tuple(sorted(right_dtypes))
-        self.out_names = self.left_names + self.right_names
+        if join_type.endswith(("semi", "anti")):
+            self.out_names = self.left_names if join_type.startswith("left") else self.right_names
+        else:
+            self.out_names = self.left_names + self.right_names
         self.out_cap = out_cap
         self.window_cols = window_cols
         lk = tuple(left_dtypes[k] for k in self.left_keys)
@@ -146,6 +205,18 @@ class HashJoinExecutor(Executor):
         self._grew_midepoch = {"l": False, "r": False}  # one bump per epoch
         self._em_overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         self._wm = {"l": None, "r": None, "out": None}
+
+    def load_reference_state(self, np_arrays) -> None:
+        """Take over the reference executor's two sides, given as numpy
+        arrays ``{"left": ..., "right": ...}`` (the reference's
+        ``JoinSide`` with numpy leaves, or dicts of its fields; see
+        ``JoinSide.from_reference_arrays``). Every key keeps its slot,
+        every row its bucket position and degree."""
+        for s, name in (("l", "left"), ("r", "right")):
+            side = JoinSide.from_reference_arrays(np_arrays[name], self.device)
+            self._set_side(s, side)
+            claimed = int(side.table.occupancy())
+            self._bound[s] = self._occ_note[s] = claimed
 
     def side(self, s: str) -> JoinSide:
         return self.left if s == "l" else self.right
@@ -172,7 +243,7 @@ class HashJoinExecutor(Executor):
             self.side(s), self.side("r" if s == "l" else "l"), chunk,
             self.left_keys if s == "l" else self.right_keys,
             self.left_names if s == "l" else self.right_names,
-            self.out_names, self.out_cap, self._em_overflow, self.join_type,
+            self.out_names, self.out_cap, self._em_overflow, self.join_type, arrival=s,
         )
         self._set_side(s, own)
         self._bound[s] += chunk.capacity

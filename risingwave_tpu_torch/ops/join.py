@@ -2,39 +2,48 @@
 
 Port of ``risingwave_tpu/ops/join.py`` (``JoinSide`` :54,
 ``_intra_chunk_rank`` :141, ``_row_fingerprint`` :178,
-``_entry_matches`` :192, ``apply_side`` :215, ``gather_flat`` :394,
-``probe_side`` :407, ``gather_matches`` :420, ``compact_pairs`` :429,
-``regrow`` :458, ``expire_keys`` :508). Reference roles: ``JoinHashMap``
+``_entry_matches`` :192, ``apply_side`` :215, ``degree_apply`` :339,
+``gather_flat`` :394, ``probe_side`` :407, ``gather_matches`` :420,
+``compact_pairs`` :429, ``regrow`` :458, ``expire_keys`` :508).
+Reference roles: ``JoinHashMap`` with its degree tables
 (src/stream/src/executor/join/hash_join.rs:157) and the probe/emit loop
 of src/stream/src/executor/hash_join.rs:462-729.
 
 A join side is a ``HashTable`` over the join key (slot per key) plus
 row buckets: per payload column a (capacity, fanout) lane, with a
-(capacity, fanout) ``row_valid`` mask and a ``degree`` lane (zeros for
-an inner join; kept so the digest layout is the reference's). Inserts
-fill the rank-th free bucket position, deletes clear the rank-th
-exactly matching entry, probes gather the other side's bucket.
+(capacity, fanout) ``row_valid`` mask and a ``degree`` lane (each stored
+row's match count on the other side; outer, semi and anti joins keep
+it, an inner join leaves it 0). Inserts fill the rank-th free bucket
+position, deletes clear the rank-th exactly matching entry, probes
+gather the other side's bucket.
 
 On the card: ``apply_side`` is kernel A on the key, then kernel L
-(``csrc/join_apply.cu``); ``probe_pairs`` (``probe_side`` +
-``gather_matches`` + ``compact_pairs``) is kernel M
-(``csrc/join_probe.cu``); ``regrow`` is A, I and L's regrow entry;
+(``csrc/join_apply.cu``; an inserted row's degree seeded from
+``init_degree``); ``probe_pairs`` (``probe_side`` + ``gather_matches``
++ ``compact_pairs``: the pairs, then the own NULL-pad, semi or anti
+rows) is kernel M (``csrc/join_probe.cu``); ``degree_emit``
+(``degree_apply`` + ``gather_flat``: the other side's degrees, then the
+zero-crossing transitions after M's rows) is kernel P
+(``csrc/join_degree.cu``); ``regrow`` is A, I and L's regrow entry;
 ``expire_keys`` (watermark state cleaning) is kernel O's join entry
 (``csrc/expire.cu``). The plain PyTorch versions run on the CPU, where
-``probe_side``, ``gather_matches``, ``compact_pairs`` and
-``gather_flat`` exist as separate functions, as in the reference; on CUDA tensors those four
-raise, since only their composition is a kernel. State is updated in
-place. ``degree_apply`` (outer/semi/anti joins) is not ported yet.
+``probe_side``, ``gather_matches``, ``compact_pairs``, ``degree_apply``
+and ``gather_flat`` exist as separate functions, as in the reference; on
+CUDA tensors those five raise, since only their compositions are
+kernels. State is updated in place.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+import numpy as np
+
 from risingwave_tpu_torch import _kernels, resolve_device
+from risingwave_tpu_torch.array.chunk import to_device
 from risingwave_tpu_torch.ops.hash_table import (
     HashTable,
     _lookup_torch,
@@ -101,17 +110,44 @@ class JoinSide:
             degree=z2(torch.int32),
         )
 
+    @staticmethod
+    def from_reference_arrays(side, device="cuda") -> "JoinSide":
+        """Build from the reference's ``JoinSide`` with numpy leaves
+        (``jax.device_get``) or a dict of its fields: ``table`` (a
+        reference ``HashTable``, or a dict of ``fp1``/``fp2``/``keys``/
+        ``live``), ``rows``, ``row_nulls``, ``row_valid``, ``degree``,
+        ``sdirty``, ``stored`` and the ``overflow``/``inconsistent``
+        latches. Every key keeps its slot and every row its position."""
+        dev = resolve_device(device)
+        get = side.get if isinstance(side, dict) else lambda k: getattr(side, k)
+        t = get("table")
+        tget = t.get if isinstance(t, dict) else lambda k: getattr(t, k)
+        put = lambda a: to_device(np.array(a), dev)  # a copy; 0-d latches stay 0-d
+        return JoinSide(
+            table=HashTable.from_reference_arrays(
+                tget("fp1"), tget("fp2"), tget("keys"), tget("live"), device=dev
+            ),
+            rows={n: put(np.asarray(a)) for n, a in get("rows").items()},
+            row_nulls={n: put(np.asarray(a, np.bool_)) for n, a in get("row_nulls").items()},
+            row_valid=put(np.asarray(get("row_valid"), np.bool_)),
+            overflow=put(np.asarray(get("overflow"), np.bool_)),
+            inconsistent=put(np.asarray(get("inconsistent"), np.bool_)),
+            sdirty=put(np.asarray(get("sdirty"), np.bool_)),
+            stored=put(np.asarray(get("stored"), np.bool_)),
+            degree=put(np.asarray(get("degree"), np.int32)),
+        )
+
 
 def survivors(side: JoinSide) -> torch.Tensor:
     """Slots a rebuild keeps (``live | sdirty``), counted on the device."""
     return (side.table.live | side.sdirty).sum()
 
 
-def _cpu_only(name: str, t: torch.Tensor) -> None:
+def _cpu_only(name: str, t: torch.Tensor, kernel: str = "M (probe_pairs)") -> None:
     if t.device.type != "cpu":
         raise NotImplementedError(
             f"{name} is a plain PyTorch version for the CPU; on the card it runs "
-            "inside kernel M (probe_pairs)"
+            f"inside kernel {kernel}"
         )
 
 
@@ -178,6 +214,7 @@ def apply_side(
     valid: torch.Tensor,
     ops: torch.Tensor,
     names: Tuple[str, ...],
+    init_degree: Optional[torch.Tensor] = None,
 ) -> JoinSide:
     """Apply one chunk to its own side in place: inserts, then deletes.
 
@@ -185,20 +222,25 @@ def apply_side(
     fills the first free bucket position after the chunk's earlier
     inserts of its slot; one with DELETE/UPDATE_DELETE clears the
     matching entry after the chunk's earlier deletes of the same row, so
-    an insert and a delete of one row in a chunk net out. (The
-    reference takes ``signs``; a valid row's sign here is its op's.)"""
+    an insert and a delete of one row in a chunk net out. An inserted
+    row's degree is ``init_degree`` (an (n,) int32 lane: outer, semi and
+    anti joins pass each row's current match count on the other side),
+    or 0 without it. (The reference takes ``signs``; a valid row's sign
+    here is its op's.)"""
     table, slots, _, _ = lookup_or_insert(side.table, key_cols, valid)
     side.table = table
+    args = (side, slots, payload_cols, payload_nulls, valid, ops, names, init_degree)
     if valid.device.type == "cpu":
-        _apply_side_torch(side, slots, payload_cols, payload_nulls, valid, ops, names)
+        _apply_side_torch(*args)
     elif valid.device.type == "cuda":
-        _apply_side_cuda(side, slots, payload_cols, payload_nulls, valid, ops, names)
+        _apply_side_cuda(*args)
     else:
         raise ValueError(f"unsupported device {valid.device}")
     return side
 
 
-def _apply_side_torch(side, slots, payload_cols, payload_nulls, valid, ops, names):
+def _apply_side_torch(side, slots, payload_cols, payload_nulls, valid, ops, names,
+                      init_degree=None):
     signs = torch.where(valid, op_sign(ops), torch.zeros_like(ops))
     ins, dele = valid & (signs > 0), valid & (signs < 0)
     touch = ins | dele
@@ -226,7 +268,7 @@ def _apply_side_torch(side, slots, payload_cols, payload_nulls, valid, ops, name
         src = torch.zeros(n, dtype=torch.bool, device=valid.device) if src is None else src
         lane.view(-1)[flat] = src[placed]
     side.row_valid.view(-1)[flat] = True
-    side.degree.view(-1)[flat] = 0
+    side.degree.view(-1)[flat] = 0 if init_degree is None else init_degree[placed].to(torch.int32)
 
     # deletes: the rank-th matching entry (rank by slot and fingerprint)
     rank_d = _intra_chunk_rank(slots, h1, h2, dele)
@@ -266,12 +308,17 @@ def _payload_rows(side: JoinSide, payload_cols, payload_nulls, names, n):
     return rows, keep
 
 
-def _apply_side_cuda(side, slots, payload_cols, payload_nulls, valid, ops, names):
+def _apply_side_cuda(side, slots, payload_cols, payload_nulls, valid, ops, names,
+                     init_degree=None):
     n = valid.shape[0]
     dev = valid.device
     if valid.dtype != torch.bool or ops.dtype != torch.int32:
         raise TypeError("join_apply: bool valid and int32 ops lanes")
     _kernels.check_cuda("join_apply", valid, ops, slots, n=n)
+    if init_degree is not None:
+        if init_degree.dtype != torch.int32:
+            raise TypeError("join_apply: init_degree must be int32")
+        _kernels.check_cuda("join_apply", valid, init_degree, n=n)
     _kernels.check_cuda("join_apply", side.table.live, side.sdirty, n=side.capacity)
     _kernels.check_cuda("join_apply", side.row_valid, side.degree, side.overflow, side.inconsistent)
     pay, keep_alive = _payload_rows(side, payload_cols, payload_nulls, names, n)
@@ -284,7 +331,8 @@ def _apply_side_cuda(side, slots, payload_cols, payload_nulls, valid, ops, names
     _kernels.call(
         "join_apply", "rw_join_apply", _kernels.int64_rows(pay, 8), len(pay), n,
         valid.data_ptr(), ops.data_ptr(), slots.data_ptr(), side.fanout,
-        side.row_valid.data_ptr(), side.degree.data_ptr(), side.table.live.data_ptr(),
+        side.row_valid.data_ptr(), side.degree.data_ptr(),
+        0 if init_degree is None else init_degree.data_ptr(), side.table.live.data_ptr(),
         side.sdirty.data_ptr(), side.overflow.data_ptr(), side.inconsistent.data_ptr(),
         fps.data_ptr(), grp.data_ptr(), target.data_ptr(), owner.data_ptr(), first.data_ptr(),
         n_groups,
@@ -293,9 +341,36 @@ def _apply_side_cuda(side, slots, payload_cols, payload_nulls, valid, ops, names
 
 
 # -- probe: kernel M -------------------------------------------------------------
+# group 2 of a probe chunk's emission (executors/hash_join.py:174-195),
+# after the pairs: rows judged by their match count mc
+G2_NONE, G2_OUTER, G2_SEMI, G2_ANTI = 0, 1, 2, 3
+# group 3, kernel P (:197-223): the other side's zero-crossing stored rows
+G3_NONE, G3_OUTER, G3_ANTI, G3_SEMI = 0, 1, 2, 3
+
+
+class Probed(NamedTuple):
+    """A probe chunk's emission chunk and what kernels P and L read of
+    the probe: ``cols``/``nulls`` the (out_cap,) output lanes, ``ops``
+    and ``valid``; ``slots`` each probe row's slot in the other side (-1
+    without a live match), ``mc`` its match count (int32), ``written``
+    the () int32 count of rows emitted so far (uncapped)."""
+
+    cols: Dict[str, torch.Tensor]
+    nulls: Dict[str, torch.Tensor]
+    ops: torch.Tensor
+    valid: torch.Tensor
+    slots: torch.Tensor
+    mc: torch.Tensor
+    written: torch.Tensor
+
+
 def gather_flat(side: JoinSide, pid: torch.Tensor, names: Sequence[str]):
     """Payload at flat (slot * fanout + pos) ids (sentinel-safe)."""
-    _cpu_only("gather_flat", pid)
+    _cpu_only("gather_flat", pid, "P (degree_emit)")
+    return _gather_flat_torch(side, pid, names)
+
+
+def _gather_flat_torch(side, pid, names):
     safe = pid.clamp(max=side.capacity * side.fanout - 1).long()
     cols = {n: side.rows[n].reshape(-1)[safe] for n in names}
     nulls = {n: lane.reshape(-1)[safe] for n, lane in side.row_nulls.items()}
@@ -351,6 +426,10 @@ def _compact_pairs_torch(flat_cols, flat_nulls, flat_ops, flat_valid, out_cap):
     return cols, nulls, scatter(flat_ops), scatter(flat_valid), overflow
 
 
+def _sign_ops(signs: torch.Tensor) -> torch.Tensor:
+    return torch.where(signs > 0, int(Op.INSERT), int(Op.DELETE)).to(torch.int32)
+
+
 def probe_pairs(
     other: JoinSide,
     key_cols,
@@ -362,59 +441,88 @@ def probe_pairs(
     out_cap: int,
     em_overflow: torch.Tensor,
     join_rows: Optional[torch.Tensor] = None,
-):
-    """The inner join's emission for one probe chunk: one row per (probe
-    row, live stored match), probe row major, bucket position minor, in
-    a fixed ``out_cap`` chunk. Own lanes are the probe row's, the other
-    lanes the stored entry's; ops INSERT or DELETE by the probe row's
-    sign. ``em_overflow`` (a () bool) latches pairs past ``out_cap``;
-    ``join_rows`` (a () int64), if given, gets the pairs written added.
-    Returns ``(cols, nulls, ops, valid)``; ``nulls`` has a lane for each
-    output name with a null lane on either side."""
+    null_names: Optional[Tuple[str, ...]] = None,
+    pairs_on: bool = True,
+    group2: int = G2_NONE,
+) -> Probed:
+    """A probe chunk's emission groups 1 and 2 in a fixed ``out_cap``
+    chunk. Group 1 (``pairs_on``): one row per (probe row, live stored
+    match), probe row major, bucket position minor; own lanes are the
+    probe row's, the other lanes the stored entry's. Group 2 after it
+    (``group2``): each valid probe row with no match (``G2_OUTER``, the
+    other side's lanes NULL-padded; ``G2_ANTI``) or with one
+    (``G2_SEMI``), its own lanes. Ops INSERT or DELETE by the probe
+    row's sign. ``null_names`` lists the output's null lanes (default:
+    the names with a null lane on either side). ``em_overflow`` (a ()
+    bool) latches rows past ``out_cap``; ``join_rows`` (a () int64), if
+    given, gets the rows written added."""
+    if null_names is None:
+        null_names = tuple(n for n in out_names if n in own_nulls or n in other.row_nulls)
+    args = (other, key_cols, valid, ops, own_cols, own_nulls, out_names, null_names, out_cap,
+            em_overflow, join_rows, pairs_on, group2)
     if valid.device.type == "cpu":
-        return _probe_pairs_torch(
-            other, key_cols, valid, ops, own_cols, own_nulls, out_names, out_cap,
-            em_overflow, join_rows,
-        )
+        return _probe_pairs_torch(*args)
     if valid.device.type == "cuda":
-        return _probe_pairs_cuda(
-            other, key_cols, valid, ops, own_cols, own_nulls, out_names, out_cap,
-            em_overflow, join_rows,
-        )
+        return _probe_pairs_cuda(*args)
     raise ValueError(f"unsupported device {valid.device}")
 
 
-def _null_names(out_names, own_nulls, other):
-    return tuple(n for n in out_names if n in own_nulls or n in other.row_nulls)
-
-
-def _probe_pairs_torch(other, key_cols, valid, ops, own_cols, own_nulls, out_names, out_cap,
-                       em_overflow, join_rows):
-    sl, match = _probe_side_torch(other, key_cols, valid)
-    other_names = tuple(n for n in out_names if n not in own_cols)
-    o_cols, o_nulls = _gather_matches_torch(other, sl, other_names)
+def _probe_pairs_torch(other, key_cols, valid, ops, own_cols, own_nulls, out_names, null_names,
+                       out_cap, em_overflow, join_rows=None, pairs_on=True, group2=G2_NONE):
+    raw, found = _lookup_torch(other.table, tuple(key_cols), valid)
+    found &= valid
+    sl = raw.clamp(min=0).long()
+    match = other.row_valid[sl] & found[:, None]
+    mc = match.sum(dim=1, dtype=torch.int32)
+    slots = torch.where(found, raw, torch.full_like(raw, -1))
     n, fanout = match.shape
-    flatm = lambda a: a.reshape(n * fanout)
-    bcast = lambda a: a[:, None].expand(n, fanout)
-    g_cols = {name: flatm(bcast(own_cols[name])) for name in out_names if name in own_cols}
-    g_cols.update({name: flatm(o_cols[name]) for name in other_names})
-    g_nulls = {name: flatm(bcast(lane)) for name, lane in own_nulls.items()}
-    g_nulls.update({name: flatm(lane) for name, lane in o_nulls.items()})
+    dev = valid.device
+    other_names = tuple(nm for nm in out_names if nm not in own_cols)
     signs = op_sign(ops)
-    g_ops = flatm(bcast(torch.where(signs > 0, int(Op.INSERT), int(Op.DELETE)).to(torch.int32)))
-    flat_cols = {name: g_cols[name] for name in out_names}
-    flat_nulls = {name: g_nulls[name] for name in _null_names(out_names, own_nulls, other)}
+    groups = []  # (cols, nulls, ops, valid) of flat lanes
+    if pairs_on:
+        o_cols, o_nulls = _gather_matches_torch(other, sl, other_names)
+        flatm = lambda a: a.reshape(n * fanout)
+        bcast = lambda a: a[:, None].expand(n, fanout)
+        g_cols = {nm: flatm(bcast(own_cols[nm])) for nm in out_names if nm in own_cols}
+        g_cols.update({nm: flatm(o_cols[nm]) for nm in other_names})
+        g_nulls = {nm: flatm(bcast(lane)) for nm, lane in own_nulls.items()}
+        g_nulls.update({nm: flatm(lane) for nm, lane in o_nulls.items()})
+        groups.append((g_cols, g_nulls, flatm(bcast(_sign_ops(signs))), flatm(match)))
+    if group2 != G2_NONE:
+        cond = valid & ((mc > 0) if group2 == G2_SEMI else (mc == 0))
+        g_cols = {nm: own_cols[nm] for nm in out_names if nm in own_cols}
+        g_nulls = dict(own_nulls)
+        if group2 == G2_OUTER:  # NULL-pad the other side
+            for nm in other_names:
+                g_cols[nm] = torch.zeros(n, dtype=other.rows[nm].dtype, device=dev)
+                g_nulls[nm] = torch.ones(n, dtype=torch.bool, device=dev)
+        groups.append((g_cols, g_nulls, _sign_ops(signs), cond))
+
+    def cat(parts, dtype):  # the groups' lanes in order; a group without the lane: zeros
+        return torch.cat([torch.zeros(g[3].shape[0], dtype=dtype, device=dev)
+                          if p is None else p for g, p in zip(groups, parts)]
+                         + [torch.zeros(0, dtype=dtype, device=dev)])
+
+    flat_cols = {}
+    for name in out_names:
+        dtype = own_cols[name].dtype if name in own_cols else other.rows[name].dtype
+        flat_cols[name] = cat([g[0].get(name) for g in groups], dtype)
+    flat_nulls = {name: cat([g[1].get(name) for g in groups], torch.bool) for name in null_names}
+    flat_ops = cat([g[2] for g in groups], torch.int32)
+    flat_valid = cat([g[3] for g in groups], torch.bool)
     cols, nulls, out_ops, out_valid, ovf = _compact_pairs_torch(
-        flat_cols, flat_nulls, g_ops, flatm(match), out_cap
+        flat_cols, flat_nulls, flat_ops, flat_valid, out_cap
     )
+    total = flat_valid.sum()
     em_overflow |= ovf
     if join_rows is not None:
         join_rows += out_valid.sum()
-    return cols, nulls, out_ops, out_valid
+    return Probed(cols, nulls, out_ops, out_valid, slots, mc, total.to(torch.int32))
 
 
-def _probe_pairs_cuda(other, key_cols, valid, ops, own_cols, own_nulls, out_names, out_cap,
-                      em_overflow, join_rows):
+def _probe_pairs_cuda(other, key_cols, valid, ops, own_cols, own_nulls, out_names, null_names,
+                      out_cap, em_overflow, join_rows=None, pairs_on=True, group2=G2_NONE):
     n = valid.shape[0]
     dev = valid.device
     table = other.table
@@ -428,40 +536,188 @@ def _probe_pairs_cuda(other, key_cols, valid, ops, own_cols, own_nulls, out_name
             raise TypeError("join_rows must be a () int64 counter")
         _kernels.check_cuda("join_probe", join_rows, em_overflow)
     cols, nulls, outs = {}, {}, []
+    g2_pad = 1 if group2 == G2_OUTER else 0
 
-    def out_lane(name, dst_map, own, stored, dtype):
+    def out_lane(name, dst_map, src, is_other, dtype, g2_one=0):
         dst = torch.zeros(out_cap, dtype=dtype, device=dev)
         dst_map[name] = dst
-        if own is not None:
-            _kernels.check_cuda("join_probe", own, n=n)
-            outs.append((own.data_ptr(), 0, dst.data_ptr(), dst.element_size()))
-        elif stored is not None:
-            _kernels.check_cuda("join_probe", stored)
-            outs.append((stored.data_ptr(), 1, dst.data_ptr(), dst.element_size()))
+        if src is not None:
+            _kernels.check_cuda("join_probe", src, n=None if is_other else n)
+        if src is not None or g2_one:
+            outs.append((0 if src is None else src.data_ptr(), is_other, dst.data_ptr(),
+                         dst.element_size(), g2_one))
 
     for name in out_names:
         own = own_cols.get(name)
-        stored = other.rows[name] if own is None else None
-        out_lane(name, cols, own, stored, (own if own is not None else stored).dtype)
-    for name in _null_names(out_names, own_nulls, other):
-        if name in own_cols:
-            out_lane(name, nulls, own_nulls.get(name), None, torch.bool)
+        if own is not None:
+            out_lane(name, cols, own, 0, own.dtype)
         else:
-            out_lane(name, nulls, None, other.row_nulls.get(name), torch.bool)
+            stored = other.rows[name]
+            out_lane(name, cols, stored if pairs_on else None, 1, stored.dtype)
+    for name in null_names:
+        if name in own_cols:
+            out_lane(name, nulls, own_nulls.get(name), 0, torch.bool)
+        else:
+            stored = other.row_nulls.get(name) if pairs_on else None
+            out_lane(name, nulls, stored, 1, torch.bool, g2_pad)
     out_ops = torch.zeros(out_cap, dtype=torch.int32, device=dev)
     out_valid = torch.zeros(out_cap, dtype=torch.bool, device=dev)
-    tiles = -(-n // 256)
-    scratch = torch.empty(2 * n + max(tiles, 1), dtype=torch.int32, device=dev)
+    tiles = max(-(-n // 256), 1)
+    lanes = torch.empty(2 * n + 2 * tiles + 1, dtype=torch.int32, device=dev)
+    slots, mc = lanes[:n], lanes[n:2 * n]
+    tile_counts, written = lanes[2 * n:2 * n + 2 * tiles], lanes[-1]
     _kernels.call(
         "join_probe", "rw_join_probe", _kernels.int64_rows(keys, 8), len(keys), n,
         valid.data_ptr(), ops.data_ptr(), table.fp1.data_ptr(), table.fp2.data_ptr(),
         table.live.data_ptr(), table.capacity, other.row_valid.data_ptr(), other.fanout,
         _kernels.int64_rows(outs, 16), len(outs), out_cap, out_ops.data_ptr(),
-        out_valid.data_ptr(), scratch[:n].data_ptr(), scratch[n:2 * n].data_ptr(),
-        scratch[2 * n:].data_ptr(), em_overflow.data_ptr(),
-        0 if join_rows is None else join_rows.data_ptr(),
+        out_valid.data_ptr(), slots.data_ptr(), mc.data_ptr(), tile_counts.data_ptr(),
+        written.data_ptr(), em_overflow.data_ptr(),
+        0 if join_rows is None else join_rows.data_ptr(), int(pairs_on), int(group2),
     )
-    return cols, nulls, out_ops, out_valid
+    return Probed(cols, nulls, out_ops, out_valid, slots, mc, written)
+
+
+# -- degrees and transitions: kernel P --------------------------------------------
+def degree_apply(other: JoinSide, match: torch.Tensor, sl: torch.Tensor, signs: torch.Tensor):
+    """Bump the OTHER side's per-row degrees in place by this chunk's
+    net effect and report the transitions, as the reference
+    (``ops/join.py:339``): ``(trans_pid, went_pos, went_zero)`` over the
+    (n * fanout) lanes sorted by stored row id ``pid = slot * fanout +
+    pos``; each distinct matched pid's first lane carries it, with
+    went_pos = degree 0 -> > 0 and went_zero = > 0 -> <= 0 over the
+    chunk's net signed count; other lanes hold the sentinel
+    ``capacity * fanout``."""
+    _cpu_only("degree_apply", match, "P (degree_emit)")
+    return _degree_apply_torch(other, match, sl, signs)
+
+
+def _degree_apply_torch(other, match, sl, signs):
+    cap, fanout = other.capacity, other.fanout
+    n = match.shape[0]
+    dev = match.device
+    sent = cap * fanout
+    pos_j = torch.arange(fanout, dtype=torch.int64, device=dev)[None, :]
+    pid = torch.where(match, sl.to(torch.int64)[:, None] * fanout + pos_j,
+                      torch.full((), sent, dtype=torch.int64, device=dev)).reshape(-1)
+    delta = signs.to(torch.int32)[:, None].expand(n, fanout).reshape(-1)
+    delta = torch.where(pid != sent, delta, torch.zeros_like(delta))
+    # distinct pids by a stable sort and a segment sum: the transition is
+    # per stored row, over the chunk's net delta
+    order = torch.argsort(pid, stable=True)
+    spid, sdelta = pid[order], delta[order]
+    boundary = torch.ones_like(spid, dtype=torch.bool)
+    boundary[1:] = spid[1:] != spid[:-1]
+    seg_id = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    net = torch.zeros_like(sdelta).index_add_(0, seg_id, sdelta)[seg_id]
+    rep = boundary & (spid != sent)
+    flat = other.degree.view(-1)
+    old = flat[spid.clamp(max=sent - 1)]
+    flat.index_add_(0, spid[rep], net[rep])  # distinct ids; updates at sent dropped
+    new = old + net
+    went_pos = rep & (old == 0) & (new > 0)
+    went_zero = rep & (old > 0) & (new <= 0)
+    trans_pid = torch.where(rep, spid, torch.full_like(spid, sent)).to(torch.int32)
+    return trans_pid, went_pos, went_zero
+
+
+def degree_emit(other: JoinSide, probed: Probed, ops: torch.Tensor, out_cap: int,
+                em_overflow: torch.Tensor, join_rows: Optional[torch.Tensor] = None,
+                group3: int = G3_NONE) -> None:
+    """The other side's degrees, then group 3 of the emission, in place:
+    ``degree_apply`` over the matches kernel M found (``probed.slots``,
+    the probe rows' signs from ``ops``), then, with ``group3`` set, one
+    row per transition appended to ``probed``'s chunk after its
+    ``written`` rows: the stored row's lanes (``gather_flat``), with
+    ``G3_OUTER`` the arrival side's lanes NULL-padded; op DELETE on
+    went_pos, INSERT on went_zero (``G3_OUTER``, ``G3_ANTI``), the
+    reverse for ``G3_SEMI``. ``written``, ``em_overflow`` and
+    ``join_rows`` advance as in ``probe_pairs``. The plain version
+    writes group 3 in pid order, as the reference; kernel P in the order
+    of each pid's first match in the chunk (``csrc/join_degree.cu``)."""
+    args = (other, probed, ops, out_cap, em_overflow, join_rows, group3)
+    if ops.device.type == "cpu":
+        _degree_emit_torch(*args)
+    elif ops.device.type == "cuda":
+        _degree_emit_cuda(*args)
+    else:
+        raise ValueError(f"unsupported device {ops.device}")
+
+
+def _degree_emit_torch(other, probed, ops, out_cap, em_overflow, join_rows=None,
+                       group3=G3_NONE):
+    hit = probed.slots >= 0
+    sl = probed.slots.clamp(min=0).long()
+    match = other.row_valid[sl] & hit[:, None]
+    signs = torch.where(hit, op_sign(ops), torch.zeros_like(ops))
+    trans_pid, went_pos, went_zero = _degree_apply_torch(other, match, sl, signs)
+    if group3 == G3_NONE:
+        return
+    emit = went_pos | went_zero
+    base = probed.written.to(torch.int64)
+    pos = base + torch.cumsum(emit.to(torch.int64), 0) - 1
+    end = base + emit.sum()
+    em_overflow |= end > out_cap
+    if join_rows is not None:
+        join_rows += end.clamp(max=out_cap) - base.clamp(max=out_cap)
+    probed.written.copy_(end)
+    take = emit & (pos < out_cap)
+    idx = pos[take]
+    src = trans_pid[take].long()
+    t_cols, t_nulls = _gather_flat_torch(other, src, [n for n in probed.cols if n in other.rows])
+    for name, lane in t_cols.items():
+        probed.cols[name][idx] = lane
+    for name, dst in probed.nulls.items():
+        if name in t_nulls:
+            dst[idx] = t_nulls[name]
+        elif name not in other.rows and group3 == G3_OUTER:
+            dst[idx] = True  # NULL-pad the arrival side
+    pos_op, zero_op = (Op.INSERT, Op.DELETE) if group3 == G3_SEMI else (Op.DELETE, Op.INSERT)
+    probed.ops[idx] = torch.where(went_pos[take], int(pos_op), int(zero_op)).to(torch.int32)
+    probed.valid[idx] = True
+
+
+def _degree_emit_cuda(other, probed, ops, out_cap, em_overflow, join_rows=None,
+                      group3=G3_NONE):
+    n = ops.shape[0]
+    dev = ops.device
+    fanout = other.fanout
+    if ops.dtype != torch.int32 or probed.slots.dtype != torch.int32:
+        raise TypeError("join_degree: int32 ops and slots")
+    if other.degree.dtype != torch.int32 or other.row_valid.shape != other.degree.shape:
+        raise TypeError("join_degree: (capacity, fanout) int32 degree lane")
+    _kernels.check_cuda("join_degree", ops, probed.slots, n=n)
+    _kernels.check_cuda("join_degree", other.row_valid, other.degree, probed.written,
+                        probed.ops, probed.valid, em_overflow)
+    if join_rows is not None:
+        if join_rows.shape != () or join_rows.dtype != torch.int64:
+            raise TypeError("join_rows must be a () int64 counter")
+        _kernels.check_cuda("join_degree", join_rows, em_overflow)
+    outs = []
+    for name, dst in probed.cols.items():
+        src = other.rows.get(name)
+        if src is not None:
+            _kernels.check_cuda("join_degree", src, dst)
+            outs.append((src.data_ptr(), dst.data_ptr(), dst.element_size(), 0))
+    for name, dst in probed.nulls.items():
+        src = other.row_nulls.get(name)
+        if src is not None:
+            _kernels.check_cuda("join_degree", src, dst)
+            outs.append((src.data_ptr(), dst.data_ptr(), 1, 0))
+        elif name not in other.rows and group3 == G3_OUTER:
+            _kernels.check_cuda("join_degree", dst)
+            outs.append((0, dst.data_ptr(), 1, 1))
+    m = n * fanout
+    h_size = 1 << max(1, (2 * m - 1).bit_length())
+    tiles = max(-(-m // 256), 1)
+    scratch = torch.empty(4 * h_size + 2 * m + tiles, dtype=torch.int32, device=dev)
+    _kernels.call(
+        "join_degree", "rw_join_degree", n, probed.slots.data_ptr(), ops.data_ptr(),
+        other.row_valid.data_ptr(), fanout, other.capacity, other.degree.data_ptr(),
+        _kernels.int64_rows(outs, 16), len(outs), int(group3), out_cap, probed.ops.data_ptr(),
+        probed.valid.data_ptr(), probed.written.data_ptr(), em_overflow.data_ptr(),
+        0 if join_rows is None else join_rows.data_ptr(), scratch.data_ptr(), h_size,
+    )
 
 
 # -- regrow: kernels A, I and L's move entry ----------------------------------------

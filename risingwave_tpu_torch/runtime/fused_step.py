@@ -31,15 +31,17 @@ with ``fuse_pipeline`` :2303 and ``expand_fused`` :2355.
   original objects.
 - ``fuse_two_input`` runs a ``TwoInputPipeline`` (q8: ``hop -> dedup``
   per side; q7: ``hop -> DynamicMaxFilter`` left, ``hop -> HashAgg``
-  right; an inner HashJoin, a device MV) as one
+  right; q101: a plain left input, ``HashAgg`` right; a HashJoin of any
+  type, a device MV) as one
   ``FusedTwoInputExecutor`` program per barrier: the host bookkeeping
   first (each side member's and join side's growth hint, the agg's
   flush rounds from its dirty bound, the MV's growth bound), then each
   filter or dedup side's buffered chunks in arrival order through
-  E -> A -> N (filter) or J (dedup) -> M (probe) -> A -> L (own side),
+  E -> A -> N (filter) or J (dedup) -> M (probe) -> P (the other side's
+  degrees, outer, semi and anti joins) -> A -> L (own side),
   each segment's emission through A -> D into the MV, left side first;
   an agg side's segments through its epoch path (E, F, A, G); then the
-  agg's flush rounds, each C -> M -> A -> L as a right arrival at the
+  agg's flush rounds, each C -> M [-> P] -> A -> L as a right arrival at the
   join and A -> D into the MV; then the scalar pack with five digests
   (kernel H) and one staged copy. A watermark stays outside the
   program: ``flush_data`` applies the buffer, then the members take
@@ -489,8 +491,9 @@ class SidePlan:
 
 @dataclass(frozen=True)
 class TwoInputPlan:
-    """The two-input program's shape: two side plans around one inner
-    hash join, then a ``pure* [device MV] pure*`` tail."""
+    """The two-input program's shape: two side plans around one hash
+    join (any of ``JOIN_TYPES``), then a ``pure* [device MV] pure*``
+    tail."""
 
     left: SidePlan
     right: SidePlan
@@ -547,6 +550,7 @@ def _two_input_side_scan(ex, join, seg, side_plan: SidePlan, plan: TwoInputPlan,
         own, _, em = join_step_fn(
             join.side(arrival), join.side(other), chunk, own_keys, own_names,
             plan.j_out_names, plan.j_out_cap, join._em_overflow, plan.j_type, join_rows,
+            arrival,
         )
         join._set_side(arrival, own)
         ems.append(em)
@@ -564,8 +568,9 @@ def _fused_two_input_body(w: "FusedTwoInputExecutor", left_batches, right_batche
                  stacked batch into its epoch path (kernels E, F, A, G);
     flush phase  ``len(pads)`` flushes of the agg side's dirty groups
                  (kernel C), round r's delta sliced to ``pads[r]`` rows,
-                 each a right arrival at the join (M, then A + L) whose
-                 emission walks the tail;
+                 each a right arrival at the join (M, P for an outer,
+                 semi or anti join, then A + L) whose emission walks the
+                 tail;
     scalars      in the reference's order: each stateful side's four
                  lanes (filter and dedup: saw_delete, dropped,
                  occupancy, survivors; agg: dropped, minmax_retracted,
@@ -574,7 +579,8 @@ def _fused_two_input_body(w: "FusedTwoInputExecutor", left_batches, right_batche
                  join_rows, dirty_groups, mv_rows) and the digests (left
                  side, right side, the two join sides, the MV).
 
-    join_rows is kept by kernel M, mv_rows by kernel D, dirty_groups by
+    join_rows (every emitted row, all three groups) is kept by kernels M
+    and P, mv_rows by kernel D, dirty_groups by
     the first flush round's kernel C and each filter's or dedup's
     survivor count by the pass of kernel H that digests its table.
     Returns ``(outs, packed)``."""
@@ -623,7 +629,7 @@ def _fused_two_input_body(w: "FusedTwoInputExecutor", left_batches, right_batche
             own, _, em = join_step_fn(
                 join.right, join.left, _delta_chunk(delta, a, pad), plan.j_right_keys,
                 plan.j_right_names, plan.j_out_names, plan.j_out_cap, join._em_overflow,
-                plan.j_type, join_rows,
+                plan.j_type, join_rows, "r",
             )
             join._set_side("r", own)
             outs.append(through_tail(em))
@@ -670,7 +676,7 @@ def _padded_len(n: int) -> int:
 
 class FusedTwoInputExecutor(Executor):
     """A whole two-input pipeline — ``pure* [filter | dedup]`` left,
-    ``pure* [filter | dedup | HashAgg]`` right, an inner HashJoin,
+    ``pure* [filter | dedup | HashAgg]`` right, a HashJoin,
     ``pure* [device MV] pure*`` tail — run as one program per barrier.
     ``buffer_left``/``buffer_right`` stage chunks,
     ``on_barrier`` runs the program and returns the fragment's

@@ -259,15 +259,22 @@ def test_join_step_inner_matches_reference(out_cap):
 
 
 def test_non_inner_join_types_raise():
-    for jt in ("left", "full", "left_semi", "right_anti"):
-        with pytest.raises(NotImplementedError):
-            HashJoinExecutor(("a",), ("b",), {"a": torch.int64}, {"b": torch.int64},
-                             join_type=jt, device="cpu")
+    """Every type of JOIN_TYPES constructs (semi and anti emit their
+    driving side only); an unknown type still raises ValueError, in the
+    executor and in the step function."""
+    from risingwave_tpu_torch.executors.hash_join import JOIN_TYPES
+
+    for jt in JOIN_TYPES:
+        ex = HashJoinExecutor(("a",), ("b",), {"a": torch.int64}, {"b": torch.int64},
+                              join_type=jt, device="cpu")
+        want = {"left_semi": ("a",), "left_anti": ("a",), "right_semi": ("b",),
+                "right_anti": ("b",)}.get(jt, ("a", "b"))
+        assert ex.join_type == jt and ex.out_names == want
     with pytest.raises(ValueError):
         HashJoinExecutor(("a",), ("b",), {"a": torch.int64}, {"b": torch.int64},
                          join_type="cross", device="cpu")
-    with pytest.raises(NotImplementedError):
-        join_step_fn(None, None, None, (), (), (), 8, None, join_type="left")
+    with pytest.raises(ValueError):
+        join_step_fn(None, None, None, (), (), (), 8, None, join_type="cross")
 
 
 # -- executor mirrors of tests/test_hash_join.py's inner cases ---------------------

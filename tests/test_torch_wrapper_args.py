@@ -1,4 +1,4 @@
-"""The CUDA wrappers of kernels H, J, L, M, N and O marshal their arguments as
+"""The CUDA wrappers of kernels H, J, L, M, N, O and P marshal their arguments as
 their C entry points declare them (``_kernels.SIGNATURES``), checked on
 the CPU: each wrapper runs on CPU tensors while ``_kernels.call`` is
 replaced by a ``ctypes.CFUNCTYPE`` callback of the entry point's
@@ -78,13 +78,18 @@ def test_l_entries_marshal(calls):
     ops = torch.zeros(n, dtype=torch.int32)
     join._apply_side_cuda(side, torch.arange(n, dtype=torch.int32), pay, nulls, valid, ops,
                           ("k", "v"))
+    join._apply_side_cuda(side, torch.arange(n, dtype=torch.int32), pay, nulls, valid, ops,
+                          ("k", "v"), init_degree=torch.ones(n, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        join._apply_side_cuda(side, torch.arange(n, dtype=torch.int32), pay, nulls, valid, ops,
+                              ("k", "v"), init_degree=torch.ones(n, dtype=torch.int64))
     new = _side(cap=128)
     keep = torch.ones(64, dtype=torch.bool)
     src = [*side.rows.values(), *side.row_nulls.values(), side.degree]
     dst = [*new.rows.values(), *new.row_nulls.values(), new.degree]
     join._regrow_entries_cuda(side, new, src, dst, keep, torch.arange(64, dtype=torch.int32))
-    assert calls == [("join_apply", "rw_join_apply"), ("join_apply", "rw_join_regrow")]
-    assert _kernels.LAUNCHES["join_apply"] == 1 and _kernels.LAUNCHES["join_regrow"] == 1
+    assert calls == [("join_apply", "rw_join_apply")] * 2 + [("join_apply", "rw_join_regrow")]
+    assert _kernels.LAUNCHES["join_apply"] == 2 and _kernels.LAUNCHES["join_regrow"] == 1
 
 
 def test_m_entries_marshal(calls):
@@ -96,14 +101,41 @@ def test_m_entries_marshal(calls):
     own = {"x": torch.arange(n, dtype=torch.float64)}
     em = torch.zeros((), dtype=torch.bool)
     rows = torch.zeros((), dtype=torch.int64)
-    cols, nulls, out_ops, out_valid = join._probe_pairs_cuda(
-        side, keys, valid, ops, own, {}, ("k", "v", "x"), 32, em, rows,
-    )
-    assert set(cols) == {"k", "v", "x"} and set(nulls) == {"v"}
-    assert cols["x"].dtype == torch.float64 and out_valid.shape == (32,)
+    probed = join._probe_pairs_cuda(side, keys, valid, ops, own, {}, ("k", "v", "x"), ("v",),
+                                    32, em, rows)
+    assert set(probed.cols) == {"k", "v", "x"} and set(probed.nulls) == {"v"}
+    assert probed.cols["x"].dtype == torch.float64 and probed.valid.shape == (32,)
+    assert probed.slots.shape == probed.mc.shape == (n,) and probed.written.shape == ()
+    # an outer arrival: the pairs, then the NULL-padded rows (k, v written 1)
+    probed = join._probe_pairs_cuda(side, keys, valid, ops, own, {}, ("k", "v", "x"),
+                                    ("k", "v", "x"), 32, em, None, True, join.G2_OUTER)
+    assert set(probed.nulls) == {"k", "v", "x"}
+    # a semi arrival: no pairs, group 2 only
+    join._probe_pairs_cuda(side, keys, valid, ops, own, {}, ("x",), (), 32, em, rows, False,
+                           join.G2_SEMI)
     ht._lookup_cuda(side.table, keys, valid)
-    assert calls == [("join_probe", "rw_join_probe"), ("join_probe", "rw_lookup")]
-    assert _kernels.LAUNCHES["join_probe"] == 1 and _kernels.LAUNCHES["lookup"] == 1
+    assert calls == [("join_probe", "rw_join_probe")] * 3 + [("join_probe", "rw_lookup")]
+    assert _kernels.LAUNCHES["join_probe"] == 3 and _kernels.LAUNCHES["lookup"] == 1
+
+
+def test_p_entry_marshals(calls):
+    side = _side()
+    n = 8
+    keys = (torch.arange(n, dtype=torch.int64),)
+    valid = torch.ones(n, dtype=torch.bool)
+    ops = torch.zeros(n, dtype=torch.int32)
+    own = {"x": torch.arange(n, dtype=torch.float64)}
+    em = torch.zeros((), dtype=torch.bool)
+    rows = torch.zeros((), dtype=torch.int64)
+    probed = join._probe_pairs_torch(side, keys, valid, ops, own, {}, ("k", "v", "x"),
+                                     ("k", "v", "x"), 32, em, rows, True, join.G2_OUTER)
+    for mode in (join.G3_NONE, join.G3_OUTER, join.G3_ANTI, join.G3_SEMI):
+        join._degree_emit_cuda(side, probed, ops, 32, em, rows, mode)
+    join._degree_emit_cuda(side, probed, ops, 32, em, None, join.G3_OUTER)
+    with pytest.raises(TypeError):
+        join._degree_emit_cuda(side, probed, ops.to(torch.int64), 32, em, rows, join.G3_OUTER)
+    assert calls == [("join_degree", "rw_join_degree")] * 5
+    assert _kernels.LAUNCHES["join_degree"] == 5
 
 
 def test_h_entry_marshals_masked_lanes_and_survivor_count(calls):
