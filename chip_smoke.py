@@ -18,7 +18,14 @@ Phases, each printing one JSON line:
      2^22-slot filter table; O: each state kind's expiry at q7's sizes, filter and agg
      2^22 slots, join side (2^22, 16); P: a 65,536-row U-/U+ flush chunk
      against a (2^22, 4) side of 1.2M auctions, M's group 2 and L's
-     init_degree on a 65,536-row auction chunk at q101's sizes), with
+     init_degree on a 65,536-row auction chunk at q101's sizes; Q: (a)
+     one barrier's flush of q5's count agg, about 300,000 Insert/U-/U+
+     rows, into the MAX agg's multisets of K = 256 lanes, (b) 2^20 rows
+     of inserts and deletes (current extremes among them, NULLs, slot
+     -1) over 2^20 groups of K = 32, float64 and int32 MIN, int64 and
+     float32 MAX, (c) an
+     overflow and an inconsistency, each latch, (d) Q's clear of half of
+     (b)'s groups, (e) its rescatter from 2^20 to 2^21 slots), with
      times; then all eight join types at a small shape, the card's
      executor against one on the CPU;
   4. the interpreted path: Nexmark q5 (hop -> HashAgg -> device MV)
@@ -27,7 +34,7 @@ Phases, each printing one JSON line:
      oracle, and the launch count of each kernel during that run;
   5. with ``--profile N`` only: N epochs of a path again, on fresh
      tables, under ``torch.profiler`` (where the time goes), after each
-     of phases 4, 6, 7, 8, 9, 10, 11 and 12;
+     of phases 4, 6, 7, 8, 9, 10, 11, 12, 13 and 14;
   6. the fused path: the same q5 through ``fuse_pipeline`` (one program
      per barrier, no device read inside it) over phase 4's chunks, its
      MV held against the oracle and phase 4's MV, its staged state
@@ -66,7 +73,22 @@ Phases, each printing one JSON line:
      rounds feeding the join's degree kernel P), its MV held against
      phase 11's at every barrier and the oracle, its four staged digests
      against ``host_digest`` of the lanes read back and of phase 11's
-     state.
+     state;
+  13. the MAX half of Nexmark q5 (``build_q5_max``: hop, COUNT(*) per
+     (auction, window_start), a materialized MAX(num) per window_start
+     with 256 distinct counts per window, a device MV on window_start)
+     interpreted over phase 4's chunks (run right after phase 6, while
+     they are on the card), a watermark after every barrier, its final
+     MV held against a numpy oracle, mi_bad clear;
+  14. q5-max fused: ``fuse_pipeline`` splits it into the hop and count
+     agg as one epoch batch and the MAX agg and MV as one program per
+     barrier (the row re-probe and kernel Q inside it), its MV held
+     against phase 13's at every barrier and the oracle, its staged
+     digests against ``host_digest`` of the lanes read back and of
+     phase 13's state;
+  15. q101 with its MAX materialized (the two-input program's agg side
+     with kernel Q), interpreted and fused over phase 11's first three
+     epochs, each MV against the q101 oracle of those epochs.
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. Without a
@@ -2592,9 +2614,10 @@ class Q101:
     """The q101 plan from the port's executors (the JAX package has no
     ``build_q101``): auctions left (no executor), HashAgg MAX(price) by
     auction right, a LEFT OUTER HashJoin on id = auction, a device MV
-    keyed on the join's stream key (id, auction)."""
+    keyed on the join's stream key (id, auction); ``materialized``: the
+    MAX keeps its input (256 distinct prices per auction)."""
 
-    def __init__(self, torch, dev):
+    def __init__(self, torch, dev, materialized: bool = False):
         from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
         from risingwave_tpu_torch.executors.hash_join import HashJoinExecutor
         from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
@@ -2603,9 +2626,10 @@ class Q101:
 
         i64 = torch.int64
         self.agg = HashAggExecutor(
-            group_keys=("auction",), calls=(AggCall("max", "price", "max_price"),),
+            group_keys=("auction",),
+            calls=(AggCall("max", "price", "max_price", materialized=materialized),),
             schema_dtypes={"auction": i64, "price": i64}, capacity=Q101_AGG_CAP,
-            out_cap=OUT_CAP, table_id="q101.maxbid", device=dev)
+            out_cap=OUT_CAP, table_id="q101.maxbid", minput_k=Q5MAX_K, device=dev)
         self.join = HashJoinExecutor(
             left_keys=("id",), right_keys=("auction",),
             left_dtypes={"id": i64, "item_name": torch.int32},
@@ -2652,7 +2676,7 @@ def packed_join_digests(q) -> dict:
     return out
 
 
-def run_q101(torch, dev, chunks, fused: bool):
+def run_q101(torch, dev, chunks, fused: bool, materialized: bool = False):
     """q101 over the chunks (each epoch's auction chunk pushed left, then
     its bid chunks right, then a barrier), timed; after each barrier
     (untimed) a hash of the sorted MV rows. Returns the query and a
@@ -2662,7 +2686,7 @@ def run_q101(torch, dev, chunks, fused: bool):
     from risingwave_tpu_torch import _kernels
     from risingwave_tpu_torch.runtime.fused_step import FusedTwoInputExecutor, fuse_pipeline
 
-    q = Q101(torch, dev)
+    q = Q101(torch, dev, materialized)
     if fused:
         wrappers = fuse_pipeline(q.pipeline, label="q101")
         check(len(wrappers) == 1 and isinstance(wrappers[0], FusedTwoInputExecutor),
@@ -2816,6 +2840,575 @@ def profile_q101(torch, dev, chunks, epochs: int, fused: bool):
     return row
 
 
+# -- phase 3, kernel Q: the materialized MIN/MAX multiset ---------------------------
+Q5MAX_MAX_CAP = 1 << 6  # the MAX agg's first capacity; its chunk bound grows it to 2^14
+Q5MAX_K = 256  # distinct values per window: the SQL planner's minput_k
+Q_CHURN_GROUPS = 1 << 20
+Q_CHURN_K = 32
+Q_CHURN_ROWS = 1 << 20
+
+
+def mi_sorted(torch, vals, cnt):
+    """Each slot's live lanes as one sorted row of (value, count): the
+    multiset, whatever lanes hold it."""
+    live = cnt > 0
+    key = torch.where(live, vals, torch.iinfo(vals.dtype).max)
+    c = torch.where(live, cnt, 0)
+    order = torch.argsort(c, dim=1, stable=True)
+    order = torch.gather(order, 1, torch.argsort(torch.gather(key, 1, order), dim=1,
+                                                 stable=True))
+    return torch.gather(key, 1, order), torch.gather(c, 1, order)
+
+
+def q_run(torch, fn, state0, batch, kind, latches=None):
+    """One minput_apply (``fn``: the kernel's wrapper or the plain
+    version) on copies of ``state0 = (vals, cnt, accum, nonnull)``;
+    returns the state after it and the two latches."""
+    vals, cnt, acc, nn = (x.clone() for x in state0)
+    ovf, inc = latches or (torch.zeros((), dtype=torch.bool, device=vals.device),
+                           torch.zeros((), dtype=torch.bool, device=vals.device))
+    fn(vals, cnt, *batch, kind, acc, nn, ovf, inc)
+    return vals, cnt, acc, nn, ovf, inc
+
+
+def q_compare(torch, got, want, what: str, state_too: bool = True) -> float:
+    """Slot-independent results equal: per slot the multiset of (value,
+    count), the accumulator and non-null lanes, both latches."""
+    check(bool(got[4]) == bool(want[4]) and bool(got[5]) == bool(want[5]),
+          f"{what}: latches (overflow, inconsistent) {bool(got[4]), bool(got[5])} vs "
+          f"{bool(want[4]), bool(want[5])}")
+    if not state_too:
+        return 0.0
+    gk, gc = mi_sorted(torch, got[0], got[1])
+    wk, wc = mi_sorted(torch, want[0], want[1])
+    check(torch.equal(gk, wk) and torch.equal(gc, wc), f"{what}: multisets")
+    check(torch.equal(got[2], want[2]), f"{what}: extremes (accumulator lane)")
+    check(torch.equal(got[3], want[3]), f"{what}: live totals (non-null lane)")
+    return float((got[2] - want[2]).abs().max())
+
+
+def q_time(torch, fn, state0, batch, kind, reps: int) -> float:
+    work = tuple(x.clone() for x in state0)
+    latch = torch.zeros((), dtype=torch.bool, device=work[0].device)
+
+    def setup():
+        for w, x in zip(work, state0):
+            w.copy_(x)
+
+    return time_ms(torch, lambda: fn(work[0], work[1], *batch, kind, work[2], work[3], latch,
+                                     latch), reps, setup)
+
+
+def q_counts(torch, slots, signs, v, notnull):
+    """Distinct groups and distinct (group, value) pairs among the
+    active rows: what the work of one call depends on."""
+    active = (slots >= 0) & (signs != 0)
+    if notnull is not None:
+        active &= notnull
+    s = slots[active].long()
+    vv = v[active]
+    if vv.dtype.is_floating_point:
+        vv = vv.view(torch.int64) if vv.dtype == torch.float64 else vv.view(torch.int32)
+    pairs = torch.unique(torch.stack([s, vv.long()], 1), dim=0).shape[0]
+    return int(torch.unique(s).numel()), int(pairs)
+
+
+def q_bytes(n: int, groups: int, pairs: int, k: int, v_bytes: int, nulls: bool,
+            lane_bytes: int = 8) -> int:
+    """Each row's slot, sign, value (and null byte) read; each touched
+    group's K lanes (a ``lane_bytes`` value, a 4-byte count) read and
+    its extreme (``lane_bytes``) and 8-byte total written; each pair's
+    lane written."""
+    return (n * (8 + v_bytes + int(nulls)) + groups * (k * (lane_bytes + 4) + lane_bytes + 8)
+            + pairs * (lane_bytes + 4))
+
+
+def q5_max_flush_batch(torch, dev):
+    """Shape (a): epoch 0 of the q5 stream through q5-max (interpreted,
+    its watermark after the barrier), then epoch 1's bids through the
+    hop and the count agg and the count agg's barrier flush: about
+    300,000 Insert/U-/U+ rows, as one batch for the MAX agg's multisets
+    (the fused path hands the MAX one such batch a barrier). Returns
+    the MAX agg and the batch ``(slots, signs, num, None)``."""
+    from risingwave_tpu_torch.ops.hash_table import lookup_or_insert
+    from risingwave_tpu_torch.queries.nexmark_q import build_q5_max
+
+    ep0, ep1 = q5_stream(torch, dev, 2)
+    q = build_q5_max(capacity=1 << 21, max_capacity=Q5MAX_MAX_CAP, minput_k=Q5MAX_K,
+                     device=dev)
+    for c in ep0:
+        q.pipeline.push(c)
+    q.pipeline.barrier()
+    ts = max(int(c.col("date_time")[c.valid].max()) for c in ep0)
+    q.pipeline.watermark("date_time", ts)
+    for c in ep1:
+        q.pipeline.push(c)
+    outs = q.count_agg.on_barrier(None)
+    cat = lambda get: torch.cat([get(c) for c in outs])
+    valid, ops = cat(lambda c: c.valid), cat(lambda c: c.ops)
+    ws, num = cat(lambda c: c.col("window_start")), cat(lambda c: c.col("num"))
+    mx = q.max_agg
+    mx.table, slots, _, _ = lookup_or_insert(mx.table, (ws,), valid)
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+
+    signs = StreamChunk({"num": num}, valid, {}, ops).effective_signs()
+    return mx, (slots, signs, num, None), {
+        "flush_rows": int(valid.shape[0]), "valid_rows": int(valid.sum()),
+        "inserts": int((valid & (ops == 0)).sum()), "u_minus": int((valid & (ops == 3)).sum()),
+        "flush_chunks": len(outs), "max_capacity": mx.table.capacity,
+    }
+
+
+Q_CHURN_DTYPES = {  # value dtype -> (range of the integers behind the values, int -> value)
+    "int64": (1 << 40, lambda x: x),
+    "float64": (1 << 40, lambda x: (x - (1 << 39)) * 1e-3),
+    "int32": (1 << 22, lambda x: x.astype(np.int32)),
+    # halves of integers below 2^23 in magnitude: exact in float32, so
+    # distinct integers stay distinct values
+    "float32": (1 << 22, lambda x: ((x - (1 << 22)) * 0.5).astype(np.float32)),
+}
+
+
+def q_churn(torch, dev, rng, kind: str, dtype: str):
+    """Shape (b): 2^20 groups of K = 32 lanes, about half live; 2^20
+    rows: 384k deletes of live values on distinct groups (a quarter of
+    them the group's current extreme), 512k inserts (half new values,
+    half more copies of live ones), 64k rows of slot -1, 64k NULL
+    values, the rest padding (sign 0). ``dtype`` names the input
+    values' type (``Q_CHURN_DTYPES``); a float's lanes hold its order
+    key in int64. Returns ``(state0, batch)``."""
+    from risingwave_tpu_torch.ops.agg import _float_to_order_key, accum_init
+
+    g, k, n = Q_CHURN_GROUPS, Q_CHURN_K, Q_CHURN_ROWS
+    span, as_value = Q_CHURN_DTYPES[dtype]
+    ints = rng.integers(0, span, g)[:, None] + np.arange(k) * 7919
+    cnt = np.where(rng.random((g, k)) < 0.5, rng.integers(1, 4, (g, k)), 0).astype(np.int32)
+    n_del, n_ins, n_neg, n_null = 3 * n // 8, n // 2, n // 16, n // 16
+    slots = np.full(n, -1, np.int32)
+    signs = np.zeros(n, np.int32)
+    vals = np.zeros(n, np.int64)
+    # deletes: one live lane of each of n_del distinct groups
+    dg = rng.permutation(g)[:n_del]
+    live = cnt[dg] > 0
+    score = np.where(live, rng.random((n_del, k)), -1.0)
+    lane = score.argmax(1)
+    ext = np.where(live, ints[dg], -1 if kind == "max" else 1 << 62)
+    ext_lane = ext.argmax(1) if kind == "max" else ext.argmin(1)
+    lane = np.where(np.arange(n_del) % 4 == 0, ext_lane, lane)
+    has = live.any(1)
+    slots[:n_del] = dg
+    signs[:n_del] = np.where(has, -1, 1)
+    vals[:n_del] = ints[dg, lane]
+    # inserts: new values, or more copies of a lane's value
+    ig = rng.integers(0, g, n_ins)
+    fresh = rng.integers(0, span, n_ins) * 2 + 1
+    copy = ints[ig, rng.integers(0, k, n_ins)]
+    o = n_del
+    slots[o:o + n_ins] = ig
+    signs[o:o + n_ins] = 1
+    vals[o:o + n_ins] = np.where(rng.random(n_ins) < 0.5, fresh, copy)
+    o += n_ins
+    signs[o:o + n_neg] = rng.choice(np.array([-1, 1], np.int32), n_neg)  # slot -1
+    vals[o:o + n_neg] = rng.integers(0, span, n_neg)
+    o += n_neg
+    slots[o:o + n_null] = rng.integers(0, g, n_null)
+    signs[o:o + n_null] = 1
+    vals[o:o + n_null] = rng.integers(0, span, n_null)
+    notnull = np.ones(n, bool)
+    notnull[o:o + n_null] = False
+    perm = rng.permutation(n)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    v = to(as_value(vals[perm]))
+    lanes = to(as_value(ints))
+    fx = lanes.dtype if lanes.dtype.is_floating_point else None
+    if fx is not None:
+        lanes = _float_to_order_key(lanes)
+    acc = torch.full((g,), accum_init(kind, lanes.dtype, fx), dtype=lanes.dtype, device=dev)
+    state0 = (lanes.contiguous(), to(cnt), acc, torch.zeros(g, dtype=torch.int64, device=dev))
+    return state0, (to(slots[perm]), to(signs[perm]), v, to(notnull[perm]))
+
+
+def kernel_q(torch, dev, rng):
+    """Q against its plain version on the card: (a) q5-max's real flush
+    batch into K = 256 lanes, int64 MAX; (b) the churn shape, float64
+    and int32 MIN, int64 and float32 MAX; (c) an overflow and an inconsistency, each latch
+    compared; (d) ``minput_clear`` of about half of (b)'s groups; (e)
+    ``minput_rescatter`` from 2^20 to 2^21 slots. Lanes may differ (Q
+    places a group's new values in counter order, the plain version in
+    value order), so per slot the multiset of (value, count), the
+    accumulator and non-null lanes and both latches are compared.
+    Returns the rows of the apply, clear and rescatter entries."""
+    from risingwave_tpu_torch.ops import minput as mi
+
+    kern, plain = mi.minput_apply, mi._minput_fold_torch
+    # (a)
+    mx, batch, shape_a = q5_max_flush_batch(torch, dev)
+    vals, cnt = mx.minput["maxn"]
+    state_a = (vals, cnt, mx.state.accums["maxn"], mx.state.nonnull["maxn"])
+    got, want = (q_run(torch, f, state_a, batch, "max") for f in (kern, plain))
+    torch.cuda.synchronize()
+    err = q_compare(torch, got, want, "Q (a) q5-max flush batch")
+    check(not bool(got[4]) and not bool(got[5]), "Q (a): no latch")
+    ms_a = q_time(torch, kern, state_a, batch, "max", 20)
+    plain_a = q_time(torch, plain, state_a, batch, "max", 3)
+    groups, pairs = q_counts(torch, *batch)
+    n = batch[0].shape[0]
+    nbytes_a = q_bytes(n, groups, pairs, Q5MAX_K, 8, False)
+    shape_a.update(rows=n, groups=groups, pairs=pairs, k=Q5MAX_K, kind="max int64")
+    del mx, state_a, got, want, batch
+    torch.cuda.empty_cache()
+    # (b)
+    churn = {}
+    for kind, dtype in (("min", "float64"), ("max", "int64"), ("max", "float32"),
+                        ("min", "int32")):
+        state0, batch = q_churn(torch, dev, rng, kind, dtype)
+        got, want = (q_run(torch, f, state0, batch, kind) for f in (kern, plain))
+        torch.cuda.synchronize()
+        name = f"{kind} {dtype}"
+        err = max(err, q_compare(torch, got, want, f"Q (b) churn {name}"))
+        check(not bool(got[4]) and not bool(got[5]), f"Q (b) {name}: no latch")
+        check(int((got[3] != state0[3]).sum()) > 0, f"Q (b) {name}: totals moved")
+        groups, pairs = q_counts(torch, *batch)
+        churn[name] = {
+            "ms": q_time(torch, kern, state0, batch, kind, 10),
+            "plain_ms": q_time(torch, plain, state0, batch, kind, 2),
+            "bound_ms": bound_ms(q_bytes(Q_CHURN_ROWS, groups, pairs, Q_CHURN_K,
+                                         batch[2].element_size(), True,
+                                         state0[0].element_size())),
+            "groups": groups, "pairs": pairs,
+        }
+        if dtype == "int64":
+            churn_state = got
+        del state0, batch, got, want
+        torch.cuda.empty_cache()
+    # (c)
+    cap, k = 64, 4
+    z = lambda dt: torch.zeros(cap, dtype=dt, device=dev)
+    st0 = (torch.zeros((cap, k), dtype=torch.int64, device=dev),
+           torch.zeros((cap, k), dtype=torch.int32, device=dev), z(torch.int64), z(torch.int64))
+    t = lambda a, dt: torch.tensor(a, dtype=dt, device=dev)
+    cases = {
+        "overflow": (t([1] * 5 + [2, 2], torch.int32), t([1] * 7, torch.int32),
+                     t([5, 6, 7, 8, 9, 1, 2], torch.int64), None),
+        "inconsistent": (t([3, 3, 4], torch.int32), t([1, -1, -1], torch.int32),
+                         t([10, 11, 12], torch.int64), None),
+    }
+    for what, b in cases.items():
+        runs = []
+        for f in (kern, plain):
+            lat = (torch.zeros((), dtype=torch.bool, device=dev),
+                   torch.zeros((), dtype=torch.bool, device=dev))
+            runs.append(q_run(torch, f, st0, b, "max", lat))
+        torch.cuda.synchronize()
+        q_compare(torch, *runs, f"Q (c) {what}", state_too=what == "inconsistent")
+        check(bool(runs[0][4 if what == "overflow" else 5]), f"Q (c): {what} latched")
+        check(not bool(runs[0][5 if what == "overflow" else 4]), f"Q (c): only {what} latched")
+    # (d)
+    cnt = churn_state[1]
+    g = cnt.shape[0]
+    slots = torch.where(torch.from_numpy(rng.random(g) < 0.5).to(dev),
+                        torch.arange(g, dtype=torch.int32, device=dev), -1)
+    a, b = cnt.clone(), cnt.clone()
+    mi.minput_clear(churn_state[0], a, slots)
+    mi._minput_clear_torch(b, slots)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "Q (d) minput_clear")
+    cleared = int((slots >= 0).sum())
+    check(int((a[slots >= 0] != 0).sum()) == 0 and torch.equal(a[slots < 0], cnt[slots < 0]),
+          "Q (d): exactly the listed groups cleared")
+    work = cnt.clone()
+    reset = lambda: work.copy_(cnt)
+    listed = (slots >= 0)[:, None]  # the slot list as a dense mask (slots[i] is i or -1)
+    d_row = {
+        "name": "Q minput_clear", "route": "cuda", "source": "risingwave_tpu_torch/csrc/minput.cu",
+        "replaces": "risingwave_tpu/ops/minput.py:172", "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: mi.minput_clear(churn_state[0], work, slots), 20, reset),
+        "plain_ms": time_ms(torch, lambda: mi._minput_clear_torch(work, slots), 5, reset),
+        "bound_ms": bound_ms(g * 4 + cleared * Q_CHURN_K * 4), "bound_by": "bytes",
+        "library_ms": time_ms(torch, lambda: work.masked_fill_(listed, 0), 20, reset),
+        "library_call": "masked_fill_ of the listed groups' count rows (the slot list's "
+                        "mask built untimed)",
+        "shape": {"groups": g, "k": Q_CHURN_K, "cleared": cleared},
+    }
+    # (e)
+    vals = churn_state[0]
+    keep = torch.from_numpy(rng.random(g) < 0.7).to(dev)
+    new_cap = 2 * g
+    new_slots = torch.randperm(new_cap, device=dev)[:g].to(torch.int32)
+
+    def plain_rescatter():
+        nv = torch.zeros((new_cap, Q_CHURN_K), dtype=vals.dtype, device=dev)
+        nc = torch.zeros((new_cap, Q_CHURN_K), dtype=cnt.dtype, device=dev)
+        mi._minput_rescatter_torch(vals, cnt, keep, new_slots, nv, nc)
+        return nv, nc
+
+    kv, kc = mi.minput_rescatter(vals, cnt, keep, new_slots, new_cap)
+    pv, pc = plain_rescatter()
+    torch.cuda.synchronize()
+    check(torch.equal(kv, pv) and torch.equal(kc, pc), "Q (e) minput_rescatter")
+    kept = int(keep.sum())
+    del kv, kc, pv, pc
+    idx, kept_v, kept_c = new_slots[keep].long(), vals[keep], cnt[keep]
+    lib_v = torch.zeros((new_cap, Q_CHURN_K), dtype=vals.dtype, device=dev)
+    lib_c = torch.zeros((new_cap, Q_CHURN_K), dtype=cnt.dtype, device=dev)
+
+    def library_rescatter():
+        lib_v.index_copy_(0, idx, kept_v)
+        lib_c.index_copy_(0, idx, kept_c)
+    e_row = {
+        "name": "Q minput_rescatter", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/minput.cu",
+        "replaces": "risingwave_tpu/ops/minput.py:179", "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: mi.minput_rescatter(vals, cnt, keep, new_slots, new_cap), 10),
+        "plain_ms": time_ms(torch, plain_rescatter, 3),
+        # keep and new_slots read; each kept row's K lanes read; the new
+        # (2^21, K) lanes written whole (the wrapper zero-fills them)
+        "bound_ms": bound_ms(g * 5 + kept * Q_CHURN_K * 12 + new_cap * Q_CHURN_K * 12),
+        "bound_by": "bytes", "library_ms": time_ms(torch, library_rescatter, 10),
+        "library_call": "index_copy_ of the kept rows' value and count lanes to their new "
+                        "slots (the gather of the kept rows and the zero fill left out)",
+        "shape": {"old_capacity": g, "new_capacity": new_cap, "k": Q_CHURN_K, "kept": kept},
+    }
+    del churn_state, work, a, b, lib_v, lib_c, kept_v, kept_c
+    torch.cuda.empty_cache()
+    a_row = {
+        "name": "Q minput_apply", "route": "cuda", "source": "risingwave_tpu_torch/csrc/minput.cu",
+        "replaces": "risingwave_tpu/ops/minput.py:65", "max_abs_err": err,
+        "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_ms(nbytes_a), "bound_by": "bytes",
+        "library_ms": None, "shape": shape_a, "churn": churn,
+        "latch_cases": "overflow (5 new values, K = 4) and inconsistency (a retraction of a "
+                       "value never inserted): each latch equal to the plain version's",
+        "compared": "per slot the multiset of (value, count), the accumulator and non-null "
+                    "lanes, both latches",
+    }
+    return a_row, d_row, e_row
+
+
+# -- phases 13 and 14: q5-max ----------------------------------------------------
+def q5_max_oracle(oracle) -> np.ndarray:
+    """(window_start, maxn) rows: per window the largest of q5_oracle's
+    counts, sorted by window."""
+    _, w, c = oracle
+    order = np.argsort(w, kind="stable")
+    ws, first = np.unique(w[order], return_index=True)
+    return np.stack([ws, np.maximum.reduceat(c[order], first)], 1)
+
+
+def q5_max_mv_rows(mview) -> np.ndarray:
+    got = mview.to_numpy()
+    check(not bool(got["maxn__null"].any()), "q5-max: no NULL maximum")
+    rows = np.stack([got["window_start"], got["maxn"]], 1)
+    return rows[np.argsort(rows[:, 0], kind="stable")]
+
+
+def q5_max_digests(q) -> dict:
+    """numpy host_digest of q5-max's three states, read back."""
+    from risingwave_tpu_torch import integrity
+
+    host = lambda lanes_live: integrity.host_digest(*integrity.host_lanes(*lanes_live))
+    return {"count": host(integrity.agg_lanes(q.count_agg.table, q.count_agg.state)),
+            "agg": host(integrity.agg_lanes(q.max_agg.table, q.max_agg.state)),
+            "mv": host(integrity.mv_lanes(q.mview.table, q.mview.state))}
+
+
+def run_q5_max(torch, dev, chunks, epoch_ts, cap: int, fused: bool):
+    """q5-max over phase 4's chunks: per epoch the bid chunks, a barrier,
+    then ``watermark("date_time", the epoch's largest event time)``. The
+    barriers, the watermarks and the run are timed (the MV read after
+    each barrier, and the digests before the last watermark, are not).
+    Returns the query and a record."""
+    import hashlib
+
+    from risingwave_tpu_torch import _kernels
+    from risingwave_tpu_torch.queries.nexmark_q import build_q5_max
+    from risingwave_tpu_torch.runtime.fused_step import FusedChainExecutor, fuse_pipeline
+
+    q = build_q5_max(capacity=cap, max_capacity=Q5MAX_MAX_CAP, minput_k=Q5MAX_K, device=dev)
+    if fused:
+        wrappers = fuse_pipeline(q.pipeline, label="q5max")
+        check(len(wrappers) == 1 and isinstance(wrappers[0], FusedChainExecutor)
+              and wrappers[0].agg is q.max_agg and bool(q.max_agg.minput),
+              "q5-max fused: one FusedChainExecutor over the MAX agg and the MV")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    rec = {"barrier_ms": [], "watermark_ms": [], "barrier_launches": [], "flush_rounds": [],
+           "mv_hashes": []}
+    run_s = 0.0
+    for e, (per_epoch, ts) in enumerate(zip(chunks, epoch_ts)):
+        t0 = time.perf_counter()
+        for c in per_epoch:
+            q.pipeline.push(c)
+        before = dict(_kernels.LAUNCHES)
+        tb = time.perf_counter()
+        q.pipeline.barrier()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rec["barrier_ms"].append((t1 - tb) * 1e3)
+        rec["barrier_launches"].append(sum(_kernels.LAUNCHES.values()) - sum(before.values()))
+        rec["flush_rounds"].append(_kernels.LAUNCHES["agg_flush"] - before["agg_flush"])
+        run_s += t1 - t0
+        rows = q5_max_mv_rows(q.mview)
+        rec["mv_hashes"].append(hashlib.sha256(rows.tobytes()).hexdigest())
+        if e == len(chunks) - 1:
+            rec["digests_before_last_watermark"] = q5_max_digests(q)
+            if fused:
+                rec["staged"] = dict(q.pipeline.executors[1].last_digests)
+        tw = time.perf_counter()
+        q.pipeline.watermark("date_time", ts)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rec["watermark_ms"].append((t2 - tw) * 1e3)
+        run_s += t2 - tw
+    rec.update(run_s=run_s, launches=dict(_kernels.LAUNCHES),
+               peak=torch.cuda.max_memory_allocated(), final_rows=q5_max_mv_rows(q.mview))
+    return q, rec
+
+
+Q5MAX_KERNELS = ("lookup_or_insert", "agg_flush", "mv_upsert", "hop_expand", "expire_agg",
+                 "minput", "minput_clear", "minput_rescatter", "slot_move")
+
+
+def q5_max_checks(q, rec, oracle, what: str, epochs: int) -> None:
+    got = rec["final_rows"]
+    check(got.shape == oracle.shape and np.array_equal(got, oracle),
+          f"{what}: MV ({len(got)} windows) vs the oracle ({len(oracle)} windows)")
+    check(not bool(q.max_agg.mi_bad), f"{what}: mi_bad clear")
+    launches = rec["launches"]
+    for name in Q5MAX_KERNELS:
+        check(launches[name] > 0, f"kernel {name} launched on {what}'s path")
+    check(launches["minput_clear"] == epochs, f"{what}: Q's clear once per watermark")
+    check(launches["expire_agg"] == 2 * epochs, f"{what}: O once per agg per watermark")
+    check(q.max_agg.minput["maxn"][0].shape == (q.max_agg.table.capacity, Q5MAX_K),
+          f"{what}: the multisets follow the MAX agg's growth")
+
+
+def q5_max_row(phase, chunks, q, rec) -> dict:
+    bids = sum(int(c.valid.sum()) for ep in chunks for c in ep)
+    return {
+        "phase": phase, "epochs": len(chunks), "events": len(chunks) * EVENTS_PER_EPOCH,
+        "bids": bids, "chunk_capacity": CHUNK_EVENTS, "minput_k": Q5MAX_K,
+        "bids_per_s": bids / rec["run_s"], "run_s": rec["run_s"],
+        "barrier_ms_p50": float(np.percentile(rec["barrier_ms"], 50)),
+        "barrier_ms_p99": float(np.percentile(rec["barrier_ms"], 99)),
+        "watermark_ms_p50": float(np.percentile(rec["watermark_ms"], 50)),
+        "watermark_ms_p99": float(np.percentile(rec["watermark_ms"], 99)),
+        "barrier_ms": rec["barrier_ms"], "watermark_ms": rec["watermark_ms"],
+        "launches_per_barrier": rec["barrier_launches"],
+        "flush_rounds_per_barrier": rec["flush_rounds"],
+        "capacity": {"count": q.count_agg.table.capacity, "max": q.max_agg.table.capacity,
+                     "mv": q.mview.table.capacity},
+        "windows": int(len(rec["final_rows"])),
+        "max_memory_allocated": int(rec["peak"]), "launches": rec["launches"],
+    }
+
+
+def q5_max_path(torch, dev, chunks, cap, q5_oracle_rows):
+    """Phase 13: q5-max interpreted over phase 4's chunks (the count agg
+    sized as phase 4's, both aggs cleaned by a watermark after every
+    barrier), its final MV against the numpy oracle."""
+    t0 = time.perf_counter()
+    epoch_ts = [max(int(c.col("date_time")[c.valid].max()) for c in ep) for ep in chunks]
+    oracle = q5_max_oracle(q5_oracle_rows)
+    setup_s = time.perf_counter() - t0
+    q, rec = run_q5_max(torch, dev, chunks, epoch_ts, cap, fused=False)
+    q5_max_checks(q, rec, oracle, "q5-max", len(chunks))
+    row = q5_max_row("q5_max", chunks, q, rec)
+    row.update(setup_s=setup_s, oracle="numpy: per window the largest count of q5's "
+               "hop expansion: equal; mi_bad clear")
+    return row, rec["launches"], (epoch_ts, q, rec, oracle)
+
+
+def q5_max_fused_path(torch, dev, chunks, cap, interp):
+    """Phase 14: q5-max through ``fuse_pipeline``: the hop and the count
+    agg as one epoch batch (E, F, A, G), its flush interpreted (C); the
+    MAX agg and the MV one program per barrier (F, A, G over the flush
+    rows, the row re-probe and Q, then C -> A -> D rounds and two H),
+    run under ``no_device_reads``; the watermarks outside it."""
+    check_sync_guard(torch, dev)
+    epoch_ts, interp_q, interp_rec, oracle = interp
+    q, rec = run_q5_max(torch, dev, chunks, epoch_ts, cap, fused=True)
+    q5_max_checks(q, rec, oracle, "q5-max fused", len(chunks))
+    for e, (a, b) in enumerate(zip(rec["mv_hashes"], interp_rec["mv_hashes"])):
+        check(a == b, f"q5-max fused: MV vs phase 13's MV at barrier {e}")
+    lane = rec["digests_before_last_watermark"]
+    check(rec["staged"] == {"agg": lane["agg"], "mv": lane["mv"]},
+          f"q5-max fused: staged digests {rec['staged']} vs host_digest {lane}")
+    check(lane == interp_rec["digests_before_last_watermark"],
+          "q5-max fused: digests vs phase 13's state")
+    for name in ("reduce_by_key", "apply_reduced", "state_digest", "lookup"):
+        check(rec["launches"][name] > 0, f"kernel {name} launched on q5-max's fused path")
+    row = q5_max_row("q5_max_fused", chunks, q, rec)
+    row.update(
+        digests={k: f"{v:016x}" for k, v in lane.items()},
+        sync_guard="set_sync_debug_mode('error') over the program part of every barrier: held",
+        oracle="numpy oracle and phase 13's MV at every barrier: equal; staged digests = "
+               "host_digest of the lanes read back = host_digest of phase 13's state "
+               "(before the last watermark)",
+    )
+    return row, rec["launches"]
+
+
+def profile_q5_max(torch, dev, chunks, epoch_ts, cap, epochs: int, fused: bool):
+    """Phase 13's (or, ``fused``, phase 14's) run profiled on a fresh
+    q5-max over the same chunks, the watermark included in each epoch."""
+    from risingwave_tpu_torch.queries.nexmark_q import build_q5_max
+    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline
+
+    q = build_q5_max(capacity=cap, max_capacity=Q5MAX_MAX_CAP, minput_k=Q5MAX_K, device=dev)
+    if fused:
+        fuse_pipeline(q.pipeline, label="q5max")
+
+    def push(pipeline, ec):
+        for c in ec[1]:
+            pipeline.push(c)
+
+    def after(pipeline, ec):
+        pipeline.watermark("date_time", epoch_ts[ec[0]])
+
+    row = profile_epochs(torch, "q5_max_fused_profile" if fused else "q5_max_profile",
+                         q.pipeline, push, list(enumerate(chunks)), epochs, after=after)
+    row["bids"] = sum(int(c.valid.sum()) for ep in chunks[1:1 + epochs] for c in ep)
+    return row
+
+
+# -- phase 15: q101 with a materialized MAX ------------------------------------------
+Q101_MI_EPOCHS = 3
+
+
+def q101_minput_path(torch, dev, host, chunks):
+    """Phase 15: q101 with its right-hand MAX materialized (the planner's
+    256 distinct prices per auction; at most 62 occur in these epochs),
+    interpreted and then fused (the two-input program's agg side runs
+    the row re-probe and Q), over the first epochs of phases 11-12's
+    stream: each MV against the q101 oracle of those epochs, the fused
+    MV against the interpreted one at every barrier."""
+    host, chunks = host[:Q101_MI_EPOCHS], chunks[:Q101_MI_EPOCHS]
+    oracle = q101_oracle_rows(host)
+    rows, launches, recs = {}, {}, {}
+    for fused in (False, True):
+        q, rec = run_q101(torch, dev, chunks, fused=fused, materialized=True)
+        what = "q101 minput fused" if fused else "q101 minput"
+        check(np.array_equal(rec["final_rows"], oracle), f"{what}: MV vs the oracle")
+        check(not bool(q.agg.mi_bad), f"{what}: mi_bad clear")
+        check(rec["launches"]["minput"] > 0, f"kernel minput launched on {what}'s path")
+        if fused:
+            check(rec["launches"]["lookup"] > 0, f"{what}: the row re-probe ran")
+            check(any(c.materialized for c in q.pipeline._fused.plan.right.agg.calls),
+                  f"{what}: the agg side's minput")
+        recs[fused] = rec
+        key = "q101_minput_fused" if fused else "q101_minput"
+        rows[key] = q101_row(key, host, q, rec)
+        launches[key] = rec["launches"]
+        del q
+        torch.cuda.empty_cache()
+    for e, (a, b) in enumerate(zip(recs[True]["mv_hashes"], recs[False]["mv_hashes"])):
+        check(a == b, f"q101 minput fused: MV vs the interpreted MV at barrier {e}")
+    return {"phase": "q101_minput", "epochs": Q101_MI_EPOCHS, "minput_k": Q5MAX_K, **rows,
+            "oracle": "numpy q101 oracle of these epochs: equal, interpreted and fused; fused "
+                      "= interpreted at every barrier"}, launches
+
+
 # -- phase 4: the interpreted path --------------------------------------------
 def state_cap(expected_rows: int, floor: int) -> int:
     """Capacity whose growth margin covers the expected volume (the
@@ -2841,14 +3434,13 @@ def q5_oracle(auction: np.ndarray, ts: np.ndarray, size: int, slide: int):
     return keys // n_w + a_lo, (keys % n_w) * slide + w_lo, counts
 
 
-def main_path(torch, dev, epochs: int):
-    from risingwave_tpu_torch import _kernels
+def q5_stream(torch, dev, epochs: int) -> list:
+    """The q5 stream: per epoch, 1M events generated in 65,536-event
+    pieces, each piece's bids one chunk of CHUNK_EVENTS rows on the card."""
     from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig, NexmarkGenerator
-    from risingwave_tpu_torch.queries.nexmark_q import Q5_SLIDE_MS, Q5_WINDOW_MS, build_q5_lite
 
-    t0 = time.perf_counter()
     gen = NexmarkGenerator(NexmarkConfig(first_event_rate=EVENT_RATE), seed=SEED)
-    chunks, auctions, stamps = [], [], []
+    chunks = []
     for _ in range(epochs):
         per_epoch, done = [], 0
         while done < EVENTS_PER_EPOCH:
@@ -2858,6 +3450,16 @@ def main_path(torch, dev, epochs: int):
             if bid is not None:
                 per_epoch.append(bid)
         chunks.append(per_epoch)
+    return chunks
+
+
+def main_path(torch, dev, epochs: int):
+    from risingwave_tpu_torch import _kernels
+    from risingwave_tpu_torch.queries.nexmark_q import Q5_SLIDE_MS, Q5_WINDOW_MS, build_q5_lite
+
+    t0 = time.perf_counter()
+    chunks = q5_stream(torch, dev, epochs)
+    auctions, stamps = [], []
     for c in (c for ep in chunks for c in ep):
         v = c.valid.cpu().numpy()
         auctions.append(c.col("auction").cpu().numpy()[v])
@@ -3204,6 +3806,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(join_types_on_card(torch, dev, rng))
     torch.cuda.empty_cache()
+    qa_row, qd_row, qe_row = kernel_q(torch, dev, rng)
+    for r in (qa_row, qd_row, qe_row):
+        emit({"phase": "kernel", **r})
+    torch.cuda.empty_cache()
 
     q5_row, l4, (chunks, cap, interp_q5, oracle) = main_path(torch, dev, EPOCHS)
     emit(q5_row)
@@ -3216,7 +3822,20 @@ def main() -> int:
     if args.profile:
         torch.cuda.empty_cache()
         emit(profile_q5(torch, dev, chunks, cap, args.profile, fused=True))
-    del chunks
+    torch.cuda.empty_cache()
+
+    # phases 13 and 14 take phase 4's stream while it is on the card
+    q5m_row13, l13, q5m_interp = q5_max_path(torch, dev, chunks, cap, oracle)
+    emit(q5m_row13)
+    if args.profile:
+        emit(profile_q5_max(torch, dev, chunks, q5m_interp[0], cap, args.profile, fused=False))
+        torch.cuda.empty_cache()
+    q5m_row14, l14 = q5_max_fused_path(torch, dev, chunks, cap, q5m_interp)
+    emit(q5m_row14)
+    if args.profile:
+        torch.cuda.empty_cache()
+        emit(profile_q5_max(torch, dev, chunks, q5m_interp[0], cap, args.profile, fused=True))
+    del chunks, q5m_interp
     torch.cuda.empty_cache()
 
     q8_row7, l7, (host, q8_chunks, caps, interp_q8, q8_oracle) = q8_path(torch, dev, EPOCHS)
@@ -3265,6 +3884,11 @@ def main() -> int:
     if args.profile:
         torch.cuda.empty_cache()
         emit(profile_q101(torch, dev, c101, args.profile, fused=True))
+    torch.cuda.empty_cache()
+    q101_mi_row, l15 = q101_minput_path(torch, dev, h101, c101)
+    emit(q101_mi_row)
+    del h101, c101
+    torch.cuda.empty_cache()
 
     rows = [(a_row, "lookup_or_insert"), (b_row, "agg_apply"), (c_row, "agg_flush"),
             (d_row, "mv_upsert"), (e_row, "hop_expand"), (f_row, "reduce_by_key"),
@@ -3272,11 +3896,12 @@ def main() -> int:
             (i_row, "slot_move"), (j_row, "dedup_emit"), (l_row, "join_apply"),
             (lr_row, "join_regrow"), (m_row, "join_probe"), (n_row, "dyn_filter"),
             (o_rows[0], "expire"), (o_rows[1], "expire_join"), (o_rows[2], "expire_agg"),
-            (p_row, "join_degree"), (mo_row, "join_probe"), (li_row, "join_apply")]
+            (p_row, "join_degree"), (mo_row, "join_probe"), (li_row, "join_apply"),
+            (qa_row, "minput"), (qd_row, "minput_clear"), (qe_row, "minput_rescatter")]
     paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8, "q7": l9, "q7_fused": l10,
-             "q101": l11, "q101_fused": l12}
+             "q101": l11, "q101_fused": l12, "q5_max": l13, "q5_max_fused": l14, **l15}
     for row, key in rows:
-        # each main path's run counts from zero: phases 4, 6, 7, 8, 9, 10, 11 and 12
+        # each main path's run counts from zero: phases 4, 6-15
         row["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

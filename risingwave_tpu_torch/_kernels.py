@@ -10,7 +10,7 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
-A, C, D, E, F, G, H, J, L, M, N, O and P (an entry point may launch several
+A, C, D, E, F, G, H, J, L, M, N, O, P and Q (an entry point may launch several
 kernels in order on the stream), two per call of B (the apply and its
 set_live), one per 24 lanes moved by a call of I; the entry points of
 ``ENTRY_KEYS`` count under their own names.
@@ -52,6 +52,7 @@ SOURCES = {
     "join_degree": "join_degree.cu",
     "dyn_filter": "dyn_filter.cu",
     "expire": "expire.cu",
+    "minput": "minput.cu",
 }
 
 # C entry points: (argtypes,) — every pointer and the stream as c_void_p
@@ -111,6 +112,12 @@ SIGNATURES = {
         "rw_expire_join": [_L, _P, _P, _I, _L, _P, _P, _P, _I, _P],
         "rw_expire_agg": [_L, _P, _P, _I, _L, _P, _P, _P, _P, _I, _P, _I, _P],
     },
+    "minput": {
+        "rw_minput_apply": [_L, _P, _P, _P, _I, _P, _I, _P, _I, _P, _L, _I, _P, _P, _P, _P, _L,
+                            _P, _L, _P],
+        "rw_minput_clear": [_L, _P, _P, _L, _I, _P],
+        "rw_minput_rescatter": [_L, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+    },
 }
 
 # rows per block of reduce_by_key, which sizes its scratch
@@ -136,13 +143,17 @@ DTYPE_CODES = {
 # entry points counted apart from their library's main entry: they are
 # not on a main path at every size (a lookup alone, a first-occurrence
 # mask alone, a join side's rebuild), or one state kind's expiry of
-# kernel O (its key-table entry counts as "expire")
+# kernel O (its key-table entry counts as "expire"), or kernel Q's clear
+# and rescatter of a materialized MIN/MAX multiset (its apply counts as
+# "minput")
 ENTRY_KEYS = {
     "rw_lookup": "lookup",
     "rw_first_occurrence": "first_occurrence",
     "rw_join_regrow": "join_regrow",
     "rw_expire_join": "expire_join",
     "rw_expire_agg": "expire_agg",
+    "rw_minput_clear": "minput_clear",
+    "rw_minput_rescatter": "minput_rescatter",
 }
 
 LAUNCHES = {name: 0 for name in (*SOURCES, *ENTRY_KEYS.values())}

@@ -1,8 +1,8 @@
 """HashAgg executor — grouped streaming aggregation with retraction.
 
 Port of ``risingwave_tpu/executors/hash_agg.py`` (``_build_key_lanes``
-:61, ``agg_step_fn`` :108, ``_agg_scan`` :169, ``_epoch_reduced_fn``
-:190, ``_rehash`` :268, ``delta_to_chunk`` :414,
+:61, ``_minput_pass`` :82, ``agg_step_fn`` :108, ``_agg_scan`` :169,
+``_epoch_reduced_fn`` :190, ``_rehash`` :268, ``delta_to_chunk`` :414,
 ``HashAggExecutor.apply`` :636, ``apply_stacked`` :678, ``_maybe_grow``
 :760, the barrier latch checks :800-870, ``_flush_all`` :1029,
 ``cleaning_watermarks`` :1055, ``on_watermark`` :1085, ``_expire`` :393).
@@ -22,28 +22,41 @@ host from ``_dirty_bound``, with no read). The host grows the table
 from an insert bound and the occupancy read at each barrier; a rebuild
 re-inserts the kept keys (kernel A) and moves their lanes (kernel I).
 
+A materialized MIN/MAX (``AggCall(materialized=True)``) keeps every
+input value in a ``(capacity, minput_k)`` multiset per group
+(``ops/minput.py``, kernel Q): after the ordinary update, the minput
+pass folds the same rows (the epoch path re-probes each row's slot,
+kernel M's ``rw_lookup``) into the multisets and writes each touched
+group's extreme and live total into the call's lanes; an overflow or
+an inconsistent retraction latches ``mi_bad``, which raises at the
+barrier. A rebuild moves the multisets (kernel Q's rescatter), a
+window watermark clears the closed groups' (kernel Q's clear).
+
 A watermark on the ``window_key`` column closes the groups below it
 (kernel O): emit-on-window-close (``emit_deletes=False``) flushes the
 dirty groups first and then frees the closed ones silently; otherwise
 they are reset and retracted at the next flush.
 
-Not ported yet: the materialized MIN/MAX (minput, so the barrier's
-``mi_bad`` latch is a constant zero), the cold tier and checkpointing.
+Not ported yet: the cold tier and checkpointing.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from risingwave_tpu_torch import resolve_device
-from risingwave_tpu_torch.array.chunk import StreamChunk, flatten_stacked
+from risingwave_tpu_torch.array.chunk import StreamChunk, flatten_stacked, to_device
 from risingwave_tpu_torch.executors.base import Barrier, Executor, Watermark
 from risingwave_tpu_torch.ops import agg as agg_ops
+from risingwave_tpu_torch.ops import minput as mi_ops
 from risingwave_tpu_torch.ops.agg import AggCall, AggState
 from risingwave_tpu_torch.ops.hash_table import (
     HashTable,
+    expired_slots,
+    lookup,
     lookup_or_insert,
     move_slots,
     stage_scalars,
@@ -73,6 +86,23 @@ def _build_key_lanes(
     return tuple(lanes)
 
 
+def _minput_pass(state: AggState, minput, mi_bad, calls, slots, signs, chunk) -> None:
+    """Fold a row batch into every materialized MIN/MAX multiset and
+    write each touched group's new extreme and live total into the
+    call's accumulator and non-null lanes (so the flush is unchanged),
+    all in place (kernel Q on the card); the batch's overflow and
+    inconsistency latches OR into ``mi_bad``."""
+    for c in calls:
+        if not c.materialized:
+            continue
+        vals, cnt = minput[c.output]
+        null = chunk.nulls.get(c.input)
+        mi_ops.minput_apply(
+            vals, cnt, slots, signs, chunk.col(c.input), None if null is None else ~null,
+            c.kind, state.accums[c.output], state.nonnull[c.output], mi_bad, mi_bad,
+        )
+
+
 def agg_step_fn(
     table: HashTable,
     state: AggState,
@@ -81,24 +111,29 @@ def agg_step_fn(
     calls: Tuple[AggCall, ...],
     group_keys: Tuple[str, ...],
     nullable: Tuple[bool, ...],
+    minput,
+    mi_bad: torch.Tensor,
 ):
-    """One chunk through the group map and the agg update (in place)."""
+    """One chunk through the group map and the agg update (in place),
+    then through the materialized MIN/MAX multisets ``minput`` (empty
+    without such a call) and their latch ``mi_bad``."""
     keys = _build_key_lanes(chunk, group_keys, nullable)
     table, slots, _, _ = lookup_or_insert(table, keys, chunk.valid)
     dropped |= (chunk.valid & (slots < 0)).any()
+    signs = chunk.effective_signs()
     values = {c.input: chunk.col(c.input) for c in calls if c.input is not None}
     nulls = {
         c.input: chunk.nulls[c.input]
         for c in calls
         if c.input is not None and c.input in chunk.nulls
     }
-    agg_ops.apply(
-        state, calls, slots, chunk.effective_signs(), values, nulls, live=table.live
-    )
+    agg_ops.apply(state, calls, slots, signs, values, nulls, live=table.live)
+    _minput_pass(state, minput, mi_bad, calls, slots, signs, chunk)
     return table, state, dropped
 
 
-def _agg_scan(table, state, dropped, stacked, calls, group_keys, nullable, pre):
+def _agg_scan(table, state, dropped, stacked, calls, group_keys, nullable, pre,
+              minput, mi_bad):
     """The per-chunk step over a stacked epoch, chunk by chunk: the
     reference's ``lax.scan`` and the differential twin of the reduce
     path."""
@@ -112,17 +147,21 @@ def _agg_scan(table, state, dropped, stacked, calls, group_keys, nullable, pre):
         if pre is not None:
             chunk = pre(chunk)
         table, state, dropped = agg_step_fn(
-            table, state, dropped, chunk, calls, group_keys, nullable
+            table, state, dropped, chunk, calls, group_keys, nullable, minput, mi_bad
         )
     return table, state, dropped
 
 
-def _epoch_reduced_fn(table, state, dropped, stacked, calls, group_keys, nullable, pre):
+def _epoch_reduced_fn(table, state, dropped, stacked, calls, group_keys, nullable, pre,
+                      minput, mi_bad):
     """The epoch path: the pure prefix over the stacked chunks, flatten
     the epoch into one row batch, pre-reduce it by key (kernel F), touch
     the table once per distinct key (kernel A), scatter the sums and set
     liveness (kernel G). Exact, because every agg kind here commutes
-    across one epoch's rows."""
+    across one epoch's rows. With a materialized MIN/MAX every flat
+    row's slot is probed again (read-only: the representatives' inserts
+    guarantee a hit) and the raw rows fold into its multiset in
+    ``minput``."""
     chunks = pre(stacked) if pre is not None else stacked
     flat = flatten_stacked(chunks)
     keys = _build_key_lanes(flat, group_keys, nullable)
@@ -138,13 +177,20 @@ def _epoch_reduced_fn(table, state, dropped, stacked, calls, group_keys, nullabl
     table, slots, _, _ = lookup_or_insert(table, sorted_keys, rep_valid)
     dropped |= (rep_valid & (slots < 0)).any()
     agg_ops.apply_reduced(state, calls, slots, rep_valid, w, reduced, mret, live=table.live)
+    if not minput:
+        return table, state, dropped
+    row_signs = flat.effective_signs()
+    row_slots, _ = lookup(table, keys, flat.valid & (row_signs != 0))
+    _minput_pass(state, minput, mi_bad, calls, row_slots, row_signs, flat)
     return table, state, dropped
 
 
-def _rehash(table: HashTable, state: AggState, calls, new_cap: int, float_extremes=()):
+def _rehash(table: HashTable, state: AggState, minput, calls, new_cap: int,
+            float_extremes=()):
     """Rebuild into a fresh table of ``new_cap`` slots, dropping slots no
     one needs, and move every slot-indexed lane: kernel A re-inserts the
-    surviving keys, kernel I moves the lanes. A slot survives iff it is
+    surviving keys, kernel I moves the lanes, kernel Q's rescatter the
+    ``minput`` multisets. A slot survives iff it is
     live, was emitted (a later delete must retract it), is dirty or is
     sdirty (its key must reach the next checkpoint)."""
     keep = table.live | state.emitted_valid | state.dirty | state.sdirty
@@ -183,7 +229,11 @@ def _rehash(table: HashTable, state: AggState, calls, new_cap: int, float_extrem
     )
     srcs, dsts = zip(*moves)
     move_slots(srcs, dsts, new_slots, keep)  # kernel I
-    return new_table, new_state
+    new_minput = {
+        name: mi_ops.minput_rescatter(v, c, keep, new_slots, new_cap)
+        for name, (v, c) in minput.items()
+    }
+    return new_table, new_state, new_minput
 
 
 def _expire(table: HashTable, state: AggState, cutoff: int, calls, key_index: int,
@@ -233,6 +283,7 @@ class HashAggExecutor(Executor):
       nullable_keys: subset of group_keys that can carry SQL NULL.
       window_key: (column, retention_ms, emit_deletes) for watermark
         state cleaning.
+      minput_k: distinct values a materialized MIN/MAX keeps per group.
       device: where the state lives (default "cuda").
     """
 
@@ -246,15 +297,13 @@ class HashAggExecutor(Executor):
         nullable_keys: Sequence[str] = (),
         window_key: Optional[Tuple[str, int, bool]] = None,
         table_id: str = "hash_agg",
+        minput_k: int = 32,
         device="cuda",
     ):
         self.device = resolve_device(device)
         self.table_id = table_id
         self.group_keys = tuple(group_keys)
         self.calls = tuple(calls)
-        for c in self.calls:
-            if c.materialized:
-                raise NotImplementedError("materialized MIN/MAX is not ported yet")
         self.out_cap = out_cap
         self._dtypes = dict(schema_dtypes)
         self.nullable = tuple(k in set(nullable_keys) for k in self.group_keys)
@@ -266,8 +315,10 @@ class HashAggExecutor(Executor):
         self.table = HashTable.create(capacity, key_dtypes, device=self.device)
         self.state = agg_ops.create_state(capacity, self.calls, self._dtypes, self.device)
         self.dropped = torch.zeros((), dtype=torch.bool, device=self.device)
-        # the minput latch of the reference's barrier layout; without a
-        # materialized MIN/MAX it never sets
+        # materialized-input MIN/MAX multisets (minput.rs) and their latch
+        self.minput_k = minput_k
+        self.minput = mi_ops.create_minput(capacity, minput_k, self.calls, self._dtypes,
+                                           self.device)
         self.mi_bad = torch.zeros((), dtype=torch.bool, device=self.device)
         self._insert_bound = 0  # host-side upper bound of claimed slots
         self._occ_note = 0  # true claimed at the last barrier
@@ -284,8 +335,9 @@ class HashAggExecutor(Executor):
         """Take over the reference executor's device state, given as
         numpy arrays: ``{"table": ..., "state": ..., "dropped": ...}``
         where table/state are the reference's HashTable/AggState with
-        numpy leaves (``jax.device_get``) or dicts of their fields.
-        Every key keeps its slot."""
+        numpy leaves (``jax.device_get``) or dicts of their fields, and
+        optionally ``"minput"`` (``{output: (vals, cnt)}``) and
+        ``"mi_bad"``. Every key keeps its slot, every value its lane."""
         t, s = np_arrays["table"], np_arrays["state"]
         get = t.get if isinstance(t, dict) else lambda k: getattr(t, k)
         self.table = HashTable.from_reference_arrays(
@@ -295,6 +347,14 @@ class HashAggExecutor(Executor):
         self.dropped = torch.tensor(
             bool(np_arrays.get("dropped", False)), device=self.device
         )
+        fx = dict(self._float_extremes)
+        for name, (vals, cnt) in np_arrays.get("minput", {}).items():
+            vals = np.asarray(vals)
+            if name in fx:
+                vals = agg_ops.order_key_from_reference(vals)
+            self.minput[name] = (to_device(vals, self.device),
+                                 to_device(np.asarray(cnt), self.device))
+        self.mi_bad = torch.tensor(bool(np_arrays.get("mi_bad", False)), device=self.device)
         claimed = int(self.table.occupancy())
         self._insert_bound = self._occ_note = claimed
 
@@ -311,7 +371,7 @@ class HashAggExecutor(Executor):
         self._dirty_bound += chunk.capacity
         self.table, self.state, self.dropped = agg_step_fn(
             self.table, self.state, self.dropped, chunk,
-            self.calls, self.group_keys, self.nullable,
+            self.calls, self.group_keys, self.nullable, self.minput, self.mi_bad,
         )
         return []
 
@@ -321,9 +381,14 @@ class HashAggExecutor(Executor):
         the executors upstream, e.g. the hop expansion) run on the batch
         first. ``mode`` "reduce" is the epoch path (kernels F, A, G);
         "scan" runs the per-chunk step chunk by chunk, the differential
-        twin."""
+        twin (not with a materialized MIN/MAX, as the reference)."""
         if mode not in ("reduce", "scan"):
             raise ValueError(f"unknown apply_stacked mode {mode!r}")
+        if self.minput and mode != "reduce":
+            raise ValueError(
+                "materialized MIN/MAX supports apply_stacked only in "
+                "'reduce' mode (use apply for per-chunk ordering)"
+            )
         n_chunks, cap = stacked.valid.shape
         incoming = n_chunks * (pre.rows(cap) if pre is not None else cap)
         self._maybe_grow(incoming)
@@ -332,7 +397,7 @@ class HashAggExecutor(Executor):
         step = _epoch_reduced_fn if mode == "reduce" else _agg_scan
         self.table, self.state, self.dropped = step(
             self.table, self.state, self.dropped, stacked,
-            self.calls, self.group_keys, self.nullable, pre,
+            self.calls, self.group_keys, self.nullable, pre, self.minput, self.mi_bad,
         )
         return []
 
@@ -350,8 +415,8 @@ class HashAggExecutor(Executor):
             self._insert_bound = min(claimed, new_cap)
 
     def _rebuild(self, new_cap: int) -> None:
-        self.table, self.state = _rehash(
-            self.table, self.state, self.calls, new_cap, self._float_extremes
+        self.table, self.state, self.minput = _rehash(
+            self.table, self.state, self.minput, self.calls, new_cap, self._float_extremes
         )
 
     # -- control ---------------------------------------------------------
@@ -380,10 +445,16 @@ class HashAggExecutor(Executor):
             raise RuntimeError("hash table overflowed MAX_PROBE mid-epoch; grow capacity")
         if mret:
             raise RuntimeError(
-                "row-level retraction hit an append-only MIN/MAX aggregate"
+                "row-level retraction hit an append-only MIN/MAX aggregate; "
+                "set AggCall(materialized=True) for materialized-input "
+                "extremes"
             )
         if mi_bad:
-            raise RuntimeError("materialized MIN/MAX state overflowed")
+            raise RuntimeError(
+                "materialized MIN/MAX state overflowed minput_k distinct "
+                "values per group, or a value was retracted that was never "
+                "inserted"
+            )
 
     def _flush_all(self) -> List[StreamChunk]:
         """Flush rounds until no dirty group is left; each round reads
@@ -416,6 +487,15 @@ class HashAggExecutor(Executor):
         # the storage-side skip watermark (state_table.rs:1133): the
         # checkpoint's compaction drops keys below it
         self._cleaning_watermark = (f"k{key_index}", cutoff)
+        if self.minput:
+            expired = expired_slots(self.table, key_index, cutoff)
+            slots = torch.where(
+                expired,
+                torch.arange(self.table.capacity, dtype=torch.int32, device=expired.device),
+                -1,
+            )
+            for vals, cnt in self.minput.values():
+                mi_ops.minput_clear(vals, cnt, slots)  # kernel Q's clear
         if emit_deletes:
             # a retracting expiry can dirty every live group; the host
             # cannot count them without a read, so bound by capacity

@@ -22,7 +22,10 @@ Semantics as the reference: SUM/MIN/MAX over only-NULL inputs is NULL
 (a per-call non-null counter); MIN/MAX are append-only and a retraction
 reaching one latches ``minmax_retracted``. Float MIN/MAX accumulate
 total-order keys, stored here as int64 (see ``_float_to_order_key``).
-The materialized-input MIN/MAX is not ported yet.
+A materialized-input MIN/MAX (``AggCall(materialized=True)``) is
+skipped by ``apply``, ``reduce_by_key`` and ``apply_reduced``, in the
+plain versions and in kernels B, F and G alike: the minput pass
+(``ops/minput.py``, kernel Q) keeps its accumulator and non-null lanes.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ _KIND_CODE = {k: i for i, k in enumerate(KINDS)}  # agg_apply.cu AggKind
 @dataclass(frozen=True)
 class AggCall:
     """One aggregate call: kind + input column -> output column.
-    ``materialized`` (retractable MIN/MAX) is not ported yet."""
+    ``materialized`` makes a MIN/MAX retractable (``ops/minput.py``)."""
 
     kind: str
     input: Optional[str]  # None for count_star
@@ -262,11 +265,10 @@ def apply(
     ``signs`` must already fold visibility (StreamChunk.effective_signs).
     NULL inputs count only toward COUNT(*). With ``live`` (the group
     table's live lane) every row's slot then gets live = row_count > 0,
-    the ``set_live`` of ``hash_agg.py:135``.
+    the ``set_live`` of ``hash_agg.py:135``. Materialized calls are
+    skipped (``ops/agg.py:297-301`` in the reference).
     """
-    for c in calls:
-        if c.materialized:
-            raise NotImplementedError("materialized MIN/MAX is not ported yet")
+    calls = _unmaterialized(calls)
     if slots.device.type == "cpu":
         _apply_torch(state, calls, slots, signs, values, nulls, live)
     elif slots.device.type == "cuda":
@@ -368,10 +370,10 @@ _SRC_SIGN, _SRC_WN, _SRC_SUM, _SRC_EXT, _SRC_USE = range(5)
 _OP_SUM_I64, _OP_SUM_F32, _OP_SUM_F64, _OP_MIN_I64, _OP_MAX_I64, _OP_MIN_I32, _OP_MAX_I32 = range(7)
 
 
-def _check_unmaterialized(calls) -> None:
-    for c in calls:
-        if c.materialized:
-            raise NotImplementedError("materialized MIN/MAX is not ported yet")
+def _unmaterialized(calls) -> tuple:
+    """The calls this module maintains: every call but a materialized
+    MIN/MAX, whose lanes the minput pass keeps."""
+    return tuple(c for c in calls if not c.materialized)
 
 
 def reduce_by_key(
@@ -397,8 +399,9 @@ def reduce_by_key(
     segment, ``reduced`` the per-call lanes ``cnt_<out>``,
     ``sum_<out>``/``nn_<out>`` and ``ext_<out>``/``nnp_<out>``, and
     ``minmax_ret`` a () bool: a retraction reached a MIN/MAX call.
+    Materialized calls get no lane (``ops/agg.py:442-443``).
     """
-    _check_unmaterialized(calls)
+    calls = _unmaterialized(calls)
     if signs.device.type == "cpu":
         return _reduce_by_key_torch(tuple(key_lanes), signs, calls, values, nulls)
     if signs.device.type == "cuda":
@@ -576,8 +579,8 @@ def apply_reduced(
     ``set_live`` of ``hash_agg.py:228-232``. Two representatives may
     share a slot (a visible key whose fingerprints are both 0xFFFFFFFF
     sorts among the invisible rows and splits), so every scatter
-    accumulates."""
-    _check_unmaterialized(calls)
+    accumulates. Materialized calls are skipped (``ops/agg.py:504-505``)."""
+    calls = _unmaterialized(calls)
     if slots.device.type == "cpu":
         _apply_reduced_torch(state, calls, slots, rep_valid, w, reduced, minmax_ret, live)
     elif slots.device.type == "cuda":

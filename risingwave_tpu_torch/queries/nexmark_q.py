@@ -1,10 +1,13 @@
 """Nexmark query pipelines.
 
 Port of ``risingwave_tpu/queries/nexmark_q.py:28-277`` (q5-lite, q7,
-q8). Reference queries: e2e_test/nexmark/ — q5 (hot items) counts bids
-per auction per hop window (size 10 s, slide 2 s); "q5-lite" is its
-stateful core, the HashAgg stage. q7 (highest bid): the bids at their
-10 s tumble window's maximum price. q8 (monitor new users): persons who
+q8), and q5-max, which the reference composes from its executors with
+no ``build_*`` function of its own. Reference queries:
+e2e_test/nexmark/ — q5 (hot items) counts bids per auction per hop
+window (size 10 s, slide 2 s); "q5-lite" is its stateful core, the
+HashAgg stage; "q5-max" is q5's ``MaxBids`` subquery on top of it, the
+top count per window. q7 (highest bid): the bids at their 10 s tumble
+window's maximum price. q8 (monitor new users): persons who
 opened auctions in the same 10 s tumble window — per-side tumble +
 DISTINCT, then an inner join on (person.id, window) =
 (auction.seller, window).
@@ -77,6 +80,69 @@ def build_q5_lite(
         device=dev,
     )
     return Q5Lite(Pipeline([hop, agg, mview]), agg, mview)
+
+
+@dataclass
+class Q5Max:
+    pipeline: Pipeline
+    count_agg: HashAggExecutor
+    max_agg: HashAggExecutor
+    mview: DeviceMaterializeExecutor
+
+
+def build_q5_max(
+    capacity: int = 1 << 16,
+    max_capacity: int = 1 << 6,
+    minput_k: int = 256,
+    state_cleaning: bool = True,
+    device="cuda",
+) -> Q5Max:
+    """The MAX half of Nexmark q5 (its ``MaxBids`` subquery)::
+
+      bids -> hop window -> COUNT(*) AS num per (auction, window_start)
+           -> MAX(num) AS maxn per window_start -> MV pk=(window_start)
+
+    Every count change makes the first agg emit U-/U+, so the MAX's
+    input retracts: it is materialized (``minput_k`` distinct counts
+    per window, the SQL planner's 256). ``state_cleaning`` declares both
+    aggs' window key: a ``date_time`` watermark closes the windows below
+    it (emit-on-window-close: each agg flushes, then frees them, the
+    MAX's multisets too). ``fuse_pipeline`` splits the chain as the
+    reference's ``fuse_chain`` does: the hop and the count agg as one
+    epoch batch, the MAX agg and the MV as one fused program.
+    """
+    dev = resolve_device(device)
+    i64 = torch.int64
+    hop = HopWindowExecutor("date_time", Q5_WINDOW_MS, Q5_SLIDE_MS)
+    count_agg = HashAggExecutor(
+        group_keys=("auction", "window_start"),
+        calls=(AggCall("count_star", None, "num"),),
+        schema_dtypes={"auction": i64, "window_start": i64},
+        capacity=capacity,
+        table_id="q5max.count",
+        window_key=("window_start", 0, False) if state_cleaning else None,
+        device=dev,
+    )
+    max_agg = HashAggExecutor(
+        group_keys=("window_start",),
+        calls=(AggCall("max", "num", "maxn", materialized=True),),
+        schema_dtypes={"window_start": i64, "num": i64},
+        capacity=max_capacity,
+        table_id="q5max.max",
+        window_key=("window_start", 0, False) if state_cleaning else None,
+        minput_k=minput_k,
+        device=dev,
+    )
+    mview = DeviceMaterializeExecutor(
+        pk=("window_start",),
+        columns=("maxn",),
+        schema_dtypes={"window_start": i64, "maxn": i64},
+        nullable=("maxn",),
+        table_id="q5max.mview",
+        capacity=max(1 << 12, max_capacity),
+        device=dev,
+    )
+    return Q5Max(Pipeline([hop, count_agg, max_agg, mview]), count_agg, max_agg, mview)
 
 
 @dataclass

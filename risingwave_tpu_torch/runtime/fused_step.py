@@ -169,12 +169,13 @@ def no_device_reads(device: torch.device):
 
 def _fused_barrier_fn(states, stacked, plan: FusedPlan, pads, has_data: bool):
     """The fragment's barrier over ``states = (agg_state, mv_state)``
-    (``(table, state, dropped, mi_bad)`` and ``(table, state)``, each
-    empty without that member), updated in place:
+    (``(table, state, dropped, minput, mi_bad)`` and ``(table,
+    state)``, each empty without that member), updated in place:
 
     data phase   the stacked chunks through the pure prefix into the
-                 agg's epoch path, or, without an agg, flattened into
-                 the device MV as one batch;
+                 agg's epoch path (with a materialized MIN/MAX also the
+                 row re-probe and kernel Q), or, without an agg,
+                 flattened into the device MV as one batch;
     flush phase  ``len(pads)`` flushes of the agg's dirty groups,
                  round r's delta sliced to ``pads[r]`` rows and walked
                  through mid-steps -> device MV -> post-steps;
@@ -214,11 +215,12 @@ def _fused_barrier_fn(states, stacked, plan: FusedPlan, pads, has_data: bool):
         rows_in = stacked.valid.sum()
         if plan.agg is not None:
             a = plan.agg
-            table, st, dropped, mi_bad = agg_st
+            table, st, dropped, minput, mi_bad = agg_st
             table, st, dropped = _epoch_reduced_fn(
-                table, st, dropped, stacked, a.calls, a.group_keys, a.nullable, plan.pre
+                table, st, dropped, stacked, a.calls, a.group_keys, a.nullable, plan.pre,
+                minput, mi_bad,
             )
-            agg_st = (table, st, dropped, mi_bad)
+            agg_st = (table, st, dropped, minput, mi_bad)
         else:
             # the MV's last-row-per-pk rule makes one flat step equal to
             # applying the chunks in order
@@ -230,18 +232,18 @@ def _fused_barrier_fn(states, stacked, plan: FusedPlan, pads, has_data: bool):
     dirty_groups = zero()
     if plan.agg is not None and pads:
         a = plan.agg
-        table, st, dropped, mi_bad = agg_st
+        table, st, dropped, minput, mi_bad = agg_st
         for r, pad in enumerate(pads):
             st, delta = agg_ops.flush(
                 st, table.keys, a.out_cap, a.float_extremes,
                 dirty_total=dirty_groups if r == 0 else None,
             )
             outs.append(through_mv(_delta_chunk(delta, a, pad)))
-        agg_st = (table, st, dropped, mi_bad)
+        agg_st = (table, st, dropped, minput, mi_bad)
 
     scal = []
     if plan.agg is not None:
-        table, st, dropped, mi_bad = agg_st
+        table, st, dropped, _minput, mi_bad = agg_st
         scal += [dropped, st.minmax_retracted, mi_bad, table.occupancy()]
     if plan.has_mv:
         mtable, mstate = mv_st
@@ -405,7 +407,8 @@ class FusedChainExecutor(Executor):
                 states, stacked, self.plan, pads, has_data
             )
             if self.agg is not None:
-                self.agg.table, self.agg.state, self.agg.dropped, self.agg.mi_bad = agg_st
+                (self.agg.table, self.agg.state, self.agg.dropped, self.agg.minput,
+                 self.agg.mi_bad) = agg_st
             if self.mv is not None:
                 self.mv.table, self.mv.state = mv_st
             if stage:
@@ -417,7 +420,8 @@ class FusedChainExecutor(Executor):
     def _agg_state(self):
         if self.agg is None:
             return ()
-        return (self.agg.table, self.agg.state, self.agg.dropped, self.agg.mi_bad)
+        return (self.agg.table, self.agg.state, self.agg.dropped, self.agg.minput,
+                self.agg.mi_bad)
 
     def _mv_state(self):
         if self.mv is None:
@@ -565,7 +569,8 @@ def _fused_two_input_body(w: "FusedTwoInputExecutor", left_batches, right_batche
                  its side's stateful step and the join's arrival step
                  chunk by chunk, each segment's emission through the
                  tail; an agg side instead takes each segment as one
-                 stacked batch into its epoch path (kernels E, F, A, G);
+                 stacked batch into its epoch path (kernels E, F, A, G;
+                 with a materialized MIN/MAX the re-probe and Q);
     flush phase  ``len(pads)`` flushes of the agg side's dirty groups
                  (kernel C), round r's delta sliced to ``pads[r]`` rows,
                  each a right arrival at the join (M, P for an outer,
@@ -613,7 +618,7 @@ def _fused_two_input_body(w: "FusedTwoInputExecutor", left_batches, right_batche
                 a = side_plan.agg
                 ex.table, ex.state, ex.dropped = _epoch_reduced_fn(
                     ex.table, ex.state, ex.dropped, stack_chunks(seg), a.calls, a.group_keys,
-                    a.nullable, side_plan.pre,
+                    a.nullable, side_plan.pre, ex.minput, ex.mi_bad,
                 )
             else:
                 flat = _two_input_side_scan(ex, join, seg, side_plan, plan, side, join_rows)

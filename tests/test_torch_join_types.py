@@ -409,3 +409,116 @@ def test_join_side_digest_folds_nonzero_degrees_as_the_reference():
     assert port.side_digests() == before
     port.left.degree.view(-1)[live[0]] += 1
     assert port.side_digests()[0] != before[0] and port.side_digests()[1] == before[1]
+
+
+# -- the fused two-input program over the join types that ran only per step ----------
+FUSED_TYPES = ("right", "full", "left_semi", "left_anti", "right_semi", "right_anti")
+
+
+def _q101_shape(port: bool, join_type: str, cap: int = 1 << 10, big: int = 1 << 14):
+    """q101's plan shape with another join type: auctions (id,
+    item_name) left with no executor, a HashAgg MAX(price) by auction
+    right, the join on id = auction, a device MV keyed on the emitted
+    stream key (both sides' keys, or the driving side's key of a semi
+    or anti join). Returns (pipeline, agg, join, mview)."""
+    if port:
+        from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor as Agg
+        from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor as MV
+        from risingwave_tpu_torch.ops.agg import AggCall as Call
+        from risingwave_tpu_torch.runtime.pipeline import TwoInputPipeline as P2
+
+        i32, i64, dev, join_cls = torch.int32, torch.int64, {"device": "cpu"}, HashJoinExecutor
+    else:
+        from risingwave_tpu.executors.hash_agg import HashAggExecutor as Agg
+        from risingwave_tpu.executors.materialize import DeviceMaterializeExecutor as MV
+        from risingwave_tpu.ops.agg import AggCall as Call
+        from risingwave_tpu.runtime import TwoInputPipeline as P2
+
+        i32, i64, dev, join_cls = jnp.int32, jnp.int64, {}, RefJoin
+    dts = {"id": i64, "item_name": i32, "auction": i64, "max_price": i64}
+    agg = Call("max", "price", "max_price")
+    agg = Agg(group_keys=("auction",), calls=(agg,), schema_dtypes={"auction": i64, "price": i64},
+              capacity=cap, out_cap=cap >> 1, table_id="jt.maxbid", **dev)
+    join = join_cls(("id",), ("auction",), {"id": i64, "item_name": i32},
+                    {"auction": i64, "max_price": i64}, capacity=big >> 1, fanout=4,
+                    out_cap=1 << 10,
+                    right_nullable=("max_price",), join_type=join_type, table_id="jt.join", **dev)
+    if join_type.endswith(("semi", "anti")):
+        pk = ("id",) if join_type.startswith("left") else ("auction",)
+    else:
+        pk = ("id", "auction")
+    cols = tuple(c for c in join.out_names if c not in pk)
+    mview = MV(pk=pk, columns=cols, schema_dtypes={c: dts[c] for c in pk + cols},
+               nullable=tuple(c for c in cols if c in ("item_name", "max_price")),
+               capacity=big, table_id="jt.mview", **dev)
+    return P2([], [agg], join, [mview]), agg, join, mview
+
+
+def _auction_bid_stream(epochs=3, events=2000, seed=5):
+    """Per epoch the auctions and bids of ``events`` generated events,
+    every fifth auction withheld: its bids find no auction, so the
+    right-driven types (right, full, right_anti) emit unmatched rows."""
+    from risingwave_tpu.connectors.nexmark import NexmarkConfig, NexmarkGenerator
+
+    gen = NexmarkGenerator(NexmarkConfig(first_event_rate=10_000), seed=seed)
+    out = []
+    for _ in range(epochs):
+        ev = gen.next_events(events)
+        keep = ev["auction"]["id"] % 5 != 0
+        out.append(({k: ev["auction"][k][keep] for k in ("id", "item_name")},
+                    {k: ev["bid"][k] for k in ("auction", "price")}))
+    return out
+
+
+def _drive_q101_shape(pipeline, epoch, port: bool, a_cap: int = 512, b_cap: int = 1024):
+    mk = (lambda c, cap: StreamChunk.from_numpy(c, cap, device="cpu")) if port else (
+        lambda c, cap: RefChunk.from_numpy(c, cap))
+    auctions, bids = epoch
+    pipeline.push_left(mk(auctions, a_cap))
+    for lo in range(0, len(bids["auction"]), b_cap):
+        pipeline.push_right(mk({k: v[lo:lo + b_cap] for k, v in bids.items()}, b_cap))
+    pipeline.barrier()
+
+
+def _digests(agg, join, mview, port: bool):
+    if port:
+        from risingwave_tpu_torch import integrity
+
+        host = lambda ll: integrity.host_digest(*integrity.host_lanes(*ll))
+        jl, jr = join.side_digests()
+        return (host(integrity.agg_lanes(agg.table, agg.state, ())), jl, jr,
+                host(integrity.mv_lanes(mview.table, mview.state)))
+    np_lanes = lambda lanes, live: ({k: np.asarray(v) for k, v in lanes.items()},
+                                    np.asarray(live))
+    host = lambda ll: ref_integrity.host_digest(*np_lanes(*ll))
+    return (host(ref_integrity.agg_lanes(agg.table, agg.state)), *_ref_side_digests(join),
+            host(ref_integrity.mv_lanes(mview.table, mview.state)))
+
+
+@pytest.mark.parametrize("join_type", FUSED_TYPES)
+def test_fused_two_input_join_type_matches_reference(join_type):
+    """q101's plan shape under each join type that ran only per step,
+    both packages through their fused two-input program: MV snapshot,
+    the agg, join-side and MV digests, the staged digests and the
+    telemetry counters equal at every barrier; the port's fused MV
+    equals its interpreted MV; the stream makes every type emit rows
+    (right_anti: the bids of withheld auctions)."""
+    from risingwave_tpu.runtime.fused_step import fuse_pipeline as ref_fuse
+    from risingwave_tpu_torch.runtime.fused_step import FusedTwoInputExecutor, fuse_pipeline
+
+    ref, port, interp = (_q101_shape(False, join_type), _q101_shape(True, join_type),
+                         _q101_shape(True, join_type))
+    (rw,) = ref_fuse(ref[0], label="jt")
+    (pw,) = fuse_pipeline(port[0], label="jt")
+    assert isinstance(pw, FusedTwoInputExecutor) and pw.plan.j_type == join_type
+    for epoch in _auction_bid_stream():
+        _drive_q101_shape(ref[0], epoch, port=False)
+        _drive_q101_shape(port[0], epoch, port=True)
+        _drive_q101_shape(interp[0], epoch, port=True)
+        assert port[3].snapshot() == ref[3].snapshot() == interp[3].snapshot()
+        assert _digests(*port[1:], port=True) == _digests(*ref[1:], port=False)
+        assert pw.last_digests == rw.last_digests
+        tel = {k: rw._telemetry[k]
+               for k in ("rows_left", "rows_right", "join_rows", "dirty_groups", "mv_rows")}
+        assert {k: pw.last_telemetry[k] for k in tel} == tel
+    assert len(port[3].snapshot()) > 0

@@ -48,9 +48,11 @@ def _one_thread():
 
 
 def _build(port: bool, cap: int = 1 << 12, agg_out_cap: int = 1 << 9, out_cap: int = 1 << 11,
-           mv_pk=STREAM_KEY):
-    """The q101 plan from one package's executors. Returns (pipeline,
-    agg, join, mview)."""
+           mv_pk=STREAM_KEY, materialized: bool = False):
+    """The q101 plan from one package's executors (``materialized``: the
+    right-hand MAX keeps its input, a retractable MAX, with the SQL
+    planner's 256 distinct values per group). Returns (pipeline, agg,
+    join, mview)."""
     if port:
         from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
         from risingwave_tpu_torch.executors.hash_join import HashJoinExecutor
@@ -67,9 +69,11 @@ def _build(port: bool, cap: int = 1 << 12, agg_out_cap: int = 1 << 9, out_cap: i
         from risingwave_tpu.runtime import TwoInputPipeline
 
         i32, i64, dev = jnp.int32, jnp.int64, {}
-    agg = HashAggExecutor(group_keys=("auction",), calls=(AggCall("max", "price", "max_price"),),
+    agg = HashAggExecutor(group_keys=("auction",),
+                          calls=(AggCall("max", "price", "max_price", materialized=materialized),),
                           schema_dtypes={"auction": i64, "price": i64}, capacity=cap,
-                          out_cap=agg_out_cap, table_id="q101.maxbid", **dev)
+                          out_cap=agg_out_cap, table_id="q101.maxbid",
+                          **({"minput_k": 256} if materialized else {}), **dev)
     join = HashJoinExecutor(left_keys=("id",), right_keys=("auction",),
                             left_dtypes={"id": i64, "item_name": i32},
                             right_dtypes={"auction": i64, "max_price": i64}, capacity=cap,
@@ -210,3 +214,38 @@ def test_q101_mv_keyed_on_id_alone_loses_rows_as_the_reference():
     assert len(got) < len(want)
     for (i,), (item, auction, mx) in got.items():
         assert want.get((i, auction or 0)) == (item, mx)
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["interpreted", "fused"])
+def test_q101_materialized_max_matches_reference_at_every_barrier(fuse):
+    """q101 with its right-hand MAX materialized (the two-input
+    program's agg side runs the minput pass): both packages equal at
+    every barrier (MV, digests; fused, the staged digests and the
+    telemetry), the multisets lane for lane, and the answers those of
+    the append-only MAX, the numpy oracle's."""
+    ref = _build(port=False, materialized=True)
+    port = _build(port=True, materialized=True)
+    plain = _build(port=True)
+    if fuse:
+        (rw,) = ref_fuse(ref[0], label="q101")
+        (pw,) = fuse_pipeline(port[0], label="q101")
+        (plain_w,) = fuse_pipeline(plain[0], label="q101")
+        assert isinstance(pw, FusedTwoInputExecutor)
+        assert any(c.materialized for c in pw.plan.right.agg.calls)
+        assert not any(c.materialized for c in plain_w.plan.right.agg.calls)
+    stream = _stream(3, 3000, seed=5)
+    for epoch in stream:
+        _drive(ref[0], epoch, port=False)
+        _drive(port[0], epoch, port=True)
+        _drive(plain[0], epoch, port=True)
+        assert port[3].snapshot() == ref[3].snapshot() == plain[3].snapshot()
+        assert _port_digests(*port[1:]) == _ref_digests(*ref[1:])
+        for got, want in zip(port[1].minput["max_price"], ref[1].minput["max_price"]):
+            assert np.array_equal(got.numpy(), np.asarray(want))
+        if fuse:
+            assert pw.last_digests == rw.last_digests == plain_w.last_digests
+            tel = {k: rw._telemetry[k]
+                   for k in ("rows_left", "rows_right", "join_rows", "dirty_groups", "mv_rows")}
+            assert {k: pw.last_telemetry[k] for k in tel} == tel
+    assert not bool(port[1].mi_bad)
+    assert port[3].snapshot() == _oracle(stream)

@@ -191,7 +191,7 @@ def test_rehash_matches_reference(seed):
     rcalls, rt, rs = _ref_agg(seed)
     pcalls, fx, pt, ps = _port_agg(rt, rs)
     rt2, rs2, _ = ref_agg_ex._rehash(rt, rs, {}, rcalls, NEW_CAP)
-    pt2, ps2 = port_agg_ex._rehash(pt, ps, pcalls, NEW_CAP, fx)
+    pt2, ps2, _ = port_agg_ex._rehash(pt, ps, {}, pcalls, NEW_CAP, fx)
     assert pt2.capacity == NEW_CAP
     _assert_tables_equal(pt2, jax.device_get(rt2))
     r, p = _ref_state_lanes(jax.device_get(rs2)), _port_state_as_reference(ps2, fx)
@@ -205,10 +205,10 @@ def test_rehash_matches_reference(seed):
 def test_kernel_i_wrapper_rehash_equals_plain(kernel_i_on_cpu):
     _, rt, rs = _ref_agg(5)
     pcalls, fx, pt, ps = _port_agg(rt, rs)
-    want_t, want_s = port_agg_ex._rehash(pt, ps, pcalls, NEW_CAP, fx)
+    want_t, want_s, _ = port_agg_ex._rehash(pt, ps, {}, pcalls, NEW_CAP, fx)
     log = kernel_i_on_cpu(NEW_CAP)
     _kernels.reset_launches()
-    got_t, got_s = port_agg_ex._rehash(pt, ps, pcalls, NEW_CAP, fx)
+    got_t, got_s, _ = port_agg_ex._rehash(pt, ps, {}, pcalls, NEW_CAP, fx)
     assert _kernels.LAUNCHES["slot_move"] == 1 and log == [2 + 2 * 4 + 2 * 3 + 4]  # live, row_count; accums, emitted;
     # nonnull, emitted_isnull of the three nullable calls; four marks
     assert torch.equal(got_t.live, want_t.live) and torch.equal(got_t.fp1, want_t.fp1)

@@ -1,4 +1,4 @@
-"""The CUDA wrappers of kernels H, J, L, M, N, O and P marshal their arguments as
+"""The CUDA wrappers of kernels H, J, L, M, N, O, P and Q marshal their arguments as
 their C entry points declare them (``_kernels.SIGNATURES``), checked on
 the CPU: each wrapper runs on CPU tensors while ``_kernels.call`` is
 replaced by a ``ctypes.CFUNCTYPE`` callback of the entry point's
@@ -190,3 +190,33 @@ def test_o_entries_marshal(calls):
             _kernels.LAUNCHES["expire_agg"]) == (1, 1, 2)
     assert agg._init_bits(0xFFFFFFFF, torch.int64) == 0xFFFFFFFF
     assert agg._init_bits(-(2**63), torch.int64) == -(2**63)
+
+
+def test_q_entries_marshal(calls):
+    from risingwave_tpu_torch.ops import minput as mi
+
+    cap, k, n = 16, 8, 32
+    for vals_dt, v in ((torch.int64, torch.arange(n, dtype=torch.int64)),
+                       (torch.int64, torch.rand(n, dtype=torch.float64)),
+                       (torch.int32, torch.arange(n, dtype=torch.int32))):
+        vals = torch.zeros((cap, k), dtype=vals_dt)
+        cnt = torch.zeros((cap, k), dtype=torch.int32)
+        latch = torch.zeros((), dtype=torch.bool)
+        mi._minput_apply_cuda(
+            vals, cnt, torch.arange(n, dtype=torch.int32) % cap, torch.ones(n, dtype=torch.int32),
+            v, torch.ones(n, dtype=torch.bool), "max", torch.zeros(cap, dtype=vals_dt),
+            torch.zeros(cap, dtype=torch.int64), latch, latch,
+        )
+    with pytest.raises(TypeError, match="int32"):
+        mi._minput_apply_cuda(vals, cnt, torch.zeros(n, dtype=torch.int64),
+                              torch.ones(n, dtype=torch.int32), v, None, "min",
+                              torch.zeros(cap, dtype=vals_dt), torch.zeros(cap, dtype=torch.int64),
+                              latch, latch)
+    mi._minput_clear_cuda(cnt, torch.full((cap,), -1, dtype=torch.int32))
+    nv, nc = torch.zeros((2 * cap, k), dtype=vals_dt), torch.zeros((2 * cap, k), dtype=torch.int32)
+    mi._minput_rescatter_cuda(vals, cnt, torch.ones(cap, dtype=torch.bool),
+                              torch.arange(cap, dtype=torch.int32), nv, nc)
+    assert calls == [("minput", "rw_minput_apply")] * 3 + [
+        ("minput", "rw_minput_clear"), ("minput", "rw_minput_rescatter")]
+    assert _kernels.LAUNCHES["minput"] == 3 and _kernels.LAUNCHES["minput_clear"] == 1
+    assert _kernels.LAUNCHES["minput_rescatter"] == 1
