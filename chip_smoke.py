@@ -26,8 +26,14 @@ Phases, each printing one JSON line:
      float32 MAX, (c) an
      overflow and an inconsistency, each latch, (d) Q's clear of half of
      (b)'s groups, (e) its rescatter from 2^20 to 2^21 slots), with
-     times; then all eight join types at a small shape, the card's
-     executor against one on the CPU;
+     times; K3, M's rw_lookup entry alone, re-probing (a)'s batch; R,
+     each of its four entries (stage select, gather of every lane with
+     one copy to the host, mark, scatter) on q5's agg at 2^24 slots (3M
+     live, a third sdirty, 100,000 tombstones), a q8 join side (2^23, 8)
+     with degrees and moved-degree marks, q5-max's MAX agg with its
+     (2^14, 256) multisets, and an empty selection, with the host link's
+     measured rate; then all eight join types at a small shape, the
+     card's executor against one on the CPU;
   4. the interpreted path: Nexmark q5 (hop -> HashAgg -> device MV)
      through ``build_q5_lite(state_cleaning=False)``, chunk by chunk,
      over 20 epochs of 1M events, its final MV held against a numpy
@@ -88,7 +94,20 @@ Phases, each printing one JSON line:
      phase 13's state;
   15. q101 with its MAX materialized (the two-input program's agg side
      with kernel Q), interpreted and fused over phase 11's first three
-     epochs, each MV against the q101 oracle of those epochs.
+     epochs, each MV against the q101 oracle of those epochs;
+  16. kill and recover, for q5 and q5-max (after phase 14), q8 (after
+     phase 8), q7 (after phase 10) and q101 (after phase 15): the
+     query's first 10 epochs at its phase's table sizes, run A
+     committing after every barrier into a LocalFsObjectStore under a
+     temporary directory (the watermark where the query has one), run B
+     uninterrupted beside it; after barrier 6 every object of A goes and
+     the cache empties, a fresh build recovers (q5 and q8 also a second
+     one that re-fuses through ``fuse_pipeline``), its MV and every
+     table's kernel-H digest held against A's before the kill, then the
+     recovered runs and B over the remaining epochs, MV and digests
+     equal at every barrier, B's MV against the oracle at the end; the
+     commit's stage and SST times, rows and bytes staged, the recovery's
+     read and restore seconds and the peak memory.
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. Without a
@@ -2952,6 +2971,7 @@ def q5_max_flush_batch(torch, dev):
     from risingwave_tpu_torch.array.chunk import StreamChunk
 
     signs = StreamChunk({"num": num}, valid, {}, ops).effective_signs()
+    mx.probe = ((ws,), valid & (signs != 0))  # the epoch path's re-probe of every row
     return mx, (slots, signs, num, None), {
         "flush_rows": int(valid.shape[0]), "valid_rows": int(valid.sum()),
         "inserts": int((valid & (ops == 0)).sum()), "u_minus": int((valid & (ops == 3)).sum()),
@@ -3051,6 +3071,7 @@ def kernel_q(torch, dev, rng):
     check(not bool(got[4]) and not bool(got[5]), "Q (a): no latch")
     ms_a = q_time(torch, kern, state_a, batch, "max", 20)
     plain_a = q_time(torch, plain, state_a, batch, "max", 3)
+    lookup_row = kernel_lookup(torch, mx.table, *mx.probe)
     groups, pairs = q_counts(torch, *batch)
     n = batch[0].shape[0]
     nbytes_a = q_bytes(n, groups, pairs, Q5MAX_K, 8, False)
@@ -3181,7 +3202,36 @@ def kernel_q(torch, dev, rng):
         "compared": "per slot the multiset of (value, count), the accumulator and non-null "
                     "lanes, both latches",
     }
-    return a_row, d_row, e_row
+    return a_row, d_row, e_row, lookup_row
+
+
+def kernel_lookup(torch, table, keys, valid):
+    """K3 on its own: M's ``rw_lookup`` entry, the epoch path's re-probe of
+    every row of q5-max's flush batch (shape (a)) into the MAX agg's
+    table, against ``_lookup_torch`` on the same inputs."""
+    from risingwave_tpu_torch.ops.hash_table import _lookup_torch, lookup
+
+    got, want = lookup(table, keys, valid), _lookup_torch(table, keys, valid)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "K3 rw_lookup: slots and found vs the plain version")
+    check(bool((got[0][valid] >= 0).all()), "K3 rw_lookup: every re-probed row has its slot")
+    n, cap = valid.shape[0], table.capacity
+    key_bytes = sum(k.element_size() for k in keys)
+    lane_bytes = table.fp1.element_size() + table.fp2.element_size() + 1 + sum(
+        k.element_size() for k in table.keys)
+    return {
+        "name": "K3 -> M rw_lookup", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/join_probe.cu",
+        "replaces": "risingwave_tpu/ops/hash_table.py:232", "max_abs_err": 0.0,
+        "ms": time_ms(torch, lambda: lookup(table, keys, valid), 20),
+        "plain_ms": time_ms(torch, lambda: _lookup_torch(table, keys, valid), 3),
+        # the probe's keys and valid read, slots and found written, the
+        # table's lanes read once
+        "bound_ms": bound_ms(n * (key_bytes + 1 + 4 + 1) + cap * lane_bytes),
+        "bound_by": "bytes", "library_ms": None,
+        "shape": {"rows": n, "probed": int(valid.sum()), "capacity": cap},
+    }
 
 
 # -- phases 13 and 14: q5-max ----------------------------------------------------
@@ -3723,6 +3773,541 @@ def fused_path(torch, dev, chunks, cap, interp_q5, oracle):
     }, launches
 
 
+# -- phase 3, kernel R (checkpoint staging and restore) ------------------------
+R_Q5_LIVE = 3_000_000  # live groups of q5's agg at 2^24 slots (phase 4's mean)
+R_JOIN_CAP = Q8_CAP
+R_JOIN_KEYS = 1_200_000  # keys of a q8 join side late in phase 7
+R_MAX_CAP = 1 << 14  # q5-max's MAX agg after its first barrier
+R_MAX_LIVE = 60  # about 54 windows live at a barrier (phase 13)
+
+
+def r_lanes_q5(torch, dev, g):
+    """q5's agg at 2^24 slots: 3M live groups, a third of them sdirty,
+    two thirds stored, 100,000 stored dead groups sdirty (tombstones)."""
+    cap = TABLE_CAP
+    perm = torch.randperm(cap, device=dev, generator=g)
+    live_i, tomb_i = perm[:R_Q5_LIVE], perm[R_Q5_LIVE:R_Q5_LIVE + 100_000]
+    z = lambda: torch.zeros(cap, dtype=torch.bool, device=dev)
+    live, sdirty, stored, ev, dirty = z(), z(), z(), z(), z()
+    live[live_i] = True
+    sdirty[live_i[: R_Q5_LIVE // 3]] = True
+    stored[live_i[R_Q5_LIVE // 3:]] = True
+    ev[live_i] = True
+    sdirty[tomb_i] = True
+    stored[tomb_i] = True
+    ri = lambda lo, hi: torch.randint(lo, hi, (cap,), device=dev, generator=g)
+    lanes = {"k0": ri(1000, 2_000_000), "k1": ri(0, 1 << 40), "row_count": ri(0, 50),
+             "acc_num": ri(0, 50), "em_num": ri(0, 50), "ev": ev}
+    return lanes, sdirty, (live, ev, dirty), stored, None
+
+
+def r_lanes_join(torch, dev, g):
+    """A q8 join side (2^23, 8) with degrees: 1.2M keys, a third sdirty,
+    another 10% with moved degrees only (ddirty), 50,000 tombstones."""
+    cap, f = R_JOIN_CAP, Q8_FANOUT
+    perm = torch.randperm(cap, device=dev, generator=g)
+    n = R_JOIN_KEYS
+    live_i, tomb_i = perm[:n], perm[n:n + 50_000]
+    z = lambda: torch.zeros(cap, dtype=torch.bool, device=dev)
+    live, sdirty, stored, ddirty = z(), z(), z(), z()
+    live[live_i] = True
+    sdirty[live_i[: n // 3]] = True
+    ddirty[live_i[n // 3: n // 3 + n // 10]] = True
+    stored[live_i[n // 3:]] = True
+    sdirty[tomb_i] = True
+    stored[tomb_i] = True
+    r2 = lambda hi, dt: torch.randint(0, hi, (cap, f), device=dev, generator=g).to(dt)
+    lanes = {"k0": torch.randint(0, 1 << 40, (cap,), device=dev, generator=g),
+             "rv": r2(2, torch.bool), "deg": r2(4, torch.int32),
+             "r_date_time": r2(1 << 40, torch.int64), "r_id": r2(1 << 40, torch.int64),
+             "r_name": r2(1 << 20, torch.int32)}
+    return lanes, sdirty, (live,), stored, ddirty
+
+
+def r_lanes_max(torch, dev, g):
+    """q5-max's MAX agg: (2^14, 256) multisets, 60 live windows, all
+    sdirty, and 20 stored windows closed by a watermark (tombstones)."""
+    cap, k = R_MAX_CAP, Q5MAX_K
+    perm = torch.randperm(cap, device=dev, generator=g)
+    live_i, tomb_i = perm[:R_MAX_LIVE], perm[R_MAX_LIVE:R_MAX_LIVE + 20]
+    z = lambda: torch.zeros(cap, dtype=torch.bool, device=dev)
+    live, sdirty, stored, ev, dirty = z(), z(), z(), z(), z()
+    live[live_i] = True
+    ev[live_i] = True
+    sdirty[live_i] = True
+    sdirty[tomb_i] = True
+    stored[tomb_i] = True
+    ri = lambda lo, hi, shape=(cap,): torch.randint(lo, hi, shape, device=dev, generator=g)
+    lanes = {"k0": ri(0, 1 << 40), "row_count": ri(0, 500), "acc_maxn": ri(0, 60),
+             "em_maxn": ri(0, 60), "nn_maxn": ri(0, 500), "ei_maxn": ri(0, 2).to(torch.bool),
+             "miv_maxn": ri(0, 60, (cap, k)), "mic_maxn": ri(0, 9, (cap, k)).to(torch.int32),
+             "ev": ev}
+    return lanes, sdirty, (live, ev, dirty), stored, None
+
+
+def _plain_mark(marks, idx, tomb) -> None:
+    """The mark's plain version (and the library call): ``stored[sel] =
+    ~tomb`` by index_put_, then every dirty lane zeroed."""
+    marks[0][idx] = ~tomb
+    for t in marks[1:]:
+        t.zero_()
+
+
+def row_bytes(lanes) -> int:
+    return sum(a[0].numel() * a.element_size() for a in lanes.values())
+
+
+def r_shape(torch, dev, name, made, times: bool) -> dict:
+    """R's four entries against their plain versions on one shape:
+    select, gather (every lane and the tomb, one copy), mark and a
+    scatter of the gathered rows to fresh slots; with ``times`` each
+    entry's device time, its plain version's and the library call's."""
+    from risingwave_tpu_torch.ops import checkpoint as ck
+
+    lanes, sdirty, alive, stored, ddirty = made
+    cap = sdirty.shape[0]
+    sel, tomb, n, n_dirty = ck.stage_select(sdirty, alive, stored, ddirty)
+    p_sel, p_tomb, p_n, p_dirty = ck._stage_select_torch(sdirty, alive, stored, ddirty)
+    torch.cuda.synchronize()
+    check((n, n_dirty) == (p_n, p_dirty) and torch.equal(sel, p_sel)
+          and torch.equal(tomb, p_tomb), f"R {name}: select vs plain")
+    got = ck.gather_rows(lanes, sel, {"tombstone": tomb})
+    idx = p_sel.long()
+    for k, a in lanes.items():
+        check(np.array_equal(got[k], a[idx].cpu().numpy()), f"R {name}: gather of {k}")
+    check(np.array_equal(got["tombstone"], p_tomb.cpu().numpy()), f"R {name}: gathered tomb")
+    dirt = () if ddirty is None else (ddirty,)
+    marks = [t.clone() for t in (stored, sdirty, *dirt)]
+    work = [t.clone() for t in marks]
+    ck.mark_checkpointed(*work[:2], sel, tomb, *work[2:])
+    plain = [t.clone() for t in marks]
+    plain[0][idx] = ~p_tomb
+    for t in plain[1:]:
+        t.zero_()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(work, plain)), f"R {name}: mark vs plain")
+    slots = torch.randperm(cap, device=dev)[:n].to(torch.int32)
+    rows = {k: got[k] for k in lanes}
+    fresh = lambda: {k: torch.zeros_like(a) for k, a in lanes.items()}
+    k_dst, p_dst = fresh(), fresh()
+    ck.scatter_rows(k_dst, slots, rows)
+    rows_dev = {k: torch.from_numpy(np.ascontiguousarray(r)).to(dev) for k, r in rows.items()}
+    sidx = slots.long()
+    for k, a in p_dst.items():
+        a[sidx] = rows_dev[k]
+    torch.cuda.synchronize()
+    check(all(torch.equal(k_dst[k], p_dst[k]) for k in lanes), f"R {name}: scatter vs plain")
+    shape = {"capacity": cap, "selected": n, "dirty": n_dirty, "tombstones": int(p_tomb.sum()),
+             "lanes": len(lanes), "row_bytes": row_bytes(lanes),
+             "fanout_or_k": max(a[0].numel() for a in lanes.values())}
+    out = {"shape": shape}
+    if not times or n == 0:
+        return out
+    every = {**lanes, "tombstone": tomb}
+    n_sel_lanes = 2 + len(alive) + len(dirt)
+    mask = torch.zeros_like(sdirty)
+    mask[idx] = True
+    packed, layout = ck._gather_packed(every, sel, {"tombstone"})
+    host = torch.empty(packed.shape[0], dtype=torch.uint8, pin_memory=True)
+    staged, s_layout = ck._pack_host(lanes, rows, n)
+    s_packed = staged.to(dev)
+    restore = lambda: [a.copy_(b) for a, b in zip(work, marks)]
+    rb = row_bytes(lanes)
+    out.update({
+        "select": {
+            "ms": time_ms(torch, lambda: ck._stage_select_launch(sdirty, alive, stored, ddirty),
+                          20),
+            "plain_ms": time_ms(torch, lambda: ck._stage_select_torch(sdirty, alive, stored,
+                                                                      ddirty), 3),
+            "library_ms": time_ms(torch, lambda: torch.nonzero(mask), 20),
+            "bound_ms": bound_ms(cap * n_sel_lanes + n * 5 + 16),
+        },
+        "gather": {
+            "ms": time_ms(torch, lambda: ck._gather_packed(every, sel, {"tombstone"}), 20),
+            "copy_ms": time_ms(torch, lambda: host.copy_(packed, non_blocking=True), 20),
+            "packed_bytes": int(packed.shape[0]),
+            "with_copy_ms": time_ms(torch, lambda: ck.gather_rows(lanes, sel,
+                                                                  {"tombstone": tomb}), 10),
+            "plain_ms": time_ms(torch, lambda: [a[idx] for a in lanes.values()], 10),
+            "library_ms": time_ms(torch, lambda: [torch.index_select(a, 0, idx).cpu()
+                                                  for a in lanes.values()], 5),
+            "bound_ms": bound_ms(n * (2 * rb + 4 + 2)),
+        },
+        "mark": {
+            "ms": time_ms(torch, lambda: ck.mark_checkpointed(*work[:2], sel, tomb, *work[2:]),
+                          20, restore),
+            "plain_ms": time_ms(torch, lambda: _plain_mark(work, idx, p_tomb), 20, restore),
+            "library_ms": time_ms(torch, lambda: _plain_mark(work, idx, p_tomb), 20, restore),
+            "bound_ms": bound_ms(n * (4 + 1 + 1) + cap * (1 + len(dirt))),
+        },
+        "scatter": {
+            "ms": time_ms(torch, lambda: ck._scatter_packed(k_dst, slots, s_packed, s_layout),
+                          20),
+            "copy_ms": time_ms(torch, lambda: staged.to(dev, non_blocking=True), 20),
+            "plain_ms": time_ms(torch, lambda: [p_dst[k].__setitem__(sidx, rows_dev[k])
+                                                for k in lanes], 10),
+            "library_ms": time_ms(torch, lambda: [p_dst[k].index_put_((sidx,), rows_dev[k])
+                                                  for k in lanes], 10),
+            "bound_ms": bound_ms(n * (2 * rb + 4)),
+        },
+    })
+    return out
+
+
+def pcie_rates(torch, dev, nbytes: int = 1 << 28) -> dict:
+    """The host link's measured rate: one pinned copy of 256 MiB each way."""
+    dev_buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    d2h = time_ms(torch, lambda: host.copy_(dev_buf, non_blocking=True), 5)
+    h2d = time_ms(torch, lambda: dev_buf.copy_(host, non_blocking=True), 5)
+    return {"bytes": nbytes, "d2h_ms": d2h, "h2d_ms": h2d,
+            "d2h_gb_per_s": nbytes / d2h / 1e6, "h2d_gb_per_s": nbytes / h2d / 1e6}
+
+
+def kernel_r(torch, dev):
+    """R against its plain version on the card (phase 3): q5's agg at
+    2^24 slots (3M live, a third sdirty, tombstones), a q8 join side
+    (2^23, 8) with degrees and moved-degree marks, q5-max's MAX agg with
+    its (2^14, 256) multisets, and an empty selection (no sdirty slot).
+    Returns the four entries' rows (times on q5's agg) and the shapes."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    shapes = {}
+    for name, make in (("q5_agg", r_lanes_q5), ("join_side", r_lanes_join),
+                       ("q5max_agg", r_lanes_max)):
+        shapes[name] = r_shape(torch, dev, name, make(torch, dev, g), True)
+        torch.cuda.empty_cache()
+    lanes, sdirty, alive, stored, _ = r_lanes_q5(torch, dev, g)
+    empty = r_shape(torch, dev, "empty", (lanes, torch.zeros_like(sdirty), alive, stored, None),
+                    False)
+    check(empty["shape"]["selected"] == 0 and empty["shape"]["dirty"] == 0, "R: empty select")
+    shapes["empty_sel"] = empty
+    del lanes, sdirty, alive, stored
+    torch.cuda.empty_cache()
+    pcie = pcie_rates(torch, dev)
+    main = shapes["q5_agg"]
+    base = {"route": "cuda", "source": "risingwave_tpu_torch/csrc/checkpoint.cu",
+            "max_abs_err": 0.0, "bound_by": "bytes"}
+    other = lambda entry: {k: v[entry] for k, v in shapes.items() if entry in v}
+    rows = []
+    for entry, name, replaces, lib in (
+        ("select", "R stage_select", "risingwave_tpu/storage/state_table.py:102 (stage_marks; "
+         "the marks executors/hash_agg.py:1289-1297 pulls)", "torch.nonzero of the mask"),
+        ("gather", "R gather_rows (K32)", "risingwave_tpu/storage/state_table.py:165",
+         "per-lane index_select followed by .cpu()"),
+        ("mark", "R mark_checkpointed (K30)", "risingwave_tpu/executors/hash_agg.py:1262, "
+         "executors/hash_join.py:893", "stored[sel] = ~tomb plus the dirty lanes' zero_()"),
+        ("scatter", "R scatter_rows", "risingwave_tpu/executors/hash_agg.py:1367-1403 (the "
+         "restores' .at[slots].set; the port's own entry)", "per-lane index_put_"),
+    ):
+        t = main[entry]
+        rows.append({**base, "name": name, "replaces": replaces, "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "library_ms": t["library_ms"], "library_call": lib,
+                     "shapes": {k: v["shape"] for k, v in shapes.items()},
+                     "by_shape": other(entry), "pcie": pcie})
+    return rows
+
+
+# -- phase 16: kill and recover ------------------------------------------------
+KILL_EPOCHS = 10  # of each query's stream (the tables keep phases 4-14's sizes)
+KILL_AT = 6  # commits after barriers 1-6, then the kill
+R_ENTRIES = ("checkpoint", "gather_rows", "mark_checkpointed", "scatter_rows")
+
+
+def packed_side_digest(side) -> int:
+    """host_digest of a join side with every bucket's live entries packed
+    to the front: its content without bucket positions (a ``regrow``
+    packs the entries it moves)."""
+    from risingwave_tpu_torch import integrity
+
+    lanes, live = integrity.host_lanes(*integrity.join_side_lanes(side))
+    order = np.argsort(~lanes["rv"], axis=1, kind="stable")
+    packed = {k: np.take_along_axis(v, order, 1) if v.shape == lanes["rv"].shape else v
+              for k, v in lanes.items()}
+    return integrity.host_digest(packed, live)
+
+
+def device_digests(pipeline) -> dict:
+    """Kernel H's digest of every Checkpointable executor's state (a join
+    per side), by table id; join sides also as their packed digest."""
+    from risingwave_tpu_torch import integrity
+    from risingwave_tpu_torch.runtime.fused_step import expand_fused
+
+    out = {}
+    for ex in expand_fused(pipeline.executors):
+        if not hasattr(ex, "checkpoint_delta"):
+            continue
+        if hasattr(ex, "join_type"):
+            for tid, side in zip(ex.checkpoint_table_ids(), (ex.left, ex.right)):
+                out[tid] = integrity.digest_from_scalar(
+                    integrity.device_digest(*integrity.join_side_lanes(side)))
+        else:
+            out[ex.table_id] = integrity.digest_from_scalar(
+                integrity.device_digest(*ex.digest_lanes()))
+    return out
+
+
+def same_state(a, b, what: str) -> str:
+    """Every table's digest equal; a join side that only one run rebuilt
+    may differ in bucket positions alone, and then its packed digest
+    must be equal. Returns how the joins compared."""
+    from risingwave_tpu_torch.runtime.fused_step import expand_fused
+
+    da, db = device_digests(a.pipeline), device_digests(b.pipeline)
+    how = "digest"
+    for tid in da:
+        if da[tid] == db[tid]:
+            continue
+        sides = {}
+        for q in (a, b):
+            for ex in expand_fused(q.pipeline.executors):
+                if hasattr(ex, "join_type") and tid in ex.checkpoint_table_ids():
+                    side = ex.left if tid.endswith(".left") else ex.right
+                    sides.setdefault(tid, []).append(packed_side_digest(side))
+        check(tid in sides and sides[tid][0] == sides[tid][1], f"{what}: table {tid}")
+        how = "digest (joins rebuilt in one run only: packed digest)"
+    return how
+
+
+class KillSpec:
+    """One query of phase 16: ``build()`` a fresh query at its phase's
+    sizes, ``drive(q, e)`` epoch e (pushes, barrier, watermark),
+    ``mv_rows(q)`` its MV as sorted rows, ``oracle`` those rows after
+    KILL_EPOCHS epochs, ``refuse``: also recover into a fused run."""
+
+    def __init__(self, name, build, drive, mv_rows, oracle, refuse=False):
+        self.name, self.build, self.drive, self.mv_rows = name, build, drive, mv_rows
+        self.oracle, self.refuse = oracle, refuse
+
+
+def timed_commit(torch, mgr, epoch, executors, rec) -> None:
+    """``commit_epoch`` in its parts: stage (kernel R's select, gather, one
+    copy and mark), then the SST build and put with the manifest, then
+    any compaction it owes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = mgr.stage(executors)
+    t1 = time.perf_counter()
+    mgr.commit_staged(epoch, staged)
+    for tid in mgr.tables_needing_compaction():
+        mgr.compact_once(tid, epoch)
+    t2 = time.perf_counter()
+    rec["stage_ms"].append((t1 - t0) * 1e3)
+    rec["sst_ms"].append((t2 - t1) * 1e3)
+    rec["commit_ms"].append((t2 - t0) * 1e3)
+    rec["rows"].append(sum(len(d.tombstone) for d in staged))
+    rec["bytes"].append(sum(a.nbytes for d in staged for part in (d.key_cols, d.value_cols)
+                            for a in part.values()) + sum(d.tombstone.nbytes for d in staged))
+
+
+def timed_recover(torch, store_dir, q) -> dict:
+    """``recover`` into a fresh query, its seconds split into the store
+    read (SST reads and merges) and the restore (kernels A and R)."""
+    from risingwave_tpu_torch.storage import CheckpointManager, LocalFsObjectStore
+    from risingwave_tpu_torch.runtime.fused_step import expand_fused
+
+    mgr = CheckpointManager(LocalFsObjectStore(store_dir))
+    read_s = [0.0]
+    read = mgr.read_table
+
+    def timed_read(table_id):
+        t = time.perf_counter()
+        out = read(table_id)
+        read_s[0] += time.perf_counter() - t
+        return out
+
+    mgr.read_table = timed_read
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.recover(expand_fused(q.pipeline.executors))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    return {"recover_s": total, "read_s": read_s[0], "restore_s": total - read_s[0],
+            "epoch": mgr.max_committed_epoch}
+
+
+def kill_and_recover(torch, dev, spec: KillSpec):
+    """Phase 16 for one query: runs A (committing after every barrier into
+    a LocalFsObjectStore) and B (uninterrupted) side by side; at barrier
+    KILL_AT every object of A goes and the cache empties; a fresh A'
+    recovers (with ``refuse``, a second one, A'', recovers and re-fuses)
+    and must equal A's pre-kill MV and digests; A', A'' and B then run
+    the remaining epochs, their MVs and digests equal at every barrier,
+    and equal to the oracle at the end."""
+    import gc
+    import shutil
+    import tempfile
+
+    from risingwave_tpu_torch import _kernels
+    from risingwave_tpu_torch.storage import CheckpointManager, LocalFsObjectStore
+    from risingwave_tpu_torch.runtime.fused_step import expand_fused, fuse_pipeline
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    store_dir = tempfile.mkdtemp(prefix="rw_ckpt_")
+    try:
+        a, b = spec.build(), spec.build()
+        mgr = CheckpointManager(LocalFsObjectStore(store_dir))
+        rec = {"stage_ms": [], "sst_ms": [], "commit_ms": [], "rows": [], "bytes": []}
+        for e in range(KILL_AT):
+            spec.drive(a, e)
+            spec.drive(b, e)
+            timed_commit(torch, mgr, a.pipeline.epoch, expand_fused(a.pipeline.executors), rec)
+        pre = device_digests(a.pipeline)
+        pre_mv = spec.mv_rows(a)
+        same_state(a, b, f"{spec.name}: A vs B before the kill")
+        del a, mgr
+        gc.collect()
+        torch.cuda.empty_cache()
+        a2 = spec.build()
+        rec_a2 = timed_recover(torch, store_dir, a2)
+        check(np.array_equal(spec.mv_rows(a2), pre_mv), f"{spec.name}: recovered MV = pre-kill")
+        check(device_digests(a2.pipeline) == pre, f"{spec.name}: recovered digests = pre-kill")
+        runs = [a2]
+        if spec.refuse:
+            a3 = spec.build()
+            CheckpointManager(LocalFsObjectStore(store_dir)).recover(
+                expand_fused(a3.pipeline.executors))
+            check(len(fuse_pipeline(a3.pipeline, label=spec.name)) == 1,
+                  f"{spec.name}: the recovered pipeline re-fuses into one program")
+            check(device_digests(a3.pipeline) == pre, f"{spec.name}: fused recovery's digests")
+            runs.append(a3)
+        joins = set()
+        for e in range(KILL_AT, KILL_EPOCHS):
+            for q in (*runs, b):
+                spec.drive(q, e)
+            mv_b = spec.mv_rows(b)
+            for i, q in enumerate(runs):
+                what = f"{spec.name} barrier {e + 1} {'fused ' if i else ''}recovered vs B"
+                check(np.array_equal(spec.mv_rows(q), mv_b), f"{what}: MV")
+                joins.add(same_state(q, b, what))
+        torch.cuda.synchronize()
+        launches = dict(_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(mv_b.shape == spec.oracle.shape and np.array_equal(mv_b, spec.oracle),
+              f"{spec.name}: B's MV vs the oracle")
+        for k in R_ENTRIES:
+            check(launches[k] > 0, f"{spec.name}: kernel R's {k} launched")
+        pct = lambda xs, p: float(np.percentile(xs, p))
+        return {
+            "phase": "16", "query": spec.name, "epochs": KILL_EPOCHS, "kill_after_barrier": KILL_AT,
+            "commit_ms_p50": pct(rec["commit_ms"], 50), "commit_ms_p99": pct(rec["commit_ms"], 99),
+            "stage_ms_p50": pct(rec["stage_ms"], 50), "stage_ms_p99": pct(rec["stage_ms"], 99),
+            "sst_put_ms_p50": pct(rec["sst_ms"], 50), "sst_put_ms_p99": pct(rec["sst_ms"], 99),
+            "commit_ms": rec["commit_ms"], "stage_ms": rec["stage_ms"], "sst_put_ms": rec["sst_ms"],
+            "rows_staged": rec["rows"], "bytes_staged": rec["bytes"], **rec_a2,
+            "refused": spec.refuse, "compared": sorted(joins), "mv_rows": int(len(mv_b)),
+            "max_memory_allocated": int(peak), "launches": launches,
+            "checks": "recovered MV and every table's kernel-H digest = pre-kill; recovered "
+                      "runs = the uninterrupted run at every barrier (MV, digests); MV = "
+                      "oracle at the end",
+        }, launches
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def kill_q5(torch, dev, chunks, cap):
+    """Phase 16's q5: phase 4's first KILL_EPOCHS epochs, tables of phase
+    4's sizes; also recovered into a fused run."""
+    from risingwave_tpu_torch.queries.nexmark_q import Q5_SLIDE_MS, Q5_WINDOW_MS, build_q5_lite
+
+    ep = chunks[:KILL_EPOCHS]
+    lane = lambda name: np.concatenate([c.col(name)[c.valid].cpu().numpy() for e in ep for c in e])
+    oracle = q5_oracle(lane("auction"), lane("date_time"), Q5_WINDOW_MS, Q5_SLIDE_MS)
+
+    def drive(q, e):
+        for c in ep[e]:
+            q.pipeline.push(c)
+        q.pipeline.barrier()
+
+    def rows(q):
+        got = mv_rows_sorted(q.mview)
+        return np.stack([got["auction"], got["window_start"], got["num"]], 1)
+
+    spec = KillSpec("q5", lambda: build_q5_lite(capacity=cap, state_cleaning=False, device=dev),
+                    drive, rows, np.stack(oracle, 1), refuse=True)
+    return kill_and_recover(torch, dev, spec), oracle
+
+
+def kill_q5_max(torch, dev, chunks, cap, q5_oracle10):
+    """Phase 16's q5-max: phase 4's first KILL_EPOCHS epochs with a
+    watermark after every barrier, phase 13's sizes."""
+    from risingwave_tpu_torch.queries.nexmark_q import build_q5_max
+
+    ep = chunks[:KILL_EPOCHS]
+    ts = [max(int(c.col("date_time")[c.valid].max()) for c in e) for e in ep]
+
+    def drive(q, e):
+        for c in ep[e]:
+            q.pipeline.push(c)
+        q.pipeline.barrier()
+        q.pipeline.watermark("date_time", ts[e])
+
+    spec = KillSpec("q5_max", lambda: build_q5_max(capacity=cap, max_capacity=Q5MAX_MAX_CAP,
+                                                   minput_k=Q5MAX_K, device=dev),
+                    drive, lambda q: q5_max_mv_rows(q.mview), q5_max_oracle(q5_oracle10))
+    return kill_and_recover(torch, dev, spec)
+
+
+def kill_q8(torch, dev, host, chunks):
+    """Phase 16's q8: phase 7's first KILL_EPOCHS epochs and sizes; also
+    recovered into a fused run."""
+    from risingwave_tpu_torch.queries.nexmark_q import Q8_WINDOW_MS, build_q8
+
+    def drive(q, e):
+        p, a = chunks[e]
+        q.pipeline.push_left(p)
+        q.pipeline.push_right(a)
+        q.pipeline.barrier()
+
+    spec = KillSpec("q8", lambda: build_q8(capacity=Q8_CAP, fanout=Q8_FANOUT, out_cap=Q8_OUT_CAP,
+                                           device=dev),
+                    drive, lambda q: q8_mv_rows(q.mview),
+                    oracle_rows(cpu_actor_q8(host[:KILL_EPOCHS], Q8_WINDOW_MS)), refuse=True)
+    return kill_and_recover(torch, dev, spec)
+
+
+def kill_q7(torch, dev, host, chunks):
+    """Phase 16's q7: phase 9's first KILL_EPOCHS epochs and sizes, the
+    watermark after every barrier."""
+    from risingwave_tpu_torch.queries.nexmark_q import Q7_WINDOW_MS, build_q7
+
+    ts = np.maximum.accumulate([max(int(c["date_time"].max()) for c in h)
+                                for h in host[:KILL_EPOCHS]]).tolist()
+
+    def drive(q, e):
+        for c in chunks[e]:
+            q.pipeline.push_left(c)
+            q.pipeline.push_right(c)
+        q.pipeline.barrier()
+        q.pipeline.watermark("date_time", ts[e])
+
+    spec = KillSpec("q7", lambda: build_q7(capacity=Q7_CAP, fanout=Q7_FANOUT, out_cap=Q7_OUT_CAP,
+                                           agg_capacity=Q7_CAP, filter_capacity=Q7_CAP,
+                                           device=dev),
+                    drive, lambda q: q7_mv_rows(q.mview),
+                    q7_oracle_rows([c for h in host[:KILL_EPOCHS] for c in h], Q7_WINDOW_MS))
+    return kill_and_recover(torch, dev, spec)
+
+
+def kill_q101(torch, dev, host, chunks):
+    """Phase 16's q101: phase 11's first KILL_EPOCHS epochs and sizes."""
+
+    def drive(q, e):
+        a, bids = chunks[e]
+        q.pipeline.push_left(a)
+        for b in bids:
+            q.pipeline.push_right(b)
+        q.pipeline.barrier()
+
+    spec = KillSpec("q101", lambda: Q101(torch, dev), drive, lambda q: q101_mv_rows(q.mview),
+                    q101_oracle_rows(host[:KILL_EPOCHS]))
+    return kill_and_recover(torch, dev, spec)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
@@ -3806,8 +4391,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(join_types_on_card(torch, dev, rng))
     torch.cuda.empty_cache()
-    qa_row, qd_row, qe_row = kernel_q(torch, dev, rng)
-    for r in (qa_row, qd_row, qe_row):
+    qa_row, qd_row, qe_row, lookup_row = kernel_q(torch, dev, rng)
+    for r in (qa_row, qd_row, qe_row, lookup_row):
+        emit({"phase": "kernel", **r})
+    torch.cuda.empty_cache()
+    r_rows = kernel_r(torch, dev)
+    for r in r_rows:
         emit({"phase": "kernel", **r})
     torch.cuda.empty_cache()
 
@@ -3835,7 +4424,13 @@ def main() -> int:
     if args.profile:
         torch.cuda.empty_cache()
         emit(profile_q5_max(torch, dev, chunks, q5m_interp[0], cap, args.profile, fused=True))
-    del chunks, q5m_interp
+    del q5m_interp
+    torch.cuda.empty_cache()
+    (k5_row, l16_q5), q5_oracle10 = kill_q5(torch, dev, chunks, cap)
+    emit(k5_row)
+    k5m_row, l16_q5m = kill_q5_max(torch, dev, chunks, cap, q5_oracle10)
+    emit(k5m_row)
+    del chunks
     torch.cuda.empty_cache()
 
     q8_row7, l7, (host, q8_chunks, caps, interp_q8, q8_oracle) = q8_path(torch, dev, EPOCHS)
@@ -3853,6 +4448,8 @@ def main() -> int:
     if args.profile:
         torch.cuda.empty_cache()
         emit(profile_q8(torch, dev, q8_chunks, args.profile, fused=True))
+    k8_row, l16_q8 = kill_q8(torch, dev, host, q8_chunks)
+    emit(k8_row)
     del q8_chunks, host
     torch.cuda.empty_cache()
 
@@ -3869,6 +4466,8 @@ def main() -> int:
     if args.profile:
         torch.cuda.empty_cache()
         emit(profile_q7(torch, dev, q7_host, q7_chunks, args.profile, fused=True))
+    k7_row, l16_q7 = kill_q7(torch, dev, q7_host, q7_chunks)
+    emit(k7_row)
     del q7_host, q7_chunks, interp_rec
     torch.cuda.empty_cache()
 
@@ -3887,6 +4486,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     q101_mi_row, l15 = q101_minput_path(torch, dev, h101, c101)
     emit(q101_mi_row)
+    k101_row, l16_q101 = kill_q101(torch, dev, h101, c101)
+    emit(k101_row)
     del h101, c101
     torch.cuda.empty_cache()
 
@@ -3897,11 +4498,14 @@ def main() -> int:
             (lr_row, "join_regrow"), (m_row, "join_probe"), (n_row, "dyn_filter"),
             (o_rows[0], "expire"), (o_rows[1], "expire_join"), (o_rows[2], "expire_agg"),
             (p_row, "join_degree"), (mo_row, "join_probe"), (li_row, "join_apply"),
-            (qa_row, "minput"), (qd_row, "minput_clear"), (qe_row, "minput_rescatter")]
+            (qa_row, "minput"), (qd_row, "minput_clear"), (qe_row, "minput_rescatter"),
+            (lookup_row, "lookup")] + list(zip(r_rows, R_ENTRIES))
     paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8, "q7": l9, "q7_fused": l10,
-             "q101": l11, "q101_fused": l12, "q5_max": l13, "q5_max_fused": l14, **l15}
+             "q101": l11, "q101_fused": l12, "q5_max": l13, "q5_max_fused": l14, **l15,
+             "q5_recover": l16_q5, "q5_max_recover": l16_q5m, "q8_recover": l16_q8,
+             "q7_recover": l16_q7, "q101_recover": l16_q101}
     for row, key in rows:
-        # each main path's run counts from zero: phases 4, 6-15
+        # each main path's run counts from zero: phases 4, 6-16
         row["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

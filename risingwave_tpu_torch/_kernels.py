@@ -10,7 +10,7 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
-A, C, D, E, F, G, H, J, L, M, N, O, P and Q (an entry point may launch several
+A, C, D, E, F, G, H, J, L, M, N, O, P, Q and R (an entry point may launch several
 kernels in order on the stream), two per call of B (the apply and its
 set_live), one per 24 lanes moved by a call of I; the entry points of
 ``ENTRY_KEYS`` count under their own names.
@@ -53,6 +53,7 @@ SOURCES = {
     "dyn_filter": "dyn_filter.cu",
     "expire": "expire.cu",
     "minput": "minput.cu",
+    "checkpoint": "checkpoint.cu",
 }
 
 # C entry points: (argtypes,) — every pointer and the stream as c_void_p
@@ -102,7 +103,7 @@ SIGNATURES = {
     },
     "join_degree": {
         "rw_join_degree": [_L, _P, _P, _P, _I, _L, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                           _L, _P],
+                           _L, _P, _P],
     },
     "dyn_filter": {
         "rw_dyn_filter": [_L, _P, _P, _P, _P, _P, _I, _P, _P, _P, _L, _P, _P, _P, _P],
@@ -118,7 +119,18 @@ SIGNATURES = {
         "rw_minput_clear": [_L, _P, _P, _L, _I, _P],
         "rw_minput_rescatter": [_L, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     },
+    "checkpoint": {
+        "rw_stage_select": [_P, _P, _P, _P, _P, _I, _P, _L, _P, _P, _P, _P, _P],
+        "rw_gather_rows": [_P, _I, _P, _L, _P],
+        "rw_scatter_rows": [_P, _I, _P, _L, _P],
+        "rw_mark_checkpointed": [_P, _P, _L, _P, _P, _P, _L, _P],
+    },
 }
+
+# slots per block of kernel R's stage select (csrc/checkpoint.cu CK_TILE)
+CHECKPOINT_TILE = 4096
+# lanes one gather or scatter of kernel R takes (csrc/checkpoint.cu CK_MAX_LANES)
+CHECKPOINT_LANES = 32
 
 # rows per block of reduce_by_key, which sizes its scratch
 # (RBK_TILE in csrc/reduce_by_key.cu)
@@ -145,7 +157,8 @@ DTYPE_CODES = {
 # mask alone, a join side's rebuild), or one state kind's expiry of
 # kernel O (its key-table entry counts as "expire"), or kernel Q's clear
 # and rescatter of a materialized MIN/MAX multiset (its apply counts as
-# "minput")
+# "minput"), or kernel R's gather, mark and scatter (its stage select
+# counts as "checkpoint")
 ENTRY_KEYS = {
     "rw_lookup": "lookup",
     "rw_first_occurrence": "first_occurrence",
@@ -154,6 +167,9 @@ ENTRY_KEYS = {
     "rw_expire_agg": "expire_agg",
     "rw_minput_clear": "minput_clear",
     "rw_minput_rescatter": "minput_rescatter",
+    "rw_gather_rows": "gather_rows",
+    "rw_mark_checkpointed": "mark_checkpointed",
+    "rw_scatter_rows": "scatter_rows",
 }
 
 LAUNCHES = {name: 0 for name in (*SOURCES, *ENTRY_KEYS.values())}

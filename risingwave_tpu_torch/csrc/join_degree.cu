@@ -20,7 +20,10 @@
 // side's NULL pad of an outer join); op DELETE on went_pos and INSERT on
 // went_zero (outer, anti), the reverse for semi. The total past out_cap
 // latches em_overflow; join_rows gets the rows written added, and
-// *written the transitions.
+// *written the transitions. Beyond the reference: each stored row whose
+// degree moved (net != 0) marks its key slot in ddirty, so the next
+// checkpoint stages the new degrees (the reference stages only sdirty
+// keys and misses them).
 //
 // Order: the reference sorts the pids, so its group 3 runs in pid order.
 // Here group 3 runs in the order of each pid's first matching entry in
@@ -111,15 +114,18 @@ __global__ void jd_elect_kernel(int64_t n, int fanout, const int32_t* slots, con
   atomicAdd(net + h, (op == 1 || op == 2) ? -1 : 1);
 }
 
-// 0: no transition; 1: went_pos; 2: went_zero. Writes the new degree.
+// 0: no transition; 1: went_pos; 2: went_zero. Writes the new degree,
+// and marks the stored row's key slot in ddirty (if given) when it moved.
 __device__ __forceinline__ int jd_decide(int64_t e, const int32_t* hidx, const int32_t* keys,
                                          const int32_t* rep, const int32_t* net,
-                                         const int32_t* old, int32_t* degree) {
+                                         const int32_t* old, int32_t* degree, uint8_t* ddirty,
+                                         int fanout) {
   const int32_t h = hidx[e];
   if (h < 0 || rep[h] != (int32_t)e) return 0;
   const int32_t o = old[h];
   const int32_t nw = o + net[h];
   degree[keys[h]] = nw;
+  if (ddirty != nullptr && net[h] != 0) ddirty[keys[h] / fanout] = 1;
   if (o == 0 && nw > 0) return 1;
   if (o > 0 && nw <= 0) return 2;
   return 0;
@@ -127,11 +133,12 @@ __device__ __forceinline__ int jd_decide(int64_t e, const int32_t* hidx, const i
 
 __global__ void jd_count_kernel(int64_t m, const int32_t* hidx, const int32_t* keys,
                                 const int32_t* rep, const int32_t* net, const int32_t* old,
-                                int32_t* degree, int emit, int32_t* flag, int32_t* tile_counts) {
+                                int32_t* degree, uint8_t* ddirty, int fanout, int emit,
+                                int32_t* flag, int32_t* tile_counts) {
   const int64_t e = (int64_t)blockIdx.x * JD_THREADS + threadIdx.x;
   int t = 0;
   if (e < m) {
-    const int f = jd_decide(e, hidx, keys, rep, net, old, degree);
+    const int f = jd_decide(e, hidx, keys, rep, net, old, degree, ddirty, fanout);
     flag[e] = f;
     t = emit && f ? 1 : 0;
   }
@@ -209,12 +216,14 @@ __global__ void jd_write_kernel(DegLanes out, int64_t m, int mode, const int32_t
 // mode; out_ops/out_valid and every dst the chunk kernel M wrote;
 // written its () int32 row count; join_rows an int64 counter or null;
 // scratch: 4 * h_size + 2 * n * fanout + ceil(n * fanout / 256) int32,
-// h_size a power of two >= 2 * n * fanout.
+// h_size a power of two >= 2 * n * fanout; ddirty: the other side's
+// (cap,) bool lane marking key slots whose degrees moved, or null.
 RW_EXPORT int rw_join_degree(int64_t n, const void* slot_of, const void* ops,
                              const void* row_valid, int fanout, int64_t cap, void* degree,
                              const int64_t* outs, int n_out, int mode, int out_cap,
                              void* out_ops, void* out_valid, void* written, void* em_overflow,
-                             void* join_rows, void* scratch, int64_t h_size, void* stream) {
+                             void* join_rows, void* scratch, int64_t h_size, void* ddirty,
+                             void* stream) {
   const int64_t m = n * (int64_t)fanout;
   if (n_out < 0 || n_out > JD_MAX_OUT || fanout < 1 || mode < JD_NONE || mode > JD_SEMI ||
       cap * (int64_t)fanout >= ((int64_t)1 << 31) || m >= ((int64_t)1 << 29) ||
@@ -249,7 +258,8 @@ RW_EXPORT int rw_join_degree(int64_t n, const void* slot_of, const void* ops,
       (const int32_t*)degree, keys, rep, net, old, h_size - 1, hidx);
   const int emit = mode != JD_NONE;
   jd_count_kernel<<<tiles, JD_THREADS, 0, st>>>(m, hidx, keys, rep, net, old, (int32_t*)degree,
-                                                emit, flag, tile_counts);
+                                                (uint8_t*)ddirty, fanout, emit, flag,
+                                                tile_counts);
   if (emit) {
     jd_scan_kernel<<<1, JD_SCAN_THREADS, 0, st>>>(tile_counts, tiles, (int32_t)out_cap,
                                                   (int32_t*)written, (uint8_t*)em_overflow,

@@ -340,8 +340,9 @@ __global__ void mi_rescatter_kernel(int64_t total, int K, const uint8_t* keep,
 }
 
 // n old slots: row i of vals ((n, K), 4- or 8-byte lanes) and cnt ((n, K)
-// int32) moves to row new_slots[i] of the new arrays, which the caller
-// zeroed, iff keep[i] and new_slots[i] >= 0.
+// int32) moves to row new_slots[i] of the new arrays (which the caller
+// filled: vals with the unwritten-lane value, cnt with 0), iff keep[i] and
+// new_slots[i] >= 0.
 RW_EXPORT int rw_minput_rescatter(int64_t n, int K, const void* keep, const void* new_slots,
                                   const void* vals_src, void* vals_dst, int vals_esize,
                                   const void* cnt_src, void* cnt_dst, void* stream) {

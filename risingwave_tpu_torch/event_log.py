@@ -1,0 +1,130 @@
+"""Meta event log — ring-buffered cluster history + JSONL spill.
+
+A copy of ``risingwave_tpu/event_log.py`` with its imports rewritten
+(host only: the port imports nothing of the reference).
+
+Reference: the meta node's event log (src/meta/src/manager/event_log.rs
++ ``risectl meta event-log``) recording DDL, barrier commits,
+recoveries, scale events, and connector offset resumes so an operator
+can reconstruct *what the cluster did* after the fact. Here: one
+process-wide ring (bounded deque — the hot path never grows memory)
+plus an optional JSONL spill file for durability across the process,
+served at ``/events`` on the metrics HTTP server and rendered on the
+dashboard.
+
+Recording sites (grow as subsystems need them):
+- ``ddl``            — frontend/session.py, every DDL statement
+- ``barrier_commit`` — runtime, each durable checkpoint epoch
+- ``recovery``       — runtime recovery, with cause; ``mode`` is one of
+                       ``partial`` (fragment-scoped restore started),
+                       ``partial_done`` (subtree restored + replayed),
+                       ``partial_deferred`` (store unavailable — blast
+                       radius stays fenced until the breaker heals),
+                       ``auto`` (full stop-the-world recovery), or
+                       ``restore`` (explicit/manual full restore)
+- ``actor_failure``  — graph supervisor: actor death attributed to its
+                       fragment, with the computed blast radius
+- ``scale``          — parallel/scale.py reschedules
+- ``offset_resume``  — source executors resuming connector offsets
+- ``stall_dump``     — epoch_trace.dump_stalls artifacts
+- ``stall_dump_fallback`` — RW_STALL_DIR was unwritable; the dump
+                       landed in the system temp dir instead
+- ``profile_capture`` — profiler.py capture window closed (on-demand
+                       or slow-barrier auto-trigger), with the
+                       PROFILE_* artifact path
+- ``breaker``        — resilience.CircuitBreaker state transitions
+                       (closed/open/half_open, with the breaker name)
+- ``degraded``       — runtime entered degraded mode: store breaker
+                       open mid-epoch, checkpoint deltas spilling
+                       locally, compaction paused
+- ``restored``       — degraded spill fully replayed, store healthy
+- ``degraded_discard`` — recovery discarded a stale degraded spill
+                       (sources replay those epochs instead)
+- ``device_state``   — blackbox sentinel (or the out-of-process tunnel
+                       prober) observed an ALIVE/SLOW/WEDGED transition
+- ``wedge_dump``     — blackbox sentinel captured a WEDGE_*.json
+                       forensic bundle for a wedged device
+- ``recompile_hazard`` — SignatureWatch saw a post-warmup novel
+                       abstract input signature (shape escaped the
+                       bucket lattice; RW-E403/E803 cross-reference)
+- ``shape_governor`` — runtime/bucketing.ShapeGovernor throttled a
+                       recompile storm: the named executor class was
+                       pinned to its max bucket (reason
+                       budget_exceeded | slow_device)
+- ``skew``           — parallel/meshprof.py hot-shard verdict: one
+                       shard's routed rows exceeded RW_SKEW_RATIO x
+                       the per-shard mean this barrier (fields:
+                       table_id, shard, ratio, frac, rows)
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+from risingwave_tpu_torch.metrics import REGISTRY
+
+_DEFAULT_CAPACITY = 4096
+
+
+class EventLog:
+    def __init__(
+        self,
+        capacity: int = _DEFAULT_CAPACITY,
+        spill_path: Optional[str] = None,
+    ):
+        self._events: deque = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+        self._seq = 0
+        # JSONL spill: the ring forgets, the file does not (best-effort)
+        self.spill_path = spill_path or os.environ.get("RW_EVENT_LOG_PATH")
+
+    def set_spill(self, path: Optional[str]) -> None:
+        with self._lock:
+            self.spill_path = path
+
+    def record(self, kind: str, **fields) -> Dict:
+        """Append one event. ``fields`` must be JSON-serializable (the
+        spill and the /events endpoint both emit JSON)."""
+        with self._lock:
+            self._seq += 1
+            ev = {"seq": self._seq, "ts": time.time(), "kind": kind}
+            ev.update(fields)
+            self._events.append(ev)
+            spill = self.spill_path
+        REGISTRY.counter("events_total").inc(kind=kind)
+        if spill:
+            try:
+                with open(spill, "a") as f:
+                    f.write(json.dumps(ev, default=str) + "\n")
+            except OSError:
+                pass  # spill is forensic, never load-bearing
+        return ev
+
+    def events(
+        self, kind: Optional[str] = None, limit: Optional[int] = None
+    ) -> List[Dict]:
+        """Newest-last snapshot, optionally filtered by kind."""
+        with self._lock:
+            out = list(self._events)
+        if kind is not None:
+            out = [e for e in out if e["kind"] == kind]
+        if limit is not None:
+            out = out[-limit:]
+        return out
+
+    def to_json(self, limit: Optional[int] = None) -> str:
+        return json.dumps({"events": self.events(limit=limit)}, default=str)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+
+
+# the process-default log (reference: the meta node's single event log)
+EVENT_LOG = EventLog()
+record = EVENT_LOG.record

@@ -13,18 +13,27 @@ contract: a DELETE latches ``saw_delete`` and raises at the barrier.
 State is updated in place. A watermark on ``window_key`` expires the
 closed keys of the seen-set (kernel O, ``ops.hash_table.expire_table``).
 ``KeyTableGrowth`` holds the growth and barrier bookkeeping that the
-dynamic max filter shares. Checkpoint/restore is not ported yet.
+dynamic max filter shares, and the checkpoint and restore of a key
+table with slot lanes (``dedup.py:305-350``, ``dynamic_filter.py:348-390``)
+through kernel R.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from risingwave_tpu_torch import _kernels, integrity, resolve_device
 from risingwave_tpu_torch.array.chunk import StreamChunk
 from risingwave_tpu_torch.executors.base import Executor, Watermark
+from risingwave_tpu_torch.ops.checkpoint import (
+    insert_keys,
+    mark_checkpointed,
+    scatter_rows,
+    stage_select,
+)
 from risingwave_tpu_torch.ops.hash_table import (
     HashTable,
     _first_occurrence_torch,
@@ -37,6 +46,12 @@ from risingwave_tpu_torch.ops.hash_table import (
     stage_scalars,
 )
 from risingwave_tpu_torch.runtime.bucketing import BucketAllocator, BucketPolicy
+from risingwave_tpu_torch.storage.state_table import (
+    Checkpointable,
+    StateDelta,
+    grow_pow2,
+    pull_rows,
+)
 
 GROW_AT = 0.5
 # mid-epoch rebuild only when the host insert bound nears the table
@@ -113,18 +128,60 @@ def _rebuild(table: HashTable, sdirty, stored, new_cap: int):
     return new, new_sdirty, new_stored
 
 
-class KeyTableGrowth:
-    """Growth and barrier bookkeeping shared by the executors whose state
-    is one key table with slot lanes and a ``(saw_delete, dropped)``
-    latch pair: the append-only dedup and the dynamic max filter.
+class KeyTableGrowth(Checkpointable):
+    """Growth, barrier and checkpoint bookkeeping shared by the executors
+    whose state is one key table with slot lanes and a ``(saw_delete,
+    dropped)`` latch pair: the append-only dedup and the dynamic max
+    filter.
 
-    The owner holds ``table``, ``sdirty``, ``_buckets``, ``_bound``,
-    ``_occ_note``, ``_grew_midepoch``, ``_saw_delete`` and ``_dropped``,
-    implements ``_rebuild_to(new_cap)`` and names its two barrier errors
-    in ``_DELETE_ERROR`` and ``_DROPPED_ERROR``."""
+    The owner holds ``table``, ``sdirty``, ``stored``, ``_buckets``,
+    ``_bound``, ``_occ_note``, ``_grew_midepoch``, ``_saw_delete`` and
+    ``_dropped``, implements ``_rebuild_to(new_cap)``, names its two
+    barrier errors in ``_DELETE_ERROR`` and ``_DROPPED_ERROR``, its
+    checkpointed value lanes in ``_value_lanes()`` (name -> lane), and
+    ``_reset_state(cap)``, which gives it fresh slot lanes."""
 
     _DELETE_ERROR = ""
     _DROPPED_ERROR = ""
+
+    def _value_lanes(self) -> Dict[str, torch.Tensor]:
+        return {}
+
+    # -- checkpoint/restore --------------------------------------------------
+    def checkpoint_delta(self):
+        """The keys (and value lanes) changed since the last checkpoint,
+        through kernel R; the marks flip eagerly."""
+        sel, tomb, n, n_sdirty = stage_select(self.sdirty, (self.table.live,), self.stored)
+        if not n_sdirty:
+            return []
+        lanes = {f"k{i}": k for i, k in enumerate(self.table.keys)}
+        key_names = tuple(lanes)
+        lanes.update(self._value_lanes())
+        pulled = pull_rows(lanes, sel, {"tombstone": tomb})
+        tombstone = pulled.pop("tombstone")
+        mark_checkpointed(self.stored, self.sdirty, sel, tomb)
+        keys = {k: pulled[k] for k in key_names}
+        vals = {k: v for k, v in pulled.items() if k not in key_names}
+        return [StateDelta(self.table_id, keys, vals, tombstone, key_names)]
+
+    def restore_state(self, table_id, key_cols, value_cols):
+        """Fresh lanes of ``grow_pow2`` capacity; kernel A inserts the
+        keys, kernel R lands live, stored and the value lanes in one
+        launch."""
+        n = len(next(iter(key_cols.values()))) if key_cols else 0
+        cap = grow_pow2(n, self.table.capacity, GROW_AT)
+        table = HashTable.create(cap, tuple(k.dtype for k in self.table.keys),
+                                 device=self.table.device)
+        self._reset_state(cap)
+        if n:
+            table, slots = insert_keys(table, key_cols, n)
+            dst = dict(self._value_lanes())
+            src = {name: value_cols[name] for name in dst}
+            dst["live"], src["live"] = table.live, np.ones(n, np.bool_)
+            dst["stored"], src["stored"] = self.stored, np.ones(n, np.bool_)
+            scatter_rows(dst, slots, src)
+        self.table = table
+        self._bound = self._occ_note = int(n)
 
     def _grow_hint(self, incoming: int) -> None:
         """The fused program's pre-dispatch growth bookkeeping, with no
@@ -239,6 +296,12 @@ class AppendOnlyDedupExecutor(KeyTableGrowth, Executor):
             self.table, self.sdirty, self.stored, new_cap
         )
         self.scratch = first_scratch(new_cap, self.table.device)
+
+    def _reset_state(self, cap: int) -> None:
+        dev = self.table.device
+        self.sdirty = torch.zeros(cap, dtype=torch.bool, device=dev)
+        self.stored = torch.zeros(cap, dtype=torch.bool, device=dev)
+        self.scratch = first_scratch(cap, dev)
 
     def on_watermark(self, watermark: Watermark):
         if self.window_key is None or watermark.column != self.window_key[0]:

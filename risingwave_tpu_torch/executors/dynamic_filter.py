@@ -18,8 +18,9 @@ of newly claimed slots, folds and latches ``saw_delete`` / ``dropped``.
 A watermark on ``window_key`` expires closed groups (kernel O,
 ``ops.hash_table.expire_table``). State is updated in place.
 
-Not ported yet: checkpoint/restore, and the general
-``DynamicFilterExecutor`` (``_dyn_left_step`` :417, ``_dyn_rv_diff``
+Checkpoint and restore (``dynamic_filter.py:348-390``) are the key
+table's of ``KeyTableGrowth`` with the ``max`` lane (kernel R). Not
+ported yet: the general ``DynamicFilterExecutor`` (``_dyn_left_step`` :417, ``_dyn_rv_diff``
 :442). The capacity walks the bucket lattice (the reference's
 unbucketed twin is not ported).
 """
@@ -188,6 +189,16 @@ class DynamicMaxFilterExecutor(KeyTableGrowth, Executor):
         self.table, self.maxes, self.sdirty, self.stored = _rebuild(
             self.table, self.maxes, self.sdirty, self.stored, new_cap
         )
+
+    def _value_lanes(self):
+        return {"max": self.maxes}
+
+    def _reset_state(self, cap: int) -> None:
+        dev = self.table.device
+        self.maxes = torch.full((cap,), torch.iinfo(self.maxes.dtype).min,
+                                dtype=self.maxes.dtype, device=dev)
+        self.sdirty = torch.zeros(cap, dtype=torch.bool, device=dev)
+        self.stored = torch.zeros(cap, dtype=torch.bool, device=dev)
 
     def on_watermark(self, watermark: Watermark):
         if self.window_key is None or watermark.column != self.window_key[0]:

@@ -37,7 +37,15 @@ A watermark on the ``window_key`` column closes the groups below it
 dirty groups first and then frees the closed ones silently; otherwise
 they are reset and retracted at the next flush.
 
-Not ported yet: the cold tier and checkpointing.
+Checkpoint and restore (``hash_agg.py:1260-1446``): ``checkpoint_delta``
+stages the groups changed since the last checkpoint through kernel R
+(select on the card, one gather of every lane, the multisets' 2-D rows
+included, one copy to the host, then the eager mark flip), with float
+MIN/MAX lanes written in the reference's unsigned key dtypes, so either
+package reads the other's store; ``restore_state`` re-inserts the keys
+(kernel A) and lands every lane's rows in one scatter (kernel R).
+
+Not ported yet: the cold tier.
 """
 
 from __future__ import annotations
@@ -47,12 +55,23 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from risingwave_tpu_torch import resolve_device
-from risingwave_tpu_torch.array.chunk import StreamChunk, flatten_stacked, to_device
+from risingwave_tpu_torch import integrity, resolve_device
+from risingwave_tpu_torch.array.chunk import StreamChunk, _numpy_dtype, flatten_stacked, to_device
 from risingwave_tpu_torch.executors.base import Barrier, Executor, Watermark
 from risingwave_tpu_torch.ops import agg as agg_ops
 from risingwave_tpu_torch.ops import minput as mi_ops
-from risingwave_tpu_torch.ops.agg import AggCall, AggState
+from risingwave_tpu_torch.ops.agg import (
+    AggCall,
+    AggState,
+    order_key_from_reference,
+    order_key_to_reference,
+)
+from risingwave_tpu_torch.ops.checkpoint import (
+    insert_keys,
+    mark_checkpointed,
+    scatter_rows,
+    stage_select,
+)
 from risingwave_tpu_torch.ops.hash_table import (
     HashTable,
     expired_slots,
@@ -62,6 +81,12 @@ from risingwave_tpu_torch.ops.hash_table import (
     stage_scalars,
 )
 from risingwave_tpu_torch.runtime.bucketing import BucketAllocator, BucketPolicy, flush_pad
+from risingwave_tpu_torch.storage.state_table import (
+    Checkpointable,
+    StateDelta,
+    grow_pow2,
+    pull_rows,
+)
 
 GROW_AT = 0.5  # rehash when claimed slots may exceed this load factor
 # mid-epoch rebuild only when the host insert bound nears the table
@@ -230,7 +255,8 @@ def _rehash(table: HashTable, state: AggState, minput, calls, new_cap: int,
     srcs, dsts = zip(*moves)
     move_slots(srcs, dsts, new_slots, keep)  # kernel I
     new_minput = {
-        name: mi_ops.minput_rescatter(v, c, keep, new_slots, new_cap)
+        name: mi_ops.minput_rescatter(v, c, keep, new_slots, new_cap,
+                                      mi_ops.vals_init(fx.get(name)))
         for name, (v, c) in minput.items()
     }
     return new_table, new_state, new_minput
@@ -271,7 +297,7 @@ def delta_to_chunk(
     )
 
 
-class HashAggExecutor(Executor):
+class HashAggExecutor(Executor, Checkpointable):
     """Streaming GROUP BY.
 
     Args:
@@ -519,3 +545,121 @@ class HashAggExecutor(Executor):
                 return i
             i += 2 if nb else 1
         raise KeyError(f"{name!r} is not a group key")
+
+
+# -- checkpoint/restore (StateTable integration) -------------------------
+def _float_lanes(float_extremes, prefixes=("acc_", "em_", "miv_")):
+    """Delta lane name -> float input dtype of every lane that holds
+    float MIN/MAX order keys."""
+    return {p + name: dt for name, dt in float_extremes for p in prefixes}
+
+
+def _agg_checkpoint_delta(self) -> List[StateDelta]:
+    """Stage rows changed since the last checkpoint (device -> host).
+
+    upsert  = sdirty & alive        (new/changed group state)
+    tombstone = sdirty & stored & dead  (a persisted group died)
+    with alive = live | emitted_valid | dirty. Rows carry the full slot
+    state (accums, emitted snapshots, the multisets' (K,) rows), so
+    restore rebuilds the operator state exactly. Kernel R selects on the
+    card (the host reads one count pair), gathers every lane in one
+    launch, copies once to the host, then flips the marks."""
+    st = self.state
+    sel, tomb, n, n_sdirty = stage_select(
+        st.sdirty, (self.table.live, st.emitted_valid, st.dirty), st.stored
+    )
+    if not n_sdirty:
+        return []
+    lanes = {f"k{i}": lane for i, lane in enumerate(self.table.keys)}
+    key_names = tuple(lanes)
+    lanes["row_count"] = st.row_count
+    for name, a in st.accums.items():
+        lanes[f"acc_{name}"] = a
+        lanes[f"em_{name}"] = st.emitted[name]
+    for name, a in st.nonnull.items():
+        lanes[f"nn_{name}"] = a
+        lanes[f"ei_{name}"] = st.emitted_isnull[name]
+    for name, (v, c) in self.minput.items():
+        lanes[f"miv_{name}"] = v  # 2-D (rows re-land whole)
+        lanes[f"mic_{name}"] = c
+    lanes["ev"] = st.emitted_valid
+    pulled = pull_rows(lanes, sel, {"tombstone": tomb})
+    for name, fdt in _float_lanes(self._float_extremes).items():
+        if name in pulled:  # the reference's uint32/uint64 order keys
+            pulled[name] = order_key_to_reference(pulled[name], _numpy_dtype(fdt))
+    tombstone = pulled.pop("tombstone")
+    # eager flip — see StateDelta's durability contract
+    mark_checkpointed(st.stored, st.sdirty, sel, tomb)
+    keys = {k: pulled[k] for k in key_names}
+    vals = {k: v for k, v in pulled.items() if k not in key_names}
+    # positional lane order, NOT sorted() ("k10" < "k2" lexically)
+    return [StateDelta(self.table_id, keys, vals, tombstone, key_names)]
+
+
+def build_restored_agg(cap: int, calls, dtypes, key_dtypes, key_cols, value_cols,
+                       minput_k: int = 32, device="cuda"):
+    """Rebuild (table, state, minput) at capacity ``cap`` from recovered
+    rows: kernel A inserts the keys, kernel R lands every lane's rows at
+    their slots in one launch (``live`` = row_count > 0, ``stored`` set,
+    no ``dirty`` and no ``minmax_retracted``)."""
+    dev = resolve_device(device)
+    n = len(next(iter(key_cols.values()))) if key_cols else 0
+    table = HashTable.create(cap, key_dtypes, device=dev)
+    state = agg_ops.create_state(cap, calls, dtypes, dev)
+    minput = mi_ops.create_minput(cap, minput_k, calls, dtypes, dev)
+    if not n:
+        return table, state, minput
+    table, slots = insert_keys(table, key_cols, n)
+    fx = _float_lanes(agg_ops.float_extreme_meta(calls, dtypes))
+
+    def rows(name):
+        a = np.asarray(value_cols[name])
+        return order_key_from_reference(a) if name in fx else a
+
+    dst = {"row_count": state.row_count}
+    for name, a in state.accums.items():
+        dst[f"acc_{name}"] = a
+        dst[f"em_{name}"] = state.emitted[name]
+    for name, a in state.nonnull.items():
+        dst[f"nn_{name}"] = a
+        dst[f"ei_{name}"] = state.emitted_isnull[name]
+    dst["ev"] = state.emitted_valid
+    for name, (v, c) in minput.items():
+        dst[f"miv_{name}"] = v
+        dst[f"mic_{name}"] = c
+    src = {name: rows(name) for name in dst}
+    dst["live"], src["live"] = table.live, src["row_count"] > 0
+    dst["stored"], src["stored"] = state.stored, np.ones(n, np.bool_)
+    scatter_rows(dst, slots, src)
+    return table, state, minput
+
+
+def _agg_restore_state(self, table_id, key_cols, value_cols) -> None:
+    """Rebuild device table + state from recovered rows, and the host
+    bounds the fused flush rounds are sized from."""
+    n = len(next(iter(key_cols.values()))) if key_cols else 0
+    key_dtypes = tuple(k.dtype for k in self.table.keys)
+    cap = grow_pow2(n, self.table.capacity, GROW_AT)
+    self.table, self.state, self.minput = build_restored_agg(
+        cap, self.calls, self._dtypes, key_dtypes, key_cols, value_cols, self.minput_k,
+        device=self.device,
+    )
+    self.dropped = torch.zeros((), dtype=torch.bool, device=self.device)
+    self.mi_bad = torch.zeros((), dtype=torch.bool, device=self.device)
+    self._insert_bound = self._occ_note = int(n)
+    self._dirty_bound = 0  # restored groups carry no unflushed change
+
+
+def _agg_digest_lanes(self):
+    return integrity.agg_lanes(self.table, self.state, self._float_extremes)
+
+
+def _agg_state_digest(self) -> int:
+    """Host twin of the fused digest lane (``integrity.agg_lanes`` fold)."""
+    return integrity.host_digest(*integrity.host_lanes(*_agg_digest_lanes(self)))
+
+
+HashAggExecutor.checkpoint_delta = _agg_checkpoint_delta
+HashAggExecutor.restore_state = _agg_restore_state
+HashAggExecutor.digest_lanes = _agg_digest_lanes
+HashAggExecutor.state_digest = _agg_state_digest

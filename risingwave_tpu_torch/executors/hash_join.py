@@ -21,7 +21,10 @@ chunk into its own side, an inserted row's degree seeded with its
 match count (``ops/join.py``). Latches (bucket overflow, inconsistent
 deletes, emission overflow) stay on the device and raise at the barrier.
 A watermark on a window column expires that side's closed keys (kernel
-O). The cold tier and checkpoint/restore are not ported;
+O). Checkpoint and restore (``hash_join.py:891-1130``): each side stages
+its changed keys with their whole buckets as 2-D rows (``rv``, ``deg``,
+``r_*``, ``n_*``) through kernel R, and a restore lands them at the
+same in-bucket positions. The cold tier is not ported;
 ``load_reference_state`` takes over a reference executor's sides.
 """
 
@@ -29,11 +32,18 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from risingwave_tpu_torch import integrity, resolve_device
 from risingwave_tpu_torch.array.chunk import StreamChunk
 from risingwave_tpu_torch.executors.base import Executor, Watermark
+from risingwave_tpu_torch.ops.checkpoint import (
+    insert_keys,
+    mark_checkpointed,
+    scatter_rows,
+    stage_select,
+)
 from risingwave_tpu_torch.ops.hash_table import read_scalars, stage_scalars
 from risingwave_tpu_torch.ops.join import (
     G2_ANTI,
@@ -53,6 +63,12 @@ from risingwave_tpu_torch.ops.join import (
     survivors,
 )
 from risingwave_tpu_torch.runtime.bucketing import BucketAllocator, BucketPolicy
+from risingwave_tpu_torch.storage.state_table import (
+    Checkpointable,
+    StateDelta,
+    grow_pow2,
+    pull_rows,
+)
 
 GROW_AT = 0.5
 # mid-epoch rebuild only when the host insert bound nears the table
@@ -139,7 +155,7 @@ def join_step_fn(
     return own, other, out
 
 
-class HashJoinExecutor(Executor):
+class HashJoinExecutor(Executor, Checkpointable):
     """Streaming equi-join of two inputs, of any of ``JOIN_TYPES``.
 
     ``left_keys``/``right_keys`` pair positionally (equal dtypes);
@@ -374,3 +390,93 @@ class HashJoinExecutor(Executor):
         digests XOR together."""
         ld, rd = self.side_digests()
         return ld ^ rd
+
+
+# -- checkpoint/restore (StateTable integration) -------------------------
+def _side_delta(side: JoinSide, table_id: str) -> Optional[StateDelta]:
+    """Stage one side's changed keys: the whole bucket rides as 2-D value
+    lanes (rows re-land at the same in-bucket positions on restore, so
+    emitted pair identity is stable). Kernel R selects, gathers and
+    flips the marks eagerly (see StateDelta's durability contract), in
+    place. A key whose stored rows' degrees moved (``ddirty``, set by
+    kernel P) stages too: the reference stages only ``sdirty`` keys, so
+    its recovered outer, semi and anti joins can hold stale degrees.
+    Returns the delta or None."""
+    sel, tomb, n, n_dirty = stage_select(side.sdirty, (side.table.live,), side.stored,
+                                         side.ddirty)
+    if not n_dirty:
+        return None
+    lanes = {f"k{i}": lane for i, lane in enumerate(side.table.keys)}
+    key_names = tuple(lanes)
+    lanes["rv"] = side.row_valid
+    lanes["deg"] = side.degree
+    for name, a in side.rows.items():
+        lanes[f"r_{name}"] = a
+    for name, a in side.row_nulls.items():
+        lanes[f"n_{name}"] = a
+    pulled = pull_rows(lanes, sel, {"tombstone": tomb})
+    tombstone = pulled.pop("tombstone")
+    mark_checkpointed(side.stored, side.sdirty, sel, tomb, side.ddirty)
+    keys = {k: pulled[k] for k in key_names}
+    vals = {k: v for k, v in pulled.items() if k not in key_names}
+    return StateDelta(table_id, keys, vals, tombstone, key_names)
+
+
+def _side_restore(side: JoinSide, key_cols, value_cols) -> JoinSide:
+    """Rebuild a JoinSide from recovered rows (fresh table, same
+    capacity and fanout unless growth is needed): kernel A inserts the
+    keys, kernel R lands every bucket lane at its slot in one launch."""
+    n = len(next(iter(key_cols.values()))) if key_cols else 0
+    fanout = side.fanout
+    if n and "rv" in value_cols and value_cols["rv"].shape[1] != fanout:
+        raise ValueError(
+            f"checkpoint bucket fanout {value_cols['rv'].shape[1]} != "
+            f"executor fanout {fanout}: restore lands rows at their "
+            "stored in-bucket positions — configure the same fanout"
+        )
+    cap = grow_pow2(n, side.capacity, GROW_AT)
+    fresh = JoinSide.create(
+        cap, fanout, tuple(k.dtype for k in side.table.keys),
+        {name: a.dtype for name, a in side.rows.items()},
+        nullable=tuple(side.row_nulls), device=side.device,
+    )
+    if not n:
+        return fresh
+    table, slots = insert_keys(fresh.table, key_cols, n)
+    dst = {f"r_{name}": a for name, a in fresh.rows.items()}
+    dst.update({f"n_{name}": a for name, a in fresh.row_nulls.items()})
+    dst["rv"] = fresh.row_valid
+    src = {name: value_cols[name] for name in dst}
+    # older checkpoints predate the degree lane; it stays zero then
+    if "deg" in value_cols:
+        dst["deg"], src["deg"] = fresh.degree, value_cols["deg"]
+    dst["live"], src["live"] = table.live, np.ones(n, np.bool_)
+    dst["stored"], src["stored"] = fresh.stored, np.ones(n, np.bool_)
+    scatter_rows(dst, slots, src)
+    fresh.table = table
+    return fresh
+
+
+def _join_checkpoint_table_ids(self):
+    return [f"{self.table_id}.left", f"{self.table_id}.right"]
+
+
+def _join_checkpoint_delta(self):
+    out = []
+    for name in ("left", "right"):
+        got = _side_delta(getattr(self, name), f"{self.table_id}.{name}")
+        if got is not None:
+            out.append(got)
+    return out
+
+
+def _join_restore_state(self, table_id, key_cols, value_cols):
+    s = "l" if table_id.endswith(".left") else "r"
+    side = _side_restore(self.side(s), key_cols, value_cols)
+    self._set_side(s, side)
+    self._bound[s] = self._occ_note[s] = len(next(iter(key_cols.values()))) if key_cols else 0
+
+
+HashJoinExecutor.checkpoint_table_ids = _join_checkpoint_table_ids
+HashJoinExecutor.checkpoint_delta = _join_checkpoint_delta
+HashJoinExecutor.restore_state = _join_restore_state

@@ -10,8 +10,9 @@ A pk-keyed hash table plus slot-indexed value lanes. Per chunk, kernel
 A finds or inserts the pk, then kernel D (``csrc/mv_upsert.cu``) lets
 the last row per pk win: deletes clear ``live``, inserts write the
 values. The host reaches the device only at the barrier (one packed
-latch + occupancy read) and on snapshot. Checkpoint/restore of this
-state is not ported yet.
+latch + occupancy read) and on snapshot. Checkpoint and restore
+(``materialize.py:833-916``) go through kernel R; restored rows are
+stored, not sdirty.
 """
 
 from __future__ import annotations
@@ -22,9 +23,15 @@ from typing import Dict
 import numpy as np
 import torch
 
-from risingwave_tpu_torch import _kernels, resolve_device
+from risingwave_tpu_torch import _kernels, integrity, resolve_device
 from risingwave_tpu_torch.array.chunk import StreamChunk, to_device
 from risingwave_tpu_torch.executors.base import Executor
+from risingwave_tpu_torch.ops.checkpoint import (
+    insert_keys,
+    mark_checkpointed,
+    scatter_rows,
+    stage_select,
+)
 from risingwave_tpu_torch.ops.hash_table import (
     HashTable,
     _last_occurrence_torch,
@@ -33,6 +40,12 @@ from risingwave_tpu_torch.ops.hash_table import (
     stage_scalars,
 )
 from risingwave_tpu_torch.runtime.bucketing import BucketAllocator, BucketPolicy
+from risingwave_tpu_torch.storage.state_table import (
+    Checkpointable,
+    StateDelta,
+    grow_pow2,
+    pull_rows,
+)
 
 GROW_AT = 0.5
 # mid-epoch rebuild only when the host insert bound nears the table
@@ -216,7 +229,7 @@ class MvDeviceReadMixin:
         return out
 
 
-class DeviceMaterializeExecutor(MvDeviceReadMixin, Executor):
+class DeviceMaterializeExecutor(MvDeviceReadMixin, Executor, Checkpointable):
     """Device-resident MV: pk-keyed hash table + value lanes.
 
     pk and value lanes must be fixed-width dtypes; NULLs in value
@@ -304,6 +317,63 @@ class DeviceMaterializeExecutor(MvDeviceReadMixin, Executor):
             self.table, self.state = _mv_rebuild(self.table, self.state, new_cap)
         if dropped:
             raise RuntimeError("device MV hash table overflowed MAX_PROBE; grow capacity")
+
+    # -- integrity --------------------------------------------------------
+    def digest_lanes(self):
+        return integrity.mv_lanes(self.table, self.state)
+
+    def state_digest(self) -> int:
+        """Host twin of the fused digest lane (``integrity.mv_lanes``)."""
+        return integrity.host_digest(*integrity.host_lanes(*self.digest_lanes()))
+
+    # -- checkpoint/restore -----------------------------------------------
+    def checkpoint_delta(self):
+        """The pk rows changed since the last checkpoint, through kernel
+        R (select, one gather, one copy, then the eager mark flip)."""
+        st = self.state
+        sel, tomb, n, n_sdirty = stage_select(st.sdirty, (self.table.live,), st.stored)
+        if not n_sdirty:
+            return []
+        if not n:
+            st.sdirty.zero_()
+            return []
+        lanes = {f"k{j}": k for j, k in enumerate(self.table.keys)}
+        lanes.update({f"v{j}": st.values[c] for j, c in enumerate(self.columns)})
+        lanes.update({f"n_{c}": lane for c, lane in st.vnulls.items()})
+        rows = pull_rows(lanes, sel, {"tombstone": tomb})
+        key_cols = {f"k{j}": rows[f"k{j}"] for j in range(len(self.pk))}
+        value_cols = {f"v{j}": rows[f"v{j}"] for j in range(len(self.columns))}
+        for c in st.vnulls:
+            value_cols[f"n_{c}"] = rows[f"n_{c}"].astype(np.uint8)
+        mark_checkpointed(st.stored, st.sdirty, sel, tomb)
+        return [StateDelta(self.table_id, key_cols, value_cols, rows["tombstone"],
+                           tuple(f"k{j}" for j in range(len(self.pk))))]
+
+    def restore_state(self, table_id, key_cols, value_cols):
+        """A fresh table of ``grow_pow2(n, 2^10)`` slots (the reference's
+        size); kernel A inserts the pks, kernel R lands live, the values,
+        the null lanes and ``stored`` in one launch (restored rows are
+        durable, not dirty)."""
+        n = len(next(iter(key_cols.values()))) if key_cols else 0
+        cap = grow_pow2(n, 1 << 10, GROW_AT)
+        dev = self.device
+        self.table = HashTable.create(cap, tuple(self.dtypes[k] for k in self.pk), device=dev)
+        self.state = MvDeviceState.create(cap, self.dtypes, self.columns,
+                                          tuple(self.state.vnulls), dev)
+        self._bound = self._occ_note = int(n)
+        if n == 0:
+            return
+        self.table, slots = insert_keys(self.table, key_cols, n)
+        dst, src = {}, {}
+        for j, c in enumerate(self.columns):
+            dst[f"v{j}"], src[f"v{j}"] = self.state.values[c], value_cols[f"v{j}"]
+        for c, lane in self.state.vnulls.items():
+            if f"n_{c}" in value_cols:
+                dst[f"n_{c}"] = lane
+                src[f"n_{c}"] = np.asarray(value_cols[f"n_{c}"]).astype(bool)
+        dst["live"], src["live"] = self.table.live, np.ones(n, np.bool_)
+        dst["stored"], src["stored"] = self.state.stored, np.ones(n, np.bool_)
+        scatter_rows(dst, slots, src)
 
     # -- reads ------------------------------------------------------------
     def _host_rows(self):

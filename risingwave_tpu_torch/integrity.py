@@ -6,8 +6,12 @@ Port of the digest half of ``risingwave_tpu/integrity.py`` (``GOLD``
 ``lane_seed``/``_np_slot_words``/``_np_mix``/``host_digest`` :268-310,
 ``device_digest`` :329, ``digest_from_scalar`` :371, ``agg_lanes``
 :386, ``mv_lanes`` :404, ``dedup_lanes`` :414, ``filter_lanes``
-:419, ``join_side_lanes`` :426). Checkpoint envelopes, quarantine and
-``StateCorruption`` are not ported yet.
+:419, ``join_side_lanes`` :426) and its checkpoint half
+(``digest_enabled`` :58, ``StateCorruption`` :68, the host counters
+and ``note_corruption`` :110-150, ``verify_crc`` :155, ``quarantine``
+:170, ``raise_corruption`` :185, the manifest envelope
+``encode_manifest``/``decode_manifest`` :210-266, ``host_rows_digest``
+:313, ``host_obj_digest`` :446), whose host code is copied.
 
 The contract, shared by every fold here and by the reference:
 
@@ -34,9 +38,12 @@ instead of materialising the masked copies.
 
 from __future__ import annotations
 
+import json
 import math
+import os
+import time
 import zlib
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,13 +53,180 @@ from risingwave_tpu_torch.ops.agg import order_key_to_reference_lane
 from risingwave_tpu_torch.ops.hashing import M32, _mul32
 
 GOLD = 0x9E3779B1  # 2**32 / golden ratio — Fibonacci-hash multiplier
+MANIFEST_FORMAT = 2
+QUARANTINE_PREFIX = "quarantine"
 U64_MASK = (1 << 64) - 1
 
 _DIGEST_DTYPES = (torch.bool, torch.int32, torch.int64, torch.float32, torch.float64)
 
 
+def digest_enabled() -> bool:
+    """Manifest-level table digests are opt-in (``RW_STATE_DIGEST=1``):
+    they re-read every table at commit (a whole-table store scan). The
+    fused digest lanes are always on."""
+    v = os.environ.get("RW_STATE_DIGEST", "")
+    return v.strip().lower() not in ("", "0", "off", "false")
+
+
+class StateCorruption(RuntimeError):
+    """A checksum or digest mismatch: the bytes parse but are WRONG.
+
+    RuntimeError on purpose — ``CheckpointManager._read_transient``
+    classifies ``(OSError, ValueError)`` as retryable store weather,
+    and a wrong byte must never ride that loop. The artifact named here
+    has already been copied to ``quarantine/`` when a store was at
+    hand."""
+
+    def __init__(
+        self,
+        artifact: str,
+        kind: str,
+        detail: str = "",
+        expected=None,
+        actual=None,
+        quarantined: Optional[str] = None,
+    ):
+        self.artifact = artifact
+        self.kind = kind
+        self.detail = detail
+        self.expected = expected
+        self.actual = actual
+        self.quarantined = quarantined
+        msg = f"state corruption in {artifact!r} [{kind}]"
+        if expected is not None or actual is not None:
+            msg += f" expected={expected!r} actual={actual!r}"
+        if detail:
+            msg += f": {detail}"
+        if quarantined:
+            msg += f" (quarantined at {quarantined!r})"
+        super().__init__(msg)
+
+
+# -- host-cost accounting ------------------------------------------------------
+_HOST = {"ms": 0.0, "checks": 0, "corruptions": 0}
+
+
+def host_ms() -> float:
+    """Cumulative host milliseconds spent verifying crcs and folding
+    digests since the last ``reset_host_ms()``."""
+    return _HOST["ms"]
+
+
+def reset_host_ms() -> None:
+    _HOST["ms"] = 0.0
+    _HOST["checks"] = 0
+
+
+def corruption_count() -> int:
+    return _HOST["corruptions"]
+
+
+def note_corruption(exc: "StateCorruption") -> None:
+    _HOST["corruptions"] += 1
+    try:
+        from risingwave_tpu_torch.event_log import EVENT_LOG
+
+        EVENT_LOG.record(
+            "state_corruption",
+            artifact=exc.artifact,
+            fault=exc.kind,
+            quarantined=exc.quarantined,
+            detail=exc.detail[:200],
+        )
+        from risingwave_tpu_torch.metrics import REGISTRY
+
+        REGISTRY.counter("integrity_corruptions_total").inc(kind=exc.kind)
+    except Exception:  # noqa: BLE001 — observability never masks the fault
+        pass
+
+
+# -- crc layer -----------------------------------------------------------------
 def crc32_bytes(data: bytes) -> int:
     return zlib.crc32(data) & 0xFFFFFFFF
+
+
+def verify_crc(data: bytes, expected: int, artifact: str, kind: str = "crc") -> None:
+    """Verify ``data`` against a build-time crc; raise StateCorruption
+    (not quarantined here — the caller owns the store handle)."""
+    t0 = time.perf_counter()
+    got = crc32_bytes(data)
+    _HOST["ms"] += (time.perf_counter() - t0) * 1e3
+    _HOST["checks"] += 1
+    if got != (expected & 0xFFFFFFFF):
+        raise StateCorruption(artifact, kind, expected=expected, actual=got)
+
+
+def quarantine(store, path: str, data: Optional[bytes] = None) -> Optional[str]:
+    """Copy the corrupt artifact aside for forensics — never delete the
+    original (walk-back recovery simply stops referencing it). Returns
+    the quarantine path, or None when even the copy failed."""
+    qpath = f"{QUARANTINE_PREFIX}/{path}"
+    try:
+        if data is None:
+            data = store.read(path)
+        store.put(qpath, data)
+        return qpath
+    except Exception:  # noqa: BLE001
+        return None
+
+
+def raise_corruption(
+    store,
+    artifact: str,
+    kind: str,
+    data: Optional[bytes] = None,
+    detail: str = "",
+    expected=None,
+    actual=None,
+):
+    """Quarantine + event + raise, in one motion (the storage layer's
+    single exit ramp for a detected wrong byte)."""
+    q = quarantine(store, artifact, data) if store is not None else None
+    exc = StateCorruption(
+        artifact, kind, detail=detail, expected=expected, actual=actual, quarantined=q,
+    )
+    note_corruption(exc)
+    raise exc
+
+
+# -- manifest envelope (format 2): {"format": 2, "crc32": c, "payload": version}
+def encode_manifest(version: dict) -> bytes:
+    payload = json.dumps(version, sort_keys=True)
+    return json.dumps(
+        {
+            "format": MANIFEST_FORMAT,
+            "crc32": crc32_bytes(payload.encode()),
+            "payload": version,
+        }
+    ).encode()
+
+
+def decode_manifest(raw: bytes, artifact: str = "MANIFEST") -> dict:
+    """Decode + verify a manifest blob. Raises StateCorruption on a
+    torn tail (truncated JSON) or a crc mismatch. A pre-envelope
+    (format-1) manifest decodes as-is."""
+    try:
+        doc = json.loads(raw.decode())
+    except (ValueError, UnicodeDecodeError) as e:
+        raise StateCorruption(artifact, "torn-manifest", detail=str(e)) from None
+    if isinstance(doc, dict) and doc.get("format") == MANIFEST_FORMAT and "payload" in doc:
+        payload = doc["payload"]
+        want = doc.get("crc32")
+        t0 = time.perf_counter()
+        got = crc32_bytes(json.dumps(payload, sort_keys=True).encode())
+        _HOST["ms"] += (time.perf_counter() - t0) * 1e3
+        _HOST["checks"] += 1
+        if got != want:
+            raise StateCorruption(artifact, "manifest-crc", expected=want, actual=got)
+        return payload
+    if isinstance(doc, dict) and not any(k in doc for k in ("format", "crc32", "payload")):
+        return doc  # legacy format-1: no envelope, no checksum
+    # envelope fields present but the envelope does not verify as one: a
+    # flipped bit in "format" or "payload" must not launder the blob
+    # through the legacy path
+    raise StateCorruption(
+        artifact, "manifest-format", detail="envelope fields present but malformed"
+    )
 
 
 def lane_seed(name: str) -> int:
@@ -80,6 +254,7 @@ def _np_mix(h: np.ndarray, w) -> np.ndarray:
 def host_digest(lanes: Dict[str, np.ndarray], live=None) -> int:
     """The numpy fold: the packed ``(sum<<32)|xor`` digest as a python
     int in [0, 2**64)."""
+    t0 = time.perf_counter()
     names = sorted(lanes)
     if not names:
         return 0
@@ -95,7 +270,29 @@ def host_digest(lanes: Dict[str, np.ndarray], live=None) -> int:
         h = np.where(np.asarray(live, dtype=bool), h, np.uint32(0))
     s = int(h.astype(np.uint64).sum()) & 0xFFFFFFFF
     x = int(np.bitwise_xor.reduce(h)) if n else 0
+    _HOST["ms"] += (time.perf_counter() - t0) * 1e3
     return (s << 32) | x
+
+
+def host_rows_digest(keys: Dict[str, np.ndarray], values: Dict[str, np.ndarray]) -> int:
+    """Digest of a table's durable row image (what ``read_table``
+    returns): the manifest-level digest. Order-insensitive over rows,
+    so compaction and merge order cannot move it."""
+    lanes = dict(keys)
+    lanes.update(values)
+    return host_digest(lanes, live=None)
+
+
+def host_obj_digest(obj) -> int:
+    """Digest of a host-side state object via its canonical JSON bytes
+    (sort_keys, default=str), for state held in python dicts rather than
+    lanes."""
+    t0 = time.perf_counter()
+    blob = json.dumps(obj, sort_keys=True, default=str).encode()
+    c = crc32_bytes(blob)
+    c2 = crc32_bytes(blob[::-1])
+    _HOST["ms"] += (time.perf_counter() - t0) * 1e3
+    return (c << 32) | c2
 
 
 def digest_from_scalar(v) -> int:

@@ -74,6 +74,10 @@ class JoinSide:
     sdirty: torch.Tensor  # (capacity,) bool
     stored: torch.Tensor  # (capacity,) bool
     degree: torch.Tensor  # (capacity, fanout) int32
+    # (capacity,) bool: a stored row's degree changed since the last
+    # checkpoint (kernel P sets it; the reference marks nothing, so its
+    # checkpoint misses those degrees); None on sides built field by field
+    ddirty: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
@@ -108,6 +112,7 @@ class JoinSide:
             sdirty=torch.zeros(capacity, dtype=torch.bool, device=dev),
             stored=torch.zeros(capacity, dtype=torch.bool, device=dev),
             degree=z2(torch.int32),
+            ddirty=torch.zeros(capacity, dtype=torch.bool, device=dev),
         )
 
     @staticmethod
@@ -135,6 +140,7 @@ class JoinSide:
             sdirty=put(np.asarray(get("sdirty"), np.bool_)),
             stored=put(np.asarray(get("stored"), np.bool_)),
             degree=put(np.asarray(get("degree"), np.int32)),
+            ddirty=put(np.zeros(np.asarray(get("sdirty")).shape, np.bool_)),
         )
 
 
@@ -614,6 +620,8 @@ def _degree_apply_torch(other, match, sl, signs):
     flat = other.degree.view(-1)
     old = flat[spid.clamp(max=sent - 1)]
     flat.index_add_(0, spid[rep], net[rep])  # distinct ids; updates at sent dropped
+    if other.ddirty is not None:
+        other.ddirty[spid[rep & (net != 0)] // fanout] = True
     new = old + net
     went_pos = rep & (old == 0) & (new > 0)
     went_zero = rep & (old > 0) & (new <= 0)
@@ -689,6 +697,8 @@ def _degree_emit_cuda(other, probed, ops, out_cap, em_overflow, join_rows=None,
     _kernels.check_cuda("join_degree", ops, probed.slots, n=n)
     _kernels.check_cuda("join_degree", other.row_valid, other.degree, probed.written,
                         probed.ops, probed.valid, em_overflow)
+    if other.ddirty is not None:
+        _kernels.check_cuda("join_degree", other.ddirty, n=other.capacity)
     if join_rows is not None:
         if join_rows.shape != () or join_rows.dtype != torch.int64:
             raise TypeError("join_rows must be a () int64 counter")
@@ -717,6 +727,7 @@ def _degree_emit_cuda(other, probed, ops, out_cap, em_overflow, join_rows=None,
         _kernels.int64_rows(outs, 16), len(outs), int(group3), out_cap, probed.ops.data_ptr(),
         probed.valid.data_ptr(), probed.written.data_ptr(), em_overflow.data_ptr(),
         0 if join_rows is None else join_rows.data_ptr(), scratch.data_ptr(), h_size,
+        0 if other.ddirty is None else other.ddirty.data_ptr(),
     )
 
 
@@ -735,10 +746,11 @@ def regrow(side: JoinSide, new_cap: int, new_fanout: int) -> JoinSide:
     new.overflow.copy_(side.overflow)
     new.inconsistent.copy_(side.inconsistent)
     new.table, new_slots, _, _ = lookup_or_insert(new.table, side.table.keys, keep)
-    move_slots(  # kernel I on the card
-        (side.table.live, side.sdirty, side.stored),
-        (new.table.live, new.sdirty, new.stored), new_slots, keep,
-    )
+    srcs = (side.table.live, side.sdirty, side.stored)
+    dsts = (new.table.live, new.sdirty, new.stored)
+    if side.ddirty is not None:
+        srcs, dsts = srcs + (side.ddirty,), dsts + (new.ddirty,)
+    move_slots(srcs, dsts, new_slots, keep)  # kernel I on the card
     src = [*side.rows.values(), *side.row_nulls.values(), side.degree]
     dst = [*new.rows.values(), *new.row_nulls.values(), new.degree]
     if dev.type == "cpu":

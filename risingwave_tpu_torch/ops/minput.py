@@ -33,25 +33,41 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from risingwave_tpu_torch import _kernels, resolve_device
-from risingwave_tpu_torch.ops.agg import AggCall, _accum_dtype, _float_to_order_key, accum_init
+from risingwave_tpu_torch.ops.agg import (
+    AggCall,
+    _accum_dtype,
+    _float_to_order_key,
+    accum_init,
+    emitted_init,
+)
 from risingwave_tpu_torch.runtime.bucketing import pow2_at_least
 
 
 def create_minput(capacity: int, k: int, calls: Tuple[AggCall, ...], input_dtypes,
                   device="cuda") -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
     """``(vals, cnt)`` per materialized MIN/MAX call output; ``vals`` in
-    the call's accumulator dtype, ``cnt`` int32."""
+    the call's accumulator dtype, ``cnt`` int32. Unwritten value lanes
+    hold the reference's zero (for a float64 input, the port's key of
+    the reference's zero key, ``vals_init``), so a checkpoint's rows are
+    the reference's byte for byte."""
     dev = resolve_device(device)
     out = {}
     for c in calls:
         if not c.materialized:
             continue
-        dt = _accum_dtype(c, input_dtypes[c.input])
+        in_dt = input_dtypes[c.input]
+        dt = _accum_dtype(c, in_dt)
         out[c.output] = (
-            torch.zeros((capacity, k), dtype=dt, device=dev),
+            torch.full((capacity, k), vals_init(in_dt), dtype=dt, device=dev),
             torch.zeros((capacity, k), dtype=torch.int32, device=dev),
         )
     return out
+
+
+def vals_init(input_dtype) -> int:
+    """An unwritten value lane: 0, or for a float64 input the port's key
+    of the reference's zero key (``ops/agg.emitted_init``)."""
+    return emitted_init(input_dtype if input_dtype == torch.float64 else None)
 
 
 def minput_apply(vals: torch.Tensor, cnt: torch.Tensor, slots: torch.Tensor,
@@ -258,12 +274,13 @@ def _minput_clear_cuda(cnt, slots):
 
 
 def minput_rescatter(vals: torch.Tensor, cnt: torch.Tensor, keep: torch.Tensor,
-                     new_slots: torch.Tensor, new_cap: int):
+                     new_slots: torch.Tensor, new_cap: int, init: int = 0):
     """Rehash support: a fresh ``(new_cap, K)`` pair with row i of every
     kept old slot at ``new_slots[i]``; a kept slot without a new slot
-    (-1) moves nothing, as kernel I."""
+    (-1) moves nothing, as kernel I. Unmoved value lanes hold ``init``
+    (``vals_init`` of the call's input)."""
     k = cnt.shape[1]
-    nv = torch.zeros((new_cap, k), dtype=vals.dtype, device=vals.device)
+    nv = torch.full((new_cap, k), init, dtype=vals.dtype, device=vals.device)
     nc = torch.zeros((new_cap, k), dtype=cnt.dtype, device=cnt.device)
     if cnt.device.type == "cpu":
         _minput_rescatter_torch(vals, cnt, keep, new_slots, nv, nc)

@@ -27,8 +27,10 @@ with ``fuse_pipeline`` :2303 and ``expand_fused`` :2355.
   (kernel H) packed into one int64 lane whose copy to pinned host
   memory is the barrier's only device->host read.
 - The members stay the system of record: their state is updated in
-  place, so snapshots, growth and the barrier checks work on the
-  original objects.
+  place, so snapshots, growth, the barrier checks and checkpoints
+  (``CheckpointManager.commit_epoch`` over ``expand_fused`` of the
+  executors, or each wrapper's ``capture_checkpoint``) work on the
+  original objects, and a recovered pipeline re-fuses.
 - ``fuse_two_input`` runs a ``TwoInputPipeline`` (q8: ``hop -> dedup``
   per side; q7: ``hop -> DynamicMaxFilter`` left, ``hop -> HashAgg``
   right; q101: a plain left input, ``HashAgg`` right; a HashJoin of any
@@ -349,6 +351,14 @@ class FusedChainExecutor(Executor):
         super().finish_barrier()
         for m in self.members:
             m.finish_barrier()  # no-op: members never stage under fusion
+
+    def capture_checkpoint(self) -> None:
+        """The members stay the system of record: each Checkpointable
+        member captures its own delta."""
+        for m in self.members:
+            cap = getattr(m, "capture_checkpoint", None)
+            if cap is not None:
+                cap()
 
     def _on_barrier_scalars(self, vals) -> None:
         base = (4 if self.agg is not None else 0) + (2 if self.mv is not None else 0)
@@ -745,6 +755,14 @@ class FusedTwoInputExecutor(Executor):
         super().finish_barrier()
         for m in self.members:
             m.finish_barrier()  # no-op: members never stage under fusion
+
+    def capture_checkpoint(self) -> None:
+        """The members stay the system of record: each Checkpointable
+        member captures its own delta."""
+        for m in self.members:
+            cap = getattr(m, "capture_checkpoint", None)
+            if cap is not None:
+                cap()
 
     def _scalar_layout(self):
         layout = []

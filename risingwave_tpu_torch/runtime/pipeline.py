@@ -85,6 +85,11 @@ class Pipeline:
         _, pending = _walk_watermark(self.executors, Watermark(column, value))
         return pending
 
+    @property
+    def epoch(self) -> int:
+        """The epoch the last barrier closed (what a checkpoint commits)."""
+        return self._epoch
+
 
 class TwoInputPipeline:
     """Two input chains joined by a two-input executor, then a tail.

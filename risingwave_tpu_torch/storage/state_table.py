@@ -1,0 +1,1242 @@
+"""StateTable checkpoint layer — Hummock-lite version + commit_epoch.
+
+Reference roles replaced:
+- ``StateTable::commit`` staging an epoch's memtable into the shared
+  buffer for upload (src/stream/src/common/table/state_table.rs:1140,
+  src/storage/src/hummock/event_handler/uploader.rs:548);
+- ``HummockManager::commit_epoch`` pinning uploaded SSTs into a new
+  HummockVersion (src/meta/src/hummock/manager/commit_epoch.rs:93);
+- full-merge compaction (src/storage/src/hummock/compactor/).
+
+TPU re-design: executor state lives in HBM as slot-indexed arrays;
+``sdirty``/``stored`` lanes on the device state track what changed
+since the last checkpoint. At a checkpoint barrier each Checkpointable
+executor stages its delta (device→host pull, compacted to the changed
+rows), the manager writes one SST per table, then commits the MANIFEST
+atomically — the epoch is durable iff the manifest says so (a crash
+between SST puts and manifest write recovers to the previous epoch;
+orphan SSTs are ignored and reclaimed by compaction GC).
+
+Recovery: ``recover(executors)`` merge-reads each table's SSTs
+(newest-epoch-wins, tombstones drop) and hands the surviving rows to
+the executor's ``restore_state`` to rebuild device state.
+
+Port of ``risingwave_tpu/storage/state_table.py``. The host code is
+copied with its imports rewritten; K32, the pull's device gather
+(``_gather`` :165), is kernel R's ``gather_rows`` (``ops/checkpoint.py``):
+one launch packs the selected rows of every lane and one copy brings
+them to pinned host memory, with no padding of ``sel`` (the reference
+pads it for jit's sake). The stage's scalar read and that copy happen
+inside ``commit_epoch``, after the barrier.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+from collections import deque as _deque
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from risingwave_tpu_torch.integrity import (
+    StateCorruption,
+    crc32_bytes,
+    decode_manifest,
+    digest_enabled,
+    encode_manifest,
+    host_rows_digest,
+    note_corruption,
+    quarantine,
+    raise_corruption,
+)
+from risingwave_tpu_torch.resilience import (
+    STORE_UNAVAILABLE,
+    CircuitBreaker,
+    RetryingObjectStore,
+    RetryPolicy,
+)
+from risingwave_tpu_torch.metrics import REGISTRY
+from risingwave_tpu_torch.ops.checkpoint import gather_rows
+from risingwave_tpu_torch.storage.object_store import ObjectStore
+from risingwave_tpu_torch.storage.block_sst import (
+    BlockSst,
+    build_block_sst,
+    header_crc,
+    order_tuple,
+    verify_block_blob,
+)
+from risingwave_tpu_torch.storage.sstable import (
+    _order_key,
+    build_sst,
+    merge_ssts,
+    newest_wins,
+    read_sst,
+)
+
+MANIFEST = "MANIFEST"
+MANIFEST_HISTORY = "manifests"  # per-epoch manifest copies (walk-back)
+MANIFEST_KEEP = 8  # history retention (walk-back depth)
+COMPACT_AT = 8  # L0 SSTs per table before a leveled compaction
+L1_FILE_ROWS = 1 << 16  # target rows per non-overlapping L1 file
+
+
+def record_stage(stage: str, ms: float, fragment: str = "-") -> None:
+    """One barrier-stage observation into ``barrier_stage_ms`` (the
+    reference's ``epoch_trace.record_stage``)."""
+    REGISTRY.histogram("barrier_stage_ms").observe(ms, stage=stage, fragment=fragment)
+
+
+class EpochFloorError(RuntimeError):
+    """An MVCC pin below the table's compaction floor: that history
+    has been folded away. Deliberately NOT a ValueError — the read
+    retry loop treats ValueError as a transient decode race."""
+
+
+@dataclass
+class StateDelta:
+    """One table's staged epoch delta (host-side, compacted).
+
+    Staging flips the executor's device sdirty/stored marks EAGERLY —
+    slot indices shift on rehash, so a deferred flip would hit wrong
+    slots. The durability contract is therefore the reference's
+    (barrier/mod.rs:676): if a commit FAILS, in-memory marks are ahead
+    of storage and the process MUST recover() from the last durable
+    manifest — never retry the commit against live state.
+    """
+
+    table_id: str
+    key_cols: Dict[str, np.ndarray]
+    value_cols: Dict[str, np.ndarray]
+    tombstone: np.ndarray
+    key_order: Tuple[str, ...]
+
+
+def stage_marks(
+    sdirty: np.ndarray, alive: np.ndarray, stored: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The shared upsert/tombstone classification every Checkpointable
+    executor uses: returns (upsert_mask, tombstone_mask, sel_indices)."""
+    upsert = sdirty & alive
+    tomb = sdirty & stored & ~alive
+    return upsert, tomb, np.flatnonzero(upsert | tomb)
+
+
+def grow_pow2(n: int, cap: int, grow_at: float = 0.5) -> int:
+    """Smallest power-of-two capacity >= cap holding n under grow_at."""
+    while n > cap * grow_at:
+        cap *= 2
+    return cap
+
+
+def host_key_view(a: np.ndarray) -> np.ndarray:
+    """Canonical integer view of a key lane for host-side cold-tier
+    set membership. Float lanes become their exact bit patterns (the
+    cold set needs identity, not numeric comparison), so float-keyed
+    state can evict/fault-in without round-tripping through lossy
+    python floats."""
+    a = np.asarray(a)
+    if a.dtype.kind == "f":
+        return a.view(np.int32 if a.itemsize == 4 else np.int64)
+    if a.dtype.kind == "b":
+        return a.astype(np.int64)
+    return a
+
+
+def lanes_from_host_keys(key_tuples, dtypes) -> Dict[str, np.ndarray]:
+    """Inverse of host_key_view over a set of canonical key tuples:
+    rebuild k{i} lanes in their native dtypes (bit-casting back into
+    float lanes)."""
+    out = {}
+    for i, dt in enumerate(dtypes):
+        dt = np.dtype(dt)
+        arr = np.asarray([t[i] for t in key_tuples], dtype=np.int64)
+        if dt.kind == "f":
+            w = arr.astype(np.int32 if dt.itemsize == 4 else np.int64)
+            out[f"k{i}"] = w.view(dt)
+        else:
+            out[f"k{i}"] = arr.astype(dt)
+    return out
+
+
+def pull_rows(device_lanes: Dict[str, torch.Tensor], sel: torch.Tensor,
+              compacted: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, np.ndarray]:
+    """Device->host transfer of SELECTED rows only (checkpoint staging
+    must be O(changed rows), not O(capacity)): kernel R's gather, one
+    launch for every lane, then one copy to pinned host memory. ``sel``
+    is int32 slots on the lanes' device; ``compacted`` tensors (already
+    ``len(sel)`` rows, such as the select's tomb) ride the same copy."""
+    return gather_rows(dict(device_lanes), sel, compacted)
+
+
+class Checkpointable:
+    """Executor mixin: stateful executors that persist through the
+    checkpoint manager implement these three members."""
+
+    table_id: str = ""
+
+    def checkpoint_table_ids(self) -> List[str]:
+        return [self.table_id]
+
+    def checkpoint_delta(self) -> List[StateDelta]:
+        """Stage rows changed since the last checkpoint and CLEAR the
+        device-side sdirty marks (update stored marks)."""
+        raise NotImplementedError
+
+    # -- pipelined barriers: capture-at-barrier (the memtable seal) ----
+    # With more than one barrier in flight, the delta for epoch N must
+    # be pulled BEFORE any epoch-N+1 row mutates this executor's state.
+    # Actor threads call ``capture_checkpoint`` while processing the
+    # checkpoint barrier (FIFO channels guarantee nothing from N+1 has
+    # been applied yet — the shared-buffer seal point,
+    # src/storage/src/hummock/shared_buffer/ upstream); the
+    # checkpoint manager later consumes captures in epoch order.
+    _captured_deltas = None
+
+    def capture_checkpoint(self) -> None:
+        if self._captured_deltas is None:
+            self._captured_deltas = _deque()
+        self._captured_deltas.append(self.checkpoint_delta())
+
+    def staged_or_live_delta(self) -> List[StateDelta]:
+        """Oldest captured delta if any (pipelined mode), else a live
+        pull (synchronous mode)."""
+        if self._captured_deltas:
+            return self._captured_deltas.popleft()
+        return self.checkpoint_delta()
+
+    def discard_captured(self) -> None:
+        """Recovery: captured deltas of rolled-back epochs are stale."""
+        if self._captured_deltas is not None:
+            self._captured_deltas.clear()
+
+    def restore_state(
+        self, table_id: str, key_cols: Dict[str, np.ndarray],
+        value_cols: Dict[str, np.ndarray],
+    ) -> None:
+        raise NotImplementedError
+
+    # -- integrity: the state-digest contract (rwlint RW-E709) ---------
+    def state_digest(self) -> int:
+        """Order-insensitive fingerprint of this executor's DURABLE
+        LOGICAL state (integrity.host_digest over its lanes, or
+        integrity.host_obj_digest for host-dict state). Bookkeeping
+        lanes (sdirty/stored/latches) are excluded by contract — they
+        differ legitimately across a restore. Every Checkpointable
+        executor must override this (RW-E709 flags the ones that
+        don't); the fused engine computes the same fold on-device so
+        fused-vs-interpreted runs cross-check per barrier."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no state_digest() — "
+            "see rwlint RW-E709"
+        )
+
+
+class CheckpointManager:
+    """Version authority + per-epoch committer (meta-lite).
+
+    Thread model (uploader.rs:548 + commit_epoch.rs:93 analogue): the
+    version is guarded by one RLock; ``stage`` (validation + device
+    pull) and ``commit_staged`` (SST build + manifest) are the single
+    commit path shared by the sync caller and the runtime's async lane.
+    Compaction never runs inside a commit — it is scheduled separately
+    (``compact_once``) and swaps the version CAS-style under the lock,
+    so a racing commit can never be lost.
+    """
+
+    def __init__(
+        self,
+        store: ObjectStore,
+        prefix: str = "hummock",
+        compact_at: int = COMPACT_AT,
+        retry_policy: Optional[RetryPolicy] = None,
+        breaker: Optional[CircuitBreaker] = None,
+        read_retry: Optional[RetryPolicy] = None,
+    ):
+        # the durability boundary: EVERY store touch (SST upload,
+        # manifest commit, compaction IO, block reads) goes through the
+        # retrying, monitored wrapper (reference: src/object_store/'s
+        # RetryCondition around each op). Transient classification is
+        # narrow (TransientStoreError/ConnectionError/Timeout), so
+        # in-mem and local-fs stores behave exactly as before; chaos
+        # CrashPoints are BaseExceptions and always propagate.
+        if not isinstance(store, RetryingObjectStore):
+            store = RetryingObjectStore(
+                store, retry_policy or RetryPolicy.from_env(), breaker
+            )
+        self.store = store
+        # read-closure retries (GC race / torn decode) reload the
+        # manifest between attempts; deadline + backoff bound what was
+        # previously an ad-hoc fixed-count spin
+        self._read_policy = read_retry or RetryPolicy.from_env(
+            max_attempts=8, base_backoff_s=0.002, max_backoff_s=0.05
+        )
+        self.prefix = prefix
+        self.compact_at = compact_at
+        self._lock = threading.RLock()
+        self.version = {"max_committed_epoch": 0, "tables": {}}
+        self._sst_cache: Dict[str, object] = {}  # path -> parsed Sst
+        # stage()-buffered cleaning watermarks: durable only WITH the
+        # epoch that staged them (commit_staged applies + persists)
+        self._pending_watermarks: Dict[str, Tuple[str, int]] = {}
+        self._load()
+
+    # -- table watermarks (state cleaning) --------------------------------
+    def update_table_watermark(
+        self, table_id: str, key_name: str, value: int
+    ) -> None:
+        """Advance a table's cleaning watermark: rows whose ``key_name``
+        falls BELOW it are expired and may be dropped by compaction
+        (reference: StateTable::update_watermark -> Hummock table
+        watermarks -> iterator/skip_watermark.rs dropping expired keys
+        during compaction). Monotonic; persisted with the manifest so
+        a restart keeps cleaning."""
+        with self._lock:
+            wms = self.version.setdefault("watermarks", {})
+            cur = wms.get(table_id)
+            if cur is not None and cur[0] == key_name and cur[1] >= value:
+                return
+            wms[table_id] = [key_name, int(value)]
+            self._persist_version()
+
+    def table_watermark(self, table_id: str):
+        with self._lock:
+            wm = self.version.get("watermarks", {}).get(table_id)
+            return tuple(wm) if wm else None
+
+    # -- version ---------------------------------------------------------
+    def _manifest_path(self) -> str:
+        return f"{self.prefix}/{MANIFEST}"
+
+    def _history_path(self, epoch: int) -> str:
+        return f"{self.prefix}/{MANIFEST_HISTORY}/{epoch:020d}"
+
+    def _load(self):
+        """Read + verify the manifest pointer. A torn tail (the crash-
+        mid-write window) or a crc mismatch quarantines the pointer and
+        walks back through the per-epoch manifest history to the newest
+        copy that fully verifies — recovery lands on the previous
+        durable epoch instead of crashing on a half-written JSON."""
+        path = self._manifest_path()
+        if not self.store.exists(path):
+            return
+        raw = self.store.read(path)
+        try:
+            self.version = decode_manifest(raw, artifact=path)
+            return
+        except StateCorruption as exc:
+            exc.quarantined = quarantine(self.store, path, raw)
+            note_corruption(exc)
+            v = self._walk_back()
+            if v is None:
+                raise  # no verifying history: surface, never guess
+            self.version = v
+            self._persist_version()  # heal the pointer
+
+    def _walk_back(
+        self, bad_paths=frozenset(), deep: bool = False
+    ) -> Optional[dict]:
+        """Newest manifest-history copy whose checksum chain fully
+        verifies: the envelope crc, no reference to a known-bad
+        artifact, every referenced SST present (and, when ``deep``,
+        content-crc-verified). Returns the decoded version or None."""
+        try:
+            cands = sorted(
+                self.store.list(f"{self.prefix}/{MANIFEST_HISTORY}/"),
+                reverse=True,
+            )
+        except Exception:  # noqa: BLE001 — a dead store ends the walk
+            return None
+        for p in cands:
+            try:
+                v = decode_manifest(self.store.read(p), artifact=p)
+            except (StateCorruption, OSError, ValueError):
+                continue
+            entries = [
+                e
+                for es in v.get("tables", {}).values()
+                for e in es
+            ]
+            if any(e["path"] in bad_paths for e in entries):
+                continue
+            try:
+                ok = all(
+                    self._entry_verifies(e, deep=deep) for e in entries
+                )
+            except Exception:  # noqa: BLE001
+                ok = False
+            if ok:
+                return v
+        return None
+
+    def _entry_verifies(self, e: dict, deep: bool = False) -> bool:
+        if not self.store.exists(e["path"]):
+            return False
+        if not deep:
+            return True
+        data = self.store.read(e["path"])
+        want = e.get("crc")
+        if want is not None and crc32_bytes(data) != want:
+            return False
+        if e.get("format") == "block":
+            want_h = e.get("hdr_crc")
+            if want_h is not None and header_crc(data) != want_h:
+                return False
+            if verify_block_blob(data):
+                return False
+        return True
+
+    def _persist_version(self):
+        blob = encode_manifest(self.version)
+        self.store.put(self._manifest_path(), blob)
+        # a per-epoch history copy makes walk-back possible: the
+        # pointer alone is one overwritten object — a torn write there
+        # would otherwise erase the only path back to durable state
+        ep = int(self.version["max_committed_epoch"])
+        self.store.put(self._history_path(ep), blob)
+        self._gc_history(ep)
+
+    def _gc_history(self, newest_epoch: int) -> None:
+        """Bounded retention: keep the newest MANIFEST_KEEP history
+        copies (best-effort — retention never fails a commit)."""
+        try:
+            hist = sorted(
+                self.store.list(f"{self.prefix}/{MANIFEST_HISTORY}/")
+            )
+            for p in hist[:-MANIFEST_KEEP]:
+                self.store.delete(p)
+        except Exception:  # noqa: BLE001
+            pass
+
+    @property
+    def max_committed_epoch(self) -> int:
+        with self._lock:
+            return int(self.version["max_committed_epoch"])
+
+    # -- commit path -----------------------------------------------------
+    def stage(self, executors: Sequence[object]) -> List[StateDelta]:
+        """Pull every Checkpointable executor's delta (the only device-
+        touching step) with the duplicate-table_id check. Mark flips are
+        eager (see StateDelta): a later commit failure requires
+        recover(), never a retry against live state."""
+        staged: List[StateDelta] = []
+        seen_ids = set()
+        for ex in executors:
+            if not isinstance(ex, Checkpointable):
+                continue
+            # executors with watermark-driven cleaning advance their
+            # table's skip-watermark here — BUFFERED: it becomes
+            # durable with this epoch's manifest commit, never before
+            # (compaction acting on an early watermark could drop
+            # state whose downstream emissions were not yet durable)
+            wm_fn = getattr(ex, "cleaning_watermarks", None)
+            if wm_fn is not None:
+                for tid, key, val in wm_fn():
+                    cur = self._pending_watermarks.get(tid)
+                    if cur is None or cur[0] != key or cur[1] < val:
+                        self._pending_watermarks[tid] = (key, int(val))
+            for delta in ex.staged_or_live_delta():
+                if delta.table_id in seen_ids:
+                    raise ValueError(
+                        f"duplicate table_id {delta.table_id!r} in one "
+                        "commit — give each executor a unique table_id"
+                    )
+                seen_ids.add(delta.table_id)
+                staged.append(delta)
+        return staged
+
+    def commit_staged(
+        self,
+        epoch: int,
+        staged: Sequence[StateDelta],
+        trace=None,
+    ) -> int:
+        """Build + upload SSTs for a staged epoch, then commit the
+        manifest. The single commit implementation behind both the sync
+        path and the runtime's async worker. Returns SSTs written.
+        ``trace`` (an EpochTrace) receives the upload / manifest_commit
+        stage attribution; without one the stages still land in the
+        ``barrier_stage_ms`` histogram."""
+        import time as _time
+
+        with self._lock:
+            if epoch <= int(self.version["max_committed_epoch"]):
+                raise ValueError(
+                    f"epoch {epoch} <= committed "
+                    f"{self.version['max_committed_epoch']}"
+                )
+        t_upload = _time.perf_counter()
+        n = 0
+        new_entries = []  # (table_id, entry) — registered under lock below
+        for delta in staged:
+            if len(delta.tombstone) == 0:
+                continue
+            blob = build_sst(
+                delta.table_id,
+                epoch,
+                delta.key_cols,
+                delta.value_cols,
+                delta.tombstone,
+                delta.key_order,
+            )
+            path = f"{self.prefix}/sst/{delta.table_id}/{epoch:020d}.sst"
+            self.store.put(path, blob)
+            new_entries.append(
+                (
+                    delta.table_id,
+                    # content crc written AT BUILD, verified on every
+                    # read path (_open_entry / scrub / backup)
+                    {"path": path, "epoch": epoch,
+                     "crc": crc32_bytes(blob)},
+                )
+            )
+            n += 1
+        from risingwave_tpu_torch import utils_sync_point as sync_point
+
+        upload_ms = (_time.perf_counter() - t_upload) * 1e3
+        # SSTs are uploaded but the manifest is NOT yet written: the
+        # classic crash window (recovery must land on the previous
+        # epoch); tests inject crashes here (utils_sync_point)
+        sync_point.hit("before_manifest_commit")
+        t_manifest = _time.perf_counter()
+        with self._lock:
+            # re-validate under the lock: a concurrent commit may have
+            # advanced the epoch while our SSTs uploaded; publishing
+            # unconditionally could regress max_committed_epoch
+            if epoch <= int(self.version["max_committed_epoch"]):
+                for _, entry in new_entries:
+                    self.store.delete(entry["path"])
+                raise ValueError(
+                    f"epoch {epoch} <= committed "
+                    f"{self.version['max_committed_epoch']} (lost race)"
+                )
+            for table_id, entry in new_entries:
+                self.version["tables"].setdefault(table_id, []).append(entry)
+            self.version["max_committed_epoch"] = epoch
+            # cleaning watermarks become durable WITH this epoch: the
+            # emissions they license compaction to destroy are durable
+            # in the same manifest write
+            if self._pending_watermarks:
+                wms = self.version.setdefault("watermarks", {})
+                for tid, (key, val) in self._pending_watermarks.items():
+                    cur = wms.get(tid)
+                    if cur is None or cur[0] != key or cur[1] < val:
+                        wms[tid] = [key, val]
+                self._pending_watermarks = {}
+            if digest_enabled():
+                # per-table epoch digest over the post-commit row image
+                # (order-insensitive; merge-on-read applied) — recovery
+                # verifies restored state against these
+                digs = self.version.setdefault("digests", {})
+                for table_id, _entry in new_entries:
+                    digs[table_id] = host_rows_digest(
+                        *self._read_table_once(table_id)
+                    )
+            self._persist_version()
+        sync_point.hit("after_manifest_commit")
+        manifest_ms = (_time.perf_counter() - t_manifest) * 1e3
+        if trace is not None:
+            trace.add_stage("upload", upload_ms)
+            trace.add_stage("manifest_commit", manifest_ms)
+        else:
+            record_stage("upload", upload_ms)
+            record_stage("manifest_commit", manifest_ms)
+        return n
+
+    def commit_epoch(self, epoch: int, executors: Sequence[object]) -> int:
+        """stage + commit_staged in one call (the standalone sync path;
+        compacts inline afterwards — the runtime's async lane instead
+        defers compaction to its dedicated worker)."""
+        # early epoch check so a stale epoch fails before mark flips
+        with self._lock:
+            if epoch <= int(self.version["max_committed_epoch"]):
+                raise ValueError(
+                    f"epoch {epoch} <= committed "
+                    f"{self.version['max_committed_epoch']}"
+                )
+        n = self.commit_staged(epoch, self.stage(executors))
+        self._maybe_compact(epoch)
+        return n
+
+    # -- compaction ------------------------------------------------------
+    def tables_needing_compaction(self) -> List[str]:
+        with self._lock:
+            return [
+                t
+                for t, entries in self.version["tables"].items()
+                if sum(1 for e in entries if e.get("level", 0) == 0)
+                >= self.compact_at
+            ]
+
+    def compact_once(self, table_id: str, epoch: int) -> bool:
+        """Leveled compaction (two-level picker, the write-amplification
+        bound of compaction/picker/): merge the table's L0 epoch deltas
+        with ONLY the L1 files whose key ranges overlap the L0 span,
+        and rewrite that span as non-overlapping block-format L1 files.
+        L1 files outside the span are untouched — repeated compactions
+        rewrite each key's neighborhood, not the whole table.
+
+        OFF the commit path: the merge runs without the lock; the
+        version swap is CAS-style — concurrent commits append L0
+        entries which are preserved as the new run's suffix."""
+        with self._lock:
+            entries = list(self.version["tables"].get(table_id, []))
+        l0 = [e for e in entries if e.get("level", 0) == 0]
+        l1 = [e for e in entries if e.get("level", 0) == 1]
+        if len(l0) < self.compact_at:
+            return False
+        l0_ssts = [self._materialized(e, cache=False) for e in l0]
+        key_order = l0_ssts[-1].meta.key_names
+
+        # the L0 span in the order-key domain — SSTs are key-sorted, so
+        # each file's span is exactly its first and last row
+        span_lo = span_hi = None
+        for s in l0_ssts:
+            if s.meta.n_rows == 0:
+                continue
+            ok = [
+                _order_key(np.asarray(s.keys[k])).astype(np.uint64)
+                for k in key_order
+            ]
+            lo = tuple(int(a[0]) for a in ok)
+            hi = tuple(int(a[-1]) for a in ok)
+            span_lo = lo if span_lo is None else min(span_lo, lo)
+            span_hi = hi if span_hi is None else max(span_hi, hi)
+        overlapping = [
+            e
+            for e in l1
+            if span_lo is not None
+            and not (
+                tuple(e["last"]) < span_lo or tuple(e["first"]) > span_hi
+            )
+        ]
+        src = l0 + overlapping
+        ssts = l0_ssts + [
+            self._materialized(e, cache=False) for e in overlapping
+        ]
+        keys, values = merge_ssts(ssts, key_order)
+        n_rows = len(next(iter(keys.values()))) if keys else 0
+        # skip-watermark cleaning: expired keys drop during the merge
+        # (iterator/skip_watermark.rs) — tombstone-free state cleaning
+        wm = self.table_watermark(table_id)
+        if wm is not None and n_rows:
+            kname, wval = wm
+            if kname in keys:
+                keep = np.asarray(keys[kname]) >= wval
+                if not keep.all():
+                    keys = {k: np.asarray(a)[keep] for k, a in keys.items()}
+                    values = {
+                        v: np.asarray(a)[keep] for v, a in values.items()
+                    }
+                    n_rows = int(keep.sum())
+        # L1 file epoch = newest SOURCE epoch: stays below any
+        # concurrently-committed L0 so newest-wins ordering holds
+        src_epoch = max(e["epoch"] for e in src)
+        new_entries: List[dict] = []
+        new_paths: List[str] = []
+        if n_rows:
+            from risingwave_tpu_torch.storage.sstable import sort_order
+
+            order = sort_order([keys[k] for k in key_order])
+            keys = {k: np.asarray(a)[order] for k, a in keys.items()}
+            values = {v: np.asarray(a)[order] for v, a in values.items()}
+            okeys = [
+                _order_key(keys[k]).astype(np.uint64) for k in key_order
+            ]
+            for part, at in enumerate(range(0, n_rows, L1_FILE_ROWS)):
+                hi_i = min(at + L1_FILE_ROWS, n_rows)
+                sl = slice(at, hi_i)
+                blob = build_block_sst(
+                    table_id,
+                    src_epoch,
+                    {k: a[sl] for k, a in keys.items()},
+                    {v: a[sl] for v, a in values.items()},
+                    np.zeros(hi_i - at, bool),
+                    key_order,
+                )
+                path = (
+                    f"{self.prefix}/sst/{table_id}/"
+                    f"{epoch:020d}.l1.{part:04d}.sst"
+                )
+                self.store.put(path, blob)
+                new_paths.append(path)
+                new_entries.append(
+                    {
+                        "path": path,
+                        "epoch": src_epoch,
+                        "level": 1,
+                        "format": "block",
+                        "first": [int(a[at]) for a in okeys],
+                        "last": [int(a[hi_i - 1]) for a in okeys],
+                        # whole-blob crc for scrub/backup; header crc
+                        # for the lazy read path (blocks carry their
+                        # own crcs inside the header)
+                        "crc": crc32_bytes(blob),
+                        "hdr_crc": header_crc(blob),
+                    }
+                )
+        untouched = [e for e in l1 if e not in overlapping]
+        merged_l1 = sorted(
+            untouched + new_entries, key=lambda e: tuple(e["first"])
+        )
+        with self._lock:
+            cur = self.version["tables"].get(table_id, [])
+            if cur[: len(entries)] != entries:
+                # someone else rewrote the run (another compactor);
+                # abandon ours — the orphan SSTs are unreferenced
+                for p in new_paths:
+                    self.store.delete(p)
+                return False
+            # L1 files lead (oldest layer; newest-first reads walk the
+            # list reversed), surviving + concurrent L0s follow
+            self.version["tables"][table_id] = merged_l1 + cur[
+                len(entries):
+            ]
+            # epoch-pinned reads below this floor would silently see a
+            # partial table (the folded layer is excluded): record the
+            # newest epoch this compaction folded so readers can raise
+            floors = self.version.setdefault("history_floor", {})
+            floors[table_id] = max(floors.get(table_id, 0), src_epoch)
+            if digest_enabled():
+                # skip-watermark cleaning DROPS expired rows during the
+                # merge, so the table's row image (and hence its epoch
+                # digest) changes at compaction: refresh it in the same
+                # manifest write that publishes the folded run
+                self.version.setdefault("digests", {})[table_id] = (
+                    host_rows_digest(*self._read_table_once(table_id))
+                )
+            self._persist_version()
+        from risingwave_tpu_torch import utils_sync_point as sync_point
+
+        sync_point.hit("before_compaction_gc")
+        for e in src:  # GC after the new version is durable
+            self.store.delete(e["path"])
+            self._sst_cache.pop(e["path"], None)
+        return True
+
+    def _maybe_compact(self, epoch: int):
+        """Compact every over-long table run (synchronous helper for
+        tests and for runtimes without a compaction thread)."""
+        for table_id in self.tables_needing_compaction():
+            self.compact_once(table_id, epoch)
+
+    # -- recovery --------------------------------------------------------
+    def read_table(
+        self, table_id: str
+    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+        return self._read_retry(lambda: self._read_table_once(table_id))
+
+    def _read_table_once(self, table_id: str):
+        # full-table restores bypass the SST cache: pinning every
+        # restored SST would hold the whole committed store in host RAM
+        # (the cache exists for the point-read working set)
+        readers = list(
+            reversed(self._readers_newest_first(table_id, cache=False))
+        )
+        if not readers:
+            return {}, {}
+        ssts = [
+            r.materialize() if isinstance(r, BlockSst) else r
+            for r in readers
+        ]
+        return merge_ssts(ssts, ssts[-1].meta.key_names)
+
+    @staticmethod
+    def _read_transient(exc: Exception) -> bool:
+        # in READ context a missing file IS transient (a compaction's
+        # GC deleted it mid-read; the reloaded manifest never references
+        # GC'd files) and ValueError is a torn-decode race. NOT
+        # KeyError: that is how user errors (bad prefix / range column)
+        # surface from the read closures.
+        return isinstance(exc, (OSError, ValueError)) and not isinstance(
+            exc, EpochFloorError
+        )
+
+    def _read_retry(self, fn):
+        """Run a read closure that may lazily touch SST bytes (block
+        reads happen AFTER the entry snapshot); a concurrent
+        compaction's GC can delete a file mid-read, so retry the WHOLE
+        closure against a reloaded manifest — bounded by the read
+        policy's deadline + backoff (a wedged manifest race can no
+        longer spin), with attempts visible in the retry metrics."""
+
+        def _reload(exc, attempt):
+            with self._lock:
+                self._load()
+
+        return self._read_policy.run(
+            fn,
+            op="storage.read",
+            classify=self._read_transient,
+            on_retry=_reload,
+        )
+
+    def _open_entry(self, e: dict, cache: bool):
+        r = self._sst_cache.get(e["path"])
+        if r is None:
+            if e.get("format") == "block":
+                # header crc verified eagerly; per-block crcs verify
+                # lazily as blocks load (BlockSst._load_block)
+                r = BlockSst(
+                    self.store, e["path"],
+                    expected_hdr_crc=e.get("hdr_crc"),
+                )
+            else:
+                blob = self.store.read(e["path"])
+                exp = e.get("crc")
+                if exp is not None and crc32_bytes(blob) != exp:
+                    raise_corruption(
+                        self.store, e["path"], "sst-crc", data=blob,
+                        expected=exp, actual=crc32_bytes(blob),
+                    )
+                r = read_sst(blob)
+            if cache:
+                self._sst_cache[e["path"]] = r
+        return r
+
+    def _materialized(self, e: dict, cache: bool = True):
+        r = self._open_entry(e, cache)
+        return r.materialize() if isinstance(r, BlockSst) else r
+
+    def _readers_newest_first(
+        self, table_id: str, cache: bool = True,
+        at_epoch: "Optional[int]" = None,
+    ):
+        # blob reads run OUTSIDE the lock; a compactor — this manager's
+        # off-path thread, or another node still draining after a
+        # "kill" — may GC an SST between the version snapshot and the
+        # read. Retry after RELOADING the manifest: the durable version
+        # never references GC'd files (GC runs only after the new
+        # manifest persists, compact_once). Bounded by the read
+        # policy's attempt budget (shared with _read_retry).
+        for attempt in range(self._read_policy.max_attempts):
+            with self._lock:
+                if attempt:
+                    self._load()
+                entries = list(self.version["tables"].get(table_id, []))
+            if at_epoch is not None:
+                # MVCC snapshot pin (StateStore epoch-pinned reads,
+                # store.rs read options): ignore SSTs committed after
+                # the pinned epoch — L1 files carry their newest SOURCE
+                # epoch, so a compaction never hides history newer than
+                # its inputs. Below the compaction floor the folded
+                # layer would be EXCLUDED and the read silently
+                # partial: refuse (the reference pins epochs against
+                # compaction via hummock version pinning).
+                floor = self.version.get("history_floor", {}).get(
+                    table_id, 0
+                )
+                if at_epoch < floor:
+                    raise EpochFloorError(
+                        f"epoch {at_epoch} is below {table_id!r}'s "
+                        f"compaction floor {floor}: that history has "
+                        "been folded"
+                    )
+                entries = [e for e in entries if e["epoch"] <= at_epoch]
+            out = []
+            try:
+                for e in reversed(entries):
+                    out.append(self._open_entry(e, cache))
+                return out
+            except (KeyError, FileNotFoundError, OSError, ValueError):
+                continue
+        raise RuntimeError(
+            f"SST run for {table_id!r} kept vanishing mid-read "
+            "(compaction livelock?)"
+        )
+
+    def get_rows(
+        self, table_id: str, key_cols: Dict[str, np.ndarray],
+        at_epoch: Optional[int] = None,
+    ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """MVCC-style point reads at the committed version
+        (StateStore::get, store.rs:218): per queried key, newest SST
+        containing it wins; tombstones resolve to absent. Blooms prune
+        whole SSTs per query batch — no full-table materialization.
+
+        Returns ``(found_mask, value_cols)``; value lanes are only
+        meaningful where ``found_mask``. ``at_epoch`` pins an MVCC
+        snapshot: the read sees exactly the state committed at that
+        epoch (epoch-pinned batch reads, store.rs read options) —
+        subject to compaction having not yet folded those epochs."""
+        return self._read_retry(
+            lambda: self._get_rows_once(table_id, key_cols, at_epoch)
+        )
+
+    def _get_rows_once(self, table_id, key_cols, at_epoch=None):
+        readers = self._readers_newest_first(table_id, at_epoch=at_epoch)
+        n = len(next(iter(key_cols.values()))) if key_cols else 0
+        found = np.zeros(n, bool)
+        unresolved = np.ones(n, bool)
+        values: Dict[str, np.ndarray] = {}
+        for sst in readers:
+            if not unresolved.any():
+                break
+            lanes = [np.asarray(key_cols[k]) for k in sst.meta.key_names]
+            if isinstance(sst, BlockSst):
+                # block-granular: prune by the header's key range (no
+                # IO — already resident), then at most one ~block read
+                # per query. The bloom is skipped on purpose: for a
+                # non-overlapping leveled file its bits outweigh a
+                # single block, so range + in-block binary search is
+                # strictly cheaper.
+                fr, la = sst.key_range()
+                if not fr:
+                    continue
+                qts = [
+                    _order_key(np.asarray(l)).astype(np.uint64)
+                    for l in lanes
+                ]
+                in_rng = np.ones(n, bool)
+                for qi in range(n):
+                    t = tuple(int(a[qi]) for a in qts)
+                    in_rng[qi] = fr <= t <= la
+                cand = unresolved & in_rng
+                if not cand.any():
+                    continue
+                hit, tombs, vals = sst.point_read(lanes, cand)
+                if not hit.any():
+                    continue
+                live = hit & ~tombs
+                for name, col in vals.items():
+                    if name not in values:
+                        values[name] = np.zeros(
+                            (n,) + col.shape[1:], col.dtype
+                        )
+                    values[name][live] = col[live]
+                found |= live
+                unresolved &= ~hit
+                continue
+            cand = unresolved & sst.may_contain(lanes)
+            if not cand.any():
+                continue
+            rows = sst.lookup_rows(lanes, cand)
+            hit = cand & (rows >= 0)
+            if not hit.any():
+                continue
+            live = hit & ~sst.tombstone[np.where(hit, rows, 0)]
+            for name, col in sst.values.items():
+                if name not in values:
+                    # 2D bucket lanes (join rv/deg/r_*) read back whole
+                    values[name] = np.zeros(
+                        (n,) + col.shape[1:], col.dtype
+                    )
+                values[name][live] = col[rows[live]]
+            found |= live
+            unresolved &= ~hit  # tombstone = resolved absent
+        return found, values
+
+    def scan_prefix(
+        self, table_id: str, prefix_cols: Dict[str, object],
+        at_epoch: Optional[int] = None,
+    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+        """Prefix range scan at the committed version (StateStore::iter,
+        store.rs:298): touches only rows matching the key-lane prefix in
+        each SST — and only the overlapping BLOCKS of leveled files —
+        then resolves newest-wins; the read path backfill and lookup
+        joins build on. ``at_epoch`` pins the same MVCC snapshot the
+        other read paths honor."""
+        return self.scan_range(
+            table_id, prefix_cols=prefix_cols, at_epoch=at_epoch
+        )
+
+    def scan_range(
+        self,
+        table_id: str,
+        prefix_cols: Optional[Dict[str, object]] = None,
+        range_col: Optional[str] = None,
+        lo: Optional[object] = None,
+        hi: Optional[object] = None,
+        reverse: bool = False,
+        at_epoch: Optional[int] = None,
+    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+        """Ordered range scan at the committed version (the forward /
+        backward UserIterator, src/storage/src/hummock/iterator/):
+        equality over a key-lane prefix, optional [lo, hi] bounds
+        (inclusive) on the NEXT key lane, rows returned in key order
+        (``reverse`` = backward). Leveled (block-format) files read
+        only their overlapping blocks; L0 epoch deltas mask in place;
+        newest epoch wins per key and tombstones drop."""
+        return self._read_retry(
+            lambda: self._scan_range_once(
+                table_id, prefix_cols, range_col, lo, hi, reverse,
+                at_epoch,
+            )
+        )
+
+    def _scan_range_once(
+        self, table_id, prefix_cols, range_col, lo, hi, reverse,
+        at_epoch=None,
+    ):
+        readers = self._readers_newest_first(table_id, at_epoch=at_epoch)
+        if not readers:
+            return {}, {}
+        key_names = readers[0].meta.key_names
+        value_names = readers[0].meta.value_names
+        prefix_cols = dict(prefix_cols or {})
+        for kn in prefix_cols:
+            if kn not in key_names:
+                raise KeyError(f"{kn!r} is not a key lane of {key_names}")
+        if range_col is not None and range_col not in key_names:
+            raise KeyError(
+                f"range column {range_col!r} is not a key lane"
+            )
+        # equality filters apply to ANY key-lane subset (the historical
+        # scan_prefix contract); BLOCK pruning only uses the longest
+        # LEADING run of equality lanes (+ a range on the next lane)
+        plen = 0
+        while plen < len(key_names) and key_names[plen] in prefix_cols:
+            plen += 1
+
+        k_parts: Dict[str, list] = {k: [] for k in key_names}
+        v_parts: Dict[str, list] = {v: [] for v in value_names}
+        t_parts, e_parts = [], []
+
+        def collect(blk_keys, blk_vals, blk_tomb, epoch):
+            m = np.ones(len(blk_tomb), bool)
+            for name, v in prefix_cols.items():
+                m &= blk_keys[name] == v
+            if range_col is not None:
+                lane = blk_keys[range_col]
+                if lo is not None:
+                    m &= lane >= lo
+                if hi is not None:
+                    m &= lane <= hi
+            if not m.any():
+                return
+            for k in key_names:
+                k_parts[k].append(np.asarray(blk_keys[k])[m])
+            for v in value_names:
+                v_parts[v].append(np.asarray(blk_vals[v])[m])
+            t_parts.append(np.asarray(blk_tomb)[m])
+            e_parts.append(np.full(int(m.sum()), epoch, np.int64))
+
+        # order-key bounds for block pruning in leveled files
+        def bound(extreme) -> Optional[tuple]:
+            vals = []
+            for kn in key_names:
+                if kn in prefix_cols:
+                    vals.append(prefix_cols[kn])
+                elif kn == range_col and extreme is not None:
+                    vals.append(extreme)
+                else:
+                    break
+            return tuple(vals) if vals else None
+
+        for sst in readers:
+            if isinstance(sst, BlockSst):
+                blo = bhi = None
+                if (
+                    prefix_cols or lo is not None or hi is not None
+                ) and sst.key_dtypes:
+                    # lane dtypes ride the header: whole-file pruning
+                    # costs no data IO
+                    lane_dt = dict(zip(key_names, sst.key_dtypes))
+                    lov = bound(lo)
+                    hiv = bound(hi)
+                    if lov is not None:
+                        blo = order_tuple(
+                            lov, [lane_dt[k] for k in key_names[: len(lov)]]
+                        )
+                    if hiv is not None:
+                        bhi = order_tuple(
+                            hiv, [lane_dt[k] for k in key_names[: len(hiv)]]
+                        )
+                    elif prefix_cols:
+                        pv = tuple(
+                            prefix_cols[k] for k in key_names[:plen]
+                        )
+                        bhi = order_tuple(
+                            pv, [lane_dt[k] for k in key_names[:plen]]
+                        )
+                for blk in sst.scan_blocks(blo, bhi):
+                    collect(
+                        {k: blk[f"k_{k}"] for k in key_names},
+                        {v: blk[f"v_{v}"] for v in value_names},
+                        blk["tombstone"],
+                        sst.meta.epoch,
+                    )
+            else:
+                collect(
+                    sst.keys, sst.values, sst.tombstone, sst.meta.epoch
+                )
+        if not t_parts:
+            return {k: np.zeros(0) for k in key_names}, {}
+        keys = {k: np.concatenate(p) for k, p in k_parts.items()}
+        vals = {v: np.concatenate(p) for v, p in v_parts.items()}
+        keys, vals = newest_wins(
+            keys,
+            vals,
+            np.concatenate(t_parts),
+            np.concatenate(e_parts),
+            key_names,
+        )
+        if reverse:
+            keys = {k: a[::-1] for k, a in keys.items()}
+            vals = {v: a[::-1] for v, a in vals.items()}
+        return keys, vals
+
+    def recover(self, executors: Sequence[object]) -> None:
+        """Rebuild every Checkpointable executor's device state from
+        the last committed version (recovery from max_committed_epoch,
+        barrier/recovery.rs:353).
+
+        Corruption-aware: a ``StateCorruption`` raised while reading
+        (crc/digest mismatch — the artifact is already quarantined)
+        walks the manifest history back to the NEWEST version whose
+        checksum chain deep-verifies without referencing the bad
+        artifact, adopts it, and retries — recovery lands on the newest
+        fully-verifying epoch instead of restoring a wrong byte."""
+        bad: set = set()
+        for _attempt in range(MANIFEST_KEEP + 1):
+            try:
+                self._recover_once(executors)
+                return
+            except StateCorruption as exc:
+                if exc.artifact:
+                    bad.add(exc.artifact)
+                v = self._walk_back(bad_paths=frozenset(bad), deep=True)
+                if v is None:
+                    raise  # nothing verifies: surface, never guess
+                with self._lock:
+                    self.version = v
+                    self._sst_cache.clear()
+                    self._persist_version()  # heal the pointer
+        raise RuntimeError(
+            "recovery exhausted the manifest history without finding a "
+            f"fully-verifying version (known-bad: {sorted(bad)!r})"
+        )
+
+    def _recover_once(self, executors: Sequence[object]) -> None:
+        for ex in executors:
+            if not isinstance(ex, Checkpointable):
+                continue
+            for table_id in ex.checkpoint_table_ids():
+                keys, values = self.read_table(table_id)
+                self._verify_table_digest(table_id, keys, values)
+                ex.restore_state(table_id, keys, values)
+
+    def _verify_table_digest(self, table_id, keys, values) -> None:
+        """Compare the restored row image against the epoch digest the
+        manifest captured at commit (RW_STATE_DIGEST): catches a wrong
+        byte that still crc-verifies — e.g. corruption that happened
+        BEFORE the SST build, or a crc-less legacy entry."""
+        if not digest_enabled():
+            return
+        with self._lock:
+            want = self.version.get("digests", {}).get(table_id)
+            entries = list(self.version["tables"].get(table_id, []))
+        if want is None:
+            return
+        got = host_rows_digest(keys, values)
+        if got != want:
+            artifact = entries[-1]["path"] if entries else table_id
+            raise_corruption(
+                self.store, artifact, "table-digest",
+                detail=f"table {table_id!r} row-image digest mismatch",
+                expected=want, actual=got,
+            )
+
+    # -- scrub -----------------------------------------------------------
+    def scrub(self, deep: bool = False) -> List[dict]:
+        """On-demand audit of every artifact the current manifest
+        references (plus the manifest pointer itself). Returns one row
+        per artifact — ``status`` in {ok, corrupt, unverified,
+        unavailable} — suitable for the ``rw_integrity`` system table
+        and the ``ctl scrub`` CLI. Detection quarantines + records the
+        event but NEVER raises: a scrub is reconnaissance, not a fault.
+        ``deep`` additionally parses block SSTs and verifies every
+        per-block crc (not just the whole-blob one)."""
+        with self._lock:
+            version = json.loads(json.dumps(self.version))
+        rows: List[dict] = []
+        mpath = self._manifest_path()
+        mrow = {
+            "artifact": mpath, "table_id": "", "level": -1,
+            "epoch": int(version.get("max_committed_epoch", 0)),
+            "status": "ok", "detail": "",
+        }
+        try:
+            decode_manifest(self.store.read(mpath), artifact=mpath)
+        except StateCorruption as exc:
+            exc.quarantined = quarantine(self.store, mpath)
+            note_corruption(exc)
+            mrow.update(status="corrupt", detail=str(exc))
+        except STORE_UNAVAILABLE as exc:
+            mrow.update(status="unavailable", detail=str(exc))
+        except OSError as exc:
+            mrow.update(status="unavailable", detail=str(exc))
+        rows.append(mrow)
+        for table_id in sorted(version.get("tables", {})):
+            for e in version["tables"][table_id]:
+                rows.append(self._scrub_entry(table_id, e, deep))
+        return rows
+
+    def _scrub_entry(self, table_id: str, e: dict, deep: bool) -> dict:
+        row = {
+            "artifact": e["path"], "table_id": table_id,
+            "level": int(e.get("level", 0)), "epoch": int(e["epoch"]),
+            "status": "ok", "detail": "",
+        }
+        try:
+            blob = self.store.read(e["path"])
+        except STORE_UNAVAILABLE as exc:
+            row.update(status="unavailable", detail=str(exc))
+            return row
+        except OSError as exc:
+            row.update(status="unavailable", detail=str(exc))
+            return row
+        problems: List[str] = []
+        want = e.get("crc")
+        if want is None:
+            row["status"] = "unverified"
+            row["detail"] = "no checksum recorded (pre-integrity entry)"
+        elif crc32_bytes(blob) != want:
+            problems.append(
+                f"blob crc mismatch expected={want} "
+                f"actual={crc32_bytes(blob)}"
+            )
+        if e.get("format") == "block":
+            want_h = e.get("hdr_crc")
+            if want_h is not None and header_crc(blob) != want_h:
+                problems.append("header crc mismatch")
+            if deep:
+                problems.extend(verify_block_blob(blob))
+        if problems:
+            exc = StateCorruption(
+                e["path"], "scrub", detail="; ".join(problems),
+            )
+            exc.quarantined = quarantine(self.store, e["path"], blob)
+            note_corruption(exc)
+            row.update(status="corrupt", detail="; ".join(problems))
+        return row
+
+def verify_sst_entry(store: ObjectStore, e: dict) -> bytes:
+    """Read + verify one manifest SST entry, returning the VERIFIED
+    bytes. The backup tool's chokepoint (``meta_backup``): a faithfully
+    copied corrupt SST makes the backup worthless, so verification and
+    the copy read are the same read. Raises StateCorruption (and
+    quarantines) on a wrong byte."""
+    blob = store.read(e["path"])
+    want = e.get("crc")
+    if want is not None and crc32_bytes(blob) != want:
+        raise_corruption(
+            store, e["path"], "sst-crc", data=blob,
+            expected=want, actual=crc32_bytes(blob),
+        )
+    if e.get("format") == "block":
+        want_h = e.get("hdr_crc")
+        if want_h is not None and header_crc(blob) != want_h:
+            raise_corruption(
+                store, e["path"], "sst-header-crc", data=blob,
+                expected=want_h, actual=header_crc(blob),
+            )
+        problems = verify_block_blob(blob)
+        if problems:
+            raise_corruption(
+                store, e["path"], "sst-block-crc", data=blob,
+                detail="; ".join(problems),
+            )
+    return blob

@@ -1,7 +1,7 @@
 """The port stands alone: ``risingwave_tpu_torch`` imports neither jax nor
 ``risingwave_tpu``, runs q5, q8 and q7 (with watermarks) on the CPU when
-asked to, and refuses to fall back to the CPU when CUDA is asked for but
-absent.
+asked to, commits and recovers q5 through its own storage layer, and
+refuses to fall back to the CPU when CUDA is asked for but absent.
 
 A subprocess is needed because tests/conftest.py imports jax into every
 pytest process.
@@ -34,7 +34,9 @@ for m in mods:
     importlib.import_module(m)
 for m in ("runtime.fused_step", "executors.epoch_batch", "integrity", "executors.dedup",
           "executors.hash_join", "ops.join", "queries.nexmark_q", "runtime.pipeline",
-          "executors.dynamic_filter"):
+          "executors.dynamic_filter", "storage.state_table", "storage.block_sst",
+          "storage.sstable", "storage.object_store", "resilience", "metrics", "event_log",
+          "ops.checkpoint"):
     assert "risingwave_tpu_torch." + m in mods, m
 assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
 
@@ -48,6 +50,17 @@ for _ in range(2):
     q5.pipeline.barrier()
 snap = q5.mview.snapshot()
 assert snap and all(v[0] > 0 for v in snap.values())
+
+import tempfile
+from risingwave_tpu_torch.storage import CheckpointManager, LocalFsObjectStore
+
+with tempfile.TemporaryDirectory() as d:
+    CheckpointManager(LocalFsObjectStore(d)).commit_epoch(q5.pipeline.epoch,
+                                                          q5.pipeline.executors)
+    again = build_q5_lite(capacity=1 << 10, state_cleaning=False, device="cpu")
+    CheckpointManager(LocalFsObjectStore(d)).recover(again.pipeline.executors)
+    assert again.mview.snapshot() == snap
+    assert again.agg.state_digest() == q5.agg.state_digest()
 
 from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline
 
@@ -122,7 +135,7 @@ def test_port_imports_and_runs_without_jax_and_never_falls_back_to_cpu():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     n = int(proc.stdout.split("MODULES")[1])
-    assert n >= 22  # every module of the slices was imported
+    assert n >= 31  # every module of the slices was imported
 
 
 _FORBIDDEN = re.compile(
