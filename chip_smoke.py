@@ -33,7 +33,20 @@ Phases, each printing one JSON line:
      with degrees and moved-degree marks, q5-max's MAX agg with its
      (2^14, 256) multisets, and an empty selection, with the host link's
      measured rate; then all eight join types at a small shape, the
-     card's executor against one on the CPU;
+     card's executor against one on the CPU; S, the expression kernel:
+     ``rw_project`` over a battery of 133 trees reaching every opcode
+     (arithmetic on each dtype, ``//``, ``%`` and ``/`` by zero,
+     three-valued logic, IS NULL, BETWEEN, IN, CASE, COALESCE, NULLIF,
+     CAST, TumbleStart, every EXTRACT and DATE_TRUNC field, every
+     registered function, StringFunc over the generator's channel
+     dictionary, a lifted literal) on 2^20 bid-shaped rows with NULL
+     lanes, bit for bit but transcendental functions within 4 ulp, and
+     ``rw_filter`` on agg-flush chunks with torn pairs (across a tile
+     boundary and the wraparound; 1-D, stacked and 1,000-row chunks),
+     timed on a 65,536-row bid chunk with q1's projection and q2's
+     predicate; T, the watermark filter, on 65,536-row chunks with late
+     inserts, retractions below the floor and torn pairs, mask, ops and
+     running max exact;
   4. the interpreted path: Nexmark q5 (hop -> HashAgg -> device MV)
      through ``build_q5_lite(state_cleaning=False)``, chunk by chunk,
      over 20 epochs of 1M events, its final MV held against a numpy
@@ -108,6 +121,32 @@ Phases, each printing one JSON line:
      equal at every barrier, B's MV against the oracle at the end; the
      commit's stage and SST times, rows and bytes staged, the recovery's
      read and restore seconds and the peak memory.
+  17. Nexmark q1 (``build_q1``: RowIdGen, a Project with ``0.908 *
+     price``, a device MV on ``_row_id`` holding every bid) and q2
+     (``build_q2``: a Filter ``MOD(auction, 123) = 0``, RowIdGen, an
+     all-column Project, an MV) interpreted over phase 4's chunks (run
+     after phase 16's q5 kills, while they are on the card), each MV
+     against a numpy oracle of the same rows and expressions;
+  18. q103's subquery (``build_hot_auctions``: a count per auction, a
+     HAVING filter, an MV) with ``>= 20`` and ``< 20``, each interpreted
+     and fused (one ``FusedChainExecutor`` program per barrier, the
+     filter in its mid segment, the threshold lifted), and ``>= 25``
+     fused beside them, over phase 4's chunks in lockstep: at every
+     barrier each MV against the numpy oracle of cumulative counts and
+     the fused against the interpreted; the staged digests against
+     ``host_digest``; ``>= 20`` and ``>= 25`` run one kernel-S program
+     with two parameter vectors;
+  19. RisingWave's q103 and q104 (``build_q103``/``build_q104``: an
+     auction chunk left, the bid chunks through the count agg and the
+     HAVING filter right, a left semi / anti join, an MV on id) over
+     phase 11's stream, interpreted and through ``fuse_pipeline`` (the
+     whole program refused, the per-chain fallback printed), each MV
+     against the numpy oracle at every barrier;
+  20. q7 with the SQL planner's scan shape: a ``WatermarkFilter`` at the
+     head of both sides (lag 1,000 ms) and no injected watermark calls,
+     interpreted over phase 9's stream, its MV against the q7 actor on
+     the rows the filters keep, and no table key below the last
+     generated watermark (``Q7_SCAN_EPOCHS`` of them).
 Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. Without a
@@ -4308,6 +4347,696 @@ def kill_q101(torch, dev, host, chunks):
     return kill_and_recover(torch, dev, spec)
 
 
+# -- phase 3, kernels S and T; phases 17-20: expressions and the stateless operators
+S_ROWS = 1 << 20  # the expression battery's rows
+S_GROUP = 10  # battery trees per compiled projection
+S_ULPS = 4  # transcendental tolerance: ulp of max(|x|, 1)
+Q1_Q2_MV_FLOOR = 1 << 16
+HOT_AGG_CAP = 1 << 22  # q103's subquery: about 1.2M auctions over 20M events
+HOT_MV_CAP = 1 << 22
+HOT_SHARED = 25  # a second >= threshold: shares >= 20's fused program
+Q103_CAP = 1 << 22  # agg, join sides (with Q103_FANOUT) and MV, as phases 11-12
+Q103_FANOUT = 4
+Q103_OUT_CAP = 1 << 17
+Q7_SCAN_LAG_MS = 1000  # tests/test_watermark_filter.py's lag
+Q7_SCAN_EPOCHS = EPOCHS  # the first to cut should the script near its limit
+
+
+class PathLaunches:
+    """Kernel launches per path when several paths run in lockstep: each
+    call's launches are the counts' difference across it."""
+
+    def __init__(self):
+        self.by = {}
+
+    def run(self, path: str, fn, *args):
+        from risingwave_tpu_torch import _kernels
+
+        before = dict(_kernels.LAUNCHES)
+        out = fn(*args)
+        acc = self.by.setdefault(path, {k: 0 for k in _kernels.LAUNCHES})
+        for k, v in _kernels.LAUNCHES.items():
+            acc[k] += v - before.get(k, 0)
+        return out
+
+
+def s_chunk(torch, dev, rng, n: int):
+    """Bid-shaped lanes (auction, bidder, price, channel, date_time) and
+    extra int32, int64, float64, float32, bool and timestamp lanes, with
+    seeded NULL lanes, as one StreamChunk on the card."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+
+    f = (rng.standard_normal(n) * 3).round(2)
+    f[:6] = [0.0, -0.0, 1.0, -2.5, 2.5, 0.5]
+    cols = {
+        "auction": rng.integers(1000, 1_200_000, n).astype(np.int64),
+        "bidder": rng.integers(1000, 400_000, n).astype(np.int64),
+        "price": rng.integers(1, 10**7, n).astype(np.int64),
+        "channel": rng.integers(0, 4, n).astype(np.int32),
+        "date_time": 1_436_918_400_000 + np.sort(rng.integers(0, 2 * 10**9, n)),
+        "b": rng.integers(-6, 7, n).astype(np.int32),  # zeros: division by zero
+        "c": rng.integers(-10**6, 10**6, n).astype(np.int64),
+        "f": f,
+        "g": (rng.standard_normal(n) * 2).astype(np.float32),
+        "p": rng.random(n) < 0.5,
+        "ts": rng.integers(-2_208_988_800_000, 4_102_444_800_000, n).astype(np.int64),
+    }
+    nulls = {k: rng.random(n) < 0.2 for k in ("bidder", "b", "f", "p")}
+    return StreamChunk.from_numpy(cols, n, nulls=nulls, device=dev)
+
+
+def s_battery(dictionary):
+    """(name, tree, transcendental) reaching every opcode of kernel S."""
+    from risingwave_tpu_torch.expr import expr as E
+    from risingwave_tpu_torch.expr import functions as F
+
+    col, lit, B, Fn = E.col, E.lit, E.BinOp, F.Func
+    a, bd, pr, b, c, f, g, p, ts = (col(n) for n in ("auction", "bidder", "price", "b", "c", "f",
+                                                      "g", "p", "ts"))
+    out = [
+        ("q1_price", lit(0.908) * pr, False), ("a+b", a + b, False), ("b+5", b + 5, False),
+        ("b*b*b", b * b * b * b * b * b * b * b * b * b * b * b, False), ("c*c", c * c * c * c, False),
+        ("a-c", a - c, False), ("f*g", f * g, False), ("g*0.5", g * 0.5, False),
+        ("f+1", f + 1, False), ("p+p", p + p, False), ("p*p", p * p, False),
+        ("a//b", a // b, False), ("a%b", a % b, False), ("b//2", b // 2, False),
+        ("a/b", B("/", a, b), False), ("b/b", B("/", b, b), False), ("f//g", f // g, False),
+        ("f%g", f % g, False), ("g//2.5", g // 2.5, False), ("f/f", B("/", f, f), False),
+        ("a//0", a // 0, False), ("g%b", g % b, False), ("p//p", B("//", p, p), False),
+        ("a<b", a < b, False), ("f>=g", f >= g, False), ("b==3", b == 3, False),
+        ("f!=f", f != f, False), ("g>0.5", g > 0.5, False), ("bd<=c", bd <= c, False),
+        ("and", (a > 600_000) & (b < 0), False), ("or", (bd > 200_000) | (b < 0), False),
+        ("not", E.Not(p), False), ("and_p", E.And(p, f > 0), False),
+        ("or_p", E.Or(p, E.Not(p)), False), ("and_int", E.And(b, c), False),
+        ("isnull", E.IsNull(b), False), ("notnull", E.IsNull(f, True), False),
+        ("isnull_lit", E.IsNull(lit(None)), False), ("between", E.Between(a, b, c), False),
+        ("between_f", E.Between(f, lit(-1.0), lit(1.0)), False),
+        ("in", E.InList(b, (1, 2, 3)), False), ("in_f", E.InList(f, (0.5, 2)), False),
+        ("in_empty", E.InList(a, ()), False),
+        ("case", E.Case(((b > 0, f), (b < 0, g)), lit(None)), False),
+        ("case_b", E.Case(((p, lit(1)),), b), False),
+        ("coalesce", F.Coalesce((b, c)), False), ("coalesce3", F.Coalesce((f, g, lit(0.0))), False),
+        ("nullif", F.NullIf(b, lit(3)), False), ("nullif2", F.NullIf(bd, c), False),
+        ("cast_i32", E.Cast(f * 1e9, np.int32), False), ("cast_i64", E.Cast(f, np.int64), False),
+        ("cast_f32", E.Cast(a, np.float32), False), ("cast_bool", E.Cast(b, np.bool_), False),
+        ("cast_f64_f32", E.Cast(f, np.float32), False), ("cast_nan", E.Cast(
+            B("/", f, f) * 1e300 * 1e300, np.int64), False),
+        ("tumble", E.TumbleStart(col("date_time"), 10_000), False),
+        ("tumble_b", E.TumbleStart(b, 7), False), ("assume", E.AssumeNotNull(b), False),
+        ("null", lit(None), False), ("lit_np", lit(np.int32(4)) + b, False),
+    ]
+    out += [(f"extract_{x}", F.Extract(x, ts), False) for x in (
+        "epoch", "millisecond", "second", "minute", "hour", "day", "month", "year", "dow", "doy")]
+    out += [(f"trunc_{x}", F.DateTrunc(x, ts), False) for x in (
+        "second", "minute", "hour", "day", "week", "month", "year")]
+    fns = [
+        ("abs", (c,), False), ("abs", (f,), False), ("sign", (f,), False), ("sign", (b,), False),
+        ("ceil", (f,), False), ("floor", (g,), False), ("round", (f,), False),
+        ("round", (f, lit(1)), True), ("round", (g, lit(1)), True), ("round", (a, b), False),
+        ("trunc", (f,), False), ("trunc", (f, lit(2)), True), ("mod", (a, b), False),
+        ("mod", (f, g), False), ("mod", (a, lit(123)), False), ("pow", (f, lit(2)), True),
+        ("power", (g, b), True), ("sqrt", (f,), True), ("exp", (f,), True), ("ln", (f,), True),
+        ("log10", (f,), True), ("cbrt", (f,), True), ("log2", (g,), True), ("sin", (f,), True),
+        ("cos", (f,), True), ("tan", (f,), True), ("cot", (f,), True),
+        ("asin", (B("/", f, lit(4.0)),), True), ("acos", (B("/", f, lit(4.0)),), True),
+        ("atan", (f,), True), ("sinh", (f,), True), ("cosh", (f,), True), ("tanh", (f,), True),
+        ("asinh", (f,), True), ("acosh", (f,), True), ("atanh", (B("/", f, lit(4.0)),), True),
+        ("degrees", (f,), False), ("radians", (c,), False), ("log", (g, f), True),
+        ("atan2", (f, g), True), ("hypot", (f, g), True), ("factorial", (b,), False),
+        ("gcd", (c, a), False), ("lcm", (c, b), False), ("bit_and", (a, c), False),
+        ("bit_or", (a, b), False), ("bit_xor", (c, b), False), ("bit_not", (a,), False),
+        ("bit_shift_left", (a, b * 11), False), ("bit_shift_right", (c, b * 11), False),
+        ("greatest", (a, b, f), False), ("least", (b, lit(3)), False),
+        ("greatest", (f, g), False),
+    ]
+    out += [(f"fn_{n}_{i}", Fn(n, args), t) for i, (n, args, t) in enumerate(fns)]
+    out += [(f"str_{n}", F.StringFunc(n, col("channel"), dictionary), False)
+            for n in ("upper", "lower", "length")]
+    used = {e.name for _, e, _ in out if isinstance(e, F.Func)}
+    check(used == set(F.registry_names()), "S battery: every registered function")
+    return out
+
+
+def ulp_err(torch, want, got) -> float:
+    """Largest |want - got| in ulps of max(|want|, |got|, 1); NaN and
+    infinite positions must agree (they count 0)."""
+    check(torch.equal(torch.isnan(want), torch.isnan(got)), "S: NaN positions")
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    check(torch.equal(want[~fin].nan_to_num(0.0), got[~fin].nan_to_num(0.0)),
+          "S: infinite values")
+    w, g = want[fin].double(), got[fin].double()
+    mag = torch.maximum(torch.maximum(w.abs(), g.abs()), torch.ones_like(w)).to(want.dtype)
+    ulp = (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag).double()
+    return float(((w - g).abs() / ulp).max()) if w.numel() else 0.0
+
+
+def s_compare(torch, want, got, trans: bool, what: str) -> float:
+    """One output of the kernel against the plain version: dtype, NULL
+    lane and values bit for bit (NaN equal to NaN, -0.0 to 0.0), or for
+    a transcendental function within S_ULPS. Returns the ulps seen."""
+    (wv, wn), (gv, gn) = want, got
+    check(wv.dtype == gv.dtype, f"S {what}: dtype {gv.dtype} vs {wv.dtype}")
+    check((wn is None) == (gn is None), f"S {what}: NULL lane presence")
+    if wn is not None:
+        check(torch.equal(wn, gn), f"S {what}: NULL lane")
+    if trans and wv.is_floating_point():
+        ulps = ulp_err(torch, wv, gv)
+        check(ulps <= S_ULPS, f"S {what}: {ulps} ulp")
+        return ulps
+    same = torch.equal(wv, gv) or (wv.is_floating_point() and torch.equal(
+        torch.isnan(wv), torch.isnan(gv)) and torch.equal(wv.nan_to_num(0.0), gv.nan_to_num(0.0)))
+    check(same, f"S {what}: values")
+    return 0.0
+
+
+def s_flush_chunk(torch, dev, rng, n: int, cap: int = None):
+    """An agg flush's layout: rows 2i+1, 2i+2 a U-/U+ pair of one group's
+    old and new count (pair (255, 256) across the tile boundary), plain
+    inserts and deletes among them, row cap-1 a U- whose U+ is row 0
+    (the wraparound); counts near 20, some NULL."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.types import Op
+
+    cap = cap or n
+    ops = np.zeros(n, np.int32)
+    num = rng.integers(10, 30, n).astype(np.int64)
+    for i in range(1, n - 1, 2):
+        r = rng.random()
+        if r < 0.8:
+            ops[i], ops[i + 1] = Op.UPDATE_DELETE, Op.UPDATE_INSERT
+            num[i + 1] = num[i] + 1
+        else:
+            ops[i], ops[i + 1] = (Op.DELETE, Op.INSERT) if r < 0.9 else (Op.INSERT, Op.DELETE)
+    ops[n - 1], ops[0] = Op.UPDATE_DELETE, Op.UPDATE_INSERT
+    num[0], num[n - 1] = 20, 19
+    if n > 256:
+        ops[255], ops[256] = Op.UPDATE_DELETE, Op.UPDATE_INSERT
+        num[255], num[256] = 19, 20
+    cols = {"auction": rng.integers(1000, 10**6, n).astype(np.int64), "num": num,
+            "v": rng.integers(-3, 3, n).astype(np.int32)}
+    return StreamChunk.from_numpy(cols, cap, ops=ops, nulls={"v": rng.random(n) < 0.3},
+                                  device=dev)
+
+
+def kernel_s(torch, dev, rng):
+    """S against its plain version on the card: the battery of trees over
+    2^20 bid-shaped rows in projections of S_GROUP outputs (every opcode
+    reached, a lifted program with its parameter operand too), then the
+    filter over agg-flush chunks with torn pairs (across a tile boundary
+    and the wraparound; 1-D, stacked, and 1,000-row chunks whose ends fall
+    inside tiles). Timed on the main paths' shapes: q1's projection and
+    q2's predicate on a 65,536-row bid chunk. Returns the rw_project and
+    the rw_filter rows."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk, stack_chunks
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig, NexmarkGenerator
+    from risingwave_tpu_torch.expr import expr as E
+    from risingwave_tpu_torch.expr.functions import Func
+    from risingwave_tpu_torch.ops import expr_vm
+
+    gen = NexmarkGenerator(NexmarkConfig(first_event_rate=EVENT_RATE), seed=SEED)
+    battery = s_battery(gen.dicts["channel"])
+    chunk = s_chunk(torch, dev, rng, S_ROWS)
+    ops_seen, worst_ulps, n_prog, trans_names = set(), 0.0, 0, []
+    exprs = [(n, e) for n, e, _ in battery]
+    trans = {n: t for n, _, t in battery}
+    for lo in range(0, len(exprs), S_GROUP):
+        part = exprs[lo:lo + S_GROUP]
+        got = expr_vm._project_cuda(chunk, part)
+        want = expr_vm.project_torch(chunk, part)
+        torch.cuda.synchronize()
+        prog = expr_vm.program_for(part, chunk, False)
+        ops_seen |= {ins[0] for ins in prog.insns}
+        n_prog += 1
+        for name, _ in part:
+            u = s_compare(torch, (want[0][name], want[1].get(name)),
+                          (got[0][name], got[1].get(name)), trans[name], name)
+            worst_ulps = max(worst_ulps, u)
+            if trans[name]:
+                trans_names.append(name)
+    # a lifted program reads its parameters from the operand
+    lifted = E.lift_literals((E.col("c") >= 20) & (E.col("f") < 1.5), ints := [], fl := [])
+    params = {"i": torch.tensor(ints, dtype=torch.int64, device=dev),
+              "f": torch.tensor(fl, dtype=torch.float64, device=dev)}
+    with E.param_scope(params):
+        got = expr_vm._project_cuda(chunk, (("x", lifted),))
+        want = expr_vm.project_torch(chunk, (("x", lifted),))
+        ops_seen |= {ins[0] for ins in expr_vm.program_for((("x", lifted),), chunk, False).insns}
+    s_compare(torch, (want[0]["x"], want[1].get("x")), (got[0]["x"], got[1].get("x")), False,
+              "lifted")
+    # the filter: q103's and q104's HAVING (lifted too), a NULL-bearing
+    # predicate, over 1-D, stacked and short chunks
+    flush = s_flush_chunk(torch, dev, rng, CHUNK_EVENTS)
+    short = [s_flush_chunk(torch, dev, rng, 1000) for _ in range(5)]
+    shapes = {"flush": flush, "stacked": stack_chunks([s_flush_chunk(torch, dev, rng, CHUNK_EVENTS)
+                                                        for _ in range(4)]),
+              "short_stacked": stack_chunks(short), "short": short[0]}
+    preds = {"ge20": E.col("num") >= 20, "lt20": E.col("num") < 20,
+             "null3vl": (E.col("v") > 0) | (E.col("num") > 25),
+             "lifted": E.lift_literals(E.col("num") >= 20, [], [])}
+    torn = 0
+    for sname, ch in shapes.items():
+        for pname, pred in preds.items():
+            with E.param_scope({"i": torch.tensor([20], dtype=torch.int64, device=dev),
+                                "f": torch.zeros(0, dtype=torch.float64, device=dev)}):
+                gv, go = expr_vm._filter_cuda(ch, pred)
+                wv, wo = expr_vm.filter_torch(ch, pred)
+                ops_seen |= {i[0] for i in expr_vm.program_for((("keep", pred),), ch, True).insns}
+            torch.cuda.synchronize()
+            check(torch.equal(gv, wv) and torch.equal(go, wo), f"S filter {pname} on {sname}")
+            torn += int((go != ch.ops).sum())
+    check(torn > 0, "S filter: torn pairs rewritten")
+    fv, fo = expr_vm._filter_cuda(flush, preds["ge20"])
+    check(bool(fv[0]) and int(fo[0]) == 0 and not bool(fv[CHUNK_EVENTS - 1]),
+          "S filter: the U+ of a pair across the wraparound becomes an Insert")
+    check(bool(fv[256]) and int(fo[256]) == 0 and not bool(fv[255]),
+          "S filter: the U+ of a pair across the tile boundary becomes an Insert")
+    missing = set(expr_vm.OPS) - ops_seen
+    check(not missing, f"S: opcodes never run {sorted(missing)}")
+    # times on the main paths' shapes: a 65,536-row bid chunk
+    bid = gen.next_chunks(CHUNK_EVENTS, CHUNK_EVENTS, device=dev)["bid"]
+    n = bid.capacity
+    q1_out = (("auction", E.col("auction")), ("bidder", E.col("bidder")),
+              ("price", E.lit(0.908) * E.col("price")), ("date_time", E.col("date_time")))
+    q2_pred = Func("mod", (E.col("auction"), E.lit(123))) == E.lit(0)
+    ms_p = time_ms(torch, lambda: expr_vm._project_cuda(bid, q1_out), 50)
+    plain_p = time_ms(torch, lambda: expr_vm.project_torch(bid, q1_out), 10)
+    ms_f = time_ms(torch, lambda: expr_vm._filter_cuda(bid, q2_pred), 50)
+    plain_f = time_ms(torch, lambda: expr_vm.filter_torch(bid, q2_pred), 10)
+    ms_flush = time_ms(torch, lambda: expr_vm._filter_cuda(flush, preds["ge20"]), 50)
+    ms_battery = time_ms(torch, lambda: expr_vm._project_cuda(chunk, exprs[:S_GROUP]), 5)
+    got_p = expr_vm._project_cuda(bid, q1_out)[0]["price"]
+    want_p = expr_vm.project_torch(bid, q1_out)[0]["price"]
+    err_p = float((got_p - want_p).abs().max())
+    common = {"battery": {"trees": len(exprs), "programs": n_prog, "rows": S_ROWS,
+                          "opcodes": len(ops_seen), "transcendental": trans_names,
+                          "worst_ulps": worst_ulps, "tolerance_ulps": S_ULPS,
+                          "first_program_ms": ms_battery},
+              "library_call": "none (no single PyTorch call evaluates an expression tree)"}
+    proj = {
+        "name": "S rw_project", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/expr_eval.cu (+ expr_vm.cuh)",
+        "replaces": "risingwave_tpu/executors/project.py:22 (+ expr/expr.py, expr/functions.py)",
+        "max_abs_err": err_p, "ms": ms_p, "plain_ms": plain_p,
+        # q1: the price lane read, the float64 price written
+        "bound_ms": bound_ms(n * 16), "bound_by": "bytes", "library_ms": None,
+        "shape": {"rows": n, "outputs": "q1's (one computed: 0.908 * price)"}, **common,
+    }
+    filt = {
+        "name": "S rw_filter", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/expr_eval.cu (+ expr_vm.cuh)",
+        "replaces": "risingwave_tpu/executors/filter.py:25",
+        "max_abs_err": 0.0, "ms": ms_f, "plain_ms": plain_f,
+        # auction 8, valid 1, ops 4 read; valid 1, ops 4 written
+        "bound_ms": bound_ms(n * 18), "bound_by": "bytes", "library_ms": None,
+        "shape": {"rows": n, "predicate": "q2's MOD(auction, 123) = 0",
+                  "flush_chunk_ms": ms_flush, "torn_pairs_rewritten": torn}, **common,
+    }
+    return proj, filt
+
+
+def kernel_t(torch, dev, rng):
+    """T against its plain version on the card: a 65,536-row bid chunk
+    with late inserts, retractions below the floor, U-/U+ pairs whose U+
+    falls below it (a pair across a tile boundary and one across the
+    wraparound), NULL event times; the mask, the ops and the running max
+    exactly, over a run of chunks whose floor rises."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.executors import watermark_filter as wf
+    from risingwave_tpu_torch.types import Op
+
+    n, base = CHUNK_EVENTS, 1_436_918_400_000
+    maxes = [torch.full((), wf.INT64_MIN, dtype=torch.int64, device=dev) for _ in range(2)]
+    floor, dropped, chunks = wf.INT64_MIN, 0, []
+    for step in range(4):
+        ts = base + step * 60_000 + rng.integers(-20_000, 60_000, n)
+        ops = np.where(rng.random(n) < 0.1, Op.DELETE, Op.INSERT).astype(np.int32)
+        for i in range(3, n - 1, 11):
+            ops[i], ops[i + 1] = Op.UPDATE_DELETE, Op.UPDATE_INSERT
+            ts[i + 1] = base - 10**6  # the update moves the row below the floor
+        ops[255], ops[256], ts[256] = Op.UPDATE_DELETE, Op.UPDATE_INSERT, base - 10**6
+        ops[n - 1], ops[0], ts[0] = Op.UPDATE_DELETE, Op.UPDATE_INSERT, base - 10**6
+        chunk = StreamChunk.from_numpy({"date_time": ts.astype(np.int64)}, n, ops=ops,
+                                       nulls={"date_time": rng.random(n) < 0.05}, device=dev)
+        got = wf._wm_cuda(chunk, maxes[0], "date_time", floor)
+        want = wf._wm_torch(chunk, maxes[1], "date_time", floor)
+        torch.cuda.synchronize()
+        check(torch.equal(got.valid, want.valid) and torch.equal(got.ops, want.ops),
+              f"T: mask and ops, step {step}")
+        check(int(maxes[0]) == int(maxes[1]), f"T: running max, step {step}")
+        dropped += int((chunk.valid & ~got.valid).sum())
+        if step:  # row 0's U+ lies below the floor from the second chunk on
+            check(not bool(got.valid[0]) and int(got.ops[n - 1]) == Op.DELETE,
+                  "T: a U- whose wrapped U+ dropped is a Delete")
+        floor = int(maxes[0]) - 5_000
+        chunks.append(chunk)
+    check(dropped > 0, "T: late inserts dropped")
+    chunk = chunks[-1]
+    rmax = maxes[0].clone()
+    ms = time_ms(torch, lambda: wf._wm_cuda(chunk, rmax, "date_time", floor), 50)
+    plain = time_ms(torch, lambda: wf._wm_torch(chunk, rmax, "date_time", floor), 10)
+    masked = torch.where(chunk.valid & ~chunk.nulls["date_time"], chunk.col("date_time"),
+                         torch.full_like(chunk.col("date_time"), wf.INT64_MIN))
+    lib = time_ms(torch, lambda: torch.amax(masked), 50)
+    return {
+        "name": "T watermark filter", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/wm_filter.cu",
+        "replaces": "risingwave_tpu/executors/watermark_filter.py:31",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+        # ts 8, NULL 1, valid 1, ops 4 read; valid 1, ops 4 written
+        "bound_ms": bound_ms(n * 19), "bound_by": "bytes", "library_ms": lib,
+        "library_call": "torch.amax of the masked event-time lane (the fold alone)",
+        "shape": {"rows": n, "chunks": len(chunks), "dropped_rows": dropped},
+    }
+
+
+def bid_host_rows(chunks) -> dict:
+    """The valid bid rows of phase 4's chunks, read back, with the row id
+    RowIdGen gives them (chunk index x capacity + row)."""
+    out = {k: [] for k in ("_row_id", "auction", "bidder", "price", "date_time")}
+    k = 0
+    for c in (c for ep in chunks for c in ep):
+        v = c.valid.cpu().numpy()
+        out["_row_id"].append(k * c.capacity + np.flatnonzero(v))
+        for name in ("auction", "bidder", "price", "date_time"):
+            out[name].append(c.col(name).cpu().numpy()[v])
+        k += 1
+    return {n: np.concatenate(a) for n, a in out.items()}
+
+
+def lockstep(torch, paths, epochs_data, push, launches: PathLaunches, after=None):
+    """Drive several pipelines over the same epochs: per epoch each path
+    pushes its chunks and takes its barrier, timed to the card's idle.
+    ``after(e)`` checks every barrier. Returns per path run seconds and
+    barrier ms."""
+    rec = {p: {"run_s": 0.0, "barrier_ms": []} for p in paths}
+    for e, ep in enumerate(epochs_data):
+        for p, pipe in paths.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            launches.run(p, push, pipe, ep)
+            tb = time.perf_counter()
+            launches.run(p, pipe.barrier)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rec[p]["barrier_ms"].append((t1 - tb) * 1e3)
+            rec[p]["run_s"] += t1 - t0
+        if after is not None:
+            after(e)
+    return rec
+
+
+def path_row(phase, rows, rec, **extra) -> dict:
+    return {"phase": phase, "rows": rows, "rows_per_s": rows / rec["run_s"],
+            "run_s": rec["run_s"],
+            "barrier_ms_p50": float(np.percentile(rec["barrier_ms"], 50)),
+            "barrier_ms_p99": float(np.percentile(rec["barrier_ms"], 99)), **extra}
+
+
+def q1_q2_paths(torch, dev, chunks):
+    """Phase 17: q1 and q2 interpreted over phase 4's bid chunks (RowIdGen
+    and Project, q2's Filter first), each MV against a numpy oracle of
+    the same rows and expressions."""
+    from risingwave_tpu_torch.queries.nexmark_q import Q1_RATE, Q2_MODULUS, build_q1, build_q2
+
+    host = bid_host_rows(chunks)
+    n_bids = len(host["auction"])
+    q2_rows = int((host["auction"] % Q2_MODULUS == 0).sum())
+    q1 = build_q1(capacity=state_cap(n_bids, Q1_Q2_MV_FLOOR), device=dev)
+    q2 = build_q2(capacity=state_cap(q2_rows, Q1_Q2_MV_FLOOR), device=dev)
+    launches = PathLaunches()
+
+    def push(pipe, ep):
+        for c in ep:
+            pipe.push(c)
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = lockstep(torch, {"q1": q1.pipeline, "q2": q2.pipeline}, chunks, push, launches)
+    peak = torch.cuda.max_memory_allocated()
+    got = q1.mview.to_numpy()
+    order = np.argsort(got["_row_id"])
+    check(np.array_equal(got["_row_id"][order], host["_row_id"]), "q1: row ids vs oracle")
+    for name in ("auction", "bidder", "date_time"):
+        check(np.array_equal(got[name][order], host[name]), f"q1: {name} vs oracle")
+    check(np.array_equal(got["price"][order], Q1_RATE * host["price"]),
+          "q1: 0.908 * price vs numpy, bit for bit")
+    got = q2.mview.to_numpy()
+    order = np.argsort(got["_row_id"])
+    keep = host["auction"] % Q2_MODULUS == 0
+    for name in ("_row_id", "auction", "price"):
+        check(np.array_equal(got[name][order], host[name][keep]), f"q2: {name} vs oracle")
+    for p in ("q1", "q2"):
+        check(launches.by[p]["expr_eval" if p == "q1" else "expr_filter"] > 0,
+              f"kernel S launched on {p}'s path")
+    n_chunks = sum(len(ep) for ep in chunks)
+    check(launches.by["q1"]["expr_eval"] == n_chunks, "q1: one rw_project a chunk")
+    check(launches.by["q2"]["expr_filter"] == n_chunks and launches.by["q2"]["expr_eval"] == 0,
+          "q2: one rw_filter a chunk, its all-column Project launches nothing")
+    rows = [
+        path_row("q1", n_bids, rec["q1"], mv_rows=n_bids, mv_capacity=q1.mview.table.capacity,
+                 oracle="numpy (row id, auction, bidder, 0.908 * price, date_time): equal",
+                 launches=launches.by["q1"], max_memory_allocated=int(peak)),
+        path_row("q2", n_bids, rec["q2"], mv_rows=q2_rows, mv_capacity=q2.mview.table.capacity,
+                 oracle="numpy rows with auction % 123 = 0: equal", launches=launches.by["q2"]),
+    ]
+    return rows, launches.by
+
+
+def hot_paths(torch, dev, chunks):
+    """Phase 18: q103's subquery (count per auction, HAVING, MV) with >= 20
+    and < 20, each interpreted and fused (the filter in the program's mid
+    segment, its threshold lifted), and >= 25 fused beside them (sharing
+    >= 20's kernel-S program, its own parameter vector); at every barrier
+    the fused MV equals the interpreted one and both the numpy oracle of
+    cumulative counts; the staged digests equal host_digest of the lanes
+    read back."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.ops import expr_vm
+    from risingwave_tpu_torch.queries.nexmark_q import build_hot_auctions
+    from risingwave_tpu_torch.runtime.fused_step import (
+        FusedChainExecutor,
+        fuse_pipeline,
+        fused_cache_stats,
+    )
+
+    check_sync_guard(torch, dev)
+    variants = {"ge20": (">=", 20, False), "ge20_fused": (">=", 20, True),
+                "lt20": ("<", 20, False), "lt20_fused": ("<", 20, True),
+                f"ge{HOT_SHARED}_fused": (">=", HOT_SHARED, True)}
+    stats0 = fused_cache_stats()
+    qs, wrappers = {}, {}
+    for name, (op, t, fused) in variants.items():
+        q = build_hot_auctions(t, op, capacity=HOT_AGG_CAP, mv_capacity=HOT_MV_CAP, device=dev)
+        if fused:
+            (w,) = fuse_pipeline(q.pipeline, label=name)
+            check(isinstance(w, FusedChainExecutor) and w.plan.mid is not None,
+                  f"{name}: one program, the filter in its mid segment")
+            wrappers[name] = w
+        qs[name] = q
+    host_auctions = [np.concatenate([c.col("auction").cpu().numpy()[c.valid.cpu().numpy()]
+                                     for c in ep]) for ep in chunks]
+    counts = np.zeros(int(max(a.max() for a in host_auctions)) + 1, np.int64)
+    launches = PathLaunches()
+
+    def push(pipe, ep):
+        for c in ep:
+            pipe.push(c)
+
+    def after(e):
+        counts[:] += np.bincount(host_auctions[e], minlength=len(counts))
+        ids = np.flatnonzero(counts)
+        for name, q in qs.items():
+            op, t, _ = variants[name]
+            keep = counts[ids] >= t if op == ">=" else counts[ids] < t
+            got = q.mview.to_numpy()
+            order = np.argsort(got["auction"])
+            check(np.array_equal(got["auction"][order], ids[keep])
+                  and np.array_equal(got["num"][order], counts[ids][keep]),
+                  f"{name}: MV vs cumulative counts at barrier {e}")
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = lockstep(torch, {n: q.pipeline for n, q in qs.items()}, chunks, push, launches, after)
+    peak = torch.cuda.max_memory_allocated()
+    for name, w in wrappers.items():
+        lane = state_digests(qs[name])
+        check(w.last_digests == lane, f"{name}: staged digests vs host_digest of the lanes")
+        check(w._lift_state == "on", f"{name}: threshold lifted")
+        plain = name.replace("_fused", "")
+        if plain in qs:
+            check(lane == state_digests(qs[plain]), f"{name}: digests vs the interpreted run")
+    w20, w25 = wrappers["ge20_fused"], wrappers[f"ge{HOT_SHARED}_fused"]
+    check(w20._exec_plan.mid == w25._exec_plan.mid, "ge20 and ge25: one lifted plan")
+    check(w20._params["i"].tolist() == [20] and w25._params["i"].tolist() == [HOT_SHARED],
+          "ge20 and ge25: two parameter vectors")
+    # the programs the fused plans ran: their lifted HAVING over the
+    # agg's delta signature (num: int64, no NULLs)
+    probe = StreamChunk.from_numpy({"num": np.zeros(1, np.int64)}, 1, device=dev)
+    progs = {n: expr_vm.program_for((("keep", w._exec_plan.mid.steps[0].pred.value),), probe,
+                                    True) for n, w in wrappers.items()}
+    check(progs["ge20_fused"] is progs[f"ge{HOT_SHARED}_fused"]
+          and progs["lt20_fused"] is not progs["ge20_fused"],
+          "fused runs: one kernel-S program for >= 20 and >= 25, one for < 20")
+    baked = {id(expr_vm.program_for((("keep", qs[n].having.pred),), probe, True))
+             for n, (_, _, fused) in variants.items() if not fused}
+    for name in qs:
+        kern = "expr_filter"
+        check(launches.by[name][kern] > 0, f"kernel S's filter launched on {name}'s path")
+    total = sum(len(a) for a in host_auctions)
+    stats = fused_cache_stats()
+    rows = [path_row(f"hot_{name}", total, rec[name], mv_rows=len(qs[name].mview.to_numpy()[
+        "auction"]), launches=launches.by[name]) for name in qs]
+    rows[0].update(
+        programs={"fused_plans": len(wrappers), "fused_programs": len({id(p) for p in
+                                                                         progs.values()}),
+                  "interpreted_baked": len(baked),
+                  "plans_lifted": stats["plans_lifted"] - stats0["plans_lifted"]},
+        thresholds="ge20 and ge25 fused: one compiled kernel-S program, two parameter vectors",
+        agg_capacity=HOT_AGG_CAP, mv_capacity=HOT_MV_CAP, max_memory_allocated=int(peak),
+        sync_guard="set_sync_debug_mode('error') over the program part of every fused barrier: "
+                   "held",
+        oracle="numpy cumulative counts at every barrier, fused = interpreted: equal")
+    return rows, launches.by
+
+
+def q103_paths(torch, dev, host, chunks):
+    """Phase 19: q103 and q104 over phase 11's stream (an auction chunk
+    left, the bid chunks right, per epoch), interpreted and through
+    fuse_pipeline (the reference's per-chain fallback: the refusal
+    printed); at every barrier each MV equals the numpy oracle and the
+    two paths equal each other."""
+    from risingwave_tpu_torch.queries.nexmark_q import HOT_BIDS, build_q103, build_q104
+    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline, fusion_refusals
+
+    fusion_refusals(clear=True)
+    qs, shapes = {}, {}
+    for name, build in (("q103", build_q103), ("q104", build_q104)):
+        for fused in (False, True):
+            q = build(capacity=Q103_CAP, fanout=Q103_FANOUT, out_cap=Q103_OUT_CAP,
+                      mv_capacity=Q103_CAP, device=dev)
+            key = name + ("_fused" if fused else "")
+            if fused:
+                fuse_pipeline(q.pipeline, label=key)
+                shapes[key] = [[type(e).__name__ for e in getattr(q.pipeline, a)]
+                               for a in ("left", "right", "tail")]
+                check(shapes[key] == [[], ["EpochBatchedAggExecutor", "FilterExecutor"],
+                                      ["FusedChainExecutor"]], f"{key}: the per-chain fallback")
+            qs[key] = q
+    refusals = fusion_refusals()
+    check(len(refusals) == 2 and all(r["executor"] == "FilterExecutor" for r in refusals),
+          "q103/q104: whole-pipeline fusion refused for the side's filter")
+    counts = np.zeros(int(max(max(b["auction"].max() for b in bids) for _, bids in host)) + 1,
+                      np.int64)
+    ids_so_far = []
+    launches = PathLaunches()
+
+    def push(pipe, ep):
+        a, bids = ep
+        pipe.push_left(a)
+        for b in bids:
+            pipe.push_right(b)
+
+    def after(e):
+        a, bids = host[e]
+        ids_so_far.append(a["id"])
+        for b in bids:
+            counts[:] += np.bincount(b["auction"], minlength=len(counts))
+        ids = np.unique(np.concatenate(ids_so_far))
+        n = np.where(ids < len(counts), counts[np.minimum(ids, len(counts) - 1)], 0)
+        want = {"q103": ids[n >= HOT_BIDS], "q104": ids[(n == 0) | (n >= HOT_BIDS)]}
+        for key, q in qs.items():
+            got = np.sort(q.mview.to_numpy()["id"])
+            check(np.array_equal(got, want[key.replace("_fused", "")]),
+                  f"{key}: MV ({len(got)} ids) vs the oracle at barrier {e}")
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = lockstep(torch, {k: q.pipeline for k, q in qs.items()}, chunks, push, launches, after)
+    peak = torch.cuda.max_memory_allocated()
+    rows_in = sum(len(a["id"]) + sum(len(b["auction"]) for b in bids) for a, bids in host)
+    for key in qs:
+        check(launches.by[key]["expr_filter"] > 0 and launches.by[key]["join_degree"] > 0,
+              f"kernels S and P launched on {key}'s path")
+    rows = [path_row(key, rows_in, rec[key], mv_rows=len(q.mview.to_numpy()["id"]),
+                     launches=launches.by[key], chains=shapes.get(key))
+            for key, q in qs.items()]
+    rows[0].update(refusals=refusals, agg_capacity=Q103_CAP, join=(Q103_CAP, Q103_FANOUT),
+                   mv_capacity=Q103_CAP, out_cap=Q103_OUT_CAP, max_memory_allocated=int(peak),
+                   oracle="numpy: auctions with >= 20 bids so far (q103), with none or >= 20 "
+                          "(q104), at every barrier; fallback = interpreted: equal")
+    return rows, launches.by
+
+
+def q7_scan_path(torch, dev, host, chunks):
+    """Phase 20: q7 with the planner's scan shape, a WatermarkFilter at
+    the head of both sides and no injected watermark calls, interpreted
+    (the reference refuses to fuse a side holding one) over phase 9's
+    stream; its MV against the q7 actor on the rows the filters keep;
+    after the last barrier no table holds a key below the last generated
+    watermark."""
+    from risingwave_tpu_torch import _kernels
+    from risingwave_tpu_torch.executors.watermark_filter import WatermarkFilterExecutor
+    from risingwave_tpu_torch.queries.nexmark_q import Q7_WINDOW_MS, build_q7
+
+    host, chunks = host[:Q7_SCAN_EPOCHS], chunks[:Q7_SCAN_EPOCHS]
+    q7 = build_q7(capacity=Q7_CAP, fanout=Q7_FANOUT, out_cap=Q7_OUT_CAP, agg_capacity=Q7_CAP,
+                  filter_capacity=Q7_CAP, device=dev)
+    q7.pipeline.left.insert(0, WatermarkFilterExecutor("date_time", Q7_SCAN_LAG_MS, device=dev))
+    q7.pipeline.right.insert(0, WatermarkFilterExecutor("date_time", Q7_SCAN_LAG_MS, device=dev))
+    # the rows the filters keep: inserts at or above the watermark of the
+    # last barrier (the generator's event times never fall behind it)
+    kept, floor, mx = [], None, None
+    for h_ep in host:
+        for cols in h_ep:
+            ok = np.ones(len(cols["date_time"]), bool) if floor is None else \
+                cols["date_time"] >= floor
+            kept.append({k: v[ok] for k, v in cols.items()})
+            mx = int(cols["date_time"].max()) if mx is None else max(mx, int(
+                cols["date_time"].max()))
+        floor = mx - Q7_SCAN_LAG_MS
+    oracle = q7_oracle_rows(kept, Q7_WINDOW_MS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    barrier_ms, run_s = [], 0.0
+    for c_ep in chunks:
+        t0 = time.perf_counter()
+        for c in c_ep:
+            q7.pipeline.push_left(c)
+            q7.pipeline.push_right(c)
+        tb = time.perf_counter()
+        q7.pipeline.barrier()  # the generated watermarks walk inside it
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        barrier_ms.append((t1 - tb) * 1e3)
+        run_s += t1 - t0
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    got = q7_mv_rows(q7.mview)
+    check(got.shape == oracle.shape and np.array_equal(got, oracle),
+          f"q7 scan filters: MV ({len(got)} rows) vs the q7 actor on the kept rows "
+          f"({len(oracle)} rows)")
+    n_chunks = sum(len(ep) for ep in chunks)
+    check(launches["wm_filter"] == 2 * n_chunks, "q7 scan filters: T once a chunk on each side")
+    wms = [q7.pipeline.left[0]._wm, q7.pipeline.right[0]._wm]
+    check(wms == [floor, floor], f"q7 scan filters: generated watermarks {wms} vs {floor}")
+    cutoff = floor // Q7_WINDOW_MS * Q7_WINDOW_MS  # the tumble's window watermark
+    for name, table in (("join left", q7.join.left.table), ("join right", q7.join.right.table),
+                        ("filter", q7.pipeline.left[2].table), ("agg", q7.agg.table)):
+        live = table.live
+        check(bool(live.any()), f"q7 scan filters: {name} keeps the open windows")
+        check(bool((table.keys[0][live] >= cutoff).all()),
+              f"q7 scan filters: {name} holds no key below the last generated watermark")
+    bids = sum(len(c["auction"]) for ep in host for c in ep)
+    return {
+        "phase": "q7_scan_watermark_filters", "epochs": len(chunks), "bids": bids,
+        "bids_per_s": bids / run_s, "run_s": run_s,
+        "barrier_ms_p50": float(np.percentile(barrier_ms, 50)),
+        "barrier_ms_p99": float(np.percentile(barrier_ms, 99)), "barrier_ms": barrier_ms,
+        "lag_ms": Q7_SCAN_LAG_MS, "last_watermark": floor, "kept_rows": sum(
+            len(c["auction"]) for c in kept), "mv_rows": int(len(got)),
+        "max_memory_allocated": int(peak), "launches": launches,
+        "oracle": "bench.py's cpu_actor_q7 (vectorized) on the rows the filters keep: equal; "
+                  "no table key below the last generated watermark",
+    }, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
@@ -4399,6 +5128,12 @@ def main() -> int:
     for r in r_rows:
         emit({"phase": "kernel", **r})
     torch.cuda.empty_cache()
+    s_proj_row, s_filt_row = kernel_s(torch, dev, rng)
+    emit({"phase": "kernel", **s_proj_row})
+    emit({"phase": "kernel", **s_filt_row})
+    t_row = kernel_t(torch, dev, rng)
+    emit({"phase": "kernel", **t_row})
+    torch.cuda.empty_cache()
 
     q5_row, l4, (chunks, cap, interp_q5, oracle) = main_path(torch, dev, EPOCHS)
     emit(q5_row)
@@ -4430,6 +5165,15 @@ def main() -> int:
     emit(k5_row)
     k5m_row, l16_q5m = kill_q5_max(torch, dev, chunks, cap, q5_oracle10)
     emit(k5m_row)
+    torch.cuda.empty_cache()
+    # phases 17 and 18 take phase 4's stream too
+    rows17, l17 = q1_q2_paths(torch, dev, chunks)
+    for r in rows17:
+        emit(r)
+    torch.cuda.empty_cache()
+    rows18, l18 = hot_paths(torch, dev, chunks)
+    for r in rows18:
+        emit(r)
     del chunks
     torch.cuda.empty_cache()
 
@@ -4468,6 +5212,9 @@ def main() -> int:
         emit(profile_q7(torch, dev, q7_host, q7_chunks, args.profile, fused=True))
     k7_row, l16_q7 = kill_q7(torch, dev, q7_host, q7_chunks)
     emit(k7_row)
+    torch.cuda.empty_cache()
+    row20, l20 = q7_scan_path(torch, dev, q7_host, q7_chunks)
+    emit(row20)
     del q7_host, q7_chunks, interp_rec
     torch.cuda.empty_cache()
 
@@ -4488,6 +5235,10 @@ def main() -> int:
     emit(q101_mi_row)
     k101_row, l16_q101 = kill_q101(torch, dev, h101, c101)
     emit(k101_row)
+    torch.cuda.empty_cache()
+    rows19, l19 = q103_paths(torch, dev, h101, c101)
+    for r in rows19:
+        emit(r)
     del h101, c101
     torch.cuda.empty_cache()
 
@@ -4499,13 +5250,16 @@ def main() -> int:
             (o_rows[0], "expire"), (o_rows[1], "expire_join"), (o_rows[2], "expire_agg"),
             (p_row, "join_degree"), (mo_row, "join_probe"), (li_row, "join_apply"),
             (qa_row, "minput"), (qd_row, "minput_clear"), (qe_row, "minput_rescatter"),
-            (lookup_row, "lookup")] + list(zip(r_rows, R_ENTRIES))
+            (lookup_row, "lookup")] + list(zip(r_rows, R_ENTRIES)) + [
+            (s_proj_row, "expr_eval"), (s_filt_row, "expr_filter"), (t_row, "wm_filter")]
     paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8, "q7": l9, "q7_fused": l10,
              "q101": l11, "q101_fused": l12, "q5_max": l13, "q5_max_fused": l14, **l15,
              "q5_recover": l16_q5, "q5_max_recover": l16_q5m, "q8_recover": l16_q8,
-             "q7_recover": l16_q7, "q101_recover": l16_q101}
+             "q7_recover": l16_q7, "q101_recover": l16_q101, **l17,
+             **{f"hot_{k}": v for k, v in l18.items()}, **l19, "q7_scan_watermark_filters": l20}
     for row, key in rows:
-        # each main path's run counts from zero: phases 4, 6-16
+        # each main path's run counts from zero: phases 4, 6-20 (a path
+        # of a phase that drives several in lockstep counts its own calls)
         row["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     keep = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

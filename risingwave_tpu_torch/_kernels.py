@@ -10,10 +10,13 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
-A, C, D, E, F, G, H, J, L, M, N, O, P, Q and R (an entry point may launch several
-kernels in order on the stream), two per call of B (the apply and its
-set_live), one per 24 lanes moved by a call of I; the entry points of
-``ENTRY_KEYS`` count under their own names.
+A, C, D, E, F, G, H, J, L, M, N, O, P, Q, R, S and T (an entry point may
+launch several kernels in order on the stream), two per call of B (the
+apply and its set_live), one per 24 lanes moved by a call of I; the
+entry points of ``ENTRY_KEYS`` count under their own names (S's
+``rw_project`` under ``expr_eval``, its ``rw_filter`` under
+``expr_filter``; a Project whose outputs are all bare columns launches
+nothing).
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ SOURCES = {
     "expire": "expire.cu",
     "minput": "minput.cu",
     "checkpoint": "checkpoint.cu",
+    "expr_eval": "expr_eval.cu",
+    "wm_filter": "wm_filter.cu",
 }
 
 # C entry points: (argtypes,) — every pointer and the stream as c_void_p
@@ -125,6 +130,13 @@ SIGNATURES = {
         "rw_scatter_rows": [_P, _I, _P, _L, _P],
         "rw_mark_checkpointed": [_P, _P, _L, _P, _P, _P, _L, _P],
     },
+    "expr_eval": {
+        "rw_project": [_P, _I, _L, _P, _P, _P],
+        "rw_filter": [_P, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "wm_filter": {
+        "rw_wm_step": [_L, _P, _P, _P, _P, _L, _P, _P, _P, _P],
+    },
 }
 
 # slots per block of kernel R's stage select (csrc/checkpoint.cu CK_TILE)
@@ -158,7 +170,8 @@ DTYPE_CODES = {
 # kernel O (its key-table entry counts as "expire"), or kernel Q's clear
 # and rescatter of a materialized MIN/MAX multiset (its apply counts as
 # "minput"), or kernel R's gather, mark and scatter (its stage select
-# counts as "checkpoint")
+# counts as "checkpoint"), or kernel S's filter (its projection counts
+# as "expr_eval")
 ENTRY_KEYS = {
     "rw_lookup": "lookup",
     "rw_first_occurrence": "first_occurrence",
@@ -170,6 +183,7 @@ ENTRY_KEYS = {
     "rw_gather_rows": "gather_rows",
     "rw_mark_checkpointed": "mark_checkpointed",
     "rw_scatter_rows": "scatter_rows",
+    "rw_filter": "expr_filter",
 }
 
 LAUNCHES = {name: 0 for name in (*SOURCES, *ENTRY_KEYS.values())}

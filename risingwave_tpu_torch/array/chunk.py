@@ -73,6 +73,14 @@ class DataChunk:
         """Narrow visibility (filter) without moving data."""
         return DataChunk(self.columns, self.valid & keep, self.nulls)
 
+    def with_columns(self, **cols: torch.Tensor) -> "DataChunk":
+        """Add/replace columns. Replaced columns become NON-nullable
+        (a stale null lane would send fresh values to the NULL group)."""
+        new = dict(self.columns)
+        new.update(cols)
+        nulls = {n: a for n, a in self.nulls.items() if n not in cols}
+        return DataChunk(new, self.valid, nulls)
+
     # -- host interop ---------------------------------------------------
     @staticmethod
     def from_numpy(
@@ -192,6 +200,12 @@ class StreamChunk(DataChunk):
 
     def mask(self, keep: torch.Tensor) -> "StreamChunk":
         return StreamChunk(self.columns, self.valid & keep, self.nulls, self.ops)
+
+    def with_columns(self, **cols: torch.Tensor) -> "StreamChunk":
+        new = dict(self.columns)
+        new.update(cols)
+        nulls = {n: a for n, a in self.nulls.items() if n not in cols}
+        return StreamChunk(new, self.valid, nulls, self.ops)
 
     def to_numpy(self, with_ops: bool = True) -> Dict[str, np.ndarray]:
         out = super().to_numpy()

@@ -56,8 +56,9 @@ class Executor:
         return watermark, []
 
     def emit_watermark(self):
-        """A watermark this executor generates itself, or None (no
-        executor of the port generates one yet)."""
+        """A watermark this executor generates itself, or None; the
+        pipeline polls it after every barrier (the watermark filter
+        generates one)."""
         return None
 
     def pure_step(self):

@@ -26,13 +26,24 @@ from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
 
 
 class ComposedSteps:
-    """A chunk -> chunk composition of pure steps. ``rows(C)`` is the
-    output capacity of a C-row input chunk."""
+    """A chunk -> chunk composition of pure steps with VALUE equality
+    (reference :44): two compositions of equal steps are equal, so a
+    lifted plan's segments of two parameter variants compare equal.
+    ``rows(C)`` is the output capacity of a C-row input chunk and
+    ``signature(sig)`` the output ``{column: (dtype, nullable)}`` of an
+    input signature.
 
-    __slots__ = ("steps",)
+    The reference's ``__call__`` inlines its steps under an active
+    lifted-literal scope, since a nested jit would cache the ambient
+    parameters into its jaxpr (:66-80); the port runs its steps eagerly
+    and each lifted step reads the scope when it runs, so nothing here
+    changes under a scope."""
+
+    __slots__ = ("steps", "_hash")
 
     def __init__(self, steps):
         self.steps = tuple(steps)
+        self._hash = hash(self.steps)
 
     def __call__(self, chunk: StreamChunk) -> StreamChunk:
         for f in self.steps:
@@ -43,6 +54,17 @@ class ComposedSteps:
         for f in self.steps:
             capacity = f.rows(capacity)
         return capacity
+
+    def signature(self, sig: dict) -> dict:
+        for f in self.steps:
+            sig = f.signature(sig)
+        return sig
+
+    def __hash__(self):
+        return self._hash
+
+    def __eq__(self, other):
+        return isinstance(other, ComposedSteps) and self.steps == other.steps
 
 
 def is_pure(ex: Executor) -> bool:

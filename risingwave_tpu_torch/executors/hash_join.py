@@ -243,6 +243,19 @@ class HashJoinExecutor(Executor, Checkpointable):
         else:
             self.right = side
 
+    def trace_contract(self):
+        """What fusion reads of the join (reference :430): every emission
+        chunk has ``out_cap`` rows, so a device MV fed by the join stacks
+        them into one fused program (``fuse_chain``). The analysis
+        layers' trace step is not ported (ROADMAP S8)."""
+        return {
+            "kind": "device",
+            "state": (self.left, self.right),
+            "donate": True,
+            "emission": "fixed",
+            "emission_caps": (self.out_cap,),
+        }
+
     # -- data ------------------------------------------------------------
     def apply_left(self, chunk: StreamChunk) -> List[StreamChunk]:
         return self._apply("l", chunk)

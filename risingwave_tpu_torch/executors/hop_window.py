@@ -119,6 +119,12 @@ class HopStep:
     def rows(self, capacity: int) -> int:
         return capacity * hop_factor(self.size_ms, self.slide_ms)
 
+    def signature(self, sig: dict) -> dict:
+        """Output ``{column: (dtype, nullable)}`` of an input signature."""
+        out = {n: t for n, t in sig.items() if n != self.out_start}
+        out[self.out_start] = (torch.int64, False)
+        return out
+
 
 class HopWindowExecutor(Executor):
     def __init__(

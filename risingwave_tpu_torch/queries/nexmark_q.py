@@ -1,8 +1,12 @@
 """Nexmark query pipelines.
 
 Port of ``risingwave_tpu/queries/nexmark_q.py:28-277`` (q5-lite, q7,
-q8), and q5-max, which the reference composes from its executors with
-no ``build_*`` function of its own. Reference queries:
+q8), and q5-max, q1, q2, q103, q104 and q103's subquery, which the
+reference composes from its executors with no ``build_*`` function of
+its own: each here chains the executors in the order the reference's
+SQL planner emits them (``sql/planner.py:749-942``: WatermarkFilter at
+the scan, Filter for WHERE, HashAgg, Filter for HAVING, RowIdGen for a
+pk-less source, then the Project; ``:1900-1960`` for the joins). Reference queries:
 e2e_test/nexmark/ — q5 (hot items) counts bids per auction per hop
 window (size 10 s, slide 2 s); "q5-lite" is its stateful core, the
 HashAgg stage; "q5-max" is q5's ``MaxBids`` subquery on top of it, the
@@ -10,7 +14,11 @@ top count per window. q7 (highest bid): the bids at their 10 s tumble
 window's maximum price. q8 (monitor new users): persons who
 opened auctions in the same 10 s tumble window — per-side tumble +
 DISTINCT, then an inner join on (person.id, window) =
-(auction.seller, window).
+(auction.seller, window). q1 (currency conversion) and q2 (selection)
+are the Nexmark suite's stateless queries; q103 and q104 are
+RisingWave's Nexmark extensions: the auctions with at least 20 bids so
+far (a left semi join against a HAVING count), and those without a
+count below 20 (a left anti join).
 """
 
 from __future__ import annotations
@@ -23,10 +31,15 @@ import torch
 from risingwave_tpu_torch import resolve_device
 from risingwave_tpu_torch.executors.dedup import AppendOnlyDedupExecutor
 from risingwave_tpu_torch.executors.dynamic_filter import DynamicMaxFilterExecutor
+from risingwave_tpu_torch.executors.filter import FilterExecutor
 from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
 from risingwave_tpu_torch.executors.hash_join import HashJoinExecutor
 from risingwave_tpu_torch.executors.hop_window import HopWindowExecutor
 from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
+from risingwave_tpu_torch.executors.project import ProjectExecutor
+from risingwave_tpu_torch.executors.row_id_gen import RowIdGenExecutor
+from risingwave_tpu_torch.expr.expr import BinOp, col, lit
+from risingwave_tpu_torch.expr.functions import Func
 from risingwave_tpu_torch.ops.agg import AggCall
 from risingwave_tpu_torch.runtime.pipeline import Pipeline, TwoInputPipeline
 
@@ -308,3 +321,221 @@ def build_q7(
     )
     pipeline = TwoInputPipeline(left_chain, right_chain, join, [mview])
     return Q7(pipeline, join, right_chain[1], mview)
+
+
+Q1_RATE = 0.908  # dollars -> euros
+Q2_MODULUS = 123
+HOT_BIDS = 20  # q103 / q104's HAVING threshold
+
+
+@dataclass
+class StatelessMV:
+    pipeline: Pipeline
+    mview: DeviceMaterializeExecutor
+
+
+def build_q1(capacity: int = 1 << 16, device="cuda") -> StatelessMV:
+    """Nexmark q1, currency conversion, without ``extra`` (the generator
+    has none)::
+
+      SELECT auction, bidder, 0.908 * price AS price, date_time FROM bid
+
+      bid -> RowIdGen -> Project -> MV pk=(_row_id)
+
+    The bid source has no pk, so the planner adds a hidden ``_row_id``
+    and keys the MV on it; ``price`` becomes float64 (an int64 lane
+    times a Python float). ``capacity`` sizes the MV: it holds every bid.
+    """
+    dev = resolve_device(device)
+    i64 = torch.int64
+    project = ProjectExecutor({
+        "auction": col("auction"),
+        "bidder": col("bidder"),
+        "price": lit(Q1_RATE) * col("price"),
+        "date_time": col("date_time"),
+        "_row_id": col("_row_id"),
+    })
+    mview = DeviceMaterializeExecutor(
+        pk=("_row_id",),
+        columns=("auction", "bidder", "price", "date_time"),
+        schema_dtypes={"_row_id": i64, "auction": i64, "bidder": i64,
+                       "price": torch.float64, "date_time": i64},
+        table_id="q1.mview",
+        capacity=capacity,
+        device=dev,
+    )
+    rowid = RowIdGenExecutor(table_id="q1.rowid")
+    return StatelessMV(Pipeline([rowid, project, mview]), mview)
+
+
+def build_q2(capacity: int = 1 << 16, modulus: int = Q2_MODULUS, device="cuda") -> StatelessMV:
+    """Nexmark q2, selection (nexmark-flink ``q2.sql``)::
+
+      SELECT auction, price FROM bid WHERE MOD(auction, 123) = 0
+
+      bid -> Filter -> RowIdGen -> Project -> MV pk=(_row_id)
+
+    ``MOD`` compiles to ``Func("mod")``, as the reference planner's.
+    """
+    dev = resolve_device(device)
+    i64 = torch.int64
+    where = FilterExecutor(Func("mod", (col("auction"), lit(modulus))) == lit(0))
+    project = ProjectExecutor({
+        "auction": col("auction"), "price": col("price"), "_row_id": col("_row_id"),
+    })
+    mview = DeviceMaterializeExecutor(
+        pk=("_row_id",),
+        columns=("auction", "price"),
+        schema_dtypes={"_row_id": i64, "auction": i64, "price": i64},
+        table_id="q2.mview",
+        capacity=capacity,
+        device=dev,
+    )
+    rowid = RowIdGenExecutor(table_id="q2.rowid")
+    return StatelessMV(Pipeline([where, rowid, project, mview]), mview)
+
+
+@dataclass
+class HotAuctions:
+    pipeline: Pipeline
+    agg: HashAggExecutor
+    having: FilterExecutor
+    mview: DeviceMaterializeExecutor
+
+
+def _bid_count_agg(capacity: int, table_id: str, dev) -> HashAggExecutor:
+    return HashAggExecutor(
+        group_keys=("auction",),
+        calls=(AggCall("count_star", None, "num"),),
+        schema_dtypes={"auction": torch.int64},
+        capacity=capacity,
+        table_id=table_id,
+        device=dev,
+    )
+
+
+def _having(threshold: int, op: str) -> FilterExecutor:
+    return FilterExecutor(BinOp(op, col("num"), lit(threshold)))
+
+
+def build_hot_auctions(
+    threshold: int = HOT_BIDS,
+    op: str = ">=",
+    capacity: int = 1 << 16,
+    mv_capacity: Optional[int] = None,
+    device="cuda",
+) -> HotAuctions:
+    """q103's subquery as an MV of its own::
+
+      SELECT auction, COUNT(*) AS num FROM bid GROUP BY auction
+        HAVING COUNT(*) <op> <threshold>
+
+      bid -> HashAgg COUNT(*) by auction -> Filter(HAVING) -> MV pk=(auction)
+
+    The HAVING filter reads the agg's U-/U+ stream: when a count crosses
+    the threshold, one half of its update pair passes and becomes a
+    plain Insert or Delete (the torn-pair rewrite). ``fuse_pipeline``
+    makes the three one program per barrier, the filter in its ``mid``
+    segment, with the threshold lifted into a parameter slot.
+    """
+    dev = resolve_device(device)
+    agg = _bid_count_agg(capacity, "hot.agg", dev)
+    having = _having(threshold, op)
+    mview = DeviceMaterializeExecutor(
+        pk=("auction",),
+        columns=("num",),
+        schema_dtypes={"auction": torch.int64, "num": torch.int64},
+        table_id="hot.mview",
+        capacity=mv_capacity or max(1 << 12, capacity),
+        device=dev,
+    )
+    return HotAuctions(Pipeline([agg, having, mview]), agg, having, mview)
+
+
+@dataclass
+class SemiAntiQuery:
+    pipeline: TwoInputPipeline
+    agg: HashAggExecutor
+    join: HashJoinExecutor
+    mview: DeviceMaterializeExecutor
+
+
+def _q103_like(anti: bool, threshold: int, op: str, capacity: int, agg_capacity: Optional[int],
+               fanout: int, out_cap: int, mv_capacity: Optional[int], device) -> SemiAntiQuery:
+    dev = resolve_device(device)
+    i64 = torch.int64
+    name = "q104" if anti else "q103"
+    agg = _bid_count_agg(agg_capacity or capacity, f"{name}.agg", dev)
+    join = HashJoinExecutor(
+        left_keys=("id",),
+        right_keys=("auction",),
+        left_dtypes={"id": i64},
+        right_dtypes={"auction": i64},
+        capacity=capacity,
+        fanout=fanout,
+        out_cap=out_cap,
+        join_type="left_anti" if anti else "left_semi",
+        table_id=f"{name}.join",
+        device=dev,
+    )
+    mview = DeviceMaterializeExecutor(
+        pk=("id",),
+        columns=(),
+        schema_dtypes={"id": i64},
+        table_id=f"{name}.mview",
+        capacity=mv_capacity or max(1 << 12, capacity),
+        device=dev,
+    )
+    pipeline = TwoInputPipeline([], [agg, _having(threshold, op)], join,
+                                [ProjectExecutor({"id": col("id")}), mview])
+    return SemiAntiQuery(pipeline, agg, join, mview)
+
+
+def build_q103(
+    capacity: int = 1 << 16,
+    agg_capacity: Optional[int] = None,
+    fanout: int = 4,
+    out_cap: int = 1 << 14,
+    mv_capacity: Optional[int] = None,
+    threshold: int = HOT_BIDS,
+    device="cuda",
+) -> SemiAntiQuery:
+    """RisingWave's Nexmark q103::
+
+      SELECT a.id FROM auction a WHERE a.id IN
+        (SELECT b.auction FROM bid b GROUP BY b.auction HAVING COUNT(*) >= 20)
+
+      auction (id)                                              ┐ LEFT SEMI JOIN
+      bid -> HashAgg COUNT(*) by auction -> Filter(HAVING)      ┘ id = auction
+          -> Project(id) -> MV pk=(id)
+
+    Drive with ``push_left(auction.select(["id"]))`` and
+    ``push_right(bid)``. ``fuse_pipeline`` refuses the whole-pipeline
+    program (the right side's Filter follows its HashAgg) and falls back
+    per chain, as the reference does: an epoch-batched agg and the raw
+    filter on the right, the join interpreted, the join-fed MV tail one
+    program.
+    """
+    return _q103_like(False, threshold, ">=", capacity, agg_capacity, fanout, out_cap,
+                      mv_capacity, device)
+
+
+def build_q104(
+    capacity: int = 1 << 16,
+    agg_capacity: Optional[int] = None,
+    fanout: int = 4,
+    out_cap: int = 1 << 14,
+    mv_capacity: Optional[int] = None,
+    threshold: int = HOT_BIDS,
+    device="cuda",
+) -> SemiAntiQuery:
+    """RisingWave's Nexmark q104::
+
+      SELECT a.id FROM auction a WHERE a.id NOT IN
+        (SELECT b.auction FROM bid b GROUP BY b.auction HAVING COUNT(*) < 20)
+
+    ``build_q103``'s plan with a LEFT ANTI join and the HAVING ``< 20``:
+    the MV holds the auctions with no bid yet or at least 20.
+    """
+    return _q103_like(True, threshold, "<", capacity, agg_capacity, fanout, out_cap,
+                      mv_capacity, device)

@@ -54,16 +54,24 @@ On the card the program part of ``_run`` runs under
 counterpart of the reference's ``jax.transfer_guard("disallow")``: an
 operation that waits for the device there raises.
 
-Not ported yet: literal lifting
-(``lift_plan``/``param_scope``; the port has no expressions), the
-device profiler and flight-recorder hooks (S8), the K-barrier pipeline
-depth, the ``RW_FUSED_TWO_INPUT`` switch (fusion is the call to
-``fuse_pipeline``) and join-fed MV tails in the per-chain fallback (an
-MV without an agg before it stays interpreted there).
+Literal lifting (``lift_plan``, reference :398): a single-input
+wrapper rewrites its segments' numeric literals into parameter slots
+(``expr.LiftedLit``) and, once its first data barrier proves the lifted
+plan's column types equal to the baked plan's, runs the lifted plan
+with the parameter vectors bound by ``param_scope``; kernel S then
+reads them as an operand, so plans that differ only in literal values
+run one compiled program (``fused_cache_stats``). The two-input program
+binds no parameters, as the reference's (``fused_step.py:1891``).
+
+Not ported yet: the device profiler and flight-recorder hooks (S8), the
+K-barrier pipeline depth, the ``RW_FUSED_TWO_INPUT`` and
+``RW_FUSED_LIFT`` switches (fusion is the call to ``fuse_pipeline``;
+lifting is always on), and ``defer_pure``.
 """
 
 from __future__ import annotations
 
+import dataclasses as _dc
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -92,13 +100,15 @@ from risingwave_tpu_torch.executors.hash_agg import (
 )
 from risingwave_tpu_torch.executors.hash_join import HashJoinExecutor, join_step_fn
 from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor, mv_step_fn
+from risingwave_tpu_torch.expr.expr import StaticTree, lift_literals, param_scope
 from risingwave_tpu_torch.ops import agg as agg_ops
+from risingwave_tpu_torch.ops import expr_vm
 from risingwave_tpu_torch.ops.hash_table import stage_packed
 from risingwave_tpu_torch.runtime.bucketing import flush_pad_schedule
 
 __all__ = [
     "FusedChainExecutor", "FusedTwoInputExecutor", "expand_fused", "fuse_chain",
-    "fuse_pipeline", "fuse_two_input", "fusion_refusals",
+    "fuse_pipeline", "fuse_two_input", "fused_cache_stats", "fusion_refusals", "lift_plan",
 ]
 
 _REFUSALS: List[dict] = []
@@ -169,7 +179,14 @@ def no_device_reads(device: torch.device):
         torch.cuda.set_sync_debug_mode(prev)
 
 
-def _fused_barrier_fn(states, stacked, plan: FusedPlan, pads, has_data: bool):
+def _fused_barrier_fn(states, stacked, params, plan: FusedPlan, pads, has_data: bool):
+    """The fragment's barrier with the lifted-literal parameter vectors
+    ``params`` (or None) bound for every step it runs (reference :239)."""
+    with param_scope(params):
+        return _fused_barrier_body(states, stacked, plan, pads, has_data)
+
+
+def _fused_barrier_body(states, stacked, plan: FusedPlan, pads, has_data: bool):
     """The fragment's barrier over ``states = (agg_state, mv_state)``
     (``(table, state, dropped, minput, mi_bad)`` and ``(table,
     state)``, each empty without that member), updated in place:
@@ -262,6 +279,88 @@ def _fused_barrier_fn(states, stacked, plan: FusedPlan, pads, has_data: bool):
     return (agg_st, mv_st), outs, packed
 
 
+# -- multi-tenant compile sharing: lift per-MV constants to runtime operands --
+_LIFT_STATS = {"lifted": 0, "rejected": 0}
+
+
+def _lift_step(step, ints: list, floats: list):
+    """A pure step with the numeric literals of its expression fields
+    (``StaticTree``s) lifted into parameter slots."""
+    if not _dc.is_dataclass(step):
+        return step
+    changes = {
+        f.name: StaticTree(lift_literals(getattr(step, f.name).value, ints, floats))
+        for f in _dc.fields(step) if isinstance(getattr(step, f.name), StaticTree)
+    }
+    return _dc.replace(step, **changes) if changes else step
+
+
+def lift_plan(plan: FusedPlan, device):
+    """Rewrite the plan's pure segments with numeric literals lifted into
+    parameter slots. Returns ``(lifted_plan, params)`` -- params being the
+    ``{"i": int64, "f": float64}`` tensors on ``device`` that kernel S
+    reads -- or ``(None, None)`` when the plan carries no liftable
+    constants. Two plans that differ only in literal VALUES give EQUAL
+    lifted plans, whose steps compile to one program."""
+    ints: List[int] = []
+    floats: List[float] = []
+
+    def lift_steps(cs: Optional[ComposedSteps]) -> Optional[ComposedSteps]:
+        if cs is None:
+            return None
+        return ComposedSteps([_lift_step(s, ints, floats) for s in cs.steps])
+
+    lifted = _dc.replace(plan, pre=lift_steps(plan.pre), mid=lift_steps(plan.mid),
+                         post=lift_steps(plan.post))
+    if not ints and not floats:
+        return None, None
+    params = {
+        "i": torch.tensor(ints, dtype=torch.int64, device=device),
+        "f": torch.tensor(floats, dtype=torch.float64, device=device),
+    }
+    return lifted, params
+
+
+def fused_cache_stats() -> dict:
+    """The compile-sharing evidence: how many distinct kernel-S programs
+    the process compiled, and how many wrappers lifted their constants
+    into a shared shape (or were refused the lift)."""
+    return {
+        "compiled_programs": expr_vm.cache_stats()["programs"],
+        "plans_lifted": _LIFT_STATS["lifted"],
+        "plans_lift_rejected": _LIFT_STATS["rejected"],
+    }
+
+
+def _chunk_sig(chunk: StreamChunk) -> dict:
+    return {n: (a.dtype, n in chunk.nulls) for n, a in chunk.columns.items()}
+
+
+def _delta_sig(agg: HashAggExecutor) -> dict:
+    """The column signature of the agg's flush deltas (``delta_to_chunk``)."""
+    sig = {k: (agg._dtypes[k], nb) for k, nb in zip(agg.group_keys, agg.nullable)}
+    fx = dict(agg._float_extremes)
+    for c in agg.calls:
+        sig[c.output] = (fx.get(c.output, agg.state.accums[c.output].dtype),
+                         c.output in agg.state.nonnull)
+    return sig
+
+
+def _plan_signatures(plan: FusedPlan, in_sig: dict, agg) -> list:
+    """The column signature after each of the plan's segments."""
+    out, sig = [], in_sig
+    if plan.pre is not None:
+        sig = plan.pre.signature(sig)
+        out.append(sig)
+    if agg is not None:
+        sig = _delta_sig(agg)
+    for seg in (plan.mid, plan.post):
+        if seg is not None:
+            sig = seg.signature(sig)
+            out.append(sig)
+    return out
+
+
 class FusedChainExecutor(Executor):
     """One fusible run ``[pure*, HashAgg?, pure*, DeviceMaterialize?,
     pure*]`` run as one program per barrier. ``apply`` buffers (a
@@ -314,10 +413,41 @@ class FusedChainExecutor(Executor):
             mv_cols=self.mv.columns if self.mv is not None else None,
             post=steps(post),
         )
+        # literals lifted to runtime operands, accepted only after the
+        # first data barrier proves the lifted plan's column types equal
+        # to the baked plan's (a weak literal promotes otherwise than its
+        # strong int64/float64 slot; correctness beats sharing)
+        self._exec_plan, self._params = self.plan, None
+        self._lift_state = "off"
+        member = self.agg if self.agg is not None else self.mv
+        lifted, params = lift_plan(self.plan, member.table.device)
+        if lifted is not None:
+            self._lift_candidate = (lifted, params)
+            self._lift_state = "pending"
         self._buf: List[StreamChunk] = []
         self._sig = None
         self.last_digests: dict = {}
         self.last_telemetry: dict = {}
+
+    def _prove_lift(self, stacked: StreamChunk) -> None:
+        """Accept the lifted plan only when every segment's output column
+        types equal the baked plan's over this input signature (the
+        reference's ``eval_shape`` comparison, :727); else keep the
+        baked plan for good."""
+        lifted, params = self._lift_candidate
+        try:
+            sig = _chunk_sig(stacked)
+            ok = _plan_signatures(self.plan, sig, self.agg) == _plan_signatures(
+                lifted, sig, self.agg)
+        except Exception:  # noqa: BLE001 -- any surprise keeps the baked plan
+            ok = False
+        if ok:
+            self._exec_plan, self._params = lifted, params
+            self._lift_state = "on"
+            _LIFT_STATS["lifted"] += 1
+        else:
+            self._lift_state = "off"
+            _LIFT_STATS["rejected"] += 1
 
     # -- data path --------------------------------------------------------
     def apply(self, chunk: StreamChunk) -> List[StreamChunk]:
@@ -412,9 +542,11 @@ class FusedChainExecutor(Executor):
             return []  # nothing to run, nothing to stage
         states = (self._agg_state(), self._mv_state())
         member = self.agg if self.agg is not None else self.mv
+        if self._lift_state == "pending" and has_data:
+            self._prove_lift(stacked)
         with no_device_reads(member.table.device):
             (agg_st, mv_st), outs, packed = _fused_barrier_fn(
-                states, stacked, self.plan, pads, has_data
+                states, stacked, self._params, self._exec_plan, pads, has_data
             )
             if self.agg is not None:
                 (self.agg.table, self.agg.state, self.agg.dropped, self.agg.minput,
@@ -439,15 +571,27 @@ class FusedChainExecutor(Executor):
         return (self.mv.table, self.mv.state)
 
 
-def fuse_chain(chain: Sequence[Executor], label: str = "fragment") -> List[Executor]:
+def fuse_chain(chain: Sequence[Executor], label: str = "fragment",
+               upstream: Optional[Executor] = None) -> List[Executor]:
     """Rewrite every maximal fusible run of an actor chain: a run with a
     device MV after its agg becomes a FusedChainExecutor; an agg without
     one becomes an EpochBatchedAggExecutor over ``[pure*, agg]`` (its
     flush leaves the run to an interpreted consumer, which wants the
     interpreted flush's exact slices), with the run's tail passed
-    through; everything else stays interpreted."""
+    through; a device MV without an agg (a join-fed tail) fuses iff its
+    feeder -- the nearest unfused executor upstream in the chain, or
+    ``upstream`` for the chain's head -- declares a closed emission shape
+    family ("fixed" or "bucketed" in its ``trace_contract``), else the
+    refusal is recorded; everything else stays interpreted (reference
+    :2165)."""
     out: List[Executor] = []
     run: List[Executor] = []
+    feeder = upstream
+
+    def feeder_emission() -> str:
+        fn = getattr(feeder, "trace_contract", None)
+        contract = fn() if fn is not None else None
+        return "unknown" if contract is None else contract.get("emission", "unknown")
 
     def close() -> None:
         nonlocal run
@@ -457,11 +601,22 @@ def fuse_chain(chain: Sequence[Executor], label: str = "fragment") -> List[Execu
         has_mv_after_agg = agg_idx is not None and any(
             type(m) is DeviceMaterializeExecutor for m in run[agg_idx:]
         )
+        has_mv = any(type(m) is DeviceMaterializeExecutor for m in run)
         if has_mv_after_agg:
             out.append(FusedChainExecutor(run, label=label))
         elif agg_idx is not None:
             out.append(EpochBatchedAggExecutor(run[:agg_idx], run[agg_idx]))
             out.extend(run[agg_idx + 1:])
+        elif has_mv:
+            em = feeder_emission()
+            if em in ("fixed", "bucketed"):
+                out.append(FusedChainExecutor(run, label=label))
+            else:
+                _refuse(label, "join-fed MV tail left interpreted: feeder emission shape "
+                        f"family is {em!r}, not a closed fixed/bucketed lattice (stacking "
+                        "would mint one program per distinct batch shape)",
+                        type(feeder).__name__ if feeder is not None else None)
+                out.extend(run)
         else:
             out.extend(run)
         run = []
@@ -480,6 +635,7 @@ def fuse_chain(chain: Sequence[Executor], label: str = "fragment") -> List[Execu
         else:
             close()
             out.append(ex)
+            feeder = ex
     close()
     if (
         len(out) == 1
@@ -857,7 +1013,9 @@ class FusedTwoInputExecutor(Executor):
             em_rows = em_chunks * self.plan.j_out_cap
             if em_rows:
                 self.mv._maybe_grow(em_rows)
-        with no_device_reads(join.left.device):
+        # the two-input program binds no lifted parameters, as the
+        # reference's (it passes params=None, fused_step.py:1891)
+        with no_device_reads(join.left.device), param_scope(None):
             outs, packed = _fused_two_input_body(self, left_batches, right_batches, pads)
             if stage:
                 self._staged_scalars = stage_packed(packed)
@@ -958,7 +1116,8 @@ def fuse_pipeline(pipeline, label: str = "mv") -> List[Executor]:
     A two-input pipeline fuses whole (``fuse_two_input``: one program
     per barrier on ``pipeline._fused``, the chains left as they are);
     when that is refused, each of its chains falls back to the
-    per-chain policy. A serial pipeline's ``executors`` then lists the
+    per-chain policy, the join passed as the tail's upstream (so a
+    join-fed MV tail still fuses). A serial pipeline's ``executors`` then lists the
     wrappers, not the members (``expand_fused`` gives the members
     back)."""
     if hasattr(pipeline, "join") and hasattr(pipeline, "left"):
@@ -968,7 +1127,8 @@ def fuse_pipeline(pipeline, label: str = "mv") -> List[Executor]:
             return [w]
         created: List[Executor] = []
         for attr in ("left", "right", "tail"):
-            chain = fuse_chain(getattr(pipeline, attr), f"{label}/{attr}")
+            upstream = pipeline.join if attr == "tail" else None
+            chain = fuse_chain(getattr(pipeline, attr), f"{label}/{attr}", upstream)
             setattr(pipeline, attr, chain)
             created += [e for e in chain if isinstance(e, FusedChainExecutor)]
         return created

@@ -2,8 +2,8 @@
 
 Port of ``risingwave_tpu/runtime/pipeline.py:79-208`` (``walk_chain``,
 ``Pipeline``) and :228-410 (``TwoInputPipeline``, with its ``_fused``
-overlay) without the profiler, signature watch, transfer guard and
-freshness tracking. Reference: the actor's executor chain
+overlay and its executor-generated watermarks) without the profiler,
+signature watch, transfer guard and freshness tracking. Reference: the actor's executor chain
 (src/stream/src/executor/mod.rs:180) and barrier flow-through
 (src/stream/src/task/barrier_manager.rs:634): a barrier flushes each
 executor in turn, and a flush's output is data for the rest of the
@@ -67,14 +67,20 @@ class Pipeline:
 
     def barrier(self, checkpoint: bool = True) -> List[StreamChunk]:
         """Inject a barrier; each executor's flush output becomes data
-        for the rest of the chain. Every executor's staged barrier
-        scalars are read after the walk, so their checks raise before
-        the barrier returns."""
+        for the rest of the chain. A watermark an executor generates
+        (``emit_watermark``, the watermark filter) then walks the rest of
+        the chain. Every executor's staged barrier scalars are read after
+        the walk, so their checks raise before the barrier returns."""
         prev = self._epoch
         self._epoch = _epoch_after(prev)
         pending = walk_chain(
             self.executors, [], barrier=Barrier(Epoch(prev, self._epoch), checkpoint)
         )
+        for i, ex in enumerate(self.executors):
+            wm = ex.emit_watermark()
+            if wm is not None:
+                _, outs = _walk_watermark(self.executors[i + 1:], wm)
+                pending.extend(outs)
         for ex in self.executors:
             ex.finish_barrier()
         return pending
@@ -139,6 +145,7 @@ class TwoInputPipeline:
         b = Barrier(Epoch(prev, self._epoch), checkpoint)
         if self._fused is not None:
             outs = self._fused.on_barrier(b)
+            outs.extend(self._generated_watermarks())
             self._fused.finish_barrier()
             return outs
         joined: List[StreamChunk] = []
@@ -147,8 +154,39 @@ class TwoInputPipeline:
                 joined.extend(feed(c))
         joined.extend(self.join.on_barrier(b))
         outs = walk_chain(self.tail, joined, barrier=b)
+        outs.extend(self._generated_watermarks())
         for ex in self.executors:
             ex.finish_barrier()
+        return outs
+
+    def _generated_watermarks(self) -> List[StreamChunk]:
+        """Poll ``emit_watermark`` on every executor: a side-chain
+        watermark walks the rest of its chain, through the join's
+        alignment, then the tail (the route an injected one takes);
+        a tail executor's walks the rest of the tail."""
+        outs: List[StreamChunk] = []
+        aligned: Optional[Watermark] = None
+        for chain, feed in self._sides():
+            for i, ex in enumerate(chain):
+                wm = ex.emit_watermark()
+                if wm is None:
+                    continue
+                wm, pending = _walk_watermark(chain[i + 1:], wm)
+                for c in pending:
+                    outs.extend(feed(c))
+                if wm is not None:
+                    down, flushed = self.join.on_watermark(wm)
+                    outs.extend(flushed)
+                    if down is not None:
+                        aligned = down
+        outs = walk_chain(self.tail, outs)
+        _, tail_outs = _walk_watermark(self.tail, aligned)
+        outs.extend(tail_outs)
+        for i, ex in enumerate(self.tail):
+            wm = ex.emit_watermark()
+            if wm is not None:
+                _, touts = _walk_watermark(self.tail[i + 1:], wm)
+                outs.extend(touts)
         return outs
 
     def watermark(self, column: str, value: int) -> List[StreamChunk]:

@@ -36,7 +36,9 @@ for m in ("runtime.fused_step", "executors.epoch_batch", "integrity", "executors
           "executors.hash_join", "ops.join", "queries.nexmark_q", "runtime.pipeline",
           "executors.dynamic_filter", "storage.state_table", "storage.block_sst",
           "storage.sstable", "storage.object_store", "resilience", "metrics", "event_log",
-          "ops.checkpoint"):
+          "ops.checkpoint", "expr.expr", "expr.functions", "expr.dtypes", "ops.expr_vm",
+          "executors.filter", "executors.project", "executors.watermark_filter",
+          "executors.row_id_gen"):
     assert "risingwave_tpu_torch." + m in mods, m
 assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
 

@@ -164,8 +164,10 @@ def test_q8_fused_equals_interpreted():
 def test_two_input_fallback_twin():
     """Mirror of test_fused_step.py's fallback twin: a tail the program
     cannot absorb (a second device MV) refuses whole-pipeline fusion
-    (recorded), each chain falls back to the per-chain policy (nothing
-    there fuses), and the result equals the interpreted run."""
+    (recorded), each chain falls back to the per-chain policy (the
+    join-fed MV tail fuses, each device MV one program, as the
+    reference's ``fuse_chain`` rewrites it), and the result equals the
+    interpreted run."""
     def build():
         q8 = build_q8(capacity=1 << 12, out_cap=1 << 11, device="cpu")
         twin_mv = DeviceMaterializeExecutor(
@@ -178,7 +180,8 @@ def test_two_input_fallback_twin():
     fusion_refusals(clear=True)
     twin, twin_mv, _ = build()
     pipe, mv, mv2 = build()
-    assert fuse_pipeline(pipe, label="q8") == []
+    created = fuse_pipeline(pipe, label="q8")
+    assert [w.members for w in created] == [[mv], [mv2]]
     assert pipe._fused is None
     (rec,) = fusion_refusals()
     assert rec["executor"] == "DeviceMaterializeExecutor" and rec["code"] == "RW-E807"
@@ -188,7 +191,7 @@ def test_two_input_fallback_twin():
         twin.barrier()
         pipe.barrier()
         assert mv.snapshot() == twin_mv.snapshot() == mv2.snapshot()
-    assert expand_fused(pipe.executors) == pipe.executors
+    assert expand_fused(pipe.executors) == pipe.left + pipe.right + [pipe.join, mv, mv2]
 
 
 def test_two_input_overflow_latch_raises_at_finish():

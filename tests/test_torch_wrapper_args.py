@@ -1,4 +1,4 @@
-"""The CUDA wrappers of kernels H, J, L, M, N, O, P and Q marshal their arguments as
+"""The CUDA wrappers of kernels H, J, L, M, N, O, P, Q, S and T marshal their arguments as
 their C entry points declare them (``_kernels.SIGNATURES``), checked on
 the CPU: each wrapper runs on CPU tensors while ``_kernels.call`` is
 replaced by a ``ctypes.CFUNCTYPE`` callback of the entry point's
@@ -220,3 +220,97 @@ def test_q_entries_marshal(calls):
         ("minput", "rw_minput_clear"), ("minput", "rw_minput_rescatter")]
     assert _kernels.LAUNCHES["minput"] == 3 and _kernels.LAUNCHES["minput_clear"] == 1
     assert _kernels.LAUNCHES["minput_rescatter"] == 1
+
+
+def test_s_entries_marshal(calls):
+    """Kernel S: a projection with computed outputs is one rw_project, a
+    bare column launches nothing, a filter is one rw_filter (counted as
+    expr_filter); a lifted literal needs the parameter operand; a dtype
+    the kernel does not take raises, and nothing falls back."""
+    from risingwave_tpu_torch.expr.expr import col, lift_literals, lit, param_scope
+    from risingwave_tpu_torch.expr.functions import Func
+    from risingwave_tpu_torch.ops import expr_vm
+
+    n = 16
+    chunk = StreamChunk.from_numpy(
+        {"a": torch.arange(n).numpy(), "b": torch.arange(n, dtype=torch.int32).numpy()}, n,
+        nulls={"b": (torch.arange(n) % 3 == 0).numpy()}, device="cpu")
+    cols, nulls = expr_vm._project_cuda(chunk, (("x", col("a") * 0.5 + col("b")), ("a", col("a")),
+                                                ("y", Func("mod", (col("a"), lit(3))))))
+    assert cols["a"] is chunk.col("a") and cols["x"].dtype == torch.float64
+    assert set(nulls) == {"x", "y"}
+    assert expr_vm._project_cuda(chunk, (("a", col("a")),))[0]["a"] is chunk.col("a")
+    valid, ops = expr_vm._filter_cuda(chunk, col("b") > 3)
+    assert valid.shape == (n,) and ops.dtype == torch.int32
+    lifted = lift_literals(col("a") >= 5, ints := [], [])
+    with pytest.raises(RuntimeError, match="param_scope"):
+        expr_vm._filter_cuda(chunk, lifted)
+    with param_scope({"i": torch.tensor(ints), "f": torch.zeros(0, dtype=torch.float64)}):
+        expr_vm._filter_cuda(chunk, lifted)
+    assert calls == [("expr_eval", "rw_project"), ("expr_eval", "rw_filter"),
+                     ("expr_eval", "rw_filter")]
+    assert _kernels.LAUNCHES["expr_eval"] == 1 and _kernels.LAUNCHES["expr_filter"] == 2
+    odd = StreamChunk.from_numpy({"s": torch.arange(n, dtype=torch.int16).numpy()}, n,
+                                 device="cpu")
+    with pytest.raises(NotImplementedError, match="kernel S"):
+        expr_vm._project_cuda(odd, (("t", col("s") + 1),))
+
+
+def test_s_descriptor_matches_the_header():
+    """The opcode numbers and limits of ops/expr_vm.py are those of
+    csrc/expr_vm.cuh, and a packed descriptor has the length rw_project's
+    parser checks."""
+    import re
+    from pathlib import Path
+
+    from risingwave_tpu_torch.expr.expr import col
+    from risingwave_tpu_torch.ops import expr_vm
+
+    text = (Path(_kernels.CSRC) / "expr_vm.cuh").read_text()
+    enum = dict(re.findall(r"VM_([A-Z0-9_]+) = (\d+)", text))
+    assert {k.lower(): int(v) for k, v in enum.items()} == {
+        n: d.code for n, d in expr_vm.OPS.items()}
+    for name in ("INSN", "REGS", "IN", "OUT", "LITS"):
+        got = re.search(rf"#define VM_MAX_{name} (\d+)", text).group(1)
+        assert int(got) == getattr(expr_vm, f"VM_MAX_{name}"), name
+    chunk = StreamChunk.from_numpy({"a": torch.arange(4).numpy()}, 4, device="cpu")
+    prog = expr_vm.program_for((("x", col("a") * 3 + 1), ("y", col("a") > 2)), chunk, False)
+    outs = [(torch.empty(4, dtype=dt), None) for _, dt, _, _ in prog.outputs]
+    desc = expr_vm.pack_program(prog, expr_vm._input_lanes(prog, chunk), outs)
+    assert len(desc) == 5 + 4 * len(prog.insns) + 3 * len(prog.inputs) + 3 * 2 + len(prog.lits)
+
+
+def test_t_entry_marshals(calls):
+    from risingwave_tpu_torch.executors import watermark_filter as wf
+
+    n = 8
+    chunk = StreamChunk.from_numpy({"ts": torch.arange(n).numpy() * 10}, n,
+                                   ops=[0, 2, 3, 0, 1, 0, 2, 3], device="cpu")
+    rmax = torch.full((), wf.INT64_MIN, dtype=torch.int64)
+    out = wf._wm_cuda(chunk, rmax, "ts", 25)
+    assert out.valid.shape == (n,) and out.ops.dtype == torch.int32
+    with pytest.raises(TypeError, match="int64"):
+        wf._wm_cuda(StreamChunk.from_numpy({"ts": torch.arange(n, dtype=torch.int32).numpy()},
+                                           n, device="cpu"), rmax, "ts", 0)
+    assert calls == [("wm_filter", "rw_wm_step")] and _kernels.LAUNCHES["wm_filter"] == 1
+
+
+def test_s_entries_reuse_the_callers_tree(calls):
+    """The executors pass their StaticTree: the program is looked up by
+    its memoized key, giving the same program as a lookup by value."""
+    from risingwave_tpu_torch.expr.expr import StaticTree, col
+    from risingwave_tpu_torch.ops import expr_vm
+
+    n = 8
+    chunk = StreamChunk.from_numpy({"a": torch.arange(n).numpy()}, n, device="cpu")
+    outs = (("x", col("a") * 2), ("a", col("a")))
+    tree = StaticTree(outs)
+    for _ in range(2):
+        cols, _ = expr_vm._project_cuda(chunk, outs, tree)
+    assert cols["a"] is chunk.col("a") and "computed" in tree._memo
+    assert expr_vm.program_for(tree._memo["computed"].value, chunk, False) is \
+        expr_vm.program_for((("x", col("a") * 2),), chunk, False)
+    ptree = StaticTree(col("a") > 1)
+    expr_vm._filter_cuda(chunk, ptree.value, ptree)
+    assert "keep" in ptree._memo
+    assert calls == [("expr_eval", "rw_project")] * 2 + [("expr_eval", "rw_filter")]
