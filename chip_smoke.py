@@ -4069,7 +4069,8 @@ def packed_side_digest(side) -> int:
 
 def device_digests(pipeline) -> dict:
     """Kernel H's digest of every Checkpointable executor's state (a join
-    per side), by table id; join sides also as their packed digest."""
+    per side; an executor with host state, its host digest), by table
+    id."""
     from risingwave_tpu_torch import integrity
     from risingwave_tpu_torch.runtime.fused_step import expand_fused
 
@@ -4081,6 +4082,8 @@ def device_digests(pipeline) -> dict:
             for tid, side in zip(ex.checkpoint_table_ids(), (ex.left, ex.right)):
                 out[tid] = integrity.digest_from_scalar(
                     integrity.device_digest(*integrity.join_side_lanes(side)))
+        elif not hasattr(ex, "digest_lanes"):  # host state (RowIdGen's counter)
+            out[ex.table_id] = ex.state_digest()
         else:
             out[ex.table_id] = integrity.digest_from_scalar(
                 integrity.device_digest(*ex.digest_lanes()))
@@ -4623,13 +4626,25 @@ def kernel_s(torch, dev, rng):
     plain_f = time_ms(torch, lambda: expr_vm.filter_torch(bid, q2_pred), 10)
     ms_flush = time_ms(torch, lambda: expr_vm._filter_cuda(flush, preds["ge20"]), 50)
     ms_battery = time_ms(torch, lambda: expr_vm._project_cuda(chunk, exprs[:S_GROUP]), 5)
+    # the first battery program's bytes: each input lane (and its NULL
+    # lane) and the valid lane read once, each output (and its NULL lane)
+    # written once
+    first = exprs[:S_GROUP]
+    first_cols, first_nulls = expr_vm._project_cuda(chunk, first)
+    prog = expr_vm.program_for(first, chunk, False)
+    in_bytes = sum(chunk.col(c).element_size() + int(nullable) for c, _, nullable in prog.inputs)
+    out_bytes = sum(first_cols[name].element_size() + int(first_nulls.get(name) is not None)
+                    for name, _ in first)
+    first_bound = bound_ms(S_ROWS * (1 + in_bytes + out_bytes))
     got_p = expr_vm._project_cuda(bid, q1_out)[0]["price"]
     want_p = expr_vm.project_torch(bid, q1_out)[0]["price"]
     err_p = float((got_p - want_p).abs().max())
     common = {"battery": {"trees": len(exprs), "programs": n_prog, "rows": S_ROWS,
                           "opcodes": len(ops_seen), "transcendental": trans_names,
                           "worst_ulps": worst_ulps, "tolerance_ulps": S_ULPS,
-                          "first_program_ms": ms_battery},
+                          "first_program_ms": ms_battery,
+                          "first_program_bound_ms": first_bound,
+                          "first_program_bytes_per_row": 1 + in_bytes + out_bytes},
               "library_call": "none (no single PyTorch call evaluates an expression tree)"}
     proj = {
         "name": "S rw_project", "route": "cuda",
@@ -5037,6 +5052,613 @@ def q7_scan_path(torch, dev, host, chunks):
     }, launches
 
 
+# -- phase 3, kernels U, V, W, X; phases 21-23: TopN (q19, q19-ao, q105) ----------
+# q19 (phases 21-22) over phase 4's stream: the retractable store holds every
+# bid (18.4M rows over 20M events: state_cap gives 2^26 slots); the
+# append-only auction table holds about 1.2M auctions (bands of 2^22 x 10),
+# and out_cap 2^17 covers a 65,536-row chunk's leavers and entrants; the
+# MVs hold each auction's top 10 (and the tombstones of rows pushed out)
+Q19_CAP = 1 << 26
+Q19AO_CAP = 1 << 22
+Q19AO_OUT_CAP = 1 << 17
+Q19_MV_CAP = 1 << 24
+Q19_CHECKS = (4, 12, EPOCHS - 1)  # barriers held against the numpy oracle
+Q19_COLS = ("_row_id", "auction", "bidder", "price", "channel", "date_time")
+Q19_PRICE_BITS = 27  # prices stay below 2^27 (round(10^6 * 100) at most)
+# q105 (phase 23) over phase 11's stream at its sizes: agg 2^22, join sides
+# (2^22, 4), out_cap 2^17, a TopN store of 2^22
+Q105_CAP = 1 << 22
+Q105_FANOUT = 4
+Q105_OUT_CAP = 1 << 17
+W_LIVE = 1_200_000  # kernel W's store: q105's auctions
+W_TIED = 5_000  # rows tied at the 1,000th count
+TOPN_KERNELS = {  # what each path's run must launch
+    "q19": ("lookup_or_insert", "topn_upsert", "group_topk", "checkpoint", "gather_rows",
+            "mv_upsert"),
+    "q19_ao": ("lookup_or_insert", "first_occurrence", "topn_band", "mv_upsert"),
+    "q105": ("lookup_or_insert", "topn_upsert", "topn_rank", "gather_rows", "join_probe",
+             "mv_upsert"),
+}
+
+
+def q19_host(chunks) -> list:
+    """Per epoch, the valid bid rows of phase 4's chunks read back, with
+    the row id RowIdGen gives them (chunk index x capacity + row)."""
+    out, k = [], 0
+    for ep in chunks:
+        parts = []
+        for c in ep:
+            v = c.valid.cpu().numpy()
+            d = {"_row_id": k * c.capacity + np.flatnonzero(v)}
+            for name in Q19_COLS[1:]:
+                d[name] = c.col(name).cpu().numpy()[v].astype(np.int64)
+            parts.append(d)
+            k += 1
+        out.append({n: np.concatenate([p[n] for p in parts]) for n in Q19_COLS})
+    return out
+
+
+def q19_top(rows: dict) -> dict:
+    """q19's relation: per auction the 10 bids of highest price, a tie
+    to the lower row id (the earlier bid)."""
+    check(int(rows["price"].max(initial=0)) < 1 << Q19_PRICE_BITS and
+          int(rows["price"].min(initial=0)) >= 0, "q19 oracle: prices fit the packed key")
+    key = (rows["auction"] << Q19_PRICE_BITS) | ((1 << Q19_PRICE_BITS) - 1 - rows["price"])
+    order = np.lexsort((rows["_row_id"], key))
+    a = rows["auction"][order]
+    first = np.ones(len(a), bool)
+    first[1:] = a[1:] != a[:-1]
+    at = np.arange(len(a))
+    keep = order[(at - np.maximum.accumulate(np.where(first, at, 0))) < 10]
+    return {n: v[keep] for n, v in rows.items()}
+
+
+def q19_rows(d: dict) -> np.ndarray:
+    rows = np.stack([np.asarray(d[n]).astype(np.int64) for n in Q19_COLS], 1)
+    return rows[np.argsort(rows[:, 0], kind="stable")]
+
+
+def mv_digest(mview) -> int:
+    """Kernel H's digest of a device MV's live rows."""
+    from risingwave_tpu_torch import integrity
+
+    return integrity.digest_from_scalar(
+        integrity.device_digest(*integrity.mv_lanes(mview.table, mview.state)))
+
+
+def emission_rows(out) -> tuple:
+    """(ops, rows) of an emission chunk's valid rows, columns by name."""
+    v = out.valid.cpu().numpy()
+    rows = np.stack([out.columns[n].cpu().numpy()[v].astype(np.int64)
+                     for n in sorted(out.columns)], 1)
+    return out.ops.cpu().numpy()[v], rows
+
+
+def same_multiset(a: np.ndarray, b: np.ndarray) -> bool:
+    sort = lambda r: r[np.lexsort(r.T[::-1])] if len(r) else r
+    return a.shape == b.shape and np.array_equal(sort(a), sort(b))
+
+
+def kernel_u(torch, dev, chunks):
+    """U against its plain version: the last bid chunk of phase 4's stream
+    into q19-ao's (2^22, 10) bands after the other chunks (kernels A and
+    J first, as the path runs them); bands, marks, live and latches
+    exact, the emission equal as a multiset per op with every DELETE
+    before every INSERT."""
+    from risingwave_tpu_torch.executors import top_n as tn
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.queries.nexmark_q import build_q19_append_only
+
+    q = build_q19_append_only(capacity=Q19AO_CAP, out_cap=Q19AO_OUT_CAP, device=dev)
+    rowid, topn = q.pipeline.executors[0], q.topn
+    flat = [c for ep in chunks for c in ep]
+    for c in flat[:-1]:
+        topn.apply(rowid.apply(c)[0])
+    chunk = rowid.apply(flat[-1])[0]
+    valid = chunk.valid & (chunk.effective_signs() > 0)
+    _, slots, _, _ = ht.lookup_or_insert(topn.table, (chunk.col("auction"),), valid)
+    fmask = ht.first_occurrence_mask(slots, valid, topn.scratch)
+    base = {k: v.clone() for k, v in topn.state.items()}
+    live0 = topn.table.live.clone()
+
+    def restore():
+        for k, v in base.items():
+            topn.state[k].copy_(v)
+        topn.table.live.copy_(live0)
+
+    fixed = (topn.group_keys, topn.order_col, topn.desc, topn.k, topn.payload, topn.out_cap)
+    lat = tuple(torch.zeros((), dtype=torch.bool, device=dev) for _ in range(3))
+
+    def run(fn):
+        if fn == "cuda":
+            return tn._topn_band_cuda(topn.table, topn.state, chunk, slots, fmask, *fixed,
+                                      topn.scratch, lat)
+        return tn._topn_band_torch(topn.table, topn.state, chunk, slots, valid, *fixed, lat)
+
+    outs = []
+    for fn in ("cuda", "torch"):
+        restore()
+        for t in lat:
+            t.zero_()
+        out = run(fn)
+        lanes = {f"state.{k}": v.clone() for k, v in topn.state.items()}
+        lanes["live"] = topn.table.live.clone()
+        outs.append((emission_rows(out), lanes, [bool(t) for t in lat]))
+    torch.cuda.synchronize()
+    assert_lanes_equal(torch, outs[0][1], outs[1][1], "U: bands, sdirty, live")
+    check(outs[0][2] == outs[1][2] == [False] * 3, "U: latches")
+    check(bool((topn.scratch == ht.FIRST_SENTINEL).all()), "U: scratch reset")
+    (ops_k, rows_k), (ops_p, rows_p) = outs[0][0], outs[1][0]
+    for ops in (ops_k, ops_p):
+        check(bool(np.all(np.diff(ops) <= 0)), "U: every DELETE before every INSERT")
+    for op in (0, 1):
+        check(same_multiset(rows_k[ops_k == op], rows_p[ops_p == op]),
+              f"U: emission multiset of op {op}")
+    err = max_abs_diff(torch, outs[0][1], outs[1][1])
+    ms = time_ms(torch, lambda: run("cuda"), 20, setup=restore)
+    plain = time_ms(torch, lambda: run("torch"), 3, setup=restore)
+    restore()
+    n, k = chunk.capacity, topn.k
+    groups = int(fmask.sum())
+    emitted = len(ops_k)
+    entrants = int((ops_k == 0).sum())
+    # per row slots 4, fmask 1, valid 1, ops 4 and order 8 read; per
+    # entering row its payload 28 read; per touched group its band rows
+    # (order 8, valid 1, payload 28 per entry) read and written, live and
+    # sdirty written, the key read; per emitted row its key 8, order 8,
+    # payload 28, op 4 and valid 1 written
+    nbytes = n * 18 + entrants * 28 + groups * (k * 37 * 2 + 2 + 8) + emitted * 49
+    return {
+        "name": "U append-only GroupTopN band step", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/topn_band.cu",
+        "replaces": "risingwave_tpu/executors/top_n.py:67",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "library_ms": None,
+        "library_call": "none (no PyTorch call maintains per-group top-k bands)",
+        "emission_same_order": bool(np.array_equal(ops_k, ops_p) and np.array_equal(rows_k,
+                                                                                    rows_p)),
+        "shape": {"rows": n, "bands": [Q19AO_CAP, k], "groups": int(topn.table.live.sum()),
+                  "touched_groups": groups, "deletes": int((ops_k == 1).sum()),
+                  "inserts": int((ops_k == 0).sum()), "out_cap": topn.out_cap},
+    }
+
+
+def v_compare(torch, dev, topn, chunk, what: str, epoch_dirty: bool) -> dict:
+    """V against its plain version on ``chunk`` after kernel A, each run
+    from the same store; every row lane, live, the marks, the latch and
+    the scratch lane exact. Leaves the kernel's result in the store."""
+    from risingwave_tpu_torch.executors import top_n_plain as tp
+    from risingwave_tpu_torch.ops import hash_table as ht
+
+    _, slots, _, _ = ht.lookup_or_insert(topn.table, tuple(chunk.col(k) for k in topn.store_keys),
+                                         chunk.valid)
+    ed = topn.epoch_dirty if epoch_dirty else None
+    lanes = lambda: {**{f"r_{n}": a for n, a in topn.rows.items()}, "live": topn.table.live,
+                     "sdirty": topn.sdirty, **({"ed": ed} if ed is not None else {})}
+    base = {k: v.clone() for k, v in lanes().items()}
+
+    def restore():
+        for k, v in lanes().items():
+            v.copy_(base[k])
+
+    dropped = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def run(fn):
+        if fn == "cuda":
+            tp._topn_upsert_cuda(topn.table, topn.rows, topn.sdirty, ed, chunk, slots, topn.names,
+                                 topn.scratch, dropped)
+        else:
+            tp._topn_upsert_torch(topn.table, topn.rows, topn.sdirty, ed, chunk, slots,
+                                  topn.names, dropped)
+
+    outs = []
+    for fn in ("torch", "cuda"):  # the kernel's result stays in the store
+        restore()
+        run(fn)
+        outs.append({k: v.clone() for k, v in lanes().items()} | {"dropped": dropped.clone()})
+    torch.cuda.synchronize()
+    assert_lanes_equal(torch, outs[1], outs[0], f"V ({what})")
+    check(not bool(dropped), f"V ({what}): no dropped row")
+    check(bool((topn.scratch == -1).all()), f"V ({what}): scratch reset")
+    err = max_abs_diff(torch, outs[1], outs[0])
+    ms = time_ms(torch, lambda: run("cuda"), 20, setup=restore)
+    plain = time_ms(torch, lambda: run("torch"), 5, setup=restore)
+    restore()
+    run("cuda")
+    n = chunk.capacity
+    winners = int(torch.unique(slots[chunk.valid]).numel())
+    lane_bytes = sum(a.element_size() for a in topn.rows.values())
+    marks = 3 if epoch_dirty else 2
+    # per row slots 4, valid 1 and ops 4 read; per winning slot its row's
+    # lanes read, and its lanes and marks (live, sdirty, epoch_dirty)
+    # written
+    nbytes = n * 9 + winners * (2 * lane_bytes + marks)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes), "max_abs_err": err,
+            "shape": {"rows": n, "capacity": topn.table.capacity, "winning_slots": winners,
+                      "live_rows": int(topn.table.live.sum())}}
+
+
+def pairs_chunk(torch, dev, rng, topn, n: int, new_value, fresh_key):
+    """A chunk of n rows on ``topn``'s store: U-/U+ pairs on stored rows
+    (the U+ with ``new_value(old)`` in the order column), 1,000 of them
+    again at the end (the last pair wins), 1,000 deletes of other stored
+    rows and fresh inserts (``fresh_key(m)`` gives m new rows) to fill."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.types import Op
+
+    live = torch.nonzero(topn.table.live).flatten()
+    n_pairs, n_again, n_del = n // 2 - 3_000, 1_000, 1_000
+    pick = live[torch.randperm(len(live), device=dev)[:n_pairs + n_del]]
+    rows = {c: topn.rows[c][pick].cpu().numpy() for c in topn.names}
+    pairs = {c: v[:n_pairs] for c, v in rows.items()}
+    new = dict(pairs)
+    new[topn.order_col] = new_value(pairs[topn.order_col])
+    again = {c: v[:n_again // 2] for c, v in new.items()}
+    again_new = dict(again)
+    again_new[topn.order_col] = new_value(again[topn.order_col])
+    dels = {c: v[n_pairs:] for c, v in rows.items()}
+    fresh = fresh_key(n - 2 * n_pairs - n_again - n_del)
+    cols = {c: np.concatenate([np.stack([pairs[c], new[c]], 1).reshape(-1),
+                               np.stack([again[c], again_new[c]], 1).reshape(-1), dels[c],
+                               fresh[c]]) for c in topn.names}
+    ops = np.concatenate([np.tile([int(Op.UPDATE_DELETE), int(Op.UPDATE_INSERT)], n_pairs),
+                          np.tile([int(Op.UPDATE_DELETE), int(Op.UPDATE_INSERT)], n_again // 2),
+                          np.full(n_del, int(Op.DELETE)),
+                          np.full(len(fresh[topn.order_col]), int(Op.INSERT))]).astype(np.int32)
+    check(len(ops) == n, "V's chunk: n rows")
+    return StreamChunk.from_numpy(cols, n, ops=ops, device=dev)
+
+
+def kernel_vx(torch, dev, rng, chunks):
+    """V and X at q19's shapes: a 2^26-slot retractable store after phase
+    4's 20 epochs (each earlier epoch's marks cleared, as its barrier
+    does); V on a 65,536-row chunk of U-/U+ pairs, deletes and inserts;
+    then X (k = 10) over the store with the last epoch's and the chunk's
+    epoch-dirty rows, per slot exact."""
+    from risingwave_tpu_torch.executors import top_n_plain as tp
+    from risingwave_tpu_torch.queries.nexmark_q import build_q19
+
+    q = build_q19(capacity=Q19_CAP, device=dev)
+    rowid, topn = q.pipeline.executors[0], q.topn
+    for i, ep in enumerate(chunks):
+        if i:
+            topn.epoch_dirty.zero_()
+        for c in ep:
+            topn.apply(rowid.apply(c)[0])
+    top_id = rowid._base
+
+    def fresh(m):
+        ids = top_id + np.arange(m)
+        return {"_row_id": ids, "auction": rng.integers(1000, 1_200_000, m),
+                "bidder": rng.integers(1000, 400_000, m), "price": rng.integers(100, 10**8, m),
+                "channel": rng.integers(0, 4, m).astype(np.int32),
+                "date_time": np.full(m, 1_437_000_000_000)}
+
+    chunk = pairs_chunk(torch, dev, rng, topn, CHUNK_EVENTS,
+                        lambda p: (p * 7 + 13) % 10**8, fresh)
+    v = v_compare(torch, dev, topn, chunk, "q19's 2^26 store", epoch_dirty=True)
+    v_row = {"name": "V TopN row-store upsert", "route": "cuda",
+             "source": "risingwave_tpu_torch/csrc/topn_upsert.cu",
+             "replaces": "risingwave_tpu/executors/top_n_plain.py:53 (and :367, with "
+                         "epoch_dirty)", "bound_by": "bytes", "library_ms": None,
+             "library_call": "none (no PyTorch call applies an upsert with last-row-wins)", **v}
+    args = (topn.table, topn.rows, topn.epoch_dirty, topn.limit, topn.desc, topn.group_by,
+            topn.order_col)
+    got = tp._group_topk_mask_cuda(topn.table, topn.rows, topn.epoch_dirty, topn.limit,
+                                   topn.desc, (topn.rows["auction"],), topn.order_col)
+    want = tp._group_topk_mask_torch(topn.table, topn.rows, topn.epoch_dirty, topn.limit,
+                                     topn.desc, (topn.rows["auction"],), topn.order_col)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "X: in_topk, gdirty")
+    ms = time_ms(torch, lambda: tp.group_topk_mask(*args), 3)
+    plain = time_ms(torch, lambda: tp._group_topk_mask_torch(
+        topn.table, topn.rows, topn.epoch_dirty, topn.limit, topn.desc,
+        (topn.rows["auction"],), topn.order_col), 1)
+    okey = topn.rows["price"]
+    lib = time_ms(torch, lambda: torch.sort(okey, stable=True), 3)
+    cap = topn.table.capacity
+    # per slot the group lane, live 1, the order lane, the store keys
+    # that are not group lanes and epoch_dirty 1 read; in_topk and gdirty
+    # written
+    key_lanes = (topn.rows[g] for g in topn.group_by)
+    key_lanes = (*key_lanes, topn.rows[topn.order_col], *topn.table.keys[len(topn.group_by):])
+    nbytes = cap * (sum(a.element_size() for a in key_lanes) + 1 + 1 + 2)
+    x_row = {"name": "X group top-k mask", "route": "cuda",
+             "source": "risingwave_tpu_torch/csrc/topn_rank.cu",
+             "replaces": "risingwave_tpu/executors/top_n_plain.py:390",
+             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+             "bound_by": "bytes", "library_ms": lib,
+             "library_call": "torch.sort(stable=True) of one 64-bit lane of the store (the "
+                             "composite key's order lane alone)",
+             "shape": {"capacity": cap, "live_rows": int(topn.table.live.sum()), "k": topn.limit,
+                       "epoch_dirty": int(topn.epoch_dirty.sum()),
+                       "in_topk": int(got[0].sum()), "gdirty": int(got[1].sum())}}
+    return v_row, x_row
+
+
+def kernel_vw(torch, dev, rng):
+    """V and W at q105's shapes: a 2^22-slot TopN store of 1.2M auctions
+    whose counts tie 5,000 rows at the 1,000th rank, with 200 dead rows
+    of the largest counts; V on a 65,536-row chunk of U-/U+ count
+    changes, deletes and inserts; then W (n = 1,000, DESC) exact."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.executors import top_n_plain as tp
+    from risingwave_tpu_torch.ops.agg import topn_order_key
+    from risingwave_tpu_torch.types import Op
+
+    i64 = torch.int64
+    dtypes = {"id": i64, "item_name": torch.int32, "auction": i64, "bid_count": i64}
+    topn = tp.TopNExecutor("bid_count", 1000, ("id", "auction"), dtypes, desc=True,
+                           capacity=Q105_CAP, device=dev)
+    ids = 1000 + np.arange(W_LIVE, dtype=np.int64)
+    counts = rng.integers(1, 60, W_LIVE)
+    counts[rng.permutation(W_LIVE)[:W_TIED]] = 60
+    counts[rng.permutation(W_LIVE)[:400]] = 1000 + rng.permutation(100_000)[:400]
+    cols = {"id": ids, "item_name": rng.integers(0, 100, W_LIVE).astype(np.int32),
+            "auction": ids, "bid_count": counts}
+    for at in range(0, W_LIVE, CHUNK_EVENTS):
+        topn.apply(StreamChunk.from_numpy({c: v[at:at + CHUNK_EVENTS] for c, v in cols.items()},
+                                          CHUNK_EVENTS, device=dev))
+    dead = {"id": 10**9 + np.arange(200), "item_name": np.zeros(200, np.int32),
+            "auction": 10**9 + np.arange(200), "bid_count": np.full(200, 2**62)}
+    for op in (Op.INSERT, Op.DELETE):
+        topn.apply(StreamChunk.from_numpy(dead, 256, ops=np.full(200, int(op), np.int32),
+                                          device=dev))
+    top_id = 2 * 10**9
+
+    def fresh(m):
+        new_ids = top_id + np.arange(m)
+        return {"id": new_ids, "item_name": np.zeros(m, np.int32), "auction": new_ids,
+                "bid_count": np.ones(m, np.int64)}
+
+    chunk = pairs_chunk(torch, dev, rng, topn, CHUNK_EVENTS, lambda c: c + 1, fresh)
+    v = v_compare(torch, dev, topn, chunk, "q105's 2^22 store", epoch_dirty=False)
+    v_row = {"name": "V TopN row-store upsert (q105)", "route": "cuda",
+             "source": "risingwave_tpu_torch/csrc/topn_upsert.cu",
+             "replaces": "risingwave_tpu/executors/top_n_plain.py:53", "bound_by": "bytes",
+             "library_ms": None,
+             "library_call": "none (no PyTorch call applies an upsert with last-row-wins)", **v}
+    lane = topn.rows["bid_count"]
+    got = tp._rank_top_cuda(topn.table, lane, 1000, True)
+    want = tp._rank_top_torch(topn.table, lane, 1000, True)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "W: idx, alive")
+    check(bool(got[1].all()), "W: no dead row among the top 1,000")
+    top_counts = lane[got[0].long()]
+    nth = int(top_counts[-1])
+    tied = int((topn.table.live & (lane == nth)).sum())
+    check(tied >= 1000, f"W: thousands of rows tied at the 1,000th count ({tied})")
+    ms = time_ms(torch, lambda: tp.rank_top(topn.table, lane, 1000, True), 20)
+    plain = time_ms(torch, lambda: tp._rank_top_torch(topn.table, lane, 1000, True), 3)
+    key = topn_order_key(lane, True)
+    lib = time_ms(torch, lambda: torch.topk(key, 1000, largest=False), 20)
+    cap = topn.table.capacity
+    # live 1, order lane 8, two pk lanes 16 read per slot; n slots and
+    # their liveness written
+    nbytes = cap * 25 + 1000 * 5
+    w_row = {"name": "W top-n rank", "route": "cuda",
+             "source": "risingwave_tpu_torch/csrc/topn_rank.cu",
+             "replaces": "risingwave_tpu/executors/top_n_plain.py:86",
+             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
+             "bound_by": "bytes", "library_ms": lib,
+             "library_call": "torch.topk of the flipped order key (liveness and ties left out)",
+             "shape": {"capacity": cap, "live_rows": int(topn.table.live.sum()), "n": 1000,
+                       "nth_count": nth, "tied_at_nth": tied, "dead_extreme_rows": 200}}
+    return v_row, w_row
+
+
+def q19_paths(torch, dev, chunks):
+    """Phases 21 and 22: q19 on the retractable GroupTopN (``build_q19``)
+    and on the append-only one (``build_q19_append_only``), each
+    interpreted and through ``fuse_pipeline`` (the MV fused behind the
+    TopN), over phase 4's chunks in lockstep. At every barrier the four
+    MVs' kernel-H digests are equal; at barriers Q19_CHECKS every MV
+    equals the numpy oracle; at the end each fused run's staged digest
+    equals host_digest of its MV read back, and each TopN's state digest
+    its interpreted twin's."""
+    from risingwave_tpu_torch import integrity
+    from risingwave_tpu_torch.queries.nexmark_q import build_q19, build_q19_append_only
+    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline
+
+    check_sync_guard(torch, dev)
+    builds = {
+        "q19": lambda: build_q19(capacity=Q19_CAP, mv_capacity=Q19_MV_CAP, device=dev),
+        "q19_ao": lambda: build_q19_append_only(capacity=Q19AO_CAP, out_cap=Q19AO_OUT_CAP,
+                                                mv_capacity=Q19_MV_CAP, device=dev),
+    }
+    qs, wrappers, chains = {}, {}, {}
+    for name, build in builds.items():
+        for fused in (False, True):
+            q = build()
+            key = name + ("_fused" if fused else "")
+            if fused:
+                (w,) = fuse_pipeline(q.pipeline, label=key)
+                chains[key] = [type(e).__name__ for e in q.pipeline.executors]
+                check(w.members == [q.mview] and chains[key][-1] == "FusedChainExecutor",
+                      f"{key}: the MV fused behind the TopN")
+                wrappers[key] = w
+            qs[key] = q
+    host = q19_host(chunks)
+    oracle = {"top": None, "upto": 0}
+    launches = PathLaunches()
+
+    def push(pipe, ep):
+        for c in ep:
+            pipe.push(c)
+
+    def after(e):
+        digs = {k: mv_digest(q.mview) for k, q in qs.items()}
+        check(len(set(digs.values())) == 1, f"q19 barrier {e}: the four MVs' digests {digs}")
+        if e not in Q19_CHECKS:
+            return
+        parts = host[oracle["upto"]:e + 1] + ([oracle["top"]] if oracle["top"] else [])
+        oracle["top"] = q19_top({n: np.concatenate([p[n] for p in parts]) for n in Q19_COLS})
+        oracle["upto"] = e + 1
+        want = q19_rows(oracle["top"])
+        for k, q in qs.items():
+            got = q19_rows(q.mview.to_numpy())
+            check(np.array_equal(got, want), f"{k}: MV ({len(got)} rows) vs the oracle "
+                  f"({len(want)} rows) at barrier {e}")
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = lockstep(torch, {k: q.pipeline for k, q in qs.items()}, chunks, push, launches, after)
+    peak = torch.cuda.max_memory_allocated()
+    for key, w in wrappers.items():
+        mv = integrity.host_digest(*integrity.host_lanes(*integrity.mv_lanes(
+            qs[key].mview.table, qs[key].mview.state)))
+        check(w.last_digests.get("mv") == mv, f"{key}: staged MV digest vs host_digest")
+        twin = qs[key.replace("_fused", "")].topn
+        check(qs[key].topn.state_digest() == twin.state_digest(),
+              f"{key}: TopN state vs the interpreted run's")
+    for key in qs:
+        for kern in TOPN_KERNELS[key.replace("_fused", "")]:
+            check(launches.by[key][kern] > 0, f"{key}: kernel {kern} launched")
+    bids = sum(len(h["auction"]) for h in host)
+    rows = [path_row(key, bids, rec[key], mv_rows=int(q.mview.table.live.sum()),
+                     mv_capacity=q.mview.table.capacity, launches=launches.by[key],
+                     chain=chains.get(key)) for key, q in qs.items()]
+    rows[0].update(
+        store_capacity=qs["q19"].topn.table.capacity, bands=[qs["q19_ao"].topn.table.capacity,
+                                                             qs["q19_ao"].topn.k],
+        out_cap=Q19AO_OUT_CAP, checked_barriers=list(Q19_CHECKS), max_memory_allocated=int(peak),
+        oracle="the four MVs' kernel-H digests equal at every barrier; each MV = the numpy "
+               "oracle (per auction the 10 highest prices, ties to the earlier bid) at the "
+               "checked barriers; staged MV digests = host_digest of the lanes read back; "
+               "fused TopN state = interpreted")
+    return rows, launches.by
+
+
+def q105_paths(torch, dev, host, chunks):
+    """Phase 23: RisingWave's q105 (``build_q105``) over phase 11's stream
+    (an auction chunk left, the bid chunks right, per epoch), interpreted
+    and through ``fuse_pipeline``: the whole program is refused for the
+    TopN in its tail and each chain falls back, the decision the
+    reference's ``fuse_pipeline`` makes for this plan (held equal on the
+    CPU, ``tests/test_torch_q105.py``); the MVs equal the numpy oracle
+    (the 1,000 auctions with the most bids, ties to the lower id) and
+    each other at every barrier."""
+    from risingwave_tpu_torch.queries.nexmark_q import Q105_TOP, build_q105
+    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline, fusion_refusals
+
+    fusion_refusals(clear=True)
+    qs, chains = {}, {}
+    for fused in (False, True):
+        q = build_q105(capacity=Q105_CAP, fanout=Q105_FANOUT, out_cap=Q105_OUT_CAP,
+                       topn_capacity=Q105_CAP, device=dev)
+        key = "q105" + ("_fused" if fused else "")
+        if fused:
+            fuse_pipeline(q.pipeline, label=key)
+            chains[key] = [[type(e).__name__ for e in getattr(q.pipeline, a)]
+                           for a in ("left", "right", "tail")]
+            check(chains[key] == [[], ["EpochBatchedAggExecutor"],
+                                  ["TopNExecutor", "FusedChainExecutor"]],
+                  f"{key}: the per-chain fallback")
+        qs[key] = q
+    refusals = fusion_refusals()
+    check([(r["fragment"], r["executor"]) for r in refusals] == [("q105_fused/tail",
+                                                                  "TopNExecutor")],
+          "q105: whole-pipeline fusion refused for the TopN in the tail")
+    top = max(int(a["id"].max()) for a, _ in host) + 1
+    counts = np.zeros(top, np.int64)
+    items = np.zeros(top, np.int64)
+    seen = np.zeros(top, bool)
+    launches = PathLaunches()
+
+    def push(pipe, ep):
+        a, bids = ep
+        pipe.push_left(a)
+        for b in bids:
+            pipe.push_right(b)
+
+    def after(e):
+        a, bids = host[e]
+        seen[a["id"]] = True
+        items[a["id"]] = a["item_name"]
+        for b in bids:
+            counts[:] += np.bincount(b["auction"], minlength=top)[:top]
+        ids = np.flatnonzero(seen & (counts > 0))
+        o = np.lexsort((ids, -counts[ids]))[:Q105_TOP]
+        want = np.stack([ids[o], items[ids[o]], counts[ids[o]]], 1)
+        want = want[np.argsort(want[:, 0])]
+        for key, q in qs.items():
+            d = q.mview.to_numpy()
+            got = np.stack([d["id"], d["item_name"].astype(np.int64), d["bid_count"]], 1)
+            got = got[np.argsort(got[:, 0])]
+            check(np.array_equal(got, want), f"{key}: MV vs the oracle at barrier {e}")
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = lockstep(torch, {k: q.pipeline for k, q in qs.items()}, chunks, push, launches, after)
+    peak = torch.cuda.max_memory_allocated()
+    for key in qs:
+        for kern in TOPN_KERNELS["q105"]:
+            check(launches.by[key][kern] > 0, f"{key}: kernel {kern} launched")
+    rows_in = sum(len(a["id"]) + sum(len(b["auction"]) for b in bids) for a, bids in host)
+    rows = [path_row(key, rows_in, rec[key], mv_rows=int(q.mview.table.live.sum()),
+                     launches=launches.by[key], chains=chains.get(key))
+            for key, q in qs.items()]
+    rows[0].update(refusals=refusals, agg_capacity=Q105_CAP, join=[Q105_CAP, Q105_FANOUT],
+                   topn_capacity=Q105_CAP, out_cap=Q105_OUT_CAP, limit=Q105_TOP,
+                   max_memory_allocated=int(peak),
+                   oracle="numpy: the 1,000 auctions with the most bids so far (ties to the "
+                          "lower id) at every barrier; fallback = interpreted: equal")
+    return rows, launches.by
+
+
+def kill_q19(torch, dev, chunks):
+    """Phase 16's q19: phase 4's first KILL_EPOCHS epochs, phase 21's
+    sizes (the retractable store and its mirror rebuilt on recovery)."""
+    from risingwave_tpu_torch.queries.nexmark_q import build_q19
+
+    ep = chunks[:KILL_EPOCHS]
+    host = q19_host(ep)
+    oracle = q19_rows(q19_top({n: np.concatenate([h[n] for h in host]) for n in Q19_COLS}))
+
+    def drive(q, e):
+        for c in ep[e]:
+            q.pipeline.push(c)
+        q.pipeline.barrier()
+
+    spec = KillSpec("q19", lambda: build_q19(capacity=Q19_CAP, mv_capacity=Q19_MV_CAP,
+                                             device=dev),
+                    drive, lambda q: q19_rows(q.mview.to_numpy()), oracle)
+    return kill_and_recover(torch, dev, spec)
+
+
+def kill_q105(torch, dev, host, chunks):
+    """Phase 16's q105: phase 11's first KILL_EPOCHS epochs, phase 23's
+    sizes (the TopN's emitted mirror recomputed on recovery)."""
+    from risingwave_tpu_torch.queries.nexmark_q import Q105_TOP, build_q105
+
+    ids = np.concatenate([a["id"] for a, _ in host[:KILL_EPOCHS]])
+    item = np.concatenate([a["item_name"] for a, _ in host[:KILL_EPOCHS]]).astype(np.int64)
+    u, c = np.unique(np.concatenate([b["auction"] for _, bids in host[:KILL_EPOCHS]
+                                     for b in bids]), return_counts=True)
+    pos = np.clip(np.searchsorted(u, ids), 0, len(u) - 1)
+    has = u[pos] == ids
+    ids, item, cnt = ids[has], item[has], c[pos[has]]
+    o = np.lexsort((ids, -cnt))[:Q105_TOP]
+    oracle = np.stack([ids[o], item[o], cnt[o]], 1)
+    oracle = oracle[np.argsort(oracle[:, 0])]
+
+    def drive(q, e):
+        a, bids = chunks[e]
+        q.pipeline.push_left(a)
+        for b in bids:
+            q.pipeline.push_right(b)
+        q.pipeline.barrier()
+
+    def rows(q):
+        d = q.mview.to_numpy()
+        got = np.stack([d["id"], d["item_name"].astype(np.int64), d["bid_count"]], 1)
+        return got[np.argsort(got[:, 0])]
+
+    spec = KillSpec("q105", lambda: build_q105(capacity=Q105_CAP, fanout=Q105_FANOUT,
+                                               out_cap=Q105_OUT_CAP, topn_capacity=Q105_CAP,
+                                               device=dev),
+                    drive, rows, oracle)
+    return kill_and_recover(torch, dev, spec)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
@@ -5174,6 +5796,21 @@ def main() -> int:
     rows18, l18 = hot_paths(torch, dev, chunks)
     for r in rows18:
         emit(r)
+    torch.cuda.empty_cache()
+    # phase 3's U, V and X, phases 21-22 and phase 16's q19 on phase 4's stream
+    u_row = kernel_u(torch, dev, chunks)
+    emit({"phase": "kernel", **u_row})
+    torch.cuda.empty_cache()
+    v19_row, x_row = kernel_vx(torch, dev, rng, chunks)
+    emit({"phase": "kernel", **v19_row})
+    emit({"phase": "kernel", **x_row})
+    torch.cuda.empty_cache()
+    rows21, l21 = q19_paths(torch, dev, chunks)
+    for r in rows21:
+        emit(r)
+    torch.cuda.empty_cache()
+    k19_row, l16_q19 = kill_q19(torch, dev, chunks)
+    emit(k19_row)
     del chunks
     torch.cuda.empty_cache()
 
@@ -5239,6 +5876,17 @@ def main() -> int:
     rows19, l19 = q103_paths(torch, dev, h101, c101)
     for r in rows19:
         emit(r)
+    torch.cuda.empty_cache()
+    # phase 3's V and W, phase 23 and phase 16's q105 on phase 11's stream
+    v105_row, w_row = kernel_vw(torch, dev, rng)
+    emit({"phase": "kernel", **v105_row})
+    emit({"phase": "kernel", **w_row})
+    torch.cuda.empty_cache()
+    rows23, l23 = q105_paths(torch, dev, h101, c101)
+    for r in rows23:
+        emit(r)
+    k105_row, l16_q105 = kill_q105(torch, dev, h101, c101)
+    emit(k105_row)
     del h101, c101
     torch.cuda.empty_cache()
 
@@ -5251,14 +5899,17 @@ def main() -> int:
             (p_row, "join_degree"), (mo_row, "join_probe"), (li_row, "join_apply"),
             (qa_row, "minput"), (qd_row, "minput_clear"), (qe_row, "minput_rescatter"),
             (lookup_row, "lookup")] + list(zip(r_rows, R_ENTRIES)) + [
-            (s_proj_row, "expr_eval"), (s_filt_row, "expr_filter"), (t_row, "wm_filter")]
+            (s_proj_row, "expr_eval"), (s_filt_row, "expr_filter"), (t_row, "wm_filter"),
+            (u_row, "topn_band"), (v19_row, "topn_upsert"), (v105_row, "topn_upsert"),
+            (w_row, "topn_rank"), (x_row, "group_topk")]
     paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8, "q7": l9, "q7_fused": l10,
              "q101": l11, "q101_fused": l12, "q5_max": l13, "q5_max_fused": l14, **l15,
              "q5_recover": l16_q5, "q5_max_recover": l16_q5m, "q8_recover": l16_q8,
              "q7_recover": l16_q7, "q101_recover": l16_q101, **l17,
-             **{f"hot_{k}": v for k, v in l18.items()}, **l19, "q7_scan_watermark_filters": l20}
+             **{f"hot_{k}": v for k, v in l18.items()}, **l19, "q7_scan_watermark_filters": l20,
+             **l21, "q19_recover": l16_q19, **l23, "q105_recover": l16_q105}
     for row, key in rows:
-        # each main path's run counts from zero: phases 4, 6-20 (a path
+        # each main path's run counts from zero: phases 4, 6-23 (a path
         # of a phase that drives several in lockstep counts its own calls)
         row["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())

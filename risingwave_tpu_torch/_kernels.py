@@ -10,13 +10,14 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
-A, C, D, E, F, G, H, J, L, M, N, O, P, Q, R, S and T (an entry point may
-launch several kernels in order on the stream), two per call of B (the
+A, C, D, E, F, G, H, J, L, M, N, O, P, Q, R, S, T, U, V, W and X (an
+entry point may launch several kernels in order on the stream), two per
+call of B (the
 apply and its set_live), one per 24 lanes moved by a call of I; the
 entry points of ``ENTRY_KEYS`` count under their own names (S's
 ``rw_project`` under ``expr_eval``, its ``rw_filter`` under
-``expr_filter``; a Project whose outputs are all bare columns launches
-nothing).
+``expr_filter``, X's ``rw_group_topk_mask`` under ``group_topk``; a
+Project whose outputs are all bare columns launches nothing).
 """
 
 from __future__ import annotations
@@ -59,6 +60,9 @@ SOURCES = {
     "checkpoint": "checkpoint.cu",
     "expr_eval": "expr_eval.cu",
     "wm_filter": "wm_filter.cu",
+    "topn_band": "topn_band.cu",
+    "topn_upsert": "topn_upsert.cu",
+    "topn_rank": "topn_rank.cu",
 }
 
 # C entry points: (argtypes,) — every pointer and the stream as c_void_p
@@ -137,6 +141,17 @@ SIGNATURES = {
     "wm_filter": {
         "rw_wm_step": [_L, _P, _P, _P, _P, _L, _P, _P, _P, _P],
     },
+    "topn_band": {
+        "rw_topn_step": [_P, _I, _P, _I, _L, _I, _L, _L, _P, _P, _P, _P, _P, _I, _I]
+        + [_P] * 13,
+    },
+    "topn_upsert": {
+        "rw_topn_upsert": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "topn_rank": {
+        "rw_rank_top": [_P, _I, _L, _P, _P, _P, _P, _P, _L, _P, _P, _P],
+        "rw_group_topk_mask": [_P, _I, _I, _L, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    },
 }
 
 # slots per block of kernel R's stage select (csrc/checkpoint.cu CK_TILE)
@@ -144,9 +159,11 @@ CHECKPOINT_TILE = 4096
 # lanes one gather or scatter of kernel R takes (csrc/checkpoint.cu CK_MAX_LANES)
 CHECKPOINT_LANES = 32
 
-# rows per block of reduce_by_key, which sizes its scratch
-# (RBK_TILE in csrc/reduce_by_key.cu)
+# keys per block of the radix pass (RBK_TILE in csrc/radix.cuh), which
+# sizes the scratch of reduce_by_key and of kernels W and X
 RBK_TILE = 2048
+# elements per block of the device-wide scan (csrc/scan.cuh SCAN_TILE)
+SCAN_TILE = 2048
 # blocks of the state digest's first pass (csrc/state_digest.cu SD_BLOCKS)
 DIGEST_BLOCKS = 1024
 # lanes one slot_move launch takes (csrc/slot_move.cu SM_MAX_LANES)
@@ -184,6 +201,7 @@ ENTRY_KEYS = {
     "rw_mark_checkpointed": "mark_checkpointed",
     "rw_scatter_rows": "scatter_rows",
     "rw_filter": "expr_filter",
+    "rw_group_topk_mask": "group_topk",
 }
 
 LAUNCHES = {name: 0 for name in (*SOURCES, *ENTRY_KEYS.values())}

@@ -350,12 +350,16 @@ class DeviceMaterializeExecutor(MvDeviceReadMixin, Executor, Checkpointable):
                            tuple(f"k{j}" for j in range(len(self.pk))))]
 
     def restore_state(self, table_id, key_cols, value_cols):
-        """A fresh table of ``grow_pow2(n, 2^10)`` slots (the reference's
-        size); kernel A inserts the pks, kernel R lands live, the values,
-        the null lanes and ``stored`` in one launch (restored rows are
-        durable, not dirty)."""
+        """A fresh table sized as a barrier sizes a growth: room under
+        ``GROW_AT`` for the n rows and as many again (``on_barrier``'s
+        margin), and never below the allocator's lattice. The
+        reference restores at ``grow_pow2(n, 2^10)``, which the next
+        epoch can load past kernel A's probe bound before the
+        mid-epoch guard fires. Kernel A inserts the pks, kernel R lands
+        live, the values, the null lanes and ``stored`` in one launch
+        (restored rows are durable, not dirty)."""
         n = len(next(iter(key_cols.values()))) if key_cols else 0
-        cap = grow_pow2(n, 1 << 10, GROW_AT)
+        cap = grow_pow2(2 * n, self._buckets.policy.min_cap, GROW_AT)
         dev = self.device
         self.table = HashTable.create(cap, tuple(self.dtypes[k] for k in self.pk), device=dev)
         self.state = MvDeviceState.create(cap, self.dtypes, self.columns,

@@ -99,6 +99,25 @@ def _order_key_to_float(k: torch.Tensor, float_dtype: torch.dtype) -> torch.Tens
     return bits.view(torch.float64)
 
 
+def topn_order_key(v: torch.Tensor, desc: bool) -> torch.Tensor:
+    """The TopN order key (``executors/top_n_plain.py:68``
+    ``_order_key_u64``): the reference's unsigned 64-bit key (a float's
+    total-order key zero-extended, an unsigned lane as it is, a signed
+    one with its top bit flipped, all bits inverted for DESC) with bit
+    63 flipped, read as int64, so that signed int64 order is the
+    reference's unsigned order. A signed lane's key is then the lane
+    itself (``~v`` for DESC)."""
+    if v.is_floating_point():
+        key = _float_to_order_key(v)
+        if v.dtype == torch.float32:
+            key = key ^ _SIGN64  # the zero-extended uint32 key, then the flip
+    elif v.dtype == torch.uint8:
+        key = v.to(torch.int64) ^ _SIGN64
+    else:
+        key = v.to(torch.int64)
+    return ~key if desc else key
+
+
 def order_key_from_reference(key: np.ndarray) -> np.ndarray:
     """The reference's uint32/uint64 order-key lane -> the port's int64."""
     key = np.asarray(key)

@@ -18,7 +18,12 @@ DISTINCT, then an inner join on (person.id, window) =
 are the Nexmark suite's stateless queries; q103 and q104 are
 RisingWave's Nexmark extensions: the auctions with at least 20 bids so
 far (a left semi join against a HAVING count), and those without a
-count below 20 (a left anti join).
+count below 20 (a left anti join). q19 (top 10 bids per auction by
+price) runs on the retractable GroupTopN the SQL planner's row_number
+rule lowers it to (``sql/planner.py:948-1060``) and, as RisingWave's own
+planner picks for an insert-only input, on the append-only GroupTopN;
+q105 (RisingWave's extension: the 1,000 auctions with the most bids)
+on the plain TopN of ``ORDER BY ... LIMIT`` (``planner.py:1272``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Optional
 import torch
 
 from risingwave_tpu_torch import resolve_device
+from risingwave_tpu_torch.executors.base import Executor
 from risingwave_tpu_torch.executors.dedup import AppendOnlyDedupExecutor
 from risingwave_tpu_torch.executors.dynamic_filter import DynamicMaxFilterExecutor
 from risingwave_tpu_torch.executors.filter import FilterExecutor
@@ -38,6 +44,11 @@ from risingwave_tpu_torch.executors.hop_window import HopWindowExecutor
 from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
 from risingwave_tpu_torch.executors.project import ProjectExecutor
 from risingwave_tpu_torch.executors.row_id_gen import RowIdGenExecutor
+from risingwave_tpu_torch.executors.top_n import GroupTopNExecutor
+from risingwave_tpu_torch.executors.top_n_plain import (
+    RetractableGroupTopNExecutor,
+    TopNExecutor,
+)
 from risingwave_tpu_torch.expr.expr import BinOp, col, lit
 from risingwave_tpu_torch.expr.functions import Func
 from risingwave_tpu_torch.ops.agg import AggCall
@@ -539,3 +550,149 @@ def build_q104(
     """
     return _q103_like(True, threshold, "<", capacity, agg_capacity, fanout, out_cap,
                       mv_capacity, device)
+
+
+Q19_TOP = 10  # bids kept per auction
+Q105_TOP = 1000  # auctions kept
+# a bid chunk's columns (connectors/nexmark.py BID_SCHEMA) and its row id
+BID_DTYPES = {"auction": torch.int64, "bidder": torch.int64, "price": torch.int64,
+              "channel": torch.int32, "date_time": torch.int64, "_row_id": torch.int64}
+
+
+@dataclass
+class Q19:
+    pipeline: Pipeline
+    topn: Executor
+    mview: DeviceMaterializeExecutor
+
+
+def _q19_mview(capacity: int, table_id: str, dev) -> DeviceMaterializeExecutor:
+    return DeviceMaterializeExecutor(
+        pk=("_row_id",),
+        columns=("auction", "bidder", "price", "channel", "date_time"),
+        schema_dtypes=BID_DTYPES,
+        table_id=table_id,
+        capacity=capacity,
+        device=dev,
+    )
+
+
+def build_q19(capacity: int = 1 << 16, mv_capacity: Optional[int] = None,
+              device="cuda") -> Q19:
+    """Nexmark q19, the top 10 bids per auction by price, without the
+    rank column (the planner refuses to select it)::
+
+      SELECT * FROM (SELECT *, ROW_NUMBER() OVER (PARTITION BY auction
+        ORDER BY price DESC) AS rank_number FROM bid) WHERE rank_number <= 10
+
+      bid -> RowIdGen(_row_id) -> RetractableGroupTopN(auction, price DESC,
+        10, pk _row_id) -> MV pk=(_row_id)
+
+    as the row_number rule lowers it. The store holds every bid
+    (``capacity`` sizes it); price ties go to the earlier bid (the store
+    orders by pk, and row ids rise with arrival). ``fuse_pipeline``
+    fuses the MV behind the TopN's bucketed emissions.
+    """
+    dev = resolve_device(device)
+    topn = RetractableGroupTopNExecutor(
+        group_by=("auction",), order_col="price", limit=Q19_TOP, pk=("_row_id",),
+        schema_dtypes=BID_DTYPES, desc=True, capacity=capacity, table_id="q19.gtopn",
+        device=dev,
+    )
+    mview = _q19_mview(mv_capacity or max(1 << 12, capacity >> 2), "q19.mview", dev)
+    rowid = RowIdGenExecutor(table_id="q19.rowid")
+    return Q19(Pipeline([rowid, topn, mview]), topn, mview)
+
+
+def build_q19_append_only(capacity: int = 1 << 14, out_cap: int = 1 << 17,
+                          mv_capacity: Optional[int] = None, device="cuda") -> Q19:
+    """q19 on the append-only GroupTopN, the executor RisingWave's planner
+    picks for an insert-only input: per auction a band of the 10 best
+    (price, payload) entries, every other bid column the payload::
+
+      bid -> RowIdGen(_row_id) -> GroupTopN(auction, price DESC, 10,
+        payload bidder, channel, date_time, _row_id) -> MV pk=(_row_id)
+
+    Ties go to the incumbents, then to chunk order: the same rows as
+    ``build_q19``'s. ``capacity`` sizes the auction table; every emission
+    chunk has ``out_cap`` rows.
+    """
+    dev = resolve_device(device)
+    topn = GroupTopNExecutor(
+        group_keys=("auction",), order_col="price", k=Q19_TOP, schema_dtypes=BID_DTYPES,
+        payload=("bidder", "channel", "date_time", "_row_id"), desc=True, capacity=capacity,
+        out_cap=out_cap, table_id="q19ao.topn", device=dev,
+    )
+    mview = _q19_mview(mv_capacity or max(1 << 12, 4 * capacity), "q19ao.mview", dev)
+    rowid = RowIdGenExecutor(table_id="q19ao.rowid")
+    return Q19(Pipeline([rowid, topn, mview]), topn, mview)
+
+
+@dataclass
+class Q105:
+    pipeline: TwoInputPipeline
+    agg: HashAggExecutor
+    join: HashJoinExecutor
+    topn: TopNExecutor
+    mview: DeviceMaterializeExecutor
+
+
+def build_q105(
+    capacity: int = 1 << 16,
+    agg_capacity: Optional[int] = None,
+    fanout: int = 4,
+    out_cap: int = 1 << 14,
+    topn_capacity: Optional[int] = None,
+    limit: int = Q105_TOP,
+    device="cuda",
+) -> Q105:
+    """RisingWave's Nexmark q105, the auctions with the most bids::
+
+      SELECT a.id AS auction_id, a.item_name AS auction_item_name,
+        COUNT(b.auction) AS bid_count
+      FROM auction a JOIN bid b ON a.id = b.auction
+      GROUP BY a.id, a.item_name ORDER BY bid_count DESC LIMIT 1000
+
+      auction (id, item_name)                        ┐ INNER JOIN
+      bid -> HashAgg COUNT(*) AS bid_count by auction ┘ id = auction
+          -> TopN(bid_count DESC, 1000, pk (id, auction)) -> MV pk=(id, auction)
+
+    A plan change from the published one, which groups the join's
+    output: here the count is taken before the join. The published
+    plan's join side would hold every bid of an auction under one key,
+    far past the join sides' bucket fanout (4-16 rows a key); auction
+    ids are unique, so the relation is the same. The agg's U-/U+ pairs
+    reach the TopN through the join as retractions. Drive with
+    ``push_left(auction.select(["id", "item_name"]))``,
+    ``push_right(bid)``, ``barrier()``. ``fuse_pipeline`` refuses the
+    whole program (the TopN in the tail) and falls back per chain, as the
+    reference does: an epoch-batched agg, the join and the TopN
+    interpreted, the MV behind the TopN one program.
+    """
+    dev = resolve_device(device)
+    i64 = torch.int64
+    agg = HashAggExecutor(
+        group_keys=("auction",),
+        calls=(AggCall("count_star", None, "bid_count"),),
+        schema_dtypes={"auction": i64},
+        capacity=agg_capacity or capacity,
+        table_id="q105.agg",
+        device=dev,
+    )
+    join = HashJoinExecutor(
+        left_keys=("id",), right_keys=("auction",),
+        left_dtypes={"id": i64, "item_name": torch.int32},
+        right_dtypes={"auction": i64, "bid_count": i64},
+        capacity=capacity, fanout=fanout, out_cap=out_cap, join_type="inner",
+        table_id="q105.join", device=dev,
+    )
+    dtypes = {"id": i64, "item_name": torch.int32, "auction": i64, "bid_count": i64}
+    topn = TopNExecutor("bid_count", limit, pk=("id", "auction"), schema_dtypes=dtypes,
+                        desc=True, capacity=topn_capacity or capacity, table_id="q105.topn",
+                        device=dev)
+    mview = DeviceMaterializeExecutor(
+        pk=("id", "auction"), columns=("item_name", "bid_count"), schema_dtypes=dtypes,
+        table_id="q105.mview", capacity=1 << 12, device=dev,
+    )
+    pipeline = TwoInputPipeline([], [agg], join, [topn, mview])
+    return Q105(pipeline, agg, join, topn, mview)

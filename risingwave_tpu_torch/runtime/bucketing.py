@@ -1,12 +1,17 @@
 """Capacity planning for the padded state tables.
 
 Port of the part of ``risingwave_tpu/runtime/bucketing.py`` (:74-127,
-:160-416) that the HashAgg, device-MV, dedup and join ``_maybe_grow``
-and the fused programs' flush rounds and growth hints use: tables
-walk a power-of-two lattice, grow eagerly past the load factor and
-shrink lazily after ``patience`` quiet barriers, so a window churning at
-a bucket boundary grows once and stays. The governor pin/veto hooks and
-the environment overrides are not ported.
+:160-416) that the HashAgg, device-MV, dedup, join and TopN
+``_maybe_grow`` and the fused programs' flush rounds and growth hints
+use: tables walk a power-of-two lattice, grow eagerly past the load
+factor and shrink lazily after ``patience`` quiet barriers, so a window
+churning at a bucket boundary grows once and stays. The host-diff
+executors (plain and retractable TopN) pad their emissions to a pow2
+bucket (``emission_bucket``). The governor pin/veto hooks and the
+environment overrides are not ported; no executor of the port has the
+reference's unbucketed twin, so ``needs_plan`` and ``plan_capacity``
+(:417, :432) reduce to the allocator's ``should_plan`` and ``plan``,
+which the executors call directly.
 """
 
 from __future__ import annotations
@@ -24,6 +29,24 @@ def pow2_at_least(n: int) -> int:
     """Smallest power of two >= max(n, 1)."""
     n = max(int(n), 1)
     return 1 << (n - 1).bit_length()
+
+
+def lattice_between(lo: int, hi: int) -> Tuple[int, ...]:
+    """All pow2 capacities in [lo, hi] (lo/hi rounded up to pow2)."""
+    lo = pow2_at_least(lo)
+    hi = max(pow2_at_least(hi), lo)
+    out = []
+    c = lo
+    while c <= hi:
+        out.append(c)
+        c <<= 1
+    return tuple(out)
+
+
+def emission_bucket(n: int, floor: int = 2) -> int:
+    """Pow2 emission capacity for an n-row host-built delta chunk, so
+    downstream programs see at most log2(max delta) distinct shapes."""
+    return pow2_at_least(max(int(n), floor))
 
 
 def flush_pad(out_cap: int, emitted_bound: int) -> int:
@@ -75,6 +98,9 @@ class BucketPolicy:
         hi = min(lo << DEFAULT_MAX_STEPS, ABS_MAX_CAP)
         return BucketPolicy(min_cap=lo, max_cap=max(hi, lo), grow_at=grow_at)
 
+    def lattice(self) -> Tuple[int, ...]:
+        return lattice_between(self.min_cap, self.max_cap)
+
 
 class BucketAllocator:
     """Capacity planner for one table: ``plan`` picks the next capacity
@@ -95,6 +121,10 @@ class BucketAllocator:
         if not self._saturated and bound + incoming > cap * self.policy.grow_at:
             return True
         return self._pending_shrink is not None and self._pending_shrink < cap
+
+    @property
+    def lattice(self) -> Tuple[int, ...]:
+        return self.policy.lattice()
 
     def plan(
         self,

@@ -380,6 +380,36 @@ def test_mv_deltas_equal_reference():
     assert tombs and port.snapshot() == ref.snapshot()
 
 
+def test_mv_restore_leaves_room_for_an_epoch():
+    """A device MV restored from n rows takes a next epoch of n/2 new
+    keys (q19's pattern: 985,672 rows, then 492,877) without passing
+    the load at which a barrier grows it. The reference's restore size,
+    ``grow_pow2(n, 2^10)``, leaves that chunk at load 0.71, under the
+    mid-epoch guard's 0.75, where kernel A's probe bound can fail."""
+    from risingwave_tpu_torch.executors.materialize import GROW_AT, DeviceMaterializeExecutor
+
+    def mv():
+        return DeviceMaterializeExecutor(("k",), ("a",), {"k": torch.int64, "a": torch.int64},
+                                         table_id="mv", capacity=1 << 10, device="cpu")
+
+    n, more = 500, 230
+    first = mv()
+    rows = {"k": np.arange(n, dtype=np.int64), "a": np.arange(n, dtype=np.int64) * 3}
+    first.apply(StreamChunk.from_numpy(rows, 512, device="cpu"))
+    first.on_barrier(None)
+    (delta,) = first.checkpoint_delta()
+    restored = mv()
+    restored.restore_state("mv", delta.key_cols, delta.value_cols)
+    assert restored.snapshot() == first.snapshot()
+    nxt = {"k": n + np.arange(more, dtype=np.int64), "a": np.ones(more, np.int64)}
+    for ex in (first, restored):
+        ex.apply(StreamChunk.from_numpy(nxt, 256, device="cpu"))
+    assert int(restored.table.occupancy()) <= restored.table.capacity * GROW_AT
+    restored.on_barrier(None)
+    first.on_barrier(None)
+    assert restored.snapshot() == first.snapshot() and len(restored.snapshot()) == n + more
+
+
 # -- kill-and-recover, held against the reference -------------------------------
 def _checkpointables(pipeline):
     return [ex for ex in expand_fused(pipeline.executors) if hasattr(ex, "checkpoint_delta")]

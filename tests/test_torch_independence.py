@@ -1,6 +1,6 @@
 """The port stands alone: ``risingwave_tpu_torch`` imports neither jax nor
-``risingwave_tpu``, runs q5, q8 and q7 (with watermarks) on the CPU when
-asked to, commits and recovers q5 through its own storage layer, and
+``risingwave_tpu``, runs q5, q8, q7 (with watermarks) and q19 (both
+TopN executors) on the CPU when asked to, commits and recovers q5 through its own storage layer, and
 refuses to fall back to the CPU when CUDA is asked for but absent.
 
 A subprocess is needed because tests/conftest.py imports jax into every
@@ -38,7 +38,7 @@ for m in ("runtime.fused_step", "executors.epoch_batch", "integrity", "executors
           "storage.sstable", "storage.object_store", "resilience", "metrics", "event_log",
           "ops.checkpoint", "expr.expr", "expr.functions", "expr.dtypes", "ops.expr_vm",
           "executors.filter", "executors.project", "executors.watermark_filter",
-          "executors.row_id_gen"):
+          "executors.row_id_gen", "executors.top_n", "executors.top_n_plain"):
     assert "risingwave_tpu_torch." + m in mods, m
 assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
 
@@ -111,8 +111,21 @@ for fuse in (False, True):
 assert q7_snaps[0] and q7_snaps[0] == q7_snaps[1] and len(w7.last_digests) == 5
 assert int(q7.agg.table.live.sum()) < int(q7.agg.table.occupancy())
 
+from risingwave_tpu_torch.queries.nexmark_q import build_q19, build_q19_append_only
+
+q19s = [build_q19(capacity=1 << 10, device="cpu"),
+        build_q19_append_only(capacity=1 << 8, out_cap=1 << 11, device="cpu")]
+gen = NexmarkGenerator(NexmarkConfig(first_event_rate=10_000))
+for _ in range(2):
+    bid = gen.next_chunks(600, 600, device="cpu")["bid"]
+    for q in q19s:
+        q.pipeline.push(bid)
+        q.pipeline.barrier()
+assert q19s[0].mview.snapshot() == q19s[1].mview.snapshot() != {}
+
 assert not torch.cuda.is_available()
 for make in (lambda: build_q5_lite(), lambda: build_q8(), lambda: build_q7(),
+             lambda: build_q19(), lambda: build_q19_append_only(),
              lambda: NexmarkGenerator().next_chunks(10, 16)):
     try:
         make()

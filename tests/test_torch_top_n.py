@@ -1,0 +1,800 @@
+"""Kernels U, V, W and X and the TopN executors: the port's plain
+PyTorch versions (``executors/top_n.py``, ``executors/top_n_plain.py``,
+``ops/agg.topn_order_key``) against ``risingwave_tpu`` on JAX-CPU, on
+the same seeded inputs, and the reference's own TopN tests
+(``tests/test_top_n.py``, the TopN cases of
+``tests/test_simple_agg_topn.py``) run on the port.
+
+On the CPU the port's hash table places keys in the reference's slots,
+so bands, row lanes, marks and masks compare slot for slot; emissions
+compare exactly (the append-only step) or as a multiset per chunk with
+the chunks' ops and capacities equal (the host diffs, whose row order
+is the reference's dict order); digests and checkpoint deltas exactly.
+Tolerance: none.
+"""
+
+import collections
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from risingwave_tpu.array.chunk import StreamChunk as RefChunk
+from risingwave_tpu.executors import top_n as rtn
+from risingwave_tpu.executors import top_n_plain as rtp
+from risingwave_tpu.executors.base import Barrier, Epoch
+from risingwave_tpu.executors.base import Watermark as RefWatermark
+from risingwave_tpu.ops import hash_table as rht
+from risingwave_tpu.types import Op
+from risingwave_tpu_torch import _kernels
+from risingwave_tpu_torch.array.chunk import StreamChunk
+from risingwave_tpu_torch.executors import top_n as ptn
+from risingwave_tpu_torch.executors import top_n_plain as ptp
+from risingwave_tpu_torch.executors.base import Watermark
+from risingwave_tpu_torch.ops import hash_table as pht
+from risingwave_tpu_torch.ops.agg import topn_order_key
+
+I64, I32 = jnp.int64, jnp.int32
+IMAX, IMIN = np.iinfo(np.int64).max, np.iinfo(np.int64).min
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _pair(cols, cap, ops=None):
+    ops = None if ops is None else np.asarray(ops, np.int32)
+    return (RefChunk.from_numpy(cols, cap, ops=ops),
+            StreamChunk.from_numpy(cols, cap, ops=ops, device="cpu"))
+
+
+def _eq(port: torch.Tensor, ref) -> None:
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+
+
+def _multiset(outs) -> collections.Counter:
+    c = collections.Counter()
+    for o in outs:
+        d = o.to_numpy(with_ops=True)
+        names = sorted(k for k in d if k != "__op__")
+        for i in range(len(d["__op__"])):
+            c[(int(d["__op__"][i]),) + tuple(d[n][i].item() for n in names)] += 1
+    return c
+
+
+def _same_emission(ref_outs, port_outs) -> None:
+    """One DELETE chunk then one INSERT chunk, each of the reference's
+    capacity and equal to it as a multiset."""
+    assert [o.capacity for o in port_outs] == [o.capacity for o in ref_outs]
+    for r, p in zip(ref_outs, port_outs):
+        assert _multiset([p]) == _multiset([r])
+        assert set(p.to_numpy()["__op__"].tolist()) == set(r.to_numpy()["__op__"].tolist())
+
+
+def _same_deltas(ref_deltas, port_deltas) -> None:
+    assert len(port_deltas) == len(ref_deltas)
+    for r, p in zip(ref_deltas, port_deltas):
+        assert (p.table_id, p.key_order) == (r.table_id, r.key_order)
+        assert p.key_cols.keys() == r.key_cols.keys() and p.value_cols.keys() == r.value_cols.keys()
+        for k in r.key_cols:
+            np.testing.assert_array_equal(p.key_cols[k], np.asarray(r.key_cols[k]))
+        for k in r.value_cols:
+            np.testing.assert_array_equal(p.value_cols[k], np.asarray(r.value_cols[k]))
+        np.testing.assert_array_equal(p.tombstone, np.asarray(r.tombstone))
+
+
+# -- the order key ---------------------------------------------------------------
+_FLOATS = [-np.inf, -1e30, -1.5, -0.0, 0.0, 1e-30, 2.5, 1e30, np.inf, np.nan, -np.nan]
+_INTS = [IMIN, IMIN + 1, -5, -1, 0, 1, 7, IMAX - 1, IMAX]
+
+
+@pytest.mark.parametrize("desc", [False, True], ids=["asc", "desc"])
+@pytest.mark.parametrize("dtype", ["float64", "float32", "int64", "int32", "bool"])
+def test_order_key_is_the_references_unsigned_key(dtype, desc):
+    """Flipping bit 63 of the port's int64 key gives the reference's
+    uint64 key bit for bit, so signed order is the reference's unsigned
+    order: negative floats, signed zeros and NaN (one key, above
+    everything), INT64_MIN/MAX, both directions. Normal floats only: XLA
+    on the CPU flushes subnormals, PyTorch keeps them."""
+    vals = {"float64": np.asarray(_FLOATS, np.float64),
+            "float32": np.asarray(_FLOATS, np.float32),
+            "int64": np.asarray(_INTS, np.int64),
+            "int32": np.asarray([-2**31, -3, 0, 5, 2**31 - 1], np.int32),
+            "bool": np.asarray([True, False, True])}[dtype]
+    want = np.asarray(rtp._order_key_u64(jnp.asarray(vals), desc)).astype(np.uint64)
+    got = topn_order_key(torch.from_numpy(vals), desc).numpy()
+    np.testing.assert_array_equal(got.view(np.uint64) ^ np.uint64(1 << 63), want)
+    np.testing.assert_array_equal(np.argsort(got, kind="stable"), np.argsort(want, kind="stable"))
+
+
+# -- kernel U and the append-only GroupTopN ------------------------------------------
+DT_R = {"g": I64, "v": I64, "p": I32}
+DT_P = {"g": torch.int64, "v": torch.int64, "p": torch.int32}
+
+
+def _band_stream(rng, steps, n_max=60, groups=40, vmax=50):
+    for _ in range(steps):
+        n = int(rng.integers(5, n_max))
+        yield {"g": rng.integers(0, groups, n).astype(np.int64),
+               "v": rng.integers(-vmax, vmax, n).astype(np.int64),
+               "p": rng.integers(0, 1000, n).astype(np.int32)}
+
+
+def _group_topn_pair(k, desc, cap=64, out_cap=128, **kw):
+    return (rtn.GroupTopNExecutor(("g",), "v", k, DT_R, payload=("p",), desc=desc, capacity=cap,
+                                  out_cap=out_cap, **kw),
+            ptn.GroupTopNExecutor(("g",), "v", k, DT_P, payload=("p",), desc=desc, capacity=cap,
+                                  out_cap=out_cap, device="cpu", **kw))
+
+
+def _same_bands(r, p) -> None:
+    assert p.table.capacity == r.table.capacity
+    _eq(p.table.fp1.view(torch.int32), np.asarray(r.table.fp1).view(np.int32))
+    _eq(p.table.keys[0], r.table.keys[0])
+    _eq(p.table.live, r.table.live)
+    assert p.state.keys() == r.state.keys()
+    for name in r.state:
+        _eq(p.state[name], r.state[name])
+
+
+@pytest.mark.parametrize("k,desc", [(1, True), (3, True), (3, False), (10, True)])
+def test_band_step_matches_reference(k, desc):
+    """U's plain version through the executor, chunk by chunk from a
+    64-slot table that grows (``_topn_rebuild``): the emission chunk
+    lane for lane (DELETEs first, by leader row and band position, then
+    INSERTs by row), every band lane (stale entries included), live,
+    sdirty and the digest."""
+    rng = np.random.default_rng(k * 10 + desc)
+    r, p = _group_topn_pair(k, desc)
+    for cols in _band_stream(rng, 14):
+        rc, pc = _pair(cols, 64)
+        (ro,), (po,) = r.apply(rc), p.apply(pc)
+        _eq(po.valid, ro.valid)
+        _eq(po.ops, ro.ops)
+        assert po.columns.keys() == ro.columns.keys()
+        for c in ro.columns:
+            _eq(po.columns[c], ro.columns[c])
+        _same_bands(r, p)
+        r.on_barrier(Barrier(Epoch(0, 1)))
+        p.on_barrier(None)
+        assert p.state_digest() == r.state_digest()
+    assert p.table.capacity > 64
+
+
+def test_band_step_latches_match_reference():
+    """A DELETE latches saw_delete, a full table dropped, a chunk
+    emitting past out_cap overflow: each raises at the barrier, as the
+    reference's."""
+    for make, cols, ops, msg in [
+        (dict(cap=64), {"g": [1, 2], "v": [3, 4], "p": [0, 0]}, [0, 1], "DELETE"),
+        (dict(cap=64, out_cap=4), {"g": list(range(8)), "v": [1] * 8, "p": [0] * 8}, None,
+         "out_cap"),
+    ]:
+        r, p = _group_topn_pair(2, True, **make)
+        c = {k: np.asarray(v, np.int32 if k == "p" else np.int64) for k, v in cols.items()}
+        rc, pc = _pair(c, 16, ops)
+        r.apply(rc)
+        p.apply(pc)
+        with pytest.raises(RuntimeError, match=msg):
+            r.on_barrier(Barrier(Epoch(0, 1)))
+        with pytest.raises(RuntimeError, match=msg):
+            p.on_barrier(None)
+
+
+def test_topn_rebuild_matches_reference():
+    rng = np.random.default_rng(4)
+    r, p = _group_topn_pair(4, True, cap=256)
+    for cols in _band_stream(rng, 3):
+        rc, pc = _pair(cols, 64)
+        r.apply(rc)
+        p.apply(pc)
+    for new_cap in (512, 256):
+        rt, rs = rtn._topn_rebuild(r.table, r.state, new_cap)
+        pt, ps = ptn.topn_rebuild(p.table, p.state, new_cap)
+        _eq(pt.live, rt.live)
+        _eq(pt.keys[0], rt.keys[0])
+        for name in rs:
+            _eq(ps[name], rs[name])
+
+
+def test_group_topn_window_watermark_matches_reference():
+    """``window_key``: a watermark expires the groups below it (dead,
+    sdirty, bands cleared), slot for slot as the reference; later rows
+    of a closed window start a fresh band."""
+    rng = np.random.default_rng(6)
+    r, p = _group_topn_pair(3, True, cap=128, window_key=("g", 5))
+    for i, cols in enumerate(_band_stream(rng, 6)):
+        rc, pc = _pair(cols, 64)
+        (ro,), (po,) = r.apply(rc), p.apply(pc)
+        for c in ro.columns:
+            _eq(po.columns[c], ro.columns[c])
+        r.on_watermark(RefWatermark("g", 10 + 4 * i))
+        p.on_watermark(Watermark("g", 10 + 4 * i))
+        _same_bands(r, p)
+        _eq(p.state["sdirty"], r.state["sdirty"])
+        assert p.state_digest() == r.state_digest()
+
+
+def test_group_topn_checkpoint_delta_and_restore_match_reference():
+    """Each barrier's delta (the changed groups' whole bands as 2-D rows,
+    tombstones of expired groups) equals the reference's; a restore from
+    the store equals the reference's restore slot for slot."""
+    from risingwave_tpu.storage import CheckpointManager as RefManager
+    from risingwave_tpu.storage import MemObjectStore as RefStore
+    from risingwave_tpu_torch.storage import CheckpointManager, MemObjectStore
+
+    rng = np.random.default_rng(8)
+    r, p = _group_topn_pair(3, True, cap=128, window_key=("g", 5), table_id="gtn")
+    rm, pm = RefManager(RefStore()), CheckpointManager(MemObjectStore())
+    for i, cols in enumerate(_band_stream(rng, 5)):
+        rc, pc = _pair(cols, 64)
+        r.apply(rc)
+        p.apply(pc)
+        if i == 2:
+            r.on_watermark(RefWatermark("g", 15))
+            p.on_watermark(Watermark("g", 15))
+        rd, pd = r.checkpoint_delta(), p.checkpoint_delta()
+        _same_deltas(rd, pd)
+        rm.commit_staged(i + 1, rd)
+        pm.commit_staged(i + 1, pd)
+    r2, p2 = _group_topn_pair(3, True, cap=128, window_key=("g", 5), table_id="gtn")
+    rm.recover([r2])
+    pm.recover([p2])
+    _same_bands(r2, p2)
+    assert p2.state_digest() == r2.state_digest() == r.state_digest()
+
+
+# the reference's own GroupTopN tests (tests/test_top_n.py), on the port
+def _replay(outs, snap, names=("g", "v", "p")):
+    for out in outs:
+        d = out.to_numpy(with_ops=True)
+        for i in range(len(d["__op__"])):
+            row = tuple(int(d[n][i]) for n in names)
+            snap[row] = snap.get(row, 0) + (1 if d["__op__"][i] == Op.INSERT else -1)
+            if snap[row] == 0:
+                del snap[row]
+    return snap
+
+
+def _chunk(g, v, p, cap=64):
+    cols = {"g": np.asarray(g, np.int64), "v": np.asarray(v, np.int64),
+            "p": np.asarray(p, np.int64)}
+    return StreamChunk.from_numpy(cols, cap, device="cpu")
+
+
+def _topk_oracle(rows, k, desc=True):
+    groups = collections.defaultdict(list)
+    for i, (g, v, p) in enumerate(rows):
+        groups[g].append((v, i, p))
+    want = {}
+    for g, items in groups.items():
+        items.sort(key=lambda t: (-t[0], t[1]) if desc else (t[0], t[1]))
+        for v, _, p in items[:k]:
+            want[(g, v, p)] = want.get((g, v, p), 0) + 1
+    return want
+
+
+DT64 = {"g": torch.int64, "v": torch.int64, "p": torch.int64}
+
+
+def test_topn_basic_and_eviction():
+    ex = ptn.GroupTopNExecutor(("g",), "v", k=2, schema_dtypes=DT64, payload=("p",), desc=True,
+                               capacity=1 << 8, out_cap=1 << 8, device="cpu")
+    snap = {}
+    _replay(ex.apply(_chunk([1, 1, 1], [10, 30, 20], [100, 101, 102])), snap)
+    ex.on_barrier(None)
+    assert snap == {(1, 30, 101): 1, (1, 20, 102): 1}
+    _replay(ex.apply(_chunk([1], [25], [103])), snap)
+    assert snap == {(1, 30, 101): 1, (1, 25, 103): 1}
+    _replay(ex.apply(_chunk([1], [5], [104])), snap)
+    assert snap == {(1, 30, 101): 1, (1, 25, 103): 1}
+
+
+@pytest.mark.parametrize("desc,k,cap", [(True, 4, 1 << 6), (False, 3, 1 << 8)],
+                         ids=["desc_regrow", "asc"])
+def test_topn_random_vs_oracle(desc, k, cap):
+    rng = np.random.default_rng(11 + k)
+    ex = ptn.GroupTopNExecutor(("g",), "v", k=k, schema_dtypes=DT64, payload=("p",), desc=desc,
+                               capacity=cap, out_cap=1 << 10, device="cpu")
+    snap, rows = {}, []
+    for _ in range(12):
+        n = int(rng.integers(5, 60))
+        g = rng.integers(0, 30, n)
+        v = rng.integers(-5000, 10_000, n)
+        p = rng.integers(0, 1000, n)
+        rows += list(zip(g.tolist(), v.tolist(), p.tolist()))
+        _replay(ex.apply(_chunk(g, v, p)), snap)
+        ex.on_barrier(None)
+    assert snap == _topk_oracle(rows, k, desc) and len(snap) > 50
+
+
+def test_topn_checkpoint_recovery():
+    from risingwave_tpu_torch.storage import CheckpointManager, MemObjectStore
+
+    rng = np.random.default_rng(12)
+    store = MemObjectStore()
+    mgr = CheckpointManager(store)
+    mk = lambda: ptn.GroupTopNExecutor(("g",), "v", k=3, schema_dtypes=DT64, payload=("p",),
+                                       capacity=1 << 8, out_cap=1 << 10, table_id="topn",
+                                       device="cpu")
+    ex = mk()
+    for epoch in range(4):
+        ex.apply(_chunk(rng.integers(0, 20, 50), rng.integers(0, 100_000, 50),
+                        rng.integers(0, 100, 50)))
+        ex.on_barrier(None)
+        mgr.commit_epoch(epoch + 1, [ex])
+    ex2 = mk()
+    CheckpointManager(store).recover([ex2])
+    g, v, p = rng.integers(0, 20, 30), rng.integers(0, 100_000, 30), rng.integers(0, 100, 30)
+    assert _replay(ex.apply(_chunk(g, v, p)), {}) == _replay(ex2.apply(_chunk(g, v, p)), {})
+    order = lambda e: np.sort(e.state["order"][e.table.live].numpy(), axis=None)
+    np.testing.assert_array_equal(order(ex), order(ex2))
+
+
+# -- kernels V, W, X and the retractable executors ----------------------------------
+DTR = {"g": I64, "id": I64, "v": I64}
+DTP = {"g": torch.int64, "id": torch.int64, "v": torch.int64}
+
+
+def _retract_stream(rng, epochs, groups=5, vmax=30, floats=False):
+    """Per epoch a chunk of inserts, deletes and U-/U+ updates over a
+    live relation (id -> (g, v))."""
+    live, nid = {}, 0
+    for _ in range(epochs):
+        ops, gs, ids, vs = [], [], [], []
+        for _ in range(int(rng.integers(3, 25))):
+            if live and rng.random() < 0.4:
+                id_ = int(rng.choice(sorted(live)))
+                g, v = live[id_]
+                if rng.random() < 0.5:
+                    ops.append(int(Op.DELETE))
+                    gs.append(g), ids.append(id_), vs.append(v)
+                    del live[id_]
+                else:
+                    nv = int(rng.integers(0, vmax))
+                    ops += [int(Op.UPDATE_DELETE), int(Op.UPDATE_INSERT)]
+                    gs += [g, g]
+                    ids += [id_, id_]
+                    vs += [v, nv]
+                    live[id_] = (g, nv)
+            else:
+                g, v = int(rng.integers(0, groups)), int(rng.integers(0, vmax))
+                ops.append(int(Op.INSERT))
+                gs.append(g), ids.append(nid), vs.append(v)
+                live[nid] = (g, v)
+                nid += 1
+        cols = {"g": np.asarray(gs, np.int64), "id": np.asarray(ids, np.int64),
+                "v": np.asarray(vs, np.float64 if floats else np.int64)}
+        yield cols, np.asarray(ops, np.int32), dict(live)
+
+
+def _stores(kind, desc, cap=32, **kw):
+    if kind == "plain":
+        return (rtp.TopNExecutor("v", 5, ("id",), DTR, desc=desc, capacity=cap, table_id="t", **kw),
+                ptp.TopNExecutor("v", 5, ("id",), DTP, desc=desc, capacity=cap, table_id="t",
+                                 device="cpu", **kw))
+    return (rtp.RetractableGroupTopNExecutor(("g",), "v", 3, ("id",), DTR, desc=desc,
+                                             capacity=cap, table_id="t", **kw),
+            ptp.RetractableGroupTopNExecutor(("g",), "v", 3, ("id",), DTP, desc=desc,
+                                             capacity=cap, table_id="t", device="cpu", **kw))
+
+
+def _same_store(r, p) -> None:
+    assert p.table.capacity == r.table.capacity
+    for a, b in zip(p.table.keys, r.table.keys):
+        _eq(a, b)
+    _eq(p.table.live, r.table.live)
+    for n in r.rows:
+        _eq(p.rows[n], r.rows[n])
+    _eq(p.sdirty, r.sdirty)
+    _eq(p.stored, r.stored)
+
+
+@pytest.mark.parametrize("desc", [False, True], ids=["asc", "desc"])
+@pytest.mark.parametrize("kind", ["plain", "group"])
+def test_retractable_topn_matches_reference(kind, desc):
+    """Chunk after chunk of inserts, deletes and U-/U+ updates into a
+    32-slot store that grows: every row lane, live and the marks slot for
+    slot (kernel V's last-row rule), the barrier's DELETE and INSERT
+    chunks as multisets with the reference's capacities (W or X, then
+    the diff), digests and checkpoint deltas (tombstones with their
+    lanes)."""
+    rng = np.random.default_rng(21 + desc)
+    r, p = _stores(kind, desc)
+    for e, (cols, ops, _) in enumerate(_retract_stream(rng, 15)):
+        rc, pc = _pair(cols, 64, ops)
+        assert r.apply(rc) == [] and p.apply(pc) == []
+        if kind == "group":
+            _eq(p.epoch_dirty, r.epoch_dirty)
+        _same_store(r, p)
+        _same_emission(r.on_barrier(None), p.on_barrier(None))
+        assert p.state_digest() == r.state_digest()
+        if e % 3 == 2:
+            _same_deltas(r.checkpoint_delta(), p.checkpoint_delta())
+    assert p.table.capacity > 32
+
+
+def _upsert_runs(with_ed, ids_range, steps=5, cap=64, seed=31):
+    """Kernel V's plain version and the reference's step over the same
+    chunks (duplicates of one pk in a chunk, every op): yields after
+    each chunk (reference lanes, port lanes, reference dropped, port
+    dropped)."""
+    rng = np.random.default_rng(seed)
+    names = ("g", "id", "v")
+    rt = rht.HashTable.create(cap, (I64,))
+    rrows = {n: jnp.zeros(cap, I64) for n in names}
+    rsd, red = jnp.zeros(cap, bool), jnp.zeros(cap, bool)
+    pt = pht.HashTable.create(cap, (torch.int64,), device="cpu")
+    prows = {n: torch.zeros(cap, dtype=torch.int64) for n in names}
+    psd, ped = torch.zeros(cap, dtype=torch.bool), torch.zeros(cap, dtype=torch.bool)
+    dropped, r_drop = torch.zeros((), dtype=torch.bool), False
+    scratch = ptp.last_scratch(cap, "cpu")
+    for _ in range(steps):
+        n = 40
+        cols = {"g": rng.integers(0, 4, n), "id": rng.integers(0, ids_range, n),
+                "v": rng.integers(-9, 9, n)}
+        rc, pc = _pair(cols, 48, rng.integers(0, 4, n))
+        if with_ed:
+            rt, rrows, rsd, red, drop = rtp._upsert_step_ed(rt, rrows, rsd, red, rc, ("id",),
+                                                            names)
+        else:
+            rt, rrows, rsd, drop = rtp._upsert_step(rt, rrows, rsd, rc, ("id",), names)
+        r_drop |= bool(drop)
+        pt = ptp.upsert_step(pt, prows, psd, pc, ("id",), names, scratch, dropped,
+                             ped if with_ed else None)
+        ref = {"live": rt.live, "sdirty": rsd, **{f"r_{n}": rrows[n] for n in names},
+               "key": rt.keys[0], **({"ed": red} if with_ed else {})}
+        port = {"live": pt.live, "sdirty": psd, **{f"r_{n}": prows[n] for n in names},
+                "key": pt.keys[0], **({"ed": ped} if with_ed else {})}
+        yield ({k: np.asarray(v) for k, v in ref.items()},
+               {k: v.numpy().copy() for k, v in port.items()}, r_drop, bool(dropped))
+
+
+@pytest.mark.parametrize("with_ed", [False, True], ids=["upsert", "upsert_ed"])
+def test_upsert_step_matches_reference(with_ed):
+    """Kernel V's plain version alone: the last row per pk writes every
+    lane (deletes too), live by its sign, sdirty (and epoch_dirty), slot
+    for slot."""
+    for ref, port, r_drop, p_drop in _upsert_runs(with_ed, ids_range=50):
+        assert ref.keys() == port.keys()
+        for k in ref:
+            np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
+        assert not r_drop and not p_drop
+
+
+@pytest.mark.parametrize("with_ed", [False, True], ids=["upsert", "upsert_ed"])
+def test_upsert_dropped_row_writes_nothing(with_ed):
+    """A row whose pk finds no slot (90 ids into 64 slots) latches
+    dropped in both packages, and the barrier raises. The reference's
+    scatter index for it is -1, which JAX wraps to the last slot: its
+    lanes and marks land in slot 63, over that slot's own row. The port
+    writes nothing for it (kernel D's rule), so every slot but the last
+    equals the reference's and the last keeps its own row."""
+    for ref, port, r_drop, p_drop in _upsert_runs(with_ed, ids_range=90):
+        assert r_drop == p_drop
+        for k in ref:
+            np.testing.assert_array_equal(port[k][:-1], ref[k][:-1], err_msg=k)
+    assert p_drop
+    assert port["r_id"][-1] == port["key"][-1] and ref["r_id"][-1] != ref["key"][-1]
+
+
+def _ranked_store(rng, cap=128, n=90, extremes=True):
+    """A reference row store and its port twin after inserts and deletes,
+    INT64 extremes among the order values of live and dead rows."""
+    r, p = _stores("group", False, cap=cap)
+    for e, (cols, ops, _) in enumerate(_retract_stream(rng, 6, groups=6, vmax=40)):
+        if e:
+            r.on_barrier(None)
+            p.on_barrier(None)
+        if extremes:
+            cols["v"][::7] = IMAX
+            cols["v"][3::11] = IMIN
+        rc, pc = _pair(cols, 64, ops)
+        r.apply(rc)
+        p.apply(pc)
+    return r, p
+
+
+@pytest.mark.parametrize("desc", [False, True], ids=["asc", "desc"])
+def test_rank_top_matches_reference(desc):
+    """Kernel W's plain version: the live prefix of the top-n slots and
+    every slot's liveness flag equal the reference's ``_rank_top``; no
+    dead row (whatever its INT64-extreme order value) precedes a live
+    one. The dead tail's order is left out (``lax.sort`` is unstable on
+    unclaimed slots, whose keys tie)."""
+    r, p = _ranked_store(np.random.default_rng(41))
+    for n in (3, 20, 128):
+        ridx, ralive = rtp._rank_top(r.table, r.rows["v"], n, desc)
+        pidx, palive = ptp.rank_top(p.table, p.rows["v"], n, desc)
+        ralive = np.asarray(ralive)
+        _eq(palive, ralive)
+        m = int(ralive.sum())
+        assert ralive[:m].all() and not ralive[m:].any()
+        np.testing.assert_array_equal(pidx.numpy()[:m], np.asarray(ridx)[:m])
+
+
+@pytest.mark.parametrize("desc", [False, True], ids=["asc", "desc"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_group_topk_mask_matches_reference(k, desc):
+    """Kernel X's plain version: in_topk and gdirty slot for slot equal
+    the reference's ``_group_topk_mask``, INT64 extremes and dead rows
+    among the order values."""
+    r, p = _ranked_store(np.random.default_rng(43 + k))
+    rin, rg = rtp._group_topk_mask(r.table, r.rows, r.epoch_dirty, k, desc, ("g",), "v")
+    pin, pg = ptp.group_topk_mask(p.table, p.rows, p.epoch_dirty, k, desc, ("g",), "v")
+    _eq(pin, rin)
+    _eq(pg, rg)
+    assert pin.any() and pg.any()
+
+
+def test_float_order_and_float_key_lanes():
+    """A float order lane ranks by the reference's total order (the
+    store's W and X equal the reference's); a float pk or group lane is
+    refused."""
+    rng = np.random.default_rng(47)
+    dtr, dtp = dict(DTR, v=jnp.float64), dict(DTP, v=torch.float64)
+    r = rtp.RetractableGroupTopNExecutor(("g",), "v", 2, ("id",), dtr, capacity=64)
+    p = ptp.RetractableGroupTopNExecutor(("g",), "v", 2, ("id",), dtp, capacity=64, device="cpu")
+    for cols, ops, _ in _retract_stream(rng, 4, floats=True):
+        cols["v"][::5] = np.nan
+        cols["v"][1::7] = -0.0
+        rc, pc = _pair(cols, 64, ops)
+        r.apply(rc)
+        p.apply(pc)
+        _same_emission(r.on_barrier(None), p.on_barrier(None))
+    for desc in (False, True):
+        ridx, ralive = rtp._rank_top(r.table, r.rows["v"], 10, desc)
+        pidx, palive = ptp.rank_top(p.table, p.rows["v"], 10, desc)
+        m = int(np.asarray(ralive).sum())
+        np.testing.assert_array_equal(pidx.numpy()[:m], np.asarray(ridx)[:m])
+    t = pht.HashTable.create(8, (torch.float64,), device="cpu")
+    with pytest.raises(TypeError, match="integer or bool"):
+        ptp.rank_top(t, torch.zeros(8), 2, False)
+
+
+# the reference's retractable GroupTopN tests (tests/test_top_n.py :162-383), on the port
+def _replay_set(state, outs, names=("g", "id", "v")):
+    for out in outs:
+        d = out.to_numpy(with_ops=True)
+        for i in range(len(d["__op__"])):
+            row = tuple(d[n][i].item() for n in names)
+            if d["__op__"][i] in (int(Op.DELETE), int(Op.UPDATE_DELETE)):
+                state[row] = state.get(row, 0) - 1
+            else:
+                state[row] = state.get(row, 0) + 1
+            if not state[row]:
+                del state[row]
+
+
+def test_retractable_group_topn_randomized_oracle():
+    """Replaying the delta stream always equals each group's SQL top k
+    (desc, ties to the lower id)."""
+    K = 3
+    ex = ptp.RetractableGroupTopNExecutor(("g",), "v", K, ("id",), DTP, desc=True,
+                                          capacity=1 << 9, table_id="gtn", device="cpu")
+    rng = np.random.default_rng(17)
+    replay = {}
+    for epoch, (cols, ops, live) in enumerate(_retract_stream(rng, 12, groups=4, vmax=100)):
+        ex.apply(StreamChunk.from_numpy(cols, 64, ops=ops, device="cpu"))
+        _replay_set(replay, ex.on_barrier(None))
+        per_g = collections.defaultdict(list)
+        for id_, (g, v) in live.items():
+            per_g[g].append((v, -id_, id_))
+        want = set()
+        for g, rows in per_g.items():
+            for v, _, id_ in sorted(rows, reverse=True)[:K]:
+                want.add((g, id_, v))
+        assert all(c == 1 for c in replay.values()) and set(replay) == want, epoch
+
+
+def test_retractable_group_topn_checkpoint_restore():
+    """Kill and recover mid-stream: the delta stream after the restore
+    (its mirror rebuilt from the restored top k) matches an
+    uninterrupted run, the restored store equals the reference's restore
+    slot for slot and both recovered runs emit alike."""
+    from risingwave_tpu.storage import CheckpointManager as RefManager
+    from risingwave_tpu.storage import MemObjectStore as RefStore
+    from risingwave_tpu_torch.storage import CheckpointManager, MemObjectStore
+
+    rng = np.random.default_rng(5)
+    epochs = [{"g": rng.integers(0, 3, n), "id": rng.integers(0, 40, n),
+               "v": rng.integers(0, 100, n)} for n in rng.integers(4, 16, 6)]
+    mk = lambda: _stores("group", True, cap=1 << 8)
+    want, got = {}, {}
+    oracle = mk()[1]
+    for c in epochs:
+        oracle.apply(StreamChunk.from_numpy(c, 32, device="cpu"))
+        _replay_set(want, oracle.on_barrier(None))
+    r1, p1 = mk()
+    rm, pm = RefManager(RefStore()), CheckpointManager(MemObjectStore())
+    for c in epochs[:3]:
+        rc, pc = _pair(c, 32)
+        r1.apply(rc)
+        r1.on_barrier(None)
+        p1.apply(pc)
+        _replay_set(got, p1.on_barrier(None))
+    rm.commit_staged(1, rm.stage([r1]))
+    pm.commit_staged(1, pm.stage([p1]))
+    r2, p2 = mk()
+    rm.recover([r2])
+    pm.recover([p2])
+    _same_store(r2, p2)
+    for c in epochs[3:]:
+        rc, pc = _pair(c, 32)
+        r2.apply(rc)
+        p2.apply(pc)
+        ro, po = r2.on_barrier(None), p2.on_barrier(None)
+        _same_emission(ro, po)
+        _replay_set(got, po)
+    assert got == want and want
+
+
+def test_retractable_group_topn_group_change_and_extreme_values():
+    """A row moving groups (DELETE old + INSERT new) retracts from the
+    old group; an INT64_MAX order value never loses to dead slots."""
+    ex = ptp.RetractableGroupTopNExecutor(("g",), "v", 2, ("id",), DTP, desc=False,
+                                          capacity=1 << 7, table_id="gtn3", device="cpu")
+    state = {}
+    ex.apply(StreamChunk.from_numpy({"g": np.asarray([0, 0, 1]), "id": np.asarray([1, 2, 3]),
+                                     "v": np.asarray([5, IMAX, 9])}, 8, device="cpu"))
+    _replay_set(state, ex.on_barrier(None))
+    assert set(state) == {(0, 1, 5), (0, 2, IMAX), (1, 3, 9)}
+    ex.apply(StreamChunk.from_numpy({"g": np.asarray([0, 1]), "id": np.asarray([2, 2]),
+                                     "v": np.asarray([IMAX, 4])}, 8,
+                                    ops=np.asarray([int(Op.DELETE), int(Op.INSERT)], np.int32),
+                                    device="cpu"))
+    _replay_set(state, ex.on_barrier(None))
+    assert set(state) == {(0, 1, 5), (1, 2, 4), (1, 3, 9)}
+
+
+def test_retractable_window_watermark_matches_reference():
+    """``window_key`` on the group column: a watermark expires the closed
+    groups' rows (dead, sdirty) and drops them from the mirror without
+    retractions; later barriers emit as the reference's."""
+    rng = np.random.default_rng(53)
+    r = rtp.RetractableGroupTopNExecutor(("g",), "v", 2, ("id",), DTR, capacity=64,
+                                         window_key=("g", 1))
+    p = ptp.RetractableGroupTopNExecutor(("g",), "v", 2, ("id",), DTP, capacity=64,
+                                         window_key=("g", 1), device="cpu")
+    for e, (cols, ops, _) in enumerate(_retract_stream(rng, 8, groups=8)):
+        cols["g"] = cols["g"] + e
+        rc, pc = _pair(cols, 64, ops)
+        r.apply(rc)
+        p.apply(pc)
+        _same_emission(r.on_barrier(None), p.on_barrier(None))
+        assert r.on_watermark(RefWatermark("g", e + 2))[1] == []
+        assert p.on_watermark(Watermark("g", e + 2))[1] == []
+        _same_store(r, p)
+        assert p.state_digest() == r.state_digest()
+    emitted_groups = {g for g in r._emitted}
+    got = set(p.table.keys[0][p.emitted].tolist())
+    assert got <= {g for (g,) in emitted_groups}
+
+
+# the reference's plain TopN tests (tests/test_simple_agg_topn.py :87, :116), on the port
+DT_KV = {"k": torch.int64, "v": torch.int64}
+
+
+def _kv_chunk(rows, cap=32):
+    return StreamChunk.from_numpy({"k": np.asarray([r[0] for r in rows], np.int64),
+                                   "v": np.asarray([r[1] for r in rows], np.int64)}, cap,
+                                  ops=np.asarray([int(r[2]) for r in rows], np.int32),
+                                  device="cpu")
+
+
+@pytest.mark.parametrize("desc", [False, True], ids=["asc", "desc"])
+def test_topn_stream_matches_oracle(desc):
+    from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
+    from risingwave_tpu_torch.runtime.pipeline import Pipeline
+
+    rng = np.random.default_rng(3)
+    ex = ptp.TopNExecutor("v", 5, ("k",), DT_KV, desc=desc, capacity=256, device="cpu")
+    mv = DeviceMaterializeExecutor(pk=("k",), columns=("v",), schema_dtypes=DT_KV,
+                                   capacity=1 << 10, device="cpu")
+    pipe = Pipeline([ex, mv])
+    rows = {}
+    for _ in range(20):
+        batch = []
+        for _ in range(int(rng.integers(1, 8))):
+            if rows and rng.random() < 0.35:
+                k = list(rows)[int(rng.integers(len(rows)))]
+                batch.append((k, rows.pop(k), Op.DELETE))
+            else:
+                k, v = int(rng.integers(0, 1000)), int(rng.integers(0, 100))
+                if k in rows:
+                    batch += [(k, rows[k], Op.UPDATE_DELETE), (k, v, Op.UPDATE_INSERT)]
+                else:
+                    batch.append((k, v, Op.INSERT))
+                rows[k] = v
+        pipe.push(_kv_chunk(batch))
+        pipe.barrier()
+        live = sorted(rows.items(), key=lambda kv: (kv[1], kv[0]), reverse=desc)[:5]
+        assert mv.snapshot() == {(k,): (v,) for k, v in live}
+
+
+def test_topn_recovery():
+    from risingwave_tpu_torch.storage import CheckpointManager, MemObjectStore
+
+    store = MemObjectStore()
+    ex = ptp.TopNExecutor("v", 3, ("k",), DT_KV, capacity=64, table_id="tn", device="cpu")
+    ex.apply(_kv_chunk([(i, i * 10, Op.INSERT) for i in range(6)]))
+    ex.on_barrier(None)
+    CheckpointManager(store).commit_epoch(1 << 16, [ex])
+    ex2 = ptp.TopNExecutor("v", 3, ("k",), DT_KV, capacity=64, table_id="tn", device="cpu")
+    CheckpointManager(store).recover([ex2])
+    assert ex2.apply(_kv_chunk([(0, 0, Op.DELETE)])) == []
+    snap = {}
+    for c in ex2.on_barrier(None):
+        d = c.to_numpy(with_ops=True)
+        for i in range(len(d["__op__"])):
+            if d["__op__"][i] == Op.DELETE:
+                snap.pop(int(d["k"][i]), None)
+            else:
+                snap[int(d["k"][i])] = int(d["v"][i])
+    assert snap == {3: 30}  # 0 dropped out, 3 entered the top 3
+
+
+@pytest.mark.parametrize("kind", ["plain", "group"])
+def test_restore_matches_reference(kind):
+    """A restore from the reference's delta rebuilds the store slot for
+    slot as the reference's restore, and the next barrier emits as the
+    reference's (the mirror recomputed from the restored top n / k)."""
+    rng = np.random.default_rng(59)
+    r, p = _stores(kind, True, cap=64)
+    stream = list(_retract_stream(rng, 6))
+    for cols, ops, _ in stream[:4]:
+        rc, pc = _pair(cols, 64, ops)
+        r.apply(rc)
+        r.on_barrier(None)
+        p.apply(pc)
+        p.on_barrier(None)
+    (d,) = r.checkpoint_delta()
+    keep = ~np.asarray(d.tombstone)
+    key_cols = {k: np.asarray(v)[keep] for k, v in d.key_cols.items()}
+    value_cols = {k: np.asarray(v)[keep] for k, v in d.value_cols.items()}
+    r2, p2 = _stores(kind, True, cap=64)
+    r2.restore_state("t", key_cols, value_cols)
+    p2.restore_state("t", key_cols, value_cols)
+    _same_store(r2, p2)
+    for cols, ops, _ in stream[4:]:
+        rc, pc = _pair(cols, 64, ops)
+        r2.apply(rc)
+        p2.apply(pc)
+        _same_emission(r2.on_barrier(None), p2.on_barrier(None))
+
+
+# -- the card's wrappers ----------------------------------------------------------
+def test_card_entry_points_refuse_cpu_tensors_and_absent_cuda():
+    """With no card the executors raise instead of running on the CPU,
+    and each CUDA wrapper refuses CPU tensors rather than fall back to
+    its plain version."""
+    assert not torch.cuda.is_available()
+    for make in (lambda: ptp.TopNExecutor("v", 3, ("k",), DT_KV),
+                 lambda: ptp.RetractableGroupTopNExecutor(("g",), "v", 2, ("id",), DTP),
+                 lambda: ptn.GroupTopNExecutor(("g",), "v", 2, DT_P)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    before = dict(_kernels.LAUNCHES)
+    p = ptp.RetractableGroupTopNExecutor(("g",), "v", 2, ("id",), DTP, capacity=64, device="cpu")
+    chunk = StreamChunk.from_numpy({"g": np.zeros(4, np.int64), "id": np.arange(4),
+                                    "v": np.arange(4)}, 8, device="cpu")
+    slots = torch.arange(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ptp._topn_upsert_cuda(p.table, p.rows, p.sdirty, p.epoch_dirty, chunk, slots, p.names,
+                              p.scratch, p._dropped)
+    with pytest.raises(ValueError, match="CUDA"):
+        ptp._rank_top_cuda(p.table, p.rows["v"], 2, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        ptp._group_topk_mask_cuda(p.table, p.rows, p.epoch_dirty, 2, False, (p.rows["g"],), "v")
+    g = ptn.GroupTopNExecutor(("g",), "v", 2, DT_P, payload=("p",), capacity=64, device="cpu")
+    c = StreamChunk.from_numpy({"g": np.zeros(4, np.int64), "v": np.arange(4),
+                                "p": np.zeros(4, np.int32)}, 8, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        ptn._topn_band_cuda(g.table, g.state, c, slots, c.valid, ("g",), "v", True, 2, ("p",),
+                            16, g.scratch, g._latches)
+    assert dict(_kernels.LAUNCHES) == before  # nothing counted, nothing launched

@@ -1,4 +1,5 @@
-"""The CUDA wrappers of kernels H, J, L, M, N, O, P, Q, S and T marshal their arguments as
+"""The CUDA wrappers of kernels H, J, L, M, N, O, P, Q, S, T, U, V, W and X marshal their
+arguments as
 their C entry points declare them (``_kernels.SIGNATURES``), checked on
 the CPU: each wrapper runs on CPU tensors while ``_kernels.call`` is
 replaced by a ``ctypes.CFUNCTYPE`` callback of the entry point's
@@ -314,3 +315,67 @@ def test_s_entries_reuse_the_callers_tree(calls):
     expr_vm._filter_cuda(chunk, ptree.value, ptree)
     assert "keep" in ptree._memo
     assert calls == [("expr_eval", "rw_project")] * 2 + [("expr_eval", "rw_filter")]
+
+
+def test_u_entry_marshals(calls):
+    """Kernel U: group key and payload descriptor rows, the chunk's lanes,
+    the bands, the emission columns, three latches and the scratch."""
+    from risingwave_tpu_torch.executors import top_n as tn
+
+    g = tn.GroupTopNExecutor(("g",), "v", 3, {"g": torch.int64, "v": torch.int32,
+                                             "p": torch.int32, "q": torch.bool},
+                             payload=("p", "q"), capacity=32, out_cap=16, device="cpu")
+    n = 8
+    chunk = StreamChunk.from_numpy({"g": torch.arange(n).numpy() % 3,
+                                    "v": torch.arange(n, dtype=torch.int32).numpy(),
+                                    "p": torch.arange(n, dtype=torch.int32).numpy(),
+                                    "q": (torch.arange(n) % 2 == 0).numpy()}, n, device="cpu")
+    slots = torch.arange(n, dtype=torch.int32) % 3
+    out = tn._topn_band_cuda(g.table, g.state, chunk, slots, chunk.valid, ("g",), "v", True, 3,
+                             ("p", "q"), 16, g.scratch, g._latches)
+    assert set(out.columns) == {"g", "v", "p", "q"} and out.columns["v"].dtype == torch.int64
+    assert out.valid.shape == (16,) and out.ops.dtype == torch.int32
+    with pytest.raises(ValueError, match="k = 65"):
+        tn._topn_band_cuda(g.table, g.state, chunk, slots, chunk.valid, ("g",), "v", True, 65,
+                           ("p",), 16, g.scratch, g._latches)
+    assert calls == [("topn_band", "rw_topn_step")] and _kernels.LAUNCHES["topn_band"] == 1
+
+
+def test_v_entry_marshals(calls):
+    """Kernel V with and without epoch_dirty; a cast lane for a chunk
+    column of another dtype."""
+    from risingwave_tpu_torch.executors import top_n_plain as tp
+
+    ex = tp.RetractableGroupTopNExecutor(("g",), "v", 2, ("id",),
+                                         {"g": torch.int64, "id": torch.int64,
+                                          "v": torch.float64}, capacity=32, device="cpu")
+    n = 8
+    chunk = StreamChunk.from_numpy({"g": torch.zeros(n, dtype=torch.int32).numpy(),
+                                    "id": torch.arange(n).numpy(),
+                                    "v": torch.arange(n, dtype=torch.float64).numpy()}, n,
+                                   device="cpu")
+    slots = torch.arange(n, dtype=torch.int32)
+    for ed in (ex.epoch_dirty, None):
+        tp._topn_upsert_cuda(ex.table, ex.rows, ex.sdirty, ed, chunk, slots, ex.names,
+                             ex.scratch, ex._dropped)
+    assert calls == [("topn_upsert", "rw_topn_upsert")] * 2
+    assert _kernels.LAUNCHES["topn_upsert"] == 2
+
+
+def test_w_and_x_entries_marshal(calls):
+    """Kernels W and X: key descriptor rows (lane, dtype code, mode) and
+    the sort's workspace; X counts under its own key."""
+    from risingwave_tpu_torch.executors import top_n_plain as tp
+
+    ex = tp.RetractableGroupTopNExecutor(("g",), "v", 2, ("id",),
+                                         {"g": torch.int32, "id": torch.int64,
+                                          "v": torch.float32}, capacity=64, device="cpu")
+    idx, alive = tp._rank_top_cuda(ex.table, ex.rows["v"], 10, True)
+    assert idx.shape == (10,) and idx.dtype == torch.int32 and alive.dtype == torch.bool
+    in_topk, gdirty = tp._group_topk_mask_cuda(ex.table, ex.rows, ex.epoch_dirty, 2, False,
+                                               (ex.rows["g"],), "v")
+    assert in_topk.shape == gdirty.shape == (64,)
+    with pytest.raises(ValueError, match="sort keys"):
+        tp._key_rows([(ex.table.live, 0)] * (tp.RANK_KEYS + 1))
+    assert calls == [("topn_rank", "rw_rank_top"), ("topn_rank", "rw_group_topk_mask")]
+    assert _kernels.LAUNCHES["topn_rank"] == 1 and _kernels.LAUNCHES["group_topk"] == 1
