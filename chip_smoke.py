@@ -46,7 +46,15 @@ Phases, each printing one JSON line:
      timed on a 65,536-row bid chunk with q1's projection and q2's
      predicate; T, the watermark filter, on 65,536-row chunks with late
      inserts, retractions below the floor and torn pairs, mask, ops and
-     running max exact;
+     running max exact; U, V, W and X at the TopN paths' shapes (run
+     beside phases 18, 19 and 23, while their streams are on the card);
+     Y, the SimpleAgg fold, on a 2^17-row U-/U+ flush chunk of q102's
+     second count (COUNT(*), SUM(bid_count), a COUNT and float64 and
+     float32 SUMs) and an append-only chunk through MIN/MAX calls, then a
+     retraction of the MIN that must latch; Z, the general dynamic
+     filter, its left step on a 2^17-row chunk of U-/U+ pairs into a
+     2^22-slot store of 1.2M rows and its diff over that store with the
+     right value moved up and down (run beside phase 24);
   4. the interpreted path: Nexmark q5 (hop -> HashAgg -> device MV)
      through ``build_q5_lite(state_cleaning=False)``, chunk by chunk,
      over 20 epochs of 1M events, its final MV held against a numpy
@@ -146,8 +154,28 @@ Phases, each printing one JSON line:
      head of both sides (lag 1,000 ms) and no injected watermark calls,
      interpreted over phase 9's stream, its MV against the q7 actor on
      the rows the filters keep, and no table key below the last
-     generated watermark (``Q7_SCAN_EPOCHS`` of them).
-Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
+     generated watermark (``Q7_SCAN_EPOCHS`` of them);
+  21. Nexmark q19 on the retractable GroupTopN (``build_q19``: a store of
+     every bid, 2^26 slots), interpreted and fused, over phase 4's
+     chunks;
+  22. q19 on the append-only GroupTopN (``build_q19_append_only``: bands
+     of (2^22, 10)), both ways, in lockstep with phase 21: the four MVs'
+     digests equal at every barrier, each MV against the numpy oracle at
+     ``Q19_CHECKS``;
+  23. RisingWave's q105 (``build_q105``: the count before the join, a
+     TopN of 1,000 by count) over phase 11's stream, both ways (the whole
+     program refused for the TopN), each MV against the oracle at every
+     barrier;
+  24. RisingWave's q102 (``build_q102``: the count joined with the
+     auctions; a dynamic filter of that join's U-/U+ stream against a
+     SimpleAgg's average over a second count; an MV on (id, auction))
+     over phase 11's stream, interpreted and with each stage through
+     ``fuse_pipeline`` (stage 1 one program, stage 2 refused and run per
+     chain, the refusals pinned), each MV against the numpy oracle at
+     every barrier, the SimpleAgg's and the filter's kernel-H digests
+     against ``host_digest``.
+Phase 16 also kills and recovers q19 and q105 (after phase 23) and q102
+(after phase 24). Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. Without a
 CUDA device it exits non-zero at once.
@@ -5659,6 +5687,413 @@ def kill_q105(torch, dev, host, chunks):
     return kill_and_recover(torch, dev, spec)
 
 
+
+# -- phase 3, kernels Y and Z; phase 24: q102 (SimpleAgg and the general filter) --
+# q102 (phase 24) over phase 11's stream at q105's sizes: both counts 2^22,
+# join sides (2^22, 4), out_cap 2^17, the filter's row store and the MV 2^22
+Q102_CAP = 1 << 22
+Y_ROWS = 1 << 17  # a flush chunk of the second count: 65,536 U-/U+ pairs
+Z_ROWS = 1 << 17  # a left chunk of the filter: 65,536 U-/U+ pairs
+Z_LIVE = 1_200_000  # the filter's rows: q102's joined auctions after 20 epochs
+SUM_RTOL = 1e-12  # float64 sums, relative to the sum of the magnitudes
+# float32 sums of n rows: 4 sqrt(n) 2^-24 of the sum of the magnitudes,
+# the statistical size of n float32 roundings in either order of addition
+F32_SUM_TOL = 4 * 2**-24
+Q102_KERNELS = ("lookup_or_insert", "agg_flush", "join_probe", "join_apply", "simple_agg",
+                "expr_eval", "dyn_general", "dyn_rv_diff", "gather_rows", "mv_upsert")
+
+
+def y_chunk(torch, dev, rng, n: int, retract: bool):
+    """A flush chunk of q102's second count (``bid_count`` int64) with a
+    float64 lane ``f`` and a float32 lane ``g`` (NULLs in ``f``): U-/U+
+    pairs, each raising ``bid_count`` by 1 and ``g`` by 0 to 2, when
+    ``retract``, else inserts."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.types import Op
+
+    counts = rng.integers(1, 200, n // 2).astype(np.int64)
+    cols = {"bid_count": np.stack([counts, counts + 1], 1).reshape(-1),
+            "f": rng.standard_normal(n) * 1e3, "g": (rng.standard_normal(n) * 50).astype(
+                np.float32)}
+    ops = np.full(n, int(Op.INSERT), np.int32)
+    if retract:
+        ops = np.tile(np.asarray([int(Op.UPDATE_DELETE), int(Op.UPDATE_INSERT)], np.int32),
+                      n // 2)
+        # each update moves g up by 0 to 2, so its signed sum is about n / 2
+        cols["g"][1::2] = cols["g"][0::2] + rng.uniform(0, 2, n // 2).astype(np.float32)
+    nulls = {"f": rng.random(n) < 0.1}
+    return StreamChunk.from_numpy(cols, n, ops=ops, nulls=nulls, device=dev), cols
+
+
+def kernel_y(torch, dev, rng):
+    """Y against its plain version on the card (phase 3): q102's two calls
+    (COUNT(*), SUM(bid_count)) with a COUNT, a float64 and a float32 SUM
+    on a 2^17-row U-/U+ flush chunk; then an append-only chunk through
+    MIN/MAX calls (int64 MIN, float64 MAX, float32 MIN) and one retraction
+    of the MIN, which must latch. Integer lanes exact, float64 sums within
+    SUM_RTOL of the sum of magnitudes, float32 within 4 sqrt(n) 2^-24 of
+    it; each sum's plain value more than 4 tolerances from 0."""
+    from risingwave_tpu_torch.executors import simple_agg as sa
+    from risingwave_tpu_torch.ops import agg as agg_ops
+    from risingwave_tpu_torch.ops.agg import AggCall
+
+    dtypes = {"bid_count": torch.int64, "f": torch.float64, "g": torch.float32}
+    flush_calls = (AggCall("count_star", None, "n_auctions"),
+                   AggCall("sum", "bid_count", "n_bids"), AggCall("count", "f", "nf"),
+                   AggCall("sum", "f", "sf"), AggCall("sum", "g", "sg"))
+    ext_calls = (AggCall("count_star", None, "n"), AggCall("min", "bid_count", "mn"),
+                 AggCall("max", "f", "mx"), AggCall("min", "g", "mg"), AggCall("sum", "f", "sf"))
+
+    def compare(calls, chunk, cols, what):
+        fresh = lambda: agg_ops.create_state(2, calls, dtypes, dev)
+        got = sa._simple_step_cuda(fresh(), chunk, calls)
+        want = sa._simple_step_torch(fresh(), chunk, calls)
+        torch.cuda.synchronize()
+        a, b = state_lanes(got), state_lanes(want)
+        sums = {f"accums.{c.output}" for c in calls if c.kind == "sum"}
+        err = 0.0
+        for k in a:
+            x, y = a[k], b[k]
+            if not x.is_floating_point():
+                check(torch.equal(x, y), f"Y {what}: lane {k}")
+                continue
+            lane = "f" if x.dtype == torch.float64 else "g"
+            mag = float(np.abs(cols[lane]).sum())
+            tol = SUM_RTOL * mag if lane == "f" else F32_SUM_TOL * chunk.capacity**0.5 * mag
+            d = float((x.double() - y.double()).abs().max())
+            check(d <= tol, f"Y {what}: {k} differs by {d} > {tol}")
+            if k in sums:  # the plain value lies well outside the tolerance
+                check(float(y.double().abs().max()) > 4 * tol, f"Y {what}: {k} near 0")
+            err = max(err, d)
+        return err, got
+
+    chunk, cols = y_chunk(torch, dev, rng, Y_ROWS, retract=True)
+    err_flush, st = compare(flush_calls, chunk, cols, "flush chunk")
+    check(int(st.accums["n_auctions"][0]) == 0 and int(st.row_count[0]) == 0,
+          "Y: each U-/U+ pair nets to 0 in COUNT(*)")
+    check(int(st.accums["n_bids"][0]) == Y_ROWS // 2, "Y: SUM(bid_count) of the pairs")
+    ins, icols = y_chunk(torch, dev, rng, Y_ROWS, retract=False)
+    err_ext, _ = compare(ext_calls, ins, icols, "append-only extremes")
+    # one retraction of the MIN: both latch
+    one, _ = y_chunk(torch, dev, rng, 2, retract=True)
+    for fn in (sa._simple_step_cuda, sa._simple_step_torch):
+        st = agg_ops.create_state(2, ext_calls, dtypes, dev)
+        fn(st, one, ext_calls)
+        check(bool(st.minmax_retracted), f"Y: {fn.__name__} latches a MIN retraction")
+    state = agg_ops.create_state(2, flush_calls, dtypes, dev)
+    ms = time_ms(torch, lambda: sa._simple_step_cuda(state, chunk, flush_calls), 20)
+    plain = time_ms(torch, lambda: sa._simple_step_torch(state, chunk, flush_calls), 5)
+    signed = chunk.col("bid_count") * chunk.effective_signs().to(torch.int64)
+    lib = time_ms(torch, lambda: torch.sum(signed), 20)
+    # valid 1 and ops 4 read per row; bid_count 8, f 8 with its null 1, g 4
+    nbytes = Y_ROWS * (1 + 4 + 8 + 8 + 1 + 4)
+    return {
+        "name": "Y SimpleAgg apply", "route": "cuda", "source": "risingwave_tpu_torch/csrc/simple_agg.cu",
+        "replaces": "risingwave_tpu/executors/simple_agg.py:37",
+        "max_abs_err": max(err_flush, err_ext), "ms": ms, "plain_ms": plain,
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "library_ms": lib,
+        "library_call": "torch.sum of the signed bid_count lane (the fold alone)",
+        "tolerance": f"integers exact; float64 sums {SUM_RTOL} of sum|x|; float32 sums "
+                     "4 sqrt(n) 2^-24 sum|x|",
+        "shape": {"rows": Y_ROWS, "calls": [c.kind for c in flush_calls],
+                  "extreme_calls": [c.kind for c in ext_calls]},
+    }
+
+
+def filter_store(torch, dev, rng):
+    """q102's filter at phase 24's size: a 2^22-slot row store of Z_LIVE
+    joined auctions (id = auction, item_name, bid_count), inserted through
+    the executor (kernels A and Z) in Z_ROWS-row chunks, its right value
+    at the mean count."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.executors import DynamicFilterExecutor
+
+    i64 = torch.int64
+    dtypes = {"id": i64, "item_name": torch.int32, "auction": i64, "bid_count": i64}
+    ex = DynamicFilterExecutor("bid_count", ">=", ("id", "auction"), dtypes, capacity=Q102_CAP,
+                               table_id="z.filter", device=dev)
+    ids = 1000 + np.arange(Z_LIVE, dtype=np.int64)
+    counts = rng.integers(1, 40, Z_LIVE).astype(np.int64)
+    items = rng.integers(0, 10_000, Z_LIVE).astype(np.int32)
+    for at in range(0, Z_LIVE, Z_ROWS):
+        sl = slice(at, at + Z_ROWS)
+        ex.apply_left(StreamChunk.from_numpy(
+            {"id": ids[sl], "item_name": items[sl], "auction": ids[sl], "bid_count": counts[sl]},
+            Z_ROWS, device=dev))
+    ex.rv.fill_(15)
+    ex.rv_valid.fill_(True)
+    ex.passing.copy_(ex.table.live & (ex.rows["bid_count"] >= ex.rv))
+    return ex, ids, items, counts
+
+
+def z_lanes(ex) -> dict:
+    lanes = {f"k{i}": k.clone() for i, k in enumerate(ex.table.keys)}
+    lanes.update({f"r_{n}": a.clone() for n, a in ex.rows.items()})
+    lanes.update(live=ex.table.live.clone(), passing=ex.passing.clone(),
+                 sdirty=ex.sdirty.clone(), scratch=ex.scratch.clone(),
+                 dropped=ex._dropped.clone())
+    return lanes
+
+
+def z_restore(ex, lanes) -> None:
+    for n, a in ex.rows.items():
+        a.copy_(lanes[f"r_{n}"])
+    for name, dst in (("live", ex.table.live), ("passing", ex.passing), ("sdirty", ex.sdirty),
+                      ("scratch", ex.scratch), ("dropped", ex._dropped)):
+        dst.copy_(lanes[name])
+
+
+def kernel_z(torch, dev, rng):
+    """Z against its plain versions on the card (phase 3), on
+    ``filter_store``'s 1.2M rows in 2^22 slots. The left step: a 2^17-row
+    chunk of 65,536 U-/U+ pairs (count c -> c + 1) of stored pks, one
+    insert-then-delete and one delete-then-insert of a pk among them,
+    after one kernel-A lookup; every row lane, live, pass, sdirty and the
+    scratch lane exact, the pass-through mask exact. The diff: the right
+    value moved up (15 -> 25) and then down (25 -> 5) over the store; the
+    changed slots in order, their status, pass and sdirty exact."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.executors import dynamic_filter as df
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.types import Op
+
+    ex, ids, items, counts = filter_store(torch, dev, rng)
+    pick = rng.choice(Z_LIVE, Z_ROWS // 2, replace=False)
+    pid, pc = np.repeat(ids[pick], 2), np.stack([counts[pick], counts[pick] + 1], 1).reshape(-1)
+    ops = np.tile(np.asarray([int(Op.UPDATE_DELETE), int(Op.UPDATE_INSERT)], np.int32),
+                  Z_ROWS // 2)
+    ops[:2] = [int(Op.INSERT), int(Op.DELETE)]  # a new pk in and out
+    pid[:2] = 10**9
+    ops[2:4] = [int(Op.DELETE), int(Op.INSERT)]  # a stored pk out and back
+    cols = {"id": pid, "item_name": np.repeat(items[pick], 2), "auction": pid, "bid_count": pc}
+    chunk = StreamChunk.from_numpy(cols, Z_ROWS, ops=ops, device=dev)
+    active = chunk.valid & (chunk.effective_signs() != 0)
+    _, slots, _, _ = ht.lookup_or_insert(ex.table, (chunk.col("id"), chunk.col("auction")),
+                                         active)
+    base = z_lanes(ex)
+    signs = chunk.effective_signs()
+
+    def left(fn):
+        if fn == "cuda":
+            return df._dyn_left_cuda(ex.table, ex.rows, ex.passing, ex.sdirty, ex.scratch, chunk,
+                                     slots, ex.rv, ex.rv_valid, ex.op, ex.value_col, ex._dropped)
+        return df._dyn_left_torch(ex.table, ex.rows, ex.passing, ex.sdirty, chunk, slots, signs,
+                                  active, ex.rv, ex.rv_valid, ex.op, ex.value_col, ex._dropped)
+
+    outs = []
+    for fn in ("cuda", "torch"):
+        z_restore(ex, base)
+        ok = left(fn)
+        outs.append((ok.clone(), z_lanes(ex)))
+    torch.cuda.synchronize()
+    check(torch.equal(outs[0][0], outs[1][0]), "Z left: pass-through mask")
+    assert_lanes_equal(torch, outs[0][1], outs[1][1], "Z left: store lanes")
+    check(bool((ex.scratch == -1).all()), "Z left: scratch reset")
+    passed = int(outs[0][0].sum())
+    err_left = max_abs_diff(torch, outs[0][1], outs[1][1])
+    left_ms = time_ms(torch, lambda: left("cuda"), 20, setup=lambda: z_restore(ex, base))
+    left_plain = time_ms(torch, lambda: left("torch"), 3, setup=lambda: z_restore(ex, base))
+    z_restore(ex, base)
+    left("cuda")
+    after_left = z_lanes(ex)
+    winners = len(np.unique(pid))  # one row per pk of the chunk wins its slot
+    # per row valid 1, ops 4, slots 4 and value 8 read and the mask 1
+    # written; per winner its other lanes (id, item_name, auction) 20 read,
+    # its lanes 28 and live, sdirty, pass 3 written (the election's
+    # scratch lane is the kernel's own bookkeeping, not counted)
+    left_bytes = Z_ROWS * (1 + 4 + 4 + 8 + 1) + winners * (20 + 28 + 3)
+
+    value = ex.rows["bid_count"]
+    diffs, flips = [], []
+    for new_rv in (25, 5):
+        rv = torch.tensor(new_rv, dtype=torch.int64, device=dev)
+        res = []
+        for fn in (df._dyn_rv_diff_cuda, df._dyn_rv_diff_torch):
+            z_restore(ex, after_left)
+            sel, now, n, dropped = fn(ex.table, value, ex.passing, ex.sdirty, rv, ex.rv_valid,
+                                      ex.op, ex._dropped)
+            res.append((sel.clone(), now.clone(), n, dropped, ex.passing.clone(),
+                        ex.sdirty.clone()))
+        torch.cuda.synchronize()
+        (s1, n1, c1, d1, p1, sd1), (s2, n2, c2, d2, p2, sd2) = res
+        check(c1 == c2 and not d1 and not d2, f"Z diff to {new_rv}: count {c1} vs {c2}")
+        check(torch.equal(s1, s2) and torch.equal(n1, n2), f"Z diff to {new_rv}: slots, status")
+        check(torch.equal(p1, p2) and torch.equal(sd1, sd2), f"Z diff to {new_rv}: pass, sdirty")
+        flips.append(c1)
+        diffs.append((rv, after_left))
+        after_left = z_lanes(ex)
+    check(flips[0] > 0 and flips[1] > 0, "Z diff: rows flip both ways")
+    rv, lanes = diffs[0]
+    setup = lambda: z_restore(ex, lanes)
+    diff_ms = time_ms(torch, lambda: df._dyn_rv_diff_cuda(
+        ex.table, value, ex.passing, ex.sdirty, rv, ex.rv_valid, ex.op, ex._dropped), 20,
+        setup=setup)
+    diff_plain = time_ms(torch, lambda: df._dyn_rv_diff_torch(
+        ex.table, value, ex.passing, ex.sdirty, rv, ex.rv_valid, ex.op, ex._dropped), 5,
+        setup=setup)
+    diff_lib = time_ms(torch, lambda: torch.ne(ex.table.live & ex.rv_valid & (value >= rv),
+                                               ex.passing), 20, setup=setup)
+    cap = ex.table.capacity
+    # live 1, value 8 and pass 1 read per slot; per flipped slot pass 1,
+    # sdirty 1, its slot 4 and status 1 written
+    diff_bytes = cap * 10 + flips[0] * 7
+    shape = {"capacity": cap, "live_rows": int(ex.table.live.sum()), "chunk_rows": Z_ROWS,
+             "passed": passed, "rv_moves": [15, 25, 5], "flipped": flips}
+    left_row = {
+        "name": "Z dynamic filter left step", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/dyn_general.cu",
+        "replaces": "risingwave_tpu/executors/dynamic_filter.py:417", "max_abs_err": err_left,
+        "ms": left_ms, "plain_ms": left_plain, "bound_ms": bound_ms(left_bytes),
+        "bound_by": "bytes", "library_ms": None,
+        "library_call": "none (no PyTorch call scatters with the last row winning)",
+        "shape": shape,
+    }
+    diff_row = {
+        "name": "Z dynamic filter right-value diff", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/dyn_general.cu",
+        "replaces": "risingwave_tpu/executors/dynamic_filter.py:442", "max_abs_err": 0.0,
+        "ms": diff_ms, "plain_ms": diff_plain, "bound_ms": bound_ms(diff_bytes),
+        "bound_by": "bytes", "library_ms": diff_lib,
+        "library_call": "torch.ne(live & rv_valid & (value >= rv), passing), the mask alone",
+        "shape": shape,
+    }
+    return left_row, diff_row
+
+
+def q102_oracle(host, upto: int) -> np.ndarray:
+    """q102's MV after epochs 0..upto as sorted (id, item_name, count)
+    rows: per-auction counts of every bid so far, rv = all bids //
+    auctions with a bid, joined with the auctions seen, count >= rv."""
+    ids = np.concatenate([a["id"] for a, _ in host[:upto + 1]])
+    items = np.concatenate([a["item_name"] for a, _ in host[:upto + 1]]).astype(np.int64)
+    u, c = np.unique(np.concatenate([b["auction"] for _, bids in host[:upto + 1] for b in bids]),
+                     return_counts=True)
+    rv = int(c.sum()) // len(u)
+    pos = np.clip(np.searchsorted(u, ids), 0, len(u) - 1)
+    keep = (u[pos] == ids) & (c[pos] >= rv)
+    rows = np.stack([ids[keep], items[keep], c[pos[keep]]], 1)
+    return rows[np.argsort(rows[:, 0])]
+
+
+def q102_rows(q) -> np.ndarray:
+    d = q.mview.to_numpy()
+    check(bool(np.array_equal(d["id"], d["auction"])), "q102: MV pk id = auction")
+    rows = np.stack([d["id"], d["item_name"].astype(np.int64), d["bid_count"]], 1)
+    return rows[np.argsort(rows[:, 0])]
+
+
+def build_q102_full(dev):
+    from risingwave_tpu_torch.queries.nexmark_q import build_q102
+
+    return build_q102(capacity=Q102_CAP, fanout=Q105_FANOUT, out_cap=Q105_OUT_CAP, device=dev)
+
+
+def q102_paths(torch, dev, host, chunks):
+    """Phase 24: RisingWave's q102 (``build_q102``) over phase 11's stream
+    (an auction chunk, then the bid chunks, per epoch), interpreted and
+    with each stage through ``fuse_pipeline``: stage 1 one
+    ``FusedTwoInputExecutor`` program per barrier, stage 2's whole program
+    refused (a dynamic filter is not a HashJoin) and its chains per chain,
+    the refusals those ``tests/test_torch_q102.py`` pins. Each MV equals
+    the numpy oracle at every barrier, the fused one the interpreted one;
+    the SimpleAgg's and the filter's kernel-H digests equal host_digest of
+    their lanes read back, and the fused run's states the interpreted
+    run's."""
+    from risingwave_tpu_torch import integrity
+    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline, fusion_refusals
+
+    fusion_refusals(clear=True)
+    qs, chains = {}, {}
+    for fused in (False, True):
+        q = build_q102_full(dev)
+        key = "q102" + ("_fused" if fused else "")
+        if fused:
+            made = fuse_pipeline(q.stage1, label=f"{key}/1") + fuse_pipeline(q.stage2,
+                                                                               label=f"{key}/2")
+            check([type(w).__name__ for w in made] == ["FusedTwoInputExecutor"],
+                  f"{key}: stage 1 one program")
+            chains[key] = [[type(e).__name__ for e in getattr(q.stage2, a)]
+                           for a in ("left", "right", "tail")]
+            check(chains[key] == [[], ["EpochBatchedAggExecutor", "SimpleAggExecutor",
+                                       "ProjectExecutor"], ["DeviceMaterializeExecutor"]],
+                  f"{key}: stage 2's per-chain fallback")
+        qs[key] = q
+    refusals = fusion_refusals()
+    check([(r["code"], r["fragment"], r["executor"]) for r in refusals] == [
+        ("RW-E807", "q102_fused/2", "DynamicFilterExecutor"),
+        ("RW-E807", "q102_fused/2/tail", "DynamicFilterExecutor")],
+        "q102: the refusals of the CPU test")
+    launches = PathLaunches()
+
+    def push(q, ep):
+        a, bids = ep
+        q.push_auction(a)
+        for b in bids:
+            q.push_bid(b)
+
+    def after(e):
+        want = q102_oracle(host, e)
+        got = {k: q102_rows(q) for k, q in qs.items()}
+        for k, rows in got.items():
+            check(np.array_equal(rows, want), f"{k}: MV ({len(rows)} rows) vs the oracle "
+                  f"({len(want)} rows) at barrier {e}")
+
+    torch.cuda.reset_peak_memory_stats()
+    rec = lockstep(torch, qs, chunks, push, launches, after)
+    peak = torch.cuda.max_memory_allocated()
+    staged = {}
+    for key, q in qs.items():
+        for name in ("simple", "dfilter"):
+            ex = getattr(q, name)
+            dev_dig = integrity.digest_from_scalar(integrity.device_digest(*ex.digest_lanes()))
+            check(dev_dig == ex.state_digest(), f"{key}: {name}'s kernel-H digest = host_digest")
+            staged[f"{key}.{name}"] = dev_dig
+        for kern in Q102_KERNELS:
+            check(launches.by[key][kern] > 0, f"{key}: kernel {kern} launched")
+    for name in ("count", "count2", "simple", "dfilter", "mview"):
+        check(getattr(qs["q102"], name).state_digest() == getattr(qs["q102_fused"],
+                                                                  name).state_digest(),
+              f"q102 fused: {name} state vs the interpreted run's")
+    rows_in = sum(len(a["id"]) + sum(len(b["auction"]) for b in bids) for a, bids in host)
+    rows = [path_row(key, rows_in, rec[key], mv_rows=int(q.mview.table.live.sum()),
+                     filter_rows=int(q.dfilter.table.live.sum()),
+                     right_value=int(q.dfilter.rv), launches=launches.by[key],
+                     chains=chains.get(key)) for key, q in qs.items()]
+    rows[0].update(refusals=refusals, agg_capacity=Q102_CAP, join=[Q102_CAP, Q105_FANOUT],
+                   filter_capacity=Q102_CAP, mv_capacity=Q102_CAP, out_cap=Q105_OUT_CAP,
+                   max_memory_allocated=int(peak),
+                   oracle="numpy: per-auction counts, rv = bids // auctions with a bid, the "
+                          "join with the auctions seen, count >= rv, at every barrier for both "
+                          "runs; fused states = interpreted; SimpleAgg and filter kernel-H "
+                          "digests = host_digest of their lanes read back")
+    return rows, launches.by
+
+
+def kill_q102(torch, dev, host, chunks):
+    """Phase 16's q102: phase 11's first KILL_EPOCHS epochs, phase 24's
+    sizes (the filter's row store and right value, the SimpleAgg's row,
+    both counts, the join and the MV recovered)."""
+    oracle = q102_oracle(host, KILL_EPOCHS - 1)
+
+    class Run:
+        """A ``Q102`` as phase 16 drives a query: ``pipeline`` (its
+        ``executors`` and ``epoch``) and ``mview``."""
+
+        def __init__(self):
+            self.pipeline = build_q102_full(dev)
+            self.mview = self.pipeline.mview
+
+    def drive(run, e):
+        a, bids = chunks[e]
+        run.pipeline.push_auction(a)
+        for b in bids:
+            run.pipeline.push_bid(b)
+        run.pipeline.barrier()
+
+    spec = KillSpec("q102", Run, drive, lambda run: q102_rows(run.pipeline), oracle)
+    return kill_and_recover(torch, dev, spec)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
@@ -5887,6 +6322,20 @@ def main() -> int:
         emit(r)
     k105_row, l16_q105 = kill_q105(torch, dev, h101, c101)
     emit(k105_row)
+    torch.cuda.empty_cache()
+    # phase 3's Y and Z, phase 24 and phase 16's q102 on phase 11's stream
+    y_row = kernel_y(torch, dev, rng)
+    emit({"phase": "kernel", **y_row})
+    zl_row, zd_row = kernel_z(torch, dev, rng)
+    emit({"phase": "kernel", **zl_row})
+    emit({"phase": "kernel", **zd_row})
+    torch.cuda.empty_cache()
+    rows24, l24 = q102_paths(torch, dev, h101, c101)
+    for r in rows24:
+        emit(r)
+    torch.cuda.empty_cache()
+    k102_row, l16_q102 = kill_q102(torch, dev, h101, c101)
+    emit(k102_row)
     del h101, c101
     torch.cuda.empty_cache()
 
@@ -5901,15 +6350,17 @@ def main() -> int:
             (lookup_row, "lookup")] + list(zip(r_rows, R_ENTRIES)) + [
             (s_proj_row, "expr_eval"), (s_filt_row, "expr_filter"), (t_row, "wm_filter"),
             (u_row, "topn_band"), (v19_row, "topn_upsert"), (v105_row, "topn_upsert"),
-            (w_row, "topn_rank"), (x_row, "group_topk")]
+            (w_row, "topn_rank"), (x_row, "group_topk"), (y_row, "simple_agg"),
+            (zl_row, "dyn_general"), (zd_row, "dyn_rv_diff")]
     paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8, "q7": l9, "q7_fused": l10,
              "q101": l11, "q101_fused": l12, "q5_max": l13, "q5_max_fused": l14, **l15,
              "q5_recover": l16_q5, "q5_max_recover": l16_q5m, "q8_recover": l16_q8,
              "q7_recover": l16_q7, "q101_recover": l16_q101, **l17,
              **{f"hot_{k}": v for k, v in l18.items()}, **l19, "q7_scan_watermark_filters": l20,
-             **l21, "q19_recover": l16_q19, **l23, "q105_recover": l16_q105}
+             **l21, "q19_recover": l16_q19, **l23, "q105_recover": l16_q105, **l24,
+             "q102_recover": l16_q102}
     for row, key in rows:
-        # each main path's run counts from zero: phases 4, 6-23 (a path
+        # each main path's run counts from zero: phases 4, 6-24 (a path
         # of a phase that drives several in lockstep counts its own calls)
         row["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())

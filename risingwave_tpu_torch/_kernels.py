@@ -10,14 +10,15 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
-A, C, D, E, F, G, H, J, L, M, N, O, P, Q, R, S, T, U, V, W and X (an
-entry point may launch several kernels in order on the stream), two per
-call of B (the
-apply and its set_live), one per 24 lanes moved by a call of I; the
-entry points of ``ENTRY_KEYS`` count under their own names (S's
-``rw_project`` under ``expr_eval``, its ``rw_filter`` under
-``expr_filter``, X's ``rw_group_topk_mask`` under ``group_topk``; a
-Project whose outputs are all bare columns launches nothing).
+A, C, D, E, F, G, H, J, L, M, N, O, P, Q, R, S, T, U, V, W, X, Y and
+Z (an entry point may launch several kernels in order on the stream),
+two per call of B (the apply and its set_live), one per 24 lanes moved
+by a call of I; the entry points of ``ENTRY_KEYS`` count under their
+own names (S's ``rw_project`` under ``expr_eval``, its ``rw_filter``
+under ``expr_filter``, X's ``rw_group_topk_mask`` under
+``group_topk``, Z's ``rw_dyn_left_step`` under ``dyn_general`` and its
+``rw_dyn_rv_diff`` under ``dyn_rv_diff``; a Project whose outputs are
+all bare columns launches nothing).
 """
 
 from __future__ import annotations
@@ -63,6 +64,8 @@ SOURCES = {
     "topn_band": "topn_band.cu",
     "topn_upsert": "topn_upsert.cu",
     "topn_rank": "topn_rank.cu",
+    "simple_agg": "simple_agg.cu",
+    "dyn_general": "dyn_general.cu",
 }
 
 # C entry points: (argtypes,) — every pointer and the stream as c_void_p
@@ -152,10 +155,27 @@ SIGNATURES = {
         "rw_rank_top": [_P, _I, _L, _P, _P, _P, _P, _P, _L, _P, _P, _P],
         "rw_group_topk_mask": [_P, _I, _I, _L, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     },
+    "simple_agg": {
+        "rw_simple_apply": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "dyn_general": {
+        "rw_dyn_left_step": [_P, _I, _L, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                             _P],
+        "rw_dyn_rv_diff": [_L, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
 }
 
-# slots per block of kernel R's stage select (csrc/checkpoint.cu CK_TILE)
-CHECKPOINT_TILE = 4096
+# slots per block of the stream compaction of kernels R and Z
+# (csrc/compact.cuh COMPACT_TILE)
+COMPACT_TILE = 4096
+
+
+def compact_scratch(cap: int, device) -> torch.Tensor:
+    """The int32 tile counts of one compaction over ``cap`` slots (their
+    total after them)."""
+    return torch.empty(-(-cap // COMPACT_TILE) + 1, dtype=torch.int32, device=device)
+
+
 # lanes one gather or scatter of kernel R takes (csrc/checkpoint.cu CK_MAX_LANES)
 CHECKPOINT_LANES = 32
 
@@ -188,7 +208,8 @@ DTYPE_CODES = {
 # and rescatter of a materialized MIN/MAX multiset (its apply counts as
 # "minput"), or kernel R's gather, mark and scatter (its stage select
 # counts as "checkpoint"), or kernel S's filter (its projection counts
-# as "expr_eval")
+# as "expr_eval"), or kernel Z's right-value diff (its left step counts
+# as "dyn_general")
 ENTRY_KEYS = {
     "rw_lookup": "lookup",
     "rw_first_occurrence": "first_occurrence",
@@ -202,6 +223,7 @@ ENTRY_KEYS = {
     "rw_scatter_rows": "scatter_rows",
     "rw_filter": "expr_filter",
     "rw_group_topk_mask": "group_topk",
+    "rw_dyn_rv_diff": "dyn_rv_diff",
 }
 
 LAUNCHES = {name: 0 for name in (*SOURCES, *ENTRY_KEYS.values())}

@@ -41,20 +41,16 @@
 // the sdirty lane. All are bound by bytes; the copy to or from the host
 // that follows a gather or precedes a scatter is bound by PCIe.
 //
-// Design: the select is the flush's stream compaction (kernel C): each
-// block counts its 4096-slot tile from 16-byte vector loads, one block
-// scans the tile counts, each block re-reads its tile and writes its
-// selected slots at their global positions. No atomics decide a
+// Design: the select is csrc/compact.cuh's stream compaction (count per
+// 4096-slot tile, scan the tile counts in one block, re-read and write),
+// each tile read with 16-byte vector loads. No atomics decide a
 // position, so the order is ascending slot without a sort. The gather
 // and scatter walk every lane's rows in one launch (grid y = lane), each
 // thread moving one unit of 1, 2, 4, 8 or 16 bytes, consecutive threads
 // on consecutive bytes of the packed buffer.
-#include "common.cuh"
+#include "compact.cuh"
 
 #define CK_THREADS 256
-#define CK_ITEMS 16
-#define CK_TILE (CK_THREADS * CK_ITEMS)
-#define CK_SCAN_THREADS 1024
 #define CK_MAX_ALIVE 3
 #define CK_MAX_LANES 32
 #define CK_MAX_ROW_BLOCKS 4096
@@ -69,7 +65,7 @@ struct SelectLanes {
 
 __device__ __forceinline__ void ck_load16(const uint8_t* p, int64_t base, int64_t cap,
                                           uint8_t* out) {
-  if (base + CK_ITEMS <= cap) {
+  if (base + COMPACT_ITEMS <= cap) {
     const uint4 v = *(const uint4*)(p + base);
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -79,7 +75,7 @@ __device__ __forceinline__ void ck_load16(const uint8_t* p, int64_t base, int64_
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < CK_ITEMS; ++j) out[j] = base + j < cap ? p[base + j] : 0;
+    for (int j = 0; j < COMPACT_ITEMS; ++j) out[j] = base + j < cap ? p[base + j] : 0;
   }
 }
 
@@ -87,24 +83,24 @@ __device__ __forceinline__ void ck_load16(const uint8_t* p, int64_t base, int64_
 // selected count; *n_sd receives the dirty count.
 __device__ __forceinline__ int ck_flags(const SelectLanes& L, int64_t cap, int64_t base,
                                         uint8_t* flags, int* n_sd) {
-  uint8_t sd[CK_ITEMS], al[CK_ITEMS], st[CK_ITEMS], tmp[CK_ITEMS];
+  uint8_t sd[COMPACT_ITEMS], al[COMPACT_ITEMS], st[COMPACT_ITEMS], tmp[COMPACT_ITEMS];
   ck_load16(L.sdirty, base, cap, sd);
   ck_load16(L.stored, base, cap, st);
   if (L.ddirty != nullptr) {
     ck_load16(L.ddirty, base, cap, tmp);
 #pragma unroll
-    for (int j = 0; j < CK_ITEMS; ++j) sd[j] |= tmp[j];
+    for (int j = 0; j < COMPACT_ITEMS; ++j) sd[j] |= tmp[j];
   }
 #pragma unroll
-  for (int j = 0; j < CK_ITEMS; ++j) al[j] = 0;
+  for (int j = 0; j < COMPACT_ITEMS; ++j) al[j] = 0;
   for (int a = 0; a < L.n_alive; ++a) {
     ck_load16(L.alive[a], base, cap, tmp);
 #pragma unroll
-    for (int j = 0; j < CK_ITEMS; ++j) al[j] |= tmp[j];
+    for (int j = 0; j < COMPACT_ITEMS; ++j) al[j] |= tmp[j];
   }
   int cnt = 0, nsd = 0;
 #pragma unroll
-  for (int j = 0; j < CK_ITEMS; ++j) {
+  for (int j = 0; j < COMPACT_ITEMS; ++j) {
     const bool s = sd[j] != 0, alive = al[j] != 0;
     const bool tomb = s && st[j] != 0 && !alive;
     const bool sel = (s && alive) || tomb;
@@ -116,56 +112,21 @@ __device__ __forceinline__ int ck_flags(const SelectLanes& L, int64_t cap, int64
   return cnt;
 }
 
-__global__ void ck_count_kernel(SelectLanes L, int64_t cap, int32_t* tile_counts,
-                                unsigned long long* status) {
-  uint8_t flags[CK_ITEMS];
-  const int64_t base = (int64_t)blockIdx.x * CK_TILE + (int64_t)threadIdx.x * CK_ITEMS;
-  int n_sd, excl;
-  const int cnt = ck_flags(L, cap, base, flags, &n_sd);
-  const int total = rw_block_exclusive_scan<CK_THREADS>(cnt, &excl);
-  const int total_sd = rw_block_exclusive_scan<CK_THREADS>(n_sd, &excl);
-  if (threadIdx.x == 0) {
-    tile_counts[blockIdx.x] = total;
-    if (total_sd) atomicAdd(status + 1, (unsigned long long)total_sd);
+// The select as compact.cuh's flag functor: bit 0 = selected, bit 1 =
+// tomb (the payload); the dirty count rides as the aux count.
+struct SelectFlags {
+  static constexpr bool kAux = true;
+  SelectLanes L;
+  __device__ int flags(int64_t cap, int64_t base, uint8_t* f, int* aux) const {
+    return ck_flags(L, cap, base, f, aux);
   }
-}
-
-// One block: exclusive offsets of the per-tile counts; status[0] = total.
-__global__ void ck_scan_kernel(int32_t* tile_counts, int n_tiles, long long* status) {
-  const int per = (n_tiles + CK_SCAN_THREADS - 1) / CK_SCAN_THREADS;
-  const int lo = threadIdx.x * per;
-  int local = 0;
-  for (int j = lo; j < lo + per && j < n_tiles; ++j) local += tile_counts[j];
-  int excl;
-  const int total = rw_block_exclusive_scan<CK_SCAN_THREADS>(local, &excl);
-  int run = excl;
-  for (int j = lo; j < lo + per && j < n_tiles; ++j) {
-    const int c = tile_counts[j];
-    tile_counts[j] = run;
-    run += c;
-  }
-  if (threadIdx.x == 0) status[0] = total;
-}
-
-__global__ void ck_write_kernel(SelectLanes L, int64_t cap, const int32_t* tile_offsets,
-                                int32_t* sel, uint8_t* tomb) {
-  uint8_t flags[CK_ITEMS];
-  const int64_t base = (int64_t)blockIdx.x * CK_TILE + (int64_t)threadIdx.x * CK_ITEMS;
-  int n_sd, excl;
-  rw_block_exclusive_scan<CK_THREADS>(ck_flags(L, cap, base, flags, &n_sd), &excl);
-  int64_t pos = (int64_t)tile_offsets[blockIdx.x] + excl;
-#pragma unroll
-  for (int j = 0; j < CK_ITEMS; ++j) {
-    if (!(flags[j] & 1)) continue;
-    sel[pos] = (int32_t)(base + j);
-    tomb[pos] = (flags[j] >> 1) & 1;
-    ++pos;
-  }
-}
+  __device__ void on_select(int64_t, uint8_t) const {}
+  __device__ void on_total(long long*) const {}
+};
 
 // sdirty, ddirty (or null), alive0..2 (null past n_alive), stored: (cap,)
-// bool lanes, each 16-byte aligned. tile_counts: ceil(cap / 4096) int32
-// scratch. sel: (cap,) int32, tomb: (cap,) bool; the first status[0]
+// bool lanes, each 16-byte aligned. tile_counts: ceil(cap / 4096) + 1
+// int32 scratch. sel: (cap,) int32, tomb: (cap,) bool; the first status[0]
 // entries are written. status: (2,) int64.
 RW_EXPORT int rw_stage_select(const void* sdirty, const void* ddirty, const void* alive0,
                               const void* alive1, const void* alive2, int n_alive,
@@ -173,8 +134,6 @@ RW_EXPORT int rw_stage_select(const void* sdirty, const void* ddirty, const void
                               void* tomb, void* status, void* stream) {
   if (n_alive < 0 || n_alive > CK_MAX_ALIVE || cap < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaMemsetAsync(status, 0, 2 * sizeof(long long), st);
-  if (cap == 0) return (int)cudaGetLastError();
   SelectLanes L;
   L.sdirty = (const uint8_t*)sdirty;
   L.ddirty = (const uint8_t*)ddirty;
@@ -183,13 +142,8 @@ RW_EXPORT int rw_stage_select(const void* sdirty, const void* ddirty, const void
   L.alive[2] = (const uint8_t*)alive2;
   L.n_alive = n_alive;
   L.stored = (const uint8_t*)stored;
-  const int n_tiles = (int)((cap + CK_TILE - 1) / CK_TILE);
-  ck_count_kernel<<<n_tiles, CK_THREADS, 0, st>>>(L, cap, (int32_t*)tile_counts,
-                                                  (unsigned long long*)status);
-  ck_scan_kernel<<<1, CK_SCAN_THREADS, 0, st>>>((int32_t*)tile_counts, n_tiles,
-                                                (long long*)status);
-  ck_write_kernel<<<n_tiles, CK_THREADS, 0, st>>>(L, cap, (const int32_t*)tile_counts,
-                                                  (int32_t*)sel, (uint8_t*)tomb);
+  rw_compact(SelectFlags{L}, cap, (int32_t*)tile_counts, (int32_t*)sel, (uint8_t*)tomb,
+             (long long*)status, st);
   return (int)cudaGetLastError();
 }
 

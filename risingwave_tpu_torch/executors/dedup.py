@@ -132,7 +132,9 @@ class KeyTableGrowth(Checkpointable):
     """Growth, barrier and checkpoint bookkeeping shared by the executors
     whose state is one key table with slot lanes and a ``(saw_delete,
     dropped)`` latch pair: the append-only dedup and the dynamic max
-    filter.
+    filter. The general dynamic filter takes its growth and its row
+    store's checkpoint and restore (its first checkpoint table) from
+    here, and keeps its own barrier.
 
     The owner holds ``table``, ``sdirty``, ``stored``, ``_buckets``,
     ``_bound``, ``_occ_note``, ``_grew_midepoch``, ``_saw_delete`` and
@@ -162,7 +164,8 @@ class KeyTableGrowth(Checkpointable):
         mark_checkpointed(self.stored, self.sdirty, sel, tomb)
         keys = {k: pulled[k] for k in key_names}
         vals = {k: v for k, v in pulled.items() if k not in key_names}
-        return [StateDelta(self.table_id, keys, vals, tombstone, key_names)]
+        table_id = self.checkpoint_table_ids()[0]
+        return [StateDelta(table_id, keys, vals, tombstone, key_names)]
 
     def restore_state(self, table_id, key_cols, value_cols):
         """Fresh lanes of ``grow_pow2`` capacity; kernel A inserts the

@@ -334,26 +334,22 @@ def _apply_torch(state, calls, slots, signs, values, nulls, live):
         live[s] = state.row_count[s] > 0
 
 
-def _apply_cuda(state, calls, slots, signs, values, nulls, live):
-    n = slots.shape[0]
+def call_rows(name: str, state: AggState, calls, values, nulls, n: int) -> list:
+    """The calls as the descriptor rows kernels B and Y take: (kind,
+    input dtype, accumulator dtype, input, input nulls, accumulator,
+    non-null counter) per call, every lane checked (``n`` input rows)."""
     cap = state.capacity
-    if slots.dtype != torch.int32 or signs.dtype != torch.int32:
-        raise TypeError("slots and signs must be int32")
-    _kernels.check_cuda("agg_apply", slots, signs, n=n)
-    _kernels.check_cuda(
-        "agg_apply", state.row_count, state.dirty, state.sdirty, n=cap
-    )
     rows = []
     for c in calls:
         acc = state.accums[c.output]
         nonnull = state.nonnull.get(c.output)
-        _kernels.check_cuda("agg_apply", acc, *(() if nonnull is None else (nonnull,)), n=cap)
+        _kernels.check_cuda(name, acc, *(() if nonnull is None else (nonnull,)), n=cap)
         val = nul = None
         vdt = 0
         if c.input is not None:
             val = values[c.input]
             nul = nulls.get(c.input)
-            _kernels.check_cuda("agg_apply", val, *(() if nul is None else (nul,)), n=n)
+            _kernels.check_cuda(name, val, *(() if nul is None else (nul,)), n=n)
             vdt = _kernels.dtype_code(val)
             if c.kind in ("sum", "min", "max") and val.dtype == torch.bool:
                 raise TypeError(f"{c.kind} over a bool lane is not supported")
@@ -366,6 +362,19 @@ def _apply_cuda(state, calls, slots, signs, values, nulls, live):
             acc.data_ptr(),
             0 if nonnull is None else nonnull.data_ptr(),
         ))
+    return rows
+
+
+def _apply_cuda(state, calls, slots, signs, values, nulls, live):
+    n = slots.shape[0]
+    cap = state.capacity
+    if slots.dtype != torch.int32 or signs.dtype != torch.int32:
+        raise TypeError("slots and signs must be int32")
+    _kernels.check_cuda("agg_apply", slots, signs, n=n)
+    _kernels.check_cuda(
+        "agg_apply", state.row_count, state.dirty, state.sdirty, n=cap
+    )
+    rows = call_rows("agg_apply", state, calls, values, nulls, n)
     _kernels.call(
         "agg_apply", "rw_agg_apply",
         _kernels.int64_rows(rows, 8), len(rows), n, slots.data_ptr(), signs.data_ptr(),

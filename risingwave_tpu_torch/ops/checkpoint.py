@@ -89,8 +89,7 @@ def _stage_select_launch(sdirty, alive, stored, ddirty=None):
         if t.dtype != torch.bool or t.data_ptr() % _ALIGN:
             raise ValueError("checkpoint: select lanes must be 16-byte aligned bool lanes")
     dev = sdirty.device
-    tiles = max(1, -(-cap // _kernels.CHECKPOINT_TILE))
-    tile_counts = torch.empty(tiles, dtype=torch.int32, device=dev)
+    tile_counts = _kernels.compact_scratch(cap, dev)
     sel = torch.empty(cap, dtype=torch.int32, device=dev)
     tomb = torch.empty(cap, dtype=torch.bool, device=dev)
     status = torch.empty(2, dtype=torch.int64, device=dev)

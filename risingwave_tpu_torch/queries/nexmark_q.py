@@ -23,7 +23,10 @@ price) runs on the retractable GroupTopN the SQL planner's row_number
 rule lowers it to (``sql/planner.py:948-1060``) and, as RisingWave's own
 planner picks for an insert-only input, on the append-only GroupTopN;
 q105 (RisingWave's extension: the 1,000 auctions with the most bids)
-on the plain TopN of ``ORDER BY ... LIMIT`` (``planner.py:1272``).
+on the plain TopN of ``ORDER BY ... LIMIT`` (``planner.py:1272``);
+q102 (the auctions with at least the average number of bids) on a
+dynamic filter whose right input is a SimpleAgg, RisingWave's plan of a
+HAVING against a scalar subquery.
 """
 
 from __future__ import annotations
@@ -36,7 +39,10 @@ import torch
 from risingwave_tpu_torch import resolve_device
 from risingwave_tpu_torch.executors.base import Executor
 from risingwave_tpu_torch.executors.dedup import AppendOnlyDedupExecutor
-from risingwave_tpu_torch.executors.dynamic_filter import DynamicMaxFilterExecutor
+from risingwave_tpu_torch.executors.dynamic_filter import (
+    DynamicFilterExecutor,
+    DynamicMaxFilterExecutor,
+)
 from risingwave_tpu_torch.executors.filter import FilterExecutor
 from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
 from risingwave_tpu_torch.executors.hash_join import HashJoinExecutor
@@ -44,6 +50,7 @@ from risingwave_tpu_torch.executors.hop_window import HopWindowExecutor
 from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
 from risingwave_tpu_torch.executors.project import ProjectExecutor
 from risingwave_tpu_torch.executors.row_id_gen import RowIdGenExecutor
+from risingwave_tpu_torch.executors.simple_agg import SimpleAggExecutor
 from risingwave_tpu_torch.executors.top_n import GroupTopNExecutor
 from risingwave_tpu_torch.executors.top_n_plain import (
     RetractableGroupTopNExecutor,
@@ -696,3 +703,131 @@ def build_q105(
     )
     pipeline = TwoInputPipeline([], [agg], join, [topn, mview])
     return Q105(pipeline, agg, join, topn, mview)
+
+
+class Q102:
+    """Nexmark q102's two pipelines, driven in lockstep.
+
+    ``push_auction`` feeds stage 1's left; ``push_bid`` stage 1's right
+    and stage 2's right; what stage 1 emits is stage 2's left input. At
+    ``barrier`` stage 1 takes its barrier first, its emission is pushed
+    into stage 2 (against the old right value), then stage 2 takes its
+    barrier: the right chain's flush, the SimpleAgg row, the Project,
+    the filter's ``apply_right``, then its diff -- right moves apply at
+    the barrier (dynamic_filter.rs). ``fuse_pipeline`` takes each stage
+    on its own."""
+
+    def __init__(self, stage1: TwoInputPipeline, stage2: TwoInputPipeline, dev):
+        self.stage1, self.stage2 = stage1, stage2
+        self.count = stage1.right[0]
+        self.join = stage1.join
+        self.count2, self.simple, self.project = stage2.right
+        self.dfilter = stage2.join
+        self.mview = stage2.tail[0]
+        self.device = dev
+
+    def _forward(self, chunks) -> list:
+        outs = []
+        for c in chunks:
+            outs.extend(self.stage2.push_left(c))
+        return outs
+
+    def push_auction(self, chunk) -> list:
+        return self._forward(self.stage1.push_left(chunk))
+
+    def push_bid(self, chunk) -> list:
+        outs = self._forward(self.stage1.push_right(chunk))
+        return outs + self.stage2.push_right(chunk)
+
+    def barrier(self) -> list:
+        outs = self._forward(self.stage1.barrier())
+        return outs + self.stage2.barrier()
+
+    @property
+    def executors(self) -> list:
+        """Every executor of both stages (what a checkpoint commits)."""
+        return self.stage1.executors + self.stage2.executors
+
+    @property
+    def epoch(self) -> int:
+        """The epoch the last barrier closed."""
+        return self.stage2.epoch
+
+
+def build_q102(
+    capacity: int = 1 << 16,
+    agg_capacity: Optional[int] = None,
+    fanout: int = 4,
+    out_cap: int = 1 << 14,
+    filter_capacity: Optional[int] = None,
+    mv_capacity: Optional[int] = None,
+    device="cuda",
+) -> Q102:
+    """RisingWave's Nexmark q102, the auctions with at least the average
+    number of bids::
+
+      SELECT a.id AS auction_id, a.item_name AS auction_item_name,
+        COUNT(b.auction) AS bid_count
+      FROM auction a JOIN bid b ON a.id = b.auction
+      GROUP BY a.id, a.item_name
+      HAVING COUNT(b.auction) >= (SELECT COUNT(*) / COUNT(DISTINCT auction) FROM bid)
+
+      stage 1: auction (id, item_name)                   ┐ INNER JOIN
+               bid -> HashAgg COUNT(*) AS bid_count BY auction ┘ id = auction
+      stage 2: left  = stage 1's output (id, item_name, auction, bid_count), U-/U+
+               right = bid -> HashAgg COUNT(*) BY auction
+                       -> SimpleAgg(COUNT(*) n_auctions, SUM(bid_count) n_bids)
+                       -> Project(bid_count = n_bids // n_auctions)
+               DynamicFilter(bid_count >= right value, pk (id, auction))
+               -> MV pk=(id, auction)
+
+    RisingWave plans the HAVING as a dynamic filter whose right input is
+    a SimpleAgg. Two plan changes from the published plan:
+
+    - the count is taken before the join, as ``build_q105`` does: the
+      published join side would hold every bid of an auction under one
+      key, and auction ids are unique, so the relation is the same;
+    - the right value ``COUNT(*) / COUNT(DISTINCT auction)`` comes from a
+      second per-auction count, since ``AggCall`` has no DISTINCT: over
+      its U-/U+ stream ``SUM(bid_count)`` is ``COUNT(*) FROM bid``, and
+      ``COUNT(*)`` nets each update pair to 0, so it counts the auctions
+      with a bid. ``//`` is SQL's integer division of two bigints.
+
+    The Project names its output ``bid_count``: ``apply_right`` reads the
+    left value column's name. The MV is keyed on the join's stream key.
+    ``capacity`` sizes the join sides (with ``fanout``), ``agg_capacity``
+    both counts, ``filter_capacity`` the filter's row store.
+    """
+    dev = resolve_device(device)
+    i64 = torch.int64
+    agg_cap = agg_capacity or capacity
+
+    def count(table_id):
+        return HashAggExecutor(group_keys=("auction",),
+                               calls=(AggCall("count_star", None, "bid_count"),),
+                               schema_dtypes={"auction": i64}, capacity=agg_cap,
+                               table_id=table_id, device=dev)
+
+    join = HashJoinExecutor(
+        left_keys=("id",), right_keys=("auction",),
+        left_dtypes={"id": i64, "item_name": torch.int32},
+        right_dtypes={"auction": i64, "bid_count": i64},
+        capacity=capacity, fanout=fanout, out_cap=out_cap, join_type="inner",
+        table_id="q102.join", device=dev,
+    )
+    simple = SimpleAggExecutor(
+        (AggCall("count_star", None, "n_auctions"), AggCall("sum", "bid_count", "n_bids")),
+        {"bid_count": i64}, table_id="q102.avg", device=dev,
+    )
+    project = ProjectExecutor({"bid_count": col("n_bids") // col("n_auctions")})
+    dtypes = {"id": i64, "item_name": torch.int32, "auction": i64, "bid_count": i64}
+    dfilter = DynamicFilterExecutor("bid_count", ">=", ("id", "auction"), dtypes,
+                                    capacity=filter_capacity or capacity,
+                                    table_id="q102.filter", device=dev)
+    mview = DeviceMaterializeExecutor(
+        pk=("id", "auction"), columns=("item_name", "bid_count"), schema_dtypes=dtypes,
+        table_id="q102.mview", capacity=mv_capacity or capacity, device=dev,
+    )
+    stage1 = TwoInputPipeline([], [count("q102.count")], join, [])
+    stage2 = TwoInputPipeline([], [count("q102.count2"), simple, project], dfilter, [mview])
+    return Q102(stage1, stage2, dev)

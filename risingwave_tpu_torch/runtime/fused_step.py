@@ -63,6 +63,12 @@ reads them as an operand, so plans that differ only in literal values
 run one compiled program (``fused_cache_stats``). The two-input program
 binds no parameters, as the reference's (``fused_step.py:1891``).
 
+A two-input pipeline whose two-input executor is not a HashJoin (q102's
+second stage: the general dynamic filter) is refused whole, as the
+reference refuses it; its chains then fall back to the per-chain policy
+(an epoch-batched agg before the SimpleAgg; the MV after the filter
+stays interpreted, the filter declaring no closed emission family).
+
 Not ported yet: the device profiler and flight-recorder hooks (S8), the
 K-barrier pipeline depth, the ``RW_FUSED_TWO_INPUT`` and
 ``RW_FUSED_LIFT`` switches (fusion is the call to ``fuse_pipeline``;

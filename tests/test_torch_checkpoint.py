@@ -50,6 +50,7 @@ from risingwave_tpu_torch.storage.state_table import Checkpointable
 from risingwave_tpu_torch.types import Op
 
 import test_torch_q101 as q101t
+import test_torch_q102 as q102t
 import test_torch_q5_max as q5mt
 import test_torch_q7 as q7t
 import test_torch_q8 as q8t
@@ -350,6 +351,63 @@ def test_dedup_and_filter_deltas_equal_reference():
             assert port.state_digest() == ref.state_digest()
 
 
+def test_simple_agg_and_general_filter_deltas_equal_reference():
+    """The SimpleAgg's one row (a float MIN/MAX key in the reference's
+    unsigned lane, a nullable SUM) and the general dynamic filter's two
+    tables (the row store with its pass flags, tombstones of deleted
+    rows; the right value), over five checkpoints."""
+    from risingwave_tpu.executors.dynamic_filter import DynamicFilterExecutor as RefFilter
+    from risingwave_tpu.executors.simple_agg import SimpleAggExecutor as RefSimple
+    from risingwave_tpu.ops.agg import AggCall as RefCall
+    from risingwave_tpu_torch.executors import DynamicFilterExecutor, SimpleAggExecutor
+    from risingwave_tpu_torch.ops.agg import AggCall
+
+    def calls(C):
+        return (C("count_star", None, "n"), C("sum", "v", "s"), C("min", "f", "fmin"),
+                C("max", "f32", "fmax"))
+
+    np_dt = {"k": np.int64, "v": np.int64, "f": np.float64, "f32": np.float32}
+    t_dt = {"k": torch.int64, "v": torch.int64, "f": torch.float64, "f32": torch.float32}
+    pairs = [
+        (RefSimple(calls(RefCall), np_dt, table_id="sa"),
+         SimpleAggExecutor(calls(AggCall), t_dt, table_id="sa", device="cpu")),
+        (RefFilter("v", "<", ("k",), {"k": np.int64, "v": np.int64}, capacity=64,
+                   table_id="gf"),
+         DynamicFilterExecutor("v", "<", ("k",), {"k": torch.int64, "v": torch.int64},
+                               capacity=64, table_id="gf", device="cpu")),
+    ]
+    rng = np.random.default_rng(4)
+    stored = set()
+    for step in range(5):
+        n = 20
+        ks = rng.integers(0, 40, n).astype(np.int64)
+        ops = np.where(np.isin(ks, list(stored)) & (rng.random(n) < 0.5), int(Op.DELETE),
+                       int(Op.INSERT)).astype(np.int32)
+        stored |= set(ks[ops == int(Op.INSERT)].tolist())
+        cols = {"k": ks, "v": rng.integers(-50, 50, n).astype(np.int64),
+                "f": rng.normal(size=n), "f32": rng.normal(size=n).astype(np.float32)}
+        nulls = {"v": rng.random(n) < 0.2}
+        sa_ops = np.full(n, int(Op.INSERT), np.int32)  # append-only MIN/MAX
+        (rs, ps), (rf, pf) = pairs
+        rs.apply(RefChunk.from_numpy(cols, 32, ops=sa_ops, nulls=nulls))
+        ps.apply(StreamChunk.from_numpy(cols, 32, ops=sa_ops, nulls=nulls, device="cpu"))
+        kv = {"k": cols["k"], "v": cols["v"]}
+        rf.apply_left(RefChunk.from_numpy(kv, 32, ops=ops))
+        pf.apply_left(StreamChunk.from_numpy(kv, 32, ops=ops, device="cpu"))
+        if step % 2 == 0:
+            rv = {"v": np.asarray([int(rng.integers(-40, 40))], np.int64)}
+            rf.apply_right(RefChunk.from_numpy(rv, 2))
+            pf.apply_right(StreamChunk.from_numpy(rv, 2, device="cpu"))
+        for ref, port in pairs:
+            ref.on_barrier(None)
+            port.on_barrier(None)
+            got, want = port.checkpoint_delta(), ref.checkpoint_delta()
+            _assert_deltas_equal(got, want)
+            assert port.state_digest() == ref.state_digest()
+        if step >= 2:
+            assert any(d.tombstone.any() for d in got)
+
+
 def test_mv_deltas_equal_reference():
     """Upserts, deletes of stored rows (tombstones), a nullable column
     (its lane in the reference's uint8)."""
@@ -514,6 +572,15 @@ def _q5max_drive(pipeline, bids, port):
     pipeline.watermark("date_time", q5mt._drive(pipeline, bids, port))
 
 
+class _Q102:
+    """q102's two stages as one ``pipeline`` (``Q102`` has ``executors``
+    and ``epoch``), the reference's composed from its executors."""
+
+    def __init__(self, port):
+        self.pipeline = q102t._port_q102(1 << 10) if port else q102t._ref_q102(1 << 10)
+        self.mview = self.pipeline.mview
+
+
 QUERIES = {
     "q5": _Query(_q5_build(False), _q5_stream(10_000), _q5_drive(False), 3),
     # 500 events/s so the epochs span several hop windows and some close
@@ -524,6 +591,7 @@ QUERIES = {
                    lambda p, e, port: q101t._drive(p, e, port), 3,
                    ref_lags=("q101.join.left,q101.join.right",)),
     "q5_max": _Query(_Q5Max, lambda: q5mt._stream(6, 1500), _q5max_drive, 3),
+    "q102": _Query(_Q102, lambda: q102t._stream(6, seed=7), q102t._drive, 3),
 }
 
 

@@ -38,7 +38,8 @@ for m in ("runtime.fused_step", "executors.epoch_batch", "integrity", "executors
           "storage.sstable", "storage.object_store", "resilience", "metrics", "event_log",
           "ops.checkpoint", "expr.expr", "expr.functions", "expr.dtypes", "ops.expr_vm",
           "executors.filter", "executors.project", "executors.watermark_filter",
-          "executors.row_id_gen", "executors.top_n", "executors.top_n_plain"):
+          "executors.row_id_gen", "executors.top_n", "executors.top_n_plain",
+          "executors.simple_agg"):
     assert "risingwave_tpu_torch." + m in mods, m
 assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
 

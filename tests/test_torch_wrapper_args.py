@@ -1,5 +1,5 @@
-"""The CUDA wrappers of kernels H, J, L, M, N, O, P, Q, S, T, U, V, W and X marshal their
-arguments as
+"""The CUDA wrappers of kernels H, J, L, M, N, O, P, Q, S, T, U, V, W, X, Y and Z marshal
+their arguments as
 their C entry points declare them (``_kernels.SIGNATURES``), checked on
 the CPU: each wrapper runs on CPU tensors while ``_kernels.call`` is
 replaced by a ``ctypes.CFUNCTYPE`` callback of the entry point's
@@ -379,3 +379,48 @@ def test_w_and_x_entries_marshal(calls):
         tp._key_rows([(ex.table.live, 0)] * (tp.RANK_KEYS + 1))
     assert calls == [("topn_rank", "rw_rank_top"), ("topn_rank", "rw_group_topk_mask")]
     assert _kernels.LAUNCHES["topn_rank"] == 1 and _kernels.LAUNCHES["group_topk"] == 1
+
+
+def test_y_entry_marshals(calls):
+    """Kernel Y: kernel B's call rows (a COUNT(*), a nullable int32 SUM,
+    a float64 MIN, a float32 SUM) over the chunk's valid and ops lanes."""
+    from risingwave_tpu_torch.executors import simple_agg as sa
+    from risingwave_tpu_torch.ops import agg as agg_ops
+    from risingwave_tpu_torch.ops.agg import AggCall
+
+    agg_calls = (AggCall("count_star", None, "c"), AggCall("sum", "i", "s"),
+                 AggCall("min", "f", "m"), AggCall("sum", "g", "sg"))
+    dtypes = {"i": torch.int32, "f": torch.float64, "g": torch.float32}
+    st = agg_ops.create_state(2, agg_calls, dtypes, "cpu")
+    n = 8
+    cols = {"i": torch.arange(n, dtype=torch.int32).numpy(),
+            "f": torch.arange(n, dtype=torch.float64).numpy(),
+            "g": torch.arange(n, dtype=torch.float32).numpy()}
+    chunk = StreamChunk.from_numpy(cols, n, nulls={"i": (torch.arange(n) % 2 == 0).numpy()},
+                                   device="cpu")
+    sa._simple_step_cuda(st, chunk, agg_calls)
+    assert calls == [("simple_agg", "rw_simple_apply")]
+    assert _kernels.LAUNCHES["simple_agg"] == 1
+
+
+def test_z_entries_marshal(calls):
+    """Kernel Z's left step (row lanes of 8 and 4 bytes, a cast lane) and
+    its diff, each counted under its own key."""
+    from risingwave_tpu_torch.executors import dynamic_filter as df
+
+    ex = df.DynamicFilterExecutor("v", ">=", ("id",),
+                                  {"id": torch.int64, "name": torch.int32, "v": torch.int64},
+                                  capacity=64, device="cpu")
+    n = 8
+    chunk = StreamChunk.from_numpy({"id": torch.arange(n).numpy(),
+                                    "name": torch.arange(n).numpy(),  # int64: cast on write
+                                    "v": torch.arange(n).numpy()}, n, device="cpu")
+    slots = torch.arange(n, dtype=torch.int32)
+    ok = df._dyn_left_cuda(ex.table, ex.rows, ex.passing, ex.sdirty, ex.scratch, chunk, slots,
+                           ex.rv, ex.rv_valid, ex.op, ex.value_col, ex._dropped)
+    assert ok.shape == (n,) and ok.dtype == torch.bool
+    sel, now, _, _ = df._dyn_rv_diff_cuda(ex.table, ex.rows["v"], ex.passing, ex.sdirty, ex.rv,
+                                          ex.rv_valid, ex.op, ex._dropped)
+    assert sel.dtype == torch.int32 and now.dtype == torch.bool
+    assert calls == [("dyn_general", "rw_dyn_left_step"), ("dyn_general", "rw_dyn_rv_diff")]
+    assert _kernels.LAUNCHES["dyn_general"] == 1 and _kernels.LAUNCHES["dyn_rv_diff"] == 1
