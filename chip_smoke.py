@@ -54,7 +54,14 @@ Phases, each printing one JSON line:
      retraction of the MIN that must latch; Z, the general dynamic
      filter, its left step on a 2^17-row chunk of U-/U+ pairs into a
      2^22-slot store of 1.2M rows and its diff over that store with the
-     right value moved up and down (run beside phase 24);
+     right value moved up and down (run beside phase 24); AA, the tiled
+     expansion, bit for bit: unnest on a 65,536-row auction chunk with
+     LIST<int64> tags of cap 8 (lists of length 0, 8 and NULL), the
+     series on phase 25's projection of a bid chunk and on NULL bounds,
+     Expand's three grouping sets on a bid chunk and on null lanes, and
+     both latches; AB, the temporal probe, bit for bit, both join types,
+     against phase 28's auctions MV with NULL keys, after deletes and on
+     an MV that grew (run beside phase 28);
   4. the interpreted path: Nexmark q5 (hop -> HashAgg -> device MV)
      through ``build_q5_lite(state_cleaning=False)``, chunk by chunk,
      over 20 epochs of 1M events, its final MV held against a numpy
@@ -174,8 +181,28 @@ Phases, each printing one JSON line:
      chain, the refusals pinned), each MV against the numpy oracle at
      every barrier, the SimpleAgg's and the filter's kernel-H digests
      against ``host_digest``.
-Phase 16 also kills and recovers q19 and q105 (after phase 23) and q102
-(after phase 24). Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
+  25. q5 as a table function (Project lo/hi, ProjectSet
+     generate_series(lo, hi) with max_steps 5, Project window_start,
+     COUNT(*) per (auction, window_start), an MV; tables of phase 4's
+     size) over phase 4's chunks, interpreted and fused (the chain split
+     as Project, ProjectSet, one program), each MV equal to phase 4's
+     q5-lite MV row for row;
+  26. grouping sets (Expand over (auction), (bidder), (), COUNT(*) and
+     SUM(price) on (auction, bidder, flag) with nullable keys, an MV;
+     2^22 slots) over phase 4's chunks, both ways, against a numpy oracle;
+  27. unnest (phase 11's auctions with LIST<int64> tags encoded by
+     ``array/composite.py``, ProjectSet unnest, COUNT(*) per tag, an MV of
+     2^17 slots), both ways, against a numpy oracle;
+  28. temporal enrichment (auctions into a device MV on id; bids through
+     an inner TemporalJoin for seller and category, COUNT(*) and
+     SUM(price) per seller, an MV; 2^22 slots) over phase 11's stream in
+     lockstep, the bid chain interpreted and fused, against a numpy
+     oracle at every barrier;
+  then a host phase: VALUES into an MV, NOW over three barriers, and a
+  troublemaker at rate 1 whose logged faults show in the MV behind it.
+Phase 16 also kills and recovers q19 and q105 (after phase 23), q102
+(after phase 24), phases 25 and 26 (after q5-max's kill) and phase 28
+(after phase 28). Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the script exits non-zero and prints no result. Without a
 CUDA device it exits non-zero at once.
@@ -188,6 +215,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -2646,7 +2674,8 @@ def q101_stream(torch, dev, epochs: int):
     """Per epoch, 1M events generated in 65,536-event pieces: the
     auctions (id, item_name) batched into one chunk of A_ROWS rows, the
     bids (auction, price) one chunk per piece. Returns the host columns
-    and the chunks on the card."""
+    (the auctions' seller and category too, for phase 28) and the chunks
+    on the card."""
     from risingwave_tpu_torch.array.chunk import StreamChunk
     from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig, NexmarkGenerator
 
@@ -2658,13 +2687,15 @@ def q101_stream(torch, dev, epochs: int):
             n = min(CHUNK_EVENTS, EVENTS_PER_EPOCH - done)
             done += n
             ev = gen.next_events(n)
-            a_parts.append({k: ev["auction"][k] for k in ("id", "item_name")})
+            a_parts.append({k: ev["auction"][k] for k in ("id", "item_name", "seller",
+                                                          "category")})
             if len(ev["bid"]["auction"]):
                 bids.append({k: ev["bid"][k] for k in ("auction", "price")})
-        a = {k: np.concatenate([p[k] for p in a_parts]) for k in ("id", "item_name")}
+        a = {k: np.concatenate([p[k] for p in a_parts]) for k in a_parts[0]}
         check(len(a["id"]) <= A_ROWS, "q101: an epoch's auctions fit one chunk")
         host.append((a, bids))
-        chunks.append((StreamChunk.from_numpy(a, A_ROWS, device=dev),
+        chunks.append((StreamChunk.from_numpy({k: a[k] for k in ("id", "item_name")}, A_ROWS,
+                                              device=dev),
                        [StreamChunk.from_numpy(b, CHUNK_EVENTS, device=dev) for b in bids]))
     return host, chunks
 
@@ -6094,6 +6125,710 @@ def kill_q102(torch, dev, host, chunks):
     return kill_and_recover(torch, dev, spec)
 
 
+# -- kernels AA and AB; phases 25-28: table functions, grouping sets, temporal join --
+P25_STEPS = 5  # generate_series(lo, hi): the hop's five windows of a bid
+P26_SETS = (("auction",), ("bidder",), ())
+P26_CAP = 1 << 22  # about 1.2M auctions, 0.4M bidders and the total (phase 4's bids)
+P27_CAP = 1 << 17  # one group per tag of a 2^16 domain
+P28_CAP = 1 << 22  # the auctions MV (about 1.2M rows), the seller agg and MV
+TAG_CAP = 8
+TAG_DOMAIN = 1 << 16
+TABLE_KERNELS = {  # what each path's run must launch
+    "p25": ("series", "expr_eval", "lookup_or_insert", "mv_upsert"),
+    "p26": ("expand", "lookup_or_insert", "mv_upsert"),
+    "p27": ("unnest", "lookup_or_insert", "mv_upsert"),
+    "p28": ("temporal_probe", "lookup_or_insert", "mv_upsert"),
+}
+
+
+class Lockstep:
+    """Two pipelines driven as one (phase 28: the auctions MV, then the
+    bids through the temporal join): a barrier closes both, a checkpoint
+    takes both chains' executors at the second's epoch."""
+
+    def __init__(self, first, second):
+        self.first, self.second = first, second
+
+    @property
+    def executors(self):
+        return list(self.first.executors) + list(self.second.executors)
+
+    @property
+    def epoch(self):
+        return self.second.epoch
+
+    def barrier(self):
+        self.first.barrier()
+        return self.second.barrier()
+
+
+def table_path(pipeline, agg, mview, **extra):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(pipeline=pipeline, agg=agg, mview=mview, **extra)
+
+
+def build_p25(torch, dev, cap):
+    """q5 as a table function: Project (lo = date_time // 2000 - 4, hi =
+    date_time // 2000) -> ProjectSet(generate_series(lo, hi), max_steps
+    5) -> Project (window_start = value * 2000) -> COUNT(*) per (auction,
+    window_start) -> MV."""
+    from risingwave_tpu_torch.executors import ProjectSetExecutor
+    from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
+    from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
+    from risingwave_tpu_torch.executors.project import ProjectExecutor
+    from risingwave_tpu_torch.expr import col, lit
+    from risingwave_tpu_torch.ops.agg import AggCall
+    from risingwave_tpu_torch.queries.nexmark_q import Q5_SLIDE_MS
+    from risingwave_tpu_torch.runtime.pipeline import Pipeline
+
+    keys = ("auction", "window_start")
+    agg = HashAggExecutor(keys, (AggCall("count_star", None, "num"),),
+                          dict.fromkeys(keys, torch.int64), capacity=cap, table_id="p25.agg",
+                          device=dev)
+    mview = DeviceMaterializeExecutor(keys, ("num",), dict.fromkeys(keys + ("num",), torch.int64),
+                                      table_id="p25.mview", capacity=cap, device=dev)
+    slide = lit(Q5_SLIDE_MS)
+    return table_path(Pipeline([
+        ProjectExecutor({"auction": col("auction"),
+                         "lo": col("date_time") // slide - lit(P25_STEPS - 1),
+                         "hi": col("date_time") // slide}),
+        ProjectSetExecutor("generate_series", out="value", start_col="lo", stop_col="hi",
+                           max_steps=P25_STEPS),
+        ProjectExecutor({"auction": col("auction"), "window_start": col("value") * slide}),
+        agg, mview]), agg, mview)
+
+
+def build_p26(torch, dev, cap=P26_CAP):
+    """Grouping sets: Expand((auction), (bidder), ()) -> COUNT(*),
+    SUM(price) on (auction, bidder, flag), auction and bidder nullable ->
+    MV (a NULL key's pk lane holds 0, as the reference's MV stores it)."""
+    from risingwave_tpu_torch.executors import ExpandExecutor
+    from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
+    from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
+    from risingwave_tpu_torch.ops.agg import AggCall
+    from risingwave_tpu_torch.runtime.pipeline import Pipeline
+
+    i64 = torch.int64
+    keys = ("auction", "bidder", "flag")
+    agg = HashAggExecutor(keys, (AggCall("count_star", None, "n"), AggCall("sum", "price", "total")),
+                          {**dict.fromkeys(keys, i64), "price": i64}, capacity=cap,
+                          nullable_keys=("auction", "bidder"), table_id="p26.agg", device=dev)
+    mview = DeviceMaterializeExecutor(keys, ("n", "total"), dict.fromkeys(keys + ("n", "total"), i64),
+                                      table_id="p26.mview", capacity=cap, device=dev)
+    return table_path(Pipeline([ExpandExecutor(P26_SETS), agg, mview]), agg, mview)
+
+
+def build_p27(torch, dev, cap=P27_CAP):
+    """unnest: ProjectSet(unnest(tags), list_cap 8) -> COUNT(*) per tag -> MV."""
+    from risingwave_tpu_torch.executors import ProjectSetExecutor
+    from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
+    from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
+    from risingwave_tpu_torch.ops.agg import AggCall
+    from risingwave_tpu_torch.runtime.pipeline import Pipeline
+
+    agg = HashAggExecutor(("tag",), (AggCall("count_star", None, "n"),), {"tag": torch.int64},
+                          capacity=cap, table_id="p27.agg", device=dev)
+    mview = DeviceMaterializeExecutor(("tag",), ("n",), {"tag": torch.int64, "n": torch.int64},
+                                      table_id="p27.mview", capacity=cap, device=dev)
+    return table_path(Pipeline([ProjectSetExecutor("unnest", out="tag", list_col="tags",
+                                                   list_cap=TAG_CAP), agg, mview]), agg, mview)
+
+
+def build_p28(torch, dev, cap=P28_CAP):
+    """Temporal enrichment: auctions -> a device MV on id (interpreted:
+    a fused MV writes at the barrier, and the probe would read it an
+    epoch late); bids -> TemporalJoin(inner: seller, category) ->
+    COUNT(*), SUM(price) per seller -> MV."""
+    from risingwave_tpu_torch.executors import TemporalJoinExecutor
+    from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
+    from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
+    from risingwave_tpu_torch.ops.agg import AggCall
+    from risingwave_tpu_torch.runtime.pipeline import Pipeline
+
+    i64 = torch.int64
+    auctions = DeviceMaterializeExecutor(("id",), ("seller", "category"),
+                                         dict.fromkeys(("id", "seller", "category"), i64),
+                                         table_id="p28.auctions", capacity=cap, device=dev)
+    agg = HashAggExecutor(("seller",), (AggCall("count_star", None, "n"),
+                                        AggCall("sum", "price", "total")),
+                          {"seller": i64, "price": i64}, capacity=cap,
+                          nullable_keys=("seller",), table_id="p28.agg", device=dev)
+    mview = DeviceMaterializeExecutor(("seller",), ("n", "total"),
+                                      dict.fromkeys(("seller", "n", "total"), i64),
+                                      table_id="p28.mview", capacity=cap, device=dev)
+    right = Pipeline([auctions])
+    bids = Pipeline([TemporalJoinExecutor(auctions, ("auction",), ("seller", "category"),
+                                          "inner"), agg, mview])
+    return table_path(Lockstep(right, bids), agg, mview, right=right, bids=bids,
+                      auctions=auctions)
+
+
+def tag_chunks(torch, dev, host):
+    """Phase 11's auctions (id, item_name) with a LIST<int64> ``tags``
+    column, encoded on the host by ``array/composite.py`` (the DML edge):
+    0-8 tags a row from a 2^16 domain, a tenth of the lists NULL, drawn
+    from the seed; an epoch's first rows hold an empty list, a full one
+    and a NULL one. Returns per epoch the lists and the chunk on the card."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.array.composite import encode_column
+    from risingwave_tpu_torch.types import DataType, Field
+
+    rng = np.random.default_rng(SEED + 27)
+    field = Field("tags", DataType.LIST, elem=DataType.INT64, list_cap=TAG_CAP)
+    out = []
+    for a, _ in host:
+        n = len(a["id"])
+        lens = rng.integers(0, TAG_CAP + 1, n)
+        lens[:2] = (0, TAG_CAP)
+        isnull = rng.random(n) < 0.1
+        isnull[:3] = (False, False, True)
+        flat = rng.integers(0, TAG_DOMAIN, int(lens.sum()))
+        lists = [None if z else v.tolist() for v, z in zip(np.split(flat, np.cumsum(lens)[:-1]),
+                                                            isnull)]
+        lanes, nulls = encode_column(field, lists)
+        lanes.update(id=a["id"], item_name=a["item_name"])
+        out.append((lists, StreamChunk.from_numpy(lanes, A_ROWS, nulls=nulls, device=dev)))
+    return out
+
+
+def p26_oracle(host_bids) -> dict:
+    """Phase 26's MV as sorted (auction, bidder, flag, n, total) rows, a
+    NULL key as 0."""
+    rows = []
+    for flag, key in ((0, "auction"), (1, "bidder")):
+        u, inv = np.unique(host_bids[key], return_inverse=True)
+        n = np.bincount(inv)
+        total = np.bincount(inv, weights=host_bids["price"]).astype(np.int64)
+        z = np.zeros(len(u), np.int64)
+        ks = (u, z) if flag == 0 else (z, u)
+        rows.append(np.stack([*ks, np.full(len(u), flag), n, total], 1))
+    rows.append(np.asarray([[0, 0, 2, len(host_bids["price"]), int(host_bids["price"].sum())]]))
+    return sort_rows(np.concatenate(rows).astype(np.int64))
+
+
+def sort_rows(rows: np.ndarray) -> np.ndarray:
+    return rows[np.lexsort(rows.T[::-1])] if len(rows) else rows
+
+
+def mv_table_rows(mview, names) -> np.ndarray:
+    d = mview.to_numpy()
+    return sort_rows(np.stack([d[n].astype(np.int64) for n in names], 1))
+
+
+def p27_oracle(tags) -> np.ndarray:
+    flat = np.asarray([t for lists in tags for lst in lists if lst for t in lst], np.int64)
+    n = np.bincount(flat, minlength=TAG_DOMAIN)
+    u = np.flatnonzero(n)
+    return np.stack([u, n[u]], 1)
+
+
+def p28_oracle(host, upto: int) -> np.ndarray:
+    """(seller, n, total) after epochs 0..upto: each bid joined with the
+    seller of an auction pushed by then (its epoch's auctions first)."""
+    sellers, prices = [], []
+    ids = np.zeros(0, np.int64)
+    sel = np.zeros(0, np.int64)
+    for a, bids in host[:upto + 1]:
+        ids = np.concatenate([ids, a["id"]])
+        sel = np.concatenate([sel, a["seller"]])
+        order = np.argsort(ids, kind="stable")
+        ids, sel = ids[order], sel[order]
+        for b in bids:
+            pos = np.clip(np.searchsorted(ids, b["auction"]), 0, len(ids) - 1)
+            hit = ids[pos] == b["auction"]
+            sellers.append(sel[pos[hit]])
+            prices.append(b["price"][hit])
+    s, p = np.concatenate(sellers), np.concatenate(prices)
+    u, inv = np.unique(s, return_inverse=True)
+    return np.stack([u, np.bincount(inv), np.bincount(inv, weights=p).astype(np.int64)], 1)
+
+
+def aa_lanes(chunk) -> dict:
+    out = {f"col.{k}": v for k, v in chunk.columns.items()}
+    out.update({f"null.{k}": v for k, v in chunk.nulls.items()})
+    out.update(valid=chunk.valid, ops=chunk.ops)
+    return out
+
+
+def nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def kernel_aa(torch, dev, rng, bid, tagged):
+    """Kernel AA's three entries against their plain versions on the card,
+    bit for bit (copies: no tolerance applies): unnest on a 65,536-row
+    auction chunk with LIST<int64> tags of cap 8 (lists of length 0, 8 and
+    NULL among them) into 524,288 rows; the series on phase 25's projection
+    of a 65,536-row bid chunk (k = 5, 327,680 rows) and on one with NULL
+    bounds; Expand's three grouping sets on a bid chunk (196,608 rows; the
+    int32 channel and a null lane beside the int64 lanes) and on one with
+    null lanes inside and outside the sets. The latches: a list past the
+    cap and a span past max_steps raise at the barrier. Each timed beside
+    its plain version and its library call (``Tensor.repeat`` of each
+    tiled lane)."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.executors import ProjectSetExecutor
+    from risingwave_tpu_torch.executors import expand as ex_mod
+    from risingwave_tpu_torch.executors import project_set as ps
+
+    def compare(got, want, what):
+        torch.cuda.synchronize()
+        assert_lanes_equal(torch, aa_lanes(got), aa_lanes(want), what)
+
+    mask = lambda share: torch.from_numpy(rng.random(bid.capacity) < share).to(dev)
+
+    def library(chunk, k, drop=()):
+        lanes = [a for n, a in chunk.columns.items() if n not in drop]
+        lanes += [a for n, a in chunk.nulls.items() if n not in drop]
+        lanes += [chunk.valid, chunk.ops]
+        return time_ms(torch, lambda: [a.repeat(k) for a in lanes], 20)
+
+    rows = []
+    # unnest
+    k = TAG_CAP
+    drop = {n for n in tagged.columns if n.startswith("tags.")}
+    got = ps._unnest_cuda(tagged, "tags", "tag", k, True)
+    compare(got, ps._unnest_torch(tagged, "tags", "tag", k, True), "AA unnest")
+    v = got.valid.reshape(k, -1)
+    check(not bool(v[:, 0].any()) and bool(v[:, 1].all()) and not bool(v[:, 2].any()),
+          "AA unnest: an empty list yields nothing, a full one 8 rows, a NULL one nothing")
+    for cap, raises in ((TAG_CAP, False), (4, True)):
+        ex = ProjectSetExecutor("unnest", out="tag", list_col="tags", list_cap=cap)
+        ex.apply(tagged)
+        plain_hit = bool(ps.truncated(tagged, "unnest", "tags", None, cap))
+        check(bool(ex._truncated) == plain_hit == raises,
+              f"AA unnest: the kernel's latch at list_cap {cap} equals its plain version")
+        try:
+            ex.on_barrier(None)
+            latched = False
+        except RuntimeError as e:
+            if "unnest list exceeded list_cap" not in str(e):
+                raise
+            latched = True
+        check(latched == raises, f"AA unnest: the latch at list_cap {cap}")
+    ms = time_ms(torch, lambda: ps._unnest_cuda(tagged, "tags", "tag", k, True), 20)
+    plain = time_ms(torch, lambda: ps._unnest_torch(tagged, "tags", "tag", k, True), 5)
+    read = list(tagged.columns.values()) + [a for n, a in tagged.nulls.items() if n not in drop]
+    written = [a for n, a in got.columns.items()] + list(got.nulls.values())
+    rows.append({
+        "name": "AA unnest", "route": "cuda", "source": "risingwave_tpu_torch/csrc/tile_expand.cu",
+        "replaces": "risingwave_tpu/executors/project_set.py:31", "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain,
+        "bound_ms": bound_ms(nbytes(read + [tagged.valid, tagged.ops])
+                             + nbytes(written + [got.valid, got.ops])),
+        "bound_by": "bytes", "library_ms": library(tagged, k, drop),
+        "library_call": "Tensor.repeat of each tiled lane (columns, null lanes, valid, ops)",
+        "tolerance": "bit for bit",
+        "shape": {"rows": tagged.capacity, "copies": k, "out_rows": got.capacity,
+                  "lanes": {n: str(a.dtype) for n, a in tagged.columns.items()}},
+    })
+    # series: phase 25's first projection of a bid chunk, then NULL bounds
+    lo = torch.div(bid.col("date_time"), 2000, rounding_mode="floor") - (P25_STEPS - 1)
+    proj = StreamChunk({"auction": bid.col("auction"), "lo": lo, "hi": lo + (P25_STEPS - 1)},
+                       bid.valid, {}, bid.ops)
+    got = ps._series_cuda(proj, "lo", "hi", "value", P25_STEPS, True)
+    compare(got, ps._series_torch(proj, "lo", "hi", "value", P25_STEPS, True), "AA series")
+    check(bool(torch.equal(got.valid, bid.valid.repeat(P25_STEPS))), "AA series: every span is 5")
+    lat = torch.zeros((), dtype=torch.bool, device=dev)
+    ps._series_cuda(proj, "lo", "hi", "value", P25_STEPS, True, lat)
+    check(not bool(lat), "AA series: spans of 5 leave the latch clear")
+    n = bid.capacity
+    hi = proj.col("hi").clone()
+    hi[: n // 8] += 7  # spans past max_steps
+    nulled = StreamChunk({**proj.columns, "hi": hi}, proj.valid,
+                         {"lo": mask(0.1), "hi": mask(0.1)}, proj.ops)
+    compare(ps._series_cuda(nulled, "lo", "hi", "value", P25_STEPS, False),
+            ps._series_torch(nulled, "lo", "hi", "value", P25_STEPS, False), "AA series NULL bounds")
+    ex = ProjectSetExecutor("generate_series", out="value", start_col="lo", stop_col="hi",
+                            max_steps=P25_STEPS)
+    ex.apply(nulled)
+    check(bool(ex._truncated) and bool(ps.truncated(nulled, "series", "lo", "hi", P25_STEPS)),
+          "AA series: the kernel's latch equals its plain version")
+    try:
+        ex.on_barrier(None)
+        latched = False
+    except RuntimeError as e:
+        if "generate_series exceeded max_steps" not in str(e):
+            raise
+        latched = True
+    check(latched, "AA series: a span past max_steps latches")
+    ms = time_ms(torch, lambda: ps._series_cuda(proj, "lo", "hi", "value", P25_STEPS, True), 20)
+    plain = time_ms(torch, lambda: ps._series_torch(proj, "lo", "hi", "value", P25_STEPS, True), 5)
+    rows.append({
+        "name": "AA series", "route": "cuda", "source": "risingwave_tpu_torch/csrc/tile_expand.cu",
+        "replaces": "risingwave_tpu/executors/project_set.py:54", "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain,
+        "bound_ms": bound_ms(nbytes([*proj.columns.values(), proj.valid, proj.ops])
+                             + nbytes([*got.columns.values(), got.valid, got.ops])),
+        "bound_by": "bytes", "library_ms": library(proj, P25_STEPS),
+        "library_call": "Tensor.repeat of each tiled lane (columns, valid, ops)",
+        "tolerance": "bit for bit",
+        "shape": {"rows": n, "copies": P25_STEPS, "out_rows": got.capacity},
+    })
+    # expand: phase 26's chunk, then null lanes in and outside the sets
+    names = tuple(sorted({c for s in P26_SETS for c in s}))
+    got = ex_mod._expand_cuda(bid, P26_SETS, names, "flag")
+    compare(got, ex_mod._expand_torch(bid, P26_SETS, names, "flag"), "AA expand")
+    nulled = bid.with_nulls(bidder=mask(0.2), channel=mask(0.2))
+    compare(ex_mod._expand_cuda(nulled, P26_SETS, names, "flag"),
+            ex_mod._expand_torch(nulled, P26_SETS, names, "flag"), "AA expand with null lanes")
+    ms = time_ms(torch, lambda: ex_mod._expand_cuda(bid, P26_SETS, names, "flag"), 20)
+    plain = time_ms(torch, lambda: ex_mod._expand_torch(bid, P26_SETS, names, "flag"), 5)
+    rows.append({
+        "name": "AA expand", "route": "cuda", "source": "risingwave_tpu_torch/csrc/tile_expand.cu",
+        "replaces": "risingwave_tpu/executors/expand.py:29", "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain,
+        "bound_ms": bound_ms(nbytes([*bid.columns.values(), bid.valid, bid.ops])
+                             + nbytes([*got.columns.values(), *got.nulls.values(), got.valid,
+                                       got.ops])),
+        "bound_by": "bytes", "library_ms": library(bid, len(P26_SETS)),
+        "library_call": "Tensor.repeat of each tiled lane (columns, valid, ops; the sets' "
+                        "null lanes left out)",
+        "tolerance": "bit for bit",
+        "shape": {"rows": n, "copies": len(P26_SETS), "out_rows": got.capacity,
+                  "lanes": {c: str(a.dtype) for c, a in bid.columns.items()}},
+    })
+    return rows
+
+
+def kernel_ab(torch, dev, rng, mv, bid):
+    """Kernel AB against its plain version on the card, bit for bit, both
+    join types: 65,536 bid rows (a twentieth of their keys NULL) against
+    phase 28's auctions MV (2^22 slots, about 1.2M rows); then with 1,000
+    probed auctions deleted from it (they must not match); then against
+    a 2^10-slot MV that grew under 65,536 inserted auctions. Timed on the
+    plain chunk, with the library composition (kernel M's ``rw_lookup``,
+    then ``index_select`` of each value and null lane)."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.executors import TemporalJoinExecutor
+    from risingwave_tpu_torch.executors import temporal_join as tj
+    from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.types import Op
+
+    out_cols = ("seller", "category")
+    n = bid.capacity
+
+    def probe(fn, m, chunk, jt):
+        keys = (chunk.col("auction"),)
+        key_ok = ~chunk.null_of("auction")
+        return fn(m.table, m.state.values, m.state.vnulls, chunk, keys, key_ok, out_cols, jt)
+
+    def compare(m, chunk, what):
+        outs = {}
+        for jt in ("inner", "left"):
+            got = probe(tj._probe_cuda, m, chunk, jt)
+            want = probe(tj._probe_torch, m, chunk, jt)
+            torch.cuda.synchronize()
+            assert_lanes_equal(torch, aa_lanes(got), aa_lanes(want), f"AB {what} {jt}")
+            outs[jt] = got
+        check(torch.equal(outs["left"].valid, chunk.valid), f"AB {what}: left keeps every row")
+        return outs
+
+    nulled = bid.with_nulls(auction=torch.from_numpy(rng.random(n) < 0.05).to(dev))
+    outs = compare(mv, nulled, "NULL keys")
+    check(not bool((outs["inner"].valid & nulled.nulls["auction"]).any()),
+          "AB: a NULL key never matches")
+    matched = int(outs["inner"].valid.sum())
+    # deleted MV rows
+    gone = torch.unique(bid.col("auction")[bid.valid])[:1000]
+    dels = StreamChunk.from_numpy({"id": gone.cpu().numpy(), "seller": np.zeros(len(gone), np.int64),
+                                   "category": np.zeros(len(gone), np.int64)}, 1024,
+                                  ops=np.full(len(gone), int(Op.DELETE), np.int32), device=dev)
+    ms = time_ms(torch, lambda: probe(tj._probe_cuda, mv, bid, "inner"), 20)
+    plain = time_ms(torch, lambda: probe(tj._probe_torch, mv, bid, "inner"), 5)
+
+    def lib():
+        slots, found = ht._lookup_cuda(mv.table, (bid.col("auction"),), bid.valid)
+        idx = torch.where(found, slots.long(), mv.table.capacity - 1)
+        return [mv.state.values[c].index_select(0, idx) for c in out_cols]
+
+    library_ms = time_ms(torch, lib, 20)
+    n_live = int(mv.table.live.sum())
+    mv.apply(dels)
+    outs = compare(mv, bid, "after deletes")
+    hit_gone = torch.isin(bid.col("auction"), gone) & bid.valid
+    check(not bool((outs["inner"].valid & hit_gone).any()) and bool(hit_gone.any()),
+          "AB: a deleted MV row does not match")
+    # growth: a small MV that rebuilds while auctions arrive, probed after
+    small = DeviceMaterializeExecutor(("id",), out_cols, {"id": torch.int64, "seller": torch.int64,
+                                                          "category": torch.int64},
+                                      capacity=1 << 10, device=dev)
+    ids = torch.unique(bid.col("auction")[bid.valid]).cpu().numpy()
+    small.apply(StreamChunk.from_numpy({"id": ids, "seller": ids % 977, "category": ids % 13},
+                                       n, device=dev))
+    check(small.table.capacity > 1 << 10, "AB: the small MV grew")
+    compare(small, bid, "after growth")
+    (joined,) = TemporalJoinExecutor(small, ("auction",), out_cols, "inner").apply(bid)
+    check(torch.equal(joined.valid, bid.valid), "AB: every bid finds its auction after growth")
+    # bytes: the key, valid and key_ok lanes; per probed row the slot's
+    # fp1, fp2, key and live; the gathered lanes; the outputs
+    n_valid = int(bid.valid.sum())
+    read = n * (8 + 1 + 1) + n_valid * (4 + 4 + 8 + 1) + n * 8 * len(out_cols)
+    written = n * (8 + 1) * len(out_cols) + n
+    return {
+        "name": "AB temporal probe", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/temporal_probe.cu",
+        "replaces": "risingwave_tpu/executors/temporal_join.py:32", "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(read + written), "bound_by": "bytes",
+        "library_ms": library_ms,
+        "library_call": "a composition of two calls: kernel M's rw_lookup, then index_select "
+                        "of each value lane",
+        "tolerance": "bit for bit",
+        "shape": {"rows": n, "mv_capacity": mv.table.capacity, "mv_rows": n_live,
+                  "matched_inner": matched, "outputs": list(out_cols)},
+    }
+
+
+def table_phase(torch, key, build, chain_of, want_chain, data, push, names, want, rows_in,
+                after=None):
+    """The frame of phases 25-28: an interpreted and a fused build of one
+    path (the fused chain split as ``want_chain``) driven in lockstep over
+    ``data`` (``push(run, item)``, then a barrier; ``after(runs, e)``
+    checks barrier e); each run launches its TABLE_KERNELS; at the end
+    each MV's ``names`` rows equal ``want``, and the fused run's staged
+    digests equal host_digest of its lanes and the interpreted run's
+    state. Returns the runs, the path rows and the launches by path."""
+    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline
+
+    runs = {key: build(), f"{key}_fused": build()}
+    fused = runs[f"{key}_fused"]
+    made = fuse_pipeline(chain_of(fused), label=key)
+    check([type(w).__name__ for w in made] == ["FusedChainExecutor"], f"{key}: one fused program")
+    got = [type(e).__name__ for e in chain_of(fused).executors]
+    check(got == want_chain, f"{key}: the fused chain splits as {want_chain}: {got}")
+    by_pipe = {id(q.pipeline): q for q in runs.values()}
+    launches = PathLaunches()
+    torch.cuda.reset_peak_memory_stats()
+    rec = lockstep(torch, {k: q.pipeline for k, q in runs.items()}, data,
+                   lambda pipe, item: push(by_pipe[id(pipe)], item), launches,
+                   None if after is None else lambda e: after(runs, e))
+    peak = torch.cuda.max_memory_allocated()
+    for k, q in runs.items():
+        for kern in TABLE_KERNELS[key]:
+            check(launches.by[k][kern] > 0, f"{k}: kernel {kern} launched")
+        got = mv_table_rows(q.mview, names)
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"{k}: MV ({len(got)} rows) vs the oracle ({len(want)} rows)")
+    digests = state_digests(fused)
+    check(made[0].last_digests == digests, f"{key} fused: staged digests vs host_digest")
+    check(digests == state_digests(runs[key]), f"{key} fused: state vs the interpreted run's")
+    rows = [path_row(k, rows_in, rec[k], mv_rows=int(len(want)), launches=launches.by[k])
+            for k in runs]
+    rows[1].update(chain=want_chain, digests={k: f"{v:016x}" for k, v in digests.items()})
+    rows[0].update(max_memory_allocated=int(peak))
+    return runs, rows, launches.by
+
+
+P25_NAMES = ("auction", "window_start", "num")
+P26_NAMES = ("auction", "bidder", "flag", "n", "total")
+P28_NAMES = ("seller", "n", "total")
+
+
+def push_bids(q, ep) -> None:
+    for c in ep:
+        q.pipeline.push(c)
+
+
+def p25_paths(torch, dev, chunks, cap, q5_rows):
+    """Phase 25: q5 as a table function over phase 4's bid chunks, tables
+    of phase 4's size, interpreted and fused in lockstep: each MV equals
+    phase 4's q5-lite MV row for row (itself equal to the numpy oracle);
+    the latch stays clear (every span is 5)."""
+    n_bids = sum(int(c.valid.sum()) for ep in chunks for c in ep)
+    _, rows, by = table_phase(
+        torch, "p25", lambda: build_p25(torch, dev, cap), lambda q: q.pipeline,
+        ["ProjectExecutor", "ProjectSetExecutor", "FusedChainExecutor"], chunks, push_bids,
+        P25_NAMES, q5_rows, n_bids)
+    rows[0].update(capacity=cap, oracle="phase 4's q5-lite MV (equal to the numpy hop oracle), "
+                                        "row for row, both runs; fused staged digests = "
+                                        "host_digest = the interpreted run's")
+    return rows, by
+
+
+def p26_paths(torch, dev, chunks):
+    """Phase 26: grouping sets over phase 4's bid chunks (196,608-row
+    expanded chunks), agg and MV of 2^22 slots, both ways: each MV equals
+    the numpy oracle of the three groupings."""
+    n_bids = sum(int(c.valid.sum()) for ep in chunks for c in ep)
+    _, rows, by = table_phase(
+        torch, "p26", lambda: build_p26(torch, dev), lambda q: q.pipeline,
+        ["ExpandExecutor", "FusedChainExecutor"], chunks, push_bids, P26_NAMES,
+        p26_oracle(bid_host_rows(chunks)), n_bids)
+    rows[0].update(capacity=P26_CAP, sets=[list(s) for s in P26_SETS],
+                   oracle="numpy counts and price sums per auction, per bidder and in total "
+                          "(a NULL key's pk lane 0), both runs; fused state = interpreted")
+    return rows, by
+
+
+def p27_paths(torch, dev, tagged):
+    """Phase 27: unnest over phase 11's auction chunks with their tags,
+    agg and MV of 2^17 slots, both ways: each MV equals the numpy count
+    of every tag."""
+    want = p27_oracle([lists for lists, _ in tagged])
+    _, rows, by = table_phase(
+        torch, "p27", lambda: build_p27(torch, dev), lambda q: q.pipeline,
+        ["ProjectSetExecutor", "FusedChainExecutor"], [c for _, c in tagged],
+        lambda q, c: q.pipeline.push(c), ("tag", "n"), want,
+        sum(len(lists) for lists, _ in tagged))
+    rows[0].update(capacity=P27_CAP, list_cap=TAG_CAP, tag_domain=TAG_DOMAIN,
+                   tags=int(want[:, 1].sum()),
+                   null_lists=sum(v is None for lists, _ in tagged for v in lists),
+                   oracle="numpy bincount of every tag of the non-NULL lists, both runs; "
+                          "fused state = interpreted")
+    return rows, by
+
+
+def auction_chunks(torch, dev, host):
+    """Phase 11's auctions as (id, seller, category) chunks on the card."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+
+    return [StreamChunk.from_numpy({k: a[k] for k in ("id", "seller", "category")}, A_ROWS,
+                                   device=dev) for a, _ in host]
+
+
+def push_p28(chunks, a_chunks):
+    """Epoch e of phase 28: its auction chunk into the auctions MV, then
+    its bid chunks through the temporal join."""
+
+    def push(q, e):
+        q.right.push(a_chunks[e])
+        for b in chunks[e][1]:
+            q.bids.push(b)
+
+    return push
+
+
+def p28_paths(torch, dev, host, chunks, a_chunks):
+    """Phase 28: temporal enrichment over phase 11's stream, the bid chain
+    interpreted and fused (the auctions MV interpreted in both runs);
+    each seller MV equals the numpy oracle at every barrier. Returns the
+    interpreted run's auctions MV for kernel AB."""
+
+    def after(runs, e):
+        want = p28_oracle(host, e)
+        for k, q in runs.items():
+            got = mv_table_rows(q.mview, P28_NAMES)
+            check(got.shape == want.shape and np.array_equal(got, want),
+                  f"{k}: MV ({len(got)} rows) vs the oracle ({len(want)} rows) at barrier {e}")
+
+    rows_in = sum(len(a["id"]) + sum(len(b["auction"]) for b in bids) for a, bids in host)
+    runs, rows, by = table_phase(
+        torch, "p28", lambda: build_p28(torch, dev), lambda q: q.bids,
+        ["TemporalJoinExecutor", "FusedChainExecutor"], range(len(chunks)),
+        push_p28(chunks, a_chunks), P28_NAMES, p28_oracle(host, len(chunks) - 1), rows_in, after)
+    for row, q in zip(rows, runs.values()):
+        row["auctions"] = int(q.auctions.table.live.sum())
+    rows[0].update(capacity=P28_CAP,
+                   oracle="numpy: each bid joined with the seller of an auction pushed by then, "
+                          "counts and price sums per seller, at every barrier for both runs; "
+                          "fused state = interpreted; the auctions MV interpreted in both")
+    return rows, by, runs["p28"].auctions
+
+
+def generators_on_card(torch, dev):
+    """The host phase on the card: VALUES into an MV (once, at the first
+    barrier), NOW over three barriers into an MV keyed on it (one row,
+    the barrier's ms), and a troublemaker at rate 1 in front of COUNT(*)
+    per k -> MV, whose MV must hold the signed count of what the
+    troublemaker emitted (its logged faults) and differ from the clean
+    run's."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.executors import NowExecutor, TroublemakerExecutor, ValuesExecutor
+    from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
+    from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
+    from risingwave_tpu_torch.ops.agg import AggCall
+    from risingwave_tpu_torch.runtime.pipeline import Pipeline
+
+    i64 = torch.int64
+    vals = ValuesExecutor({"x": np.asarray([3, 1, 4, 1, 5], np.int64)}, device=dev)
+    mv = DeviceMaterializeExecutor(("_row_id",), ("x",), {"_row_id": i64, "x": i64}, capacity=16,
+                                   device=dev)
+    pipe = Pipeline([vals, mv])
+    for _ in range(2):
+        pipe.barrier()
+        check(sorted(v[0] for v in mv.snapshot().values()) == [1, 1, 3, 4, 5],
+              "VALUES: its rows once")
+    now = NowExecutor(device=dev)
+    mvn = DeviceMaterializeExecutor(("now",), (), {"now": i64}, capacity=16, device=dev)
+    pipe = Pipeline([now, mvn])
+    for ms in (1000, 2000, 3500):
+        pipe.barrier(epoch=ms << 16)
+        check(mvn.snapshot() == {(ms,): ()}, f"NOW: one row {ms} after its barrier")
+
+    def run(chaos):
+        agg = HashAggExecutor(("k",), (AggCall("count_star", None, "n"),), {"k": i64},
+                              capacity=1 << 8, device=dev)
+        mvk = DeviceMaterializeExecutor(("k",), ("n",), {"k": i64, "n": i64}, capacity=1 << 8,
+                                        device=dev)
+        pipe = Pipeline([agg, mvk])
+        tm = TroublemakerExecutor(seed=SEED, rate=1.0)
+        emitted = Counter()
+        for i in range(16):
+            c = StreamChunk.from_numpy({"k": np.asarray([i, i + 1, i + 2], np.int64),
+                                        "v": np.arange(3, dtype=np.int64)}, 4, device=dev)
+            for out in (tm.apply(c) if chaos else [c]):
+                d = out.to_numpy()
+                for k, op in zip(d["k"].tolist(), d["__op__"].tolist()):
+                    emitted[k] += -1 if op in (1, 2) else 1
+                pipe.push(out)
+        pipe.barrier()
+        return mvk.snapshot(), emitted, tm.log
+
+    clean, _, _ = run(False)
+    dirty, emitted, log = run(True)
+    check(len(log) == 16 and {m for m, _, _ in log} <= {"corrupt_value", "flip_op", "dup_row"},
+          "troublemaker: a logged fault per chunk")
+    check(dirty == {(k,): (n,) for k, n in emitted.items() if n > 0},
+          "troublemaker: the MV holds the signed count of what it emitted (a group whose "
+          "count is not positive is absent)")
+    check(dirty != clean, "troublemaker: its faults show in the MV")
+    return {"phase": "generators", "values_rows": 5, "now_barriers": 3,
+            "troublemaker_faults": Counter(m for m, _, _ in log),
+            "checks": "VALUES once into an MV; NOW's MV one row per barrier; the troublemaker's "
+                      "MV = the signed count of its emitted rows != the clean MV"}
+
+
+def kill_p25(torch, dev, chunks, cap, q5_oracle10):
+    """Phase 16's p25: phase 4's first KILL_EPOCHS epochs, phase 25's sizes."""
+
+    def drive(q, e):
+        push_bids(q, chunks[e])
+        q.pipeline.barrier()
+
+    spec = KillSpec("p25", lambda: build_p25(torch, dev, cap), drive,
+                    lambda q: mv_table_rows(q.mview, P25_NAMES), np.stack(q5_oracle10, 1))
+    return kill_and_recover(torch, dev, spec)
+
+
+def kill_p26(torch, dev, chunks):
+    """Phase 16's p26: phase 4's first KILL_EPOCHS epochs, phase 26's sizes."""
+
+    def drive(q, e):
+        push_bids(q, chunks[e])
+        q.pipeline.barrier()
+
+    spec = KillSpec("p26", lambda: build_p26(torch, dev), drive,
+                    lambda q: mv_table_rows(q.mview, P26_NAMES),
+                    p26_oracle(bid_host_rows(chunks[:KILL_EPOCHS])))
+    return kill_and_recover(torch, dev, spec)
+
+
+def kill_p28(torch, dev, host, chunks, a_chunks):
+    """Phase 16's p28: phase 11's first KILL_EPOCHS epochs, phase 28's
+    sizes (the auctions MV, the seller agg and MV recovered)."""
+    push = push_p28(chunks, a_chunks)
+
+    def drive(q, e):
+        push(q, e)
+        q.pipeline.barrier()
+
+    spec = KillSpec("p28", lambda: build_p28(torch, dev), drive,
+                    lambda q: mv_table_rows(q.mview, P28_NAMES), p28_oracle(host, KILL_EPOCHS - 1))
+    return kill_and_recover(torch, dev, spec)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
@@ -6199,7 +6934,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     fused_row, l6 = fused_path(torch, dev, chunks, cap, interp_q5, oracle)
     emit(fused_row)
+    q5_rows = mv_table_rows(interp_q5.mview, P25_NAMES)
     del interp_q5
+    torch.cuda.empty_cache()
+    # phases 25 and 26 take phase 4's stream too
+    rows25, l25 = p25_paths(torch, dev, chunks, cap, q5_rows)
+    for r in rows25:
+        emit(r)
+    del q5_rows
+    torch.cuda.empty_cache()
+    rows26, l26 = p26_paths(torch, dev, chunks)
+    for r in rows26:
+        emit(r)
     if args.profile:
         torch.cuda.empty_cache()
         emit(profile_q5(torch, dev, chunks, cap, args.profile, fused=True))
@@ -6222,6 +6968,12 @@ def main() -> int:
     emit(k5_row)
     k5m_row, l16_q5m = kill_q5_max(torch, dev, chunks, cap, q5_oracle10)
     emit(k5m_row)
+    torch.cuda.empty_cache()
+    k25_row, l16_p25 = kill_p25(torch, dev, chunks, cap, q5_oracle10)
+    emit(k25_row)
+    torch.cuda.empty_cache()
+    k26_row, l16_p26 = kill_p26(torch, dev, chunks)
+    emit(k26_row)
     torch.cuda.empty_cache()
     # phases 17 and 18 take phase 4's stream too
     rows17, l17 = q1_q2_paths(torch, dev, chunks)
@@ -6246,6 +6998,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k19_row, l16_q19 = kill_q19(torch, dev, chunks)
     emit(k19_row)
+    aa_bid = chunks[0][0]  # kernel AA's bid chunk, phase 4's first
     del chunks
     torch.cuda.empty_cache()
 
@@ -6336,8 +7089,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     k102_row, l16_q102 = kill_q102(torch, dev, h101, c101)
     emit(k102_row)
-    del h101, c101
     torch.cuda.empty_cache()
+    # phases 27 and 28, phase 3's AA and AB and phase 16's p28 on phase 11's stream
+    tagged = tag_chunks(torch, dev, h101)
+    rows27, l27 = p27_paths(torch, dev, tagged)
+    for r in rows27:
+        emit(r)
+    torch.cuda.empty_cache()
+    a_chunks = auction_chunks(torch, dev, h101)
+    rows28, l28, p28_mv = p28_paths(torch, dev, h101, c101, a_chunks)
+    for r in rows28:
+        emit(r)
+    aa_rows = kernel_aa(torch, dev, rng, aa_bid, tagged[0][1])
+    for r in aa_rows:
+        emit({"phase": "kernel", **r})
+    ab_row = kernel_ab(torch, dev, rng, p28_mv, c101[0][1][0])
+    emit({"phase": "kernel", **ab_row})
+    del tagged, p28_mv, aa_bid
+    torch.cuda.empty_cache()
+    k28_row, l16_p28 = kill_p28(torch, dev, h101, c101, a_chunks)
+    emit(k28_row)
+    del h101, c101, a_chunks
+    torch.cuda.empty_cache()
+    emit(generators_on_card(torch, dev))
 
     rows = [(a_row, "lookup_or_insert"), (b_row, "agg_apply"), (c_row, "agg_flush"),
             (d_row, "mv_upsert"), (e_row, "hop_expand"), (f_row, "reduce_by_key"),
@@ -6351,16 +7125,18 @@ def main() -> int:
             (s_proj_row, "expr_eval"), (s_filt_row, "expr_filter"), (t_row, "wm_filter"),
             (u_row, "topn_band"), (v19_row, "topn_upsert"), (v105_row, "topn_upsert"),
             (w_row, "topn_rank"), (x_row, "group_topk"), (y_row, "simple_agg"),
-            (zl_row, "dyn_general"), (zd_row, "dyn_rv_diff")]
+            (zl_row, "dyn_general"), (zd_row, "dyn_rv_diff")] + list(zip(
+                aa_rows, ("unnest", "series", "expand"))) + [(ab_row, "temporal_probe")]
     paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8, "q7": l9, "q7_fused": l10,
              "q101": l11, "q101_fused": l12, "q5_max": l13, "q5_max_fused": l14, **l15,
              "q5_recover": l16_q5, "q5_max_recover": l16_q5m, "q8_recover": l16_q8,
              "q7_recover": l16_q7, "q101_recover": l16_q101, **l17,
              **{f"hot_{k}": v for k, v in l18.items()}, **l19, "q7_scan_watermark_filters": l20,
              **l21, "q19_recover": l16_q19, **l23, "q105_recover": l16_q105, **l24,
-             "q102_recover": l16_q102}
+             "q102_recover": l16_q102, **l25, **l26, **l27, **l28, "p25_recover": l16_p25,
+             "p26_recover": l16_p26, "p28_recover": l16_p28}
     for row, key in rows:
-        # each main path's run counts from zero: phases 4, 6-24 (a path
+        # each main path's run counts from zero: phases 4, 6-28 (a path
         # of a phase that drives several in lockstep counts its own calls)
         row["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -10,14 +10,16 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
-A, C, D, E, F, G, H, J, L, M, N, O, P, Q, R, S, T, U, V, W, X, Y and
-Z (an entry point may launch several kernels in order on the stream),
+A, C, D, E, F, G, H, J, L, M, N, O, P, Q, R, S, T, U, V, W, X, Y, Z,
+AA and AB (an entry point may launch several kernels in order on the stream),
 two per call of B (the apply and its set_live), one per 24 lanes moved
 by a call of I; the entry points of ``ENTRY_KEYS`` count under their
 own names (S's ``rw_project`` under ``expr_eval``, its ``rw_filter``
 under ``expr_filter``, X's ``rw_group_topk_mask`` under
 ``group_topk``, Z's ``rw_dyn_left_step`` under ``dyn_general`` and its
-``rw_dyn_rv_diff`` under ``dyn_rv_diff``; a Project whose outputs are
+``rw_dyn_rv_diff`` under ``dyn_rv_diff``, AA's ``rw_unnest``,
+``rw_series`` and ``rw_expand`` under ``unnest``, ``series`` and
+``expand``; a Project whose outputs are
 all bare columns launches nothing).
 """
 
@@ -66,6 +68,8 @@ SOURCES = {
     "topn_rank": "topn_rank.cu",
     "simple_agg": "simple_agg.cu",
     "dyn_general": "dyn_general.cu",
+    "tile_expand": "tile_expand.cu",
+    "temporal_probe": "temporal_probe.cu",
 }
 
 # C entry points: (argtypes,) — every pointer and the stream as c_void_p
@@ -163,6 +167,14 @@ SIGNATURES = {
                              _P],
         "rw_dyn_rv_diff": [_L, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     },
+    "tile_expand": {
+        "rw_unnest": [_P, _I, _P, _I, _I, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+        "rw_series": [_P, _I, _I, _L, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+        "rw_expand": [_P, _I, _I, _L, _P, _P, _P, _P, _P, _P],
+    },
+    "temporal_probe": {
+        "rw_temporal_probe": [_P, _I, _L, _P, _P, _P, _P, _P, _L, _P, _I, _I, _P, _P],
+    },
 }
 
 # slots per block of the stream compaction of kernels R and Z
@@ -178,6 +190,8 @@ def compact_scratch(cap: int, device) -> torch.Tensor:
 
 # lanes one gather or scatter of kernel R takes (csrc/checkpoint.cu CK_MAX_LANES)
 CHECKPOINT_LANES = 32
+# lanes one launch of kernel E or AA tiles (csrc/tile.cuh RW_TILE_MAX_LANES)
+TILE_LANES = 32
 
 # keys per block of the radix pass (RBK_TILE in csrc/radix.cuh), which
 # sizes the scratch of reduce_by_key and of kernels W and X
@@ -209,7 +223,8 @@ DTYPE_CODES = {
 # "minput"), or kernel R's gather, mark and scatter (its stage select
 # counts as "checkpoint"), or kernel S's filter (its projection counts
 # as "expr_eval"), or kernel Z's right-value diff (its left step counts
-# as "dyn_general")
+# as "dyn_general"), or one of kernel AA's three table-function entries
+# (each counts under its own name; "tile_expand" itself stays 0)
 ENTRY_KEYS = {
     "rw_lookup": "lookup",
     "rw_first_occurrence": "first_occurrence",
@@ -224,6 +239,9 @@ ENTRY_KEYS = {
     "rw_filter": "expr_filter",
     "rw_group_topk_mask": "group_topk",
     "rw_dyn_rv_diff": "dyn_rv_diff",
+    "rw_unnest": "unnest",
+    "rw_series": "series",
+    "rw_expand": "expand",
 }
 
 LAUNCHES = {name: 0 for name in (*SOURCES, *ENTRY_KEYS.values())}

@@ -81,6 +81,18 @@ class DataChunk:
         nulls = {n: a for n, a in self.nulls.items() if n not in cols}
         return DataChunk(new, self.valid, nulls)
 
+    def with_nulls(self, **lanes: torch.Tensor) -> "DataChunk":
+        new = dict(self.nulls)
+        new.update(lanes)
+        return DataChunk(self.columns, self.valid, new)
+
+    def rename(self, mapping: Mapping[str, str]) -> "DataChunk":
+        return DataChunk(
+            {mapping.get(n, n): a for n, a in self.columns.items()},
+            self.valid,
+            {mapping.get(n, n): a for n, a in self.nulls.items()},
+        )
+
     # -- host interop ---------------------------------------------------
     @staticmethod
     def from_numpy(
@@ -163,6 +175,12 @@ class StreamChunk(DataChunk):
             )
 
     @staticmethod
+    def from_data(chunk: DataChunk, ops: Optional[torch.Tensor] = None) -> "StreamChunk":
+        if ops is None:  # all INSERT
+            ops = torch.zeros(chunk.capacity, dtype=torch.int32, device=chunk.device)
+        return StreamChunk(columns=chunk.columns, valid=chunk.valid, nulls=chunk.nulls, ops=ops)
+
+    @staticmethod
     def from_numpy(
         cols: Mapping[str, np.ndarray],
         capacity: int,
@@ -206,6 +224,19 @@ class StreamChunk(DataChunk):
         new.update(cols)
         nulls = {n: a for n, a in self.nulls.items() if n not in cols}
         return StreamChunk(new, self.valid, nulls, self.ops)
+
+    def with_nulls(self, **lanes: torch.Tensor) -> "StreamChunk":
+        new = dict(self.nulls)
+        new.update(lanes)
+        return StreamChunk(self.columns, self.valid, new, self.ops)
+
+    def rename(self, mapping: Mapping[str, str]) -> "StreamChunk":
+        return StreamChunk(
+            {mapping.get(n, n): a for n, a in self.columns.items()},
+            self.valid,
+            {mapping.get(n, n): a for n, a in self.nulls.items()},
+            self.ops,
+        )
 
     def to_numpy(self, with_ops: bool = True) -> Dict[str, np.ndarray]:
         out = super().to_numpy()

@@ -17,17 +17,9 @@
 //
 // Design: one thread per input row reads the row once and writes its
 // factor copies; for a fixed k the threads of a warp write neighbouring
-// addresses. Columns are copied as raw 1-, 4- or 8-byte elements.
-#include "common.cuh"
-
-#define HOP_MAX_LANES 16
-
-struct HopLanes {
-  const void* src[HOP_MAX_LANES];  // (n_chunks * cap,) input lanes
-  void* dst[HOP_MAX_LANES];        // (n_chunks * factor * cap,) outputs
-  int esize[HOP_MAX_LANES];
-  int n;
-};
+// addresses. Columns are copied as raw 1-, 4- or 8-byte elements through
+// tile.cuh's lane table, as kernel AA's.
+#include "tile.cuh"
 
 __device__ __forceinline__ long long rw_floor_div(long long a, long long b) {
   long long q = a / b;
@@ -35,7 +27,7 @@ __device__ __forceinline__ long long rw_floor_div(long long a, long long b) {
   return q;
 }
 
-__global__ void hop_expand_kernel(HopLanes lanes, int64_t n_chunks, int64_t cap, int factor,
+__global__ void hop_expand_kernel(RwTileLanes lanes, int64_t n_chunks, int64_t cap, int factor,
                                   long long size, long long slide, const long long* ts,
                                   const uint8_t* valid, const int32_t* ops, long long* starts,
                                   uint8_t* valid_out, int32_t* ops_out) {
@@ -54,15 +46,7 @@ __global__ void hop_expand_kernel(HopLanes lanes, int64_t n_chunks, int64_t cap,
       starts[o] = start;
       valid_out[o] = (v && start <= t) ? 1 : 0;
       ops_out[o] = op;
-      for (int l = 0; l < lanes.n; ++l) {
-        switch (lanes.esize[l]) {
-          case 1: ((uint8_t*)lanes.dst[l])[o] = ((const uint8_t*)lanes.src[l])[s]; break;
-          case 4: ((uint32_t*)lanes.dst[l])[o] = ((const uint32_t*)lanes.src[l])[s]; break;
-          case 8:
-            ((unsigned long long*)lanes.dst[l])[o] = ((const unsigned long long*)lanes.src[l])[s];
-            break;
-        }
-      }
+      rw_tile_row(lanes, k, o, s);
     }
   }
 }
@@ -72,25 +56,14 @@ RW_EXPORT int rw_hop_expand(const int64_t* copies, int n_copies, int64_t n_chunk
                             int factor, int64_t size, int64_t slide, const void* ts,
                             const void* valid, const void* ops, void* starts, void* valid_out,
                             void* ops_out, void* stream) {
-  if (n_copies < 0 || n_copies > HOP_MAX_LANES || factor < 1 || slide <= 0)
+  RwTileLanes h;
+  if (!rw_tile_lanes(copies, n_copies, 3, &h) || factor < 1 || slide <= 0)
     return (int)cudaErrorInvalidValue;
-  HopLanes h;
-  h.n = n_copies;
-  for (int l = 0; l < n_copies; ++l) {
-    h.src[l] = (const void*)copies[3 * l];
-    h.dst[l] = (void*)copies[3 * l + 1];
-    h.esize[l] = (int)copies[3 * l + 2];
-    if (h.esize[l] != 1 && h.esize[l] != 4 && h.esize[l] != 8) return (int)cudaErrorInvalidValue;
-  }
   const int64_t total = n_chunks * cap;
-  if (total > 0) {
-    const int threads = 256;
-    int64_t blocks = (total + threads - 1) / threads;
-    if (blocks > 132 * 32) blocks = 132 * 32;
-    hop_expand_kernel<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
+  if (total > 0)
+    hop_expand_kernel<<<rw_tile_blocks(total), RW_TILE_THREADS, 0, (cudaStream_t)stream>>>(
         h, n_chunks, cap, factor, (long long)size, (long long)slide, (const long long*)ts,
         (const uint8_t*)valid, (const int32_t*)ops, (long long*)starts, (uint8_t*)valid_out,
         (int32_t*)ops_out);
-  }
   return (int)cudaGetLastError();
 }

@@ -92,7 +92,8 @@ def _hop_cuda(chunk, ts_col, size_ms, slide_ms, out_start):
     ops = torch.empty(out_shape, dtype=torch.int32, device=dev)
     _kernels.call(
         "hop_expand", "rw_hop_expand",
-        _kernels.int64_rows(copies, 16), len(copies), n_chunks, cap, factor, size_ms, slide_ms,
+        _kernels.int64_rows(copies, _kernels.TILE_LANES), len(copies), n_chunks, cap, factor,
+        size_ms, slide_ms,
         ts.data_ptr(), chunk.valid.data_ptr(), chunk.ops.data_ptr(),
         starts.data_ptr(), valid.data_ptr(), ops.data_ptr(),
     )

@@ -65,14 +65,16 @@ class Pipeline:
         """Feed one data chunk into the chain; returns what falls out."""
         return walk_chain(self.executors, [chunk])
 
-    def barrier(self, checkpoint: bool = True) -> List[StreamChunk]:
+    def barrier(self, checkpoint: bool = True, epoch: Optional[int] = None) -> List[StreamChunk]:
         """Inject a barrier; each executor's flush output becomes data
         for the rest of the chain. A watermark an executor generates
         (``emit_watermark``, the watermark filter) then walks the rest of
         the chain. Every executor's staged barrier scalars are read after
-        the walk, so their checks raise before the barrier returns."""
+        the walk, so their checks raise before the barrier returns.
+        ``epoch`` pins the barrier's curr epoch (``NowExecutor`` reads
+        it); by default it comes from the wall clock."""
         prev = self._epoch
-        self._epoch = _epoch_after(prev)
+        self._epoch = _epoch_after(prev) if epoch is None else epoch
         pending = walk_chain(
             self.executors, [], barrier=Barrier(Epoch(prev, self._epoch), checkpoint)
         )

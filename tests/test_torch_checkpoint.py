@@ -11,7 +11,8 @@ on the CPU) against ``risingwave_tpu`` on JAX-CPU:
   same order, in the same dtypes;
 - kill-and-recover of q5 (``tests/test_checkpoint.py:80``), q5 with
   state-cleaning tombstones (``:125``), q8 (``:168``), q7 (``:213``),
-  q101 and q5-max: each package commits after every barrier into its
+  q101, q5-max, q102 and the paths p25-p28 of
+  ``tests/test_torch_table_paths.py``: each package commits after every barrier into its
   own store, both are killed and recovered into fresh pipelines, and
   then the MV snapshot and every executor's state digest equal the
   pre-kill state, the reference's recovered run and an uninterrupted
@@ -54,6 +55,7 @@ import test_torch_q102 as q102t
 import test_torch_q5_max as q5mt
 import test_torch_q7 as q7t
 import test_torch_q8 as q8t
+import test_torch_table_paths as tpt
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -592,6 +594,10 @@ QUERIES = {
                    ref_lags=("q101.join.left,q101.join.right",)),
     "q5_max": _Query(_Q5Max, lambda: q5mt._stream(6, 1500), _q5max_drive, 3),
     "q102": _Query(_Q102, lambda: q102t._stream(6, seed=7), q102t._drive, 3),
+    # the table-function, grouping-set and temporal-join paths
+    **{name: _Query(tpt.BUILDS[name], lambda: tpt.stream(5, 2000, seed=23),
+                    lambda pipeline, ep, port: pipeline.drive_epoch(ep), 3)
+       for name in ("p25", "p26", "p27", "p28")},
 }
 
 

@@ -1,7 +1,7 @@
 """The port stands alone: ``risingwave_tpu_torch`` imports neither jax nor
 ``risingwave_tpu``, runs q5, q8, q7 (with watermarks) and q19 (both
-TopN executors) on the CPU when asked to, commits and recovers q5 through its own storage layer, and
-refuses to fall back to the CPU when CUDA is asked for but absent.
+TopN executors) and an unnest into an Expand on the CPU when asked to,
+commits and recovers q5 through its own storage layer, and refuses to fall back to the CPU when CUDA is asked for but absent.
 
 A subprocess is needed because tests/conftest.py imports jax into every
 pytest process.
@@ -39,7 +39,9 @@ for m in ("runtime.fused_step", "executors.epoch_batch", "integrity", "executors
           "ops.checkpoint", "expr.expr", "expr.functions", "expr.dtypes", "ops.expr_vm",
           "executors.filter", "executors.project", "executors.watermark_filter",
           "executors.row_id_gen", "executors.top_n", "executors.top_n_plain",
-          "executors.simple_agg"):
+          "executors.simple_agg", "array.composite", "array.arrow", "executors.project_set",
+          "executors.expand", "executors.temporal_join", "executors.generators",
+          "executors.troublemaker"):
     assert "risingwave_tpu_torch." + m in mods, m
 assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
 
@@ -124,10 +126,24 @@ for _ in range(2):
         q.pipeline.barrier()
 assert q19s[0].mview.snapshot() == q19s[1].mview.snapshot() != {}
 
+from risingwave_tpu_torch.array.chunk import StreamChunk
+from risingwave_tpu_torch.array.composite import encode_column
+from risingwave_tpu_torch.executors import ExpandExecutor, NowExecutor, ProjectSetExecutor
+from risingwave_tpu_torch.types import DataType, Field
+
+lanes, nulls = encode_column(Field("xs", DataType.LIST, elem=DataType.INT64, list_cap=3),
+                             [[1, 2], None, [3]])
+(un,) = ProjectSetExecutor("unnest", out="x", list_col="xs", list_cap=3).apply(
+    StreamChunk.from_numpy(lanes, 4, nulls=nulls, device="cpu"))
+assert sorted(un.to_numpy()["x"].tolist()) == [1, 2, 3]
+(ex,) = ExpandExecutor([("x",), ()]).apply(un)
+assert ex.capacity == 24 and int(ex.valid.sum()) == 6
+
 assert not torch.cuda.is_available()
 for make in (lambda: build_q5_lite(), lambda: build_q8(), lambda: build_q7(),
              lambda: build_q19(), lambda: build_q19_append_only(),
-             lambda: NexmarkGenerator().next_chunks(10, 16)):
+             lambda: NexmarkGenerator().next_chunks(10, 16),
+             lambda: NowExecutor()):
     try:
         make()
     except RuntimeError as e:

@@ -1,11 +1,11 @@
-"""The CUDA wrappers of kernels H, J, L, M, N, O, P, Q, S, T, U, V, W, X, Y and Z marshal
-their arguments as
-their C entry points declare them (``_kernels.SIGNATURES``), checked on
-the CPU: each wrapper runs on CPU tensors while ``_kernels.call`` is
-replaced by a ``ctypes.CFUNCTYPE`` callback of the entry point's
-signature, so a wrong argument count or type raises here, not on the
-card. The kernels themselves are held against their plain versions by
-``chip_smoke.py`` on the card.
+"""The CUDA wrappers of kernels H, J, L, M, N, O, P, Q, S, T, U, V, W, X,
+Y, Z, AA and AB marshal their arguments as their C entry points
+declare them (``_kernels.SIGNATURES``), checked on the CPU: each
+wrapper runs on CPU tensors while ``_kernels.call`` is replaced by a
+``ctypes.CFUNCTYPE`` callback of the entry point's signature, so a
+wrong argument count or type raises here, not on the card. The kernels
+themselves are held against their plain versions by ``chip_smoke.py``
+on the card.
 """
 
 import ctypes
@@ -424,3 +424,68 @@ def test_z_entries_marshal(calls):
     assert sel.dtype == torch.int32 and now.dtype == torch.bool
     assert calls == [("dyn_general", "rw_dyn_left_step"), ("dyn_general", "rw_dyn_rv_diff")]
     assert _kernels.LAUNCHES["dyn_general"] == 1 and _kernels.LAUNCHES["dyn_rv_diff"] == 1
+
+
+def test_aa_entries_marshal(calls):
+    """Kernel AA's three entries: lanes of 8, 4 and 1 bytes in one table
+    (a bid-like chunk with an int32 dictionary lane and a null lane), the
+    element pointers of unnest, the series' int32 and int64 bounds with
+    their null lanes, the truncation latch of both, and Expand's subset
+    null lanes (mode 1) beside the tiled ones; each counted under its own
+    key."""
+    import numpy as np
+
+    from risingwave_tpu_torch.array.composite import encode_column
+    from risingwave_tpu_torch.executors import expand as ex_mod
+    from risingwave_tpu_torch.executors import project_set as ps
+    from risingwave_tpu_torch.types import DataType, Field
+
+    n = 8
+    lanes, nulls = encode_column(Field("xs", DataType.LIST, elem=DataType.INT64, list_cap=4),
+                                 [[1, 2], [], None, [3, 4, 5, 6], [7], [8], [9], [1, 1, 1]])
+    lanes.update(k=np.arange(n, dtype=np.int64), ch=np.arange(n, dtype=np.int32),
+                 lo=np.arange(n, dtype=np.int32), hi=np.arange(n, dtype=np.int64) + 2)
+    nulls = {**nulls, "ch": np.arange(n) % 3 == 0, "lo": np.arange(n) % 4 == 1}
+    chunk = StreamChunk.from_numpy(lanes, n, nulls=nulls, device="cpu")
+    latch = torch.zeros((), dtype=torch.bool)
+    out = ps._unnest_cuda(chunk, "xs", "x", 4, True, latch)
+    assert out.capacity == 4 * n and "xs.0" not in out.columns and "xs.#" not in out.nulls
+    assert out.col("x").dtype == torch.int64 and out.col("projected_row_id").dtype == torch.int64
+    assert out.col("ch").dtype == torch.int32 and set(out.nulls) == {"ch", "lo"}
+    out = ps._series_cuda(chunk, "lo", "hi", "v", 3, False, latch)
+    assert out.capacity == 3 * n and out.col("v").dtype == torch.int64
+    assert "projected_row_id" not in out.columns
+    out = ex_mod._expand_cuda(chunk, (("k", "ch"), ("k",), ()), ("ch", "k"), "flag")
+    assert out.capacity == 3 * n and out.col("flag").dtype == torch.int64
+    assert set(out.nulls) == {"ch", "k", "lo", "xs.#"}
+    with pytest.raises(ValueError, match="copies"):
+        ps._series_cuda(chunk, "lo", "hi", "v", ps.TILE_COPIES + 1, False)
+    with pytest.raises(TypeError, match="latch"):
+        ps._series_cuda(chunk, "lo", "hi", "v", 3, False, torch.zeros(2, dtype=torch.bool))
+    assert calls == [("tile_expand", "rw_unnest"), ("tile_expand", "rw_series"),
+                     ("tile_expand", "rw_expand")]
+    assert [_kernels.LAUNCHES[k] for k in ("unnest", "series", "expand")] == [1, 1, 1]
+
+
+def test_ab_entry_marshals(calls):
+    """Kernel AB: an int64 and an int32 key lane, value lanes of 8, 4 and
+    1 bytes, one with the MV's null lane and one without, both join
+    types."""
+    from risingwave_tpu_torch.executors import temporal_join as tj
+
+    cap, n = 64, 8
+    table = ht.HashTable.create(cap, (torch.int64, torch.int32), device="cpu")
+    values = {"a": torch.zeros(cap, dtype=torch.int64), "b": torch.zeros(cap, dtype=torch.int32),
+              "c": torch.zeros(cap, dtype=torch.bool)}
+    vnulls = {"b": torch.zeros(cap, dtype=torch.bool)}
+    chunk = StreamChunk.from_numpy({"k": torch.arange(n).numpy()}, n, device="cpu")
+    keys = (torch.arange(n, dtype=torch.int64), torch.arange(n, dtype=torch.int32))
+    key_ok = torch.ones(n, dtype=torch.bool)
+    for jt in ("inner", "left"):
+        out = tj._probe_cuda(table, values, vnulls, chunk, keys, key_ok, ("a", "b", "c"), jt)
+        assert {c: out.col(c).dtype for c in "abc"} == {c: values[c].dtype for c in "abc"}
+        assert set(out.nulls) == {"a", "b", "c"} and out.ops is chunk.ops
+    with pytest.raises(TypeError, match="dtype"):
+        tj._probe_cuda(table, values, vnulls, chunk, (keys[0], keys[0]), key_ok, ("a",), "left")
+    assert calls == [("temporal_probe", "rw_temporal_probe")] * 2
+    assert _kernels.LAUNCHES["temporal_probe"] == 2
