@@ -198,6 +198,27 @@ Phases, each printing one JSON line:
      SUM(price) per seller, an MV; 2^22 slots) over phase 11's stream in
      lockstep, the bid chain interpreted and fused, against a numpy
      oracle at every barrier;
+  29. ranked bids (RowIdGen, Sort on date_time 2^21, the append-only
+     OverWindow by auction 2^22 with row_number, count, sum/min/max, lag,
+     rank and dense_rank, an MV on _row_id 2^26) over phase 4's chunks,
+     a date_time watermark at each epoch's maximum after its barrier,
+     interpreted and through ``fuse_pipeline`` (the MV refused behind the
+     passthrough window, the refusal checked), equal at every barrier,
+     the MV against a numpy oracle;
+  30. closed-window bid sequences (RowIdGen, a 10 s tumble, the EOWC
+     OverWindow by (window_start, auction) 2^21 with row_number, ranks,
+     lead, lag(2), ROWS frames and a running max, an MV 2^26), both ways
+     (the MV fused), against a numpy oracle of the closed windows;
+  31. hot auctions ranked per window (hop 10 s / 2 s, COUNT(*) 2^24 in
+     flush rounds of 2^17 groups, 0 - num, the general OverWindow 2^24
+     with rank, dense_rank, row_number, lag and a running sum, an MV on
+     the pk 2^26), both ways (the agg epoch-batched, the MV fused),
+     against a numpy rank of q5's counts (ties of num order by arrival:
+     runs agree per pk on num and the ranks, per window on the multiset
+     of row_number, lag and sum);
+  with AC (append, emit), AD, AE (EOWC emit, general recompute) and AF
+  (apply with a ghost and a bad delete, diff) in phase 3 and the three
+  paths' kills in phase 16;
   then a host phase: VALUES into an MV, NOW over three barriers, and a
   troublemaker at rate 1 whose logged faults show in the MV behind it.
 Phase 16 also kills and recovers q19 and q105 (after phase 23), q102
@@ -261,7 +282,14 @@ Q101_MV_CAP = 1 << 23
 Q101_OUT_CAP = 1 << 17
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's seconds so
+    far (``t_s``), so the time each phase takes shows in the log."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -4149,16 +4177,16 @@ def device_digests(pipeline) -> dict:
     return out
 
 
-def same_state(a, b, what: str) -> str:
-    """Every table's digest equal; a join side that only one run rebuilt
-    may differ in bucket positions alone, and then its packed digest
-    must be equal. Returns how the joins compared."""
+def same_state(a, b, what: str, skip=()) -> str:
+    """Every table's digest equal but those of ``skip``; a join side that
+    only one run rebuilt may differ in bucket positions alone, and then
+    its packed digest must be equal. Returns how the joins compared."""
     from risingwave_tpu_torch.runtime.fused_step import expand_fused
 
     da, db = device_digests(a.pipeline), device_digests(b.pipeline)
     how = "digest"
     for tid in da:
-        if da[tid] == db[tid]:
+        if da[tid] == db[tid] or tid in skip:
             continue
         sides = {}
         for q in (a, b):
@@ -4175,11 +4203,18 @@ class KillSpec:
     """One query of phase 16: ``build()`` a fresh query at its phase's
     sizes, ``drive(q, e)`` epoch e (pushes, barrier, watermark),
     ``mv_rows(q)`` its MV as sorted rows, ``oracle`` those rows after
-    KILL_EPOCHS epochs, ``refuse``: also recover into a fused run."""
+    KILL_EPOCHS epochs, ``refuse``: also recover into a fused run;
+    ``tie_tables``: tables whose state orders ties by arrival, which two
+    runs may order apart (compared by ``mv_rows`` alone across runs);
+    ``rows_each_barrier``: read the MV rows back at every barrier after
+    the kill, or (an MV of millions of rows, its kernel-H digest already
+    compared there) only at the end."""
 
-    def __init__(self, name, build, drive, mv_rows, oracle, refuse=False):
+    def __init__(self, name, build, drive, mv_rows, oracle, refuse=False, tie_tables=(),
+                 rows_each_barrier=True):
         self.name, self.build, self.drive, self.mv_rows = name, build, drive, mv_rows
-        self.oracle, self.refuse = oracle, refuse
+        self.oracle, self.refuse, self.tie_tables = oracle, refuse, tuple(tie_tables)
+        self.rows_each_barrier = rows_each_barrier
 
 
 def timed_commit(torch, mgr, epoch, executors, rec) -> None:
@@ -4259,7 +4294,7 @@ def kill_and_recover(torch, dev, spec: KillSpec):
             timed_commit(torch, mgr, a.pipeline.epoch, expand_fused(a.pipeline.executors), rec)
         pre = device_digests(a.pipeline)
         pre_mv = spec.mv_rows(a)
-        same_state(a, b, f"{spec.name}: A vs B before the kill")
+        same_state(a, b, f"{spec.name}: A vs B before the kill", spec.tie_tables)
         del a, mgr
         gc.collect()
         torch.cuda.empty_cache()
@@ -4280,11 +4315,13 @@ def kill_and_recover(torch, dev, spec: KillSpec):
         for e in range(KILL_AT, KILL_EPOCHS):
             for q in (*runs, b):
                 spec.drive(q, e)
-            mv_b = spec.mv_rows(b)
+            last = e == KILL_EPOCHS - 1
+            mv_b = spec.mv_rows(b) if spec.rows_each_barrier or last else None
             for i, q in enumerate(runs):
                 what = f"{spec.name} barrier {e + 1} {'fused ' if i else ''}recovered vs B"
-                check(np.array_equal(spec.mv_rows(q), mv_b), f"{what}: MV")
-                joins.add(same_state(q, b, what))
+                if mv_b is not None:
+                    check(np.array_equal(spec.mv_rows(q), mv_b), f"{what}: MV")
+                joins.add(same_state(q, b, what, spec.tie_tables))
         torch.cuda.synchronize()
         launches = dict(_kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
@@ -6829,6 +6866,913 @@ def kill_p28(torch, dev, host, chunks, a_chunks):
     return kill_and_recover(torch, dev, spec)
 
 
+# -- phases 29-31: the window paths; phase 3's AC-AF -------------------------
+WIN_SORT_CAP = 1 << 21  # phase 29's sort arena: an epoch's ~920,000 bids wait for its watermark
+WIN_OVER_CAP = 1 << 22  # phase 29's partitions: about 1.2M auctions over 20M events
+WIN_MV_CAP = 1 << 26  # a row per bid, about 18.4M (as q1's MV)
+P30_CAP = 1 << 21  # phase 30's EOWC arena: an epoch's bids and the open 10 s window
+P31_CAP = 1 << 24  # phase 31's general arena: q5's about 6M (auction, window_start) groups
+TUMBLE_MS = 10_000
+P31_HOP = (10_000, 2_000)
+# phase 31's agg flushes up to 2^17 groups a round (q5's default is 2^15):
+# each round is one chunk of U-/U+ pairs into the general over-window,
+# whose two emissions per chunk are arena-wide (2^24 rows), and the fused
+# MV tail buffers a barrier's emissions: about 350,000 dirty groups a
+# barrier make 3 rounds, not 11
+P31_OUT_CAP = 1 << 17
+WIN_COLS = ("auction", "bidder", "price", "date_time")
+P29_CALLS = (("row_number", None, "rn"), ("count", None, "cnt"), ("sum", "price", "total"),
+             ("min", "price", "lo"), ("max", "price", "hi"), ("lag", "price", "prev"),
+             ("rank", "date_time", "rk"), ("dense_rank", "date_time", "drk"))
+P30_CALLS = (("row_number", None, "rn"), ("rank", "date_time", "rk"),
+             ("dense_rank", "date_time", "drk"), ("lead", "price", "nxt"),
+             ("lag", "price", "prev2", {"offset": 2}), ("sum", "price", "s3", {"frame": (-2, 0)}),
+             ("count", None, "c3", {"frame": (-2, 0)}), ("min", "price", "m4", {"frame": (-2, 1)}),
+             ("max", "price", "hi"))
+P31_CALLS = (("rank", "neg_num", "rk"), ("dense_rank", "neg_num", "drk"),
+             ("row_number", None, "rn"), ("lag", "num", "prev"), ("sum", "num", "run"))
+WINDOW_KERNELS = {  # what each path's run must launch
+    "p29": ("arena", "arena_emit", "lookup_or_insert", "over_step", "mv_upsert"),
+    "p30": ("hop_expand", "arena", "window_order", "window_calls", "mv_upsert"),
+    "p31": ("hop_expand", "lookup_or_insert", "expr_eval", "over_apply", "window_order",
+            "window_calls", "over_diff", "mv_upsert"),
+}
+WINDOW_CHAINS = {  # each fused run's chain, as the reference's fuse_chain splits it
+    "p29": ["RowIdGenExecutor", "SortExecutor", "OverWindowExecutor",
+            "DeviceMaterializeExecutor"],
+    "p30": ["RowIdGenExecutor", "HopWindowExecutor", "EowcOverWindowExecutor",
+            "FusedChainExecutor"],
+    "p31": ["EpochBatchedAggExecutor", "ProjectExecutor", "GeneralOverWindowExecutor",
+            "FusedChainExecutor"],
+}
+P29_OUT = tuple(c[2] for c in P29_CALLS)
+P30_OUT = tuple(c[2] for c in P30_CALLS)
+P31_OUT = tuple(c[2] for c in P31_CALLS)
+NULL_SENTINEL = -(2**63)  # a NULL cell in the oracles' rows
+AF_PAIRS = P31_OUT_CAP  # U-/U+ pairs of kernel AF's phase-3 chunk: one flush round of phase 31
+
+
+def window_calls(specs):
+    from risingwave_tpu_torch.executors.over_window import WindowCall
+
+    return tuple(WindowCall(*s[:3], **(s[3] if len(s) > 3 else {})) for s in specs)
+
+
+def build_p29(torch, dev):
+    """Ranked bids: RowIdGen -> Sort(date_time) -> OverWindow by auction ->
+    MV on _row_id (the SQL planner's order: the hidden row id first)."""
+    from types import SimpleNamespace
+
+    from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
+    from risingwave_tpu_torch.executors.over_window import OverWindowExecutor
+    from risingwave_tpu_torch.executors.row_id_gen import RowIdGenExecutor
+    from risingwave_tpu_torch.executors.sort import SortExecutor
+    from risingwave_tpu_torch.runtime.pipeline import Pipeline
+
+    dt = {n: torch.int64 for n in ("_row_id",) + WIN_COLS}
+    q = SimpleNamespace()
+    q.sort = SortExecutor("date_time", dt, capacity=WIN_SORT_CAP, table_id="p29.sort", device=dev)
+    q.over = OverWindowExecutor(("auction",), window_calls(P29_CALLS), dt, capacity=WIN_OVER_CAP,
+                                table_id="p29.over", device=dev)
+    q.mview = DeviceMaterializeExecutor(
+        ("_row_id",), WIN_COLS + P29_OUT, {**dt, **dict.fromkeys(P29_OUT, torch.int64)},
+        capacity=WIN_MV_CAP, nullable=("lo", "hi", "prev"), table_id="p29.mview", device=dev)
+    q.pipeline = Pipeline([RowIdGenExecutor(table_id="p29.row_id"), q.sort, q.over, q.mview])
+    q.window = (q.sort, q.over)
+    return q
+
+
+def build_p30(torch, dev):
+    """Closed-window bid sequences: RowIdGen -> 10 s tumble ->
+    EowcOverWindow by (window_start, auction) ordered by date_time -> MV on
+    _row_id."""
+    from types import SimpleNamespace
+
+    from risingwave_tpu_torch.executors.hop_window import HopWindowExecutor
+    from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
+    from risingwave_tpu_torch.executors.over_window import EowcOverWindowExecutor
+    from risingwave_tpu_torch.executors.row_id_gen import RowIdGenExecutor
+    from risingwave_tpu_torch.runtime.pipeline import Pipeline
+
+    dt = {n: torch.int64 for n in ("_row_id", "window_start") + WIN_COLS}
+    q = SimpleNamespace()
+    q.eowc = EowcOverWindowExecutor(("window_start", "auction"), "date_time",
+                                    window_calls(P30_CALLS), dt, win_col="window_start",
+                                    capacity=P30_CAP, table_id="p30.eowc", device=dev)
+    q.mview = DeviceMaterializeExecutor(
+        ("_row_id",), WIN_COLS + ("window_start",) + P30_OUT,
+        {**dt, **dict.fromkeys(P30_OUT, torch.int64)}, capacity=WIN_MV_CAP, nullable=P30_OUT,
+        table_id="p30.mview", device=dev)
+    q.pipeline = Pipeline([RowIdGenExecutor(table_id="p30.row_id"),
+                           HopWindowExecutor("date_time", TUMBLE_MS, TUMBLE_MS), q.eowc, q.mview])
+    q.window = (q.eowc,)
+    return q
+
+
+def build_p31(torch, dev):
+    """Hot auctions ranked per window, the planner's plan of rank() OVER
+    (PARTITION BY window_start ORDER BY num DESC) over q5-lite's counts:
+    hop -> COUNT(*) per (auction, window_start) -> Project neg_num ->
+    GeneralOverWindow -> Project -> MV on the pk."""
+    from types import SimpleNamespace
+
+    from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
+    from risingwave_tpu_torch.executors.hop_window import HopWindowExecutor
+    from risingwave_tpu_torch.executors.materialize import DeviceMaterializeExecutor
+    from risingwave_tpu_torch.executors.over_window import GeneralOverWindowExecutor
+    from risingwave_tpu_torch.executors.project import ProjectExecutor
+    from risingwave_tpu_torch.expr import col, lit
+    from risingwave_tpu_torch.ops.agg import AggCall
+    from risingwave_tpu_torch.runtime.pipeline import Pipeline
+
+    keys = ("auction", "window_start")
+    q = SimpleNamespace()
+    q.agg = HashAggExecutor(keys, (AggCall("count_star", None, "num"),),
+                            dict.fromkeys(keys, torch.int64), capacity=TABLE_CAP,
+                            out_cap=P31_OUT_CAP, table_id="p31.agg", device=dev)
+    q.over = GeneralOverWindowExecutor(
+        ("window_start",), "neg_num", keys, window_calls(P31_CALLS),
+        dict.fromkeys(keys + ("num", "neg_num"), torch.int64), capacity=P31_CAP,
+        table_id="p31.over", device=dev)
+    q.mview = DeviceMaterializeExecutor(
+        keys, ("num",) + P31_OUT, dict.fromkeys(keys + ("num",) + P31_OUT, torch.int64),
+        capacity=WIN_MV_CAP, nullable=("prev",), table_id="p31.mview", device=dev)
+    q.pipeline = Pipeline([
+        HopWindowExecutor("date_time", *P31_HOP), q.agg,
+        ProjectExecutor({"auction": col("auction"), "window_start": col("window_start"),
+                         "num": col("num"), "neg_num": lit(0) - col("num")}),
+        q.over,
+        ProjectExecutor({n: col(n) for n in keys + ("num",) + P31_OUT}),
+        q.mview])
+    q.window = (q.over,)
+    return q
+
+
+WINDOW_BUILDS = {"p29": build_p29, "p30": build_p30, "p31": build_p31}
+
+
+def epoch_watermarks(chunks) -> list:
+    """Each epoch's largest bid date_time (the watermark after its barrier)."""
+    return [max(int(c.col("date_time")[c.valid].max()) for c in ep) for ep in chunks]
+
+
+def window_drive(q, ep, wm) -> None:
+    for c in ep:
+        q.pipeline.push(c)
+    q.pipeline.barrier()
+    q.pipeline.watermark("date_time", wm)
+
+
+def _group_starts(*keys) -> np.ndarray:
+    """Boundaries of runs of equal key tuples in sorted rows."""
+    n = len(keys[0])
+    new = np.zeros(n, bool)
+    if n:
+        new[0] = True
+    for k in keys:
+        new[1:] |= k[1:] != k[:-1]
+    return new
+
+
+def _seg_index(new: np.ndarray):
+    """(segment id, position of the segment's first row) per row."""
+    idx = np.arange(len(new))
+    start = np.maximum.accumulate(np.where(new, idx, 0))
+    return np.cumsum(new) - 1, start
+
+
+def _seg_cum(v: np.ndarray, gid: np.ndarray, kind: str) -> np.ndarray:
+    """Running max or min within segments (values below 2^40)."""
+    big = np.int64(1) << 40
+    if kind == "max":
+        return np.maximum.accumulate(gid * big + v) - gid * big
+    return big - 1 - (np.maximum.accumulate(gid * big + (big - 1 - v)) - gid * big)
+
+
+def _shift(v, d, start, end, idx):
+    """v at idx + d when it stays inside the row's segment, else NULL."""
+    j = idx + d
+    ok = (j >= start) & (j <= end)
+    return np.where(ok, v[np.clip(j, 0, len(v) - 1)], NULL_SENTINEL), ~ok
+
+
+def p29_oracle(host, last_wm: int) -> np.ndarray:
+    """Phase 29's MV rows from numpy: every bid below the last watermark,
+    per auction in (date_time, row id) order, with its running window
+    values; sorted by row id."""
+    keep = host["date_time"] < last_wm
+    rid, auc, bidder, price, ts = (host[k][keep] for k in ("_row_id",) + WIN_COLS)
+    o = np.lexsort((rid, ts, auc))
+    rid, auc, bidder, price, ts = rid[o], auc[o], bidder[o], price[o], ts[o]
+    idx = np.arange(len(rid))
+    gid, start = _seg_index(_group_starts(auc))
+    pos = idx - start
+    cs = np.concatenate([[0], np.cumsum(price)])
+    total = cs[idx + 1] - cs[start]
+    lo, hi = _seg_cum(price, gid, "min"), _seg_cum(price, gid, "max")
+    prev = np.where(pos > 0, np.roll(price, 1), NULL_SENTINEL)
+    newts = _group_starts(auc, ts)
+    rk = np.maximum.accumulate(np.where(newts, idx, 0)) - start + 1
+    c = np.cumsum(newts)
+    drk = c - c[start] + 1
+    rows = np.stack([rid, auc, bidder, price, ts, pos + 1, pos + 1, total, lo, hi, prev, rk, drk],
+                    1)
+    return rows[np.argsort(rows[:, 0], kind="stable")]
+
+
+def p30_oracle(host, last_wm: int) -> np.ndarray:
+    """Phase 30's MV rows from numpy: every bid of a 10 s window the last
+    watermark closed, per (window, auction) in (date_time, row id) order,
+    with each call over the complete partition; sorted by row id."""
+    ws_all = host["date_time"] - host["date_time"] % TUMBLE_MS
+    keep = ws_all < last_wm - last_wm % TUMBLE_MS
+    rid, auc, bidder, price, ts = (host[k][keep] for k in ("_row_id",) + WIN_COLS)
+    ws = ws_all[keep]
+    o = np.lexsort((rid, ts, auc, ws))
+    rid, auc, bidder, price, ts, ws = rid[o], auc[o], bidder[o], price[o], ts[o], ws[o]
+    idx = np.arange(len(rid))
+    new = _group_starts(ws, auc)
+    gid, start = _seg_index(new)
+    end = np.concatenate([np.flatnonzero(new)[1:] - 1, [len(new) - 1]])[gid] if len(new) else idx
+    pos = idx - start
+    newts = _group_starts(ws, auc, ts)
+    rk = np.maximum.accumulate(np.where(newts, idx, 0)) - start + 1
+    c = np.cumsum(newts)
+    drk = c - c[start] + 1
+    nxt, _ = _shift(price, 1, start, end, idx)
+    prev2, _ = _shift(price, -2, start, end, idx)
+    cs = np.concatenate([[0], np.cumsum(price)])
+    lo3 = np.maximum(idx - 2, start)
+    s3 = cs[idx + 1] - cs[lo3]
+    c3 = idx + 1 - lo3
+    m4 = price.copy()
+    for d in (-2, -1, 1):
+        v, out = _shift(price, d, start, end, idx)
+        m4 = np.where(out, m4, np.minimum(m4, v))
+    hi = _seg_cum(price, gid, "max")
+    rows = np.stack([rid, auc, bidder, price, ts, ws, pos + 1, rk, drk, nxt, prev2, s3, c3, m4,
+                     hi], 1)
+    return rows[np.argsort(rows[:, 0], kind="stable")]
+
+
+def p31_oracle(q5_counts) -> np.ndarray:
+    """Phase 31's MV from numpy, as ``p31_canon`` gives it: q5's counts
+    per (auction, window_start) (``q5_oracle``, hop 10 s / 2 s), ranked by
+    count descending per window (per pk: num, rank, dense_rank), and per
+    window the (row_number, lag, running sum) triples that the tied rows
+    share by position."""
+    auc, ws, num = (np.asarray(a, np.int64) for a in q5_counts)
+    o = np.lexsort((-num, ws))
+    auc, ws, num = auc[o], ws[o], num[o]
+    idx = np.arange(len(num))
+    new = _group_starts(ws)
+    gid, start = _seg_index(new)
+    newn = _group_starts(ws, num)
+    rk = np.maximum.accumulate(np.where(newn, idx, 0)) - start + 1
+    c = np.cumsum(newn)
+    drk = c - c[start] + 1
+    pos = idx - start
+    prev = np.where(pos > 0, np.roll(num, 1), NULL_SENTINEL)
+    cs = np.concatenate([[0], np.cumsum(num)])
+    run = cs[idx + 1] - cs[start]
+    return _canon_rows(np.stack([auc, ws, num, rk, drk], 1), np.stack([ws, pos + 1, prev, run], 1))
+
+
+def _canon_rows(per_pk: np.ndarray, per_window: np.ndarray) -> np.ndarray:
+    """One array of both parts: the per-pk rows, then the per-window
+    multiset as sorted rows padded with a -1 marker."""
+    marked = np.concatenate([np.full((len(per_window), 1), -1, np.int64), per_window], 1)
+    return np.concatenate([sort_rows(per_pk), sort_rows(marked)])
+
+
+def _mv_cols(mview, names) -> dict:
+    d = mview.to_numpy()
+    out = {}
+    for n in names:
+        v = d[n].astype(np.int64)
+        null = d.get(n + "__null")
+        out[n] = np.where(null, NULL_SENTINEL, v) if null is not None else v
+    return out
+
+
+def p29_rows(q) -> np.ndarray:
+    d = _mv_cols(q.mview, ("_row_id",) + WIN_COLS + P29_OUT)
+    rows = np.stack([d[n] for n in ("_row_id",) + WIN_COLS + ("rn", "cnt", "total", "lo", "hi",
+                                                               "prev", "rk", "drk")], 1)
+    return rows[np.argsort(rows[:, 0], kind="stable")]
+
+
+def p30_rows(q) -> np.ndarray:
+    d = _mv_cols(q.mview, ("_row_id", "window_start") + WIN_COLS + P30_OUT)
+    rows = np.stack([d[n] for n in ("_row_id",) + WIN_COLS + ("window_start",) + P30_OUT], 1)
+    return rows[np.argsort(rows[:, 0], kind="stable")]
+
+
+def p31_canon(q) -> np.ndarray:
+    """Phase 31's MV as two runs must agree on it: ties of num are ordered
+    by arrival (seq), and two runs' aggs flush a barrier's groups in their
+    own order, so per pk (num, rank, dense_rank), and per window the
+    multiset of (row_number, lag, running sum)."""
+    d = _mv_cols(q.mview, ("auction", "window_start", "num") + P31_OUT)
+    return _canon_rows(np.stack([d[n] for n in ("auction", "window_start", "num", "rk", "drk")], 1),
+                       np.stack([d[n] for n in ("window_start", "rn", "prev", "run")], 1))
+
+
+WINDOW_ROWS = {"p29": p29_rows, "p30": p30_rows, "p31": p31_canon}
+
+
+def p31_tie_free_digest(q) -> int:
+    """Kernel H over phase 31's MV lanes that no tie order reaches (the
+    pk, num, rank, dense_rank)."""
+    from risingwave_tpu_torch import integrity
+
+    lanes, live = integrity.mv_lanes(q.mview.table, q.mview.state)
+    keep = {k: v for k, v in lanes.items()
+            if k.startswith("k") or k in ("v_num", "v_rk", "v_drk")}
+    return integrity.digest_from_scalar(integrity.device_digest(keep, live))
+
+
+def window_compare(key, runs, what) -> None:
+    """The fused run against the interpreted one: every table's kernel-H
+    digest (p31: the agg's and the MV's tie-free lanes)."""
+    from types import SimpleNamespace
+
+    a, b = runs[key], runs[f"{key}_fused"]
+    if key == "p31":
+        check(p31_tie_free_digest(a) == p31_tie_free_digest(b), f"{what}: p31 MV (tie-free)")
+        check(device_digests(SimpleNamespace(executors=[a.agg]))
+              == device_digests(SimpleNamespace(executors=[b.agg])), f"{what}: p31 agg")
+        return
+    same_state(a, b, what)
+
+
+def window_paths(torch, dev, key, chunks, wms, want):
+    """Phases 29-31 for one path: an interpreted and a fused build driven
+    over the epochs (per epoch: the bids, a barrier, a date_time watermark
+    at the epoch's maximum), compared at every barrier before its
+    watermark; the fused chain split as the reference's (phase 29's MV
+    refusal recorded); then a last barrier (the fused MV takes the last
+    watermark's emission) and each run's MV against the numpy oracle;
+    each window executor's kernel-H digest against ``host_digest`` of its
+    lanes read back. Returns the runs, rows and launches by path."""
+    from risingwave_tpu_torch import integrity
+    from risingwave_tpu_torch.runtime.fused_step import fuse_pipeline, fusion_refusals
+
+    runs = {key: WINDOW_BUILDS[key](torch, dev), f"{key}_fused": WINDOW_BUILDS[key](torch, dev)}
+    fused = runs[f"{key}_fused"]
+    fusion_refusals(clear=True)
+    made = fuse_pipeline(fused.pipeline, label=key)
+    got = [type(e).__name__ for e in fused.pipeline.executors]
+    check(got == WINDOW_CHAINS[key], f"{key}: the fused chain splits as {WINDOW_CHAINS[key]}: {got}")
+    refusals = fusion_refusals(clear=True)
+    if key == "p29":
+        check(not made and len(refusals) == 1 and refusals[0]["executor"] == "OverWindowExecutor"
+              and "passthrough" in refusals[0]["message"], f"p29: the MV refusal {refusals}")
+    launches = PathLaunches()
+    rec = {k: {"run_s": 0.0, "barrier_ms": [], "watermark_ms": []} for k in runs}
+    torch.cuda.reset_peak_memory_stats()
+    for e, ep in enumerate(chunks):
+        for k, q in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            launches.run(k, lambda: [q.pipeline.push(c) for c in ep])
+            tb = time.perf_counter()
+            launches.run(k, q.pipeline.barrier)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rec[k]["barrier_ms"].append((t1 - tb) * 1e3)
+            rec[k]["run_s"] += t1 - t0
+        window_compare(key, runs, f"{key} barrier {e + 1}")
+        for k, q in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            launches.run(k, q.pipeline.watermark, "date_time", wms[e])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rec[k]["watermark_ms"].append(dt * 1e3)
+            rec[k]["run_s"] += dt
+    for k, q in runs.items():
+        launches.run(k, q.pipeline.barrier)
+    peak = torch.cuda.max_memory_allocated()
+    window_compare(key, runs, f"{key} end")
+    got = WINDOW_ROWS[key](runs[key])
+    check(got.shape == want.shape and np.array_equal(got, want),
+          f"{key}: MV ({len(got)} rows) vs the oracle ({len(want)} rows)")
+    if key == "p31":  # the fused MV orders ties on its own
+        got_f = WINDOW_ROWS[key](fused)
+        check(np.array_equal(got_f, want), f"{key}_fused: MV vs the oracle")
+    digests = {}
+    for k, q in runs.items():
+        for kern in WINDOW_KERNELS[key]:
+            check(launches.by[k][kern] > 0, f"{k}: kernel {kern} launched")
+    # the window executors' kernel-H digests against host_digest of their
+    # lanes read back (the fused run's equal the interpreted run's by the
+    # per-barrier comparison, so one run's read-back suffices)
+    for ex in runs[key].window:
+        dev_d = integrity.digest_from_scalar(integrity.device_digest(*ex.digest_lanes()))
+        check(dev_d == ex.state_digest(), f"{key}: {ex.table_id} kernel-H digest vs host_digest")
+        digests[ex.table_id] = f"{dev_d:016x}"
+    n_in = sum(int(c.valid.sum()) for ep in chunks for c in ep)
+    rows = [path_row(k, n_in, {"run_s": rec[k]["run_s"], "barrier_ms": rec[k]["barrier_ms"]},
+                     watermark_ms_p50=float(np.percentile(rec[k]["watermark_ms"], 50)),
+                     watermark_ms_p99=float(np.percentile(rec[k]["watermark_ms"], 99)),
+                     mv_rows=int(runs[k].mview.table.live.sum()), launches=launches.by[k])
+            for k in runs]
+    rows[0].update(max_memory_allocated=int(peak), digests=digests,
+                   chain_fused=WINDOW_CHAINS[key],
+                   refusals=[r["message"] for r in refusals])
+    return runs, rows, launches.by
+
+
+def kill_window(torch, dev, key, chunks, wms, q5_oracle10):
+    """Phase 16 for one window path: its first KILL_EPOCHS epochs at its
+    phase's sizes; the oracle of those epochs; phase 31's general
+    over-window and MV compared across runs by ``p31_canon`` (ties)."""
+    last = wms[KILL_EPOCHS - 1]
+    if key == "p31":
+        oracle = p31_oracle(q5_oracle10)
+    else:
+        host = bid_host_rows(chunks[:KILL_EPOCHS])
+        oracle = (p29_oracle if key == "p29" else p30_oracle)(host, last)
+
+    def drive(q, e):
+        window_drive(q, chunks[e], wms[e])
+
+    spec = KillSpec(key, lambda: WINDOW_BUILDS[key](torch, dev), drive, WINDOW_ROWS[key], oracle,
+                    tie_tables=("p31.over", "p31.mview") if key == "p31" else (),
+                    rows_each_barrier=key == "p31")
+    return kill_and_recover(torch, dev, spec)
+
+
+def clone_lanes(d: dict) -> dict:
+    return {k: v.clone() for k, v in d.items()}
+
+
+def kernel_ac(torch, dev, ep):
+    """Kernel AC against its plain version on the card, bit for bit: an
+    epoch of phase 4's bid chunks (about 920,000 rows) appended into a
+    2^21-slot arena (the last 65,536-row chunk timed, from the state
+    before it), then one watermark past them all emitting every row in
+    (date_time, seq) order. Library: ``torch.sort(stable=True)`` of ts
+    after seq over the closed slots."""
+    from risingwave_tpu_torch.executors import sort as so
+    from risingwave_tpu_torch.executors.row_id_gen import RowIdGenExecutor
+
+    dt = {n: torch.int64 for n in ("_row_id",) + WIN_COLS}
+    rid = RowIdGenExecutor()
+    chunks = [rid.apply(c)[0] for c in ep]
+    names = tuple(dt)
+    arenas = [so.SortExecutor("date_time", dt, capacity=WIN_SORT_CAP, device=dev) for _ in range(2)]
+    scratch = so.arena_scratch(WIN_SORT_CAP, chunks[0].capacity, dev)
+
+    def lanes(a):
+        out = {f"c_{n}": a.buf[n] for n in names}
+        out.update(valid=a.valid, seq=a.seq, next_seq=a.next_seq.reshape(1),
+                   latch=torch.stack([a._overflow, a._saw_delete]))
+        return out
+
+    for c in chunks[:-1]:
+        for a, fn in zip(arenas, (so._arena_append_cuda, so._arena_append_torch)):
+            args = (a.buf, a.bnulls, a.valid, a.seq, a.next_seq, c, names, a._overflow,
+                    a._saw_delete)
+            fn(*args, scratch) if fn is so._arena_append_cuda else fn(*args)
+    last = chunks[-1]
+    before = clone_lanes(lanes(arenas[0]))
+
+    def restore():
+        a = arenas[0]
+        for n in names:
+            a.buf[n].copy_(before[f"c_{n}"])
+        a.valid.copy_(before["valid"])
+        a.seq.copy_(before["seq"])
+        a.next_seq.copy_(before["next_seq"][0])
+
+    a0, a1 = arenas
+
+    def app_cuda():
+        so._arena_append_cuda(a0.buf, a0.bnulls, a0.valid, a0.seq, a0.next_seq, last, names,
+                              a0._overflow, a0._saw_delete, scratch)
+
+    ms = time_ms(torch, app_cuda, 20, restore)
+    plain = time_ms(torch, lambda: so._arena_append_torch(
+        a0.buf, a0.bnulls, a0.valid, a0.seq, a0.next_seq, last, names, a0._overflow,
+        a0._saw_delete), 5, restore)
+    restore()
+    app_cuda()
+    so._arena_append_torch(a1.buf, a1.bnulls, a1.valid, a1.seq, a1.next_seq, last, names,
+                           a1._overflow, a1._saw_delete)
+    torch.cuda.synchronize()
+    assert_lanes_equal(torch, lanes(a0), lanes(a1), "AC append")
+    n_rows = int(a0.valid.sum())
+    # emit: every row closes
+    cutoff = int(a0.buf["date_time"][a0.valid].max()) + 1
+    pre = clone_lanes(lanes(a0))
+
+    def restore_emit():
+        for n in names:
+            a0.buf[n].copy_(pre[f"c_{n}"])
+        a0.valid.copy_(pre["valid"])
+
+    emit_ms = time_ms(torch, lambda: so._arena_emit_cuda(a0.buf, a0.bnulls, a0.valid, a0.seq,
+                                                         cutoff, names, "date_time", scratch),
+                      10, restore_emit)
+    emit_plain = time_ms(torch, lambda: so._arena_emit_torch(a0.buf, a0.bnulls, a0.valid, a0.seq,
+                                                             cutoff, names, "date_time"),
+                         3, restore_emit)
+    restore_emit()
+    closed = torch.nonzero(a0.valid).flatten()
+
+    def lib():
+        o1 = torch.sort(a0.seq[closed], stable=True).indices
+        return o1[torch.sort(a0.buf["date_time"][closed][o1], stable=True).indices]
+
+    lib_ms = time_ms(torch, lib, 10)
+    got = so._arena_emit_cuda(a0.buf, a0.bnulls, a0.valid, a0.seq, cutoff, names, "date_time",
+                              scratch)
+    want = so._arena_emit_torch(a1.buf, a1.bnulls, a1.valid, a1.seq, cutoff, names, "date_time")
+    torch.cuda.synchronize()
+    check(got[3] == want[3] == n_rows, f"AC emit: closed {got[3]} / {want[3]} / {n_rows}")
+    m = got[3]
+    assert_lanes_equal(torch, {n: got[0][n][:m] for n in names},
+                       {n: want[0][n][:m] for n in names}, "AC emit rows in (ts, seq) order")
+    check(bool(got[2][:m].all()) and not bool(got[2][m:].any()), "AC emit: valid prefix")
+    check(torch.equal(a0.valid, a1.valid) and not bool(a0.valid.any()), "AC emit: slots freed")
+    n = last.capacity
+    lane_b = 8 * len(names)
+    app_bytes = WIN_SORT_CAP + n * (1 + 4 + lane_b) + int(last.valid.sum()) * (lane_b + 8 + 1)
+    emit_bytes = WIN_SORT_CAP * (1 + 8) + m * (8 + 8 + 4) + m * lane_b * 2 + m + WIN_SORT_CAP
+    shape = {"arena": WIN_SORT_CAP, "chunk": n, "rows_before": n_rows - int(last.valid.sum()),
+             "closed": m}
+    common = {"route": "cuda", "source": "risingwave_tpu_torch/csrc/arena.cu", "max_abs_err": 0.0,
+              "bound_by": "bytes", "tolerance": "bit for bit", "shape": shape}
+    return [
+        {"name": "AC arena append", "replaces": "risingwave_tpu/executors/sort.py:36", "ms": ms,
+         "plain_ms": plain, "bound_ms": bound_ms(app_bytes), "library_ms": None,
+         "library_call": "none: no one PyTorch call claims free slots in order", **common},
+        {"name": "AC arena emit", "replaces": "risingwave_tpu/executors/sort.py:72",
+         "ms": emit_ms, "plain_ms": emit_plain, "bound_ms": bound_ms(emit_bytes),
+         "library_ms": lib_ms, "library_call": "torch.sort(stable=True) of the closed rows' seq, "
+                                               "then of their ts in that order", **common},
+    ], (a0, got)
+
+
+def kernel_ad(torch, dev, emission):
+    """Kernel AD against its plain version on the card, bit for bit: AC's
+    2^21-row emission (about 920,000 bids in time order) through the
+    append-only window's eight calls into a 2^22-slot partition table
+    that already holds the same partitions (their accumulators seeded by
+    one earlier step), kernel A's slots taken once. Library:
+    ``torch.sort`` of the slot lane, then ``torch.cumsum`` of a value
+    lane in that order."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.executors import over_window as ow
+    from risingwave_tpu_torch.ops.hash_table import lookup_or_insert
+
+    cols, nulls, valid, m = emission
+    chunk = StreamChunk(columns=cols, valid=valid, nulls=nulls,
+                        ops=torch.zeros(valid.shape[0], dtype=torch.int32, device=dev))
+    dt = {n: torch.int64 for n in cols}
+    calls = window_calls(P29_CALLS)
+    ex = ow.OverWindowExecutor(("auction",), calls, dt, capacity=WIN_OVER_CAP, device=dev)
+    # an earlier step with the same rows shifted back in time seeds every
+    # partition's accumulators (rank order stays legal)
+    early = StreamChunk(columns={**cols, "date_time": cols["date_time"] - (1 << 40)}, valid=valid,
+                        nulls=nulls, ops=chunk.ops)
+    ex.apply(early)
+    active = chunk.valid & (chunk.signs() > 0)
+    ex.table, slots, _, _ = lookup_or_insert(ex.table, (chunk.col("auction"),), active)
+    acc0 = clone_lanes(ex.accums)
+    sd0, live0 = ex.sdirty.clone(), ex.table.live.clone()
+    lat = lambda: tuple(torch.zeros((), dtype=torch.bool, device=dev) for _ in range(3))
+    scratch = ow.over_step_scratch(chunk.capacity, ow._over_scan_lanes(calls),
+                                   sum(len(ow._accum_names(c)) for c in calls), dev)
+
+    def restore():
+        for k, v in acc0.items():
+            ex.accums[k].copy_(v)
+        ex.sdirty.copy_(sd0)
+        ex.table.live.copy_(live0)
+
+    lat_k = lat()
+    run_k = lambda: ow._over_step_cuda(ex.table, ex.accums, ex.sdirty, chunk, slots, calls, lat_k,
+                                       scratch)
+    ms = time_ms(torch, run_k, 10, restore)
+    lat_p = lat()
+    run_p = lambda: ow._over_step_torch(ex.table, ex.accums, ex.sdirty, chunk, slots, active,
+                                        calls, lat_p)
+    plain = time_ms(torch, run_p, 3, restore)
+    restore()
+    outs_k, nulls_k = run_k()
+    state_k = {**clone_lanes(ex.accums), "sdirty": ex.sdirty.clone(), "live": ex.table.live.clone()}
+    restore()
+    outs_p, nulls_p = run_p()
+    torch.cuda.synchronize()
+    state_p = {**ex.accums, "sdirty": ex.sdirty, "live": ex.table.live}
+    assert_lanes_equal(torch, state_k, state_p, "AD accumulators and marks")
+    v = chunk.valid & active
+    assert_lanes_equal(torch, {k: o[v] for k, o in outs_k.items()},
+                       {k: o[v] for k, o in outs_p.items()}, "AD outputs")
+    assert_lanes_equal(torch, {k: o[v] for k, o in nulls_k.items()},
+                       {k: o[v] for k, o in nulls_p.items()}, "AD null lanes")
+    check([bool(x) for x in lat_k] == [bool(x) for x in lat_p] == [False] * 3, "AD latches clear")
+    key = torch.where(active, slots.long(), ex.table.capacity)
+    price = chunk.col("price")
+
+    def lib():
+        o = torch.sort(key, stable=True).indices
+        return torch.cumsum(price[o], 0)
+
+    lib_ms = time_ms(torch, lib, 10)
+    n = chunk.capacity
+    segs = int(torch.unique(slots[active]).numel())
+    n_acc = sum(len(ow._accum_names(c)) for c in calls)
+    inputs = 2  # price, date_time
+    need = (n * (4 + 1 + 4 + 8 * inputs) + segs * n_acc * 8 * 2 + n * 8 * len(calls)
+            + n * 3 + segs * 2)
+    return {"name": "AD over step", "route": "cuda", "source": "risingwave_tpu_torch/csrc/over_step.cu",
+            "replaces": "risingwave_tpu/executors/over_window.py:129", "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(need), "bound_by": "bytes",
+            "library_ms": lib_ms, "library_call": "torch.sort of the slot lane, then "
+                                                  "torch.cumsum of price in that order",
+            "tolerance": "bit for bit",
+            "shape": {"rows": n, "valid": int(m), "partitions": segs, "calls": len(calls),
+                      "table": ex.table.capacity}}
+
+
+def kernel_ae_eowc(torch, dev, ep):
+    """Kernel AE's EOWC emit against its plain version on the card, bit
+    for bit and row for row: an epoch of phase 4's bids, tumbled into 10 s
+    windows, appended into a 2^21-slot EOWC arena, then one watermark
+    closing every window: (window_start, auction, date_time, seq) order
+    and phase 30's nine calls. Library: ``torch.sort`` of one packed key
+    (window index, auction) of the closed rows."""
+    from risingwave_tpu_torch.executors import over_window as ow
+    from risingwave_tpu_torch.executors.hop_window import HopWindowExecutor
+    from risingwave_tpu_torch.executors.row_id_gen import RowIdGenExecutor
+
+    dt = {n: torch.int64 for n in ("_row_id", "window_start") + WIN_COLS}
+    calls = window_calls(P30_CALLS)
+    ex = ow.EowcOverWindowExecutor(("window_start", "auction"), "date_time", calls, dt,
+                                   win_col="window_start", capacity=P30_CAP, device=dev)
+    rid, hop = RowIdGenExecutor(), HopWindowExecutor("date_time", TUMBLE_MS, TUMBLE_MS)
+    for c in ep:
+        for t in hop.apply(rid.apply(c)[0]):
+            ex.apply(t)
+    cutoff = int(ex.buf["window_start"][ex.valid].max()) + 1
+    v0 = ex.valid.clone()
+    scratch = ow.window_scratch(P30_CAP, ow._window_scan_lanes(calls), dev)
+    args = (ex.buf, ex.bnulls, ex.valid, ex.seq, cutoff, ex.names, calls, ex.part_keys,
+            ex.order_col, ex.win_col)
+    restore = lambda: ex.valid.copy_(v0)
+    ms = time_ms(torch, lambda: ow._eowc_emit_cuda(*args, scratch), 10, restore)
+    plain = time_ms(torch, lambda: ow._eowc_emit_torch(*args), 2, restore)
+    restore()
+    closed = torch.nonzero(ex.valid).flatten()
+    ws = ex.buf["window_start"][closed]
+    packed = ((ws - ws.min()) // TUMBLE_MS << 32) | ex.buf["auction"][closed]
+    lib_ms = time_ms(torch, lambda: torch.sort(packed), 10)
+    got = ow._eowc_emit_cuda(*args, scratch)
+    vk = ex.valid.clone()
+    restore()
+    want = ow._eowc_emit_torch(*args)
+    torch.cuda.synchronize()
+    m = got[3]
+    check(m == want[3] == int(v0.sum()), f"AE EOWC: closed {m} / {want[3]}")
+    assert_lanes_equal(torch, {k: v[:m] for k, v in got[0].items()},
+                       {k: v[:m] for k, v in want[0].items()}, "AE EOWC rows in sorted order")
+    assert_lanes_equal(torch, {k: v[:m] for k, v in got[1].items()},
+                       {k: v[:m] for k, v in want[1].items()}, "AE EOWC null lanes")
+    check(torch.equal(vk, ex.valid) and not bool(vk.any()), "AE EOWC: slots freed")
+    check(bool(got[2][:m].all()) and not bool(got[2][m:].any()), "AE EOWC: valid prefix")
+    n_lanes = len(ex.names)
+    # read: valid + window lane of the arena; per closed row its four key
+    # lanes, the inputs (price) and every lane gathered; written: every
+    # emission lane, call outputs and null lanes
+    need = P30_CAP * 9 + m * (8 * 4 + 8 + 8 * n_lanes) + m * (8 * n_lanes + 9 * len(calls) + 1)
+    return {"name": "AE window order + calls (EOWC emit)", "route": "cuda",
+            "source": "risingwave_tpu_torch/csrc/window_calls.cu",
+            "replaces": "risingwave_tpu/executors/over_window.py:403", "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(need), "bound_by": "bytes",
+            "library_ms": lib_ms, "library_call": "torch.sort of one packed (window, auction) "
+                                                  "key of the closed rows",
+            "tolerance": "bit for bit, row for row",
+            "shape": {"arena": P30_CAP, "closed": int(m), "calls": len(calls)}}
+
+
+def general_state_clone(ex) -> dict:
+    """Every lane of a general over-window's arena and table, cloned."""
+    st = {f"buf_{k}": v.clone() for k, v in ex.buf.items()}
+    st.update({f"em_{k}": v.clone() for k, v in ex.em.items()})
+    st.update({f"en_{k}": v.clone() for k, v in ex.emnulls.items()})
+    st.update(present=ex.present.clone(), seq=ex.seq.clone(), em_valid=ex.em_valid.clone(),
+              sdirty=ex.sdirty.clone(), live=ex.table.live.clone())
+    return st
+
+
+def general_restore(ex, st) -> None:
+    for k, v in ex.buf.items():
+        v.copy_(st[f"buf_{k}"])
+    for k, v in ex.em.items():
+        v.copy_(st[f"em_{k}"])
+    for k in list(ex.emnulls):
+        if f"en_{k}" in st:
+            ex.emnulls[k].copy_(st[f"en_{k}"])
+        else:
+            del ex.emnulls[k]
+    ex.present.copy_(st["present"])
+    ex.seq.copy_(st["seq"])
+    ex.em_valid.copy_(st["em_valid"])
+    ex.sdirty.copy_(st["sdirty"])
+    ex.table.live.copy_(st["live"])
+
+
+def general_lanes(ex) -> dict:
+    out = {f"buf_{k}": v for k, v in ex.buf.items()}
+    out.update({f"em_{k}": v for k, v in ex.em.items()})
+    out.update({f"en_{k}": v for k, v in ex.emnulls.items()})
+    out.update(present=ex.present, seq=ex.seq, em_valid=ex.em_valid, sdirty=ex.sdirty,
+               live=ex.table.live)
+    return out
+
+
+def kernel_ae_af(torch, dev, rng, ex):
+    """Kernels AF and AE's recompute against their plain versions on the
+    card, bit for bit, on phase 31's general over-window after its run
+    (a 2^24-slot arena of about 6M groups) and a 65,536-row chunk of
+    U-/U+ pairs moving 32,768 of its rows' counts: AF's apply (the same
+    slots from kernel A), AE's order and calls over the whole arena, AF's
+    diff (the retract and insert chunks row for row in slot order, the
+    emitted lanes); then a ghost and a bad delete on a small arena.
+    Libraries: ``torch.sort`` of one packed key over the members (AE),
+    ``torch.nonzero`` of the retract and insert masks (AF)."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.executors import over_window as ow
+    from risingwave_tpu_torch.ops.hash_table import lookup_or_insert
+
+    cap = ex.capacity
+    live_slots = torch.nonzero(ex.present).flatten()
+    pick = live_slots[torch.from_numpy(rng.choice(live_slots.numel(), AF_PAIRS,
+                                                  replace=False)).to(dev)]
+    n = 2 * AF_PAIRS
+    ops = torch.zeros(n, dtype=torch.int32, device=dev)
+    ops[0::2] = 2  # UPDATE_DELETE
+    ops[1::2] = 3  # UPDATE_INSERT
+    cols = {}
+    for k in ex.lane_names:
+        old = ex.buf[k][pick]
+        if k == "num":
+            new = old + torch.from_numpy(rng.integers(-3, 4, pick.numel())).to(dev)
+        elif k == "neg_num":
+            new = None
+        else:
+            new = old
+        cols[k] = (old, new)
+    cols["neg_num"] = (cols["neg_num"][0], -cols["num"][1])
+    lanes = {k: torch.stack([o, nw], 1).reshape(-1) for k, (o, nw) in cols.items()}
+    chunk = StreamChunk(columns=lanes, valid=torch.ones(n, dtype=torch.bool, device=dev),
+                        ops=ops)
+    ex.table, slots, found, _ = lookup_or_insert(ex.table, tuple(chunk.col(k) for k in ex.pk),
+                                                 chunk.valid)
+    st0 = general_state_clone(ex)
+    lat = lambda: (torch.zeros((), dtype=torch.bool, device=dev),
+                   torch.zeros((), dtype=torch.bool, device=dev))
+    ascr = ow.apply_scratch(cap, dev)
+    wscr = ow.window_scratch(cap + n, ow._window_scan_lanes(ex.calls), dev)
+    dscr = ow.diff_scratch(cap, dev)
+    restore = lambda: general_restore(ex, st0)
+    seq_base = ex._seq_base
+    lat_k = lat()
+    apply_k = lambda: ow._over_apply_cuda(ex.table, slots, found, ex._state(), chunk, ex.part_keys,
+                                          ex.lane_names, seq_base, lat_k, ascr)
+    lat_p = lat()
+    apply_p = lambda: ow._over_apply_torch(ex.table, slots, found, ex._state(), chunk,
+                                           ex.part_keys, ex.lane_names, seq_base, lat_p)
+    ap_ms = time_ms(torch, apply_k, 10, restore)
+    ap_plain = time_ms(torch, apply_p, 3, restore)
+    restore()
+    got_a = apply_k()
+    st_k = clone_lanes(general_lanes(ex))
+    restore()
+    want_a = apply_p()
+    torch.cuda.synchronize()
+    assert_lanes_equal(torch, st_k, general_lanes(ex), "AF apply: arena lanes")
+    assert_lanes_equal(torch, dict(zip(("touched", "ghost", "gslots"), got_a)),
+                       dict(zip(("touched", "ghost", "gslots"), want_a)), "AF apply: outputs")
+    check([bool(x) for x in lat_k] == [bool(x) for x in lat_p] == [False, False],
+          "AF apply: latches clear")
+    st1 = general_state_clone(ex)  # after the apply
+    touched, ghost, gslots = want_a
+    rec_k = lambda: ow._general_recompute_cuda(ex._state(), touched, ghost, gslots, ex.calls,
+                                               ex.part_keys, ex.order_col, wscr)
+    rec_p = lambda: ow._general_recompute_torch(ex._state(), touched, ghost, gslots, ex.calls,
+                                                ex.part_keys, ex.order_col)
+    ae_ms = time_ms(torch, rec_k, 5)
+    ae_plain = time_ms(torch, rec_p, 2)
+    out_k, nul_k, dirty_k = rec_k()
+    out_p, nul_p, dirty_p = rec_p()
+    torch.cuda.synchronize()
+    check(torch.equal(dirty_k, dirty_p) and bool(dirty_k.any()), "AE general: dirty slots")
+    assert_lanes_equal(torch, {k: v[dirty_k] for k, v in out_k.items()},
+                       {k: v[dirty_p] for k, v in out_p.items()}, "AE general: outputs")
+    assert_lanes_equal(torch, {k: v[dirty_k] for k, v in nul_k.items()},
+                       {k: v[dirty_p] for k, v in nul_p.items()}, "AE general: null lanes")
+    members = torch.nonzero(ex.present | ex.em_valid).flatten()
+    pk = (ex.buf["window_start"][members] - ex.buf["window_start"][members].min()) // P31_HOP[1]
+    packed = (pk << 40) | (ex.buf["num"][members] & ((1 << 40) - 1))
+    ae_lib = time_ms(torch, lambda: torch.sort(packed), 5)
+    n_members = int(members.numel())
+    # diff on the same inputs
+    ops_pair = ex._ops if ex._ops is not None else (
+        torch.full((cap,), 1, dtype=torch.int32, device=dev),
+        torch.zeros(cap, dtype=torch.int32, device=dev))
+    restore1 = lambda: general_restore(ex, st1)
+    diff_k = lambda: ow._over_diff_cuda(ex._state(), ex.emnulls, out_p, nul_p, dirty_p,
+                                        ex.lane_names, ex.out_names, *ops_pair, dscr)
+    diff_p = lambda: ow._over_diff_torch(ex._state(), ex.emnulls, out_p, nul_p, dirty_p,
+                                         ex.lane_names, ex.out_names, *ops_pair)
+    df_ms = time_ms(torch, diff_k, 10, restore1)
+    df_plain = time_ms(torch, diff_p, 3, restore1)
+    restore1()
+    ret_k, ins_k = diff_k()
+    st_dk = clone_lanes(general_lanes(ex))
+    restore1()
+    ret_p, ins_p = diff_p()
+    torch.cuda.synchronize()
+    assert_lanes_equal(torch, st_dk, general_lanes(ex), "AF diff: emitted lanes")
+    n_ret, n_ins = int(ret_p.valid.sum()), int(ins_p.valid.sum())
+    check(torch.equal(ret_k.valid, ret_p.valid) and torch.equal(ins_k.valid, ins_p.valid)
+          and n_ins > 0, "AF diff: valid prefixes")
+    for what, a, b, m in (("retract", ret_k, ret_p, n_ret), ("insert", ins_k, ins_p, n_ins)):
+        assert_lanes_equal(torch, {k: v[:m] for k, v in a.columns.items()},
+                           {k: v[:m] for k, v in b.columns.items()}, f"AF diff: {what} rows")
+        assert_lanes_equal(torch, {k: v[:m] for k, v in a.nulls.items()},
+                           {k: v[:m] for k, v in b.nulls.items()}, f"AF diff: {what} nulls")
+    restore1()
+    flags_r = ex.em_valid & dirty_p
+    flags_i = ex.present & dirty_p
+    df_lib = time_ms(torch, lambda: (torch.nonzero(flags_r), torch.nonzero(flags_i)), 10)
+    restore()
+    af_small = af_ghost_case(torch, dev)
+    lane_b = 8 * len(ex.lane_names)
+    ap_need = n * (4 + 1 + 1 + 4 + lane_b + 8) + cap + int(found.numel()) * (lane_b + 8 + 3)
+    ae_need = (cap + n) * 3 + n_members * (8 * 4 + 8 * 2) + n_members * 9 * len(ex.calls) + cap
+    n_dirty = int(dirty_p.sum())
+    cols_b = 8 * (len(ex.lane_names) + len(ex.calls))
+    df_need = cap * 3 + n_dirty * cols_b * 2 + (n_ret + n_ins) * cols_b * 2
+    shape = {"arena": cap, "members": n_members, "chunk": n, "dirty": n_dirty,
+             "retract": n_ret, "insert": n_ins}
+    common = {"route": "cuda", "max_abs_err": 0.0, "bound_by": "bytes",
+              "tolerance": "bit for bit (outputs at dirty slots; chunks row for row)",
+              "shape": shape}
+    return [
+        {"name": "AE window order + calls (general recompute)",
+         "source": "risingwave_tpu_torch/csrc/window_calls.cu",
+         "replaces": "risingwave_tpu/executors/over_window.py:927", "ms": ae_ms,
+         "plain_ms": ae_plain, "bound_ms": bound_ms(ae_need), "library_ms": ae_lib,
+         "library_call": "torch.sort of one packed (window, num) key over the members", **common},
+        {"name": "AF over apply", "source": "risingwave_tpu_torch/csrc/over_diff.cu",
+         "replaces": "risingwave_tpu/executors/over_window.py:927", "ms": ap_ms,
+         "plain_ms": ap_plain, "bound_ms": bound_ms(ap_need), "library_ms": None,
+         "library_call": "none: no one PyTorch call lets the last row per slot win",
+         "ghost_case": af_small, **common},
+        {"name": "AF over diff", "source": "risingwave_tpu_torch/csrc/over_diff.cu",
+         "replaces": "risingwave_tpu/executors/over_window.py:927", "ms": df_ms,
+         "plain_ms": df_plain, "bound_ms": bound_ms(df_need), "library_ms": df_lib,
+         "library_call": "torch.nonzero of the retract and of the insert mask", **common},
+    ]
+
+
+def af_ghost_case(torch, dev) -> dict:
+    """AF's apply on a small arena, card against plain: a same-chunk move
+    of a row to another partition (its ghost) and a DELETE of an unknown
+    pk (bad_delete); then the whole step, card against CPU."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.executors import over_window as ow
+
+    calls = window_calls((("row_number", None, "rn"), ("sum", "x", "sx")))
+    dt = {"id": torch.int64, "p": torch.int64, "o": torch.int64, "x": torch.int64}
+    exs = [ow.GeneralOverWindowExecutor(("p",), "o", ("id",), calls, dt, capacity=64, device=d)
+           for d in (dev, "cpu")]
+    steps = [({"id": [0, 1, 2], "p": [1, 1, 1], "o": [10, 20, 30], "x": [5, 6, 7]}, [0, 0, 0]),
+             ({"id": [1, 1, 9], "p": [1, 2, 1], "o": [20, 20, 1], "x": [6, 6, 0]}, [1, 0, 1])]
+    outs = []
+    for cols, ops in steps:
+        got = []
+        for ex in exs:
+            chunk = StreamChunk.from_numpy({k: np.asarray(v, np.int64) for k, v in cols.items()}, 4,
+                                           ops=np.asarray(ops, np.int32), device=ex.device)
+            got.append([Counter(map(tuple, np.stack([o.to_numpy()[k] for k in
+                                                     ("id", "p", "o", "x", "rn", "sx")], 1)
+                                    .tolist())) for o in ex.apply(chunk)])
+        check(got[0] == got[1], "AF small: emissions card vs CPU")
+        outs.append(got[0])
+    check(exs[0].state_digest() == exs[1].state_digest(), "AF small: states card vs CPU")
+    check(bool(exs[0]._bad_delete) and bool(exs[1]._bad_delete), "AF small: bad_delete latched")
+    # the ghost re-emitted the old partition's remaining rows
+    check(any(r[0] == 2 for r in outs[1][1]), "AF small: the old partition re-emitted")
+    return {"ghost_move": True, "bad_delete": True, "checks": "card = CPU: emissions, digests"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
@@ -6998,6 +7942,45 @@ def main() -> int:
     torch.cuda.empty_cache()
     k19_row, l16_q19 = kill_q19(torch, dev, chunks)
     emit(k19_row)
+    torch.cuda.empty_cache()
+    # phases 29-31, phase 3's AC-AF and phase 16's window kills on phase 4's stream
+    wms = epoch_watermarks(chunks)
+    host4 = bid_host_rows(chunks)
+    runs29, rows29, l29 = window_paths(torch, dev, "p29", chunks, wms, p29_oracle(host4, wms[-1]))
+    for r in rows29:
+        emit(r)
+    del runs29
+    torch.cuda.empty_cache()
+    ac_rows, (ac_arena, ac_emission) = kernel_ac(torch, dev, chunks[0])
+    for r in ac_rows:
+        emit({"phase": "kernel", **r})
+    ad_row = kernel_ad(torch, dev, ac_emission)
+    emit({"phase": "kernel", **ad_row})
+    del ac_arena, ac_emission
+    torch.cuda.empty_cache()
+    runs30, rows30, l30 = window_paths(torch, dev, "p30", chunks, wms, p30_oracle(host4, wms[-1]))
+    for r in rows30:
+        emit(r)
+    del runs30, host4
+    torch.cuda.empty_cache()
+    ae_row = kernel_ae_eowc(torch, dev, chunks[0])
+    emit({"phase": "kernel", **ae_row})
+    torch.cuda.empty_cache()
+    runs31, rows31, l31 = window_paths(torch, dev, "p31", chunks, wms, p31_oracle(oracle))
+    for r in rows31:
+        emit(r)
+    del runs31["p31_fused"]
+    torch.cuda.empty_cache()
+    ae_gen_row, ap_row, df_row = kernel_ae_af(torch, dev, rng, runs31["p31"].over)
+    for r in (ae_gen_row, ap_row, df_row):
+        emit({"phase": "kernel", **r})
+    del runs31
+    torch.cuda.empty_cache()
+    l16_win = {}
+    for key in ("p29", "p30", "p31"):
+        k_row, l16_win[f"{key}_recover"] = kill_window(torch, dev, key, chunks, wms, q5_oracle10)
+        emit(k_row)
+        torch.cuda.empty_cache()
     aa_bid = chunks[0][0]  # kernel AA's bid chunk, phase 4's first
     del chunks
     torch.cuda.empty_cache()
@@ -7126,7 +8109,10 @@ def main() -> int:
             (u_row, "topn_band"), (v19_row, "topn_upsert"), (v105_row, "topn_upsert"),
             (w_row, "topn_rank"), (x_row, "group_topk"), (y_row, "simple_agg"),
             (zl_row, "dyn_general"), (zd_row, "dyn_rv_diff")] + list(zip(
-                aa_rows, ("unnest", "series", "expand"))) + [(ab_row, "temporal_probe")]
+                aa_rows, ("unnest", "series", "expand"))) + [(ab_row, "temporal_probe")] + [
+            (ac_rows[0], "arena"), (ac_rows[1], "arena_emit"), (ad_row, "over_step"),
+            (ae_row, "window_calls"), (ae_gen_row, "window_order"), (ap_row, "over_apply"),
+            (df_row, "over_diff")]
     paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8, "q7": l9, "q7_fused": l10,
              "q101": l11, "q101_fused": l12, "q5_max": l13, "q5_max_fused": l14, **l15,
              "q5_recover": l16_q5, "q5_max_recover": l16_q5m, "q8_recover": l16_q8,
@@ -7134,9 +8120,9 @@ def main() -> int:
              **{f"hot_{k}": v for k, v in l18.items()}, **l19, "q7_scan_watermark_filters": l20,
              **l21, "q19_recover": l16_q19, **l23, "q105_recover": l16_q105, **l24,
              "q102_recover": l16_q102, **l25, **l26, **l27, **l28, "p25_recover": l16_p25,
-             "p26_recover": l16_p26, "p28_recover": l16_p28}
+             "p26_recover": l16_p26, "p28_recover": l16_p28, **l29, **l30, **l31, **l16_win}
     for row, key in rows:
-        # each main path's run counts from zero: phases 4, 6-28 (a path
+        # each main path's run counts from zero: phases 4, 6-31 (a path
         # of a phase that drives several in lockstep counts its own calls)
         row["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -11,7 +11,7 @@ Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
 A, C, D, E, F, G, H, J, L, M, N, O, P, Q, R, S, T, U, V, W, X, Y, Z,
-AA and AB (an entry point may launch several kernels in order on the stream),
+AA, AB, AC, AD, AE and AF (an entry point may launch several kernels in order on the stream),
 two per call of B (the apply and its set_live), one per 24 lanes moved
 by a call of I; the entry points of ``ENTRY_KEYS`` count under their
 own names (S's ``rw_project`` under ``expr_eval``, its ``rw_filter``
@@ -19,7 +19,11 @@ under ``expr_filter``, X's ``rw_group_topk_mask`` under
 ``group_topk``, Z's ``rw_dyn_left_step`` under ``dyn_general`` and its
 ``rw_dyn_rv_diff`` under ``dyn_rv_diff``, AA's ``rw_unnest``,
 ``rw_series`` and ``rw_expand`` under ``unnest``, ``series`` and
-``expand``; a Project whose outputs are
+``expand``, AC's ``rw_arena_append`` under ``arena`` and its
+``rw_arena_emit`` under ``arena_emit``, AD's ``rw_over_step`` under
+``over_step``, AE's ``rw_window_order`` under ``window_order`` and its
+``rw_window_calls`` under ``window_calls``, AF's ``rw_over_apply`` under
+``over_apply`` and its ``rw_over_diff`` under ``over_diff``; a Project whose outputs are
 all bare columns launches nothing).
 """
 
@@ -70,6 +74,10 @@ SOURCES = {
     "dyn_general": "dyn_general.cu",
     "tile_expand": "tile_expand.cu",
     "temporal_probe": "temporal_probe.cu",
+    "arena": "arena.cu",
+    "over_step": "over_step.cu",
+    "window_calls": "window_calls.cu",
+    "over_diff": "over_diff.cu",
 }
 
 # C entry points: (argtypes,) — every pointer and the stream as c_void_p
@@ -175,6 +183,22 @@ SIGNATURES = {
     "temporal_probe": {
         "rw_temporal_probe": [_P, _I, _L, _P, _P, _P, _P, _P, _L, _P, _I, _I, _P, _P],
     },
+    "arena": {
+        "rw_arena_append": [_P, _I, _L, _L] + [_P] * 13,
+        "rw_arena_emit": [_P, _I, _L, _L] + [_P] * 14,
+    },
+    "over_step": {
+        "rw_over_step": [_P, _P, _I, _L, _L] + [_P] * 15,
+    },
+    "window_calls": {
+        "rw_window_order": [_L, _L, _P, _P, _P, _L, _P, _P, _P, _P, _I] + [_P] * 10,
+        "rw_window_calls": [_L, _L, _P, _P, _P, _I, _I, _I, _P, _I, _L, _I, _P, _P, _P, _P, _P,
+                            _P, _P, _I, _P, _L, _P, _P],
+    },
+    "over_diff": {
+        "rw_over_apply": [_P, _I, _P, _I, _L, _L] + [_P] * 6 + [_L] + [_P] * 11,
+        "rw_over_diff": [_P, _I, _L] + [_P] * 13,
+    },
 }
 
 # slots per block of the stream compaction of kernels R and Z
@@ -198,6 +222,9 @@ TILE_LANES = 32
 RBK_TILE = 2048
 # elements per block of the device-wide scan (csrc/scan.cuh SCAN_TILE)
 SCAN_TILE = 2048
+# elements per block of the segmented scan of kernels AD and AE
+# (csrc/segscan.cuh SEG_SCAN_TILE)
+SEG_SCAN_TILE = 1024
 # blocks of the state digest's first pass (csrc/state_digest.cu SD_BLOCKS)
 DIGEST_BLOCKS = 1024
 # lanes one slot_move launch takes (csrc/slot_move.cu SM_MAX_LANES)
@@ -224,7 +251,9 @@ DTYPE_CODES = {
 # counts as "checkpoint"), or kernel S's filter (its projection counts
 # as "expr_eval"), or kernel Z's right-value diff (its left step counts
 # as "dyn_general"), or one of kernel AA's three table-function entries
-# (each counts under its own name; "tile_expand" itself stays 0)
+# (each counts under its own name; "tile_expand" itself stays 0), or
+# kernel AC's emit (its append counts as "arena"), AE's order (its calls
+# count as "window_calls"), AF's apply (its diff counts as "over_diff")
 ENTRY_KEYS = {
     "rw_lookup": "lookup",
     "rw_first_occurrence": "first_occurrence",
@@ -242,6 +271,9 @@ ENTRY_KEYS = {
     "rw_unnest": "unnest",
     "rw_series": "series",
     "rw_expand": "expand",
+    "rw_arena_emit": "arena_emit",
+    "rw_window_order": "window_order",
+    "rw_over_apply": "over_apply",
 }
 
 LAUNCHES = {name: 0 for name in (*SOURCES, *ENTRY_KEYS.values())}

@@ -23,12 +23,14 @@
 // fused program's mv_rows), one atomic per warp.
 #include "common.cuh"
 
+#define MV_MAX_LANES 24  // value (and null) lanes one call writes; = materialize.MV_LANES
+
 struct MvLanes {
-  const void* src[RW_MAX_LANES];     // (n,) chunk value lanes
-  void* dst[RW_MAX_LANES];           // (cap,) MV value lanes, same dtypes
-  int esize[RW_MAX_LANES];
-  const uint8_t* nsrc[RW_MAX_LANES]; // (n,) chunk null lanes, or null
-  uint8_t* ndst[RW_MAX_LANES];       // (cap,) MV null lanes
+  const void* src[MV_MAX_LANES];     // (n,) chunk value lanes
+  void* dst[MV_MAX_LANES];           // (cap,) MV value lanes, same dtypes
+  int esize[MV_MAX_LANES];
+  const uint8_t* nsrc[MV_MAX_LANES]; // (n,) chunk null lanes, or null
+  uint8_t* ndst[MV_MAX_LANES];       // (cap,) MV null lanes
   int n, nn;
 };
 
@@ -83,7 +85,7 @@ RW_EXPORT int rw_mv_upsert(const int64_t* values, int n_values, const int64_t* n
                            int n_nulls, int64_t n, const void* slots, const void* valid,
                            const void* ops, void* scratch, void* live, void* sdirty,
                            void* dropped, void* rows, void* stream) {
-  if (n_values < 0 || n_values > RW_MAX_LANES || n_nulls < 0 || n_nulls > RW_MAX_LANES)
+  if (n_values < 0 || n_values > MV_MAX_LANES || n_nulls < 0 || n_nulls > MV_MAX_LANES)
     return (int)cudaErrorInvalidValue;
   MvLanes m;
   m.n = n_values;

@@ -32,7 +32,7 @@
 // runs the plain per-slot loop, without their tests.
 #include "common.cuh"
 
-#define SD_MAX_LANES 24
+#define SD_MAX_LANES 40  // = integrity.DIGEST_LANES
 #define SD_THREADS 256
 #define SD_FINAL_THREADS 1024
 

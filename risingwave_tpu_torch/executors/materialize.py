@@ -50,6 +50,8 @@ from risingwave_tpu_torch.storage.state_table import (
 GROW_AT = 0.5
 # mid-epoch rebuild only when the host insert bound nears the table
 HARD_GROW_AT = 0.75
+# value (and null) lanes one rw_mv_upsert call writes (csrc/mv_upsert.cu MV_MAX_LANES)
+MV_LANES = 24
 
 
 @dataclass
@@ -163,7 +165,8 @@ def _mv_upsert_cuda(table, state, chunk, slots, cols, rows_acc=None):
         nulls.append((0 if src is None else src.data_ptr(), dst.data_ptr()))
     _kernels.call(
         "mv_upsert", "rw_mv_upsert",
-        _kernels.int64_rows(values, 8), len(values), _kernels.int64_rows(nulls, 8), len(nulls),
+        _kernels.int64_rows(values, MV_LANES), len(values), _kernels.int64_rows(nulls, MV_LANES),
+        len(nulls),
         n, slots.data_ptr(), chunk.valid.data_ptr(), chunk.ops.data_ptr(),
         state.scratch.data_ptr(), table.live.data_ptr(), state.sdirty.data_ptr(),
         state.dropped.data_ptr(), 0 if rows_acc is None else rows_acc.data_ptr(),

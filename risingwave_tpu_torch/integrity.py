@@ -60,6 +60,10 @@ U64_MASK = (1 << 64) - 1
 _DIGEST_DTYPES = (torch.bool, torch.int32, torch.int64, torch.float32, torch.float64)
 
 
+# lanes one kernel-H digest folds (csrc/state_digest.cu SD_MAX_LANES)
+DIGEST_LANES = 40
+
+
 def digest_enabled() -> bool:
     """Manifest-level table digests are opt-in (``RW_STATE_DIGEST=1``):
     they re-read every table at commit (a whole-table store scan). The
@@ -446,7 +450,7 @@ def _device_digest_cuda(lanes, names, masks, count_of=None, count_out=None) -> t
     m1 = masks[1].data_ptr() if len(masks) > 1 else 0
     _kernels.call(
         "state_digest", "rw_state_digest",
-        _kernels.int64_rows(rows, 24), len(rows), cap, m0, m1,
+        _kernels.int64_rows(rows, DIGEST_LANES), len(rows), cap, m0, m1,
         0 if count_of is None else count_of.data_ptr(), partials.data_ptr(),
         _kernels.DIGEST_BLOCKS, out.data_ptr(), 0 if count_out is None else count_out.data_ptr(),
     )

@@ -41,7 +41,7 @@ for m in ("runtime.fused_step", "executors.epoch_batch", "integrity", "executors
           "executors.row_id_gen", "executors.top_n", "executors.top_n_plain",
           "executors.simple_agg", "array.composite", "array.arrow", "executors.project_set",
           "executors.expand", "executors.temporal_join", "executors.generators",
-          "executors.troublemaker"):
+          "executors.troublemaker", "executors.sort", "executors.over_window"):
     assert "risingwave_tpu_torch." + m in mods, m
 assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
 
@@ -139,11 +139,22 @@ assert sorted(un.to_numpy()["x"].tolist()) == [1, 2, 3]
 (ex,) = ExpandExecutor([("x",), ()]).apply(un)
 assert ex.capacity == 24 and int(ex.valid.sum()) == 6
 
+from risingwave_tpu_torch.executors import SortExecutor
+from risingwave_tpu_torch.executors.base import Watermark
+from risingwave_tpu_torch.executors.over_window import OverWindowExecutor, WindowCall
+
+srt = SortExecutor("t", {"t": torch.int64, "p": torch.int64}, capacity=16, device="cpu")
+srt.apply(StreamChunk.from_numpy({"t": [3, 1, 2], "p": [1, 1, 2]}, 4, device="cpu"))
+(closed,) = srt.on_watermark(Watermark("t", 3))[1]
+(ranked,) = OverWindowExecutor(("p",), (WindowCall("row_number", None, "rn"),),
+                               {"p": torch.int64}, capacity=16, device="cpu").apply(closed)
+assert ranked.to_numpy()["rn"].tolist() == [1, 1]
+
 assert not torch.cuda.is_available()
 for make in (lambda: build_q5_lite(), lambda: build_q8(), lambda: build_q7(),
              lambda: build_q19(), lambda: build_q19_append_only(),
              lambda: NexmarkGenerator().next_chunks(10, 16),
-             lambda: NowExecutor()):
+             lambda: NowExecutor(), lambda: SortExecutor("t", {"t": torch.int64})):
     try:
         make()
     except RuntimeError as e:

@@ -489,3 +489,99 @@ def test_ab_entry_marshals(calls):
         tj._probe_cuda(table, values, vnulls, chunk, (keys[0], keys[0]), key_ok, ("a",), "left")
     assert calls == [("temporal_probe", "rw_temporal_probe")] * 2
     assert _kernels.LAUNCHES["temporal_probe"] == 2
+
+
+def test_ac_entries_marshal(calls):
+    """Kernel AC: an append of int64, int32-cast and bool lanes with a
+    null lane, and an emit (its count written through a host pointer)."""
+    from risingwave_tpu_torch.executors import sort as so
+
+    cap, n = 64, 16
+    buf = {"ts": torch.zeros(cap, dtype=torch.int64), "v": torch.zeros(cap, dtype=torch.int64)}
+    bnulls = {"v": torch.zeros(cap, dtype=torch.bool)}
+    valid = torch.zeros(cap, dtype=torch.bool)
+    seq = torch.zeros(cap, dtype=torch.int64)
+    nxt = torch.zeros((), dtype=torch.int64)
+    ovf, dele = torch.zeros((), dtype=torch.bool), torch.zeros((), dtype=torch.bool)
+    chunk = StreamChunk.from_numpy({"ts": torch.arange(n).numpy(),
+                                    "v": torch.arange(n, dtype=torch.int32).numpy()}, n,
+                                   device="cpu")
+    scratch = so.arena_scratch(cap, n, "cpu")
+    so._arena_append_cuda(buf, bnulls, valid, seq, nxt, chunk, ("ts", "v"), ovf, dele, scratch)
+    cols, nulls, out_valid, m = so._arena_emit_cuda(buf, bnulls, valid, seq, 5, ("ts", "v"), "ts",
+                                                    scratch)
+    assert m == 0 and set(cols) == {"ts", "v"} and set(nulls) == {"v"}
+    assert out_valid.shape == (cap,)
+    with pytest.raises(ValueError, match="arena_scratch"):
+        so._arena_append_cuda(buf, bnulls, valid, seq, nxt, chunk, ("ts",), ovf, dele, None)
+    assert calls == [("arena", "rw_arena_append"), ("arena", "rw_arena_emit")]
+    assert _kernels.LAUNCHES["arena"] == 1 and _kernels.LAUNCHES["arena_emit"] == 1
+
+
+def _ow_calls():
+    from risingwave_tpu_torch.executors import over_window as ow
+
+    return ow, (ow.WindowCall("row_number", None, "rn"), ow.WindowCall("sum", "x", "sx"),
+                ow.WindowCall("min", "x", "mn"), ow.WindowCall("lag", "x", "lg"),
+                ow.WindowCall("rank", "o", "rk"))
+
+
+def test_ad_entry_marshals(calls):
+    """Kernel AD: five calls (an int32 input cast to int64, a null lane),
+    each call's accumulator lanes in ``_accum_names`` order."""
+    ow, wc = _ow_calls()
+    cap, n = 64, 16
+    ex = ow.OverWindowExecutor(("p",), wc, {"p": torch.int64, "x": torch.int32,
+                                            "o": torch.int64}, capacity=cap, device="cpu")
+    chunk = StreamChunk.from_numpy({"p": torch.arange(n).numpy(),
+                                    "x": torch.arange(n, dtype=torch.int32).numpy(),
+                                    "o": torch.arange(n).numpy()}, n,
+                                   nulls={"x": torch.zeros(n, dtype=torch.bool).numpy()},
+                                   device="cpu")
+    slots = torch.arange(n, dtype=torch.int32)
+    lat = tuple(torch.zeros((), dtype=torch.bool) for _ in range(3))
+    outs, nulls = ow._over_step_cuda(ex.table, ex.accums, ex.sdirty, chunk, slots, wc, lat, None)
+    assert set(outs) == {"rn", "sx", "mn", "lg", "rk"} and set(nulls) == {"mn", "lg"}
+    assert calls == [("over_step", "rw_over_step")] and _kernels.LAUNCHES["over_step"] == 1
+
+
+def test_ae_and_af_entries_marshal(calls):
+    """Kernels AE and AF: the EOWC emit's order and calls (an int32 order
+    lane, a gathered null lane), and the general step's apply, order,
+    calls and diff (key lanes with their emitted fallbacks, the ABSENT
+    key, ghost entries)."""
+    ow, wc = _ow_calls()
+    cap, n = 64, 16
+    dt = {"p": torch.int64, "o": torch.int32, "x": torch.int64}
+    ex = ow.EowcOverWindowExecutor(("p",), "o", wc, dt, capacity=cap, nullable=("x",),
+                                   device="cpu")
+    scr = ow.window_scratch(cap, ow._window_scan_lanes(wc), "cpu")
+    out = ow._eowc_emit_cuda(ex.buf, ex.bnulls, ex.valid, ex.seq, 3, ex.names, wc, ("p",), "o",
+                             "p", scr)
+    assert out[3] == 0  # the callback closes nothing
+    g = ow.GeneralOverWindowExecutor(("p",), "o", ("id",), wc,
+                                     {"id": torch.int64, **dt}, capacity=cap, nullable=("x",),
+                                     device="cpu")
+    chunk = StreamChunk.from_numpy({"id": torch.arange(n).numpy(), "p": torch.arange(n).numpy(),
+                                    "o": torch.arange(n, dtype=torch.int32).numpy(),
+                                    "x": torch.arange(n).numpy()}, n, device="cpu")
+    slots = torch.arange(n, dtype=torch.int32)
+    st = g._state()
+    lat = (torch.zeros((), dtype=torch.bool), torch.zeros((), dtype=torch.bool))
+    touched, ghost, gslots = ow._over_apply_cuda(g.table, slots, torch.zeros(n, dtype=torch.bool),
+                                                 st, chunk, ("p",), g.lane_names, 0, lat,
+                                                 ow.apply_scratch(cap, "cpu"))
+    assert touched.shape == (cap,) and ghost.shape == gslots.shape == (n,)
+    new_out, new_nulls, dirty = ow._general_recompute_cuda(st, touched, ghost, gslots, wc, ("p",),
+                                                           "o", None)
+    assert set(new_out) == set(new_nulls) == {c.output for c in wc} and dirty.shape == (cap,)
+    ops = (torch.ones(cap, dtype=torch.int32), torch.zeros(cap, dtype=torch.int32))
+    ret, ins = ow._over_diff_cuda(st, g.emnulls, new_out, new_nulls, dirty, g.lane_names,
+                                  g.out_names, *ops, None)
+    assert set(ret.nulls) == set() and set(ins.nulls) == {"x", *new_out}
+    assert set(g.emnulls) == set(g.lane_names + g.out_names)
+    assert calls == [("window_calls", "rw_window_order"), ("over_diff", "rw_over_apply"),
+                     ("window_calls", "rw_window_order"), ("window_calls", "rw_window_calls"),
+                     ("over_diff", "rw_over_diff")]
+    assert [_kernels.LAUNCHES[k] for k in ("window_order", "window_calls", "over_apply",
+                                           "over_diff")] == [2, 1, 1, 1]
