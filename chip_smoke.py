@@ -164,7 +164,7 @@ Phases, each printing one JSON line:
      generated watermark (``Q7_SCAN_EPOCHS`` of them);
   21. Nexmark q19 on the retractable GroupTopN (``build_q19``: a store of
      every bid, 2^26 slots), interpreted and fused, over phase 4's
-     chunks;
+     first ``Q19_EPOCHS`` epochs;
   22. q19 on the append-only GroupTopN (``build_q19_append_only``: bands
      of (2^22, 10)), both ways, in lockstep with phase 21: the four MVs'
      digests equal at every barrier, each MV against the numpy oracle at
@@ -218,9 +218,30 @@ Phases, each printing one JSON line:
      of row_number, lag and sum);
   with AC (append, emit), AD, AE (EOWC emit, general recompute) and AF
   (apply with a ghost and a bad delete, diff) in phase 3 and the three
-  paths' kills in phase 16;
-  then a host phase: VALUES into an MV, NOW over three barriers, and a
-  troublemaker at rate 1 whose logged faults show in the MV behind it.
+  paths' kills in phase 16 (6 epochs, the kill after barrier 4);
+  32. q5 (hop, COUNT(*) 2^24, a device MV and a host MV beside it) under
+     a device budget of a quarter of the un-evicted run's state: a
+     commit into a LocalFsObjectStore after every barrier, then
+     ``evict_cold`` on the agg, over phase 4's first 10 epochs, both
+     ways; at every barrier the MV's kernel-H digest equals the
+     un-evicted run's and the host MV the device MV; re-created groups
+     merge back (kernel AG's merge); the interpreted run is killed after
+     barrier 6's eviction and recovered (phase 16's kill of 32); the
+     store's point reads of every group equal the un-evicted agg's lanes;
+  33. q8 under a budget over phase 7's events cut into epochs that end
+     mid-window, a watermark 4 s behind after every eviction: both join
+     sides evicted, returning keys faulted in (on touch, or all before
+     the fused program), closed evicted keys tombstoned; killed and
+     recovered as 32; point reads of live keys equal the un-evicted
+     sides', closed keys read absent;
+  34. q5-max under a budget (its MAX groups recorded, faulted in before
+     any row lands on them, or to expire), both ways;
+  with AG (the select on q5's agg, its merge candidates and a q8 side;
+  the merge over every call kind and dtype) and R as fault-in (with
+  multiset rows) in phase 3;
+  then a host phase: VALUES into an MV, NOW over three barriers, a
+  troublemaker at rate 1 whose logged faults show in the MV behind it,
+  and phase 28's enrichment with its auctions in a host MV (one epoch).
 Phase 16 also kills and recovers q19 and q105 (after phase 23), q102
 (after phase 24), phases 25 and 26 (after q5-max's kill) and phase 28
 (after phase 28). Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
@@ -4138,6 +4159,9 @@ def kernel_r(torch, dev):
 # -- phase 16: kill and recover ------------------------------------------------
 KILL_EPOCHS = 10  # of each query's stream (the tables keep phases 4-14's sizes)
 KILL_AT = 6  # commits after barriers 1-6, then the kill
+# the kills of q19 and the window paths (p29-p31), cut for the script's
+# time limit
+WIN_KILL_EPOCHS, WIN_KILL_AT = 6, 4
 R_ENTRIES = ("checkpoint", "gather_rows", "mark_checkpointed", "scatter_rows")
 
 
@@ -4211,10 +4235,12 @@ class KillSpec:
     compared there) only at the end."""
 
     def __init__(self, name, build, drive, mv_rows, oracle, refuse=False, tie_tables=(),
-                 rows_each_barrier=True):
+                 rows_each_barrier=True, depth=None):
         self.name, self.build, self.drive, self.mv_rows = name, build, drive, mv_rows
         self.oracle, self.refuse, self.tie_tables = oracle, refuse, tuple(tie_tables)
         self.rows_each_barrier = rows_each_barrier
+        # (epochs, kill after barrier), KILL_EPOCHS and KILL_AT unless given
+        self.depth = depth
 
 
 def timed_commit(torch, mgr, epoch, executors, rec) -> None:
@@ -4275,6 +4301,7 @@ def kill_and_recover(torch, dev, spec: KillSpec):
     import shutil
     import tempfile
 
+    epochs, kill_at = spec.depth or (KILL_EPOCHS, KILL_AT)
     from risingwave_tpu_torch import _kernels
     from risingwave_tpu_torch.storage import CheckpointManager, LocalFsObjectStore
     from risingwave_tpu_torch.runtime.fused_step import expand_fused, fuse_pipeline
@@ -4288,7 +4315,7 @@ def kill_and_recover(torch, dev, spec: KillSpec):
         a, b = spec.build(), spec.build()
         mgr = CheckpointManager(LocalFsObjectStore(store_dir))
         rec = {"stage_ms": [], "sst_ms": [], "commit_ms": [], "rows": [], "bytes": []}
-        for e in range(KILL_AT):
+        for e in range(kill_at):
             spec.drive(a, e)
             spec.drive(b, e)
             timed_commit(torch, mgr, a.pipeline.epoch, expand_fused(a.pipeline.executors), rec)
@@ -4312,10 +4339,10 @@ def kill_and_recover(torch, dev, spec: KillSpec):
             check(device_digests(a3.pipeline) == pre, f"{spec.name}: fused recovery's digests")
             runs.append(a3)
         joins = set()
-        for e in range(KILL_AT, KILL_EPOCHS):
+        for e in range(kill_at, epochs):
             for q in (*runs, b):
                 spec.drive(q, e)
-            last = e == KILL_EPOCHS - 1
+            last = e == epochs - 1
             mv_b = spec.mv_rows(b) if spec.rows_each_barrier or last else None
             for i, q in enumerate(runs):
                 what = f"{spec.name} barrier {e + 1} {'fused ' if i else ''}recovered vs B"
@@ -4331,7 +4358,7 @@ def kill_and_recover(torch, dev, spec: KillSpec):
             check(launches[k] > 0, f"{spec.name}: kernel R's {k} launched")
         pct = lambda xs, p: float(np.percentile(xs, p))
         return {
-            "phase": "16", "query": spec.name, "epochs": KILL_EPOCHS, "kill_after_barrier": KILL_AT,
+            "phase": "16", "query": spec.name, "epochs": epochs, "kill_after_barrier": kill_at,
             "commit_ms_p50": pct(rec["commit_ms"], 50), "commit_ms_p99": pct(rec["commit_ms"], 99),
             "stage_ms_p50": pct(rec["stage_ms"], 50), "stage_ms_p99": pct(rec["stage_ms"], 99),
             "sst_put_ms_p50": pct(rec["sst_ms"], 50), "sst_put_ms_p99": pct(rec["sst_ms"], 99),
@@ -5158,7 +5185,10 @@ Q19_CAP = 1 << 26
 Q19AO_CAP = 1 << 22
 Q19AO_OUT_CAP = 1 << 17
 Q19_MV_CAP = 1 << 24
-Q19_CHECKS = (4, 12, EPOCHS - 1)  # barriers held against the numpy oracle
+# phases 21-22 run phase 4's first Q19_EPOCHS epochs (cut from 20 for the
+# script's time limit); barriers Q19_CHECKS are held against the oracle
+Q19_EPOCHS = 10
+Q19_CHECKS = (4, Q19_EPOCHS - 1)
 Q19_COLS = ("_row_id", "auction", "bidder", "price", "channel", "date_time")
 Q19_PRICE_BITS = 27  # prices stay below 2^27 (round(10^6 * 100) at most)
 # q105 (phase 23) over phase 11's stream at its sizes: agg 2^22, join sides
@@ -5701,11 +5731,12 @@ def q105_paths(torch, dev, host, chunks):
 
 
 def kill_q19(torch, dev, chunks):
-    """Phase 16's q19: phase 4's first KILL_EPOCHS epochs, phase 21's
-    sizes (the retractable store and its mirror rebuilt on recovery)."""
+    """Phase 16's q19: phase 4's first WIN_KILL_EPOCHS epochs (the kill
+    after barrier WIN_KILL_AT), phase 21's sizes (the retractable store
+    and its mirror rebuilt on recovery)."""
     from risingwave_tpu_torch.queries.nexmark_q import build_q19
 
-    ep = chunks[:KILL_EPOCHS]
+    ep = chunks[:WIN_KILL_EPOCHS]
     host = q19_host(ep)
     oracle = q19_rows(q19_top({n: np.concatenate([h[n] for h in host]) for n in Q19_COLS}))
 
@@ -5716,7 +5747,8 @@ def kill_q19(torch, dev, chunks):
 
     spec = KillSpec("q19", lambda: build_q19(capacity=Q19_CAP, mv_capacity=Q19_MV_CAP,
                                              device=dev),
-                    drive, lambda q: q19_rows(q.mview.to_numpy()), oracle)
+                    drive, lambda q: q19_rows(q.mview.to_numpy()), oracle,
+                    depth=(WIN_KILL_EPOCHS, WIN_KILL_AT))
     return kill_and_recover(torch, dev, spec)
 
 
@@ -7284,15 +7316,22 @@ def window_paths(torch, dev, key, chunks, wms, want):
     return runs, rows, launches.by
 
 
-def kill_window(torch, dev, key, chunks, wms, q5_oracle10):
-    """Phase 16 for one window path: its first KILL_EPOCHS epochs at its
-    phase's sizes; the oracle of those epochs; phase 31's general
-    over-window and MV compared across runs by ``p31_canon`` (ties)."""
-    last = wms[KILL_EPOCHS - 1]
+def kill_window(torch, dev, key, chunks, wms):
+    """Phase 16 for one window path: its first WIN_KILL_EPOCHS epochs at
+    its phase's sizes, the kill after barrier WIN_KILL_AT; the oracle of
+    those epochs; phase 31's general over-window and MV compared across
+    runs by ``p31_canon`` (ties)."""
+    from risingwave_tpu_torch.queries.nexmark_q import Q5_SLIDE_MS, Q5_WINDOW_MS
+
+    n = WIN_KILL_EPOCHS
+    last = wms[n - 1]
     if key == "p31":
-        oracle = p31_oracle(q5_oracle10)
+        lane = lambda name: np.concatenate([c.col(name)[c.valid].cpu().numpy()
+                                            for e in chunks[:n] for c in e])
+        oracle = p31_oracle(q5_oracle(lane("auction"), lane("date_time"), Q5_WINDOW_MS,
+                                      Q5_SLIDE_MS))
     else:
-        host = bid_host_rows(chunks[:KILL_EPOCHS])
+        host = bid_host_rows(chunks[:n])
         oracle = (p29_oracle if key == "p29" else p30_oracle)(host, last)
 
     def drive(q, e):
@@ -7300,7 +7339,7 @@ def kill_window(torch, dev, key, chunks, wms, q5_oracle10):
 
     spec = KillSpec(key, lambda: WINDOW_BUILDS[key](torch, dev), drive, WINDOW_ROWS[key], oracle,
                     tie_tables=("p31.over", "p31.mview") if key == "p31" else (),
-                    rows_each_barrier=key == "p31")
+                    rows_each_barrier=key == "p31", depth=(n, WIN_KILL_AT))
     return kill_and_recover(torch, dev, spec)
 
 
@@ -7773,6 +7812,892 @@ def af_ghost_case(torch, dev) -> dict:
     return {"ghost_move": True, "bad_delete": True, "checks": "card = CPU: emissions, digests"}
 
 
+# -- phase 3, kernel AG; phases 32-34: the cold tier under a device budget -----
+AG_Q5_LIVE = R_Q5_LIVE  # q5's agg at 2^24 slots after a commit (phase 4's mean)
+AG_HITS = 1 << 18  # re-created groups a barrier merges, every call kind and dtype
+AG_FAULT_KEYS = 4096  # evicted MAX windows faulted back in, with (K,) multiset rows
+COLD_EPOCHS = KILL_EPOCHS  # phases 32-34 at phase 16's depth
+COLD_KILL_AT = KILL_AT  # phase 16's kill of 32 and 33: after this barrier's eviction
+COLD_BUDGET_SHARE = 4  # the budget: a quarter of the un-evicted run's state bytes
+# phase 33's watermark delay: RisingWave's Nexmark sources declare
+# WATERMARK FOR date_time AS date_time - INTERVAL '4' SECOND
+Q8_WM_DELAY_MS = 4_000
+Q8_COLD_SHIFT_MS = 5_000  # phase 33's epochs end mid-window (q8's tumble is 10 s)
+COLD_KERNELS = {  # what each cold path's run must launch
+    "q5": ("cold_select", "cold_merge", "gather_rows", "lookup_or_insert", "slot_move"),
+    "q8": ("cold_select", "gather_rows", "scatter_rows", "lookup_or_insert", "slot_move"),
+    "q5_max": ("cold_select", "cold_merge", "gather_rows", "scatter_rows", "minput_rescatter"),
+}
+
+
+def ag_marks_q5(torch, dev, g):
+    """q5's agg at 2^24 slots after a commit: 3M claimed groups, stored
+    and clean but for a tenth re-touched since (dirty and sdirty) and a
+    tenth new (sdirty, not stored), and 50,000 claimed dead slots."""
+    cap = TABLE_CAP
+    perm = torch.randperm(cap, device=dev, generator=g)
+    n = AG_Q5_LIVE
+    live_i, dead_i = perm[:n], perm[n:n + 50_000]
+    z = lambda: torch.zeros(cap, dtype=torch.bool, device=dev)
+    live, ev, dirty, sdirty, stored = z(), z(), z(), z(), z()
+    live[live_i] = True
+    ev[live_i[: n - n // 10]] = True
+    stored[live_i[: n - n // 10]] = True
+    dirty[live_i[: n // 10]] = True
+    sdirty[live_i[: n // 10]] = True
+    sdirty[live_i[n - n // 10:]] = True
+    fp1 = torch.zeros(cap, dtype=torch.int32, device=dev)
+    fp1[live_i] = torch.randint(1, 1 << 30, (n,), dtype=torch.int32, device=dev, generator=g)
+    fp1[dead_i] = 7
+    return fp1, live, sdirty, stored, ev, dirty
+
+
+def ag_marks_join(torch, dev, g):
+    """A q8 join side at 2^23 keys after a commit: 1.2M keys, stored and
+    clean but for a third appended to since (sdirty) and a tenth with
+    moved degrees (ddirty)."""
+    cap, n = R_JOIN_CAP, R_JOIN_KEYS
+    perm = torch.randperm(cap, device=dev, generator=g)[:n]
+    z = lambda: torch.zeros(cap, dtype=torch.bool, device=dev)
+    live, sdirty, stored, ddirty = z(), z(), z(), z()
+    live[perm] = True
+    stored[perm] = True
+    sdirty[perm[: n // 3]] = True
+    ddirty[perm[n // 3: n // 3 + n // 10]] = True
+    fp1 = torch.zeros(cap, dtype=torch.int32, device=dev)
+    fp1[perm] = torch.randint(1, 1 << 30, (n,), dtype=torch.int32, device=dev, generator=g)
+    return fp1, live, sdirty, stored, ddirty
+
+
+def ag_select(torch, dev, what, mode, marks, times: bool) -> dict:
+    """AG's select against its plain version on one state: the durable
+    slots, the hot mask and the counts bit for bit; with ``times`` its
+    time, the plain version's and torch.nonzero of the durable mask's."""
+    from risingwave_tpu_torch.ops import cold_tier as ct
+
+    fp1, live, sdirty, stored = marks[:4]
+    kw = (dict(ev=marks[4], dirty=marks[5]) if mode == ct.AGG
+          else dict(ddirty=marks[4]) if mode == ct.JOIN else {})
+    got = ct.cold_select(mode, fp1, live, sdirty, stored, **kw)
+    want = ct._cold_select_torch(mode, fp1, live, sdirty, stored, kw.get("ev"), kw.get("dirty"),
+                                 kw.get("ddirty"))
+    torch.cuda.synchronize()
+    check(torch.equal(got.sel, want.sel) and got.n_counted == want.n_counted
+          and got.n_hot == want.n_hot, f"AG select {what}: slots and counts vs plain")
+    check((got.hot is None) == (want.hot is None)
+          and (got.hot is None or torch.equal(got.hot, want.hot)), f"AG select {what}: hot mask")
+    cap, n = fp1.shape[0], got.sel.numel()
+    # the bytes of each slot that the mode's formula reads: agg fp1, live,
+    # ev, dirty, sdirty, stored; join fp1, sdirty, stored, ddirty; merge
+    # sdirty and stored (the hot byte written but by merge)
+    read = {ct.AGG: 4 + 5, ct.JOIN: 4 + 2 + ("ddirty" in kw), ct.MERGE: 2}[mode]
+    out = {"shape": {"capacity": cap, "durable": n, "counted": got.n_counted,
+                     "hot": got.n_hot}}
+    if not times:
+        return out
+    durable = torch.zeros(cap, dtype=torch.bool, device=dev)
+    durable[want.sel.long()] = True
+    args = (mode, fp1, live, sdirty, stored, kw.get("ev"), kw.get("dirty"), kw.get("ddirty"))
+    out.update(
+        ms=time_ms(torch, lambda: ct._cold_select_launch(*args), 20),
+        plain_ms=time_ms(torch, lambda: ct._cold_select_torch(*args), 5),
+        library_ms=time_ms(torch, lambda: torch.nonzero(durable), 20),
+        # the mode's lanes read once, the hot mask and the list written
+        bound_ms=bound_ms(cap * read + (cap if mode != ct.MERGE else 0) + 4 * n + 24),
+    )
+    return out
+
+
+AG_MERGE_CALLS = (("count_star", None, "n"), ("count", "v", "cv"), ("sum", "v", "sv"),
+                  ("sum", "f", "sf"), ("sum", "h", "sh"), ("min", "v", "mnv"),
+                  ("max", "w", "mxw"), ("min", "f", "mnf"), ("max", "h", "mxh"))
+
+
+def ag_merge(torch, dev, g, rng) -> dict:
+    """AG's merge on a barrier's hit slots of q5's 2^24-slot agg, every
+    call kind and dtype (COUNT/SUM in int64, float64 and float32, int
+    MIN/MAX, float MIN/MAX on order keys), against its plain version bit
+    for bit; times, bound and ``index_add_`` of one lane."""
+    from risingwave_tpu_torch.array.chunk import _numpy_dtype
+    from risingwave_tpu_torch.ops import agg
+    from risingwave_tpu_torch.ops import checkpoint as ck
+    from risingwave_tpu_torch.ops import cold_tier as ct
+
+    cap, n = TABLE_CAP, AG_HITS
+    calls = tuple(agg.AggCall(*c) for c in AG_MERGE_CALLS)
+    dts = {"v": torch.int64, "w": torch.int32, "f": torch.float64, "h": torch.float32}
+    st = agg.create_state(cap, calls, dts, device=dev)
+    live = torch.zeros(cap, dtype=torch.bool, device=dev)
+    slots = torch.randperm(cap, device=dev, generator=g)[:n].to(torch.int32)
+    lanes = ct.agg_merge_lanes(st, calls)
+    rows = {}
+    for ln in lanes:
+        t = ln.dst
+        if ln.op == ct.TRUE:
+            continue
+        if t.dtype == torch.bool:
+            rows[ln.name] = rng.random(n) < 0.5
+        elif t.is_floating_point():
+            v = (rng.standard_normal(n) * 1e3).astype(np.float64 if t.dtype == torch.float64
+                                                     else np.float32)
+            v[rng.random(n) < 0.1] = -0.0
+            rows[ln.name] = v
+        else:
+            rows[ln.name] = rng.integers(-1 << 30, 1 << 30, n).astype(
+                np.int64 if t.dtype == torch.int64 else np.int32)
+        # the state's own values at the hit slots, so that every fold moves
+        t[slots.long()] = torch.from_numpy(np.roll(rows[ln.name], 3)).to(dev)
+    base = {k: v.clone() for k, v in state_lanes(st).items()}
+    base_live = live.clone()
+    ct.cold_merge(lanes, slots, rows, st.row_count, live)
+    got = {k: v.clone() for k, v in state_lanes(st).items()}
+    got_live = live.clone()
+
+    def restore():
+        for k, v in state_lanes(st).items():
+            v.copy_(base[k])
+        live.copy_(base_live)
+
+    restore()
+    # the port's plain version on the card's tensors: its arithmetic is the
+    # merge's (rows cast as cold_merge casts them)
+    host = {ln.name: np.ascontiguousarray(rows[ln.name], dtype=_numpy_dtype(ln.dst.dtype))
+            for ln in lanes if ln.op != ct.TRUE}
+    plain = lambda: ct._cold_merge_torch(lanes, slots, host, st.row_count, live)
+    plain()
+    torch.cuda.synchronize()
+    want = state_lanes(st)
+    assert_lanes_equal(torch, got, want, "AG merge vs plain")
+    check(torch.equal(got_live, live), "AG merge: live = row_count > 0")
+    with_rows = {ln.name: ln.dst for ln in lanes if ln.op != ct.TRUE}
+    staged, layout = ck._pack_host(with_rows, rows, n)
+    packed = staged.to(dev)
+    idx = slots.long()
+    one = torch.from_numpy(host["row_count"]).to(dev)
+    fold_bytes = sum(ln.dst.element_size() for ln in lanes if ln.op in (ct.ADD, ct.MIN, ct.MAX))
+    all_bytes = sum(ln.dst.element_size() for ln in lanes)
+    row_b = sum(ln.dst.element_size() for ln in lanes if ln.op != ct.TRUE)
+    return {
+        "ms": time_ms(torch, lambda: ct._cold_merge_launch(lanes, slots, packed, layout,
+                                                           st.row_count, live), 20, restore),
+        "with_copy_ms": time_ms(torch, lambda: ct.cold_merge(lanes, slots, rows, st.row_count,
+                                                             live), 5, restore),
+        "plain_ms": time_ms(torch, plain, 5, restore),
+        "library_ms": time_ms(torch, lambda: st.row_count.index_add_(0, idx, one), 20, restore),
+        # slots and the rows read once, the folded lanes read at the hit
+        # slots, every lane and live written there
+        "bound_ms": bound_ms(n * (4 + row_b + fold_bytes + all_bytes + 1)),
+        "shape": {"capacity": cap, "hits": n, "lanes": len(lanes),
+                  "calls": [c[0] + ":" + (c[1] or "*") for c in AG_MERGE_CALLS]},
+    }
+
+
+def ag_fault_in(torch, dev, rng) -> dict:
+    """R as fault-in: AG_FAULT_KEYS evicted windows of q5-max's MAX agg
+    (K = 256 multiset rows) faulted back into its 2^14-slot table (kernel
+    A, then one scatter of every lane with ``stored`` and ``live``),
+    against the plain versions (the same functions on CPU tensors) lane
+    for lane, the multisets included; times of the scatter, its plain
+    version and per-lane ``index_put_``."""
+    from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor, scatter_agg_rows
+    from risingwave_tpu_torch.ops import checkpoint as ck
+    from risingwave_tpu_torch.ops.agg import AggCall
+
+    n, k = AG_FAULT_KEYS, Q5MAX_K
+    calls = (AggCall("max", "num", "maxn", materialized=True),)
+    mk = lambda d: HashAggExecutor(("window_start",), calls, {"window_start": torch.int64,
+                                                              "num": torch.int64},
+                                   capacity=R_MAX_CAP, minput_k=k, device=d)
+    card, cpu = mk(dev), mk("cpu")
+    keys = {"k0": rng.choice(1 << 40, n, replace=False).astype(np.int64)}
+    cnt = rng.integers(0, 4, (n, k)).astype(np.int32)
+    rows = {"row_count": rng.integers(1, 500, n).astype(np.int64),
+            "acc_maxn": rng.integers(0, 60, n).astype(np.int64),
+            "em_maxn": rng.integers(0, 60, n).astype(np.int64),
+            "nn_maxn": rng.integers(0, 500, n).astype(np.int64),
+            "ei_maxn": rng.random(n) < 0.1, "ev": rng.random(n) < 0.9,
+            "miv_maxn": rng.integers(0, 60, (n, k)).astype(np.int64), "mic_maxn": cnt}
+    rows["row_count"][:8] = 0  # faulted in dead
+    outs, slots_by = {}, {}
+    for name, ex in (("card", card), ("cpu", cpu)):
+        ex.table, slots = ck.insert_keys(ex.table, keys, n)
+        slots_by[name] = slots
+        scatter_agg_rows(ex.table, ex.state, ex.minput, slots, rows, calls, ex._dtypes, n)
+        lanes = {**state_lanes(ex.state), "live": ex.table.live, "fp1": ex.table.fp1,
+                 "k0": ex.table.keys[0]}
+        for nm, (v, c) in ex.minput.items():
+            lanes[f"miv_{nm}"], lanes[f"mic_{nm}"] = v, c
+        # by key: kernel A may place a colliding key at another slot than
+        # the plain version, so each key's lanes are read at its own slot
+        idx = slots.long()
+        outs[name] = ({kk: (v[idx] if v.dim() else v).cpu() for kk, v in lanes.items()},
+                      {kk: int(v.sum()) for kk, v in lanes.items()
+                       if v.dtype == torch.bool and v.dim() == 1})
+        check(bool((slots >= 0).all()), f"R fault-in ({name}): every key has a slot")
+    assert_lanes_equal(torch, outs["card"][0], outs["cpu"][0], "R fault-in vs plain (by key)")
+    check(outs["card"][1] == outs["cpu"][1], "R fault-in: no other slot's marks set")
+    check(int(card.table.live.sum()) == n - 8 and int(card.state.stored.sum()) == n,
+          "R fault-in: live = row_count > 0, every row stored")
+    slots = slots_by["card"]
+    dst = {"row_count": card.state.row_count, "acc_maxn": card.state.accums["maxn"],
+           "em_maxn": card.state.emitted["maxn"], "nn_maxn": card.state.nonnull["maxn"],
+           "ei_maxn": card.state.emitted_isnull["maxn"], "ev": card.state.emitted_valid,
+           "miv_maxn": card.minput["maxn"][0], "mic_maxn": card.minput["maxn"][1],
+           "live": card.table.live, "stored": card.state.stored}
+    src = {**rows, "live": rows["row_count"] > 0, "stored": np.ones(n, np.bool_)}
+    staged, layout = ck._pack_host(dst, src, n)
+    packed = staged.to(dev)
+    host = {kk: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for kk, v in src.items()}
+    idx = slots.long()
+    rb = row_bytes(dst)
+    return {
+        "ms": time_ms(torch, lambda: ck._scatter_packed(dst, slots, packed, layout), 20),
+        "with_copy_ms": time_ms(torch, lambda: scatter_agg_rows(
+            card.table, card.state, card.minput, slots, rows, calls, card._dtypes, n), 5),
+        "plain_ms": time_ms(torch, lambda: [dst[kk].__setitem__(idx, host[kk]) for kk in dst], 10),
+        "library_ms": time_ms(torch, lambda: [dst[kk].index_put_((idx,), host[kk])
+                                              for kk in dst], 10),
+        "bound_ms": bound_ms(n * (2 * rb + 4)),
+        "shape": {"capacity": R_MAX_CAP, "keys": n, "k": k, "row_bytes": rb},
+    }
+
+
+def kernel_ag(torch, dev):
+    """AG against its plain version on the card (phase 3): the select on
+    q5's 2^24-slot agg after a commit, on a q8 side (2^23, 8) and as the
+    merge candidates; the merge on a barrier's hit slots over every call
+    kind and dtype; and R as fault-in with multiset rows. Returns the
+    rows of the select, the merge and the fault-in."""
+    from risingwave_tpu_torch.ops import cold_tier as ct
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 30)
+    rng = np.random.default_rng(SEED + 30)
+    q5 = ag_marks_q5(torch, dev, g)
+    shapes = {"q5_agg": ag_select(torch, dev, "q5 agg", ct.AGG, q5, True),
+              "q5_merge_candidates": ag_select(torch, dev, "merge candidates", ct.MERGE, q5,
+                                               True)}
+    del q5
+    side = ag_marks_join(torch, dev, g)
+    shapes["q8_side"] = ag_select(torch, dev, "q8 side", ct.JOIN, side, True)
+    del side
+    torch.cuda.empty_cache()
+    check(shapes["q5_agg"]["shape"]["durable"] > 0 and shapes["q8_side"]["shape"]["hot"] > 0,
+          "AG select: durable and hot slots on both shapes")
+    merge = ag_merge(torch, dev, g, rng)
+    torch.cuda.empty_cache()
+    fault = ag_fault_in(torch, dev, rng)
+    torch.cuda.empty_cache()
+    base = {"route": "cuda", "max_abs_err": 0.0, "bound_by": "bytes"}
+    main = shapes["q5_agg"]
+    return [
+        {**base, "name": "AG cold select", "source": "risingwave_tpu_torch/csrc/cold_tier.cu",
+         "replaces": "risingwave_tpu/executors/hash_agg.py:330 (_evict's hot mask and count; "
+                     "evict_cold :879-931), executors/hash_join.py:617 (_evict_side)",
+         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+         "library_ms": main["library_ms"], "library_call": "torch.nonzero of the durable mask",
+         "by_shape": shapes},
+        {**base, "name": "AG cold merge", "source": "risingwave_tpu_torch/csrc/cold_tier.cu",
+         "replaces": "risingwave_tpu/executors/hash_agg.py:1217 (_cold_merge, and _merge_cold's "
+                     "set_live :1013-1017)",
+         "ms": merge["ms"], "plain_ms": merge["plain_ms"], "bound_ms": merge["bound_ms"],
+         "library_ms": merge["library_ms"], "library_call": "index_add_ of the row_count lane",
+         "with_copy_ms": merge["with_copy_ms"], "shape": merge["shape"]},
+        {**base, "name": "R scatter_rows as fault-in (K30)",
+         "source": "risingwave_tpu_torch/csrc/checkpoint.cu",
+         "replaces": "risingwave_tpu/executors/hash_agg.py:1162 (_fault_in_scatter), "
+                     "executors/hash_join.py:736 (_restore_cold_keys)",
+         "ms": fault["ms"], "plain_ms": fault["plain_ms"], "bound_ms": fault["bound_ms"],
+         "library_ms": fault["library_ms"], "library_call": "per-lane index_put_",
+         "with_copy_ms": fault["with_copy_ms"], "shape": fault["shape"]},
+    ]
+
+
+class ColdSpec:
+    """One path of phases 32-34: ``build()`` a fresh query, ``push(q, e)``
+    epoch e's chunks, ``after(q, e)`` what follows the barrier's commit
+    and eviction (a watermark, or None), ``mv(q)`` its device MV,
+    ``rows(q)`` the MV as sorted rows, ``oracle`` those rows at the end,
+    ``rows_in`` the input rows of the epochs, ``host_mv``: also sink into
+    a host MV (interpreted run)."""
+
+    def __init__(self, name, build, push, after, mv, rows, oracle, rows_in, host_mv=False):
+        self.name, self.build, self.push, self.after = name, build, push, after
+        self.mv, self.rows, self.oracle, self.host_mv = mv, rows, oracle, host_mv
+        self.rows_in = rows_in
+
+
+def cold_bytes(pipeline) -> int:
+    """Device bytes of the state the tier manages (the aggs and joins)."""
+    from risingwave_tpu_torch.runtime.fused_step import cold_executors
+
+    return sum(ex.state_nbytes() for ex in cold_executors(pipeline.executors))
+
+
+def arm_cold(pipeline, mgr) -> list:
+    from risingwave_tpu_torch.runtime.fused_step import cold_executors
+
+    members = cold_executors(pipeline.executors)
+    for ex in members:
+        if hasattr(ex, "cold_get_rows"):
+            ex.cold_get_rows = mgr.get_rows
+        else:
+            ex.cold_reader = lambda keys, tid=ex.table_id: mgr.get_rows(tid, keys)
+    return members
+
+
+def _bytes_at(make, cap: int) -> int:
+    """Bytes of ``make(cap)``'s tensors from two tiny CPU instances: every
+    lane is (cap, ...) or a scalar, so the bytes are linear in cap."""
+    from risingwave_tpu_torch.ops.cold_tier import tensor_nbytes
+
+    b1, b2 = tensor_nbytes(make(1)), tensor_nbytes(make(2))
+    return b1 + (b2 - b1) * (cap - 1)
+
+
+def _evicted_bytes(torch, ex) -> int:
+    """The bytes an evicted executor must hold (checks only): those of a
+    table and state at the capacity its hot set needs, ``grow_pow2(n_hot,
+    2^10)`` (a join side without a durable key is left at its capacity),
+    from plain masks of its marks and the shapes alone (nothing of that
+    size is allocated on the card)."""
+    from risingwave_tpu_torch.ops import agg as agg_ops
+    from risingwave_tpu_torch.ops import minput as mi_ops
+    from risingwave_tpu_torch.ops.hash_table import HashTable
+    from risingwave_tpu_torch.ops.join import JoinSide
+    from risingwave_tpu_torch.storage.state_table import grow_pow2
+
+    def side_bytes(sd):
+        durable = (sd.table.fp1 != 0) & sd.stored & ~sd.sdirty & ~sd.ddirty
+        cap = sd.capacity
+        if bool(durable.any()):
+            cap = grow_pow2(int(((sd.table.fp1 != 0) & ~durable).sum()), 1 << 10, 0.5)
+        return _bytes_at(lambda c: JoinSide.create(
+            c, sd.fanout, tuple(k.dtype for k in sd.table.keys),
+            {n: a.dtype for n, a in sd.rows.items()}, tuple(sd.row_nulls), device="cpu"), cap)
+
+    if hasattr(ex, "left"):
+        return side_bytes(ex.left) + side_bytes(ex.right)
+    t, st = ex.table, ex.state
+    durable = (t.fp1 != 0) & st.stored & ~st.sdirty & ~st.dirty
+    hot = (t.live | st.emitted_valid | st.dirty | st.sdirty) & (t.fp1 != 0) & ~durable
+    cap = grow_pow2(int(hot.sum()), 1 << 10, 0.5)
+    return _bytes_at(lambda c: (HashTable.create(c, tuple(k.dtype for k in t.keys), device="cpu"),
+                                agg_ops.create_state(c, ex.calls, ex._dtypes, "cpu"),
+                                mi_ops.create_minput(c, ex.minput_k, ex.calls, ex._dtypes, "cpu")),
+                     cap)
+
+
+def evict_checked(torch, members) -> tuple:
+    """The budget rule's eviction, each executor's ``state_nbytes()`` after
+    it held equal to that of its hot set's table (``_evicted_bytes``).
+    Returns (evicted, ms)."""
+    want = [_evicted_bytes(torch, ex) for ex in members]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sum(ex.evict_cold() for ex in members)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    for ex, w in zip(members, want):
+        check(ex.state_nbytes() == w,
+              f"{ex.table_id}: state_nbytes after eviction {ex.state_nbytes()} = its hot "
+              f"set's table {w}")
+    return n, ms
+
+
+def rows_digest(rows: np.ndarray) -> tuple:
+    """(rows, sum, xor) of a 64-bit mix of each int64 row: the multiset's
+    digest, whatever the rows' order."""
+    h = np.full(len(rows), 0x9E3779B97F4A7C15, np.uint64)
+    for j in range(rows.shape[1]):
+        x = (h ^ rows[:, j].astype(np.int64).view(np.uint64)) * np.uint64(0xBF58476D1CE4E5B9)
+        h = (x ^ (x >> np.uint64(31))) * np.uint64(0x94D049BB133111EB)
+    return len(h), int(h.sum(dtype=np.uint64)), int(np.bitwise_xor.reduce(h)) if len(h) else 0
+
+
+def cold_counts(members) -> Counter:
+    out = Counter()
+    for ex in members:
+        out.update(ex.cold_counts)
+    return out
+
+
+class MemTrack:
+    """Device bytes of one run over ``start`` (what was allocated when it
+    began: the stream and what earlier phases left), per barrier: the
+    peak from the epoch's first push to the barrier's end (its commit
+    and eviction included) and what stays allocated then."""
+
+    def __init__(self, torch, start: int):
+        self.torch, self.start, self.peaks, self.resident = torch, start, [], []
+
+    def begin(self):
+        self.torch.cuda.synchronize()
+        self.torch.cuda.reset_peak_memory_stats()
+
+    def end(self):
+        self.torch.cuda.synchronize()
+        self.peaks.append(self.torch.cuda.max_memory_allocated() - self.start)
+        self.resident.append(self.torch.cuda.memory_allocated() - self.start)
+
+    def row(self) -> dict:
+        return {"allocated_at_start": int(self.start),
+                "peak_over_start": int(max(self.peaks)),
+                "peak_over_start_by_barrier": [int(x) for x in self.peaks],
+                "resident_over_start_by_barrier": [int(x) for x in self.resident]}
+
+
+def cold_baseline(torch, spec: ColdSpec) -> dict:
+    """The un-evicted run (interpreted): its MV digest at every barrier,
+    its managed state bytes at the last one (the budget's base), its
+    device bytes at its start and at their peak, and the host copy of
+    its state that the point reads are held against. The query leaves
+    the card before it returns, so that the runs under the budget hold
+    only their own state beside what both find there."""
+    import gc
+
+    from risingwave_tpu_torch import _kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    _kernels.reset_launches()
+    q = spec.build()
+    digests, barrier_ms, mem = [], [], MemTrack(torch, start)
+    t0 = time.perf_counter()
+    for e in range(COLD_EPOCHS):
+        mem.begin()
+        spec.push(q, e)
+        tb = time.perf_counter()
+        q.pipeline.barrier()
+        torch.cuda.synchronize()
+        barrier_ms.append((time.perf_counter() - tb) * 1e3)
+        if spec.after is not None:
+            spec.after(q, e)
+        mem.end()
+        digests.append(mv_digest(spec.mv(q)))
+    run_s = time.perf_counter() - t0
+    out = {"digests": digests, "bytes": cold_bytes(q.pipeline), "run_s": run_s,
+           "barrier_ms": barrier_ms, "mem": mem.row(), "snap": point_snapshot(torch, q)}
+    del q
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cold_run(torch, dev, spec: ColdSpec, base: dict, fused: bool, kill: bool):
+    """One path of phases 32-34 under the budget: per barrier a commit
+    into a LocalFsObjectStore (timed as phase 16's), then, over the
+    budget, ``evict_cold`` on every armed executor (checked), then
+    ``after``; the MV's kernel-H digest equal to the un-evicted run's at
+    every barrier. With ``kill`` (phase 16's kill of this path) the run
+    dies after barrier COLD_KILL_AT's eviction and a fresh query
+    recovers from the store, is armed again and runs on. Returns the
+    row, the launches and the store's directory and manager."""
+    import gc
+    import tempfile
+
+    from risingwave_tpu_torch import _kernels
+    from risingwave_tpu_torch.executors.materialize import MaterializeExecutor
+    from risingwave_tpu_torch.runtime.fused_step import checkpointed_executors, fuse_pipeline
+    from risingwave_tpu_torch.storage import CheckpointManager, LocalFsObjectStore
+
+    label = f"{spec.name}_cold{'_fused' if fused else ''}"
+    budget = base["bytes"] // COLD_BUDGET_SHARE
+    store_dir = tempfile.mkdtemp(prefix="rw_cold_")
+
+    def make():
+        q = spec.build()
+        host = None
+        if spec.host_mv and not fused:
+            mv = spec.mv(q)
+            host = MaterializeExecutor(mv.pk, mv.columns, table_id=f"{spec.name}.host_mv")
+            host.checkpoint_enabled = True
+            q.pipeline.executors.append(host)
+        if fused:
+            fuse_pipeline(q.pipeline, label=label)
+        return q, host
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    _kernels.reset_launches()
+    q, host = make()
+    mgr = CheckpointManager(LocalFsObjectStore(store_dir))
+    members = arm_cold(q.pipeline, mgr)
+    rec = {"stage_ms": [], "sst_ms": [], "commit_ms": [], "rows": [], "bytes": []}
+    barrier_ms, evict_ms, evicted, bytes_after, counts = [], [], [], [], Counter()
+    host_checks, recovered = 0, None
+    run_s, mem = 0.0, MemTrack(torch, start)
+    for e in range(COLD_EPOCHS):
+        mem.begin()
+        t0 = time.perf_counter()
+        spec.push(q, e)
+        tb = time.perf_counter()
+        q.pipeline.barrier()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        barrier_ms.append((t1 - tb) * 1e3)
+        timed_commit(torch, mgr, q.pipeline.epoch, checkpointed_executors(q.pipeline.executors),
+                     rec)
+        total = cold_bytes(q.pipeline)
+        if total > budget:
+            n, ms = evict_checked(torch, members)
+            evicted.append(n)
+            evict_ms.append(ms)
+        bytes_after.append(cold_bytes(q.pipeline))
+        if spec.after is not None:
+            spec.after(q, e)
+        torch.cuda.synchronize()
+        run_s += time.perf_counter() - t0
+        mem.end()
+        check(mv_digest(spec.mv(q)) == base["digests"][e],
+              f"{label} barrier {e + 1}: MV digest = the un-evicted run's")
+        if host is not None:
+            # an order-free digest of the rows at every barrier, the rows
+            # themselves sorted at the last
+            d, h = spec.mv(q).to_numpy(), host.to_numpy()
+            names = list(spec.mv(q).pk) + list(spec.mv(q).columns)
+            dm = np.stack([d[k] for k in names], 1)
+            hm = np.stack([h[k] for k in names], 1)
+            same = (rows_digest(dm) == rows_digest(hm) if e < COLD_EPOCHS - 1 else
+                    np.array_equal(dm[np.lexsort(dm.T[::-1])], hm[np.lexsort(hm.T[::-1])]))
+            check(same, f"{label} barrier {e + 1}: the host MV = the device MV")
+            host_checks += 1
+        if kill and e == COLD_KILL_AT - 1:
+            counts.update(cold_counts(members))
+            check(evicted and evicted[-1] > 0, f"{label}: the kill follows an eviction")
+            del q, host, members, mgr
+            gc.collect()
+            torch.cuda.empty_cache()
+            q, host = make()
+            recovered = timed_recover(torch, store_dir, q)
+            mgr = CheckpointManager(LocalFsObjectStore(store_dir))
+            members = arm_cold(q.pipeline, mgr)
+            check(mv_digest(spec.mv(q)) == base["digests"][e],
+                  f"{label}: recovered MV digest = the un-evicted run's at barrier {e + 1}")
+    if spec.after is not None:
+        # a last checkpoint, so that the store holds the last watermark's
+        # closures (the point reads compare it with the un-evicted run)
+        timed_commit(torch, mgr, q.pipeline.epoch + 1,
+                     checkpointed_executors(q.pipeline.executors), rec)
+    counts.update(cold_counts(members))
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    got = spec.rows(q)
+    check(got.shape == spec.oracle.shape and np.array_equal(got, spec.oracle),
+          f"{label}: MV ({len(got)} rows) vs the oracle ({len(spec.oracle)} rows)")
+    for k in COLD_KERNELS[spec.name]:
+        check(launches[k] > 0, f"{label}: kernel {k} launched")
+    check(sum(evicted) > 0, f"{label}: groups or keys evicted")
+    pct = lambda xs, p: float(np.percentile(xs, p)) if xs else None
+    row = {
+        "phase": {"q5": "32", "q8": "33", "q5_max": "34"}[spec.name], "path": label,
+        "epochs": COLD_EPOCHS, "budget_bytes": budget, "unevicted_state_bytes": base["bytes"],
+        "state_bytes_after_eviction": bytes_after, "evicted": evicted,
+        "cold_counts": dict(counts), "rows_in": spec.rows_in,
+        "rows_per_s": spec.rows_in / run_s, "run_s": run_s,
+        # the un-evicted run commits nothing: phase 16 has its commits
+        "rows_per_s_without_commits":
+            spec.rows_in / (run_s - sum(rec["commit_ms"][:COLD_EPOCHS]) / 1e3),
+        "barrier_ms_p50": pct(barrier_ms, 50), "barrier_ms_p99": pct(barrier_ms, 99),
+        "barrier_ms": barrier_ms,
+        "commit_ms_p50": pct(rec["commit_ms"], 50), "commit_ms_p99": pct(rec["commit_ms"], 99),
+        "commit_ms": rec["commit_ms"], "rows_staged": rec["rows"],
+        "evict_ms_p50": pct(evict_ms, 50), "evict_ms_p99": pct(evict_ms, 99),
+        "evict_ms": evict_ms, **mem.row(),
+        "unevicted": {**base["mem"], "run_s": base["run_s"],
+                      "rows_per_s": spec.rows_in / base["run_s"],
+                      "barrier_ms_p50": pct(base["barrier_ms"], 50),
+                      "barrier_ms_p99": pct(base["barrier_ms"], 99)},
+        "launches": launches,
+        "checks": "MV kernel-H digest = the un-evicted run's at every barrier; MV = oracle at "
+                  "the end; state_nbytes after each eviction = the hot set's table's",
+    }
+    if host_checks:
+        row["host_mv_checks"] = host_checks
+    if recovered is not None:
+        row["kill_after_barrier"] = COLD_KILL_AT
+        row["recover"] = recovered
+    return row, launches, (store_dir, q)
+
+
+def point_snapshot(torch, q) -> list:
+    """What the store's point reads are held against, copied to the host
+    so that the un-evicted run's query can leave the card before the
+    budget runs: per join side its live and closed keys and its live
+    keys' lanes, per agg its alive groups' keys and lanes (float extremes
+    in the reference's dtype) and their multisets as ``mi_sorted`` rows."""
+    from risingwave_tpu_torch.ops.agg import order_key_to_reference
+    from risingwave_tpu_torch.runtime.fused_step import cold_executors
+
+    out = []
+    for ex in cold_executors(q.pipeline.executors):
+        if hasattr(ex, "left"):
+            for name, side in (("left", ex.left), ("right", ex.right)):
+                live = side.table.live
+                closed = (side.table.fp1 != 0) & ~live
+                lanes = {"rv": side.row_valid, "deg": side.degree,
+                         **{f"r_{n}": a for n, a in side.rows.items()},
+                         **{f"n_{n}": a for n, a in side.row_nulls.items()}}
+                out.append({
+                    "tid": f"{ex.table_id}.{name}", "join": True,
+                    "keys": {f"k{i}": k[live].cpu().numpy() for i, k in enumerate(side.table.keys)},
+                    "closed": {f"k{i}": k[closed].cpu().numpy()
+                               for i, k in enumerate(side.table.keys)},
+                    "lanes": {k: a[live].cpu().numpy() for k, a in lanes.items()}})
+            continue
+        st, t = ex.state, ex.table
+        alive = (t.live | st.emitted_valid) & (t.fp1 != 0)
+        fx = dict(ex._float_extremes)
+        want = {"row_count": st.row_count, "ev": st.emitted_valid}
+        for n, a in st.accums.items():
+            want[f"acc_{n}"], want[f"em_{n}"] = a, st.emitted[n]
+        for n, a in st.nonnull.items():
+            want[f"nn_{n}"], want[f"ei_{n}"] = a, st.emitted_isnull[n]
+        lanes = {}
+        for k, a in want.items():
+            w = a[alive].cpu().numpy()
+            name = k.split("_", 1)[-1]
+            if k[:3] in ("acc", "em_") and name in fx:
+                w = order_key_to_reference(w, np.dtype(str(fx[name]).split(".")[1]))
+            lanes[k] = w
+        multisets = {}
+        for n, (v, c) in ex.minput.items():
+            wv, wc = mi_sorted(torch, v[alive], c[alive])
+            multisets[n] = (wv.cpu().numpy(), wc.cpu().numpy())
+        out.append({"tid": ex.table_id, "join": False,
+                    "keys": {f"k{i}": k[alive].cpu().numpy() for i, k in enumerate(t.keys)},
+                    "lanes": lanes, "multisets": multisets})
+    return out
+
+
+def point_reads_equal(torch, store_dir, snap: list, what: str) -> dict:
+    """The store's point reads of every key of the un-evicted run's aggs
+    and join sides (``point_snapshot``) equal that run's lanes (a join
+    side's buckets packed, a multiset as sorted (value, count) pairs); a
+    join key the un-evicted run has closed (claimed, not live) reads
+    absent."""
+    from risingwave_tpu_torch.storage import CheckpointManager, LocalFsObjectStore
+
+    mgr = CheckpointManager(LocalFsObjectStore(store_dir))
+    checked = Counter()
+    for m in snap:
+        tid = m["tid"]
+        found, vals = mgr.get_rows(tid, m["keys"])
+        if m["join"]:
+            check(found.all(), f"{what}: every live {tid} key in the store")
+            rv = m["lanes"]["rv"]
+            order = np.argsort(~rv, axis=1, kind="stable")
+            s_order = np.argsort(~vals["rv"], axis=1, kind="stable")
+            pack = lambda a, o: np.take_along_axis(a, o, 1)
+            for k, a in m["lanes"].items():
+                want = np.where(pack(rv, order), pack(a, order), 0)
+                got = np.where(pack(vals["rv"], s_order), pack(vals[k], s_order), 0)
+                check(np.array_equal(got, want), f"{what}: {tid} lane {k}")
+            n_closed = len(m["closed"]["k0"])
+            if n_closed:
+                f2, _ = mgr.get_rows(tid, m["closed"])
+                check(not f2.any(), f"{what}: {tid}'s closed keys read absent")
+                checked[f"{tid}.closed"] = n_closed
+            checked[tid] = len(rv)
+            continue
+        check(found.all(), f"{what}: every {tid} group in the store")
+        for k, w in m["lanes"].items():
+            check(np.array_equal(vals[k], w), f"{what}: {tid} lane {k}")
+        for n, (wv, wc) in m["multisets"].items():
+            gv, gc = mi_sorted(torch, torch.from_numpy(vals[f"miv_{n}"]),
+                               torch.from_numpy(vals[f"mic_{n}"]))
+            check(np.array_equal(wv, gv.numpy()) and np.array_equal(wc, gc.numpy()),
+                  f"{what}: {tid} multisets")
+        checked[tid] = len(m["lanes"]["row_count"])
+    return dict(checked)
+
+
+def cold_paths(torch, dev, spec: ColdSpec) -> tuple:
+    """Phases 32-34 for one query: the un-evicted run, then the path under
+    the budget interpreted (with phase 16's kill where the query has
+    one) and fused, then the store's point reads against the un-evicted
+    run. Returns the rows and each path's launches."""
+    import shutil
+
+    base = cold_baseline(torch, spec)
+    rows, by = [], {}
+    for fused in (False, True):
+        kill = not fused and spec.name in ("q5", "q8")
+        row, launches, (store_dir, q) = cold_run(torch, dev, spec, base, fused, kill)
+        try:
+            if not fused:
+                row["point_reads"] = point_reads_equal(torch, store_dir, base["snap"],
+                                                       row["path"])
+        finally:
+            shutil.rmtree(store_dir, ignore_errors=True)
+        del q
+        by[row["path"]] = launches
+        rows.append(row)
+        torch.cuda.empty_cache()
+    c_int, c_fused = rows[0]["cold_counts"], rows[1]["cold_counts"]
+    for c in (c_int, c_fused):
+        check(c.get("evicted", 0) > 0, f"{spec.name}: evicted > 0")
+    if spec.name == "q5":
+        check(c_int.get("merged", 0) > 0 and c_fused.get("merged", 0) > 0,
+              "q5: groups merged back both ways")
+    else:
+        check(c_int.get("faulted_in", 0) > 0 and c_fused.get("faulted_in", 0) > 0,
+              f"{spec.name}: keys faulted in both ways")
+    if spec.name == "q8":
+        check(c_int.get("cold_tombstones", 0) > 0 and c_fused.get("cold_tombstones", 0) > 0,
+              "q8: closed evicted keys became cold tombstones both ways")
+    del base
+    torch.cuda.empty_cache()
+    return rows, by
+
+
+def q5_cold(torch, dev, chunks, cap, q5_oracle10):
+    """Phase 32: q5 (hop -> COUNT(*) by (auction, window_start) -> device
+    MV, and a host MV beside it) over phase 4's first COLD_EPOCHS
+    epochs, tables of phase 4's sizes."""
+    from risingwave_tpu_torch.queries.nexmark_q import build_q5_lite
+
+    ep = chunks[:COLD_EPOCHS]
+
+    def push(q, e):
+        for c in ep[e]:
+            q.pipeline.push(c)
+
+    def rows(q):
+        got = mv_rows_sorted(q.mview)
+        return np.stack([got["auction"], got["window_start"], got["num"]], 1)
+
+    spec = ColdSpec("q5", lambda: build_q5_lite(capacity=cap, state_cleaning=False, device=dev),
+                    push, None, lambda q: q.mview, rows, np.stack(q5_oracle10, 1),
+                    sum(int(c.valid.sum()) for e in ep for c in e), host_mv=True)
+    return cold_paths(torch, dev, spec)
+
+
+def q5_max_cold(torch, dev, chunks, cap, q5_oracle10):
+    """Phase 34: q5-max over phase 4's first COLD_EPOCHS epochs with a
+    watermark after every barrier's commit and eviction, phase 13's
+    sizes."""
+    from risingwave_tpu_torch.queries.nexmark_q import build_q5_max
+
+    ep = chunks[:COLD_EPOCHS]
+    ts = [max(int(c.col("date_time")[c.valid].max()) for c in e) for e in ep]
+
+    def push(q, e):
+        for c in ep[e]:
+            q.pipeline.push(c)
+
+    spec = ColdSpec("q5_max", lambda: build_q5_max(capacity=cap, max_capacity=Q5MAX_MAX_CAP,
+                                                   minput_k=Q5MAX_K, device=dev),
+                    push, lambda q, e: q.pipeline.watermark("date_time", ts[e]),
+                    lambda q: q.mview, lambda q: q5_max_mv_rows(q.mview),
+                    q5_max_oracle(q5_oracle10), sum(int(c.valid.sum()) for e in ep for c in e))
+    return cold_paths(torch, dev, spec)
+
+
+def q8_shifted(torch, dev, host, epochs: int):
+    """Phase 7's events cut into ``epochs`` epochs of the same span whose
+    boundaries fall Q8_COLD_SHIFT_MS into a tumble window (phase 7's
+    epochs end on window boundaries, so no window spans two of them and
+    no key returns): per epoch one person and one auction chunk, the
+    capacities the next power of two of the largest epoch's rows."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+
+    cat = lambda side, ks: {k: np.concatenate([h[side][k] for h in host]) for k in ks}
+    persons = cat(0, ("id", "name", "date_time"))
+    auctions = cat(1, ("seller", "date_time"))
+    t0 = int(min(persons["date_time"].min(), auctions["date_time"].min()))
+    span = EVENTS_PER_EPOCH * 1000 // EVENT_RATE
+    edges = [-(2**62)] + [t0 + Q8_COLD_SHIFT_MS + e * span for e in range(1, epochs + 1)]
+    cut = lambda d, lo, hi: {k: v[(d["date_time"] >= lo) & (d["date_time"] < hi)]
+                             for k, v in d.items()}
+    out = [(cut(persons, lo, hi), cut(auctions, lo, hi)) for lo, hi in zip(edges, edges[1:])]
+    pow2 = lambda m: 1 << (max(m, 64) - 1).bit_length()
+    p_cap = pow2(max(len(p["id"]) for p, _ in out))
+    a_cap = pow2(max(len(a["seller"]) for _, a in out))
+    chunks = [(StreamChunk.from_numpy(p, p_cap, device=dev),
+               StreamChunk.from_numpy(a, a_cap, device=dev)) for p, a in out]
+    return out, chunks
+
+
+def q8_cold(torch, dev, host, chunks):
+    """Phase 33: q8 over phase 7's events cut into COLD_EPOCHS epochs
+    that end inside a window (``q8_shifted``), with a ``date_time``
+    watermark after every barrier's commit and eviction,
+    Q8_WM_DELAY_MS behind the largest event time so far (the window
+    open at an epoch's end stays open: its evicted keys come back),
+    phase 7's sizes."""
+    from risingwave_tpu_torch.queries.nexmark_q import Q8_WINDOW_MS, build_q8
+
+    host, chunks = q8_shifted(torch, dev, host, COLD_EPOCHS)
+    ts = np.maximum.accumulate([max(int(p["date_time"].max()), int(a["date_time"].max()))
+                                for p, a in host]) - Q8_WM_DELAY_MS
+    ts = ts.tolist()
+
+    def push(q, e):
+        p, a = chunks[e]
+        q.pipeline.push_left(p)
+        q.pipeline.push_right(a)
+
+    spec = ColdSpec("q8", lambda: build_q8(capacity=Q8_CAP, fanout=Q8_FANOUT, out_cap=Q8_OUT_CAP,
+                                           device=dev),
+                    push, lambda q, e: q.pipeline.watermark("date_time", ts[e]),
+                    lambda q: q.mview, lambda q: q8_mv_rows(q.mview),
+                    oracle_rows(cpu_actor_q8(host, Q8_WINDOW_MS)),
+                    sum(len(p["id"]) + len(a["seller"]) for p, a in host))
+    return cold_paths(torch, dev, spec)
+
+
+def p28_host_path(torch, dev, host, chunks, a_chunks, epochs: int = 1):
+    """The host phase's temporal enrichment: phase 28's query with its
+    auctions in a host ``MaterializeExecutor`` (the temporal join's
+    host probe) over phase 11's first ``epochs`` epochs, the seller MV
+    equal to the numpy oracle (what the device-MV run equals) at every
+    barrier."""
+    from risingwave_tpu_torch.executors import TemporalJoinExecutor
+    from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
+    from risingwave_tpu_torch.executors.materialize import (
+        DeviceMaterializeExecutor,
+        MaterializeExecutor,
+    )
+    from risingwave_tpu_torch.ops.agg import AggCall
+    from risingwave_tpu_torch.runtime.pipeline import Pipeline
+
+    i64 = torch.int64
+    auctions = MaterializeExecutor(("id",), ("seller", "category"), table_id="p28.host_auctions")
+    agg = HashAggExecutor(("seller",), (AggCall("count_star", None, "n"),
+                                        AggCall("sum", "price", "total")),
+                          {"seller": i64, "price": i64}, capacity=P28_CAP,
+                          nullable_keys=("seller",), table_id="p28.agg", device=dev)
+    mview = DeviceMaterializeExecutor(("seller",), ("n", "total"),
+                                      dict.fromkeys(("seller", "n", "total"), i64),
+                                      table_id="p28.mview", capacity=P28_CAP, device=dev)
+    bids = Pipeline([TemporalJoinExecutor(auctions, ("auction",), ("seller", "category"),
+                                          "inner"), agg, mview])
+    t0 = time.perf_counter()
+    n_bids = 0
+    for e in range(epochs):
+        auctions.apply(a_chunks[e])
+        auctions.on_barrier(None)
+        for b in chunks[e][1]:
+            bids.push(b)
+            n_bids += int(b.valid.sum())
+        bids.barrier()
+        want = p28_oracle(host, e)
+        got = mv_table_rows(mview, P28_NAMES)
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"p28 host MV: seller MV vs the oracle at barrier {e + 1}")
+    return {"phase": "host", "path": "p28_host_mv", "epochs": epochs, "bids": n_bids,
+            "auctions_rows": len(auctions.snapshot()), "backend": auctions._backend,
+            "run_s": time.perf_counter() - t0,
+            "checks": "the temporal join's host probe against a host MV: the seller MV = the "
+                      "numpy oracle (= the device-MV run of phase 28) at every barrier"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
@@ -7864,6 +8789,10 @@ def main() -> int:
     for r in r_rows:
         emit({"phase": "kernel", **r})
     torch.cuda.empty_cache()
+    ag_rows = kernel_ag(torch, dev)
+    for r in ag_rows:
+        emit({"phase": "kernel", **r})
+    torch.cuda.empty_cache()
     s_proj_row, s_filt_row = kernel_s(torch, dev, rng)
     emit({"phase": "kernel", **s_proj_row})
     emit({"phase": "kernel", **s_filt_row})
@@ -7913,6 +8842,15 @@ def main() -> int:
     k5m_row, l16_q5m = kill_q5_max(torch, dev, chunks, cap, q5_oracle10)
     emit(k5m_row)
     torch.cuda.empty_cache()
+    # phases 32 and 34 (the cold tier; 32's kill is phase 16's) on phase 4's stream
+    rows32, l32 = q5_cold(torch, dev, chunks, cap, q5_oracle10)
+    for r in rows32:
+        emit(r)
+    torch.cuda.empty_cache()
+    rows34, l34 = q5_max_cold(torch, dev, chunks, cap, q5_oracle10)
+    for r in rows34:
+        emit(r)
+    torch.cuda.empty_cache()
     k25_row, l16_p25 = kill_p25(torch, dev, chunks, cap, q5_oracle10)
     emit(k25_row)
     torch.cuda.empty_cache()
@@ -7936,7 +8874,7 @@ def main() -> int:
     emit({"phase": "kernel", **v19_row})
     emit({"phase": "kernel", **x_row})
     torch.cuda.empty_cache()
-    rows21, l21 = q19_paths(torch, dev, chunks)
+    rows21, l21 = q19_paths(torch, dev, chunks[:Q19_EPOCHS])
     for r in rows21:
         emit(r)
     torch.cuda.empty_cache()
@@ -7978,7 +8916,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     l16_win = {}
     for key in ("p29", "p30", "p31"):
-        k_row, l16_win[f"{key}_recover"] = kill_window(torch, dev, key, chunks, wms, q5_oracle10)
+        k_row, l16_win[f"{key}_recover"] = kill_window(torch, dev, key, chunks, wms)
         emit(k_row)
         torch.cuda.empty_cache()
     aa_bid = chunks[0][0]  # kernel AA's bid chunk, phase 4's first
@@ -8002,6 +8940,10 @@ def main() -> int:
         emit(profile_q8(torch, dev, q8_chunks, args.profile, fused=True))
     k8_row, l16_q8 = kill_q8(torch, dev, host, q8_chunks)
     emit(k8_row)
+    torch.cuda.empty_cache()
+    rows33, l33 = q8_cold(torch, dev, host, q8_chunks)  # phase 33, with phase 16's kill
+    for r in rows33:
+        emit(r)
     del q8_chunks, host
     torch.cuda.empty_cache()
 
@@ -8092,6 +9034,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k28_row, l16_p28 = kill_p28(torch, dev, h101, c101, a_chunks)
     emit(k28_row)
+    emit(p28_host_path(torch, dev, h101, c101, a_chunks))
     del h101, c101, a_chunks
     torch.cuda.empty_cache()
     emit(generators_on_card(torch, dev))
@@ -8112,7 +9055,8 @@ def main() -> int:
                 aa_rows, ("unnest", "series", "expand"))) + [(ab_row, "temporal_probe")] + [
             (ac_rows[0], "arena"), (ac_rows[1], "arena_emit"), (ad_row, "over_step"),
             (ae_row, "window_calls"), (ae_gen_row, "window_order"), (ap_row, "over_apply"),
-            (df_row, "over_diff")]
+            (df_row, "over_diff")] + list(zip(ag_rows, ("cold_select", "cold_merge",
+                                                         "scatter_rows")))
     paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8, "q7": l9, "q7_fused": l10,
              "q101": l11, "q101_fused": l12, "q5_max": l13, "q5_max_fused": l14, **l15,
              "q5_recover": l16_q5, "q5_max_recover": l16_q5m, "q8_recover": l16_q8,
@@ -8120,9 +9064,10 @@ def main() -> int:
              **{f"hot_{k}": v for k, v in l18.items()}, **l19, "q7_scan_watermark_filters": l20,
              **l21, "q19_recover": l16_q19, **l23, "q105_recover": l16_q105, **l24,
              "q102_recover": l16_q102, **l25, **l26, **l27, **l28, "p25_recover": l16_p25,
-             "p26_recover": l16_p26, "p28_recover": l16_p28, **l29, **l30, **l31, **l16_win}
+             "p26_recover": l16_p26, "p28_recover": l16_p28, **l29, **l30, **l31, **l16_win,
+             **l32, **l33, **l34}
     for row, key in rows:
-        # each main path's run counts from zero: phases 4, 6-31 (a path
+        # each main path's run counts from zero: phases 4, 6-34 (a path
         # of a phase that drives several in lockstep counts its own calls)
         row["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())

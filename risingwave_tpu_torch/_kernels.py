@@ -11,7 +11,7 @@ Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
 A, C, D, E, F, G, H, J, L, M, N, O, P, Q, R, S, T, U, V, W, X, Y, Z,
-AA, AB, AC, AD, AE and AF (an entry point may launch several kernels in order on the stream),
+AA, AB, AC, AD, AE, AF and AG (an entry point may launch several kernels in order on the stream),
 two per call of B (the apply and its set_live), one per 24 lanes moved
 by a call of I; the entry points of ``ENTRY_KEYS`` count under their
 own names (S's ``rw_project`` under ``expr_eval``, its ``rw_filter``
@@ -23,7 +23,9 @@ under ``expr_filter``, X's ``rw_group_topk_mask`` under
 ``rw_arena_emit`` under ``arena_emit``, AD's ``rw_over_step`` under
 ``over_step``, AE's ``rw_window_order`` under ``window_order`` and its
 ``rw_window_calls`` under ``window_calls``, AF's ``rw_over_apply`` under
-``over_apply`` and its ``rw_over_diff`` under ``over_diff``; a Project whose outputs are
+``over_apply`` and its ``rw_over_diff`` under ``over_diff``, AG's
+``rw_cold_select`` under ``cold_select`` and its ``rw_cold_merge`` under
+``cold_merge``; a Project whose outputs are
 all bare columns launches nothing).
 """
 
@@ -78,6 +80,7 @@ SOURCES = {
     "over_step": "over_step.cu",
     "window_calls": "window_calls.cu",
     "over_diff": "over_diff.cu",
+    "cold_tier": "cold_tier.cu",
 }
 
 # C entry points: (argtypes,) — every pointer and the stream as c_void_p
@@ -199,6 +202,10 @@ SIGNATURES = {
         "rw_over_apply": [_P, _I, _P, _I, _L, _L] + [_P] * 6 + [_L] + [_P] * 11,
         "rw_over_diff": [_P, _I, _L] + [_P] * 13,
     },
+    "cold_tier": {
+        "rw_cold_select": [_I, _L] + [_P] * 12 + [_P],
+        "rw_cold_merge": [_P, _I, _P, _L, _P, _P, _P],
+    },
 }
 
 # slots per block of the stream compaction of kernels R and Z
@@ -253,7 +260,9 @@ DTYPE_CODES = {
 # as "dyn_general"), or one of kernel AA's three table-function entries
 # (each counts under its own name; "tile_expand" itself stays 0), or
 # kernel AC's emit (its append counts as "arena"), AE's order (its calls
-# count as "window_calls"), AF's apply (its diff counts as "over_diff")
+# count as "window_calls"), AF's apply (its diff counts as "over_diff"),
+# or one of kernel AG's two cold-tier entries (each under its own name;
+# "cold_tier" itself stays 0)
 ENTRY_KEYS = {
     "rw_lookup": "lookup",
     "rw_first_occurrence": "first_occurrence",
@@ -274,6 +283,8 @@ ENTRY_KEYS = {
     "rw_arena_emit": "arena_emit",
     "rw_window_order": "window_order",
     "rw_over_apply": "over_apply",
+    "rw_cold_select": "cold_select",
+    "rw_cold_merge": "cold_merge",
 }
 
 LAUNCHES = {name: 0 for name in (*SOURCES, *ENTRY_KEYS.values())}

@@ -45,7 +45,21 @@ MIN/MAX lanes written in the reference's unsigned key dtypes, so either
 package reads the other's store; ``restore_state`` re-inserts the keys
 (kernel A) and lands every lane's rows in one scatter (kernel R).
 
-Not ported yet: the cold tier.
+The cold tier (``hash_agg.py:516-545, :872-1018, :1061-1083,
+:1161-1258``): setting ``cold_reader`` (a ``CheckpointManager.get_rows``
+of this table) arms four host hooks. ``evict_cold`` drops every durable
+group (stored, not sdirty, not dirty) from the card: kernel AG's select
+gives the hot mask and the durable slots in one count read, the hot
+groups move into a table of ``grow_pow2(n_hot, 2^10)`` slots (kernels
+A, I and Q's rescatter, as a rebuild), and with a materialized MIN/MAX
+the durable keys are gathered (kernel R) into ``_evicted``. At each
+barrier the groups created since the last checkpoint are looked up in
+the store and a hit folds its stored state into the slot (AG's merge).
+With a materialized MIN/MAX an evicted group instead faults back in
+before any row lands on it (on touch, all of them before an
+epoch-batched apply, or when a watermark closes it): kernel A inserts
+the keys and kernel R lands every lane of the stored rows, the
+multisets included, with ``stored`` and ``live`` in the same launch.
 """
 
 from __future__ import annotations
@@ -72,6 +86,14 @@ from risingwave_tpu_torch.ops.checkpoint import (
     scatter_rows,
     stage_select,
 )
+from risingwave_tpu_torch.ops.cold_tier import (
+    AGG,
+    MERGE,
+    agg_merge_lanes,
+    cold_merge,
+    cold_select,
+    tensor_nbytes,
+)
 from risingwave_tpu_torch.ops.hash_table import (
     HashTable,
     expired_slots,
@@ -85,6 +107,9 @@ from risingwave_tpu_torch.storage.state_table import (
     Checkpointable,
     StateDelta,
     grow_pow2,
+    host_key_value,
+    host_key_view,
+    lanes_from_host_keys,
     pull_rows,
 )
 
@@ -211,15 +236,17 @@ def _epoch_reduced_fn(table, state, dropped, stacked, calls, group_keys, nullabl
 
 
 def _rehash(table: HashTable, state: AggState, minput, calls, new_cap: int,
-            float_extremes=()):
+            float_extremes=(), keep: Optional[torch.Tensor] = None):
     """Rebuild into a fresh table of ``new_cap`` slots, dropping slots no
     one needs, and move every slot-indexed lane: kernel A re-inserts the
     surviving keys, kernel I moves the lanes, kernel Q's rescatter the
     ``minput`` multisets. A slot survives iff it is
     live, was emitted (a later delete must retract it), is dirty or is
-    sdirty (its key must reach the next checkpoint)."""
-    keep = table.live | state.emitted_valid | state.dirty | state.sdirty
-    keep &= table.fp1 != 0
+    sdirty (its key must reach the next checkpoint); an eviction passes
+    its hot mask as ``keep`` (the reference's ``_evict``)."""
+    if keep is None:
+        keep = table.live | state.emitted_valid | state.dirty | state.sdirty
+        keep &= table.fp1 != 0
     dev = table.device
     new_table = HashTable.create(new_cap, tuple(k.dtype for k in table.keys), device=dev)
     new_table, new_slots, _, _ = lookup_or_insert(new_table, table.keys, keep)
@@ -356,6 +383,32 @@ class HashAggExecutor(Executor, Checkpointable):
         )
         self.window_key = window_key
         self._float_extremes = agg_ops.float_extreme_meta(self.calls, self._dtypes)
+        # the cold tier: setting ``cold_reader`` binds the four hooks;
+        # while it is None the data path runs none of their host code
+        self._cold_reader = None
+        self._cold_apply_hook = None  # _fault_in when armed
+        self._cold_stacked_hook = None  # _fault_in_all when armed
+        self._cold_barrier_hook = None  # _merge_cold when armed
+        self._cold_expire_hook = None  # _expire_evicted when armed
+        # with a materialized MIN/MAX the multisets cannot merge at the
+        # barrier (a delete before the merge would latch inconsistent):
+        # evicted keys (host_key_view tuples) fault back in on touch
+        self._evicted: set = set()
+        # the tier's work so far, counted on the host
+        self.cold_counts = {"evicted": 0, "merged": 0, "faulted_in": 0}
+
+    @property
+    def cold_reader(self):
+        return self._cold_reader
+
+    @cold_reader.setter
+    def cold_reader(self, fn) -> None:
+        self._cold_reader = fn
+        armed = fn is not None
+        self._cold_apply_hook = self._fault_in if armed else None
+        self._cold_stacked_hook = self._fault_in_all if armed else None
+        self._cold_barrier_hook = self._merge_cold if armed else None
+        self._cold_expire_hook = self._expire_evicted if armed else None
 
     def load_reference_state(self, np_arrays) -> None:
         """Take over the reference executor's device state, given as
@@ -392,6 +445,8 @@ class HashAggExecutor(Executor, Checkpointable):
                     f"group key {k!r} carries a null lane but was not "
                     "declared in nullable_keys"
                 )
+        if self._cold_apply_hook is not None:
+            self._cold_apply_hook(chunk)
         self._maybe_grow(chunk.capacity)
         self._insert_bound += chunk.capacity
         self._dirty_bound += chunk.capacity
@@ -410,6 +465,10 @@ class HashAggExecutor(Executor, Checkpointable):
         twin (not with a materialized MIN/MAX, as the reference)."""
         if mode not in ("reduce", "scan"):
             raise ValueError(f"unknown apply_stacked mode {mode!r}")
+        if self._cold_stacked_hook is not None:
+            # the batch's keys are not known before the pure prefix runs:
+            # every evicted group comes back first
+            self._cold_stacked_hook()
         if self.minput and mode != "reduce":
             raise ValueError(
                 "materialized MIN/MAX supports apply_stacked only in "
@@ -447,6 +506,8 @@ class HashAggExecutor(Executor, Checkpointable):
 
     # -- control ---------------------------------------------------------
     def on_barrier(self, barrier: Barrier) -> List[StreamChunk]:
+        if self._cold_barrier_hook is not None:
+            self._cold_barrier_hook()
         outs = self._flush_all()
         self._staged_scalars = stage_scalars(
             self.dropped, self.state.minmax_retracted, self.mi_bad, self.table.occupancy()
@@ -503,6 +564,8 @@ class HashAggExecutor(Executor, Checkpointable):
         if self.window_key is None or watermark.column != self.window_key[0]:
             return watermark, []
         colname, retention, emit_deletes = self.window_key
+        if self._cold_expire_hook is not None:
+            self._cold_expire_hook(watermark)
         outs: List[StreamChunk] = []
         if not emit_deletes:
             # emit-on-window-close frees state silently: the dirty
@@ -529,6 +592,128 @@ class HashAggExecutor(Executor, Checkpointable):
         _expire(self.table, self.state, cutoff, self.calls, key_index, emit_deletes,
                 self._float_extremes)
         return watermark, outs
+
+    # -- the cold tier -------------------------------------------------
+    def state_nbytes(self) -> int:
+        """Device bytes of the table, the state and the multisets (from
+        the tensors' sizes, no device read)."""
+        return tensor_nbytes((self.table, self.state, self.minput))
+
+    def evict_cold(self) -> int:
+        """Drop every durable group from the card (the reference's
+        state-table LRU over Hummock, hash_agg.rs:49): kernel AG selects,
+        the hot groups move into a table of ``grow_pow2(n_hot, 2^10)``
+        slots. Returns the groups evicted (durable and live or emitted).
+        Needs a ``cold_reader`` so that evicted groups can come back."""
+        if self.cold_reader is None:
+            raise RuntimeError("evict_cold needs a cold_reader")
+        t, st = self.table, self.state
+        got = cold_select(AGG, t.fp1, t.live, st.sdirty, st.stored, ev=st.emitted_valid,
+                          dirty=st.dirty)
+        if self.minput and got.sel.numel():
+            # the multisets fault back in on touch: record the keys
+            pulled = pull_rows({f"k{i}": lane for i, lane in enumerate(t.keys)}, got.sel)
+            views = [host_key_view(pulled[f"k{i}"]).tolist() for i in range(len(t.keys))]
+            self._evicted.update(zip(*views))
+        new_cap = grow_pow2(got.n_hot, 1 << 10, GROW_AT)
+        self.table, self.state, self.minput = _rehash(
+            t, st, self.minput, self.calls, new_cap, self._float_extremes, keep=got.hot
+        )
+        self._insert_bound = int(self.table.occupancy())
+        self.cold_counts["evicted"] += got.n_counted
+        return got.n_counted
+
+    def _chunk_key_tuples(self, chunk: StreamChunk) -> set:
+        """The chunk's valid group keys as host tuples in the table's key
+        lane layout (value, and a null flag per nullable key)."""
+        sel = np.flatnonzero(chunk.valid.cpu().numpy())
+        views = []
+        for k, nb in zip(self.group_keys, self.nullable):
+            a = chunk.col(k).cpu().numpy()
+            if nb:
+                nl = (chunk.nulls[k].cpu().numpy() if k in chunk.nulls
+                      else np.zeros(len(a), bool))
+                views.append(host_key_view(np.where(nl, np.zeros((), a.dtype), a)))
+                views.append(nl.astype(np.int64))
+            else:
+                views.append(host_key_view(a))
+        return set(zip(*(v[sel].tolist() for v in views)))
+
+    def _fault_in(self, chunk: StreamChunk) -> None:
+        if not self._evicted:
+            return  # nothing evicted: the chunk stays on the card
+        hits = self._chunk_key_tuples(chunk) & self._evicted
+        if hits:
+            self._restore_cold_groups(sorted(hits))
+
+    def _fault_in_all(self) -> None:
+        if self._evicted:
+            self._restore_cold_groups(sorted(self._evicted))
+
+    def _restore_cold_groups(self, key_tuples) -> None:
+        """The evicted groups' stored state, exactly, before any new row
+        lands on them: kernel A inserts the keys found in the store,
+        kernel R lands every lane (the multisets too) with ``stored`` and
+        ``live = row_count > 0``; a key without a slot latches
+        ``dropped``."""
+        dtypes = [_numpy_dtype(k.dtype) for k in self.table.keys]
+        lanes_np = lanes_from_host_keys(key_tuples, dtypes)
+        found, vals = self.cold_reader(lanes_np)
+        self._evicted.difference_update(key_tuples)
+        nt = int(found.sum())
+        if not nt:
+            return
+        self._maybe_grow(nt)
+        self._insert_bound += nt
+        self.cold_counts["faulted_in"] += nt
+        keys = {k: v[found] for k, v in lanes_np.items()}
+        cold = {k: np.asarray(v)[found] for k, v in vals.items()}
+        self.table, slots = insert_keys(self.table, keys, nt)
+        self.dropped |= (slots < 0).any()
+        scatter_agg_rows(self.table, self.state, self.minput, slots, cold, self.calls,
+                         self._dtypes, nt)
+
+    def _merge_cold(self) -> int:
+        """Fold stored state into groups created since the last
+        checkpoint (candidates sdirty & ~stored, selected by kernel AG):
+        a store hit is a group evicted earlier, and AG's merge folds its
+        stored lanes into what accrued since. Returns the groups
+        merged."""
+        t, st = self.table, self.state
+        cand = cold_select(MERGE, t.fp1, t.live, st.sdirty, st.stored).sel
+        if not cand.numel():
+            return 0
+        keys = pull_rows({f"k{i}": lane for i, lane in enumerate(t.keys)}, cand,
+                         {"slot": cand})
+        slot = keys.pop("slot")
+        found, vals = self.cold_reader(keys)
+        n = int(found.sum())
+        if not n:
+            return 0
+        fx = _float_lanes(self._float_extremes)
+        cold = {}
+        for name, v in vals.items():
+            v = np.asarray(v)[found]
+            cold[name] = order_key_from_reference(v) if name in fx else v
+        cold_merge(agg_merge_lanes(st, self.calls), to_device(slot[found], t.device), cold,
+                   st.row_count, t.live)
+        self._dirty_bound += n  # merged slots are dirty
+        self.cold_counts["merged"] += n
+        return n
+
+    def _expire_evicted(self, watermark: Watermark) -> None:
+        """An evicted group past the cutoff still closes: it faults back
+        in, and the expiry below retracts or frees it. Float keys compare
+        in the numeric domain (the tuples hold bit patterns)."""
+        if not self._evicted:
+            return
+        colname, retention, _ = self.window_key
+        ki = self._key_lane_index(colname)
+        cut = int(watermark.value) - retention
+        dt = _numpy_dtype(self.table.keys[ki].dtype)
+        expiring = [t for t in self._evicted if host_key_value(t[ki], dt) < cut]
+        if expiring:
+            self._restore_cold_groups(sorted(expiring))
 
     def cleaning_watermarks(self):
         """[(table_id, storage key name, cutoff)] of the last window
@@ -610,6 +795,14 @@ def build_restored_agg(cap: int, calls, dtypes, key_dtypes, key_cols, value_cols
     if not n:
         return table, state, minput
     table, slots = insert_keys(table, key_cols, n)
+    scatter_agg_rows(table, state, minput, slots, value_cols, calls, dtypes, n)
+    return table, state, minput
+
+
+def scatter_agg_rows(table, state, minput, slots, value_cols, calls, dtypes, n: int) -> None:
+    """Land ``n`` stored rows (the reference's dtypes) at ``slots`` in one
+    launch of kernel R: every lane, the multisets' 2-D rows, ``live =
+    row_count > 0`` and ``stored``. A slot < 0 drops its row."""
     fx = _float_lanes(agg_ops.float_extreme_meta(calls, dtypes))
 
     def rows(name):
@@ -631,7 +824,6 @@ def build_restored_agg(cap: int, calls, dtypes, key_dtypes, key_cols, value_cols
     dst["live"], src["live"] = table.live, src["row_count"] > 0
     dst["stored"], src["stored"] = state.stored, np.ones(n, np.bool_)
     scatter_rows(dst, slots, src)
-    return table, state, minput
 
 
 def _agg_restore_state(self, table_id, key_cols, value_cols) -> None:
@@ -648,6 +840,7 @@ def _agg_restore_state(self, table_id, key_cols, value_cols) -> None:
     self.mi_bad = torch.zeros((), dtype=torch.bool, device=self.device)
     self._insert_bound = self._occ_note = int(n)
     self._dirty_bound = 0  # restored groups carry no unflushed change
+    self._evicted = set()  # every stored group is resident again
 
 
 def _agg_digest_lanes(self):

@@ -24,8 +24,21 @@ A watermark on a window column expires that side's closed keys (kernel
 O). Checkpoint and restore (``hash_join.py:891-1130``): each side stages
 its changed keys with their whole buckets as 2-D rows (``rv``, ``deg``,
 ``r_*``, ``n_*``) through kernel R, and a restore lands them at the
-same in-bucket positions. The cold tier is not ported;
-``load_reference_state`` takes over a reference executor's sides.
+same in-bucket positions. ``load_reference_state`` takes over a
+reference executor's sides.
+
+The cold tier (``hash_join.py:400-415, :516-520, :601-791, :869-876,
+:1015-1099``): setting ``cold_get_rows`` (``CheckpointManager.get_rows``)
+arms the hooks. ``evict_cold`` drops each side's durable keys (stored,
+not sdirty, degrees unmoved): kernel AG's select gives the hot mask and
+the durable slots in one count read, the keys are gathered (kernel R)
+into the side's ``_evicted`` set, and the side is rebuilt holding its
+hot keys at ``grow_pow2(n_hot, 2^10)`` slots, each bucket at its
+positions (kernels A and I). A chunk touching an evicted key faults the
+key's stored bucket back in on both sides first (A, then R's scatter
+with ``live`` and ``stored``). A watermark closing evicted keys moves
+them to ``_cold_tombstones``, staged by the next checkpoint unless the
+key is resident again.
 """
 
 from __future__ import annotations
@@ -44,7 +57,9 @@ from risingwave_tpu_torch.ops.checkpoint import (
     scatter_rows,
     stage_select,
 )
-from risingwave_tpu_torch.ops.hash_table import read_scalars, stage_scalars
+from risingwave_tpu_torch.array.chunk import _numpy_dtype
+from risingwave_tpu_torch.ops.cold_tier import JOIN, cold_select, tensor_nbytes
+from risingwave_tpu_torch.ops.hash_table import lookup, read_scalars, stage_scalars
 from risingwave_tpu_torch.ops.join import (
     G2_ANTI,
     G2_NONE,
@@ -59,6 +74,7 @@ from risingwave_tpu_torch.ops.join import (
     degree_emit,
     expire_keys,
     probe_pairs,
+    rebuild_side,
     regrow,
     survivors,
 )
@@ -67,6 +83,9 @@ from risingwave_tpu_torch.storage.state_table import (
     Checkpointable,
     StateDelta,
     grow_pow2,
+    host_key_value,
+    host_key_view,
+    lanes_from_host_keys,
     pull_rows,
 )
 
@@ -221,6 +240,26 @@ class HashJoinExecutor(Executor, Checkpointable):
         self._grew_midepoch = {"l": False, "r": False}  # one bump per epoch
         self._em_overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         self._wm = {"l": None, "r": None, "out": None}
+        # the cold tier: setting ``cold_get_rows`` binds the hooks; the
+        # evicted keys of each side are host_key_view tuples
+        self._evicted = {"left": set(), "right": set()}
+        self._cold_tombstones: Dict[str, list] = {}
+        self._cold_apply_hook = None  # _fault_in when armed
+        self._cold_expire_hook = None  # _expire_evicted when armed
+        self.cold_get_rows = None
+        # the tier's work so far, counted on the host
+        self.cold_counts = {"evicted": 0, "faulted_in": 0, "cold_tombstones": 0}
+
+    @property
+    def cold_get_rows(self):
+        return self._cold_get_rows
+
+    @cold_get_rows.setter
+    def cold_get_rows(self, fn) -> None:
+        self._cold_get_rows = fn
+        armed = fn is not None
+        self._cold_apply_hook = self._fault_in if armed else None
+        self._cold_expire_hook = self._expire_evicted if armed else None
 
     def load_reference_state(self, np_arrays) -> None:
         """Take over the reference executor's two sides, given as numpy
@@ -267,6 +306,10 @@ class HashJoinExecutor(Executor, Checkpointable):
         raise TypeError("HashJoin is two-input: use apply_left/apply_right")
 
     def _apply(self, s: str, chunk: StreamChunk) -> List[StreamChunk]:
+        if self._cold_apply_hook is not None:
+            # the chunk probes the other side and appends to its own: both
+            # sides' evicted buckets of its keys come back first
+            self._cold_apply_hook(s, chunk)
         self._maybe_grow(s, chunk.capacity)
         own, other, out = join_step_fn(
             self.side(s), self.side("r" if s == "l" else "l"), chunk,
@@ -286,6 +329,14 @@ class HashJoinExecutor(Executor, Checkpointable):
         cap = own.capacity
         bound = min(self._bound[s], cap)
         self._bound[s] = bound
+        if bound + incoming > cap * HARD_GROW_AT and cap < self._buckets[s].policy.min_cap:
+            # a side an eviction shrank below its lattice: one bump cannot
+            # hold an epoch, so it is planned back from the host bound (the
+            # reference bumps once here and the program overflows the side)
+            new_cap = self._buckets[s].plan(cap, incoming, bound, bound)
+            if new_cap is not None and new_cap != cap:
+                self._set_side(s, regrow(own, new_cap, own.fanout))
+            return
         if self._grew_midepoch[s] or bound + incoming <= cap * HARD_GROW_AT:
             return
         new_cap = self._buckets[s].bump(cap)
@@ -367,6 +418,8 @@ class HashJoinExecutor(Executor, Checkpointable):
         s = "l" if watermark.column == self.window_cols[0] else "r"
         pos = self._key_index(s, self.window_cols[0 if s == "l" else 1])
         self._set_side(s, expire_keys(self.side(s), pos, watermark.value))
+        if self._cold_expire_hook is not None:
+            self._cold_expire_hook("left" if s == "l" else "right", pos, int(watermark.value))
         self._wm[s] = watermark.value
         if self._wm["l"] is None or self._wm["r"] is None:
             return None, []
@@ -379,6 +432,80 @@ class HashJoinExecutor(Executor, Checkpointable):
     def _key_index(self, side: str, name: str) -> int:
         keys = self.left_keys if side == "l" else self.right_keys
         return keys.index(name)
+
+    # -- the cold tier -------------------------------------------------
+    def state_nbytes(self) -> int:
+        """Device bytes of both sides (from the tensors' sizes)."""
+        return tensor_nbytes((self.left, self.right))
+
+    def evict_cold(self) -> int:
+        """Drop every durable key's bucket from the card, each side
+        rebuilt to its hot set. Returns the keys evicted."""
+        if self.cold_get_rows is None:
+            raise RuntimeError("evict_cold needs cold_get_rows")
+        return self._evict_side("left") + self._evict_side("right")
+
+    def _evict_side(self, name: str) -> int:
+        s = "l" if name == "left" else "r"
+        side = self.side(s)
+        got = cold_select(JOIN, side.table.fp1, side.table.live, side.sdirty, side.stored,
+                          ddirty=side.ddirty)
+        if not got.n_counted:
+            return 0
+        keys = pull_rows({f"k{i}": lane for i, lane in enumerate(side.table.keys)}, got.sel)
+        views = [host_key_view(keys[f"k{i}"]).tolist() for i in range(len(side.table.keys))]
+        self._evicted[name].update(zip(*views))
+        fresh = rebuild_side(side, got.hot, grow_pow2(got.n_hot, 1 << 10, GROW_AT))
+        self._set_side(s, fresh)
+        self._bound[s] = int(fresh.table.occupancy())
+        self.cold_counts["evicted"] += got.n_counted
+        return got.n_counted
+
+    def _expire_evicted(self, name: str, pos: int, cutoff: int) -> None:
+        """A watermark closes evicted keys too: they leave the evicted set
+        and their stored rows get tombstones at the next checkpoint, so a
+        recovery does not bring closed windows back. Float keys compare
+        in the numeric domain (the tuples hold bit patterns)."""
+        side = getattr(self, name)
+        dt = _numpy_dtype(side.table.keys[pos].dtype)
+        ev = self._evicted[name]
+        closed = {t for t in ev if host_key_value(t[pos], dt) < cutoff}
+        if closed:
+            ev.difference_update(closed)
+            self._cold_tombstones.setdefault(name, []).extend(closed)
+            self.cold_counts["cold_tombstones"] += len(closed)
+
+    def _fault_in(self, s: str, chunk: StreamChunk) -> None:
+        if not (self._evicted["left"] or self._evicted["right"]):
+            return  # nothing evicted: the chunk stays on the card
+        own_keys = self.left_keys if s == "l" else self.right_keys
+        sel = np.flatnonzero(chunk.valid.cpu().numpy())
+        cols = [host_key_view(chunk.col(k).cpu().numpy())[sel].tolist() for k in own_keys]
+        touched = set(zip(*cols))
+        for name in ("left", "right"):
+            hits = touched & self._evicted[name]
+            if hits:
+                self._restore_cold_keys(name, sorted(hits))
+
+    def _restore_cold_keys(self, name: str, key_tuples) -> None:
+        """The evicted keys' stored buckets back on the card: kernel A
+        inserts the keys found in the store, kernel R lands their bucket
+        rows, degrees, ``live`` and ``stored`` in one launch."""
+        s = "l" if name == "left" else "r"
+        self._maybe_grow(s, len(key_tuples))
+        side = self.side(s)
+        lanes_np = lanes_from_host_keys(key_tuples,
+                                        [_numpy_dtype(k.dtype) for k in side.table.keys])
+        found, vals = self.cold_get_rows(f"{self.table_id}.{name}", dict(lanes_np))
+        nt = int(found.sum())
+        if nt:
+            keys = {k: v[found] for k, v in lanes_np.items()}
+            side.table, slots = insert_keys(side.table, keys, nt)
+            _side_scatter(side, side.table, slots,
+                          {k: np.asarray(v)[found] for k, v in vals.items()}, nt)
+        self._bound[s] += nt
+        self.cold_counts["faulted_in"] += nt
+        self._evicted[name].difference_update(key_tuples)
 
     # -- integrity --------------------------------------------------------
     def digest_lanes(self):
@@ -456,18 +583,25 @@ def _side_restore(side: JoinSide, key_cols, value_cols) -> JoinSide:
     if not n:
         return fresh
     table, slots = insert_keys(fresh.table, key_cols, n)
-    dst = {f"r_{name}": a for name, a in fresh.rows.items()}
-    dst.update({f"n_{name}": a for name, a in fresh.row_nulls.items()})
-    dst["rv"] = fresh.row_valid
+    _side_scatter(fresh, table, slots, value_cols, n)
+    fresh.table = table
+    return fresh
+
+
+def _side_scatter(side: JoinSide, table, slots, value_cols, n: int) -> None:
+    """Land ``n`` stored buckets at ``slots`` of ``table`` (the side's
+    table) in one launch of kernel R: the 2-D rows, their NULL flags and
+    ``rv``, the degrees, ``live`` and ``stored``."""
+    dst = {f"r_{name}": a for name, a in side.rows.items()}
+    dst.update({f"n_{name}": a for name, a in side.row_nulls.items()})
+    dst["rv"] = side.row_valid
     src = {name: value_cols[name] for name in dst}
     # older checkpoints predate the degree lane; it stays zero then
     if "deg" in value_cols:
-        dst["deg"], src["deg"] = fresh.degree, value_cols["deg"]
+        dst["deg"], src["deg"] = side.degree, value_cols["deg"]
     dst["live"], src["live"] = table.live, np.ones(n, np.bool_)
-    dst["stored"], src["stored"] = fresh.stored, np.ones(n, np.bool_)
+    dst["stored"], src["stored"] = side.stored, np.ones(n, np.bool_)
     scatter_rows(dst, slots, src)
-    fresh.table = table
-    return fresh
 
 
 def _join_checkpoint_table_ids(self):
@@ -480,7 +614,52 @@ def _join_checkpoint_delta(self):
         got = _side_delta(getattr(self, name), f"{self.table_id}.{name}")
         if got is not None:
             out.append(got)
+    # evicted keys a watermark closed live only in the store: explicit
+    # tombstones keep a recovery from bringing closed windows back
+    for name, tuples in self._cold_tombstones.items():
+        if tuples:
+            _stage_cold_tombstones(self, name, tuples, out)
+    self._cold_tombstones = {}
     return out
+
+
+def _stage_cold_tombstones(join, name: str, tuples, out: List[StateDelta]) -> None:
+    """Append tombstones of the closed evicted keys ``tuples`` to the
+    side's delta in ``out`` (or a delta of their own). A key re-created
+    since (a late arrival) is resident and stages itself through
+    ``_side_delta``: a tombstone beside it would make point reads and
+    merge reads disagree."""
+    side = getattr(join, name)
+    dtypes = [_numpy_dtype(k.dtype) for k in side.table.keys]
+    lanes_np = lanes_from_host_keys(tuples, dtypes)
+    dev = side.device
+    slots, _ = lookup(side.table, tuple(torch.from_numpy(lanes_np[f"k{i}"]).to(dev)
+                                        for i in range(len(dtypes))),
+                      torch.ones(len(tuples), dtype=torch.bool, device=dev))
+    resident = (slots >= 0).cpu().numpy()
+    tuples = [t for t, r in zip(tuples, resident) if not r]
+    if not tuples:
+        return
+    tid = f"{join.table_id}.{name}"
+    keys = lanes_from_host_keys(tuples, dtypes)
+    n, k = len(tuples), side.fanout
+    vals = {"rv": np.zeros((n, k), np.bool_), "deg": np.zeros((n, k), np.int32)}
+    for nm, a in side.rows.items():
+        vals[f"r_{nm}"] = np.zeros((n, k), _numpy_dtype(a.dtype))
+    for nm in side.row_nulls:
+        vals[f"n_{nm}"] = np.zeros((n, k), np.bool_)
+    tomb = np.ones(n, bool)
+    prev = next((d for d in out if d.table_id == tid), None)
+    if prev is None:
+        out.append(StateDelta(tid, keys, vals, tomb, tuple(keys)))
+        return
+    out[out.index(prev)] = StateDelta(
+        tid,
+        {c: np.concatenate([prev.key_cols[c], keys[c]]) for c in prev.key_cols},
+        {c: np.concatenate([prev.value_cols[c], vals[c]]) for c in prev.value_cols},
+        np.concatenate([prev.tombstone, tomb]),
+        prev.key_order,
+    )
 
 
 def _join_restore_state(self, table_id, key_cols, value_cols):
@@ -488,6 +667,8 @@ def _join_restore_state(self, table_id, key_cols, value_cols):
     side = _side_restore(self.side(s), key_cols, value_cols)
     self._set_side(s, side)
     self._bound[s] = self._occ_note[s] = len(next(iter(key_cols.values()))) if key_cols else 0
+    # a restore brings every stored key back: none is evicted
+    self._evicted = {"left": set(), "right": set()}
 
 
 HashJoinExecutor.checkpoint_table_ids = _join_checkpoint_table_ids

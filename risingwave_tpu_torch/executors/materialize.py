@@ -1,24 +1,34 @@
-"""Device-resident materialized view.
+"""Materialized views: the host row map and the device-resident MV.
 
-Port of the device MV of ``risingwave_tpu/executors/materialize.py``
-(``MvDeviceState`` :514, ``mv_step_fn`` :551, ``_mv_rebuild`` :587, the
-read mixin :607, ``DeviceMaterializeExecutor`` :642). Reference:
+Port of ``risingwave_tpu/executors/materialize.py``: the host
+``MaterializeExecutor`` (:29-520, ``_last_per_key`` :29) and the device
+MV (``MvDeviceState`` :514, ``mv_step_fn`` :551, ``_mv_rebuild`` :587,
+the read mixin :607, ``DeviceMaterializeExecutor`` :642). Reference:
 src/stream/src/executor/mview/materialize.rs:44 with
 ConflictBehavior::Overwrite (:192-230).
 
-A pk-keyed hash table plus slot-indexed value lanes. Per chunk, kernel
-A finds or inserts the pk, then kernel D (``csrc/mv_upsert.cu``) lets
-the last row per pk win: deletes clear ``live``, inserts write the
-values. The host reaches the device only at the barrier (one packed
-latch + occupancy read) and on snapshot. Checkpoint and restore
-(``materialize.py:833-916``) go through kernel R; restored rows are
-stored, not sdirty.
+The host MV keeps its rows on the host behind one API with two
+backends, as the reference: when every pk and value column is a
+NULL-free integer, the C++ row map of ``native.py`` applies each delta
+batch and the checkpoint's net effect is pure numpy over the buffered
+batches; any other layout (floats, NULLs, conflict resolution) uses a
+Python dict. Host code, copied with its imports rewritten; a chunk is
+read back with ``to_numpy``, and a conflict-resolved emission is built
+on the input chunk's device.
+
+The device MV: a pk-keyed hash table plus slot-indexed value lanes. Per
+chunk, kernel A finds or inserts the pk, then kernel D
+(``csrc/mv_upsert.cu``) lets the last row per pk win: deletes clear
+``live``, inserts write the values. The host reaches the device only at
+the barrier (one packed latch + occupancy read) and on snapshot.
+Checkpoint and restore (``materialize.py:833-916``) go through kernel
+R; restored rows are stored, not sdirty.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +50,7 @@ from risingwave_tpu_torch.ops.hash_table import (
     stage_scalars,
 )
 from risingwave_tpu_torch.runtime.bucketing import BucketAllocator, BucketPolicy
+from risingwave_tpu_torch.types import Op
 from risingwave_tpu_torch.storage.state_table import (
     Checkpointable,
     StateDelta,
@@ -389,3 +400,350 @@ class DeviceMaterializeExecutor(MvDeviceReadMixin, Executor, Checkpointable):
         lanes.update({f"v{j}": self.state.values[c] for j, c in enumerate(self.columns)})
         lanes.update({f"n_{c}": lane for c, lane in self.state.vnulls.items()})
         return {name: lane[sel].cpu().numpy() for name, lane in lanes.items()}
+
+
+# ---------------------------------------------------------------------------
+# The host MV
+# ---------------------------------------------------------------------------
+def _last_per_key(keys: np.ndarray) -> np.ndarray:
+    """Indices of the last occurrence of each distinct key row (a stable
+    sort on the key columns, run ends kept)."""
+    if keys.shape[1] == 0:
+        # pk = (): a single-row table; the last op wins outright
+        return np.asarray([len(keys) - 1]) if len(keys) else np.zeros(0, np.int64)
+    order = np.lexsort(tuple(keys[:, j] for j in reversed(range(keys.shape[1]))))
+    ks = keys[order]
+    is_last = np.ones(len(order), bool)
+    if len(order) > 1:
+        is_last[:-1] = ~(ks[1:] == ks[:-1]).all(axis=1)
+    return order[is_last]
+
+
+class MaterializeExecutor(Executor, Checkpointable):
+    """The MV as a host row map (pk tuple -> value tuple).
+
+    ``conflict_resolve`` (ConflictBehavior::Overwrite with the emission
+    downstream needs, materialize.rs:192-230): an insert on an existing
+    pk emits UpdateDelete(stored) + UpdateInsert(new), a delete emits
+    the stored row, a delete of an absent pk is dropped."""
+
+    _force_python = False  # subclasses needing row hooks pin the dict
+
+    def __init__(self, pk: Sequence[str], columns: Sequence[str], table_id: str = "mview",
+                 conflict_resolve: bool = False):
+        self.pk = tuple(pk)
+        self.columns = tuple(columns)
+        self.rows: Dict[Tuple, Tuple] = {}
+        self.table_id = table_id
+        self.conflict_resolve = bool(conflict_resolve)
+        self._changed: set = set()  # Python backend: pks since the checkpoint
+        self._dtypes: Dict[str, np.dtype] = {}
+        self._native = None  # NativeMvMap once eligible
+        self._backend: Optional[str] = None
+        self._pending: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        # set when a checkpoint store drains _pending every checkpoint
+        self.checkpoint_enabled = False
+
+    def state_nbytes(self) -> int:
+        """No device bytes: the host row store, at 8 bytes a cell."""
+        width = len(self.pk) + len(self.columns)
+        n = len(self._native) if self._native is not None else len(self.rows)
+        return int(n) * width * 8
+
+    def trace_contract(self):
+        return {
+            "kind": "host",
+            "trace_step": None,
+            "state": None,
+            "donate": False,
+            "emission": "passthrough",
+            "host_reason": "host-map materializer: the row store pulls every chunk to the "
+                           "host (a device-resident MV is DeviceMaterializeExecutor)",
+        }
+
+    # -- backend selection ----------------------------------------------
+    def _pick_backend(self, chunk: StreamChunk, data) -> None:
+        if self._force_python or self.conflict_resolve:
+            # conflict resolution reads stored rows per key: the dict
+            self._backend = "python"
+            return
+        eligible = all(
+            np.issubdtype(data[name].dtype, np.integer) and name not in chunk.nulls
+            for name in self.pk + self.columns
+        )
+        if eligible:
+            try:
+                from risingwave_tpu_torch.native import NativeMvMap
+
+                self._native = NativeMvMap(len(self.pk), len(self.columns))
+                self._backend = "native"
+                return
+            except (RuntimeError, OSError):
+                pass
+        self._backend = "python"
+
+    # -- data ------------------------------------------------------------
+    def apply(self, chunk: StreamChunk) -> List[StreamChunk]:
+        data = chunk.to_numpy(with_ops=True)
+        ops = data["__op__"]
+        n = len(ops)
+        if n == 0:
+            return [chunk]
+        for name in self.pk + self.columns:
+            if name not in self._dtypes:
+                self._dtypes[name] = data[name].dtype
+        if self._backend is None:
+            self._pick_backend(chunk, data)
+        if self._backend == "native" and any(nm in chunk.nulls for nm in self.pk + self.columns):
+            # the int matrix holds no NULL cell: move to the dict, the
+            # undrained pending deltas folded into the changed-key set
+            self._demote_to_python()
+        is_del = (ops == Op.DELETE) | (ops == Op.UPDATE_DELETE)
+        if self._backend == "native":
+            keys = (np.stack([data[nm] for nm in self.pk], axis=1).astype(np.int64)
+                    if self.pk else np.zeros((n, 0), np.int64))
+            vals = (np.stack([data[nm] for nm in self.columns], axis=1).astype(np.int64)
+                    if self.columns else np.zeros((n, 0), np.int64))
+            self._native.apply(keys, vals, is_del)
+            self._pending.append((keys, vals, is_del.astype(np.uint8)))
+            return [chunk]
+        if self.conflict_resolve:
+            return self._apply_resolve(data, ops, n, chunk.device)
+        self._apply_python(data, ops, is_del, n)
+        return [chunk]
+
+    def _demote_to_python(self) -> None:
+        keys, vals = self._native.dump()
+        self.rows = {tuple(k): tuple(v) for k, v in zip(keys.tolist(), vals.tolist())}
+        for pk_arr, _, _ in self._pending:
+            self._changed.update(map(tuple, pk_arr.tolist()))
+        self._pending = []
+        self._native = None
+        self._backend = "python"
+
+    def _apply_resolve(self, data, ops, n, device) -> List[StreamChunk]:
+        """Row-ordered conflict resolution against the stored map; returns
+        what downstream must see to stay consistent with this table."""
+        names = self.pk + self.columns
+        cols_l = self._null_folded(data, names)
+        out_rows: List[Tuple[int, Tuple, Tuple]] = []
+        for i in range(n):
+            k = tuple(cols_l[nm][i] for nm in self.pk)
+            self._changed.add(k)
+            if ops[i] in (Op.INSERT, Op.UPDATE_INSERT):
+                v = tuple(cols_l[nm][i] for nm in self.columns)
+                old = self.rows.get(k)
+                if old is not None:
+                    out_rows.append((int(Op.UPDATE_DELETE), k, old))
+                    out_rows.append((int(Op.UPDATE_INSERT), k, v))
+                else:
+                    op = int(Op.UPDATE_INSERT) if ops[i] == Op.UPDATE_INSERT else int(Op.INSERT)
+                    out_rows.append((op, k, v))
+                self.rows[k] = v
+            else:
+                old = self.rows.pop(k, None)
+                if old is None:
+                    continue  # a delete of an absent pk is dropped
+                op = int(Op.UPDATE_DELETE) if ops[i] == Op.UPDATE_DELETE else int(Op.DELETE)
+                out_rows.append((op, k, old))
+        if not out_rows:
+            return []
+        m = len(out_rows)
+        cap = max(2, 1 << (m - 1).bit_length())
+        cols: Dict[str, np.ndarray] = {}
+        nulls: Dict[str, np.ndarray] = {}
+        pk_n = len(self.pk)
+        for j, nm in enumerate(names):
+            vals = [(r[1][j] if j < pk_n else r[2][j - pk_n]) for r in out_rows]
+            mask = np.asarray([v is None for v in vals], bool)
+            dt = self._dtypes.get(nm, np.dtype(np.int64))
+            cols[nm] = np.asarray([0 if v is None else v for v in vals], dt)
+            if mask.any():
+                nulls[nm] = mask
+        out_ops = np.asarray([r[0] for r in out_rows], np.int32)
+        return [StreamChunk.from_numpy(cols, cap, ops=out_ops, nulls=nulls or None,
+                                       device=device)]
+
+    @staticmethod
+    def _null_folded(data, names):
+        """{name: Python list with the NULL cells as None}: the one place
+        the NULL-lane representation is read."""
+        out = {}
+        for name in names:
+            col = data[name].tolist()
+            nl = data.get(name + "__null")
+            if nl is not None:
+                col = [None if isnull else v for v, isnull in zip(col, nl)]
+            out[name] = col
+        return out
+
+    def _apply_python(self, data, ops, is_del, n):
+        # NULL pk components fold into the key tuple as None; the last
+        # op per pk wins
+        def tuples(names):
+            if not names:
+                return [()] * n
+            folded = self._null_folded(data, names)
+            return list(zip(*(folded[name] for name in names)))
+
+        keys = tuples(self.pk)
+        vals = tuples(self.columns)
+        self._changed.update(keys)
+        last = {k: i for i, k in enumerate(keys)}
+        if is_del.any():
+            rows = self.rows
+            keys_u = list(last.keys())
+            idx = np.fromiter(last.values(), dtype=np.int64, count=len(last))
+            dmask = is_del[idx]
+            for j in np.flatnonzero(dmask):
+                rows.pop(keys_u[j], None)  # ConflictBehavior::Overwrite
+            rows.update((keys_u[j], vals[idx[j]]) for j in np.flatnonzero(~dmask))
+        else:
+            self.rows.update((k, vals[i]) for k, i in last.items())
+
+    # -- reads ------------------------------------------------------------
+    def snapshot(self) -> Dict[Tuple, Tuple]:
+        if self._backend == "native":
+            keys, vals = self._native.dump()
+            return {tuple(k): tuple(v) for k, v in zip(keys.tolist(), vals.tolist())}
+        return dict(self.rows)
+
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        """The snapshot as column arrays (pk columns, then value columns)."""
+        if self._backend == "native":
+            keys, vals = self._native.dump()
+            out = {name: keys[:, j] for j, name in enumerate(self.pk)}
+            out.update({name: vals[:, j] for j, name in enumerate(self.columns)})
+            return out
+        keys = list(self.rows)
+        out = {name: np.array([k[j] for k in keys]) for j, name in enumerate(self.pk)}
+        for j, name in enumerate(self.columns):
+            out[name] = np.array([self.rows[k][j] for k in keys])
+        return out
+
+    # -- barrier ---------------------------------------------------------
+    def on_barrier(self, barrier) -> List[StreamChunk]:
+        """Fold the native backend's pending batches to their net effect
+        per pk, so memory stays bounded by the keys touched when no
+        checkpoint drains them (a checkpoint does the same fold)."""
+        if not self.checkpoint_enabled and len(self._pending) > 1:
+            self._pending = [self._net_pending()]
+        return []
+
+    def _net_pending(self):
+        keys = np.concatenate([k for k, _, _ in self._pending])
+        vals = np.concatenate([v for _, v, _ in self._pending])
+        dels = np.concatenate([d for _, _, d in self._pending])
+        sel = _last_per_key(keys)
+        return keys[sel], vals[sel], dels[sel]
+
+    # -- checkpoint/restore ----------------------------------------------
+    def checkpoint_delta(self):
+        """The rows whose pk changed since the last checkpoint; the native
+        backend's is the net effect of its pending batches (the last
+        occurrence per pk wins, its delete flag the tombstone)."""
+        if self._backend == "native":
+            return self._native_delta()
+        return self._python_delta()
+
+    def _native_delta(self):
+        if not self._pending:
+            return []
+        keys = np.concatenate([k for k, _, _ in self._pending])
+        vals = np.concatenate([v for _, v, _ in self._pending])
+        dels = np.concatenate([d for _, _, d in self._pending])
+        self._pending = []
+        if len(keys) == 0:
+            return []
+        sel = _last_per_key(keys)
+        key_cols = {f"k{j}": keys[sel, j].astype(self._dtypes[self.pk[j]])
+                    for j in range(len(self.pk))}
+        value_cols = {f"v{j}": vals[sel, j].astype(self._dtypes[self.columns[j]])
+                      for j in range(len(self.columns))}
+        return [StateDelta(self.table_id, key_cols, value_cols, dels[sel].astype(bool),
+                           tuple(f"k{j}" for j in range(len(self.pk))))]
+
+    def _python_delta(self):
+        if not self._changed:
+            return []
+        ups, tombs = [], []
+        for k in self._changed:
+            if any(v is None for v in k):
+                raise ValueError("NULL pk persistence not supported yet")
+            row = self.rows.get(k)
+            if row is None:
+                tombs.append(k)
+            else:
+                ups.append((k, row))
+        n = len(ups) + len(tombs)
+        key_cols = {
+            f"k{j}": np.array([k[j] for k, _ in ups] + [k[j] for k in tombs],
+                              dtype=self._dtypes[name])
+            for j, name in enumerate(self.pk)
+        }
+        value_cols = {}
+        for j, name in enumerate(self.columns):
+            pad = np.zeros(len(tombs), dtype=self._dtypes[name])
+            vals = [r[j] for _, r in ups]
+            value_cols[f"v{j}"] = np.concatenate([
+                np.array([0 if v is None else v for v in vals], dtype=self._dtypes[name]), pad,
+            ]) if ups else pad
+            # NULL cells persist as a bool companion lane, in every delta
+            # (SST merges of one table need one lane set)
+            value_cols[f"vn{j}"] = np.array([v is None for v in vals] + [False] * len(tombs),
+                                            bool)
+        tombstone = np.zeros(n, bool)
+        tombstone[len(ups):] = True
+        self._changed.clear()
+        return [StateDelta(self.table_id, key_cols, value_cols, tombstone,
+                           tuple(f"k{j}" for j in range(len(self.pk))))]
+
+    def state_digest(self) -> int:
+        """The row map's digest (equal for both backends)."""
+        return integrity.host_obj_digest(sorted(self.snapshot().items(), key=repr))
+
+    def restore_state(self, table_id, key_cols, value_cols):
+        self.rows = {}
+        self._changed = set()
+        self._pending = []
+        self._native = None
+        self._backend = None
+        if not key_cols:
+            return
+        n = len(next(iter(key_cols.values())))
+        ints = (
+            not self._force_python
+            and not self.conflict_resolve  # resolution reads the dict
+            and all(np.issubdtype(np.asarray(a).dtype, np.integer)
+                    for a in list(key_cols.values()) + list(value_cols.values()))
+        )  # the vn{j} NULL companions are bool: the dict backend
+        if ints:
+            try:
+                from risingwave_tpu_torch.native import NativeMvMap
+
+                self._native = NativeMvMap(len(self.pk), len(self.columns))
+                self._backend = "native"
+                keys = (np.stack([key_cols[f"k{j}"] for j in range(len(self.pk))],
+                                 axis=1).astype(np.int64)
+                        if self.pk else np.zeros((n, 0), np.int64))
+                vals = (np.stack([value_cols[f"v{j}"] for j in range(len(self.columns))],
+                                 axis=1).astype(np.int64)
+                        if self.columns else np.zeros((n, 0), np.int64))
+                for j in range(len(self.pk)):
+                    self._dtypes.setdefault(self.pk[j], np.asarray(key_cols[f"k{j}"]).dtype)
+                for j in range(len(self.columns)):
+                    self._dtypes.setdefault(self.columns[j],
+                                            np.asarray(value_cols[f"v{j}"]).dtype)
+                self._native.apply(keys, vals, np.zeros(n, np.uint8))
+                return
+            except (RuntimeError, OSError):
+                self._backend = None
+        self._backend = "python"
+        nls = [value_cols.get(f"vn{j}") for j in range(len(self.columns))]
+        for i in range(n):
+            k = tuple(key_cols[f"k{j}"][i].item() for j in range(len(self.pk)))
+            v = tuple(
+                None if nls[j] is not None and bool(nls[j][i]) else value_cols[f"v{j}"][i].item()
+                for j in range(len(self.columns))
+            )
+            self.rows[k] = v

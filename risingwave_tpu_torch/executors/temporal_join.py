@@ -17,15 +17,17 @@ lanes (``miss | vnulls[slot]``) and ``valid`` (``left`` keeps misses,
 ``apply`` reads ``right.table`` and ``right.state`` each time, never a
 cached copy: the MV grows and rebuilds between chunks.
 
-The host-map right side (the reference's ``_probe_host`` over
-``MaterializeExecutor.snapshot``) waits for the host MV's port and
-raises.
+A host-map right side (``MaterializeExecutor``) is probed on the host,
+as the reference's ``_probe_host`` (:161): the chunk is read back, each
+valid row's key looked up in the MV's snapshot, and the output lanes
+and their NULL lanes built on the chunk's device.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from risingwave_tpu_torch import _kernels
@@ -152,7 +154,30 @@ class TemporalJoinExecutor(Executor):
         return [self._probe_host(chunk)]
 
     def _probe_host(self, chunk: StreamChunk) -> StreamChunk:
-        raise NotImplementedError(
-            "temporal join against a host-map MaterializeExecutor: the host MV is not "
-            "ported yet; use a DeviceMaterializeExecutor right side"
-        )
+        snap = self.right.snapshot()  # pk tuple -> value tuple
+        col_pos = {c: i for i, c in enumerate(self.right.columns)}
+        data = chunk.to_numpy(with_ops=True)
+        n = len(data["__op__"])
+        found = np.zeros(chunk.capacity, np.bool_)
+        outs = {c: np.zeros(chunk.capacity, object) for c in self.output_cols}
+        live = np.flatnonzero(chunk.valid.cpu().numpy())
+        for j, i in enumerate(live[:n]):
+            if any(data.get(k + "__null") is not None and data[k + "__null"][j]
+                   for k in self.left_keys):
+                continue  # a NULL key never matches (SQL unknown)
+            row = snap.get(tuple(data[k][j].item() for k in self.left_keys))
+            if row is not None:
+                found[i] = True
+                for c in self.output_cols:
+                    outs[c][i] = row[col_pos[c]]
+        dev = chunk.device
+        cols = dict(chunk.columns)
+        nulls = dict(chunk.nulls)
+        for c in self.output_cols:
+            vals = outs[c].tolist()
+            cols[c] = torch.from_numpy(np.asarray([0 if v is None else v for v in vals])).to(dev)
+            nulls[c] = torch.from_numpy(~found | np.asarray([v is None for v in vals])).to(dev)
+        valid = chunk.valid
+        if self.join_type != "left":
+            valid = valid & torch.from_numpy(found).to(dev)
+        return StreamChunk(cols, valid, nulls, chunk.ops)

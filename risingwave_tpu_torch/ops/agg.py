@@ -815,8 +815,9 @@ def flush(
     """Emit the per-barrier delta for up to ``out_cap`` dirty groups, in
     ascending slot order (hash_agg.rs:406); updates ``state`` in place.
 
-    Returns ``(state, delta)``; delta holds (2 * out_cap,) lanes
-    ``ops``, ``valid``, ``key<i>``, one per agg output and
+    Returns ``(state, delta)``; delta holds (2 * min(out_cap,
+    capacity),) lanes (the reference's ``order[:out_cap]`` slice is
+    clamped to the table) ``ops``, ``valid``, ``key<i>``, one per agg output and
     ``<output>__isnull`` for NULLABLE_KINDS, with rows interleaved
     (old_i, new_i): old (U-/D) rows carry the previously emitted values,
     new (U+/I) rows the current ones. ``status`` is the (2,) int32
@@ -826,6 +827,7 @@ def flush(
     int64 tensor, if given receives the number of dirty groups before
     this round (counted by the flush's own pass over ``dirty``).
     """
+    out_cap = min(int(out_cap), state.capacity)
     if state.dirty.device.type == "cpu":
         return state, _flush_torch(state, table_keys, out_cap, float_extremes, dirty_total)
     if state.dirty.device.type == "cuda":

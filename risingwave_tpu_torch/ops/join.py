@@ -760,6 +760,38 @@ def regrow(side: JoinSide, new_cap: int, new_fanout: int) -> JoinSide:
     return new
 
 
+def rebuild_side(side: JoinSide, keep: torch.Tensor, new_cap: int) -> JoinSide:
+    """A fresh side of ``new_cap`` keys holding the ``keep`` keys, each
+    bucket at its old in-bucket positions (the reference's
+    ``_evict_side`` rebuild, hash_join.py:650-693): kernel A inserts the
+    keys, kernel I moves the slot lanes and, a bucket row as ``fanout``
+    elements, the 2-D lanes. The latches carry over."""
+    dev = side.device
+    k = side.fanout
+    if new_cap * k >= 2**31:
+        raise ValueError(f"rebuild_side: ({new_cap}, {k}) buckets exceed int32 positions")
+    new = JoinSide.create(
+        new_cap, k, tuple(t.dtype for t in side.table.keys),
+        {n: a.dtype for n, a in side.rows.items()}, tuple(side.row_nulls), device=dev,
+    )
+    new.overflow.copy_(side.overflow)
+    new.inconsistent.copy_(side.inconsistent)
+    new.table, slots, _, _ = lookup_or_insert(new.table, side.table.keys, keep)
+    srcs = (side.table.live, side.sdirty, side.stored)
+    dsts = (new.table.live, new.sdirty, new.stored)
+    if side.ddirty is not None:
+        srcs, dsts = srcs + (side.ddirty,), dsts + (new.ddirty,)
+    move_slots(srcs, dsts, slots, keep)
+    flat = slots.to(torch.int64)[:, None] * k + torch.arange(k, device=dev)
+    flat_slots = torch.where(slots[:, None] >= 0, flat, -1).reshape(-1).to(torch.int32)
+    del flat
+    src = [*side.rows.values(), *side.row_nulls.values(), side.row_valid, side.degree]
+    dst = [*new.rows.values(), *new.row_nulls.values(), new.row_valid, new.degree]
+    move_slots([a.reshape(-1) for a in src], [a.view(-1) for a in dst], flat_slots,
+               keep.repeat_interleave(k))
+    return new
+
+
 def _regrow_entries_torch(side, new, src, dst, keep, new_slots):
     fanout, new_fanout = side.fanout, new.fanout
     entry_pos = torch.cumsum(side.row_valid.to(torch.int64), dim=1) - 1

@@ -113,7 +113,8 @@ from risingwave_tpu_torch.ops.hash_table import stage_packed
 from risingwave_tpu_torch.runtime.bucketing import flush_pad_schedule
 
 __all__ = [
-    "FusedChainExecutor", "FusedTwoInputExecutor", "expand_fused", "fuse_chain",
+    "FusedChainExecutor", "FusedTwoInputExecutor", "checkpointed_executors", "cold_executors",
+    "expand_fused", "fuse_chain",
     "fuse_pipeline", "fuse_two_input", "fused_cache_stats", "fusion_refusals", "lift_plan",
 ]
 
@@ -164,6 +165,22 @@ class FusedPlan:
     @property
     def has_mv(self) -> bool:
         return self.mv_pk is not None
+
+
+def _land_then_merge(wrapper) -> List[StreamChunk]:
+    """An armed cold tier merges the epoch's re-created groups at the
+    barrier: the epoch's rows land first (one program without the
+    flush), then the merge raises the dirty bound the host sizes the
+    flush rounds from. The reference runs the merge before its program,
+    when the epoch's groups are not in the table yet, and so merges
+    nothing on this path (ROADMAP Queue 3). Returns what the first
+    program emitted."""
+    agg = wrapper.agg
+    if agg is None or agg._cold_barrier_hook is None:
+        return []
+    outs = wrapper._run(flush=False, stage=False)
+    agg._cold_barrier_hook()
+    return outs
 
 
 def _delta_chunk(delta: dict, a: AggStatics, pad: Optional[int]) -> StreamChunk:
@@ -467,7 +484,8 @@ class FusedChainExecutor(Executor):
 
     # -- control path -----------------------------------------------------
     def on_barrier(self, barrier: Barrier) -> List[StreamChunk]:
-        outs = self._run(flush=True, stage=True)
+        outs = _land_then_merge(self)
+        outs += self._run(flush=True, stage=True)
         if barrier is None:  # direct drive: checks fire inline
             self.finish_barrier()
         return outs
@@ -527,6 +545,8 @@ class FusedChainExecutor(Executor):
             # host bookkeeping before the program: growth may rebuild
             # member state, and the program must see the final tensors
             if self.agg is not None:
+                if self.agg._cold_stacked_hook is not None:
+                    self.agg._cold_stacked_hook()
                 self.agg._maybe_grow(incoming)
                 self.agg._insert_bound += incoming
                 self.agg._dirty_bound += incoming
@@ -905,7 +925,8 @@ class FusedTwoInputExecutor(Executor):
 
     # -- control path -----------------------------------------------------
     def on_barrier(self, barrier: Barrier) -> List[StreamChunk]:
-        outs = self._run(flush=True, stage=True)
+        outs = _land_then_merge(self)
+        outs += self._run(flush=True, stage=True)
         if barrier is None:  # direct drive: checks fire inline
             self.finish_barrier()
         return outs
@@ -983,6 +1004,8 @@ class FusedTwoInputExecutor(Executor):
         ex = self.l_stateful if side == "l" else self.r_stateful
         if ex is not None and rows:
             if ex is self.agg:
+                if ex._cold_stacked_hook is not None:
+                    ex._cold_stacked_hook()
                 ex._maybe_grow(rows)
                 ex._insert_bound += rows
                 ex._dirty_bound += rows
@@ -992,6 +1015,12 @@ class FusedTwoInputExecutor(Executor):
         return tuple(tuple(seg) for seg in segs), rows, chunks
 
     def _run(self, flush: bool, stage: bool) -> List[StreamChunk]:
+        if self.join._cold_apply_hook is not None:
+            # the program probes both sides as they are: every evicted
+            # bucket comes back before it is dispatched
+            for name in ("left", "right"):
+                if self.join._evicted[name]:
+                    self.join._restore_cold_keys(name, sorted(self.join._evicted[name]))
         left_batches, l_rows, l_chunks = self._prepare_side("l", self.plan.left)
         right_batches, r_rows, r_chunks = self._prepare_side("r", self.plan.right)
         agg = self.agg
@@ -1151,3 +1180,16 @@ def expand_fused(executors) -> List[Executor]:
         else:
             out.append(ex)
     return out
+
+
+def checkpointed_executors(executors) -> List[Executor]:
+    """What a checkpoint stages: ``expand_fused``'s members, an
+    epoch-batched agg's agg in its place."""
+    return [ex.agg if isinstance(ex, EpochBatchedAggExecutor) else ex
+            for ex in expand_fused(executors)]
+
+
+def cold_executors(executors) -> List[Executor]:
+    """The checkpointed executors the cold tier can evict (the hash aggs
+    and hash joins)."""
+    return [ex for ex in checkpointed_executors(executors) if hasattr(ex, "evict_cold")]

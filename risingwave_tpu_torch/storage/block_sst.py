@@ -1,7 +1,9 @@
 """Block-granular SSTs — partial reads, range/backward iteration.
 
 A copy of ``risingwave_tpu/storage/block_sst.py`` with its imports rewritten
-(host only: the port imports nothing of the reference).
+(host only: the port imports nothing of the reference); its point read
+searches the block bounds and matches the block rows for every query at
+once, where the reference loops over the queries.
 
 Reference: src/storage/src/hummock/sstable/builder.rs:95 (block-based
 layout: data blocks + block index + bloom, read via ranged object GETs)
@@ -212,6 +214,67 @@ def order_tuple(values: Sequence[object], dtypes) -> Tuple[int, ...]:
     )
 
 
+def _tuple_less(a: Sequence[np.ndarray], b: Sequence[np.ndarray]) -> np.ndarray:
+    """Row-wise ``tuple(a) < tuple(b)`` over equal-length lanes."""
+    less = np.zeros(len(a[0]), bool)
+    for x, y in zip(reversed(a), reversed(b)):
+        less = (x < y) | ((x == y) & less)
+    return less
+
+
+def _count_below(sorted_lanes: Sequence[np.ndarray], q: Sequence[np.ndarray]) -> np.ndarray:
+    """For each query tuple, how many of the sorted tuples are below it
+    (``bisect_left``), all queries in one sort: a tuple equal to a query
+    sorts after it."""
+    n = len(sorted_lanes[0])
+    kind = np.concatenate([np.ones(n, np.int8), np.zeros(len(q[0]), np.int8)])
+    keys = [np.concatenate([s_, q_]) for s_, q_ in zip(sorted_lanes, q)]
+    order = np.lexsort([kind] + keys[::-1])
+    below = np.cumsum(kind[order]) - kind[order]
+    out = np.empty(len(q[0]), np.int64)
+    is_q = order >= n
+    out[order[is_q] - n] = below[is_q]
+    return out
+
+
+def _canonical(lane: np.ndarray):
+    """A lane as uint64 words equal exactly where ``==`` holds (-0.0 as
+    0.0), and the rows that equal nothing (NaN)."""
+    lane = np.asarray(lane)
+    if lane.dtype.kind == "f":
+        f = np.where(lane == 0, 0.0, lane).astype(np.float64)
+        return f.view(np.uint64), np.isnan(f)
+    return lane.astype(np.int64).view(np.uint64), None
+
+
+def _first_equal(rows: Sequence[np.ndarray], q: Sequence[np.ndarray]) -> np.ndarray:
+    """For each query, the first row whose every lane ``==`` the query's,
+    or -1."""
+    n, m = len(rows[0]), len(q[0])
+    words, bad = [], np.zeros(n + m, bool)
+    for r_, q_ in zip(rows, q):
+        (wr, nr), (wq, nq_) = _canonical(r_), _canonical(q_)
+        words.append(np.concatenate([wr, wq]))
+        if nr is not None:
+            bad |= np.concatenate([nr, nq_])
+    kind = np.concatenate([np.zeros(n, np.int8), np.ones(m, np.int8)])
+    idx = np.arange(n + m)
+    # equal keys run together; within a run the rows come first, in order
+    order = np.lexsort([idx, kind] + words[::-1])
+    same = np.ones(n + m - 1, bool)
+    for w in words:
+        ws = w[order]
+        same &= ws[1:] == ws[:-1]
+    start = np.concatenate([[True], ~same])
+    run_first = order[np.maximum.accumulate(np.where(start, idx, 0))]
+    out = np.full(m, -1, np.int64)
+    is_q = order >= n
+    first = run_first[is_q]
+    good = (first < n) & ~bad[order[is_q]] & ~bad[np.minimum(first, n + m - 1)]
+    out[order[is_q][good] - n] = first[good]
+    return out
+
+
 class BlockSst:
     """Reader over the block layout: header-only open, lazy bloom,
     per-block LRU cache, point/range/backward reads."""
@@ -311,37 +374,46 @@ class BlockSst:
         self, key_cols: Sequence[np.ndarray], mask: np.ndarray
     ):
         """Per masked query: (hit, tomb, row values). Touches at most
-        one block per query key (binary search on block bounds)."""
+        one block per query key (the block bounds searched for all the
+        queries at once); within a block, a query takes the first row
+        whose key lanes equal its own (``==`` of each lane)."""
         nq = len(mask)
         hit = np.zeros(nq, bool)
         tomb = np.zeros(nq, bool)
         vals: Dict[str, np.ndarray] = {}
-        if self.meta.n_rows == 0:
+        qi = np.flatnonzero(mask)
+        if self.meta.n_rows == 0 or not len(qi):
             return hit, tomb, vals
-        qlanes = [np.asarray(c) for c in key_cols]
-        okq = [
-            _order_key(q).astype(np.uint64) for q in qlanes
-        ]
-        for i in np.flatnonzero(mask):
-            qt = tuple(int(a[i]) for a in okq)
-            bi = bisect_left(self._lasts, qt)
-            if bi >= len(self.blocks) or self._firsts[bi] > qt:
+        qlanes = [np.asarray(c)[qi] for c in key_cols]
+        okq = [_order_key(q).astype(np.uint64) for q in qlanes]
+        if not hasattr(self, "_bounds"):
+            lanes = lambda ts: [np.array([t[j] for t in ts], np.uint64)
+                                for j in range(len(ts[0]))]
+            self._bounds = (lanes(self._firsts), lanes(self._lasts))
+        firsts, lasts = self._bounds
+        # bisect_left on the blocks' last keys: the lasts below each query
+        bi = _count_below(lasts, okq)
+        ok = bi < len(self.blocks)
+        at = np.minimum(bi, len(self.blocks) - 1)
+        ok &= ~_tuple_less(okq, [f[at] for f in firsts])
+        for b in np.unique(bi[ok]):
+            sel = np.flatnonzero(ok & (bi == b))
+            blk = self._load_block(int(b))
+            rows = _first_equal(
+                [blk[f"k_{name}"] for name in self.meta.key_names],
+                [q[sel] for q in qlanes],
+            )
+            found = rows >= 0
+            if not found.any():
                 continue
-            blk = self._load_block(bi)
-            rows = np.ones(self.blocks[bi]["n"], bool)
-            for name, q in zip(self.meta.key_names, qlanes):
-                rows &= blk[f"k_{name}"] == q[i]
-            idx = np.flatnonzero(rows)
-            if not len(idx):
-                continue
-            r = int(idx[0])
-            hit[i] = True
-            tomb[i] = bool(blk["tombstone"][r])
+            dst, r = qi[sel[found]], rows[found]
+            hit[dst] = True
+            tomb[dst] = blk["tombstone"][r]
             for vn in self.meta.value_names:
                 col = blk[f"v_{vn}"]
                 if vn not in vals:
                     vals[vn] = np.zeros((nq,) + col.shape[1:], col.dtype)
-                vals[vn][i] = col[r]
+                vals[vn][dst] = col[r]
         return hit, tomb, vals
 
     # -- range scans -----------------------------------------------------

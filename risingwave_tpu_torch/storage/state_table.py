@@ -26,7 +26,9 @@ copied with its imports rewritten; K32, the pull's device gather
 (``_gather`` :165), is kernel R's ``gather_rows`` (``ops/checkpoint.py``):
 one launch packs the selected rows of every lane and one copy brings
 them to pinned host memory, with no padding of ``sel`` (the reference
-pads it for jit's sake). The stage's scalar read and that copy happen
+pads it for jit's sake). The point read's key-range test of a block SST is
+one vectorized tuple comparison (``_tuples_within``), not a loop over
+the queried keys. The stage's scalar read and that copy happen
 inside ``commit_epoch``, after the barrier.
 """
 
@@ -145,6 +147,16 @@ def host_key_view(a: np.ndarray) -> np.ndarray:
     return a
 
 
+def host_key_value(x, dtype):
+    """The number one element of a ``host_key_view`` tuple stands for in
+    a lane of ``dtype`` (a float lane's bit pattern cast back), so that
+    evicted keys compare with a cutoff in the numeric domain."""
+    dt = np.dtype(dtype)
+    if dt.kind == "f":
+        return float(np.array(x, np.int32 if dt.itemsize == 4 else np.int64).view(dt))
+    return x
+
+
 def lanes_from_host_keys(key_tuples, dtypes) -> Dict[str, np.ndarray]:
     """Inverse of host_key_view over a set of canonical key tuples:
     rebuild k{i} lanes in their native dtypes (bit-casting back into
@@ -232,6 +244,18 @@ class Checkpointable:
             f"{type(self).__name__} has no state_digest() — "
             "see rwlint RW-E709"
         )
+
+
+def _tuples_within(lanes, lo: tuple, hi: tuple) -> np.ndarray:
+    """``lo <= (lanes[0][i], lanes[1][i], ...) <= hi`` compared as tuples
+    (lexicographically), for every row i; uint64 lanes."""
+    ge = np.ones(len(lanes[0]), bool)
+    le = np.ones(len(lanes[0]), bool)
+    for j in reversed(range(len(lanes))):
+        a, x, y = lanes[j], np.uint64(lo[j]), np.uint64(hi[j])
+        ge = (a > x) | ((a == x) & ge)
+        le = (a < y) | ((a == y) & le)
+    return ge & le
 
 
 class CheckpointManager:
@@ -889,11 +913,8 @@ class CheckpointManager:
                     _order_key(np.asarray(l)).astype(np.uint64)
                     for l in lanes
                 ]
-                in_rng = np.ones(n, bool)
-                for qi in range(n):
-                    t = tuple(int(a[qi]) for a in qts)
-                    in_rng[qi] = fr <= t <= la
-                cand = unresolved & in_rng
+                # fr <= key <= la as tuples, for every query at once
+                cand = unresolved & _tuples_within(qts, fr, la)
                 if not cand.any():
                     continue
                 hit, tombs, vals = sst.point_read(lanes, cand)

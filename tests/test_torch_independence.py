@@ -1,7 +1,8 @@
 """The port stands alone: ``risingwave_tpu_torch`` imports neither jax nor
 ``risingwave_tpu``, runs q5, q8, q7 (with watermarks) and q19 (both
-TopN executors) and an unnest into an Expand on the CPU when asked to,
-commits and recovers q5 through its own storage layer, and refuses to fall back to the CPU when CUDA is asked for but absent.
+TopN executors), an unnest into an Expand and the host MV (both
+backends) on the CPU when asked to, commits and recovers q5 through its
+own storage layer, runs q5 evicting its agg after every commit, and refuses to fall back to the CPU when CUDA is asked for but absent.
 
 A subprocess is needed because tests/conftest.py imports jax into every
 pytest process.
@@ -41,7 +42,8 @@ for m in ("runtime.fused_step", "executors.epoch_batch", "integrity", "executors
           "executors.row_id_gen", "executors.top_n", "executors.top_n_plain",
           "executors.simple_agg", "array.composite", "array.arrow", "executors.project_set",
           "executors.expand", "executors.temporal_join", "executors.generators",
-          "executors.troublemaker", "executors.sort", "executors.over_window"):
+          "executors.troublemaker", "executors.sort", "executors.over_window",
+          "ops.cold_tier", "native", "executors.materialize"):
     assert "risingwave_tpu_torch." + m in mods, m
 assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
 
@@ -149,6 +151,28 @@ srt.apply(StreamChunk.from_numpy({"t": [3, 1, 2], "p": [1, 1, 2]}, 4, device="cp
 (ranked,) = OverWindowExecutor(("p",), (WindowCall("row_number", None, "rn"),),
                                {"p": torch.int64}, capacity=16, device="cpu").apply(closed)
 assert ranked.to_numpy()["rn"].tolist() == [1, 1]
+
+from risingwave_tpu_torch.executors import MaterializeExecutor
+from risingwave_tpu_torch.storage import MemObjectStore
+from risingwave_tpu_torch.types import Op
+
+for force in (False, True):
+    hmv = MaterializeExecutor(("k",), ("v",), table_id="hmv")
+    hmv._force_python = force
+    hmv.apply(StreamChunk.from_numpy({"k": [1, 2, 1], "v": [5, 6, 7]}, 4, device="cpu"))
+    assert hmv.snapshot() == {(1,): (7,), (2,): (6,)}
+    assert hmv._backend == ("python" if force else "native")
+
+cold = build_q5_lite(capacity=1 << 10, state_cleaning=False, device="cpu")
+mgr = CheckpointManager(MemObjectStore())
+cold.agg.cold_reader = lambda keys: mgr.get_rows(cold.agg.table_id, keys)
+gen = NexmarkGenerator(NexmarkConfig(first_event_rate=50_000))
+for _ in range(2):
+    cold.pipeline.push(gen.next_chunks(400, 400, device="cpu")["bid"])
+    cold.pipeline.barrier()
+    mgr.commit_epoch(cold.pipeline.epoch, cold.pipeline.executors)
+    assert cold.agg.evict_cold() > 0
+assert cold.mview.snapshot() == snap and cold.agg.cold_counts["merged"] > 0
 
 assert not torch.cuda.is_available()
 for make in (lambda: build_q5_lite(), lambda: build_q8(), lambda: build_q7(),

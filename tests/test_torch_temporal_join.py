@@ -157,9 +157,26 @@ def test_plain_probe_step_lane_for_lane():
 
 
 def test_host_map_right_side_is_not_ported():
-    class HostMv:  # a right side that is not a device MV
+    """Kept under its old name: a host-map right side (the host MV, now
+    ported) is probed on the host as the reference's ``_probe_host``,
+    lane for lane equal to it (``tests/test_torch_materialize_host.py``
+    holds more cases); a right side that is neither MV still fails."""
+    from risingwave_tpu.executors.materialize import MaterializeExecutor as RefHostMv
+    from risingwave_tpu_torch.executors.materialize import MaterializeExecutor
+
+    mv = MaterializeExecutor(("id",), ("x",), table_id="dim")
+    rmv = RefHostMv(("id",), ("x",), table_id="dim")
+    rp, rr = both({"id": np.arange(3), "x": np.array([7, 8, 9])}, 4)
+    mv.apply(rp)
+    rmv.apply(rr)
+    lp, lr = both({"auction": np.array([2, 5])}, 2)
+    for jt in ("inner", "left"):
+        (got,) = TemporalJoinExecutor(mv, ("auction",), ("x",), jt).apply(lp)
+        (want,) = RefTj(rmv, ("auction",), ("x",), jt).apply(lr)
+        assert_probe_equal(got, want, jt)
+
+    class HostMv:  # a right side that is not an MV
         pk = ("id",)
 
-    lp, _ = both({"auction": np.arange(2)}, 2)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(AttributeError):
         TemporalJoinExecutor(HostMv(), ("auction",), ("x",)).apply(lp)

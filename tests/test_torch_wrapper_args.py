@@ -1,5 +1,5 @@
 """The CUDA wrappers of kernels H, J, L, M, N, O, P, Q, S, T, U, V, W, X,
-Y, Z, AA and AB marshal their arguments as their C entry points
+Y, Z, AA-AF and AG marshal their arguments as their C entry points
 declare them (``_kernels.SIGNATURES``), checked on the CPU: each
 wrapper runs on CPU tensors while ``_kernels.call`` is replaced by a
 ``ctypes.CFUNCTYPE`` callback of the entry point's signature, so a
@@ -10,6 +10,7 @@ on the card.
 
 import ctypes
 
+import numpy as np
 import pytest
 import torch
 
@@ -585,3 +586,45 @@ def test_ae_and_af_entries_marshal(calls):
                      ("over_diff", "rw_over_diff")]
     assert [_kernels.LAUNCHES[k] for k in ("window_order", "window_calls", "over_apply",
                                            "over_diff")] == [2, 1, 1, 1]
+
+
+def test_ag_entries_marshal(calls):
+    """Kernel AG: the select in its three modes (an agg state's marks, a
+    join side's with and without ``ddirty``, the merge candidates) and
+    the merge over an agg state's lanes, every op and dtype, the
+    parameters counted by the callback."""
+    from risingwave_tpu_torch.ops import agg
+    from risingwave_tpu_torch.ops import checkpoint as ck
+    from risingwave_tpu_torch.ops import cold_tier as ct
+
+    cap, n = 4096, 24
+    table = ht.HashTable.create(cap, (torch.int64,), device="cpu")
+    z = lambda: torch.zeros(cap, dtype=torch.bool)
+    sel, hot, status = ct._cold_select_launch(ct.AGG, table.fp1, table.live, z(), z(), z(), z())
+    assert sel.shape == hot.shape == (cap,) and status.shape == (3,)
+    ct._cold_select_launch(ct.JOIN, table.fp1, table.live, z(), z(), ddirty=z())
+    ct._cold_select_launch(ct.JOIN, table.fp1, table.live, z(), z())
+    sel, hot, _ = ct._cold_select_launch(ct.MERGE, table.fp1, table.live, z(), z())
+    assert hot is None
+    with pytest.raises(TypeError, match="bool marks"):
+        ct._cold_select_launch(ct.JOIN, table.fp1, table.live, z(), z().to(torch.int8))
+    calls_ = (agg.AggCall("count_star", None, "n"), agg.AggCall("sum", "f", "sf"),
+              agg.AggCall("sum", "h", "sh"), agg.AggCall("min", "f", "mnf"),
+              agg.AggCall("max", "w", "mxw"))
+    st = agg.create_state(cap, calls_, {"f": torch.float64, "h": torch.float32,
+                                        "w": torch.int32}, device="cpu")
+    lanes = ct.agg_merge_lanes(st, calls_)
+    assert {ln.op for ln in lanes} == {ct.SET, ct.ADD, ct.MIN, ct.MAX, ct.TRUE}
+    with_rows = {ln.name: ln.dst for ln in lanes if ln.op != ct.TRUE}
+    layout, total = ck._layout(with_rows, n)
+    packed = torch.zeros(total, dtype=torch.uint8)
+    ct._cold_merge_launch(lanes, torch.arange(n, dtype=torch.int32), packed, layout,
+                          st.row_count, table.live)
+    with pytest.raises(TypeError, match="int32 slots"):
+        ct._cold_merge_launch(lanes, torch.arange(n), packed, layout, st.row_count, table.live)
+    assert calls == [("cold_tier", "rw_cold_select")] * 4 + [("cold_tier", "rw_cold_merge")]
+    assert _kernels.LAUNCHES["cold_select"] == 4 and _kernels.LAUNCHES["cold_merge"] == 1
+    with pytest.raises(TypeError, match="integer lanes"):
+        ct.cold_merge([ct.MergeLane("x", torch.zeros(cap), ct.MIN)],
+                      torch.arange(2, dtype=torch.int32), {"x": np.zeros(2)}, st.row_count,
+                      table.live)
