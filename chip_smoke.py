@@ -218,7 +218,7 @@ Phases, each printing one JSON line:
      of row_number, lag and sum);
   with AC (append, emit), AD, AE (EOWC emit, general recompute) and AF
   (apply with a ghost and a bad delete, diff) in phase 3 and the three
-  paths' kills in phase 16 (6 epochs, the kill after barrier 4);
+  paths' kills in phase 16 (5 epochs, the kill after barrier 3);
   32. q5 (hop, COUNT(*) 2^24, a device MV and a host MV beside it) under
      a device budget of a quarter of the un-evicted run's state: a
      commit into a LocalFsObjectStore after every barrier, then
@@ -241,7 +241,24 @@ Phases, each printing one JSON line:
   multiset rows) in phase 3;
   then a host phase: VALUES into an MV, NOW over three barriers, a
   troublemaker at rate 1 whose logged faults show in the MV behind it,
-  and phase 28's enrichment with its auctions in a host MV (one epoch).
+  and phase 28's enrichment with its auctions in a host MV (one epoch);
+  35. q5 from SQL (``StreamPlanner`` at bench.py's capacity, then
+     ``graph_planned_mv``) over phase 4's chunks through the actor
+     graph: one actor (bench.py's setting, no hash dispatch), and 4
+     parallel agg actors behind kernel AH's dispatch masks, fused chains
+     in the actors and chunk by chunk; each MV against the oracle and
+     phase 4's MV, every instance owning some groups, their sum the
+     MV's; no actor thread alive after ``close()``; the read guard under
+     two threads;
+  36. q8 from SQL at 4 parallel join actors over phase 7's events, both
+     ways, its host MV against the q8 actor and phase 7's MV;
+  37. q7 from SQL, one join actor (its keys trace to no source column,
+     as in the reference), over phase 9's first chunk, both ways, against
+     the q7 actor; the next chunk overflows the join side as in the
+     reference's plan;
+  with AH (vnode_of on every key dtype, the dispatch masks for 2-4
+  downstreams) in phase 3 and phase 16's q5 from SQL killed at 4 actors
+  and recovered at 3 (every restored row routed by AH's vnode_of).
 Phase 16 also kills and recovers q19 and q105 (after phase 23), q102
 (after phase 24), phases 25 and 26 (after q5-max's kill) and phase 28
 (after phase 28). Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
@@ -4161,7 +4178,7 @@ KILL_EPOCHS = 10  # of each query's stream (the tables keep phases 4-14's sizes)
 KILL_AT = 6  # commits after barriers 1-6, then the kill
 # the kills of q19 and the window paths (p29-p31), cut for the script's
 # time limit
-WIN_KILL_EPOCHS, WIN_KILL_AT = 6, 4
+WIN_KILL_EPOCHS, WIN_KILL_AT = 5, 3
 R_ENTRIES = ("checkpoint", "gather_rows", "mark_checkpointed", "scatter_rows")
 
 
@@ -5185,9 +5202,9 @@ Q19_CAP = 1 << 26
 Q19AO_CAP = 1 << 22
 Q19AO_OUT_CAP = 1 << 17
 Q19_MV_CAP = 1 << 24
-# phases 21-22 run phase 4's first Q19_EPOCHS epochs (cut from 20 for the
+# phases 21-22 run phase 4's first Q19_EPOCHS epochs (cut from 20, then 10, for the
 # script's time limit); barriers Q19_CHECKS are held against the oracle
-Q19_EPOCHS = 10
+Q19_EPOCHS = 8
 Q19_CHECKS = (4, Q19_EPOCHS - 1)
 Q19_COLS = ("_row_id", "auction", "bidder", "price", "channel", "date_time")
 Q19_PRICE_BITS = 27  # prices stay below 2^27 (round(10^6 * 100) at most)
@@ -8698,6 +8715,505 @@ def p28_host_path(torch, dev, host, chunks, a_chunks, epochs: int = 1):
                       "numpy oracle (= the device-MV run of phase 28) at every barrier"}
 
 
+# -- phases 35-37 and phase 16's graph kill: SQL through the actor graph ----
+# the SQL of __graft_entry__.py:20-50 (bench.py:729's q5), copied
+Q5_SQL = (
+    "CREATE MATERIALIZED VIEW q5 AS "
+    "SELECT auction, window_start, count(*) AS num "
+    "FROM HOP(bid, date_time, INTERVAL '2' SECOND, INTERVAL '10' SECOND) "
+    "GROUP BY auction, window_start"
+)
+Q7_SQL = (
+    "CREATE MATERIALIZED VIEW q7 AS "
+    "SELECT b.auction, b.bidder, b.price, b.wstart FROM "
+    "(SELECT auction, bidder, price, window_start AS wstart "
+    " FROM TUMBLE(bid, date_time, INTERVAL '10' SECOND)) AS b "
+    "JOIN "
+    "(SELECT max(price) AS maxprice, window_start AS mwstart "
+    " FROM TUMBLE(bid, date_time, INTERVAL '10' SECOND) "
+    " GROUP BY window_start) AS m "
+    "ON b.wstart = m.mwstart AND b.price = m.maxprice"
+)
+Q8_SQL = (
+    "CREATE MATERIALIZED VIEW q8 AS "
+    "SELECT p.id, p.name, p.starttime FROM "
+    "(SELECT id, name, window_start AS starttime "
+    " FROM TUMBLE(person, date_time, INTERVAL '10' SECOND) "
+    " GROUP BY id, name, window_start) AS p "
+    "JOIN "
+    "(SELECT seller, window_start AS astarttime "
+    " FROM TUMBLE(auction, date_time, INTERVAL '10' SECOND) "
+    " GROUP BY seller, window_start) AS a "
+    "ON p.id = a.seller AND p.starttime = a.astarttime"
+)
+GRAPH_P = 4  # parallel actors of a partitioned fragment
+GRAPH_RESTORE_P = 3  # phase 16's graph kill recovers at another parallelism
+AH_ROWS = (65_536, 1 << 20)  # vnode_of against its plain version at these sizes
+AH_OF_ROWS = 1 << 22  # vnode_of's timing shape: a restored agg's dispatch-key lane
+# the depth the reference's SQL q7 plan holds on phase 9's stream: its join
+# side's (window, price) keys pass the planner's fanout of 16 in chunk 2
+# (bid 14,739; the reference raises there on the CPU as the port does)
+Q7_SQL_CHUNKS = 1
+GRAPH_Q5_KERNELS = ("hop_expand", "lookup_or_insert", "agg_flush", "mv_upsert")
+GRAPH_Q8_KERNELS = ("hop_expand", "lookup_or_insert", "dedup_emit", "join_apply", "join_probe")
+
+
+def sql_factory(dev, tables, cap: int):
+    """A fresh planner per call over the Nexmark tables named, as
+    ``graph_planned_mv`` wants one per instance."""
+    from risingwave_tpu_torch.connectors import nexmark as nx
+    from risingwave_tpu_torch.sql import Catalog, StreamPlanner
+
+    schemas = {"bid": nx.BID_SCHEMA, "person": nx.PERSON_SCHEMA, "auction": nx.AUCTION_SCHEMA}
+    catalog = Catalog({t: schemas[t] for t in tables})
+    return lambda: StreamPlanner(catalog, capacity=cap, device=dev)
+
+
+def partitioned_views(mv) -> list:
+    from risingwave_tpu_torch.runtime.fragmenter import PartitionedStateView
+
+    return [v for v in mv.pipeline.executors if isinstance(v, PartitionedStateView)]
+
+
+def union_digest(view) -> int:
+    """Kernel H's digest of a partitioned agg's whole table: each packed
+    (sum, xor) instance digest combined as one table's (the instances'
+    key spaces are disjoint), so it does not depend on the parallelism."""
+    from risingwave_tpu_torch import integrity
+
+    s = x = 0
+    for inst in view._instances:
+        d = integrity.digest_from_scalar(integrity.device_digest(*inst.digest_lanes()))
+        s, x = (s + (d >> 32)) & 0xFFFFFFFF, x ^ (d & 0xFFFFFFFF)
+    return (s << 32) | x
+
+
+def instance_groups(view) -> list:
+    return [int(inst.table.live.sum()) for inst in view._instances]
+
+
+def kernel_ah(torch, dev, bid):
+    """AH against its plain versions on the card, bit for bit: vnode_of
+    over 65,536 and 2^20 rows of every key dtype (float lanes with -0.0,
+    +0.0, NaNs of two payloads, infinities), two- and three-lane keys and
+    a strided lane; the dispatch masks for 2, 3 and 4 downstreams on a
+    q5 bid chunk with invalid rows. Times both entries at the main
+    path's shapes."""
+    from risingwave_tpu_torch.ops import hashing as H
+
+    rng = np.random.default_rng(SEED + 35)
+    keys = [("int64",), ("int32",), ("bool",), ("float32",), ("float64",), ("int64", "int64"),
+            ("int64", "float64", "bool"), ("int32", "float32", "int64")]
+    checked = 0
+    for n in AH_ROWS:
+        f32, f64 = rng.standard_normal(n).astype(np.float32), rng.standard_normal(n)
+        specials = [0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf]
+        f32[:6], f64[:6] = specials, specials
+        f32[6] = np.array(0x7FC00123, np.uint32).view(np.float32)
+        f64[6] = np.array(0x7FF0000000000ABC, np.uint64).view(np.float64)
+        host = {"int64": rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64),
+                "int32": rng.integers(-(2**31), 2**31, n).astype(np.int32),
+                "bool": rng.random(n) < 0.5, "float32": f32, "float64": f64}
+        lanes = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        for key in keys:
+            cols = [lanes[k] if i == 0 else torch.roll(lanes[k], i) for i, k in enumerate(key)]
+            got = H._vnode_of_cuda(cols)
+            check(torch.equal(got, H._vnode_of_torch(cols)), f"AH vnode_of {key}, {n} rows")
+            if key[0].startswith("float"):
+                g = got[:7].tolist()
+                check(g[0] == g[1] and g[2] == g[3] == g[6], f"AH: -0.0 and NaNs, {key}")
+            checked += 1
+        wide = torch.stack([lanes["int64"], lanes["float64"].view(torch.int64)], 1)
+        got = H._vnode_of_cuda([wide[:, 1], wide[:, 0]])
+        check(torch.equal(got, H._vnode_of_torch([wide[:, 1].contiguous(), lanes["int64"]])),
+              f"AH vnode_of on strided lanes, {n} rows")
+    n = bid.capacity
+    auction = bid.col("auction")
+    valid = bid.valid.clone()
+    valid[::7] = False
+    check(int((~valid).sum()) > 0, "AH: the bid chunk has invalid rows")
+    for n_down in (2, 3, 4):
+        got = H._vnode_dispatch_cuda([auction], valid, n_down)
+        check(torch.equal(got, H._vnode_slice_masks_torch([auction], valid, n_down)),
+              f"AH dispatch masks, {n_down} downstreams")
+        check(torch.equal(got.sum(0), valid.to(torch.int64)), "AH: one downstream a valid row")
+    ms = time_ms(torch, lambda: H._vnode_dispatch_cuda([auction], valid, GRAPH_P), 50)
+    plain = time_ms(torch, lambda: H._vnode_slice_masks_torch([auction], valid, GRAPH_P), 20)
+    lane = torch.from_numpy(rng.integers(0, 1 << 40, AH_OF_ROWS, dtype=np.int64)).to(dev)
+    ms_of = time_ms(torch, lambda: H._vnode_of_cuda([lane]), 50)
+    plain_of = time_ms(torch, lambda: H._vnode_of_torch([lane]), 10)
+    common = {"route": "cuda", "source": "risingwave_tpu_torch/csrc/vnode.cu",
+              "max_abs_err": 0.0, "bound_by": "bytes", "library_ms": None,
+              "library_call": "none (no PyTorch call hashes rows)"}
+    return [
+        {"name": "AH dispatch masks", **common,
+         "replaces": "risingwave_tpu/runtime/graph.py:172", "ms": ms, "plain_ms": plain,
+         # the key lane 8 and valid 1 read, n_down mask bytes written, per row
+         "bound_ms": bound_ms(n * (9 + GRAPH_P)),
+         "shape": {"rows": n, "key_lanes": 1, "n_down": GRAPH_P,
+                   "invalid_rows": int((~valid).sum()), "cases_checked": checked + 3}},
+        {"name": "AH vnode_of", **common,
+         "replaces": "risingwave_tpu/ops/hashing.py:129", "ms": ms_of, "plain_ms": plain_of,
+         "bound_ms": bound_ms(AH_OF_ROWS * 12),  # an int64 lane read, int32 vnodes written
+         "shape": {"rows": AH_OF_ROWS, "key_lanes": 1}},
+    ]
+
+
+def check_sync_guard_threads(torch, dev) -> dict:
+    """The fused program's guard under actor threads, on the card: a read
+    inside one thread's guarded block raises, another thread's read at
+    the same moment does not, and the sync mode is restored after both."""
+    import threading
+
+    from risingwave_tpu_torch.runtime import fused_step as fs
+
+    probe = torch.zeros(1, device=dev)
+    a_inside, b_done = threading.Event(), threading.Event()
+    seen = {}
+
+    def guarded():
+        with fs.shared_device_thread():
+            with fs.no_device_reads(dev):
+                a_inside.set()
+                b_done.wait(30)
+                try:
+                    probe.item()
+                    seen["a"] = "read let through"
+                except fs.DeviceReadInFusedProgram:
+                    seen["a"] = "raised"
+
+    def reader():
+        with fs.shared_device_thread():
+            a_inside.wait(30)
+            try:
+                probe.item()
+                seen["b"] = "read"
+            except Exception as e:  # noqa: BLE001 -- reported by the check below
+                seen["b"] = repr(e)
+            finally:
+                b_done.set()
+
+    ts = [threading.Thread(target=guarded), threading.Thread(target=reader)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(60)
+    check(seen == {"a": "raised", "b": "read"}, f"the read guard under two threads: {seen}")
+    check(torch.cuda.get_sync_debug_mode() == 0, "the read guard restored the sync mode")
+    return seen
+
+
+def run_graph(torch, mv, epochs_data, push):
+    """Drive a planned MV's graph over the epochs (``push(pipeline,
+    epoch)``, a barrier, the card drained), timed; returns the barrier
+    ms, the run's seconds, launches and peak bytes."""
+    from risingwave_tpu_torch import _kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    barrier_ms = []
+    t_run = time.perf_counter()
+    for ep in epochs_data:
+        push(mv.pipeline, ep)
+        tb = time.perf_counter()
+        mv.pipeline.barrier()
+        torch.cuda.synchronize()
+        barrier_ms.append((time.perf_counter() - tb) * 1e3)
+    run_s = time.perf_counter() - t_run
+    return barrier_ms, run_s, dict(_kernels.LAUNCHES), torch.cuda.max_memory_allocated()
+
+
+def graph_row(phase, key, mv, p, eb, barrier_ms, run_s, rows_in, launches, peak, alive, **extra):
+    return {
+        "phase": phase, "path": key, "parallelism": p, "epoch_batch": eb,
+        "actors": len(mv.pipeline.graph.actors), "actors_alive_after_close": alive,
+        "plan": [type(e).__name__ for e in mv.pipeline.executors],
+        "rows_per_s": rows_in / run_s, "run_s": run_s,
+        "barrier_ms_p50": float(np.percentile(barrier_ms, 50)),
+        "barrier_ms_p99": float(np.percentile(barrier_ms, 99)), "barrier_ms": barrier_ms,
+        "max_memory_allocated": int(peak), "launches": launches, **extra,
+    }
+
+
+def q5_graph_paths(torch, dev, chunks, oracle, q5_rows):
+    """Phase 35: q5 from SQL (``graph_planned_mv``, bench.py's planner
+    capacity) over phase 4's chunks: one actor (bench.py's own setting,
+    no hash dispatch), and GRAPH_P parallel agg actors behind AH's
+    dispatch, fused chains in the actors and chunk by chunk. Each MV
+    against the numpy oracle and phase 4's MV; at GRAPH_P every instance
+    owns some groups but not all, and their groups sum to the MV's."""
+    import gc
+
+    from risingwave_tpu_torch.runtime.fragmenter import graph_planned_mv
+
+    cap = state_cap(2 * EVENTS_PER_EPOCH, 1 << 16)
+    factory = sql_factory(dev, ("bid",), cap)
+    n_chunks = sum(len(ep) for ep in chunks)
+    n_bids = sum(int(c.valid.sum()) for ep in chunks for c in ep)
+    want = sort_rows(np.stack(oracle, 1))
+    check(np.array_equal(q5_rows, want), "phase 35: phase 4's MV = the oracle")
+
+    def push(pipeline, ep):
+        for c in ep:
+            pipeline.push(c)
+
+    rows, launches = [], {}
+    for key, p, eb in (("q5_sql_p1", 1, True), (f"q5_sql_p{GRAPH_P}", GRAPH_P, True),
+                       (f"q5_sql_p{GRAPH_P}_chunked", GRAPH_P, False)):
+        mv = graph_planned_mv(factory, Q5_SQL, parallelism=p, epoch_batch=eb)
+        graph = mv.pipeline.graph
+        try:
+            barrier_ms, run_s, got_l, peak = run_graph(torch, mv, chunks, push)
+            got = mv_table_rows(mv.mview, P25_NAMES)
+            check(np.array_equal(got, want), f"{key}: MV ({len(got)} rows) = the oracle and "
+                                             "phase 4's MV")
+            groups = None
+            if p > 1:
+                (view,) = partitioned_views(mv)
+                groups = instance_groups(view)
+                del view  # it holds the instances: the next run must not
+                check(all(0 < g < len(want) for g in groups), f"{key}: every instance owns "
+                                                              f"some groups, none all: {groups}")
+                check(sum(groups) == len(got), f"{key}: instances' groups sum to the MV's")
+            check(got_l["vnode_dispatch"] == (n_chunks if p > 1 else 0),
+                  f"{key}: AH's dispatch once a chunk ({got_l['vnode_dispatch']})")
+            for name in GRAPH_Q5_KERNELS:
+                check(got_l[name] > 0, f"{key}: kernel {name} launched")
+        finally:
+            mv.pipeline.close()
+        alive = sum(a.is_alive() for a in graph.actors)
+        check(alive == 0, f"{key}: no actor thread alive after close()")
+        launches[key] = got_l
+        rows.append(graph_row("35", key, mv, p, eb, barrier_ms, run_s, n_bids, got_l, peak,
+                              alive, planner_capacity=cap, chunks=n_chunks, bids=n_bids,
+                              groups=int(len(got)), groups_per_instance=groups,
+                              oracle="numpy q5 oracle and phase 4's MV: equal"))
+        del mv, graph  # the graph's actors hold the executors, in reference cycles
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows[-1]["sync_guard_threads"] = check_sync_guard_threads(torch, dev)
+    return rows, launches
+
+
+def q8_sql_rows(mview) -> np.ndarray:
+    """The SQL q8's host MV as (id, starttime, name) rows, sorted as
+    ``oracle_rows``."""
+    got = mview.to_numpy()
+    rows = np.stack([got["id"], got["starttime"], got["name"].astype(np.int64)], 1)
+    return rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+
+
+def q8_graph_paths(torch, dev, host, chunks, oracle, rows7):
+    """Phase 36: q8 from SQL at GRAPH_P parallel join actors over phase
+    7's events (each epoch's person chunk pushed left, its auction chunk
+    right), fused chains in the actors and chunk by chunk; the host MV
+    tail on the terminal actor against the copy of cpu_actor_q8 and
+    phase 7's MV."""
+    import gc
+
+    from risingwave_tpu_torch.runtime.fragmenter import graph_planned_mv
+
+    factory = sql_factory(dev, ("person", "auction"), Q8_CAP)
+    rows_in = sum(len(p["id"]) + len(a["seller"]) for p, a in host)
+    check(np.array_equal(rows7, oracle), "phase 36: phase 7's MV = the q8 actor")
+
+    def push(pipeline, ep):
+        pipeline.push_left(ep[0])
+        pipeline.push_right(ep[1])
+
+    rows, launches = [], {}
+    for key, eb in ((f"q8_sql_p{GRAPH_P}", True), (f"q8_sql_p{GRAPH_P}_chunked", False)):
+        mv = graph_planned_mv(factory, Q8_SQL, parallelism=GRAPH_P, epoch_batch=eb)
+        graph = mv.pipeline.graph
+        try:
+            barrier_ms, run_s, got_l, peak = run_graph(torch, mv, chunks, push)
+            got = q8_sql_rows(mv.mview)
+            check(got.shape == oracle.shape and np.array_equal(got, oracle),
+                  f"{key}: MV ({len(got)} rows) = the q8 actor and phase 7's MV")
+            check(got_l["vnode_dispatch"] == 2 * len(chunks),
+                  f"{key}: AH's dispatch once a chunk on each side")
+            for name in GRAPH_Q8_KERNELS:
+                check(got_l[name] > 0, f"{key}: kernel {name} launched")
+            check(len(partitioned_views(mv)) == 3, f"{key}: both dedups and the join partitioned")
+        finally:
+            mv.pipeline.close()
+        alive = sum(a.is_alive() for a in graph.actors)
+        check(alive == 0, f"{key}: no actor thread alive after close()")
+        launches[key] = got_l
+        rows.append(graph_row("36", key, mv, GRAPH_P, eb, barrier_ms, run_s, rows_in, got_l,
+                              peak, alive, planner_capacity=Q8_CAP, mv_rows=int(len(got)),
+                              oracle="bench.py's cpu_actor_q8 (copied) and phase 7's MV: "
+                                     "equal"))
+        del mv, graph  # the graph's actors hold the executors, in reference cycles
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def q7_graph_paths(torch, dev, host, chunks):
+    """Phase 37: q7 from SQL. Its join keys trace to no source column, so
+    ``graph_planned_mv`` builds one join actor at any parallelism, as the
+    reference. Over phase 9's first Q7_SQL_CHUNKS chunks (the depth the
+    reference's plan holds: its join side's keys pass the fanout of 16
+    in the next chunk), both ways, the MV against the copy of
+    cpu_actor_q7; then the next chunk overflows the join side at the
+    barrier, as the reference's does."""
+    import gc
+
+    from risingwave_tpu_torch.queries.nexmark_q import Q7_WINDOW_MS
+    from risingwave_tpu_torch.runtime.fragmenter import graph_planned_mv
+
+    factory = sql_factory(dev, ("bid",), Q7_CAP)
+    data = [[c] for c in chunks[0][:Q7_SQL_CHUNKS]]
+    want = actor_rows(cpu_actor_q7(host[0][:Q7_SQL_CHUNKS], Q7_WINDOW_MS))
+    rows_in = sum(len(c["auction"]) for c in host[0][:Q7_SQL_CHUNKS])
+
+    def push(pipeline, ep):
+        for c in ep:
+            pipeline.push_left(c)
+            pipeline.push_right(c)
+
+    rows, launches = [], {}
+    for key, eb in (("q7_sql", True), ("q7_sql_chunked", False)):
+        mv = graph_planned_mv(factory, Q7_SQL, parallelism=GRAPH_P, epoch_batch=eb)
+        graph = mv.pipeline.graph
+        overflow = None
+        try:
+            names = sorted(a.actor_name for a in graph.actors)
+            check(names == ["join#0", "left_src#0", "right_src#0"],
+                  f"{key}: one join actor ({names})")
+            barrier_ms, run_s, got_l, peak = run_graph(torch, mv, data, push)
+            got = q7_mv_rows(mv.mview)
+            check(len(want) and got.shape == want.shape and np.array_equal(got, want),
+                  f"{key}: MV ({len(got)} rows) = the q7 actor")
+            for name in ("hop_expand", "lookup_or_insert", "join_apply", "join_probe"):
+                check(got_l[name] > 0, f"{key}: kernel {name} launched")
+            check(got_l["vnode_dispatch"] == 0, f"{key}: no hash dispatch")
+            push(mv.pipeline, [chunks[0][Q7_SQL_CHUNKS]])
+            try:
+                mv.pipeline.barrier()
+            except RuntimeError as e:
+                overflow = repr(e.__cause__)
+            check(overflow is not None and "overflowed" in overflow,
+                  f"{key}: the next chunk overflows the join side as the reference's plan")
+        finally:
+            mv.pipeline.close()
+        alive = sum(a.is_alive() for a in graph.actors)
+        check(alive == 0, f"{key}: no actor thread alive after close()")
+        launches[key] = got_l
+        rows.append(graph_row("37", key, mv, GRAPH_P, eb, barrier_ms, run_s, rows_in, got_l,
+                              peak, alive, planner_capacity=Q7_CAP, chunks=Q7_SQL_CHUNKS,
+                              mv_rows=int(len(got)), next_chunk=overflow,
+                              oracle="bench.py's cpu_actor_q7 (copied) over these chunks: "
+                                     "equal"))
+        del mv, graph  # the graph's actors hold the executors, in reference cycles
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def kill_q5_graph(torch, dev, chunks, q5_oracle10):
+    """Phase 16's q5 from SQL: GRAPH_P parallel agg actors, a commit into
+    a LocalFsObjectStore after every barrier, killed (the graph closed,
+    every object gone) after barrier KILL_AT of KILL_EPOCHS, recovered
+    into a fresh graph at GRAPH_RESTORE_P actors (every restored row
+    routed by AH's vnode_of), and continued beside an uninterrupted run
+    at GRAPH_P: the MV's and the agg table's kernel-H digests equal at
+    every barrier, the rows at the end, and the oracle."""
+    import gc
+    import shutil
+    import tempfile
+
+    from risingwave_tpu_torch import _kernels
+    from risingwave_tpu_torch.runtime.fragmenter import graph_planned_mv
+    from risingwave_tpu_torch.storage import CheckpointManager, LocalFsObjectStore
+
+    factory = sql_factory(dev, ("bid",), state_cap(2 * EVENTS_PER_EPOCH, 1 << 16))
+    ep = chunks[:KILL_EPOCHS]
+
+    def drive(q, e):
+        for c in ep[e]:
+            q.pipeline.push(c)
+        q.pipeline.barrier()
+
+    def state(q):
+        (view,) = partitioned_views(q)
+        return {"agg": union_digest(view), "mv": mv_digest(q.mview)}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    store_dir = tempfile.mkdtemp(prefix="rw_ckpt_")
+    a = b = a2 = None
+    try:
+        a = graph_planned_mv(factory, Q5_SQL, parallelism=GRAPH_P)
+        b = graph_planned_mv(factory, Q5_SQL, parallelism=GRAPH_P)
+        mgr = CheckpointManager(LocalFsObjectStore(store_dir))
+        rec = {"stage_ms": [], "sst_ms": [], "commit_ms": [], "rows": [], "bytes": []}
+        for e in range(KILL_AT):
+            drive(a, e)
+            drive(b, e)
+            timed_commit(torch, mgr, a.pipeline.epoch, a.pipeline.executors, rec)
+        pre = state(a)
+        check(pre == state(b), "q5 graph: A = B before the kill")
+        pre_rows = mv_table_rows(a.mview, P25_NAMES)
+        a.pipeline.close()
+        check(not any(t.is_alive() for t in a.pipeline.graph.actors), "q5 graph: A closed")
+        del a, mgr
+        a = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        a2 = graph_planned_mv(factory, Q5_SQL, parallelism=GRAPH_RESTORE_P)
+        before = _kernels.LAUNCHES["vnode_of"]
+        rec_a2 = timed_recover(torch, store_dir, a2)
+        routed = _kernels.LAUNCHES["vnode_of"] - before
+        a2.pipeline._epoch = rec_a2["epoch"]
+        check(routed > 0, "q5 graph: the restore routed rows through AH's vnode_of")
+        check(np.array_equal(mv_table_rows(a2.mview, P25_NAMES), pre_rows),
+              "q5 graph: recovered MV = pre-kill")
+        check(state(a2) == pre, "q5 graph: recovered agg and MV digests = pre-kill")
+        (view,) = partitioned_views(a2)
+        groups = instance_groups(view)
+        check(len(groups) == GRAPH_RESTORE_P and min(groups) > 0,
+              f"q5 graph: every recovered instance owns groups ({groups})")
+        for e in range(KILL_AT, KILL_EPOCHS):
+            drive(a2, e)
+            drive(b, e)
+            check(state(a2) == state(b), f"q5 graph barrier {e + 1}: recovered = B")
+        got = mv_table_rows(a2.mview, P25_NAMES)
+        check(np.array_equal(got, mv_table_rows(b.mview, P25_NAMES)), "q5 graph: rows = B's")
+        check(np.array_equal(got, sort_rows(np.stack(q5_oracle10, 1))),
+              "q5 graph: MV = the oracle")
+        torch.cuda.synchronize()
+        launches = dict(_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        for k in R_ENTRIES:
+            check(launches[k] > 0, f"q5 graph: kernel R's {k} launched")
+        pct = lambda xs, p: float(np.percentile(xs, p))
+        return {
+            "phase": "16", "query": "q5_sql_graph", "epochs": KILL_EPOCHS,
+            "kill_after_barrier": KILL_AT, "parallelism": GRAPH_P,
+            "recovered_parallelism": GRAPH_RESTORE_P, "vnode_of_launches": routed,
+            "groups_per_instance_after_recovery": groups,
+            "commit_ms_p50": pct(rec["commit_ms"], 50), "commit_ms_p99": pct(rec["commit_ms"], 99),
+            "stage_ms_p50": pct(rec["stage_ms"], 50), "sst_put_ms_p50": pct(rec["sst_ms"], 50),
+            "commit_ms": rec["commit_ms"], "rows_staged": rec["rows"],
+            "bytes_staged": rec["bytes"], **rec_a2, "mv_rows": int(len(got)),
+            "max_memory_allocated": int(peak), "launches": launches,
+            "checks": "recovered MV rows and the agg's and MV's kernel-H digests = pre-kill; "
+                      "the recovered run (3 actors) = the uninterrupted one (4) at every "
+                      "barrier (digests), rows at the end; MV = oracle",
+        }, launches
+    finally:
+        for q in (a, a2, b):
+            if q is not None:
+                q.pipeline.close()
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
@@ -8810,6 +9326,14 @@ def main() -> int:
     q5_rows = mv_table_rows(interp_q5.mview, P25_NAMES)
     del interp_q5
     torch.cuda.empty_cache()
+    # phase 3's AH and phase 35 (q5 from SQL through the actor graph) on phase 4's stream
+    ah_rows = kernel_ah(torch, dev, chunks[0][0])
+    for r in ah_rows:
+        emit({"phase": "kernel", **r})
+    rows35, l35 = q5_graph_paths(torch, dev, chunks, oracle, q5_rows)
+    for r in rows35:
+        emit(r)
+    torch.cuda.empty_cache()
     # phases 25 and 26 take phase 4's stream too
     rows25, l25 = p25_paths(torch, dev, chunks, cap, q5_rows)
     for r in rows25:
@@ -8839,6 +9363,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     (k5_row, l16_q5), q5_oracle10 = kill_q5(torch, dev, chunks, cap)
     emit(k5_row)
+    torch.cuda.empty_cache()
+    k5g_row, l16_q5g = kill_q5_graph(torch, dev, chunks, q5_oracle10)
+    emit(k5g_row)
     k5m_row, l16_q5m = kill_q5_max(torch, dev, chunks, cap, q5_oracle10)
     emit(k5m_row)
     torch.cuda.empty_cache()
@@ -8930,11 +9457,17 @@ def main() -> int:
         torch.cuda.empty_cache()
     q8_row8, l8, fused_q8 = q8_fused_path(torch, dev, host, q8_chunks, caps, interp_q8, q8_oracle)
     emit(q8_row8)
+    q8_rows7 = q8_mv_rows(interp_q8.mview)
     del interp_q8
     torch.cuda.empty_cache()
     hj_row = kernel_h_join(torch, dev, fused_q8.join)
     emit({"phase": "kernel", **hj_row})
     del fused_q8
+    torch.cuda.empty_cache()
+    rows36, l36 = q8_graph_paths(torch, dev, host, q8_chunks, q8_oracle, q8_rows7)
+    for r in rows36:
+        emit(r)
+    del q8_rows7
     if args.profile:
         torch.cuda.empty_cache()
         emit(profile_q8(torch, dev, q8_chunks, args.profile, fused=True))
@@ -8965,6 +9498,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     row20, l20 = q7_scan_path(torch, dev, q7_host, q7_chunks)
     emit(row20)
+    torch.cuda.empty_cache()
+    rows37, l37 = q7_graph_paths(torch, dev, q7_host, q7_chunks)
+    for r in rows37:
+        emit(r)
     del q7_host, q7_chunks, interp_rec
     torch.cuda.empty_cache()
 
@@ -9056,7 +9593,8 @@ def main() -> int:
             (ac_rows[0], "arena"), (ac_rows[1], "arena_emit"), (ad_row, "over_step"),
             (ae_row, "window_calls"), (ae_gen_row, "window_order"), (ap_row, "over_apply"),
             (df_row, "over_diff")] + list(zip(ag_rows, ("cold_select", "cold_merge",
-                                                         "scatter_rows")))
+                                                         "scatter_rows"))) + list(zip(
+                ah_rows, ("vnode_dispatch", "vnode_of")))
     paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8, "q7": l9, "q7_fused": l10,
              "q101": l11, "q101_fused": l12, "q5_max": l13, "q5_max_fused": l14, **l15,
              "q5_recover": l16_q5, "q5_max_recover": l16_q5m, "q8_recover": l16_q8,
@@ -9065,9 +9603,9 @@ def main() -> int:
              **l21, "q19_recover": l16_q19, **l23, "q105_recover": l16_q105, **l24,
              "q102_recover": l16_q102, **l25, **l26, **l27, **l28, "p25_recover": l16_p25,
              "p26_recover": l16_p26, "p28_recover": l16_p28, **l29, **l30, **l31, **l16_win,
-             **l32, **l33, **l34}
+             **l32, **l33, **l34, **l35, "q5_sql_graph_recover": l16_q5g, **l36, **l37}
     for row, key in rows:
-        # each main path's run counts from zero: phases 4, 6-34 (a path
+        # each main path's run counts from zero: phases 4, 6-37 (a path
         # of a phase that drives several in lockstep counts its own calls)
         row["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())

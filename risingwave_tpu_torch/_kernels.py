@@ -11,7 +11,7 @@ Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
 A, C, D, E, F, G, H, J, L, M, N, O, P, Q, R, S, T, U, V, W, X, Y, Z,
-AA, AB, AC, AD, AE, AF and AG (an entry point may launch several kernels in order on the stream),
+AA, AB, AC, AD, AE, AF, AG and AH (an entry point may launch several kernels in order on the stream),
 two per call of B (the apply and its set_live), one per 24 lanes moved
 by a call of I; the entry points of ``ENTRY_KEYS`` count under their
 own names (S's ``rw_project`` under ``expr_eval``, its ``rw_filter``
@@ -25,8 +25,12 @@ under ``expr_filter``, X's ``rw_group_topk_mask`` under
 ``rw_window_calls`` under ``window_calls``, AF's ``rw_over_apply`` under
 ``over_apply`` and its ``rw_over_diff`` under ``over_diff``, AG's
 ``rw_cold_select`` under ``cold_select`` and its ``rw_cold_merge`` under
-``cold_merge``; a Project whose outputs are
+``cold_merge``, AH's ``rw_vnode_dispatch`` under ``vnode_dispatch`` and
+its ``rw_vnode_of`` under ``vnode_of``; a Project whose outputs are
 all bare columns launches nothing).
+
+Parallel actors launch from several threads at once: ``library`` loads
+each library under a lock, and ``LAUNCHES`` counts under another.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -81,6 +86,7 @@ SOURCES = {
     "window_calls": "window_calls.cu",
     "over_diff": "over_diff.cu",
     "cold_tier": "cold_tier.cu",
+    "vnode_dispatch": "vnode.cu",
 }
 
 # C entry points: (argtypes,) — every pointer and the stream as c_void_p
@@ -206,6 +212,10 @@ SIGNATURES = {
         "rw_cold_select": [_I, _L] + [_P] * 12 + [_P],
         "rw_cold_merge": [_P, _I, _P, _L, _P, _P, _P],
     },
+    "vnode_dispatch": {
+        "rw_vnode_of": [_P, _I, _L, _P, _P],
+        "rw_vnode_dispatch": [_P, _I, _L, _P, _I, _P, _P],
+    },
 }
 
 # slots per block of the stream compaction of kernels R and Z
@@ -262,7 +272,8 @@ DTYPE_CODES = {
 # kernel AC's emit (its append counts as "arena"), AE's order (its calls
 # count as "window_calls"), AF's apply (its diff counts as "over_diff"),
 # or one of kernel AG's two cold-tier entries (each under its own name;
-# "cold_tier" itself stays 0)
+# "cold_tier" itself stays 0), or AH's vnode lane alone (a restore's
+# routing; its dispatch masks count as "vnode_dispatch")
 ENTRY_KEYS = {
     "rw_lookup": "lookup",
     "rw_first_occurrence": "first_occurrence",
@@ -285,11 +296,14 @@ ENTRY_KEYS = {
     "rw_over_apply": "over_apply",
     "rw_cold_select": "cold_select",
     "rw_cold_merge": "cold_merge",
+    "rw_vnode_of": "vnode_of",
 }
 
 LAUNCHES = {name: 0 for name in (*SOURCES, *ENTRY_KEYS.values())}
 
 _LIBS: dict = {}
+_LIBS_LOCK = threading.Lock()
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -350,14 +364,18 @@ def build_all() -> float:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built first if missing."""
     lib = _LIBS.get(name)
-    if lib is None:
-        if not _lib_path(name).exists():
-            build_all()
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LIBS_LOCK:  # two actors' first launches must not both run nvcc
+        lib = _LIBS.get(name)
+        if lib is None:
+            if not _lib_path(name).exists():
+                build_all()
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[name] = lib
     return lib
 
 
@@ -377,7 +395,8 @@ def call(name: str, fn: str, *args) -> None:
     rc = getattr(library(name), fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}.{fn}: CUDA error {rc}")
-    LAUNCHES[ENTRY_KEYS.get(fn, name)] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[ENTRY_KEYS.get(fn, name)] += 1
 
 
 def int64_rows(rows, max_rows: int) -> ctypes.Array:

@@ -297,3 +297,15 @@ def register_external_udf(*args, **kwargs):
 
 def drop_function(name: str) -> bool:
     raise NotImplementedError("UDFs are not ported yet")
+
+
+def is_protected(name: str) -> bool:
+    """Whether ``name`` is a UDF the session may not drop or replace
+    (reference :771). No UDF can be registered yet, so none is."""
+    return False
+
+
+def udf_signature(name: str):
+    """(out_field, arg_fields) of a registered UDF, else None (reference
+    :775; the SQL typing pass reads it). No UDF can be registered yet."""
+    return None

@@ -43,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import math
 import struct
+import threading
 from dataclasses import dataclass
 from functools import cached_property
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -774,6 +775,7 @@ def output_types(exprs, signature) -> Dict[str, Tuple[torch.dtype, bool]]:
 
 _PROGRAMS: Dict[tuple, Program] = {}
 _STATS = {"hits": 0, "compiled": 0}
+_PROGRAMS_LOCK = threading.Lock()  # parallel actors compile and count at once
 
 
 def cache_stats() -> dict:
@@ -797,13 +799,14 @@ def program_for(exprs, chunk, filter_: bool, tree=None) -> Program:
     cols = tree.columns()
     sig = tuple((n, chunk.col(n).dtype, n in chunk.nulls) for n in cols)
     key = (filter_, tree.key, sig)
-    prog = _PROGRAMS.get(key)
-    if prog is None:
-        prog = compile_program(exprs, {n: (d, nb) for n, d, nb in sig}, filter_)
-        _PROGRAMS[key] = prog
-        _STATS["compiled"] += 1
-    else:
-        _STATS["hits"] += 1
+    with _PROGRAMS_LOCK:
+        prog = _PROGRAMS.get(key)
+        if prog is None:
+            prog = compile_program(exprs, {n: (d, nb) for n, d, nb in sig}, filter_)
+            _PROGRAMS[key] = prog
+            _STATS["compiled"] += 1
+        else:
+            _STATS["hits"] += 1
     return prog
 
 

@@ -13,7 +13,10 @@ These are the plain PyTorch versions. torch on the CPU has no uint32
 ``+``, ``<<`` or ``>>``, so every uint32 value here is carried in an
 int64 lane in [0, 2**32) and masked with ``& 0xFFFFFFFF`` after each
 step. On the card the same chain runs inside kernel A
-(``csrc/hashing.cuh``), where fingerprints are computed and stored.
+(``csrc/hashing.cuh``), where fingerprints are computed and stored, and
+inside kernel AH (``csrc/vnode.cu``), which ``vnode_of`` and
+``vnode_slice_masks`` launch on CUDA tensors (the rest of K1 and K33,
+``risingwave_tpu/runtime/graph.py:172-177``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from risingwave_tpu_torch import _kernels
 
 VNODE_COUNT = 256  # parity with VirtualNode::COUNT (vnode.rs:54-56)
 
@@ -109,5 +114,63 @@ def group_key_lanes(chunk, names: Sequence[str]) -> tuple:
 
 
 def vnode_of(cols: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Row -> virtual node in [0, 256) (reference: vnode.rs:34)."""
+    """Row -> virtual node in [0, 256), int32 (reference: vnode.rs:34)."""
+    if cols[0].device.type == "cuda":
+        return _vnode_of_cuda(cols)
+    return _vnode_of_torch(cols)
+
+
+def vnode_slice_masks(cols: Sequence[torch.Tensor], valid: torch.Tensor,
+                      n_down: int) -> torch.Tensor:
+    """The hash dispatcher's (n_down, n) bool masks: row ``d`` is
+    ``valid & (vnode % n_down == d)``, the reference's
+    ``_vnode_slice_mask(cols, valid, n_down, d)`` for every ``d``."""
+    if valid.device.type == "cuda":
+        return _vnode_dispatch_cuda(cols, valid, n_down)
+    return _vnode_slice_masks_torch(cols, valid, n_down)
+
+
+def _vnode_of_torch(cols):
     return (hash_columns(cols, seed=SEED_VNODE) % VNODE_COUNT).to(torch.int32)
+
+
+def _vnode_slice_masks_torch(cols, valid, n_down: int):
+    dest = (_vnode_of_torch(cols) % n_down).to(torch.int64)
+    downs = torch.arange(n_down, dtype=torch.int64, device=valid.device)
+    return valid[None, :] & (dest[None, :] == downs[:, None])
+
+
+def _vnode_lane_rows(cols, n: int, what: str) -> list:
+    """(pointer, dtype code, element stride) of each 1-D key lane on the
+    card; a dtype AH does not take raises (no plain fallback)."""
+    if not 1 <= len(cols) <= 8:
+        raise ValueError(f"{what}: takes 1 to 8 key lanes, got {len(cols)}")
+    for c in cols:
+        if c.dim() != 1 or c.shape[0] != n:
+            raise ValueError(f"{what}: key lanes must have shape ({n},)")
+    # a one-row view is contiguous whatever the lane's stride
+    _kernels.check_cuda(what, *(c[:1] for c in cols))
+    return [(c.data_ptr(), _kernels.dtype_code(c), c.stride(0)) for c in cols]
+
+
+def _vnode_of_cuda(cols):
+    n = cols[0].shape[0]
+    rows = _vnode_lane_rows(cols, n, "vnode_of")
+    vnode = torch.empty(n, dtype=torch.int32, device=cols[0].device)
+    _kernels.call("vnode_dispatch", "rw_vnode_of", _kernels.int64_rows(rows, 8), len(rows), n,
+                  vnode.data_ptr())
+    return vnode
+
+
+def _vnode_dispatch_cuda(cols, valid, n_down: int):
+    n = valid.shape[0]
+    _kernels.check_cuda("vnode_dispatch", valid, n=n)
+    if valid.dtype != torch.bool:
+        raise TypeError("valid must be a bool lane")
+    if n_down < 1:
+        raise ValueError("n_down must be at least 1")
+    rows = _vnode_lane_rows(cols, n, "vnode_dispatch")
+    mask = torch.empty((n_down, n), dtype=torch.bool, device=valid.device)
+    _kernels.call("vnode_dispatch", "rw_vnode_dispatch", _kernels.int64_rows(rows, 8), len(rows),
+                  n, valid.data_ptr(), n_down, mask.data_ptr())
+    return mask

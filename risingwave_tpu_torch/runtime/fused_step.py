@@ -78,6 +78,9 @@ lifting is always on), and ``defer_pure``.
 from __future__ import annotations
 
 import dataclasses as _dc
+import os
+import threading
+import warnings
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -187,19 +190,86 @@ def _delta_chunk(delta: dict, a: AggStatics, pad: Optional[int]) -> StreamChunk:
     return delta_to_chunk(delta, a.group_keys, a.nullable, a.calls, pad)
 
 
+def fused_enabled() -> bool:
+    """The fused per-barrier program is on unless ``RW_FUSED_STEP=0``;
+    then an actor falls back to the epoch-batched interpreted chain
+    (reference :102-109, read by the actor graph)."""
+    return os.environ.get("RW_FUSED_STEP", "1") != "0"
+
+
+# -- the read guard ----------------------------------------------------------
+# torch's sync debug mode is process-global, and parallel actors run fused
+# programs in several threads at once. With no actor thread alive the guard
+# is what it always was: mode "error" for the block. While actor threads
+# share the card, the first guarded thread sets mode "warn" and a
+# warnings hook sorts each synchronizing call by its thread: inside a
+# guarded block it raises, outside (another actor's barrier read) it is
+# dropped. The last guarded thread to leave restores the mode.
+_SYNC_MESSAGE = "called a synchronizing CUDA operation"
+_GUARD_LOCK = threading.Lock()
+_GUARD = {"depth": 0, "prev": None, "shared": 0, "hooked": False}
+_GUARD_LOCAL = threading.local()
+
+
+class DeviceReadInFusedProgram(RuntimeError):
+    """A fused program waited for the card inside its read guard."""
+
+
+def _sorting_showwarning(message, category, filename, lineno, file=None, line=None):
+    if _SYNC_MESSAGE in str(message):
+        if getattr(_GUARD_LOCAL, "depth", 0):
+            raise DeviceReadInFusedProgram(str(message))
+        return  # another thread's legitimate read
+    _GUARD["showwarning"](message, category, filename, lineno, file, line)
+
+
+def _hook_sync_warnings() -> None:
+    if not _GUARD["hooked"]:
+        _GUARD["showwarning"] = warnings.showwarning
+        warnings.showwarning = _sorting_showwarning
+        warnings.filterwarnings("always", message=_SYNC_MESSAGE)
+        _GUARD["hooked"] = True
+
+
 @contextmanager
-def no_device_reads(device: torch.device):
-    """Raise on any operation that waits for the card (a device->host
-    read, a synchronize) inside the block; a no-op on the CPU."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
+def shared_device_thread():
+    """Marks the calling thread as one of several sharing the card (an
+    actor's run loop) for as long as the block lasts."""
+    with _GUARD_LOCK:
+        _GUARD["shared"] += 1
     try:
         yield
     finally:
-        torch.cuda.set_sync_debug_mode(prev)
+        with _GUARD_LOCK:
+            _GUARD["shared"] -= 1
+
+
+@contextmanager
+def no_device_reads(device: torch.device):
+    """Raise on any operation that waits for the card (a device->host
+    read, a synchronize) inside the block; a no-op on the CPU. Safe when
+    several actor threads hold it at once (see above)."""
+    if device.type != "cuda":
+        yield
+        return
+    with _GUARD_LOCK:
+        if _GUARD["depth"] == 0:
+            _GUARD["prev"] = torch.cuda.get_sync_debug_mode()
+            if _GUARD["shared"]:
+                _hook_sync_warnings()
+                torch.cuda.set_sync_debug_mode("warn")
+            else:
+                torch.cuda.set_sync_debug_mode("error")
+        _GUARD["depth"] += 1
+    _GUARD_LOCAL.depth = getattr(_GUARD_LOCAL, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _GUARD_LOCAL.depth -= 1
+        with _GUARD_LOCK:
+            _GUARD["depth"] -= 1
+            if _GUARD["depth"] == 0:
+                torch.cuda.set_sync_debug_mode(_GUARD["prev"])
 
 
 def _fused_barrier_fn(states, stacked, params, plan: FusedPlan, pads, has_data: bool):
@@ -304,6 +374,7 @@ def _fused_barrier_body(states, stacked, plan: FusedPlan, pads, has_data: bool):
 
 # -- multi-tenant compile sharing: lift per-MV constants to runtime operands --
 _LIFT_STATS = {"lifted": 0, "rejected": 0}
+_LIFT_LOCK = threading.Lock()
 
 
 def _lift_step(step, ints: list, floats: list):
@@ -467,10 +538,12 @@ class FusedChainExecutor(Executor):
         if ok:
             self._exec_plan, self._params = lifted, params
             self._lift_state = "on"
-            _LIFT_STATS["lifted"] += 1
+            with _LIFT_LOCK:
+                _LIFT_STATS["lifted"] += 1
         else:
             self._lift_state = "off"
-            _LIFT_STATS["rejected"] += 1
+            with _LIFT_LOCK:
+                _LIFT_STATS["rejected"] += 1
 
     # -- data path --------------------------------------------------------
     def apply(self, chunk: StreamChunk) -> List[StreamChunk]:

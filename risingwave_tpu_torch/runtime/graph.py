@@ -1,0 +1,1252 @@
+"""Fragment-graph runtime: actors, dispatchers, permit channels, merge.
+
+Reference roles replaced (SURVEY.md §2.3 "Runtime (task layer)" + "Exchange"):
+- ``LocalStreamManager`` building/driving actors from a fragment graph
+  (src/stream/src/task/stream_manager.rs:89) -> ``GraphRuntime``;
+- ``Actor`` as the scheduling unit driving its executor chain
+  (src/stream/src/executor/actor.rs:131) -> ``FragmentActor`` threads;
+- permit-based exchange channels with record budgets and barrier
+  bypass (src/stream/src/executor/exchange/permit.rs:35-90) ->
+  ``PermitChannel``;
+- ``DispatchExecutor`` hash/broadcast/simple/round-robin routing
+  (src/stream/src/executor/dispatch.rs:42,425,683,852,932,606) ->
+  ``*Dispatcher``;
+- ``MergeExecutor`` n-way barrier alignment — the Chandy-Lamport
+  alignment point (src/stream/src/executor/merge.rs:32,
+  executor/barrier_align.rs) -> the actor's input loop;
+- ``LocalBarrierManager`` per-actor barrier collection
+  (src/stream/src/task/barrier_manager.rs:857) ->
+  ``GraphRuntime.inject_barrier`` waiting on the collect latch.
+
+Re-design: actors are host threads (device programs already run
+async on the card's stream, so threads buy pipeline overlap of host
+staging + device compute, not GIL-bound CPU parallelism). Hash dispatch
+does NOT compact rows per downstream: each downstream receives the
+same fixed-capacity chunk with ``valid`` narrowed to its vnode slice —
+one fused device op per edge, zero host syncs, static shapes
+throughout. Compaction happens only where a kernel needs it (the
+sharded all_to_all exchange in parallel/exchange.py).
+
+Port of ``risingwave_tpu/runtime/graph.py``. The hash dispatcher's row
+masks for every downstream come from one launch of kernel AH
+(``ops/hashing.vnode_slice_masks``, ``csrc/vnode.cu``; the reference's
+``_vnode_slice_mask`` :172-177, K33). Every actor thread launches on
+the one default stream: a channel hands a chunk over on the host after
+its producing launches were queued, so the consumer's launches queue
+behind them. The observability hooks (transfer guard, epoch stages,
+profiler windows, spans, the blackbox's wedge sentinel and stall dumps)
+are not ported; a barrier timeout raises with the stuck actors named.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
+
+from risingwave_tpu_torch import utils_sync_point as sync_point
+from risingwave_tpu_torch.array.chunk import StreamChunk
+from risingwave_tpu_torch.executors.base import Barrier, Epoch, Executor, Watermark
+from risingwave_tpu_torch.ops.hashing import vnode_slice_masks
+from risingwave_tpu_torch.runtime.pipeline import _walk_watermark, walk_chain
+
+
+def _default_barrier_timeout() -> float:
+    import os
+
+    try:
+        return float(os.environ.get("RW_BARRIER_TIMEOUT_S", "120"))
+    except ValueError:
+        return 120.0
+
+# message kinds flowing through channels
+CHUNK, BARRIER, WATERMARK, STOP = "chunk", "barrier", "watermark", "stop"
+
+
+class PermitChannel:
+    """Bounded in-process exchange edge (permit.rs:35).
+
+    Data sends cost ``capacity-of-chunk`` record permits and block while
+    the budget is exhausted; control messages (barrier / watermark /
+    stop) bypass the budget so backpressure can never deadlock the
+    barrier (the reference gives barriers their own semaphore,
+    permit.rs:60)."""
+
+    def __init__(
+        self,
+        record_permits: int = 1 << 16,
+        cv: Optional[threading.Condition] = None,
+        abort: Optional[threading.Event] = None,
+        fence: Optional[threading.Event] = None,
+    ):
+        self._budget = record_permits
+        self._avail = record_permits
+        self._q: deque = deque()
+        # consumers may share one Condition across all their input
+        # channels to support wait-on-any (the reference's select over
+        # upstream inputs, merge.rs:32)
+        self._cv = cv if cv is not None else threading.Condition()
+        # set when the graph is failing/being killed: blocked senders
+        # must wake and drop instead of wedging forever on a dead
+        # consumer's permits
+        self._abort = abort
+        # per-CONSUMER fence (partial recovery): while the consuming
+        # actor is fenced for a scoped rebuild, data sends drop instead
+        # of blocking or piling up — the runtime's replay buffer
+        # re-derives that data into the rebuilt subtree. Control
+        # messages still enqueue (the dead channel is discarded whole).
+        self._fence = fence
+
+    def send_chunk(self, chunk: StreamChunk) -> None:
+        cost = min(chunk.capacity, self._budget)
+        with self._cv:
+            while self._avail < cost:
+                if self._abort is not None and self._abort.is_set():
+                    return  # graph aborting: drop data, never wedge
+                if self._fence is not None and self._fence.is_set():
+                    return  # consumer fenced for rebuild: drop, replay re-derives
+                self._cv.wait(timeout=0.1)
+            if self._fence is not None and self._fence.is_set():
+                return
+            self._avail -= cost
+            self._q.append((CHUNK, chunk, cost, time.perf_counter()))
+            self._cv.notify_all()
+
+    def send_control(self, kind: str, payload=None) -> None:
+        with self._cv:
+            self._q.append((kind, payload, 0, time.perf_counter()))
+            self._cv.notify_all()
+
+    def recv(self, block: bool = True):
+        """Pop one message, returning permits for data (permit.rs:80).
+        Returns (kind, payload) or None when non-blocking and empty."""
+        with self._cv:
+            while not self._q:
+                if not block:
+                    return None
+                self._cv.wait()
+            kind, payload, cost, _enq = self._q.popleft()
+            if cost:
+                self._avail += cost
+            self._cv.notify_all()
+            return kind, payload
+
+    def peek_kind(self) -> Optional[str]:
+        with self._cv:
+            return self._q[0][0] if self._q else None
+
+    def oldest_pending(self) -> Optional[dict]:
+        """Age of the head message + the first pending barrier's epoch,
+        or None when empty — backpressure attribution's raw signal: a
+        deep channel whose head is FRESH is draining; one whose head
+        has been sitting since epoch N is stuck behind a slow consumer
+        (the distinction a bare depth count cannot make)."""
+        with self._cv:
+            if not self._q:
+                return None
+            head_ts = self._q[0][3]
+            epoch = None
+            # bounded scan for the first barrier's epoch (channels are
+            # permit-bounded; typical depth is tiny at barrier edges)
+            for kind, payload, _cost, _ts in self._q:
+                if kind == BARRIER:
+                    epoch = getattr(
+                        getattr(payload, "epoch", None), "curr", None
+                    )
+                    break
+        return {
+            "age_ms": (time.perf_counter() - head_ts) * 1e3,
+            "epoch": epoch,
+        }
+
+    def __len__(self) -> int:
+        with self._cv:
+            return len(self._q)
+
+
+# ---------------------------------------------------------------------------
+# Dispatchers (dispatch.rs:425) — pure routing, one fused device op/edge
+# ---------------------------------------------------------------------------
+
+
+class Dispatcher:
+    """Routes an output chunk onto downstream channels."""
+
+    def __init__(self, outputs: Sequence[PermitChannel]):
+        self.outputs = list(outputs)
+
+    def dispatch(self, chunk: StreamChunk) -> None:
+        raise NotImplementedError
+
+    def control(self, kind: str, payload=None) -> None:
+        for ch in self.outputs:
+            ch.send_control(kind, payload)
+
+
+class HashDispatcher(Dispatcher):
+    """vnode(dist key) routing (dispatch.rs:683 + vnode.rs:34): each
+    downstream sees the full chunk with ``valid`` narrowed to its vnode
+    share — same rows land on the same downstream forever, so keyed
+    state is downstream-local."""
+
+    def __init__(self, outputs, dist_keys: Sequence[str]):
+        super().__init__(outputs)
+        self.dist_keys = list(dist_keys)
+
+    def dispatch(self, chunk: StreamChunk) -> None:
+        n = len(self.outputs)
+        if n == 1:
+            self.outputs[0].send_chunk(chunk)
+            return
+        lanes = tuple(chunk.col(k) for k in self.dist_keys)
+        masks = vnode_slice_masks(lanes, chunk.valid, n)  # one launch, every row
+        for d, ch in enumerate(self.outputs):
+            ch.send_chunk(
+                StreamChunk(chunk.columns, masks[d], chunk.nulls, chunk.ops)
+            )
+
+
+class BroadcastDispatcher(Dispatcher):
+    """Every downstream gets every chunk (dispatch.rs:852)."""
+
+    def dispatch(self, chunk: StreamChunk) -> None:
+        for ch in self.outputs:
+            ch.send_chunk(chunk)
+
+
+class SimpleDispatcher(Dispatcher):
+    """1:1 / NoShuffle edge (dispatch.rs:932)."""
+
+    def dispatch(self, chunk: StreamChunk) -> None:
+        self.outputs[0].send_chunk(chunk)
+
+
+class RoundRobinDispatcher(Dispatcher):
+    """Whole chunks rotate across downstreams (dispatch.rs:606) — only
+    legal above stateless fragments."""
+
+    def __init__(self, outputs):
+        super().__init__(outputs)
+        self._next = 0
+
+    def dispatch(self, chunk: StreamChunk) -> None:
+        self.outputs[self._next].send_chunk(chunk)
+        self._next = (self._next + 1) % len(self.outputs)
+
+
+def _mk_dispatcher(kind, outputs, dist_keys=None) -> Dispatcher:
+    if kind == "hash":
+        return HashDispatcher(outputs, dist_keys or [])
+    if kind == "broadcast":
+        return BroadcastDispatcher(outputs)
+    if kind == "simple":
+        return SimpleDispatcher(outputs)
+    if kind == "round_robin":
+        return RoundRobinDispatcher(outputs)
+    raise ValueError(f"unknown dispatcher kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Fragment actors
+# ---------------------------------------------------------------------------
+
+
+class _Collector:
+    """Terminal 'dispatcher' for sink-less fragments: chunks land in a
+    thread-safe list the caller can drain (test/CLI surface)."""
+
+    def __init__(self):
+        self.chunks: List[StreamChunk] = []
+        self._lock = threading.Lock()
+
+    def dispatch(self, chunk: StreamChunk) -> None:
+        with self._lock:
+            self.chunks.append(chunk)
+
+    def control(self, kind: str, payload=None) -> None:
+        pass
+
+    def drain(self) -> List[StreamChunk]:
+        with self._lock:
+            out, self.chunks = self.chunks, []
+            return out
+
+
+class FragmentActor(threading.Thread):
+    """One actor: aligned input loop -> executor chain -> dispatcher
+    (actor.rs:165 run / :181 run_consumer).
+
+    ``inputs`` is [(port, channel)]: port 0 feeds the main (or left)
+    chain, port 1 the right chain of a two-input fragment. Barrier
+    alignment: a channel that has yielded the current barrier is parked
+    (not polled) until every channel reaches it — Chandy-Lamport
+    alignment exactly as MergeExecutor/BarrierAligner do."""
+
+    def __init__(
+        self,
+        name: str,
+        chain: Sequence[Executor],
+        inputs: Sequence[Tuple[int, PermitChannel]],
+        dispatcher,
+        mgr: "GraphRuntime",
+        join=None,
+        right_chain: Sequence[Executor] = (),
+        tail: Sequence[Executor] = (),
+        halt: Optional[threading.Event] = None,
+    ):
+        super().__init__(name=f"actor-{name}", daemon=True)
+        self.actor_name = name
+        self.chain = list(chain)
+        self.join_exec = join
+        self.right_chain = list(right_chain)
+        self.tail = list(tail)
+        self.inputs = list(inputs)
+        self.dispatcher = dispatcher
+        self.mgr = mgr
+        # fence/halt for scoped rebuild (partial recovery): when set,
+        # the run loop exits WITHOUT forwarding STOP — the whole
+        # fenced subtree is discarded and rebuilt around fresh channels
+        self.halt = halt if halt is not None else threading.Event()
+        # True while processing a message / barrier (False only in the
+        # idle wait) — the scoped rebuild's drain-quiesce reads this
+        self.busy = True
+        self.error: Optional[BaseException] = None
+        # per-(channel,column) watermark frontier for min-alignment
+        self._wm_seen: Dict[Tuple[int, str], int] = {}
+        self._wm_sent: Dict[str, int] = {}
+        self._stopped: List[bool] = [False] * len(self.inputs)
+
+    # -- chain plumbing ---------------------------------------------------
+    def _through(self, chain, chunks, barrier=None):
+        return walk_chain(chain, chunks, barrier)
+
+    def _emit(self, chunks: Sequence[StreamChunk]) -> None:
+        for c in chunks:
+            self.dispatcher.dispatch(c)
+
+    def _process_chunk(self, port: int, chunk: StreamChunk) -> None:
+        if self.join_exec is None:
+            self._emit(self._through(self.chain, [chunk]))
+            return
+        if port == 0:
+            outs = []
+            for c in self._through(self.chain, [chunk]):
+                outs.extend(
+                    self.join_exec.apply_left(c)
+                )
+        else:
+            outs = []
+            for c in self._through(self.right_chain, [chunk]):
+                outs.extend(
+                    self.join_exec.apply_right(c)
+                )
+        self._emit(self._through(self.tail, outs))
+
+    def _process_barrier(self, b: Barrier) -> None:
+        # stall-injection site for tests (and the q7-wedge forensic
+        # path): a delay here holds THIS actor's collection back while
+        # the rest of the graph reaches the barrier
+        sync_point.hit(f"actor_barrier:{self.actor_name}")
+        self._process_barrier_inner(b)
+        # flush + emit happened above; finish_barrier below is the
+        # barrier-only device fence (staged-scalar materialization)
+        for ex in self.executors:
+            ex.finish_barrier()
+        if b.checkpoint and self.mgr.capture_deltas:
+            # pipelined barriers: seal this epoch's delta NOW, before
+            # any next-epoch chunk in the input queue mutates state
+            # (shared-buffer seal; uploader.rs:548 overlap analogue)
+            for ex in self.executors:
+                cap = getattr(ex, "capture_checkpoint", None)
+                if cap is not None:
+                    cap()
+        self.dispatcher.control(BARRIER, b)
+        self.mgr._collect(self.actor_name, b)
+
+    def _process_barrier_inner(self, b: Barrier) -> None:
+        # watermarks generated behind the barrier are sent AFTER the
+        # flushed data chunks: channels are FIFO, so sending the
+        # watermark first would let it overtake the very rows it covers
+        # and a downstream window/filter would drop them as late
+        wms: List[Watermark] = []
+        if self.join_exec is None:
+            outs = self._through(self.chain, [], barrier=b)
+            gen: List[StreamChunk] = []
+            for i, ex in enumerate(self.chain):
+                wm = ex.emit_watermark()
+                if wm is not None:
+                    down, flushed = _walk_watermark(self.chain[i + 1 :], wm)
+                    gen.extend(flushed)
+                    if down is not None:
+                        wms.append(down)
+            self._emit(outs + gen)
+        else:
+            joined: List[StreamChunk] = []
+            for c in self._through(self.chain, [], barrier=b):
+                joined.extend(
+                    self.join_exec.apply_left(c)
+                )
+            for c in self._through(self.right_chain, [], barrier=b):
+                joined.extend(
+                    self.join_exec.apply_right(c)
+                )
+            joined.extend(
+                self.join_exec.on_barrier(b)
+            )
+            outs = self._through(self.tail, joined, barrier=b)
+            gen, gwms = self._generated_watermarks_join()
+            wms.extend(gwms)
+            self._emit(outs + gen)
+        for wm in wms:
+            self._send_watermark_downstream(wm)
+
+    def _generated_watermarks_join(self):
+        """Poll emit_watermark across a two-input fragment's chains
+        (mirrors TwoInputPipeline._generated_watermarks): side-chain
+        watermarks walk the rest of their chain, through the join's
+        per-side cleanup/alignment, then the tail. Returns
+        (chunks_to_emit, watermarks_for_downstream)."""
+        outs: List[StreamChunk] = []
+        wms: List[Watermark] = []
+        aligned: Optional[Watermark] = None
+        for chain, feed in (
+            (self.chain, self.join_exec.apply_left),
+            (self.right_chain, self.join_exec.apply_right),
+        ):
+            for i, ex in enumerate(chain):
+                wm = ex.emit_watermark()
+                if wm is None:
+                    continue
+                wm, pending = _walk_watermark(chain[i + 1 :], wm)
+                for c in pending:
+                    outs.extend(feed(c))
+                if wm is not None:
+                    down, flushed = self.join_exec.on_watermark(wm)
+                    outs.extend(flushed)
+                    if down is not None:
+                        aligned = down
+        outs = self._through(self.tail, outs)
+        if aligned is not None:
+            dt, touts = _walk_watermark(self.tail, aligned)
+            outs.extend(touts)
+            if dt is not None:
+                wms.append(dt)
+        for i, ex in enumerate(self.tail):
+            wm = ex.emit_watermark()
+            if wm is not None:
+                dt, touts = _walk_watermark(self.tail[i + 1 :], wm)
+                outs.extend(touts)
+                if dt is not None:
+                    wms.append(dt)
+        return outs, wms
+
+    def _process_watermark(self, chan_idx: int, wm: Watermark) -> None:
+        """Min-align watermarks across input channels (the reference
+        aligns per-input watermarks on merge, executor/merge.rs), then
+        walk the chain with the aligned value."""
+        self._wm_seen[(chan_idx, wm.column)] = wm.value
+        self._try_align(wm.column)
+
+    def _realign_after_stop(self) -> None:
+        """A channel just stopped: columns waiting on it may now align
+        across the remaining live inputs."""
+        for col in {c for (_ci, c) in self._wm_seen}:
+            self._try_align(col)
+
+    def _try_align(self, column: str) -> None:
+        # align against LIVE channels only: a stopped upstream never
+        # sends another watermark, so counting it would stall EOWC /
+        # window operators downstream forever
+        live = [i for i in range(len(self.inputs)) if not self._stopped[i]]
+        vals = [
+            v
+            for (ci, col), v in self._wm_seen.items()
+            if col == column and not self._stopped[ci]
+        ]
+        if not vals or len(vals) < len(live):
+            return  # some live input has not reached any watermark yet
+        aligned = min(vals)
+        if aligned <= self._wm_sent.get(column, -(1 << 62)):
+            return
+        self._wm_sent[column] = aligned
+        awm = Watermark(column, aligned)
+        if self.join_exec is None:
+            down, outs = _walk_watermark(self.chain, awm)
+            self._emit(outs)
+            if down is not None:
+                self._send_watermark_downstream(down)
+            return
+        outs: List[StreamChunk] = []
+        down_join: Optional[Watermark] = None
+        for side_chain, feed in (
+            (self.chain, self.join_exec.apply_left),
+            (self.right_chain, self.join_exec.apply_right),
+        ):
+            swm, pending = _walk_watermark(side_chain, awm)
+            for c in pending:
+                outs.extend(feed(c))
+            if swm is not None:
+                dj, flushed = self.join_exec.on_watermark(swm)
+                outs.extend(flushed)
+                if dj is not None:
+                    down_join = dj
+        self._emit(self._through(self.tail, outs))
+        if down_join is not None:
+            dt, touts = _walk_watermark(self.tail, down_join)
+            self._emit(touts)
+            if dt is not None:
+                self._send_watermark_downstream(dt)
+
+    def _send_watermark_downstream(self, wm: Watermark) -> None:
+        self.dispatcher.control(WATERMARK, wm)
+
+    # -- input loop -------------------------------------------------------
+    def run(self) -> None:  # pragma: no cover - exercised via runtime
+        from risingwave_tpu_torch.runtime.fused_step import shared_device_thread
+
+        try:
+            with shared_device_thread():
+                self._run_loop()
+        except BaseException as e:  # noqa: BLE001 - surfaced to the caller
+            self.error = e
+            self.mgr._actor_failed(self.actor_name, e)
+        finally:
+            self.busy = False  # a dead actor must not wedge drain-quiesce
+
+    def _run_loop(self) -> None:
+        n = len(self.inputs)
+        parked: List[Optional[Barrier]] = [None] * n
+        stopped = self._stopped
+        while True:
+            if self.halt.is_set():
+                # fenced for a scoped rebuild: exit quietly (no STOP —
+                # the downstream subtree is fenced and rebuilt with us)
+                return
+            progressed = False
+            for i, (port, ch) in enumerate(self.inputs):
+                if stopped[i] or parked[i] is not None:
+                    continue
+                msg = ch.recv(block=False)
+                if msg is None:
+                    continue
+                progressed = True
+                kind, payload = msg
+                if kind == CHUNK:
+                    self._process_chunk(port, payload)
+                elif kind == WATERMARK:
+                    self._process_watermark(i, payload)
+                elif kind == BARRIER:
+                    parked[i] = payload
+                elif kind == STOP:
+                    stopped[i] = True
+                    self._realign_after_stop()
+            live = [i for i in range(n) if not stopped[i]]
+            if not live:
+                self.dispatcher.control(STOP)
+                return
+            pend = [parked[i] for i in live]
+            if all(b is not None for b in pend):
+                b = pend[0]
+                for other in pend[1:]:
+                    if other.epoch != b.epoch:
+                        raise RuntimeError(
+                            f"{self.actor_name}: misaligned barriers "
+                            f"{other.epoch} vs {b.epoch}"
+                        )
+                for i in live:
+                    parked[i] = None
+                self._process_barrier(b)
+                progressed = True
+            if not progressed:
+                # select over inputs (merge.rs:32): all the actor's
+                # channels share one Condition, so wait until ANY
+                # unparked live channel has a message, then re-poll
+                waitable = [
+                    self.inputs[i][1] for i in live if parked[i] is None
+                ]
+                if waitable:
+                    cv = waitable[0]._cv
+                    self.busy = False
+                    try:
+                        with cv:
+                            cv.wait_for(
+                                lambda: self.halt.is_set()
+                                or any(len(ch._q) for ch in waitable),
+                                timeout=1.0,
+                            )
+                    finally:
+                        self.busy = True
+
+    @property
+    def executors(self) -> List[Executor]:
+        exs = list(self.chain) + list(self.right_chain)
+        if self.join_exec is not None:
+            exs.append(self.join_exec)
+        exs.extend(self.tail)
+        return exs
+
+
+# ---------------------------------------------------------------------------
+# Graph spec + runtime
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class FragmentSpec:
+    """One fragment of the stream graph (stream_fragmenter/mod.rs:26).
+
+    ``build(instance_idx)`` returns either a list of executors
+    (single-input chain) or a dict ``{"left": [...], "right": [...],
+    "join": ex, "tail": [...]}``. ``inputs`` names upstream fragments
+    as (fragment_name, port). ``dispatch`` is "simple" | "broadcast" |
+    "round_robin" | ("hash", [dist_keys]). ``parallelism`` instantiates
+    N actors; hash-dispatching upstreams route vnodes across them
+    (Distribution::Hash, schedule.rs:131)."""
+
+    name: str
+    build: Callable[[int], object]
+    inputs: List[Tuple[str, int]] = field(default_factory=list)
+    dispatch: object = "simple"
+    parallelism: int = 1
+
+
+class GraphRuntime:
+    """LocalStreamManager analogue: owns channels + actors, injects
+    barriers at sources, waits for whole-graph collection.
+
+    Actor supervision (partial recovery): an actor failure is
+    attributed to its FRAGMENT; the supervisor computes the
+    downstream-closure blast radius and fences ONLY that subtree
+    (threads exit, channels into it drop data) — fragments outside the
+    blast keep running so a scoped rebuild can splice a fresh subtree
+    back in (``rebuild_scoped``). When the blast radius reaches a
+    source fragment or covers the whole graph, the supervisor falls
+    back to the stop-the-world abort (today's contract)."""
+
+    def __init__(
+        self,
+        specs: Sequence[FragmentSpec],
+        channel_permits: int = 1 << 16,
+        epoch_batch: bool = True,
+    ):
+        self.specs = {s.name: s for s in specs}
+        self._channel_permits = channel_permits
+        self._epoch_batch = epoch_batch
+        # pipelined barriers: actors seal checkpoint deltas at the
+        # barrier instead of the runtime staging after a full drain
+        self.capture_deltas = False
+        self.actors: List[FragmentActor] = []
+        self.collectors: Dict[str, _Collector] = {}
+        self._source_channels: Dict[str, List[PermitChannel]] = {}
+        self._collect_lock = threading.Condition()
+        self._collected: Dict[int, set] = {}
+        # last epoch each actor fully collected (stall-dump attribution:
+        # the actor whose last epoch lags is the stuck one)
+        self._last_collected: Dict[str, int] = {}
+        self._failure: Optional[BaseException] = None
+        self._epoch = 0
+        self._source_rr: Dict[str, int] = {}
+        self._abort = threading.Event()
+        # -- actor supervisor state (fragment-scoped failover) ----------
+        # actor name -> the exception that killed it
+        self.actor_errors: Dict[str, BaseException] = {}
+        # fragments whose actors died / are fenced (the blast radius)
+        self.failed_fragments: Set[str] = set()
+        self.fenced_fragments: Set[str] = set()
+        self._build(specs)
+
+    # -- graph build (ActorGraphBuilder analogue, actor.rs:648) ----------
+    def _build(self, specs: Sequence[FragmentSpec]) -> None:
+        # wiring is RETAINED (not just consumed) so a scoped rebuild can
+        # replace one subtree's channels/actors and re-point the live
+        # upstream dispatchers at the fresh channels:
+        #   _in_ch[name][inst]         -> [(port, channel)]
+        #   _out_edges[name][inst]     -> [(down_name, [channels])]
+        #   _edge_disp[(up,ui,down,k)] -> the per-edge Dispatcher (k =
+        #                                 ordinal of the (up,down) pair,
+        #                                 for duplicate edges e.g. both
+        #                                 join ports fed by one source)
+        #   _cvs/_halts[(name, inst)]  -> per-actor Condition / fence
+        self._in_ch: Dict[str, List[List[Tuple[int, PermitChannel]]]] = {
+            s.name: [[] for _ in range(s.parallelism)] for s in specs
+        }
+        # out_edges[up_name][up_instance] — each UPSTREAM INSTANCE gets
+        # its own channel into every downstream instance (merge.rs:32
+        # selects over per-upstream-ACTOR inputs): M parallel senders
+        # sharing one channel would deliver M barriers down a single
+        # input and double-flush the consumer
+        self._out_edges: Dict[
+            str, List[List[Tuple[str, List[PermitChannel]]]]
+        ] = {s.name: [[] for _ in range(s.parallelism)] for s in specs}
+        self._edge_disp: Dict[Tuple[str, int, str, int], Dispatcher] = {}
+        # one Condition per actor instance, shared by ALL its input
+        # channels — enables select/wait-on-any in the input loop
+        self._cvs = {
+            (s.name, i): threading.Condition()
+            for s in specs
+            for i in range(s.parallelism)
+        }
+        self._halts = {
+            (s.name, i): threading.Event()
+            for s in specs
+            for i in range(s.parallelism)
+        }
+        for s in specs:
+            self._wire_inputs(s)
+
+        # source fragments: the manager is their upstream — channels
+        # must exist BEFORE actors copy their input lists
+        for s in specs:
+            if not s.inputs:
+                srcs = []
+                for inst in range(s.parallelism):
+                    ch = PermitChannel(
+                        self._channel_permits,
+                        cv=self._cvs[(s.name, inst)],
+                        abort=self._abort,
+                        fence=self._halts[(s.name, inst)],
+                    )
+                    self._in_ch[s.name][inst].append((0, ch))
+                    srcs.append(ch)
+                self._source_channels[s.name] = srcs
+
+        for s in specs:
+            for inst in range(s.parallelism):
+                self._spawn_actor(s, inst)
+
+    def _wire_inputs(self, s: FragmentSpec) -> None:
+        """Create the channels feeding fragment ``s`` and register them
+        on the upstream edge lists (build + scoped-rebuild shared)."""
+        for up_name, port in s.inputs:
+            up = self.specs[up_name]
+            for ui in range(up.parallelism):
+                chans = []
+                for di in range(s.parallelism):
+                    ch = PermitChannel(
+                        self._channel_permits,
+                        cv=self._cvs[(s.name, di)],
+                        abort=self._abort,
+                        fence=self._halts[(s.name, di)],
+                    )
+                    self._in_ch[s.name][di].append((port, ch))
+                    chans.append(ch)
+                self._out_edges[up_name][ui].append((s.name, chans))
+
+    def _spawn_actor(self, s: FragmentSpec, inst: int) -> FragmentActor:
+        built = s.build(inst)
+        if self._epoch_batch:
+            # collapse each chain's maximal fusible run into ONE
+            # donated device program per barrier (runtime/fused_step);
+            # RW_FUSED_STEP=0 falls back to the per-epoch batched
+            # (interpreted) path. Either way the actor's data path
+            # only changes — the pipeline's checkpoint registry keeps
+            # holding the original executor objects, so recovery
+            # rebuilds re-fuse around restored state automatically.
+            from risingwave_tpu_torch.executors.epoch_batch import (
+                fuse_epoch_batch,
+            )
+            from risingwave_tpu_torch.runtime.fused_step import (
+                fuse_chain,
+                fused_enabled,
+            )
+
+            if fused_enabled():
+                fuse = lambda ch, lbl: fuse_chain(ch, label=lbl)
+            else:
+                fuse = lambda ch, lbl: fuse_epoch_batch(ch)
+            if isinstance(built, dict):
+                if fused_enabled():
+                    # the tail is fed by the actor's join: pass it as
+                    # the upstream so a lattice-compatible join-fed MV
+                    # tail fuses (fixed out_cap emission = closed shape
+                    # family) instead of interpreting per chunk
+                    tail = fuse_chain(
+                        built.get("tail", []),
+                        label=f"{s.name}/tail",
+                        upstream=built.get("join"),
+                    )
+                else:
+                    tail = fuse(built.get("tail", []), f"{s.name}/tail")
+                built = dict(
+                    built,
+                    left=fuse(built.get("left", []), f"{s.name}/left"),
+                    right=fuse(built.get("right", []), f"{s.name}/right"),
+                    tail=tail,
+                )
+            else:
+                built = fuse(built, s.name)
+        downstream = self._out_edges[s.name][inst]
+        if downstream:
+            # one dispatcher fanning to every downstream edge:
+            # wrap per-edge dispatchers in a multiplexer
+            per_edge = []
+            seen: Dict[str, int] = {}
+            for down_name, chans in downstream:
+                kind = s.dispatch
+                keys = None
+                if isinstance(kind, tuple):
+                    kind, keys = kind
+                d = _mk_dispatcher(kind, chans, keys)
+                o = seen.get(down_name, 0)
+                seen[down_name] = o + 1
+                self._edge_disp[(s.name, inst, down_name, o)] = d
+                per_edge.append(d)
+            dispatcher = _MultiDispatcher(per_edge)
+        else:
+            coll = self.collectors.setdefault(s.name, _Collector())
+            dispatcher = coll
+        if isinstance(built, dict):
+            actor = FragmentActor(
+                f"{s.name}#{inst}",
+                built.get("left", []),
+                self._in_ch[s.name][inst],
+                dispatcher,
+                self,
+                join=built["join"],
+                right_chain=built.get("right", []),
+                tail=built.get("tail", []),
+                halt=self._halts[(s.name, inst)],
+            )
+        else:
+            actor = FragmentActor(
+                f"{s.name}#{inst}",
+                built,
+                self._in_ch[s.name][inst],
+                dispatcher,
+                self,
+                halt=self._halts[(s.name, inst)],
+            )
+        self.actors.append(actor)
+        return actor
+
+    # -- supervisor topology helpers -------------------------------------
+    @staticmethod
+    def fragment_of(actor_name: str) -> str:
+        """Actor names are ``{fragment}#{instance}``."""
+        return actor_name.rsplit("#", 1)[0]
+
+    def source_fragment_names(self) -> Set[str]:
+        return {s.name for s in self.specs.values() if not s.inputs}
+
+    def downstream_closure(self, fragment: str) -> Set[str]:
+        """Every fragment transitively consuming ``fragment``'s output."""
+        down: Dict[str, List[str]] = {n: [] for n in self.specs}
+        for s in self.specs.values():
+            for up, _port in s.inputs:
+                down.setdefault(up, []).append(s.name)
+        out: Set[str] = set()
+        stack = [fragment]
+        while stack:
+            for d in down.get(stack.pop(), ()):
+                if d not in out:
+                    out.add(d)
+                    stack.append(d)
+        return out
+
+    def blast_radius(self, fragment: str) -> Set[str]:
+        """The fragments a failure in ``fragment`` poisons: itself plus
+        its downstream closure (state derived from its output can no
+        longer be trusted past the last committed epoch)."""
+        return {fragment} | self.downstream_closure(fragment)
+
+    def _fence(self, fragments: Set[str]) -> None:
+        """Fence a subtree: its actor threads exit (halt events), and
+        channels into it start dropping data (the channel-level fence
+        is the same event). Callers hold no locks."""
+        for (name, _inst), h in self._halts.items():
+            if name in fragments:
+                h.set()
+        # wake every fenced actor's select wait AND any sender blocked
+        # on a fenced channel's permits (they share the consumer's cv)
+        for (name, inst), cv in self._cvs.items():
+            if name in fragments:
+                with cv:
+                    cv.notify_all()
+
+    def rebuild_scoped(self, fragments: Set[str]) -> None:
+        """Splice a fresh subtree in place of ``fragments`` (which must
+        be downstream-closed and source-free — the supervisor's blast
+        radius): halt + reap their actors, drain-quiesce the surviving
+        actors so nothing from the failed window leaks past the fence,
+        rebuild the subtree's channels/actors around the SAME executor
+        objects (their state is restored separately), and re-point the
+        live upstream dispatchers at the fresh channels."""
+        fragments = set(fragments)
+        unknown = fragments - set(self.specs)
+        if unknown:
+            raise KeyError(f"unknown fragments {sorted(unknown)}")
+        for n in fragments:
+            if not self.specs[n].inputs:
+                raise ValueError(
+                    f"cannot scope-rebuild source fragment {n!r} — the "
+                    "blast radius reached a source; use a full rebuild"
+                )
+            missing = self.downstream_closure(n) - fragments
+            if missing:
+                raise ValueError(
+                    f"scope {sorted(fragments)} is not downstream-closed: "
+                    f"{n!r} also feeds {sorted(missing)}"
+                )
+        # 1. fence + reap the subtree's actors
+        self._fence(fragments)
+        doomed = [
+            a for a in self.actors
+            if self.fragment_of(a.actor_name) in fragments
+        ]
+        for a in doomed:
+            a.join(timeout=10.0)
+        stuck = [a.actor_name for a in doomed if a.is_alive()]
+        if stuck:
+            raise RuntimeError(
+                f"scoped rebuild: fenced actors would not halt: {stuck}"
+            )
+        self.actors = [
+            a for a in self.actors
+            if self.fragment_of(a.actor_name) not in fragments
+        ]
+        # 2. drain-quiesce the survivors: any message still queued from
+        # the failed window must land in the OLD fenced channels (and
+        # drop there) BEFORE dispatchers are re-pointed at fresh ones —
+        # otherwise pre-fence data would leak into the rebuilt subtree
+        # and the replay would double-apply it
+        deadline = time.monotonic() + 15.0
+
+        def _quiet() -> bool:
+            # dead survivors (a concurrent failure in a DISJOINT subtree)
+            # are someone else's recovery; only live actors must idle
+            return all(
+                not a.busy and all(len(ch) == 0 for _p, ch in a.inputs)
+                for a in self.actors
+                if a.is_alive()
+            )
+        while True:
+            if _quiet():
+                time.sleep(0.02)  # grace: recv->process handoff window
+                if _quiet():
+                    break
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    "scoped rebuild: surviving actors did not quiesce"
+                )
+            time.sleep(0.005)
+        # 3. fresh per-actor state + channels for the subtree
+        ordered = [s for s in self.specs.values() if s.name in fragments]
+        for s in ordered:
+            for inst in range(s.parallelism):
+                self._cvs[(s.name, inst)] = threading.Condition()
+                self._halts[(s.name, inst)] = threading.Event()
+            self._in_ch[s.name] = [[] for _ in range(s.parallelism)]
+            self._out_edges[s.name] = [[] for _ in range(s.parallelism)]
+            # stale drained output of the crashed epoch dies with the
+            # old collector; the replay refills a fresh one
+            self.collectors.pop(s.name, None)
+        for s in ordered:
+            self._wire_scoped_inputs(s, fragments)
+        # 4. reset supervisor + collection state FOR THIS SCOPE ONLY —
+        # a concurrent failure in a disjoint subtree (its actors died
+        # while we rebuilt this one) must stay recorded, or the next
+        # barrier would stall unattributably against its dead actors
+        with self._collect_lock:
+            for a in [
+                a
+                for a in self.actor_errors
+                if self.fragment_of(a) in fragments
+            ]:
+                del self.actor_errors[a]
+            self.failed_fragments -= fragments
+            self.fenced_fragments -= fragments
+            self._failure = next(iter(self.actor_errors.values()), None)
+            self._collected.clear()
+            self._collect_lock.notify_all()
+        fresh = []
+        for s in ordered:
+            for inst in range(s.parallelism):
+                fresh.append(self._spawn_actor(s, inst))
+        for a in fresh:
+            a.start()
+
+    def _wire_scoped_inputs(self, s: FragmentSpec, fragments: Set[str]) -> None:
+        """``_wire_inputs`` for a scoped rebuild: edges from upstreams
+        OUTSIDE the scope re-point the existing live dispatcher at the
+        fresh channels (matching duplicate edges by ordinal)."""
+        seen: Dict[Tuple[str, str], int] = {}
+        for up_name, port in s.inputs:
+            up = self.specs[up_name]
+            o = seen.get((up_name, s.name), 0)
+            seen[(up_name, s.name)] = o + 1
+            for ui in range(up.parallelism):
+                chans = []
+                for di in range(s.parallelism):
+                    ch = PermitChannel(
+                        self._channel_permits,
+                        cv=self._cvs[(s.name, di)],
+                        abort=self._abort,
+                        fence=self._halts[(s.name, di)],
+                    )
+                    self._in_ch[s.name][di].append((port, ch))
+                    chans.append(ch)
+                if up_name in fragments:
+                    self._out_edges[up_name][ui].append((s.name, chans))
+                else:
+                    edges = self._out_edges[up_name][ui]
+                    idx = [
+                        i for i, (dn, _c) in enumerate(edges)
+                        if dn == s.name
+                    ][o]
+                    edges[idx] = (s.name, chans)
+                    self._edge_disp[(up_name, ui, s.name, o)].outputs = (
+                        list(chans)
+                    )
+
+    def start(self) -> "GraphRuntime":
+        for a in self.actors:
+            a.start()
+        return self
+
+    # -- caller surface ---------------------------------------------------
+    def inject_chunk(self, source: str, chunk: StreamChunk, instance=None):
+        chans = self._source_channels[source]
+        if instance is None:  # round-robin over source instances
+            rr = self._source_rr.get(source, 0)
+            self._source_rr[source] = (rr + 1) % len(chans)
+            instance = rr
+        chans[instance].send_chunk(chunk)
+
+    def inject_watermark(
+        self, column: str, value: int, source: Optional[str] = None
+    ) -> None:
+        for name, chans in self._source_channels.items():
+            if source is not None and name != source:
+                continue
+            for ch in chans:
+                ch.send_control(WATERMARK, Watermark(column, value))
+
+    def inject_barrier_nowait(
+        self, checkpoint: bool = True, epoch: Optional[int] = None
+    ) -> Barrier:
+        """Send a barrier into every source WITHOUT waiting for
+        collection — channels are FIFO, so pushes enqueued after this
+        belong to the next epoch while actors still process this one
+        (the reference's in-flight barriers, barrier/mod.rs:538)."""
+        prev = self._epoch
+        target = epoch if epoch is not None else prev + 1
+        if target <= prev:
+            raise ValueError(f"epoch {target} <= previous {prev}")
+        self._epoch = target
+        b = Barrier(Epoch(prev, self._epoch), checkpoint)
+        with self._collect_lock:
+            self._collected[target] = set()
+        for chans in self._source_channels.values():
+            for ch in chans:
+                ch.send_control(BARRIER, b)
+        return b
+
+    def wait_barrier(self, epoch: int, timeout: Optional[float] = None) -> None:
+        """Block until every actor collected ``epoch``
+        (barrier_manager.rs:857 collect).
+
+        ``timeout`` is a deadman for a silently-stuck actor, not the
+        failure path (a raising actor sets ``_failure`` and wakes us
+        immediately). Default comes from ``RW_BARRIER_TIMEOUT_S`` (else
+        120s)."""
+        if timeout is None:
+            timeout = _default_barrier_timeout()
+        pred = (
+            lambda: self._failure is not None
+            or len(self._collected.get(epoch, ())) == len(self.actors)
+        )
+        with self._collect_lock:
+            try:
+                ok = self._collect_lock.wait_for(pred, timeout=timeout)
+                if self._failure is not None:
+                    raise RuntimeError("actor failed") from self._failure
+                if not ok:
+                    got = self._collected.get(epoch, set())
+                    stuck = sorted(
+                        a.actor_name
+                        for a in self.actors
+                        if a.actor_name not in got
+                    )
+                    raise TimeoutError(
+                        f"barrier {epoch} not collected: "
+                        f"{len(got)}/{len(self.actors)} actors "
+                        f"(stuck: {', '.join(stuck)})"
+                    )
+            finally:
+                self._collected.pop(epoch, None)
+
+    def inject_barrier(
+        self,
+        checkpoint: bool = True,
+        timeout: Optional[float] = None,
+        epoch: Optional[int] = None,
+    ) -> Barrier:
+        """Send a barrier into every source and block until every actor
+        collected it. ``epoch`` pins the barrier's curr epoch (a
+        runtime passes its own clock so the graph's epochs line up with
+        checkpoint manifests)."""
+        b = self.inject_barrier_nowait(checkpoint=checkpoint, epoch=epoch)
+        self.wait_barrier(b.epoch.curr, timeout=timeout)
+        return b
+
+    def stop(self, timeout: float = 30.0) -> None:
+        for chans in self._source_channels.values():
+            for ch in chans:
+                ch.send_control(STOP)
+        for a in self.actors:
+            a.join(timeout=timeout)
+        if any(a.is_alive() for a in self.actors):
+            # graceful drain failed (e.g. an actor died and its upstream
+            # is wedged on permits): abort wakes blocked senders to drop
+            self._abort.set()
+            for a in self.actors:
+                a.join(timeout=5.0)
+        # wake anyone blocked in wait_barrier on an epoch this graph
+        # will never collect (a pipelined closer during recovery)
+        with self._collect_lock:
+            if self._failure is None and self._collected:
+                self._failure = RuntimeError("graph stopped")
+            self._collect_lock.notify_all()
+
+    def drain(self, name: str) -> List[StreamChunk]:
+        return self.collectors[name].drain()
+
+    def stall_snapshot(self) -> Dict[str, object]:
+        """Forensic view of a stuck graph: per-actor liveness, input
+        permit-channel depths, last-collected epoch, and which actors
+        every pending epoch is still waiting on (the await-tree dump's
+        actor table). Cheap and lock-safe — called while wedged."""
+        with self._collect_lock:
+            pending = {e: set(s) for e, s in self._collected.items()}
+            last = dict(self._last_collected)
+            failure = repr(self._failure) if self._failure else None
+            failed = sorted(self.failed_fragments)
+            blast = sorted(self.fenced_fragments)
+            errors = {a: repr(e) for a, e in self.actor_errors.items()}
+        actors = []
+        for a in self.actors:
+            # oldest-pending AGE per input channel (not just depth): a
+            # deep-but-draining channel shows age ~0; one stuck since
+            # epoch N names the epoch it has been holding
+            oldest = []
+            for _p, ch in a.inputs:
+                op = ch.oldest_pending()
+                oldest.append(
+                    None
+                    if op is None
+                    else {
+                        "age_ms": round(op["age_ms"], 3),
+                        "epoch": op["epoch"],
+                    }
+                )
+            actors.append(
+                {
+                    "actor": a.actor_name,
+                    # fragment provenance: a partial-recovery wedge is
+                    # debuggable from the artifact alone (which subtree
+                    # was fenced, which fragment each actor belongs to)
+                    "fragment": self.fragment_of(a.actor_name),
+                    "fenced": self.fragment_of(a.actor_name)
+                    in self.fenced_fragments,
+                    "alive": a.is_alive(),
+                    "last_collected_epoch": last.get(a.actor_name, 0),
+                    "input_depths": [len(ch) for _p, ch in a.inputs],
+                    "input_oldest": oldest,
+                    "error": repr(a.error) if a.error else None,
+                }
+            )
+        names = [a.actor_name for a in self.actors]
+        return {
+            "epoch": self._epoch,
+            "failure": failure,
+            "failed_fragments": failed,
+            "blast_radius": blast,
+            "actor_errors": errors,
+            "actors": actors,
+            "epochs_pending": {
+                str(e): {
+                    "collected": sorted(got),
+                    "stuck": sorted(n for n in names if n not in got),
+                }
+                for e, got in pending.items()
+            },
+        }
+
+    @property
+    def executors(self) -> List[Executor]:
+        out = []
+        for a in self.actors:
+            out.extend(a.executors)
+        return out
+
+    # -- actor callbacks --------------------------------------------------
+    def _collect(self, actor_name: str, b: Barrier) -> None:
+        with self._collect_lock:
+            self._last_collected[actor_name] = max(
+                self._last_collected.get(actor_name, 0), b.epoch.curr
+            )
+            # stragglers from an abandoned (timed-out) epoch are dropped,
+            # not re-registered — only live epochs have an entry
+            if b.epoch.curr in self._collected:
+                self._collected[b.epoch.curr].add(actor_name)
+                self._collect_lock.notify_all()
+
+    def _actor_failed(self, actor_name: str, err: BaseException) -> None:
+        """Actor supervisor (replaces the old global-abort contract):
+        attribute the failure to the actor's fragment, compute the
+        blast radius, and fence ONLY that subtree — fragments outside
+        it keep running and a scoped rebuild splices a fresh subtree
+        back in. Stop-the-world abort remains the fallback when the
+        blast radius reaches a source or covers the whole graph."""
+        frag = self.fragment_of(actor_name)
+        blast = self.blast_radius(frag)
+        whole = bool(blast & self.source_fragment_names()) or blast >= set(
+            self.specs
+        )
+        with self._collect_lock:
+            self.actor_errors[actor_name] = err
+            self.failed_fragments.add(frag)
+            self.fenced_fragments |= blast
+            if self._failure is None:
+                self._failure = err
+            self._collect_lock.notify_all()
+        if whole:
+            # no fragment can make progress: wake senders blocked on
+            # the dead consumer and drop (today's full-recovery path)
+            self._abort.set()
+        else:
+            self._fence(blast)
+        try:
+            from risingwave_tpu_torch.event_log import EVENT_LOG
+            from risingwave_tpu_torch.metrics import REGISTRY
+
+            REGISTRY.counter("actor_failures_total").inc(fragment=frag)
+            EVENT_LOG.record(
+                "actor_failure",
+                actor=actor_name,
+                fragment=frag,
+                blast_radius=sorted(blast),
+                whole_graph=whole,
+                cause=repr(err),
+            )
+        except Exception:  # pragma: no cover - telemetry must not mask err
+            pass
+
+
+class _MultiDispatcher:
+    """Fans one fragment's output across all its downstream edges, each
+    with its own dispatcher kind (DispatchExecutor holds one
+    DispatcherImpl per downstream fragment edge, dispatch.rs:42)."""
+
+    def __init__(self, dispatchers: Sequence[Dispatcher]):
+        self.dispatchers = list(dispatchers)
+
+    def dispatch(self, chunk: StreamChunk) -> None:
+        for d in self.dispatchers:
+            d.dispatch(chunk)
+
+    def control(self, kind: str, payload=None) -> None:
+        for d in self.dispatchers:
+            d.control(kind, payload)

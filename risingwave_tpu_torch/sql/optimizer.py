@@ -1,0 +1,697 @@
+"""Logical plan IR + heuristic rewrite rules (the optimizer).
+
+Port of ``risingwave_tpu/sql/optimizer.py``, copied: it imports no jax.
+
+Reference: src/frontend/src/optimizer/ — plan-node forest with staged
+heuristic optimization (`optimize_by_rules`, logical_optimization.rs:38,
+111) over 66 rules; predicate pushdown, projection pruning, outer-join
+simplification are the load-bearing classics this module implements.
+
+Shape here: parser AST -> logical IR (build) -> rule passes to a fixed
+point -> optimized AST (emit) -> the pattern planner lowers to executor
+pipelines as before. The IR is the optimization surface; lowering
+reuses the proven AST path (the reference lowers Logical* -> Stream*
+plan nodes instead — our executors play the Stream* role).
+
+Rules:
+- SplitFilter / MergeFilter: conjunct normalization
+- PushFilterThroughProject: rewrite via the projection's alias map
+- PushFilterThroughJoin: route conjuncts to the side that owns their
+  columns (cross-side conjuncts stay at the join)
+- PushFilterThroughAgg: predicates on group keys move below the agg
+- SimplifyOuterJoin: a null-rejecting predicate on the nullable side
+  turns LEFT/RIGHT/FULL into INNER (the reference's
+  translate_apply / outer-join-to-inner rules)
+- FoldTrivialPred: drop always-true conjuncts, fold literal arithmetic
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+from risingwave_tpu_torch.sql import parser as P
+
+# ---------------------------------------------------------------------------
+# Logical IR
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class LScan:
+    table: str
+    alias: Optional[str] = None
+    cols: Optional[frozenset] = None  # known schema (catalog-resolved)
+
+
+@dataclass
+class LWindow:
+    input: object
+    ts_col: str
+    size_ms: int
+    slide_ms: int
+    alias: Optional[str] = None
+
+
+@dataclass
+class LFilter:
+    input: object
+    conjuncts: List[object]  # AST predicates, AND-ed
+
+
+@dataclass
+class LAggProject:
+    """The select head: items (+ optional GROUP BY). Carries the
+    subquery alias when this level came from a derived table."""
+
+    input: object
+    items: Tuple[P.SelectItem, ...]
+    group_by: Tuple[P.Ident, ...]
+    alias: Optional[str] = None
+    order_by: Tuple = ()
+    limit: Optional[int] = None
+    grouping_sets: Tuple = ()
+    having: Optional[object] = None
+    distinct: bool = False
+
+
+@dataclass
+class LJoin:
+    left: object
+    right: object
+    on: object
+    join_type: str
+
+
+# ---------------------------------------------------------------------------
+# build: AST -> IR
+# ---------------------------------------------------------------------------
+
+
+def build(
+    select: P.Select, alias: Optional[str] = None, catalog=None
+) -> LAggProject:
+    node = _build_rel(select.from_, catalog)
+    if select.where is not None:
+        node = LFilter(node, _split_conjuncts(select.where))
+    return LAggProject(
+        node,
+        select.items,
+        select.group_by,
+        alias=alias,
+        order_by=select.order_by,
+        limit=select.limit,
+        grouping_sets=select.grouping_sets,
+        having=select.having,
+        distinct=select.distinct,
+    )
+
+
+def _build_rel(rel, catalog=None):
+    if isinstance(rel, P.TableRef):
+        cols = None
+        if catalog is not None and rel.name in getattr(catalog, "tables", {}):
+            cols = frozenset(catalog.tables[rel.name].names)
+        return LScan(rel.name, rel.alias, cols)
+    if isinstance(rel, P.WindowTVF):
+        return LWindow(
+            _build_rel(rel.table, catalog), rel.ts_col, rel.size_ms,
+            rel.slide_ms, rel.alias,
+        )
+    if isinstance(rel, P.SubQuery):
+        return build(rel.select, alias=rel.alias, catalog=catalog)
+    if isinstance(rel, P.Join):
+        return LJoin(
+            _build_rel(rel.left, catalog),
+            _build_rel(rel.right, catalog),
+            rel.on,
+            rel.join_type,
+        )
+    raise TypeError(f"cannot build IR for {rel!r}")
+
+
+def _split_conjuncts(pred) -> List[object]:
+    if isinstance(pred, P.BinaryOp) and pred.op == "and":
+        return _split_conjuncts(pred.left) + _split_conjuncts(pred.right)
+    return [pred]
+
+
+def _and_all(conjuncts: Sequence[object]):
+    out = None
+    for c in conjuncts:
+        out = c if out is None else P.BinaryOp("and", out, c)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# column ownership / visibility
+# ---------------------------------------------------------------------------
+
+
+def _visible(node) -> Tuple[Set[str], Set[str]]:
+    """(column names, qualifiers) a node's output exposes. Column set
+    may be OPEN (unknown scan schema): signalled by returning None."""
+    if isinstance(node, LScan):
+        quals = {node.alias or node.table}
+        return (set(node.cols) if node.cols is not None else None), quals
+    if isinstance(node, LWindow):
+        cols, quals = _visible(node.input)
+        if node.alias:
+            quals = {node.alias}
+        if cols is not None:
+            cols = cols | {"window_start", "window_end"}
+        return cols, quals
+    if isinstance(node, LFilter):
+        return _visible(node.input)
+    if isinstance(node, LAggProject):
+        cols = set()
+        for i, item in enumerate(node.items):
+            if item.alias:
+                cols.add(item.alias)
+            elif isinstance(item.expr, P.Ident):
+                cols.add(item.expr.name)
+        quals = {node.alias} if node.alias else set()
+        return cols, quals
+    if isinstance(node, LJoin):
+        lc, lq = _visible(node.left)
+        rc, rq = _visible(node.right)
+        cols = None if lc is None or rc is None else lc | rc
+        return cols, lq | rq
+    raise TypeError(node)
+
+
+def _pred_sites(pred) -> List[P.Ident]:
+    from risingwave_tpu_torch.sql.planner import _idents_in
+
+    return list(_idents_in(pred))
+
+
+def _owned_by(pred, node) -> bool:
+    """True iff every column reference in pred resolves inside node."""
+    cols, quals = _visible(node)
+    for ident in _pred_sites(pred):
+        if ident.qualifier is not None:
+            if ident.qualifier not in quals:
+                return False
+            continue
+        if cols is None:
+            return False  # open schema, unqualified: cannot prove
+        if ident.name not in cols:
+            return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+# rules
+# ---------------------------------------------------------------------------
+
+
+def _fold_pred(pred):
+    """Literal-only arithmetic/comparison folding."""
+    if isinstance(pred, P.BinaryOp):
+        left = _fold_pred(pred.left)
+        right = _fold_pred(pred.right)
+        if (
+            isinstance(left, P.Literal)
+            and isinstance(right, P.Literal)
+            and left.value is not None
+            and right.value is not None  # NULL comparisons are NULL in
+            # SQL (filter-out), not Python's True/False
+        ):
+            a, b = left.value, right.value
+            try:
+                val = {
+                    "+": lambda: a + b,
+                    "-": lambda: a - b,
+                    "*": lambda: a * b,
+                    "=": lambda: a == b,
+                    "<>": lambda: a != b,
+                    "<": lambda: a < b,
+                    "<=": lambda: a <= b,
+                    ">": lambda: a > b,
+                    ">=": lambda: a >= b,
+                    "and": lambda: bool(a) and bool(b),
+                    "or": lambda: bool(a) or bool(b),
+                }[pred.op]()
+                return P.Literal(val)
+            except (KeyError, TypeError):
+                pass
+        return P.BinaryOp(pred.op, left, right)
+    return pred
+
+
+_STRICT_ARITH = ("+", "-", "*", "/", "%")
+
+
+def _null_strict(expr) -> bool:
+    """True only when a NULL in ANY input ident forces the expression
+    itself to NULL. CASE/COALESCE-like constructs can map NULL inputs
+    to non-NULL outputs, so any appearance makes the tree non-strict."""
+    if isinstance(expr, (P.Ident, P.Literal)):
+        return True
+    if isinstance(expr, P.BinaryOp) and expr.op in _STRICT_ARITH:
+        return _null_strict(expr.left) and _null_strict(expr.right)
+    if isinstance(expr, P.UnaryOp) and expr.op == "-":
+        return _null_strict(expr.operand)
+    return False
+
+
+def _null_rejecting_side(pred, join: LJoin) -> Optional[str]:
+    """Which side of the join this predicate null-rejects ("left" /
+    "right" / None). Conservative: comparisons and IS NOT NULL reject
+    NULL inputs only when their operands are NULL-strict — a CASE over
+    the padded side can turn a NULL row into a satisfying value, so it
+    must NOT trigger outer-join reduction."""
+    if isinstance(pred, P.BinaryOp) and pred.op in (
+        "=", "<>", "<", "<=", ">", ">=",
+    ):
+        rejecting = _null_strict(pred.left) and _null_strict(pred.right)
+    elif isinstance(pred, P.UnaryOp) and pred.op == "is not null":
+        rejecting = _null_strict(pred.operand)
+    else:
+        rejecting = False
+    if not rejecting:
+        return None
+    if _owned_by(pred, join.left):
+        return "left"
+    if _owned_by(pred, join.right):
+        return "right"
+    return None
+
+
+def _strip_filter(node):
+    return node.input if isinstance(node, LFilter) else node
+
+
+def _can_push(core: "LAggProject", c) -> bool:
+    """May this conjunct move BELOW this projection? Shared by direct
+    pushdown and join-arm absorption (one rule, no divergence):
+    - never below ORDER BY/LIMIT (a TopN selects rows FIRST; filtering
+      before it picks different rows);
+    - every referenced output column must substitute to an agg-free
+      expr, and below a GROUP BY only group keys qualify."""
+    if core.limit is not None or core.order_by:
+        return False
+    amap, group_names = _alias_map(core)
+    # a select containing ANY window call ranks over its full input
+    # row set: a predicate may sink below it only if it references
+    # nothing but columns present in EVERY window's PARTITION BY
+    # (filtering whole partitions cannot change in-partition values)
+    win_parts = None
+    for target in amap.values():
+        if isinstance(target, P.WindowFuncCall):
+            names = {i.name for i in target.partition_by}
+            win_parts = (
+                names if win_parts is None else win_parts & names
+            )
+    for ident in _pred_sites(c):
+        target = amap.get(ident.name)
+        if target is None or _contains_agg(target) or _contains_window(
+            target
+        ):
+            # a window-computed output (e.g. row_number()) is defined
+            # only ABOVE the over-window stage: filtering before it
+            # would rank a different row set
+            return False
+        if win_parts is not None and not (
+            isinstance(target, P.Ident) and target.name in win_parts
+        ):
+            return False
+        if core.group_by and not (
+            isinstance(target, P.Ident) and target.name in group_names
+        ):
+            return False
+    return True
+
+
+def _contains_window(ast) -> bool:
+    if isinstance(ast, P.WindowFuncCall):
+        return True
+    if isinstance(ast, P.FuncCall):
+        return any(
+            _contains_window(a)
+            for a in ast.args
+            if not isinstance(a, str)
+        )
+    if isinstance(ast, P.BinaryOp):
+        return _contains_window(ast.left) or _contains_window(ast.right)
+    if isinstance(ast, P.UnaryOp):
+        return _contains_window(ast.operand)
+    if isinstance(ast, P.CaseExpr):
+        return any(
+            _contains_window(x)
+            for b in ast.branches
+            for x in b
+        ) or (
+            ast.default is not None and _contains_window(ast.default)
+        )
+    return False
+
+
+def _absorbable(arm, c) -> bool:
+    """Can this conjunct sink INTO a join arm? Only derived tables
+    (LAggProject) can absorb — bare scans/windows have no emit form for
+    an attached filter."""
+    core = _strip_filter(arm)
+    if not isinstance(core, LAggProject):
+        return False
+    if not _owned_by(c, arm):
+        return False
+    return _can_push(core, c)
+
+
+def _alias_map(node: LAggProject):
+    """output name -> defining expr, plus the set of group-key names."""
+    amap: Dict[str, object] = {}
+    for item in node.items:
+        name = item.alias or (
+            item.expr.name if isinstance(item.expr, P.Ident) else None
+        )
+        if name is not None:
+            amap[name] = item.expr
+    group_names = {g.name for g in node.group_by}
+    return amap, group_names
+
+
+def _push_into(node, conjuncts: List[object]):
+    """Push conjuncts as deep as they can go; returns the new node.
+    Conjuncts that cannot move below stay in a filter at this level."""
+    if not conjuncts:
+        return node
+
+    if isinstance(node, LFilter):
+        return _push_into(node.input, node.conjuncts + conjuncts)
+
+    if isinstance(node, LJoin):
+        left_c, right_c, here = [], [], []
+        for c in conjuncts:
+            # pushing a filter below an outer join's null-padded side
+            # would change results; only the row-preserved side accepts
+            can_left = node.join_type in (
+                "inner", "left", "left_semi", "left_anti",
+            )
+            can_right = node.join_type in ("inner", "right")
+            if can_left and _absorbable(node.left, c):
+                left_c.append(c)
+            elif can_right and _absorbable(node.right, c):
+                right_c.append(c)
+            else:
+                here.append(c)
+        new = LJoin(
+            _push_into(node.left, left_c) if left_c else node.left,
+            _push_into(node.right, right_c) if right_c else node.right,
+            node.on,
+            node.join_type,
+        )
+        return LFilter(new, here) if here else new
+
+    if isinstance(node, LAggProject):
+        below, here = [], []
+        amap, _ = _alias_map(node)
+        for c in conjuncts:
+            if _can_push(node, c):
+                below.append(_substitute(c, amap))
+            else:
+                here.append(c)
+        new = replace(node, input=_push_into(node.input, below))
+        return LFilter(new, here) if here else new
+
+    # bare scan / window: the filter stays directly above — emitted as
+    # this level's WHERE (never inside a join arm, see _absorbable)
+    return LFilter(node, conjuncts)
+
+
+def _contains_agg(ast) -> bool:
+    from risingwave_tpu_torch.sql.planner import AGG_FUNCS, EXTENDED_AGGS
+
+    if isinstance(ast, P.FuncCall):
+        if ast.name in AGG_FUNCS or ast.name in EXTENDED_AGGS:
+            return True
+        return any(
+            _contains_agg(a) for a in ast.args if not isinstance(a, str)
+        )
+    if isinstance(ast, P.BinaryOp):
+        return _contains_agg(ast.left) or _contains_agg(ast.right)
+    if isinstance(ast, P.UnaryOp):
+        return _contains_agg(ast.operand)
+    return False
+
+
+def _substitute(pred, amap: Dict[str, object]):
+    """Replace output-name references with their defining exprs (strip
+    the derived-table qualifier as it crosses the boundary)."""
+    if isinstance(pred, P.Ident):
+        return amap.get(pred.name, P.Ident(pred.name))
+    if isinstance(pred, P.BinaryOp):
+        return P.BinaryOp(
+            pred.op, _substitute(pred.left, amap), _substitute(pred.right, amap)
+        )
+    if isinstance(pred, P.UnaryOp):
+        return P.UnaryOp(pred.op, _substitute(pred.operand, amap))
+    if isinstance(pred, P.FuncCall):
+        return P.FuncCall(
+            pred.name,
+            tuple(
+                a if isinstance(a, str) else _substitute(a, amap)
+                for a in pred.args
+            ),
+            distinct=pred.distinct,
+        )
+    if isinstance(pred, P.CaseExpr):
+        return P.CaseExpr(
+            tuple(
+                (_substitute(c, amap), _substitute(v, amap))
+                for c, v in pred.branches
+            ),
+            _substitute(pred.default, amap)
+            if pred.default is not None
+            else None,
+        )
+    return pred
+
+
+def optimize(node):
+    """Apply all rules to a fixed point (staged heuristics,
+    logical_optimization.rs:38)."""
+    node = _simplify_outer(node)
+    node = _pushdown(node)
+    node = _prune_filters(node)
+    return node
+
+
+def _pushdown(node):
+    if isinstance(node, LFilter):
+        return _push_into(_pushdown(node.input), node.conjuncts)
+    if isinstance(node, LAggProject):
+        return replace(node, input=_pushdown(node.input))
+    if isinstance(node, LWindow):
+        return replace(node, input=_pushdown(node.input))
+    if isinstance(node, LJoin):
+        return LJoin(
+            _pushdown(node.left), _pushdown(node.right), node.on, node.join_type
+        )
+    return node
+
+
+def _simplify_outer(node):
+    """WHERE null-rejecting on an outer join's padded side -> inner."""
+    if isinstance(node, LFilter):
+        inner = _simplify_outer(node.input)
+        if isinstance(inner, LJoin) and inner.join_type in (
+            "left", "right", "full",
+        ):
+            jt = inner.join_type
+            for c in node.conjuncts:
+                side = _null_rejecting_side(c, inner)
+                if side == "right" and jt in ("left", "full"):
+                    jt = "inner" if jt == "left" else "right"
+                elif side == "left" and jt in ("right", "full"):
+                    jt = "inner" if jt == "right" else "left"
+            if jt != inner.join_type:
+                inner = LJoin(inner.left, inner.right, inner.on, jt)
+        return LFilter(inner, node.conjuncts)
+    if isinstance(node, LAggProject):
+        return replace(node, input=_simplify_outer(node.input))
+    if isinstance(node, LWindow):
+        return replace(node, input=_simplify_outer(node.input))
+    if isinstance(node, LJoin):
+        return LJoin(
+            _simplify_outer(node.left),
+            _simplify_outer(node.right),
+            node.on,
+            node.join_type,
+        )
+    return node
+
+
+def _prune_filters(node):
+    """Fold literal predicates; drop always-true conjuncts."""
+    if isinstance(node, LFilter):
+        inner = _prune_filters(node.input)
+        kept = []
+        for c in node.conjuncts:
+            f = _fold_pred(c)
+            if isinstance(f, P.Literal) and f.value is True:
+                continue
+            kept.append(f)
+        return LFilter(inner, kept) if kept else inner
+    if isinstance(node, LAggProject):
+        return replace(node, input=_prune_filters(node.input))
+    if isinstance(node, LWindow):
+        return replace(node, input=_prune_filters(node.input))
+    if isinstance(node, LJoin):
+        return LJoin(
+            _prune_filters(node.left),
+            _prune_filters(node.right),
+            node.on,
+            node.join_type,
+        )
+    return node
+
+
+# ---------------------------------------------------------------------------
+# emit: IR -> AST
+# ---------------------------------------------------------------------------
+
+
+def emit(node: LAggProject) -> P.Select:
+    if not isinstance(node, LAggProject):
+        raise TypeError("top of an optimized plan must be a projection")
+    where = None
+    inner = node.input
+    if isinstance(inner, LFilter):
+        where = _and_all(inner.conjuncts)
+        inner = inner.input
+    return P.Select(
+        items=node.items,
+        from_=_emit_rel(inner),
+        where=where,
+        group_by=node.group_by,
+        order_by=node.order_by,
+        limit=node.limit,
+        grouping_sets=node.grouping_sets,
+        having=node.having,
+        distinct=node.distinct,
+    )
+
+
+def _emit_rel(node):
+    if isinstance(node, LScan):
+        return P.TableRef(node.table, node.alias)
+    if isinstance(node, LWindow):
+        inner = _emit_rel(node.input)
+        if not isinstance(inner, P.TableRef):
+            raise TypeError("window TVF over non-table after optimization")
+        return P.WindowTVF(
+            "hop" if node.slide_ms != node.size_ms else "tumble",
+            inner,
+            node.ts_col,
+            node.size_ms,
+            node.slide_ms,
+            node.alias,
+        )
+    if isinstance(node, LFilter):
+        raise TypeError(
+            "filter over a bare relation inside a join arm — _absorbable "
+            "should have kept it at the join level"
+        )
+    if isinstance(node, LAggProject):
+        return P.SubQuery(emit(node), alias=node.alias or "__sq")
+    if isinstance(node, LJoin):
+        return P.Join(
+            _emit_rel(node.left), _emit_rel(node.right), node.on, node.join_type
+        )
+    raise TypeError(node)
+
+
+def optimize_select(select: P.Select, catalog=None) -> P.Select:
+    """AST -> IR -> rules -> AST. The public entry the planner uses.
+    HAVING/DISTINCT ride AROUND the IR (no rule touches them: HAVING
+    filters agg OUTPUT, which pushdown must never move below the agg)."""
+    import dataclasses
+
+    out = emit(optimize(build(select, catalog=catalog)))
+    if select.having is not None or select.distinct:
+        out = dataclasses.replace(
+            out, having=select.having, distinct=select.distinct
+        )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# EXPLAIN
+# ---------------------------------------------------------------------------
+
+
+def explain(node, indent: int = 0) -> str:
+    """Reference-style plan dump (planner-test yaml look)."""
+    pad = "  " * indent
+    if isinstance(node, LAggProject):
+        keys = ", ".join(g.name for g in node.group_by)
+        head = "LogicalAgg" if node.group_by else "LogicalProject"
+        extra = f" group_by=[{keys}]" if keys else ""
+        items = ", ".join(
+            (i.alias or _expr_str(i.expr)) for i in node.items
+        )
+        return (
+            f"{pad}{head}{extra} items=[{items}]\n"
+            + explain(node.input, indent + 1)
+        )
+    if isinstance(node, LFilter):
+        preds = " AND ".join(_expr_str(c) for c in node.conjuncts)
+        return f"{pad}LogicalFilter [{preds}]\n" + explain(
+            node.input, indent + 1
+        )
+    if isinstance(node, LJoin):
+        return (
+            f"{pad}LogicalJoin type={node.join_type} on={_expr_str(node.on)}\n"
+            + explain(node.left, indent + 1)
+            + explain(node.right, indent + 1)
+        )
+    if isinstance(node, LWindow):
+        kind = "hop" if node.slide_ms != node.size_ms else "tumble"
+        return (
+            f"{pad}LogicalHopWindow kind={kind} ts={node.ts_col} "
+            f"size={node.size_ms}ms slide={node.slide_ms}ms\n"
+            + explain(node.input, indent + 1)
+        )
+    if isinstance(node, LScan):
+        a = f" as {node.alias}" if node.alias else ""
+        return f"{pad}LogicalScan {node.table}{a}\n"
+    return f"{pad}{node!r}\n"
+
+
+def _expr_str(ast) -> str:
+    if isinstance(ast, P.Ident):
+        return f"{ast.qualifier}.{ast.name}" if ast.qualifier else ast.name
+    if isinstance(ast, P.Literal):
+        return repr(ast.value)
+    if isinstance(ast, P.BinaryOp):
+        return f"({_expr_str(ast.left)} {ast.op} {_expr_str(ast.right)})"
+    if isinstance(ast, P.UnaryOp):
+        return f"({ast.op} {_expr_str(ast.operand)})"
+    if isinstance(ast, P.FuncCall):
+        args = ", ".join(
+            a if isinstance(a, str) else _expr_str(a) for a in ast.args
+        )
+        return f"{ast.name}({args})"
+    return repr(ast)
+
+
+def explain_sql(sql: str, catalog=None) -> str:
+    """EXPLAIN: original + optimized logical plans."""
+    stmt = P.parse(sql)
+    if isinstance(stmt, P.CreateMaterializedView):
+        select = stmt.select
+    elif isinstance(stmt, P.Select):
+        select = stmt
+    else:
+        raise ValueError("EXPLAIN supports SELECT / CREATE MV")
+    before = build(select, catalog=catalog)
+    after = optimize(build(select, catalog=catalog))
+    return (
+        "-- logical plan\n"
+        + explain(before)
+        + "-- optimized\n"
+        + explain(after)
+    )

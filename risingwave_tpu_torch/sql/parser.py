@@ -1,0 +1,932 @@
+"""SQL lexer + recursive-descent parser (Postgres-dialect subset).
+
+Port of ``risingwave_tpu/sql/parser.py``, copied: it imports no jax.
+
+Reference: src/sqlparser/ (21.5k LoC forked Postgres parser). This is
+the subset the streaming planner consumes — CREATE MATERIALIZED VIEW,
+SELECT with window TVFs (TUMBLE/HOP), JOIN ... ON, WHERE, GROUP BY,
+aggregate calls, CASE, and the usual scalar operators. The AST mirrors
+the reference's sqlparser AST shapes (Statement/Query/SetExpr/
+TableFactor) collapsed to what the planner needs.
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple, Union
+
+# ---------------------------------------------------------------- AST --
+
+
+@dataclass(frozen=True)
+class Ident:
+    name: str
+    qualifier: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class Literal:
+    value: object  # int | float | str | bool | None
+
+
+@dataclass(frozen=True)
+class FuncCall:
+    name: str  # lowercased
+    args: Tuple[object, ...]  # exprs; ("*",) for COUNT(*)
+    distinct: bool = False  # count(DISTINCT x) / string_agg(DISTINCT x)
+
+
+@dataclass(frozen=True)
+class Star:
+    """SELECT * — expanded to the relation's columns before planning
+    (the reference's binder star expansion, binder/select.rs)."""
+
+
+@dataclass(frozen=True)
+class UnionAll:
+    """<select> UNION ALL <select> [...] (reference: the frontend's
+    set-operation binder + stream UnionExecutor, union.rs)."""
+
+    selects: Tuple["Select", ...]
+
+
+@dataclass(frozen=True)
+class UnaryOp:
+    op: str
+    operand: object
+
+
+@dataclass(frozen=True)
+class BinaryOp:
+    op: str  # +,-,*,/,%,=,<>,<,<=,>,>=,and,or
+    left: object
+    right: object
+
+
+@dataclass(frozen=True)
+class CaseExpr:
+    branches: Tuple[Tuple[object, object], ...]
+    default: Optional[object]
+
+
+@dataclass(frozen=True)
+class WindowFuncCall:
+    """<func>(args) OVER (PARTITION BY ... ORDER BY ... [ROWS frame])
+    (reference: binder window_function.rs; planner over_window)."""
+
+    func: "FuncCall"
+    partition_by: Tuple["Ident", ...]
+    order_by: Tuple[Tuple["Ident", bool], ...]  # (col, desc)
+    frame: Optional[Tuple[int, int]] = None  # ROWS (lo, hi) rel offsets
+
+
+@dataclass(frozen=True)
+class SelectItem:
+    expr: object
+    alias: Optional[str]
+
+
+@dataclass(frozen=True)
+class TableRef:
+    name: str
+    alias: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class WindowTVF:
+    kind: str  # "tumble" | "hop"
+    table: TableRef
+    ts_col: str
+    size_ms: int
+    slide_ms: int  # == size_ms for tumble
+    alias: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class SubQuery:
+    select: "Select"
+    alias: str
+
+
+@dataclass(frozen=True)
+class Exists:
+    """EXISTS (SELECT ... [WHERE corr]) — decorrelated into a left-semi
+    (NOT EXISTS: left-anti) join (binder/expr/subquery.rs Exists)."""
+
+    select: "Select"
+
+
+@dataclass(frozen=True)
+class InSubquery:
+    """<expr> [NOT] IN (SELECT col FROM ...) — decorrelated into a
+    left-semi/anti join on expr = col. NOT IN assumes the subquery
+    column is non-NULL (three-valued NOT IN semantics with NULLs are
+    not modeled — the reference warns the same way)."""
+
+    expr: object
+    select: "Select"
+    negated: bool = False
+
+
+@dataclass(frozen=True)
+class ScalarSubQuery:
+    """(SELECT <scalar agg expr> FROM t [WHERE corr]) used as an
+    expression (reference: binder/expr/subquery.rs:22). The planner
+    decorrelates the supported shapes into joins against grouped-agg
+    MVs."""
+
+    select: "Select"
+
+
+@dataclass(frozen=True)
+class Join:
+    left: object  # relation
+    right: object
+    on: object  # expr
+    join_type: str = "inner"  # inner|left|right|full|{left,right}_{semi,anti}
+
+
+@dataclass(frozen=True)
+class Select:
+    items: Tuple[SelectItem, ...]
+    from_: object  # relation or Join
+    where: Optional[object]
+    group_by: Tuple[Ident, ...]
+    order_by: Tuple[Tuple[Ident, bool], ...] = ()  # (col, desc)
+    limit: Optional[int] = None
+    # GROUP BY GROUPING SETS ((a, b), (a), ()) — empty means plain
+    grouping_sets: Tuple[Tuple[Ident, ...], ...] = ()
+    # HAVING references OUTPUT names (group keys / agg aliases)
+    having: Optional[object] = None
+    distinct: bool = False  # SELECT DISTINCT a, b == GROUP BY a, b
+
+
+@dataclass(frozen=True)
+class CreateMaterializedView:
+    name: str
+    select: Select
+    # EMIT ON WINDOW CLOSE (reference: EmitOnWindowClose plans): closed
+    # windows finalize (state freed) and final rows are exact; this
+    # build still emits intermediate updates before the close
+    emit_on_window_close: bool = False
+
+
+@dataclass(frozen=True)
+class CreateTable:
+    """CREATE TABLE t (col type, ...) — the DML-writable relation DDL
+    (reference: src/frontend/src/handler/create_table.rs)."""
+
+    name: str
+    columns: Tuple[Tuple[str, str], ...]  # (name, type word)
+    pk: Tuple[str, ...] = ()  # PRIMARY KEY (cols); empty -> hidden row id
+    # WATERMARK FOR col AS col - INTERVAL '...': (column, lag_ms)
+    watermark: Optional[Tuple[str, int]] = None
+
+
+@dataclass(frozen=True)
+class InsertValues:
+    """INSERT INTO t [(cols)] VALUES (...), (...) — the DML surface
+    (reference: src/frontend/src/handler/dml.rs -> dml executor)."""
+
+    table: str
+    rows: Tuple[Tuple[object, ...], ...]
+    columns: Optional[Tuple[str, ...]] = None
+
+
+@dataclass(frozen=True)
+class DeleteFrom:
+    """DELETE FROM t [WHERE pred] (reference: handler/dml.rs ->
+    batch delete executor feeding the table's DML channel)."""
+
+    table: str
+    where: Optional[object] = None
+
+
+@dataclass(frozen=True)
+class UpdateSet:
+    """UPDATE t SET c = expr [, ...] [WHERE pred]."""
+
+    table: str
+    sets: Tuple[Tuple[str, object], ...]  # (column, value expr)
+    where: Optional[object] = None
+
+
+Statement = Union[
+    CreateMaterializedView, CreateTable, Select, InsertValues,
+    DeleteFrom, UpdateSet,
+]
+
+# -------------------------------------------------------------- lexer --
+
+_TOKEN_RE = re.compile(
+    r"""\s*(?:
+      (?P<num>\d+(?:\.\d+)?)
+    | (?P<str>'(?:[^']|'')*')
+    | (?P<ident>[A-Za-z_][A-Za-z_0-9]*)
+    | (?P<op><>|<=|>=|!=|\|\||[-+*/%(),.=<>])
+    )""",
+    re.VERBOSE,
+)
+
+_KEYWORDS = {
+    "select", "from", "where", "group", "by", "having", "as", "join", "inner", "on",
+    "and", "or", "not", "create", "materialized", "view", "tumble", "hop",
+    "interval", "second", "seconds", "millisecond", "milliseconds",
+    "minute", "minutes", "case", "when", "then", "else", "end", "null", "order", "limit", "asc", "desc",
+    "true", "false", "is", "between", "in", "distinct",
+    "insert", "into", "values",
+}
+
+# Contextual words (NOT reserved — usable as identifiers; recognized by
+# value only in join-type position, like the reference sqlparser's
+# non-reserved keywords after LEFT/RIGHT):
+_JOIN_WORDS = {"left", "right", "full", "outer", "semi", "anti"}
+
+# INTERVAL unit -> milliseconds — shared with the session's CREATE
+# SOURCE clause parsing so the two grammars cannot drift
+INTERVAL_SCALES = {
+    "millisecond": 1, "milliseconds": 1,
+    "second": 1000, "seconds": 1000,
+    "minute": 60_000, "minutes": 60_000,
+}
+
+
+@dataclass
+class _Tok:
+    kind: str  # num | str | ident | kw | op | eof
+    value: str
+
+
+def _lex(sql: str) -> List[_Tok]:
+    out, pos = [], 0
+    while pos < len(sql):
+        m = _TOKEN_RE.match(sql, pos)
+        if not m or m.end() == pos:
+            if sql[pos:].strip() == "":
+                break
+            raise SyntaxError(f"cannot tokenize at: {sql[pos:pos+20]!r}")
+        pos = m.end()
+        if m.lastgroup == "num":
+            out.append(_Tok("num", m.group("num")))
+        elif m.lastgroup == "str":
+            out.append(_Tok("str", m.group("str")[1:-1].replace("''", "'")))
+        elif m.lastgroup == "ident":
+            word = m.group("ident").lower()
+            out.append(_Tok("kw" if word in _KEYWORDS else "ident", word))
+        else:
+            out.append(_Tok("op", m.group("op")))
+    out.append(_Tok("eof", ""))
+    return out
+
+
+# ------------------------------------------------------------- parser --
+
+
+class Parser:
+    def __init__(self, sql: str):
+        self.toks = _lex(sql)
+        self.i = 0
+
+    # -- token helpers ---------------------------------------------------
+    def peek(self) -> _Tok:
+        return self.toks[self.i]
+
+    def next(self) -> _Tok:
+        t = self.toks[self.i]
+        self.i += 1
+        return t
+
+    def accept(self, kind: str, value: Optional[str] = None) -> Optional[_Tok]:
+        t = self.peek()
+        if t.kind == kind and (value is None or t.value == value):
+            return self.next()
+        return None
+
+    def expect(self, kind: str, value: Optional[str] = None) -> _Tok:
+        t = self.accept(kind, value)
+        if t is None:
+            raise SyntaxError(
+                f"expected {value or kind}, got {self.peek().value!r}"
+            )
+        return t
+
+    # -- entry -----------------------------------------------------------
+    def parse(self) -> Statement:
+        if self.accept("kw", "create"):
+            if self._accept_word("table"):
+                name = self.expect("ident").value
+                self.expect("op", "(")
+                cols = []
+                pk: Tuple[str, ...] = ()
+                watermark: Optional[Tuple[str, int]] = None
+                while True:
+                    if self._accept_word("watermark"):
+                        # WATERMARK FOR col AS col - INTERVAL '...'
+                        # (reference: CREATE ... WATERMARK FOR, the
+                        # watermark-definition DDL)
+                        if not self._accept_word("for"):
+                            raise SyntaxError(
+                                "expected FOR after WATERMARK"
+                            )
+                        wcol = self.expect("ident").value
+                        self.expect("kw", "as")
+                        wcol2 = self.expect("ident").value
+                        if wcol2 != wcol:
+                            raise SyntaxError(
+                                "WATERMARK expression must be "
+                                f"{wcol} - INTERVAL '...'"
+                            )
+                        self.expect("op", "-")
+                        lag = self.interval_ms()
+                        if watermark is not None:
+                            raise SyntaxError("multiple WATERMARK clauses")
+                        watermark = (wcol, lag)
+                        if not self.accept("op", ","):
+                            break
+                        continue
+                    if self._accept_word("primary"):
+                        if not self._accept_word("key"):
+                            raise SyntaxError("expected KEY after PRIMARY")
+                        if pk:
+                            raise SyntaxError("multiple primary keys")
+                        self.expect("op", "(")
+                        pkc = [self.expect("ident").value]
+                        while self.accept("op", ","):
+                            pkc.append(self.expect("ident").value)
+                        self.expect("op", ")")
+                        pk = tuple(pkc)
+                        if not self.accept("op", ","):
+                            break
+                        continue
+                    cname = self.expect("ident").value
+                    t = self.next()
+                    if t.kind not in ("ident", "kw"):
+                        raise SyntaxError(f"expected a type, got {t.value!r}")
+                    tword = t.value
+                    # parameterized types: DECIMAL(10, 2), VARCHAR(64)
+                    if self.accept("op", "("):
+                        args = [self.expect("num").value]
+                        while self.accept("op", ","):
+                            args.append(self.expect("num").value)
+                        self.expect("op", ")")
+                        tword += "(" + ",".join(args) + ")"
+                    # inline single-column PRIMARY KEY
+                    if self._accept_word("primary"):
+                        if not self._accept_word("key"):
+                            raise SyntaxError("expected KEY after PRIMARY")
+                        if pk:
+                            raise SyntaxError("multiple primary keys")
+                        pk = (cname,)
+                    cols.append((cname, tword))
+                    if not self.accept("op", ","):
+                        break
+                self.expect("op", ")")
+                self.expect("eof")
+                unknown = set(pk) - {c for c, _ in cols}
+                if unknown:
+                    raise SyntaxError(f"PRIMARY KEY over unknown {unknown}")
+                if watermark is not None and watermark[0] not in {
+                    c for c, _ in cols
+                }:
+                    raise SyntaxError(
+                        f"WATERMARK over unknown column {watermark[0]!r}"
+                    )
+                return CreateTable(name, tuple(cols), pk, watermark)
+            self.expect("kw", "materialized")
+            self.expect("kw", "view")
+            name = self.expect("ident").value
+            self.expect("kw", "as")
+            sel = self._select_maybe_union()
+            eowc = False
+            if self._accept_word("emit"):
+                if not (
+                    self._accept_word("on")
+                    and self._accept_word("window")
+                    and self._accept_word("close")
+                ):
+                    raise SyntaxError("expected EMIT ON WINDOW CLOSE")
+                eowc = True
+            self.expect("eof")
+            return CreateMaterializedView(name, sel, eowc)
+        if self.accept("kw", "insert"):
+            self.expect("kw", "into")
+            table = self.expect("ident").value
+            cols = None
+            if self.accept("op", "("):
+                cols = [self.expect("ident").value]
+                while self.accept("op", ","):
+                    cols.append(self.expect("ident").value)
+                self.expect("op", ")")
+            self.expect("kw", "values")
+            rows = []
+            while True:
+                self.expect("op", "(")
+                row = [self._literal_value()]
+                while self.accept("op", ","):
+                    row.append(self._literal_value())
+                self.expect("op", ")")
+                rows.append(tuple(row))
+                if not self.accept("op", ","):
+                    break
+            self.expect("eof")
+            return InsertValues(
+                table, tuple(rows), tuple(cols) if cols else None
+            )
+        if self._accept_word("delete"):
+            self.expect("kw", "from")
+            table = self.expect("ident").value
+            where = self.expr() if self.accept("kw", "where") else None
+            self.expect("eof")
+            return DeleteFrom(table, where)
+        if self._accept_word("update"):
+            table = self.expect("ident").value
+            if not self._accept_word("set"):
+                raise SyntaxError("expected SET after UPDATE <table>")
+            sets = []
+            while True:
+                col = self.expect("ident").value
+                self.expect("op", "=")
+                sets.append((col, self.expr()))
+                if not self.accept("op", ","):
+                    break
+            where = self.expr() if self.accept("kw", "where") else None
+            self.expect("eof")
+            return UpdateSet(table, tuple(sets), where)
+        sel = self._select_maybe_union()
+        self.expect("eof")
+        return sel
+
+    def _select_maybe_union(self):
+        """select [UNION ALL select ...] — chained branches flatten
+        into one UnionAll node."""
+        branches = [self.select()]
+        while self._accept_word("union"):
+            if not self._accept_word("all"):
+                raise SyntaxError(
+                    "only UNION ALL is supported (UNION implies "
+                    "distinct, which needs a dedup over the merge)"
+                )
+            branches.append(self.select())
+        if len(branches) == 1:
+            return branches[0]
+        return UnionAll(tuple(branches))
+
+    def _literal_value(self):
+        """A literal (optionally negated) inside VALUES."""
+        neg = bool(self.accept("op", "-"))
+        t = self.peek()
+        if t.kind == "num":
+            self.next()
+            v = float(t.value) if "." in t.value else int(t.value)
+            return -v if neg else v
+        if neg:
+            raise SyntaxError("'-' needs a numeric literal")
+        if t.kind == "str":
+            self.next()
+            return t.value
+        if self.accept("kw", "null"):
+            return None
+        if self.accept("kw", "true"):
+            return True
+        if self.accept("kw", "false"):
+            return False
+        raise SyntaxError(f"expected literal, got {t.value!r}")
+
+    def _accept_word(self, value: str) -> bool:
+        """Accept a contextual word: matches a kw OR ident token by value."""
+        t = self.peek()
+        if t.kind in ("kw", "ident") and t.value == value:
+            self.next()
+            return True
+        return False
+
+    def _join_type(self) -> Optional[str]:
+        """Consume a join-type prefix + JOIN keyword; None if no join follows.
+
+        Grammar (ref src/sqlparser parses the same surface forms):
+          [INNER] JOIN | LEFT [OUTER] JOIN | RIGHT [OUTER] JOIN
+          | FULL [OUTER] JOIN | LEFT SEMI JOIN | LEFT ANTI JOIN
+          | RIGHT SEMI JOIN | RIGHT ANTI JOIN
+        LEFT/RIGHT/FULL/OUTER/SEMI/ANTI are contextual (valid identifiers
+        elsewhere); only a trailing JOIN keyword commits the parse.
+        """
+        t = self.peek()
+        if not (
+            (t.kind == "kw" and t.value in ("join", "inner"))
+            or (t.kind in ("kw", "ident") and t.value in ("left", "right", "full"))
+        ):
+            return None
+        if self.accept("kw", "join"):
+            return "inner"
+        if self.accept("kw", "inner"):
+            self.expect("kw", "join")
+            return "inner"
+        side = self.next().value  # left | right | full
+        if side in ("left", "right"):
+            if self._accept_word("semi"):
+                self.expect("kw", "join")
+                return f"{side}_semi"
+            if self._accept_word("anti"):
+                self.expect("kw", "join")
+                return f"{side}_anti"
+        self._accept_word("outer")
+        self.expect("kw", "join")
+        return side
+
+    # -- select ----------------------------------------------------------
+    def select(self) -> Select:
+        self.expect("kw", "select")
+        distinct = bool(self.accept("kw", "distinct"))
+        # `*` is valid in ANY item position (expanded against the
+        # catalog by the typing layer before planning)
+        items = []
+        while True:
+            if self.accept("op", "*"):
+                items.append(SelectItem(Star(), None))
+            else:
+                items.append(self.select_item())
+            if not self.accept("op", ","):
+                break
+        self.expect("kw", "from")
+        rel = self.relation()
+        while True:
+            jt = self._join_type()
+            if jt is None:
+                break
+            right = self.relation()
+            # temporal lookup: JOIN t FOR SYSTEM_TIME AS OF PROCTIME()
+            # (reference: temporal_join.rs:44; sqlparser table factor)
+            if self._accept_word("for"):
+                if not self._accept_word("system_time"):
+                    raise SyntaxError("expected SYSTEM_TIME after FOR")
+                self.expect("kw", "as")
+                if not self._accept_word("of"):
+                    raise SyntaxError("expected OF")
+                if not self._accept_word("proctime"):
+                    raise SyntaxError("expected PROCTIME()")
+                self.expect("op", "(")
+                self.expect("op", ")")
+                if jt not in ("inner", "left"):
+                    raise SyntaxError(
+                        "temporal joins support INNER / LEFT only"
+                    )
+                jt = "temporal" if jt == "inner" else "temporal_left"
+                # the alias may follow the whole FOR SYSTEM_TIME clause
+                alias = self._rel_alias()
+                if alias is not None:
+                    if not isinstance(right, TableRef):
+                        raise SyntaxError("temporal side must be a table")
+                    right = TableRef(right.name, alias)
+            self.expect("kw", "on")
+            rel = Join(rel, right, self.expr(), jt)
+        where = self.expr() if self.accept("kw", "where") else None
+        group: Tuple[Ident, ...] = ()
+        gsets: Tuple[Tuple[Ident, ...], ...] = ()
+        if self.accept("kw", "group"):
+            self.expect("kw", "by")
+            if self._accept_word("grouping"):
+                if not self._accept_word("sets"):
+                    raise SyntaxError("expected SETS after GROUPING")
+                self.expect("op", "(")
+                sets = []
+                while True:
+                    self.expect("op", "(")
+                    cols = []
+                    if not self.accept("op", ")"):
+                        cols.append(self.qualified_ident())
+                        while self.accept("op", ","):
+                            cols.append(self.qualified_ident())
+                        self.expect("op", ")")
+                    sets.append(tuple(cols))
+                    if not self.accept("op", ","):
+                        break
+                self.expect("op", ")")
+                gsets = tuple(sets)
+                # union of all set columns is the working key set
+                seen, union = set(), []
+                for st in gsets:
+                    for c in st:
+                        if c.name not in seen:
+                            seen.add(c.name)
+                            union.append(c)
+                group = tuple(union)
+            else:
+                cols = [self.qualified_ident()]
+                while self.accept("op", ","):
+                    cols.append(self.qualified_ident())
+                group = tuple(cols)
+        having = self.expr() if self.accept("kw", "having") else None
+        order: Tuple[Tuple[Ident, bool], ...] = ()
+        if self.accept("kw", "order"):
+            self.expect("kw", "by")
+            obs = []
+            while True:
+                ident = self.qualified_ident()
+                desc = bool(self.accept("kw", "desc"))
+                if not desc:
+                    self.accept("kw", "asc")
+                obs.append((ident, desc))
+                if not self.accept("op", ","):
+                    break
+            order = tuple(obs)
+        limit = None
+        if self.accept("kw", "limit"):
+            limit = int(self.expect("num").value)
+        return Select(
+            tuple(items), rel, where, group, order, limit, gsets,
+            having=having, distinct=distinct,
+        )
+
+    def select_item(self) -> SelectItem:
+        e = self.expr()
+        alias = None
+        if self.accept("kw", "as"):
+            alias = self.expect("ident").value
+        elif self.peek().kind == "ident":
+            alias = self.next().value
+        return SelectItem(e, alias)
+
+    # -- relations -------------------------------------------------------
+    def relation(self):
+        if self.accept("op", "("):
+            sel = self.select()
+            self.expect("op", ")")
+            self.accept("kw", "as")
+            alias = self.expect("ident").value
+            return SubQuery(sel, alias)
+        if self.peek().kind == "kw" and self.peek().value in ("tumble", "hop"):
+            kind = self.next().value
+            self.expect("op", "(")
+            table = TableRef(self.expect("ident").value)
+            self.expect("op", ",")
+            ts_col = self.expect("ident").value
+            self.expect("op", ",")
+            first = self.interval_ms()
+            slide = size = first
+            if kind == "hop":
+                self.expect("op", ",")
+                size = self.interval_ms()
+                slide = first  # HOP(tbl, ts, slide, size) — pg/RW order
+            self.expect("op", ")")
+            return WindowTVF(
+                kind, table, ts_col, size, slide, self._rel_alias()
+            )
+        name = self.expect("ident").value
+        return TableRef(name, self._rel_alias())
+
+    def _rel_alias(self) -> Optional[str]:
+        """[AS] alias after a relation. A bare LEFT/RIGHT/FULL is a join
+        prefix, not an alias (contextual words; use AS to force)."""
+        if self.accept("kw", "as"):
+            return self.expect("ident").value
+        t = self.peek()
+        if t.kind == "ident" and t.value not in (
+            "left", "right", "full", "for",
+            "union",  # a set-op continuation, not an alias
+            "emit",  # EMIT ON WINDOW CLOSE suffix
+        ):
+            return self.next().value
+        return None
+
+    def interval_ms(self) -> int:
+        self.expect("kw", "interval")
+        raw = self.expect("str").value
+        unit_tok = self.accept("kw")
+        text = raw.strip()
+        m = re.fullmatch(r"(\d+)(?:\s+(\w+))?", text)
+        if not m:
+            raise SyntaxError(f"bad interval {raw!r}")
+        n = int(m.group(1))
+        unit = (unit_tok.value if unit_tok else (m.group(2) or "second")).lower()
+        scale = INTERVAL_SCALES.get(unit)
+        if scale is None:
+            raise SyntaxError(f"bad interval unit {unit!r}")
+        return n * scale
+
+    def qualified_ident(self) -> Ident:
+        a = self.expect("ident").value
+        if self.accept("op", "."):
+            return Ident(self.expect("ident").value, qualifier=a)
+        return Ident(a)
+
+    def _window_spec(self, call: FuncCall) -> WindowFuncCall:
+        """OVER ( [PARTITION BY c,...] [ORDER BY c [ASC|DESC],...]
+        [ROWS BETWEEN <n> PRECEDING AND CURRENT ROW] )."""
+        self.expect("op", "(")
+        part: List[Ident] = []
+        order: List[Tuple[Ident, bool]] = []
+        frame = None
+        if self._accept_word("partition"):
+            self.expect("kw", "by")
+            part.append(self.qualified_ident())
+            while self.accept("op", ","):
+                part.append(self.qualified_ident())
+        if self.accept("kw", "order"):
+            self.expect("kw", "by")
+            while True:
+                ident = self.qualified_ident()
+                desc = bool(self.accept("kw", "desc"))
+                if not desc:
+                    self.accept("kw", "asc")
+                order.append((ident, desc))
+                if not self.accept("op", ","):
+                    break
+        if self._accept_word("rows"):
+            self.expect("kw", "between")
+            if self._accept_word("unbounded"):
+                if not self._accept_word("preceding"):
+                    raise SyntaxError("expected PRECEDING after UNBOUNDED")
+                lo = None
+            else:
+                lo = -int(self.expect("num").value)
+                if not self._accept_word("preceding"):
+                    raise SyntaxError("expected PRECEDING")
+            self.expect("kw", "and")
+            if self._accept_word("current"):
+                if not self._accept_word("row"):
+                    raise SyntaxError("expected ROW after CURRENT")
+                hi = 0
+            elif self._accept_word("unbounded"):
+                raise SyntaxError("UNBOUNDED FOLLOWING is not supported")
+            else:
+                hi = int(self.expect("num").value)
+                if not self._accept_word("following"):
+                    raise SyntaxError("expected FOLLOWING")
+            # lo None = UNBOUNDED PRECEDING (running; frame stays None only
+            # when hi == 0, the executor's running default)
+            if lo is None:
+                if hi != 0:
+                    raise SyntaxError(
+                        "UNBOUNDED PRECEDING .. n FOLLOWING is unsupported"
+                    )
+                frame = None
+            else:
+                frame = (lo, hi)
+        self.expect("op", ")")
+        return WindowFuncCall(call, tuple(part), tuple(order), frame)
+
+    # -- expressions (precedence climbing) -------------------------------
+    def expr(self):
+        return self.or_expr()
+
+    def or_expr(self):
+        e = self.and_expr()
+        while self.accept("kw", "or"):
+            e = BinaryOp("or", e, self.and_expr())
+        return e
+
+    def and_expr(self):
+        e = self.not_expr()
+        while self.accept("kw", "and"):
+            e = BinaryOp("and", e, self.not_expr())
+        return e
+
+    def not_expr(self):
+        if self.accept("kw", "not"):
+            return UnaryOp("not", self.not_expr())
+        return self.cmp_expr()
+
+    def cmp_expr(self):
+        e = self.add_expr()
+        t = self.peek()
+        if t.kind == "op" and t.value in ("=", "<>", "!=", "<", "<=", ">", ">="):
+            op = self.next().value
+            return BinaryOp("=" if op == "=" else op, e, self.add_expr())
+        if self.accept("kw", "is"):
+            neg = bool(self.accept("kw", "not"))
+            self.expect("kw", "null")
+            return UnaryOp("is not null" if neg else "is null", e)
+        if self.accept("kw", "between"):
+            lo = self.add_expr()
+            self.expect("kw", "and")
+            hi = self.add_expr()
+            return FuncCall("between", (e, lo, hi))
+        negated = False
+        if (
+            self.peek().kind == "kw"
+            and self.peek().value == "not"
+            and self.toks[self.i + 1].kind == "kw"
+            and self.toks[self.i + 1].value == "in"
+        ):
+            self.next()  # NOT (only as a prefix of IN here)
+            negated = True
+        if self.accept("kw", "in"):
+            self.expect("op", "(")
+            if self.peek().kind == "kw" and self.peek().value == "select":
+                sub = self.select()
+                self.expect("op", ")")
+                return InSubquery(e, sub, negated)
+            vals = [self.expr()]
+            while self.accept("op", ","):
+                vals.append(self.expr())
+            self.expect("op", ")")
+            inlist = FuncCall("in", (e, *vals))
+            return UnaryOp("not", inlist) if negated else inlist
+        return e
+
+    def add_expr(self):
+        e = self.mul_expr()
+        while True:
+            t = self.peek()
+            if t.kind == "op" and t.value in ("+", "-"):
+                e = BinaryOp(self.next().value, e, self.mul_expr())
+            else:
+                return e
+
+    def mul_expr(self):
+        e = self.unary()
+        while True:
+            t = self.peek()
+            if t.kind == "op" and t.value in ("*", "/", "%"):
+                e = BinaryOp(self.next().value, e, self.unary())
+            else:
+                return e
+
+    def unary(self):
+        if self.accept("op", "-"):
+            return UnaryOp("-", self.unary())
+        return self.primary()
+
+    def primary(self):
+        t = self.peek()
+        if t.kind == "num":
+            self.next()
+            return Literal(float(t.value) if "." in t.value else int(t.value))
+        if t.kind == "str":
+            self.next()
+            return Literal(t.value)
+        if self.accept("kw", "null"):
+            return Literal(None)
+        if self.accept("kw", "true"):
+            return Literal(True)
+        if self.accept("kw", "false"):
+            return Literal(False)
+        if self.accept("kw", "case"):
+            branches = []
+            while self.accept("kw", "when"):
+                cond = self.expr()
+                self.expect("kw", "then")
+                branches.append((cond, self.expr()))
+            default = self.expr() if self.accept("kw", "else") else None
+            self.expect("kw", "end")
+            return CaseExpr(tuple(branches), default)
+        if self.accept("op", "("):
+            if self.peek().kind == "kw" and self.peek().value == "select":
+                # scalar subquery: (SELECT <agg expr> FROM ... [WHERE ...])
+                # (reference: binder/expr/subquery.rs:22)
+                sub = self.select()
+                self.expect("op", ")")
+                return ScalarSubQuery(sub)
+            e = self.expr()
+            self.expect("op", ")")
+            return e
+        if t.kind == "ident":
+            self.next()
+            if t.value == "exists" and (
+                self.peek().kind == "op" and self.peek().value == "("
+            ):
+                # EXISTS (SELECT ...) — only the subquery form; a
+                # function named exists() would shadow it, none exists
+                save = self.i
+                self.next()  # (
+                if self.peek().kind == "kw" and self.peek().value == "select":
+                    sub = self.select()
+                    self.expect("op", ")")
+                    return Exists(sub)
+                self.i = save
+            if self.accept("op", "("):
+                if t.value == "extract":
+                    # EXTRACT(FIELD FROM expr) — pg special form
+                    f = self.next()
+                    if f.kind not in ("ident", "kw"):
+                        raise SyntaxError("EXTRACT needs a field name")
+                    self.expect("kw", "from")
+                    inner = self.expr()
+                    self.expect("op", ")")
+                    return FuncCall("extract", (Literal(f.value), inner))
+                if self.accept("op", "*"):
+                    self.expect("op", ")")
+                    call = FuncCall(t.value, ("*",))
+                    if self._accept_word("over"):
+                        return self._window_spec(call)
+                    return call
+                args = []
+                dis = bool(self.accept("kw", "distinct"))
+                if not self.accept("op", ")"):
+                    args.append(self.expr())
+                    while self.accept("op", ","):
+                        args.append(self.expr())
+                    self.expect("op", ")")
+                call = FuncCall(t.value, tuple(args), distinct=dis)
+                if self._accept_word("over"):
+                    return self._window_spec(call)
+                return call
+            if self.accept("op", "."):
+                return Ident(self.expect("ident").value, qualifier=t.value)
+            return Ident(t.value)
+        raise SyntaxError(f"unexpected token {t.value!r}")
+
+
+def parse(sql: str) -> Statement:
+    return Parser(sql).parse()

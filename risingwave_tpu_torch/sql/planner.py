@@ -1,0 +1,2511 @@
+"""Binder + streaming planner: SQL AST -> executor pipeline.
+
+Reference roles:
+- Binder (src/frontend/src/binder/): name resolution against a catalog;
+- Planner + optimizer (src/frontend/src/planner/, optimizer/): bound
+  query -> stream plan. This v0 is a PATTERN planner: it recognizes the
+  streaming shapes our executors implement (the same specializations
+  RW's rules produce on these queries) instead of a rewrite engine:
+    * window TVF         -> HopWindowExecutor
+    * WHERE              -> FilterExecutor
+    * computed items     -> ProjectExecutor
+    * GROUP BY + aggs    -> HashAggExecutor
+    * GROUP BY, no aggs  -> AppendOnlyDedupExecutor (append-only DISTINCT)
+    * JOIN ... ON eq     -> HashJoinExecutor (TwoInputPipeline)
+    * no pk available    -> RowIdGenExecutor (hidden _row_id, row_id_gen.rs)
+- Stream fragmenter (src/frontend/src/stream_fragmenter/): here one
+  fragment per input stream — the TwoInputPipeline split.
+
+The planner returns a PlannedMV: pipeline + materialize + the input
+stream name(s) the caller feeds.
+
+Port of ``risingwave_tpu/sql/planner.py``. Schemas carry torch dtypes
+(the reference's ``jnp`` dtypes mapped one to one), and every stateful
+executor the planner builds keeps its state on the planner's
+``device`` (``"cuda"`` unless the caller passes another).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from risingwave_tpu_torch.executors.base import Executor
+from risingwave_tpu_torch.executors.dedup import AppendOnlyDedupExecutor
+from risingwave_tpu_torch.executors.filter import FilterExecutor
+from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
+from risingwave_tpu_torch.executors.hash_join import HashJoinExecutor
+from risingwave_tpu_torch.executors.hop_window import HopWindowExecutor
+from risingwave_tpu_torch.executors.materialize import (
+    DeviceMaterializeExecutor,
+    MaterializeExecutor,
+)
+from risingwave_tpu_torch.executors.project import ProjectExecutor
+from risingwave_tpu_torch.executors.row_id_gen import RowIdGenExecutor
+from risingwave_tpu_torch.expr import expr as E
+from risingwave_tpu_torch.expr.dtypes import torch_dtype
+from risingwave_tpu_torch.ops.agg import AggCall
+from risingwave_tpu_torch.runtime.pipeline import Pipeline, TwoInputPipeline
+from risingwave_tpu_torch.sql import parser as P
+from risingwave_tpu_torch.types import Schema
+
+_INTEGER_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def _is_integer(dt) -> bool:
+    """``jnp.issubdtype(dt, jnp.integer)``: bool and floats are not."""
+    return torch_dtype(dt) in _INTEGER_DTYPES
+
+
+AGG_FUNCS = {"count": "count", "sum": "sum", "min": "min", "max": "max"}
+
+# Composite aggregates lowered onto the base kinds + a finishing
+# projection (the reference ships these as first-class agg kernels,
+# src/expr/impl/src/aggregate/general.rs + stddev via sum/count
+# decomposition in the frontend; here the decomposition IS the plan:
+# hidden sum/count/sum-of-squares calls feed one post-agg Project, so
+# retraction, checkpointing, sharding, and two-phase splits all come
+# for free from the base machinery).
+EXTENDED_AGGS = (
+    "avg",
+    "var_pop",
+    "var_samp",
+    "stddev_pop",
+    "stddev_samp",
+    "bool_and",
+    "bool_or",
+)
+
+# DISTINCT aggregates lower onto an AppendOnlyDedupExecutor keyed
+# (group keys, distinct column) feeding a plain count — the reference
+# keeps per-agg distinct dedup tables (executor/aggregation/
+# distinct.rs); here the dedup IS an executor stage, so checkpointing
+# and sharding reuse its machinery. approx_count_distinct shares the
+# lowering (an exact answer is a valid approximation; the reference's
+# HLL trades exactness for bounded state).
+DISTINCT_AGGS = ("approx_count_distinct",)
+
+
+def _is_distinct_agg(ast) -> bool:
+    return isinstance(ast, P.FuncCall) and (
+        ast.name in DISTINCT_AGGS
+        or (ast.name in AGG_FUNCS and getattr(ast, "distinct", False))
+    )
+
+
+def _distinct_dedup_stage(select, binder, keys, schema, capacity, table_id, device):
+    """Validate a select's DISTINCT aggregates and build their shared
+    dedup prefix: [NULL filter on the distinct column (PG ignores NULL
+    inputs), AppendOnlyDedupExecutor keyed (group keys, column)].
+    Returns [] when the select has no DISTINCT aggregates.
+
+    Known divergence: a group whose rows ALL have a NULL distinct
+    column is dropped entirely (PG keeps it with count 0) — the NULL
+    filter removes its rows before grouping."""
+    items = select.items
+    if not any(_is_distinct_agg(it.expr) for it in items):
+        return [], None
+    dcols = [
+        binder.resolve(it.expr.args[0])
+        for it in items
+        if _is_distinct_agg(it.expr)
+        and it.expr.args != ("*",)
+        and isinstance(it.expr.args[0], P.Ident)
+    ]
+    n_distinct = sum(1 for it in items if _is_distinct_agg(it.expr))
+    if len(dcols) != n_distinct:
+        raise ValueError("DISTINCT aggregates take one bare column")
+    if len(set(dcols)) != 1:
+        raise NotImplementedError(
+            "all DISTINCT aggregates in one select must share a column"
+        )
+    if any(
+        _is_agg(it.expr) and not _is_distinct_agg(it.expr)
+        for it in items
+    ):
+        raise NotImplementedError(
+            "mixing DISTINCT and plain aggregates: split into two MVs"
+        )
+    dcol = dcols[0]
+    stage = [
+        FilterExecutor(E.IsNull(E.col(dcol), negate=True)),
+        # the filter removed NULL rows but not the column's NULL LANE;
+        # strip it so the dedup's null-free key contract holds
+        ProjectExecutor(
+            {
+                c: (
+                    E.AssumeNotNull(E.col(c)) if c == dcol else E.col(c)
+                )
+                for c in schema
+            }
+        ),
+        AppendOnlyDedupExecutor(
+            keys=tuple(keys) + (dcol,),
+            schema_dtypes=schema,
+            capacity=capacity,
+            table_id=table_id,
+            device=device,
+        ),
+    ]
+    return stage, dcol
+
+
+def _ext_agg_acc():
+    """Shared-state accumulator for extended-agg lowering: hidden base
+    calls are DEDUPED by (kind, input) so ``avg(v), stddev_samp(v)``
+    carries one sum(v) + one count(v), not two of each."""
+    return {"calls": [], "pre": {}, "hidden": {}}
+
+
+def _lower_extended_agg(kind: str, incol: str, acc: dict):
+    """Lower one extended aggregate over ``incol`` into a finishing
+    Expr + output dtype, appending its (deduped) base AggCalls and
+    pre-projected inputs (x*x for variance, int cast for bool_and/or)
+    into ``acc``.
+
+    NULL semantics follow PG: avg/var/stddev over zero non-null rows
+    is NULL (0/0 division -> NULL via the non-strict ``/`` guard);
+    var_samp/stddev_samp of a single row is NULL (n-1 = 0).
+    """
+
+    def base(k: str, col: str):
+        key = (k, col)
+        if key not in acc["hidden"]:
+            out = f"__x{len(acc['hidden'])}"
+            acc["hidden"][key] = out
+            acc["calls"].append(AggCall(k, col, out))
+        return E.col(acc["hidden"][key])
+
+    if kind == "avg":
+        fin = E.BinOp("/", base("sum", incol), base("count", incol))
+        return fin, torch.float64
+    if kind in ("bool_and", "bool_or"):
+        bcol = f"__xb_{incol}"
+        acc["pre"][bcol] = (
+            E.Cast(E.col(incol), torch.int64),
+            torch.int64,
+        )
+        m = base("min" if kind == "bool_and" else "max", bcol)
+        return E.BinOp("!=", m, E.lit(0)), torch.bool
+    # variance family: E[x^2] - E[x]^2 (pop) / (q - s*mean)/(n-1) (samp)
+    qcol = f"__xq_{incol}"
+    fx = E.Cast(E.col(incol), torch.float64)
+    acc["pre"][qcol] = (E.BinOp("*", fx, fx), torch.float64)
+    n = base("count", incol)
+    s = E.Cast(base("sum", incol), torch.float64)
+    q = base("sum", qcol)
+    mean = E.BinOp("/", s, n)
+    if kind in ("var_pop", "stddev_pop"):
+        var = E.BinOp("-", E.BinOp("/", q, n), E.BinOp("*", mean, mean))
+    else:
+        var = E.BinOp(
+            "/",
+            E.BinOp("-", q, E.BinOp("*", mean, s)),
+            E.BinOp("-", n, E.lit(1)),
+        )
+    from risingwave_tpu_torch.expr import functions as _F
+
+    var = _F.Func("greatest", (var, E.lit(0.0)))  # clamp fp cancellation
+    fin = _F.Func("sqrt", (var,)) if kind.startswith("stddev") else var
+    return fin, torch.float64
+
+
+@dataclass
+class BoundRel:
+    """One planned input chain: executors + output schema + pk."""
+
+    chain: List[Executor]
+    schema: Dict[str, object]  # col name -> torch dtype
+    pk: Tuple[str, ...]
+    source: str  # base stream name the caller pushes into
+    alias: Optional[str]
+    # set when the input is a window TVF over a watermark-declared
+    # relation: downstream grouped aggs keyed on it clean closed
+    # windows (window_key state cleaning)
+    window_col: Optional[str] = None
+
+
+def _join_inputs(lsrc: str, rsrc: str) -> Dict[str, str]:
+    """Join input map; a SELF-join (both sides read one base stream,
+    the Nexmark q7 shape) collapses to side "both" so the runtime
+    feeds each source chunk to both inputs."""
+    if lsrc == rsrc:
+        return {lsrc: "both"}
+    return {lsrc: "left", rsrc: "right"}
+
+
+@dataclass
+class PlannedMV:
+    name: str
+    pipeline: Union[Pipeline, TwoInputPipeline]
+    mview: MaterializeExecutor
+    inputs: Dict[str, str]  # base stream name -> "single"|"left"|"right"|"both"
+    schema: Optional[Dict[str, object]] = None  # output col -> dtype
+    # hidden MVs a multi-way join lowered into (registered by the
+    # session BEFORE this one, in list order — deepest first; the
+    # reference fragments an n-way join into a tree of 2-way
+    # StreamHashJoins the same way)
+    aux: Tuple["PlannedMV", ...] = ()
+
+
+class Catalog:
+    """Stream catalog: name -> Schema (reference: frontend catalog).
+
+    Planned MVs register their output schema with ``add_mv`` so later
+    statements can ``FROM <mv_name>`` (MV-on-MV; the runtime backfills
+    the new MV from the upstream's snapshot, runtime/backfill.py)."""
+
+    def __init__(self, tables: Dict[str, Schema]):
+        self.tables = dict(tables)
+        self.mvs: Dict[str, "PlannedMV"] = {}
+        # CREATE INDEX registry: name -> {"base", "cols", "base_pk",
+        # "arrangement"} (shared IndexArrangement instances; delta
+        # joins plan against these, lookup.rs)
+        self.indexes: Dict[str, dict] = {}
+        self.enable_delta_join = False  # SET enable_delta_join = true
+        # WATERMARK FOR declarations: relation -> (column, lag_ms)
+        # (reference: watermark definitions on sources/tables)
+        self.watermarks: Dict[str, Tuple[str, int]] = {}
+
+    def schema_dtypes(self, name: str) -> Dict[str, object]:
+        sch = self.tables[name]
+        return {f.name: f.dtype.device_dtype for f in sch.fields}
+
+    def add_mv(self, planned: "PlannedMV") -> None:
+        from risingwave_tpu_torch.types import schema_from_dtypes
+
+        if planned.schema is None:
+            raise ValueError("planned MV carries no output schema")
+        self.tables[planned.name] = schema_from_dtypes(planned.schema)
+        self.mvs[planned.name] = planned
+
+    def is_mv(self, name: str) -> bool:
+        return name in self.mvs
+
+
+class Binder:
+    """Column resolution over a rel's output schema. ``alias`` may be a
+    single name or a set of names (an enriched temporal-join schema is
+    addressable through either side's qualifier)."""
+
+    def __init__(self, schema: Dict[str, object], alias):
+        self.schema = schema
+        self.alias = alias
+
+    def resolve(self, ident: P.Ident) -> str:
+        if ident.qualifier is not None and self.alias is not None:
+            ok = (
+                ident.qualifier in self.alias
+                if isinstance(self.alias, (set, frozenset))
+                else ident.qualifier == self.alias
+            )
+            if not ok:
+                raise KeyError(f"unknown qualifier {ident.qualifier!r}")
+        if ident.name not in self.schema:
+            raise KeyError(f"unknown column {ident.name!r}")
+        return ident.name
+
+
+def compile_scalar(ast, binder: Binder) -> E.Expr:
+    """Scalar AST -> expr framework node (no aggregates allowed)."""
+    if isinstance(ast, P.Literal):
+        return E.lit(ast.value)
+    if isinstance(ast, P.Ident):
+        return E.col(binder.resolve(ast))
+    if isinstance(ast, P.UnaryOp):
+        if ast.op == "-":
+            return E.lit(0) - compile_scalar(ast.operand, binder)
+        if ast.op == "not":
+            return E.Not(compile_scalar(ast.operand, binder))
+        if ast.op == "is null":
+            return E.IsNull(compile_scalar(ast.operand, binder))
+        if ast.op == "is not null":
+            return E.IsNull(compile_scalar(ast.operand, binder), negate=True)
+    if isinstance(ast, P.BinaryOp):
+        lhs = compile_scalar(ast.left, binder)
+        rhs = compile_scalar(ast.right, binder)
+        ops = {
+            "+": lambda: lhs + rhs,
+            "-": lambda: lhs - rhs,
+            "*": lambda: lhs * rhs,
+            "/": lambda: lhs // rhs,  # int division v0 (Nexmark is ints)
+            "%": lambda: lhs % rhs,
+            "=": lambda: lhs == rhs,
+            "<>": lambda: lhs != rhs,
+            "!=": lambda: lhs != rhs,
+            "<": lambda: lhs < rhs,
+            "<=": lambda: lhs <= rhs,
+            ">": lambda: lhs > rhs,
+            ">=": lambda: lhs >= rhs,
+            "and": lambda: E.And(lhs, rhs),
+            "or": lambda: E.Or(lhs, rhs),
+        }
+        return ops[ast.op]()
+    if isinstance(ast, P.CaseExpr):
+        branches = tuple(
+            (compile_scalar(c, binder), compile_scalar(v, binder))
+            for c, v in ast.branches
+        )
+        default = (
+            compile_scalar(ast.default, binder)
+            if ast.default is not None
+            else E.lit(None)
+        )
+        return E.Case(branches, default)
+    if isinstance(ast, P.FuncCall):
+        from risingwave_tpu_torch.expr import functions as F
+
+        if ast.name == "between":
+            e, lo, hi = (compile_scalar(a, binder) for a in ast.args)
+            return E.Between(e, lo, hi)
+        if ast.name == "in":
+            e = compile_scalar(ast.args[0], binder)
+            vals = tuple(
+                a.value for a in ast.args[1:] if isinstance(a, P.Literal)
+            )
+            return E.InList(e, vals)
+        if ast.name in AGG_FUNCS or ast.name in EXTENDED_AGGS:
+            raise ValueError(f"aggregate {ast.name}() outside GROUP BY select")
+        if getattr(ast, "distinct", False):
+            raise ValueError(
+                f"DISTINCT specified, but {ast.name} is not an "
+                "aggregate function"
+            )
+        if ast.name == "coalesce":
+            return F.Coalesce(
+                tuple(compile_scalar(a, binder) for a in ast.args)
+            )
+        if ast.name == "nullif":
+            a, b = (compile_scalar(x, binder) for x in ast.args)
+            return F.NullIf(a, b)
+        if ast.name == "extract":
+            field = ast.args[0]
+            if not isinstance(field, P.Literal):
+                raise ValueError("EXTRACT field must be a name")
+            return F.Extract(
+                str(field.value).lower(), compile_scalar(ast.args[1], binder)
+            )
+        if ast.name == "date_trunc":
+            field = ast.args[0]
+            if not isinstance(field, P.Literal):
+                raise ValueError("date_trunc field must be a string literal")
+            return F.DateTrunc(
+                str(field.value).lower(), compile_scalar(ast.args[1], binder)
+            )
+        if F.lookup(ast.name) is not None:
+            return F.Func(
+                ast.name, tuple(compile_scalar(a, binder) for a in ast.args)
+            )
+        raise ValueError(f"unknown function {ast.name!r}")
+    if isinstance(ast, (P.Exists, P.InSubquery)):
+        raise NotImplementedError(
+            "EXISTS/IN subqueries are decorrelated only in the TOP-"
+            "level WHERE — lift the enclosing derived table into its "
+            "own MV (MV-on-MV) to use one inside"
+        )
+    raise TypeError(f"cannot compile {ast!r}")
+
+
+def _is_agg(ast) -> bool:
+    return isinstance(ast, P.FuncCall) and (
+        ast.name in AGG_FUNCS
+        or ast.name in EXTENDED_AGGS
+        or ast.name in DISTINCT_AGGS
+    )
+
+
+def _contains_agg(ast) -> bool:
+    if _is_agg(ast):
+        return True
+    if isinstance(ast, P.BinaryOp):
+        return _contains_agg(ast.left) or _contains_agg(ast.right)
+    if isinstance(ast, P.UnaryOp):
+        return _contains_agg(ast.operand)
+    return False
+
+
+def _and_all(conjuncts):
+    out = None
+    for c in conjuncts:
+        out = c if out is None else P.BinaryOp("and", out, c)
+    return out
+
+
+def _split_and(e) -> List[object]:
+    """Flatten AND-ed conjuncts."""
+    if isinstance(e, P.BinaryOp) and e.op == "and":
+        return _split_and(e.left) + _split_and(e.right)
+    return [e]
+
+
+def _idents_in_select(select: P.Select):
+    """Column references in select items + GROUP BY (not WHERE)."""
+    for item in select.items:
+        yield from _idents_in(item.expr)
+    for g in select.group_by:
+        yield g
+
+
+def _idents_in(ast):
+    """Yield every column reference in a scalar AST."""
+    if isinstance(ast, P.Ident):
+        yield ast
+    elif isinstance(ast, P.UnaryOp):
+        yield from _idents_in(ast.operand)
+    elif isinstance(ast, P.BinaryOp):
+        yield from _idents_in(ast.left)
+        yield from _idents_in(ast.right)
+    elif isinstance(ast, P.CaseExpr):
+        for c, v in ast.branches:
+            yield from _idents_in(c)
+            yield from _idents_in(v)
+        if ast.default is not None:
+            yield from _idents_in(ast.default)
+    elif isinstance(ast, P.FuncCall):
+        for a in ast.args:
+            if not isinstance(a, str):
+                yield from _idents_in(a)
+
+
+class StreamPlanner:
+    def __init__(self, catalog: Catalog, capacity: int = 1 << 14, device="cuda"):
+        self.catalog = catalog
+        self.capacity = capacity
+        self.device = device
+        self._ids = 0
+
+    def _tid(self, mv: str, what: str) -> str:
+        self._ids += 1
+        return f"{mv}.{what}{self._ids}"
+
+    # -- entry -----------------------------------------------------------
+    def plan(self, sql: str) -> PlannedMV:
+        stmt = P.parse(sql)
+        eowc = False
+        if isinstance(stmt, P.CreateMaterializedView):
+            name, select = stmt.name, stmt.select
+            eowc = stmt.emit_on_window_close
+        else:
+            name, select = "anon_mv", stmt
+        if isinstance(select, P.UnionAll):
+            if eowc:
+                raise NotImplementedError(
+                    "EMIT ON WINDOW CLOSE over UNION ALL unsupported"
+                )
+            return self._plan_union(name, select)
+        # type-directed pass first (decimal literal scaling, dictionary
+        # collation guards), then logical optimization (predicate
+        # pushdown into derived tables, outer-join simplification,
+        # constant folding) — then lower the optimized AST as before
+        from risingwave_tpu_torch.sql.optimizer import optimize_select
+        from risingwave_tpu_torch.sql.typing import typecheck_select
+
+        select = self._decorrelate(select)
+        select = typecheck_select(
+            select, self.catalog, getattr(self, "strings", None)
+        )
+        select = optimize_select(select, catalog=self.catalog)
+        select = self._rewrite_distinct(select)
+        if select.having is not None and not select.group_by:
+            raise ValueError("HAVING requires GROUP BY")
+        planned = self._try_over_window_to_topn(name, select)
+        if planned is None and isinstance(select.from_, P.Join):
+            if select.from_.join_type.startswith("temporal"):
+                planned = self._plan_temporal(name, select)
+            else:
+                planned = self._try_delta_join(name, select)
+                if planned is None:
+                    planned = self._plan_join(name, select)
+        elif planned is None:
+            planned = self._plan_single(name, select)
+        if eowc:
+            # EMIT ON WINDOW CLOSE needs a watermark-cleaned windowed
+            # plan — silently accepting it on ANY plan shape with no
+            # window cleaning would promise a close that never happens
+            from risingwave_tpu_torch.executors.hash_agg import HashAggExecutor
+
+            if not any(
+                isinstance(ex, HashAggExecutor)
+                and ex.window_key is not None
+                for ex in planned.pipeline.executors
+            ):
+                raise ValueError(
+                    "EMIT ON WINDOW CLOSE requires a windowed GROUP BY "
+                    "over a WATERMARK-declared relation"
+                )
+        return planned
+
+    def _plan_union(self, name: str, union: P.UnionAll) -> PlannedMV:
+        """UNION ALL: each branch lowers to a hidden MV; the top MV's
+        fragment subscribes to ALL of them (the runtime's multi-
+        subscription IS the UnionExecutor, union.rs — chunks from
+        every upstream merge into one stream) and keys rows by a fresh
+        union-level row id so branch ids can never collide.
+
+        v1 scope: branches must be APPEND-ONLY projections with
+        identical output schemas — a retracting branch (aggregates,
+        TopN) would delete against the fresh row ids and miss."""
+        import dataclasses as _dc
+
+        aux: List[PlannedMV] = []
+        out_schema: Optional[Dict[str, object]] = None
+        added: List[str] = []
+        try:
+            for i, sel in enumerate(union.selects):
+                # a per-branch tag column: the top MV keys rows by
+                # (_ubranch, _row_id), so a branch's RETRACTIONS hit
+                # exactly the rows that branch inserted (a fresh
+                # union-level row id could never be re-derived for a
+                # delete)
+                sel = _dc.replace(
+                    sel,
+                    items=tuple(sel.items)
+                    + (P.SelectItem(P.Literal(i), "_ubranch"),),
+                )
+                sub = self._plan_branch(f"__u{i}_{name}", sel)
+                if "_row_id" not in sub.schema or sub.mview.pk != (
+                    "_row_id",
+                ):
+                    raise NotImplementedError(
+                        "UNION ALL branches must be append-only "
+                        "projections (no aggregates/TopN) in this build"
+                    )
+                sch = tuple(
+                    (c, d)
+                    for c, d in sub.schema.items()
+                    if c not in ("_row_id", "_ubranch")
+                )
+                if out_schema is None:
+                    out_schema = sch
+                elif out_schema != sch:
+                    # ORDER matters too: name-based merging of swapped
+                    # columns would silently diverge from SQL's
+                    # positional semantics
+                    raise ValueError(
+                        "UNION ALL branches must have identical "
+                        f"schemas (names, types, AND order): "
+                        f"{[c for c, _ in out_schema]} vs "
+                        f"{[c for c, _ in sch]}"
+                    )
+                self.catalog.add_mv(sub)
+                added.append(sub.name)
+                aux.append(sub)
+        except BaseException:
+            # a failed later branch must not leak earlier hidden MVs
+            # into the catalog (they have no runtime fragment yet)
+            for n in added:
+                self.catalog.mvs.pop(n, None)
+                self.catalog.tables.pop(n, None)
+            raise
+        cols = tuple(c for c, _ in out_schema)
+        mview = MaterializeExecutor(
+            pk=("_ubranch", "_row_id"),
+            columns=cols,
+            table_id=f"{name}.mview",
+        )
+        pipeline = Pipeline([mview])
+        return PlannedMV(
+            name,
+            pipeline,
+            mview,
+            {a.name: "single" for a in aux},
+            schema={
+                **dict(out_schema),
+                "_ubranch": torch.int64,
+                "_row_id": torch.int64,
+            },
+            aux=tuple(aux),
+        )
+
+    def _plan_branch(self, name: str, select: P.Select) -> PlannedMV:
+        """One union branch through the full single-select pipeline
+        (typecheck, optimize, lowering)."""
+        from risingwave_tpu_torch.sql.optimizer import optimize_select
+        from risingwave_tpu_torch.sql.typing import typecheck_select
+
+        select = self._decorrelate(select)
+        select = typecheck_select(
+            select, self.catalog, getattr(self, "strings", None)
+        )
+        select = optimize_select(select, catalog=self.catalog)
+        select = self._rewrite_distinct(select)
+        if isinstance(select.from_, P.Join):
+            return self._plan_join(name, select)
+        return self._plan_single(name, select)
+
+    @staticmethod
+    def _rewrite_distinct(select: P.Select) -> P.Select:
+        """SELECT DISTINCT a, b == GROUP BY a, b with no aggregates
+        (the reference planner's rewrite) — applied at every nesting
+        level (derived tables included)."""
+        if not select.distinct:
+            return select
+        import dataclasses
+
+        if select.group_by or any(_is_agg(it.expr) for it in select.items):
+            raise NotImplementedError(
+                "DISTINCT with GROUP BY/aggregates is not supported"
+            )
+        for it in select.items:
+            if not isinstance(it.expr, P.Ident):
+                raise NotImplementedError(
+                    "SELECT DISTINCT items must be bare columns"
+                )
+        return dataclasses.replace(
+            select,
+            group_by=tuple(it.expr for it in select.items),
+            distinct=False,
+        )
+
+    # -- single-input ----------------------------------------------------
+    def _plan_single(self, name: str, select: P.Select) -> PlannedMV:
+        rel = self._plan_rel(name, select)
+        mview = self._make_mview(name, rel)
+        pipeline = Pipeline(rel.chain + [mview])
+        return PlannedMV(
+            name, pipeline, mview, {rel.source: "single"}, schema=rel.schema
+        )
+
+    def _make_mview(self, name: str, rel):
+        """Pick the MV backend: the DEVICE-resident executor when the
+        plan provably never delivers a NULL lane to it — the host-map
+        executor pulls every flush chunk to the host, so agg MVs like
+        Nexmark q5 stay in device memory end to end.
+
+        Provably NULL-free today: terminal HashAgg with non-nullable
+        group keys and count-only outputs, reached only through
+        column-move projects / filters. Everything else keeps the
+        host-map executor (its object rows embed None natively)."""
+        cols = tuple(c for c in rel.schema if c not in rel.pk)
+        if rel.pk and self._device_mv_safe(rel.chain):
+            return DeviceMaterializeExecutor(
+                pk=rel.pk,
+                columns=cols,
+                schema_dtypes=rel.schema,
+                table_id=f"{name}.mview",
+                capacity=self.capacity,
+                device=self.device,
+            )
+        return MaterializeExecutor(
+            pk=rel.pk, columns=cols, table_id=f"{name}.mview"
+        )
+
+    @staticmethod
+    def _device_mv_safe(chain) -> bool:
+        from risingwave_tpu_torch.expr import expr as E
+
+        for ex in reversed(list(chain)):
+            if isinstance(ex, FilterExecutor):
+                continue  # drops/retracts rows, never adds NULLs
+            if isinstance(ex, ProjectExecutor):
+                # column moves only — computed expressions could
+                # introduce NULL lanes the device MV didn't declare
+                if all(
+                    isinstance(expr, E.Col) for _, expr in ex.outputs
+                ):
+                    continue
+                return False
+            if isinstance(ex, HashAggExecutor):
+                return not any(ex.nullable) and all(
+                    c.kind in ("count_star", "count") for c in ex.calls
+                )
+            return False
+        return False
+
+    def _from_bound(self, name: str, src) -> BoundRel:
+        """FROM clause -> BoundRel (source chain + schema, no select
+        logic applied yet)."""
+        chain: List[Executor] = []
+        alias = None
+        if isinstance(src, P.SubQuery):
+            inner = self._plan_rel(name, src.select)
+            return BoundRel(
+                inner.chain, inner.schema, inner.pk, inner.source, src.alias
+            )
+        if isinstance(src, P.WindowTVF):
+            source = src.table.name
+            schema = dict(self.catalog.schema_dtypes(source))
+            self._maybe_watermark_filter(chain, source, schema)
+            chain.append(
+                HopWindowExecutor(
+                    src.ts_col, src.size_ms, src.slide_ms,
+                    out_start="window_start",
+                )
+            )
+            schema["window_start"] = torch.int64
+            # the hop translates the event-time watermark into a
+            # window_start watermark (hop_window.py on_watermark), so
+            # downstream windowed aggs can clean closed windows
+            wm = self.catalog.watermarks.get(source)
+            window_col = (
+                "window_start"
+                if wm is not None and wm[0] == src.ts_col
+                else None
+            )
+            return BoundRel(
+                chain, schema, (), source, src.alias,
+                window_col=window_col,
+            )
+        if isinstance(src, P.TableRef):
+            source = src.name
+            schema = dict(self.catalog.schema_dtypes(source))
+            self._maybe_watermark_filter(chain, source, schema)
+            # scanning an MV: its change stream carries retractions keyed
+            # by the MV pk — downstream state must key the same way
+            pk = (
+                tuple(self.catalog.mvs[source].mview.pk)
+                if self.catalog.is_mv(source)
+                else ()
+            )
+            return BoundRel(chain, schema, pk, source, src.alias)
+        raise TypeError(f"unsupported FROM {src!r}")
+
+    def _maybe_watermark_filter(
+        self, chain: List[Executor], source: str, schema
+    ) -> None:
+        """WATERMARK FOR declarations insert a self-driving
+        WatermarkFilterExecutor at the scan (watermark_filter.rs:39):
+        late rows drop and the generated watermark walks downstream
+        every barrier, cleaning windowed state without calls from the caller."""
+        wm = self.catalog.watermarks.get(source)
+        if wm is not None and wm[0] in schema:
+            from risingwave_tpu_torch.executors.watermark_filter import (
+                WatermarkFilterExecutor,
+            )
+
+            chain.append(
+                WatermarkFilterExecutor(wm[0], lag_ms=wm[1], device=self.device)
+            )
+
+    def _plan_rel(
+        self, name: str, select: P.Select, pre: Optional[BoundRel] = None
+    ) -> BoundRel:
+        """Plan one select over a single (possibly windowed) input.
+        ``pre`` overrides FROM processing with an already-bound input
+        (the temporal-join path enriches the stream first)."""
+        select = self._rewrite_distinct(select)
+        if select.having is not None and not select.group_by:
+            raise ValueError("HAVING requires GROUP BY")
+        bound = pre if pre is not None else self._from_bound(name, select.from_)
+        chain = bound.chain
+        schema = bound.schema
+        pk = bound.pk
+        source = bound.source
+        alias = bound.alias
+
+        binder = Binder(schema, alias)
+        if select.where is not None:
+            chain.append(FilterExecutor(compile_scalar(select.where, binder)))
+
+        if any(isinstance(it.expr, P.WindowFuncCall) for it in select.items):
+            if select.group_by or select.having is not None:
+                raise NotImplementedError(
+                    "window functions cannot mix with GROUP BY/HAVING "
+                    "in one SELECT (plan as MV-on-MV)"
+                )
+            chain2, out_schema, pk = self._plan_over_window(
+                name, select, binder, schema, pk
+            )
+            chain.extend(chain2)
+            return self._maybe_topn(
+                name, select, binder,
+                BoundRel(chain, out_schema, pk, source, alias),
+            )
+
+        if select.group_by:
+            # a windowed input over a watermark-declared relation:
+            # grouped aggs keyed on the window column clean closed
+            # windows (state_table watermark state cleaning; EMIT ON
+            # WINDOW CLOSE finalizes them silently either way — this
+            # build also emits intermediate updates before the close)
+            wcol = bound.window_col
+            chain2, out_schema, pk = self._plan_groupby(
+                name, select, binder, schema, retractable=False,
+                window_col=wcol,
+            )
+            chain.extend(chain2)
+            if select.having is not None:
+                # HAVING filters the agg's OUTPUT stream (group keys +
+                # agg aliases) — never pushed below the agg
+                chain.append(
+                    FilterExecutor(
+                        compile_scalar(
+                            select.having, Binder(out_schema, None)
+                        )
+                    )
+                )
+            return self._maybe_topn(
+                name, select, binder,
+                BoundRel(chain, out_schema, pk, source, alias),
+            )
+
+        if any(_is_agg(it.expr) for it in select.items):
+            # no GROUP BY + aggregates -> global SimpleAgg (one row)
+            from risingwave_tpu_torch.executors.simple_agg import SimpleAggExecutor
+
+            calls: List[AggCall] = []
+            out_schema = {}
+            ext_acc = _ext_agg_acc()
+            finishing: Dict[str, object] = {}
+            dstage, _ = _distinct_dedup_stage(
+                select, binder, (), schema, self.capacity,
+                self._tid(name, "distinct"), self.device,
+            )
+            chain.extend(dstage)
+            for i, item in enumerate(select.items):
+                ast = item.expr
+                if not _is_agg(ast):
+                    raise ValueError(
+                        "ungrouped aggregate selects must be all-aggregate"
+                    )
+                out = item.alias or f"{ast.name}_{i}"
+                if ast.args == ("*",):
+                    if ast.name != "count":
+                        raise ValueError(f"{ast.name}(*) unsupported")
+                    calls.append(AggCall("count_star", None, out))
+                    out_schema[out] = torch.int64
+                else:
+                    arg = ast.args[0]
+                    if not isinstance(arg, P.Ident):
+                        raise ValueError("aggregate args must be bare columns")
+                    incol = binder.resolve(arg)
+                    if getattr(ast, "distinct", False) and not _is_distinct_agg(ast):
+                        raise NotImplementedError(
+                            f"{ast.name}(DISTINCT ...) unsupported"
+                        )
+                    if _is_distinct_agg(ast):
+                        kind = (
+                            "count"
+                            if ast.name in DISTINCT_AGGS
+                            else AGG_FUNCS[ast.name]
+                        )
+                        calls.append(AggCall(kind, incol, out))
+                        out_schema[out] = (
+                            torch.int64
+                            if kind == "count"
+                            else schema[incol]
+                        )
+                        continue
+                    if ast.name in EXTENDED_AGGS:
+                        finishing[out], out_schema[out] = (
+                            _lower_extended_agg(ast.name, incol, ext_acc)
+                        )
+                        continue
+                    calls.append(AggCall(AGG_FUNCS[ast.name], incol, out))
+                    out_schema[out] = schema[incol]
+            calls.extend(ext_acc["calls"])
+            pre_cols = ext_acc["pre"]
+            agg_schema = schema
+            if pre_cols:
+                agg_schema = {
+                    **schema,
+                    **{n: dt for n, (_, dt) in pre_cols.items()},
+                }
+                chain.append(
+                    ProjectExecutor(
+                        {
+                            **{c: E.col(c) for c in schema},
+                            **{n: ex for n, (ex, _) in pre_cols.items()},
+                        }
+                    )
+                )
+            chain.append(
+                SimpleAggExecutor(
+                    tuple(calls), agg_schema, table_id=self._tid(name, "sagg"),
+                    device=self.device,
+                )
+            )
+            if finishing:
+                chain.append(
+                    ProjectExecutor(
+                        {
+                            **{
+                                c.output: E.col(c.output)
+                                for c in calls
+                                if not c.output.startswith("__x")
+                            },
+                            **finishing,
+                        }
+                    )
+                )
+            return BoundRel(chain, out_schema, (), source, alias)
+
+        # no GROUP BY: projection (+ hidden row id when no pk exists)
+        outputs: Dict[str, E.Expr] = {}
+        out_schema2: Dict[str, object] = {}
+        for i, item in enumerate(select.items):
+            out = item.alias or (
+                item.expr.name if isinstance(item.expr, P.Ident) else f"col{i}"
+            )
+            outputs[out] = compile_scalar(item.expr, binder)
+            if isinstance(item.expr, P.Ident):
+                out_schema2[out] = schema[binder.resolve(item.expr)]
+            else:
+                out_schema2[out] = torch.int64
+        if not pk:
+            chain.append(
+                RowIdGenExecutor(
+                    out_col="_row_id", table_id=self._tid(name, "rowid")
+                )
+            )
+            outputs["_row_id"] = E.col("_row_id")
+            out_schema2["_row_id"] = torch.int64
+            pk = ("_row_id",)
+        else:
+            # an inherited subquery pk must survive the projection or
+            # the MV cannot key its rows (join path does the same)
+            for pcol in pk:
+                if pcol not in outputs:
+                    outputs[pcol] = E.col(pcol)
+                    out_schema2[pcol] = schema[pcol]
+        chain.append(ProjectExecutor(outputs))
+        return self._maybe_topn(
+            name, select, binder,
+            BoundRel(chain, out_schema2, pk, source, alias),
+        )
+
+    def _try_over_window_to_topn(
+        self, name: str, select: P.Select
+    ) -> Optional[PlannedMV]:
+        """The reference's over_window_to_topn_rule.rs: rewrite
+
+            SELECT cols FROM (SELECT cols, row_number() OVER
+              (PARTITION BY g ORDER BY o [DESC]) AS rn FROM t) AS x
+            WHERE rn <= k      (also rn < k, rn = 1)
+
+        onto the retractable GroupTopN executor — per-group top-k
+        maintenance is O(changed groups x k) per barrier where the
+        general over-window recomputes whole partitions. Returns None
+        when the shape doesn't match (the window path handles it)."""
+        f = select.from_
+        if not (
+            isinstance(f, P.SubQuery)
+            and isinstance(f.select.from_, (P.TableRef, P.WindowTVF))
+            and select.where is not None
+            and not select.group_by
+            and not select.having
+            and select.limit is None
+        ):
+            return None
+        inner = f.select
+        if inner.where is not None or inner.group_by or inner.limit:
+            return None
+        wins = [
+            (i, it)
+            for i, it in enumerate(inner.items)
+            if isinstance(it.expr, P.WindowFuncCall)
+        ]
+        if len(wins) != 1:
+            return None
+        wi, witem = wins[0]
+        w = witem.expr
+        if (
+            w.func.name != "row_number"
+            or w.frame is not None
+            or len(w.order_by) != 1
+            or not w.partition_by
+        ):
+            return None
+        rn_name = witem.alias or f"row_number_{wi}"
+        # the outer WHERE must be exactly a bound on rn; rn must not be
+        # selected (GroupTopN emits rows without a rank column)
+        conjs = _split_and(select.where)
+        k = None
+        for c in conjs:
+            if not (
+                isinstance(c, P.BinaryOp)
+                and isinstance(c.left, P.Ident)
+                and c.left.name == rn_name
+                and c.left.qualifier in (None, f.alias)
+                and isinstance(c.right, P.Literal)
+            ):
+                return None
+            v = c.right.value
+            if not isinstance(v, int) or isinstance(v, bool):
+                return None  # float/str bounds: the window path filters
+            if c.op == "<=":
+                bound = v
+            elif c.op == "<":
+                bound = v - 1
+            elif c.op == "=" and v == 1:
+                bound = 1
+            else:
+                return None
+            k = bound if k is None else min(k, bound)
+        if k is None or k < 1:
+            return None
+        for it in select.items:
+            if not isinstance(it.expr, P.Ident) or it.expr.name == rn_name:
+                return None
+
+        bound_rel = self._from_bound(name, inner.from_)
+        schema = dict(bound_rel.schema)
+        binder = Binder(schema, bound_rel.alias)
+        part_cols = tuple(binder.resolve(c) for c in w.partition_by)
+        oident, desc = w.order_by[0]
+        ocol = binder.resolve(oident)
+        chain = list(bound_rel.chain)
+        pk = bound_rel.pk
+        if not pk:
+            chain.append(
+                RowIdGenExecutor(
+                    out_col="_row_id", table_id=self._tid(name, "rowid")
+                )
+            )
+            schema["_row_id"] = torch.int64
+            pk = ("_row_id",)
+        # resolve inner pass-through aliases for the outer projection
+        amap = {
+            (it.alias or (it.expr.name if isinstance(it.expr, P.Ident) else None)):
+                it.expr
+            for it in inner.items
+        }
+        from risingwave_tpu_torch.executors.top_n_plain import (
+            RetractableGroupTopNExecutor,
+        )
+
+        gt = RetractableGroupTopNExecutor(
+            group_by=part_cols,
+            order_col=ocol,
+            limit=k,
+            pk=pk,
+            schema_dtypes=schema,
+            desc=desc,
+            capacity=self.capacity,
+            table_id=self._tid(name, "gtopn"),
+            device=self.device,
+        )
+        chain.append(gt)
+        post: Dict[str, E.Expr] = {}
+        out_schema: Dict[str, object] = {}
+        for it in select.items:
+            src = amap.get(it.expr.name)
+            if not isinstance(src, P.Ident):
+                return None  # inner item is computed: window path
+            incol = binder.resolve(src)
+            out = it.alias or it.expr.name
+            post[out] = E.col(incol)
+            out_schema[out] = schema[incol]
+        out_pk = []
+        for pcol in pk:
+            target = pcol
+            existing = post.get(pcol)
+            if existing is not None and not (
+                isinstance(existing, E.Col) and existing.name == pcol
+            ):
+                # an outer alias SHADOWS the pk name: keying the MV on
+                # the aliased values would collide rows — carry the
+                # real pk under a hidden name instead
+                target = f"_pk_{pcol}"
+            post[target] = E.col(pcol)
+            out_schema[target] = schema[pcol]
+            out_pk.append(target)
+        chain.append(ProjectExecutor(post))
+        rel = BoundRel(
+            chain, out_schema, tuple(out_pk), bound_rel.source,
+            bound_rel.alias,
+        )
+        mview = self._make_mview(name, rel)
+        chain.append(mview)
+        return PlannedMV(
+            name,
+            Pipeline(chain),
+            mview,
+            {bound_rel.source: "single"},
+            schema=out_schema,
+        )
+
+    def _plan_over_window(
+        self, name: str, select: P.Select, binder: Binder,
+        schema: Dict[str, object], pk: Tuple[str, ...],
+    ):
+        """SELECT cols..., fn() OVER (PARTITION BY p ORDER BY o) ... ->
+        [RowIdGen] -> Project(needed lanes [+ negated order for DESC])
+        -> GeneralOverWindowExecutor -> Project(user columns + pk).
+
+        Reference: binder window_function.rs + the OverWindow plan node
+        (general.rs executor). Every call in one SELECT must share one
+        window (one PARTITION BY + ORDER BY); frames may differ."""
+        from risingwave_tpu_torch.executors.over_window import (
+            GeneralOverWindowExecutor,
+            WindowCall,
+        )
+
+        chain: List[Executor] = []
+
+        # hidden pk for append-only sources (rows need identity so the
+        # executor can retract precisely)
+        if not pk:
+            chain.append(
+                RowIdGenExecutor(
+                    out_col="_row_id", table_id=self._tid(name, "rowid")
+                )
+            )
+            schema = dict(schema)
+            schema["_row_id"] = torch.int64
+            pk = ("_row_id",)
+
+        # group calls by their window spec — one chained executor per
+        # distinct (PARTITION BY, ORDER BY), like the reference's
+        # multiple OverWindow plan nodes; later executors see earlier
+        # outputs as pass-through lanes
+        groups: Dict[tuple, dict] = {}
+        passthrough: List[Tuple[str, str]] = []  # (out name, in col)
+        out_names: List[str] = []
+        for i, item in enumerate(select.items):
+            ast = item.expr
+            if isinstance(ast, P.Ident):
+                incol = binder.resolve(ast)
+                passthrough.append((item.alias or ast.name, incol))
+                continue
+            if not isinstance(ast, P.WindowFuncCall):
+                raise NotImplementedError(
+                    "window SELECTs support bare columns + window "
+                    "calls only (wrap computed expressions in a "
+                    "derived table)"
+                )
+            if len(ast.order_by) != 1:
+                raise NotImplementedError(
+                    "OVER (... ORDER BY) supports exactly one order "
+                    "column"
+                )
+            part_cols = tuple(
+                binder.resolve(c) for c in ast.partition_by
+            )
+            oident, desc = ast.order_by[0]
+            ocol = binder.resolve(oident)
+            key = (part_cols, ocol, desc)
+            g = groups.setdefault(
+                key,
+                {
+                    "part": part_cols,
+                    "ocol": ocol,
+                    "desc": desc,
+                    "eff_ord": (
+                        f"_word{len(groups)}" if desc else ocol
+                    ),
+                    "calls": [],
+                },
+            )
+            out = item.alias or f"{ast.func.name}_{i}"
+            out_names.append(out)
+            fn, args = ast.func.name, ast.func.args
+            if getattr(ast.func, "distinct", False):
+                raise NotImplementedError(
+                    f"{fn}(DISTINCT ...) OVER (...) unsupported"
+                )
+            if fn == "row_number":
+                g["calls"].append(WindowCall("row_number", None, out))
+            elif fn in ("rank", "dense_rank"):
+                g["calls"].append(WindowCall(fn, g["eff_ord"], out))
+            elif fn == "count" and args == ("*",):
+                g["calls"].append(
+                    WindowCall("count", None, out, frame=ast.frame)
+                )
+            elif fn in ("sum", "min", "max"):
+                incol = binder.resolve(args[0])
+                g["calls"].append(
+                    WindowCall(fn, incol, out, frame=ast.frame)
+                )
+            elif fn in ("lag", "lead"):
+                incol = binder.resolve(args[0])
+                k = 1
+                if len(args) > 1:
+                    if not isinstance(args[1], P.Literal):
+                        raise ValueError(
+                            "lag/lead offset must be a literal"
+                        )
+                    k = int(args[1].value)
+                g["calls"].append(WindowCall(fn, incol, out, offset=k))
+            else:
+                raise NotImplementedError(
+                    f"window function {fn!r} unsupported"
+                )
+
+        glist = list(groups.values())
+        needed = dict.fromkeys(
+            [c for _, c in passthrough]
+            + [c for g in glist for c in g["part"]]
+            + [g["ocol"] for g in glist]
+            + [
+                c.input
+                for g in glist
+                for c in g["calls"]
+                if c.input is not None
+                and not c.input.startswith("_word")
+            ]
+            + list(pk)
+        )
+        pre_outputs: Dict[str, E.Expr] = {c: E.col(c) for c in needed}
+        win_schema = {c: schema[c] for c in needed}
+        for g in glist:
+            if g["desc"]:
+                # executors sort ascending: order by the negated lane
+                # (ties and rank values are unchanged under negation).
+                # Keep the SOURCE dtype: int64 here would truncate a
+                # float order column before the executor's own
+                # integer-only guard could reject it loudly
+                pre_outputs[g["eff_ord"]] = E.lit(0) - E.col(g["ocol"])
+                win_schema[g["eff_ord"]] = win_schema[g["ocol"]]
+        chain.append(ProjectExecutor(pre_outputs))
+
+        for gi, g in enumerate(glist):
+            nullable = tuple(
+                c
+                for c in win_schema
+                if c not in pk
+                and c not in g["part"]
+                and c != g["eff_ord"]
+            )
+            chain.append(
+                GeneralOverWindowExecutor(
+                    partition_by=g["part"],
+                    order_col=g["eff_ord"],
+                    pk=pk,
+                    calls=tuple(g["calls"]),
+                    schema_dtypes=dict(win_schema),
+                    capacity=self.capacity,
+                    nullable=nullable,
+                    table_id=self._tid(name, "over"),
+                    device=self.device,
+                )
+            )
+            # this group's outputs pass through later executors
+            for c in g["calls"]:
+                win_schema[c.output] = torch.int64
+
+        # project down to the user's columns (+ pk identity)
+        post: Dict[str, E.Expr] = {}
+        out_schema: Dict[str, object] = {}
+        for out, incol in passthrough:
+            post[out] = E.col(incol)
+            out_schema[out] = win_schema[incol]
+        for out in out_names:
+            post[out] = E.col(out)  # window outputs are int64 lanes
+            out_schema[out] = torch.int64
+        for pcol in pk:
+            if pcol not in post:
+                post[pcol] = E.col(pcol)
+                out_schema[pcol] = win_schema[pcol]
+        chain.append(ProjectExecutor(post))
+        return chain, out_schema, pk
+
+    def _maybe_topn(
+        self, name: str, select: P.Select, binder: Binder, rel: BoundRel
+    ) -> BoundRel:
+        """ORDER BY <col> [DESC] LIMIT n -> retractable TopN maintenance
+        (top_n_plain.rs:77). ORDER BY without LIMIT is a no-op for an MV
+        (unordered relation), matching the reference planner."""
+        if select.limit is None:
+            return rel
+        if len(select.order_by) != 1:
+            raise ValueError(
+                "streaming LIMIT needs ORDER BY exactly one column"
+            )
+        from risingwave_tpu_torch.executors.top_n_plain import TopNExecutor
+
+        ident, desc = select.order_by[0]
+        ocol = ident.name if ident.name in rel.schema else None
+        if ocol is None:
+            raise KeyError(f"ORDER BY column {ident.name!r} not in output")
+        rel.chain.append(
+            TopNExecutor(
+                ocol,
+                select.limit,
+                rel.pk,
+                rel.schema,
+                desc=desc,
+                capacity=self.capacity,
+                table_id=self._tid(name, "topn"),
+                device=self.device,
+            )
+        )
+        return rel
+
+    def _plan_groupby(
+        self,
+        name: str,
+        select: P.Select,
+        binder: Binder,
+        schema: Dict[str, object],
+        retractable: bool,
+        nullable_cols: frozenset = frozenset(),
+        window_col: Optional[str] = None,
+    ):
+        """GROUP BY + aggregates (or DISTINCT) over an already-planned
+        input with ``schema``. Returns (executors, out_schema, pk).
+        ``window_col``: when set AND among the group keys, the agg
+        gets window_key state cleaning (closed windows finalize
+        silently on the upstream watermark; the MV keeps final rows).
+
+        ``retractable``: the input stream can carry row-level deletes
+        (e.g. downstream of a non-append-only join); MIN/MAX calls then
+        use materialized-input state (ops/minput.py, minput.rs) instead
+        of the append-only latch. ``nullable_cols``: columns that can
+        carry SQL NULL (e.g. an outer join's padded side) — group keys
+        among them get a NULL group.
+        """
+        keys = tuple(binder.resolve(g) for g in select.group_by)
+        aggs: List[AggCall] = []
+        out_schema: Dict[str, object] = {}
+        chain: List[Executor] = []
+        # DISTINCT aggregates: NULL-filter + dedup on (keys, col) FIRST
+        if retractable and any(
+            _is_distinct_agg(it.expr) for it in select.items
+        ):
+            raise NotImplementedError(
+                "DISTINCT aggregates need an append-only input"
+            )
+        dstage, _ = _distinct_dedup_stage(
+            select, binder, keys, schema, self.capacity,
+            self._tid(name, "distinct"), self.device,
+        )
+        chain.extend(dstage)
+        ext_acc = _ext_agg_acc()  # deduped hidden calls + pre inputs
+        finishing: Dict[str, object] = {}  # visible out -> Expr over hidden
+        for i, item in enumerate(select.items):
+            ast = item.expr
+            if _is_agg(ast):
+                out = item.alias or f"{ast.name}_{i}"
+                if ast.args == ("*",):
+                    if ast.name != "count":
+                        raise ValueError(f"{ast.name}(*) unsupported")
+                    aggs.append(AggCall("count_star", None, out))
+                    out_schema[out] = torch.int64
+                else:
+                    arg = ast.args[0]
+                    if not isinstance(arg, P.Ident):
+                        raise ValueError(
+                            "aggregate args must be bare columns "
+                            "(project first)"
+                        )
+                    incol = binder.resolve(arg)
+                    if getattr(ast, "distinct", False) and not _is_distinct_agg(ast):
+                        raise NotImplementedError(
+                            f"{ast.name}(DISTINCT ...) unsupported"
+                        )
+                    if _is_distinct_agg(ast):
+                        # deduped upstream: the plain kind over unique
+                        # rows IS the distinct aggregate (count ->
+                        # distinct count, sum -> distinct sum, ...)
+                        kind = (
+                            "count"
+                            if ast.name in DISTINCT_AGGS
+                            else AGG_FUNCS[ast.name]
+                        )
+                        aggs.append(AggCall(kind, incol, out))
+                        out_schema[out] = (
+                            torch.int64
+                            if kind == "count"
+                            else schema[incol]
+                        )
+                        continue
+                    if ast.name in EXTENDED_AGGS:
+                        fin, odt = _lower_extended_agg(
+                            ast.name, incol, ext_acc
+                        )
+                        finishing[out] = fin
+                        out_schema[out] = odt
+                        continue
+                    kind = AGG_FUNCS[ast.name]
+                    aggs.append(
+                        AggCall(
+                            kind,
+                            incol,
+                            out,
+                            materialized=retractable
+                            and kind in ("min", "max"),
+                        )
+                    )
+                    out_schema[out] = schema[incol]
+            elif isinstance(ast, P.Ident):
+                colname = binder.resolve(ast)
+                if colname not in keys:
+                    raise ValueError(
+                        f"non-aggregate item {colname!r} not in GROUP BY"
+                    )
+                out_schema[item.alias or colname] = schema[colname]
+            else:
+                raise ValueError(
+                    "GROUP BY select items must be keys or aggregates"
+                )
+        renames = {
+            binder.resolve(it.expr): it.alias
+            for it in select.items
+            if isinstance(it.expr, P.Ident) and it.alias
+        }
+        for c in ext_acc["calls"]:
+            aggs.append(
+                AggCall(
+                    c.kind,
+                    c.input,
+                    c.output,
+                    materialized=retractable and c.kind in ("min", "max"),
+                )
+            )
+        pre_cols = ext_acc["pre"]
+        if aggs:
+            agg_schema = schema
+            if pre_cols:
+                # hidden agg inputs (x*x, bool->int) projected in front
+                agg_schema = {
+                    **schema,
+                    **{n: dt for n, (_, dt) in pre_cols.items()},
+                }
+                chain.append(
+                    ProjectExecutor(
+                        {
+                            **{c: E.col(c) for c in schema},
+                            **{n: ex for n, (ex, _) in pre_cols.items()},
+                        }
+                    )
+                )
+            chain.append(
+                HashAggExecutor(
+                    group_keys=keys,
+                    calls=tuple(aggs),
+                    schema_dtypes=agg_schema,
+                    capacity=self.capacity,
+                    nullable_keys=tuple(k for k in keys if k in nullable_cols),
+                    table_id=self._tid(name, "agg"),
+                    # materialized extremes hold DISTINCT values per
+                    # group; SQL plans can't bound that statically, so
+                    # size generously (the overflow latch still guards)
+                    minput_k=256,
+                    # watermark-driven state cleaning for windowed
+                    # group keys (retention 0, finalize silently: the
+                    # MV keeps the closed windows' final rows)
+                    window_key=(
+                        (window_col, 0, False)
+                        if window_col is not None and window_col in keys
+                        else None
+                    ),
+                    device=self.device,
+                )
+            )
+        elif retractable:
+            raise ValueError(
+                "DISTINCT over a retractable stream needs retractable "
+                "dedup (unsupported); add an aggregate"
+            )
+        else:
+            chain.append(
+                AppendOnlyDedupExecutor(
+                    keys=keys,
+                    schema_dtypes=schema,
+                    capacity=self.capacity,
+                    table_id=self._tid(name, "dedup"),
+                    device=self.device,
+                )
+            )
+        visible = [
+            a.output for a in aggs if not a.output.startswith("__x")
+        ] + list(finishing)
+        if finishing:
+            # finishing projection: hidden sums/counts -> user values
+            chain.append(
+                ProjectExecutor(
+                    {
+                        **{k: E.col(k) for k in keys},
+                        **{
+                            a.output: E.col(a.output)
+                            for a in aggs
+                            if not a.output.startswith("__x")
+                        },
+                        **finishing,
+                    }
+                )
+            )
+        if renames:
+            chain.append(
+                ProjectExecutor(
+                    {
+                        renames.get(c, c): E.col(c)
+                        for c in (list(keys) + visible)
+                    }
+                )
+            )
+        pk = tuple(renames.get(k, k) for k in keys)
+        if not aggs:
+            out_schema = {renames.get(k, k): schema[k] for k in keys}
+        else:
+            out_schema = {
+                **{renames.get(k, k): schema[k] for k in keys},
+                **out_schema,
+            }
+        return chain, out_schema, pk
+
+    # -- joins -----------------------------------------------------------
+    def _try_delta_join(
+        self, name: str, select: P.Select
+    ) -> Optional[PlannedMV]:
+        """Plan an INNER 2-way join as a DELTA JOIN over two shared
+        CREATE INDEX arrangements (lookup.rs; frontend delta_join
+        rule, gated on a session variable like the reference's
+        rw_streaming_enable_delta_join). Returns None when the shape
+        or the indexes don't fit — the hash join path takes over."""
+        if not self.catalog.enable_delta_join:
+            return None
+        f = select.from_
+        if not (
+            isinstance(f, P.Join)
+            and f.join_type == "inner"
+            and isinstance(f.left, P.TableRef)
+            and isinstance(f.right, P.TableRef)
+        ):
+            return None
+        if select.where is not None or select.group_by or select.limit:
+            return None
+        lt, rt = f.left, f.right
+        if self.catalog.is_mv(lt.name) or self.catalog.is_mv(rt.name):
+            return None
+        if lt.name == rt.name:
+            # a self-join would collapse the inputs dict to one side;
+            # feeding a SHARED arrangement as 'both' would double-count
+            return None
+        lsch = self.catalog.schema_dtypes(lt.name)
+        rsch = self.catalog.schema_dtypes(rt.name)
+        lal = {lt.alias or lt.name}
+        ral = {rt.alias or rt.name}
+
+        def side_of(ident: P.Ident) -> Optional[str]:
+            if ident.qualifier:
+                if ident.qualifier in lal:
+                    return "l" if ident.name in lsch else None
+                if ident.qualifier in ral:
+                    return "r" if ident.name in rsch else None
+                return None
+            inl, inr = ident.name in lsch, ident.name in rsch
+            if inl == inr:
+                return None  # ambiguous or unknown
+            return "l" if inl else "r"
+
+        lkeys, rkeys = [], []
+        for c in _split_and(f.on):
+            if not (
+                isinstance(c, P.BinaryOp)
+                and c.op == "="
+                and isinstance(c.left, P.Ident)
+                and isinstance(c.right, P.Ident)
+            ):
+                return None
+            s1, s2 = side_of(c.left), side_of(c.right)
+            if (s1, s2) == ("l", "r"):
+                lkeys.append(c.left.name)
+                rkeys.append(c.right.name)
+            elif (s1, s2) == ("r", "l"):
+                lkeys.append(c.right.name)
+                rkeys.append(c.left.name)
+            else:
+                return None
+        if not lkeys:
+            return None
+        if len(set(lkeys)) != len(lkeys) or len(set(rkeys)) != len(
+            rkeys
+        ):
+            # duplicate key columns would collapse under set matching
+            # and silently drop a join condition
+            return None
+
+        def find_index(table: str, keys: Sequence[str]):
+            # EXACT column-set match: lookup() keys its prefix map by
+            # the full index-column tuple, so a superset index cannot
+            # serve a shorter join key
+            for d in self.catalog.indexes.values():
+                if d["base"] == table and len(d["cols"]) == len(
+                    keys
+                ) and set(d["cols"]) == set(keys):
+                    return d
+            return None
+
+        lidx = find_index(lt.name, lkeys)
+        if lidx is None:
+            return None
+        # permute the key pairs into the LEFT index's column order,
+        # then demand a right index with exactly that order
+        perm = [lkeys.index(c) for c in lidx["cols"]]
+        lkeys = [lkeys[i] for i in perm]
+        rkeys = [rkeys[i] for i in perm]
+        ridx = next(
+            (
+                d
+                for d in self.catalog.indexes.values()
+                if d["base"] == rt.name
+                and tuple(d["cols"]) == tuple(rkeys)
+            ),
+            None,
+        )
+        if ridx is None:
+            return None
+        # the seeding/emission paths carry int64 lanes: a float join
+        # key or base pk would truncate — decline to the hash path
+        for col, sch in [(c, lsch) for c in lkeys + list(
+            lidx["base_pk"]
+        )] + [(c, rsch) for c in rkeys + list(ridx["base_pk"])]:
+            dt = sch.get(col, torch.int64)  # hidden _row_id
+            if not _is_integer(dt):
+                return None
+
+        from risingwave_tpu_torch.executors.lookup import DeltaJoinExecutor
+        from risingwave_tpu_torch.runtime.pipeline import TwoInputPipeline
+
+        left_out: List[Tuple[str, str]] = []
+        right_out: List[Tuple[str, str]] = []
+        out_schema: Dict[str, object] = {}
+        for i, item in enumerate(select.items):
+            ast = item.expr
+            if not isinstance(ast, P.Ident):
+                return None
+            side = side_of(ast)
+            if side is None:
+                return None
+            out = item.alias or ast.name
+            (left_out if side == "l" else right_out).append(
+                (out, ast.name)
+            )
+            dt = (lsch if side == "l" else rsch)[ast.name]
+            if not _is_integer(dt):
+                # the host delta-join emission path carries int64
+                # lanes; a float column would truncate silently —
+                # decline, the hash path handles it
+                return None
+            out_schema[out] = dt
+        pk = []
+        for i, c in enumerate(lidx["base_pk"]):
+            left_out.append((f"_dlpk{i}", c))
+            out_schema[f"_dlpk{i}"] = torch.int64
+            pk.append(f"_dlpk{i}")
+        for i, c in enumerate(ridx["base_pk"]):
+            right_out.append((f"_drpk{i}", c))
+            out_schema[f"_drpk{i}"] = torch.int64
+            pk.append(f"_drpk{i}")
+
+        join = DeltaJoinExecutor(
+            lidx["arrangement"],
+            ridx["arrangement"],
+            lkeys,
+            rkeys,
+            left_out,
+            right_out,
+        )
+        mview = MaterializeExecutor(
+            pk=tuple(pk),
+            columns=tuple(n for n in out_schema if n not in pk),
+            table_id=f"{name}.mview",
+        )
+        planned = PlannedMV(
+            name,
+            TwoInputPipeline([], [], join, [mview]),
+            mview,
+            {lt.name: "left", rt.name: "right"},
+            schema=out_schema,
+        )
+        planned.delta_join = True  # session: seed instead of backfill
+        return planned
+
+    def _plan_temporal(self, name: str, select: P.Select) -> PlannedMV:
+        """stream JOIN table FOR SYSTEM_TIME AS OF PROCTIME() ON ... —
+        the stream side probes the table's materialize state at apply
+        time; no join state (temporal_join.rs:44). The probe executor
+        joins the left chain, then the ordinary single-input select
+        logic (WHERE / GROUP BY / items) runs over the enriched schema.
+        """
+        from risingwave_tpu_torch.executors.temporal_join import (
+            TemporalJoinExecutor,
+        )
+
+        join: P.Join = select.from_
+        jt = "inner" if join.join_type == "temporal" else "left"
+        if not isinstance(join.right, P.TableRef):
+            raise ValueError(
+                "the temporal side must be a table / MV name"
+            )
+        rname = join.right.name
+        mv = getattr(self, "mviews", {}).get(rname)
+        if mv is None and self.catalog.is_mv(rname):
+            mv = self.catalog.mvs[rname].mview
+        if mv is None:
+            raise KeyError(
+                f"temporal side {rname!r} is not a materialized relation"
+            )
+        left = self._from_bound(name, join.left)
+        r_alias = join.right.alias or rname
+        r_schema = dict(self.catalog.schema_dtypes(rname))
+        overlap = set(left.schema) & set(r_schema)
+        if overlap:
+            raise ValueError(
+                f"temporal join sides share column names {overlap}; "
+                "alias them apart"
+            )
+
+        # ON: left_col = right_pk_col conjuncts, matched to pk order
+        pairs: Dict[str, str] = {}
+
+        def walk(e):
+            if isinstance(e, P.BinaryOp) and e.op == "and":
+                walk(e.left)
+                walk(e.right)
+                return
+            if (
+                isinstance(e, P.BinaryOp)
+                and e.op == "="
+                and isinstance(e.left, P.Ident)
+                and isinstance(e.right, P.Ident)
+            ):
+                a, b = e.left, e.right
+                if a.qualifier == r_alias or (
+                    a.qualifier is None and a.name in r_schema
+                ):
+                    a, b = b, a
+                if b.name not in mv.pk:
+                    raise ValueError(
+                        f"temporal ON must match the table pk; {b.name!r} "
+                        f"is not in {mv.pk}"
+                    )
+                pairs[b.name] = a.name
+                return
+            raise ValueError("temporal ON must be AND-ed equalities")
+
+        walk(join.on)
+        if set(pairs) != set(mv.pk):
+            raise ValueError(
+                f"temporal ON must cover the full pk {mv.pk}, got "
+                f"{sorted(pairs)}"
+            )
+        left_keys = tuple(pairs[k] for k in mv.pk)
+        output_cols = tuple(
+            c for c in mv.columns if not c.startswith("_")
+        )
+        tj = TemporalJoinExecutor(
+            mv, left_keys, output_cols, join_type=jt
+        )
+        # mv.columns are expanded LEAF lane names (composite columns
+        # decompose); resolve lane dtypes through expand_field, never
+        # default silently
+        from risingwave_tpu_torch.array.composite import expand_field
+
+        lane_dtypes = {
+            ln: torch_dtype(d)
+            for f in self.catalog.tables[rname].fields
+            for (ln, d) in expand_field(f)
+        }
+        schema = dict(left.schema)
+        for c in output_cols:
+            if c not in lane_dtypes:
+                raise KeyError(
+                    f"temporal side lane {c!r} has no declared dtype"
+                )
+            schema[c] = lane_dtypes[c]
+        # the enriched row is addressable via either side's qualifier
+        quals = frozenset(
+            q for q in (left.alias or left.source, r_alias) if q
+        )
+        enriched = BoundRel(
+            left.chain + [tj], schema, left.pk, left.source, quals
+        )
+        rel = self._plan_rel(name, select, pre=enriched)
+        mview = MaterializeExecutor(
+            pk=rel.pk,
+            columns=tuple(c for c in rel.schema if c not in rel.pk),
+            table_id=f"{name}.mview",
+        )
+        pipeline = Pipeline(rel.chain + [mview])
+        return PlannedMV(
+            name, pipeline, mview, {rel.source: "single"}, schema=rel.schema
+        )
+
+    def _plan_join(self, name: str, select: P.Select) -> PlannedMV:
+        import dataclasses as _dc
+
+        aux: List[PlannedMV] = []
+        planned = self._plan_join_core(name, select, aux)
+        if aux:
+            planned = _dc.replace(planned, aux=tuple(aux))
+        return planned
+
+    def _lower_nested_join(
+        self, name: str, jast: P.Join, aux: List[PlannedMV]
+    ) -> BoundRel:
+        """Left-deep multi-way joins: plan a NESTED join as a hidden
+        MV (``{name}__jK``) and treat its change stream as one input
+        of the outer 2-way join — MV-on-MV lowering. The reference
+        fragments an n-way join into a tree of 2-way StreamHashJoins
+        (optimizer on e2e_test/tpch q3); here the tree edges are the
+        runtime's subscription edges."""
+        if jast.join_type not in ("inner", "left_semi", "left_anti"):
+            raise ValueError(
+                "only INNER/SEMI/ANTI nested joins lower to MV trees "
+                "(outer nesting unsupported)"
+            )
+        inner_name = f"{name}__j{len(aux)}"
+        # discover the inner result's visible columns + qualifiers with
+        # a THROWAWAY binder pass (self._tid stays untouched)
+        sides: List[object] = []
+
+        def flat(j):
+            if isinstance(j, P.Join):
+                flat(j.left)
+                flat(j.right)
+            else:
+                sides.append(j)
+
+        if jast.join_type in ("left_semi", "left_anti"):
+            flat(jast.left)  # semi/anti joins emit LEFT columns only
+        else:
+            flat(jast)
+        tmp = StreamPlanner(
+            self.catalog, capacity=self.capacity, device=self.device
+        )
+        cols: List[str] = []
+        quals: set = set()
+        for srel in sides:
+            r = tmp._rel_of(inner_name, srel)
+            cols.extend(c for c in r.schema if not c.startswith("_"))
+            if r.alias:
+                quals.add(r.alias)
+        inner_sel = P.Select(
+            items=tuple(P.SelectItem(P.Ident(c), None) for c in cols),
+            from_=jast,
+            where=None,
+            group_by=(),
+        )
+        inner = self._plan_join_core(inner_name, inner_sel, aux)
+        aux.append(inner)
+        self.catalog.add_mv(inner)
+        # hidden pk lanes (_row_id) must not collide with the outer
+        # side's own hidden lanes: rename them behind a projector
+        return self._rename_hidden(
+            BoundRel(
+                [],
+                dict(inner.schema),
+                tuple(inner.mview.pk),
+                inner_name,
+                frozenset(quals | {inner_name}),
+            ),
+            inner_name,
+        )
+
+    def _plan_join_core(
+        self, name: str, select: P.Select, aux: List[PlannedMV]
+    ) -> PlannedMV:
+        join: P.Join = select.from_
+        if isinstance(join.left, P.Join):
+            left = self._lower_nested_join(name, join.left, aux)
+        else:
+            left = self._rel_of(name, join.left)
+        if isinstance(join.right, P.Join):
+            right = self._lower_nested_join(name, join.right, aux)
+        else:
+            right = self._rel_of(name, join.right)
+        # hidden planner lanes (_row_id) may exist on BOTH sides (two
+        # non-aggregating derived tables); rename them apart — user
+        # columns still must be disjoint, enforced below
+        if {c for c in left.schema if c.startswith("_")} & {
+            c for c in right.schema if c.startswith("_")
+        }:
+            left = self._rename_hidden(left, "l")
+            right = self._rename_hidden(right, "r")
+        if set(left.schema) & set(right.schema):
+            raise ValueError(
+                f"join sides share column names: "
+                f"{set(left.schema) & set(right.schema)} — alias them apart"
+            )
+
+        jt = join.join_type
+        lkeys, rkeys = self._equi_keys(join.on, left, right)
+        hj = HashJoinExecutor(
+            left_keys=lkeys,
+            right_keys=rkeys,
+            left_dtypes=left.schema,
+            right_dtypes=right.schema,
+            capacity=self.capacity,
+            join_type=jt,
+            table_id=self._tid(name, "join"),
+            device=self.device,
+        )
+        # output column set per join type (hash_join.rs:129 variants):
+        # semi/anti emit only the driving side; outer joins emit both
+        # with the padded side's columns nullable.
+        semi_anti = jt.endswith("_semi") or jt.endswith("_anti")
+        if semi_anti:
+            emit_side = left if jt.startswith("left") else right
+            visible = set(emit_side.schema)
+        else:
+            visible = set(left.schema) | set(right.schema)
+        binder = Binder({**left.schema, **right.schema}, None)
+        tail: List[Executor] = []
+        if select.where is not None:
+            for ident in _idents_in(select.where):
+                n = self._join_resolve(ident, left, right)
+                if n not in visible:
+                    raise ValueError(
+                        f"WHERE references {n!r}, not emitted by a {jt} join"
+                    )
+            tail.append(FilterExecutor(compile_scalar(select.where, binder)))
+        if select.group_by:
+            # GROUP BY over the joined stream (the q7 shape;
+            # reference optimizer: StreamHashAgg over StreamHashJoin).
+            # Join output can retract (deletes / NULL-pad transitions),
+            # so MIN/MAX escalate to materialized-input state; inner
+            # joins of append-only sides retract too (a dedup upstream
+            # or U- pairs), keep it on unconditionally.
+            for ident in _idents_in_select(select):
+                n = self._join_resolve(ident, left, right)
+                if n not in visible:
+                    raise ValueError(
+                        f"column {n!r} is not emitted by a {jt} join"
+                    )
+            padded: frozenset = frozenset()
+            if jt in ("left", "full"):
+                padded |= frozenset(right.schema)
+            if jt in ("right", "full"):
+                padded |= frozenset(left.schema)
+            gchain, gout, gpk = self._plan_groupby(
+                name, select, binder, {**left.schema, **right.schema},
+                retractable=True, nullable_cols=padded,
+            )
+            tail.extend(gchain)
+            if select.having is not None:
+                tail.append(
+                    FilterExecutor(
+                        compile_scalar(select.having, Binder(gout, None))
+                    )
+                )
+            mview = MaterializeExecutor(
+                pk=gpk,
+                columns=tuple(c for c in gout if c not in gpk),
+                table_id=f"{name}.mview",
+            )
+            tail.append(mview)
+            pipeline = TwoInputPipeline(left.chain, right.chain, hj, tail)
+            return PlannedMV(
+                name,
+                pipeline,
+                mview,
+                _join_inputs(left.source, right.source),
+                schema=gout,
+            )
+        if not semi_anti and any(
+            _contains_agg(it.expr) for it in select.items
+        ):
+            # GLOBAL aggregate over a joined stream (TPC-H q17's outer
+            # ``sum(l_extendedprice) / 7``): SimpleAgg (retraction-safe
+            # signed updates) + a post-projection computing arbitrary
+            # scalar expressions over the lifted agg outputs
+            from risingwave_tpu_torch.executors.simple_agg import (
+                SimpleAggExecutor,
+            )
+
+            merged = {**left.schema, **right.schema}
+            calls: List[AggCall] = []
+            agg_schema: Dict[str, object] = {}
+            tmp = [0]
+
+            def lift(ast):
+                if _is_agg(ast):
+                    out = f"__a{tmp[0]}"
+                    tmp[0] += 1
+                    if ast.args == ("*",):
+                        if ast.name != "count":
+                            raise ValueError(f"{ast.name}(*) unsupported")
+                        calls.append(AggCall("count_star", None, out))
+                        agg_schema[out] = torch.int64
+                    else:
+                        arg = ast.args[0]
+                        if not isinstance(arg, P.Ident):
+                            raise ValueError(
+                                "aggregate args must be bare columns "
+                                "(project first)"
+                            )
+                        n = self._join_resolve(arg, left, right)
+                        if ast.name in EXTENDED_AGGS:
+                            raise NotImplementedError(
+                                f"{ast.name}() over a joined global "
+                                "aggregate: wrap the join in a derived-"
+                                "table MV first"
+                            )
+                        calls.append(AggCall(AGG_FUNCS[ast.name], n, out))
+                        agg_schema[out] = merged[n]
+                    return P.Ident(out)
+                if isinstance(ast, P.BinaryOp):
+                    return P.BinaryOp(ast.op, lift(ast.left), lift(ast.right))
+                if isinstance(ast, P.UnaryOp):
+                    return P.UnaryOp(ast.op, lift(ast.operand))
+                if isinstance(ast, P.Literal):
+                    return ast
+                raise ValueError(
+                    "ungrouped join aggregates: items must be aggregate "
+                    "expressions"
+                )
+
+            lifted = []
+            for i, item in enumerate(select.items):
+                outn = item.alias or f"col{i}"
+                lifted.append((outn, lift(item.expr), item.expr))
+            tail.append(
+                SimpleAggExecutor(
+                    tuple(calls), merged, table_id=self._tid(name, "sagg"),
+                    device=self.device,
+                )
+            )
+            outputs: Dict[str, E.Expr] = {}
+            gout: Dict[str, object] = {}
+
+            def _has_float_lit(a):
+                if isinstance(a, P.Literal):
+                    return isinstance(a.value, float)
+                if isinstance(a, P.BinaryOp):
+                    return _has_float_lit(a.left) or _has_float_lit(a.right)
+                if isinstance(a, P.UnaryOp):
+                    return _has_float_lit(a.operand)
+                return False
+
+            for outn, lexpr, orig in lifted:
+                outputs[outn] = compile_scalar(
+                    lexpr, Binder(agg_schema, None)
+                )
+                if isinstance(lexpr, P.Ident):
+                    gout[outn] = agg_schema[lexpr.name]
+                else:
+                    gout[outn] = (
+                        torch.float64 if _has_float_lit(orig) else torch.int64
+                    )
+            tail.append(ProjectExecutor(outputs))
+            mview = MaterializeExecutor(
+                pk=(),
+                columns=tuple(gout),
+                table_id=f"{name}.mview",
+            )
+            tail.append(mview)
+            pipeline = TwoInputPipeline(left.chain, right.chain, hj, tail)
+            return PlannedMV(
+                name,
+                pipeline,
+                mview,
+                _join_inputs(left.source, right.source),
+                schema=gout,
+            )
+
+        out_names = []
+        for i, item in enumerate(select.items):
+            if not isinstance(item.expr, P.Ident):
+                raise ValueError("join select items must be bare columns v0")
+            n = self._join_resolve(item.expr, left, right)
+            if n not in visible:
+                raise ValueError(
+                    f"column {n!r} is not emitted by a {jt} join"
+                )
+            out_names.append((n, item.alias))
+        if semi_anti:
+            pk = tuple(emit_side.pk)
+        else:
+            pk = tuple(left.pk) + tuple(right.pk)
+        proj = {alias or n: E.col(n) for n, alias in out_names}
+        for p in pk:  # pk columns must survive into the MV
+            proj.setdefault(p, E.col(p))
+        tail.append(ProjectExecutor(proj))
+        rename = {n: (alias or n) for n, alias in out_names}
+        mview = MaterializeExecutor(
+            pk=tuple(rename.get(p, p) for p in pk),
+            columns=tuple(
+                alias or n for n, alias in out_names
+                if (alias or n) not in {rename.get(p, p) for p in pk}
+            ),
+            table_id=f"{name}.mview",
+        )
+        tail.append(mview)
+        pipeline = TwoInputPipeline(left.chain, right.chain, hj, tail)
+        merged = {**left.schema, **right.schema}
+        out_schema = {alias or n: merged[n] for n, alias in out_names}
+        for p in pk:
+            out_schema.setdefault(rename.get(p, p), merged[p])
+        return PlannedMV(
+            name,
+            pipeline,
+            mview,
+            _join_inputs(left.source, right.source),
+            schema=out_schema,
+        )
+
+    def _rel_of(self, name: str, rel) -> BoundRel:
+        if isinstance(rel, P.SubQuery):
+            bound = self._plan_rel(name, rel.select)
+            bound.alias = rel.alias
+            return bound
+        raise TypeError(
+            "join sides must be subqueries with explicit columns "
+            f"(got {type(rel).__name__})"
+        )
+
+    # -- scalar-subquery decorrelation (binder/expr/subquery.rs:22) ------
+    def _decorrelate(self, select: P.Select) -> P.Select:
+        """Rewrite WHERE conjuncts of the form
+
+            <col> <cmp> (SELECT [k *] agg(c) FROM t WHERE t.key = <outer col>)
+
+        into an INNER join against a hidden grouped-agg derived table
+        plus an algebraic predicate (the reference's correlated-apply →
+        join rewrite, narrowed to equality correlation + one aggregate).
+        ``avg`` splits into sum/count and the comparison is multiplied
+        through by the (positive) count and the coefficient denominator
+        — exact in the integer lane domain, no division (TPC-H q17's
+        ``l_quantity < (SELECT 0.2 * avg(l_quantity) ...)``)."""
+        if select.where is None:
+            return select
+        import dataclasses as _dc
+
+        conjs = _split_and(select.where)
+        out_conjs: List[object] = []
+        new_from = select.from_
+        sq_i = 0
+        changed = False
+        flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "=", "<>": "<>"}
+        for c in conjs:
+            # EXISTS / NOT EXISTS / IN / NOT IN -> left-semi/anti join
+            # (binder/expr/subquery.rs Exists + InSubquery rewrites)
+            exists = c if isinstance(c, P.Exists) else None
+            anti = False
+            if (
+                isinstance(c, P.UnaryOp)
+                and c.op == "not"
+                and isinstance(c.operand, P.Exists)
+            ):
+                exists, anti = c.operand, True
+            if exists is not None:
+                new_from = self._semi_anti_join(
+                    new_from, exists.select, sq_i, anti, in_expr=None
+                )
+                sq_i += 1
+                changed = True
+                continue
+            insub, neg = (
+                (c, False)
+                if isinstance(c, P.InSubquery)
+                else (c.operand, True)
+                if isinstance(c, P.UnaryOp)
+                and c.op == "not"
+                and isinstance(c.operand, P.InSubquery)
+                else (None, False)
+            )
+            if insub is not None:
+                new_from = self._semi_anti_join(
+                    new_from,
+                    insub.select,
+                    sq_i,
+                    insub.negated ^ neg,
+                    in_expr=insub.expr,
+                )
+                sq_i += 1
+                changed = True
+                continue
+            sub = None
+            if isinstance(c, P.BinaryOp) and c.op in flip:
+                if isinstance(c.right, P.ScalarSubQuery) and isinstance(
+                    c.left, P.Ident
+                ):
+                    outer_e, sub, op = c.left, c.right.select, c.op
+                elif isinstance(c.left, P.ScalarSubQuery) and isinstance(
+                    c.right, P.Ident
+                ):
+                    outer_e, sub, op = c.right, c.left.select, flip[c.op]
+            if sub is None:
+                out_conjs.append(c)
+                continue
+            new_from, pred = self._decorrelate_one(
+                new_from, outer_e, op, sub, sq_i
+            )
+            out_conjs.append(pred)
+            sq_i += 1
+            changed = True
+        if not changed:
+            return select
+        return _dc.replace(
+            select, from_=new_from, where=_and_all(out_conjs)
+        )
+
+    def _as_subquery_rel(self, rel):
+        """Bare-table outer FROM -> SELECT * derived table (the join
+        planner requires subquery sides with explicit columns)."""
+        if isinstance(rel, P.TableRef) and rel.name in self.catalog.tables:
+            cols = tuple(
+                P.SelectItem(P.Ident(c), None)
+                for c in self.catalog.schema_dtypes(rel.name)
+            )
+            return P.SubQuery(
+                P.Select(
+                    items=cols, from_=rel, where=None, group_by=()
+                ),
+                rel.alias or rel.name,
+            )
+        return rel
+
+    def _semi_anti_join(
+        self, from_, sub: P.Select, i: int, anti: bool, in_expr
+    ):
+        """EXISTS/IN subquery -> a left_semi (negated: left_anti) join
+        against a hidden derived table projecting the matching key.
+
+        - EXISTS: the subquery's WHERE must carry one ``t.key = outer``
+          equality (the correlation); residual conjuncts stay inside.
+        - IN: the subquery's single item is the matching column;
+          correlation equalities are also honored when present.
+        """
+        if not isinstance(sub.from_, P.TableRef):
+            raise ValueError(
+                "EXISTS/IN subquery FROM must be a plain table / MV name"
+            )
+        if sub.group_by:
+            raise ValueError("EXISTS/IN subquery cannot GROUP BY")
+        tname = sub.from_.name
+        talias = sub.from_.alias or tname
+        tcols = set(self.catalog.schema_dtypes(tname))
+        # split correlation equalities out of the subquery's WHERE
+        corr: List[Tuple[str, P.Ident]] = []
+        rest: List[object] = []
+        for cj in _split_and(sub.where) if sub.where is not None else []:
+            picked = False
+            if (
+                isinstance(cj, P.BinaryOp)
+                and cj.op == "="
+                and isinstance(cj.left, P.Ident)
+                and isinstance(cj.right, P.Ident)
+            ):
+                a, b = cj.left, cj.right
+                a_in = a.name in tcols and a.qualifier in (None, talias)
+                b_in = b.name in tcols and b.qualifier in (None, talias)
+                if a_in and not b_in:
+                    corr.append((a.name, b))
+                    picked = True
+                elif b_in and not a_in:
+                    corr.append((b.name, a))
+                    picked = True
+            if not picked:
+                rest.append(cj)
+        alias = f"__sq{i}"
+        items: List[P.SelectItem] = []
+        on = None
+        if in_expr is not None:
+            if len(sub.items) != 1:
+                raise ValueError("IN subquery must select one column")
+            it = sub.items[0].expr
+            if not isinstance(it, P.Ident):
+                raise ValueError("IN subquery item must be a bare column")
+            if not isinstance(in_expr, P.Ident):
+                raise ValueError(
+                    "IN lhs must be a bare column (project first)"
+                )
+            items.append(P.SelectItem(it, f"sq{i}ink"))
+            on = P.BinaryOp(
+                "=", P.Ident(f"sq{i}ink", alias), in_expr
+            )
+        elif not corr:
+            raise ValueError(
+                "EXISTS subquery must correlate on at least one "
+                "t.key = outer column equality"
+            )
+        for j, (inner_key, outer_ident) in enumerate(corr):
+            out = f"sq{i}ck{j}"
+            items.append(P.SelectItem(P.Ident(inner_key), out))
+            eq = P.BinaryOp("=", P.Ident(out, alias), outer_ident)
+            on = eq if on is None else P.BinaryOp("and", on, eq)
+        where = _and_all(rest)
+        sq = P.SubQuery(
+            P.Select(
+                items=tuple(items), from_=sub.from_, where=where,
+                group_by=(),
+            ),
+            alias,
+        )
+        return P.Join(
+            left=self._as_subquery_rel(from_),
+            right=sq,
+            on=on,
+            join_type="left_anti" if anti else "left_semi",
+        )
+
+    def _decorrelate_one(self, from_, outer_e, op, sub: P.Select, i: int):
+        from fractions import Fraction
+
+        if not isinstance(sub.from_, P.TableRef):
+            raise ValueError(
+                "scalar subquery FROM must be a plain table / MV name"
+            )
+        tname = sub.from_.name
+        talias = sub.from_.alias or tname
+        tcols = set(self.catalog.schema_dtypes(tname))
+        if sub.group_by or len(sub.items) != 1:
+            raise ValueError(
+                "scalar subquery must select exactly one aggregate"
+            )
+        # item: agg(c) or <lit> * agg(c) / agg(c) * <lit>
+        e = sub.items[0].expr
+        coeff = Fraction(1)
+        if isinstance(e, P.BinaryOp) and e.op == "*":
+            lit, agg = e.left, e.right
+            if isinstance(agg, P.Literal):
+                lit, agg = agg, lit
+            if not isinstance(lit, P.Literal):
+                raise ValueError("scalar subquery item must be lit * agg")
+            coeff = Fraction(str(lit.value))
+            e = agg
+        if not (
+            isinstance(e, P.FuncCall)
+            and e.name in ("avg", "sum", "min", "max")
+            and len(e.args) == 1
+            and isinstance(e.args[0], P.Ident)
+        ):
+            raise ValueError(
+                "scalar subquery supports [k *] avg/sum/min/max(col)"
+            )
+        if getattr(e, "distinct", False):
+            raise NotImplementedError(
+                f"{e.name}(DISTINCT ...) in a scalar subquery is "
+                "unsupported (the decorrelation would drop DISTINCT)"
+            )
+        if coeff <= 0:
+            raise ValueError(
+                "scalar subquery coefficient must be positive (the "
+                "comparison is multiplied through by it)"
+            )
+        kind, aggcol = e.name, e.args[0].name
+        # correlation: exactly one t.key = outer_col equality; remaining
+        # conjuncts stay as the subquery's own WHERE
+        corr = None
+        rest: List[object] = []
+        for cj in _split_and(sub.where) if sub.where is not None else []:
+            if (
+                corr is None
+                and isinstance(cj, P.BinaryOp)
+                and cj.op == "="
+                and isinstance(cj.left, P.Ident)
+                and isinstance(cj.right, P.Ident)
+            ):
+                a, b = cj.left, cj.right
+                a_inner = a.name in tcols and a.qualifier in (None, talias)
+                b_inner = b.name in tcols and b.qualifier in (None, talias)
+                if a_inner and not b_inner:
+                    corr = (a.name, b)
+                    continue
+                if b_inner and not a_inner:
+                    corr = (b.name, a)
+                    continue
+            rest.append(cj)
+        if corr is None:
+            raise ValueError(
+                "scalar subquery must correlate on one t.key = outer "
+                "column equality"
+            )
+        inner_key, outer_corr = corr
+        kname, sname, nname = f"__k{i}", f"__s{i}", f"__n{i}"
+        alias = f"__sq{i}"
+        items = [P.SelectItem(P.Ident(inner_key), kname)]
+        if kind == "avg":
+            items.append(
+                P.SelectItem(P.FuncCall("sum", (P.Ident(aggcol),)), sname)
+            )
+            items.append(
+                P.SelectItem(P.FuncCall("count", (P.Ident(aggcol),)), nname)
+            )
+        else:
+            items.append(
+                P.SelectItem(P.FuncCall(kind, (P.Ident(aggcol),)), sname)
+            )
+        sq_where = _and_all(rest)
+        sq_sel = P.Select(
+            items=tuple(items),
+            from_=sub.from_,
+            where=sq_where,
+            group_by=(P.Ident(inner_key),),
+        )
+        new_from = P.Join(
+            left=from_,
+            right=P.SubQuery(sq_sel, alias),
+            on=P.BinaryOp("=", P.Ident(kname, alias), outer_corr),
+            join_type="inner",
+        )
+        p, q = coeff.numerator, coeff.denominator
+        lhs: object = outer_e
+        if kind == "avg":
+            lhs = P.BinaryOp("*", lhs, P.Ident(nname, alias))
+        if q != 1:
+            lhs = P.BinaryOp("*", lhs, P.Literal(q))
+        rhs: object = P.Ident(sname, alias)
+        if p != 1:
+            rhs = P.BinaryOp("*", P.Literal(p), rhs)
+        return new_from, P.BinaryOp(op, lhs, rhs)
+
+    @staticmethod
+    def _rename_hidden(rel: BoundRel, tag: str) -> BoundRel:
+        hidden = [c for c in rel.schema if c.startswith("_")]
+        if not hidden:
+            return rel
+        ren = {
+            c: (f"_{tag}{c}" if c in hidden else c) for c in rel.schema
+        }
+        proj = ProjectExecutor({ren[c]: E.col(c) for c in rel.schema})
+        return BoundRel(
+            rel.chain + [proj],
+            {ren[c]: d for c, d in rel.schema.items()},
+            tuple(ren.get(p, p) for p in rel.pk),
+            rel.source,
+            rel.alias,
+        )
+
+    @staticmethod
+    def _alias_match(qual, alias) -> bool:
+        """A lowered join side is addressable through ANY of its
+        original sides' qualifiers (alias is then a frozenset)."""
+        if isinstance(alias, (set, frozenset)):
+            return qual in alias
+        return qual == alias
+
+    def _join_resolve(self, ident: P.Ident, left: BoundRel, right: BoundRel):
+        if (
+            self._alias_match(ident.qualifier, left.alias)
+            and ident.name in left.schema
+        ):
+            return ident.name
+        if (
+            self._alias_match(ident.qualifier, right.alias)
+            and ident.name in right.schema
+        ):
+            return ident.name
+        if ident.qualifier is None:
+            if (ident.name in left.schema) != (ident.name in right.schema):
+                return ident.name
+            raise KeyError(f"ambiguous or unknown column {ident.name!r}")
+        raise KeyError(f"cannot resolve {ident.qualifier}.{ident.name}")
+
+    def _equi_keys(self, on, left: BoundRel, right: BoundRel):
+        """Flatten AND-ed equality conditions into positional key lists."""
+        pairs: List[Tuple[str, str]] = []
+
+        def walk(e):
+            if isinstance(e, P.BinaryOp) and e.op == "and":
+                walk(e.left)
+                walk(e.right)
+                return
+            if (
+                isinstance(e, P.BinaryOp)
+                and e.op == "="
+                and isinstance(e.left, P.Ident)
+                and isinstance(e.right, P.Ident)
+            ):
+                a, b = e.left, e.right
+                an = self._join_resolve(a, left, right)
+                bn = self._join_resolve(b, left, right)
+                if an in left.schema and bn in right.schema:
+                    pairs.append((an, bn))
+                elif bn in left.schema and an in right.schema:
+                    pairs.append((bn, an))
+                else:
+                    raise ValueError("join condition must cross sides")
+                return
+            raise ValueError("ON must be AND-ed equality conditions")
+
+        walk(on)
+        if not pairs:
+            raise ValueError("no equi-join keys found")
+        return tuple(p[0] for p in pairs), tuple(p[1] for p in pairs)

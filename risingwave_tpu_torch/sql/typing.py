@@ -1,0 +1,417 @@
+"""Logical output-type inference for SELECT / CREATE MV.
+
+Port of ``risingwave_tpu/sql/typing.py``, copied: it imports no jax.
+
+Reference: the binder/type-inference pass (src/frontend/src/binder/ +
+src/frontend/src/expr/type_inference/) — here a deliberately small,
+best-effort version: enough to know which output columns are DECIMAL /
+VARCHAR / JSONB / INTERVAL so the session can decode device lanes
+(scaled ints, dictionary codes) back to SQL values at the result edge.
+
+Columns whose type cannot be inferred (complex expressions) return no
+entry and surface as their raw device values.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+from risingwave_tpu_torch.sql import parser as P
+from risingwave_tpu_torch.types import DataType, Field
+
+
+def _from_env(env: Dict[str, Field], name: str) -> Optional[Field]:
+    return env.get(name)
+
+
+def _env_of_rel(rel, catalog) -> Dict[str, Field]:
+    """Visible columns (name -> logical Field) of a FROM clause."""
+    if isinstance(rel, P.TableRef):
+        sch = catalog.tables.get(rel.name)
+        if sch is None:
+            return {}
+        return {f.name: f for f in sch.fields}
+    if isinstance(rel, P.Join):
+        env = _env_of_rel(rel.left, catalog)
+        env.update(_env_of_rel(rel.right, catalog))
+        return env
+    if isinstance(rel, P.SubQuery):
+        inner = infer_output_fields(rel.select, catalog)
+        return {n: Field(n, f.dtype, scale=f.scale) for n, f in inner.items()}
+    if isinstance(rel, P.WindowTVF):
+        env = _env_of_rel(rel.table, catalog)
+        # window columns are timestamps
+        for extra in ("window_start", "window_end"):
+            env.setdefault(extra, Field(extra, DataType.TIMESTAMP))
+        return env
+    return {}
+
+
+def output_name(item: P.SelectItem, i: int) -> str:
+    """The output column name of one select item — shared by the
+    inference pass, the batch engine, and pgwire Describe so names
+    never drift between layers."""
+    if item.alias:
+        return item.alias
+    expr = item.expr
+    if isinstance(expr, P.Ident):
+        return expr.name
+    if isinstance(expr, P.WindowFuncCall):
+        return f"{expr.func.name}_{i}"
+    if isinstance(expr, P.FuncCall):
+        return f"{expr.name}_{i}"
+    return f"col{i}"
+
+
+def infer_output_fields(stmt, catalog) -> Dict[str, Field]:
+    """Best-effort output column name -> logical Field for a Select."""
+    if isinstance(stmt, P.UnionAll):
+        # branches share one schema (the planner enforces it): the
+        # first branch types the union's output
+        stmt = stmt.selects[0]
+    if not isinstance(stmt, P.Select):
+        return {}
+    stmt = expand_star(stmt, catalog, strict=False)
+    env = _env_of_rel(stmt.from_, catalog) if stmt.from_ is not None else {}
+    out: Dict[str, Field] = {}
+    for i, item in enumerate(stmt.items):
+        expr = item.expr
+        if isinstance(expr, P.Ident):
+            f = _from_env(env, expr.name)
+            if f is not None:
+                name = item.alias or expr.name
+                out[name] = Field(name, f.dtype, scale=f.scale)
+            continue
+        if isinstance(expr, P.WindowFuncCall):
+            name = item.alias or f"{expr.func.name}_{i}"
+            fn = expr.func.name
+            if fn in ("row_number", "rank", "dense_rank", "count"):
+                out[name] = Field(name, DataType.INT64)
+            elif expr.func.args and isinstance(expr.func.args[0], P.Ident):
+                f = _from_env(env, expr.func.args[0].name)
+                if f is not None:  # lag/lead/sum/min/max keep arg type
+                    out[name] = Field(name, f.dtype, scale=f.scale)
+            continue
+        if isinstance(expr, P.FuncCall):
+            name = item.alias or f"{expr.name}_{i}"
+            from risingwave_tpu_torch.expr.functions import udf_signature
+
+            sig = udf_signature(expr.name)
+            if sig is not None:
+                rf = sig[0]
+                out[name] = Field(name, rf.dtype, scale=rf.scale)
+                continue
+            if expr.name in ("count", "approx_count_distinct"):
+                out[name] = Field(name, DataType.INT64)
+            elif expr.name == "string_agg":
+                out[name] = Field(name, DataType.VARCHAR)
+            elif expr.name in (
+                "var_pop", "var_samp", "stddev_pop", "stddev_samp",
+            ):
+                out[name] = Field(name, DataType.FLOAT64)
+            elif expr.name in ("bool_and", "bool_or"):
+                out[name] = Field(name, DataType.BOOLEAN)
+            elif expr.name in ("sum", "min", "max", "avg") and expr.args:
+                arg = expr.args[0]
+                if isinstance(arg, P.Ident):
+                    f = _from_env(env, arg.name)
+                    if f is not None:
+                        if expr.name == "avg":
+                            out[name] = Field(name, DataType.FLOAT64)
+                        else:
+                            # sum/min/max keep the argument's logical
+                            # type; DECIMAL keeps its scale (scaled-int
+                            # sums stay exact at the same scale)
+                            out[name] = Field(
+                                name, f.dtype, scale=f.scale
+                            )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Type-directed statement rewriting / checking
+# ---------------------------------------------------------------------------
+
+_CMP_OPS = ("=", "<>", "!=", "<", "<=", ">", ">=", "+", "-")
+
+
+def _scale_lit(lit: P.Literal, scale: int) -> P.Literal:
+    from decimal import Decimal
+
+    if lit.value is None:
+        return lit
+    return P.Literal(
+        int(Decimal(repr(lit.value)).scaleb(scale).to_integral_value())
+    )
+
+
+def _field_of(env, ident: P.Ident):
+    return env.get(ident.name)
+
+
+def _lane_lit(lit: P.Literal, field, strings) -> P.Literal:
+    """A literal compared against a column, rewritten into the column's
+    LANE domain: DECIMAL scales; VARCHAR/JSONB encode to a dictionary
+    code (a fresh code matches no stored row — exactly right for
+    equality on an unseen string)."""
+    if lit.value is None:
+        return lit
+    if field.dtype is DataType.DECIMAL:
+        return _scale_lit(lit, field.scale)
+    if field.dtype is DataType.VARCHAR and isinstance(lit.value, str):
+        if strings is None:
+            raise ValueError("VARCHAR literal needs the session dictionary")
+        return P.Literal(int(strings.encode_one(lit.value)))
+    if field.dtype is DataType.JSONB and isinstance(lit.value, str):
+        import json
+
+        if strings is None:
+            raise ValueError("JSONB literal needs the session dictionary")
+        canon = json.dumps(
+            json.loads(lit.value), sort_keys=True, separators=(",", ":")
+        )
+        return P.Literal(int(strings.encode_one(canon)))
+    return lit
+
+
+def _rewrite_pred(pred, env, strings=None):
+    """Rewrite literals compared against DECIMAL/VARCHAR/JSONB columns
+    into the lane domain (scaled ints / dictionary codes) — a raw
+    literal would silently compare at the wrong magnitude or crash on
+    the int32 code lane."""
+    if isinstance(pred, P.BinaryOp):
+        left = _rewrite_pred(pred.left, env, strings)
+        right = _rewrite_pred(pred.right, env, strings)
+        if pred.op in _CMP_OPS:
+            lf = _field_of(env, left) if isinstance(left, P.Ident) else None
+            rf = _field_of(env, right) if isinstance(right, P.Ident) else None
+            dict_side = next(
+                (
+                    f
+                    for f in (lf, rf)
+                    if f is not None
+                    and f.dtype in (DataType.VARCHAR, DataType.JSONB)
+                ),
+                None,
+            )
+            if dict_side is not None and pred.op not in ("=", "<>", "!="):
+                # dictionary codes are insertion-ordered, not
+                # collation-ordered: ordered operators over them would
+                # silently return wrong rows (mirrors _check_collation)
+                raise NotImplementedError(
+                    f"operator '{pred.op}' on {dict_side.dtype.name}: "
+                    "dictionary codes are equality-only, not "
+                    "collation-ordered"
+                )
+            if lf is not None and isinstance(right, P.Literal):
+                right = _lane_lit(right, lf, strings)
+            elif rf is not None and isinstance(left, P.Literal):
+                left = _lane_lit(left, rf, strings)
+        return P.BinaryOp(pred.op, left, right)
+    if isinstance(pred, P.UnaryOp):
+        return P.UnaryOp(pred.op, _rewrite_pred(pred.operand, env, strings))
+    if isinstance(pred, P.FuncCall):
+        args = [
+            a if isinstance(a, str) else _rewrite_pred(a, env, strings)
+            for a in pred.args
+        ]
+        from risingwave_tpu_torch.expr.functions import udf_signature
+
+        sig = udf_signature(pred.name)
+        if sig is not None:
+            # typed-signature functions (UDFs + string builtins):
+            # literal args coerce into each parameter's lane domain
+            _out_f, arg_fs = sig
+            args = [
+                _lane_lit(a, f, strings)
+                if isinstance(a, P.Literal) and f is not None
+                else a
+                for a, f in zip(args, list(arg_fs) + [None] * len(args))
+            ]
+        if pred.name in ("between", "in") and args:
+            f = _field_of(env, args[0]) if isinstance(args[0], P.Ident) else None
+            if f is not None:
+                if pred.name == "between" and f.dtype in (
+                    DataType.VARCHAR,
+                    DataType.JSONB,
+                ):
+                    raise NotImplementedError(
+                        f"{f.dtype.name} BETWEEN: dictionary codes are "
+                        "not collation-ordered"
+                    )
+                args = [args[0]] + [
+                    _lane_lit(a, f, strings) if isinstance(a, P.Literal) else a
+                    for a in args[1:]
+                ]
+        return P.FuncCall(pred.name, tuple(args), distinct=pred.distinct)
+    if isinstance(pred, P.CaseExpr):
+        return P.CaseExpr(
+            tuple(
+                (_rewrite_pred(c, env, strings), _rewrite_pred(v, env, strings))
+                for c, v in pred.branches
+            ),
+            _rewrite_pred(pred.default, env, strings)
+            if pred.default is not None
+            else None,
+        )
+    return pred
+
+
+def _check_collation(select: P.Select, env, out_fields) -> None:
+    """Dictionary codes are equality-complete but NOT ordered: min/max
+    and ORDER BY over VARCHAR/JSONB would return the insertion-order
+    winner as if it were the collation winner — refuse loudly instead
+    (array/dictionary.py documents the limitation)."""
+    dict_types = (DataType.VARCHAR, DataType.JSONB)
+    for item in select.items:
+        e = item.expr
+        if (
+            isinstance(e, P.FuncCall)
+            and e.name in ("min", "max")
+            and e.args
+            and isinstance(e.args[0], P.Ident)
+        ):
+            f = _field_of(env, e.args[0])
+            if f is not None and f.dtype in dict_types:
+                raise NotImplementedError(
+                    f"{e.name}() over {f.dtype.value} is not supported: "
+                    "dictionary codes are not collation-ordered"
+                )
+    for ident, _desc in select.order_by:
+        f = out_fields.get(ident.name) or _field_of(env, ident)
+        if f is not None and f.dtype in dict_types:
+            raise NotImplementedError(
+                f"ORDER BY {ident.name} ({f.dtype.value}) is not "
+                "supported: dictionary codes are not collation-ordered"
+            )
+
+
+def _names_of_rel(rel, catalog, strict: bool) -> list:
+    """Output column NAMES of a FROM clause. Name-complete even where
+    TYPES are uninferrable (star expansion needs names only — the
+    best-effort type env would silently drop expression columns)."""
+    if isinstance(rel, P.TableRef):
+        sch = catalog.tables.get(rel.name)
+        if sch is None:
+            return []
+        if getattr(catalog, "is_mv", lambda n: False)(rel.name):
+            # MV schemas carry PLANNER-hidden lanes (_row_id, hidden
+            # join keys) — those stay hidden; base-table underscore
+            # columns are user-created and expand normally
+            return [n for n in sch.names if not n.startswith("_")]
+        return list(sch.names)
+    if isinstance(rel, P.Join):
+        return _names_of_rel(rel.left, catalog, strict) + _names_of_rel(
+            rel.right, catalog, strict
+        )
+    if isinstance(rel, P.SubQuery):
+        inner = expand_star(rel.select, catalog, strict=False)
+        out = []
+        for i, it in enumerate(inner.items):
+            if isinstance(it.expr, P.Star):
+                return []  # inner couldn't expand: names unknown
+            if it.alias:
+                out.append(it.alias)
+            elif isinstance(it.expr, P.Ident):
+                out.append(it.expr.name)
+            elif isinstance(it.expr, P.FuncCall):
+                out.append(f"{it.expr.name}_{i}")
+            elif isinstance(it.expr, P.WindowFuncCall):
+                out.append(f"{it.expr.func.name}_{i}")
+            elif strict:
+                raise ValueError(
+                    "SELECT * over a derived table with unnamed "
+                    "expression columns: alias them"
+                )
+            else:
+                return []
+        return out
+    if isinstance(rel, P.WindowTVF):
+        return _names_of_rel(rel.table, catalog, strict) + [
+            "window_start",
+            "window_end",
+        ]
+    return []
+
+
+def expand_star(select: P.Select, catalog, strict: bool = True) -> P.Select:
+    """SELECT * -> explicit Ident items in relation column order
+    (binder star expansion, binder/select.rs). ``strict=False``
+    returns the select unchanged when the relation's columns are
+    unknown (inner derived tables during best-effort inference).
+    Catalog schemas list user-visible columns only, so hidden planner
+    lanes never expand — including user columns that happen to start
+    with an underscore."""
+    if not any(isinstance(it.expr, P.Star) for it in select.items):
+        return select
+    names = _names_of_rel(select.from_, catalog, strict)
+    if not names:
+        if not strict:
+            return select
+        raise ValueError("SELECT *: unknown relation columns")
+    items = []
+    for it in select.items:
+        if isinstance(it.expr, P.Star):
+            items.extend(P.SelectItem(P.Ident(n), None) for n in names)
+        else:
+            items.append(it)
+    import dataclasses
+
+    return dataclasses.replace(select, items=tuple(items))
+
+
+def typecheck_select(select: P.Select, catalog, strings=None) -> P.Select:
+    """Type-directed pass run before planning/execution: rewrites
+    DECIMAL/VARCHAR/JSONB literals into the lane domain and rejects
+    unordered-dictionary min/max/ORDER BY. Recurses into derived
+    tables."""
+    select = expand_star(select, catalog)
+    new_from = _typecheck_rel(select.from_, catalog, strings)
+    env = _env_of_rel(new_from, catalog)
+    where = (
+        _rewrite_pred(select.where, env, strings)
+        if select.where is not None
+        else None
+    )
+    items = tuple(
+        P.SelectItem(_rewrite_pred(i.expr, env, strings), i.alias)
+        for i in select.items
+    )
+    out = P.Select(
+        items=items,
+        from_=new_from,
+        where=where,
+        group_by=select.group_by,
+        order_by=select.order_by,
+        limit=select.limit,
+        grouping_sets=select.grouping_sets,
+        distinct=select.distinct,
+    )
+    out_fields = infer_output_fields(out, catalog)
+    if select.having is not None:
+        # HAVING references OUTPUT names; group KEYS keep their source
+        # lane domains (DECIMAL scaling, dictionary codes), so literals
+        # rewrite against the inferred output fields
+        import dataclasses
+
+        out = dataclasses.replace(
+            out,
+            having=_rewrite_pred(select.having, out_fields, strings),
+        )
+    _check_collation(out, env, out_fields)
+    return out
+
+
+def _typecheck_rel(rel, catalog, strings=None):
+    if isinstance(rel, P.SubQuery):
+        return P.SubQuery(
+            typecheck_select(rel.select, catalog, strings), rel.alias
+        )
+    if isinstance(rel, P.Join):
+        return P.Join(
+            _typecheck_rel(rel.left, catalog, strings),
+            _typecheck_rel(rel.right, catalog, strings),
+            rel.on,
+            rel.join_type,
+        )
+    return rel

@@ -2,7 +2,9 @@
 ``risingwave_tpu``, runs q5, q8, q7 (with watermarks) and q19 (both
 TopN executors), an unnest into an Expand and the host MV (both
 backends) on the CPU when asked to, commits and recovers q5 through its
-own storage layer, runs q5 evicting its agg after every commit, and refuses to fall back to the CPU when CUDA is asked for but absent.
+own storage layer, runs q5 evicting its agg after every commit, plans
+q5 from SQL and runs it through the actor graph at parallelism 2, and
+refuses to fall back to the CPU when CUDA is asked for but absent.
 
 A subprocess is needed because tests/conftest.py imports jax into every
 pytest process.
@@ -43,7 +45,9 @@ for m in ("runtime.fused_step", "executors.epoch_batch", "integrity", "executors
           "executors.simple_agg", "array.composite", "array.arrow", "executors.project_set",
           "executors.expand", "executors.temporal_join", "executors.generators",
           "executors.troublemaker", "executors.sort", "executors.over_window",
-          "ops.cold_tier", "native", "executors.materialize"):
+          "ops.cold_tier", "native", "executors.materialize", "sql.parser", "sql.optimizer",
+          "sql.typing", "sql.planner", "executors.lookup", "runtime.graph",
+          "runtime.fragmenter"):
     assert "risingwave_tpu_torch." + m in mods, m
 assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
 
@@ -174,8 +178,28 @@ for _ in range(2):
     assert cold.agg.evict_cold() > 0
 assert cold.mview.snapshot() == snap and cold.agg.cold_counts["merged"] > 0
 
+from risingwave_tpu_torch.connectors.nexmark import BID_SCHEMA
+from risingwave_tpu_torch.runtime.fragmenter import graph_planned_mv
+from risingwave_tpu_torch.sql import Catalog, StreamPlanner
+
+Q5 = ("CREATE MATERIALIZED VIEW q5 AS SELECT auction, window_start, count(*) AS num "
+      "FROM HOP(bid, date_time, INTERVAL '2' SECOND, INTERVAL '10' SECOND) "
+      "GROUP BY auction, window_start")
+sql_cat = Catalog({"bid": BID_SCHEMA})
+planned = graph_planned_mv(lambda: StreamPlanner(sql_cat, capacity=1 << 10, device="cpu"), Q5,
+                           parallelism=2)
+gen = NexmarkGenerator(NexmarkConfig(first_event_rate=50_000))
+try:
+    for _ in range(2):
+        planned.pipeline.push(gen.next_chunks(400, 400, device="cpu")["bid"])
+        planned.pipeline.barrier()
+finally:
+    planned.pipeline.close()
+assert planned.mview.snapshot() == snap
+
 assert not torch.cuda.is_available()
 for make in (lambda: build_q5_lite(), lambda: build_q8(), lambda: build_q7(),
+             lambda: StreamPlanner(sql_cat).plan(Q5),
              lambda: build_q19(), lambda: build_q19_append_only(),
              lambda: NexmarkGenerator().next_chunks(10, 16),
              lambda: NowExecutor(), lambda: SortExecutor("t", {"t": torch.int64})):

@@ -1,5 +1,5 @@
 """The CUDA wrappers of kernels H, J, L, M, N, O, P, Q, S, T, U, V, W, X,
-Y, Z, AA-AF and AG marshal their arguments as their C entry points
+Y, Z, AA-AF, AG and AH marshal their arguments as their C entry points
 declare them (``_kernels.SIGNATURES``), checked on the CPU: each
 wrapper runs on CPU tensors while ``_kernels.call`` is replaced by a
 ``ctypes.CFUNCTYPE`` callback of the entry point's signature, so a
@@ -628,3 +628,22 @@ def test_ag_entries_marshal(calls):
         ct.cold_merge([ct.MergeLane("x", torch.zeros(cap), ct.MIN)],
                       torch.arange(2, dtype=torch.int32), {"x": np.zeros(2)}, st.row_count,
                       table.live)
+
+
+def test_ah_entries_marshal(calls):
+    from risingwave_tpu_torch.ops import hashing
+
+    n = 16
+    k64 = torch.arange(n, dtype=torch.int64)
+    wide = torch.zeros((n, 3), dtype=torch.float64)  # a strided lane
+    valid = torch.ones(n, dtype=torch.bool)
+    vn = hashing._vnode_of_cuda([k64, wide[:, 1]])
+    assert vn.shape == (n,) and vn.dtype == torch.int32
+    masks = hashing._vnode_dispatch_cuda([k64, torch.zeros(n, dtype=torch.bool)], valid, 4)
+    assert masks.shape == (4, n) and masks.dtype == torch.bool
+    with pytest.raises(TypeError):  # no plain fallback for a lane AH does not take
+        hashing._vnode_of_cuda([torch.zeros(n, dtype=torch.int16)])
+    with pytest.raises(ValueError):
+        hashing._vnode_dispatch_cuda([k64[:8]], valid, 2)
+    assert calls == [("vnode_dispatch", "rw_vnode_of"), ("vnode_dispatch", "rw_vnode_dispatch")]
+    assert _kernels.LAUNCHES["vnode_of"] == 1 and _kernels.LAUNCHES["vnode_dispatch"] == 1
