@@ -222,11 +222,12 @@ Phases, each printing one JSON line:
   32. q5 (hop, COUNT(*) 2^24, a device MV and a host MV beside it) under
      a device budget of a quarter of the un-evicted run's state: a
      commit into a LocalFsObjectStore after every barrier, then
-     ``evict_cold`` on the agg, over phase 4's first 10 epochs, both
-     ways; at every barrier the MV's kernel-H digest equals the
-     un-evicted run's and the host MV the device MV; re-created groups
-     merge back (kernel AG's merge); the interpreted run is killed after
-     barrier 6's eviction and recovered (phase 16's kill of 32); the
+     ``evict_cold`` on the agg, over phase 4's first 6 epochs
+     (``COLD_EPOCHS``), both ways; at every barrier the MV's kernel-H
+     digest equals the un-evicted run's and the host MV the device MV;
+     re-created groups merge back (kernel AG's merge); the interpreted
+     run is killed after barrier 4's eviction (``COLD_KILL_AT``) and
+     recovered (phase 16's kill of 32); the
      store's point reads of every group equal the un-evicted agg's lanes;
   33. q8 under a budget over phase 7's events cut into epochs that end
      mid-window, a watermark 4 s behind after every eviction: both join
@@ -259,6 +260,29 @@ Phases, each printing one JSON line:
   with AH (vnode_of on every key dtype, the dispatch masks for 2-4
   downstreams) in phase 3 and phase 16's q5 from SQL killed at 4 actors
   and recovered at 3 (every restored row routed by AH's vnode_of).
+  38. q5 from SQL through ``sharded_planned_mv`` (the agg and the MV
+     stacked over a mesh on the card, rows exchanged by kernel AI) over
+     phase 4's chunks at 4 and 8 shards: the MV against the oracle and
+     phase 4's MV, every shard owning groups, their sum the MV's rows,
+     the routed rows summing to the valid hopped rows, no latch set;
+  39. q8 from SQL sharded at 4 over phase 7's events (the MV against the
+     q8 actor and phase 7's MV), and beside it a run committed after
+     every barrier, killed after barrier 6 of 10 and recovered at 8
+     shards (every restored row routed by vnode), equal to the
+     uninterrupted run at every barrier after;
+  40. q7 from SQL sharded at 4 (the MAX agg's stacked flush into the
+     sharded join, a sharded MV) over phase 9's first chunk against the
+     q7 actor; the next chunk overflows the join side as the serial
+     plan's does;
+  41. q19's retractable GroupTopN sharded at 4 (RowIdGen, StackSplit,
+     ShardedGroupTopN, q19's device MV) over phase 21's chunks, the MV's
+     kernel-H digest equal to phase 21's at every barrier;
+  with AI (q5's hopped chunks stacked at 4 shards and split 8 ways, every
+  key dtype, a nullable key, a chunk past its bucket) in phase 3. Each
+  sharded phase prints rows/s, barrier p50/p99, peak bytes, AI's
+  launches, launches and flush rounds per barrier and the rows each
+  shard received. Phases 32-34 run 6 epochs (the kill after barrier 4)
+  since phases 38-41 came.
 Phase 16 also kills and recovers q19 and q105 (after phase 23), q102
 (after phase 24), phases 25 and 26 (after q5-max's kill) and phase 28
 (after phase 28). Then a ``{"kernels": [...]}`` line, the nvidia-smi name/power line, and
@@ -274,6 +298,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from collections import Counter
 
 import numpy as np
@@ -4391,14 +4416,21 @@ def kill_and_recover(torch, dev, spec: KillSpec):
         shutil.rmtree(store_dir, ignore_errors=True)
 
 
+def q5_epochs_oracle(ep):
+    """q5's numpy oracle over the epochs ``ep`` of phase 4's chunks."""
+    from risingwave_tpu_torch.queries.nexmark_q import Q5_SLIDE_MS, Q5_WINDOW_MS
+
+    lane = lambda name: np.concatenate([c.col(name)[c.valid].cpu().numpy() for e in ep for c in e])
+    return q5_oracle(lane("auction"), lane("date_time"), Q5_WINDOW_MS, Q5_SLIDE_MS)
+
+
 def kill_q5(torch, dev, chunks, cap):
     """Phase 16's q5: phase 4's first KILL_EPOCHS epochs, tables of phase
     4's sizes; also recovered into a fused run."""
-    from risingwave_tpu_torch.queries.nexmark_q import Q5_SLIDE_MS, Q5_WINDOW_MS, build_q5_lite
+    from risingwave_tpu_torch.queries.nexmark_q import build_q5_lite
 
     ep = chunks[:KILL_EPOCHS]
-    lane = lambda name: np.concatenate([c.col(name)[c.valid].cpu().numpy() for e in ep for c in e])
-    oracle = q5_oracle(lane("auction"), lane("date_time"), Q5_WINDOW_MS, Q5_SLIDE_MS)
+    oracle = q5_epochs_oracle(ep)
 
     def drive(q, e):
         for c in ep[e]:
@@ -5629,9 +5661,12 @@ def q19_paths(torch, dev, chunks):
         for c in ep:
             pipe.push(c)
 
+    per_barrier = []
+
     def after(e):
         digs = {k: mv_digest(q.mview) for k, q in qs.items()}
         check(len(set(digs.values())) == 1, f"q19 barrier {e}: the four MVs' digests {digs}")
+        per_barrier.append(digs["q19"])
         if e not in Q19_CHECKS:
             return
         parts = host[oracle["upto"]:e + 1] + ([oracle["top"]] if oracle["top"] else [])
@@ -5668,7 +5703,7 @@ def q19_paths(torch, dev, chunks):
                "oracle (per auction the 10 highest prices, ties to the earlier bid) at the "
                "checked barriers; staged MV digests = host_digest of the lanes read back; "
                "fused TopN state = interpreted")
-    return rows, launches.by
+    return rows, launches.by, per_barrier
 
 
 def q105_paths(torch, dev, host, chunks):
@@ -7833,8 +7868,10 @@ def af_ghost_case(torch, dev) -> dict:
 AG_Q5_LIVE = R_Q5_LIVE  # q5's agg at 2^24 slots after a commit (phase 4's mean)
 AG_HITS = 1 << 18  # re-created groups a barrier merges, every call kind and dtype
 AG_FAULT_KEYS = 4096  # evicted MAX windows faulted back in, with (K,) multiset rows
-COLD_EPOCHS = KILL_EPOCHS  # phases 32-34 at phase 16's depth
-COLD_KILL_AT = KILL_AT  # phase 16's kill of 32 and 33: after this barrier's eviction
+# phases 32-34 (and their kills) cut from phase 16's depth (10 epochs, the
+# kill after 6) for the script's time limit when phases 38-41 came
+COLD_EPOCHS = 6
+COLD_KILL_AT = 4  # the kill of 32 and 33: after this barrier's eviction
 COLD_BUDGET_SHARE = 4  # the budget: a quarter of the un-evicted run's state bytes
 # phase 33's watermark delay: RisingWave's Nexmark sources declare
 # WATERMARK FOR date_time AS date_time - INTERVAL '4' SECOND
@@ -8573,7 +8610,7 @@ def cold_paths(torch, dev, spec: ColdSpec) -> tuple:
     return rows, by
 
 
-def q5_cold(torch, dev, chunks, cap, q5_oracle10):
+def q5_cold(torch, dev, chunks, cap, q5_oracle_cold):
     """Phase 32: q5 (hop -> COUNT(*) by (auction, window_start) -> device
     MV, and a host MV beside it) over phase 4's first COLD_EPOCHS
     epochs, tables of phase 4's sizes."""
@@ -8590,12 +8627,12 @@ def q5_cold(torch, dev, chunks, cap, q5_oracle10):
         return np.stack([got["auction"], got["window_start"], got["num"]], 1)
 
     spec = ColdSpec("q5", lambda: build_q5_lite(capacity=cap, state_cleaning=False, device=dev),
-                    push, None, lambda q: q.mview, rows, np.stack(q5_oracle10, 1),
+                    push, None, lambda q: q.mview, rows, np.stack(q5_oracle_cold, 1),
                     sum(int(c.valid.sum()) for e in ep for c in e), host_mv=True)
     return cold_paths(torch, dev, spec)
 
 
-def q5_max_cold(torch, dev, chunks, cap, q5_oracle10):
+def q5_max_cold(torch, dev, chunks, cap, q5_oracle_cold):
     """Phase 34: q5-max over phase 4's first COLD_EPOCHS epochs with a
     watermark after every barrier's commit and eviction, phase 13's
     sizes."""
@@ -8612,7 +8649,7 @@ def q5_max_cold(torch, dev, chunks, cap, q5_oracle10):
                                                    minput_k=Q5MAX_K, device=dev),
                     push, lambda q, e: q.pipeline.watermark("date_time", ts[e]),
                     lambda q: q.mview, lambda q: q5_max_mv_rows(q.mview),
-                    q5_max_oracle(q5_oracle10), sum(int(c.valid.sum()) for e in ep for c in e))
+                    q5_max_oracle(q5_oracle_cold), sum(int(c.valid.sum()) for e in ep for c in e))
     return cold_paths(torch, dev, spec)
 
 
@@ -9214,6 +9251,497 @@ def kill_q5_graph(torch, dev, chunks, q5_oracle10):
 
 
 
+# -- the sharded path: kernel AI (phase 3), phases 38-41 ---------------------------
+SHARDS = (4, 8)  # phase 38's meshes
+SHARD_KILL = (4, 8)  # phase 39: run and killed at 4 shards, recovered at 8
+SHARD_Q8_CAP = 1 << 20  # phase 39's planner capacity: a join side's ~300,000 keys a shard
+SHARD_Q7_CAP = 1 << 18  # phase 40's: one 8,192-event chunk (Q7_CAP's sides, 4 times, need 21 GB)
+SHARD_TOPN = 4  # phase 41's mesh
+AI_TYPE_ROWS = 65_536  # the dtype cases' rows a source shard
+AI_SKEW_BUCKET = 4_096
+SHARD_Q5_KERNELS = ("exchange", "hop_expand", "lookup_or_insert", "agg_apply", "agg_flush",
+                    "mv_upsert")
+SHARD_Q8_KERNELS = ("exchange", "hop_expand", "lookup_or_insert", "dedup_emit", "join_apply",
+                    "join_probe", "mv_upsert")
+SHARD_Q7_KERNELS = ("exchange", "hop_expand", "lookup_or_insert", "agg_apply", "agg_flush",
+                    "join_apply", "join_probe", "mv_upsert")
+SHARD_TOPN_KERNELS = ("exchange", "lookup_or_insert", "topn_upsert", "group_topk",
+                      "gather_rows", "mv_upsert")
+
+
+def ai_bytes(chunk, out, keys) -> int:
+    """Kernel AI's bytes: each input lane's storage read once (a
+    broadcast lane once), the keys too where they are not lanes, each
+    output lane and ``valid`` written once, the counts and flags."""
+    seen, total = set(), 0
+    for a in list(chunk.columns.values()) + list(chunk.nulls.values()) + [chunk.ops,
+                                                                         chunk.valid] + list(keys):
+        p = a.untyped_storage().data_ptr()
+        if p in seen:
+            continue
+        seen.add(p)
+        total += a.untyped_storage().nbytes()
+    received, overflow, counts = out
+    for a in (list(received.columns.values()) + list(received.nulls.values())
+              + [received.ops, received.valid, overflow, counts]):
+        total += a.numel() * a.element_size()
+    return total
+
+
+def kernel_ai(torch, dev, chunks):
+    """AI against its plain version on the card, bit for bit (every
+    received lane, valid, counts, flags): q5's hopped chunks stacked 4
+    deep at 4 shards (four distinct 327,680-row chunks) and split 8 ways
+    as the plan's StackSplit does (one chunk broadcast, stride 0);
+    int64, int32, float64 (-0.0, NaNs), float32 and bool keys and a
+    nullable int64 key as the agg builds it; a chunk whose rows all go
+    to one shard, past a bucket of AI_SKEW_BUCKET (flags set, the sink
+    writes nothing). Times the two q5 shapes; the library point is
+    ``torch.sort(stable=True)`` of the destination lane."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk, stack_chunks
+    from risingwave_tpu_torch.executors.hop_window import hop_step_fn
+    from risingwave_tpu_torch.parallel import exchange as X
+    from risingwave_tpu_torch.parallel.sharded_agg import _stacked_key_lanes
+    from risingwave_tpu_torch.queries.nexmark_q import Q5_SLIDE_MS, Q5_WINDOW_MS
+    from risingwave_tpu_torch.runtime.fragmenter import StackSplitExecutor
+
+    def compare(chunk, keys, n, bc, what):
+        got = X.exchange_chunk(chunk, keys, n, bc)
+        lanes = X.exchange_cols(chunk)
+        bufs, vbuf, ovf, cnt = X._exchange_torch(lanes, chunk.valid, keys, n, bc)
+        rec, flag, counts = got
+        for name, want in bufs.items():
+            have = (rec.ops if name == "__ops__" else rec.nulls[name[8:]]
+                    if name.startswith("__null__") else rec.columns[name])
+            check(have.dtype == want.dtype and torch.equal(
+                have.view(torch.uint8) if have.dtype != torch.bool else have,
+                want.view(torch.uint8) if want.dtype != torch.bool else want),
+                f"AI {what}: lane {name} bit for bit")
+        check(torch.equal(rec.valid, vbuf), f"AI {what}: valid")
+        check(torch.equal(counts, cnt) and torch.equal(flag, ovf), f"AI {what}: counts, flags")
+        check(int(rec.valid.sum()) == int(torch.minimum(cnt, torch.tensor(bc, device=dev)).sum()),
+              f"AI {what}: every routed row in its bucket")
+        return got
+
+    hop = lambda c: hop_step_fn(c, "date_time", Q5_WINDOW_MS, Q5_SLIDE_MS, "window_start")
+    hopped = [hop(c) for c in chunks[0][:4]]
+    key_of = lambda st: (st.col("auction"), st.col("window_start"))
+    cases = []
+    st4 = stack_chunks(hopped)
+    bc4 = X.default_bucket_cap(st4.valid.shape[1], 4)
+    cases.append(("q5 stacked 4x327680, 4 shards", st4, key_of(st4), 4, bc4))
+    (st8,) = StackSplitExecutor(8).apply(hopped[0])
+    bc8 = X.default_bucket_cap(st8.valid.shape[1], 8)
+    cases.append(("q5 split 8 ways, 8 shards", st8, key_of(st8), 8, bc8))
+    rng = np.random.default_rng(SEED + 38)
+    n = AI_TYPE_ROWS
+    for kd in ("int64", "int32", "float64", "float32", "bool", "nullable int64"):
+        per = []
+        for s in range(4):
+            if kd.startswith("float"):
+                k = rng.standard_normal(n).astype(kd)
+                k[:6] = [0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf]
+                k[6] = (np.array(0x7FC00123, np.uint32).view(np.float32) if kd == "float32"
+                        else np.array(0x7FF0000000000ABC, np.uint64).view(np.float64))
+            elif kd == "bool":
+                k = rng.random(n) < 0.5
+            elif kd == "int32":
+                k = rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)
+            else:
+                k = rng.integers(-(2**62), 2**62, n, dtype=np.int64)
+            rows = int(rng.integers(n // 2, n))
+            cols = {"k": k[:rows], "v": rng.standard_normal(rows).astype(np.float32),
+                    "w": rng.integers(0, 9, rows).astype(np.int32)}
+            nulls = {"v": rng.random(rows) < 0.2}
+            if kd.startswith("nullable"):
+                nulls["k"] = rng.random(rows) < 0.25
+            ops = rng.integers(0, 4, rows).astype(np.int32)
+            per.append(StreamChunk.from_numpy(cols, n, ops=ops, nulls=nulls, device=dev))
+        st = stack_chunks(per)
+        keys = _stacked_key_lanes(st, ("k",), (kd.startswith("nullable"),))
+        cases.append((f"{kd} key", st, keys, 4, X.default_bucket_cap(n, 4)))
+    skew = stack_chunks([StreamChunk.from_numpy(
+        {"k": np.full(n, 777, np.int64), "v": np.arange(n, dtype=np.int64)}, n, device=dev)
+        for _ in range(4)])
+    cases.append(("skewed past the bucket", skew, (skew.col("k"),), 4, AI_SKEW_BUCKET))
+    shapes = {}
+    for what, st, keys, n_sh, bc in cases:
+        rec, flag, counts = compare(st, keys, n_sh, bc, what)
+        if what.startswith("skewed"):
+            d = int(X._dest_shard_torch((skew.col("k")[:1, :1],), n_sh)[0, 0])
+            check(bool(flag.all()), "AI skewed: every source's flag set")
+            check(int(rec.valid[d].sum()) == n_sh * bc and int(rec.valid.sum()) == n_sh * bc,
+                  "AI skewed: the destination's buckets full, nothing past them")
+        shapes[what] = {"shards": n_sh, "rows": list(st.valid.shape), "bucket_cap": bc,
+                        "routed": int(counts.sum()), "received": int(rec.valid.sum())}
+    timed = {}
+    for what, st, keys, n_sh, bc in cases[:2]:
+        out = X.exchange_chunk(st, keys, n_sh, bc)
+        lanes = X.exchange_cols(st)
+        ms = time_ms(torch, lambda: X.exchange_chunk(st, keys, n_sh, bc), 20)
+        plain = time_ms(torch, lambda: X._exchange_torch(lanes, st.valid, keys, n_sh, bc), 3)
+        dest = X._dest_shard_torch(keys, n_sh).reshape(-1)
+        lib = time_ms(torch, lambda: torch.sort(dest, stable=True), 20)
+        timed[what] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": bound_ms(ai_bytes(st, out, keys))}
+    main = timed[cases[0][0]]
+    return {
+        "name": "AI exchange", "route": "cuda", "source": "risingwave_tpu_torch/csrc/exchange.cu",
+        "replaces": "risingwave_tpu/parallel/exchange.py:111", "max_abs_err": 0.0,
+        "bound_by": "bytes", **main,
+        "library_call": "torch.sort(stable=True) of the destination lane (a point: no single "
+                        "PyTorch call exchanges rows)",
+        "shape": {"cases": shapes, "timed": timed},
+    }
+
+
+def accumulate_exchange(ex, method: str = "apply"):
+    """Keep the routing counts of every exchange an executor runs (a list
+    append after each call of ``method``, the counts tensor the path made
+    anyway); ``routed_counts`` sums them after the run."""
+    seen = []
+    fn = getattr(ex, method)
+
+    def counted(*args):
+        out = fn(*args)
+        seen.append(ex.ex_counts_last)
+        return out
+
+    setattr(ex, method, counted)
+    return seen
+
+
+def routed_counts(torch, seen):
+    """The (n, n) routed rows summed over the exchanges ``seen``."""
+    return torch.stack(seen).to(torch.int64).sum(0)
+
+
+def sharded_of(mv, cls):
+    return [e for e in mv.pipeline.executors if isinstance(e, cls)]
+
+
+def run_sharded(torch, mv, epochs_data, push, after=None):
+    """Drive a sharded plan (``push(pipeline, epoch)``, a barrier, the card
+    drained), timed; ``after(e)`` runs after barrier ``e``, untimed, and
+    its launches are not the path's. Returns barrier ms, run seconds,
+    launches, peak bytes and, per barrier, the flush rounds of its
+    sharded aggs."""
+    from risingwave_tpu_torch import _kernels
+    from risingwave_tpu_torch.parallel import ShardedHashAgg
+
+    aggs = sharded_of(mv, ShardedHashAgg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    other = Counter()
+    barrier_ms, rounds, run_s = [], [], 0.0
+    for e, ep in enumerate(epochs_data):
+        t0 = time.perf_counter()
+        push(mv.pipeline, ep)
+        tb = time.perf_counter()
+        mv.pipeline.barrier()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        barrier_ms.append((t1 - tb) * 1e3)
+        run_s += t1 - t0
+        rounds.append([a.flush_rounds_last for a in aggs])
+        if after is not None:
+            before = dict(_kernels.LAUNCHES)
+            after(e)
+            other.update({k: v - before[k] for k, v in _kernels.LAUNCHES.items()})
+    launches = {k: v - other[k] for k, v in _kernels.LAUNCHES.items()}
+    return barrier_ms, run_s, launches, torch.cuda.max_memory_allocated(), rounds
+
+
+def sharded_row(phase, key, mv, n, barrier_ms, run_s, rows_in, launches, peak, rounds,
+                received, **extra):
+    per_barrier = len(barrier_ms)
+    return {
+        "phase": phase, "path": key, "shards": n,
+        "plan": [type(e).__name__ for e in mv.pipeline.executors],
+        "rows_per_s": rows_in / run_s, "run_s": run_s,
+        "barrier_ms_p50": float(np.percentile(barrier_ms, 50)),
+        "barrier_ms_p99": float(np.percentile(barrier_ms, 99)), "barrier_ms": barrier_ms,
+        "max_memory_allocated": int(peak), "ai_launches": launches["exchange"],
+        "launches_per_barrier": sum(launches.values()) / per_barrier,
+        "flush_rounds_per_barrier": rounds, "received_rows_per_shard": received,
+        "launches": launches, **extra,
+    }
+
+
+def q5_sharded_paths(torch, dev, chunks, oracle, q5_rows):
+    """Phase 38: q5 from SQL through ``sharded_planned_mv`` (bench.py's
+    planner capacity, as phase 35) over phase 4's chunks at 4 and 8
+    shards: the MV against the oracle and phase 4's MV, every shard owning
+    groups, the shards' groups summing to the MV's rows, the exchange's
+    routed rows summing to the valid hopped rows, no latch set."""
+    import gc
+
+    from risingwave_tpu_torch.parallel import ShardedHashAgg, ShardedMaterialize
+    from risingwave_tpu_torch.runtime.fragmenter import sharded_planned_mv
+
+    cap = state_cap(2 * EVENTS_PER_EPOCH, 1 << 16)
+    factory = sql_factory(dev, ("bid",), cap)
+    n_bids = sum(int(c.valid.sum()) for ep in chunks for c in ep)
+    want = sort_rows(np.stack(oracle, 1))
+    check(np.array_equal(q5_rows, want), "phase 38: phase 4's MV = the oracle")
+
+    def push(pipeline, ep):
+        for c in ep:
+            pipeline.push(c)
+
+    rows, launches = [], {}
+    for n in SHARDS:
+        key = f"q5_sharded_{n}"
+        mv = sharded_planned_mv(factory, Q5_SQL, n)
+        try:
+            (agg,) = sharded_of(mv, ShardedHashAgg)
+            (smv,) = sharded_of(mv, ShardedMaterialize)
+            check(mv.mview is smv and agg.stacked_out, f"{key}: the MV sharded, the agg's flush "
+                                                       "stacked into it")
+            routed = accumulate_exchange(agg)
+            barrier_ms, run_s, got_l, peak, rounds = run_sharded(torch, mv, chunks, push)
+            got = mv_table_rows(mv.mview, P25_NAMES)
+            check(np.array_equal(got, want), f"{key}: MV ({len(got)} rows) = the oracle and "
+                                             "phase 4's MV")
+            groups = agg.table.live.sum(1).tolist()
+            check(all(g > 0 for g in groups) and sum(groups) == len(got),
+                  f"{key}: every shard owns groups, their sum the MV's rows: {groups}")
+            check(sum(smv.shard_rows()) == len(got), f"{key}: the MV's shards sum to its rows")
+            counts = routed_counts(torch, routed)
+            check(int(counts.sum()) == 5 * n_bids, f"{key}: routed rows {int(counts.sum())} = "
+                                                   f"the valid hopped rows {5 * n_bids}")
+            check(not bool(agg.dropped.any() | smv.state.dropped.any()), f"{key}: no latch set")
+            check(got_l["exchange"] >= len([c for ep in chunks for c in ep]),
+                  f"{key}: AI once a chunk at least")
+            for name in SHARD_Q5_KERNELS:
+                check(got_l[name] > 0, f"{key}: kernel {name} launched")
+            launches[key] = got_l
+            rows.append(sharded_row(
+                "38", key, mv, n, barrier_ms, run_s, n_bids, got_l, peak, rounds,
+                counts.sum(0).tolist(), planner_capacity=cap, bids=n_bids,
+                groups=int(len(got)), groups_per_shard=groups, mv_rows_per_shard=smv.shard_rows(),
+                agg_capacity=agg.capacity, mv_capacity=smv.capacity,
+                oracle="numpy q5 oracle and phase 4's MV: equal"))
+        finally:
+            mv.pipeline.close()
+        del mv, agg, smv
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def q8_sharded_paths(torch, dev, host, chunks, oracle, rows7):
+    """Phase 39: q8 from SQL sharded at SHARD_KILL[0] over phase 7's
+    events. Run B, alone on the card, goes uninterrupted over all of them
+    (timed; its MV against the q8 actor and phase 7's MV at the end, its
+    MV digest kept at every barrier). Then run A goes over the first
+    KILL_EPOCHS, committing into a LocalFsObjectStore after every
+    barrier, is killed after barrier KILL_AT, recovered into a fresh plan
+    at SHARD_KILL[1] shards (every restored row routed by vnode, kernel
+    AH) and continued: its MV digest equals B's at every barrier, its
+    rows the q8 actor's over those epochs."""
+    import gc
+    import shutil
+    import tempfile
+
+    from risingwave_tpu_torch import _kernels, integrity
+    from risingwave_tpu_torch.parallel import ShardedHashJoin, ShardedMaterialize
+    from risingwave_tpu_torch.queries.nexmark_q import Q8_WINDOW_MS
+    from risingwave_tpu_torch.runtime.fragmenter import sharded_planned_mv
+    from risingwave_tpu_torch.storage import CheckpointManager, LocalFsObjectStore
+
+    factory = sql_factory(dev, ("person", "auction"), SHARD_Q8_CAP)
+    n_run, n_rec = SHARD_KILL
+    check(np.array_equal(rows7, oracle), "phase 39: phase 7's MV = the q8 actor")
+    want10 = oracle_rows(cpu_actor_q8(host[:KILL_EPOCHS], Q8_WINDOW_MS))
+
+    def push(pipeline, ep):
+        pipeline.push_left(ep[0])
+        pipeline.push_right(ep[1])
+
+    def digest(mv):
+        return integrity.digest_from_scalar(integrity.device_digest(*mv.mview.digest_lanes()))
+
+    store_dir = tempfile.mkdtemp(prefix="rw_shard_ckpt_")
+    a = b = None
+    try:
+        b = sharded_planned_mv(factory, Q8_SQL, n_run)
+        (join_b,) = sharded_of(b, ShardedHashJoin)
+        check(isinstance(b.mview, ShardedMaterialize), "q8 sharded: the MV sharded")
+        routed = accumulate_exchange(join_b, "_apply")
+        digests_b = []
+        barrier_ms, run_s, got_l, peak, rounds = run_sharded(
+            torch, b, chunks, push, after=lambda e: digests_b.append(digest(b)))
+        for name in SHARD_Q8_KERNELS:
+            check(got_l[name] > 0, f"q8 sharded: kernel {name} launched")
+        got = q8_sql_rows(b.mview)
+        check(got.shape == oracle.shape and np.array_equal(got, oracle),
+              f"q8 sharded: B's MV ({len(got)} rows) = the q8 actor and phase 7's MV")
+        join_capacity = join_b.left.row_valid.shape[1]
+        received = routed_counts(torch, routed).sum(0).tolist()
+        b.pipeline.close()
+        del b, join_b, routed
+        b = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        mgr = CheckpointManager(LocalFsObjectStore(store_dir))
+        rec = {"stage_ms": [], "sst_ms": [], "commit_ms": [], "rows": [], "bytes": []}
+        a = sharded_planned_mv(factory, Q8_SQL, n_run)
+        for e in range(KILL_AT):
+            push(a.pipeline, chunks[e])
+            a.pipeline.barrier()
+            timed_commit(torch, mgr, a.pipeline.epoch, a.pipeline.executors, rec)
+        check(digest(a) == digests_b[KILL_AT - 1], "q8 sharded: A = B before the kill")
+        pre = q8_sql_rows(a.mview)
+        a.pipeline.close()
+        del a
+        a = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        a = sharded_planned_mv(factory, Q8_SQL, n_rec)
+        before = _kernels.LAUNCHES["vnode_of"]
+        rec_a2 = timed_recover(torch, store_dir, a)
+        routed_restore = _kernels.LAUNCHES["vnode_of"] - before
+        a.pipeline._epoch = rec_a2["epoch"]
+        check(routed_restore > 0, "q8 sharded: the restore routed rows through AH's vnode_of")
+        check(np.array_equal(q8_sql_rows(a.mview), pre), "q8 sharded: recovered MV = pre-kill")
+        check(all(e.mesh.n_shards == n_rec for e in a.pipeline.executors if hasattr(e, "mesh")),
+              f"q8 sharded: recovered at {n_rec} shards")
+        for e in range(KILL_AT, KILL_EPOCHS):
+            push(a.pipeline, chunks[e])
+            a.pipeline.barrier()
+            check(digest(a) == digests_b[e], f"q8 sharded barrier {e + 1}: recovered = B")
+        got10 = q8_sql_rows(a.mview)
+        check(np.array_equal(got10, want10), f"q8 sharded: the recovered MV ({len(got10)} rows) "
+                                              f"= the q8 actor over {KILL_EPOCHS} epochs")
+        rows_in = sum(len(p["id"]) + len(a_["seller"]) for p, a_ in host)
+        pct = lambda xs, p: float(np.percentile(xs, p))  # noqa: E731
+        # the row's plan names come from the recovered plan, which has B's executors
+        row = sharded_row(
+            "39", f"q8_sharded_{n_run}", a, n_run,
+            barrier_ms, run_s, rows_in, got_l, peak, rounds, received,
+            planner_capacity=SHARD_Q8_CAP, mv_rows=int(len(got)), join_capacity=join_capacity,
+            peak_of="run B alone on the card (A and the recovered run come after it)",
+            kill={"epochs": KILL_EPOCHS, "kill_after_barrier": KILL_AT,
+                  "recovered_shards": n_rec, "vnode_of_launches": routed_restore,
+                  "commit_ms_p50": pct(rec["commit_ms"], 50),
+                  "commit_ms_p99": pct(rec["commit_ms"], 99),
+                  "rows_staged": rec["rows"], "bytes_staged": rec["bytes"], **rec_a2},
+            oracle="B: bench.py's cpu_actor_q8 (copied) and phase 7's MV; the recovered run: "
+                   "B's MV digest at every barrier after the kill, the actor over its epochs")
+        return [row], {f"q8_sharded_{n_run}": got_l}
+    finally:
+        for q in (a, b):
+            if q is not None:
+                q.pipeline.close()
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def q7_sharded_path(torch, dev, host, chunks):
+    """Phase 40: q7 from SQL sharded at SHARD_KILL[0] (the MAX agg's flush
+    stacked into the sharded join, a ShardedMaterialize tail, as the
+    reference plans it) over phase 9's first Q7_SQL_CHUNKS chunks, the
+    depth the plan holds (phase 37), against the q7 actor; the next chunk
+    overflows the join side as the serial plan's does."""
+    import gc
+
+    from risingwave_tpu_torch.parallel import ShardedHashAgg, ShardedMaterialize
+    from risingwave_tpu_torch.queries.nexmark_q import Q7_WINDOW_MS
+    from risingwave_tpu_torch.runtime.fragmenter import sharded_planned_mv
+
+    n = SHARD_KILL[0]
+    factory = sql_factory(dev, ("bid",), SHARD_Q7_CAP)
+    data = [[c] for c in chunks[0][:Q7_SQL_CHUNKS]]
+    want = actor_rows(cpu_actor_q7(host[0][:Q7_SQL_CHUNKS], Q7_WINDOW_MS))
+    rows_in = sum(len(c["auction"]) for c in host[0][:Q7_SQL_CHUNKS])
+
+    def push(pipeline, ep):
+        for c in ep:
+            pipeline.push_left(c)
+            pipeline.push_right(c)
+
+    mv = sharded_planned_mv(factory, Q7_SQL, n)
+    overflow = None
+    try:
+        (agg,) = sharded_of(mv, ShardedHashAgg)
+        check(agg.stacked_out and isinstance(mv.mview, ShardedMaterialize),
+              "q7 sharded: the MAX flush stacked into the join, the MV sharded")
+        barrier_ms, run_s, got_l, peak, rounds = run_sharded(torch, mv, data, push)
+        got = q7_mv_rows(mv.mview)
+        check(len(want) and got.shape == want.shape and np.array_equal(got, want),
+              f"q7 sharded: MV ({len(got)} rows) = the q7 actor")
+        for name in SHARD_Q7_KERNELS:
+            check(got_l[name] > 0, f"q7 sharded: kernel {name} launched")
+        push(mv.pipeline, [chunks[0][Q7_SQL_CHUNKS]])
+        try:
+            mv.pipeline.barrier()
+        except RuntimeError as e:
+            overflow = repr(e.__cause__)
+        check(overflow is not None and "overflowed" in overflow,
+              "q7 sharded: the next chunk overflows the join side as the serial plan's")
+    finally:
+        mv.pipeline.close()
+    row = sharded_row("40", f"q7_sharded_{n}", mv, n, barrier_ms, run_s, rows_in, got_l, peak,
+                      rounds, None, planner_capacity=SHARD_Q7_CAP, chunks=Q7_SQL_CHUNKS,
+                      mv_rows=int(len(got)), next_chunk=overflow,
+                      oracle="bench.py's cpu_actor_q7 (copied) over these chunks: equal")
+    del mv, agg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [row], {f"q7_sharded_{n}": got_l}
+
+
+def q19_sharded_path(torch, dev, chunks, want_digests):
+    """Phase 41: a retractable GroupTopN sharded at SHARD_TOPN, composed
+    as the reference's tests/test_sharded_top_n.py composes it (RowIdGen,
+    StackSplit, ShardedGroupTopN by auction, q19's device MV on the
+    diffs), over phase 21's chunks: the MV's kernel-H digest equals phase
+    21's q19 MV at every barrier, and the oracle's rows at the end."""
+    from risingwave_tpu_torch.executors.row_id_gen import RowIdGenExecutor
+    from risingwave_tpu_torch.parallel import ShardedGroupTopN, make_mesh
+    from risingwave_tpu_torch.queries.nexmark_q import BID_DTYPES, Q19_TOP, _q19_mview
+    from risingwave_tpu_torch.runtime.fragmenter import StackSplitExecutor
+    from risingwave_tpu_torch.runtime.pipeline import Pipeline
+
+    n = SHARD_TOPN
+    topn = ShardedGroupTopN(make_mesh(n, dev), ("auction",), "price", Q19_TOP, ("_row_id",),
+                            BID_DTYPES, desc=True, capacity=Q19_CAP // n,
+                            table_id="q19.gtopn")
+    mview = _q19_mview(Q19_MV_CAP, "q19.mview", dev)
+    pipe = Pipeline([RowIdGenExecutor(table_id="q19.rowid"), StackSplitExecutor(n), topn, mview])
+
+    planned = types.SimpleNamespace(pipeline=pipe)  # run_sharded's view of a plan
+    routed = accumulate_exchange(topn)
+    ranked = []
+
+    def push(p, ep):
+        for c in ep:
+            p.push(c)
+
+    def after(e):
+        ranked.append(topn.ranked_last)
+        check(mv_digest(mview) == want_digests[e], f"q19 sharded barrier {e + 1}: MV digest = "
+                                                   "phase 21's")
+
+    barrier_ms, run_s, got_l, peak, rounds = run_sharded(torch, planned, chunks, push, after)
+    host = q19_host(chunks)
+    want = q19_rows(q19_top({c: np.concatenate([h[c] for h in host]) for c in Q19_COLS}))
+    got = q19_rows(mview.to_numpy())
+    check(np.array_equal(got, want), f"q19 sharded: MV ({len(got)} rows) = the oracle")
+    for name in SHARD_TOPN_KERNELS:
+        check(got_l[name] > 0, f"q19 sharded: kernel {name} launched")
+    bids = sum(len(h["auction"]) for h in host)
+    row = sharded_row("41", f"q19_sharded_{n}", planned, n, barrier_ms, run_s, bids, got_l, peak,
+                      None, routed_counts(torch, routed).sum(0).tolist(),
+                      store_capacity=topn.capacity,
+                      shards_ranked_per_barrier=ranked, mv_rows=int(len(got)),
+                      oracle="phase 21's q19 MV digest at every barrier; the numpy oracle at "
+                             "the end")
+    return [row], {f"q19_sharded_{n}": got_l}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--profile", type=int, default=0, metavar="EPOCHS",
@@ -9334,6 +9862,14 @@ def main() -> int:
     for r in rows35:
         emit(r)
     torch.cuda.empty_cache()
+    # phase 3's AI and phase 38 (q5 from SQL on the mesh) on phase 4's stream
+    ai_row = kernel_ai(torch, dev, chunks)
+    emit({"phase": "kernel", **ai_row})
+    torch.cuda.empty_cache()
+    rows38, l38 = q5_sharded_paths(torch, dev, chunks, oracle, q5_rows)
+    for r in rows38:
+        emit(r)
+    torch.cuda.empty_cache()
     # phases 25 and 26 take phase 4's stream too
     rows25, l25 = p25_paths(torch, dev, chunks, cap, q5_rows)
     for r in rows25:
@@ -9370,11 +9906,13 @@ def main() -> int:
     emit(k5m_row)
     torch.cuda.empty_cache()
     # phases 32 and 34 (the cold tier; 32's kill is phase 16's) on phase 4's stream
-    rows32, l32 = q5_cold(torch, dev, chunks, cap, q5_oracle10)
+    q5_oracle_cold = q5_epochs_oracle(chunks[:COLD_EPOCHS])
+    rows32, l32 = q5_cold(torch, dev, chunks, cap, q5_oracle_cold)
     for r in rows32:
         emit(r)
     torch.cuda.empty_cache()
-    rows34, l34 = q5_max_cold(torch, dev, chunks, cap, q5_oracle10)
+    rows34, l34 = q5_max_cold(torch, dev, chunks, cap, q5_oracle_cold)
+    del q5_oracle_cold
     for r in rows34:
         emit(r)
     torch.cuda.empty_cache()
@@ -9401,9 +9939,14 @@ def main() -> int:
     emit({"phase": "kernel", **v19_row})
     emit({"phase": "kernel", **x_row})
     torch.cuda.empty_cache()
-    rows21, l21 = q19_paths(torch, dev, chunks[:Q19_EPOCHS])
+    rows21, l21, q19_digests = q19_paths(torch, dev, chunks[:Q19_EPOCHS])
     for r in rows21:
         emit(r)
+    torch.cuda.empty_cache()
+    rows41, l41 = q19_sharded_path(torch, dev, chunks[:Q19_EPOCHS], q19_digests)
+    for r in rows41:
+        emit(r)
+    del q19_digests
     torch.cuda.empty_cache()
     k19_row, l16_q19 = kill_q19(torch, dev, chunks)
     emit(k19_row)
@@ -9467,6 +10010,10 @@ def main() -> int:
     rows36, l36 = q8_graph_paths(torch, dev, host, q8_chunks, q8_oracle, q8_rows7)
     for r in rows36:
         emit(r)
+    torch.cuda.empty_cache()
+    rows39, l39 = q8_sharded_paths(torch, dev, host, q8_chunks, q8_oracle, q8_rows7)
+    for r in rows39:
+        emit(r)
     del q8_rows7
     if args.profile:
         torch.cuda.empty_cache()
@@ -9501,6 +10048,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows37, l37 = q7_graph_paths(torch, dev, q7_host, q7_chunks)
     for r in rows37:
+        emit(r)
+    torch.cuda.empty_cache()
+    rows40, l40 = q7_sharded_path(torch, dev, q7_host, q7_chunks)
+    for r in rows40:
         emit(r)
     del q7_host, q7_chunks, interp_rec
     torch.cuda.empty_cache()
@@ -9594,7 +10145,7 @@ def main() -> int:
             (ae_row, "window_calls"), (ae_gen_row, "window_order"), (ap_row, "over_apply"),
             (df_row, "over_diff")] + list(zip(ag_rows, ("cold_select", "cold_merge",
                                                          "scatter_rows"))) + list(zip(
-                ah_rows, ("vnode_dispatch", "vnode_of")))
+                ah_rows, ("vnode_dispatch", "vnode_of"))) + [(ai_row, "exchange")]
     paths = {"q5": l4, "q5_fused": l6, "q8": l7, "q8_fused": l8, "q7": l9, "q7_fused": l10,
              "q101": l11, "q101_fused": l12, "q5_max": l13, "q5_max_fused": l14, **l15,
              "q5_recover": l16_q5, "q5_max_recover": l16_q5m, "q8_recover": l16_q8,
@@ -9603,9 +10154,10 @@ def main() -> int:
              **l21, "q19_recover": l16_q19, **l23, "q105_recover": l16_q105, **l24,
              "q102_recover": l16_q102, **l25, **l26, **l27, **l28, "p25_recover": l16_p25,
              "p26_recover": l16_p26, "p28_recover": l16_p28, **l29, **l30, **l31, **l16_win,
-             **l32, **l33, **l34, **l35, "q5_sql_graph_recover": l16_q5g, **l36, **l37}
+             **l32, **l33, **l34, **l35, "q5_sql_graph_recover": l16_q5g, **l36, **l37,
+             **l38, **l39, **l40, **l41}
     for row, key in rows:
-        # each main path's run counts from zero: phases 4, 6-37 (a path
+        # each main path's run counts from zero: phases 4, 6-41 (a path
         # of a phase that drives several in lockstep counts its own calls)
         row["launches_by_path"] = {p: counts[key] for p, counts in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())

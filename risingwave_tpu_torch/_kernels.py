@@ -11,7 +11,7 @@ Each wrapper passes tensor pointers and PyTorch's current stream, and
 raises if the C entry point returns a CUDA error. ``LAUNCHES`` counts,
 per kernel, the calls of its C entry points on the card: one per call of
 A, C, D, E, F, G, H, J, L, M, N, O, P, Q, R, S, T, U, V, W, X, Y, Z,
-AA, AB, AC, AD, AE, AF, AG and AH (an entry point may launch several kernels in order on the stream),
+AA, AB, AC, AD, AE, AF, AG, AH and AI (an entry point may launch several kernels in order on the stream),
 two per call of B (the apply and its set_live), one per 24 lanes moved
 by a call of I; the entry points of ``ENTRY_KEYS`` count under their
 own names (S's ``rw_project`` under ``expr_eval``, its ``rw_filter``
@@ -87,6 +87,7 @@ SOURCES = {
     "over_diff": "over_diff.cu",
     "cold_tier": "cold_tier.cu",
     "vnode_dispatch": "vnode.cu",
+    "exchange": "exchange.cu",
 }
 
 # C entry points: (argtypes,) — every pointer and the stream as c_void_p
@@ -215,6 +216,9 @@ SIGNATURES = {
     "vnode_dispatch": {
         "rw_vnode_of": [_P, _I, _L, _P, _P],
         "rw_vnode_dispatch": [_P, _I, _L, _P, _I, _P, _P],
+    },
+    "exchange": {
+        "rw_exchange": [_P, _I, _P, _I, _I, _L, _L, _P, _L, _P, _P, _P, _P, _P, _P],
     },
 }
 

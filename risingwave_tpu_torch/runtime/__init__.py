@@ -1,8 +1,10 @@
 """Runtime — epoch loop, pipelines, barriers, the actor graph.
 
 Port of ``risingwave_tpu/runtime/__init__.py``: the exports whose
-modules are ported. The streaming runtime, DML, source, notification
-and arrangement managers come with a later slice.
+modules are ported, and the fragmenter's two ways to run a plan
+(``graph_planned_mv`` over parallel actors, ``sharded_planned_mv`` over
+a mesh of stacked shards). The streaming runtime, DML, source,
+notification and arrangement managers come with a later slice.
 """
 
 from risingwave_tpu_torch.runtime.pipeline import Pipeline, TwoInputPipeline
@@ -13,6 +15,8 @@ __all__ = [
     "TwoInputPipeline",
     "fuse_chain",
     "fuse_pipeline",
+    "graph_planned_mv",
+    "sharded_planned_mv",
 ]
 
 # Lazy (PEP 562) exports: the fused per-barrier step imports the
@@ -23,6 +27,8 @@ _LAZY = {
     "FusedChainExecutor": ("risingwave_tpu_torch.runtime.fused_step", "FusedChainExecutor"),
     "fuse_chain": ("risingwave_tpu_torch.runtime.fused_step", "fuse_chain"),
     "fuse_pipeline": ("risingwave_tpu_torch.runtime.fused_step", "fuse_pipeline"),
+    "graph_planned_mv": ("risingwave_tpu_torch.runtime.fragmenter", "graph_planned_mv"),
+    "sharded_planned_mv": ("risingwave_tpu_torch.runtime.fragmenter", "sharded_planned_mv"),
 }
 
 

@@ -25,9 +25,14 @@ and re-expresses them as a ``GraphRuntime`` fragment graph —
 Port of the graph half of ``risingwave_tpu/runtime/fragmenter.py``
 (:56-503, :988-1242). A restore of a partitioned view routes every row
 with kernel AH's ``vnode_of`` on the instances' device, the hash the
-dispatcher's masks use. The sharded half (:506-890, ``StackSplit``,
-``Flatten``, ``sharded_planned_mv``) and ``fragment_chains`` come with
-later slices, and so do the freshness and mesh-profiler hooks.
+dispatcher's masks use.
+
+The sharded half (:506-890): ``StackSplitExecutor``, ``FlattenExecutor``
+and ``sharded_planned_mv`` swap a plan's keyed executors for their
+sharded twins (``parallel/``) over a mesh of stacked state, each
+exchanging its input by its own keys on the device (kernel AI).
+``fragment_chains`` and the freshness and mesh-profiler hooks are not
+ported (ROADMAP S8).
 """
 
 from __future__ import annotations
@@ -743,3 +748,287 @@ def _split_join(tp):
         f"{tid}.right": tuple(jpos),
     }
     return ldisp, rdisp, join_positions, side_positions
+
+
+# ---------------------------------------------------------------------------
+# sharded fragment mode: one actor per fragment with the parallelism
+# inside it -- stacked state over a mesh, the vnode exchange on the
+# device (kernel AI; parallel/sharded_*.py). Unlike the actor-parallel
+# mode, no dispatch column is traced: every sharded executor exchanges
+# its input by its OWN keys.
+# ---------------------------------------------------------------------------
+
+
+class StackSplitExecutor(Executor):
+    """Flat ``(cap,)`` chunk -> stacked ``(n, cap)`` chunk, shard ``i``
+    seeing rows ``i, i + n, i + 2n, ...`` (a round-robin source split):
+    every lane is the flat lane broadcast to the shards (a view), the
+    valid lane is one mask per shard. The sharded executor's exchange
+    routes rows by key, so the split only spreads the load."""
+
+    def __init__(self, n_shards: int):
+        self.n = n_shards
+
+    def apply(self, chunk: StreamChunk) -> List[StreamChunk]:
+        n, cap = self.n, chunk.valid.shape[-1]
+        idx = torch.arange(cap, device=chunk.valid.device)
+        shard = torch.arange(n, device=chunk.valid.device)[:, None]
+        valid = chunk.valid[None, :] & ((idx % n)[None, :] == shard)
+        bcast = lambda a: a.unsqueeze(0).expand((n,) + tuple(a.shape))  # noqa: E731
+        return [StreamChunk(
+            columns={k: bcast(v) for k, v in chunk.columns.items()},
+            valid=valid,
+            nulls={k: bcast(v) for k, v in chunk.nulls.items()},
+            ops=bcast(chunk.ops),
+        )]
+
+
+class FlattenExecutor(Executor):
+    """Stacked ``(n, cap)`` chunk -> flat ``(n * cap,)`` chunk (the host
+    boundary); a flat chunk passes as it is."""
+
+    def apply(self, chunk: StreamChunk) -> List[StreamChunk]:
+        from risingwave_tpu_torch.array.chunk import flatten_stacked
+
+        if chunk.valid.dim() == 1:
+            return [chunk]
+        return [flatten_stacked(chunk)]
+
+
+def _sharded_equiv(ex, mesh, stacked_out: bool = False):
+    """The sharded twin of a keyed single-chip executor under the SAME
+    table_id (one logical table either way); None when it uses what is
+    not sharded yet (window state cleaning, materialized MIN/MAX)."""
+    from risingwave_tpu_torch.executors.top_n_plain import RetractableGroupTopNExecutor
+    from risingwave_tpu_torch.parallel import ShardedDedup, ShardedGroupTopN, ShardedHashAgg
+
+    if isinstance(ex, HashAggExecutor):
+        if ex.window_key is not None or any(c.materialized for c in ex.calls):
+            return None
+        return ShardedHashAgg(
+            mesh, ex.group_keys, ex.calls, ex._dtypes, capacity=ex.table.capacity,
+            out_cap=ex.out_cap,
+            nullable_keys=tuple(k for k, nb in zip(ex.group_keys, ex.nullable) if nb),
+            table_id=ex.table_id, stacked_out=stacked_out,
+        )
+    if isinstance(ex, AppendOnlyDedupExecutor):
+        if ex.window_key is not None:
+            return None
+        return ShardedDedup(
+            mesh, ex.keys, {k: lane.dtype for k, lane in zip(ex.keys, ex.table.keys)},
+            capacity=ex.table.capacity, table_id=ex.table_id,
+        )
+    if isinstance(ex, RetractableGroupTopNExecutor):
+        if ex.window_key is not None:
+            return None
+        return ShardedGroupTopN(
+            mesh, ex.group_by, ex.order_col, ex.limit, ex.pk,
+            {n: ex._dtypes[n] for n in ex.names}, desc=ex.desc, capacity=ex.table.capacity,
+            table_id=ex.table_id,
+        )
+    return None
+
+
+def _shard_single_chain(chain, mesh):
+    """chain -> sharded chain, or None when the shape cannot shard:
+    stateless* + ONE keyed executor (swapped for its sharded twin after a
+    StackSplit) + anything (fed flat chunks as before)."""
+    from risingwave_tpu_torch.executors.row_id_gen import RowIdGenExecutor
+    from risingwave_tpu_torch.executors.top_n_plain import RetractableGroupTopNExecutor
+    from risingwave_tpu_torch.parallel import ShardedGroupTopN, ShardedHashAgg
+
+    keyed_idx = None
+    for j, ex in enumerate(chain):
+        if isinstance(ex, _KEYED + (RetractableGroupTopNExecutor,)):
+            keyed_idx = j
+            break
+        # RowIdGen is safe here: the prefix runs flat, before the split,
+        # so ids stay unique
+        if not isinstance(ex, _PARALLEL_STATELESS + (RowIdGenExecutor,)):
+            return None
+    if keyed_idx is None:
+        return None
+    sharded = _sharded_equiv(chain[keyed_idx], mesh)
+    if sharded is None:
+        return None
+    mid = [StackSplitExecutor(mesh.n_shards), sharded]
+    if not isinstance(sharded, (ShardedHashAgg, ShardedGroupTopN)):
+        # the dedup emits stacked chunks from apply; the agg and the
+        # GroupTopN emit host chunks at the barrier
+        mid.append(FlattenExecutor())
+    return list(chain[:keyed_idx]) + mid + list(chain[keyed_idx + 1:])
+
+
+def _shard_tail(tail, mesh, value_dtypes, value_nulls, capacity=None):
+    """A materializer tail as a pk-partitioned ``ShardedMaterialize``:
+    Col-only projects stay stacked, the MV partitions by pk, and a final
+    Flatten keeps the drained output flat. ``value_dtypes`` and
+    ``value_nulls`` describe the lanes arriving at the tail. Returns
+    ``(tail_chain, sharded_mv)`` or None (a nullable or unknown pk lane,
+    a computing project, no materializer at the end)."""
+    from risingwave_tpu_torch.executors.materialize import (
+        DeviceMaterializeExecutor,
+        MaterializeExecutor,
+    )
+    from risingwave_tpu_torch.parallel import ShardedMaterialize
+
+    if not tail:
+        return None
+    *pre, mat = tail
+    for ex in pre:
+        if not isinstance(ex, ProjectExecutor) or not all(
+            isinstance(e, E.Col) for _n, e in ex.outputs
+        ):
+            return None
+    renames: Dict[str, str] = {}  # output name -> source lane name
+    for ex in pre:
+        renames = {n: renames.get(e.name, e.name) for n, e in ex.outputs}
+    src_of = lambda n_: renames.get(n_, n_) if renames else n_  # noqa: E731
+    if isinstance(mat, DeviceMaterializeExecutor):
+        pk, columns = mat.pk, mat.columns
+        dtypes = dict(mat.dtypes)
+        nullable = tuple(mat.state.vnulls)
+        capacity = mat.table.capacity
+    elif isinstance(mat, MaterializeExecutor):
+        pk, columns = mat.pk, mat.columns
+        dtypes, nullable = {}, []
+        for n_ in pk + columns:
+            d = value_dtypes.get(src_of(n_))
+            if d is None:
+                return None
+            dtypes[n_] = d
+            if src_of(n_) in value_nulls:
+                if n_ in pk:
+                    return None  # a nullable pk: the host MV only
+                nullable.append(n_)
+        nullable = tuple(nullable)
+        # per-shard capacity follows the plan's sizing (the upstream
+        # join's), like every other sharded executor
+        capacity = capacity or (1 << 14)
+    else:
+        return None
+    smv = ShardedMaterialize(mesh, pk, columns, dtypes, table_id=mat.table_id,
+                             capacity=capacity, nullable=nullable)
+    return list(pre) + [smv, FlattenExecutor()], smv
+
+
+def sharded_planned_mv(planner_factory, sql: str, n_shards: int):
+    """Plan ``sql`` and run it as SHARDED fragments over a mesh of
+    ``n_shards`` shards: keyed state stacked, rows exchanged by kernel AI
+    -- the multi-shard execution mode. A shape that cannot shard falls
+    back to a single-actor graph. The mesh lives on the planner's device."""
+    from risingwave_tpu_torch.parallel import ShardedHashJoin, make_mesh
+    from risingwave_tpu_torch.sql.planner import PlannedMV
+
+    planner = planner_factory()
+    proto = planner.plan(sql)
+    mesh = make_mesh(n_shards, planner.device)
+    mview = proto.mview
+    if isinstance(proto.pipeline, TwoInputPipeline):
+        tp = proto.pipeline
+        left = _shard_side_chain(tp.left, mesh)
+        right = _shard_side_chain(tp.right, mesh)
+        if left is None or right is None:
+            gp = _two_input_graph([proto], None)
+        else:
+            join = tp.join
+            sj = ShardedHashJoin(
+                mesh, join.left_keys, join.right_keys,
+                {n_: a.dtype for n_, a in join.left.rows.items()},
+                {n_: a.dtype for n_, a in join.right.rows.items()},
+                capacity=join.left.capacity, fanout=join.left.fanout, out_cap=join.out_cap,
+                left_nullable=tuple(join.left.row_nulls),
+                right_nullable=tuple(join.right.row_nulls),
+                join_type=join.join_type, table_id=join.table_id,
+            )
+            tail = None
+            if join.join_type == "inner":
+                # outer joins add computed null lanes per emission side;
+                # only inner emissions carry exactly the declared
+                # nullable sets, so only those swap to the sharded MV
+                out_dtypes = {n_: a.dtype for n_, a in join.left.rows.items()}
+                out_dtypes.update({n_: a.dtype for n_, a in join.right.rows.items()})
+                out_nulls = set(join.left.row_nulls) | set(join.right.row_nulls)
+                tail = _shard_tail(tp.tail, mesh, out_dtypes, out_nulls,
+                                   capacity=join.left.capacity)
+            if tail is None:
+                tail_chain = [FlattenExecutor()] + list(tp.tail)
+            else:
+                tail_chain, mview = tail
+            build = {"left": left, "right": right, "join": sj, "tail": tail_chain}
+            specs = [
+                FragmentSpec("left_src", lambda i: []),
+                FragmentSpec("right_src", lambda i: []),
+                FragmentSpec("join", lambda i, b=build: dict(b),
+                             inputs=[("left_src", 0), ("right_src", 1)]),
+            ]
+            ckpt = left + right + [sj] + tail_chain
+            gp = GraphPipeline(specs, {"left": "left_src", "right": "right_src"}, "join",
+                               ckpt, ckpt_fragments=["join"] * len(ckpt))
+    else:
+        chain = _shard_single_chain(list(proto.pipeline.executors), mesh)
+        if chain is None:
+            gp = _singleton_graph(list(proto.pipeline.executors))
+        else:
+            swapped = _shard_single_tail(chain, mesh)
+            if swapped is not None:
+                chain, mview = swapped
+            specs = [FragmentSpec("mv", lambda i, c=tuple(chain): list(c))]
+            gp = GraphPipeline(specs, {"single": "mv"}, "mv", chain,
+                               ckpt_fragments=["mv"] * len(chain))
+    return PlannedMV(proto.name, gp, mview, proto.inputs, schema=proto.schema)
+
+
+def _shard_single_tail(chain, mesh):
+    """After ``_shard_single_chain``, keep the MV sharded too: [...,
+    ShardedHashAgg, (Flatten?), projects..., DeviceMaterialize] becomes
+    [..., agg (stacked flush), projects..., ShardedMaterialize,
+    Flatten]. Only the device MV swaps here (its dtypes and null lanes
+    are declared). Returns ``(chain, mview)`` or None."""
+    from risingwave_tpu_torch.parallel import ShardedHashAgg
+
+    agg_idx = next((j for j, ex in enumerate(chain) if isinstance(ex, ShardedHashAgg)), None)
+    if agg_idx is None:
+        return None
+    swapped = _shard_tail(chain[agg_idx + 1:], mesh, {}, set())
+    if swapped is None:
+        return None
+    tail_chain, smv = swapped
+    chain[agg_idx].stacked_out = True
+    return list(chain[:agg_idx + 1]) + tail_chain, smv
+
+
+def _shard_side_chain(chain, mesh):
+    """A join side shards when it is stateless* + at most ONE keyed
+    executor (an append-only dedup -> ShardedDedup; a windowless,
+    non-materialized HashAgg -> ShardedHashAgg whose flush stays stacked
+    and feeds the join: q7's per-window MAX side) + rename-only projects
+    (elementwise on stacked chunks). Returns the sharded chain or None."""
+    from risingwave_tpu_torch.executors.row_id_gen import RowIdGenExecutor
+
+    out = []
+    seen_keyed = False
+    for ex in chain:
+        if isinstance(ex, _KEYED):
+            if seen_keyed:
+                return None
+            sharded = _sharded_equiv(ex, mesh, stacked_out=isinstance(ex, HashAggExecutor))
+            if sharded is None:
+                return None
+            seen_keyed = True
+            out.append(StackSplitExecutor(mesh.n_shards))
+            out.append(sharded)
+        elif isinstance(ex, ProjectExecutor):
+            if seen_keyed and not all(isinstance(e, E.Col) for _n, e in ex.outputs):
+                return None  # only renames are stacked-safe
+            out.append(ex)
+        elif isinstance(ex, (FilterExecutor, HopWindowExecutor, RowIdGenExecutor)):
+            if seen_keyed:
+                return None  # flat-only executors before the keyed one only
+            out.append(ex)
+        else:
+            return None
+    if not seen_keyed:
+        # a stateless side: split right before the join's own exchange
+        out.append(StackSplitExecutor(mesh.n_shards))
+    return out

@@ -3,8 +3,8 @@
 TopN executors), an unnest into an Expand and the host MV (both
 backends) on the CPU when asked to, commits and recovers q5 through its
 own storage layer, runs q5 evicting its agg after every commit, plans
-q5 from SQL and runs it through the actor graph at parallelism 2, and
-refuses to fall back to the CPU when CUDA is asked for but absent.
+q5 from SQL and runs it through the actor graph at parallelism 2 and
+over a mesh of 2 shards (``parallel``), and refuses to fall back to the CPU when CUDA is asked for but absent.
 
 A subprocess is needed because tests/conftest.py imports jax into every
 pytest process.
@@ -47,7 +47,8 @@ for m in ("runtime.fused_step", "executors.epoch_batch", "integrity", "executors
           "executors.troublemaker", "executors.sort", "executors.over_window",
           "ops.cold_tier", "native", "executors.materialize", "sql.parser", "sql.optimizer",
           "sql.typing", "sql.planner", "executors.lookup", "runtime.graph",
-          "runtime.fragmenter"):
+          "runtime.fragmenter", "parallel", "parallel.exchange", "parallel.sharded_agg",
+          "parallel.sharded_join", "parallel.sharded_mv", "parallel.sharded_top_n"):
     assert "risingwave_tpu_torch." + m in mods, m
 assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
 
@@ -197,12 +198,29 @@ finally:
     planned.pipeline.close()
 assert planned.mview.snapshot() == snap
 
+import risingwave_tpu_torch.parallel as par
+from risingwave_tpu_torch.runtime import sharded_planned_mv
+
+assert not any(k.split(".")[0] in ("jax", "risingwave_tpu") for k in sys.modules)
+sharded = sharded_planned_mv(lambda: StreamPlanner(sql_cat, capacity=1 << 10, device="cpu"), Q5,
+                             2)
+assert any(isinstance(e, par.ShardedHashAgg) for e in sharded.pipeline.executors)
+gen = NexmarkGenerator(NexmarkConfig(first_event_rate=50_000))
+try:
+    for _ in range(2):
+        sharded.pipeline.push(gen.next_chunks(400, 400, device="cpu")["bid"])
+        sharded.pipeline.barrier()
+finally:
+    sharded.pipeline.close()
+assert sharded.mview.snapshot() == snap
+
 assert not torch.cuda.is_available()
 for make in (lambda: build_q5_lite(), lambda: build_q8(), lambda: build_q7(),
              lambda: StreamPlanner(sql_cat).plan(Q5),
              lambda: build_q19(), lambda: build_q19_append_only(),
              lambda: NexmarkGenerator().next_chunks(10, 16),
-             lambda: NowExecutor(), lambda: SortExecutor("t", {"t": torch.int64})):
+             lambda: NowExecutor(), lambda: SortExecutor("t", {"t": torch.int64}),
+             lambda: par.make_mesh(2)):
     try:
         make()
     except RuntimeError as e:

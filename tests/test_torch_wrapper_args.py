@@ -1,5 +1,5 @@
 """The CUDA wrappers of kernels H, J, L, M, N, O, P, Q, S, T, U, V, W, X,
-Y, Z, AA-AF, AG and AH marshal their arguments as their C entry points
+Y, Z, AA-AF, AG, AH and AI marshal their arguments as their C entry points
 declare them (``_kernels.SIGNATURES``), checked on the CPU: each
 wrapper runs on CPU tensors while ``_kernels.call`` is replaced by a
 ``ctypes.CFUNCTYPE`` callback of the entry point's signature, so a
@@ -647,3 +647,45 @@ def test_ah_entries_marshal(calls):
         hashing._vnode_dispatch_cuda([k64[:8]], valid, 2)
     assert calls == [("vnode_dispatch", "rw_vnode_of"), ("vnode_dispatch", "rw_vnode_dispatch")]
     assert _kernels.LAUNCHES["vnode_of"] == 1 and _kernels.LAUNCHES["vnode_dispatch"] == 1
+
+
+def test_ai_entry_marshals(calls):
+    from risingwave_tpu_torch.parallel import exchange
+
+    n, cap = 4, 40
+    key = torch.arange(n * cap, dtype=torch.int64).reshape(n, cap)
+    f32 = torch.zeros(cap, dtype=torch.float32).unsqueeze(0).expand(n, cap)  # a broadcast lane
+    valid = torch.ones((n, cap), dtype=torch.bool)
+    chunk = StreamChunk({"k": key, "f": f32}, valid, {"f": torch.zeros_like(valid)},
+                        torch.zeros((n, cap), dtype=torch.int32))
+    got, vbuf, overflow, counts = exchange._exchange_cuda(
+        exchange.exchange_cols(chunk), valid, (key, f32), n, 16)
+    assert got["k"].shape == vbuf.shape == (n, n * 16) and got["__ops__"].dtype == torch.int32
+    assert overflow.shape == (n,) and counts.shape == (n, n) and counts.dtype == torch.int32
+    with pytest.raises(TypeError):  # no plain fallback for a key lane AI does not take
+        exchange._exchange_cuda({"k": key}, valid, (key.to(torch.int16),), n, 16)
+    with pytest.raises(ValueError):
+        exchange._exchange_cuda({"k": key}, valid, (key[:, :8],), n, 16)
+    with pytest.raises(ValueError):
+        exchange._exchange_cuda({"k": key}, valid, (key,), exchange.MAX_SHARDS + 1, 16)
+    assert calls == [("exchange", "rw_exchange")]
+    assert _kernels.LAUNCHES["exchange"] == 1
+
+
+def test_ai_checks_every_lane(calls, monkeypatch):
+    """AI's wrapper hands ``check_cuda`` every lane it passes by pointer
+    (valid, each key, each source lane) and every output, so a chunk
+    that mixes devices raises before the launch."""
+    from risingwave_tpu_torch.parallel import exchange
+
+    seen = []
+    monkeypatch.setattr(_kernels, "check_cuda", lambda name, *ts, n=None: seen.extend(ts))
+    n, cap = 2, 8
+    key = torch.arange(n * cap, dtype=torch.int64).reshape(n, cap)
+    lanes = {"k": key, "v": torch.ones((n, cap), dtype=torch.int32)}
+    valid = torch.ones((n, cap), dtype=torch.bool)
+    got, _, _, _ = exchange._exchange_cuda(lanes, valid, (key, lanes["v"]), n, 8)
+    assert len(seen) == 1 + 2 + len(lanes) + len(got)
+    ptrs = {t.data_ptr() for t in seen}
+    for t in (valid, key, lanes["v"], *got.values()):
+        assert t.data_ptr() in ptrs
