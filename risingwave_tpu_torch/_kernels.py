@@ -16,7 +16,7 @@ two per call of B (the apply and its set_live), one per 24 lanes moved
 by a call of I; the entry points of ``ENTRY_KEYS`` count under their
 own names (S's ``rw_project`` under ``expr_eval``, its ``rw_filter``
 under ``expr_filter``, X's ``rw_group_topk_mask`` under
-``group_topk``, Z's ``rw_dyn_left_step`` under ``dyn_general`` and its
+``group_topk`` and its ``rw_group_topk_fold`` under ``group_topk_fold``, Z's ``rw_dyn_left_step`` under ``dyn_general`` and its
 ``rw_dyn_rv_diff`` under ``dyn_rv_diff``, AA's ``rw_unnest``,
 ``rw_series`` and ``rw_expand`` under ``unnest``, ``series`` and
 ``expand``, AC's ``rw_arena_append`` under ``arena`` and its
@@ -175,7 +175,8 @@ SIGNATURES = {
     },
     "topn_rank": {
         "rw_rank_top": [_P, _I, _L, _P, _P, _P, _P, _P, _L, _P, _P, _P],
-        "rw_group_topk_mask": [_P, _I, _I, _L, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+        "rw_group_topk_fold": [_P, _I, _I, _L, _P, _P, _P, _P, _P],
+        "rw_group_topk_mask": [_P, _I, _I, _L, _P, _P, _I, _P, _P, _L] + [_P] * 7,
     },
     "simple_agg": {
         "rw_simple_apply": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P],
@@ -270,8 +271,10 @@ DTYPE_CODES = {
 # and rescatter of a materialized MIN/MAX multiset (its apply counts as
 # "minput"), or kernel R's gather, mark and scatter (its stage select
 # counts as "checkpoint"), or kernel S's filter (its projection counts
-# as "expr_eval"), or kernel Z's right-value diff (its left step counts
-# as "dyn_general"), or one of kernel AA's three table-function entries
+# as "expr_eval"), or kernel X's two entries (its mask counts as
+# "group_topk", its fold as "group_topk_fold"; W counts as "topn_rank"),
+# or kernel Z's right-value diff (its left step counts as "dyn_general"),
+# or one of kernel AA's three table-function entries
 # (each counts under its own name; "tile_expand" itself stays 0), or
 # kernel AC's emit (its append counts as "arena"), AE's order (its calls
 # count as "window_calls"), AF's apply (its diff counts as "over_diff"),
@@ -291,6 +294,7 @@ ENTRY_KEYS = {
     "rw_scatter_rows": "scatter_rows",
     "rw_filter": "expr_filter",
     "rw_group_topk_mask": "group_topk",
+    "rw_group_topk_fold": "group_topk_fold",
     "rw_dyn_rv_diff": "dyn_rv_diff",
     "rw_unnest": "unnest",
     "rw_series": "series",
@@ -395,7 +399,7 @@ def call(name: str, fn: str, *args) -> None:
     allocation on the stream and have it overwritten before the kernel
     reads it. Blocks freed after ``call`` returns are safe, since the
     allocator reuses them only in stream order."""
-    stream = torch.cuda.current_stream().cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     rc = getattr(library(name), fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}.{fn}: CUDA error {rc}")
@@ -423,9 +427,9 @@ def dtype_code(t: torch.Tensor) -> int:
 def check_cuda(name: str, *tensors, n=None) -> None:
     """Every tensor on one CUDA device, contiguous, and (if ``n`` is
     given) of length ``n``; raise otherwise."""
-    dev = tensors[0].device
+    dev = tensors[0].get_device()  # -1 on the CPU
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if t.get_device() != dev or dev < 0:
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")

@@ -1,11 +1,13 @@
 // A stream compaction of slot lanes, shared by kernel R's stage select
-// (csrc/checkpoint.cu) and kernel Z's right-value diff (csrc/dyn_general.cu).
+// (csrc/checkpoint.cu), kernel Z's right-value diff (csrc/dyn_general.cu),
+// kernels AC, AE, AF and AG, and kernel X's live rows (csrc/topn_rank.cu).
 //
 // Three launches on one stream: each block evaluates its COMPACT_TILE-slot
 // tile through a flag functor and writes the tile's count; one block turns
 // the tile counts into exclusive offsets (scan.cuh's top scan, the total
 // after them); each block re-evaluates its tile and writes its selected
-// slots at their global positions, with one payload byte each. No atomics
+// slots at their global positions, with one payload byte each (none where
+// payload is null). No atomics
 // decide a position, so the order is ascending slot without a sort.
 //
 // The functor F gives:
@@ -13,8 +15,9 @@
 //     COMPACT_ITEMS slots from base, f[j] bit 0 = selected, bit 1 = the
 //     payload byte written beside the slot; returns the selected count.
 //     With F::kAux, *aux is a second count summed into status[1].
-//   void on_select(int64_t s, uint8_t f): the side writes of a selected
-//     slot (only the thread that evaluated s touches it).
+//   void on_select(int64_t s, uint8_t f, int64_t pos): the side writes of
+//     a selected slot, pos its place in sel (only the thread that
+//     evaluated s touches it).
 //   void on_total(long long* status): after status[0] = the selected
 //     count, once.
 #pragma once
@@ -55,8 +58,8 @@ __global__ void compact_write_kernel(F fn, int64_t cap, const int32_t* part, int
     if (!(f[j] & 1)) continue;
     const int64_t s = base + j;
     sel[pos] = (int32_t)s;
-    payload[pos] = (f[j] >> 1) & 1;
-    fn.on_select(s, f[j]);
+    if (payload != nullptr) payload[pos] = (f[j] >> 1) & 1;
+    fn.on_select(s, f[j], pos);
     ++pos;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {

@@ -5,7 +5,7 @@
 //
 // What bounds it on the card: one random probe per row into a table of
 // up to 2^24+ slots, i.e. several scattered 4- and 8-byte accesses per
-// row (the fp1/fp2 words, the stamp word and each key lane of the probed
+// row (the stamp, fp1 and fp2 words, each key lane and live of the probed
 // slot), each costing a 32-byte sector of device memory. The row-side
 // traffic (key lanes in, slots/found/inserted out) is coalesced and
 // small beside that.
@@ -14,89 +14,67 @@
 // (scatter, re-read, verify) because XLA has no atomics. Here each row
 // is one thread that probes on its own:
 //   1. hash the key lanes (K1); fp1 == 0 is remapped to 1 (0 = EMPTY);
-//   2. probe (h1 + t) & mask for t < MAX_PROBE (64);
-//   3. an EMPTY slot is claimed with atomicCAS on the slot's stamp word
-//      (0 -> -1 "writing"); the winner writes fp1, fp2 and the key lanes,
-//      fences, then publishes the stamp as this call's generation (> 0);
-//   4. a reader that finds a slot in the writing state spins until it is
-//      published, then compares fingerprints and exact keys (NaN equals
-//      NaN for float lanes). A match whose stamp equals this call's
-//      generation is a same-key twin of this call's winner: it reports
-//      inserted, not found. A match claimed in an earlier call reports
-//      found = live[slot] (tombstones resolve but are not found).
+//   2. inside a warp, rows whose (h1, fp2) agree are matched
+//      (__match_any_sync); the lowest such row leads, and a row whose key
+//      equals its leader's exactly takes the leader's slot and stamp
+//      instead of probing. A row with the leader's fingerprints and
+//      another key probes on its own, so two keys never merge;
+//   3. every other row probes (h1 + t) & mask for t < MAX_PROBE (64)
+//      through probe.cuh's claim protocol: the stamp word read relaxed
+//      beside fp1 and fp2, an EMPTY slot claimed with atomicCAS (0 -> -1)
+//      and published with a release store of this call's generation; only
+//      a slot claimed in this launch (-1, or the generation) is read again
+//      after an acquire load of its stamp. No probe step takes a fence;
+//   4. a slot whose stamp is this call's generation is a claim of this
+//      call (the row's own, or a same-key twin's): inserted, not found.
+//      A match claimed in an earlier call reports found = live[slot]
+//      (tombstones resolve but are not found);
 //   5. each claim adds one to the table's claimed-slot counter (the
 //      occupancy the host reads at the barrier), one atomic per warp.
 // Rows that run past 64 probes, and invalid rows, get slot -1.
-// Table lanes are read with volatile loads so no stale L1 line is used.
-// The hash, key compare and probe order come from probe.cuh, shared
-// with kernel M's read-only lookup.
 #include "probe.cuh"
 
-__device__ __forceinline__ void rw_lane_store(void* tab, const void* in, int dt,
-                                              int64_t s, int64_t i) {
-  switch (dt) {
-    case RW_BOOL: ((uint8_t*)tab)[s] = ((const uint8_t*)in)[i] ? 1 : 0; break;
-    case RW_I32: ((int32_t*)tab)[s] = ((const int32_t*)in)[i]; break;
-    case RW_I64: ((long long*)tab)[s] = ((const long long*)in)[i]; break;
-    case RW_F32: ((float*)tab)[s] = ((const float*)in)[i]; break;
-    case RW_F64: ((double*)tab)[s] = ((const double*)in)[i]; break;
-  }
-}
+#define LI_THREADS 256
 
 __global__ void lookup_or_insert_kernel(KeyLanes keys, int64_t n, const uint8_t* valid,
                                         int32_t* fp1, int32_t* fp2, int32_t* stamp,
                                         unsigned long long* claimed, const uint8_t* live,
                                         uint32_t mask, int32_t gen, int32_t* slots,
                                         uint8_t* found, uint8_t* inserted) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int32_t out_slot = -1;
-  uint8_t out_found = 0, out_ins = 0;
-  bool did_claim = false;
-  if (valid[i]) {
-    uint32_t h1;
-    int32_t f1, f2;
-    rw_key_hash(keys, i, h1, f1, f2);
-    for (int t = 0; t < RW_MAX_PROBE; ++t) {
-      const int64_t s = (int64_t)((h1 + (uint32_t)t) & mask);
-      volatile int32_t* st = stamp + s;
-      int32_t cur = *st;
-      if (cur == 0) {
-        cur = atomicCAS((int*)(stamp + s), 0, -1);
-        if (cur == 0) {  // won the claim: write the slot, then publish
-          fp1[s] = f1;
-          fp2[s] = f2;
-          for (int l = 0; l < keys.n; ++l)
-            rw_lane_store(keys.tab[l], keys.in[l], keys.dt[l], s, i);
-          __threadfence();
-          atomicExch((int*)(stamp + s), gen);
-          out_slot = (int32_t)s;
-          out_ins = 1;
-          did_claim = true;
-          break;
-        }
-      }
-      while (cur == -1) {  // another row is writing this slot
-        __nanosleep(20);
-        cur = *st;
-      }
-      __threadfence();
-      if (((volatile int32_t*)fp1)[s] != f1 || ((volatile int32_t*)fp2)[s] != f2) continue;
-      if (!rw_keys_equal(keys, s, i)) continue;
-      out_slot = (int32_t)s;
-      if (cur == gen) out_ins = 1;
-      else out_found = live[s] ? 1 : 0;
-      break;
-    }
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = (int)(threadIdx.x & 31);
+  const bool v = i < n && valid[i] != 0;
+  uint32_t h1 = 0u;
+  int32_t f1 = 0, f2 = 0;
+  if (v) rw_key_hash(keys, i, h1, f1, f2);
+  const unsigned vmask = __ballot_sync(0xFFFFFFFFu, v);
+  int leader = lane;
+  bool follow = false;
+  if (v) {
+    const unsigned group =
+        __match_any_sync(vmask, ((unsigned long long)h1 << 32) | (uint32_t)f2);
+    leader = __ffs(group) - 1;
+    follow = leader != lane && rw_rows_equal(keys, i, i - lane + leader);
   }
-  slots[i] = out_slot;
-  found[i] = out_found;
-  inserted[i] = out_ins;
+  int32_t slot = -1, seen = 0;
+  bool did_claim = false;
+  if (v && !follow)
+    slot = rw_find_or_claim(keys, i, h1, f1, f2, fp1, fp2, stamp, mask, gen, RW_MAX_PROBE, &seen,
+                            &did_claim);
+  const int32_t lead_slot = __shfl_sync(0xFFFFFFFFu, slot, leader);
+  const int32_t lead_seen = __shfl_sync(0xFFFFFFFFu, seen, leader);
+  if (follow) {
+    slot = lead_slot;
+    seen = lead_seen;
+  }
+  if (i < n) {
+    slots[i] = slot;
+    inserted[i] = slot >= 0 && seen == gen ? 1 : 0;
+    found[i] = slot >= 0 && seen != gen && live[slot] ? 1 : 0;
+  }
   // the table's claimed-slot counter: one atomic per warp
-  const unsigned act = __activemask();
-  const unsigned won = __ballot_sync(act, did_claim);
-  if (won != 0u && (int)(threadIdx.x & 31) == __ffs(act) - 1)
-    atomicAdd(claimed, (unsigned long long)__popc(won));
+  const unsigned won = __ballot_sync(0xFFFFFFFFu, did_claim);
+  if (won != 0u && lane == 0) atomicAdd(claimed, (unsigned long long)__popc(won));
 }
 
 // lanes: n_keys rows of (input ptr, dtype code, table ptr), as int64.
@@ -107,11 +85,10 @@ RW_EXPORT int rw_lookup_or_insert(const int64_t* lanes, int n_keys, int64_t n,
   KeyLanes k;
   if (!rw_key_lanes(lanes, n_keys, &k)) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int threads = 256;
-    lookup_or_insert_kernel<<<rw_blocks(n, threads), threads, 0, (cudaStream_t)stream>>>(
+    lookup_or_insert_kernel<<<rw_blocks(n, LI_THREADS), LI_THREADS, 0, (cudaStream_t)stream>>>(
         k, n, (const uint8_t*)valid, (int32_t*)fp1, (int32_t*)fp2, (int32_t*)stamp,
-        (unsigned long long*)claimed, (const uint8_t*)live, (uint32_t)(capacity - 1), (int32_t)gen, (int32_t*)slots,
-        (uint8_t*)found, (uint8_t*)inserted);
+        (unsigned long long*)claimed, (const uint8_t*)live, (uint32_t)(capacity - 1),
+        (int32_t)gen, (int32_t*)slots, (uint8_t*)found, (uint8_t*)inserted);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// Kernels W and X: rank a TopN row store by a stable multi-lane key.
+// Kernels W and X: rank a TopN row store.
 //
 // W replaces risingwave_tpu/executors/top_n_plain.py:_rank_top (:86):
 // the slots of the first n rows of the store by (live first, order key,
@@ -12,29 +12,47 @@
 // bits inverted for DESC), computed here from the order lane; pk and
 // group lanes order as signed integers (bool: false first).
 //
-// What bounds it on the card: bytes. Every pass of the sort reads and
-// writes a 12-byte (key, slot) pair per slot of the store (up to 2^26
-// slots), and each key lane is read once more to find its varying bits
-// and gathered once at random through the permutation; X then reads the
-// sorted slots' group lanes, live and epoch_dirty once more and writes
-// two bool lanes at random.
+// What bounds them on the card: bytes. W's sort reads and writes a
+// 12-byte (key, slot) pair per slot of the store each pass; X reads the
+// live, epoch-dirty, group and order lanes of every slot twice, sorts
+// 12-byte pairs of the live rows only, and writes two bool lanes.
 //
-// Design: an LSD radix sort, least significant key first, of (64-bit
+// W's design: an LSD radix sort, least significant key first, of (64-bit
 // encoded key, slot) pairs that starts from the slots in order, so ties
 // keep slot order with no pass over the slot. One launch first folds
 // every lane's encoded keys into their OR and AND, which the host reads
 // (the entry's one device-to-host copy): a byte where the two agree is
-// the same for every key and gets no pass (the high bytes of small ids,
-// a store all live), a lane with no varying bit no gather. Each key lane
-// that varies: one gather of its encoded key in the current order, then
-// kernel F's stable 8-bit pass (csrc/radix.cuh) per varying byte. Then W
-// copies out the first n slots and their liveness; X marks group
-// boundaries (any group lane changes from the previous slot in order),
-// scans them into segment ids (csrc/scan.cuh), records each segment's
-// start and whether it holds an epoch-dirty slot, and writes both masks
-// back by slot, its segment lanes in the sort's key buffers.
+// the same for every key and gets no pass, a lane with no varying bit no
+// gather. Each key lane that varies: one gather of its encoded key in the
+// current order, then kernel F's stable 8-bit pass (csrc/radix.cuh) per
+// varying byte; W copies out the first n slots and their liveness.
+//
+// X's design rests on two facts: only a live row can be in_topk, and its
+// rank depends only on the live rows of its group; the pk lanes and the
+// slot only break ties between rows of equal (group, order key).
+//   1. rw_group_topk_fold, one coalesced pass: each tile's live count (the
+//      count pass of csrc/compact.cuh's compaction), the OR and AND of the
+//      group lanes' and the order key's encoded keys over the live rows,
+//      the epoch-dirty count; the host reads them (one copy) and packs the
+//      varying bits of each lane, group lanes first, into one 64-bit key
+//      (top_n_plain.topk_pack_plan; past 64 bits it keeps the top 64);
+//   2. rw_group_topk_mask: the compaction's write pass puts each live slot
+//      in slot order beside its packed key (no gather through a
+//      permutation), then one stable 8-bit pass per varying byte of the
+//      key. A row is in_topk by place when the row k places before it is
+//      of another group (the group is the key's top bits). Only a run of
+//      equal keys that straddles a group's k-th place can be misplaced
+//      (ties by order key, or order bits cut past 64): one warp per such
+//      run ranks its rows by the full (order key, store keys, slot).
+//      Where the group bits alone pass 64, every run of equal key longer
+//      than k is ranked so, counting only rows of the same group;
+//   3. gdirty without the sort: the group keys of the epoch-dirty slots
+//      go into a set of at least twice their count (csrc/probe.cuh's
+//      claim protocol, probing unbounded), then every slot probes it with
+//      its group lanes; a store all dirty or all clean needs no set.
+#include "compact.cuh"
+#include "probe.cuh"
 #include "radix.cuh"
-#include "scan.cuh"
 
 #define TR_MAX_KEYS 12
 #define TR_THREADS 256
@@ -186,74 +204,371 @@ RW_EXPORT int rw_rank_top(const int64_t* keys, int n_keys, int64_t cap, const vo
   return (int)cudaGetLastError();
 }
 
-// X, after the sort: flag[i] = a group starts at sorted position i
-__global__ void tr_bound_kernel(TrKeys kd, int n_group, int64_t cap, const int32_t* order,
-                                int32_t* flag, uint8_t* seg_dirty) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cap) return;
-  seg_dirty[i] = 0;
-  int f = i == 0 ? 1 : 0;
-  if (!f) {
-    const int32_t a = order[i], b = order[i - 1];
-    for (int g = 0; g < n_group && !f; ++g)
-      f = tr_encode(kd.lane[g], kd.dt[g], TR_PLAIN, a) != tr_encode(kd.lane[g], kd.dt[g], TR_PLAIN, b);
+// ---- kernel X ---------------------------------------------------------------------
+// Key lanes of an X call: the n_group group lanes (PLAIN), the order lane
+// (ASC/DESC), the store's key lanes that are not group lanes (PLAIN). The
+// fold covers the first n_group + 1 (group lanes and order key).
+#define XK_FOLD_MAX (RW_MAX_LANES + 1)
+#define XK_WARPS (COMPACT_THREADS / 32)
+#define XK_RESOLVE_THREADS 256
+
+// The packed key of a live row: each field (bits [lo, lo + w) of a fold
+// lane's encoded key) lands with its lowest bit at pos, a negative pos
+// cutting the field's low bits (a key past 64 bits keeps its top 64).
+struct XkPlan {
+  int n;
+  int lane[XK_FOLD_MAX];
+  int lo[XK_FOLD_MAX];
+  int w[XK_FOLD_MAX];
+  int pos[XK_FOLD_MAX];
+};
+
+__device__ __forceinline__ unsigned long long xk_pack(const TrKeys& kd, const XkPlan& p,
+                                                      int64_t s) {
+  unsigned long long key = 0ull;
+#pragma unroll
+  for (int f = 0; f < XK_FOLD_MAX; ++f) {
+    if (f >= p.n) break;
+    const int l = p.lane[f];
+    unsigned long long v = tr_encode(kd.lane[l], kd.dt[l], kd.mode[l], s) >> p.lo[f];
+    if (p.w[f] < 64) v &= (1ull << p.w[f]) - 1ull;
+    key |= p.pos[f] >= 0 ? v << p.pos[f] : v >> -p.pos[f];
   }
-  flag[i] = f;
+  return key;
 }
 
-// segment id = (groups started before i) + flag[i] - 1
-__global__ void tr_seg_kernel(int64_t cap, const int32_t* order, const int32_t* flag,
-                              const int32_t* excl, const uint8_t* epoch_dirty,
-                              int32_t* seg_start, uint8_t* seg_dirty) {
+// The group part of a packed key (exact groups: its top bits).
+__device__ __forceinline__ unsigned long long xk_group(unsigned long long key, int gshift) {
+  return gshift >= 64 ? 0ull : key >> gshift;
+}
+
+// Per tile of COMPACT_TILE slots: its live count (the compaction's count
+// pass, into part), and over the live slots each fold lane's OR
+// (fold[l]) and AND (fold[n_fold + l]); the epoch-dirty slots are
+// counted into fold[2 n_fold]. One pass, coalesced.
+__global__ void xk_fold_kernel(TrKeys kd, int n_fold, int64_t cap, const uint8_t* live,
+                               const uint8_t* dirty, int32_t* part, unsigned long long* fold) {
+  __shared__ unsigned long long s_or[XK_FOLD_MAX][XK_WARPS];
+  __shared__ unsigned long long s_and[XK_FOLD_MAX][XK_WARPS];
+  unsigned long long o[XK_FOLD_MAX], a[XK_FOLD_MAX];
+#pragma unroll
+  for (int l = 0; l < XK_FOLD_MAX; ++l) {
+    o[l] = 0ull;
+    a[l] = ~0ull;
+  }
+  int n_live = 0, n_dirty = 0;
+  const int64_t base = (int64_t)blockIdx.x * COMPACT_TILE;
+  for (int j = 0; j < COMPACT_ITEMS; ++j) {
+    const int64_t s = base + (int64_t)j * COMPACT_THREADS + threadIdx.x;
+    if (s >= cap) break;
+    n_dirty += dirty[s] ? 1 : 0;
+    if (!live[s]) continue;
+    ++n_live;
+#pragma unroll
+    for (int l = 0; l < XK_FOLD_MAX; ++l) {
+      if (l >= n_fold) break;
+      const unsigned long long e = tr_encode(kd.lane[l], kd.dt[l], kd.mode[l], s);
+      o[l] |= e;
+      a[l] &= e;
+    }
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int l = 0; l < XK_FOLD_MAX; ++l) {
+    if (l >= n_fold) break;
+    for (int d = 16; d > 0; d >>= 1) {
+      o[l] |= __shfl_xor_sync(0xFFFFFFFFu, o[l], d);
+      a[l] &= __shfl_xor_sync(0xFFFFFFFFu, a[l], d);
+    }
+    if (lane == 0) {
+      s_or[l][warp] = o[l];
+      s_and[l][warp] = a[l];
+    }
+  }
+  int excl;
+  const int total_live = rw_block_exclusive_scan<COMPACT_THREADS>(n_live, &excl);
+  const int total_dirty = rw_block_exclusive_scan<COMPACT_THREADS>(n_dirty, &excl);
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = total_live;
+    if (total_dirty) atomicAdd(fold + 2 * n_fold, (unsigned long long)total_dirty);
+    if (total_live) {
+      for (int l = 0; l < n_fold; ++l) {
+        unsigned long long bo = 0ull, ba = ~0ull;
+        for (int w = 0; w < XK_WARPS; ++w) {
+          bo |= s_or[l][w];
+          ba &= s_and[l][w];
+        }
+        atomicOr(fold + l, bo);
+        atomicAnd(fold + n_fold + l, ba);
+      }
+    }
+  }
+}
+
+// The compaction's write pass: each live slot into idx[pos] (slot order)
+// with its packed key into keys[pos].
+struct XkPack {
+  static constexpr bool kAux = false;
+  TrKeys kd;
+  XkPlan plan;
+  const uint8_t* live;
+  unsigned long long* keys;
+  __device__ int flags(int64_t cap, int64_t base, uint8_t* f, int*) const {
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < COMPACT_ITEMS; ++j) {
+      const bool sel = base + j < cap && live[base + j];
+      f[j] = sel;
+      c += sel;
+    }
+    return c;
+  }
+  __device__ void on_select(int64_t s, uint8_t, int64_t pos) const { keys[pos] = xk_pack(kd, plan, s); }
+  __device__ void on_total(long long*) const {}
+};
+
+// Over the n sorted live rows: in_topk by place (the row is among the first
+// k of its group, or, with inexact groups, every row), and the straddling
+// runs listed in work (work[0] their count, then one row each): with exact
+// groups, the first row past a group's k-th place when it ties the row
+// before it; otherwise the first row of each run of equal key longer
+// than k.
+__global__ void xk_mark_kernel(int64_t n, int k, int exact, int gshift,
+                               const unsigned long long* key, const int32_t* slot,
+                               uint8_t* in_topk, unsigned long long* work, int64_t max_items) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cap) return;
-  const int32_t sid = excl[i] + flag[i] - 1;
-  if (flag[i]) seg_start[sid] = (int32_t)i;
-  if (epoch_dirty[order[i]]) seg_dirty[sid] = 1;
+  if (i >= n) return;
+  const unsigned long long p = key[i];
+  bool in = true, item = false;
+  if (exact) {
+    const unsigned long long g = xk_group(p, gshift);
+    in = i < k || xk_group(key[i - k], gshift) != g;
+    if (!in && key[i - 1] == p)  // i - 1 ties i, so shares its group
+      item = i - 1 < k || xk_group(key[i - 1 - k], gshift) != g;
+  } else {
+    item = (i == 0 || key[i - 1] != p) && i + k < n && key[i + k] == p;
+  }
+  in_topk[slot[i]] = in ? 1 : 0;
+  if (item) {
+    const unsigned long long at = atomicAdd(work, 1ull);
+    if ((int64_t)at < max_items) work[1 + at] = (unsigned long long)i;
+  }
 }
 
-__global__ void tr_mask_kernel(int64_t cap, int k, const int32_t* order, const int32_t* flag,
-                               const int32_t* excl, const int32_t* seg_start,
-                               const uint8_t* seg_dirty, const uint8_t* live, uint8_t* in_topk,
-                               uint8_t* gdirty) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cap) return;
-  const int32_t sid = excl[i] + flag[i] - 1;
-  const int32_t s = order[i];
-  in_topk[s] = live[s] && (i - seg_start[sid]) < k ? 1 : 0;
-  gdirty[s] = seg_dirty[sid];
+// Row at sorted place q (slot sq) precedes row at r (slot sr) in the full
+// order: (order key, store keys, slot); with inexact groups, only a row of
+// the same group counts.
+__device__ __forceinline__ bool xk_before(const TrKeys& kd, int n_group, int exact, int32_t sq,
+                                          int32_t sr) {
+  if (!exact)
+    for (int g = 0; g < n_group; ++g)
+      if (tr_encode(kd.lane[g], kd.dt[g], TR_PLAIN, sq) != tr_encode(kd.lane[g], kd.dt[g], TR_PLAIN, sr))
+        return false;
+  for (int l = n_group; l < kd.n; ++l) {
+    const unsigned long long a = tr_encode(kd.lane[l], kd.dt[l], kd.mode[l], sq);
+    const unsigned long long b = tr_encode(kd.lane[l], kd.dt[l], kd.mode[l], sr);
+    if (a != b) return a < b;
+  }
+  return sq < sr;
 }
 
-// keys: n_keys rows of (lane, dtype code, mode), most significant first:
-// the n_group group lanes (PLAIN), live (LIVE_LAST), the order lane
-// (ASC/DESC), the store's key lanes (PLAIN). Buffers as rw_rank_top's.
+// One warp per listed run: its bounds (ballots over 32 rows at a time),
+// then each row's rank among the run's rows by the full order, counted
+// until it reaches the run's share of the k places (m); in_topk = rank < m.
+__global__ void xk_resolve_kernel(TrKeys kd, int n_group, int64_t n, int k, int exact,
+                                  const unsigned long long* key, const int32_t* slot,
+                                  const unsigned long long* work, int64_t max_items,
+                                  uint8_t* in_topk) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  int64_t count = (int64_t)work[0];
+  if (count > max_items) count = max_items;
+  for (int64_t it = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5; it < count;
+       it += warps) {
+    const int64_t at = (int64_t)work[1 + it];
+    const unsigned long long p = key[at];
+    int64_t ts = at, te = at + 1;
+    while (true) {  // back to the run's first row
+      const int64_t q = ts - 1 - lane;
+      const unsigned b = __ballot_sync(0xFFFFFFFFu, q < 0 || key[q] != p);
+      if (b) {
+        ts -= __ffs(b) - 1;
+        break;
+      }
+      ts -= 32;
+    }
+    while (true) {  // on past its last
+      const int64_t q = te + lane;
+      const unsigned b = __ballot_sync(0xFFFFFFFFu, q >= n || key[q] != p);
+      if (b) {
+        te += __ffs(b) - 1;
+        break;
+      }
+      te += 32;
+    }
+    const int64_t m = exact ? at - ts : (int64_t)k;
+    for (int64_t r = ts + lane; r < te; r += 32) {
+      const int32_t sr = slot[r];
+      int64_t below = 0;
+      for (int64_t q = ts; q < te && below < m; ++q)
+        if (q != r && xk_before(kd, n_group, exact, slot[q], sr)) ++below;
+      in_topk[sr] = below < m ? 1 : 0;
+    }
+  }
+}
+
+// gdirty's set: the group key of every epoch-dirty slot, claimed through
+// probe.cuh's protocol with probing unbounded (the set is at most half
+// full, so a chain always ends).
+__global__ void xk_set_insert_kernel(KeyLanes g, int64_t cap, const uint8_t* dirty, int32_t* fp1,
+                                     int32_t* fp2, int32_t* stamp, uint32_t mask, int64_t scap) {
+  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= cap || !dirty[s]) return;
+  uint32_t h1;
+  int32_t f1, f2, seen;
+  bool claimed = false;
+  rw_key_hash(g, s, h1, f1, f2);
+  rw_find_or_claim(g, s, h1, f1, f2, fp1, fp2, stamp, mask, 1, scap, &seen, &claimed);
+}
+
+__global__ void xk_gdirty_kernel(KeyLanes g, int64_t cap, const uint8_t* dirty,
+                                 const int32_t* fp1, const int32_t* fp2, uint32_t mask,
+                                 int64_t scap, uint8_t* gdirty) {
+  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= cap) return;
+  gdirty[s] = dirty[s] || rw_probe_readonly(g, s, fp1, fp2, mask, scap) >= 0 ? 1 : 0;
+}
+
+static bool xk_parse(const int64_t* keys, int n_keys, int n_group, TrKeys* kd) {
+  if (!tr_parse(keys, n_keys, kd) || n_group < 1 || n_group > RW_MAX_LANES ||
+      n_group + 1 > n_keys)
+    return false;
+  for (int l = 0; l < n_keys; ++l) {
+    const bool order = l == n_group;
+    if (order != (kd->mode[l] == TR_ASC || kd->mode[l] == TR_DESC)) return false;
+    if (kd->mode[l] == TR_LIVE_LAST) return false;
+  }
+  return true;
+}
+
+// X's first half: the fold of the live rows and the live count, read back.
+// keys: n_keys rows of (lane, dtype code, mode) as xk_parse takes them;
+// part: compact_tiles(cap) + 1 int32; fold: 2 (n_group + 1) + 1 int64;
+// host_out (host memory): n_live, n_dirty, each fold lane's OR, then each
+// one's AND. Waits for the stream.
+RW_EXPORT int rw_group_topk_fold(const int64_t* keys, int n_keys, int n_group, int64_t cap,
+                                 const void* live, const void* epoch_dirty, void* part,
+                                 void* fold, int64_t* host_out, void* stream) {
+  TrKeys kd;
+  if (!xk_parse(keys, n_keys, n_group, &kd) || cap < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_fold = n_group + 1;
+  unsigned long long* fd = (unsigned long long*)fold;
+  cudaMemsetAsync(fd, 0, sizeof(unsigned long long) * n_fold, st);
+  cudaMemsetAsync(fd + n_fold, 0xFF, sizeof(unsigned long long) * n_fold, st);
+  cudaMemsetAsync(fd + 2 * n_fold, 0, sizeof(unsigned long long), st);
+  const int tiles = compact_tiles(cap);
+  xk_fold_kernel<<<tiles, COMPACT_THREADS, 0, st>>>(kd, n_fold, cap, (const uint8_t*)live,
+                                                    (const uint8_t*)epoch_dirty, (int32_t*)part,
+                                                    fd);
+  scan_top_kernel<<<1, SCAN_TOP_THREADS, 0, st>>>((int32_t*)part, tiles);
+  int32_t n_live = 0;
+  unsigned long long h[2 * XK_FOLD_MAX + 1];
+  if (cudaMemcpyAsync(&n_live, (int32_t*)part + tiles, sizeof(int32_t), cudaMemcpyDeviceToHost,
+                      st) != cudaSuccess ||
+      cudaMemcpyAsync(h, fd, sizeof(unsigned long long) * (2 * n_fold + 1),
+                      cudaMemcpyDeviceToHost, st) != cudaSuccess ||
+      cudaStreamSynchronize(st) != cudaSuccess)
+    return (int)cudaGetLastError();
+  host_out[0] = n_live;
+  host_out[1] = (int64_t)h[2 * n_fold];
+  for (int l = 0; l < 2 * n_fold; ++l) host_out[2 + l] = (int64_t)h[l];
+  return (int)cudaGetLastError();
+}
+
+// X's second half. plan (top_n_plain.TopkPlan.rows): n_live, n_dirty,
+// exact, gshift, pass_mask (bit b: sort by byte b), max_items, n_fields,
+// then (lane, lo, w, pos) per field. set: the dirty groups' set (fp1, fp2,
+// stamp, one key lane per group lane; set_cap slots, 0 for none: every
+// slot dirty or none). part: the fold's; keys_buf: 2 n_live int64;
+// idx_buf: 2 n_live int32; hist: 256 * rbk_tiles(n_live) + 256 int32;
+// work: 3 + max_items int64 (the compaction's status, the count of
+// listed runs, the runs).
 RW_EXPORT int rw_group_topk_mask(const int64_t* keys, int n_keys, int n_group, int64_t cap,
                                  const void* live, const void* epoch_dirty, int k,
-                                 void* keys_buf, void* idx_buf, void* hist, void* bits,
+                                 const int64_t* plan, const int64_t* set, int64_t set_cap,
+                                 void* part, void* keys_buf, void* idx_buf, void* hist, void* work,
                                  void* in_topk, void* gdirty, void* stream) {
   TrKeys kd;
-  if (!tr_parse(keys, n_keys, &kd) || n_group < 1 || n_group > n_keys || cap < 1 || k < 0)
+  if (!xk_parse(keys, n_keys, n_group, &kd) || cap < 1 || k < 0) return (int)cudaErrorInvalidValue;
+  const int64_t n = plan[0], n_dirty = plan[1], max_items = plan[5];
+  const int exact = (int)plan[2], gshift = (int)plan[3];
+  const unsigned pass_mask = (unsigned)plan[4];
+  XkPlan xp;
+  xp.n = (int)plan[6];
+  if (n < 0 || n > cap || n_dirty < 0 || n_dirty > cap || xp.n < 0 || xp.n > n_group + 1 ||
+      max_items < 1)
     return (int)cudaErrorInvalidValue;
-  for (int g = 0; g < n_group; ++g)
-    if (kd.mode[g] != TR_PLAIN) return (int)cudaErrorInvalidValue;
+  for (int f = 0; f < xp.n; ++f) {
+    xp.lane[f] = (int)plan[7 + 4 * f];
+    xp.lo[f] = (int)plan[8 + 4 * f];
+    xp.w[f] = (int)plan[9 + 4 * f];
+    xp.pos[f] = (int)plan[10 + 4 * f];
+    if (xp.lane[f] < 0 || xp.lane[f] > n_group || xp.w[f] < 1 || xp.lo[f] < 0 ||
+        xp.lo[f] + xp.w[f] > 64 || xp.pos[f] <= -xp.w[f] || xp.pos[f] + xp.w[f] > 64)
+      return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = (cudaStream_t)stream;
-  const int cur = tr_sort(kd, cap, (unsigned long long*)keys_buf, (int32_t*)idx_buf,
-                          (int32_t*)hist, (unsigned long long*)bits, st);
-  if (cur < 0) return (int)cudaGetLastError();
-  const int32_t* order = (const int32_t*)idx_buf + cur * cap;
-  // the key buffers (4 * cap int32 words) now hold flag, excl, seg_start
-  // and (cap bytes) seg_dirty; hist holds the scan's partials
-  int32_t* flag = (int32_t*)keys_buf;
-  int32_t* excl = flag + cap;
-  int32_t* seg_start = excl + cap;
-  uint8_t* seg_dirty = (uint8_t*)(seg_start + cap);
-  const int blocks = rw_blocks(cap, TR_THREADS);
-  tr_bound_kernel<<<blocks, TR_THREADS, 0, st>>>(kd, n_group, cap, order, flag, seg_dirty);
-  rw_exclusive_scan(flag, cap, (int32_t*)hist, excl, st);
-  tr_seg_kernel<<<blocks, TR_THREADS, 0, st>>>(cap, order, flag, excl,
-                                               (const uint8_t*)epoch_dirty, seg_start, seg_dirty);
-  tr_mask_kernel<<<blocks, TR_THREADS, 0, st>>>(cap, k, order, flag, excl, seg_start, seg_dirty,
-                                                (const uint8_t*)live, (uint8_t*)in_topk,
-                                                (uint8_t*)gdirty);
+  cudaMemsetAsync(in_topk, 0, cap, st);
+  if (n > 0 && k > 0) {
+    unsigned long long* kb = (unsigned long long*)keys_buf;
+    int32_t* ib = (int32_t*)idx_buf;
+    unsigned long long* wk = (unsigned long long*)work;
+    const int tiles = compact_tiles(cap);
+    compact_write_kernel<<<tiles, COMPACT_THREADS, 0, st>>>(
+        XkPack{kd, xp, (const uint8_t*)live, kb}, cap, (const int32_t*)part, tiles, ib, nullptr,
+        (long long*)wk);
+    int cur = 0;
+    for (int b = 0; b < 8; ++b) {
+      if (!((pass_mask >> b) & 1u)) continue;
+      rbk_radix_pass(kb + cur * n, ib + cur * n, kb + (1 - cur) * n, ib + (1 - cur) * n, n, 8 * b,
+                     (int32_t*)hist, st);
+      cur = 1 - cur;
+    }
+    cudaMemsetAsync(wk + 2, 0, sizeof(unsigned long long), st);
+    const unsigned long long* key = kb + cur * n;
+    const int32_t* slot = ib + cur * n;
+    xk_mark_kernel<<<rw_blocks(n, TR_THREADS), TR_THREADS, 0, st>>>(
+        n, k, exact, gshift, key, slot, (uint8_t*)in_topk, wk + 2, max_items);
+    int rblocks = rw_blocks(max_items, XK_RESOLVE_THREADS / 32);
+    if (rblocks > 1024) rblocks = 1024;
+    xk_resolve_kernel<<<rblocks, XK_RESOLVE_THREADS, 0, st>>>(kd, n_group, n, k, exact, key,
+                                                              slot, wk + 2, max_items,
+                                                              (uint8_t*)in_topk);
+  }
+  if (set_cap == 0) {
+    if (n_dirty > 0 && n_dirty < cap) return (int)cudaErrorInvalidValue;
+    cudaMemsetAsync(gdirty, n_dirty > 0 ? 1 : 0, cap, st);
+  } else {
+    if (set_cap & (set_cap - 1) || set_cap < 2 * n_dirty) return (int)cudaErrorInvalidValue;
+    KeyLanes g;
+    g.n = n_group;
+    for (int l = 0; l < n_group; ++l) {
+      g.in[l] = kd.lane[l];
+      g.tab[l] = (void*)set[3 + l];
+      g.dt[l] = kd.dt[l];
+    }
+    int32_t* sfp1 = (int32_t*)set[0];
+    int32_t* sfp2 = (int32_t*)set[1];
+    int32_t* sstamp = (int32_t*)set[2];
+    cudaMemsetAsync(sfp1, 0, sizeof(int32_t) * set_cap, st);
+    cudaMemsetAsync(sstamp, 0, sizeof(int32_t) * set_cap, st);
+    const uint32_t mask = (uint32_t)(set_cap - 1);
+    const int blocks = rw_blocks(cap, TR_THREADS);
+    xk_set_insert_kernel<<<blocks, TR_THREADS, 0, st>>>(g, cap, (const uint8_t*)epoch_dirty, sfp1,
+                                                        sfp2, sstamp, mask, set_cap);
+    xk_gdirty_kernel<<<blocks, TR_THREADS, 0, st>>>(g, cap, (const uint8_t*)epoch_dirty, sfp1,
+                                                    sfp2, mask, set_cap, (uint8_t*)gdirty);
+  }
   return (int)cudaGetLastError();
 }

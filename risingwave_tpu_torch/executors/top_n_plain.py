@@ -51,7 +51,8 @@ be integer or bool lanes (a float key lane raises).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import ctypes
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -92,9 +93,12 @@ from risingwave_tpu_torch.types import Op
 GROW_AT = 0.5
 # lanes one rw_topn_upsert call writes (csrc/topn_upsert.cu TU_MAX_LANES)
 UPSERT_LANES = 16
-# key lanes one rw_rank_top / rw_group_topk_mask call sorts by
+# key lanes one rw_rank_top / rw_group_topk_mask call takes
 # (csrc/topn_rank.cu TR_MAX_KEYS)
 RANK_KEYS = 12
+# group lanes one rw_group_topk_mask call takes (the key lanes of its set
+# of dirty groups, csrc/common.cuh RW_MAX_LANES)
+GROUP_LANES = 8
 # a key lane's role in csrc/topn_rank.cu (TrMode)
 _KEY_PLAIN, _KEY_ASC, _KEY_DESC, _KEY_LIVE_LAST = 0, 1, 2, 3
 
@@ -224,8 +228,8 @@ def _key_rows(lanes):
 
 
 def _rank_workspace(cap: int, dev) -> dict:
-    """Kernels W's and X's scratch: two (key, slot) buffers, the radix
-    pass's counts and each key lane's OR and AND."""
+    """Kernel W's scratch: two (key, slot) buffers, the radix pass's
+    counts and each key lane's OR and AND."""
     tiles = max(1, -(-cap // _kernels.RBK_TILE))
     return {
         "keys": torch.empty(2 * cap, dtype=torch.int64, device=dev),
@@ -259,11 +263,12 @@ def group_topk_mask(table: HashTable, rows: Dict[str, torch.Tensor], epoch_dirty
     """Kernel X: per slot, ``in_topk`` (the row is live and among its
     group's first k by (live first, order key, pk lanes, slot)) and
     ``gdirty`` (its group, by the group lanes' values, holds an
-    epoch-dirty slot). One sort of the whole store by (group lanes,
-    live first, order key, pk lanes, slot). The store's keys are the
-    group lanes, then the pk lanes that are not group lanes
-    (``store_keys``), so only those follow the order key: a live row's
-    group keys equal its group lanes. Plain PyTorch on the CPU."""
+    epoch-dirty slot). The store's keys are the group lanes, then the pk
+    lanes that are not group lanes (``store_keys``), so only those follow
+    the order key: a live row's group keys equal its group lanes. On the
+    card the live rows are ranked on one packed key
+    (``csrc/topn_rank.cu``); plain PyTorch on the CPU, one sort of the
+    whole store by (group lanes, live first, order key, pk lanes, slot)."""
     glanes = tuple(rows[g] for g in group_names)
     for lane in glanes + tuple(table.keys):
         _check_key_lane(lane)
@@ -297,6 +302,64 @@ def _group_topk_mask_torch(table, rows, epoch_dirty, k, desc, glanes, order_col)
     return in_topk, gdirty
 
 
+_MASK64 = (1 << 64) - 1
+
+
+class TopkPlan(NamedTuple):
+    """Kernel X's packed sort key, from the fold of its key lanes over the
+    live rows (``topk_pack_plan``). ``fields``: per packed lane ``(lane,
+    lo, width, pos)``, bits ``[lo, lo + width)`` of the lane's encoded key
+    with their lowest bit at ``pos`` of the packed key (a negative
+    ``pos`` cuts that many low bits: past 64 bits the key keeps its top
+    64). ``exact``: the group lanes' bits all fit, so a group is a run of
+    equal ``key >> gshift``. ``pass_mask``: bit b set where byte b of the
+    packed key varies (one radix pass each)."""
+
+    fields: Tuple[Tuple[int, int, int, int], ...]
+    bits: int
+    exact: bool
+    gshift: int
+    pass_mask: int
+
+    def pack(self, words: Sequence[int]) -> int:
+        """The packed key of one row, ``words`` its lanes' encoded keys."""
+        key = 0
+        for lane, lo, width, pos in self.fields:
+            v = (words[lane] >> lo) & ((1 << width) - 1)
+            key |= v << pos if pos >= 0 else v >> -pos
+        return key
+
+
+def topk_pack_plan(ors: Sequence[int], ands: Sequence[int], n_group: int) -> TopkPlan:
+    """Kernel X's packing plan from the OR and AND of each key lane's
+    encoded keys over the live rows (the group lanes, then the order key):
+    each lane's bits from its highest to its lowest varying bit, group
+    lanes first, most significant lane first. A bit above a lane's
+    highest varying bit (or below its lowest) is the same in every live
+    row, so the packed key orders the rows as the lanes do; a key past 64
+    bits keeps its top 64 and the kernel resolves the rows it ties."""
+    widths = []
+    for lane, (o, a) in enumerate(zip(ors, ands)):
+        v = (o ^ a) & _MASK64
+        if v:
+            lo = (v & -v).bit_length() - 1
+            widths.append((lane, lo, v.bit_length() - lo))
+    total = sum(w for _, _, w in widths)
+    group_bits = sum(w for lane, _, w in widths if lane < n_group)
+    bits = min(total, 64)
+    fields, end = [], bits
+    for lane, lo, width in widths:
+        end -= width
+        if end + width <= 0:
+            break
+        fields.append((lane, lo, width, end))
+    plan = TopkPlan(tuple(fields), bits, group_bits <= 64,
+                    bits - group_bits if group_bits <= 64 else 0, 0)
+    varying = plan.pack([(o ^ a) & _MASK64 for o, a in zip(ors, ands)])
+    mask = sum(1 << b for b in range(8) if (varying >> (8 * b)) & 0xFF)
+    return plan._replace(pass_mask=mask)
+
+
 def _group_topk_mask_cuda(table, rows, epoch_dirty, k, desc, glanes, order_col):
     cap = table.capacity
     order_lane = rows[order_col]
@@ -304,18 +367,45 @@ def _group_topk_mask_cuda(table, rows, epoch_dirty, k, desc, glanes, order_col):
                         n=cap)
     if epoch_dirty.dtype != torch.bool:
         raise TypeError("group_topk_mask: epoch_dirty must be a bool lane")
+    n_group = len(glanes)
+    if n_group > GROUP_LANES:
+        raise ValueError(f"{n_group} group lanes exceed the kernel's {GROUP_LANES}")
     keys = [(g, _KEY_PLAIN) for g in glanes]
-    keys += [(table.live, _KEY_LIVE_LAST), (order_lane, _KEY_DESC if desc else _KEY_ASC)]
-    keys += [(key, _KEY_PLAIN) for key in table.keys[len(glanes):]]
+    keys += [(order_lane, _KEY_DESC if desc else _KEY_ASC)]
+    keys += [(key, _KEY_PLAIN) for key in table.keys[n_group:]]
+    key_rows = _kernels.int64_rows(_key_rows(keys), RANK_KEYS)
     dev = table.live.device
-    ws = _rank_workspace(cap, dev)
+    part = _kernels.compact_scratch(cap, dev)
+    fold = torch.empty(2 * n_group + 3, dtype=torch.int64, device=dev)
+    host = (ctypes.c_int64 * (2 * n_group + 4))()
+    _kernels.call("topn_rank", "rw_group_topk_fold", key_rows, len(keys), n_group, cap,
+                  table.live.data_ptr(), epoch_dirty.data_ptr(), part.data_ptr(),
+                  fold.data_ptr(), host)
+    n_live, n_dirty = host[0], host[1]
+    plan = topk_pack_plan(host[2:n_group + 3], host[n_group + 3:2 * n_group + 4], n_group)
+    max_items = n_live // (int(k) + 1) + 1
+    plan_rows = [n_live, n_dirty, int(plan.exact), plan.gshift, plan.pass_mask, max_items,
+                 len(plan.fields)] + [v for f in plan.fields for v in f]
+    n = max(n_live, 1)
+    keys_buf = torch.empty(2 * n, dtype=torch.int64, device=dev)
+    idx_buf = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    hist = torch.empty(256 * -(-n // _kernels.RBK_TILE) + 256, dtype=torch.int32, device=dev)
+    work = torch.empty(3 + max_items, dtype=torch.int64, device=dev)
+    # the set of the dirty groups: at least twice their count, unless no
+    # slot or every slot is dirty
+    set_cap, set_lanes = 0, []
+    if 0 < n_dirty < cap:
+        set_cap = 1 << max(10, (2 * n_dirty - 1).bit_length())
+        set_lanes = [torch.empty(set_cap, dtype=torch.int32, device=dev) for _ in range(3)]
+        set_lanes += [torch.empty(set_cap, dtype=g.dtype, device=dev) for g in glanes]
     in_topk = torch.empty(cap, dtype=torch.bool, device=dev)
     gdirty = torch.empty(cap, dtype=torch.bool, device=dev)
     _kernels.call(
-        "topn_rank", "rw_group_topk_mask", _kernels.int64_rows(_key_rows(keys), RANK_KEYS),
-        len(keys), len(glanes), cap, table.live.data_ptr(), epoch_dirty.data_ptr(), int(k),
-        ws["keys"].data_ptr(), ws["idx"].data_ptr(), ws["hist"].data_ptr(),
-        ws["bits"].data_ptr(), in_topk.data_ptr(), gdirty.data_ptr(),
+        "topn_rank", "rw_group_topk_mask", key_rows, len(keys), n_group, cap,
+        table.live.data_ptr(), epoch_dirty.data_ptr(), int(k),
+        _kernels.int64_rows([plan_rows], 1), _kernels.int64_rows([[t.data_ptr() for t in set_lanes]], 1),
+        set_cap, part.data_ptr(), keys_buf.data_ptr(), idx_buf.data_ptr(), hist.data_ptr(),
+        work.data_ptr(), in_topk.data_ptr(), gdirty.data_ptr(),
     )
     return in_topk, gdirty
 
