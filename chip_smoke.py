@@ -8,8 +8,9 @@ Phases, each printing one JSON line:
   2. build: compile every kernel library from ``risingwave_tpu_torch/csrc``;
   3. each kernel against its plain PyTorch version on the card, on the
      same seeded inputs at the main paths' shapes (A-D: about 300k rows
-     per apply, tables of 2^24 slots; E-H: a 16-chunk epoch of 65,536
-     bid rows, 5,242,880 hopped rows, tables of 2^24 slots; I: a
+     per apply, tables of 2^24 slots, and A on warps of one repeated new
+     key and on keys whose hash128 h1 collide; E-H: a 16-chunk epoch of
+     65,536 bid rows, 5,242,880 hopped rows, tables of 2^24 slots; I: a
      2^24-slot table rebuilt to 2^25 slots; J: a 65,536-row auction
      chunk on a 2^23-slot seen-set; L: a 32,768-row person chunk into a
      (2^23, 8) join side, and L's regrow entry from 2^20 to 2^21 slots;
@@ -47,7 +48,11 @@ Phases, each printing one JSON line:
      predicate; T, the watermark filter, on 65,536-row chunks with late
      inserts, retractions below the floor and torn pairs, mask, ops and
      running max exact; U, V, W and X at the TopN paths' shapes (run
-     beside phases 18, 19 and 23, while their streams are on the card);
+     beside phases 18, 19 and 23, while their streams are on the card),
+     and X on small stores built to reach each of its branches (ties
+     across the k-th place, groups of k and k + 1 rows, dead-only
+     groups, float and INT64-extreme keys, keys past 64 bits); A's and
+     X's rows also give their device-only time (``torch.profiler``);
      Y, the SimpleAgg fold, on a 2^17-row U-/U+ flush chunk of q102's
      second count (COUNT(*), SUM(bid_count), a COUNT and float64 and
      float32 SUMs) and an append-only chunk through MIN/MAX calls, then a
@@ -380,6 +385,28 @@ def time_ms(torch, fn, reps: int, setup=None) -> float:
     return total / reps
 
 
+def device_time_ms(torch, fn, reps: int, setup=None) -> float:
+    """Device-only time of ``fn`` a call: ``torch.profiler``'s CUDA time
+    over ``reps`` calls (after a warm-up), less ``setup``'s device-to-device
+    copies (``restore_table``), over ``reps``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if setup is not None:
+        setup()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if setup is not None:
+                setup()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.self_device_time_total for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and not ev.key.startswith("Memcpy DtoD"))
+    return total / 1e3 / reps if total > 0 else None  # None: the profiler saw no kernel
+
+
 def check(cond, what: str) -> None:
     if not cond:
         raise AssertionError(f"check failed: {what}")
@@ -442,6 +469,77 @@ def assert_lanes_equal(torch, a: dict, b: dict, what: str) -> None:
 
 
 # -- phase 3: each kernel against its plain version ------------------------
+def a_same(torch, base, keys, valid, what: str) -> None:
+    """Kernel A and its plain version on copies of ``base``, held row for
+    row (found, inserted, placed), rows sharing a slot iff they share a
+    key, keys that were in ``base`` at their slot, the same stored keys
+    and claimed count."""
+    from risingwave_tpu_torch.ops import hash_table as ht
+
+    ta, tp = clone_table(base), clone_table(base)
+    _, sa, fa, ia = ht.lookup_or_insert(ta, keys, valid)
+    _, sp, fp, ip = ht._lookup_or_insert_torch(tp, keys, valid)
+    torch.cuda.synchronize()
+    check(torch.equal(fa, fp) and torch.equal(ia, ip), f"A {what}: found, inserted per row")
+    check(torch.equal(sa >= 0, sp >= 0), f"A {what}: placed rows")
+    ok = valid & (sa >= 0)
+    _, key_id = torch.unique(torch.stack([k[ok] for k in keys], 1), dim=0, return_inverse=True)
+    s = sa[ok].long()
+    pairs = torch.unique(torch.stack([key_id, s], 1), dim=0)
+    check(pairs.shape[0] == int(key_id.max()) + 1 == torch.unique(s).numel(),
+          f"A {what}: rows share a slot iff they share a key")
+    old = fp & ok
+    check(torch.equal(sa[old], sp[old]), f"A {what}: existing keys at their slot")
+    stored = lambda t: torch.unique(torch.stack([k[t.fp1 != 0] for k in t.keys], 1), dim=0)
+    check(torch.equal(stored(ta), stored(tp)), f"A {what}: same stored keys")
+    check(int(ta.claimed) == int(tp.claimed) == int((ta.fp1 != 0).sum()),
+          f"A {what}: claimed-slot counter")
+
+
+def a_hard_batches(torch, dev, rng) -> dict:
+    """A against its plain version where warps meet one key: a new key
+    repeated over whole warps (and each of 128 new keys over one warp),
+    and keys whose hash128 h1 agree but whose keys differ (pairs found by
+    a host search with the plain hash128 over 2^18 random keys), both
+    new, then both found, interleaved in single warps."""
+    from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.ops.hashing import hash128
+
+    base = ht.HashTable.create(1 << 16, (torch.int64, torch.int64), device=dev)
+    pre = torch.from_numpy(rng.choice(1 << 40, 8_000, replace=False).astype(np.int64)).to(dev)
+    _, pre_slots, _, _ = ht._lookup_or_insert_torch(
+        base, (pre, pre * 3), torch.ones(8_000, dtype=torch.bool, device=dev))
+    base.live[pre_slots[::2].long()] = True  # the rest: tombstones
+    hot = np.full(4096, (1 << 41) + 7, np.int64)  # one new key over 128 warps
+    per_warp = np.repeat((1 << 42) + np.arange(128, dtype=np.int64), 32)
+    old = pre[torch.from_numpy(rng.integers(0, 8_000, 4096)).to(dev)].cpu().numpy()
+    k0 = torch.from_numpy(np.concatenate([hot, per_warp, old])).to(dev)
+    valid = torch.from_numpy(rng.random(len(k0)) > 0.02).to(dev)
+    a_same(torch, base, (k0, k0 * 3), valid, "repeated new keys")
+
+    cand = torch.from_numpy(rng.choice(1 << 50, 1 << 18, replace=False).astype(np.int64)).to(dev)
+    h1, _ = hash128((cand,))
+    order = torch.argsort(h1)
+    hs = h1[order]
+    same = torch.nonzero(hs[1:] == hs[:-1]).flatten()
+    check(same.numel() > 0, "A: an h1 collision among 2^18 keys")
+    a_keys, b_keys = cand[order[same]], cand[order[same + 1]]
+    check(bool((a_keys != b_keys).all()), "A: colliding keys differ")
+    pair = torch.stack([a_keys, b_keys], 1)  # (m, 2)
+    # per pair two warps: a, b alternating, then a's and b's halves
+    lane = torch.arange(32, device=dev)
+    alt = pair[:, lane % 2]
+    halves = pair[:, (lane >= 16).long()]
+    keys1 = torch.cat([alt, halves], 1).reshape(-1)
+    one = ht.HashTable.create(1 << 12, (torch.int64,), device=dev)
+    ones = torch.ones(len(keys1), dtype=torch.bool, device=dev)
+    a_same(torch, one, (keys1,), ones, "h1-colliding keys, new")
+    _, placed, _, _ = ht._lookup_or_insert_torch(one, (keys1,), ones)
+    one.live[placed[::3].long()] = True
+    a_same(torch, one, (keys1,), ones, "h1-colliding keys, found")
+    return {"repeated_rows": len(k0), "h1_collisions": int(same.numel())}
+
+
 def kernel_a(torch, dev, rng):
     from risingwave_tpu_torch.ops import hash_table as ht
     from risingwave_tpu_torch.ops.hashing import hash128
@@ -520,7 +618,11 @@ def kernel_a(torch, dev, rng):
 
     n_valid = int(valid.sum())
     n_new = int((c.sum() - (base.fp1 != 0).sum()))
-    nbytes = ROWS * (16 + 1 + 4 + 1 + 1) + n_valid * (4 + 4 + 4 + 16 + 1) + n_new * 28
+    # per row its two key lanes and valid read, slot, found and inserted
+    # written; per valid row the stamp, key lanes and live of its slot
+    # read (a probe reads no fingerprint); per new slot its fp1, fp2,
+    # stamp and key lanes written
+    nbytes = ROWS * (16 + 1 + 4 + 1 + 1) + n_valid * (4 + 16 + 1) + n_new * 28
     setup = lambda: restore_table(ta, base)
     ms = time_ms(torch, lambda: ht.lookup_or_insert(ta, (k0, k1), valid), 5, setup)
     setup_p = lambda: restore_table(tp, base)
@@ -534,14 +636,18 @@ def kernel_a(torch, dev, rng):
     ms_end = time_ms(torch, lambda: ht.lookup_or_insert(te, (k0, k1), valid), 5,
                      lambda: restore_table(te, end))
     del end, te
+    dev_ms = device_time_ms(torch, lambda: ht.lookup_or_insert(ta, (k0, k1), valid), 5, setup)
+    hard = a_hard_batches(torch, dev, rng)
     return {
         "name": "A lookup_or_insert", "route": "cuda",
         "source": "risingwave_tpu_torch/csrc/lookup_or_insert.cu",
         "replaces": "risingwave_tpu/ops/hash_table.py:119",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
-        "bound_by": "bytes", "library_ms": None, "ms_at_end_load": ms_end,
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "library_ms": None,
+        "ms_at_end_load": ms_end,
         "shape": {"rows": ROWS, "capacity": TABLE_CAP, "new_slots": n_new,
-                  "occupied_before": MID_KEYS, "occupied_before_end_load": END_KEYS},
+                  "occupied_before": MID_KEYS, "occupied_before_end_load": END_KEYS,
+                  **hard},
     }, (ta, sa, k0, k1, valid)
 
 
@@ -5484,12 +5590,177 @@ def pairs_chunk(torch, dev, rng, topn, n: int, new_value, fresh_key):
     return StreamChunk.from_numpy(cols, n, ops=ops, device=dev)
 
 
+X_HARD_CAP = 1 << 12  # slots of each of X's hard stores
+
+
+def x_store(torch, dev, rng, groups, order, pk, live, cap=X_HARD_CAP):
+    """A TopN row store for X alone: the rows at random slots of ``cap``,
+    the store keys the group lanes and an int64 pk."""
+    from risingwave_tpu_torch.ops.hash_table import HashTable
+
+    at = torch.from_numpy(rng.choice(cap, len(order), replace=False)).to(dev)
+
+    def lane(vals):
+        v = torch.from_numpy(np.asarray(vals)).to(dev)
+        out = torch.zeros(cap, dtype=v.dtype, device=dev)
+        out[at] = v
+        return out
+
+    glanes = tuple(lane(g) for g in groups)
+    rows = {f"g{i}": g for i, g in enumerate(glanes)}
+    rows["o"] = lane(order)
+    table = HashTable.create(cap, tuple(g.dtype for g in glanes) + (torch.int64,), device=dev)
+    for tk, g in zip(table.keys, glanes):
+        tk.copy_(g)
+    table.keys[-1].copy_(lane(np.asarray(pk, np.int64)))
+    table.live.copy_(lane(np.asarray(live, np.bool_)))
+    return table, rows, glanes, at
+
+
+def x_hard_stores(torch, dev, rng) -> dict:
+    """X against its plain version, per slot, on small stores built to
+    reach each of its branches: ties in (group, order key) across the
+    k-th place broken by pk (against slot order); groups of exactly k
+    and k + 1 live rows under dead rows of better order values; a group
+    of dead rows only, with an epoch-dirty slot; float order lanes with
+    NaN, -0.0 and infinities; INT64 extremes in every lane; a packed key
+    past 64 bits (the order key cut), and group lanes past 64 bits on
+    their own (the inexact groups), once with several groups in one run
+    of equal key; nine group lanes. Each with no slot, some slots and
+    every slot epoch-dirty, k in (1, 3, 10, 11), ASC and DESC. Then
+    ``x_long_runs``."""
+    from risingwave_tpu_torch.executors import top_n_plain as tp
+
+    i_min, i_max = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+    stores = {}
+    # ties and group sizes: g1 15 rows tied; g2 8 then 4 tied across the
+    # 10th place; g3 exactly 10 live, g4 exactly 11, each under dead rows
+    # of better order; g5 dead rows only
+    g = np.repeat(np.arange(1, 6), (15, 12, 14, 15, 6)).astype(np.int64)
+    o = np.r_[np.full(15, 5), np.full(8, 1), np.full(4, 5), rng.integers(0, 4, 10),
+              np.full(4, i_min), rng.integers(0, 4, 11), np.full(4, i_min),
+              np.full(6, -3)].astype(np.int64)
+    live = np.r_[np.ones(37, bool), np.zeros(4, bool), np.ones(11, bool), np.zeros(10, bool)]
+    pk = rng.permutation(len(g)).astype(np.int64)
+    stores["ties"] = ((g,), o, pk, live)
+    vals = np.array([np.nan, -np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5, -1.5])
+    for ft in (np.float32, np.float64):
+        n = 180
+        stores[f"floats_{np.dtype(ft).name}"] = (
+            (rng.integers(0, 6, n).astype(np.int64),), vals[rng.integers(0, 8, n)].astype(ft),
+            np.arange(n, dtype=np.int64)[::-1].copy(), rng.random(n) < 0.8)
+    ext = np.array([i_min, i_min + 1, -1, 0, 1, i_max - 1, i_max], np.int64)
+    n = 140
+    stores["int64_extremes"] = (
+        (ext[rng.integers(0, 7, n)],), ext[rng.integers(0, 7, n)],
+        np.r_[ext, rng.choice(1 << 40, n - 7, replace=False)].astype(np.int64),
+        rng.random(n) < 0.85)
+    # 40 varying group bits and a full 64-bit order key: the key is cut
+    n = 400
+    big = rng.integers(1 << 39, 1 << 40, 8)
+    ords = rng.integers(i_min, i_max, 60, dtype=np.int64)
+    stores["key_past_64"] = ((big[rng.integers(0, 8, n)].astype(np.int64),),
+                             ords[rng.integers(0, 60, n)], np.arange(n, dtype=np.int64),
+                             rng.random(n) < 0.9)
+    # two full-range group lanes: the group bits alone pass 64
+    n = 600
+    ga = rng.integers(i_min, i_max, 4, dtype=np.int64)
+    gb = rng.integers(i_min, i_max, 3, dtype=np.int64)
+    stores["groups_past_64"] = ((ga[rng.integers(0, 4, n)], gb[rng.integers(0, 3, n)]),
+                                rng.integers(0, 5, n).astype(np.int64),
+                                rng.permutation(n).astype(np.int64), rng.random(n) < 0.9)
+    # 1 + 64 group bits: a run of equal key holds the groups whose second
+    # lane differs only in its low bits
+    n = 600
+    stores["groups_share_run"] = ((rng.integers(0, 2, n).astype(np.int64),
+                                   np.array([0, 1, 2, 3, -1], np.int64)[rng.integers(0, 5, n)]),
+                                  rng.integers(0, 3, n).astype(np.int64),
+                                  rng.permutation(n).astype(np.int64), rng.random(n) < 0.9)
+    n = 500
+    stores["nine_group_lanes"] = (tuple(rng.integers(0, 2, n).astype(np.int64) for _ in range(9)),
+                                  rng.integers(0, 4, n).astype(np.int64),
+                                  rng.permutation(n).astype(np.int64), rng.random(n) < 0.9)
+    n = 100
+    stores["bool_group_int32_order"] = (
+        (rng.random(n) < 0.5,), np.array([-2**31, -1, 0, 1, 2**31 - 1], np.int32)[
+            rng.integers(0, 5, n)], np.arange(n, dtype=np.int64), rng.random(n) < 0.9)
+    cases = 0
+    for name, (groups, order, pk, lv) in stores.items():
+        table, rows, glanes, at = x_store(torch, dev, rng, groups, order, pk, lv)
+        some = torch.zeros(X_HARD_CAP, dtype=torch.bool, device=dev)
+        some[at[torch.from_numpy(rng.random(len(at)) < 0.1).to(dev)]] = True
+        some[at[-1]] = True  # g5's last dead row in "ties"
+        none = torch.zeros_like(some)
+        every = torch.ones_like(some)
+        for dirty in (none, some, every):
+            for k in (1, 3, 10, 11):
+                for desc in (False, True):
+                    got = tp._group_topk_mask_cuda(table, rows, dirty, k, desc, glanes, "o")
+                    want = tp._group_topk_mask_torch(table, rows, dirty, k, desc, glanes, "o")
+                    torch.cuda.synchronize()
+                    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                          f"X {name} (k {k}, desc {desc}): in_topk, gdirty")
+                    cases += 1
+    return {"hard_cases": cases, **x_long_runs(torch, dev, rng)}
+
+
+X_LONG_CAP = 1 << 18  # slots of each of X's long-run stores
+X_LONG_TIED = 150_000  # rows of the one tie run across the k-th place
+
+
+def x_long_runs(torch, dev, rng) -> dict:
+    """X against its plain version on runs of tied rows across the k-th
+    place far longer than ``TOPK_LONG_RUN`` (sorted by
+    ``rw_group_topk_long``, not counted by one warp): one group of
+    ``X_LONG_TIED`` live rows of one order value beside 200 small groups
+    (exact groups), and 120,000 rows whose group bits pass 64 in two runs
+    of equal key of five groups each (inexact groups); k 1, 10 and 1,000,
+    ASC and DESC, no slot and some slots epoch-dirty. X's time on each
+    (k = 10), with the long entry's launches."""
+    from risingwave_tpu_torch import _kernels
+    from risingwave_tpu_torch.executors import top_n_plain as tp
+
+    n_small = 200 * 20
+    n = X_LONG_TIED + n_small
+    stores = {
+        "tied": ((np.r_[np.zeros(X_LONG_TIED, np.int64),
+                        np.repeat(np.arange(1, 201), 20).astype(np.int64)],),
+                 np.r_[np.full(X_LONG_TIED, 7), rng.integers(0, 9, n_small)].astype(np.int64),
+                 rng.permutation(n).astype(np.int64), rng.random(n) < 0.97),
+    }
+    n = 120_000
+    stores["groups_share_run"] = ((rng.integers(0, 2, n).astype(np.int64),
+                                   np.array([0, 1, 2, 3, -1], np.int64)[rng.integers(0, 5, n)]),
+                                  rng.integers(0, 50, n).astype(np.int64),
+                                  rng.permutation(n).astype(np.int64), rng.random(n) < 0.97)
+    out = {}
+    for name, (groups, order, pk, lv) in stores.items():
+        table, rows, glanes, at = x_store(torch, dev, rng, groups, order, pk, lv, X_LONG_CAP)
+        some = torch.zeros(X_LONG_CAP, dtype=torch.bool, device=dev)
+        some[at[torch.from_numpy(rng.random(len(at)) < 0.01).to(dev)]] = True
+        for dirty in (torch.zeros_like(some), some):
+            for k in (1, 10, 1000):
+                for desc in (False, True):
+                    before = _kernels.LAUNCHES["group_topk_long"]
+                    got = tp._group_topk_mask_cuda(table, rows, dirty, k, desc, glanes, "o")
+                    want = tp._group_topk_mask_torch(table, rows, dirty, k, desc, glanes, "o")
+                    torch.cuda.synchronize()
+                    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                          f"X long {name} (k {k}, desc {desc}): in_topk, gdirty")
+                    check(_kernels.LAUNCHES["group_topk_long"] == before + 1,
+                          f"X long {name} (k {k}): the long runs sorted")
+        fn = lambda: tp._group_topk_mask_cuda(table, rows, some, 10, False, glanes, "o")
+        out[f"long_{name}_ms"] = time_ms(torch, fn, 3)
+        out[f"long_{name}_rows"] = len(order)
+    return out
+
+
 def kernel_vx(torch, dev, rng, chunks):
     """V and X at q19's shapes: a 2^26-slot retractable store after phase
     4's 20 epochs (each earlier epoch's marks cleared, as its barrier
     does); V on a 65,536-row chunk of U-/U+ pairs, deletes and inserts;
     then X (k = 10) over the store with the last epoch's and the chunk's
-    epoch-dirty rows, per slot exact."""
+    epoch-dirty rows, per slot exact, and on ``x_hard_stores``."""
     from risingwave_tpu_torch.executors import top_n_plain as tp
     from risingwave_tpu_torch.queries.nexmark_q import build_q19
 
@@ -5526,28 +5797,32 @@ def kernel_vx(torch, dev, rng, chunks):
     torch.cuda.synchronize()
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "X: in_topk, gdirty")
     ms = time_ms(torch, lambda: tp.group_topk_mask(*args), 3)
+    dev_ms = device_time_ms(torch, lambda: tp.group_topk_mask(*args), 3)
+    hard = x_hard_stores(torch, dev, rng)
     plain = time_ms(torch, lambda: tp._group_topk_mask_torch(
         topn.table, topn.rows, topn.epoch_dirty, topn.limit, topn.desc,
         (topn.rows["auction"],), topn.order_col), 1)
     okey = topn.rows["price"]
     lib = time_ms(torch, lambda: torch.sort(okey, stable=True), 3)
     cap = topn.table.capacity
-    # per slot the group lane, live 1, the order lane, the store keys
-    # that are not group lanes and epoch_dirty 1 read; in_topk and gdirty
-    # written
-    key_lanes = (topn.rows[g] for g in topn.group_by)
-    key_lanes = (*key_lanes, topn.rows[topn.order_col], *topn.table.keys[len(topn.group_by):])
-    nbytes = cap * (sum(a.element_size() for a in key_lanes) + 1 + 1 + 2)
+    n_live = int(topn.table.live.sum())
+    # what X must touch: per slot live and epoch_dirty read, the group
+    # lanes read (gdirty), in_topk and gdirty written; per live row its
+    # order lane read. The store keys that are not group lanes are read
+    # only inside runs of tied rows across a group's k-th place (not
+    # counted)
+    g_bytes = sum(topn.rows[g].element_size() for g in topn.group_by)
+    nbytes = cap * (1 + 1 + g_bytes + 2) + n_live * topn.rows[topn.order_col].element_size()
     x_row = {"name": "X group top-k mask", "route": "cuda",
              "source": "risingwave_tpu_torch/csrc/topn_rank.cu",
              "replaces": "risingwave_tpu/executors/top_n_plain.py:390",
-             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
-             "bound_by": "bytes", "library_ms": lib,
+             "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+             "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "library_ms": lib,
              "library_call": "torch.sort(stable=True) of one 64-bit lane of the store (the "
                              "composite key's order lane alone)",
-             "shape": {"capacity": cap, "live_rows": int(topn.table.live.sum()), "k": topn.limit,
+             "shape": {"capacity": cap, "live_rows": n_live, "k": topn.limit,
                        "epoch_dirty": int(topn.epoch_dirty.sum()),
-                       "in_topk": int(got[0].sum()), "gdirty": int(got[1].sum())}}
+                       "in_topk": int(got[0].sum()), "gdirty": int(got[1].sum()), **hard}}
     return v_row, x_row
 
 

@@ -16,8 +16,10 @@ two per call of B (the apply and its set_live), one per 24 lanes moved
 by a call of I; the entry points of ``ENTRY_KEYS`` count under their
 own names (S's ``rw_project`` under ``expr_eval``, its ``rw_filter``
 under ``expr_filter``, X's ``rw_group_topk_mask`` under
-``group_topk`` and its ``rw_group_topk_fold`` under ``group_topk_fold``, Z's ``rw_dyn_left_step`` under ``dyn_general`` and its
-``rw_dyn_rv_diff`` under ``dyn_rv_diff``, AA's ``rw_unnest``,
+``group_topk``, its ``rw_group_topk_fold`` under
+``group_topk_fold`` and its ``rw_group_topk_long`` under
+``group_topk_long``, Z's ``rw_dyn_left_step`` under ``dyn_general`` and
+its ``rw_dyn_rv_diff`` under ``dyn_rv_diff``, AA's ``rw_unnest``,
 ``rw_series`` and ``rw_expand`` under ``unnest``, ``series`` and
 ``expand``, AC's ``rw_arena_append`` under ``arena`` and its
 ``rw_arena_emit`` under ``arena_emit``, AD's ``rw_over_step`` under
@@ -175,8 +177,9 @@ SIGNATURES = {
     },
     "topn_rank": {
         "rw_rank_top": [_P, _I, _L, _P, _P, _P, _P, _P, _L, _P, _P, _P],
-        "rw_group_topk_fold": [_P, _I, _I, _L, _P, _P, _P, _P, _P],
-        "rw_group_topk_mask": [_P, _I, _I, _L, _P, _P, _I, _P, _P, _L] + [_P] * 7,
+        "rw_group_topk_fold": [_P, _I, _I, _L, _P, _P, _P, _P, _P, _P],
+        "rw_group_topk_mask": [_P, _I, _I, _L, _P, _P, _I, _P, _P, _L] + [_P] * 9,
+        "rw_group_topk_long": [_P, _I, _I, _I, _I, _P, _P, _L, _L, _L] + [_P] * 8,
     },
     "simple_agg": {
         "rw_simple_apply": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P],
@@ -295,6 +298,7 @@ ENTRY_KEYS = {
     "rw_filter": "expr_filter",
     "rw_group_topk_mask": "group_topk",
     "rw_group_topk_fold": "group_topk_fold",
+    "rw_group_topk_long": "group_topk_long",
     "rw_dyn_rv_diff": "dyn_rv_diff",
     "rw_unnest": "unnest",
     "rw_series": "series",
@@ -399,6 +403,8 @@ def call(name: str, fn: str, *args) -> None:
     allocation on the stream and have it overwritten before the kernel
     reads it. Blocks freed after ``call`` returns are safe, since the
     allocator reuses them only in stream order."""
+    # the raw handle: torch.cuda.current_stream() builds a Stream object
+    # a launch (about 9 us of host time on the card's machine)
     stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     rc = getattr(library(name), fn)(*args, stream)
     if rc != 0:

@@ -46,7 +46,7 @@ struct FreeSlots {
     }
     return c;
   }
-  __device__ void on_select(int64_t, uint8_t, int64_t) const {}
+  __device__ void on_select(int64_t, uint8_t) const {}
   __device__ void on_total(long long*) const {}
 };
 
@@ -67,7 +67,7 @@ struct LiveRows {
     *aux = del;
     return c;
   }
-  __device__ void on_select(int64_t, uint8_t, int64_t) const {}
+  __device__ void on_select(int64_t, uint8_t) const {}
   __device__ void on_total(long long*) const {}
 };
 
@@ -87,7 +87,7 @@ struct ClosedSlots {
     }
     return c;
   }
-  __device__ void on_select(int64_t, uint8_t, int64_t) const {}
+  __device__ void on_select(int64_t, uint8_t) const {}
   __device__ void on_total(long long*) const {}
 };
 

@@ -120,7 +120,7 @@ struct SelectFlags {
   __device__ int flags(int64_t cap, int64_t base, uint8_t* f, int* aux) const {
     return ck_flags(L, cap, base, f, aux);
   }
-  __device__ void on_select(int64_t, uint8_t, int64_t) const {}
+  __device__ void on_select(int64_t, uint8_t) const {}
   __device__ void on_total(long long*) const {}
 };
 

@@ -105,7 +105,7 @@ struct ColdFlags {
     *aux = counted;
     return cnt;
   }
-  __device__ void on_select(int64_t, uint8_t, int64_t) const {}
+  __device__ void on_select(int64_t, uint8_t) const {}
   __device__ void on_total(long long*) const {}
 };
 

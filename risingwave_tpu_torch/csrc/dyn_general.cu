@@ -139,7 +139,7 @@ struct DiffFlags {
     }
     return cnt;
   }
-  __device__ void on_select(int64_t s, uint8_t f, int64_t) const {
+  __device__ void on_select(int64_t s, uint8_t f) const {
     passing[s] = (f >> 1) & 1;
     sdirty[s] = 1;
   }

@@ -5,10 +5,11 @@
 //
 // What bounds it on the card: one random probe per row into a table of
 // up to 2^24+ slots, i.e. several scattered 4- and 8-byte accesses per
-// row (the stamp, fp1 and fp2 words, each key lane and live of the probed
-// slot), each costing a 32-byte sector of device memory. The row-side
-// traffic (key lanes in, slots/found/inserted out) is coalesced and
-// small beside that.
+// row (the stamp word, each key lane and live of the probed slot; a
+// claim also writes fp1 and fp2), each costing a 32-byte sector of
+// device memory: the card's rate of random sectors, not its byte rate.
+// The row-side traffic (key lanes in, slots/found/inserted out) is
+// coalesced and small beside that.
 //
 // Design: the reference elects claim winners in lockstep probe rounds
 // (scatter, re-read, verify) because XLA has no atomics. Here each row
@@ -21,10 +22,13 @@
 //      another key probes on its own, so two keys never merge;
 //   3. every other row probes (h1 + t) & mask for t < MAX_PROBE (64)
 //      through probe.cuh's claim protocol: the stamp word read relaxed
-//      beside fp1 and fp2, an EMPTY slot claimed with atomicCAS (0 -> -1)
-//      and published with a release store of this call's generation; only
-//      a slot claimed in this launch (-1, or the generation) is read again
-//      after an acquire load of its stamp. No probe step takes a fence;
+//      beside the first key lane, the key compared exactly (no
+//      fingerprint read: a found key costs its stamp, key lanes and live,
+//      four 32-byte sectors for a two-lane key), an EMPTY slot claimed with
+//      atomicCAS (0 -> -1) and published with a release store of this
+//      call's generation; only a slot claimed in this launch (-1, or the
+//      generation) is read again after an acquire load of its stamp. No
+//      probe step takes a fence;
 //   4. a slot whose stamp is this call's generation is a claim of this
 //      call (the row's own, or a same-key twin's): inserted, not found.
 //      A match claimed in an earlier call reports found = live[slot]

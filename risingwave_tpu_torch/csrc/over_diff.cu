@@ -214,7 +214,7 @@ struct OdPick {
     }
     return c;
   }
-  __device__ void on_select(int64_t, uint8_t, int64_t) const {}
+  __device__ void on_select(int64_t, uint8_t) const {}
   __device__ void on_total(long long*) const {}
 };
 

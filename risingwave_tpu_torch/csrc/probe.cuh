@@ -19,7 +19,8 @@
 // lane of the slot be read with plain loads: no fence. Only a stamp seen
 // as -1 or as this call's generation (a claim of this launch) is read
 // again with an acquire load, spinning while it is -1, before the slot's
-// lanes are read.
+// lanes are read. The claim protocol compares keys alone: equal keys
+// have equal fingerprints, so those serve the read-only probes.
 #pragma once
 
 #include <cuda/atomic>
@@ -28,12 +29,16 @@
 
 #define RW_MAX_PROBE 64
 
-struct KeyLanes {
-  const void* in[RW_MAX_LANES];   // (n,) input key lanes
-  void* tab[RW_MAX_LANES];        // (cap,) table key lanes, same dtypes
-  int dt[RW_MAX_LANES];
+// The key lanes of a probe: at most N (the state tables' RW_MAX_LANES;
+// kernel X's set takes one per group lane, up to its TR_MAX_KEYS - 1).
+template <int N>
+struct KeyLanesN {
+  const void* in[N];   // (n,) input key lanes
+  void* tab[N];        // (cap,) table key lanes, same dtypes
+  int dt[N];
   int n;
 };
+using KeyLanes = KeyLanesN<RW_MAX_LANES>;
 
 // Fill a KeyLanes from n_keys int64 rows of (input ptr, dtype code, table ptr).
 static inline bool rw_key_lanes(const int64_t* lanes, int n_keys, KeyLanes* k) {
@@ -48,7 +53,8 @@ static inline bool rw_key_lanes(const int64_t* lanes, int n_keys, KeyLanes* k) {
 }
 
 // K1 over row i's key lanes: h1 (the probe start) and the stored pair.
-__device__ __forceinline__ void rw_key_hash(const KeyLanes& keys, int64_t i, uint32_t& h1,
+template <class K>
+__device__ __forceinline__ void rw_key_hash(const K& keys, int64_t i, uint32_t& h1,
                                             int32_t& f1, int32_t& f2) {
   uint32_t a = RW_HASH_INIT, b = RW_HASH_INIT ^ RW_SEED_FP2;
   for (int l = 0; l < keys.n; ++l) rw_hash_lane(keys.in[l], keys.dt[l], i, a, b);
@@ -80,7 +86,8 @@ __device__ __forceinline__ bool rw_lane_equal(const void* a, const void* b, int 
 }
 
 // Slot s of the table holds row i's key.
-__device__ __forceinline__ bool rw_keys_equal(const KeyLanes& keys, int64_t s, int64_t i) {
+template <class K>
+__device__ __forceinline__ bool rw_keys_equal(const K& keys, int64_t s, int64_t i) {
   bool eq = true;
   for (int l = 0; l < keys.n && eq; ++l)
     eq = rw_lane_equal(keys.tab[l], keys.in[l], keys.dt[l], s, i);
@@ -88,16 +95,19 @@ __device__ __forceinline__ bool rw_keys_equal(const KeyLanes& keys, int64_t s, i
 }
 
 // Input rows i and j hold the same key.
-__device__ __forceinline__ bool rw_rows_equal(const KeyLanes& keys, int64_t i, int64_t j) {
+template <class K>
+__device__ __forceinline__ bool rw_rows_equal(const K& keys, int64_t i, int64_t j) {
   bool eq = true;
-  for (int l = 0; l < keys.n && eq; ++l) eq = rw_lane_equal(keys.in[l], keys.in[l], keys.dt[l], i, j);
+  for (int l = 0; l < keys.n && eq; ++l)
+    eq = rw_lane_equal(keys.in[l], keys.in[l], keys.dt[l], i, j);
   return eq;
 }
 
 // Read-only probe of row i: its slot, or -1 when the chain reaches an
 // EMPTY slot (or runs past max_probe) without the key. No other thread
 // writes the table during the launch.
-__device__ __forceinline__ int32_t rw_probe_readonly(const KeyLanes& keys, int64_t i,
+template <class K>
+__device__ __forceinline__ int32_t rw_probe_readonly(const K& keys, int64_t i,
                                                      const int32_t* fp1, const int32_t* fp2,
                                                      uint32_t mask,
                                                      int64_t max_probe = RW_MAX_PROBE) {
@@ -126,11 +136,15 @@ __device__ __forceinline__ void rw_lane_store(void* tab, const void* in, int dt,
 
 using rw_stamp_ref = cuda::atomic_ref<int32_t, cuda::thread_scope_device>;
 
-// Find row i's key (fingerprints f1, f2, home h1) or claim an EMPTY slot
-// for it, over at most max_probe slots. Returns the slot, or -1; *seen
-// gets the slot's published stamp (gen for a claim of this call, this
-// row's or a same-key twin's) and *claimed whether this row claimed it.
-__device__ __forceinline__ int32_t rw_find_or_claim(const KeyLanes& keys, int64_t i, uint32_t h1,
+// Find row i's key (home h1) or claim an EMPTY slot for it (writing its
+// fingerprints f1, f2), over at most max_probe slots. A probe step reads
+// the stamp and the first key lane together and compares the keys
+// exactly, without reading the fingerprints: a found key costs the stamp
+// and its key lanes. Returns the slot, or -1; *seen gets the slot's
+// published stamp (gen for a claim of this call, this row's or a same-key
+// twin's) and *claimed whether this row claimed it.
+template <class K>
+__device__ __forceinline__ int32_t rw_find_or_claim(const K& keys, int64_t i, uint32_t h1,
                                                     int32_t f1, int32_t f2, int32_t* fp1,
                                                     int32_t* fp2, int32_t* stamp, uint32_t mask,
                                                     int32_t gen, int64_t max_probe, int32_t* seen,
@@ -138,7 +152,7 @@ __device__ __forceinline__ int32_t rw_find_or_claim(const KeyLanes& keys, int64_
   for (int64_t t = 0; t < max_probe; ++t) {
     const int64_t s = (int64_t)((h1 + (uint32_t)t) & mask);
     int32_t cur = rw_stamp_ref(stamp[s]).load(cuda::memory_order_relaxed);
-    int32_t a = fp1[s], b = fp2[s];
+    bool eq = rw_lane_equal(keys.tab[0], keys.in[0], keys.dt[0], s, i);
     if (cur == 0) {
       cur = atomicCAS((int*)(stamp + s), 0, -1);
       if (cur == 0) {  // won the claim: write the slot, then publish
@@ -154,10 +168,11 @@ __device__ __forceinline__ int32_t rw_find_or_claim(const KeyLanes& keys, int64_
     if (cur == -1 || cur == gen) {  // claimed in this launch: wait for it, then acquire
       while ((cur = rw_stamp_ref(stamp[s]).load(cuda::memory_order_acquire)) == -1)
         __nanosleep(20);
-      a = fp1[s];
-      b = fp2[s];
+      eq = rw_lane_equal(keys.tab[0], keys.in[0], keys.dt[0], s, i);
     }
-    if (a != f1 || b != f2 || !rw_keys_equal(keys, s, i)) continue;
+    for (int l = 1; l < keys.n && eq; ++l)
+      eq = rw_lane_equal(keys.tab[l], keys.in[l], keys.dt[l], s, i);
+    if (!eq) continue;
     *seen = cur;
     return (int32_t)s;
   }

@@ -133,7 +133,7 @@ struct WinMemberFlags {
     }
     return c;
   }
-  __device__ void on_select(int64_t, uint8_t, int64_t) const {}
+  __device__ void on_select(int64_t, uint8_t) const {}
   __device__ void on_total(long long*) const {}
 };
 

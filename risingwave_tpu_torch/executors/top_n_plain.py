@@ -96,9 +96,10 @@ UPSERT_LANES = 16
 # key lanes one rw_rank_top / rw_group_topk_mask call takes
 # (csrc/topn_rank.cu TR_MAX_KEYS)
 RANK_KEYS = 12
-# group lanes one rw_group_topk_mask call takes (the key lanes of its set
-# of dirty groups, csrc/common.cuh RW_MAX_LANES)
-GROUP_LANES = 8
+# a run of tied rows across a group's k-th place longer than this is
+# sorted by rw_group_topk_long; a shorter one is ranked by one warp
+# (csrc/topn_rank.cu xk_resolve_kernel)
+TOPK_LONG_RUN = 256
 # a key lane's role in csrc/topn_rank.cu (TrMode)
 _KEY_PLAIN, _KEY_ASC, _KEY_DESC, _KEY_LIVE_LAST = 0, 1, 2, 3
 
@@ -368,8 +369,6 @@ def _group_topk_mask_cuda(table, rows, epoch_dirty, k, desc, glanes, order_col):
     if epoch_dirty.dtype != torch.bool:
         raise TypeError("group_topk_mask: epoch_dirty must be a bool lane")
     n_group = len(glanes)
-    if n_group > GROUP_LANES:
-        raise ValueError(f"{n_group} group lanes exceed the kernel's {GROUP_LANES}")
     keys = [(g, _KEY_PLAIN) for g in glanes]
     keys += [(order_lane, _KEY_DESC if desc else _KEY_ASC)]
     keys += [(key, _KEY_PLAIN) for key in table.keys[n_group:]]
@@ -383,14 +382,16 @@ def _group_topk_mask_cuda(table, rows, epoch_dirty, k, desc, glanes, order_col):
                   fold.data_ptr(), host)
     n_live, n_dirty = host[0], host[1]
     plan = topk_pack_plan(host[2:n_group + 3], host[n_group + 3:2 * n_group + 4], n_group)
-    max_items = n_live // (int(k) + 1) + 1
+    # the sort's scratch is sized from the capacity, not the live count,
+    # so every call on a store asks the allocator for the same blocks
+    max_items = cap // (int(k) + 1) + 1
+    max_long = cap // (TOPK_LONG_RUN + 1) + 1
     plan_rows = [n_live, n_dirty, int(plan.exact), plan.gshift, plan.pass_mask, max_items,
-                 len(plan.fields)] + [v for f in plan.fields for v in f]
-    n = max(n_live, 1)
-    keys_buf = torch.empty(2 * n, dtype=torch.int64, device=dev)
-    idx_buf = torch.empty(2 * n, dtype=torch.int32, device=dev)
-    hist = torch.empty(256 * -(-n // _kernels.RBK_TILE) + 256, dtype=torch.int32, device=dev)
-    work = torch.empty(3 + max_items, dtype=torch.int64, device=dev)
+                 max_long, TOPK_LONG_RUN, len(plan.fields)] + [v for f in plan.fields for v in f]
+    keys_buf = torch.empty(2 * cap, dtype=torch.int64, device=dev)
+    idx_buf = torch.empty(2 * cap, dtype=torch.int32, device=dev)
+    hist = torch.empty(256 * -(-cap // _kernels.RBK_TILE) + 256, dtype=torch.int32, device=dev)
+    work = torch.empty(3 + max_items + 4 * max_long, dtype=torch.int64, device=dev)
     # the set of the dirty groups: at least twice their count, unless no
     # slot or every slot is dirty
     set_cap, set_lanes = 0, []
@@ -400,13 +401,30 @@ def _group_topk_mask_cuda(table, rows, epoch_dirty, k, desc, glanes, order_col):
         set_lanes += [torch.empty(set_cap, dtype=g.dtype, device=dev) for g in glanes]
     in_topk = torch.empty(cap, dtype=torch.bool, device=dev)
     gdirty = torch.empty(cap, dtype=torch.bool, device=dev)
+    runs = (ctypes.c_int64 * 3)()
     _kernels.call(
         "topn_rank", "rw_group_topk_mask", key_rows, len(keys), n_group, cap,
         table.live.data_ptr(), epoch_dirty.data_ptr(), int(k),
-        _kernels.int64_rows([plan_rows], 1), _kernels.int64_rows([[t.data_ptr() for t in set_lanes]], 1),
-        set_cap, part.data_ptr(), keys_buf.data_ptr(), idx_buf.data_ptr(), hist.data_ptr(),
-        work.data_ptr(), in_topk.data_ptr(), gdirty.data_ptr(),
+        _kernels.int64_rows([plan_rows], 1),
+        _kernels.int64_rows([[t.data_ptr() for t in set_lanes]], 1), set_cap, part.data_ptr(),
+        keys_buf.data_ptr(), idx_buf.data_ptr(), hist.data_ptr(), work.data_ptr(),
+        in_topk.data_ptr(), gdirty.data_ptr(), runs,
     )
+    n_long, n_rows, cur = runs[0], runs[1], runs[2]
+    if n_rows:  # ties across the k-th place longer than TOPK_LONG_RUN: sort those rows
+        ekeys = torch.empty(2 * n_rows, dtype=torch.int64, device=dev)
+        eidx = torch.empty(2 * n_rows, dtype=torch.int32, device=dev)
+        eslot = torch.empty(n_rows, dtype=torch.int32, device=dev)
+        erun = torch.empty(n_rows, dtype=torch.int32, device=dev)
+        ehist = torch.empty(256 * -(-n_rows // _kernels.RBK_TILE) + 256, dtype=torch.int32,
+                            device=dev)
+        bits = torch.empty(2 * RANK_KEYS, dtype=torch.int64, device=dev)
+        _kernels.call(
+            "topn_rank", "rw_group_topk_long", key_rows, len(keys), n_group, int(plan.exact),
+            int(k), idx_buf.data_ptr() + cur * n_live * idx_buf.element_size(), work.data_ptr(),
+            max_items, n_long, n_rows, ekeys.data_ptr(), eidx.data_ptr(), eslot.data_ptr(),
+            erun.data_ptr(), ehist.data_ptr(), bits.data_ptr(), in_topk.data_ptr(),
+        )
     return in_topk, gdirty
 
 

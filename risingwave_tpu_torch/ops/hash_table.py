@@ -156,13 +156,12 @@ def lookup_or_insert(table: HashTable, key_cols, valid: torch.Tensor):
     raise ValueError(f"unsupported device {valid.device}")
 
 
-def key_lane_rows(table: HashTable, key_cols, n: int, name: str, *row_lanes):
+def key_lane_rows(table: HashTable, key_cols, n: int, name: str):
     """Kernel descriptor rows ``(input, dtype code, table lane)`` of the
-    probe key lanes, checked against the table's lanes (and, with
-    ``row_lanes``, those row lanes of length ``n`` beside the keys)."""
-    _kernels.check_cuda(name, *key_cols, *row_lanes, n=n)
+    probe key lanes, checked against the table's lanes."""
+    _kernels.check_cuda(name, *key_cols, n=n)
     _kernels.check_cuda(
-        name, table.fp1, table.fp2, table.stamp, table.live, *table.keys, n=table.capacity
+        name, table.fp1, table.fp2, table.live, *table.keys, n=table.capacity
     )
     rows = []
     for k, tk in zip(key_cols, table.keys):
@@ -174,23 +173,23 @@ def key_lane_rows(table: HashTable, key_cols, n: int, name: str, *row_lanes):
 
 def _lookup_or_insert_cuda(table: HashTable, key_cols, valid):
     n = valid.shape[0]
-    if valid.dtype != torch.bool:
-        raise TypeError("valid must be a bool lane")
+    cap = table.capacity
+    _kernels.check_cuda("lookup_or_insert", valid, n=n)
+    _kernels.check_cuda("lookup_or_insert", table.stamp, n=cap)
     if table.claimed.shape != () or table.claimed.dtype != torch.int64:
         raise TypeError("claimed must be a () int64 counter")
-    lanes = key_lane_rows(table, key_cols, n, "lookup_or_insert", valid)
-    _kernels.check_cuda("lookup_or_insert", valid, table.claimed)
-    # the three outputs in one allocation (the launch's host time counts
-    # on the per-chunk paths)
-    out = torch.empty(6 * n, dtype=torch.uint8, device=valid.device)
-    slots = out[: 4 * n].view(torch.int32)
-    found = out[4 * n : 5 * n].view(torch.bool)
-    inserted = out[5 * n :].view(torch.bool)
+    _kernels.check_cuda("lookup_or_insert", table.fp1, table.claimed)
+    if valid.dtype != torch.bool:
+        raise TypeError("valid must be a bool lane")
+    lanes = key_lane_rows(table, key_cols, n, "lookup_or_insert")
+    slots = torch.empty(n, dtype=torch.int32, device=valid.device)
+    found = torch.empty(n, dtype=torch.bool, device=valid.device)
+    inserted = torch.empty(n, dtype=torch.bool, device=valid.device)
     _kernels.call(
         "lookup_or_insert", "rw_lookup_or_insert",
         _kernels.int64_rows(lanes, 8), len(lanes), n, valid.data_ptr(),
         table.fp1.data_ptr(), table.fp2.data_ptr(), table.stamp.data_ptr(),
-        table.claimed.data_ptr(), table.live.data_ptr(), table.capacity, table.gen,
+        table.claimed.data_ptr(), table.live.data_ptr(), cap, table.gen,
         slots.data_ptr(), found.data_ptr(), inserted.data_ptr(),
     )
     return table, slots, found, inserted

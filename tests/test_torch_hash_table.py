@@ -95,6 +95,39 @@ def test_duplicates_tombstones_and_invalid_rows():
     _assert_same_tables(r, p)
 
 
+def test_h1_colliding_keys_stay_apart():
+    """Keys whose hash128 h1 agree (the same home slot and fp1) but whose
+    keys differ, found by a search with the plain hash128 over 2^17
+    random keys: inserted together, repeated and interleaved within
+    32-row warps, then found again, each keeps a slot of its own, equal
+    to the reference's."""
+    from risingwave_tpu_torch.ops.hashing import hash128
+
+    rng = np.random.default_rng(0)
+    cand = rng.choice(1 << 50, 1 << 17, replace=False).astype(np.int64)
+    h1, _ = hash128((torch.from_numpy(cand),))
+    h1 = h1.numpy()
+    order = np.argsort(h1, kind="stable")
+    same = np.flatnonzero(h1[order][1:] == h1[order][:-1])
+    assert len(same) >= 2
+    a, b = cand[order[same]], cand[order[same + 1]]
+    assert (a != b).all()
+    pair = np.stack([a, b], 1)
+    lane = np.arange(32)
+    keys = np.concatenate([pair[:, lane % 2], pair[:, (lane >= 16).astype(int)]], 1).reshape(-1)
+    keys = np.concatenate([keys, rng.integers(0, 1 << 50, 64)]).astype(np.int64)
+    valid = rng.random(len(keys)) > 0.05
+    r, p = _tables(1 << 12, (np.int64,))
+    for _ in range(2):  # new, then found
+        r, p, rout, pout = _both(r, p, (keys,), valid)
+        _assert_same_calls(rout, pout, (keys,), valid)
+        _assert_same_tables(r, p)
+        slot_of = {}
+        for k, s in zip(keys[valid].tolist(), pout[0][valid].tolist()):
+            assert slot_of.setdefault(k, s) == s
+        assert len(set(slot_of.values())) == len(slot_of)
+
+
 def test_float_keys_nan_and_signed_zero():
     vals = np.array([0.0, -0.0, np.nan, np.nan, 1.5, -1.5, np.inf, 0.0], np.float64)
     valid = np.ones(len(vals), bool)

@@ -19,6 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import example, given, settings
+from hypothesis import strategies as st
 
 from risingwave_tpu.array.chunk import StreamChunk as RefChunk
 from risingwave_tpu.executors import top_n as rtn
@@ -530,6 +532,166 @@ def test_group_topk_mask_matches_reference(k, desc):
     _eq(pin, rin)
     _eq(pg, rg)
     assert pin.any() and pg.any()
+
+
+def _hard_store(case, rng):
+    """Kernel X's hard stores at a small size (``chip_smoke.x_hard_stores``
+    holds the kernel itself on the same kinds): group lanes, order lane,
+    an int64 pk and live, for rows at random slots of 256."""
+    i_min, i_max = IMIN, IMAX
+    if case == "ties_and_group_sizes":
+        # g1 15 rows tied; g2 8 then 4 tied across the 10th place; g3
+        # exactly 10 live and g4 11, under dead rows of better order; g5
+        # dead rows only
+        g = np.repeat(np.arange(1, 6), (15, 12, 14, 15, 6)).astype(np.int64)
+        o = np.r_[np.full(15, 5), np.full(8, 1), np.full(4, 5), rng.integers(0, 4, 10),
+                  np.full(4, i_min), rng.integers(0, 4, 11), np.full(4, i_min),
+                  np.full(6, -3)].astype(np.int64)
+        live = np.r_[np.ones(37, bool), np.zeros(4, bool), np.ones(11, bool), np.zeros(10, bool)]
+        return (g,), o, rng.permutation(len(g)).astype(np.int64), live
+    n = 120
+    if case.startswith("floats"):
+        vals = np.array([np.nan, -np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5, -1.5])
+        return ((rng.integers(0, 5, n).astype(np.int64),),
+                vals[rng.integers(0, 8, n)].astype(case.split("_")[1]),
+                np.arange(n, dtype=np.int64)[::-1].copy(), rng.random(n) < 0.8)
+    if case == "int64_extremes":
+        ext = np.array([i_min, i_min + 1, -1, 0, 1, i_max - 1, i_max], np.int64)
+        return ((ext[rng.integers(0, 7, n)],), ext[rng.integers(0, 7, n)],
+                np.r_[ext, 100 + np.arange(n - 7)].astype(np.int64), rng.random(n) < 0.85)
+    if case == "key_past_64":  # 40 group bits and a 64-bit order key: the key is cut
+        big = rng.integers(1 << 39, 1 << 40, 4)
+        ords = rng.integers(i_min, i_max, 25, dtype=np.int64)
+        return ((big[rng.integers(0, 4, n)].astype(np.int64),), ords[rng.integers(0, 25, n)],
+                np.arange(n, dtype=np.int64), rng.random(n) < 0.9)
+    assert case == "groups_past_64"  # two full-range group lanes
+    ga = rng.integers(i_min, i_max, 3, dtype=np.int64)
+    gb = rng.integers(i_min, i_max, 2, dtype=np.int64)
+    return ((ga[rng.integers(0, 3, n)], gb[rng.integers(0, 2, n)]),
+            rng.integers(0, 4, n).astype(np.int64), rng.permutation(n).astype(np.int64),
+            rng.random(n) < 0.9)
+
+
+_HARD = ("ties_and_group_sizes", "floats_float32", "floats_float64", "int64_extremes",
+         "key_past_64", "groups_past_64")
+
+
+@pytest.mark.parametrize("case", _HARD)
+def test_group_topk_mask_hard_stores_match_reference(case):
+    """Kernel X's plain version against the reference's
+    ``_group_topk_mask`` on the stores kernel X's redesign must get
+    right: ties in (group, order key) across the k-th place (broken by
+    pk against slot order), groups of exactly k and k + 1 live rows under
+    dead rows of better order, a group of dead rows only with an
+    epoch-dirty slot, NaN, -0.0 and infinities in float order lanes,
+    INT64 extremes in every lane, and keys whose varying bits pass 64
+    (the order key's, and the group lanes' alone); no slot, some slots
+    and every slot epoch-dirty; k of 1, 3, 10 and 11, ASC and DESC."""
+    rng = np.random.default_rng(71 + _HARD.index(case))
+    groups, order, pk, live = _hard_store(case, rng)
+    cap = 256
+    at = rng.choice(cap, len(order), replace=False)
+
+    def lane(vals):
+        out = np.zeros(cap, np.asarray(vals).dtype)
+        out[at] = vals
+        return out
+
+    glanes = [lane(g) for g in groups]
+    names = tuple(f"g{i}" for i in range(len(glanes)))
+    rows = dict(zip(names, glanes), o=lane(order))
+    keys = glanes + [lane(pk)]
+    lv = lane(live)
+    ref = rht.HashTable(jnp.zeros(cap, jnp.uint32), jnp.zeros(cap, jnp.uint32),
+                        tuple(jnp.asarray(k) for k in keys), jnp.asarray(lv))
+    port = pht.HashTable.create(cap, tuple(torch.from_numpy(k).dtype for k in keys), device="cpu")
+    for tk, k in zip(port.keys, keys):
+        tk.copy_(torch.from_numpy(k))
+    port.live.copy_(torch.from_numpy(lv))
+    some = np.zeros(cap, bool)
+    some[at[rng.random(len(at)) < 0.1]] = True
+    some[at[-1]] = True
+    for dirty in (np.zeros(cap, bool), some, np.ones(cap, bool)):
+        for k in (1, 3, 10, 11):
+            for desc in (False, True):
+                rin, rg = rtp._group_topk_mask(ref, {n: jnp.asarray(v) for n, v in rows.items()},
+                                               jnp.asarray(dirty), k, desc, names, "o")
+                pin, pg = ptp.group_topk_mask(port, {n: torch.from_numpy(v) for n, v in
+                                                     rows.items()}, torch.from_numpy(dirty), k,
+                                              desc, names, "o")
+                _eq(pin, rin)
+                _eq(pg, rg)
+
+
+_M64 = (1 << 64) - 1
+
+
+@st.composite
+def _fold_rows(draw):
+    """Rows of 2-4 encoded key lanes (unsigned 64-bit words): per lane a
+    constant with a random span of bits that vary, from one bit to all
+    64."""
+    n_lanes = draw(st.integers(2, 4))
+    n_rows = draw(st.integers(1, 24))
+    lanes = []
+    for _ in range(n_lanes):
+        lo = draw(st.integers(0, 63))
+        hi = draw(st.integers(lo, 63))
+        span = ((1 << (hi - lo + 1)) - 1) << lo
+        base = draw(st.integers(0, _M64)) & ~span
+        lanes.append([base | (draw(st.integers(0, _M64)) & span) for _ in range(n_rows)])
+    return draw(st.integers(1, n_lanes - 1)), [tuple(r) for r in zip(*lanes)]
+
+
+def _span(o: int, a: int) -> int:
+    """Bits from a lane's lowest varying bit to its highest."""
+    v = (o ^ a) & _M64
+    return v.bit_length() - (v & -v).bit_length() + 1 if v else 0
+
+
+_SPAN36 = (1 << 36) - 1
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(_fold_rows())
+# exactly 64 varying bits, rows apart only in the last bit (no cut)
+@example((1, [(0, 0), (0, 1), ((1 << 32) - 1, 0), ((1 << 32) - 1, (1 << 32) - 1)]))
+# two 36-bit group lanes: the group bits alone pass 64
+@example((2, [(0, 0, 5), (_SPAN36, 0, 1), (0, _SPAN36, 2), (_SPAN36, _SPAN36, 1), (0, 1, 3)]))
+# a 40-bit group lane and a 64-bit order key: the order key is cut
+@example((1, [(0, _M64), (0, 0), ((1 << 40) - 1, 7), ((1 << 40) - 1, 8), (5, 1 << 63)]))
+def test_pack_plan_orders_rows_as_their_lanes(case):
+    """``topk_pack_plan``, kernel X's packing plan from the fold (the OR
+    and AND of each lane over the rows): the packed key never orders two
+    rows against their lanes' order (group lanes, then the order key, as
+    unsigned words); without a cut it ties exactly the rows whose lanes
+    tie; with exact groups its top bits tell the groups apart; every
+    byte in which two packed keys differ gets a radix pass."""
+    n_group, rows = case
+    n_lanes = len(rows[0])
+    ors = [0] * n_lanes
+    ands = [_M64] * n_lanes
+    for r in rows:
+        for j, w in enumerate(r):
+            ors[j] |= w
+            ands[j] &= w
+    plan = ptp.topk_pack_plan(ors, ands, n_group)
+    assert plan.bits <= 64
+    assert all(pos + w <= 64 and pos > -w for _, _, w, pos in plan.fields)
+    packed = [plan.pack(r) for r in rows]
+    assert all(0 <= p < (1 << max(plan.bits, 1)) for p in packed)
+    cut = sum(_span(o, a) for o, a in zip(ors, ands)) > 64
+    byte_mask = sum(0xFF << (8 * b) for b in range(8) if (plan.pass_mask >> b) & 1)
+    group = (lambda p: 0 if plan.gshift >= 64 else p >> plan.gshift)
+    for a, pa in zip(rows, packed):
+        for b, pb in zip(rows, packed):
+            if a < b:
+                assert pa <= pb
+            if not cut:
+                assert (pa == pb) == (a == b)
+            if plan.exact:
+                assert (group(pa) == group(pb)) == (a[:n_group] == b[:n_group])
+            assert (pa ^ pb) & ~byte_mask == 0
 
 
 def test_float_order_and_float_key_lanes():

@@ -1,4 +1,4 @@
-"""The CUDA wrappers of kernels H, J, L, M, N, O, P, Q, S, T, U, V, W, X,
+"""The CUDA wrappers of kernels A, H, J, L, M, N, O, P, Q, S, T, U, V, W, X,
 Y, Z, AA-AF, AG, AH and AI marshal their arguments as their C entry points
 declare them (``_kernels.SIGNATURES``), checked on the CPU: each
 wrapper runs on CPU tensors while ``_kernels.call`` is replaced by a
@@ -50,6 +50,31 @@ def _side(cap=64, fanout=4):
         cap, fanout, (torch.int64,), {"k": torch.int64, "v": torch.int32}, nullable=("v",),
         device="cpu",
     )
+
+
+def test_a_entry_marshals(calls):
+    """Kernel A: the key descriptor rows and its three output lanes,
+    written apart; a valid lane that is not bool and a key lane of
+    another dtype are refused."""
+    t = ht.HashTable.create(64, (torch.int64, torch.int32), device="cpu")
+    n = 10
+    keys = (torch.arange(n, dtype=torch.int64), torch.zeros(n, dtype=torch.int32))
+    valid = torch.ones(n, dtype=torch.bool)
+    gen = t.gen
+    _, slots, found, inserted = ht._lookup_or_insert_cuda(t, keys, valid)
+    assert slots.shape == found.shape == inserted.shape == (n,)
+    assert (slots.dtype, found.dtype, inserted.dtype) == (torch.int32, torch.bool, torch.bool)
+    slots.fill_(-1)
+    found.fill_(True)
+    inserted.fill_(False)
+    assert (slots == -1).all() and found.all() and not inserted.any()
+    assert t.gen == gen  # the wrapper leaves generations to lookup_or_insert
+    with pytest.raises(TypeError, match="bool"):
+        ht._lookup_or_insert_cuda(t, keys, valid.to(torch.int32))
+    with pytest.raises(TypeError, match="dtype"):
+        ht._lookup_or_insert_cuda(t, (keys[0], keys[1].long()), valid)
+    assert calls == [("lookup_or_insert", "rw_lookup_or_insert")]
+    assert _kernels.LAUNCHES["lookup_or_insert"] == 1
 
 
 def test_j_entries_marshal(calls):
@@ -365,7 +390,9 @@ def test_v_entry_marshals(calls):
 
 def test_w_and_x_entries_marshal(calls):
     """Kernels W and X: key descriptor rows (lane, dtype code, mode) and
-    the sort's workspace; X counts under its own key."""
+    the sort's workspace; X's fold (its live count and lanes' bits read
+    into a host array) and its mask (the packing plan, the dirty groups'
+    set), each counted under its own key."""
     from risingwave_tpu_torch.executors import top_n_plain as tp
 
     ex = tp.RetractableGroupTopNExecutor(("g",), "v", 2, ("id",),
@@ -378,8 +405,63 @@ def test_w_and_x_entries_marshal(calls):
     assert in_topk.shape == gdirty.shape == (64,)
     with pytest.raises(ValueError, match="sort keys"):
         tp._key_rows([(ex.table.live, 0)] * (tp.RANK_KEYS + 1))
-    assert calls == [("topn_rank", "rw_rank_top"), ("topn_rank", "rw_group_topk_mask")]
+    assert calls == [("topn_rank", "rw_rank_top"), ("topn_rank", "rw_group_topk_fold"),
+                     ("topn_rank", "rw_group_topk_mask")]
     assert _kernels.LAUNCHES["topn_rank"] == 1 and _kernels.LAUNCHES["group_topk"] == 1
+    assert _kernels.LAUNCHES["group_topk_fold"] == 1
+
+
+def test_x_long_runs_and_wide_groups_marshal(monkeypatch):
+    """Kernel X over ten group lanes and a pk (twelve sort keys, its
+    limit; its set of dirty groups takes one key lane per group lane):
+    when the mask reads back tie runs longer than ``TOPK_LONG_RUN``, the
+    wrapper sorts them with ``rw_group_topk_long``, handing it the
+    mask's half of the sorted slots and the runs' count and rows. An
+    eleventh group lane is refused."""
+    from risingwave_tpu_torch.executors import top_n_plain as tp
+    from risingwave_tpu_torch.ops.hash_table import HashTable
+
+    log = []
+
+    def call(name, fn, *args):
+        def body(*a):
+            if fn == "rw_group_topk_fold":  # n_live 40, n_dirty 3
+                host = ctypes.cast(a[8], ctypes.POINTER(ctypes.c_int64))
+                host[0], host[1] = 40, 3
+            if fn == "rw_group_topk_mask":  # 2 long runs of 30 rows, half 1
+                host = ctypes.cast(a[17], ctypes.POINTER(ctypes.c_int64))
+                host[0], host[1], host[2] = 2, 30, 1
+            log.append((fn, a))
+            return 0
+
+        proto = ctypes.CFUNCTYPE(ctypes.c_int, *_kernels.SIGNATURES[name][fn])
+        assert proto(body)(*args, None) == 0
+        _kernels.LAUNCHES[_kernels.ENTRY_KEYS.get(fn, name)] += 1
+
+    monkeypatch.setattr(_kernels, "call", call)
+    monkeypatch.setattr(_kernels, "check_cuda", lambda name, *t, n=None: None)
+    _kernels.reset_launches()
+    cap = 64
+    for n_group in (10, 11):
+        table = HashTable.create(cap, (torch.int64,) * (n_group + 1), device="cpu")
+        glanes = tuple(torch.zeros(cap, dtype=torch.int64) for _ in range(n_group))
+        rows = {"v": torch.zeros(cap, dtype=torch.float64)}
+        dirty = torch.zeros(cap, dtype=torch.bool)
+        if n_group == 11:
+            with pytest.raises(ValueError, match="sort keys"):
+                tp._group_topk_mask_cuda(table, rows, dirty, 3, True, glanes, "v")
+            continue
+        in_topk, gdirty = tp._group_topk_mask_cuda(table, rows, dirty, 3, True, glanes, "v")
+        assert in_topk.shape == gdirty.shape == (cap,)
+    assert [fn for fn, _ in log] == ["rw_group_topk_fold", "rw_group_topk_mask",
+                                     "rw_group_topk_long"]
+    mask, long = log[1][1], log[2][1]
+    assert mask[1] == 12 and mask[2] == 10 and mask[9] > 0  # keys, group lanes, the set
+    assert long[1:5] == (12, 10, 1, 3)  # keys, group lanes, exact (no varying bit), k
+    assert long[5] == mask[12] + 1 * 40 * 4  # the sorted slots: half 1 of idx_buf
+    assert long[6] == mask[14] and long[8:10] == (2, 30)  # work, the runs and their rows
+    assert long[16] == mask[15]  # in_topk
+    assert _kernels.LAUNCHES["group_topk_long"] == 1 and _kernels.LAUNCHES["group_topk"] == 1
 
 
 def test_y_entry_marshals(calls):
