@@ -386,9 +386,11 @@ def time_ms(torch, fn, reps: int, setup=None) -> float:
 
 
 def device_time_ms(torch, fn, reps: int, setup=None) -> float:
-    """Device-only time of ``fn`` a call: ``torch.profiler``'s CUDA time
-    over ``reps`` calls (after a warm-up), less ``setup``'s device-to-device
-    copies (``restore_table``), over ``reps``."""
+    """Device-only time of ``fn`` a call: the summed spans of the device
+    events ``torch.profiler`` records over ``reps`` calls (after a
+    warm-up), less ``setup``'s device-to-device copies
+    (``restore_table``), over ``reps``: the time the trace shows the card
+    busy, which ``key_averages()``' per-kernel totals need not add up to."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -402,8 +404,8 @@ def device_time_ms(torch, fn, reps: int, setup=None) -> float:
                 setup()
             fn()
         torch.cuda.synchronize()
-    total = sum(ev.self_device_time_total for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA and not ev.key.startswith("Memcpy DtoD"))
+    total = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA and not ev.name.startswith("Memcpy DtoD"))
     return total / 1e3 / reps if total > 0 else None  # None: the profiler saw no kernel
 
 

@@ -564,6 +564,19 @@ def _hard_store(case, rng):
         ords = rng.integers(i_min, i_max, 25, dtype=np.int64)
         return ((big[rng.integers(0, 4, n)].astype(np.int64),), ords[rng.integers(0, 25, n)],
                 np.arange(n, dtype=np.int64), rng.random(n) < 0.9)
+    if case == "groups_share_run":  # 1 + 64 group bits: groups share a run of equal key
+        return ((rng.integers(0, 2, n).astype(np.int64),
+                 np.array([0, 1, 2, 3, -1], np.int64)[rng.integers(0, 5, n)]),
+                rng.integers(0, 3, n).astype(np.int64), rng.permutation(n).astype(np.int64),
+                rng.random(n) < 0.9)
+    if case == "long_tie_run":  # one group of 200 rows of one order value, and small ones
+        g = np.r_[np.zeros(200, np.int64), np.repeat(np.arange(1, 6), 8).astype(np.int64)]
+        o = np.r_[np.full(200, 7), rng.integers(0, 9, 40)].astype(np.int64)
+        return (g,), o, rng.permutation(240).astype(np.int64), rng.random(240) < 0.95
+    if case == "ten_group_lanes":
+        return (tuple(rng.integers(0, 2, n).astype(np.int64) for _ in range(10)),
+                rng.integers(0, 4, n).astype(np.int64), rng.permutation(n).astype(np.int64),
+                rng.random(n) < 0.9)
     assert case == "groups_past_64"  # two full-range group lanes
     ga = rng.integers(i_min, i_max, 3, dtype=np.int64)
     gb = rng.integers(i_min, i_max, 2, dtype=np.int64)
@@ -573,7 +586,7 @@ def _hard_store(case, rng):
 
 
 _HARD = ("ties_and_group_sizes", "floats_float32", "floats_float64", "int64_extremes",
-         "key_past_64", "groups_past_64")
+         "key_past_64", "groups_past_64", "groups_share_run", "long_tie_run", "ten_group_lanes")
 
 
 @pytest.mark.parametrize("case", _HARD)
@@ -584,8 +597,10 @@ def test_group_topk_mask_hard_stores_match_reference(case):
     pk against slot order), groups of exactly k and k + 1 live rows under
     dead rows of better order, a group of dead rows only with an
     epoch-dirty slot, NaN, -0.0 and infinities in float order lanes,
-    INT64 extremes in every lane, and keys whose varying bits pass 64
-    (the order key's, and the group lanes' alone); no slot, some slots
+    INT64 extremes in every lane, keys whose varying bits pass 64 (the
+    order key's, and the group lanes' alone, once with several groups in
+    one run of equal key), a tie run of 200 rows across the k-th place,
+    ten group lanes; no slot, some slots
     and every slot epoch-dirty; k of 1, 3, 10 and 11, ASC and DESC."""
     rng = np.random.default_rng(71 + _HARD.index(case))
     groups, order, pk, live = _hard_store(case, rng)
