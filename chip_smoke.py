@@ -390,7 +390,7 @@ def device_time_ms(torch, fn, reps: int, setup=None) -> float:
     events ``torch.profiler`` records over ``reps`` calls (after a
     warm-up), less ``setup``'s device-to-device copies
     (``restore_table``), over ``reps``: the time the trace shows the card
-    busy, which ``key_averages()``' per-kernel totals need not add up to."""
+    busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
