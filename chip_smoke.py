@@ -868,6 +868,7 @@ def kernel_d(torch, dev, rng):
         "replaces": "risingwave_tpu/executors/materialize.py:551",
         "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
         "bound_by": "bytes", "library_ms": None,
+        "library_call": "none: no one PyTorch call upserts with the last row per slot winning",
         "shape": {"rows": n, "capacity": TABLE_CAP, "winners": winners},
     }
 
@@ -1022,6 +1023,8 @@ def kernel_e(torch, dev):
         "replaces": "risingwave_tpu/executors/hop_window.py:27",
         "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
         "bound_by": "bytes", "library_ms": None,
+        "library_call": "none: no one PyTorch call computes each row's windows and tiles "
+                        "every lane",
         "shape": {"chunks": EPOCH_CHUNKS, "chunk_rows": CHUNK_EVENTS, "rows_out": int(ea.valid.numel())},
     }, ea
 
@@ -1212,6 +1215,7 @@ def kernel_h(torch, dev, g_out):
         "replaces": "risingwave_tpu/integrity.py:329",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
         "bound_by": "bytes", "library_ms": None,
+        "library_call": "none: no one PyTorch call hashes rows into the reference's digest",
         "shape": {"capacity": TABLE_CAP, "calls": "agg lanes + MV lanes (one barrier's two digests)",
                   "bytes": nbytes},
     }
@@ -7254,9 +7258,9 @@ P31_CALLS = (("rank", "neg_num", "rk"), ("dense_rank", "neg_num", "drk"),
              ("row_number", None, "rn"), ("lag", "num", "prev"), ("sum", "num", "run"))
 WINDOW_KERNELS = {  # what each path's run must launch
     "p29": ("arena", "arena_emit", "lookup_or_insert", "over_step", "mv_upsert"),
-    "p30": ("hop_expand", "arena", "window_order", "window_calls", "mv_upsert"),
-    "p31": ("hop_expand", "lookup_or_insert", "expr_eval", "over_apply", "window_order",
-            "window_calls", "over_diff", "mv_upsert"),
+    "p30": ("hop_expand", "arena", "window_fold", "window_order", "window_calls", "mv_upsert"),
+    "p31": ("hop_expand", "lookup_or_insert", "expr_eval", "over_apply", "window_fold",
+            "window_order", "window_calls", "over_diff", "mv_upsert"),
 }
 WINDOW_CHAINS = {  # each fused run's chain, as the reference's fuse_chain splits it
     "p29": ["RowIdGenExecutor", "SortExecutor", "OverWindowExecutor",
@@ -7893,8 +7897,13 @@ def kernel_ae_eowc(torch, dev, ep):
             ex.order_col, ex.win_col)
     restore = lambda: ex.valid.copy_(v0)
     ms = time_ms(torch, lambda: ow._eowc_emit_cuda(*args, scratch), 10, restore)
+    dev_ms = device_time_ms(torch, lambda: ow._eowc_emit_cuda(*args, scratch), 3, restore)
     plain = time_ms(torch, lambda: ow._eowc_emit_torch(*args), 2, restore)
     restore()
+    sort = ae_sort_alone(torch, dev, ow, {"cap": P30_CAP, "n_ghost": 0, "m1": ex.valid,
+                                         "win": ex.buf["window_start"], "cutoff": cutoff},
+                         ow._eowc_keys(ex.buf, ex.part_keys, ex.order_col, ex.seq),
+                         len(ex.part_keys), len(ex.part_keys), scratch)
     closed = torch.nonzero(ex.valid).flatten()
     ws = ex.buf["window_start"][closed]
     packed = ((ws - ws.min()) // TUMBLE_MS << 32) | ex.buf["auction"][closed]
@@ -7917,14 +7926,40 @@ def kernel_ae_eowc(torch, dev, ep):
     # lanes, the inputs (price) and every lane gathered; written: every
     # emission lane, call outputs and null lanes
     need = P30_CAP * 9 + m * (8 * 4 + 8 + 8 * n_lanes) + m * (8 * n_lanes + 9 * len(calls) + 1)
+    hard = ae_eowc_hard(torch, dev, np.random.default_rng(SEED + 30))
     return {"name": "AE window order + calls (EOWC emit)", "route": "cuda",
             "source": "risingwave_tpu_torch/csrc/window_calls.cu",
             "replaces": "risingwave_tpu/executors/over_window.py:403", "max_abs_err": 0.0,
-            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(need), "bound_by": "bytes",
-            "library_ms": lib_ms, "library_call": "torch.sort of one packed (window, auction) "
-                                                  "key of the closed rows",
-            "tolerance": "bit for bit, row for row",
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain, "bound_ms": bound_ms(need),
+            "bound_by": "bytes", "library_ms": lib_ms,
+            "library_call": "torch.sort of one packed (window, auction) key of the closed rows",
+            "sort_alone": sort, "hard_cases": hard, "tolerance": "bit for bit, row for row",
             "shape": {"arena": P30_CAP, "closed": int(m), "calls": len(calls)}}
+
+
+def ae_sort_alone(torch, dev, ow, domain, keys, n_part, order_lane, scratch) -> dict:
+    """Kernel AE's sort alone on its own packed keys: the fold and the
+    write of ``window_order`` leave each member's first word in
+    ``scratch["words"]`` (entry order); ``onesweep_sort`` of those keys
+    over the plan's bytes, held to be a stable sort of them, timed beside
+    ``torch.sort`` of the same keys (signed: a timing point only)."""
+    m, fold = ow.window_fold(domain, keys, scratch)
+    plan = ow.window_pack_plan(fold, n_part, order_lane)
+    ow.window_order(domain, keys, plan, m, scratch)
+    words = scratch["words"][:m].clone()
+    sscr = ow.window_scratch(m, 0, dev)
+    mask = plan.pass_masks[0]
+    ms = time_ms(torch, lambda: ow.onesweep_sort(words, sscr, mask), 10)
+    lib = time_ms(torch, lambda: torch.sort(words), 10)
+    got_k, got_p = ow.onesweep_sort(words, sscr, mask)
+    flip = lambda t: t ^ torch.iinfo(torch.int64).min  # unsigned order as signed
+    want = torch.sort(flip(words), stable=True)
+    torch.cuda.synchronize()
+    check(torch.equal(flip(got_k), want.values) and torch.equal(got_p.long(), want.indices),
+          "AE sort alone: a stable sort of the packed keys' first words")
+    return {"ms": ms, "library_ms": lib, "library_call": "torch.sort of the same keys",
+            "keys": m, "bits": plan.bits, "words": plan.words,
+            "passes": sum(bin(x).count("1") for x in plan.pass_masks)}
 
 
 def general_state_clone(ex) -> dict:
@@ -8035,6 +8070,7 @@ def kernel_ae_af(torch, dev, rng, ex):
     rec_p = lambda: ow._general_recompute_torch(ex._state(), touched, ghost, gslots, ex.calls,
                                                 ex.part_keys, ex.order_col)
     ae_ms = time_ms(torch, rec_k, 5)
+    ae_dev = device_time_ms(torch, rec_k, 3)
     ae_plain = time_ms(torch, rec_p, 2)
     out_k, nul_k, dirty_k = rec_k()
     out_p, nul_p, dirty_p = rec_p()
@@ -8049,6 +8085,11 @@ def kernel_ae_af(torch, dev, rng, ex):
     packed = (pk << 40) | (ex.buf["num"][members] & ((1 << 40) - 1))
     ae_lib = time_ms(torch, lambda: torch.sort(packed), 5)
     n_members = int(members.numel())
+    gdom = {"cap": cap, "n_ghost": n, "m1": ex.present, "m2": ex.em_valid,
+            "present": ex.present, "ghost": ghost, "gslot": gslots}
+    sort = ae_sort_alone(torch, dev, ow, gdom, ow._general_keys(ex._state(), ex.part_keys,
+                                                                 ex.order_col),
+                         len(ex.part_keys), len(ex.part_keys) + 1, wscr)
     # diff on the same inputs
     ops_pair = ex._ops if ex._ops is not None else (
         torch.full((cap,), 1, dtype=torch.int32, device=dev),
@@ -8059,6 +8100,7 @@ def kernel_ae_af(torch, dev, rng, ex):
     diff_p = lambda: ow._over_diff_torch(ex._state(), ex.emnulls, out_p, nul_p, dirty_p,
                                          ex.lane_names, ex.out_names, *ops_pair)
     df_ms = time_ms(torch, diff_k, 10, restore1)
+    df_dev = device_time_ms(torch, diff_k, 3, restore1)
     df_plain = time_ms(torch, diff_p, 3, restore1)
     restore1()
     ret_k, ins_k = diff_k()
@@ -8081,6 +8123,8 @@ def kernel_ae_af(torch, dev, rng, ex):
     df_lib = time_ms(torch, lambda: (torch.nonzero(flags_r), torch.nonzero(flags_i)), 10)
     restore()
     af_small = af_ghost_case(torch, dev)
+    hrng = np.random.default_rng(SEED + 31)
+    ae_hard, af_hard = ae_general_hard(torch, dev, hrng), af_diff_hard(torch, dev, hrng)
     lane_b = 8 * len(ex.lane_names)
     ap_need = n * (4 + 1 + 1 + 4 + lane_b + 8) + cap + int(found.numel()) * (lane_b + 8 + 3)
     ae_need = (cap + n) * 3 + n_members * (8 * 4 + 8 * 2) + n_members * 9 * len(ex.calls) + cap
@@ -8096,8 +8140,10 @@ def kernel_ae_af(torch, dev, rng, ex):
         {"name": "AE window order + calls (general recompute)",
          "source": "risingwave_tpu_torch/csrc/window_calls.cu",
          "replaces": "risingwave_tpu/executors/over_window.py:927", "ms": ae_ms,
-         "plain_ms": ae_plain, "bound_ms": bound_ms(ae_need), "library_ms": ae_lib,
-         "library_call": "torch.sort of one packed (window, num) key over the members", **common},
+         "device_ms": ae_dev, "plain_ms": ae_plain, "bound_ms": bound_ms(ae_need),
+         "library_ms": ae_lib,
+         "library_call": "torch.sort of one packed (window, num) key over the members",
+         "sort_alone": sort, "hard_cases": ae_hard, **common},
         {"name": "AF over apply", "source": "risingwave_tpu_torch/csrc/over_diff.cu",
          "replaces": "risingwave_tpu/executors/over_window.py:927", "ms": ap_ms,
          "plain_ms": ap_plain, "bound_ms": bound_ms(ap_need), "library_ms": None,
@@ -8105,8 +8151,10 @@ def kernel_ae_af(torch, dev, rng, ex):
          "ghost_case": af_small, **common},
         {"name": "AF over diff", "source": "risingwave_tpu_torch/csrc/over_diff.cu",
          "replaces": "risingwave_tpu/executors/over_window.py:927", "ms": df_ms,
-         "plain_ms": df_plain, "bound_ms": bound_ms(df_need), "library_ms": df_lib,
-         "library_call": "torch.nonzero of the retract and of the insert mask", **common},
+         "device_ms": df_dev, "plain_ms": df_plain, "bound_ms": bound_ms(df_need),
+         "library_ms": df_lib,
+         "library_call": "torch.nonzero of the retract and of the insert mask",
+         "hard_cases": af_hard, **common},
     ]
 
 
@@ -8139,6 +8187,218 @@ def af_ghost_case(torch, dev) -> dict:
     # the ghost re-emitted the old partition's remaining rows
     check(any(r[0] == 2 for r in outs[1][1]), "AF small: the old partition re-emitted")
     return {"ghost_move": True, "bad_delete": True, "checks": "card = CPU: emissions, digests"}
+
+
+# kernel AE's and AF's hard cases (phase 3): the calls every case computes
+AE_HARD_CALLS = (("rank", "o", "rk"), ("dense_rank", "o", "drk"), ("row_number", None, "rn"),
+                 ("lag", "x", "lg"), ("lead", "x", "ld", {"offset": 2}), ("sum", "x", "sx"),
+                 ("min", "x", "mn"), ("max", "x", "mx"), ("count", None, "cnt"),
+                 ("count", None, "cf", {"frame": (-1, 1)}), ("sum", "x", "sf", {"frame": (-2, 0)}),
+                 ("min", "y", "mf", {"frame": (-1, 1)}))
+AE_HARD_CAP = 3 * 4096 + 17  # not a multiple of any tile (1,024, 2,048, 4,096)
+I64_EXTREMES = (-(2**63), -(2**63) + 1, -7, -1, 0, 1, 3, 2**63 - 2, 2**63 - 1)
+
+
+def _hard_values(rng, kind: str, n: int, lane: int) -> np.ndarray:
+    """A key lane of a hard case: few values (partitions form), int64
+    extremes, wide random int64 (two such lanes pass 64 bits), or one value."""
+    if kind == "wide":
+        return rng.choice(rng.integers(-(2**63), 2**63 - 1, 9, dtype=np.int64), n)
+    if kind == "extremes":
+        return rng.choice(np.asarray(I64_EXTREMES, np.int64), n)
+    if kind == "one_partition" and lane >= 0:
+        return np.full(n, 5, np.int64)
+    return rng.integers(-6, 6, n).astype(np.int64) if lane >= 0 else \
+        rng.integers(-40, 10, n).astype(np.int64)
+
+
+def ae_eowc_hard(torch, dev, rng) -> dict:
+    """Kernel AE's EOWC emit against its plain version on the card, bit for
+    bit and row for row, on arenas made from a seed: two wide partition
+    lanes (the key past 64 bits), int64 extremes in the partition and the
+    order lanes, NULL inputs, one closed row, none, every row in one
+    partition, a domain that is not a multiple of a tile; twelve calls."""
+    from risingwave_tpu_torch.executors import over_window as ow
+
+    calls = window_calls(AE_HARD_CALLS)
+    done = {}
+    for case in ("wide", "extremes", "nulls", "one_member", "no_members", "one_partition",
+                 "ragged"):
+        cap = 64 if case in ("one_member", "no_members") else AE_HARD_CAP
+        n_part = 2 if case == "wide" else 1
+        names = ("w",) + tuple(f"p{k}" for k in range(n_part)) + ("o", "x", "y")
+        buf = {"w": torch.from_numpy(rng.integers(0, 4, cap) * 10).to(dev)}
+        for k in range(n_part):
+            buf[f"p{k}"] = torch.from_numpy(_hard_values(rng, case, cap, k)).to(dev)
+        order_kind = "extremes" if case == "extremes" else "small"
+        buf["o"] = torch.from_numpy(_hard_values(rng, order_kind, cap, -1)).to(dev)
+        buf["x"] = torch.from_numpy(rng.integers(-50, 50, cap)).to(dev)
+        buf["y"] = torch.from_numpy(rng.integers(-(2**40), 2**40, cap)).to(dev)
+        bnulls = {"x": torch.from_numpy(rng.random(cap) < (0.4 if case == "nulls" else 0.1))
+                  .to(dev)}
+        valid = torch.from_numpy(rng.random(cap) < 0.8).to(dev)
+        if case == "one_member":
+            valid.zero_()
+            valid[17] = True
+        if case == "no_members":
+            valid.zero_()
+        seq = torch.from_numpy(rng.permutation(cap).astype(np.int64) + 7).to(dev)
+        part_keys = ("w",) + tuple(f"p{k}" for k in range(n_part))
+        cutoff = 30 if case != "one_member" else 10**6
+        v_k, v_p = valid.clone(), valid.clone()
+        got = ow._eowc_emit_cuda(buf, bnulls, v_k, seq, cutoff, names, calls, part_keys, "o",
+                                 "w", None)
+        want = ow._eowc_emit_torch(buf, bnulls, v_p, seq, cutoff, names, calls, part_keys, "o",
+                                   "w")
+        torch.cuda.synchronize()
+        m = got[3]
+        check(m == want[3], f"AE EOWC {case}: closed {m} / {want[3]}")
+        check(torch.equal(v_k, v_p), f"AE EOWC {case}: slots freed")
+        if m:
+            assert_lanes_equal(torch, {k: v[:m] for k, v in got[0].items()},
+                               {k: v[:m] for k, v in want[0].items()}, f"AE EOWC {case}: rows")
+            assert_lanes_equal(torch, {k: v[:m] for k, v in got[1].items()},
+                               {k: v[:m] for k, v in want[1].items()}, f"AE EOWC {case}: nulls")
+            check(bool(got[2][:m].all()) and not bool(got[2][m:].any()),
+                  f"AE EOWC {case}: valid prefix")
+        done[case] = m
+    return done
+
+
+def ae_general_hard(torch, dev, rng) -> dict:
+    """Kernel AE's general recompute against its plain version on the card,
+    bit for bit at every dirty slot, on arenas made from a seed: present,
+    emitted-only (absent) and free slots, ghosts of same-chunk partition
+    moves (their keys from the emitted lanes at their slots), two wide
+    partition lanes, int64 extremes, NULL inputs, one member, none, every
+    member in one partition, a domain that is not a multiple of a tile."""
+    from risingwave_tpu_torch.executors import over_window as ow
+
+    calls = window_calls(AE_HARD_CALLS)
+    done = {}
+    for case in ("ghosts", "wide", "extremes", "nulls", "one_member", "no_members",
+                 "one_partition", "ragged"):
+        cap = 64 if case in ("one_member", "no_members") else AE_HARD_CAP
+        n = 0 if case in ("one_member", "no_members") else 600
+        n_part = 2 if case == "wide" else 1
+        part_keys = tuple(f"p{k}" for k in range(n_part))
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        buf, em = {}, {}
+        for k in part_keys:
+            buf[k] = t(_hard_values(rng, case, cap, 0))
+            em[k] = t(_hard_values(rng, case, cap, 0))
+        order_kind = "extremes" if case == "extremes" else "small"
+        buf["o"] = t(_hard_values(rng, order_kind, cap, -1))
+        em["o"] = t(_hard_values(rng, order_kind, cap, -1))
+        buf["x"] = t(rng.integers(-50, 50, cap))
+        buf["y"] = t(rng.integers(-(2**40), 2**40, cap))
+        bnulls = {"x": t(rng.random(cap) < (0.4 if case == "nulls" else 0.1))}
+        present = t(rng.random(cap) < 0.6)
+        em_valid = t(rng.random(cap) < 0.5)
+        if case in ("one_member", "no_members"):
+            present.zero_()
+            em_valid.zero_()
+            if case == "one_member":
+                present[9] = True
+        ghost = t(rng.random(n) < 0.5) if n else torch.zeros(0, dtype=torch.bool, device=dev)
+        gslots = t(rng.integers(0, cap, n).astype(np.int32)) if n else \
+            torch.zeros(0, dtype=torch.int32, device=dev)
+        touched = t(rng.random(cap) < 0.2)
+        if case == "one_member":
+            touched[9] = True
+        st = {"buf": buf, "bnulls": bnulls, "em": em, "present": present,
+              "em_valid": em_valid, "seq": t(rng.permutation(cap).astype(np.int64))}
+        out_k, nul_k, dirty_k = ow._general_recompute_cuda(st, touched, ghost, gslots, calls,
+                                                           part_keys, "o", None)
+        out_p, nul_p, dirty_p = ow._general_recompute_torch(st, touched, ghost, gslots, calls,
+                                                            part_keys, "o")
+        torch.cuda.synchronize()
+        check(torch.equal(dirty_k, dirty_p), f"AE general {case}: dirty slots")
+        assert_lanes_equal(torch, {k: v[dirty_k] for k, v in out_k.items()},
+                           {k: v[dirty_p] for k, v in out_p.items()}, f"AE general {case}: outputs")
+        assert_lanes_equal(torch, {k: v[dirty_k] for k, v in nul_k.items()},
+                           {k: v[dirty_p] for k, v in nul_p.items()}, f"AE general {case}: nulls")
+        check(case == "no_members" or bool(dirty_k.any()), f"AE general {case}: a dirty slot")
+        done[case] = int(dirty_k.sum())
+    return done
+
+
+def af_diff_hard(torch, dev, rng) -> dict:
+    """Kernel AF's diff against its plain version on the card, on arenas
+    made from a seed: no retracts, no inserts, every slot flagged (each
+    both retracted and inserted, its emitted row read before it is
+    overwritten), a mix with NULLs over a domain that is not a multiple of
+    a tile, and rows of 22 lanes (past the 16 a thread holds in
+    registers); the chunks row for row, the emitted lanes, em_valid,
+    sdirty."""
+    from risingwave_tpu_torch.executors import over_window as ow
+
+    done = {}
+    for case in ("no_retracts", "no_inserts", "all_flagged", "mixed", "many_lanes"):
+        extra = [f"v{j}" for j in range(17)] if case == "many_lanes" else []
+        lane_names, out_names = ["id", "p", "x"] + extra, ["rk", "lg"]
+        cap = AE_HARD_CAP
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        r = lambda lo, hi: t(rng.integers(lo, hi, cap))
+        present = t(rng.random(cap) < 0.6)
+        em_valid = t(rng.random(cap) < 0.6)
+        dirty = t(rng.random(cap) < 0.7)
+        if case == "no_retracts":
+            em_valid.zero_()
+        if case == "no_inserts":
+            present.zero_()
+        if case == "all_flagged":
+            present.fill_(True)
+            em_valid.fill_(True)
+            dirty.fill_(True)
+        buf = {"id": r(0, 1 << 40), "p": r(-3, 3), "x": t(rng.integers(-5, 5, cap)
+                                                           .astype(np.int32))}
+        buf.update({v: r(-2, 2) for v in extra})
+        em = {k: r(-3, 3) for k in lane_names + out_names}
+        if case == "all_flagged":  # every emitted value differs from the current one
+            em["x"] = buf["x"].long() + 100
+        bnulls = {"x": t(rng.random(cap) < 0.2)}
+        new_out = {"rk": r(0, 4), "lg": r(-3, 3)}
+        new_nulls = {"rk": torch.zeros(cap, dtype=torch.bool, device=dev),
+                     "lg": t(rng.random(cap) < 0.3)}
+        emnulls = {"lg": t(rng.random(cap) < 0.3)}
+        if case == "mixed":
+            emnulls["x"] = t(rng.random(cap) < 0.2)
+        ops = (torch.full((cap,), 1, dtype=torch.int32, device=dev),
+               torch.zeros(cap, dtype=torch.int32, device=dev))
+
+        def state():
+            return ({"buf": buf, "bnulls": bnulls, "em": {k: v.clone() for k, v in em.items()},
+                     "present": present, "em_valid": em_valid.clone(),
+                     "sdirty": torch.zeros(cap, dtype=torch.bool, device=dev)},
+                    {k: v.clone() for k, v in emnulls.items()})
+
+        st_k, en_k = state()
+        st_p, en_p = state()
+        ret_k, ins_k = ow._over_diff_cuda(st_k, en_k, new_out, new_nulls, dirty, lane_names,
+                                          out_names, *ops, None)
+        ret_p, ins_p = ow._over_diff_torch(st_p, en_p, new_out, new_nulls, dirty, lane_names,
+                                           out_names, *ops)
+        torch.cuda.synchronize()
+        n_ret, n_ins = int(ret_p.valid.sum()), int(ins_p.valid.sum())
+        for what, a, b, m in (("retract", ret_k, ret_p, n_ret), ("insert", ins_k, ins_p, n_ins)):
+            check(torch.equal(a.valid, b.valid), f"AF diff {case}: {what} valid lane")
+            assert_lanes_equal(torch, {k: v[:m] for k, v in a.columns.items()},
+                               {k: v[:m] for k, v in b.columns.items()},
+                               f"AF diff {case}: {what} rows")
+            assert_lanes_equal(torch, {k: v[:m] for k, v in a.nulls.items()},
+                               {k: v[:m] for k, v in b.nulls.items()},
+                               f"AF diff {case}: {what} nulls")
+        assert_lanes_equal(torch, st_k["em"], st_p["em"], f"AF diff {case}: emitted lanes")
+        assert_lanes_equal(torch, en_k, en_p, f"AF diff {case}: emitted null lanes")
+        check(torch.equal(st_k["em_valid"], st_p["em_valid"])
+              and torch.equal(st_k["sdirty"], st_p["sdirty"]), f"AF diff {case}: em_valid, sdirty")
+        want = {"no_retracts": n_ret == 0 < n_ins, "no_inserts": n_ins == 0 < n_ret,
+                "all_flagged": n_ret == n_ins == cap, "mixed": 0 < n_ret and 0 < n_ins,
+                "many_lanes": 0 < n_ret and 0 < n_ins}
+        check(want[case], f"AF diff {case}: {n_ret} retracts, {n_ins} inserts")
+        done[case] = [n_ret, n_ins]
+    return done
 
 
 # -- phase 3, kernel AG; phases 32-34: the cold tier under a device budget -----

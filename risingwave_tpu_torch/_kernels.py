@@ -23,8 +23,10 @@ its ``rw_dyn_rv_diff`` under ``dyn_rv_diff``, AA's ``rw_unnest``,
 ``rw_series`` and ``rw_expand`` under ``unnest``, ``series`` and
 ``expand``, AC's ``rw_arena_append`` under ``arena`` and its
 ``rw_arena_emit`` under ``arena_emit``, AD's ``rw_over_step`` under
-``over_step``, AE's ``rw_window_order`` under ``window_order`` and its
-``rw_window_calls`` under ``window_calls``, AF's ``rw_over_apply`` under
+``over_step``, AE's ``rw_window_fold`` under ``window_fold``, its
+``rw_window_order`` under ``window_order``, its ``rw_window_calls`` under
+``window_calls`` and its sort alone (``rw_onesweep_sort``) under
+``onesweep``, AF's ``rw_over_apply`` under
 ``over_apply`` and its ``rw_over_diff`` under ``over_diff``, AG's
 ``rw_cold_select`` under ``cold_select`` and its ``rw_cold_merge`` under
 ``cold_merge``, AH's ``rw_vnode_dispatch`` under ``vnode_dispatch`` and
@@ -205,13 +207,15 @@ SIGNATURES = {
         "rw_over_step": [_P, _P, _I, _L, _L] + [_P] * 15,
     },
     "window_calls": {
-        "rw_window_order": [_L, _L, _P, _P, _P, _L, _P, _P, _P, _P, _I] + [_P] * 10,
-        "rw_window_calls": [_L, _L, _P, _P, _P, _I, _I, _I, _P, _I, _L, _I, _P, _P, _P, _P, _P,
-                            _P, _P, _I, _P, _L, _P, _P],
+        "rw_window_fold": [_L, _L, _P, _P, _P, _L, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+        "rw_window_order": [_L, _L, _P, _P, _P, _L, _P, _P, _P, _P, _I, _P, _L] + [_P] * 11,
+        "rw_window_calls": [_L, _L, _P, _P, _P, _I, _L, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P,
+                            _P, _P, _P, _I, _P, _P, _I, _P, _L, _P, _P],
+        "rw_onesweep_sort": [_P, _P, _L, _I] + [_P] * 8,
     },
     "over_diff": {
         "rw_over_apply": [_P, _I, _P, _I, _L, _L] + [_P] * 6 + [_L] + [_P] * 11,
-        "rw_over_diff": [_P, _I, _L] + [_P] * 13,
+        "rw_over_diff": [_P, _I, _L] + [_P] * 8,
     },
     "cold_tier": {
         "rw_cold_select": [_I, _L] + [_P] * 12 + [_P],
@@ -245,6 +249,9 @@ TILE_LANES = 32
 # keys per block of the radix pass (RBK_TILE in csrc/radix.cuh), which
 # sizes the scratch of reduce_by_key and of kernels W and X
 RBK_TILE = 2048
+# keys per tile of the single-sweep radix pass (csrc/onesweep.cuh
+# OS_TILE), which sizes the look-back words of kernel AE's sort
+OS_TILE = 2048
 # elements per block of the device-wide scan (csrc/scan.cuh SCAN_TILE)
 SCAN_TILE = 2048
 # elements per block of the segmented scan of kernels AD and AE
@@ -279,8 +286,8 @@ DTYPE_CODES = {
 # or kernel Z's right-value diff (its left step counts as "dyn_general"),
 # or one of kernel AA's three table-function entries
 # (each counts under its own name; "tile_expand" itself stays 0), or
-# kernel AC's emit (its append counts as "arena"), AE's order (its calls
-# count as "window_calls"), AF's apply (its diff counts as "over_diff"),
+# kernel AC's emit (its append counts as "arena"), AE's fold, order and
+# sort alone (its calls count as "window_calls"), AF's apply (its diff counts as "over_diff"),
 # or one of kernel AG's two cold-tier entries (each under its own name;
 # "cold_tier" itself stays 0), or AH's vnode lane alone (a restore's
 # routing; its dispatch masks count as "vnode_dispatch")
@@ -304,7 +311,9 @@ ENTRY_KEYS = {
     "rw_series": "series",
     "rw_expand": "expand",
     "rw_arena_emit": "arena_emit",
+    "rw_window_fold": "window_fold",
     "rw_window_order": "window_order",
+    "rw_onesweep_sort": "onesweep",
     "rw_over_apply": "over_apply",
     "rw_cold_select": "cold_select",
     "rw_cold_merge": "cold_merge",

@@ -23,6 +23,11 @@ enum RwDType : int {
 
 #define RW_EXPORT extern "C" __attribute__((visibility("default")))
 
+// Most reads of a decoupled look-back's word before a kernel gives up
+// (__trap: a launch error, not a hung card); a tile publishes within
+// microseconds of starting, so this is never reached by a correct pass.
+#define RW_SPIN_LIMIT (1ll << 26)
+
 static inline int rw_blocks(int64_t n, int threads) {
   return (int)((n + threads - 1) / threads);
 }

@@ -16,21 +16,32 @@
 // its slot touched and sdirty; the third resets the two lanes. A valid row
 // without a slot latches dropped.
 //
-// rw_over_diff (:1217-1292): per slot of a dirty partition, `changed`
-// (values compared only where both sides are non-NULL, NULL flags
-// compared), then retract = emitted & (gone | changed) and insert =
-// present & (new | changed) into one flag byte, sdirty marked; the two
-// sets compacted in slot order (csrc/compact.cuh, the reference's stable
-// argsort(~mask) at :1246), both chunks gathered (retract rows from the
-// emitted lanes, insert rows from the current ones) with their valid
-// lanes, then the emitted lanes updated: retracted slots leave, inserted
-// slots take their new values.
+// rw_over_diff (:1217-1292): one pass over the slots, one a thread, in
+// tiles of 256. A dirty slot computes `changed` (values compared only
+// where both sides are non-NULL, NULL flags compared), then retract =
+// emitted & (gone | changed) and insert = present & (new | changed); each
+// tile's retract and insert counts are scanned, published at once, and
+// the counts of every earlier tile found by a decoupled look-back (tiles
+// take their order from an atomic counter, so none waits on one not yet
+// running); then the same thread writes the slot's retract row (its
+// emitted values) and insert row (its current values) at their places in
+// slot order (the reference's stable argsort(~mask) at :1246), and the
+// current values over the emitted values that differ, em_valid and
+// sdirty: a slot both retracted and inserted reads its emitted row
+// before it is overwritten. A second launch sets both chunks' valid
+// lanes from the two totals.
 //
 // What bounds it on the card: bytes. The apply reads the chunk once and
-// touches each written slot's lanes at random; the diff reads one flag
-// byte per slot of the arena (2^24), every lane only of dirty slots, and
-// moves the retracted and inserted rows once each.
-#include "compact.cuh"
+// touches each written slot's lanes at random; the diff reads three flag
+// bytes per slot of the arena (2^24), the lanes of dirty slots, and
+// writes the retracted and inserted rows, the emitted values that change
+// and both valid lanes once, in two launches and a memset: no slot list,
+// no second pass over the rows. Its writes cost most (an emitted lane is
+// written in part of each sector), so an emitted value that stays is not
+// rewritten. A changed slot's compared lanes are read again for its rows,
+// from the cache the thread just filled: holding them in registers
+// instead measured slower (fewer threads in flight).
+#include "common.cuh"
 
 #define OD_MAX_LANES 32  // = over_window.DIFF_LANES
 #define OD_THREADS 256
@@ -174,14 +185,78 @@ __device__ __forceinline__ long long od_load(const void* p, int dt, int64_t s) {
   }
 }
 
-// flags[s]: bit 0 retract, bit 1 insert
-__global__ void od_flags_kernel(OdCols cols, int64_t cap, const uint8_t* present,
-                                const uint8_t* em_valid, const uint8_t* dirty, uint8_t* sdirty,
-                                uint8_t* flags) {
-  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= cap) return;
-  uint8_t f = 0;
-  if (dirty[s]) {
+// a tile's published word: flag (bits 62-63), retract count (31 bits),
+// insert count (31 bits)
+#define OD_AGG (1ull << 62)  // the tile's own counts
+#define OD_INC (2ull << 62)  // the counts of this tile and every earlier one
+#define OD_COUNT 0x7FFFFFFFull
+
+__device__ __forceinline__ unsigned long long od_word(unsigned long long flag, uint32_t r,
+                                                      uint32_t i) {
+  return flag | ((unsigned long long)r << 31) | (unsigned long long)i;
+}
+
+// Warp 0 of a tile: the retract and insert rows of every earlier tile, by
+// a decoupled look-back over their published words (32 at a time); the
+// tile's own counts are published first, then its inclusive counts.
+__device__ __forceinline__ void od_lookback(unsigned long long* status, unsigned tile, uint32_t tr,
+                                            uint32_t ti, uint32_t* er, uint32_t* ei) {
+  const int lane = threadIdx.x & 31;
+  volatile unsigned long long* mine = status + tile;
+  uint32_t r = 0, i = 0;
+  if (tile == 0) {
+    if (lane == 0) *mine = od_word(OD_INC, tr, ti);
+  } else {
+    if (lane == 0) *mine = od_word(OD_AGG, tr, ti);
+    for (int64_t q = (int64_t)tile - 1 - lane;; q -= 32) {
+      unsigned long long v = OD_INC;  // before tile 0: nothing
+      if (q >= 0) {
+        const volatile unsigned long long* w = status + q;
+        int64_t spins = 0;
+        do {
+          v = *w;
+          if (++spins > RW_SPIN_LIMIT) __trap();  // a tile that never published: fail, not hang
+        } while ((v >> 62) == 0ull);
+      }
+      const unsigned inc = __ballot_sync(0xFFFFFFFFu, (v >> 62) == 2ull);
+      const int stop = inc ? __ffs(inc) - 1 : 31;  // the nearest inclusive word
+      uint32_t cr = lane <= stop ? (uint32_t)((v >> 31) & OD_COUNT) : 0u;
+      uint32_t ci = lane <= stop ? (uint32_t)(v & OD_COUNT) : 0u;
+      for (int x = 16; x > 0; x >>= 1) {
+        cr += __shfl_xor_sync(0xFFFFFFFFu, cr, x);
+        ci += __shfl_xor_sync(0xFFFFFFFFu, ci, x);
+      }
+      r += cr;
+      i += ci;
+      if (inc) break;
+    }
+    if (lane == 0) *mine = od_word(OD_INC, r + tr, i + ti);
+  }
+  *er = r;
+  *ei = i;
+}
+
+// One pass over the slots, one slot a thread, OD_THREADS slots a tile
+// (the tile from a counter): the slot's flags (retract = emitted & (gone
+// | changed), insert = present & (new | changed), in a dirty slot); both
+// counts scanned over the block and the tile's place among the retract
+// and insert rows found by the look-back; then the slot's rows, lane by
+// lane: the retract row from the emitted value, the insert row from the
+// current value, which also becomes the emitted value where it differs
+// (a slot both retracted and inserted reads its emitted value first);
+// em_valid, sdirty. totals: both counts, by the last tile.
+__global__ void __launch_bounds__(OD_THREADS)
+    od_diff_kernel(OdCols cols, int64_t cap, const uint8_t* present, uint8_t* em_valid,
+                   const uint8_t* dirty, uint8_t* sdirty, unsigned long long* status,
+                   unsigned* counter, long long* totals, unsigned tiles) {
+  __shared__ unsigned s_tile;
+  __shared__ uint32_t s_er, s_ei;
+  if (threadIdx.x == 0) s_tile = atomicAdd(counter, 1u);
+  __syncthreads();
+  const unsigned tile = s_tile;
+  const int64_t s = (int64_t)tile * OD_THREADS + threadIdx.x;
+  bool ret = false, ins = false;
+  if (s < cap && dirty[s]) {
     const bool p = present[s], e = em_valid[s];
     bool changed = false;
     if (p && e) {
@@ -192,84 +267,67 @@ __global__ void od_flags_kernel(OdCols cols, int64_t cap, const uint8_t* present
         changed = cn != en || (!cn && !en && od_load(c.cur, c.dt, s) != c.em[s]);
       }
     }
-    const bool retract = e && (!p || changed);
-    const bool insert = p && (!e || changed);
-    f = (retract ? 1 : 0) | (insert ? 2 : 0);
-    if (f) sdirty[s] = 1;
+    ret = e && (!p || changed);
+    ins = p && (!e || changed);
   }
-  flags[s] = f;
-}
-
-template <int BIT>
-struct OdPick {
-  static constexpr bool kAux = false;
-  const uint8_t* lane;  // the flag bytes
-  __device__ int flags(int64_t cap, int64_t base, uint8_t* f, int*) const {
-    int c = 0;
-#pragma unroll
-    for (int j = 0; j < COMPACT_ITEMS; ++j) {
-      const bool sel = base + j < cap && (lane[base + j] & BIT);
-      f[j] = sel;
-      c += sel;
-    }
-    return c;
-  }
-  __device__ void on_select(int64_t, uint8_t) const {}
-  __device__ void on_total(long long*) const {}
-};
-
-// ret rows from the emitted lanes, ins rows from the current ones; both
-// chunks' valid lanes for every row
-__global__ void od_gather_kernel(OdCols cols, int64_t cap, const int32_t* sel_r,
-                                 const int32_t* sel_i, const long long* status,
-                                 uint8_t* ret_valid, uint8_t* ins_valid) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cap) return;
-  const int64_t nr = status[0], ni = status[2];
-  ret_valid[i] = i < nr;
-  ins_valid[i] = i < ni;
-  if (i < nr) {
-    const int64_t s = sel_r[i];
-    for (int k = 0; k < cols.n; ++k) {
-      const OdCol& c = cols.c[k];
-      c.ret[i] = c.em[s];
-      if (c.ret_null != nullptr) c.ret_null[i] = c.enull[s];
+  int xr, xi;
+  const uint32_t tr = (uint32_t)rw_block_exclusive_scan<OD_THREADS>(ret ? 1 : 0, &xr);
+  const uint32_t ti = (uint32_t)rw_block_exclusive_scan<OD_THREADS>(ins ? 1 : 0, &xi);
+  if (threadIdx.x < 32) {
+    uint32_t er, ei;
+    od_lookback(status, tile, tr, ti, &er, &ei);
+    if (threadIdx.x == 0) {
+      s_er = er;
+      s_ei = ei;
+      if (tile == tiles - 1) {
+        totals[0] = er + tr;
+        totals[1] = ei + ti;
+      }
     }
   }
-  if (i < ni) {
-    const int64_t s = sel_i[i];
-    for (int k = 0; k < cols.n; ++k) {
-      const OdCol& c = cols.c[k];
-      c.ins[i] = od_load(c.cur, c.dt, s);
-      if (c.ins_null != nullptr) c.ins_null[i] = c.cnull != nullptr ? c.cnull[s] : 0;
-    }
-  }
-}
-
-__global__ void od_retire_kernel(int64_t cap, const int32_t* sel_r, const long long* status,
-                                 uint8_t* em_valid) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < cap && i < status[0]) em_valid[sel_r[i]] = 0;
-}
-
-__global__ void od_emit_kernel(OdCols cols, int64_t cap, const int32_t* sel_i,
-                               const long long* status, uint8_t* em_valid) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cap || i >= status[2]) return;
-  const int64_t s = sel_i[i];
+  __syncthreads();
+  if (!(ret || ins)) return;
+  const int64_t at_r = (int64_t)s_er + xr, at_i = (int64_t)s_ei + xi;
   for (int k = 0; k < cols.n; ++k) {
     const OdCol& c = cols.c[k];
-    c.em[s] = od_load(c.cur, c.dt, s);
-    c.enull[s] = c.cnull != nullptr ? c.cnull[s] : 0;
+    long long ev = 0;
+    uint8_t en = 0;
+    if (ret) {  // the emitted row, read before the insert overwrites it
+      ev = c.em[s];
+      en = c.enull[s];
+      c.ret[at_r] = ev;
+      if (c.ret_null != nullptr) c.ret_null[at_r] = en;
+    }
+    if (ins) {
+      const long long v = od_load(c.cur, c.dt, s);
+      const uint8_t vn = c.cnull != nullptr ? c.cnull[s] : 0;
+      c.ins[at_i] = v;
+      if (c.ins_null != nullptr) c.ins_null[at_i] = vn;
+      if (!ret || v != ev || vn != en) {  // an unchanged emitted value stays
+        c.em[s] = v;
+        c.enull[s] = vn;
+      }
+    }
   }
-  em_valid[s] = 1;
+  if (!(ret && ins)) em_valid[s] = ins ? 1 : 0;  // retracted and inserted: stays 1
+  sdirty[s] = 1;
 }
 
+// both chunks' valid lanes: a prefix of the totals
+__global__ void od_valid_kernel(int64_t cap, const long long* totals, uint8_t* ret_valid,
+                                uint8_t* ins_valid) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cap) return;
+  ret_valid[i] = i < totals[0];
+  ins_valid[i] = i < totals[1];
+}
+
+// status: od_tiles(cap) + 3 words (the tiles' words, the tile counter,
+// the two totals), zeroed here.
 RW_EXPORT int rw_over_diff(const int64_t* col_rows, int n_cols, int64_t cap,
                            const uint8_t* present, uint8_t* em_valid, const uint8_t* dirty,
-                           uint8_t* sdirty, uint8_t* flags, int32_t* sel_r, int32_t* sel_i,
-                           uint8_t* payload, int32_t* part, long long* status,
-                           uint8_t* ret_valid, uint8_t* ins_valid, cudaStream_t stream) {
+                           uint8_t* sdirty, long long* status, uint8_t* ret_valid,
+                           uint8_t* ins_valid, cudaStream_t stream) {
   if (n_cols < 0 || n_cols > OD_MAX_LANES) return (int)cudaErrorInvalidValue;
   OdCols cols;
   cols.n = n_cols;
@@ -290,14 +348,12 @@ RW_EXPORT int rw_over_diff(const int64_t* col_rows, int n_cols, int64_t cap,
       return (int)cudaErrorInvalidValue;
   }
   if (cap <= 0) return (int)cudaGetLastError();
-  const int blocks = rw_blocks(cap, OD_THREADS);
-  od_flags_kernel<<<blocks, OD_THREADS, 0, stream>>>(cols, cap, present, em_valid, dirty, sdirty,
-                                                     flags);
-  rw_compact(OdPick<1>{flags}, cap, part, sel_r, payload, status, stream);
-  rw_compact(OdPick<2>{flags}, cap, part, sel_i, payload, status + 2, stream);
-  od_gather_kernel<<<blocks, OD_THREADS, 0, stream>>>(cols, cap, sel_r, sel_i, status, ret_valid,
-                                                      ins_valid);
-  od_retire_kernel<<<blocks, OD_THREADS, 0, stream>>>(cap, sel_r, status, em_valid);
-  od_emit_kernel<<<blocks, OD_THREADS, 0, stream>>>(cols, cap, sel_i, status, em_valid);
+  const int tiles = rw_blocks(cap, OD_THREADS);
+  cudaMemsetAsync(status, 0, sizeof(long long) * ((size_t)tiles + 3), stream);
+  od_diff_kernel<<<tiles, OD_THREADS, 0, stream>>>(
+      cols, cap, present, em_valid, dirty, sdirty, (unsigned long long*)status,
+      (unsigned*)(status + tiles), status + tiles + 1, (unsigned)tiles);
+  od_valid_kernel<<<rw_blocks(cap, OD_THREADS), OD_THREADS, 0, stream>>>(
+      cap, status + tiles + 1, ret_valid, ins_valid);
   return (int)cudaGetLastError();
 }

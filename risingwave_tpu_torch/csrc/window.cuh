@@ -11,36 +11,59 @@
 // and the slot is not present, and at a ghost from `fallback` at the
 // ghost's slot; the ABSENT mode gives 1 for a slot that is not present
 // and for a ghost (live rows first). Values are signed; a key is encoded
-// with bit 63 flipped so unsigned digit order is signed order.
+// with bit 63 flipped so unsigned order is signed order.
 //
-// Order (rw_window_order): the members compacted in entry order
-// (csrc/compact.cuh), each key lane's varying bits folded (one host read
-// of them and of the count), then one gather and kernel F's stable 8-bit
-// passes (csrc/radix.cuh) per varying byte of each key lane, least
-// significant lane first: ties keep entry order. Keys are unique among the
-// members (seq is), so the order is the reference's lax.sort order.
+// Fold (win_fold_kernel): one coalesced pass over the domain in
+// csrc/compact.cuh's tiles counts each tile's members and folds each key
+// lane's encoded keys over the members into OR, AND, MIN and MAX; the host
+// reads the count and the fold (one copy) and plans one packed key
+// (over_window.window_pack_plan): each varying lane, most significant
+// first, gets a field of the bits of (key - MIN) >> lo, lo its lowest
+// varying bit, as wide as MAX - MIN needs; the fields fill 64-bit words
+// from the top of the first.
 //
-// Calls (win_calls): over the m sorted members, segment heads where a
-// partition key changes, then one segmented scan (csrc/segscan.cuh) of
-// in_seg, gid and every call's running lanes, then each call's output:
-// row_number, rank, dense_rank, lead/lag(k) and ROWS frames by looking at
-// neighbours of the same segment, running sum/count/min/max from the
-// scan. A row takes part (frames, lead/lag, running values) only if live:
-// always in the EOWC emit, present slots in the general step.
+// Order (win_write_kernel, win_sort): each member, in entry order, writes
+// its words once (every key lane read at its own slot, no gather) beside
+// its entry; then csrc/onesweep.cuh's single-sweep passes over the
+// varying bytes of the last word, and, past 64 bits, of each earlier word
+// gathered in the order so far (least significant word first). Ties keep
+// entry order; keys are unique among the members (seq is), so the order
+// is the reference's lax.sort order.
+//
+// Calls (win_layout_kernel, then win_calls): one pass lays out in sorted
+// order what the scan and the calls read: the entry, a flag byte (segment
+// head where a partition field differs from the row before, value-group
+// start where the order field does too, live, touched) and each distinct
+// call input with its null flag; then one segmented scan
+// (csrc/segscan.cuh) of in_seg, gid and every call's running lanes, and
+// each call's output: row_number, rank, dense_rank, lead/lag(k) and ROWS
+// frames from neighbours of the same segment, running sum/count/min/max
+// from the scan. A row takes part (frames, lead/lag, running values) only
+// if live: always in the EOWC emit, present slots in the general step.
+// The EOWC emit writes outputs at the sorted position; the general step
+// writes each member's outputs as one record in sorted order, then one
+// pass in slot order lands them through each slot's sorted place
+// (win_place_kernel): whole records gathered, whole sectors written.
 #pragma once
 
 #include "compact.cuh"
-#include "radix.cuh"
+#include "onesweep.cuh"
 #include "segscan.cuh"
 #include "tile.cuh"
 
 #define WIN_MAX_KEYS 12   // = over_window.WINDOW_KEYS
 #define WIN_MAX_CALLS 16  // = over_window.WINDOW_CALLS
+#define WIN_MAX_WORDS 12  // 64-bit words of a packed key: 12 lanes of 64 bits
 #define WIN_THREADS 256
-#define WIN_BITS_BLOCKS 1024
 #define WIN_SIGN 0x8000000000000000ull
 #define WIN_MAXI 0x7FFFFFFFFFFFFFFFll
 #define WIN_MINI ((long long)0x8000000000000000ull)
+
+// a sorted member's flag byte
+#define WIN_HEAD 1u     // a partition starts here
+#define WIN_VB 2u       // a value group (partition, order value) starts here
+#define WIN_LIVE 4u     // takes part in frames, lead/lag and running values
+#define WIN_TOUCHED 8u  // marks its partition dirty (general step)
 
 // = over_window.KINDS
 enum WinKind : int {
@@ -76,9 +99,10 @@ struct WinKeys {
   int n;
 };
 
-// One call: over_window._call_rows.
+// One call: over_window._call_rows; `in` its input's place among the
+// laid-out inputs (-1: it reads none).
 struct WinCall {
-  int kind, has_frame, lo, hi, offset, dt;
+  int kind, has_frame, lo, hi, offset, dt, in;
   const void* val;
   const uint8_t* vnull;
   long long* out;
@@ -88,6 +112,20 @@ struct WinCall {
 struct WinCalls {
   WinCall c[WIN_MAX_CALLS];
   int n;
+};
+
+// One field of the packed key: bits of (encoded key - min) >> lo, width
+// wide, lowest bit at bit g0 of the whole key (64 * words bits, word 0
+// most significant).
+struct WinField {
+  int lane, lo, width, g0;
+  unsigned long long min;
+};
+
+struct WinPlan {
+  WinField f[WIN_MAX_KEYS];
+  unsigned mask[WIN_MAX_WORDS];  // per word: bit b where byte b may vary
+  int n, words;
 };
 
 __device__ __forceinline__ long long win_load(const void* p, int dt, int64_t i) {
@@ -118,105 +156,213 @@ __device__ __forceinline__ long long win_key(const WinKeys& k, int l, const WinD
   return win_load(k.lane[l], k.dt[l], e);
 }
 
-// ---- order ------------------------------------------------------------------------
-struct WinMemberFlags {
-  static constexpr bool kAux = false;
-  WinDomain d;
-  __device__ int flags(int64_t total, int64_t base, uint8_t* f, int*) const {
-    int c = 0;
-#pragma unroll
-    for (int j = 0; j < COMPACT_ITEMS; ++j) {
-      const int64_t e = base + j;
-      const bool m = e < total && win_member(d, e);
-      f[j] = m ? 1 : 0;
-      c += m;
-    }
-    return c;
-  }
-  __device__ void on_select(int64_t, uint8_t) const {}
-  __device__ void on_total(long long*) const {}
-};
-
-__global__ void win_bits_init_kernel(int n_keys, unsigned long long* bits) {
+// ---- fold ---------------------------------------------------------------------------
+// fold[4l .. 4l + 3]: OR, AND, MIN, MAX of lane l's encoded keys
+__global__ void win_fold_init_kernel(int n_keys, unsigned long long* fold) {
   const int l = threadIdx.x;
   if (l < n_keys) {
-    bits[2 * l] = 0ull;
-    bits[2 * l + 1] = ~0ull;
+    fold[4 * l] = 0ull;
+    fold[4 * l + 1] = ~0ull;
+    fold[4 * l + 2] = ~0ull;
+    fold[4 * l + 3] = 0ull;
   }
 }
 
-// bits[2l] |= every member's encoded key of lane l, bits[2l + 1] &= each
-__global__ void win_bits_kernel(WinKeys k, WinDomain d, const int32_t* sel, const long long* status,
-                                int64_t total, unsigned long long* bits) {
-  const int64_t m = status[0];
+__device__ __forceinline__ unsigned win_member_rounds(const WinDomain& d, int64_t total) {
+  unsigned sel = 0u;
+#pragma unroll
+  for (int r = 0; r < COMPACT_ITEMS; ++r) {
+    const int64_t e = compact_round_slot(blockIdx.x, r);
+    if (e < total && win_member(d, e)) sel |= 1u << r;
+  }
+  return sel;
+}
+
+// part[tile] = the tile's members; the fold over them
+__global__ void __launch_bounds__(COMPACT_THREADS)
+    win_fold_kernel(WinKeys k, WinDomain d, int64_t total, int32_t* part,
+                    unsigned long long* fold) {
+  __shared__ unsigned long long s_fold[COMPACT_THREADS / 32][4];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned sel = win_member_rounds(d, total);
+  int excl;
+  const int members = rw_block_exclusive_scan<COMPACT_THREADS>(__popc(sel), &excl);
+  if (threadIdx.x == 0) part[blockIdx.x] = members;
+  if (members == 0) return;
   for (int l = 0; l < k.n; ++l) {
-    unsigned long long o = 0ull, a = ~0ull;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < m && i < total;
-         i += (int64_t)gridDim.x * blockDim.x) {
-      const unsigned long long e = (unsigned long long)win_key(k, l, d, sel[i]) ^ WIN_SIGN;
-      o |= e;
-      a &= e;
+    unsigned long long o = 0ull, a = ~0ull, lo = ~0ull, hi = 0ull;
+    for (unsigned s = sel; s; s &= s - 1u) {
+      const int64_t e = compact_round_slot(blockIdx.x, __ffs(s) - 1);
+      const unsigned long long u = (unsigned long long)win_key(k, l, d, e) ^ WIN_SIGN;
+      o |= u;
+      a &= u;
+      lo = u < lo ? u : lo;
+      hi = u > hi ? u : hi;
     }
-    for (int s = 16; s > 0; s >>= 1) {
-      o |= __shfl_xor_sync(0xFFFFFFFFu, o, s);
-      a &= __shfl_xor_sync(0xFFFFFFFFu, a, s);
+    for (int x = 16; x > 0; x >>= 1) {
+      o |= __shfl_xor_sync(0xFFFFFFFFu, o, x);
+      a &= __shfl_xor_sync(0xFFFFFFFFu, a, x);
+      const unsigned long long ol = __shfl_xor_sync(0xFFFFFFFFu, lo, x);
+      const unsigned long long oh = __shfl_xor_sync(0xFFFFFFFFu, hi, x);
+      lo = ol < lo ? ol : lo;
+      hi = oh > hi ? oh : hi;
     }
-    if ((threadIdx.x & 31) == 0) {
-      atomicOr(bits + 2 * l, o);
-      atomicAnd(bits + 2 * l + 1, a);
+    if (lane == 0) {
+      s_fold[warp][0] = o;
+      s_fold[warp][1] = a;
+      s_fold[warp][2] = lo;
+      s_fold[warp][3] = hi;
     }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < COMPACT_THREADS / 32; ++w) {
+        o |= s_fold[w][0];
+        a &= s_fold[w][1];
+        lo = s_fold[w][2] < lo ? s_fold[w][2] : lo;
+        hi = s_fold[w][3] > hi ? s_fold[w][3] : hi;
+      }
+      atomicOr(fold + 4 * l, o);
+      atomicAnd(fold + 4 * l + 1, a);
+      atomicMin(fold + 4 * l + 2, lo);
+      atomicMax(fold + 4 * l + 3, hi);
+    }
+    __syncthreads();
   }
 }
 
-__global__ void win_copy_kernel(const int32_t* src, int64_t m, int32_t* dst) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < m) dst[i] = src[i];
-}
-
-__global__ void win_gather_key_kernel(WinKeys k, int l, WinDomain d, int64_t m, const int32_t* idx,
-                                      unsigned long long* keys) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < m) keys[i] = (unsigned long long)win_key(k, l, d, idx[i]) ^ WIN_SIGN;
-}
-
-// The members in key order at idx[0, m); returns m, or -1 on a CUDA error.
-static int64_t win_order(const WinKeys& k, const WinDomain& d, int32_t* sel, uint8_t* payload,
-                         int32_t* part, long long* status, unsigned long long* keys, int32_t* idx,
-                         int32_t* hist, unsigned long long* bits, cudaStream_t st) {
-  const int64_t total = d.cap + d.n_ghost;
-  WinMemberFlags fn{d};
-  rw_compact(fn, total, part, sel, payload, status, st);
-  win_bits_init_kernel<<<1, 32, 0, st>>>(k.n, bits);
-  const int blocks = rw_blocks(total, WIN_THREADS);
-  win_bits_kernel<<<blocks < WIN_BITS_BLOCKS ? blocks : WIN_BITS_BLOCKS, WIN_THREADS, 0, st>>>(
-      k, d, sel, status, total, bits);
-  unsigned long long h[2 * WIN_MAX_KEYS];
-  long long m = 0;
-  if (cudaMemcpyAsync(&m, status, sizeof(long long), cudaMemcpyDeviceToHost, st) != cudaSuccess ||
-      cudaMemcpyAsync(h, bits, sizeof(unsigned long long) * 2 * k.n, cudaMemcpyDeviceToHost,
-                      st) != cudaSuccess ||
-      cudaStreamSynchronize(st) != cudaSuccess)
-    return -1;
-  if (m == 0) return 0;
-  const int mb = rw_blocks(m, WIN_THREADS);
-  win_copy_kernel<<<mb, WIN_THREADS, 0, st>>>(sel, m, idx);
-  int cur = 0;
-  for (int l = k.n - 1; l >= 0; --l) {
-    const unsigned long long varying = h[2 * l] ^ h[2 * l + 1];
-    if (varying == 0ull) continue;  // one value in every member orders nothing
-    win_gather_key_kernel<<<mb, WIN_THREADS, 0, st>>>(k, l, d, m, idx + cur * m, keys + cur * m);
-    for (int b = 0; b < 8; ++b) {
-      if (((varying >> (8 * b)) & 0xFFull) == 0ull) continue;
-      rbk_radix_pass(keys + cur * m, idx + cur * m, keys + (1 - cur) * m, idx + (1 - cur) * m, m,
-                     8 * b, hist, st);
-      cur = 1 - cur;
-    }
+// ---- order --------------------------------------------------------------------------
+// Word w (0: most significant) of entry e's packed key.
+__device__ __forceinline__ unsigned long long win_pack_word(const WinKeys& k, const WinPlan& p,
+                                                            const WinDomain& d, int64_t e,
+                                                            int w) {
+  const int wl = p.words - 1 - w;  // the word's place from the least significant end
+  unsigned long long out = 0ull;
+  for (int f = 0; f < p.n; ++f) {
+    const WinField& F = p.f[f];
+    const int at = F.g0 >> 6, s = F.g0 & 63;
+    const bool here = at == wl;
+    const bool spill = at + 1 == wl && s != 0 && s + F.width > 64;
+    if (!here && !spill) continue;
+    const unsigned long long v =
+        (((unsigned long long)win_key(k, F.lane, d, e) ^ WIN_SIGN) - F.min) >> F.lo;
+    out |= here ? v << s : v >> (64 - s);
   }
-  if (cur == 1) win_copy_kernel<<<mb, WIN_THREADS, 0, st>>>(idx + m, m, idx);
-  return m;
+  return out;
 }
 
-// ---- calls ------------------------------------------------------------------------
+// The compaction's write pass, coalesced (compact.cuh compact_warp_place):
+// each member in entry order into ent, its words beside it (word w at
+// words[w * stride + place]).
+__global__ void __launch_bounds__(COMPACT_THREADS)
+    win_write_kernel(WinKeys k, WinPlan p, WinDomain d, int64_t total, const int32_t* part,
+                     unsigned long long* __restrict__ words, int64_t stride,
+                     int32_t* __restrict__ ent) {
+  const unsigned sel = win_member_rounds(d, total);
+  int64_t place = compact_warp_place(sel, part[blockIdx.x]);
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+#pragma unroll
+  for (int r = 0; r < COMPACT_ITEMS; ++r) {
+    const bool on = (sel >> r) & 1u;
+    const unsigned b = __ballot_sync(0xFFFFFFFFu, on);
+    if (on) {
+      const int64_t e = compact_round_slot(blockIdx.x, r);
+      const int64_t at = place + __popc(b & below);
+      for (int w = 0; w < p.words; ++w) words[w * stride + at] = win_pack_word(k, p, d, e, w);
+      ent[at] = (int32_t)e;
+    }
+    place += __popc(b);
+  }
+}
+
+// out[i] = word[pay[i]] (pay == nullptr: word[i])
+__global__ void win_gather_word_kernel(const unsigned long long* __restrict__ word,
+                                       const int32_t* __restrict__ pay, int64_t m,
+                                       unsigned long long* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < m) out[i] = word[pay != nullptr ? pay[i] : i];
+}
+
+// The m members sorted by their packed words, least significant word
+// first: *key the sorted first words (nullptr: no word), *pay each sorted
+// member's entry (one word) or compaction place (more; nullptr: the
+// places in order).
+static void win_sort(const WinPlan& p, int64_t m, int64_t stride, const unsigned long long* words,
+                     const int32_t* ent, const OsScratch& s, const unsigned long long** key,
+                     const int32_t** pay, cudaStream_t st) {
+  const unsigned long long* ck = nullptr;
+  const int32_t* cp = p.words > 1 ? nullptr : ent;
+  for (int w = p.words - 1; w >= 0; --w) {
+    const unsigned long long* kin = words + w * stride;
+    if (w < p.words - 1) {
+      unsigned long long* g = ck == s.ka ? s.kb : s.ka;
+      win_gather_word_kernel<<<rw_blocks(m, WIN_THREADS), WIN_THREADS, 0, st>>>(kin, cp, m, g);
+      kin = g;
+    }
+    os_sort(kin, cp, m, p.mask[w], s, &ck, &cp, st);
+  }
+  *key = ck;
+  *pay = cp;
+}
+
+// ---- calls --------------------------------------------------------------------------
+// The sorted members as the order left them, and what tells a partition
+// and a value group apart: the key bits of the partition fields and of
+// the order field, per word.
+struct WinSorted {
+  const unsigned long long* key;  // word 0 of each sorted member's key
+  const int32_t* pay;             // entry (one word) or compaction place (nullptr: i)
+  const unsigned long long* words;
+  const int32_t* ent;
+  int64_t stride;
+  int words_n;
+  unsigned long long part_mask[WIN_MAX_WORDS], order_mask[WIN_MAX_WORDS];
+};
+
+// The distinct call inputs, each laid out in sorted order.
+struct WinInputs {
+  const void* val[WIN_MAX_CALLS];
+  int dt[WIN_MAX_CALLS];
+  const uint8_t* vnull[WIN_MAX_CALLS];
+  long long* sv[WIN_MAX_CALLS];
+  uint8_t* sn[WIN_MAX_CALLS];
+  int n;
+};
+
+__device__ __forceinline__ unsigned long long win_word(const WinSorted& s, int w, int64_t i,
+                                                       int64_t p) {
+  return w == 0 ? s.key[i] : s.words[w * s.stride + p];
+}
+
+// pos (general): each member slot's sorted place (a ghost has no slot)
+__global__ void win_layout_kernel(WinSorted s, WinDomain d, WinInputs in, const uint8_t* touched,
+                                  int64_t m, int32_t* __restrict__ idx, uint8_t* __restrict__ hf,
+                                  int32_t* __restrict__ pos) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const int64_t p = s.pay != nullptr ? s.pay[i] : i;
+  const int64_t e = s.words_n > 1 ? s.ent[p] : p;
+  unsigned f = WIN_HEAD | WIN_VB;
+  if (i > 0) {
+    const int64_t q = s.pay != nullptr ? s.pay[i - 1] : i - 1;
+    bool head = false, vb = false;
+    for (int w = 0; w < s.words_n; ++w) {
+      const unsigned long long x = win_word(s, w, i, p) ^ win_word(s, w, i - 1, q);
+      head |= (x & s.part_mask[w]) != 0ull;
+      vb |= (x & s.order_mask[w]) != 0ull;
+    }
+    f = head ? WIN_HEAD | WIN_VB : (vb ? WIN_VB : 0u);
+  }
+  if (win_live(d, e)) f |= WIN_LIVE;
+  if (touched != nullptr && (e >= d.cap || touched[e])) f |= WIN_TOUCHED;
+  hf[i] = (uint8_t)f;
+  idx[i] = (int32_t)e;
+  if (pos != nullptr && e < d.cap) pos[e] = (int32_t)i;
+  for (int c = 0; c < in.n; ++c) {
+    in.sv[c][i] = e < d.cap ? win_load(in.val[c], in.dt[c], e) : 0;
+    in.sn[c][i] = in.vnull[c] == nullptr ? 0 : (e < d.cap ? in.vnull[c][e] : 1);
+  }
+}
+
 // Scan lane roles (over_window._window_scan_lanes counts them)
 enum WinRole : int {
   WR_IN_SEG = 0,  // count from the segment head
@@ -230,38 +376,23 @@ enum WinRole : int {
 };
 
 struct WinView {
-  WinDomain d;
-  WinKeys k;
   WinCalls calls;
-  const int32_t* idx;  // sorted entries
+  const uint8_t* hf;
+  const long long* sv[WIN_MAX_CALLS];
+  const uint8_t* sn[WIN_MAX_CALLS];
   int64_t m;
-  int n_part, order_key;
   int role[SEG_MAX_LANES];
   int call[SEG_MAX_LANES];
 
-  __device__ __forceinline__ bool head(int64_t i) const {
-    if (i == 0) return true;
-    const int64_t e = idx[i], p = idx[i - 1];
-    for (int l = 0; l < n_part; ++l)
-      if (win_key(k, l, d, e) != win_key(k, l, d, p)) return true;
-    return false;
-  }
-  __device__ __forceinline__ long long order(int64_t i) const {
-    return win_key(k, order_key, d, idx[i]);
-  }
-  __device__ __forceinline__ bool vb(int64_t i) const {
-    return head(i) || order(i) != order(i - 1);
-  }
+  __device__ __forceinline__ bool head(int64_t i) const { return hf[i] & WIN_HEAD; }
+  __device__ __forceinline__ bool vb(int64_t i) const { return hf[i] & WIN_VB; }
+  __device__ __forceinline__ bool live(int64_t i) const { return hf[i] & WIN_LIVE; }
   __device__ __forceinline__ long long val(const WinCall& c, int64_t i) const {
-    const int64_t e = idx[i];
-    return e < d.cap ? win_load(c.val, c.dt, e) : 0;
+    return sv[c.in][i];
   }
   __device__ __forceinline__ bool vnull(const WinCall& c, int64_t i) const {
-    if (c.vnull == nullptr) return false;
-    const int64_t e = idx[i];
-    return e < d.cap ? c.vnull[e] != 0 : true;
+    return sn[c.in][i] != 0;
   }
-  __device__ __forceinline__ bool live(int64_t i) const { return win_live(d, idx[i]); }
   __device__ __forceinline__ long long value(int l, int64_t i) const {
     switch (role[l]) {
       case WR_IN_SEG: return 1;
@@ -308,19 +439,25 @@ static inline void win_plan(WinView& v, SegPlan& plan) {
 }
 
 // segmark[gid] = 1 where the segment holds a touched entry (a ghost is)
-__global__ void win_mark_kernel(WinView v, const long long* scan, const uint8_t* touched,
+__global__ void win_mark_kernel(int64_t m, const uint8_t* hf, const long long* scan,
                                 uint8_t* segmark) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= v.m) return;
-  const int64_t e = v.idx[i];
-  if (e >= v.d.cap || touched[e]) segmark[scan[v.m + i] - 1] = 1;
+  if (i < m && (hf[i] & WIN_TOUCHED)) segmark[scan[m + i] - 1] = 1;
 }
 
+// Where the calls' outputs go: the EOWC emit writes them at the sorted
+// position (with the emission's lanes gathered there and the closed
+// slots freed); the general step writes each member's record in sorted
+// order (rec: rs words a member, word 0 its flags: bit 0 dirty
+// partition, bit 1 + c call c's NULL; then call c's output at 1 + c),
+// which win_place_kernel lands by slot.
 struct WinOut {
-  int unsort;
+  int64_t cap;
+  const int32_t* idx;
   const long long* scan;
   const uint8_t* segmark;
-  uint8_t* dirty_slot;
+  unsigned long long* rec;
+  int rs;
   RwTileLanes gather;
   uint8_t* clear_valid;
 };
@@ -329,12 +466,16 @@ __global__ void win_calls_kernel(WinView v, WinOut o) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= v.m) return;
   const int64_t m = v.m;
-  const int64_t e = v.idx[i];
-  if (o.unsort && e >= v.d.cap) return;  // a ghost has no slot
-  const int64_t pos = o.unsort ? e : i;
+  const int64_t e = o.idx[i];
   const long long* scan = o.scan;
-  const long long in_seg = scan[i] - 1;
   const long long gid = scan[m + i];
+  unsigned long long* rec = o.rec != nullptr ? o.rec + i * o.rs : nullptr;
+  if (rec != nullptr && (e >= o.cap || !o.segmark[gid - 1])) {
+    rec[0] = 0ull;  // a ghost, or a clean partition: nothing to land
+    return;
+  }
+  unsigned long long flags = 1ull;
+  const long long in_seg = scan[i] - 1;
   const bool live_i = v.live(i);
   int l = 2;
   for (int c = 0; c < v.calls.n; ++c) {
@@ -380,15 +521,41 @@ __global__ void win_calls_kernel(WinView v, WinOut o) {
       onull = scan[(l + 1) * m + i] <= 0;
       l += 2;
     }
-    w.out[pos] = out;
-    if (w.onull != nullptr) w.onull[pos] = onull ? 1 : 0;
+    if (rec != nullptr) {
+      rec[1 + c] = (unsigned long long)out;
+      flags |= (onull ? 1ull : 0ull) << (1 + c);
+    } else {
+      w.out[i] = out;
+      if (w.onull != nullptr) w.onull[i] = onull ? 1 : 0;
+    }
   }
-  if (o.dirty_slot != nullptr) o.dirty_slot[e] = o.segmark[gid - 1];
-  if (!o.unsort) {
-    for (int g = 0; g < o.gather.n; ++g)
-      rw_tile_copy(o.gather.dst[g], o.gather.src[g], o.gather.esize[g], i, e);
-    if (o.clear_valid != nullptr) o.clear_valid[e] = 0;
+  if (rec != nullptr) {
+    rec[0] = flags;
+    return;
   }
+  for (int g = 0; g < o.gather.n; ++g)
+    rw_tile_copy(o.gather.dst[g], o.gather.src[g], o.gather.esize[g], i, e);
+  if (o.clear_valid != nullptr) o.clear_valid[e] = 0;
+}
+
+// The general step's outputs by slot, in slot order: a slot whose sorted
+// place (pos, -1 for a non-member) holds a dirty partition's record takes
+// its outputs and NULL flags and dirty_slot = 1; every other slot 0.
+__global__ void win_place_kernel(WinCalls calls, int64_t cap, const int32_t* __restrict__ pos,
+                                 const unsigned long long* __restrict__ rec, int rs,
+                                 uint8_t* __restrict__ dirty_slot) {
+  const int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= cap) return;
+  const int32_t p = pos[s];
+  const unsigned long long* r = p >= 0 ? rec + (int64_t)p * rs : nullptr;
+  const unsigned long long flags = r != nullptr ? r[0] : 0ull;
+  const bool dirty = flags & 1ull;
+  for (int c = 0; c < calls.n; ++c) {
+    const WinCall& w = calls.c[c];
+    w.out[s] = dirty ? (long long)r[1 + c] : 0;
+    if (w.onull != nullptr) w.onull[s] = dirty ? (uint8_t)((flags >> (1 + c)) & 1ull) : 0;
+  }
+  dirty_slot[s] = dirty ? 1 : 0;
 }
 
 __global__ void win_valid_kernel(int64_t out_cap, int64_t m, uint8_t* out_valid) {

@@ -20,9 +20,11 @@ Three executors, four kernels:
 - ``EowcOverWindowExecutor`` (emit on window close) buffers rows in
   ``sort.ArenaBufferedExecutor``'s arena (kernel AC's append); at a
   watermark kernel AE (``csrc/window_calls.cu`` over ``csrc/window.cuh``)
-  orders the closed slots by (partition keys, order, seq)
-  (``rw_window_order``, one host read of the count) and computes every
-  call on the complete partitions in sorted order
+  folds the closed slots' key lanes (``rw_window_fold``, one host read of
+  the count and the fold), packs (partition keys, order, seq) into one
+  key by ``window_pack_plan`` and sorts it with single-sweep radix passes
+  (``rw_window_order``, ``csrc/onesweep.cuh``), then lays the sorted rows
+  out and computes every call on the complete partitions in sorted order
   (``rw_window_calls``), gathering every lane into the emission.
 - ``GeneralOverWindowExecutor`` (retractable): per chunk kernel A finds
   or inserts the pks, kernel AF's ``rw_over_apply``
@@ -30,10 +32,11 @@ Three executors, four kernels:
   marks the touched slots and the ghost entries of same-chunk partition
   moves, kernel AE orders the members (the arena's rows that are present
   or emitted, plus the ghosts) and recomputes every call, writing each
-  slot's new outputs and whether its partition is dirty, and AF's
-  ``rw_over_diff`` compares them with what was emitted, compacts the
-  retract and the insert rows each into a dense prefix in slot order,
-  gathers both chunks and updates the emitted lanes.
+  slot's new outputs (in dirty partitions) and whether its partition is
+  dirty, and AF's ``rw_over_diff`` compares them with what was emitted
+  and, in one pass over the slots, places the retract and the insert
+  rows each into a dense prefix in slot order and updates the emitted
+  lanes.
 
 Each kernel has a plain PyTorch version behind the same function, taken
 on CPU tensors. A row whose partition (or pk) found no slot latches
@@ -47,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,6 +106,8 @@ WINDOW_CALLS = 16
 WINDOW_KEYS = 12
 # lanes of rw_over_apply / rw_over_diff's tables (csrc/over_diff.cu OD_MAX_LANES)
 DIFF_LANES = 32
+# slots per tile of rw_over_diff (csrc/over_diff.cu OD_THREADS)
+DIFF_TILE = 256
 # a sort key's role in csrc/window.cuh (WinKeyMode)
 _KEY_VALUE, _KEY_ABSENT = 0, 1
 
@@ -704,28 +709,136 @@ def _key_rows(keys):
     return rows
 
 
+_MASK64 = (1 << 64) - 1
+_SIGN = 1 << 63
+
+
+def _s64(v: int) -> int:
+    """An unsigned 64-bit word as the int64 a descriptor row carries."""
+    return v - (1 << 64) if v & _SIGN else v
+
+
+class WindowPlan(NamedTuple):
+    """Kernel AE's packed sort key, from the fold of its key lanes over
+    the members (``window_pack_plan``). ``fields``: per varying lane
+    ``(lane, lo, width, g0, lo_key)``, the bits of ``(encoded key -
+    lo_key) >> lo``, ``width`` wide, with their lowest at bit ``g0`` of
+    the whole key (``64 * words`` bits, word 0 its most significant).
+    Per word: ``pass_masks`` bit b where byte b may vary (one radix pass
+    each), ``part_masks`` and ``order_masks`` the bits of the partition
+    fields and of the order field."""
+
+    fields: Tuple[Tuple[int, int, int, int, int], ...]
+    words: int
+    bits: int
+    pass_masks: Tuple[int, ...]
+    part_masks: Tuple[int, ...]
+    order_masks: Tuple[int, ...]
+
+    def pack(self, enc: Sequence[int]) -> int:
+        """The whole packed key of one member, ``enc`` its lanes' encoded
+        keys (signed values with bit 63 flipped, as unsigned words)."""
+        key = 0
+        for lane, lo, _, g0, lo_key in self.fields:
+            key |= ((enc[lane] - lo_key) >> lo) << g0
+        return key
+
+    def split(self, key: int) -> Tuple[int, ...]:
+        """A whole key's 64-bit words, most significant first."""
+        return tuple((key >> (64 * (self.words - 1 - w))) & _MASK64 for w in range(self.words))
+
+    def rows(self) -> List[int]:
+        """The plan as ``rw_window_order`` reads it."""
+        flat = [v for lane, lo, width, g0, lo_key in self.fields
+                for v in (lane, lo, width, g0, _s64(lo_key))]
+        return [len(self.fields), self.words, *self.pass_masks, *flat]
+
+
+def window_pack_plan(fold: Sequence[Tuple[int, int, int, int]], n_part: int,
+                     order_lane: int) -> WindowPlan:
+    """Kernel AE's packing plan from the fold of each key lane's encoded
+    keys over the members (``fold[l]``: their OR, AND, MIN and MAX as
+    unsigned words), most significant lane first; lanes ``< n_part`` are
+    the partition keys, ``order_lane`` the order key. A lane that varies
+    gets the field ``(key - MIN) >> lo``, ``lo`` its lowest varying bit
+    (every member has the same bits below it), as wide as ``(MAX - MIN)
+    >> lo`` needs: never wider than the span of its varying bits, and
+    exact, since the shift drops only bits that are equal in every
+    member. The fields fill the key from its top, most significant lane
+    first, so the packed key orders and ties the members as their lanes
+    do; past 64 bits the key takes more words."""
+    widths = []
+    for lane, (o, a, lo_key, hi_key) in enumerate(fold):
+        v = (o ^ a) & _MASK64
+        if v:
+            lo = (v & -v).bit_length() - 1
+            widths.append((lane, lo, ((hi_key - lo_key) >> lo).bit_length(), lo_key))
+    bits = sum(w for _, _, w, _ in widths)
+    words = -(-bits // 64)
+    fields, end = [], 64 * words
+    for lane, lo, width, lo_key in widths:
+        end -= width
+        fields.append((lane, lo, width, end, lo_key))
+
+    def per_word(pick):
+        whole = sum(((1 << w) - 1) << g0 for lane, _, w, g0, _ in fields if pick(lane))
+        return tuple((whole >> (64 * (words - 1 - i))) & _MASK64 for i in range(words))
+
+    varying = per_word(lambda lane: True)
+    passes = tuple(sum(1 << b for b in range(8) if (w >> (8 * b)) & 0xFF) for w in varying)
+    return WindowPlan(tuple(fields), words, bits, passes,
+                      per_word(lambda lane: lane < n_part),
+                      per_word(lambda lane: lane == order_lane))
+
+
+def _window_inputs(calls) -> int:
+    """Distinct call inputs AE lays out in sorted order (csrc/window_calls.cu
+    win_calls): those of lag, lead, sum, min and max."""
+    return len({c.input for c in calls if c.kind in ("lag", "lead", "sum", "min", "max")})
+
+
 def window_scratch(dom: int, n_lanes: int, device) -> Dict[str, torch.Tensor]:
-    """Kernel AE's scratch over a domain of ``dom`` entries: the member
-    compaction's list, bytes, counts and status, the sort's two (key,
-    entry) buffers, its counts and each key lane's OR and AND, and the
-    segmented scan's ``n_lanes`` lanes, tile carries and per-segment
-    dirty marks."""
-    tiles = max(1, -(-dom // _kernels.RBK_TILE))
+    """Kernel AE's scratch over a domain of ``dom`` entries, made once per
+    domain size: the fold's tile counts and words, each member's packed
+    key (one word; a key past 64 bits grows it) and entry, the sort's two
+    (key, payload) buffers, digit counts and look-back words, the sorted
+    layout (entry, flag byte; the call inputs' value and null lanes are
+    made at the first call), the segmented scan's ``n_lanes`` lanes, tile
+    carries and per-segment dirty marks, and the general step's sorted
+    place of each slot and records of the outputs (made at its first
+    call)."""
+    d = max(dom, 1)
     stiles = max(1, -(-dom // _kernels.SEG_SCAN_TILE))
+    e = lambda n, dt: torch.empty(n, dtype=dt, device=device)
     return {
-        "sel": torch.empty(max(dom, 1), dtype=torch.int32, device=device),
-        "payload": torch.empty(max(dom, 1), dtype=torch.uint8, device=device),
-        "part": _kernels.compact_scratch(max(dom, 1), device),
-        "status": torch.zeros(4, dtype=torch.int64, device=device),
-        "keys": torch.empty(2 * max(dom, 1), dtype=torch.int64, device=device),
-        "idx": torch.empty(2 * max(dom, 1), dtype=torch.int32, device=device),
-        "hist": torch.empty(256 * tiles + 256, dtype=torch.int32, device=device),
-        "bits": torch.empty(2 * WINDOW_KEYS, dtype=torch.int64, device=device),
-        "scan": torch.empty(max(1, n_lanes) * max(dom, 1), dtype=torch.int64, device=device),
-        "carry": torch.empty((2 * max(1, n_lanes) + 1) * stiles, dtype=torch.int64,
-                             device=device),
-        "segmark": torch.empty(max(dom, 1), dtype=torch.uint8, device=device),
+        "part": _kernels.compact_scratch(d, device), "fold": e(4 * WINDOW_KEYS, torch.int64),
+        "words": e(d, torch.int64), "ent": e(d, torch.int32),
+        "ka": e(d, torch.int64), "kb": e(d, torch.int64),
+        "pa": e(d, torch.int32), "pb": e(d, torch.int32),
+        "hist": e(8 * 256, torch.int32),
+        "status": e(-(-d // _kernels.OS_TILE) * 256 + 1, torch.int32),
+        "idx": e(d, torch.int32), "hf": e(d, torch.uint8),
+        "sv": e(0, torch.int64), "sn": e(0, torch.uint8),
+        "scan": e(max(1, n_lanes) * d, torch.int64),
+        "carry": e((2 * max(1, n_lanes) + 1) * stiles, torch.int64),
+        "segmark": e(d, torch.uint8), "pos": e(d, torch.int32), "rec": e(0, torch.int64),
     }
+
+
+def _record_words(calls) -> int:
+    """Words of one member's record of outputs in the general step (its
+    flags, then one output a call), rounded up to a power of two so a
+    record covers whole 32-byte sectors."""
+    return 1 << (len(calls)).bit_length()
+
+
+def _scratch_lane(scratch, name: str, numel: int) -> torch.Tensor:
+    """``scratch[name]`` with at least ``numel`` elements, regrown once if
+    a call needs more (a key past 64 bits, more call inputs)."""
+    t = scratch[name]
+    if t.numel() < numel:
+        t = scratch[name] = torch.empty(numel, dtype=t.dtype, device=t.device)
+    return t
 
 
 def _window_scan_lanes(calls) -> int:
@@ -743,43 +856,93 @@ def _window_scan_lanes(calls) -> int:
     return n
 
 
-def window_order(domain: dict, keys, scratch) -> int:
-    """Kernel AE's ``rw_window_order``: the members of ``domain`` in the
-    stable lexicographic order of ``keys`` (``(lane, fallback, mode)``,
-    most significant first; entry order breaks ties), as int32 entries in
-    the first ``m`` places of ``scratch["idx"]``; returns ``m`` (the
-    call's one host read). CUDA only: the plain versions are
-    ``_eowc_emit_torch`` and ``_general_recompute_torch``."""
-    d = domain
+def _domain_args(d: dict):
     ptr = lambda t: 0 if t is None else t.data_ptr()
-    count = ctypes.c_int64(0)
+    return (d["cap"], d["n_ghost"], ptr(d.get("m1")), ptr(d.get("m2")), ptr(d.get("win")),
+            int(d.get("cutoff", 0)), ptr(d.get("present")), ptr(d.get("ghost")),
+            ptr(d.get("gslot")))
+
+
+def window_fold(domain: dict, keys, scratch) -> Tuple[int, List[Tuple[int, int, int, int]]]:
+    """Kernel AE's ``rw_window_fold``: the member count of ``domain`` and,
+    per key lane (``(lane, fallback, mode)``, most significant first), the
+    OR, AND, MIN and MAX of its encoded keys over the members (the call's
+    one host read). CUDA only: the plain versions are ``_eowc_emit_torch``
+    and ``_general_recompute_torch``."""
+    host = (ctypes.c_int64 * (1 + 4 * WINDOW_KEYS))()
+    _kernels.call("window_calls", "rw_window_fold", *_domain_args(domain),
+                  _kernels.int64_rows(_key_rows(keys), WINDOW_KEYS), len(keys),
+                  scratch["part"].data_ptr(), scratch["fold"].data_ptr(), host)
+    fold = [tuple(host[1 + 4 * lane + j] & _MASK64 for j in range(4)) for lane in range(len(keys))]
+    return int(host[0]), fold
+
+
+def window_order(domain: dict, keys, plan: WindowPlan, m: int, scratch) -> Tuple[int, int]:
+    """Kernel AE's ``rw_window_order``: the ``m`` members of ``domain``
+    sorted by ``plan``'s packed key (entry order breaks ties: the stable
+    lexicographic order of ``keys``); returns the device addresses of the
+    sorted first words and of the sorted entries (one word) or
+    compaction places (more words), both in ``scratch``."""
+    total = domain["cap"] + domain["n_ghost"]
+    words = _scratch_lane(scratch, "words", max(1, plan.words) * max(total, 1))
+    host = (ctypes.c_int64 * 2)()
     _kernels.call(
-        "window_calls", "rw_window_order", d["cap"], d["n_ghost"], ptr(d.get("m1")),
-        ptr(d.get("m2")), ptr(d.get("win")), int(d.get("cutoff", 0)), ptr(d.get("present")),
-        ptr(d.get("ghost")), ptr(d.get("gslot")),
+        "window_calls", "rw_window_order", *_domain_args(domain),
         _kernels.int64_rows(_key_rows(keys), WINDOW_KEYS), len(keys),
-        scratch["sel"].data_ptr(), scratch["payload"].data_ptr(), scratch["part"].data_ptr(),
-        scratch["status"].data_ptr(), scratch["keys"].data_ptr(), scratch["idx"].data_ptr(),
-        scratch["hist"].data_ptr(), scratch["bits"].data_ptr(), ctypes.addressof(count),
+        _kernels.int64_rows([plan.rows()], 1), m, scratch["part"].data_ptr(), words.data_ptr(),
+        *(scratch[k].data_ptr() for k in ("ent", "ka", "kb", "pa", "pb", "hist", "status")),
+        host,
     )
-    return int(count.value)
+    return int(host[0]), int(host[1])
 
 
-def _window_calls_cuda(domain, keys, n_part, order_key, calls, scratch, m, vals, vnulls,
-                       outs, out_nulls, unsort, gather_rows, out_valid, clear_valid,
-                       dirty_slot, touched):
+def onesweep_sort(keys: torch.Tensor, scratch, mask: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel AE's sort alone (``rw_onesweep_sort``): ``keys`` (int64,
+    read as unsigned words) stably sorted by the bytes of ``mask`` (bit b:
+    byte b), with their places; views into ``scratch`` (``window_scratch``
+    of at least ``keys.numel()`` entries). CUDA only; for timing the sort
+    by itself."""
+    n = keys.numel()
+    _kernels.check_cuda("window_calls", keys, n=n)
+    host = (ctypes.c_int64 * 2)()
+    _kernels.call("window_calls", "rw_onesweep_sort", keys.data_ptr(), 0, n, mask,
+                  *(scratch[k].data_ptr() for k in ("ka", "kb", "pa", "pb", "hist", "status")),
+                  host)
+    base = {scratch[k].data_ptr(): scratch[k] for k in ("ka", "kb", "pa", "pb")}
+    key_t = base.get(int(host[0]), keys)[:n]
+    pay_t = base.get(int(host[1]))
+    return key_t, (pay_t[:n] if pay_t is not None else torch.arange(n, dtype=torch.int32,
+                                                                    device=keys.device))
+
+
+def _window_calls_cuda(domain, plan, sorted_ptrs, calls, scratch, m, vals, vnulls, outs,
+                       out_nulls, unsort, gather_rows, out_valid, clear_valid, dirty_slot,
+                       touched):
     """Kernel AE's ``rw_window_calls`` over the ``m`` sorted members."""
     d = domain
     ptr = lambda t: 0 if t is None else t.data_ptr()
+    total = d["cap"] + d["n_ghost"]
     rows = _call_rows(calls, vals, vnulls, outs, out_nulls)
+    n_in = max(1, _window_inputs(calls))
+    sv = _scratch_lane(scratch, "sv", n_in * max(total, 1))
+    sn = _scratch_lane(scratch, "sn", n_in * max(total, 1))
+    n_words = plan.words if plan is not None else 0
+    rs = _record_words(calls)
+    rec = _scratch_lane(scratch, "rec", rs * max(total, 1)) if unsort else scratch["rec"]
+    sorted_rows = [sorted_ptrs[0], sorted_ptrs[1], scratch["words"].data_ptr(), total,
+                   scratch["ent"].data_ptr()]
+    if plan is not None:
+        sorted_rows += [_s64(w) for w in plan.part_masks + plan.order_masks]
     _kernels.call(
         "window_calls", "rw_window_calls", d["cap"], d["n_ghost"], ptr(d.get("present")),
-        ptr(d.get("gslot")), _kernels.int64_rows(_key_rows(keys), WINDOW_KEYS), len(keys),
-        n_part, order_key, _kernels.int64_rows(rows, WINDOW_CALLS), len(calls), m,
-        1 if unsort else 0, scratch["idx"].data_ptr(), scratch["scan"].data_ptr(), scratch["carry"].data_ptr(),
-        scratch["segmark"].data_ptr(), ptr(touched), ptr(dirty_slot),
-        _kernels.int64_rows(gather_rows, _kernels.TILE_LANES), len(gather_rows),
-        ptr(out_valid), 0 if out_valid is None else out_valid.shape[0], ptr(clear_valid),
+        ptr(touched), _kernels.int64_rows(rows, WINDOW_CALLS), len(calls), m,
+        1 if unsort else 0, _kernels.int64_rows([sorted_rows], 1), n_words,
+        scratch["idx"].data_ptr(), scratch["hf"].data_ptr(), sv.data_ptr(), sn.data_ptr(), n_in,
+        scratch["scan"].data_ptr(), scratch["carry"].data_ptr(), scratch["segmark"].data_ptr(),
+        scratch["pos"].data_ptr(), rec.data_ptr(), rs,
+        ptr(dirty_slot), _kernels.int64_rows(gather_rows, _kernels.TILE_LANES),
+        len(gather_rows), ptr(out_valid), 0 if out_valid is None else out_valid.shape[0],
+        ptr(clear_valid),
     )
 
 
@@ -845,9 +1008,11 @@ def _eowc_emit_cuda(buf, bnulls, valid, seq, cutoff, names, calls, part_keys, or
     if scratch is None:
         scratch = window_scratch(cap, _window_scan_lanes(calls), dev)
     domain = {"cap": cap, "n_ghost": 0, "m1": valid, "win": win, "cutoff": cutoff}
-    m = window_order(domain, keys, scratch)
+    m, fold = window_fold(domain, keys, scratch)
     if m == 0:
         return None, None, None, 0
+    plan = window_pack_plan(fold, len(part_keys), len(part_keys))
+    srt = window_order(domain, keys, plan, m, scratch)
     vals, vnulls = {}, {}
     for c in calls:
         if c.input is not None and c.input not in vals:
@@ -866,9 +1031,8 @@ def _eowc_emit_cuda(buf, bnulls, valid, seq, cutoff, names, calls, part_keys, or
     for n in bnulls:
         gather.append((bnulls[n].data_ptr(), out_nulls[n].data_ptr(), 1))
     out_valid = torch.empty(cap, dtype=torch.bool, device=dev)
-    order_key = len(part_keys)
-    _window_calls_cuda(domain, keys, len(part_keys), order_key, calls, scratch, m, vals, vnulls,
-                       outs, onulls, False, gather, out_valid, valid, None, None)
+    _window_calls_cuda(domain, plan, srt, calls, scratch, m, vals, vnulls, outs, onulls, False,
+                       gather, out_valid, valid, None, None)
     out_cols.update(outs)
     out_nulls.update(onulls)
     return out_cols, out_nulls, out_valid, m
@@ -920,7 +1084,7 @@ class EowcOverWindowExecutor(ArenaBufferedExecutor):
             return watermark, []
         if self.device.type == "cuda":
             cap = self.capacity
-            if self._wscratch is None or self._wscratch["sel"].numel() < cap:
+            if self._wscratch is None or self._wscratch["ent"].numel() < cap:
                 self._wscratch = window_scratch(cap, _window_scan_lanes(self.calls), self.device)
         out_cols, out_nulls, out_valid, n_closed = eowc_over_emit(
             self.buf, self.bnulls, self.valid, self.seq, int(watermark.value), self.names,
@@ -1057,7 +1221,8 @@ def general_recompute(st: dict, touched, ghost, gslots, calls, part_keys, order_
     emitted slots, plus the ghosts) by (partition keys, live first, order,
     seq) and recompute every call; returns ``(new_out, new_out_nulls,
     dirty_slot)`` by slot. Only the slots of dirty partitions are
-    meaningful. Kernel AE on the card, plain PyTorch on the CPU."""
+    meaningful: kernel AE lands outputs only there (and 0 at every other
+    slot). Kernel AE on the card, plain PyTorch on the CPU."""
     if touched.device.type == "cpu":
         return _general_recompute_torch(st, touched, ghost, gslots, calls, part_keys, order_col)
     if touched.device.type == "cuda":
@@ -1141,7 +1306,11 @@ def _general_recompute_cuda(st, touched, ghost, gslots, calls, part_keys, order_
         scratch = window_scratch(cap + n, _window_scan_lanes(calls), dev)
     domain = {"cap": cap, "n_ghost": n, "m1": present, "m2": em_valid, "present": present,
               "ghost": ghost, "gslot": gslots}
-    m = window_order(domain, keys, scratch)
+    m, fold = window_fold(domain, keys, scratch)
+    plan, srt = None, (0, 0)
+    if m:
+        plan = window_pack_plan(fold, len(part_keys), len(part_keys) + 1)
+        srt = window_order(domain, keys, plan, m, scratch)
     vals, vnulls = {}, {}
     for c in calls:
         if c.input is not None and c.input not in vals:
@@ -1151,9 +1320,8 @@ def _general_recompute_cuda(st, touched, ghost, gslots, calls, part_keys, order_
     new_out = {c.output: torch.empty(cap, dtype=torch.int64, device=dev) for c in calls}
     new_nulls = {c.output: torch.empty(cap, dtype=torch.bool, device=dev) for c in calls}
     dirty_slot = torch.empty(cap, dtype=torch.bool, device=dev)
-    _window_calls_cuda(domain, keys, len(part_keys), len(part_keys) + 1, calls, scratch, m,
-                       vals, vnulls, new_out, new_nulls, True, [], None, None, dirty_slot,
-                       touched)
+    _window_calls_cuda(domain, plan, srt, calls, scratch, m, vals, vnulls, new_out, new_nulls,
+                       True, [], None, None, dirty_slot, touched)
     return new_out, new_nulls, dirty_slot
 
 
@@ -1224,17 +1392,11 @@ def _over_diff_torch(st, emnulls, new_out, new_nulls, dirty_slot, lane_names, ou
 
 
 def diff_scratch(cap: int, device) -> Dict[str, torch.Tensor]:
-    """Kernel AF's diff scratch over ``cap`` slots: each slot's retract and
-    insert bits, the two compactions' slot lists, payload bytes, counts
-    and status words."""
-    return {
-        "flags": torch.empty(cap, dtype=torch.uint8, device=device),
-        "sel_r": torch.empty(cap, dtype=torch.int32, device=device),
-        "sel_i": torch.empty(cap, dtype=torch.int32, device=device),
-        "payload": torch.empty(cap, dtype=torch.uint8, device=device),
-        "part": _kernels.compact_scratch(cap, device),
-        "status": torch.zeros(4, dtype=torch.int64, device=device),
-    }
+    """Kernel AF's diff scratch over ``cap`` slots: each tile's published
+    retract and insert counts (the look-back), the tile counter and the
+    two totals."""
+    tiles = -(-cap // DIFF_TILE)
+    return {"status": torch.empty(tiles + 3, dtype=torch.int64, device=device)}
 
 
 def _over_diff_cuda(st, emnulls, new_out, new_nulls, dirty_slot, lane_names, out_names,
@@ -1277,8 +1439,6 @@ def _over_diff_cuda(st, emnulls, new_out, new_nulls, dirty_slot, lane_names, out
     _kernels.call(
         "over_diff", "rw_over_diff", _kernels.int64_rows(rows, DIFF_LANES), len(rows), cap,
         present.data_ptr(), em_valid.data_ptr(), dirty_slot.data_ptr(), st["sdirty"].data_ptr(),
-        scratch["flags"].data_ptr(), scratch["sel_r"].data_ptr(), scratch["sel_i"].data_ptr(),
-        scratch["payload"].data_ptr(), scratch["part"].data_ptr(),
         scratch["status"].data_ptr(), ret_valid.data_ptr(), ins_valid.data_ptr(),
     )
     ret = StreamChunk(columns=ret_cols, valid=ret_valid, nulls=ret_nulls, ops=ops_del)

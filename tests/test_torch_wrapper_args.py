@@ -663,11 +663,71 @@ def test_ae_and_af_entries_marshal(calls):
                                   g.out_names, *ops, None)
     assert set(ret.nulls) == set() and set(ins.nulls) == {"x", *new_out}
     assert set(g.emnulls) == set(g.lane_names + g.out_names)
-    assert calls == [("window_calls", "rw_window_order"), ("over_diff", "rw_over_apply"),
-                     ("window_calls", "rw_window_order"), ("window_calls", "rw_window_calls"),
+    assert calls == [("window_calls", "rw_window_fold"), ("over_diff", "rw_over_apply"),
+                     ("window_calls", "rw_window_fold"), ("window_calls", "rw_window_calls"),
                      ("over_diff", "rw_over_diff")]
-    assert [_kernels.LAUNCHES[k] for k in ("window_order", "window_calls", "over_apply",
-                                           "over_diff")] == [2, 1, 1, 1]
+    assert [_kernels.LAUNCHES[k] for k in ("window_fold", "window_order", "window_calls",
+                                           "over_apply", "over_diff")] == [2, 0, 1, 1, 1]
+
+
+def test_ae_order_and_calls_marshal_past_64_bits(monkeypatch):
+    """Kernel AE when the fold reads back members: the plan from the fold
+    (two 40-bit partition lanes, the order lane and seq: 118 bits, two
+    words) goes to ``rw_window_order``, and where the sort left its words
+    and places, with each word's partition and order masks, to
+    ``rw_window_calls``; a second input lane (``o`` for lag) widens the
+    laid-out inputs. Then the sort alone (``onesweep_sort``)."""
+    from risingwave_tpu_torch.executors import over_window as ow
+
+    log = []
+    span = (1 << 40) - 1
+    # per key lane: OR, AND, MIN, MAX of the encoded keys (bit 63 flipped)
+    fold = [(span | 1 << 63, 1 << 63, 1 << 63, span | 1 << 63)] * 2
+    fold += [(255 | 1 << 63, 1 << 63, 1 << 63, 255 | 1 << 63)] * 2
+
+    def call(name, fn, *args):
+        def body(*a):
+            if fn == "rw_window_fold":
+                host = ctypes.cast(a[13], ctypes.POINTER(ctypes.c_int64))
+                host[0] = 20
+                for i, w in enumerate(v for f in fold for v in f):
+                    host[1 + i] = w - (1 << 64) if w >> 63 else w
+            if fn in ("rw_window_order", "rw_onesweep_sort"):
+                host = ctypes.cast(a[-2], ctypes.POINTER(ctypes.c_int64))
+                host[0], host[1] = 1 << 20, 1 << 21
+            log.append((fn, a))
+            return 0
+
+        proto = ctypes.CFUNCTYPE(ctypes.c_int, *_kernels.SIGNATURES[name][fn])
+        assert proto(body)(*args, None) == 0
+        _kernels.LAUNCHES[_kernels.ENTRY_KEYS.get(fn, name)] += 1
+
+    monkeypatch.setattr(_kernels, "call", call)
+    monkeypatch.setattr(_kernels, "check_cuda", lambda name, *t, n=None: None)
+    _kernels.reset_launches()
+    cap = 64
+    wc = (ow.WindowCall("row_number", None, "rn"), ow.WindowCall("sum", "x", "sx"),
+          ow.WindowCall("lag", "o", "lg"), ow.WindowCall("max", "x", "mx"))
+    dt = {"p": torch.int64, "q": torch.int64, "o": torch.int64, "x": torch.int64}
+    ex = ow.EowcOverWindowExecutor(("p", "q"), "o", wc, dt, win_col="p", capacity=cap,
+                                   nullable=("x",), device="cpu")
+    scr = ow.window_scratch(cap, ow._window_scan_lanes(wc), "cpu")
+    out = ow._eowc_emit_cuda(ex.buf, ex.bnulls, ex.valid, ex.seq, 3, ex.names, wc, ("p", "q"),
+                             "o", "p", scr)
+    assert out[3] == 20 and out[2].shape == (cap,)
+    assert [fn for fn, _ in log] == ["rw_window_fold", "rw_window_order", "rw_window_calls"]
+    order, calls_args = log[1][1], log[2][1]
+    plan = ow.window_pack_plan(fold, 2, 2)
+    assert plan.words == 2 and plan.bits == 40 + 40 + 8 + 8
+    assert order[12] == 20 and order[14] == scr["words"].data_ptr()
+    assert scr["words"].numel() >= 2 * cap  # grown once for the second word
+    assert calls_args[6] == 20 and calls_args[7] == 0 and calls_args[9] == 2  # m, sorted, words
+    assert calls_args[14] == 2 and scr["sv"].numel() == 2 * cap  # inputs x and o, made once
+    keys, places = ow.onesweep_sort(torch.arange(20, dtype=torch.int64) << 30, scr, 0b11000)
+    assert log[-1][0] == "rw_onesweep_sort" and log[-1][1][3] == 0b11000  # bytes 3, 4
+    assert keys.shape == places.shape == (20,)
+    assert [_kernels.LAUNCHES[k] for k in ("window_fold", "window_order", "window_calls",
+                                           "onesweep")] == [1, 1, 1, 1]
 
 
 def test_ag_entries_marshal(calls):
