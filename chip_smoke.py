@@ -51,8 +51,13 @@ Phases, each printing one JSON line:
      beside phases 18, 19 and 23, while their streams are on the card),
      and X on small stores built to reach each of its branches (ties
      across the k-th place, groups of k and k + 1 rows, dead-only
-     groups, float and INT64-extreme keys, keys past 64 bits); A's and
-     X's rows also give their device-only time (``torch.profiler``);
+     groups, float and INT64-extreme keys, keys past 64 bits), W on
+     small stores likewise (ties across the n-th place, n past the live
+     count, all dead, NaN and -0.0, pk lanes past 64 bits, n of 0 and
+     the capacity) and M on a small side in each mode with its output
+     cut inside the pairs and inside group 2 and an empty chunk; A's,
+     M's, W's and X's rows also give their device-only time
+     (``torch.profiler``);
      Y, the SimpleAgg fold, on a 2^17-row U-/U+ flush chunk of q102's
      second count (COUNT(*), SUM(bid_count), a COUNT and float64 and
      float32 SUMs) and an append-only chunk through MIN/MAX calls, then a
@@ -1677,11 +1682,93 @@ def kernel_l_regrow(torch, dev, rng, cap: int = 1 << 20, keys: int = 300_000):
     }
 
 
+M_HARD_CAP = 1 << 12  # slots of M's hard side
+M_HARD_ROWS = 3000  # probe rows of its chunks: 12 tiles of the look-back
+
+
+def m_hard_cases(torch, dev, rng) -> dict:
+    """M against its plain version, every output row (the zero rows past
+    the last one too), slots, mc, written, the latch and the counter, on a
+    small (2^12, 4) side with full buckets, NULL payloads and keys whose
+    rows were all deleted: a 3,000-row chunk (hits, misses, invalid rows,
+    deletes, an own NULL lane) in each mode (inner pairs, the outer
+    arrival's pairs then NULL pads, semi, anti), into an output that holds
+    every row with a long zero tail, one that fits exactly, one cut inside
+    the pairs and one cut inside group 2; then an empty chunk (n = 0)."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+    from risingwave_tpu_torch.ops import join as jn
+
+    fanout = 4
+    side = jn.JoinSide.create(M_HARD_CAP, fanout, (torch.int64,),
+                              {"k": torch.int64, "v": torch.int32, "f": torch.float64},
+                              nullable=("v",), device=dev)
+    keys = np.arange(1500, dtype=np.int64)
+    per_key = rng.integers(1, fanout + 1, len(keys))  # every fourth key or so: a full bucket
+    k = np.repeat(keys, per_key)
+    rows = {"k": k, "v": rng.integers(-9, 9, len(k)).astype(np.int32),
+            "f": rng.standard_normal(len(k))}
+    nulls = {"v": rng.random(len(k)) < 0.3}
+    names = ("f", "k", "v")
+    for ops_of in (np.zeros, lambda m, dt: np.full(m, 1, dt)):  # insert all; delete keys < 100
+        pick = slice(None) if ops_of is np.zeros else k < 100
+        c = StreamChunk.from_numpy({n: v[pick] for n, v in rows.items()}, 8192,
+                                   ops=ops_of(len(k[pick]), np.int32),
+                                   nulls={n: v[pick] for n, v in nulls.items()}, device=dev)
+        jn.apply_side(side, (c.col("k"),), {n: c.col(n) for n in names},
+                      {"v": c.nulls["v"]}, c.valid, c.ops, names)
+    n = M_HARD_ROWS
+    pk = rng.integers(0, 2200, n).astype(np.int64)  # stored, deleted (< 100) and absent keys
+    chunk = StreamChunk.from_numpy(
+        {"pk": pk, "pv": rng.integers(0, 50, n).astype(np.int32)}, n,
+        ops=rng.choice(np.array([0, 1, 2, 3], np.int32), n),
+        nulls={"pv": rng.random(n) < 0.2}, device=dev)
+    valid = chunk.valid & torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    own, own_nulls = {"pk": chunk.col("pk"), "pv": chunk.col("pv")}, {"pv": chunk.nulls["pv"]}
+    z = lambda d: torch.zeros((), dtype=d, device=dev)
+    modes = {"inner": (True, jn.G2_NONE, ("pk", "pv", "k", "v", "f"), ("pv", "v")),
+             "outer": (True, jn.G2_OUTER, ("pk", "pv", "k", "v", "f"), ("pv", "k", "v", "f")),
+             "semi": (False, jn.G2_SEMI, ("pk", "pv"), ("pv",)),
+             "anti": (False, jn.G2_ANTI, ("pk", "pv"), ("pv",))}
+
+    def both(key, vd, cap_out, pairs_on, g2, out_names, null_names):
+        res = []
+        for fn in (jn._probe_pairs_cuda, jn._probe_pairs_torch):
+            em, cnt = z(torch.bool), z(torch.int64)
+            pr = fn(side, key, vd, chunk.ops[:vd.shape[0]],
+                    {nm: t[:vd.shape[0]] for nm, t in own.items()},
+                    {nm: t[:vd.shape[0]] for nm, t in own_nulls.items()}, out_names, null_names,
+                    cap_out, em, cnt, pairs_on, g2)
+            res.append({**probed_lanes(pr), "em_overflow": em, "join_rows": cnt})
+        torch.cuda.synchronize()
+        return res
+
+    cases = 0
+    for mode, (pairs_on, g2, out_names, null_names) in modes.items():
+        full = both((chunk.col("pk"),), valid, 1 << 16, pairs_on, g2, out_names, null_names)
+        total = int(full[1]["written"])
+        pairs = int(full[1]["mc"].sum()) if pairs_on else 0
+        cuts = {"tail": 1 << 16, "exact": total, "in_pairs": pairs // 2,
+                "in_group2": pairs + (total - pairs) // 2}
+        for cut, cap_out in cuts.items():
+            got, want = full if cut == "tail" else both((chunk.col("pk"),), valid, cap_out,
+                                                        pairs_on, g2, out_names, null_names)
+            assert_lanes_equal(torch, got, want, f"M {mode}, out_cap {cut} ({cap_out})")
+            cases += 1
+        check(0 < pairs < total if mode == "outer" else total > 0, f"M {mode}: both groups")
+        got, want = both((chunk.col("pk")[:0],), valid[:0], 64, pairs_on, g2, out_names,
+                         null_names)
+        assert_lanes_equal(torch, got, want, f"M {mode}, n = 0")
+        cases += 1
+    full_buckets = int((side.row_valid.sum(1) == fanout).sum())
+    check(full_buckets > 100, f"M: full buckets on the hard side ({full_buckets})")
+    return {"hard_cases": cases, "full_buckets": full_buckets}
+
+
 def kernel_m(torch, dev, rng, side, n: int = A_ROWS, out_cap: int = Q8_OUT_CAP):
     """M against its plain version: an auction chunk probing L's person
     side (about 9,000 hits, a key of 8 rows, absent keys, one DELETE
-    row), then the same chunk into a 1,024-row output (em_overflow); and
-    M's lookup entry alone."""
+    row), then the same chunk into a 1,024-row output (em_overflow); M's
+    lookup entry alone; then ``m_hard_cases``."""
     from risingwave_tpu_torch.array.chunk import StreamChunk
     from risingwave_tpu_torch.ops import hash_table as ht
     from risingwave_tpu_torch.ops import join as jn
@@ -1723,6 +1810,9 @@ def kernel_m(torch, dev, rng, side, n: int = A_ROWS, out_cap: int = Q8_OUT_CAP):
     em, rows = z(torch.bool), z(torch.int64)
     ms = time_ms(torch, lambda: jn._probe_pairs_cuda(side, key_cols, chunk.valid, chunk.ops, own,
                                                      {}, out_names, (), out_cap, em, rows), 20)
+    dev_ms = device_time_ms(torch, lambda: jn._probe_pairs_cuda(
+        side, key_cols, chunk.valid, chunk.ops, own, {}, out_names, (), out_cap, em, rows), 5)
+    hard = m_hard_cases(torch, dev, rng)
     plain = time_ms(torch, lambda: jn._probe_pairs_torch(side, key_cols, chunk.valid, chunk.ops,
                                                          own, {}, out_names, (), out_cap, em,
                                                          rows), 5)
@@ -1739,11 +1829,11 @@ def kernel_m(torch, dev, rng, side, n: int = A_ROWS, out_cap: int = Q8_OUT_CAP):
         "name": "M join probe + pairs", "route": "cuda",
         "source": "risingwave_tpu_torch/csrc/join_probe.cu",
         "replaces": "risingwave_tpu/ops/join.py:407,420,429 (with ops/hash_table.py:232)",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
-        "bound_by": "bytes", "library_ms": lib,
+        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "library_ms": lib,
         "library_call": "torch.nonzero of the (n, fanout) match mask, the compaction alone",
         "shape": {"probe_rows": n, "capacity": side.capacity, "fanout": fanout,
-                  "found": n_found, "pairs": pairs, "out_cap": out_cap},
+                  "found": n_found, "pairs": pairs, "out_cap": out_cap, **hard},
     }
 
 
@@ -2746,6 +2836,7 @@ def kernel_m_outer_l_init(torch, dev, rng, ids, items, n: int = A_ROWS):
     m_run = lambda fn: fn(right, key, chunk.valid, chunk.ops, own, {}, out_names, null_names,
                           Q101_OUT_CAP, em, rows, True, jn.G2_OUTER)
     m_ms = time_ms(torch, lambda: m_run(jn._probe_pairs_cuda), 20)
+    m_dev = device_time_ms(torch, lambda: m_run(jn._probe_pairs_cuda), 5)
     m_plain = time_ms(torch, lambda: m_run(jn._probe_pairs_torch), 5)
     n_found = int((res[0]["slots"] >= 0).sum())
     # per probe row its key, item, valid and ops read, one probe (fp1,
@@ -2781,7 +2872,8 @@ def kernel_m_outer_l_init(torch, dev, rng, ids, items, n: int = A_ROWS):
         "name": "M join probe + group 2 (left outer arrival)", "route": "cuda",
         "source": "risingwave_tpu_torch/csrc/join_probe.cu",
         "replaces": "risingwave_tpu/ops/join.py:407,420,429 with executors/hash_join.py:174-195",
-        "max_abs_err": m_err, "ms": m_ms, "plain_ms": m_plain, "bound_ms": bound_ms(m_bytes),
+        "max_abs_err": m_err, "ms": m_ms, "device_ms": m_dev, "plain_ms": m_plain,
+        "bound_ms": bound_ms(m_bytes),
         "bound_by": "bytes", "library_ms": None,
         "shape": {"probe_rows": n, "capacity": Q101_JOIN_CAP, "fanout": Q101_FANOUT,
                   "stored": len(with_bid), "found": n_found, "rows_written": written,
@@ -5832,11 +5924,91 @@ def kernel_vx(torch, dev, rng, chunks):
     return v_row, x_row
 
 
+W_HARD_CAP = 1 << 12  # slots of each of W's hard stores
+W_TIE_CAP = 1 << 20  # slots of W's store whose live rows all tie
+
+
+def w_store(torch, dev, order, pks, live):
+    """A TopN row store for W alone: the lanes per slot, no key hashed (W
+    reads live and the key lanes alone)."""
+    from risingwave_tpu_torch.ops.hash_table import HashTable
+
+    lanes = [torch.from_numpy(np.ascontiguousarray(k)).to(dev) for k in pks]
+    table = HashTable.create(len(live), tuple(k.dtype for k in lanes), device=dev)
+    for tk, k in zip(table.keys, lanes):
+        tk.copy_(k)
+    table.live.copy_(torch.from_numpy(np.asarray(live, np.bool_)).to(dev))
+    return table, torch.from_numpy(np.ascontiguousarray(order)).to(dev)
+
+
+def w_hard_stores(torch, dev, rng) -> dict:
+    """W against its plain version, slot for slot, on small stores built
+    to reach each of its branches: ties across the n-th place broken by
+    the pk lanes; dead rows with stale lanes (INT64 extremes among their
+    order values) for n past the live count; an all-dead store; float32
+    and float64 order lanes with NaN, -0.0 and infinities; two full-range
+    pk lanes (the packed key past 64 bits); int32 and bool pk lanes; each
+    at n of 0, 1, inside the live rows, the live count, past it and the
+    capacity, ASC and DESC. Then a 2^20-slot store whose live rows all
+    tie on one order value (every live row a candidate, a multi-tile
+    sort), at n = 1,000 and past its live count."""
+    from risingwave_tpu_torch.executors import top_n_plain as tp
+
+    cap = W_HARD_CAP
+    i_min, i_max = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+    live = rng.random(cap) < 0.6
+    stale = rng.integers(-20, 20, cap).astype(np.int64)
+    stale[~live & (rng.random(cap) < 0.2)] = i_min
+    stale[~live & (rng.random(cap) < 0.2)] = i_max
+    perm = rng.permutation(cap).astype(np.int64) - 100
+    fvals = np.array([np.nan, -np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5, -1.5, 2.0])
+    stores = {
+        "stale_dead": (stale, [perm], live),
+        "ties": (np.where(rng.random(cap) < 0.5, 7, rng.integers(-30, 30, cap)).astype(np.int64),
+                 [rng.integers(-3, 3, cap).astype(np.int64), perm], live),
+        "all_dead": (stale, [perm], np.zeros(cap, bool)),
+        "float32": (fvals[rng.integers(0, 9, cap)].astype(np.float32), [perm], live),
+        "float64": (fvals[rng.integers(0, 9, cap)], [perm], live),
+        "wide_pk": (rng.integers(0, 3, cap).astype(np.int64),
+                    [np.where(rng.random(cap) < 0.5, 12345,
+                              rng.integers(i_min, i_max, cap, dtype=np.int64)),
+                     rng.integers(i_min, i_max, cap, dtype=np.int64)], live),
+        "pk_dtypes": (rng.integers(0, 4, cap).astype(np.int32),
+                      [(rng.integers(-2**31, 2**31, cap) // 2**28).astype(np.int32),
+                       rng.random(cap) < 0.5, (perm + 100).astype(np.int32)], live),
+    }
+    cases = 0
+    for name, (order, pks, lv) in stores.items():
+        table, lane = w_store(torch, dev, order, pks, lv)
+        n_live = int(lv.sum())
+        ns = sorted({0, 1, 37, n_live // 2, n_live, n_live + 1, n_live + 200, cap})
+        for n in (m for m in ns if m <= cap):
+            for desc in (False, True):
+                got = tp._rank_top_cuda(table, lane, n, desc)
+                want = tp._rank_top_torch(table, lane, n, desc)
+                torch.cuda.synchronize()
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"W {name} (n {n}, desc {desc}): idx, alive")
+                cases += 1
+    live = rng.random(W_TIE_CAP) < 0.6
+    table, lane = w_store(torch, dev, np.full(W_TIE_CAP, 60, np.int64),
+                          [rng.permutation(W_TIE_CAP).astype(np.int64)], live)
+    for n in (1000, int(live.sum()) + 1000):
+        got = tp._rank_top_cuda(table, lane, n, True)
+        want = tp._rank_top_torch(table, lane, n, True)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"W every live row tied (n {n}): idx, alive")
+        cases += 1
+    return {"hard_cases": cases}
+
+
 def kernel_vw(torch, dev, rng):
     """V and W at q105's shapes: a 2^22-slot TopN store of 1.2M auctions
     whose counts tie 5,000 rows at the 1,000th rank, with 200 dead rows
     of the largest counts; V on a 65,536-row chunk of U-/U+ count
-    changes, deletes and inserts; then W (n = 1,000, DESC) exact."""
+    changes, deletes and inserts; then W (n = 1,000, DESC) exact, and on
+    ``w_hard_stores``."""
     from risingwave_tpu_torch.array.chunk import StreamChunk
     from risingwave_tpu_torch.executors import top_n_plain as tp
     from risingwave_tpu_torch.ops.agg import topn_order_key
@@ -5885,21 +6057,25 @@ def kernel_vw(torch, dev, rng):
     tied = int((topn.table.live & (lane == nth)).sum())
     check(tied >= 1000, f"W: thousands of rows tied at the 1,000th count ({tied})")
     ms = time_ms(torch, lambda: tp.rank_top(topn.table, lane, 1000, True), 20)
+    dev_ms = device_time_ms(torch, lambda: tp.rank_top(topn.table, lane, 1000, True), 3)
+    hard = w_hard_stores(torch, dev, rng)
     plain = time_ms(torch, lambda: tp._rank_top_torch(topn.table, lane, 1000, True), 3)
     key = topn_order_key(lane, True)
     lib = time_ms(torch, lambda: torch.topk(key, 1000, largest=False), 20)
     cap = topn.table.capacity
-    # live 1, order lane 8, two pk lanes 16 read per slot; n slots and
-    # their liveness written
-    nbytes = cap * 25 + 1000 * 5
+    # what W must touch: live 1 and the order lane 8 read per slot; the
+    # two pk lanes (16) only for the rows tied at the n-th order key,
+    # which they order; n slots and their liveness written
+    nbytes = cap * 9 + tied * 16 + 1000 * 5
     w_row = {"name": "W top-n rank", "route": "cuda",
              "source": "risingwave_tpu_torch/csrc/topn_rank.cu",
              "replaces": "risingwave_tpu/executors/top_n_plain.py:86",
-             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": bound_ms(nbytes),
-             "bound_by": "bytes", "library_ms": lib,
+             "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+             "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "library_ms": lib,
              "library_call": "torch.topk of the flipped order key (liveness and ties left out)",
              "shape": {"capacity": cap, "live_rows": int(topn.table.live.sum()), "n": 1000,
-                       "nth_count": nth, "tied_at_nth": tied, "dead_extreme_rows": 200}}
+                       "nth_count": nth, "tied_at_nth": tied, "dead_extreme_rows": 200,
+                       **hard}}
     return v_row, w_row
 
 

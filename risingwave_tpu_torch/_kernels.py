@@ -39,6 +39,7 @@ each library under a lock, and ``LAUNCHES`` counts under another.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import hashlib
 import os
@@ -178,7 +179,9 @@ SIGNATURES = {
         "rw_topn_upsert": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "topn_rank": {
-        "rw_rank_top": [_P, _I, _L, _P, _P, _P, _P, _P, _L, _P, _P, _P],
+        "rw_rank_fold": [_P, _I, _L, _P, _P, _P],
+        "rw_rank_select": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P],
+        "rw_rank_top": [_P, _I, _L, _P, _P, _L, _P, _L, _P, _P, _P],
         "rw_group_topk_fold": [_P, _I, _I, _L, _P, _P, _P, _P, _P, _P],
         "rw_group_topk_mask": [_P, _I, _I, _L, _P, _P, _I, _P, _P, _L] + [_P] * 9,
         "rw_group_topk_long": [_P, _I, _I, _I, _I, _P, _P, _L, _L, _L] + [_P] * 8,
@@ -247,10 +250,10 @@ CHECKPOINT_LANES = 32
 TILE_LANES = 32
 
 # keys per block of the radix pass (RBK_TILE in csrc/radix.cuh), which
-# sizes the scratch of reduce_by_key and of kernels W and X
+# sizes the scratch of reduce_by_key and of kernel X
 RBK_TILE = 2048
 # keys per tile of the single-sweep radix pass (csrc/onesweep.cuh
-# OS_TILE), which sizes the look-back words of kernel AE's sort
+# OS_TILE), which sizes the look-back words of kernel AE's and W's sorts
 OS_TILE = 2048
 # elements per block of the device-wide scan (csrc/scan.cuh SCAN_TILE)
 SCAN_TILE = 2048
@@ -282,7 +285,8 @@ DTYPE_CODES = {
 # "minput"), or kernel R's gather, mark and scatter (its stage select
 # counts as "checkpoint"), or kernel S's filter (its projection counts
 # as "expr_eval"), or kernel X's two entries (its mask counts as
-# "group_topk", its fold as "group_topk_fold"; W counts as "topn_rank"),
+# "group_topk", its fold as "group_topk_fold"; W's fold and select as
+# "rank_fold" and "rank_select", its last entry as "topn_rank"),
 # or kernel Z's right-value diff (its left step counts as "dyn_general"),
 # or one of kernel AA's three table-function entries
 # (each counts under its own name; "tile_expand" itself stays 0), or
@@ -306,6 +310,8 @@ ENTRY_KEYS = {
     "rw_group_topk_mask": "group_topk",
     "rw_group_topk_fold": "group_topk_fold",
     "rw_group_topk_long": "group_topk_long",
+    "rw_rank_fold": "rank_fold",
+    "rw_rank_select": "rank_select",
     "rw_dyn_rv_diff": "dyn_rv_diff",
     "rw_unnest": "unnest",
     "rw_series": "series",
@@ -428,8 +434,8 @@ def int64_rows(rows, max_rows: int) -> ctypes.Array:
     holds at most ``max_rows`` of them."""
     if len(rows) > max_rows:
         raise ValueError(f"{len(rows)} lanes exceed the kernel's {max_rows}")
-    flat = [int(v) for row in rows for v in row]
-    return (ctypes.c_int64 * max(1, len(flat)))(*flat)
+    flat = array.array("q", [int(v) for row in rows for v in row] or [0])
+    return (ctypes.c_int64 * len(flat)).from_buffer(flat)
 
 
 def dtype_code(t: torch.Tensor) -> int:

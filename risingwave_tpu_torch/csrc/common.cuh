@@ -28,6 +28,76 @@ enum RwDType : int {
 // microseconds of starting, so this is never reached by a correct pass.
 #define RW_SPIN_LIMIT (1ll << 26)
 
+// A decoupled look-back over two counts (kernels AF's diff, M, W): a
+// tile's published word holds a flag in its top two bits (RW_LB_AGG: the
+// tile's own counts; RW_LB_INC: those of this tile and every earlier
+// one), count a in bits 31-61 and count b in bits 0-30. Tiles take their
+// index from an atomic counter, so a tile only ever waits on tiles that
+// are running or done.
+#define RW_LB_AGG (1ull << 62)
+#define RW_LB_INC (2ull << 62)
+#define RW_LB_COUNT 0x7FFFFFFFull
+
+__device__ __forceinline__ unsigned long long rw_lb_word(unsigned long long flag, uint32_t a,
+                                                         uint32_t b) {
+  return flag | ((unsigned long long)a << 31) | (unsigned long long)b;
+}
+
+// Warp 0 of a tile: the counts of every earlier tile (*ea, *eb), by a
+// look-back over their published words 32 at a time; the tile's own
+// counts (ta, tb) are published first, then its inclusive counts. A word
+// that never publishes traps after RW_SPIN_LIMIT reads rather than hang.
+__device__ __forceinline__ void rw_lookback(unsigned long long* status, unsigned tile, uint32_t ta,
+                                            uint32_t tb, uint32_t* ea, uint32_t* eb) {
+  const int lane = threadIdx.x & 31;
+  volatile unsigned long long* mine = status + tile;
+  uint32_t a = 0, b = 0;
+  if (tile == 0) {
+    if (lane == 0) *mine = rw_lb_word(RW_LB_INC, ta, tb);
+  } else {
+    if (lane == 0) *mine = rw_lb_word(RW_LB_AGG, ta, tb);
+    for (int64_t q = (int64_t)tile - 1 - lane;; q -= 32) {
+      unsigned long long v = RW_LB_INC;  // before tile 0: nothing
+      if (q >= 0) {
+        const volatile unsigned long long* w = status + q;
+        int64_t spins = 0;
+        do {
+          v = *w;
+          if (++spins > RW_SPIN_LIMIT) __trap();  // a tile that never published: fail, not hang
+        } while ((v >> 62) == 0ull);
+      }
+      const unsigned inc = __ballot_sync(0xFFFFFFFFu, (v >> 62) == 2ull);
+      const int stop = inc ? __ffs(inc) - 1 : 31;  // the nearest inclusive word
+      uint32_t ca = lane <= stop ? (uint32_t)((v >> 31) & RW_LB_COUNT) : 0u;
+      uint32_t cb = lane <= stop ? (uint32_t)(v & RW_LB_COUNT) : 0u;
+      for (int x = 16; x > 0; x >>= 1) {
+        ca += __shfl_xor_sync(0xFFFFFFFFu, ca, x);
+        cb += __shfl_xor_sync(0xFFFFFFFFu, cb, x);
+      }
+      a += ca;
+      b += cb;
+      if (inc) break;
+    }
+    if (lane == 0) *mine = rw_lb_word(RW_LB_INC, a + ta, b + tb);
+  }
+  *ea = a;
+  *eb = b;
+}
+
+// Spin until status[tile] holds a tile's inclusive counts; returns them
+// as (a << 32) | b. For a block that comes after every tile.
+__device__ __forceinline__ unsigned long long rw_lb_inclusive(const unsigned long long* status,
+                                                              int64_t tile) {
+  const volatile unsigned long long* w = status + tile;
+  unsigned long long v;
+  int64_t spins = 0;
+  do {
+    v = *w;
+    if (++spins > RW_SPIN_LIMIT) __trap();
+  } while ((v >> 62) != 2ull);
+  return (((v >> 31) & RW_LB_COUNT) << 32) | (v & RW_LB_COUNT);
+}
+
 static inline int rw_blocks(int64_t n, int threads) {
   return (int)((n + threads - 1) / threads);
 }

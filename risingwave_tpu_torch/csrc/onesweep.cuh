@@ -1,7 +1,8 @@
 // A stable LSD radix sort of 64-bit keys with an int32 payload, one
 // launch per 8-bit pass (a single sweep): kernel AE's order
-// (csrc/window.cuh). radix.cuh's three-launch pass stays with its users
-// (F, W, X, AC's emit, AD).
+// (csrc/window.cuh) and kernel W's candidates (csrc/topn_rank.cu).
+// radix.cuh's three-launch pass stays with its users (F, X, AC's emit,
+// AD).
 //
 // Before the passes, one launch counts every sorted byte's digits over
 // all keys (a histogram is the same in any order of the keys; each block
@@ -195,4 +196,37 @@ static inline void os_sort(const unsigned long long* keys, const int32_t* pay, i
   }
   *keys_out = ck;
   *pay_out = cp;
+}
+
+// out[i] = word[pay[i]] (pay == nullptr: word[i])
+static __global__ void os_gather_word_kernel(const unsigned long long* __restrict__ word,
+                                             const int32_t* __restrict__ pay, int64_t m,
+                                             unsigned long long* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < m) out[i] = word[pay != nullptr ? pay[i] : i];
+}
+
+// m keys of `words` 64-bit words each (word w of key i at
+// packed[w * stride + i], word 0 most significant), sorted stably by the
+// bytes of mask[w], least significant word first, each earlier word
+// gathered in the order so far (kernels AE and W). *key: the sorted first
+// words (nullptr: no word); *pay: each sorted key's ent (one word or none)
+// or its place among the m (more; nullptr: the places in order).
+static inline void os_sort_words(const unsigned* mask, int words, int64_t m, int64_t stride,
+                                 const unsigned long long* packed, const int32_t* ent,
+                                 const OsScratch& s, const unsigned long long** key,
+                                 const int32_t** pay, cudaStream_t st) {
+  const unsigned long long* ck = nullptr;
+  const int32_t* cp = words > 1 ? nullptr : ent;
+  for (int w = words - 1; w >= 0; --w) {
+    const unsigned long long* kin = packed + w * stride;
+    if (w < words - 1) {
+      unsigned long long* g = ck == s.ka ? s.kb : s.ka;
+      os_gather_word_kernel<<<rw_blocks(m, OS_THREADS), OS_THREADS, 0, st>>>(kin, cp, m, g);
+      kin = g;
+    }
+    os_sort(kin, cp, m, mask[w], s, &ck, &cp, st);
+  }
+  *key = ck;
+  *pay = cp;
 }

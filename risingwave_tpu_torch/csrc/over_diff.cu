@@ -185,62 +185,12 @@ __device__ __forceinline__ long long od_load(const void* p, int dt, int64_t s) {
   }
 }
 
-// a tile's published word: flag (bits 62-63), retract count (31 bits),
-// insert count (31 bits)
-#define OD_AGG (1ull << 62)  // the tile's own counts
-#define OD_INC (2ull << 62)  // the counts of this tile and every earlier one
-#define OD_COUNT 0x7FFFFFFFull
-
-__device__ __forceinline__ unsigned long long od_word(unsigned long long flag, uint32_t r,
-                                                      uint32_t i) {
-  return flag | ((unsigned long long)r << 31) | (unsigned long long)i;
-}
-
-// Warp 0 of a tile: the retract and insert rows of every earlier tile, by
-// a decoupled look-back over their published words (32 at a time); the
-// tile's own counts are published first, then its inclusive counts.
-__device__ __forceinline__ void od_lookback(unsigned long long* status, unsigned tile, uint32_t tr,
-                                            uint32_t ti, uint32_t* er, uint32_t* ei) {
-  const int lane = threadIdx.x & 31;
-  volatile unsigned long long* mine = status + tile;
-  uint32_t r = 0, i = 0;
-  if (tile == 0) {
-    if (lane == 0) *mine = od_word(OD_INC, tr, ti);
-  } else {
-    if (lane == 0) *mine = od_word(OD_AGG, tr, ti);
-    for (int64_t q = (int64_t)tile - 1 - lane;; q -= 32) {
-      unsigned long long v = OD_INC;  // before tile 0: nothing
-      if (q >= 0) {
-        const volatile unsigned long long* w = status + q;
-        int64_t spins = 0;
-        do {
-          v = *w;
-          if (++spins > RW_SPIN_LIMIT) __trap();  // a tile that never published: fail, not hang
-        } while ((v >> 62) == 0ull);
-      }
-      const unsigned inc = __ballot_sync(0xFFFFFFFFu, (v >> 62) == 2ull);
-      const int stop = inc ? __ffs(inc) - 1 : 31;  // the nearest inclusive word
-      uint32_t cr = lane <= stop ? (uint32_t)((v >> 31) & OD_COUNT) : 0u;
-      uint32_t ci = lane <= stop ? (uint32_t)(v & OD_COUNT) : 0u;
-      for (int x = 16; x > 0; x >>= 1) {
-        cr += __shfl_xor_sync(0xFFFFFFFFu, cr, x);
-        ci += __shfl_xor_sync(0xFFFFFFFFu, ci, x);
-      }
-      r += cr;
-      i += ci;
-      if (inc) break;
-    }
-    if (lane == 0) *mine = od_word(OD_INC, r + tr, i + ti);
-  }
-  *er = r;
-  *ei = i;
-}
-
 // One pass over the slots, one slot a thread, OD_THREADS slots a tile
 // (the tile from a counter): the slot's flags (retract = emitted & (gone
 // | changed), insert = present & (new | changed), in a dirty slot); both
 // counts scanned over the block and the tile's place among the retract
-// and insert rows found by the look-back; then the slot's rows, lane by
+// and insert rows found by the look-back (common.cuh rw_lookback: the
+// retract count is its count a, the insert count b); then the slot's rows, lane by
 // lane: the retract row from the emitted value, the insert row from the
 // current value, which also becomes the emitted value where it differs
 // (a slot both retracted and inserted reads its emitted value first);
@@ -275,7 +225,7 @@ __global__ void __launch_bounds__(OD_THREADS)
   const uint32_t ti = (uint32_t)rw_block_exclusive_scan<OD_THREADS>(ins ? 1 : 0, &xi);
   if (threadIdx.x < 32) {
     uint32_t er, ei;
-    od_lookback(status, tile, tr, ti, &er, &ei);
+    rw_lookback(status, tile, tr, ti, &er, &ei);
     if (threadIdx.x == 0) {
       s_er = er;
       s_ei = ei;

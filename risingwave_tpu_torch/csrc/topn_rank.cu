@@ -12,20 +12,37 @@
 // bits inverted for DESC), computed here from the order lane; pk and
 // group lanes order as signed integers (bool: false first).
 //
-// What bounds them on the card: bytes. W's sort reads and writes a
-// 12-byte (key, slot) pair per slot of the store each pass; X reads the
-// live, epoch-dirty, group and order lanes of every slot twice, sorts
-// 12-byte pairs of the live rows only, and writes two bool lanes.
+// What bounds them on the card: bytes. W reads the live and order lanes
+// of every slot a few times and the pk lanes of its candidates alone; X
+// reads the live, epoch-dirty, group and order lanes of every slot twice,
+// sorts 12-byte pairs of the live rows only, and writes two bool lanes.
 //
-// W's design: an LSD radix sort, least significant key first, of (64-bit
-// encoded key, slot) pairs that starts from the slots in order, so ties
-// keep slot order with no pass over the slot. One launch first folds
-// every lane's encoded keys into their OR and AND, which the host reads
-// (the entry's one device-to-host copy): a byte where the two agree is
-// the same for every key and gets no pass, a lane with no varying bit no
-// gather. Each key lane that varies: one gather of its encoded key in the
-// current order, then kernel F's stable 8-bit pass (csrc/radix.cuh) per
-// varying byte; W copies out the first n slots and their liveness.
+// W's design: select the first n rows, do not sort the store. A row's
+// class is its liveness (live rows first); the first n rows are the first
+// min(n, live) live rows, then, past the live count, the first dead rows
+// by their stale lanes. Only the class that the n-th row falls in is
+// selected; a class the n rows hold whole is taken whole.
+//   1. rw_rank_fold, one coalesced pass over live and the order lane: the
+//      live count and the order key's OR, AND, MIN, MAX per class, read by
+//      the host (top_n_plain.rank_select_plan): the selected class's field
+//      is (key - MIN) >> lo, exact (lo its lowest varying bit), as wide as
+//      MAX - MIN needs, cut into rounds of at most 11 bits from the top;
+//   2. rw_rank_select: per round, one pass counts the digits of the rows
+//      whose field agrees with the prefix found so far (shared counts,
+//      one atomic per warp and digit), and one block finds the digit
+//      holding the m-th row, on the card (no host read between rounds);
+//      the last round leaves the n-th row's field t. Then one pass
+//      compacts the candidates (rows of a class taken whole, rows of the
+//      selected class with field <= t: those ahead of the n-th row and the
+//      whole tie run at it) in slot order, placed by a decoupled look-back,
+//      and folds every key lane over them (the pk lanes read for the
+//      candidates alone); the host reads their count and the fold and
+//      plans one packed key (over_window.window_pack_plan: class, order
+//      key, pk lanes; exact, more 64-bit words past 64 bits);
+//   3. rw_rank_top: each candidate's packed key, csrc/onesweep.cuh's
+//      single-sweep passes over its varying bytes (stable, so ties keep
+//      slot order: the reference's order), the first n out with their
+//      liveness.
 //
 // X's design rests on two facts: only a live row can be in_topk, and its
 // rank depends only on the live rows of its group; the pk lanes and the
@@ -57,6 +74,7 @@
 //      protocol, probing unbounded), then every slot probes it with its
 //      group lanes; a store all dirty or all clean needs no set.
 #include "compact.cuh"
+#include "onesweep.cuh"
 #include "probe.cuh"
 #include "radix.cuh"
 
@@ -104,68 +122,6 @@ __global__ void tr_bits_init_kernel(int n_keys, unsigned long long* bits) {
   }
 }
 
-// bits[2l] |= every encoded key of lane l, bits[2l + 1] &= each
-__global__ void tr_bits_kernel(TrKeys kd, int64_t n, unsigned long long* bits) {
-  for (int l = 0; l < kd.n; ++l) {
-    unsigned long long o = 0ull, a = ~0ull;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += (int64_t)gridDim.x * blockDim.x) {
-      const unsigned long long e = tr_encode(kd.lane[l], kd.dt[l], kd.mode[l], i);
-      o |= e;
-      a &= e;
-    }
-    for (int d = 16; d > 0; d >>= 1) {
-      o |= __shfl_xor_sync(0xFFFFFFFFu, o, d);
-      a &= __shfl_xor_sync(0xFFFFFFFFu, a, d);
-    }
-    if ((threadIdx.x & 31) == 0) {
-      atomicOr(bits + 2 * l, o);
-      atomicAnd(bits + 2 * l + 1, a);
-    }
-  }
-}
-
-__global__ void tr_init_kernel(int64_t n, int32_t* idx) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) idx[i] = (int32_t)i;
-}
-
-__global__ void tr_gather_kernel(const void* lane, int dt, int mode, int64_t n,
-                                 unsigned long long* keys, const int32_t* idx) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) keys[i] = tr_encode(lane, dt, mode, idx[i]);
-}
-
-// The whole sort: the slots in key order land in idx + return * n (the
-// buffer the last pass wrote), or -1 on a CUDA error.
-static int tr_sort(const TrKeys& kd, int64_t n, unsigned long long* keys, int32_t* idx,
-                   int32_t* hist, unsigned long long* bits, cudaStream_t st) {
-  const int blocks = rw_blocks(n, TR_THREADS);
-  tr_bits_init_kernel<<<1, 32, 0, st>>>(kd.n, bits);
-  tr_bits_kernel<<<blocks < TR_BITS_BLOCKS ? blocks : TR_BITS_BLOCKS, TR_THREADS, 0, st>>>(
-      kd, n, bits);
-  unsigned long long h[2 * TR_MAX_KEYS];
-  if (cudaMemcpyAsync(h, bits, sizeof(unsigned long long) * 2 * kd.n, cudaMemcpyDeviceToHost,
-                      st) != cudaSuccess ||
-      cudaStreamSynchronize(st) != cudaSuccess)
-    return -1;
-  tr_init_kernel<<<blocks, TR_THREADS, 0, st>>>(n, idx);
-  int cur = 0;
-  for (int l = kd.n - 1; l >= 0; --l) {
-    const unsigned long long varying = h[2 * l] ^ h[2 * l + 1];
-    if (varying == 0ull) continue;  // one value in every slot orders nothing
-    tr_gather_kernel<<<blocks, TR_THREADS, 0, st>>>(kd.lane[l], kd.dt[l], kd.mode[l], n,
-                                                    keys + cur * n, idx + cur * n);
-    for (int b = 0; b < 8; ++b) {
-      if (((varying >> (8 * b)) & 0xFFull) == 0ull) continue;
-      rbk_radix_pass(keys + cur * n, idx + cur * n, keys + (1 - cur) * n, idx + (1 - cur) * n,
-                     n, 8 * b, hist, st);
-      cur = 1 - cur;
-    }
-  }
-  return cur;
-}
-
 static bool tr_parse(const int64_t* rows, int n_keys, TrKeys* kd) {
   if (n_keys < 1 || n_keys > TR_MAX_KEYS) return false;
   kd->n = n_keys;
@@ -180,33 +136,468 @@ static bool tr_parse(const int64_t* rows, int n_keys, TrKeys* kd) {
   return true;
 }
 
-__global__ void tr_top_kernel(int64_t n_top, const int32_t* order, const uint8_t* live,
-                              int32_t* out_idx, uint8_t* out_alive) {
+// ---- kernel W -----------------------------------------------------------------------
+// Key lanes of a W call: live (LIVE_LAST), the order lane (ASC/DESC), the
+// pk lanes (PLAIN). A row's class is its liveness: the live rows come
+// first, then the dead ones, each by (order key, pk lanes, slot).
+#define TR_SEL_BITS 11  // digit bits of a select round; = top_n_plain.SELECT_BITS
+#define TR_SEL_BINS (1 << TR_SEL_BITS)
+#define TR_PICK_THREADS (TR_SEL_BINS / 2)
+#define TR_MAX_ROUNDS 6  // ceil(64 / TR_SEL_BITS)
+#define TR_FOLD_WORDS 9  // the live count; OR, AND, MIN, MAX of the order key: live, dead
+
+// What the select takes (top_n_plain.RankSelect): the class whose first m
+// rows are selected (cls: 1 live, 0 dead, -1 none), the classes taken
+// whole, the selected class's field (encoded order key - min) >> lo and
+// its rounds of digits, from the top: (field >> shift) & (2^bits - 1).
+struct TrSelect {
+  int cls, take_live, take_dead, lo, n_rounds;
+  int64_t m;
+  unsigned long long min;
+  int shift[TR_MAX_ROUNDS], bits[TR_MAX_ROUNDS];
+};
+
+// One field of the candidates' packed key (over_window.window_pack_plan):
+// bits of (encoded key - min) >> lo, width wide, lowest bit at bit g0 of
+// the whole key (64 * words bits, word 0 most significant).
+struct TrField {
+  int lane, lo, width, g0;
+  unsigned long long min;
+};
+
+struct TrPlan {
+  TrField f[TR_MAX_KEYS];
+  unsigned mask[TR_MAX_KEYS];  // per word: bit b where byte b may vary
+  int n, words;
+};
+
+__device__ __forceinline__ unsigned long long tr_order(const TrKeys& kd, int64_t s) {
+  return tr_encode(kd.lane[1], kd.dt[1], kd.mode[1], s);
+}
+
+// A fold (OR, AND, MIN, MAX) takes in another one, or one key (g = e, e, e, e)
+__device__ __forceinline__ void tr_fold_merge(unsigned long long (&f)[4],
+                                              const unsigned long long* g) {
+  f[0] |= g[0];
+  f[1] &= g[1];
+  f[2] = g[2] < f[2] ? g[2] : f[2];
+  f[3] = g[3] > f[3] ? g[3] : f[3];
+}
+
+__device__ __forceinline__ void tr_fold_in(unsigned long long (&f)[4], unsigned long long e) {
+  const unsigned long long g[4] = {e, e, e, e};
+  tr_fold_merge(f, g);
+}
+
+__device__ __forceinline__ void tr_fold_warp(unsigned long long (&f)[4]) {
+  for (int x = 16; x > 0; x >>= 1) {
+    unsigned long long g[4];
+    for (int j = 0; j < 4; ++j) g[j] = __shfl_xor_sync(0xFFFFFFFFu, f[j], x);
+    tr_fold_merge(f, g);
+  }
+}
+
+__device__ __forceinline__ void tr_fold_atomic(unsigned long long* to,
+                                               const unsigned long long (&f)[4]) {
+  atomicOr(to, f[0]);
+  atomicAnd(to + 1, f[1]);
+  atomicMin(to + 2, f[2]);
+  atomicMax(to + 3, f[3]);
+}
+
+// n words of 4 at `fold`: OR 0, AND, MIN all ones, MAX 0; sel[0] (the
+// selected prefix) 0, sel[1] (rows still to take at it) m; n_zero words
+// at zero and n_hist at hist 0 (one launch in place of the memsets)
+__global__ void tr_rank_init_kernel(unsigned long long* fold, int n, unsigned long long* sel,
+                                    int64_t m, unsigned long long* zero, int64_t n_zero,
+                                    uint32_t* hist, int n_hist) {
+  const int l = threadIdx.x;
+  if (l < n) {
+    fold[4 * l] = 0ull;
+    fold[4 * l + 1] = ~0ull;
+    fold[4 * l + 2] = ~0ull;
+    fold[4 * l + 3] = 0ull;
+  }
+  if (l == 0 && sel != nullptr) {
+    sel[0] = 0ull;
+    sel[1] = (unsigned long long)m;
+  }
+  for (int64_t i = l; i < n_zero; i += blockDim.x) zero[i] = 0ull;
+  for (int i = l; i < n_hist; i += blockDim.x) hist[i] = 0u;
+}
+
+// One coalesced pass in compact.cuh's tiles: the live count into fold[0],
+// the order key's OR, AND, MIN, MAX over the live rows into fold[1..4]
+// and over the dead rows into fold[5..8].
+__global__ void __launch_bounds__(COMPACT_THREADS)
+    tr_rank_fold_kernel(TrKeys kd, int64_t cap, unsigned long long* fold) {
+  __shared__ unsigned long long s_f[COMPACT_THREADS / 32][8];
+  __shared__ int s_n[COMPACT_THREADS / 32];
+  const uint8_t* live = (const uint8_t*)kd.lane[0];
+  unsigned long long lf[4] = {0ull, ~0ull, ~0ull, 0ull};
+  unsigned long long df[4] = {0ull, ~0ull, ~0ull, 0ull};
+  int n_live = 0;
+#pragma unroll
+  for (int r = 0; r < COMPACT_ITEMS; ++r) {
+    const int64_t s = compact_round_slot(blockIdx.x, r);
+    if (s >= cap) continue;
+    const unsigned long long e = tr_order(kd, s);
+    if (live[s]) {
+      tr_fold_in(lf, e);
+      ++n_live;
+    } else {
+      tr_fold_in(df, e);
+    }
+  }
+  tr_fold_warp(lf);
+  tr_fold_warp(df);
+  n_live = __reduce_add_sync(0xFFFFFFFFu, n_live);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    for (int j = 0; j < 4; ++j) {
+      s_f[warp][j] = lf[j];
+      s_f[warp][4 + j] = df[j];
+    }
+    s_n[warp] = n_live;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int tile_live = 0;
+  for (int w = 0; w < COMPACT_THREADS / 32; ++w) {
+    tr_fold_merge(lf, s_f[w]);
+    tr_fold_merge(df, s_f[w] + 4);
+    tile_live += s_n[w];
+  }
+  const int64_t left = cap - (int64_t)blockIdx.x * COMPACT_TILE;
+  const int tile_slots = left < COMPACT_TILE ? (int)left : COMPACT_TILE;
+  if (tile_live) {
+    atomicAdd(fold, (unsigned long long)tile_live);
+    tr_fold_atomic(fold + 1, lf);
+  }
+  if (tile_slots > tile_live) tr_fold_atomic(fold + 5, df);
+}
+
+// One round of the select over the rows of class sp.cls whose field
+// agrees with the prefix found so far (sel[0]) above this round's digit:
+// the counts of their digits, aggregated per warp, into hist.
+__global__ void __launch_bounds__(COMPACT_THREADS)
+    tr_round_kernel(TrKeys kd, TrSelect sp, int r, int64_t cap, const unsigned long long* sel,
+                    uint32_t* hist) {
+  __shared__ uint32_t h[TR_SEL_BINS];
+  const int shift = sp.shift[r], hi = shift + sp.bits[r];
+  const unsigned bins = 1u << sp.bits[r];
+  for (unsigned i = threadIdx.x; i < bins; i += COMPACT_THREADS) h[i] = 0u;
+  __syncthreads();
+  const unsigned long long want = sel[0];
+  const uint8_t* live = (const uint8_t*)kd.lane[0];
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+#pragma unroll 4
+  for (int j = 0; j < COMPACT_ITEMS; ++j) {
+    const int64_t s = compact_round_slot(blockIdx.x, j);
+    unsigned d = 0xFFFFFFFFu;
+    if (s < cap && (live[s] != 0) == (sp.cls == 1)) {
+      const unsigned long long f = (tr_order(kd, s) - sp.min) >> sp.lo;
+      if (hi >= 64 || (f >> hi) == want) d = (unsigned)(f >> shift) & (bins - 1u);
+    }
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
+    if (d != 0xFFFFFFFFu && (peers & below) == 0u) atomicAdd(&h[d], (uint32_t)__popc(peers));
+  }
+  __syncthreads();
+  for (unsigned i = threadIdx.x; i < bins; i += COMPACT_THREADS)
+    if (h[i]) atomicAdd(hist + i, h[i]);
+}
+
+// One block: the digit holding the sel[1]-th row of this round's counts;
+// the prefix takes it, sel[1] becomes that row's place among the digit's
+// rows. The counts are zeroed for the next round.
+__global__ void __launch_bounds__(TR_PICK_THREADS)
+    tr_pick_kernel(int bits, unsigned long long* sel, uint32_t* hist) {
+  const unsigned bins = 1u << bits, b0 = 2u * threadIdx.x, b1 = b0 + 1u;
+  const long long c0 = b0 < bins ? hist[b0] : 0u, c1 = b1 < bins ? hist[b1] : 0u;
+  const long long m = (long long)sel[1];
+  int excl;
+  rw_block_exclusive_scan<TR_PICK_THREADS>((int)(c0 + c1), &excl);  // every m read first
+  const long long x = excl;
+  if (x < m && m <= x + c0) {
+    sel[0] = (sel[0] << bits) | b0;
+    sel[1] = (unsigned long long)(m - x);
+  } else if (x + c0 < m && m <= x + c0 + c1) {
+    sel[0] = (sel[0] << bits) | b1;
+    sel[1] = (unsigned long long)(m - x - c0);
+  }
+  if (b0 < bins) hist[b0] = 0u;
+  if (b1 < bins) hist[b1] = 0u;
+}
+
+// Is slot s a candidate: of a class taken whole, or of the selected class
+// with a field at most the n-th row's (t)?
+__device__ __forceinline__ bool tr_candidate(const TrKeys& kd, const TrSelect& sp,
+                                             unsigned long long t, int64_t s) {
+  const bool lv = ((const uint8_t*)kd.lane[0])[s] != 0;
+  if (lv ? sp.take_live : sp.take_dead) return true;
+  if (sp.cls != (lv ? 1 : 0)) return false;
+  return ((tr_order(kd, s) - sp.min) >> sp.lo) <= t;
+}
+
+// bit j set where the thread's slot of round j of the tile
+// (compact_round_slot) is a candidate
+__device__ __forceinline__ unsigned tr_cand_rounds(const TrKeys& kd, const TrSelect& sp,
+                                                   unsigned long long t, int64_t cap,
+                                                   int64_t tile) {
+  unsigned sel = 0u;
+#pragma unroll
+  for (int j = 0; j < COMPACT_ITEMS; ++j) {
+    const int64_t s = compact_round_slot(tile, j);
+    if (s < cap && tr_candidate(kd, sp, t, s)) sel |= 1u << j;
+  }
+  return sel;
+}
+
+// The candidates compacted in one pass: each tile (from the counter
+// status[tiles]) counts its candidates, places them after those of every
+// earlier tile by a decoupled look-back (common.cuh rw_lookback), writes
+// their slots into ent in slot order (compact.cuh's coalesced
+// compact_warp_place) and folds every key lane's OR, AND, MIN, MAX over
+// them into fold[4l .. 4l + 3] (the pk lanes are read for the candidates
+// alone); the last tile writes their count into status[tiles + 1].
+__global__ void __launch_bounds__(COMPACT_THREADS)
+    tr_cand_kernel(TrKeys kd, TrSelect sp, int64_t cap, const unsigned long long* sel,
+                   unsigned long long* status, unsigned tiles, int32_t* __restrict__ ent,
+                   unsigned long long* fold) {
+  __shared__ unsigned long long s_fold[COMPACT_THREADS / 32][4];
+  __shared__ unsigned s_tile;
+  __shared__ uint32_t s_off;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = atomicAdd((unsigned*)(status + tiles), 1u);
+  __syncthreads();
+  const unsigned tile = s_tile;
+  const unsigned on = tr_cand_rounds(kd, sp, sel[0], cap, tile);
+  int excl;
+  const int count = rw_block_exclusive_scan<COMPACT_THREADS>(__popc(on), &excl);
+  if (threadIdx.x < 32) {
+    uint32_t before, unused;
+    rw_lookback(status, tile, (uint32_t)count, 0u, &before, &unused);
+    if (threadIdx.x == 0) {
+      s_off = before;
+      if (tile == tiles - 1) status[tiles + 1] = (unsigned long long)before + count;
+    }
+  }
+  __syncthreads();
+  if (count == 0) return;
+  int64_t place = compact_warp_place(on, s_off);
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < COMPACT_ITEMS; ++j) {
+    const unsigned b = __ballot_sync(0xFFFFFFFFu, (on >> j) & 1u);
+    if ((on >> j) & 1u) ent[place + __popc(b & below)] = (int32_t)compact_round_slot(tile, j);
+    place += __popc(b);
+  }
+  for (int l = 0; l < kd.n; ++l) {
+    unsigned long long f[4] = {0ull, ~0ull, ~0ull, 0ull};
+    for (unsigned b = on; b; b &= b - 1u)
+      tr_fold_in(f, tr_encode(kd.lane[l], kd.dt[l], kd.mode[l],
+                              compact_round_slot(tile, __ffs(b) - 1)));
+    tr_fold_warp(f);
+    if (lane == 0)
+      for (int j = 0; j < 4; ++j) s_fold[warp][j] = f[j];
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < COMPACT_THREADS / 32; ++w) tr_fold_merge(f, s_fold[w]);
+      tr_fold_atomic(fold + 4 * l, f);
+    }
+    __syncthreads();
+  }
+}
+
+// Word w (0: most significant) of slot s's packed key.
+__device__ __forceinline__ unsigned long long tr_pack_word(const TrKeys& kd, const TrPlan& p,
+                                                           int64_t s, int w) {
+  const int wl = p.words - 1 - w;  // the word's place from the least significant end
+  unsigned long long out = 0ull;
+  for (int f = 0; f < p.n; ++f) {
+    const TrField& F = p.f[f];
+    const int at = F.g0 >> 6, sh = F.g0 & 63;
+    const bool here = at == wl;
+    const bool spill = at + 1 == wl && sh != 0 && sh + F.width > 64;
+    if (!here && !spill) continue;
+    const unsigned long long v =
+        (tr_encode(kd.lane[F.lane], kd.dt[F.lane], kd.mode[F.lane], s) - F.min) >> F.lo;
+    out |= here ? v << sh : v >> (64 - sh);
+  }
+  return out;
+}
+
+// Each candidate's packed words (word w at words[w * m + i]), candidate i
+// at slot ent[i].
+__global__ void tr_pack_kernel(TrKeys kd, TrPlan p, int64_t m, const int32_t* __restrict__ ent,
+                               unsigned long long* __restrict__ words) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const int64_t s = ent[i];
+  for (int w = 0; w < p.words; ++w) words[w * m + i] = tr_pack_word(kd, p, s, w);
+}
+
+// The first n_top sorted candidates: slot (the sorted payload, or, past
+// one word, the candidate at that place) and liveness.
+__global__ void tr_top_kernel(int64_t n_top, const int32_t* pay, const int32_t* ent, int via_ent,
+                              const uint8_t* live, int32_t* out_idx, uint8_t* out_alive) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_top) return;
-  const int32_t s = order[i];
+  const int32_t p = pay != nullptr ? pay[i] : (int32_t)i;
+  const int32_t s = via_ent ? ent[p] : p;
   out_idx[i] = s;
   out_alive[i] = live[s];
 }
 
-// keys: n_keys rows of (lane, dtype code, mode), most significant first:
-// live (LIVE_LAST), the order lane (ASC/DESC), the pk lanes (PLAIN).
-// keys_buf: 2 * cap int64; idx_buf: 2 * cap int32; hist: 256 * tiles +
-// 256 int32 (radix.cuh); bits: 2 * n_keys int64.
-RW_EXPORT int rw_rank_top(const int64_t* keys, int n_keys, int64_t cap, const void* live,
-                          void* keys_buf, void* idx_buf, void* hist, void* bits, int64_t n_top,
-                          void* out_idx, void* out_alive, void* stream) {
+static bool tr_rank_parse(const int64_t* keys, int n_keys, TrKeys* kd) {
+  if (!tr_parse(keys, n_keys, kd) || n_keys < 2 || kd->mode[0] != TR_LIVE_LAST ||
+      (kd->mode[1] != TR_ASC && kd->mode[1] != TR_DESC))
+    return false;
+  for (int l = 2; l < n_keys; ++l)
+    if (kd->mode[l] != TR_PLAIN) return false;
+  return true;
+}
+
+// RankSelect.rows(): cls, take_live, take_dead, m, min, lo, n_rounds,
+// then (shift, bits) per round, the top digit first
+static bool tr_select_rows(const int64_t* r, int64_t cap, TrSelect* sp) {
+  sp->cls = (int)r[0];
+  sp->take_live = (int)r[1];
+  sp->take_dead = (int)r[2];
+  sp->m = r[3];
+  sp->min = (unsigned long long)r[4];
+  sp->lo = (int)r[5];
+  sp->n_rounds = (int)r[6];
+  if (sp->cls < -1 || sp->cls > 1 || (sp->cls >= 0 && (sp->m < 1 || sp->m > cap)) ||
+      sp->lo < 0 || sp->lo > 63 || sp->n_rounds < 0 || sp->n_rounds > TR_MAX_ROUNDS ||
+      (sp->cls < 0 && sp->n_rounds > 0))
+    return false;
+  int top = 64;
+  for (int i = 0; i < sp->n_rounds; ++i) {
+    sp->shift[i] = (int)r[7 + 2 * i];
+    sp->bits[i] = (int)r[8 + 2 * i];
+    if (sp->bits[i] < 1 || sp->bits[i] > TR_SEL_BITS || sp->shift[i] < 0 ||
+        sp->shift[i] + sp->bits[i] > top)
+      return false;
+    top = sp->shift[i];
+  }
+  return sp->n_rounds == 0 || top == 0;  // the last round takes the field's lowest bits
+}
+
+// WindowPlan.rows(): n fields, words, each word's pass mask, then (lane,
+// lo, width, g0, min) per field
+static bool tr_plan_rows(const int64_t* rows, int n_keys, TrPlan* p) {
+  p->n = (int)rows[0];
+  p->words = (int)rows[1];
+  if (p->n < 0 || p->n > n_keys || p->words < 0 || p->words > TR_MAX_KEYS) return false;
+  for (int w = 0; w < p->words; ++w) p->mask[w] = (unsigned)rows[2 + w];
+  const int64_t* f = rows + 2 + p->words;
+  for (int i = 0; i < p->n; ++i) {
+    TrField& F = p->f[i];
+    F.lane = (int)f[5 * i];
+    F.lo = (int)f[5 * i + 1];
+    F.width = (int)f[5 * i + 2];
+    F.g0 = (int)f[5 * i + 3];
+    F.min = (unsigned long long)f[5 * i + 4];
+    if (F.lane < 0 || F.lane >= n_keys || F.width < 1 || F.width > 64 || F.lo < 0 ||
+        F.lo > 63 || F.g0 < 0 || F.g0 + F.width > 64 * p->words)
+      return false;
+  }
+  return true;
+}
+
+// W's first part: the fold, read back (waits for the stream). keys: n_keys
+// rows of (lane, dtype code, mode): live (LIVE_LAST), the order lane
+// (ASC/DESC), the pk lanes (PLAIN). fold: TR_FOLD_WORDS int64 scratch;
+// host_out (host memory): the live count, then the order key's OR, AND,
+// MIN, MAX over the live rows and over the dead rows.
+RW_EXPORT int rw_rank_fold(const int64_t* keys, int n_keys, int64_t cap, void* fold,
+                           int64_t* host_out, void* stream) {
   TrKeys kd;
-  if (!tr_parse(keys, n_keys, &kd) || cap < 1 || n_top < 0 || n_top > cap)
+  if (!tr_rank_parse(keys, n_keys, &kd) || cap < 1 || cap > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int cur = tr_sort(kd, cap, (unsigned long long*)keys_buf, (int32_t*)idx_buf,
-                          (int32_t*)hist, (unsigned long long*)bits, st);
-  if (cur < 0) return (int)cudaGetLastError();
-  if (n_top > 0)
-    tr_top_kernel<<<rw_blocks(n_top, TR_THREADS), TR_THREADS, 0, st>>>(
-        n_top, (const int32_t*)idx_buf + cur * cap, (const uint8_t*)live, (int32_t*)out_idx,
-        (uint8_t*)out_alive);
+  unsigned long long* fd = (unsigned long long*)fold;
+  tr_rank_init_kernel<<<1, 32, 0, st>>>(fd + 1, 2, nullptr, 0, fd, 1, nullptr, 0);
+  tr_rank_fold_kernel<<<compact_tiles(cap), COMPACT_THREADS, 0, st>>>(kd, cap, fd);
+  unsigned long long h[TR_FOLD_WORDS];
+  if (cudaMemcpyAsync(h, fd, sizeof(h), cudaMemcpyDeviceToHost, st) != cudaSuccess ||
+      cudaStreamSynchronize(st) != cudaSuccess)
+    return (int)cudaGetLastError();
+  for (int i = 0; i < TR_FOLD_WORDS; ++i) host_out[i] = (int64_t)h[i];
+  return (int)cudaGetLastError();
+}
+
+// W's second part: the select's rounds, then the candidates compacted
+// and every key lane folded over them, read back (waits for the stream).
+// select: RankSelect.rows(); sel: 2 int64 (the prefix found and the rows
+// still to take at it); hist: TR_SEL_BINS int32; status:
+// compact_tiles(cap) + 2 int64 (zeroed here); ent: cap int32, the
+// candidates' slots in slot order; fold: 4 n_keys int64. host_out (host
+// memory): the candidates' count, then each lane's OR, AND, MIN, MAX over
+// them.
+RW_EXPORT int rw_rank_select(const int64_t* keys, int n_keys, int64_t cap, const int64_t* select,
+                             void* sel, void* hist, void* status, void* ent, void* fold,
+                             int64_t* host_out, void* stream) {
+  TrKeys kd;
+  TrSelect sp;
+  if (!tr_rank_parse(keys, n_keys, &kd) || cap < 1 || cap > INT32_MAX ||
+      !tr_select_rows(select, cap, &sp))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* sd = (unsigned long long*)sel;
+  unsigned long long* fd = (unsigned long long*)fold;
+  unsigned long long* sw = (unsigned long long*)status;
+  const unsigned tiles = (unsigned)compact_tiles(cap);
+  tr_rank_init_kernel<<<1, 1024, 0, st>>>(fd, n_keys, sd, sp.m, sw, (int64_t)tiles + 2,
+                                          (uint32_t*)hist, sp.n_rounds > 0 ? TR_SEL_BINS : 0);
+  for (int r = 0; r < sp.n_rounds; ++r) {
+    tr_round_kernel<<<tiles, COMPACT_THREADS, 0, st>>>(kd, sp, r, cap, sd, (uint32_t*)hist);
+    tr_pick_kernel<<<1, TR_PICK_THREADS, 0, st>>>(sp.bits[r], sd, (uint32_t*)hist);
+  }
+  tr_cand_kernel<<<tiles, COMPACT_THREADS, 0, st>>>(kd, sp, cap, sd, sw, tiles, (int32_t*)ent,
+                                                    fd);
+  unsigned long long h[1 + 4 * TR_MAX_KEYS];
+  if (cudaMemcpyAsync(h, sw + tiles + 1, sizeof(unsigned long long), cudaMemcpyDeviceToHost,
+                      st) != cudaSuccess ||
+      cudaMemcpyAsync(h + 1, fd, sizeof(unsigned long long) * 4 * n_keys, cudaMemcpyDeviceToHost,
+                      st) != cudaSuccess ||
+      cudaStreamSynchronize(st) != cudaSuccess)
+    return (int)cudaGetLastError();
+  for (int i = 0; i < 1 + 4 * n_keys; ++i) host_out[i] = (int64_t)h[i];
+  return (int)cudaGetLastError();
+}
+
+// W's last part: each candidate's packed key (top_n_plain: window_pack_plan
+// of the candidates' fold), the candidates sorted by it (csrc/onesweep.cuh;
+// they were compacted in slot order, so ties keep slot order), the first
+// n_top out with their liveness. ent: rw_rank_select's, n_cand candidates;
+// bufs (int64 row): words (max(words, 1) * n_cand int64), pa, pb (n_cand
+// int32), ka, kb (n_cand int64), digit counts (8 * 256 int32), look-back
+// words (os_tiles(n_cand) * 256 + 1 int32).
+RW_EXPORT int rw_rank_top(const int64_t* keys, int n_keys, int64_t cap, const int64_t* plan,
+                          const void* ent, int64_t n_cand, const int64_t* bufs, int64_t n_top,
+                          void* out_idx, void* out_alive, void* stream) {
+  TrKeys kd;
+  TrPlan p;
+  if (!tr_rank_parse(keys, n_keys, &kd) || cap < 1 || cap > INT32_MAX ||
+      !tr_plan_rows(plan, n_keys, &p) || n_top < 1 || n_top > n_cand ||
+      n_cand > cap)  // fewer candidates than n_top: a select gone wrong
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* words = (unsigned long long*)bufs[0];
+  const OsScratch s{(unsigned long long*)bufs[3], (unsigned long long*)bufs[4], (int32_t*)bufs[1],
+                    (int32_t*)bufs[2], (uint32_t*)bufs[5], (uint32_t*)bufs[6]};
+  if (p.words > 0)
+    tr_pack_kernel<<<rw_blocks(n_cand, TR_THREADS), TR_THREADS, 0, st>>>(kd, p, n_cand,
+                                                                         (const int32_t*)ent,
+                                                                         words);
+  const unsigned long long* key;
+  const int32_t* pay;
+  os_sort_words(p.mask, p.words, n_cand, n_cand, words, (const int32_t*)ent, s, &key, &pay, st);
+  tr_top_kernel<<<rw_blocks(n_top, TR_THREADS), TR_THREADS, 0, st>>>(
+      n_top, pay, (const int32_t*)ent, p.words > 1 ? 1 : 0, (const uint8_t*)kd.lane[0],
+      (int32_t*)out_idx, (uint8_t*)out_alive);
   return (int)cudaGetLastError();
 }
 

@@ -274,34 +274,11 @@ __global__ void __launch_bounds__(COMPACT_THREADS)
   }
 }
 
-// out[i] = word[pay[i]] (pay == nullptr: word[i])
-__global__ void win_gather_word_kernel(const unsigned long long* __restrict__ word,
-                                       const int32_t* __restrict__ pay, int64_t m,
-                                       unsigned long long* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < m) out[i] = word[pay != nullptr ? pay[i] : i];
-}
-
-// The m members sorted by their packed words, least significant word
-// first: *key the sorted first words (nullptr: no word), *pay each sorted
-// member's entry (one word) or compaction place (more; nullptr: the
-// places in order).
+// The m members sorted by their packed words (onesweep.cuh os_sort_words).
 static void win_sort(const WinPlan& p, int64_t m, int64_t stride, const unsigned long long* words,
                      const int32_t* ent, const OsScratch& s, const unsigned long long** key,
                      const int32_t** pay, cudaStream_t st) {
-  const unsigned long long* ck = nullptr;
-  const int32_t* cp = p.words > 1 ? nullptr : ent;
-  for (int w = p.words - 1; w >= 0; --w) {
-    const unsigned long long* kin = words + w * stride;
-    if (w < p.words - 1) {
-      unsigned long long* g = ck == s.ka ? s.kb : s.ka;
-      win_gather_word_kernel<<<rw_blocks(m, WIN_THREADS), WIN_THREADS, 0, st>>>(kin, cp, m, g);
-      kin = g;
-    }
-    os_sort(kin, cp, m, p.mask[w], s, &ck, &cp, st);
-  }
-  *key = ck;
-  *pay = cp;
+  os_sort_words(p.mask, p.words, m, stride, words, ent, s, key, pay, st);
 }
 
 // ---- calls --------------------------------------------------------------------------

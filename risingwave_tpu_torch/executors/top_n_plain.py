@@ -60,6 +60,7 @@ import torch
 from risingwave_tpu_torch import _kernels, integrity, resolve_device
 from risingwave_tpu_torch.array.chunk import StreamChunk, _numpy_dtype
 from risingwave_tpu_torch.executors.base import Executor, Watermark
+from risingwave_tpu_torch.executors.over_window import _s64, window_pack_plan
 from risingwave_tpu_torch.ops.agg import topn_order_key
 from risingwave_tpu_torch.ops.checkpoint import (
     insert_keys,
@@ -100,6 +101,8 @@ RANK_KEYS = 12
 # sorted by rw_group_topk_long; a shorter one is ranked by one warp
 # (csrc/topn_rank.cu xk_resolve_kernel)
 TOPK_LONG_RUN = 256
+# digit bits of one round of kernel W's select (csrc/topn_rank.cu TR_SEL_BITS)
+SELECT_BITS = 11
 # a key lane's role in csrc/topn_rank.cu (TrMode)
 _KEY_PLAIN, _KEY_ASC, _KEY_DESC, _KEY_LIVE_LAST = 0, 1, 2, 3
 
@@ -228,16 +231,61 @@ def _key_rows(lanes):
     return [(t.data_ptr(), _kernels.dtype_code(t), mode) for t, mode in lanes]
 
 
-def _rank_workspace(cap: int, dev) -> dict:
-    """Kernel W's scratch: two (key, slot) buffers, the radix pass's
-    counts and each key lane's OR and AND."""
-    tiles = max(1, -(-cap // _kernels.RBK_TILE))
-    return {
-        "keys": torch.empty(2 * cap, dtype=torch.int64, device=dev),
-        "idx": torch.empty(2 * cap, dtype=torch.int32, device=dev),
-        "hist": torch.empty(256 * tiles + 256, dtype=torch.int32, device=dev),
-        "bits": torch.empty(2 * RANK_KEYS, dtype=torch.int64, device=dev),
-    }
+class RankSelect(NamedTuple):
+    """Kernel W's select (``rank_select_plan``): ``cls`` the class whose
+    first ``m`` rows are selected (1 live, 0 dead, -1 none), ``take_live``
+    and ``take_dead`` the classes the first n rows hold whole; the
+    selected class's field ``(encoded order key - min) >> lo`` and its
+    ``rounds`` of digits, top first: ``(shift, bits)``, the digit
+    ``(field >> shift) & (2**bits - 1)``."""
+
+    cls: int
+    take_live: bool
+    take_dead: bool
+    m: int
+    min: int
+    lo: int
+    rounds: Tuple[Tuple[int, int], ...]
+
+    def rows(self) -> List[int]:
+        """The select as ``rw_rank_select`` and ``rw_rank_top`` read it."""
+        return [self.cls, int(self.take_live), int(self.take_dead), self.m, _s64(self.min),
+                self.lo, len(self.rounds)] + [v for r in self.rounds for v in r]
+
+
+def rank_select_plan(n: int, n_live: int, cap: int, live_fold, dead_fold) -> RankSelect:
+    """Kernel W's select from its fold: ``live_fold``/``dead_fold`` the OR,
+    AND, MIN and MAX of the encoded order keys (unsigned words) over the
+    live and the dead rows. The first ``n`` rows are the first ``min(n,
+    n_live)`` live rows, then the first dead ones: only the class the n-th
+    row falls in is selected, a class held whole is taken whole. The
+    selected field is exact (``lo`` its lowest varying bit: every row of
+    the class has the same bits below it) and as wide as ``(MAX - MIN) >>
+    lo`` needs, cut into rounds of at most ``SELECT_BITS`` bits of nearly
+    equal widths; a class whose keys are all equal needs no round."""
+    m_live = min(n, n_live)
+    m_dead = n - m_live
+    take_live = n_live > 0 and m_live == n_live
+    take_dead = m_dead > 0 and m_dead == cap - n_live
+    if 0 < m_live < n_live:
+        cls, m, fold = 1, m_live, live_fold
+    elif 0 < m_dead < cap - n_live:
+        cls, m, fold = 0, m_dead, dead_fold
+    else:
+        return RankSelect(-1, take_live, take_dead, 0, 0, 0, ())
+    o, a, lo_key, hi_key = fold
+    v = (o ^ a) & _MASK64
+    if not v:
+        return RankSelect(cls, take_live, take_dead, m, lo_key, 0, ())
+    lo = (v & -v).bit_length() - 1
+    width = ((hi_key - lo_key) >> lo).bit_length()
+    k = -(-width // SELECT_BITS)
+    rounds, top = [], width
+    for r in range(k):
+        bits = width // k + (1 if r < width % k else 0)
+        top -= bits
+        rounds.append((top, bits))
+    return RankSelect(cls, take_live, take_dead, m, lo_key, lo, tuple(rounds))
 
 
 def _rank_top_cuda(table, order_lane, n, desc):
@@ -245,17 +293,48 @@ def _rank_top_cuda(table, order_lane, n, desc):
     _kernels.check_cuda("topn_rank", table.live, order_lane, *table.keys, n=cap)
     if table.live.dtype != torch.bool:
         raise TypeError("rank_top: live must be a bool lane")
-    keys = [(table.live, _KEY_LIVE_LAST), (order_lane, _KEY_DESC if desc else _KEY_ASC)]
-    keys += [(k, _KEY_PLAIN) for k in table.keys]
     dev = order_lane.device
-    ws = _rank_workspace(cap, dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     alive = torch.empty(n, dtype=torch.bool, device=dev)
-    _kernels.call(
-        "topn_rank", "rw_rank_top", _kernels.int64_rows(_key_rows(keys), RANK_KEYS), len(keys),
-        cap, table.live.data_ptr(), ws["keys"].data_ptr(), ws["idx"].data_ptr(),
-        ws["hist"].data_ptr(), ws["bits"].data_ptr(), n, idx.data_ptr(), alive.data_ptr(),
-    )
+    if n == 0:
+        return idx, alive
+    keys = [(table.live, _KEY_LIVE_LAST), (order_lane, _KEY_DESC if desc else _KEY_ASC)]
+    keys += [(k, _KEY_PLAIN) for k in table.keys]
+    key_rows = _kernels.int64_rows(_key_rows(keys), RANK_KEYS)
+    nk = len(keys)
+    # the fold (9 words), the select's prefix and rows to take (2), its
+    # digit counts (2^11 int32), the candidates' fold (4 a key lane), the
+    # compaction's look-back words (a tile each, its counter, the count)
+    # and the candidates' slots (cap int32)
+    tiles = -(-cap // _kernels.COMPACT_TILE)
+    ws = torch.empty(11 + (1 << SELECT_BITS) // 2 + 4 * nk + tiles + 2 + (cap + 1) // 2,
+                     dtype=torch.int64, device=dev)
+    fold, sel = ws.data_ptr(), ws.data_ptr() + 8 * 9
+    hist = sel + 8 * 2
+    cfold = hist + 4 * (1 << SELECT_BITS)
+    status = cfold + 8 * 4 * nk
+    ent = status + 8 * (tiles + 2)
+    host = (ctypes.c_int64 * 9)()
+    _kernels.call("topn_rank", "rw_rank_fold", key_rows, nk, cap, fold, host)
+    u = [v & _MASK64 for v in host]
+    select = _kernels.int64_rows([rank_select_plan(n, u[0], cap, u[1:5], u[5:9]).rows()], 1)
+    got = (ctypes.c_int64 * (1 + 4 * nk))()
+    _kernels.call("topn_rank", "rw_rank_select", key_rows, nk, cap, select, sel, hist, status,
+                  ent, cfold, got)
+    m = got[0]
+    u = [v & _MASK64 for v in got[1:]]
+    plan = window_pack_plan([u[4 * i:4 * i + 4] for i in range(nk)], 0, 0)
+    # the sort's scratch: the packed words, ka, kb, the digit counts
+    # (2^11 int32), then pa, pb and the look-back words (int32)
+    c, words = max(m, 1), max(plan.words, 1)
+    sort_ws = torch.empty((words + 2) * c + 1024 + c + 128 * -(-c // _kernels.OS_TILE) + 1,
+                          dtype=torch.int64, device=dev)
+    ka = sort_ws.data_ptr() + 8 * words * c
+    pa = ka + 16 * c + 8 * 1024
+    bufs = [sort_ws.data_ptr(), pa, pa + 4 * c, ka, ka + 8 * c, ka + 16 * c, pa + 8 * c]
+    _kernels.call("topn_rank", "rw_rank_top", key_rows, nk, cap,
+                  _kernels.int64_rows([plan.rows()], 1), ent, m,
+                  _kernels.int64_rows([bufs], 1), n, idx.data_ptr(), alive.data_ptr())
     return idx, alive
 
 

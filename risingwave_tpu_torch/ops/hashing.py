@@ -54,6 +54,8 @@ def _mix32(h: torch.Tensor) -> torch.Tensor:
 def _split64(col: torch.Tensor) -> list:
     """64-bit lane -> (lo, hi) uint32 words via one bit view; word 0 is
     the least-significant one (little-endian, as ``hashing.py:40-49``)."""
+    if not col.numel():  # an empty lane may carry a zero stride, which view refuses
+        col = col.new_empty(0)
     words = col.contiguous().view(torch.int32).reshape(-1, 2).to(torch.int64) & M32
     return [words[:, 0], words[:, 1]]
 

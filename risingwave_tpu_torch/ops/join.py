@@ -35,6 +35,7 @@ kernels. State is updated in place.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -352,6 +353,8 @@ def _apply_side_cuda(side, slots, payload_cols, payload_nulls, valid, ops, names
 G2_NONE, G2_OUTER, G2_SEMI, G2_ANTI = 0, 1, 2, 3
 # group 3, kernel P (:197-223): the other side's zero-crossing stored rows
 G3_NONE, G3_OUTER, G3_ANTI, G3_SEMI = 0, 1, 2, 3
+# output lanes one rw_join_probe call writes (csrc/join_probe.cu JP_MAX_OUT)
+PROBE_LANES = 32
 
 
 class Probed(NamedTuple):
@@ -527,61 +530,91 @@ def _probe_pairs_torch(other, key_cols, valid, ops, own_cols, own_nulls, out_nam
     return Probed(cols, nulls, out_ops, out_valid, slots, mc, total.to(torch.int32))
 
 
+@functools.lru_cache(maxsize=256)
+def _probe_layout(dtypes: Tuple[torch.dtype, ...], out_cap: int, n: int):
+    """Kernel M's one output buffer, none of it filled (the kernel writes
+    every row): the look-back words (``ceil(n / 256) + 1`` int64), each
+    dtype's output lanes together, 8-byte lanes first, then the int32
+    lanes out_ops, slots, mc and written, then the bool lane valid.
+    Returns per dtype ``(dtype, byte offset, its lanes' places in
+    dtypes)``, the offset of out_ops and that of valid (the buffer's
+    size less ``out_cap``)."""
+    at = 8 * (max(-(-n // 256), 1) + 1)
+    groups, at_ops = [], 0
+    for size in (8, 4, 1):
+        for dt in dict.fromkeys(d for d in dtypes if d.itemsize == size):
+            js = tuple(j for j, d in enumerate(dtypes) if d == dt)
+            groups.append((dt, at, js))
+            at += size * out_cap * len(js)
+        if size == 4:
+            at_ops = at
+            at += 4 * (out_cap + 2 * n + 1)
+    return tuple(groups), at_ops, at
+
+
 def _probe_pairs_cuda(other, key_cols, valid, ops, own_cols, own_nulls, out_names, null_names,
                       out_cap, em_overflow, join_rows=None, pairs_on=True, group2=G2_NONE):
     n = valid.shape[0]
-    dev = valid.device
     table = other.table
     if valid.dtype != torch.bool or ops.dtype != torch.int32:
         raise TypeError("join_probe: bool valid and int32 ops lanes")
+    if join_rows is not None and (join_rows.shape != () or join_rows.dtype != torch.int64):
+        raise TypeError("join_rows must be a () int64 counter")
     keys = key_lane_rows(table, tuple(key_cols), n, "join_probe")
-    _kernels.check_cuda("join_probe", valid, ops, n=n)
-    _kernels.check_cuda("join_probe", other.row_valid, em_overflow)
-    if join_rows is not None:
-        if join_rows.shape != () or join_rows.dtype != torch.int64:
-            raise TypeError("join_rows must be a () int64 counter")
-        _kernels.check_cuda("join_probe", join_rows, em_overflow)
-    cols, nulls, outs = {}, {}, []
-    g2_pad = 1 if group2 == G2_OUTER else 0
-
-    def out_lane(name, dst_map, src, is_other, dtype, g2_one=0):
-        dst = torch.zeros(out_cap, dtype=dtype, device=dev)
-        dst_map[name] = dst
-        if src is not None:
-            _kernels.check_cuda("join_probe", src, n=None if is_other else n)
-        if src is not None or g2_one:
-            outs.append((0 if src is None else src.data_ptr(), is_other, dst.data_ptr(),
-                         dst.element_size(), g2_one))
-
+    # every output lane: (name, null lane, source or None, read at the
+    # matched entry, dtype, 1 on a group-2 row); the sources checked with
+    # the lanes they go with
+    lanes, own, stored = [], [valid, ops], [other.row_valid, em_overflow]
     for name in out_names:
-        own = own_cols.get(name)
-        if own is not None:
-            out_lane(name, cols, own, 0, own.dtype)
+        src = own_cols.get(name)
+        if src is not None:
+            lanes.append((name, False, src, 0, src.dtype, 0))
+            own.append(src)
         else:
-            stored = other.rows[name]
-            out_lane(name, cols, stored if pairs_on else None, 1, stored.dtype)
+            src = other.rows[name]
+            lanes.append((name, False, src if pairs_on else None, 1, src.dtype, 0))
+    g2_pad = 1 if group2 == G2_OUTER else 0
     for name in null_names:
         if name in own_cols:
-            out_lane(name, nulls, own_nulls.get(name), 0, torch.bool)
+            src = own_nulls.get(name)
+            lanes.append((name, True, src, 0, torch.bool, 0))
         else:
-            stored = other.row_nulls.get(name) if pairs_on else None
-            out_lane(name, nulls, stored, 1, torch.bool, g2_pad)
-    out_ops = torch.zeros(out_cap, dtype=torch.int32, device=dev)
-    out_valid = torch.zeros(out_cap, dtype=torch.bool, device=dev)
-    tiles = max(-(-n // 256), 1)
-    lanes = torch.empty(2 * n + 2 * tiles + 1, dtype=torch.int32, device=dev)
-    slots, mc = lanes[:n], lanes[n:2 * n]
-    tile_counts, written = lanes[2 * n:2 * n + 2 * tiles], lanes[-1]
+            src = other.row_nulls.get(name) if pairs_on else None
+            lanes.append((name, True, src, 1, torch.bool, g2_pad))
+        if src is not None:
+            (stored if lanes[-1][3] else own).append(src)
+    if pairs_on:
+        stored += [lane[2] for lane in lanes if lane[3] and not lane[1]]
+    if join_rows is not None:
+        stored.append(join_rows)
+    _kernels.check_cuda("join_probe", *own, n=n)
+    _kernels.check_cuda("join_probe", *stored)
+    if len(lanes) > PROBE_LANES:
+        raise ValueError(f"{len(lanes)} output lanes exceed the kernel's {PROBE_LANES}")
+    groups, at_ops, at_valid = _probe_layout(tuple(lane[4] for lane in lanes), out_cap, n)
+    buf = torch.empty(at_valid + out_cap, dtype=torch.uint8, device=valid.device)
+    base = buf.data_ptr()
+    cols, nulls, outs = {}, {}, []
+    for dt, at, js in groups:  # a dtype's lanes: one view, split
+        part = buf[at:at + len(js) * out_cap * dt.itemsize].view(dt)
+        for j, lane in zip(js, part.view(len(js), out_cap).unbind(0) if len(js) > 1 else (part,)):
+            name, is_null, src, is_other, _, g2_one = lanes[j]
+            (nulls if is_null else cols)[name] = lane
+            outs.append((0 if src is None else src.data_ptr(), is_other, lane.data_ptr(),
+                         dt.itemsize, g2_one))
+    ints = buf[at_ops:at_ops + 4 * (out_cap + 2 * n + 1)].view(torch.int32)
+    at_slots = at_ops + 4 * out_cap
     _kernels.call(
         "join_probe", "rw_join_probe", _kernels.int64_rows(keys, 8), len(keys), n,
         valid.data_ptr(), ops.data_ptr(), table.fp1.data_ptr(), table.fp2.data_ptr(),
         table.live.data_ptr(), table.capacity, other.row_valid.data_ptr(), other.fanout,
-        _kernels.int64_rows(outs, 16), len(outs), out_cap, out_ops.data_ptr(),
-        out_valid.data_ptr(), slots.data_ptr(), mc.data_ptr(), tile_counts.data_ptr(),
-        written.data_ptr(), em_overflow.data_ptr(),
+        _kernels.int64_rows(outs, PROBE_LANES), len(outs), out_cap, base + at_ops,
+        base + at_valid, base + at_slots, base + at_slots + 4 * n, base,
+        base + at_slots + 8 * n, em_overflow.data_ptr(),
         0 if join_rows is None else join_rows.data_ptr(), int(pairs_on), int(group2),
     )
-    return Probed(cols, nulls, out_ops, out_valid, slots, mc, written)
+    return Probed(cols, nulls, ints[:out_cap], buf[at_valid:].view(torch.bool),
+                  ints[out_cap:out_cap + n], ints[out_cap + n:out_cap + 2 * n], ints[-1])
 
 
 # -- degrees and transitions: kernel P --------------------------------------------

@@ -152,14 +152,81 @@ def _probe_inputs(rng, n, n_keys):
     return k, x, ops, valid
 
 
-@pytest.mark.parametrize("out_cap", [512, 16], ids=["fits", "em_overflow"])
-def test_probe_gather_compact_match_reference(out_cap):
-    rng = np.random.default_rng(7)
-    ref, port = _sides(128, 4)
+M_MODES = {"inner": (True, pj.G2_NONE), "outer": (True, pj.G2_OUTER),
+           "semi": (False, pj.G2_SEMI), "anti": (False, pj.G2_ANTI)}
+
+
+def _ref_emission(ref, k, x, ops, valid, out_cap, pairs_on, group2):
+    """The reference's emission groups 1 and 2 of a probe chunk
+    (``executors/hash_join.py:join_step_fn`` :156-195: ``probe_side``,
+    ``gather_matches``, the groups' flat lanes, ``compact_pairs``): the
+    output lanes by name (own ``x`` beside the stored ``NAMES``), ops,
+    valid, the uncapped total and the overflow."""
+    sl, match = rj.probe_side(ref, (jnp.asarray(k),), jnp.asarray(valid))
+    o_cols, o_nulls = rj.gather_matches(ref, sl, NAMES)
+    match = np.asarray(match)
+    n, fanout = match.shape
+    mc = match.sum(1)
+    out_ops = np.where(np.isin(ops, (Op.DELETE, Op.UPDATE_DELETE)), Op.DELETE,
+                       Op.INSERT).astype(np.int32)
+    cols, nulls, f_ops, f_valid = collections.defaultdict(list), collections.defaultdict(list), [], []
+    names = ("x",) + NAMES if pairs_on else ("x",)
+    null_names = (("k", "v", "w") if group2 == pj.G2_OUTER else ("w",)) if pairs_on else ()
+    if pairs_on:
+        cols["x"].append(np.repeat(x, fanout))
+        for nm in NAMES:
+            cols[nm].append(np.asarray(o_cols[nm]).reshape(-1))
+        for nm in null_names:
+            nulls[nm].append(np.asarray(o_nulls[nm]).reshape(-1) if nm in o_nulls
+                             else np.zeros(n * fanout, bool))
+        f_ops.append(np.repeat(out_ops, fanout))
+        f_valid.append(match.reshape(-1))
+    if group2 != pj.G2_NONE:
+        cond = np.asarray(valid) & ((mc > 0) if group2 == pj.G2_SEMI else (mc == 0))
+        cols["x"].append(x)
+        for nm in names[1:]:
+            cols[nm].append(np.zeros(n, np.asarray(o_cols[nm]).dtype))
+        for nm in null_names:
+            nulls[nm].append(np.ones(n, bool))
+        f_ops.append(out_ops)
+        f_valid.append(cond)
+    cat = lambda parts: jnp.asarray(np.concatenate(parts))
+    r_cols, r_nulls, r_ops, r_valid, ovf = rj.compact_pairs(
+        {nm: cat(v) for nm, v in cols.items()}, {nm: cat(v) for nm, v in nulls.items()},
+        cat(f_ops), cat(f_valid), out_cap)
+    lanes = {**{f"col.{nm}": r_cols[nm] for nm in names},
+             **{f"null.{nm}": r_nulls[nm] for nm in null_names}, "ops": r_ops, "valid": r_valid}
+    return lanes, int(np.concatenate(f_valid).sum()), bool(ovf), names, null_names
+
+
+def _probe_case(case, rng):
+    """The side, the probe chunk's lanes and the output capacity of a case
+    of ``test_probe_gather_compact_match_reference``."""
+    cap, fanout, n_keys, n = 128, 4, 30, 64
+    if case == "full_buckets":  # ten keys: every bucket fills and the side latches overflow
+        cap, fanout, n_keys = 64, 2, 10
+    ref, port = _sides(cap, fanout)
     stored = []
     for _ in range(3):
-        ref = _apply_both(ref, port, _batch(rng, 40, 30, stored, p_del=0.1), np.ones(40, bool))
-    k, x, ops, valid = _probe_inputs(rng, 64, 40)
+        ref = _apply_both(ref, port, _batch(rng, 40, n_keys, stored, p_del=0.1),
+                          np.ones(40, bool))
+    k, x, ops, valid = _probe_inputs(rng, 0 if case == "n0" else n, n_keys + 10)
+    return ref, port, k, x, ops, valid
+
+
+@pytest.mark.parametrize("case", ["fits", "em_overflow", "cut_in_pairs", "cut_in_group2", "n0",
+                                  "full_buckets"])
+def test_probe_gather_compact_match_reference(case):
+    """The plain probe, gather and compaction against the reference's;
+    then ``probe_pairs`` (kernel M's plain version) in each mode (inner
+    pairs; the outer arrival's pairs then NULL pads; semi; anti) against
+    the reference's groups 1 and 2 compacted (``join_step_fn``'s
+    composition), every output row: into an output that holds them all,
+    one of 16 rows, one cut inside the pairs, one cut inside group 2; an
+    empty chunk; full buckets."""
+    rng = np.random.default_rng(7)
+    ref, port, k, x, ops, valid = _probe_case(case, rng)
+    out_cap = {"em_overflow": 16}.get(case, 512)
     t = lambda a: torch.from_numpy(np.array(a))
     r_sl, r_match = rj.probe_side(ref, (jnp.asarray(k),), jnp.asarray(valid))
     p_sl, p_match = pj.probe_side(port, (t(k),), t(valid))
@@ -170,8 +237,9 @@ def test_probe_gather_compact_match_reference(out_cap):
     for name in NAMES:
         np.testing.assert_array_equal(p_cols[name].numpy(), np.asarray(r_cols[name]))
     np.testing.assert_array_equal(p_nulls["w"].numpy(), np.asarray(r_nulls["w"]))
+    fanout = port.fanout
     flat = {n: np.asarray(r_cols[n]).reshape(-1) for n in NAMES}
-    fops = np.repeat(ops, 4)
+    fops = np.repeat(ops, fanout)
     fvalid = np.asarray(r_match).reshape(-1)
     r = rj.compact_pairs({n: jnp.asarray(a) for n, a in flat.items()}, {},
                          jnp.asarray(fops), jnp.asarray(fvalid), out_cap)
@@ -180,11 +248,40 @@ def test_probe_gather_compact_match_reference(out_cap):
         np.testing.assert_array_equal(p[0][name].numpy(), np.asarray(r[0][name]))
     for i in (2, 3, 4):
         np.testing.assert_array_equal(p[i].numpy(), np.asarray(r[i]))
-    assert bool(p[4]) == (out_cap == 16)
-    g_cols, g_nulls = pj.gather_flat(port, t(np.array([0, 5, 128 * 4 + 9], np.int32)), NAMES)
-    r_cols, r_nulls = rj.gather_flat(ref, jnp.array([0, 5, 128 * 4 + 9], jnp.int32), NAMES)
-    for name in NAMES:
-        np.testing.assert_array_equal(g_cols[name].numpy(), np.asarray(r_cols[name]))
+    assert bool(p[4]) == (case == "em_overflow")
+    if case == "fits":
+        g_cols, g_nulls = pj.gather_flat(port, t(np.array([0, 5, 128 * 4 + 9], np.int32)), NAMES)
+        gr_cols, _ = rj.gather_flat(ref, jnp.array([0, 5, 128 * 4 + 9], jnp.int32), NAMES)
+        for name in NAMES:
+            np.testing.assert_array_equal(g_cols[name].numpy(), np.asarray(gr_cols[name]))
+    if case == "full_buckets":
+        assert bool(port.overflow) and bool((port.row_valid.sum(1) == fanout).any())
+    pairs = int(fvalid.sum())
+    for mode, (pairs_on, group2) in M_MODES.items():
+        cap_out = out_cap
+        if case in ("cut_in_pairs", "cut_in_group2"):
+            _, total, _, _, _ = _ref_emission(ref, k, x, ops, valid, 1 << 12, pairs_on, group2)
+            before = pairs if pairs_on else 0
+            cap_out = (before // 2 if case == "cut_in_pairs"
+                       else before + max(total - before, 1) // 2)
+        want, total, ovf, names, null_names = _ref_emission(ref, k, x, ops, valid, cap_out,
+                                                            pairs_on, group2)
+        em = torch.zeros((), dtype=torch.bool)
+        rows = torch.zeros((), dtype=torch.int64)
+        got = pj.probe_pairs(port, (t(k),), t(valid), t(ops), {"x": t(x)}, {}, names, cap_out,
+                             em, rows, null_names, pairs_on, group2)
+        lanes = {**{f"col.{nm}": got.cols[nm] for nm in names},
+                 **{f"null.{nm}": got.nulls[nm] for nm in null_names}, "ops": got.ops,
+                 "valid": got.valid}
+        assert lanes.keys() == want.keys(), mode
+        for name, lane in want.items():
+            np.testing.assert_array_equal(lanes[name].numpy(), np.asarray(lane),
+                                          err_msg=f"{mode} {name}")
+        assert int(got.written) == total and bool(em) == ovf == (total > cap_out), mode
+        assert int(rows) == min(total, cap_out), mode
+        np.testing.assert_array_equal(got.mc.numpy(), np.asarray(r_match).sum(1), err_msg=mode)
+        if case == "cut_in_group2" and group2 != pj.G2_NONE:
+            assert before < cap_out < total, mode  # the cut falls inside group 2
 
 
 def test_regrow_matches_reference():

@@ -26,7 +26,7 @@ from risingwave_tpu.ops import join as rj
 from risingwave_tpu.types import Op
 from risingwave_tpu_torch.array.chunk import StreamChunk
 from risingwave_tpu_torch.executors.hash_join import JOIN_TYPES as PORT_JOIN_TYPES
-from risingwave_tpu_torch.executors.hash_join import HashJoinExecutor, join_step_fn
+from risingwave_tpu_torch.executors.hash_join import HashJoinExecutor, _modes, join_step_fn
 from risingwave_tpu_torch.ops import join as pj
 from test_join_types import _oracle, _project_oracle
 
@@ -173,15 +173,16 @@ def test_semi_anti_multiplicity():
 
 
 # -- the step function lane for lane -------------------------------------------------
-def _step_sides():
+def _step_sides(fanout=4):
     ldt = {"lk": jnp.int64, "lv": jnp.float64}
     rdt = {"rk": jnp.int64, "rv": jnp.int32}
-    ref = (rj.JoinSide.create(128, 4, (jnp.int64,), ldt),
-           rj.JoinSide.create(128, 4, (jnp.int64,), rdt, nullable=("rv",)))
-    port = (pj.JoinSide.create(128, 4, (torch.int64,), {"lk": torch.int64, "lv": torch.float64},
-                               device="cpu"),
-            pj.JoinSide.create(128, 4, (torch.int64,), {"rk": torch.int64, "rv": torch.int32},
-                               nullable=("rv",), device="cpu"))
+    ref = (rj.JoinSide.create(128, fanout, (jnp.int64,), ldt),
+           rj.JoinSide.create(128, fanout, (jnp.int64,), rdt, nullable=("rv",)))
+    port = (pj.JoinSide.create(128, fanout, (torch.int64,),
+                               {"lk": torch.int64, "lv": torch.float64}, device="cpu"),
+            pj.JoinSide.create(128, fanout, (torch.int64,),
+                               {"rk": torch.int64, "rv": torch.int32}, nullable=("rv",),
+                               device="cpu"))
     return ref, port
 
 
@@ -195,28 +196,52 @@ def _assert_sides_equal(ref, port):
             np.testing.assert_array_equal(b.rows[name].numpy(), np.asarray(a.rows[name]))
 
 
-@pytest.mark.parametrize("out_cap", [256, 8], ids=["fits", "em_overflow"])
+# (out_cap, key range, fanout) of each case of the step test
+STEP_CASES = {"fits": (256, 12, 4), "em_overflow": (8, 12, 4), "cut_in_pairs": (32, 60, 4),
+              "cut_in_group2": (40, 60, 4), "n0": (256, 12, 4), "full_buckets": (256, 6, 2)}
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
 @pytest.mark.parametrize("join_type", JOIN_TYPES)
-def test_join_step_matches_reference_lane_for_lane(join_type, out_cap):
+def test_join_step_matches_reference_lane_for_lane(join_type, case):
     """Alternating left/right chunks (deletes, NULL payloads, invalid
     rows) through both join_step_fns: every emitted lane (the three
     groups in the reference's order), the null-lane set, ops, valid,
-    the emission latch, and both sides' lanes, degrees included."""
+    the emission latch, and both sides' lanes, degrees included. Cases:
+    an output that holds every row; one of 8 rows; one cut inside the
+    pairs and one inside group 2 (sparser keys: matched and unmatched
+    probe rows in one chunk); chunks of no row (n = 0) among the steps;
+    buckets of 2 rows that fill."""
+    out_cap, key_range, fanout = STEP_CASES[case]
     rng = np.random.default_rng(11)
-    (rl, rr), (pl, pr) = _step_sides()
+    (rl, rr), (pl, pr) = _step_sides(fanout)
     names = ("lk", "lv", "rk", "rv")
     semi_anti = join_type.endswith(("semi", "anti"))
     out_names = (names[:2] if join_type.startswith("left") else names[2:]) if semi_anti else names
     em = torch.zeros((), dtype=torch.bool)
     r_em = False
+    cuts = set()
     for step in range(8):
-        n = 40
-        keys = rng.integers(0, 12, n)
+        n = 0 if case == "n0" and step % 3 == 2 else 40
+        cap = 48 if n else 8  # no row: only padding (the reference refuses a 0-row chunk)
+        keys = rng.integers(0, key_range, n)
         ops = np.where(rng.random(n) < 0.25 * (step > 1), Op.DELETE, Op.INSERT).astype(np.int32)
-        if step % 2 == 0:
+        arrival = "l" if step % 2 == 0 else "r"
+        pairs_on, group2 = _modes(join_type, arrival)[:2]
+        other = pr if arrival == "l" else pl
+        _, match = pj.probe_side(other, (torch.from_numpy(keys),), torch.ones(n, dtype=torch.bool))
+        mc = match.sum(1)
+        n_pairs = int(mc.sum()) if pairs_on else 0
+        n_g2 = 0 if group2 == pj.G2_NONE else int(((mc > 0) if group2 == pj.G2_SEMI
+                                                   else (mc == 0)).sum())
+        if n_pairs > out_cap:
+            cuts.add("pairs")
+        if n_pairs < out_cap < n_pairs + n_g2:
+            cuts.add("group2")
+        if arrival == "l":
             cols = {"lk": keys, "lv": rng.integers(0, 3, n).astype(np.float64)}
-            rc = RefChunk.from_numpy(cols, 48, ops=ops)
-            pc = StreamChunk.from_numpy(cols, 48, ops=ops, device="cpu")
+            rc = RefChunk.from_numpy(cols, cap, ops=ops)
+            pc = StreamChunk.from_numpy(cols, cap, ops=ops, device="cpu")
             rl, rr, cols_r, nulls_r, ops_r, valid_r, o = ref_join_step(
                 rl, rr, rc, ("lk",), ("rk",), ("lk", "lv"), ("rk", "rv"), out_cap, join_type,
                 "l", out_names,
@@ -226,8 +251,8 @@ def test_join_step_matches_reference_lane_for_lane(join_type, out_cap):
         else:
             cols = {"rk": keys, "rv": rng.integers(0, 3, n).astype(np.int32)}
             nulls = {"rv": rng.random(n) < 0.3}
-            rc = RefChunk.from_numpy(cols, 48, ops=ops, nulls=nulls)
-            pc = StreamChunk.from_numpy(cols, 48, ops=ops, nulls=nulls, device="cpu")
+            rc = RefChunk.from_numpy(cols, cap, ops=ops, nulls=nulls)
+            pc = StreamChunk.from_numpy(cols, cap, ops=ops, nulls=nulls, device="cpu")
             rr, rl, cols_r, nulls_r, ops_r, valid_r, o = ref_join_step(
                 rr, rl, rc, ("rk",), ("lk",), ("rk", "rv"), ("lk", "lv"), out_cap, join_type,
                 "r", out_names,
@@ -244,8 +269,14 @@ def test_join_step_matches_reference_lane_for_lane(join_type, out_cap):
         np.testing.assert_array_equal(out.valid.numpy(), np.asarray(valid_r))
         assert bool(em) == r_em
         _assert_sides_equal((rl, rr), (pl, pr))
-    if not semi_anti:  # pairs alone pass 8 rows
+    if not semi_anti and case in ("fits", "em_overflow"):  # pairs alone pass 8 rows
         assert r_em == (out_cap == 8)
+    if case == "cut_in_pairs" and not semi_anti:
+        assert "pairs" in cuts
+    if case == "cut_in_group2" and join_type in ("left", "right", "full"):
+        assert "group2" in cuts  # pairs, then NULL pads cut by out_cap
+    if case == "full_buckets":
+        assert bool(pl.overflow) and bool(pr.overflow)
     if join_type != "inner":
         assert bool((pl.degree != 0).any() or (pr.degree != 0).any())
 

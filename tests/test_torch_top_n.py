@@ -32,6 +32,7 @@ from risingwave_tpu.types import Op
 from risingwave_tpu_torch import _kernels
 from risingwave_tpu_torch.array.chunk import StreamChunk
 from risingwave_tpu_torch.executors import top_n as ptn
+from risingwave_tpu_torch.executors import over_window as ow
 from risingwave_tpu_torch.executors import top_n_plain as ptp
 from risingwave_tpu_torch.executors.base import Watermark
 from risingwave_tpu_torch.ops import hash_table as pht
@@ -502,22 +503,216 @@ def _ranked_store(rng, cap=128, n=90, extremes=True):
     return r, p
 
 
+M64 = (1 << 64) - 1
+W_CASES = ("ties_at_nth", "n_past_live", "all_dead", "float_nan_negzero", "float32_nan",
+           "wide_pk", "pk_dtypes", "n_at_cap")
+
+
+def _w_store(case, desc, rng, cap=256):
+    """Kernel W's hard stores at a small size (``chip_smoke.w_hard_stores``
+    holds the kernel itself on the same kinds): ``(live, order, pks, n)``
+    per slot, dead slots with stale lanes (INT64 extremes among them)."""
+    live = rng.random(cap) < 0.6
+    order = rng.integers(-20, 20, cap).astype(np.int64)
+    order[~live & (rng.random(cap) < 0.2)] = IMIN
+    order[~live & (rng.random(cap) < 0.2)] = IMAX
+    pks = [rng.permutation(cap).astype(np.int64) - 100]
+    n = 40
+    if case == "ties_at_nth":  # a run of ties across the n-th place
+        order = np.where(rng.random(cap) < 0.5, 7, rng.integers(-30, 30, cap)).astype(np.int64)
+        pks = [rng.integers(-3, 3, cap).astype(np.int64), rng.permutation(cap).astype(np.int64)]
+        key = (-order if desc else order)[live]
+        n = int((key < (-7 if desc else 7)).sum() + (key == (-7 if desc else 7)).sum() // 2)
+    elif case == "n_past_live":
+        n = int(live.sum()) + 37
+    elif case == "all_dead":
+        live[:] = False
+        n = 50
+    elif case in ("float_nan_negzero", "float32_nan"):
+        vals = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5, -1.5, 2.0, -np.nan])
+        order = rng.choice(vals, cap).astype(np.float64 if case == "float_nan_negzero"
+                                              else np.float32)
+        n = 60
+    elif case == "wide_pk":  # the packed key passes 64 bits
+        order = rng.integers(0, 3, cap).astype(np.int64)
+        pks = [rng.integers(IMIN, IMAX, cap, dtype=np.int64) // (1 + (rng.random(cap) < 0.5)),
+               rng.integers(IMIN, IMAX, cap, dtype=np.int64)]
+        pks[0][rng.random(cap) < 0.5] = pks[0][0]
+        n = 120
+    elif case == "pk_dtypes":
+        order = rng.integers(0, 4, cap).astype(np.int64)
+        pks = [rng.integers(-2**31, 2**31, cap).astype(np.int32) // 2**28,
+               rng.random(cap) < 0.5, rng.permutation(cap).astype(np.int32) - 128]
+        n = 90
+    elif case == "n_at_cap":
+        n = cap
+    return live, order, pks, n
+
+
+def _w_tables(live, pks):
+    """The reference's and the port's table of these lanes (no keys hashed:
+    W reads ``live`` and the key lanes alone)."""
+    cap = len(live)
+    z32 = np.zeros(cap, np.int32)
+    ref = rht.HashTable(jnp.asarray(z32.view(np.uint32)), jnp.asarray(z32.view(np.uint32)),
+                        tuple(jnp.asarray(k) for k in pks), jnp.asarray(live))
+    port = pht.HashTable(torch.from_numpy(z32), torch.from_numpy(z32),
+                         tuple(torch.from_numpy(np.array(k)) for k in pks),
+                         torch.from_numpy(live.copy()), torch.from_numpy(z32),
+                         torch.zeros((), dtype=torch.int64))
+    return ref, port
+
+
+@pytest.mark.parametrize(
+    "case,desc", [(c, d) for c in ("store",) + W_CASES for d in (False, True)],
+    ids=[f"{c}-{a}" if c != "store" else a for c in ("store",) + W_CASES for a in ("asc", "desc")])
+def test_rank_top_matches_reference(case, desc):
+    """Kernel W's plain version: the top-n slots and their liveness flags
+    equal the reference's ``_rank_top``; no dead row (whatever its
+    INT64-extreme order value) precedes a live one. On the executors'
+    store (``store``) the live prefix is compared at three sizes of n; on
+    the hard stores every slot: ties across the n-th place, n past the
+    live count (dead rows by their stale lanes), an all-dead store, float
+    order lanes with NaN and -0.0, pk lanes whose packed key passes 64
+    bits, int32 and bool pk lanes, n equal to the capacity."""
+    if case == "store":
+        r, p = _ranked_store(np.random.default_rng(41))
+        for n in (3, 20, 128):
+            ridx, ralive = rtp._rank_top(r.table, r.rows["v"], n, desc)
+            pidx, palive = ptp.rank_top(p.table, p.rows["v"], n, desc)
+            ralive = np.asarray(ralive)
+            _eq(palive, ralive)
+            m = int(ralive.sum())
+            assert ralive[:m].all() and not ralive[m:].any()
+            np.testing.assert_array_equal(pidx.numpy()[:m], np.asarray(ridx)[:m])
+        return
+    live, order, pks, n = _w_store(case, desc, np.random.default_rng(60 + W_CASES.index(case)))
+    rt, pt = _w_tables(live, pks)
+    ridx, ralive = rtp._rank_top(rt, jnp.asarray(order), n, desc)
+    pidx, palive = ptp.rank_top(pt, torch.from_numpy(order), n, desc)
+    _eq(pidx, ridx)
+    _eq(palive, ralive)
+    m = int(live.sum())
+    assert np.asarray(ralive)[:min(m, n)].all() and not np.asarray(ralive)[m:].any()
+
+
+def _w_encode(live, order, pks, desc):
+    """Each slot's key words as kernel W encodes them (csrc/topn_rank.cu
+    tr_encode): live 0 and dead 1, the order key, the pk lanes."""
+    okey = topn_order_key(torch.from_numpy(order), desc).numpy()
+    lanes = [[0 if v else 1 for v in live], [(int(v) & M64) ^ (1 << 63) for v in okey]]
+    for k in pks:
+        if k.dtype == np.bool_:
+            lanes.append([int(v) for v in k])
+        elif k.dtype == np.int32:
+            lanes.append([(int(v) & 0xFFFFFFFF) ^ 0x80000000 for v in k])
+        else:
+            lanes.append([(int(v) & M64) ^ (1 << 63) for v in k])
+    return lanes
+
+
+def _w_fold(vals):
+    """OR, AND, MIN, MAX of unsigned words (the empty fold: 0, ~0, ~0, 0)."""
+    o, a, lo, hi = 0, M64, M64, 0
+    for v in vals:
+        o, a, lo, hi = o | v, a & v, min(lo, v), max(hi, v)
+    return o, a, lo, hi
+
+
+def _w_select(plan, rows, field):
+    """The select's rounds on ``rows`` of the selected class: the n-th
+    row's field, as the round and pick kernels find it."""
+    t, m = 0, plan.m
+    for shift, bits in plan.rounds:
+        hi = shift + bits
+        hist = [0] * (1 << bits)
+        for s in rows:
+            f = field(s)
+            if hi >= 64 or f >> hi == t:
+                hist[(f >> shift) & ((1 << bits) - 1)] += 1
+        below = 0
+        for d, c in enumerate(hist):
+            if below < m <= below + c:
+                t, m = (t << bits) | d, m - below
+                break
+            below += c
+    return t
+
+
+def _w_emulate(live, order, pks, n, desc):
+    """Kernel W's steps in plain Python: the fold, the select plan and its
+    rounds, the candidates (slot order) and their fold, the packed key
+    and the stable LSD byte passes over the bytes its plan marks, least
+    significant word first; the first n slots."""
+    cap = len(live)
+    lanes = _w_encode(live, order, pks, desc)
+    okey = lanes[1]
+    plan = ptp.rank_select_plan(n, int(live.sum()), cap,
+                                _w_fold(okey[s] for s in range(cap) if live[s]),
+                                _w_fold(okey[s] for s in range(cap) if not live[s]))
+    field = lambda s: ((okey[s] - plan.min) & M64) >> plan.lo
+    t = _w_select(plan, [s for s in range(cap) if bool(live[s]) == (plan.cls == 1)], field)
+
+    def candidate(s):
+        if plan.take_live if live[s] else plan.take_dead:
+            return True
+        return plan.cls == (1 if live[s] else 0) and field(s) <= t
+
+    cand = [s for s in range(cap) if candidate(s)]
+    pack = ow.window_pack_plan([_w_fold(lane[s] for s in cand) for lane in lanes], 0, 0)
+    words = {s: pack.split(pack.pack([lane[s] for lane in lanes])) for s in cand}
+    for w in reversed(range(pack.words)):
+        for b in range(8):
+            if (pack.pass_masks[w] >> b) & 1:
+                cand.sort(key=lambda s: (words[s][w] >> (8 * b)) & 0xFF)
+    return cand[:n], plan, pack
+
+
 @pytest.mark.parametrize("desc", [False, True], ids=["asc", "desc"])
-def test_rank_top_matches_reference(desc):
-    """Kernel W's plain version: the live prefix of the top-n slots and
-    every slot's liveness flag equal the reference's ``_rank_top``; no
-    dead row (whatever its INT64-extreme order value) precedes a live
-    one. The dead tail's order is left out (``lax.sort`` is unstable on
-    unclaimed slots, whose keys tie)."""
-    r, p = _ranked_store(np.random.default_rng(41))
-    for n in (3, 20, 128):
-        ridx, ralive = rtp._rank_top(r.table, r.rows["v"], n, desc)
-        pidx, palive = ptp.rank_top(p.table, p.rows["v"], n, desc)
-        ralive = np.asarray(ralive)
-        _eq(palive, ralive)
-        m = int(ralive.sum())
-        assert ralive[:m].all() and not ralive[m:].any()
-        np.testing.assert_array_equal(pidx.numpy()[:m], np.asarray(ridx)[:m])
+@pytest.mark.parametrize("case", W_CASES)
+def test_rank_select_emulation_matches_reference(case, desc):
+    """Kernel W's select and candidate sort, emulated on the CPU, give the
+    reference's ``_rank_top`` slots on every hard store: ties across the
+    n-th place sorted by their pk lanes, dead rows past the live count by
+    their stale lanes, an all-dead store, NaN and -0.0, a packed key of
+    more than one word."""
+    live, order, pks, n = _w_store(case, desc, np.random.default_rng(60 + W_CASES.index(case)))
+    rt, _ = _w_tables(live, pks)
+    ridx, _ = rtp._rank_top(rt, jnp.asarray(order), n, desc)
+    got, plan, pack = _w_emulate(live, order, pks, n, desc)
+    assert got == np.asarray(ridx).tolist()
+    if case in ("wide_pk", "n_past_live"):  # wide pks; INT64-extreme stale order keys
+        assert pack.words > 1
+    if case in ("n_past_live", "n_at_cap", "all_dead"):
+        assert plan.cls in (-1, 0)
+    if case == "ties_at_nth":
+        assert plan.cls == 1 and plan.rounds
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_rank_select_plan_finds_the_nth_field(seed):
+    """``rank_select_plan``'s rounds against a numpy sort: over keys of
+    every width (one value, a few bits, a span across zero, INT64
+    extremes), the digits found round by round spell the m-th smallest
+    field; the rounds cover the field's bits from the top, none wider
+    than ``SELECT_BITS``."""
+    rng = np.random.default_rng(seed)
+    spans = [(5, 6), (0, 40), (-3000, 3000), (IMIN, IMAX), (10**12, 10**12 + 2**33)]
+    lo, hi = spans[seed % len(spans)]
+    vals = rng.integers(lo, hi, 500, dtype=np.int64, endpoint=True)
+    if seed == 5:
+        vals = np.repeat(vals[:3], 200) << 3  # three values, low bits equal
+    keys = [(int(v) & M64) ^ (1 << 63) for v in vals]
+    for m in (1, 2, 250, len(keys) - 1):
+        plan = ptp.rank_select_plan(m, len(keys), len(keys) + 8, _w_fold(keys), _w_fold([]))
+        assert plan.cls == 1 and plan.m == m
+        field = lambda k: ((k - plan.min) & M64) >> plan.lo
+        width = sum(b for _, b in plan.rounds)
+        assert all(b <= ptp.SELECT_BITS for _, b in plan.rounds)
+        assert [s for s, _ in plan.rounds] == sorted((s for s, _ in plan.rounds), reverse=True)
+        assert all(field(k) < 1 << width for k in keys) if width else len(set(keys)) == 1
+        t = _w_select(plan, keys, field)
+        assert t == sorted(field(k) for k in keys)[m - 1]
 
 
 @pytest.mark.parametrize("desc", [False, True], ids=["asc", "desc"])

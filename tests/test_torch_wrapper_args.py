@@ -119,7 +119,16 @@ def test_l_entries_marshal(calls):
     assert _kernels.LAUNCHES["join_apply"] == 2 and _kernels.LAUNCHES["join_regrow"] == 1
 
 
-def test_m_entries_marshal(calls):
+def test_m_entries_marshal(calls, monkeypatch):
+    """Kernel M: every output lane (values, nulls, ops, valid) and slots,
+    mc and written are views of one buffer the kernel writes in full, at
+    the places the entry is handed, none overlapping; the outer, semi and
+    empty (n = 0) arrivals marshal alike; M's lookup entry counts under
+    its own key."""
+    seen = []
+    counted = _kernels.call
+    monkeypatch.setattr(_kernels, "call", lambda name, fn, *a: (seen.append(a),
+                                                               counted(name, fn, *a)))
     side = _side()
     n = 8
     keys = (torch.arange(n, dtype=torch.int64),)
@@ -133,16 +142,33 @@ def test_m_entries_marshal(calls):
     assert set(probed.cols) == {"k", "v", "x"} and set(probed.nulls) == {"v"}
     assert probed.cols["x"].dtype == torch.float64 and probed.valid.shape == (32,)
     assert probed.slots.shape == probed.mc.shape == (n,) and probed.written.shape == ()
+    lanes = [*probed.cols.values(), *probed.nulls.values(), probed.ops, probed.valid,
+             probed.slots, probed.mc, probed.written]
+    assert len({t.untyped_storage().data_ptr() for t in lanes}) == 1
+    assert probed.cols["v"].dtype == torch.int32 and probed.nulls["v"].dtype == torch.bool
     # an outer arrival: the pairs, then the NULL-padded rows (k, v written 1)
     probed = join._probe_pairs_cuda(side, keys, valid, ops, own, {}, ("k", "v", "x"),
                                     ("k", "v", "x"), 32, em, None, True, join.G2_OUTER)
     assert set(probed.nulls) == {"k", "v", "x"}
+    args = seen[-1]
+    lanes = [*probed.cols.values(), *probed.nulls.values()]
+    outs = list(args[11])[:5 * args[12]]
+    assert sorted(outs[2::5]) == sorted(t.data_ptr() for t in lanes)
+    assert [args[i] for i in (14, 15, 16, 17, 19)] == [
+        t.data_ptr() for t in (probed.ops, probed.valid, probed.slots, probed.mc, probed.written)]
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for t in lanes + [probed.ops, probed.valid, probed.slots, probed.mc,
+                                     probed.written])
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:])) and args[18] < spans[0][0]
     # a semi arrival: no pairs, group 2 only
     join._probe_pairs_cuda(side, keys, valid, ops, own, {}, ("x",), (), 32, em, rows, False,
                            join.G2_SEMI)
+    empty = join._probe_pairs_cuda(side, (keys[0][:0],), valid[:0], ops[:0], {"x": own["x"][:0]},
+                                   {}, ("k", "x"), (), 32, em, rows)
+    assert empty.slots.shape == (0,) and empty.valid.shape == (32,)
     ht._lookup_cuda(side.table, keys, valid)
-    assert calls == [("join_probe", "rw_join_probe")] * 3 + [("join_probe", "rw_lookup")]
-    assert _kernels.LAUNCHES["join_probe"] == 3 and _kernels.LAUNCHES["lookup"] == 1
+    assert calls == [("join_probe", "rw_join_probe")] * 4 + [("join_probe", "rw_lookup")]
+    assert _kernels.LAUNCHES["join_probe"] == 4 and _kernels.LAUNCHES["lookup"] == 1
 
 
 def test_p_entry_marshals(calls):
@@ -389,10 +415,13 @@ def test_v_entry_marshals(calls):
 
 
 def test_w_and_x_entries_marshal(calls):
-    """Kernels W and X: key descriptor rows (lane, dtype code, mode) and
-    the sort's workspace; X's fold (its live count and lanes' bits read
-    into a host array) and its mask (the packing plan, the dirty groups'
-    set), each counted under its own key."""
+    """Kernels W and X: key descriptor rows (lane, dtype code, mode); W's
+    fold and select (each reading into a host array), then its sort of
+    the candidates (the select's and the packing plan's rows, the sort's
+    buffers as one row of pointers), n = 0 launching nothing; X's fold
+    (its live count and lanes' bits read into a host array) and its mask
+    (the packing plan, the dirty groups' set), each counted under its own
+    key."""
     from risingwave_tpu_torch.executors import top_n_plain as tp
 
     ex = tp.RetractableGroupTopNExecutor(("g",), "v", 2, ("id",),
@@ -400,15 +429,18 @@ def test_w_and_x_entries_marshal(calls):
                                           "v": torch.float32}, capacity=64, device="cpu")
     idx, alive = tp._rank_top_cuda(ex.table, ex.rows["v"], 10, True)
     assert idx.shape == (10,) and idx.dtype == torch.int32 and alive.dtype == torch.bool
+    assert tp._rank_top_cuda(ex.table, ex.rows["v"], 0, True)[0].shape == (0,)
     in_topk, gdirty = tp._group_topk_mask_cuda(ex.table, ex.rows, ex.epoch_dirty, 2, False,
                                                (ex.rows["g"],), "v")
     assert in_topk.shape == gdirty.shape == (64,)
     with pytest.raises(ValueError, match="sort keys"):
         tp._key_rows([(ex.table.live, 0)] * (tp.RANK_KEYS + 1))
-    assert calls == [("topn_rank", "rw_rank_top"), ("topn_rank", "rw_group_topk_fold"),
+    assert calls == [("topn_rank", "rw_rank_fold"), ("topn_rank", "rw_rank_select"),
+                     ("topn_rank", "rw_rank_top"), ("topn_rank", "rw_group_topk_fold"),
                      ("topn_rank", "rw_group_topk_mask")]
     assert _kernels.LAUNCHES["topn_rank"] == 1 and _kernels.LAUNCHES["group_topk"] == 1
     assert _kernels.LAUNCHES["group_topk_fold"] == 1
+    assert _kernels.LAUNCHES["rank_fold"] == _kernels.LAUNCHES["rank_select"] == 1
 
 
 def test_x_long_runs_and_wide_groups_marshal(monkeypatch):
