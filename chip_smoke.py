@@ -1086,6 +1086,10 @@ def kernel_f(torch, dev, flat):
     sa = torch.zeros(len(ka), dtype=torch.int64, device=dev).index_add_(0, ia, rep_keys(fa)[:, 2])
     sc = torch.zeros(len(kc), dtype=torch.int64, device=dev).index_add_(0, ic, rep_keys(ca)[:, 2])
     check(torch.equal(ka, kc) and torch.equal(sa, sc), "F: per-key sums survive the collision")
+    again = agg_ops.reduce_by_key(keys, signs, calls, {}, {})
+    check(all(torch.equal(a, b) for a, b in zip(la.values(), reduce_outputs(torch, again).values())),
+          "F: a second call gives the same bits")
+    hard = f_hard_cases(torch, dev, np.random.default_rng(SEED + 5))
     ms = time_ms(torch, lambda: agg_ops.reduce_by_key(keys, signs, calls, {}, {}), 5)
     plain = time_ms(torch, lambda: agg_ops._reduce_by_key_torch(keys, signs, calls, {}, {}), 3)
     key64 = ((h1 << 32) | h2) ^ (-(2**63))  # the unsigned order as int64
@@ -1102,7 +1106,107 @@ def kernel_f(torch, dev, flat):
         "library_call": "torch.sort(stable=True) of the 64-bit fingerprint key (the sort alone)",
         "shape": {"rows": n, "invisible": n_invisible, "representatives": reps,
                   "collided_rows": 20_000, "all_ones_rows": 2_000},
+        "hard_cases": hard,
     }, (keys, fa)
+
+
+F_HARD_CALLS = (("count_star", None, "n"), ("count", "v", "cv"), ("sum", "v", "sv"),
+                ("sum", "w", "sw"), ("sum", "f", "sf"), ("sum", "g", "sg"), ("min", "v", "mnv"),
+                ("max", "w", "mxw"), ("min", "f", "mnf"), ("max", "g", "mxg"))
+F_HARD_ROWS = 8 * 2048 + 17  # eight reduce tiles and a few rows of a ninth
+F_FLOAT_SUMS = ("red.sum_sf", "red.sum_sg")
+
+
+def f_hard_input(torch, dev, rng, n: int, k=None, x=None, signs=None):
+    """Key lanes (int64 ``k``, float64 ``x``), signs and value lanes of n
+    rows: random keys unless given, signs mostly +1 with retractions and
+    invisible rows, int64/int32/float64/float32 values with NULLs."""
+    if k is None:
+        k = rng.integers(0, 300, n).astype(np.int64)
+    if x is None:
+        x = rng.choice(np.array([0.0, -0.0, 1.5, np.nan]), n)
+    if signs is None:
+        signs = np.where(rng.random(n) < 0.8, 1, -1).astype(np.int32)
+        signs[rng.random(n) < 0.1] = 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    values = {"v": t(rng.integers(-(10**12), 10**12, n).astype(np.int64)),
+              "w": t(rng.integers(-1000, 1000, n).astype(np.int32)),
+              "f": t(rng.standard_normal(n) * 1e3),
+              "g": t((rng.standard_normal(n) * 50).astype(np.float32))}
+    nulls = {"v": t(rng.random(n) < 0.1), "f": t(rng.random(n) < 0.1)}
+    return (t(k), t(x)), t(signs), values, nulls
+
+
+def f_bits(torch, a):
+    """A lane as integers of its width, so floats compare bit for bit."""
+    if not a.dtype.is_floating_point:
+        return a
+    return a.view(torch.int64 if a.element_size() == 8 else torch.int32)
+
+
+def f_hard_one(torch, dev, what, keys, signs, values, nulls, fingerprints=None) -> dict:
+    """One hard case: the kernel twice (the same bits) against the plain
+    version (integer lanes, keys, rep_valid, w, the latch exact; float
+    sums within SUM_RTOL (float64) or F32_SUM_TOL sqrt(n) (float32) of the
+    segment's sum of magnitudes, from the plain version over |x| and |sign|:
+    the same segments)."""
+    from risingwave_tpu_torch.ops import agg as agg_ops
+    from risingwave_tpu_torch.ops.agg import AggCall
+
+    calls = tuple(AggCall(*c) for c in F_HARD_CALLS)
+    n = signs.numel()
+    got = agg_ops._reduce_by_key_cuda(keys, signs, calls, values, nulls, fingerprints)
+    again = agg_ops._reduce_by_key_cuda(keys, signs, calls, values, nulls, fingerprints)
+    want = agg_ops._reduce_by_key_torch(keys, signs, calls, values, nulls, fingerprints)
+    mag_vals = dict(values, f=values["f"].abs(), g=values["g"].abs().double())
+    mags = reduce_outputs(torch, agg_ops._reduce_by_key_torch(keys, signs.abs(), calls, mag_vals,
+                                                               nulls, fingerprints))
+    torch.cuda.synchronize()
+    lg, la, lw = (reduce_outputs(torch, o) for o in (got, again, want))
+    check(lg.keys() == lw.keys() == la.keys(), f"F {what}: lanes")
+    worst = 0.0
+    for name, a in lg.items():
+        check(torch.equal(f_bits(torch, a), f_bits(torch, la[name])),
+              f"F {what}: {name} the same bits twice")
+        b = lw[name]
+        check(a.dtype == b.dtype and a.shape == b.shape, f"F {what}: {name} dtype, shape")
+        if name in F_FLOAT_SUMS:
+            tol = (SUM_RTOL if name == "red.sum_sf" else F32_SUM_TOL * max(n, 1) ** 0.5)
+            err = (a.double() - b.double()).abs()
+            check(bool((err <= tol * mags[name]).all()), f"F {what}: {name} within tolerance")
+            worst = max(worst, float(err.max()) if n else 0.0)
+        else:
+            check(torch.equal(f_bits(torch, a), f_bits(torch, b)), f"F {what}: {name} bit for bit")
+    return {"rows": n, "segments": int(got[1].sum()), "retracted": bool(got[4]),
+            "float_sum_max_abs_err": worst}
+
+
+def f_hard_cases(torch, dev, rng) -> dict:
+    """F's hard cases on the card: a hot key whose segment spans every
+    reduce tile (its float64 and float32 sums carried across them), every
+    row one key (NaN keys equal), every row invisible, forced fingerprint
+    collisions with visible rows on the all-ones fingerprint, and n of 0,
+    1 and one past a tile."""
+    n = F_HARD_ROWS
+    out = {}
+    k = rng.integers(0, 300, n).astype(np.int64)
+    x = rng.choice(np.array([0.0, 1.5]), n)
+    hot = rng.random(n) < 0.7
+    k[hot], x[hot] = 7, np.where(rng.random(int(hot.sum())) < 0.5, 0.0, -0.0)
+    out["hot key"] = f_hard_one(torch, dev, "hot key", *f_hard_input(torch, dev, rng, n, k, x))
+    ones = np.full(n, 5, np.int64)
+    out["one key"] = f_hard_one(torch, dev, "one key", *f_hard_input(
+        torch, dev, rng, n, ones, np.full(n, np.nan), np.ones(n, np.int32)))
+    out["invisible"] = f_hard_one(torch, dev, "every row invisible", *f_hard_input(
+        torch, dev, rng, n, signs=np.zeros(n, np.int32)))
+    keys, signs, values, nulls = f_hard_input(torch, dev, rng, n)
+    h1 = torch.from_numpy(rng.choice(np.array([3, 9, 0xFFFFFFFF]), n).astype(np.int64)).to(dev)
+    h2 = torch.from_numpy(rng.choice(np.array([1, 0xFFFFFFFF]), n).astype(np.int64)).to(dev)
+    out["collisions"] = f_hard_one(torch, dev, "forced collisions", keys, signs, values, nulls,
+                                   (h1, h2))
+    for m in (0, 1, 2049):
+        out[f"n={m}"] = f_hard_one(torch, dev, f"n={m}", *f_hard_input(torch, dev, rng, m))
+    return out
 
 
 def kernel_g(torch, dev, rng, f_out):
@@ -10001,6 +10105,46 @@ def ai_bytes(chunk, out, keys) -> int:
     return total
 
 
+AI_HARD_CAP = 2 * 2048 + 5  # rows a source shard: two tiles and a few rows of a third
+
+
+def ai_hard_chunk(torch, dev, rng, n_shards: int, cap: int, key=None, valid_share: float = 0.8):
+    """A stacked (n_shards, cap) chunk with int64, int32, float32 and bool
+    lanes (NULLs in one), a float64 lane broadcast to every shard (stride
+    0), ops, and ``valid_share`` of its rows valid; the keys random in
+    [0, 5,000) unless ``key`` is given."""
+    from risingwave_tpu_torch.array.chunk import StreamChunk
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    shape = (n_shards, cap)
+    k = rng.integers(0, 5_000, shape).astype(np.int64) if key is None else np.full(shape, key)
+    cols = {"k": t(k), "a": t(rng.integers(-(2**31), 2**31 - 1, shape).astype(np.int32)),
+            "g": t(rng.standard_normal(shape).astype(np.float32)),
+            "b": t(rng.random(shape) < 0.5),
+            "f": t(rng.standard_normal(cap)).unsqueeze(0).expand(n_shards, cap)}
+    return StreamChunk(cols, t(rng.random(shape) < valid_share), {"g": t(rng.random(shape) < 0.3)},
+                       t(rng.integers(0, 4, shape).astype(np.int32)))
+
+
+def ai_hard_cases(torch, dev, rng) -> list:
+    """(what, chunk, keys, shards, bucket_cap) of AI's hard cases: 1, 3 and
+    64 shards; one destination taking every row; a bucket exactly full;
+    chunks of no rows."""
+    from risingwave_tpu_torch.parallel import exchange as X
+
+    cases = []
+    for n in (1, 3, 64):
+        st = ai_hard_chunk(torch, dev, rng, n, AI_HARD_CAP)
+        cases.append((f"{n} shards", st, (st.col("k"),), n, X.default_bucket_cap(AI_HARD_CAP, n)))
+    st = ai_hard_chunk(torch, dev, rng, 8, AI_HARD_CAP, key=4242)
+    cases.append(("one destination takes every row", st, (st.col("k"),), 8, AI_HARD_CAP))
+    st = ai_hard_chunk(torch, dev, rng, 4, AI_HARD_CAP, key=99, valid_share=1.0)
+    cases.append(("a bucket exactly full", st, (st.col("k"),), 4, AI_HARD_CAP))
+    st = ai_hard_chunk(torch, dev, rng, 4, 0)
+    cases.append(("cap 0", st, (st.col("k"),), 4, X.default_bucket_cap(0, 4)))
+    return cases
+
+
 def kernel_ai(torch, dev, chunks):
     """AI against its plain version on the card, bit for bit (every
     received lane, valid, counts, flags): q5's hopped chunks stacked 4
@@ -10009,7 +10153,7 @@ def kernel_ai(torch, dev, chunks):
     int64, int32, float64 (-0.0, NaNs), float32 and bool keys and a
     nullable int64 key as the agg builds it; a chunk whose rows all go
     to one shard, past a bucket of AI_SKEW_BUCKET (flags set, the sink
-    writes nothing). Times the two q5 shapes; the library point is
+    writes nothing); ``ai_hard_cases``. Times the two q5 shapes; the library point is
     ``torch.sort(stable=True)`` of the destination lane."""
     from risingwave_tpu_torch.array.chunk import StreamChunk, stack_chunks
     from risingwave_tpu_torch.executors.hop_window import hop_step_fn
@@ -10077,6 +10221,7 @@ def kernel_ai(torch, dev, chunks):
         {"k": np.full(n, 777, np.int64), "v": np.arange(n, dtype=np.int64)}, n, device=dev)
         for _ in range(4)])
     cases.append(("skewed past the bucket", skew, (skew.col("k"),), 4, AI_SKEW_BUCKET))
+    cases += ai_hard_cases(torch, dev, np.random.default_rng(SEED + 39))
     shapes = {}
     for what, st, keys, n_sh, bc in cases:
         rec, flag, counts = compare(st, keys, n_sh, bc, what)
@@ -10085,6 +10230,9 @@ def kernel_ai(torch, dev, chunks):
             check(bool(flag.all()), "AI skewed: every source's flag set")
             check(int(rec.valid[d].sum()) == n_sh * bc and int(rec.valid.sum()) == n_sh * bc,
                   "AI skewed: the destination's buckets full, nothing past them")
+        if what == "a bucket exactly full":
+            check(not bool(flag.any()) and int(counts.max()) == bc,
+                  "AI: a bucket exactly full sets no flag")
         shapes[what] = {"shards": n_sh, "rows": list(st.valid.shape), "bucket_cap": bc,
                         "routed": int(counts.sum()), "received": int(rec.valid.sum())}
     timed = {}

@@ -115,8 +115,7 @@ SIGNATURES = {
         "rw_hop_expand": [_P, _I, _L, _L, _I, _L, _L, _P, _P, _P, _P, _P, _P, _P],
     },
     "reduce_by_key": {
-        "rw_reduce_by_key": [_P, _I, _L, _P, _P, _P, _P, _I, _P, _P]
-        + [_P] * 13 + [_P],
+        "rw_reduce_by_key": [_P, _I, _L, _P, _P, _P, _P, _I, _P, _P, _P, _L, _P],
     },
     "apply_reduced": {
         "rw_apply_reduced": [_P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -229,7 +228,7 @@ SIGNATURES = {
         "rw_vnode_dispatch": [_P, _I, _L, _P, _I, _P, _P],
     },
     "exchange": {
-        "rw_exchange": [_P, _I, _P, _I, _I, _L, _L, _P, _L, _P, _P, _P, _P, _P, _P],
+        "rw_exchange": [_P, _I, _P, _I, _I, _L, _L, _P, _L, _P, _P, _P, _P, _P, _L, _P],
     },
 }
 
@@ -250,10 +249,11 @@ CHECKPOINT_LANES = 32
 TILE_LANES = 32
 
 # keys per block of the radix pass (RBK_TILE in csrc/radix.cuh), which
-# sizes the scratch of reduce_by_key and of kernel X
+# sizes the scratch of kernels X, AC's emit and AD
 RBK_TILE = 2048
 # keys per tile of the single-sweep radix pass (csrc/onesweep.cuh
-# OS_TILE), which sizes the look-back words of kernel AE's and W's sorts
+# OS_TILE), which sizes the look-back words of kernel AE's, W's and F's
+# sorts (and F's reduce tiles)
 OS_TILE = 2048
 # elements per block of the device-wide scan (csrc/scan.cuh SCAN_TILE)
 SCAN_TILE = 2048
@@ -443,6 +443,14 @@ def dtype_code(t: torch.Tensor) -> int:
     if code is None:
         raise TypeError(f"kernel lanes do not take dtype {t.dtype}")
     return code
+
+
+def check_device(name: str, *tensors) -> None:
+    """Every tensor on one CUDA device (any shape and strides); raise
+    otherwise."""
+    dev = tensors[0].get_device()  # -1 on the CPU
+    if dev < 0 or any(t.get_device() != dev for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
 
 
 def check_cuda(name: str, *tensors, n=None) -> None:

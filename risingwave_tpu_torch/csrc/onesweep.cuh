@@ -1,8 +1,9 @@
 // A stable LSD radix sort of 64-bit keys with an int32 payload, one
 // launch per 8-bit pass (a single sweep): kernel AE's order
-// (csrc/window.cuh) and kernel W's candidates (csrc/topn_rank.cu).
-// radix.cuh's three-launch pass stays with its users (F, X, AC's emit,
-// AD).
+// (csrc/window.cuh), kernel W's candidates (csrc/topn_rank.cu) and
+// kernel F's fingerprints (csrc/reduce_by_key.cu, its own histogram
+// launch and these passes). radix.cuh's three-launch pass stays with its
+// users (X, AC's emit, AD).
 //
 // Before the passes, one launch counts every sorted byte's digits over
 // all keys (a histogram is the same in any order of the keys; each block

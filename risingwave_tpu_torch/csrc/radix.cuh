@@ -1,6 +1,6 @@
 // The stable LSD radix pass of 64-bit keys with an int32 payload, shared
-// by kernel F (csrc/reduce_by_key.cu) and kernels W and X
-// (csrc/topn_rank.cu).
+// by kernel X (csrc/topn_rank.cu), AC's emit (csrc/arena.cu) and AD
+// (csrc/over_step.cu).
 //
 // One pass sorts (key, payload) pairs by the 8-bit digit (key >> shift)
 // & 0xFF in three launches: per-tile digit counts; per digit, an

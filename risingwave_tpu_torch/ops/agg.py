@@ -542,6 +542,18 @@ def _reduced_lane_specs(calls, values, nulls):
     return specs
 
 
+def reduce_scratch_bytes(n: int, n_lanes: int) -> int:
+    """Bytes of kernel F's scratch for ``n`` rows and ``n_lanes`` reduced
+    lanes, laid out by ``rw_reduce_by_key`` (each region 256-aligned): the
+    sort's two (key, row) buffers; the digit counts, eight passes' look-back
+    words and counters, and the reduce tiles' flags and counter (zeroed);
+    then the reduce tiles' records."""
+    a = lambda b: -(-b // 256) * 256
+    tiles = -(-n // _kernels.OS_TILE)  # the sort's tiles and the reduce's
+    return (2 * a(8 * n) + 2 * a(4 * n) + a(4 * 8 * 256) + a(4 * 8 * (tiles * 256 + 1))
+            + a(4 * (tiles + 1)) + 3 * a(4 * tiles) + 3 * a(8 * tiles * n_lanes))
+
+
 def _reduce_by_key_cuda(key_lanes, signs, calls, values, nulls, fingerprints=None):
     n = signs.shape[0]
     dev = signs.device
@@ -567,23 +579,13 @@ def _reduce_by_key_cuda(key_lanes, signs, calls, values, nulls, fingerprints=Non
             0 if nul is None else nul.data_ptr(), out.data_ptr(), sentinel,
         ))
     rep_valid = torch.empty(n, dtype=torch.bool, device=dev)
-    minmax_ret = torch.zeros((), dtype=torch.bool, device=dev)
-    tiles = -(-n // _kernels.RBK_TILE)
-    i32 = lambda m: torch.empty(max(m, 1), dtype=torch.int32, device=dev)
-    i64 = lambda m: torch.empty(max(m, 1), dtype=torch.int64, device=dev)
-    keys_a, keys_b, idx_a, idx_b = i64(n), i64(n), i32(n), i32(n)
-    # hist: per-digit, per-tile counts, then the 256 digit totals
-    hist, s_sign, seg_id, seg_start = i32(256 * tiles + 256), i32(n), i32(n), i32(n)
-    flags = torch.empty(max(n, 1), dtype=torch.uint8, device=dev)
-    tile_counts, n_seg = i32(tiles), i32(1)
-    segval, carry = i64(len(rows) * n), i64(len(rows) * tiles)
+    minmax_ret = torch.empty((), dtype=torch.bool, device=dev)  # written by the kernel
+    scratch = torch.empty(reduce_scratch_bytes(n, len(rows)), dtype=torch.uint8, device=dev)
     _kernels.call(
         "reduce_by_key", "rw_reduce_by_key",
         _kernels.int64_rows(keys, 8), len(keys), n, signs.data_ptr(), fp[0], fp[1],
         _kernels.int64_rows(rows, 20), len(rows), rep_valid.data_ptr(), minmax_ret.data_ptr(),
-        keys_a.data_ptr(), keys_b.data_ptr(), idx_a.data_ptr(), idx_b.data_ptr(), hist.data_ptr(),
-        s_sign.data_ptr(), flags.data_ptr(), tile_counts.data_ptr(), n_seg.data_ptr(),
-        seg_id.data_ptr(), seg_start.data_ptr(), segval.data_ptr(), carry.data_ptr(),
+        scratch.data_ptr(), scratch.numel(),
     )
     w = outs.pop("w")
     return sorted_keys, rep_valid, w, outs, minmax_ret

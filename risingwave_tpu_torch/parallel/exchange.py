@@ -14,13 +14,14 @@ packs its rows into per-destination buckets of static capacity and one
 one device (``sharded_agg.Mesh``), so the exchange takes the whole
 stacked chunk ``(n, cap)`` at once and writes each row straight to where
 the all_to_all lands it: ``out[d][s * bucket_cap + pos]``. On the card
-that is kernel AI (``csrc/exchange.cu``, ``rw_exchange``): the key lanes
-hashed with AH's chain, a stable per-destination position by block
-counts and a scan (no atomics decide a position, so the slots equal the
-reference's cumsum order), every lane scattered in one launch, the
-``(n, n)`` routing counts and the per-source overflow flag from the same
-launch. On the CPU it is the plain version below, the reference's
-algorithm.
+that is kernel AI (``csrc/exchange.cu``, ``rw_exchange``), one launch:
+the key lanes hashed with AH's chain, each row ranked among its tile's
+rows of its destination by warp matching and placed after the same
+source's earlier tiles by a decoupled look-back (so the slots equal the
+reference's cumsum order), every lane written in runs per destination
+into one buffer zeroed by one memset, the ``(n, n)`` routing counts and
+the per-source overflow flag. On the CPU it is the plain version below,
+the reference's algorithm.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ EXCHANGE_MESH_CONTRACT = {
 MAX_SHARDS = 64
 MAX_LANES = 64
 MAX_KEYS = 8
-# rows per block of AI's count and scatter passes (csrc/exchange.cu EX_TILE)
+# rows per tile of kernel AI (csrc/exchange.cu EX_TILE)
 EX_TILE = 2048
 
 
@@ -193,9 +194,33 @@ def _stacked_lane(name: str, a: torch.Tensor, n_shards: int, cap: int):
     return a, (a.stride(0) if n_shards > 1 else 0)
 
 
+def exchange_scratch_words(n_shards: int, cap: int) -> int:
+    """int32 words of AI's scratch: a look-back word per (source, tile,
+    destination) and the tile counter (``csrc/exchange.cu``)."""
+    return n_shards * max(1, -(-cap // EX_TILE)) * n_shards + 1
+
+
+def exchange_buffer_layout(esizes, n_shards: int, width: int, cap: int):
+    """Byte offsets of AI's one output buffer, each region 16-aligned: a
+    ``(n_shards, width)`` region per lane of element size ``esizes[i]``,
+    then valid and the scratch words; returns ``(lane offsets, valid,
+    scratch, total bytes)``. One memset zeroes it all. The counts and the
+    flags, which the kernel writes whole, sit in a small buffer of their
+    own, so a caller keeping them does not keep the lanes alive."""
+    up = lambda b: -(-b // 16) * 16
+    slots = n_shards * width
+    offs, at = [], 0
+    for es in esizes:
+        offs.append(at)
+        at += up(slots * es)
+    s_at = at + up(slots)
+    return offs, at, s_at, s_at + 4 * exchange_scratch_words(n_shards, cap)
+
+
 def _exchange_cuda(lanes, valid, key_lanes, n_shards: int, bucket_cap: int):
-    """Kernel AI: one ``rw_exchange`` launch routes, scatters every lane
-    and writes the counts and the flags (``csrc/exchange.cu``)."""
+    """Kernel AI: one memset of one buffer that every output lane views,
+    then one ``rw_exchange`` launch routes, places and writes every lane,
+    the counts and the flags (``csrc/exchange.cu``)."""
     if not 1 <= n_shards <= MAX_SHARDS:
         raise ValueError(f"exchange: 1 to {MAX_SHARDS} shards, got {n_shards}")
     if len(lanes) > MAX_LANES:
@@ -206,37 +231,42 @@ def _exchange_cuda(lanes, valid, key_lanes, n_shards: int, bucket_cap: int):
         raise TypeError("exchange: valid must be a bool lane")
     cap = valid.shape[1]
     width = n_shards * bucket_cap
-    dev = valid.device
-    keep_alive = []  # every lane whose pointer is passed outlives the launch (_kernels.call)
+    # every lane read by pointer (valid, keys, sources) is checked and
+    # outlives the launch (_kernels.call)
+    _kernels.check_device("exchange", valid, *key_lanes, *lanes.values())
     valid_l, valid_stride = _stacked_lane("valid", valid, n_shards, cap)
-    keep_alive.append(valid_l)
+    keep_alive = [valid_l]
     key_rows = []
     for i, k in enumerate(key_lanes):
         k, stride = _stacked_lane(f"key {i}", k, n_shards, cap)
         keep_alive.append(k)
         key_rows.append((k.data_ptr(), _kernels.dtype_code(k), stride))
-    out, lane_rows = {}, []
+    srcs = []
     for name, a in lanes.items():
         a, stride = _stacked_lane(name, a, n_shards, cap)
-        keep_alive.append(a)
         if a.element_size() not in (1, 4, 8):
             raise TypeError(f"exchange: lane {name!r} of dtype {a.dtype}")
-        o = torch.empty((n_shards, width), dtype=a.dtype, device=dev)
+        keep_alive.append(a)
+        srcs.append((name, a, stride))
+    offs, v_at, s_at, total = exchange_buffer_layout(
+        [a.element_size() for _, a, _ in srcs], n_shards, width, cap)
+    buf = torch.empty(total, dtype=torch.uint8, device=valid.device)
+    view = lambda at, n, dtype: buf[at:at + n * dtype.itemsize].view(dtype)
+    # counts, then the flags
+    small = torch.empty(4 * n_shards * n_shards + n_shards, dtype=torch.uint8, device=valid.device)
+    out, lane_rows = {}, []
+    for (name, a, stride), at in zip(srcs, offs):
+        o = view(at, n_shards * width, a.dtype).view(n_shards, width)
         out[name] = o
         lane_rows.append((a.data_ptr(), o.data_ptr(), a.element_size(), stride))
-    # every lane read by pointer (valid, keys, sources) and every output
-    _kernels.check_cuda("exchange", *(t[:1, :1] for t in keep_alive),
-                        *(o[:1] for o in out.values()))
-    vbuf = torch.empty((n_shards, width), dtype=torch.bool, device=dev)
-    counts = torch.empty((n_shards, n_shards), dtype=torch.int32, device=dev)
-    overflow = torch.empty(n_shards, dtype=torch.bool, device=dev)
-    tiles = max(1, -(-cap // EX_TILE))
-    dest = torch.empty(max(1, n_shards * cap), dtype=torch.int32, device=dev)
-    part = torch.empty(n_shards * tiles * n_shards, dtype=torch.int32, device=dev)
+    vbuf = view(v_at, n_shards * width, torch.bool).view(n_shards, width)
+    counts = small[:4 * n_shards * n_shards].view(torch.int32).view(n_shards, n_shards)
+    overflow = small[4 * n_shards * n_shards:].view(torch.bool)
+    base = buf.data_ptr()
     _kernels.call(
         "exchange", "rw_exchange", _kernels.int64_rows(key_rows, MAX_KEYS), len(key_rows),
         _kernels.int64_rows(lane_rows, MAX_LANES), len(lane_rows), n_shards, cap, bucket_cap,
-        valid_l.data_ptr(), valid_stride, vbuf.data_ptr(), counts.data_ptr(),
-        overflow.data_ptr(), dest.data_ptr(), part.data_ptr(),
+        valid_l.data_ptr(), valid_stride, base + v_at, counts.data_ptr(), overflow.data_ptr(),
+        base + s_at, base, total,
     )
     return out, vbuf, overflow, counts

@@ -45,12 +45,13 @@ def _values(rng, dtype: str, n: int) -> np.ndarray:
     return rng.random(n) < 0.5
 
 
-def _shard_inputs(rng, n_shards, key_dtype, nullable=False, skew=False):
+def _shard_inputs(rng, n_shards, key_dtype, nullable=False, skew=False, cap=CAP, full=False):
     """Per source shard: columns (a key, an int32 and a float64 payload),
-    a valid prefix, NULL lanes of the payload (and the key)."""
+    a valid prefix (every row with ``full``), NULL lanes of the payload
+    (and the key)."""
     out = []
     for s in range(n_shards):
-        rows = int(rng.integers(CAP // 2, CAP + 1))
+        rows = cap if full else int(rng.integers(cap // 2, cap + 1))
         key = _values(rng, key_dtype, rows)
         if skew:
             key = np.full(rows, key[0])
@@ -64,9 +65,9 @@ def _shard_inputs(rng, n_shards, key_dtype, nullable=False, skew=False):
     return out
 
 
-def _reference(inputs, n_shards, bucket_cap, nullable):
+def _reference(inputs, n_shards, bucket_cap, nullable, cap=CAP):
     mesh = ref_make_mesh(n_shards)
-    chunks = [RefChunk.from_numpy(c, CAP, ops=o, nulls=nl) for c, nl, o in inputs]
+    chunks = [RefChunk.from_numpy(c, cap, ops=o, nulls=nl) for c, nl, o in inputs]
     stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *chunks)
 
     def local(ch):
@@ -84,8 +85,8 @@ def _reference(inputs, n_shards, bucket_cap, nullable):
     return fn(stacked)
 
 
-def _port(inputs, n_shards, bucket_cap, nullable):
-    chunks = [StreamChunk.from_numpy(c, CAP, ops=o, nulls=nl, device="cpu")
+def _port(inputs, n_shards, bucket_cap, nullable, cap=CAP):
+    chunks = [StreamChunk.from_numpy(c, cap, ops=o, nulls=nl, device="cpu")
               for c, nl, o in inputs]
     st = stack_chunks(chunks)
     keys = _stacked_key_lanes(st, ("k",), (nullable,))
@@ -145,6 +146,67 @@ def test_exchange_overflow_matches_reference():
     dest = int(exchange.dest_shard((torch.tensor([12345]),), n)[0])
     assert int(received.valid[dest].sum()) == n * bc
     assert not received.valid[torch.arange(n) != dest].any()
+
+
+def _reference_per_source(inputs, n_shards, bucket_cap, cap):
+    """The reference's algorithm without a mesh, for more shards than the
+    virtual devices: ``dest_shard`` and ``pack_buckets`` per source shard,
+    then the all_to_all as a transpose of the (source, destination) axes."""
+    per = []
+    for cols, nulls, ops in inputs:
+        ch = RefChunk.from_numpy(cols, cap, ops=ops, nulls=nulls)
+        dest = ref_ex.dest_shard((ch.col("k"),), n_shards)
+        per.append(jax.device_get(ref_ex.pack_buckets(ref_ex.exchange_cols(ch), ch.valid, dest,
+                                                      n_shards, bucket_cap)))
+    a2a = lambda bufs: np.stack(bufs).transpose(1, 0, 2).reshape(n_shards, -1)
+    cols = {nm: a2a([p[0][nm] for p in per]) for nm in per[0][0]}
+    received = RefChunk({nm: a for nm, a in cols.items()
+                         if nm != "__ops__" and not nm.startswith("__null__")},
+                        a2a([p[1] for p in per]),
+                        {nm[len("__null__"):]: a for nm, a in cols.items()
+                         if nm.startswith("__null__")}, cols["__ops__"])
+    return received, np.stack([p[2] for p in per]), np.stack([p[3] for p in per])
+
+
+# AI's hard cases (chip_smoke.py's phase 3 holds kernel AI against the
+# plain version on the card on the same kinds): (shards, rows a source,
+# bucket_cap or None for the default, one key for every row, every row valid)
+HARD_CASES = {
+    "one_shard": (1, CAP, None, None, False),
+    "three_shards": (3, CAP, None, None, False),
+    "sixty_four_shards": (64, CAP, None, None, False),
+    "one_destination_takes_every_row": (8, CAP, CAP, 4242, False),
+    "a_bucket_exactly_full": (4, CAP, CAP, 99, True),
+    "cap_0": (4, 0, None, None, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HARD_CASES))
+def test_exchange_hard_cases_match_reference(case):
+    n, cap, bc, key, full = HARD_CASES[case]
+    rng = np.random.default_rng(len(case))
+    inputs = _shard_inputs(rng, n, "int64", cap=cap, full=full)
+    if key is not None:
+        for cols, _, _ in inputs:
+            cols["k"][:] = key
+    bc = exchange.default_bucket_cap(cap, n) if bc is None else bc
+    port = _port(inputs, n, bc, False, cap=cap)
+    if n <= len(jax.devices()) and cap > 0:
+        ref = _reference(inputs, n, bc, False, cap=cap)
+    else:  # more shards than devices, or a zero-row chunk XLA's shard_map refuses
+        ref = _reference_per_source(inputs, n, bc, cap)
+    _assert_same(ref, port)
+    received, overflow, counts = port
+    assert int(received.valid.sum()) == int(counts.clamp(max=bc).sum())
+    if key is not None:
+        dest = int(exchange.dest_shard((torch.tensor([key]),), n)[0])
+        assert int(counts[:, dest].sum()) == int(counts.sum()) > 0
+        assert not overflow.any()
+    if full:
+        assert int(counts.max()) == bc
+    if cap == 0:
+        assert int(counts.sum()) == 0 and not received.valid.any()
+        assert all(not a.any() for a in received.columns.values())
 
 
 def test_exchange_reads_a_broadcast_lane():

@@ -7,7 +7,9 @@ The port runs its plain PyTorch versions. Tolerance: every integer lane,
 fingerprint order and flag is exact (both sorts are stable, so the
 permutation is the reference's); a float64 SUM lane agrees to a
 relative 1e-12, because XLA and torch add a segment's rows in another
-order.
+order; a float32 SUM lane (the hard cases) to 4 sqrt(n) 2^-24 of the
+segment's sum of magnitudes, the size of n float32 roundings in either
+order (``chip_smoke.py``'s rule for kernels Y and F).
 """
 
 import jax
@@ -375,3 +377,112 @@ def test_fingerprint_collision_keys_not_merged(monkeypatch):
     for k, v in zip(reps, w[rep_valid].tolist()):
         got[k] = got.get(k, 0) + v
     assert got == {3: 2, 5: 3}
+
+
+# -- F's hard cases: the plain version against the reference on the shapes
+# chip_smoke.py's phase 3 holds kernel F to (a hot key across many
+# 2048-row tiles of F's reduce, one key, no visible row, forced fingerprint
+# collisions, n of 0, 1 and one past a tile)
+HARD_ROWS = 5 * 2048 + 17
+HARD_CALLS = CALLS + (("sum", "g", "sg"),)
+
+
+def _hard_rows(rng, n, k=None, f=None, signs=None):
+    keys = (rng.integers(0, 300, n).astype(np.int64) if k is None else k,
+            rng.choice(np.array([0.0, -0.0, 1.5, np.nan]), n) if f is None else f)
+    if signs is None:
+        signs, values, nulls = _rows(rng, n)
+    else:
+        _, values, nulls = _rows(rng, n)
+    values["f"] = np.abs(values["f"]) + 1.0  # no NaN: every float sum compares
+    return keys, signs, values, nulls
+
+
+def _hard_case(case, rng):
+    n = HARD_ROWS
+    if case == "hot_key_across_tiles":
+        k = rng.integers(0, 300, n).astype(np.int64)
+        f = rng.choice(np.array([0.0, 1.5]), n)
+        hot = rng.random(n) < 0.7
+        k[hot] = 7
+        f[hot] = np.where(rng.random(int(hot.sum())) < 0.5, 0.0, -0.0)
+        return _hard_rows(rng, n, k, f)
+    if case == "one_key":
+        return _hard_rows(rng, n, np.full(n, 5, np.int64), np.full(n, np.nan),
+                          np.ones(n, np.int32))
+    if case == "every_row_invisible":
+        return _hard_rows(rng, n, signs=np.zeros(n, np.int32))
+    return _hard_rows(rng, {"n_1": 1, "n_2049": 2049, "collisions": n}[case])
+
+
+def _colliding(xp):
+    """A hash128 whose fingerprints collide across keys, some visible rows
+    on the all-ones pair (they sort among the invisible rows)."""
+    def fingerprints(key_lanes):
+        k = key_lanes[0]
+        h1 = xp.where(k % 3 == 0, 3, xp.where(k % 3 == 1, 9, 0xFFFFFFFF))
+        h2 = xp.where(k % 2 == 0, 1, 0xFFFFFFFF)
+        if xp is jnp:
+            return h1.astype(jnp.uint32), h2.astype(jnp.uint32)
+        return h1.to(torch.int64), h2.to(torch.int64)
+    return fingerprints
+
+
+@pytest.mark.parametrize("case", ["hot_key_across_tiles", "one_key", "every_row_invisible",
+                                  "collisions", "n_1", "n_2049"])
+def test_reduce_by_key_hard_cases_match_reference(case, monkeypatch):
+    from risingwave_tpu.ops import hashing as ref_hashing
+    from risingwave_tpu_torch.ops import hashing as port_hashing
+
+    rng = np.random.default_rng(len(case))
+    keys, signs, values, nulls = _hard_case(case, rng)
+    if case == "collisions":
+        monkeypatch.setattr(ref_hashing, "hash128", _colliding(jnp))
+        monkeypatch.setattr(port_hashing, "hash128", _colliding(torch))
+    rcalls, pcalls = _calls(HARD_CALLS)
+    fx = dict(port.float_extreme_meta(pcalls, PORT_DTYPES))
+    n = len(signs)
+    r_keys, r_rep, r_w, r_red, r_mret = _ref_reduce(keys, signs, rcalls, values, nulls)
+    p_out = _port_reduce(keys, signs, pcalls, values, nulls)
+    again = _port_reduce(keys, signs, pcalls, values, nulls)
+    p_keys, p_rep, p_w, p_red, p_mret = p_out
+    for a, b in zip(p_keys + (p_rep, p_w, p_mret) + tuple(p_red.values()),
+                    again[0] + (again[1], again[2], again[4]) + tuple(again[3].values())):
+        assert a.numpy().tobytes() == b.numpy().tobytes()  # the same bits twice
+    for pk, rk in zip(p_keys, r_keys):
+        assert pk.numpy().tobytes() == np.asarray(rk).tobytes()
+    np.testing.assert_array_equal(p_rep.numpy(), np.asarray(r_rep))
+    np.testing.assert_array_equal(p_w.numpy(), np.asarray(r_w))
+    assert bool(p_mret) == bool(r_mret)
+    mags = _port_reduce(keys, np.abs(signs), pcalls,
+                        dict(values, f=np.abs(values["f"]), g=np.abs(values["g"]).astype(np.float64)),
+                        nulls)[3]
+    assert p_red.keys() == r_red.keys()
+    for name, lane in p_red.items():
+        a, b = lane.numpy(), np.asarray(r_red[name])
+        out = name.split("_", 1)[1]
+        if name.startswith("ext_") and out in fx:
+            a = port.order_key_to_reference(a, np.dtype(str(fx[out]).split(".")[1]))
+        if name == "sum_sg":
+            tol = 4 * n ** 0.5 * 2.0**-24 * mags[name].numpy()
+            assert (np.abs(a.astype(np.float64) - b.astype(np.float64)) <= tol).all(), name
+        else:
+            _assert_lane(name, a, b)
+    if case == "one_key":
+        assert int(p_rep.sum()) == 1
+    if case == "every_row_invisible":
+        assert not p_rep.any() and not bool(p_mret)
+    if case == "hot_key_across_tiles":  # one segment over more than two tiles
+        assert int(((keys[0] == 7) & (signs != 0)).sum()) > 2 * 2048
+        assert int(p_rep[(p_keys[0] == 7) & (p_keys[1] == 0)].sum()) == 1
+
+
+def test_reduce_by_key_of_no_rows():
+    """n = 0 (the reference's boundary concat needs a row): empty lanes of
+    the right dtypes, no representative, the latch clear."""
+    _, pcalls = _calls(HARD_CALLS)
+    keys, signs, values, nulls = _hard_rows(np.random.default_rng(0), 0)
+    p_keys, p_rep, p_w, p_red, p_mret = _port_reduce(keys, signs, pcalls, values, nulls)
+    assert [k.dtype for k in p_keys] == [torch.int64, torch.float64]
+    assert p_rep.shape == p_w.shape == (0,) and not bool(p_mret)
+    assert all(v.shape == (0,) for v in p_red.values())

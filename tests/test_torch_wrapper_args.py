@@ -1,4 +1,4 @@
-"""The CUDA wrappers of kernels A, H, J, L, M, N, O, P, Q, S, T, U, V, W, X,
+"""The CUDA wrappers of kernels A, F, H, J, L, M, N, O, P, Q, S, T, U, V, W, X,
 Y, Z, AA-AF, AG, AH and AI marshal their arguments as their C entry points
 declare them (``_kernels.SIGNATURES``), checked on the CPU: each
 wrapper runs on CPU tensors while ``_kernels.call`` is replaced by a
@@ -41,6 +41,7 @@ def calls(monkeypatch):
 
     monkeypatch.setattr(_kernels, "call", call)
     monkeypatch.setattr(_kernels, "check_cuda", check_cpu)
+    monkeypatch.setattr(_kernels, "check_device", lambda name, *tensors: None)
     _kernels.reset_launches()
     return log
 
@@ -847,19 +848,114 @@ def test_ai_entry_marshals(calls):
 
 
 def test_ai_checks_every_lane(calls, monkeypatch):
-    """AI's wrapper hands ``check_cuda`` every lane it passes by pointer
-    (valid, each key, each source lane) and every output, so a chunk
-    that mixes devices raises before the launch."""
+    """AI's wrapper hands ``check_device`` every lane it passes by pointer
+    (valid, each key, each source lane), so a chunk that mixes devices
+    raises before the launch; the outputs are views of the one buffer it
+    allocates there."""
     from risingwave_tpu_torch.parallel import exchange
 
     seen = []
-    monkeypatch.setattr(_kernels, "check_cuda", lambda name, *ts, n=None: seen.extend(ts))
+    monkeypatch.setattr(_kernels, "check_device", lambda name, *ts: seen.extend(ts))
     n, cap = 2, 8
     key = torch.arange(n * cap, dtype=torch.int64).reshape(n, cap)
     lanes = {"k": key, "v": torch.ones((n, cap), dtype=torch.int32)}
     valid = torch.ones((n, cap), dtype=torch.bool)
-    got, _, _, _ = exchange._exchange_cuda(lanes, valid, (key, lanes["v"]), n, 8)
-    assert len(seen) == 1 + 2 + len(lanes) + len(got)
+    got, vbuf, overflow, counts = exchange._exchange_cuda(lanes, valid, (key, lanes["v"]), n, 8)
+    assert len(seen) == 1 + 2 + len(lanes)
     ptrs = {t.data_ptr() for t in seen}
-    for t in (valid, key, lanes["v"], *got.values()):
+    for t in (valid, key, lanes["v"]):
         assert t.data_ptr() in ptrs
+    base = vbuf.untyped_storage().data_ptr()
+    assert all(o.untyped_storage().data_ptr() == base for o in got.values())
+    # the counts and flags, which callers keep, hold no lane alive
+    assert counts.untyped_storage().data_ptr() == overflow.untyped_storage().data_ptr() != base
+    assert counts.untyped_storage().nbytes() == 4 * n * n + n
+    with pytest.raises(ValueError, match="one CUDA device"):
+        monkeypatch.undo()
+        exchange._exchange_cuda(lanes, valid, (key,), n, 8)
+
+
+def _recorded(monkeypatch):
+    """Record each launch's arguments on top of the ``calls`` fixture."""
+    args = []
+    inner = _kernels.call
+
+    def call(name, fn, *a):
+        args.append(a)
+        inner(name, fn, *a)
+
+    monkeypatch.setattr(_kernels, "call", call)
+    return args
+
+
+@pytest.mark.parametrize("n", [0, 1, 2049])
+def test_f_entry_marshals(calls, monkeypatch, n):
+    """Kernel F: the key rows, the lane rows (w first), rep_valid, the
+    latch and one scratch buffer of ``reduce_scratch_bytes`` bytes with its
+    size beside it; the stream last (the fixture's callback has the
+    signature's every argument)."""
+    from risingwave_tpu_torch.ops import agg
+
+    args = _recorded(monkeypatch)
+    keys = (torch.arange(n, dtype=torch.int64), torch.zeros(n, dtype=torch.float64))
+    signs = torch.ones(n, dtype=torch.int32)
+    calls_ = (agg.AggCall("count_star", None, "c"), agg.AggCall("sum", "v", "s"),
+              agg.AggCall("max", "f", "m"))
+    values = {"v": torch.arange(n, dtype=torch.int32), "f": torch.zeros(n, dtype=torch.float32)}
+    sk, rep, w, red, mret = agg._reduce_by_key_cuda(keys, signs, calls_, values, {})
+    assert [k.dtype for k in sk] == [torch.int64, torch.float64] and sk[0].shape == (n,)
+    assert rep.dtype == torch.bool and w.dtype == torch.int64 and mret.shape == ()
+    assert sorted(red) == ["ext_m", "nn_s", "nnp_m", "sum_s"]
+    (a,) = args
+    n_lanes = a[7]
+    assert n_lanes == 1 + len(red)
+    assert a[-1] == agg.reduce_scratch_bytes(n, n_lanes)
+    assert calls == [("reduce_by_key", "rw_reduce_by_key")]
+    assert _kernels.LAUNCHES["reduce_by_key"] == 1
+
+
+def test_f_scratch_holds_every_region():
+    """``reduce_scratch_bytes`` counts what ``rw_reduce_by_key`` carves:
+    two (key, row) sort buffers, 8 x 256 digit counts, eight passes'
+    look-back words and counters, and per reduce tile a flag, three int32
+    records and three int64 records a lane, each region 256-aligned."""
+    from risingwave_tpu_torch.ops import agg
+
+    for n in (0, 1, 2048, 2049, 5 * 2048 + 3):
+        tiles = -(-n // 2048)
+        least = 24 * n + 4 * 8 * 256 + 4 * 8 * (256 * tiles + 1) + 4 * (tiles + 1) + 12 * tiles
+        for lanes in (1, 20):
+            got = agg.reduce_scratch_bytes(n, lanes)
+            assert least + 24 * tiles * lanes <= got <= least + 24 * tiles * lanes + 13 * 256
+
+
+def test_ai_entry_passes_one_buffer(calls, monkeypatch):
+    """Kernel AI: the output lanes, valid and the scratch are 16-aligned,
+    disjoint regions of one buffer whose size is passed for the one
+    memset; the scratch holds a word per (source, tile, destination) and
+    the counter; the counts and flags are views of a small buffer of
+    their own."""
+    from risingwave_tpu_torch.parallel import exchange
+
+    args = _recorded(monkeypatch)
+    n, cap, bc = 3, 2 * 2048 + 5, 7
+    lanes = {"a": torch.zeros((n, cap), dtype=torch.int64),
+             "b": torch.zeros((n, cap), dtype=torch.bool),
+             "c": torch.zeros((n, cap), dtype=torch.float32)}
+    valid = torch.ones((n, cap), dtype=torch.bool)
+    got, vbuf, overflow, counts = exchange._exchange_cuda(lanes, valid, (lanes["a"],), n, bc)
+    (a,) = args
+    base, total = a[-2], a[-1]
+    offs, v_at, s_at, size = exchange.exchange_buffer_layout([8, 1, 4], n, n * bc, cap)
+    assert total == size == s_at + 4 * exchange.exchange_scratch_words(n, cap)
+    assert exchange.exchange_scratch_words(n, cap) == n * 3 * n + 1
+    assert (a[9], a[10], a[11], a[12]) == (base + v_at, counts.data_ptr(), overflow.data_ptr(),
+                                           base + s_at)
+    assert overflow.data_ptr() == counts.data_ptr() + 4 * n * n
+    regions = [(at, at + n * n * bc * es) for at, es in zip(offs, (8, 1, 4))]
+    regions += [(v_at, v_at + n * n * bc), (s_at, total)]
+    assert all(lo % 16 == 0 for lo, _ in regions)
+    assert all(hi <= lo2 for (_, hi), (lo2, _) in zip(regions, regions[1:]))
+    assert [o.data_ptr() - base for o in got.values()] == offs
+    assert vbuf.data_ptr() - base == v_at
+    assert counts.shape == (n, n) and overflow.shape == (n,) and vbuf.shape == (n, n * bc)
